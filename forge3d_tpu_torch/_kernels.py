@@ -1,0 +1,182 @@
+# forge3d_tpu_torch/_kernels.py
+# Build and load the port's hand-written CUDA kernels (csrc/).
+#
+# The sources are compiled by nvcc into one shared library with a plain C
+# interface and loaded with ctypes: no PyTorch headers, so a build takes
+# seconds. The library is built at first use, keyed by a hash of the sources
+# and flags, into build/forge3d_tpu_torch/ beside the package (listed in
+# .gitignore). Importing this module needs neither nvcc nor a GPU.
+#
+# Flags: sm_90a (Hopper); -fmad=false because nvcc otherwise contracts
+# a*b+c into FMA, which moves the leaf solve and the shading sums away from
+# the plain PyTorch versions and flips silhouette hits; no --use_fast_math,
+# so sqrtf, division and the transcendental functions stay IEEE/libdevice
+# accurate.
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().with_name("csrc")
+BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "forge3d_tpu_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-fmad=false",
+    "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_U = ctypes.c_uint
+_F = ctypes.c_float
+_F3 = ctypes.c_float * 3
+
+
+class SceneArgs(ctypes.Structure):
+    """Mirror of `SceneArgs` in csrc/common.cuh."""
+
+    _fields_ = [
+        ("h_pair", _P), ("mm_pack", _P), ("level_offset", _P), ("level_w", _P),
+        ("dem_w", _I), ("cell_w", _I), ("cell_h", _I), ("mip_count", _I),
+        ("max_iters", _I),
+        ("ox", _F), ("oz", _F), ("sx", _F), ("sz", _F), ("ex", _F),
+    ]
+
+
+class ResArgs(ctypes.Structure):
+    """Mirror of `ResArgs`: the ten SoA reservoir arrays, in field order."""
+
+    _fields_ = [(name, _P) for name in (
+        "dir_x", "dir_y", "dir_z", "intensity", "light_type", "light_index",
+        "w_sum", "m", "weight", "target_pdf")]
+
+
+class FrameArgs(ctypes.Structure):
+    """Mirror of `FrameArgs`: per-render constants of the frame kernel."""
+
+    _fields_ = [
+        ("env_rgb", _P),
+        ("width", _I), ("height", _I), ("spp", _I), ("env_w", _I),
+        ("env_h", _I), ("shadows", _I), ("restir", _I),
+        ("frame_index", _U), ("seed_hi", _U), ("seed_lo", _U),
+        ("cam_o", _F3), ("right", _F3), ("up", _F3), ("fwd", _F3),
+        ("half_w", _F), ("half_h", _F),
+        ("sun", _F3), ("alb", _F3), ("alc", _F3),
+        ("lum_lc", _F), ("env_intensity", _F), ("inv_spp", _F),
+    ]
+
+
+_SIGNATURES = {
+    # (scene, rox, roy, roz, rdx, rdy, rdz, n, tmin, tmax,
+    #  hit, t, cell_x, cell_z, stream)
+    "f3d_trace": [ctypes.POINTER(SceneArgs)] + [_P] * 6 + [_I, _F, _F] + [_P] * 5,
+    # (scene, frame, accum_in, welford_in, res_in, accum_out, welford_out,
+    #  res_out, stream)
+    "f3d_frame_step": [ctypes.POINTER(SceneArgs), ctypes.POINTER(FrameArgs),
+                       _P, _P, ctypes.POINTER(ResArgs), _P, _P,
+                       ctypes.POINTER(ResArgs), _P],
+    # (res_in, res_out, gb_nx, gb_ny, gb_nz, width, height, frame_index,
+    #  seed_hi, k_neighbors, radius, stream)
+    "f3d_spatial_reuse": [ctypes.POINTER(ResArgs), ctypes.POINTER(ResArgs),
+                          _P, _P, _P, _I, _I, _U, _U, _I, _I, _P],
+    # (scene, n, cam_o, albedo, dx, dz, hit, t, cell_x, cell_z,
+    #  albedo_out, normal_out, depth_out, vis_out, gb_nx, gb_ny, gb_nz, stream)
+    "f3d_center_gbuffer": [ctypes.POINTER(SceneArgs), _I, _F3, _F3]
+                          + [_P] * 6 + [_P] * 7 + [_P],
+}
+
+
+def _nvcc() -> str:
+    for cand in (os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+                 shutil.which("nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels are built with the CUDA "
+                       "toolkit (set CUDA_HOME or put nvcc on PATH)")
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    cus, cuhs = _sources()
+    for p in cus + cuhs:
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def library_path() -> Path:
+    return BUILD_DIR / f"libforge3d_tpu_torch_{_digest()}.so"
+
+
+def build() -> Path:
+    """Compile csrc/*.cu into the shared library unless a build of these
+    exact sources exists. Writes nvcc's report (registers, spills) beside
+    the library as build.log. Raises RuntimeError if nvcc fails."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cus, _ = _sources()
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), *map(str, cus)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    (BUILD_DIR / "build.log").write_text(
+        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+    os.replace(tmp, out)  # atomic: concurrent builders never load a partial file
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    handle = ctypes.CDLL(str(build()))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(handle, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    handle.f3d_error_string.argtypes = [ctypes.c_int]
+    handle.f3d_error_string.restype = ctypes.c_char_p
+    return handle
+
+
+def check(err: int, kernel: str) -> None:
+    """Raise if a launcher reported a CUDA error (cudaGetLastError after the
+    launch): a refused launch never runs and synchronize() would not say."""
+    if err != 0:
+        msg = lib().f3d_error_string(err).decode()
+        raise RuntimeError(f"{kernel}: CUDA error {err}: {msg}")
+
+
+def ptr(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream_ptr(device) -> ctypes.c_void_p:
+    import torch
+
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def require_cuda(name: str, *tensors) -> None:
+    """The kernels take contiguous CUDA tensors on one device."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device.type != "cuda" or t.device != dev:
+            raise ValueError(f"{name}: kernel inputs must be CUDA tensors on one "
+                             f"device, got {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: kernel inputs must be contiguous")

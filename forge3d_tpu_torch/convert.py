@@ -1,0 +1,53 @@
+# forge3d_tpu_torch/convert.py
+# Carry state across from the JAX package as numpy arrays, so that a test
+# can feed both implementations identical scene tables and reservoir
+# history. Takes numpy arrays (or anything np.asarray accepts) and never
+# imports jax.
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .ops.restir import Reservoirs
+from .ops.traversal import TerrainScene, f32
+
+
+def scene_from_numpy(fields: dict, static: dict, device="cpu") -> TerrainScene:
+    """`fields`: the JAX TerrainScene fields by name (h_pair, mm_pack,
+    level_offset, level_w, origin_xz, spacing_xz, exaggeration);
+    `static`: the TerrainSceneStatic fields by name."""
+
+    def t(name, dtype):
+        return torch.as_tensor(np.array(fields[name], dtype=dtype, copy=True), device=device)
+
+    origin = np.asarray(fields["origin_xz"], np.float32)
+    spacing = np.asarray(fields["spacing_xz"], np.float32)
+    return TerrainScene(
+        h_pair=t("h_pair", np.float32),
+        mm_pack=t("mm_pack", np.float32),
+        level_offset=t("level_offset", np.int32),
+        level_w=t("level_w", np.int32),
+        origin_xz=(f32(origin[0]), f32(origin[1])),
+        spacing_xz=(f32(spacing[0]), f32(spacing[1])),
+        exaggeration=f32(np.asarray(fields["exaggeration"], np.float32)),
+        dem_w=int(static["dem_w"]), dem_h=int(static["dem_h"]),
+        cell_w=int(static["cell_w"]), cell_h=int(static["cell_h"]),
+        mip_count=int(static["mip_count"]), max_iters=int(static["max_iters"]),
+    )
+
+
+def reservoirs_from_numpy(fields: dict, device="cpu") -> Reservoirs:
+    """`fields`: the JAX Reservoirs fields by name. u32 fields become
+    int32 (their values stay far below 2**31)."""
+    out = {}
+    for name in Reservoirs.__dataclass_fields__:
+        a = np.asarray(fields[name])
+        if name in ("light_type", "light_index", "m"):
+            if a.size and int(a.max()) >= 2 ** 31:
+                raise ValueError(f"reservoir field {name} exceeds int32")
+            a = a.astype(np.int32)
+        else:
+            a = a.astype(np.float32)
+        out[name] = torch.as_tensor(np.array(a, copy=True), device=device)
+    return Reservoirs(**out)

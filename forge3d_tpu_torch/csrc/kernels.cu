@@ -1,0 +1,159 @@
+// forge3d_tpu_torch/csrc/kernels.cu
+// The four CUDA kernels of the per-ray terrain path tracer, for sm_90a,
+// with plain C launchers for ctypes (see _kernels.py). Each launcher
+// enqueues on the caller's stream, does not synchronise, allocates nothing,
+// and returns cudaGetLastError() so that a refused launch is reported.
+//
+// K5 trace_kernel        replaces forge3d_tpu/ops/traversal.py:trace (211)
+// K6 frame_kernel        replaces forge3d_tpu/pt/terrain_ref.py:_make_frame_step (174)
+// K7 spatial_kernel      replaces forge3d_tpu/ops/restir.py:spatial_reuse (107)
+// K8 gbuffer_kernel      replaces forge3d_tpu/pt/terrain_ref.py:_center_gbuffer (472)
+//
+// What bounds them on the card: the DDA in trace_ray is a chain of
+// dependent loads (node index -> mm_pack pair -> next node; leaf ->
+// two h_pair pairs), so a ray waits on memory latency, not bandwidth or
+// arithmetic; rays that take different numbers of steps or branch
+// differently (descend / leaf / advance, hit / miss) diverge within a warp.
+// The JAX version stepped all rays in lock step because a TPU has no
+// per-lane control flow; on the card each thread owns one ray or pixel and
+// loops on its own, so a finished ray costs nothing and no global
+// iteration count is needed. The pyramid and DEM pairs (~20 MB at a 1025^2
+// DEM) fit in the 50 MB L2 cache and are read through the read-only path
+// as one 8-byte load per pair. Consecutive threads take
+// consecutive pixels of a row, so neighbouring rays walk neighbouring
+// nodes. Making the kernels fast (tiling, ray sorting, persistent
+// threads) is later work.
+
+#include <cuda_runtime.h>
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+
+inline int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
+
+// K5: one thread per ray.
+__global__ void trace_kernel(SceneArgs s, const float* __restrict__ rox,
+                             const float* __restrict__ roy, const float* __restrict__ roz,
+                             const float* __restrict__ rdx, const float* __restrict__ rdy,
+                             const float* __restrict__ rdz, int n, float tmin, float tmax,
+                             unsigned char* __restrict__ hit, float* __restrict__ t,
+                             int* __restrict__ cell_x, int* __restrict__ cell_z) {
+    int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    Hit h = trace_ray(s, rox[i], roy[i], roz[i], rdx[i], rdy[i], rdz[i], tmin, tmax);
+    hit[i] = (unsigned char)h.hit;
+    t[i] = h.t;
+    cell_x[i] = h.cell_x;
+    cell_z[i] = h.cell_z;
+}
+
+// K6: one thread per pixel runs all spp samples of one frame (primary,
+// sun and env occlusion rays through trace_ray), then writes the
+// accumulator, the Welford pair and the temporally merged reservoir.
+// accum/welford may be updated in place (each thread reads its own pixel
+// before writing it); res_in and res_out are separate buffers.
+__global__ void frame_kernel(SceneArgs s, FrameArgs f, const float* accum_in,
+                             const float* welford_in, ResArgs res_in, float* accum_out,
+                             float* welford_out, ResArgs res_out) {
+    int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= f.width * f.height) return;
+    frame_pixel(s, f, i, accum_in, welford_in, res_in, accum_out, welford_out, res_out);
+}
+
+// K7: one thread per pixel; reads neighbours from res_in, writes res_out.
+__global__ void spatial_kernel(ResArgs res_in, ResArgs res_out,
+                               const float* __restrict__ gb_nx,
+                               const float* __restrict__ gb_ny,
+                               const float* __restrict__ gb_nz, int width, int height,
+                               uint32_t frame_index, uint32_t seed_hi, int k_neighbors,
+                               int radius) {
+    int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= width * height) return;
+    Res out = spatial_pixel(res_in, gb_nx, gb_ny, gb_nz, width, height, frame_index,
+                            seed_hi, k_neighbors, radius, i);
+    store_res(res_out, i, out);
+}
+
+struct Vec3 {
+    float v[3];
+};
+
+// K8: one thread per pixel turns K5's center-ray hit record into the AOVs.
+__global__ void gbuffer_kernel(SceneArgs s, int n, Vec3 cam_o, Vec3 alb,
+                               const float* __restrict__ dx, const float* __restrict__ dz,
+                               const unsigned char* __restrict__ hit,
+                               const float* __restrict__ t, const int* __restrict__ cell_x,
+                               const int* __restrict__ cell_z, float* albedo_out,
+                               float* normal_out, float* depth_out, float* vis_out,
+                               float* gb_nx, float* gb_ny, float* gb_nz) {
+    int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    gbuffer_pixel(s, cam_o.v, alb.v, i, dx[i], dz[i], hit[i], t[i], cell_x[i],
+                  cell_z[i], albedo_out, normal_out, depth_out, vis_out, gb_nx, gb_ny,
+                  gb_nz);
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* f3d_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
+
+int f3d_trace(const SceneArgs* s, const float* rox, const float* roy, const float* roz,
+              const float* rdx, const float* rdy, const float* rdz, int n, float tmin,
+              float tmax, unsigned char* hit, float* t, int* cell_x, int* cell_z,
+              void* stream) {
+    if (n > 0) {
+        trace_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+            *s, rox, roy, roz, rdx, rdy, rdz, n, tmin, tmax, hit, t, cell_x, cell_z);
+    }
+    return (int)cudaGetLastError();
+}
+
+int f3d_frame_step(const SceneArgs* s, const FrameArgs* f, const float* accum_in,
+                   const float* welford_in, const ResArgs* res_in, float* accum_out,
+                   float* welford_out, const ResArgs* res_out, void* stream) {
+    int n = f->width * f->height;
+    if (n > 0) {
+        frame_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+            *s, *f, accum_in, welford_in, *res_in, accum_out, welford_out, *res_out);
+    }
+    return (int)cudaGetLastError();
+}
+
+int f3d_spatial_reuse(const ResArgs* res_in, const ResArgs* res_out, const float* gb_nx,
+                      const float* gb_ny, const float* gb_nz, int width, int height,
+                      unsigned int frame_index, unsigned int seed_hi, int k_neighbors,
+                      int radius, void* stream) {
+    int n = width * height;
+    if (n > 0) {
+        spatial_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+            *res_in, *res_out, gb_nx, gb_ny, gb_nz, width, height, frame_index, seed_hi,
+            k_neighbors, radius);
+    }
+    return (int)cudaGetLastError();
+}
+
+int f3d_center_gbuffer(const SceneArgs* s, int n, const float* cam_o, const float* alb,
+                       const float* dx, const float* dz,
+                       const unsigned char* hit, const float* t, const int* cell_x,
+                       const int* cell_z, float* albedo_out, float* normal_out,
+                       float* depth_out, float* vis_out, float* gb_nx, float* gb_ny,
+                       float* gb_nz, void* stream) {
+    if (n > 0) {
+        Vec3 o, a;
+        for (int c = 0; c < 3; ++c) {
+            o.v[c] = cam_o[c];
+            a.v[c] = alb[c];
+        }
+        gbuffer_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+            *s, n, o, a, dx, dz, hit, t, cell_x, cell_z, albedo_out, normal_out,
+            depth_out, vis_out, gb_nx, gb_ny, gb_nz);
+    }
+    return (int)cudaGetLastError();
+}
+
+}  // extern "C"

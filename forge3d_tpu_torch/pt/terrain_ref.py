@@ -1,0 +1,681 @@
+# forge3d_tpu_torch/pt/terrain_ref.py
+# The converged path-traced terrain reference, per-ray estimator
+# (forge3d_tpu/pt/terrain_ref.py with traversal="dda"), on PyTorch.
+#
+# One render: the center-ray G-buffer (K5 trace + K8 resolve), then per
+# frame the frame kernel K6 (all spp samples of every pixel: jittered
+# primary ray, sun NEE through the ReSTIR reservoir, one cosine env ray,
+# sun and env occlusion rays, the fresh candidate reservoir merged with the
+# history, accumulation and the windowed Welford) and the spatial reuse
+# kernel K7. The host reads one scalar, the maximum windowed variance, at
+# each 32-frame window boundary, and resolves Reinhard -> float16 -> u8 at
+# the end.
+#
+# `device` is explicit: "cuda" launches the kernels and raises if CUDA is
+# absent or a kernel fails; "cpu" runs the plain PyTorch versions. Nothing
+# falls back from one to the other.
+
+from __future__ import annotations
+
+import ctypes
+import math
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from forge3d_tpu.camera import camera_basis
+from forge3d_tpu.errors import (ContractViolation, ConvergenceError, DeviceError,
+                                RenderError, UploadError)
+from forge3d_tpu.mem import global_tracker
+
+from .. import _kernels
+from ..ops import restir as rst
+from ..ops import tonemap as tm
+from ..ops.pyramid import build_pyramid
+from ..ops.rng import MASK32, derive_seed_lo, seed_state, tent_offset, xorshift32
+from ..ops.shading import (EnvMap, cosine_dir, env_map, env_radiance, fdiv, luminance,
+                           rsqrt, sun_direction)
+from ..ops.traversal import (TerrainScene, f32, normal_at, scene_from_pyramid, trace,
+                             trace_plain)
+
+_F32 = torch.float32
+
+WELFORD_WINDOW = 32
+
+# Where the parts of the JAX entry that this package does not run yet are
+# scheduled (ROADMAP.md, queue 1).
+_TODO_SWEEP = "traversal='sweep' is not ported yet (ROADMAP queue 1 item 3: the sweep estimator)"
+_TODO_MESH = "meshes are not ported yet (ROADMAP queue 1 item 5: per-ray extras, kernel K9)"
+_TODO_LIGHTS = "typed lights are not ported yet (ROADMAP queue 1 item 5: per-ray extras, kernel K10)"
+
+
+@dataclass(frozen=True)
+class TerrainRefDesc:
+    """Full scene description (the fields of the JAX TerrainRefDesc)."""
+
+    heights: np.ndarray
+    spacing: Tuple[float, float] = (1.0, 1.0)
+    exaggeration: float = 1.0
+    albedo: Tuple[float, float, float] = (0.6, 0.6, 0.6)
+    cam_origin: Tuple[float, float, float] = (0.0, 50.0, 120.0)
+    cam_look_at: Tuple[float, float, float] = (0.0, 0.0, 0.0)
+    cam_up: Tuple[float, float, float] = (0.0, 1.0, 0.0)
+    fov_y_deg: float = 45.0
+    exposure: float = 1.0
+    sun_azimuth_deg: float = 315.0
+    sun_elevation_deg: float = 45.0
+    sun_intensity: float = 2.5
+    sun_color: Tuple[float, float, float] = (1.0, 0.97, 0.92)
+    env_map: Optional[np.ndarray] = None
+    env_intensity: float = 0.35
+    width: int = 512
+    height: int = 512
+    seed: int = 7
+    spp: int = 1
+    max_frames: int = 512
+    min_frames: int = 32
+    variance_threshold: float = 1e-3
+    shadows_enabled: bool = True
+    #: "dda" = the max-mip DDA (kernel K5); "mxu" names the JAX package's
+    #: TPU matmul form of the same traversal and maps to K5 here.
+    traversal: str = "dda"
+    #: Shade the sun through the ReSTIR temporal+spatial reuse chain; False
+    #: = plain sun NEE with unit weight.
+    restir: bool = True
+    lights: Optional[tuple] = None
+    mesh: Optional[tuple] = None
+
+
+def _validate(desc: TerrainRefDesc) -> None:
+    """Trust-boundary validation before any device work."""
+    if desc.width <= 0 or desc.height <= 0 or desc.max_frames <= 0:
+        raise RenderError("terrain reference requires non-zero width/height/max_frames")
+    if desc.spp <= 0:
+        raise RenderError("spp must be >= 1")
+    hm = np.asarray(desc.heights)
+    if hm.ndim != 2 or hm.shape[0] < 2 or hm.shape[1] < 2:
+        raise UploadError("heightmap must be a 2D array of at least 2x2 texels")
+    if not np.isfinite(hm).all():
+        raise UploadError("terrain heightfield contains non-finite samples")
+    if not (desc.spacing[0] > 0 and desc.spacing[1] > 0):
+        raise RenderError("spacing must be positive")
+    if not math.isfinite(desc.exaggeration) or desc.exaggeration <= 0:
+        raise RenderError("exaggeration must be finite and > 0")
+    if not (math.isfinite(desc.sun_azimuth_deg) and math.isfinite(desc.sun_elevation_deg)):
+        raise RenderError("sun azimuth/elevation must be finite")
+    for name, vec in (("cam_origin", desc.cam_origin),
+                      ("cam_look_at", desc.cam_look_at),
+                      ("cam_up", desc.cam_up)):
+        if len(vec) != 3 or not all(math.isfinite(float(c)) for c in vec):
+            raise RenderError(f"{name} must be a finite 3-vector")
+    fwd = tuple(float(b) - float(a)
+                for a, b in zip(desc.cam_origin, desc.cam_look_at))
+    if sum(c * c for c in fwd) <= 1e-20:
+        raise RenderError("camera origin and look_at coincide")
+    if not (math.isfinite(desc.fov_y_deg) and 0.0 < desc.fov_y_deg < 180.0):
+        raise RenderError("fov_y must be finite and in (0, 180)")
+    if not (math.isfinite(desc.variance_threshold) and desc.variance_threshold > 0):
+        raise RenderError("variance threshold must be finite and > 0")
+    if desc.env_map is not None:
+        em = np.asarray(desc.env_map)
+        if em.ndim != 3 or em.shape[2] != 3:
+            raise UploadError("env_map must have shape (H, W, 3)")
+    for c in desc.sun_color:
+        if not math.isfinite(c) or c < 0:
+            raise RenderError("sun_color must be finite and non-negative")
+
+
+def resolve_device(device) -> torch.device:
+    """'cuda' needs a CUDA device; 'cpu' selects the plain versions."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise DeviceError("device='cuda' requested but CUDA is not available; "
+                              "pass device='cpu' to run the plain PyTorch versions")
+    elif dev.type != "cpu":
+        raise DeviceError(f"unsupported device {device!r}: use 'cuda' or 'cpu'")
+    return dev
+
+
+def _vec3(v) -> Tuple[float, float, float]:
+    return tuple(f32(c) for c in v)
+
+
+@dataclass(frozen=True)
+class FrameContext:
+    """Per-render constants (float32 values) plus the scene and env map.
+    Shared by the kernels and the plain versions, so both see the same
+    inputs."""
+
+    width: int
+    height: int
+    spp: int
+    seed_hi: int
+    seed_lo: int
+    shadows: bool
+    restir: bool
+    cam_o: Tuple[float, float, float]
+    right: Tuple[float, float, float]
+    up: Tuple[float, float, float]
+    fwd: Tuple[float, float, float]
+    half_w: float
+    half_h: float
+    sun: Tuple[float, float, float]
+    alb: Tuple[float, float, float]   # float32(albedo)
+    alc: Tuple[float, float, float]   # float32(albedo * sun radiance), rounded once
+    lum_lc: float                     # luminance of float32(sun radiance)
+    inv_spp: float
+    scene: TerrainScene
+    env: EnvMap
+
+    def frame_args(self, frame_index: int) -> _kernels.FrameArgs:
+        rgb = self.env.rgb
+        if rgb is not None:
+            _kernels.require_cuda("env_map", rgb)
+        eh, ew = (0, 0) if rgb is None else rgb.shape[:2]
+        F3 = ctypes.c_float * 3
+        return _kernels.FrameArgs(
+            None if rgb is None else rgb.data_ptr(),
+            self.width, self.height, self.spp, ew, eh, int(self.shadows),
+            int(self.restir), int(frame_index) & MASK32, self.seed_hi, self.seed_lo,
+            F3(*self.cam_o), F3(*self.right), F3(*self.up), F3(*self.fwd),
+            self.half_w, self.half_h, F3(*self.sun), F3(*self.alb), F3(*self.alc),
+            self.lum_lc, self.env.intensity, self.inv_spp,
+        )
+
+
+def make_context(desc: TerrainRefDesc, scene: TerrainScene, env: EnvMap) -> FrameContext:
+    W, H = desc.width, desc.height
+    right, up, fwd = camera_basis(desc.cam_origin, desc.cam_look_at, desc.cam_up)
+    half_h = math.tan(math.radians(desc.fov_y_deg) * 0.5)
+    half_w = (W / H) * half_h
+    lc = tuple(desc.sun_intensity * c for c in desc.sun_color)
+    lc32 = [np.float32(c) for c in lc]
+    lum_lc = np.float32(0.2126) * lc32[0] + np.float32(0.7152) * lc32[1] \
+        + np.float32(0.0722) * lc32[2]
+    return FrameContext(
+        width=W, height=H, spp=int(desc.spp),
+        seed_hi=int(desc.seed) & MASK32, seed_lo=derive_seed_lo(desc.seed),
+        shadows=bool(desc.shadows_enabled), restir=bool(desc.restir),
+        cam_o=_vec3(desc.cam_origin), right=_vec3(right), up=_vec3(up), fwd=_vec3(fwd),
+        half_w=f32(half_w), half_h=f32(half_h),
+        sun=_vec3(sun_direction(desc.sun_azimuth_deg, desc.sun_elevation_deg)),
+        alb=_vec3(desc.albedo),
+        alc=tuple(f32(a * c) for a, c in zip(desc.albedo, lc)),
+        lum_lc=f32(lum_lc), inv_spp=f32(1.0 / desc.spp),
+        scene=scene, env=env,
+    )
+
+
+def camera_rays(ctx: FrameContext, jx, jy):
+    """Primary ray directions for pixel jitters (jx, jy) of shape (H, W)."""
+    W, H = ctx.width, ctx.height
+    dev = jx.device
+    xs = torch.arange(W, dtype=_F32, device=dev).expand(H, W)
+    ys = torch.arange(H, dtype=_F32, device=dev)[:, None].expand(H, W)
+    ndc_x = fdiv(xs + 0.5 + jx, float(W)) * 2.0 - 1.0
+    ndc_y = (1.0 - fdiv(ys + 0.5 + jy, float(H))) * 2.0 - 1.0
+    cx = ndc_x * ctx.half_w
+    cy = ndc_y * ctx.half_h
+    inv = rsqrt(cx * cx + cy * cy + 1.0)
+    cx, cy, mcz = cx * inv, cy * inv, inv  # mcz = -cz with cz = -1 * inv
+    r, u, f = ctx.right, ctx.up, ctx.fwd
+    dx = cx * r[0] + cy * u[0] + mcz * f[0]
+    dy = cx * r[1] + cy * u[1] + mcz * f[1]
+    dz = cx * r[2] + cy * u[2] + mcz * f[2]
+    inv2 = rsqrt(dx * dx + dy * dy + dz * dz)
+    return dx * inv2, dy * inv2, dz * inv2
+
+
+def _origin(ctx: FrameContext, shape, dev):
+    return tuple(torch.full(shape, c, dtype=_F32, device=dev) for c in ctx.cam_o)
+
+
+def _occlusion(ctx: FrameContext, hitmask, oro, sun_dir, env_dir):
+    """(sun occluded, env occluded) masks. Only the hit pixels' rays are
+    traced (the others' results are never read), and the sun and env rays
+    go through one batched trace: per-ray results do not depend on the
+    batch."""
+    sel = torch.nonzero(hitmask.reshape(-1)).squeeze(1)
+    k = sel.numel()
+    pick = lambda c: c.reshape(-1)[sel]  # noqa: E731
+    o = [pick(c) for c in oro]
+    if ctx.shadows:
+        hits = trace_plain(ctx.scene, [torch.cat([c, c]) for c in o],
+                           [torch.cat([pick(s), pick(e)]) for s, e in zip(sun_dir, env_dir)]).hit
+    else:
+        hits = torch.cat([torch.zeros(k, dtype=torch.bool, device=sel.device),
+                          trace_plain(ctx.scene, o, [pick(e) for e in env_dir]).hit])
+    occ = torch.zeros(2, hitmask.numel(), dtype=torch.bool, device=sel.device)
+    occ[0, sel] = hits[:k]
+    occ[1, sel] = hits[k:]
+    return occ[0].reshape(hitmask.shape), occ[1].reshape(hitmask.shape)
+
+
+def _sample_radiance(ctx: FrameContext, st, pdir, pw, prev_ok):
+    """One jittered camera sample per pixel; returns (st, rgb, cand_pdf)."""
+    scene, sun = ctx.scene, ctx.sun
+    st, u1 = xorshift32(st)
+    st, u2 = xorshift32(st)
+    jx = tent_offset(u1) * 0.5
+    jy = tent_offset(u2) * 0.5
+    dx, dy, dz = camera_rays(ctx, jx, jy)
+    ox, oy, oz = _origin(ctx, dx.shape, dx.device)
+    th = trace_plain(scene, (ox, oy, oz), (dx, dy, dz))
+    hitmask = th.hit
+    t = th.t
+    hx, hy, hz = ox + t * dx, oy + t * dy, oz + t * dz
+    nx, ny, nz = normal_at(scene, (hx, hy, hz), th.cell_x, th.cell_z)
+
+    mr, mg, mb = env_radiance(ctx.env, dx, dy, dz)
+
+    ndotl = torch.clamp(nx * sun[0] + ny * sun[1] + nz * sun[2], min=0.0)
+    tpdf = luminance(ctx.alc[0] * ndotl, ctx.alc[1] * ndotl, ctx.alc[2] * ndotl)
+    cand_pdf = torch.where(hitmask, tpdf, 0.0)
+
+    sdx = torch.where(prev_ok, pdir[0], sun[0])
+    sdy = torch.where(prev_ok, pdir[1], sun[1])
+    sdz = torch.where(prev_ok, pdir[2], sun[2])
+    rw = torch.where(prev_ok, torch.clamp(pw, 0.0, 4.0), 1.0)
+    nd = torch.clamp(nx * sdx + ny * sdy + nz * sdz, min=0.0)
+
+    st2, u3 = xorshift32(st)
+    st2, u4 = xorshift32(st2)
+    st = torch.where(hitmask, st2, st)  # misses do not draw u3/u4
+    ex, ey, ez = cosine_dir(nx, ny, nz, u3, u4)
+
+    oro = (hx + nx * 1e-3, hy + ny * 1e-3, hz + nz * 1e-3)
+    occ, eocc = _occlusion(ctx, hitmask, oro, (sdx, sdy, sdz), (ex, ey, ez))
+    vis = torch.where(occ, 0.0, 1.0)  # all ones without shadows
+    lit = nd * vis * rw
+    er, eg, eb = env_radiance(ctx.env, ex, ey, ez)
+    evis = torch.where(eocc, 0.0, 1.0)
+    r = torch.where(hitmask, ctx.alc[0] * lit + ctx.alb[0] * er * evis + 0.0, mr)
+    g = torch.where(hitmask, ctx.alc[1] * lit + ctx.alb[1] * eg * evis + 0.0, mg)
+    b = torch.where(hitmask, ctx.alc[2] * lit + ctx.alb[2] * eb * evis + 0.0, mb)
+    return st, (r, g, b), cand_pdf
+
+
+def frame_step_plain(ctx: FrameContext, accum, welford, res_prev: rst.Reservoirs,
+                     frame_index: int):
+    """Plain PyTorch version of K6. accum: (H, W, 4); welford: (H, W, 2);
+    res_prev: the reservoirs after the previous frame's spatial reuse.
+    Returns (accum, welford, merged) where merged is the M-clamped history
+    temporally merged with this frame's candidates."""
+    W, H = ctx.width, ctx.height
+    dev = accum.device
+    xs = torch.arange(W, device=dev).expand(H, W)
+    ys = torch.arange(H, device=dev)[:, None].expand(H, W)
+    st = seed_state(ctx.seed_hi, ctx.seed_lo, xs, ys, 0) ^ (
+        (int(frame_index) * 92837111) & MASK32)
+
+    res_prev = rst.m_clamp(res_prev)
+    pv = ((res_prev.m > 0) & (res_prev.weight > 0.0) & (res_prev.target_pdf > 0.0)
+          & (res_prev.light_type == 1))
+    if not (ctx.restir and frame_index > 0):
+        pv = torch.zeros_like(pv)
+    prev_ok = pv.reshape(H, W)
+    pd = [c.reshape(H, W) for c in (res_prev.dir_x, res_prev.dir_y, res_prev.dir_z)]
+    pinv = rsqrt(pd[0] * pd[0] + pd[1] * pd[1] + pd[2] * pd[2] + 1e-30)
+    pdir = (pd[0] * pinv, pd[1] * pinv, pd[2] * pinv)
+    pw = res_prev.weight.reshape(H, W)
+
+    z = torch.zeros((H, W), dtype=_F32, device=dev)
+    fr, fg, fb, c_wsum, c_pdf = z, z, z, z, z
+    c_m = torch.zeros((H, W), dtype=torch.int32, device=dev)
+    for _ in range(ctx.spp):
+        st, (r, g, b), cand_pdf = _sample_radiance(ctx, st, pdir, pw, prev_ok)
+        good = cand_pdf > 0.0
+        c_wsum = c_wsum + torch.where(good, cand_pdf, 0.0)
+        c_m = c_m + good.to(torch.int32)
+        c_pdf = torch.where(good, cand_pdf, c_pdf)
+        fr, fg, fb = fr + r, fg + g, fb + b
+    fr, fg, fb = fr * ctx.inv_spp, fg * ctx.inv_spp, fb * ctx.inv_spp
+
+    # fresh candidate reservoir, merged with the history
+    fin = (c_m > 0) & (c_wsum > 0.0) & (c_pdf > 0.0)
+    c_weight = torch.where(
+        fin, c_wsum / (c_m.to(_F32) * torch.clamp(c_pdf, min=1e-30)), 0.0)
+    anyc = c_m > 0
+    anyf = anyc.to(_F32)
+    curr = rst.Reservoirs(
+        dir_x=(ctx.sun[0] * anyf).reshape(-1),
+        dir_y=(ctx.sun[1] * anyf).reshape(-1),
+        dir_z=(ctx.sun[2] * anyf).reshape(-1),
+        intensity=torch.where(anyc, ctx.lum_lc, 0.0).reshape(-1),
+        light_type=anyc.to(torch.int32).reshape(-1),
+        light_index=torch.zeros(H * W, dtype=torch.int32, device=dev),
+        w_sum=c_wsum.reshape(-1),
+        m=c_m.reshape(-1),
+        weight=c_weight.reshape(-1),
+        target_pdf=c_pdf.reshape(-1),
+    )
+    merged = rst.temporal_merge(res_prev, curr)
+
+    acc = accum + torch.stack([fr, fg, fb, torch.ones_like(fr)], dim=-1)
+
+    # windowed Welford over the running-mean luminance
+    in_window = int(frame_index) % WELFORD_WINDOW
+    wf = torch.zeros_like(welford) if in_window == 0 else welford
+    mean_lum = luminance(acc[..., 0], acc[..., 1], acc[..., 2]) / acc[..., 3]
+    delta = mean_lum - wf[..., 0]
+    mean = wf[..., 0] + fdiv(delta, float(in_window) + 1.0)
+    m2 = wf[..., 1] + delta * (mean_lum - mean)
+    return acc, torch.stack([mean, m2], dim=-1), merged
+
+
+def _frame_step_kernel(ctx: FrameContext, accum, welford, res_prev: rst.Reservoirs,
+                       frame_index: int):
+    H, W = ctx.height, ctx.width
+    if tuple(accum.shape) != (H, W, 4) or tuple(welford.shape) != (H, W, 2):
+        raise ValueError(f"frame_step: accum must be (H, W, 4) and welford (H, W, 2) "
+                         f"for H, W = {H}, {W}")
+    if res_prev.m.numel() != H * W:
+        raise ValueError("frame_step: reservoirs must hold H*W pixels")
+    _kernels.require_cuda("frame_step", accum, welford)
+    dev = accum.device
+    acc_out = torch.empty_like(accum)
+    wf_out = torch.empty_like(welford)
+    merged = rst.Reservoirs.empty(H * W, dev)
+    err = _kernels.lib().f3d_frame_step(
+        ctx.scene.kernel_args(), ctx.frame_args(frame_index), _kernels.ptr(accum),
+        _kernels.ptr(welford), res_prev.kernel_args(), _kernels.ptr(acc_out),
+        _kernels.ptr(wf_out), merged.kernel_args(), _kernels.stream_ptr(dev))
+    _kernels.check(err, "K6 frame_step")
+    frame_step.launches += 1
+    return acc_out, wf_out, merged
+
+
+def frame_step(ctx: FrameContext, accum, welford, res_prev: rst.Reservoirs,
+               frame_index: int):
+    """One accumulation frame (kernel K6). CPU tensors run the plain
+    version; CUDA tensors launch the kernel."""
+    if accum.device.type == "cpu":
+        return frame_step_plain(ctx, accum, welford, res_prev, frame_index)
+    return _frame_step_kernel(ctx, accum, welford, res_prev, frame_index)
+
+
+frame_step.launches = 0
+
+
+def _center_rays(ctx: FrameContext):
+    z = torch.zeros((ctx.height, ctx.width), dtype=_F32, device=ctx.scene.device)
+    d = camera_rays(ctx, z, z)
+    return _origin(ctx, z.shape, z.device), d
+
+
+def gbuffer_resolve_plain(ctx: FrameContext, d, th):
+    """Plain PyTorch version of K8: AOVs and ReSTIR receiver normals from
+    the center rays' hit record."""
+    H, W = ctx.height, ctx.width
+    dev = d[0].device
+    hitmask = th.hit
+    t = th.t
+    o = ctx.cam_o
+    hx, hy, hz = o[0] + t * d[0], o[1] + t * d[1], o[2] + t * d[2]
+    nx, ny, nz = normal_at(ctx.scene, (hx, hy, hz), th.cell_x, th.cell_z)
+    nx = torch.where(hitmask, nx, 0.0)
+    ny = torch.where(hitmask, ny, 0.0)
+    nz = torch.where(hitmask, nz, 1.0)  # sky record kept finite
+    zero3 = torch.zeros(3, dtype=_F32, device=dev)
+    alb = torch.tensor(ctx.alb, dtype=_F32, device=dev).expand(H, W, 3)
+    return {
+        "albedo": torch.where(hitmask[..., None], alb, zero3),
+        "normal": torch.where(hitmask[..., None], torch.stack([nx, ny, nz], dim=-1), zero3),
+        "depth": torch.where(hitmask, t, float("nan")),
+        "visibility": torch.where(hitmask, 1.0, 0.0),
+        "gb_n": (nx.reshape(-1), ny.reshape(-1), nz.reshape(-1)),
+    }
+
+
+def _gbuffer_resolve_kernel(ctx: FrameContext, d, th):
+    H, W = ctx.height, ctx.width
+    n = H * W
+    d = [d[0].contiguous(), d[2].contiguous()]  # x and z place the hit in its cell
+    th_c = [th.hit.contiguous(), th.t.contiguous(), th.cell_x.contiguous(),
+            th.cell_z.contiguous()]
+    _kernels.require_cuda("center_gbuffer", *d, *th_c)
+    dev = d[0].device
+    albedo = torch.empty((H, W, 3), dtype=_F32, device=dev)
+    normal = torch.empty((H, W, 3), dtype=_F32, device=dev)
+    depth = torch.empty((H, W), dtype=_F32, device=dev)
+    vis = torch.empty((H, W), dtype=_F32, device=dev)
+    gb = [torch.empty(n, dtype=_F32, device=dev) for _ in range(3)]
+    F3 = ctypes.c_float * 3
+    err = _kernels.lib().f3d_center_gbuffer(
+        ctx.scene.kernel_args(), n, F3(*ctx.cam_o), F3(*ctx.alb),
+        *(_kernels.ptr(c) for c in d), *(_kernels.ptr(c) for c in th_c),
+        _kernels.ptr(albedo), _kernels.ptr(normal), _kernels.ptr(depth), _kernels.ptr(vis),
+        *(_kernels.ptr(c) for c in gb), _kernels.stream_ptr(dev))
+    _kernels.check(err, "K8 center_gbuffer")
+    center_gbuffer.launches += 1
+    return {"albedo": albedo, "normal": normal, "depth": depth, "visibility": vis,
+            "gb_n": tuple(gb)}
+
+
+def center_gbuffer_plain(ctx: FrameContext):
+    """Plain PyTorch version of the center G-buffer (plain trace + plain
+    resolve)."""
+    o, d = _center_rays(ctx)
+    return gbuffer_resolve_plain(ctx, d, trace_plain(ctx.scene, o, d))
+
+
+def center_gbuffer(ctx: FrameContext):
+    """Unjittered center-ray hit record: AOVs + ReSTIR receiver normals.
+    The rays go through K5 (`trace`); on CUDA the resolve is kernel K8."""
+    o, d = _center_rays(ctx)
+    th = trace(ctx.scene, o, d)
+    if d[0].device.type == "cpu":
+        return gbuffer_resolve_plain(ctx, d, th)
+    return _gbuffer_resolve_kernel(ctx, d, th)
+
+
+center_gbuffer.launches = 0
+
+
+def _contract(name: str, arr: np.ndarray, lo: float, hi: float) -> None:
+    finite = arr[np.isfinite(arr)]
+    if finite.size == 0:
+        return
+    amin, amax = float(finite.min()), float(finite.max())
+    if amin < lo or amax > hi:
+        raise ContractViolation(
+            f"runtime contract violated: {name} range [{amin:.6g}, {amax:.6g}] "
+            f"outside [{lo:.6g}, {hi:.6g}]"
+        )
+
+
+def _peak_tracked_bytes(tracker) -> int:
+    """The ledger's peak, as MemoryTracker.metrics()["peak_tracked_bytes"]
+    reports it. metrics() also asks the JAX runtime for live device memory,
+    which imports jax, so the port reads the ledger alone."""
+    with tracker._lock:
+        return int(tracker._peak)
+
+
+def render_terrain_reference(desc: TerrainRefDesc, *, device="cuda") -> dict:
+    """Render the converged terrain reference; raises ConvergenceError
+    rather than returning a non-converged image."""
+    if desc.traversal == "sweep":
+        raise NotImplementedError(_TODO_SWEEP)
+    if desc.mesh is not None:
+        raise NotImplementedError(_TODO_MESH)
+    if desc.lights:
+        raise NotImplementedError(_TODO_LIGHTS)
+    _validate(desc)
+    if desc.traversal not in ("dda", "mxu"):
+        raise ValueError(f"unknown traversal {desc.traversal!r}")
+    dev = resolve_device(device)
+    tracker = global_tracker()
+    W, H = desc.width, desc.height
+    n_pix = W * H
+
+    pyr = build_pyramid(np.asarray(desc.heights, np.float32))
+    scene = scene_from_pyramid(pyr, origin_xz=(0.0, 0.0), spacing_xz=desc.spacing,
+                               exaggeration=desc.exaggeration, device=dev)
+    env = env_map(desc.env_map, desc.env_intensity, dev)
+
+    # Resource ledger, charged as the JAX package charges it.
+    pyramid_bytes = pyr.nbytes
+    accum_bytes = n_pix * 16
+    welford_bytes = n_pix * 8
+    reservoir_bytes = 3 * n_pix * 40
+    env_bytes = 0 if desc.env_map is None else int(np.asarray(desc.env_map).nbytes)
+    rids = [
+        tracker.track("terrain-pt.pyramid", pyramid_bytes, "pyramid"),
+        tracker.track("terrain-pt.accum", accum_bytes, "buffer"),
+        tracker.track("terrain-pt.welford", welford_bytes, "buffer"),
+        tracker.track("terrain-pt.reservoirs", reservoir_bytes, "buffer"),
+        tracker.track("terrain-pt.env", env_bytes, "texture"),
+    ]
+    gpu_resource_bytes = (pyramid_bytes + accum_bytes + welford_bytes
+                          + reservoir_bytes + env_bytes)
+
+    try:
+        ctx = make_context(desc, scene, env)
+        gbuf = center_gbuffer(ctx)
+        gb_n = gbuf["gb_n"]
+
+        accum = torch.zeros((H, W, 4), dtype=_F32, device=dev)
+        welford = torch.zeros((H, W, 2), dtype=_F32, device=dev)
+        res_prev = rst.Reservoirs.zeros(n_pix, dev)
+
+        frames = 0
+        variance = float("inf")
+        converged = False
+        while frames < desc.max_frames:
+            accum, welford, merged = frame_step(ctx, accum, welford, res_prev, frames)
+            res_prev = rst.spatial_reuse(merged, gb_n[0], gb_n[1], gb_n[2], W, H,
+                                         frames, ctx.seed_hi)
+            frames += 1
+
+            window_full = frames % WELFORD_WINDOW == 0
+            if window_full or frames == desc.max_frames:
+                n_window = ((frames - 1) % WELFORD_WINDOW) + 1
+                if n_window >= 2:
+                    m2max = float(welford[..., 1].max())
+                    if not math.isfinite(m2max):
+                        raise RenderError(
+                            "terrain PT produced non-finite variance (NaN in accumulation)")
+                    variance = m2max / (n_window - 1)
+                    if frames >= desc.min_frames and variance < desc.variance_threshold:
+                        converged = True
+                        break
+
+        if not converged:
+            raise ConvergenceError(
+                f"terrain PT did not converge: per-pixel luminance variance "
+                f"{variance:.3e} over the last {WELFORD_WINDOW}-frame window after "
+                f"{frames} frames (threshold {desc.variance_threshold:.1e}); raise "
+                f"max_frames or simplify the scene — refusing to return a fake "
+                f"reference",
+                frames=frames,
+                variance=variance,
+            )
+
+        # resolve running mean -> Reinhard -> f16 round trip -> u8
+        mean = accum[..., :3] / accum[..., 3:4]
+        ldr = tm.f16_round(tm.reinhard(mean, desc.exposure))
+        rgba = tm.to_u8(ldr).cpu().numpy().astype(np.uint8)
+        rgba = np.concatenate([rgba, np.full((H, W, 1), 255, np.uint8)], axis=-1)
+
+        accum_np = accum.cpu().numpy()
+        welford_np = welford.cpu().numpy()
+        ldr_np = ldr.cpu().numpy()
+
+        _contract("accum.samples", accum_np[..., 3], 0.0, 131026.0)
+        _contract("out_tex.samples", ldr_np, 0.0, 1.0)
+        if not np.isfinite(welford_np).all():
+            raise ContractViolation("terrain_welford contains non-finite values")
+
+        return {
+            "rgba": rgba,
+            "albedo": gbuf["albedo"].cpu().numpy().astype(np.float32),
+            "normal": gbuf["normal"].cpu().numpy().astype(np.float32),
+            "depth": gbuf["depth"].cpu().numpy().astype(np.float32),
+            "frames": frames,
+            "variance": variance,
+            "converged": True,
+            "peak_host_visible_bytes": _peak_tracked_bytes(tracker),
+            "minmax_pyramid_bytes": int(pyramid_bytes),
+            "gpu_resource_bytes": int(gpu_resource_bytes),
+            "hdr": mean.cpu().numpy().astype(np.float32),
+        }
+    finally:
+        for rid in rids:
+            tracker.free(rid)
+
+
+def hybrid_render_terrain_reference(
+    heightmap,
+    width: int,
+    height: int,
+    cam: dict,
+    spacing=(1.0, 1.0),
+    exaggeration: float = 1.0,
+    albedo=(0.6, 0.6, 0.6),
+    sun_azimuth_deg: float = 315.0,
+    sun_elevation_deg: float = 45.0,
+    sun_intensity: float = 2.5,
+    env_map=None,
+    env_intensity: float = 0.35,
+    mesh_vertices=None,
+    mesh_indices=None,
+    spp: int = 1,
+    max_frames: int = 512,
+    min_frames: int = 32,
+    variance_threshold: float = 1e-3,
+    seed: int = 7,
+    certificate=None,
+    sun_color=None,
+    cache=None,
+    traversal: str = "dda",
+    *,
+    device="cuda",
+) -> dict:
+    """Public entry: the signature, defaults and output dict of
+    forge3d_tpu's hybrid_render_terrain_reference, plus the keyword
+    `device` ("cuda" runs the kernels, "cpu" the plain versions)."""
+    if mesh_vertices is not None or mesh_indices is not None:
+        raise NotImplementedError(_TODO_MESH)
+    if sun_color is None:
+        sun_color = (1.0, 0.97, 0.92)
+    else:
+        sc = [float(c) for c in sun_color]
+        if len(sc) != 3 or any((not math.isfinite(c)) or c < 0 for c in sc):
+            raise ValueError("sun_color must be exactly three finite, non-negative numbers")
+        sun_color = tuple(sc)
+
+    desc = TerrainRefDesc(
+        heights=np.asarray(heightmap, np.float32),
+        spacing=(float(spacing[0]), float(spacing[1])),
+        exaggeration=float(exaggeration),
+        albedo=tuple(float(a) for a in albedo),
+        cam_origin=tuple(float(v) for v in cam.get("origin", (0.0, 50.0, 120.0))),
+        cam_look_at=tuple(float(v) for v in cam.get("look_at", (0.0, 0.0, 0.0))),
+        cam_up=tuple(float(v) for v in cam.get("up", (0.0, 1.0, 0.0))),
+        fov_y_deg=float(cam.get("fov_y", 45.0)),
+        exposure=float(cam.get("exposure", 1.0)),
+        sun_azimuth_deg=float(sun_azimuth_deg),
+        sun_elevation_deg=float(sun_elevation_deg),
+        sun_intensity=float(sun_intensity),
+        sun_color=sun_color,
+        env_map=None if env_map is None else np.asarray(env_map, np.float32),
+        env_intensity=float(env_intensity),
+        width=int(width),
+        height=int(height),
+        seed=int(seed) & MASK32,
+        spp=int(spp),
+        max_frames=int(max_frames),
+        min_frames=int(min_frames),
+        variance_threshold=float(variance_threshold),
+        traversal=str(traversal),
+    )
+    out = render_terrain_reference(desc, device=device)
+    if certificate is not None:
+        from forge3d_tpu.assurance.certificate import emit_certificate
+
+        emit_certificate(certificate, "hybrid_render_terrain_reference", out)
+    return out
