@@ -8,18 +8,41 @@ Run from the repository root on a machine with one CUDA GPU:
 Phases (one line each; any failure exits non-zero):
   1. device  -- the card's name, and `nvidia-smi` name and power limit;
   2. build   -- compile the CUDA kernels from forge3d_tpu_torch/csrc;
-  3. kernels -- each kernel (K5 trace, K8 G-buffer, K6 frame, K7 spatial
-                reuse) against its plain PyTorch version on the same inputs
-                on the card, then a whole 4-frame render against the plain
-                render on the CPU, on a 256x128 frame over a 129^2 DEM;
+  3. kernels -- each per-ray kernel (K5 trace, K8 G-buffer, K6 frame, K7
+                spatial reuse) against its plain PyTorch version on the same
+                inputs on the card, then a whole 4-frame render against the
+                plain render on the CPU, on a 256x128 frame over a 129^2 DEM;
   4. render  -- the port's entry `hybrid_render_terrain_reference` on the
                 1920x1080 / 1025^2 DEM scene of bench.py, spp=1, 32 frames:
                 one warm render, then a counted and timed render; both must
                 be bit-identical and all four kernels must have launched;
-  5. timing  -- each kernel against its plain version at that scene's
-                shapes, with the same tolerances, and both timed.
-The second-to-last line is {"kernels": [...]}, the last line
-{"ok": true, "device": {...}}. Imports torch and the port, never jax.
+  5. timing  -- each per-ray kernel against its plain version at that
+                scene's shapes, with the same tolerances, and both timed;
+  6. sweep kernels -- each sweep kernel (K1 rotate, K2 sweeps, K3 polar
+                frame, K4 resolve) against its plain version on the card at
+                256x128 over the 129^2 DEM, then a 4-frame sweep render on
+                the card against the plain sweep render on the CPU;
+  7. sweep render -- bench.py's own sweep calls (1920x1080, spp=2, 8
+                frames): a warm and a timed `traversal="sweep"` render
+                (bit-identical), then `hybrid_render_terrain_sequence` of 4
+                seeds (each bit-identical to the single call), with K1 once
+                per render or sequence, K2 and K3 once per frame and K4 once
+                per render; prints seconds per render and bench.py's
+                accounting W*H*64 / t;
+  8. sweep vs per-ray -- the converged sweep render (16 frames) against the
+                per-ray render (restir=False, spp=8) inside the port: gated
+                at 128x96 over the 65^2 DEM (SSIM > 0.99, mean |d| < 0.8/255),
+                printed at bench.py's 1080p scene;
+  9. sweep timing -- K1-K4 against their plain versions at the bench
+                scene's shapes, with the gates of phase 6, both timed.
+
+Sweep kernel gates (phases 6 and 9), each set to what the kernel shows
+on the card: K1 bit-identical; K2 every texel of z_sun and e_sky within
+FLOAT_TOL; K3 max |err| <= K3_MAX_ERR and, in every azimuth column, at
+least K3_COL_FRAC of the elements within FLOAT_TOL; K4 at least K4_BYTES
+of the packed bytes equal. K2 and K3 are also run with their rows in
+device memory (the shared-memory limit set to 0) and must give the same
+bits.
 """
 
 from __future__ import annotations
@@ -40,6 +63,9 @@ T_REL = 1e-4           # |dt|/t where both hit
 FLOAT_TOL = 1e-5       # |d| <= FLOAT_TOL * (1 + |ref|) ...
 FLOAT_FRAC = 0.995     # ... on >= 99.5% of elements (silhouette flips move a few)
 U8_FRAC = 0.995        # rgba within 1 u8 step on >= 99.5% of pixels
+K3_MAX_ERR = 1e-2       # sweep K3: max |err| ...
+K3_COL_FRAC = 0.99     # ... and >= 99% of each azimuth column within FLOAT_TOL
+K4_BYTES = 0.9999      # sweep K4: >= 99.99% of the packed bytes equal
 
 REPLACES = {
     "K5 trace": ("forge3d_tpu_torch/csrc/kernels.cu", "forge3d_tpu/ops/traversal.py:211"),
@@ -49,7 +75,13 @@ REPLACES = {
                          "forge3d_tpu/ops/restir.py:107"),
     "K8 center_gbuffer": ("forge3d_tpu_torch/csrc/kernels.cu",
                           "forge3d_tpu/pt/terrain_ref.py:472"),
+    "K1 rotate_heights": ("forge3d_tpu_torch/csrc/sweep.cu", "forge3d_tpu/ops/sweep.py:384"),
+    "K2 sweep_lighting": ("forge3d_tpu_torch/csrc/sweep.cu", "forge3d_tpu/ops/sweep.py:188"),
+    "K3 polar_frame": ("forge3d_tpu_torch/csrc/sweep.cu",
+                       "forge3d_tpu/pt/terrain_sweep.py:146"),
+    "K4 resolve": ("forge3d_tpu_torch/csrc/sweep.cu", "forge3d_tpu/ops/polarscan.py:325"),
 }
+SSIM_MIN, MAD_MAX = 0.99, 0.8   # tests/test_sweep.py's sweep-vs-per-ray gates
 
 
 class SmokeFailure(RuntimeError):
@@ -120,16 +152,19 @@ def wall_ms(fn):
     return (time.perf_counter() - t0) * 1e3, out
 
 
-def close_frac(ref, got, tol=FLOAT_TOL) -> float:
-    """Fraction of elements with |got - ref| <= tol * (1 + |ref|); NaN
-    counts as equal to NaN."""
+def within(ref, got, tol=FLOAT_TOL):
+    """Mask of elements with |got - ref| <= tol * (1 + |ref|); NaN counts as
+    equal to NaN."""
     import torch
 
     ref = ref.double()
     got = got.double()
-    ok = (got - ref).abs() <= tol * (1.0 + ref.abs())
-    ok |= torch.isnan(ref) & torch.isnan(got)
-    return float(ok.double().mean())
+    return ((got - ref).abs() <= tol * (1.0 + ref.abs())) | (torch.isnan(ref) & torch.isnan(got))
+
+
+def close_frac(ref, got, tol=FLOAT_TOL) -> float:
+    """Fraction of elements within tolerance (see `within`)."""
+    return float(within(ref, got, tol).double().mean())
 
 
 def max_abs(ref, got) -> float:
@@ -376,9 +411,312 @@ def phase_timing(dem, launches):
     return rows
 
 
+def device_memory_rows(fn):
+    """fn() with the shared-memory limit at 0, so that K2 and K3 keep their
+    rows in device memory."""
+    from forge3d_tpu_torch import _kernels
+
+    saved, _kernels.SMEM_LIMIT = _kernels.SMEM_LIMIT, 0
+    try:
+        return fn()
+    finally:
+        _kernels.SMEM_LIMIT = saved
+
+
+def sweep_setup(heights, width, height, cam, device, **kw):
+    """(plan, scene, rotated grid, frame-1 jitter) for the sweep kernels."""
+    from forge3d_tpu_torch.ops import sweep as sw
+    from forge3d_tpu_torch.pt import terrain_ref as tr
+    from forge3d_tpu_torch.pt import terrain_sweep as ts
+
+    desc = tr.TerrainRefDesc(heights=heights, width=width, height=height,
+                             cam_origin=cam["origin"], cam_look_at=cam["look_at"],
+                             fov_y_deg=cam["fov_y"], **kw)
+    plan = ts.plan_for(desc)
+    scene = ts.make_scene(desc, device)
+    rot = sw.rotate_heights(scene.heights, plan.rot)
+    return plan, scene, rot, ts.frame_jitters(int(desc.seed), 2)[1]
+
+
+def packed_planes(plan, packed):
+    """Decoded planes of K4's packed buffer: (vis u8, octahedral u8, depth,
+    hdr), as numpy."""
+    from forge3d_tpu_torch.pt import terrain_ref as tr
+    from forge3d_tpu_torch.pt import terrain_sweep as ts
+
+    W, H = plan.width, plan.height
+    buf = packed.cpu().numpy()
+    desc = tr.TerrainRefDesc(heights=np.zeros((2, 2), np.float32), width=W, height=H)
+    out = ts._unpack_render(desc, buf, 1)
+    return buf[:W * H], buf[W * H:3 * W * H], out["depth"], out["hdr"]
+
+
+def compare_sweep_kernels(tag, plan, scene, rot, jit, timed=False):
+    """K1-K4 against their plain versions on one set of inputs on the card.
+    Returns {name: (max |err|, agreement text, kernel ms, plain ms)}; the
+    times are measured only when `timed`."""
+    import torch
+
+    from forge3d_tpu_torch.ops import sweep as sw
+    from forge3d_tpu_torch.pt import terrain_sweep as ts
+
+    res = {}
+
+    def times(kernel, plain, reps):
+        if not timed:
+            return float("nan"), float("nan")
+        return cuda_ms(kernel, reps), wall_ms(plain)[0]
+
+    rk = sw.rotate_heights(scene.heights, plan.rot)
+    rp = sw.rotate_heights_plain(scene.heights, plan.rot)
+    same = all(bool(torch.equal(a, b)) for a, b in zip(rp, rk))
+    require(same, f"{tag}: K1 is not bit-identical to its plain version")
+    res["K1 rotate_heights"] = (max(max_abs(a, b) for a, b in zip(rp, rk)), "bit-identical",
+                                *times(lambda: sw._rotate_kernel(scene.heights, plan.rot),
+                                       lambda: sw.rotate_heights_plain(scene.heights, plan.rot),
+                                       20))
+
+    bins = ts.frame_bins(plan, scene, jit)
+    mk = sw._sweep_kernel(*rot, bins)
+    mp = sw.sweep_lighting_plain(*rot, bins)
+    bz = int((~within(mp.z_sun, mk.z_sun)).sum())
+    be = int((~within(mp.e_sky, mk.e_sky)).sum())
+    require(bz == 0 and be == 0, f"{tag}: K2 disagrees with its plain version on {bz} "
+                                 f"texels of z_sun and {be} elements of e_sky")
+    mg = device_memory_rows(lambda: sw._sweep_kernel(*rot, bins))
+    require(bool(torch.equal(mg.e_sky, mk.e_sky) and torch.equal(mg.z_sun, mk.z_sun)),
+            f"{tag}: K2 differs between shared-memory and device-memory rows")
+    res["K2 sweep_lighting"] = (max_abs(mp.e_sky, mk.e_sky),
+                                "every texel within tolerance, global-row path equal",
+                                *times(lambda: sw._sweep_kernel(*rot, bins),
+                                       lambda: sw.sweep_lighting_plain(*rot, bins), 5))
+
+    ps = plan.ps
+    acc0 = torch.zeros((ps.e_count, ps.a_count, 9), device=rot[0].device)
+    args = (rot[0], mk, jit.xi, jit.ja, jit.je)
+    pk = ts._polar_kernel(plan, scene, acc0.clone(), *args)
+    pp = ts.frame_polar_plain(plan, scene, *args)
+    ok = within(pp, pk)
+    fp = float(ok.double().mean())
+    col = float(ok.double().mean(dim=(0, 2)).min())   # worst azimuth column
+    err3 = max_abs(pp, pk)
+    require(err3 <= K3_MAX_ERR and col >= K3_COL_FRAC
+            and bool(torch.equal(torch.isnan(pp), torch.isnan(pk))),
+            f"{tag}: K3 disagrees with its plain version (max |err| {err3:.3e}, "
+            f"worst column {col:.6f})")
+    pg = device_memory_rows(lambda: ts._polar_kernel(plan, scene, acc0.clone(), *args))
+    require(bool(torch.equal(pg, pk)), f"{tag}: K3 differs between shared and device rows")
+    acc_t = acc0.clone()
+    res["K3 polar_frame"] = (err3, f"polar {fp:.6f}, worst azimuth column {col:.6f}, "
+                                   f"global-row path equal",
+                             *times(lambda: ts._polar_kernel(plan, scene, acc_t, *args),
+                                    lambda: ts.frame_polar_plain(plan, scene, *args), 10))
+
+    acc = pk + ts._polar_kernel(plan, scene, acc0.clone(), rot[0], mk, 0.25, -0.1, 0.3)
+    kk = ts._resolve_kernel(plan, acc, 2)
+    kp = ts.resolve_plain(plan, acc, 2)
+    (vr, orf, dr, hr), (vg, og, dg, hg) = packed_planes(plan, kp), packed_planes(plan, kk)
+    f_vis = float((np.abs(vr.astype(int) - vg.astype(int)) <= 1).mean())
+    f_oct = float((np.abs(orf.astype(int) - og.astype(int)) <= 1).mean())
+    hit = ~np.isnan(dr)
+    nan_same = bool(np.array_equal(np.isnan(dr), np.isnan(dg)))
+    f_dep = float((np.abs(dr[hit] - dg[hit]) <= 1e-3 * np.abs(dr[hit])).mean()) if hit.any() else 1.0
+    f_hdr = float((np.abs(hr - hg) <= np.abs(hr).max(-1, keepdims=True) / 128).mean())
+    bytes_eq = float((kp == kk).double().mean())
+    planes = [(0, 1), (1, 3), (3, 5), (5, 9)]
+    n = plan.width * plan.height
+    per_plane = [float((kp[a * n:b * n] == kk[a * n:b * n]).double().mean()) for a, b in planes]
+    require(bytes_eq >= K4_BYTES and nan_same,
+            f"{tag}: K4 disagrees with its plain version (bytes equal {bytes_eq:.6f}, vis "
+            f"{f_vis:.6f}, oct {f_oct:.6f}, depth {f_dep:.6f}, hdr {f_hdr:.6f}, NaN masks "
+            f"equal {nan_same})")
+    res["K4 resolve"] = (float(np.nanmax(np.abs(hr - hg))),
+                         f"vis {f_vis:.6f}, oct {f_oct:.6f}, depth {f_dep:.6f}, hdr {f_hdr:.6f}"
+                         f" within a step; bytes equal {bytes_eq:.6f} (vis, oct, depth, rgbe: "
+                         + ", ".join(f"{x:.6f}" for x in per_plane) + ")",
+                         *times(lambda: ts._resolve_kernel(plan, acc, 2),
+                                lambda: ts.resolve_plain(plan, acc, 2), 20))
+    return res
+
+
+def phase_sweep_kernels():
+    """K1-K4 against their plain versions on the card, small scene; then a
+    4-frame sweep render on the card against the plain one on the CPU."""
+    import torch
+
+    import forge3d_tpu_torch as f3t
+
+    cam = dict(origin=(64.0, 44.0, 180.0), look_at=(64.0, 0.0, 64.0), fov_y=42.0)
+    dem = sine_dem(SMALL_N, 2.0)
+    plan, scene, rot, jit = sweep_setup(dem, SMALL_W, SMALL_H, cam, torch.device("cuda"))
+    for name, (err, text, _, _) in compare_sweep_kernels("small scene", plan, scene, rot,
+                                                         jit).items():
+        say("sweep kernels", f"{name}: {text}, max |err| {err:.3e}")
+    kw = dict(spp=1, traversal="sweep", seed=5)
+    a = f3t.hybrid_render_terrain_reference(dem, SMALL_W, SMALL_H, cam, device="cpu", **kw)
+    b = f3t.hybrid_render_terrain_reference(dem, SMALL_W, SMALL_H, cam, device="cuda", **kw)
+    du = np.abs(a["rgba"].astype(np.int32) - b["rgba"].astype(np.int32)).max(-1)
+    within = float((du <= 1).mean())
+    nan_same = float((np.isnan(a["depth"]) == np.isnan(b["depth"])).mean())
+    say("sweep kernels", f"{a['frames']}-frame sweep render {SMALL_W}x{SMALL_H}: rgba within "
+                         f"1 u8 on {within:.6f}, max step {int(du.max())}, frames "
+                         f"{a['frames']}/{b['frames']}, depth NaN masks agree on {nan_same:.6f}")
+    require(within >= U8_FRAC and a["frames"] == b["frames"] and nan_same >= HIT_AGREE,
+            "sweep render on the card disagrees with the plain render")
+
+
+def _sweep_counters():
+    from forge3d_tpu_torch.ops import sweep as sw
+    from forge3d_tpu_torch.pt import terrain_sweep as ts
+
+    return {"K1 rotate_heights": sw.rotate_heights, "K2 sweep_lighting": sw.sweep_lighting,
+            "K3 polar_frame": ts.polar_frame, "K4 resolve": ts.resolve}
+
+
+def _same_render(a, b) -> bool:
+    return all(np.array_equal(a[k], b[k], equal_nan=True)
+               for k in ("rgba", "hdr", "depth", "normal")) and a["frames"] == b["frames"]
+
+
+def phase_sweep_render(dem):
+    """bench.py's sweep calls at full width; returns the main path's
+    launch counts (the timed single render)."""
+    import torch
+
+    import forge3d_tpu_torch as f3t
+
+    kw = dict(spp=2, device="cuda")
+    counters = _sweep_counters()
+    t0 = time.perf_counter()
+    warm = f3t.hybrid_render_terrain_reference(dem, REAL_W, REAL_H, BENCH_CAM,
+                                               traversal="sweep", **kw)
+    say("sweep render", f"warm render {REAL_W}x{REAL_H}: {time.perf_counter() - t0:.4f} s")
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = f3t.hybrid_render_terrain_reference(dem, REAL_W, REAL_H, BENCH_CAM,
+                                              traversal="sweep", **kw)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in counters.items()}
+    frames = out["frames"]
+    say("sweep render", f"timed render: {dt:.4f} s per render (rgba not yet decoded), "
+                        f"frames {frames}, {REAL_W * REAL_H * 64 / dt / 1e6:.4f} M/s by "
+                        f"bench.py's accounting (W*H*64 / t, not a measured spp), peak "
+                        f"device memory "
+                        f"{torch.cuda.max_memory_allocated()} B, launches {json.dumps(launches)}")
+    require(launches == {"K1 rotate_heights": 1, "K2 sweep_lighting": frames,
+                         "K3 polar_frame": frames, "K4 resolve": 1},
+            f"the sweep render's launches are not one K1, one K2 and K3 per frame, one K4: "
+            f"{launches}")
+    require(out["method"] == "sweep" and frames == 8, "bench sweep render ran the wrong path")
+    same = _same_render(out, warm)
+    std = float(out["rgba"][..., :3].std())
+    hit_frac = float(np.isfinite(out["depth"]).mean())
+    say("sweep render", f"deterministic {same}, rgba std {std:.3f}, hdr finite "
+                        f"{bool(np.isfinite(out['hdr']).all())}, terrain pixels {hit_frac:.4f}")
+    require(same, "two sweep renders with one seed differ")
+    require(out["rgba"].shape == (REAL_H, REAL_W, 4) and std > 5.0
+            and np.isfinite(out["hdr"]).all(), "sweep render is trivial or not finite")
+
+    seeds = [7, 8, 9, 10]
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    seq = f3t.hybrid_render_terrain_sequence(dem, REAL_W, REAL_H, BENCH_CAM, seeds, **kw)
+    for o in seq:
+        o["rgba"]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    seq_launches = {k: c.launches for k, c in counters.items()}
+    say("sweep render", f"sequence of {len(seeds)}, rgba decoded as bench.py times it: "
+                        f"{dt:.4f} s, {dt / len(seeds):.4f} s per render, "
+                        f"{REAL_W * REAL_H * 64 * len(seeds) / dt / 1e6:.4f} M/s by bench.py's "
+                        f"accounting, launches {json.dumps(seq_launches)}")
+    n = len(seeds)
+    require(seq_launches == {"K1 rotate_heights": 1, "K2 sweep_lighting": n * frames,
+                             "K3 polar_frame": n * frames, "K4 resolve": n},
+            f"the sequence's launches are wrong: {seq_launches}")
+    singles = [out] + [f3t.hybrid_render_terrain_reference(dem, REAL_W, REAL_H, BENCH_CAM,
+                                                            traversal="sweep", seed=s, **kw)
+                       for s in seeds[1:]]
+    same = [_same_render(a, b) for a, b in zip(seq, singles)]
+    say("sweep render", f"sequence outputs bit-identical to single calls: {same}")
+    require(all(same), "a sequence output differs from the single call with its seed")
+    return launches
+
+
+def sweep_vs_perray(dem, W, H, cam):
+    """(SSIM, mean |d| in u8 steps, seconds) of the 16-frame sweep render
+    against the per-ray render (restir=False, spp=8, 32-64 frames)."""
+    import forge3d_tpu_torch as f3t
+    from forge3d_tpu_torch.metrics import ssim
+
+    t0 = time.perf_counter()
+    ref = f3t.render_terrain_reference(f3t.TerrainRefDesc(
+        heights=dem, cam_origin=cam["origin"], cam_look_at=cam["look_at"],
+        fov_y_deg=cam["fov_y"], width=W, height=H, spp=8, min_frames=32, max_frames=64,
+        variance_threshold=1e9, restir=False), device="cuda")
+    from forge3d_tpu_torch.pt.terrain_sweep import render_terrain_sweep
+
+    sw = render_terrain_sweep(f3t.TerrainRefDesc(
+        heights=dem, cam_origin=cam["origin"], cam_look_at=cam["look_at"],
+        fov_y_deg=cam["fov_y"], width=W, height=H, spp=1), frames=16, device="cuda")
+    a = ref["rgba"][..., :3].astype(np.float32) / 255
+    b = sw["rgba"][..., :3].astype(np.float32) / 255
+    return ssim(a, b), float(np.abs(a - b).mean() * 255), ref["frames"], \
+        time.perf_counter() - t0
+
+
+def phase_sweep_vs_perray(dem):
+    n = 65
+    yy, xx = np.mgrid[0:n, 0:n].astype(np.float32)
+    small = (6.0 * np.sin(xx * 0.15) * np.cos(yy * 0.12)).astype(np.float32)
+    cam = dict(origin=(32.0, 22.0, 90.0), look_at=(32.0, 0.0, 32.0), fov_y=42.0)
+    s, mad, frames, dt = sweep_vs_perray(small, 128, 96, cam)
+    say("sweep vs per-ray", f"128x96 over 65^2: SSIM {s:.6f}, mean |d| {mad:.4f}/255 "
+                            f"(per-ray frames {frames}; gates SSIM > {SSIM_MIN}, "
+                            f"mean |d| < {MAD_MAX}/255; {dt:.2f} s)")
+    require(s > SSIM_MIN and mad < MAD_MAX, "sweep and per-ray renders disagree at 128x96")
+    s, mad, frames, dt = sweep_vs_perray(dem, REAL_W, REAL_H, BENCH_CAM)
+    say("sweep vs per-ray", f"{REAL_W}x{REAL_H} over {REAL_N}^2 (not gated): SSIM {s:.6f}, "
+                            f"mean |d| {mad:.4f}/255 (per-ray frames {frames}; {dt:.2f} s)")
+
+
+def phase_sweep_timing(dem, launches):
+    """K1-K4 against their plain versions at the bench scene's shapes (the
+    main path's shapes), with phase 6's gates, both timed."""
+    import torch
+
+    plan, scene, rot, jit = sweep_setup(dem, REAL_W, REAL_H, BENCH_CAM, torch.device("cuda"),
+                                        spp=2)
+    rows = []
+    for name, (err, text, ms, plain_ms) in compare_sweep_kernels(
+            "bench scene", plan, scene, rot, jit, timed=True).items():
+        src, rep = REPLACES[name]
+        rows.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
+                     "launches": launches[name], "max_abs_err": err, "ms": ms,
+                     "plain_ms": plain_ms})
+        say("sweep timing", f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                            f"max |err| {err:.3e}, {text}")
+    return rows
+
+
+# The JAX package's jax-free host modules that the port may import (and
+# what they import); any other module of it is refused.
+HOST_HELPERS = {"forge3d_tpu", "forge3d_tpu._version", "forge3d_tpu.errors",
+                "forge3d_tpu.camera", "forge3d_tpu.mem", "forge3d_tpu.device",
+                "forge3d_tpu.degradation", "forge3d_tpu.assurance",
+                "forge3d_tpu.assurance.certificate", "forge3d_tpu.assurance.ed25519"}
+
+
 def _jax_modules():
     return [m for m in sys.modules
-            if m == "jax" or m.startswith(("jax.", "jaxlib", "forge3d_tpu.pt"))]
+            if m.split(".")[0] in ("jax", "jaxlib")
+            or (m.split(".")[0] == "forge3d_tpu" and m not in HOST_HELPERS)]
 
 
 def main() -> int:
@@ -407,12 +745,17 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 say("build", line.strip())
 
+    torch.backends.cuda.matmul.allow_tf32 = False   # plain versions' einsums in float32
     phase_kernels()
     launches, dem = phase_render()
     rows = phase_timing(dem, launches)
+    phase_sweep_kernels()
+    sweep_launches = phase_sweep_render(dem)
+    phase_sweep_vs_perray(dem)
+    rows += phase_sweep_timing(dem, sweep_launches)
 
     loaded = sorted(set(_jax_modules()) - preloaded)
-    require(not loaded, f"imported modules of JAX or the JAX path tracer: {loaded}")
+    require(not loaded, f"imported JAX or modules of the JAX package: {loaded}")
     print(json.dumps({"kernels": rows}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

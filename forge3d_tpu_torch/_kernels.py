@@ -32,6 +32,10 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 
+# Shared-memory bytes per CTA above which K2 and K3 keep their rows in
+# device memory instead (the same code, through another pointer).
+SMEM_LIMIT = 160 * 1024
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint
@@ -73,7 +77,47 @@ class FrameArgs(ctypes.Structure):
     ]
 
 
+class RotArgs(ctypes.Structure):
+    """Mirror of `RotArgs` in csrc/sweep.cuh (K1)."""
+
+    _fields_ = [("heights", _P), ("dem_w", _I), ("dem_h", _I), ("n_v", _I), ("n_u", _I)] + [
+        (n, _F) for n in ("u0", "v0", "spacing", "cam_x", "cam_z", "eu0", "eu2", "ev0", "ev2",
+                          "ox", "oz", "sx", "sz", "ex", "ex_sx", "ex_sz")]
+
+
+class PolarArgs(ctypes.Structure):
+    """Mirror of `PolarArgs` in csrc/sweep.cuh (K3): the polar plan, the
+    rotated grid, the scene's shading constants and the frame's jitter."""
+
+    _fields_ = [("env_rgb", _P), ("env_w", _I), ("env_h", _I), ("env_intensity", _F)] + [
+        (n, _I) for n in ("n_v", "n_u", "K", "A", "E", "r1", "r2", "dem_w", "dem_h",
+                          "shadows")] + [
+        (n, _F) for n in ("t_lo", "t_step", "y_step", "fv", "uvhh", "fy", "uyhh", "cam_y",
+                          "cam_iu", "cam_iv", "spacing", "base", "row0", "u0", "v0",
+                          "cam_x", "cam_z", "eu0", "eu2", "ev0", "ev2", "v0ev0", "v0ev2",
+                          "sx", "sz", "ex", "ex_sx", "ex_sz", "xmax", "zmax")] + [
+        ("sun", _F3), ("lc", _F3), ("alb", _F3), ("eps", _F),
+        ("xi", _F), ("ja", _F), ("je", _F)]
+
+
+class ResolveArgs(ctypes.Structure):
+    """Mirror of `ResolveArgs` in csrc/sweep.cuh (K4)."""
+
+    _fields_ = [(n, _I) for n in ("A", "E", "row_ss", "width", "height")] + [
+        (n, _F) for n in ("hw", "t_lo", "t_step", "n_frames")] + [
+        (n, ctypes.c_double) for n in ("fv", "uvhh", "y_step")]
+
+
 _SIGNATURES = {
+    # (rot, h_rot, du, dv, stream)
+    "f3d_rotate_heights": [ctypes.POINTER(RotArgs), _P, _P, _P, _P],
+    # (h, du, dv, V, U, tasks, n_tasks, table, nb_max, zglob, partial,
+    #  n_planes, e_sky, z_sun, stream)
+    "f3d_sweep_lighting": [_P, _P, _P, _I, _I, _P, _I, _P, _I, _P, _P, _I, _P, _P, _P],
+    # (polar, h_rot, e_sky, z_sun, corners, acc, scratch, stream)
+    "f3d_polar_frame": [ctypes.POINTER(PolarArgs)] + [_P] * 7,
+    # (resolve, acc, out, stream)
+    "f3d_resolve": [ctypes.POINTER(ResolveArgs), _P, _P, _P],
     # (scene, rox, roy, roz, rdx, rdy, rdz, n, tmin, tmax,
     #  hit, t, cell_x, cell_z, stream)
     "f3d_trace": [ctypes.POINTER(SceneArgs)] + [_P] * 6 + [_I, _F, _F] + [_P] * 5,

@@ -1,10 +1,13 @@
 # forge3d_tpu_torch/convert.py
 # Carry state across from the JAX package as numpy arrays, so that a test
-# can feed both implementations identical scene tables and reservoir
-# history. Takes numpy arrays (or anything np.asarray accepts) and never
+# can feed both implementations identical scene tables, reservoir history,
+# sweep plans and sweep intermediates (rotated grid, sweep maps, polar
+# accumulator). Takes numpy arrays (or anything np.asarray accepts) and never
 # imports jax.
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -51,3 +54,30 @@ def reservoirs_from_numpy(fields: dict, device="cpu") -> Reservoirs:
             a = a.astype(np.float32)
         out[name] = torch.as_tensor(np.array(a, copy=True), device=device)
     return Reservoirs(**out)
+
+
+def sweep_plan_from_jax_fields(plan, rg: dict, ps: dict):
+    """`plan` (a SweepPlan of the same scene) with the JAX RotGridStatic and
+    PolarStatic fields by name in place of its own geometry, so that a test
+    runs the port's plain versions on exactly the JAX side's plan."""
+    from .ops import polarscan, sweep
+
+    rgs = sweep.RotGridStatic(**{k: tuple(v) if isinstance(v, (list, tuple)) else v
+                                 for k, v in rg.items()})
+    pss = polarscan.PolarStatic(**{k: tuple(v) if isinstance(v, (list, tuple)) else v
+                                   for k, v in ps.items()})
+    return dataclasses.replace(plan, rg=rgs, ps=pss, rot=sweep.RotateArgs.make(
+        rgs, (0.0, 0.0), plan.spacing, plan.cam_xz, plan.exaggeration))
+
+
+def tensor(a, device="cpu", dtype=np.float32) -> torch.Tensor:
+    """A JAX-side intermediate (h_rot, du, dv, e_sky, z_sun, the corner
+    pack, the polar accumulator, ...) as a contiguous tensor."""
+    return torch.as_tensor(np.array(a, dtype=dtype, copy=True), device=device)
+
+
+def sweep_maps(e_sky, z_sun, device="cpu"):
+    """JAX SweepMaps fields as the port's SweepMaps."""
+    from .ops.sweep import SweepMaps
+
+    return SweepMaps(e_sky=tensor(e_sky, device), z_sun=tensor(z_sun, device))

@@ -1,6 +1,8 @@
 # forge3d_tpu_torch/ops/rng.py
-# Per-pixel u32 xorshift32 stream of the terrain path tracer, bit for bit
-# the stream of forge3d_tpu/ops/rng.py.
+# Random streams, bit for bit those of the JAX package: the per-pixel u32
+# xorshift32 stream of the per-ray path tracer (forge3d_tpu/ops/rng.py),
+# and jax.random's threefry key stream, which the sweep estimator draws its
+# per-frame jitter from (below).
 #
 # PyTorch on the CPU has no `<<` for uint32, so the plain versions hold each
 # u32 word in an int64 tensor and mask to 32 bits after every shift and
@@ -9,6 +11,7 @@
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .shading import sqrt32
@@ -52,3 +55,73 @@ def tent_offset(u: torch.Tensor) -> torch.Tensor:
 def derive_seed_lo(seed: int) -> int:
     """seed_lo companion word of the per-pixel seed."""
     return (int(seed) ^ 0x85EBCA6B) & MASK32
+
+
+# ---------------------------------------------------------------------------
+# Threefry-2x32: jax.random's default key stream (jax 0.9 defaults, with
+# jax_threefry_partitionable=True), as far as the sweep estimator draws from
+# it. Keys are numpy uint32 pairs; everything runs on the host, in numpy,
+# which has uint32 shifts.
+# ---------------------------------------------------------------------------
+
+_U32 = np.uint32
+_ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def _rotl(v, r: int):
+    return (v << _U32(r)) | (v >> _U32(32 - r))
+
+
+def threefry2x32(key, x1, x2):
+    """The 20-round Threefry-2x32 hash of the counter pairs (x1, x2) under
+    `key`; returns the two output words (arrays shaped like x1)."""
+    k1, k2 = _U32(key[0]), _U32(key[1])
+    ks = (k1, k2, k1 ^ k2 ^ _U32(0x1BD11BDA))
+    x = [np.asarray(x1, _U32) + ks[0], np.asarray(x2, _U32) + ks[1]]
+    with np.errstate(over="ignore"):
+        for i in range(5):
+            for r in _ROT[i % 2]:
+                x[0] = x[0] + x[1]
+                x[1] = _rotl(x[1], r)
+                x[1] = x[0] ^ x[1]
+            x[0] = x[0] + ks[(i + 1) % 3]
+            x[1] = x[1] + ks[(i + 2) % 3] + _U32(i + 1)
+    return x[0], x[1]
+
+
+def prng_key(seed: int) -> np.ndarray:
+    """jax.random.PRNGKey for a 32-bit seed: the pair [0, seed]."""
+    return np.array([0, int(seed) & MASK32], _U32)
+
+
+def fold_in(key, data: int) -> np.ndarray:
+    """jax.random.fold_in: the hash of the counter pair [0, data]."""
+    a, b = threefry2x32(key, _U32(0), _U32(int(data) & MASK32))
+    return np.array([a, b], _U32)
+
+
+def _counters(shape):
+    """iota_2x32_shape: the row-major index of each element as (hi, lo)
+    words."""
+    n = int(np.prod(shape, dtype=np.int64))
+    idx = np.arange(n, dtype=np.uint64).reshape(shape)
+    return (idx >> np.uint64(32)).astype(_U32), (idx & np.uint64(MASK32)).astype(_U32)
+
+
+def split(key, num: int = 2) -> np.ndarray:
+    """jax.random.split: (num, 2) uint32 keys."""
+    a, b = threefry2x32(key, *_counters((num,)))
+    return np.stack([a, b], axis=1)
+
+
+def random_bits(key, shape=()) -> np.ndarray:
+    """32 random bits per element: bits1 ^ bits2 of the counter hash."""
+    a, b = threefry2x32(key, *_counters(shape))
+    return np.asarray(a ^ b, _U32).reshape(shape)
+
+
+def uniform(key, shape=()) -> np.ndarray:
+    """jax.random.uniform(key, shape, float32) on [0, 1): the top 23 bits as
+    the mantissa of a float in [1, 2), minus 1."""
+    bits = (random_bits(key, shape) >> _U32(9)) | _U32(0x3F800000)
+    return np.maximum(np.float32(0.0), bits.view(np.float32) - np.float32(1.0))

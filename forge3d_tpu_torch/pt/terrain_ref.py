@@ -1,6 +1,8 @@
 # forge3d_tpu_torch/pt/terrain_ref.py
-# The converged path-traced terrain reference, per-ray estimator
-# (forge3d_tpu/pt/terrain_ref.py with traversal="dda"), on PyTorch.
+# The converged path-traced terrain reference (forge3d_tpu/pt/terrain_ref.py)
+# on PyTorch: the per-ray estimator (traversal="dda") here, and the
+# dispatch of traversal="sweep" and hybrid_render_terrain_sequence to the
+# sweep estimator (pt/terrain_sweep.py).
 #
 # One render: the center-ray G-buffer (K5 trace + K8 resolve), then per
 # frame the frame kernel K6 (all spp samples of every pixel: jittered
@@ -46,7 +48,6 @@ WELFORD_WINDOW = 32
 
 # Where the parts of the JAX entry that this package does not run yet are
 # scheduled (ROADMAP.md, queue 1).
-_TODO_SWEEP = "traversal='sweep' is not ported yet (ROADMAP queue 1 item 3: the sweep estimator)"
 _TODO_MESH = "meshes are not ported yet (ROADMAP queue 1 item 5: per-ray extras, kernel K9)"
 _TODO_LIGHTS = "typed lights are not ported yet (ROADMAP queue 1 item 5: per-ray extras, kernel K10)"
 
@@ -499,7 +500,19 @@ def render_terrain_reference(desc: TerrainRefDesc, *, device="cuda") -> dict:
     """Render the converged terrain reference; raises ConvergenceError
     rather than returning a non-converged image."""
     if desc.traversal == "sweep":
-        raise NotImplementedError(_TODO_SWEEP)
+        # the sweep estimator (pt/terrain_sweep.py): the same converged
+        # integral as restir=False per-ray NEE
+        if desc.lights:
+            raise RenderError(
+                "traversal='sweep' integrates sun+env only; typed lights "
+                "need traversal='dda'/'mxu' (alias-table NEE)")
+        if desc.mesh is not None:
+            raise RenderError(
+                "traversal='sweep' cannot trace mesh geometry; use "
+                "traversal='dda'/'mxu' for hybrid terrain+mesh scenes")
+        from .terrain_sweep import render_terrain_sweep
+
+        return render_terrain_sweep(desc, device=device)
     if desc.mesh is not None:
         raise NotImplementedError(_TODO_MESH)
     if desc.lights:
@@ -637,7 +650,9 @@ def hybrid_render_terrain_reference(
 ) -> dict:
     """Public entry: the signature, defaults and output dict of
     forge3d_tpu's hybrid_render_terrain_reference, plus the keyword
-    `device` ("cuda" runs the kernels, "cpu" the plain versions)."""
+    `device` ("cuda" runs the kernels, "cpu" the plain versions). A scene
+    with a mesh falls back from traversal="sweep" to the per-ray engine, as
+    in the JAX package; meshes themselves are not ported yet."""
     if mesh_vertices is not None or mesh_indices is not None:
         raise NotImplementedError(_TODO_MESH)
     if sun_color is None:
@@ -679,3 +694,41 @@ def hybrid_render_terrain_reference(
 
         emit_certificate(certificate, "hybrid_render_terrain_reference", out)
     return out
+
+
+def hybrid_render_terrain_sequence(heightmap, width: int, height: int, cam: dict, seeds,
+                                   *, device="cuda", **kwargs) -> "list[dict]":
+    """One converged sweep render per seed over a fixed scene (the JAX
+    package's hybrid_render_terrain_sequence), rendered in order; each
+    output dict is bit-identical to the single call with that seed.
+    Accepts the same keyword arguments as the JAX function, plus `device`."""
+    kwargs.pop("traversal", None)
+    sun_color = kwargs.pop("sun_color", None) or (1.0, 0.97, 0.92)
+    spacing = kwargs.pop("spacing", (1.0, 1.0))
+    desc = TerrainRefDesc(
+        heights=np.asarray(heightmap, np.float32),
+        spacing=(float(spacing[0]), float(spacing[1])),
+        exaggeration=float(kwargs.pop("exaggeration", 1.0)),
+        albedo=tuple(float(a) for a in kwargs.pop("albedo", (0.6, 0.6, 0.6))),
+        cam_origin=tuple(float(v) for v in cam.get("origin", (0.0, 50.0, 120.0))),
+        cam_look_at=tuple(float(v) for v in cam.get("look_at", (0.0, 0.0, 0.0))),
+        cam_up=tuple(float(v) for v in cam.get("up", (0.0, 1.0, 0.0))),
+        fov_y_deg=float(cam.get("fov_y", 45.0)),
+        exposure=float(cam.get("exposure", 1.0)),
+        sun_azimuth_deg=float(kwargs.pop("sun_azimuth_deg", 315.0)),
+        sun_elevation_deg=float(kwargs.pop("sun_elevation_deg", 45.0)),
+        sun_intensity=float(kwargs.pop("sun_intensity", 2.5)),
+        sun_color=tuple(float(c) for c in sun_color),
+        env_map=None,
+        env_intensity=float(kwargs.pop("env_intensity", 0.35)),
+        width=int(width),
+        height=int(height),
+        seed=int(seeds[0]) & MASK32 if len(seeds) else 7,
+        spp=int(kwargs.pop("spp", 1)),
+        traversal="sweep",
+    )
+    if kwargs:
+        raise TypeError(f"unsupported sequence kwargs: {sorted(kwargs)}")
+    from .terrain_sweep import render_terrain_sweep_sequence
+
+    return render_terrain_sweep_sequence(desc, list(seeds), device=device)

@@ -1,12 +1,13 @@
 # The CUDA kernels' code against the plain PyTorch versions, on two
 # backends:
 # - "host": the per-thread bodies of the kernels (forge3d_tpu_torch/csrc/
-#   common.cuh) compiled for the CPU with g++ and driven through the kernel
-#   wrappers' launch code. This checks the CUDA sources' arithmetic, the
+#   common.cuh, sweep.cuh) compiled for the CPU with g++ and driven through
+#   the kernel wrappers' launch code. This checks the CUDA sources' arithmetic, the
 #   ctypes argument blocks and the wrappers without a GPU; it cannot show
 #   that nvcc builds the kernels or that they run on the card. The host
 #   launchers below loop over the threads in order, as the CUDA launchers in
-#   kernels.cu run them in parallel.
+#   kernels.cu and sweep.cu run them in parallel (the sweep launchers step
+#   rows in the order the CTAs' barriers impose).
 # - "cuda": the kernels themselves, built with nvcc, on a GPU. These cases
 #   carry the `cuda` marker and skip without a CUDA device; on the card run
 #   `python -m pytest tests/test_torch_kernels.py -m cuda`.
@@ -27,9 +28,11 @@ import torch
 
 from forge3d_tpu_torch import _kernels
 from forge3d_tpu_torch.ops import restir as rst
+from forge3d_tpu_torch.ops import sweep as sw
 from forge3d_tpu_torch.ops import traversal as tv
 from forge3d_tpu_torch.ops.shading import env_map
 from forge3d_tpu_torch.pt import terrain_ref as tr
+from forge3d_tpu_torch.pt import terrain_sweep as ts
 
 torch.set_num_threads(1)
 
@@ -37,6 +40,8 @@ FRAC = 0.999
 
 HOST_LAUNCHERS = r"""
 #include "common.cuh"
+#include "sweep.cuh"
+#include <vector>
 extern "C" {
 int f3d_trace(const SceneArgs* s, const float* rox, const float* roy, const float* roz,
               const float* rdx, const float* rdy, const float* rdz, int n, float tmin,
@@ -76,6 +81,80 @@ int f3d_center_gbuffer(const SceneArgs* s, int n, const float* cam_o, const floa
     return 0;
 }
 const char* f3d_error_string(int) { return "host build"; }
+int f3d_rotate_heights(const RotArgs* r, float* h_rot, float* du, float* dv, void*) {
+    for (int iv = 0; iv < r->n_v; ++iv)
+        for (int iu = 0; iu < r->n_u; ++iu) {
+            int i = iv * r->n_u + iu;
+            rotate_node(*r, iv, iu, h_rot[i], du[i], dv[i]);
+        }
+    return 0;
+}
+int f3d_sweep_lighting(const float* h, const float* du, const float* dv, int V, int U,
+                       const int* tasks, int n_tasks, const float* table, int, float*,
+                       float* partial, int n_planes, float* e_sky, float* z_sun, void*) {
+    const SweepTask* T = reinterpret_cast<const SweepTask*>(tasks);
+    const SweepBin* B = reinterpret_cast<const SweepBin*>(table);
+    for (int ti = 0; ti < n_tasks; ++ti) {
+        const SweepTask t = T[ti];
+        const int R = sweep_rows(t.q, V, U), Cw = sweep_width(t.q, V, U);
+        std::vector<float> za(t.nb * Cw, F3D_NEG), zb(t.nb * Cw);
+        for (int r = 0; r < R; ++r) {
+            for (int j = 1; j < t.ss; ++j) {
+                const float f = (float)((double)j / (double)t.ss);
+                for (int i = 0; i < t.nb * Cw; ++i) {
+                    int b = i / Cw, c = i - b * Cw;
+                    zb[i] = sweep_substep(h, t.q, r, c, V, U, f, za.data() + b * Cw, Cw,
+                                          B[t.bin0 + b]);
+                }
+                za.swap(zb);
+            }
+            for (int c = 0; c < Cw; ++c)
+                sweep_column(h, du, dv, V, U, t, B + t.bin0, r, c, za.data(), zb.data(),
+                             partial, z_sun);
+            za.swap(zb);
+        }
+    }
+    for (size_t i = 0; i < (size_t)V * U; ++i) sweep_reduce(partial, n_planes, (size_t)V * U, i, e_sky);
+    return 0;
+}
+int f3d_polar_frame(const PolarArgs* pa, const float* h_rot, const float* e_sky,
+                    const float* z_sun, const float* corners, float* acc, float*, void*) {
+    const PolarArgs& p = *pa;
+    const int K = p.K;
+    std::vector<float> M(K), v((size_t)K * 9), hp(K);
+    for (int a = 0; a < p.A; ++a) {
+        const float t = azimuth_t(p, a);
+        int k_first = K;
+        for (int k = 0; k < K; ++k) {
+            hp[k] = sample_values(p, h_rot, e_sky, z_sun, corners, k, t, M[k], &v[k * 9]);
+            if (hp[k] > -1e20f && k < k_first) k_first = k;
+        }
+        Edge e = edge_sample(p, h_rot, e_sky, z_sun, corners, k_first, t);
+        if (e.can) {
+            M[e.slot] = e.q;
+            for (int c = 0; c < 7; ++c) v[e.slot * 9 + c] = e.v[c];
+        }
+        float run = -INFINITY;
+        for (int k = 0; k < K; ++k) {
+            bool valid = hp[k] > -1e20f, valid_prev = k > 0 && hp[k - 1] > -1e20f;
+            v[k * 9 + 8] = e.can ? (k == e.slot ? 1.0f : 0.0f) : (valid && !valid_prev ? 1.0f : 0.0f);
+            run = fmaxf(run, M[k]);
+            M[k] = run;
+        }
+        for (int row = 0; row < p.E; ++row)
+            polar_row(p, M.data(), v.data(), a, row, t, e.h_ent, e.s_ent, acc);
+    }
+    return 0;
+}
+int f3d_resolve(const ResolveArgs* r, const float* acc, unsigned char* out, void*) {
+    for (int y = 0; y < r->height; ++y)
+        for (int x = 0; x < r->width; ++x) resolve_pixel(*r, acc, x, y, out);
+    return 0;
+}
+// test entry: synthesize_polar's contraction for one column and row
+float f3d_test_crossing(const float* M, const float* v, int K, int C, float Q, float* out) {
+    return crossing(M, v, C, C, K, Q, out);
+}
 }
 """
 
@@ -223,3 +302,172 @@ def test_render_on_card_matches_plain_render(kw):
     du = np.abs(a["rgba"].astype(np.int32) - b["rgba"].astype(np.int32)).max(-1)
     assert (du <= 1).mean() >= 0.995
     np.testing.assert_array_equal(np.isnan(a["depth"]), np.isnan(b["depth"]))
+
+
+# ---------------------------------------------------------------------------
+# The sweep estimator's kernels K1-K4 (csrc/sweep.cuh) against their plain
+# versions, on the 128x96 / 65^2 scene of tests/test_sweep.py.
+# Tolerances: K1 and K3 floats |d| <= 1e-5 * (1 + |ref|) on >= 99.9% of
+# elements with equal -1e30 masks; K2 z_sun on >= 99.9% and e_sky on
+# >= 99.5% (the kernel sums the sky bins per stratum and the plain version
+# per quadrant); K4 bytes within one step on >= 99.9% of pixels.
+# ---------------------------------------------------------------------------
+
+
+def sweep_case(device, env=None, sun_elevation_deg=45.0):
+    n = 65
+    y, x = np.mgrid[0:n, 0:n].astype(np.float32)
+    dem = (6.0 * np.sin(x * 0.15) * np.cos(y * 0.12)).astype(np.float32)
+    desc = tr.TerrainRefDesc(heights=dem, cam_origin=(32.0, 22.0, 90.0),
+                             cam_look_at=(32.0, 0.0, 32.0), fov_y_deg=42.0, width=128,
+                             height=96, env_map=env, env_intensity=0.8,
+                             sun_elevation_deg=sun_elevation_deg)
+    plan = ts.plan_for(desc)
+    scene = ts.make_scene(desc, device)
+    rot = sw.rotate_heights_plain(scene.heights, plan.rot)
+    jit = ts.frame_jitters(5, 2)[1]
+    return plan, scene, rot, jit
+
+
+ENV = np.random.default_rng(4).uniform(0, 2, (8, 16, 3)).astype(np.float32)
+
+
+def test_rotate_heights_kernel(kernels):
+    plan, scene, rot, _ = sweep_case(kernels)
+    before = sw.rotate_heights.launches
+    got = sw._rotate_kernel(scene.heights, plan.rot)
+    assert sw.rotate_heights.launches == before + 1
+    for a, b in zip(rot, got):
+        assert close_frac(a, b) >= FRAC
+    assert torch.equal(rot[0] < -1e20, got[0] < -1e20)
+
+
+@pytest.mark.parametrize("global_rows", [False, True], ids=["shared_rows", "global_rows"])
+def test_sweep_lighting_kernel(kernels, global_rows, monkeypatch):
+    plan, scene, rot, jit = sweep_case(kernels, env=ENV)
+    bins = ts.frame_bins(plan, scene, jit)
+    ref = sw.sweep_lighting_plain(*rot, bins)
+    if global_rows:  # a limit of 0 sends the rows to device memory
+        monkeypatch.setattr(_kernels, "SMEM_LIMIT", 0)
+    got = sw._sweep_kernel(*rot, bins)
+    assert close_frac(ref.z_sun, got.z_sun) >= FRAC
+    assert close_frac(ref.e_sky, got.e_sky) >= 0.995
+    assert float(got.e_sky.max()) > 0.0
+
+
+def test_sweep_lighting_kernel_sun_only(kernels):
+    plan, scene, rot, jit = sweep_case(kernels, sun_elevation_deg=20.0)
+    bins = sw.sweep_bins(strata=sw.make_strata(4, 1), key=jit.k_sky, env=scene.env_host,
+                         e_u=plan.rg.e_u, e_v=plan.rg.e_v, sun_world=plan.sun_w,
+                         spacing=plan.rg.spacing, sun_only=True)
+    ref = sw.sweep_lighting_plain(*rot, bins)
+    got = sw._sweep_kernel(*rot, bins)
+    assert close_frac(ref.z_sun, got.z_sun) >= FRAC
+    assert float(got.e_sky.abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("env", [None, ENV], ids=["constant_env", "env_map"])
+def test_polar_frame_kernel(kernels, env):
+    plan, scene, rot, jit = sweep_case(kernels, env=env)
+    maps = sw.sweep_lighting_plain(*rot, ts.frame_bins(plan, scene, jit))
+    ps = plan.ps
+    acc0 = torch.rand((ps.e_count, ps.a_count, 9), generator=torch.Generator().manual_seed(0))
+    acc0 = acc0.to(kernels)
+    ref = acc0 + ts.frame_polar_plain(plan, scene, rot[0], maps, jit.xi, jit.ja, jit.je)
+    before = ts.polar_frame.launches
+    got = ts._polar_kernel(plan, scene, acc0.clone(), rot[0], maps, jit.xi, jit.ja, jit.je)
+    assert ts.polar_frame.launches == before + 1
+    assert close_frac(ref, got) >= FRAC
+    with pytest.MonkeyPatch.context() as mp:  # the column's profile in device memory
+        mp.setattr(_kernels, "SMEM_LIMIT", 0)
+        got_g = ts._polar_kernel(plan, scene, acc0.clone(), rot[0], maps, jit.xi, jit.ja, jit.je)
+    assert torch.equal(got, got_g)
+
+
+def decode(packed, W, H):
+    """(vis, oct, depth, hdr) of a packed buffer, as numpy."""
+    desc = tr.TerrainRefDesc(heights=np.zeros((2, 2), np.float32), width=W, height=H)
+    out = ts._unpack_render(desc, packed.cpu().numpy(), 1)
+    buf = packed.cpu().numpy()
+    return buf[:W * H], buf[W * H:3 * W * H], out["depth"], out["hdr"]
+
+
+def test_resolve_kernel(kernels):
+    plan, scene, rot, _ = sweep_case(kernels)
+    acc = torch.zeros((plan.ps.e_count, plan.ps.a_count, 9), device=kernels)
+    for jit in ts.frame_jitters(3, 2):
+        maps = sw.sweep_lighting_plain(*rot, ts.frame_bins(plan, scene, jit))
+        acc += ts.frame_polar_plain(plan, scene, rot[0], maps, jit.xi, jit.ja, jit.je)
+    ref = ts.resolve_plain(plan, acc, 2)
+    got = ts._resolve_kernel(plan, acc, 2)
+    assert got.dtype == torch.uint8 and got.shape == ref.shape
+    W, H = plan.width, plan.height
+    (vr, orf, dr, hr), (vg, og, dg, hg) = decode(ref, W, H), decode(got, W, H)
+    assert (np.abs(vr.astype(int) - vg.astype(int)) <= 1).mean() >= FRAC
+    assert (np.abs(orf.astype(int) - og.astype(int)) <= 1).mean() >= FRAC
+    np.testing.assert_array_equal(np.isnan(dr), np.isnan(dg))
+    hit = ~np.isnan(dr)
+    assert (np.abs(dr[hit] - dg[hit]) <= 1e-3 * np.abs(dr[hit])).mean() >= FRAC
+    assert (np.abs(hr - hg) <= 1.0 / 128 * np.abs(hr).max(-1, keepdims=True)).mean() >= FRAC
+    assert (ref == got).double().mean() >= FRAC
+
+
+def dense_crossing(M, v, Q):
+    """synthesize_polar's dense contraction for one column (float32)."""
+    f = np.float32
+    m_next = np.concatenate([M[1:], M[-1:]])
+    rden = (f(1.0) / np.maximum(m_next - M, f(1e-9))).astype(f)
+    alpha = np.clip((m_next - f(Q)) * rden, f(0), f(1)).astype(f)
+    cross = alpha - np.concatenate([[f(0)], alpha[:-1]]).astype(f)
+    return (cross[:, None] * v).sum(0, dtype=np.float64), alpha[-1]
+
+
+def test_crossing_search_matches_dense_contraction(host_lib):
+    """K3's binary-search crossing against the dense soft-indicator
+    contraction, on random monotone profiles with plateaus (including
+    steps below 1e-9) and row tangents exactly on profile values."""
+    lib = host_lib
+    lib.f3d_test_crossing.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                                      ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+    lib.f3d_test_crossing.restype = ctypes.c_float
+    rng = np.random.default_rng(11)
+    worst = 0.0
+    for trial in range(300):
+        K = int(rng.integers(2, 80))
+        steps = rng.exponential(0.05, K).astype(np.float32)
+        steps[rng.random(K) < 0.4] = 0.0                       # plateaus
+        steps[rng.random(K) < 0.1] = np.float32(3e-10)         # sub-1e-9 steps
+        q = (np.float32(-0.4) + np.cumsum(steps, dtype=np.float32)).astype(np.float32)
+        q[0] = np.float32(-1e4) if trial % 3 == 0 else q[0]
+        M = np.maximum.accumulate(q).astype(np.float32)
+        v = rng.standard_normal((K, 3)).astype(np.float32)
+        Qs = list(rng.uniform(M[0] - 0.1, M[-1] + 0.1, 6).astype(np.float32)) + [
+            M[int(rng.integers(0, K))], M[-1], M[0] - np.float32(1e-3)]
+        for Q in Qs:
+            out = np.zeros(3, np.float32)
+            hit = lib.f3d_test_crossing(M.ctypes.data, v.ctypes.data, K, 3, float(Q),
+                                        out.ctypes.data)
+            ref, ref_hit = dense_crossing(M, v, Q)
+            assert np.float32(hit) == ref_hit
+            worst = max(worst, float(np.abs(out - ref).max()))
+    assert worst <= 1e-5
+
+
+@pytest.mark.cuda
+def test_sweep_render_on_card_matches_plain():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    y, x = np.mgrid[0:33, 0:33].astype(np.float32)
+    dem = (4.0 * np.sin(x * 0.2) * np.cos(y * 0.17)).astype(np.float32)
+    cam = {"origin": (16.0, 14.0, 46.0), "look_at": (16.0, 0.0, 16.0), "fov_y": 42.0}
+    counters = (sw.rotate_heights, sw.sweep_lighting, ts.polar_frame, ts.resolve)
+    before = [c.launches for c in counters]
+    kw = dict(spp=1, traversal="sweep", seed=3)
+    a = tr.hybrid_render_terrain_reference(dem, 64, 48, cam, device="cpu", **kw)
+    b = tr.hybrid_render_terrain_reference(dem, 64, 48, cam, device="cuda", **kw)
+    frames = b["frames"]
+    assert [c.launches - n for c, n in zip(counters, before)] == [1, frames, frames, 1]
+    assert a["frames"] == frames and b["method"] == "sweep"
+    du = np.abs(a["rgba"].astype(np.int32) - b["rgba"].astype(np.int32)).max(-1)
+    assert (du <= 1).mean() >= 0.995
+    assert (np.isnan(a["depth"]) == np.isnan(b["depth"])).mean() >= 0.999

@@ -40,8 +40,21 @@ SCRIPT = textwrap.dedent("""
         dem, 16, 8, cam, spp=1, max_frames=2, min_frames=2, variance_threshold=1e9,
         certificate={}, device="cpu")
     assert out["rgba"].shape == (8, 16, 4)
+    # the sweep estimator: a 64x48 render and a 2-seed sequence
+    y, x = np.mgrid[0:33, 0:33].astype(np.float32)
+    dem = (4.0 * np.sin(x * 0.2) * np.cos(y * 0.17)).astype(np.float32)
+    cam = {"origin": (16.0, 14.0, 46.0), "look_at": (16.0, 0.0, 16.0), "fov_y": 42.0}
+    sw = f3t.hybrid_render_terrain_reference(dem, 64, 48, cam, traversal="sweep",
+                                             device="cpu")
+    seq = f3t.hybrid_render_terrain_sequence(dem, 64, 48, cam, [7, 8], device="cpu")
+    assert sw["method"] == "sweep" and sw["rgba"].shape == (48, 64, 4)
+    assert len(seq) == 2 and (seq[0]["rgba"] == sw["rgba"]).all()
+    from forge3d_tpu_torch.metrics import ssim
+    assert abs(ssim(seq[0]["rgba"][..., :3], sw["rgba"][..., :3]) - 1.0) < 1e-9
+    # only the JAX package's jax-free host helpers (chip_smoke.HOST_HELPERS)
+    from chip_smoke import HOST_HELPERS
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")
-                    or m.startswith("forge3d_tpu.pt") or m.startswith("forge3d_tpu.ops"))
+                    or (m.split(".")[0] == "forge3d_tpu" and m not in HOST_HELPERS))
     assert not loaded, loaded
     if not preloaded:
         assert "jax" not in sys.modules

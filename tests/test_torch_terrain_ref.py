@@ -218,8 +218,12 @@ def test_unported_features_raise_not_implemented():
     dem = small_dem()
     quad_v = np.array([[10, 8, 20], [38, 8, 20], [38, 22, 20]], np.float32)
     quad_i = np.array([[0, 1, 2]], np.uint32)
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        f3t.hybrid_render_terrain_reference(dem, 32, 24, CAM, traversal="sweep", device="cpu")
+    # traversal="sweep" is ported; with a mesh it falls back to the per-ray
+    # engine, whose mesh path is not
+    with pytest.raises(NotImplementedError, match="item 5"):
+        f3t.hybrid_render_terrain_reference(dem, 32, 24, CAM, traversal="sweep",
+                                            mesh_vertices=quad_v, mesh_indices=quad_i,
+                                            device="cpu")
     with pytest.raises(NotImplementedError, match="item 5"):
         f3t.hybrid_render_terrain_reference(dem, 32, 24, CAM, mesh_vertices=quad_v,
                                             mesh_indices=quad_i, device="cpu")
