@@ -34,7 +34,35 @@ Phases (one line each; any failure exits non-zero):
                 at 128x96 over the 65^2 DEM (SSIM > 0.99, mean |d| < 0.8/255),
                 printed at bench.py's 1080p scene;
   9. sweep timing -- K1-K4 against their plain versions at the bench
-                scene's shapes, with the gates of phase 6, both timed.
+                scene's shapes, with the gates of phase 6, both timed;
+ 10. mesh and light kernels -- on the 256x128 / 129^2 scene with a town of
+                64 boxes and one light of each of the six types: K9 (BVH
+                walk) on center and sun rays and K10 (light sample) on
+                per-pixel inputs against their plain versions, K6 (frames 0
+                and 1) and K8 with the mesh and lights against theirs, and a
+                4-frame hybrid render on the card against the plain render
+                on the CPU;
+ 11. hybrid render -- bench.py's 1080p scene with a 32x32 town of boxes
+                (12,288 triangles) and the six lights, spp=1, 32 frames: a
+                warm and a timed render (bit-identical; K5-K8 launched, K6
+                walked the mesh and sampled the lights in every frame); then
+                the host BVH build timed; K6 (frames 0 and 1) and K8 as the
+                hybrid render runs them (walking the town, sampling the
+                lights), and K9 and K10 alone, against their plain versions
+                at that scene's shapes, with the gates of phases 5 and 10,
+                all timed;
+ 12. engines -- `pt_render_gpu_mesh` (P2) on the same town and
+                `pt_render_gpu` (P1) on the three golden spheres at
+                1920x1080, each launched once, each held against its plain
+                version on the card and timed.
+
+Every kernel's row in the {"kernels": [...]} line carries `bound_ms`, the
+least time the card could take for the same work: the larger of the bytes
+it must move (inputs read once, outputs written once) over 3.35 TB/s and
+its float32 operations over 67 TFLOP/s, counted from this run's shapes and,
+for the loops that end early (the DDA, the BVH walk), from the steps that
+this run's rays took in the plain versions. No single PyTorch call computes
+any of these functions, so `library_ms` is null throughout.
 
 Sweep kernel gates (phases 6 and 9), each set to what the kernel shows
 on the card: K1 bit-identical; K2 every texel of z_sun and e_sky within
@@ -66,21 +94,58 @@ U8_FRAC = 0.995        # rgba within 1 u8 step on >= 99.5% of pixels
 K3_MAX_ERR = 1e-2       # sweep K3: max |err| ...
 K3_COL_FRAC = 0.99     # ... and >= 99% of each azimuth column within FLOAT_TOL
 K4_BYTES = 0.9999      # sweep K4: >= 99.99% of the packed bytes equal
+# engines P1 and P2: every element of every plane within FLOAT_TOL and max
+# |err| <= 1e-4 (the card showed them bit-identical to their plain versions,
+# max |err| 0; the margin leaves an ulp of powf)
+P1_FRAC, P1_MAX_ERR = 1.0, 1e-4
+P2_FRAC, P2_MAX_ERR = 1.0, 1e-4
+# K9 alone: hits and primitives equal on every ray, every t within
+# 1e-6 * (1 + t) and max |dt| <= K9_MAX_DT; K10 alone: every output within
+# FLOAT_TOL and max |err| <= K10_MAX_ERR (the card showed both bit-identical
+# to their plain versions, max |err| 0, at 256x128 and at the bench shapes)
+K9_FRAC, K9_MAX_DT = 1.0, 1e-3
+K10_FRAC, K10_MAX_ERR = 1.0, 1e-3
 
 REPLACES = {
     "K5 trace": ("forge3d_tpu_torch/csrc/kernels.cu", "forge3d_tpu/ops/traversal.py:211"),
     "K6 frame_step": ("forge3d_tpu_torch/csrc/kernels.cu",
                       "forge3d_tpu/pt/terrain_ref.py:174"),
+    # the hybrid instantiation (mesh walk K9 and light sample K10 inside)
+    "K6 frame_step (hybrid)": ("forge3d_tpu_torch/csrc/kernels.cu",
+                               "forge3d_tpu/pt/terrain_ref.py:174"),
     "K7 spatial_reuse": ("forge3d_tpu_torch/csrc/kernels.cu",
                          "forge3d_tpu/ops/restir.py:107"),
     "K8 center_gbuffer": ("forge3d_tpu_torch/csrc/kernels.cu",
                           "forge3d_tpu/pt/terrain_ref.py:472"),
+    "K8 center_gbuffer (hybrid)": ("forge3d_tpu_torch/csrc/kernels.cu",
+                                   "forge3d_tpu/pt/terrain_ref.py:472"),
     "K1 rotate_heights": ("forge3d_tpu_torch/csrc/sweep.cu", "forge3d_tpu/ops/sweep.py:384"),
     "K2 sweep_lighting": ("forge3d_tpu_torch/csrc/sweep.cu", "forge3d_tpu/ops/sweep.py:188"),
     "K3 polar_frame": ("forge3d_tpu_torch/csrc/sweep.cu",
                        "forge3d_tpu/pt/terrain_sweep.py:146"),
     "K4 resolve": ("forge3d_tpu_torch/csrc/sweep.cu", "forge3d_tpu/ops/polarscan.py:325"),
+    "K9 trace_mesh": ("forge3d_tpu_torch/csrc/mesh.cuh", "forge3d_tpu/ops/bvh.py:333"),
+    "K10 sample_light_nee": ("forge3d_tpu_torch/csrc/lights.cuh",
+                             "forge3d_tpu/ops/lightsample.py:101"),
+    "P1 render_spheres": ("forge3d_tpu_torch/csrc/engines.cu",
+                          "forge3d_tpu/pt/megakernel.py:186"),
+    "P2 render_mesh": ("forge3d_tpu_torch/csrc/engines.cu",
+                       "forge3d_tpu/pt/mesh_render.py:49"),
 }
+
+# The card's peaks for the bounds (NVIDIA's H100 SXM data sheet).
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# float32 operations per unit of data-dependent work, counted from the
+# kernels' loop bodies (adds, multiplies, divisions, square roots,
+# comparisons, min/max)
+OPS_DDA_STEP = 50      # common.cuh:trace_ray, one max-mip step
+OPS_LEAF = 80          # common.cuh:leaf_intersect, one bilinear cell solve
+OPS_NODE = 24          # mesh.cuh:trace_mesh_ray, one box test
+OPS_TRIANGLE = 55      # mesh.cuh:moller_trumbore
+OPS_SHADE = 300        # per pixel and sample of K6 besides its rays
+OPS_LIGHT = 80         # lights.cuh:sample_light
+OPS_PBR = 200          # pbr.cuh:shade_pbr
 SSIM_MIN, MAD_MAX = 0.99, 0.8   # tests/test_sweep.py's sweep-vs-per-ray gates
 
 
@@ -174,6 +239,48 @@ def max_abs(ref, got) -> float:
     if not bool(both.any()):
         return 0.0
     return float((ref[both].double() - got[both].double()).abs().max())
+
+
+def bound(nbytes: float, ops: float):
+    """(bound_ms, bound_by): the larger of the memory time and the
+    operation time at the card's peaks."""
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    to = ops / F32_OPS_PER_S * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def work_counters():
+    """Reset, then later read, the plain traversals' work counters."""
+    from forge3d_tpu_torch.ops.bvh import trace_mesh_plain
+    from forge3d_tpu_torch.ops.traversal import trace_plain
+
+    for fn, names in ((trace_plain, ("steps", "leaf_tests")),
+                      (trace_mesh_plain, ("node_visits", "tri_tests"))):
+        for n in names:
+            setattr(fn, n, 0)
+    return lambda: {"steps": trace_plain.steps, "leaf_tests": trace_plain.leaf_tests,
+                    "node_visits": trace_mesh_plain.node_visits,
+                    "tri_tests": trace_mesh_plain.tri_tests}
+
+
+def traced_ops(w) -> float:
+    return (w["steps"] * OPS_DDA_STEP + w["leaf_tests"] * OPS_LEAF
+            + w["node_visits"] * OPS_NODE + w["tri_tests"] * OPS_TRIANGLE)
+
+
+def tensor_bytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def scene_bytes(scene) -> int:
+    return tensor_bytes(scene.h_pair, scene.mm_pack, scene.level_offset, scene.level_w)
+
+
+def kernel_row(name, launches, err, ms, plain_ms, bound_ms, bound_by):
+    src, rep = REPLACES[name]
+    return {"name": name, "route": "cuda", "source": src, "replaces": rep,
+            "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
 def setup(heights, width, height, cam, device, **kw):
@@ -363,22 +470,24 @@ def phase_timing(dem, launches):
     W, H = REAL_W, REAL_H
     rows = []
 
-    def row(name, err, ms, plain_ms, agreement):
-        src, rep = REPLACES[name]
-        rows.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
-                     "launches": launches[name], "max_abs_err": err, "ms": ms,
-                     "plain_ms": plain_ms})
-        say("timing", f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                      f"max |err| {err:.3e}, {agreement}")
+    def row(name, err, ms, plain_ms, agreement, nbytes, ops):
+        bms, by = bound(nbytes, ops)
+        rows.append(kernel_row(name, launches[name], err, ms, plain_ms, bms, by))
+        say("timing", f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.4f} "
+                      f"ms ({by}), max |err| {err:.3e}, {agreement}")
 
+    n = W * H
     o, d = tr._center_rays(ctx)
     hk = tv.trace(ctx.scene, o, d)
+    work = work_counters()
     plain_ms, hp = wall_ms(lambda: tv.trace_plain(ctx.scene, o, d))
+    w5 = work()
     agree, rel = compare_trace("bench scene", hp, hk)
     both = hp.hit & hk.hit
     row("K5 trace", max_abs(hp.t[both], hk.t[both]),
         cuda_ms(lambda: tv.trace(ctx.scene, o, d), 5), plain_ms,
-        f"hit agreement {agree:.6f}, max |dt|/t {rel:.3e}")
+        f"hit agreement {agree:.6f}, max |dt|/t {rel:.3e}",
+        n * (24 + 13) + scene_bytes(ctx.scene), traced_ops(w5))
 
     gk = tr._gbuffer_resolve_kernel(ctx, d, hk)
     gp = tr.gbuffer_resolve_plain(ctx, d, hk)
@@ -386,20 +495,25 @@ def phase_timing(dem, launches):
     row("K8 center_gbuffer", max(max_abs(gp[k], gk[k]) for k in ("normal", "depth")),
         cuda_ms(lambda: tr._gbuffer_resolve_kernel(ctx, d, hk), 20),
         cuda_ms(lambda: tr.gbuffer_resolve_plain(ctx, d, hk), 3),
-        f"AOVs agree on {fr:.6f}")
+        f"AOVs agree on {fr:.6f}",
+        n * (12 + 13 + 44) + scene_bytes(ctx.scene), n * OPS_LEAF)
 
     acc = torch.zeros((H, W, 4), device=dev)
     wf = torch.zeros((H, W, 2), device=dev)
     a0, w0, m0 = tr.frame_step(ctx, acc, wf, rst.Reservoirs.zeros(H * W, dev), 0)
     r0 = rst.spatial_reuse(m0, *gk["gb_n"], W, H, 0, ctx.seed_hi)
+    work = work_counters()
     plain_ms, (pa, pw, pm) = wall_ms(lambda: tr.frame_step_plain(ctx, a0, w0, r0, 1))
+    w6 = work()
     ka, kw_, km = tr.frame_step(ctx, a0, w0, r0, 1)
     fa = min(close_frac(pa, ka), close_frac(pw, kw_))
     require(fa >= FLOAT_FRAC, "bench scene: K6 frame_step disagrees with its plain version")
     fm = compare_reservoirs("bench scene K6", pm, km)
     row("K6 frame_step", max_abs(pa, ka),
         cuda_ms(lambda: tr.frame_step(ctx, a0, w0, r0, 1), 5), plain_ms,
-        f"accum and welford {fa:.6f}, merged reservoirs {fm:.6f} within tolerance")
+        f"accum and welford {fa:.6f}, merged reservoirs {fm:.6f} within tolerance",
+        2 * n * (16 + 8 + 40) + scene_bytes(ctx.scene),
+        traced_ops(w6) + n * ctx.spp * OPS_SHADE)
 
     rk = rst.spatial_reuse(m0, *gk["gb_n"], W, H, 0, ctx.seed_hi)
     rp = rst.spatial_reuse_plain(m0, *gk["gb_n"], W, H, 0, ctx.seed_hi)
@@ -407,7 +521,8 @@ def phase_timing(dem, launches):
     row("K7 spatial_reuse", max_abs(rp.w_sum, rk.w_sum),
         cuda_ms(lambda: rst.spatial_reuse(m0, *gk["gb_n"], W, H, 0, ctx.seed_hi), 20),
         cuda_ms(lambda: rst.spatial_reuse_plain(m0, *gk["gb_n"], W, H, 0, ctx.seed_hi), 3),
-        f"reservoirs {fr7:.6f} within tolerance")
+        f"reservoirs {fr7:.6f} within tolerance",
+        n * (40 + 12 + 40), n * 9 * 30)
     return rows
 
 
@@ -691,32 +806,549 @@ def phase_sweep_timing(dem, launches):
     main path's shapes), with phase 6's gates, both timed."""
     import torch
 
+    from forge3d_tpu_torch.pt import terrain_sweep as ts
+
     plan, scene, rot, jit = sweep_setup(dem, REAL_W, REAL_H, BENCH_CAM, torch.device("cuda"),
                                         spp=2)
+    V, U = rot[0].shape
+    ps = plan.ps
+    E, A, K = ps.e_count, ps.a_count, ps.k_count
+    dem_n = scene.heights.numel()
+    acc_bytes = E * A * 9 * 4
+    bin_ops = sum(len(g.w_u) * (22 + 10 * (g.substeps - 1))
+                  for g in ts.frame_bins(plan, scene, jit).groups)
+    work = {  # (bytes, float32 operations) of one launch at these shapes
+        "K1 rotate_heights": (dem_n * 4 + V * U * 12, V * U * 30),
+        "K2 sweep_lighting": (V * U * (12 + 8), V * U * bin_ops),
+        "K3 polar_frame": (V * U * 12 + 2 * acc_bytes, A * (K * 40 + E * 30)),
+        "K4 resolve": (acc_bytes + REAL_W * REAL_H * 9, REAL_W * REAL_H * 100),
+    }
     rows = []
     for name, (err, text, ms, plain_ms) in compare_sweep_kernels(
             "bench scene", plan, scene, rot, jit, timed=True).items():
-        src, rep = REPLACES[name]
-        rows.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
-                     "launches": launches[name], "max_abs_err": err, "ms": ms,
-                     "plain_ms": plain_ms})
-        say("sweep timing", f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                            f"max |err| {err:.3e}, {text}")
+        bms, by = bound(*work[name])
+        rows.append(kernel_row(name, launches[name], err, ms, plain_ms, bms, by))
+        say("sweep timing", f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                            f"{bms:.4f} ms ({by}), max |err| {err:.3e}, {text}")
     return rows
 
 
-# The JAX package's jax-free host modules that the port may import (and
-# what they import); any other module of it is refused.
-HOST_HELPERS = {"forge3d_tpu", "forge3d_tpu._version", "forge3d_tpu.errors",
-                "forge3d_tpu.camera", "forge3d_tpu.mem", "forge3d_tpu.device",
-                "forge3d_tpu.degradation", "forge3d_tpu.assurance",
-                "forge3d_tpu.assurance.certificate", "forge3d_tpu.assurance.ed25519"}
+# ---------------------------------------------------------------------------
+# Phases 10-12: meshes, typed lights and the sphere and mesh engines
+# ---------------------------------------------------------------------------
+
+SMALL_CAM = dict(origin=(64.0, 44.0, 180.0), look_at=(64.0, 0.0, 64.0), fov_y=42.0)
+GOLDEN_SPHERES = [  # tests/_golden_scenes.py:render_megakernel_spheres
+    {"center": (0, 1, 0), "radius": 1.0, "albedo": (0.8, 0.2, 0.2), "roughness": 0.3},
+    {"center": (2.2, 0.7, -1), "radius": 0.7, "albedo": (0.2, 0.4, 0.8), "metallic": 1.0,
+     "roughness": 0.15},
+    {"center": (-2.0, 0.5, 0.5), "radius": 0.5, "albedo": (0.9, 0.8, 0.3), "roughness": 0.6},
+]
+MESH_ALBEDO = (0.7, 0.7, 0.8)   # the hybrid render's constant albedo of mesh hits
+_BOX_CORNERS = np.array([[0, 0, 0], [1, 0, 0], [1, 0, 1], [0, 0, 1],
+                         [0, 1, 0], [1, 1, 0], [1, 1, 1], [0, 1, 1]], np.float32)
+_BOX_FACES = np.array([[0, 2, 1], [0, 3, 2], [4, 5, 6], [4, 6, 7], [0, 1, 5], [0, 5, 4],
+                       [1, 2, 6], [1, 6, 5], [2, 3, 7], [2, 7, 6], [3, 0, 4], [3, 4, 7]],
+                      np.uint32)
+
+
+def box_town(dem, n_side: int, lo: float, hi: float, foot, height, seed: int = 7):
+    """An n_side x n_side grid of boxes over x, z in [lo, hi] (the DEM at
+    unit spacing from the origin, rows along z): footprints drawn from
+    `foot` m, tops `height` m above the highest DEM sample under the
+    footprint, bases 2 m below the lowest. (vertices f32, indices u32)."""
+    rng = np.random.default_rng(seed)
+    step = (hi - lo) / n_side
+    verts, tris = [], []
+    for i in range(n_side):
+        for j in range(n_side):
+            fx, fz = rng.uniform(foot[0], foot[1], 2)
+            h = rng.uniform(height[0], height[1])
+            x0 = lo + (i + 0.5) * step - fx / 2
+            z0 = lo + (j + 0.5) * step - fz / 2
+            under = dem[int(np.floor(z0)):int(np.ceil(z0 + fz)) + 1,
+                        int(np.floor(x0)):int(np.ceil(x0 + fx)) + 1]
+            base = float(under.min()) - 2.0
+            top = float(under.max()) + h
+            tris.append(_BOX_FACES + 8 * len(verts))
+            verts.append(_BOX_CORNERS * np.array([fx, top - base, fz], np.float32)
+                         + np.array([x0, base, z0], np.float32))
+    return (np.concatenate(verts).astype(np.float32),
+            np.concatenate(tris).astype(np.uint32))
+
+
+def six_lights(cx: float, cz: float, y: float, r: float):
+    """One light of each type around (cx, cz) at height y, spread by r."""
+    from forge3d_tpu_torch.lighting import Light
+
+    k = y * y
+    return (
+        Light(type="directional", direction=(-0.4, -1.0, -0.3), intensity=0.5,
+              color=(1.0, 0.9, 0.8)),
+        Light(type="point", position=(cx - r, y, cz - r), intensity=1.0 * k,
+              color=(1.0, 0.7, 0.4)),
+        Light(type="spot", position=(cx + r, y, cz - r), direction=(0.0, -1.0, 0.2),
+              intensity=2.0 * k, inner_cone_deg=20.0, outer_cone_deg=35.0),
+        Light(type="rect", position=(cx - r, y, cz + r), extent=(0.1 * y, 0.05 * y),
+              intensity=20.0, color=(0.6, 0.8, 1.0)),
+        Light(type="disk", position=(cx + r, y, cz + r), radius=0.08 * y, intensity=20.0),
+        Light(type="sphere", position=(cx, 0.7 * y, cz), radius=0.05 * y, intensity=20.0,
+              color=(0.9, 1.0, 0.7)),
+    )
+
+
+def small_town(dem):
+    return box_town(dem, 8, 16.0, 112.0, (4.0, 6.0), (4.0, 10.0))
+
+
+def bench_town(dem):
+    return box_town(dem, 32, 256.0, 768.0, (8.0, 12.0), (10.0, 40.0))
+
+
+def sun_rays(ctx, gb):
+    """Rays from the center G-buffer's hit points (lifted 1e-3 along the
+    normal) toward the sun: the shadow rays K6 traces."""
+    import torch
+
+    from forge3d_tpu_torch.pt import terrain_ref as tr
+
+    o = ctx.cam_o
+    _, d = tr._center_rays(ctx)
+    hit = torch.isfinite(gb["depth"])
+    t = gb["depth"][hit]
+    n = gb["normal"][hit]
+    ro = tuple(o[k] + t * d[k][hit] + n[:, k] * 1e-3 for k in range(3))
+    rd = tuple(torch.full_like(t, c) for c in ctx.sun)
+    return ro, rd
+
+
+def compare_mesh_hits(tag, hp, hk):
+    """(hit agreement, prim agreement where both hit, fraction of t within
+    1e-6 * (1 + t), max |dt|); fails below K9_FRAC or above K9_MAX_DT."""
+    agree = float((hp.hit == hk.hit).double().mean())
+    both = hp.hit & hk.hit
+    prim = float((hp.prim[both] == hk.prim[both]).double().mean()) if bool(both.any()) else 1.0
+    tp, tk = hp.t[both].double(), hk.t[both].double()
+    tfrac = float(((tp - tk).abs() <= 1e-6 * (1.0 + tp.abs())).double().mean()) \
+        if bool(both.any()) else 1.0
+    dt = max_abs(hp.t[both], hk.t[both])
+    require(min(agree, prim, tfrac) >= K9_FRAC and dt <= K9_MAX_DT,
+            f"{tag}: K9 trace_mesh disagrees with its plain version (hits {agree:.6f}, "
+            f"prims {prim:.6f}, t {tfrac:.6f}, max |dt| {dt:.3e})")
+    return agree, prim, tfrac, dt
+
+
+def light_inputs(ctx, gb, seed=3):
+    """Per-pixel K10 inputs: the center hit points and normals (sky pixels
+    keep their finite sky record) and uniforms from numpy."""
+    import torch
+
+    from forge3d_tpu_torch.pt import terrain_ref as tr
+
+    o, d = tr._center_rays(ctx)
+    t = torch.where(torch.isfinite(gb["depth"]), gb["depth"], 10.0)
+    p = [o[k] + t * d[k] for k in range(3)]
+    n = list(gb["normal"].unbind(-1))
+    u = np.random.default_rng(seed).random((3,) + tuple(t.shape), dtype=np.float32)
+    return [c.contiguous() for c in p + n] + [torch.as_tensor(a, device=t.device) for a in u]
+
+
+def compare_lights(tag, sp, sk):
+    """Worst fraction of K10's outputs within FLOAT_TOL, and max |err|;
+    fails below K10_FRAC or above K10_MAX_ERR."""
+    frac = min(close_frac(a, b) for a, b in zip(sp, sk))
+    err = max(max_abs(a, b) for a, b in zip(sp, sk))
+    require(frac >= K10_FRAC and err <= K10_MAX_ERR,
+            f"{tag}: K10 sample_light_nee disagrees with its plain version ({frac:.6f} within "
+            f"tolerance, max |err| {err:.3e})")
+    return frac, err
+
+
+def phase_mesh_kernels():
+    """K9, K10 and K6/K8 with a mesh and lights against their plain
+    versions on the card at 256x128; a 4-frame hybrid render on the card
+    against the plain render on the CPU."""
+    import torch
+
+    from forge3d_tpu_torch.ops import bvh
+    from forge3d_tpu_torch.ops import lightsample as ls
+    from forge3d_tpu_torch.ops import restir as rst
+    from forge3d_tpu_torch.pt import terrain_ref as tr
+
+    dev = torch.device("cuda")
+    dem = sine_dem(SMALL_N, 2.0)
+    mesh, lights = small_town(dem), six_lights(64.0, 64.0, 30.0, 24.0)
+    ctx = setup(dem, SMALL_W, SMALL_H, SMALL_CAM, dev, spp=2, mesh=mesh, lights=lights)
+    H, W = SMALL_H, SMALL_W
+    ms = ctx.mesh
+
+    gp = tr.center_gbuffer_plain(ctx)
+    gk = tr.center_gbuffer(ctx)
+    torch.cuda.synchronize()
+    fr = compare_gbuffer("small town", gp, gk)
+    on_mesh = float(torch.all(gp["albedo"] == torch.tensor(MESH_ALBEDO, device=dev), -1)
+                    .double().mean())
+    say("mesh kernels", f"{len(mesh[1])} triangles, {ms.n_nodes} BVH nodes; K8 with the mesh: "
+                        f"AOVs agree on {fr:.6f}, mesh on {on_mesh:.4f} of pixels")
+    require(on_mesh > 0.01, "the town is not in the small scene's view")
+
+    o, d = tr._center_rays(ctx)
+    so, sd = sun_rays(ctx, gk)
+    ro = tuple(torch.cat([o[k].reshape(-1), so[k]]) for k in range(3))
+    rd = tuple(torch.cat([d[k].reshape(-1), sd[k]]) for k in range(3))
+    hp = bvh.trace_mesh_plain(ms.scene, ms.n_nodes, ro, rd)
+    hk = bvh.trace_mesh(ms.scene, ms.n_nodes, ro, rd)
+    torch.cuda.synchronize()
+    agree, prim, tfrac, dt = compare_mesh_hits("small town", hp, hk)
+    say("mesh kernels", f"K9 trace_mesh: {ro[0].numel()} center and sun rays, hits {agree:.6f}, "
+                        f"prims {prim:.6f}, t {tfrac:.6f} equal within tolerance, max |dt| "
+                        f"{dt:.3e}, hit fraction {float(hp.hit.double().mean()):.4f}")
+
+    lanes = light_inputs(ctx, gk)
+    sp = ls.sample_light_nee_plain(*ctx.lights, *lanes)
+    sk = ls.sample_light_nee(*ctx.lights, *lanes)
+    torch.cuda.synchronize()
+    frac, err = compare_lights("small town", sp, sk)
+    say("mesh kernels", f"K10 sample_light_nee: {lanes[0].numel()} lanes, {frac:.6f} within "
+                        f"tolerance, max |err| {err:.3e}")
+
+    acc = torch.zeros((H, W, 4), device=dev)
+    wf = torch.zeros((H, W, 2), device=dev)
+    res = rst.Reservoirs.zeros(H * W, dev)
+    m0, l0 = tr.frame_step.mesh_launches, tr.frame_step.light_launches
+    for fi in (0, 1):
+        pa, pw, pm = tr.frame_step_plain(ctx, acc, wf, res, fi)
+        ka, kw_, km = tr.frame_step(ctx, acc, wf, res, fi)
+        torch.cuda.synchronize()
+        fa, fw = close_frac(pa, ka), close_frac(pw, kw_)
+        fm = compare_reservoirs(f"K6 hybrid frame {fi}", pm, km)
+        say("mesh kernels", f"K6 frame_step with mesh and lights f{fi}: accum {fa:.6f}, welford "
+                            f"{fw:.6f}, merged reservoirs {fm:.6f} within tolerance, max |err| "
+                            f"{max_abs(pa, ka):.3e}")
+        require(min(fa, fw) >= FLOAT_FRAC, f"K6 hybrid frame {fi} disagrees with its plain version")
+        acc, wf = ka, kw_
+        res = rst.spatial_reuse(km, *gk["gb_n"], W, H, fi, ctx.seed_hi)
+    require(tr.frame_step.mesh_launches - m0 == 2 and tr.frame_step.light_launches - l0 == 2,
+            "K6 did not walk the mesh and sample the lights in both frames")
+
+    desc = tr.TerrainRefDesc(heights=dem, width=W, height=H, cam_origin=SMALL_CAM["origin"],
+                             cam_look_at=SMALL_CAM["look_at"], fov_y_deg=SMALL_CAM["fov_y"],
+                             spp=1, max_frames=4, min_frames=2, variance_threshold=1e9,
+                             mesh=mesh, lights=lights)
+    t0 = time.perf_counter()
+    a = tr.render_terrain_reference(desc, device="cpu")
+    t_cpu = time.perf_counter() - t0
+    b = tr.render_terrain_reference(desc, device="cuda")
+    du = np.abs(a["rgba"].astype(np.int32) - b["rgba"].astype(np.int32)).max(-1)
+    within_ = float((du <= 1).mean())
+    say("mesh kernels", f"4-frame hybrid render {W}x{H}: rgba within 1 u8 on {within_:.6f}, max "
+                        f"step {int(du.max())}, frames {a['frames']}/{b['frames']} (plain render "
+                        f"on the CPU {t_cpu:.2f} s)")
+    require(within_ >= U8_FRAC and a["frames"] == b["frames"],
+            "hybrid render on the card disagrees with the plain render")
+
+
+def _hybrid_counters():
+    from forge3d_tpu_torch.ops import restir as rst
+    from forge3d_tpu_torch.ops import traversal as tv
+    from forge3d_tpu_torch.pt import terrain_ref as tr
+
+    return {"K5 trace": tv.trace, "K6 frame_step": tr.frame_step,
+            "K7 spatial_reuse": rst.spatial_reuse, "K8 center_gbuffer": tr.center_gbuffer}
+
+
+def hybrid_desc(dem):
+    from forge3d_tpu_torch.pt import terrain_ref as tr
+
+    return tr.TerrainRefDesc(
+        heights=dem, width=REAL_W, height=REAL_H, cam_origin=BENCH_CAM["origin"],
+        cam_look_at=BENCH_CAM["look_at"], fov_y_deg=BENCH_CAM["fov_y"], spp=1,
+        min_frames=32, max_frames=32, variance_threshold=1e9, mesh=bench_town(dem),
+        lights=six_lights(512.0, 512.0, 150.0, 128.0))
+
+
+def phase_hybrid_render(dem):
+    """bench.py's scene with the 1,024-box town and six lights through the
+    port's entry: a warm and a timed render. Returns (the town's
+    MeshTracerScene on the card, the timed render's launch counts)."""
+    import torch
+
+    import forge3d_tpu_torch as f3t
+    from forge3d_tpu_torch.pt import terrain_ref as tr
+    from forge3d_tpu_torch.pt.mesh_render import MeshTracerScene
+
+    desc = hybrid_desc(dem)
+    t0 = time.perf_counter()
+    warm = f3t.render_terrain_reference(desc, device="cuda")
+    say("hybrid render", f"warm render {REAL_W}x{REAL_H}, {len(desc.mesh[1])} triangles, "
+                         f"{len(desc.lights)} lights: {time.perf_counter() - t0:.4f} s")
+    counters = _hybrid_counters()
+    for c in counters.values():
+        c.launches = 0
+    tr.frame_step.mesh_launches = tr.frame_step.light_launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = f3t.render_terrain_reference(desc, device="cuda")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in counters.items()}
+    launches["K9 trace_mesh"] = tr.frame_step.mesh_launches
+    launches["K10 sample_light_nee"] = tr.frame_step.light_launches
+    frames = out["frames"]
+    say("hybrid render", f"timed render: {dt:.4f} s, "
+                         f"{REAL_W * REAL_H * frames / dt / 1e6:.4f} Msamples/s (W*H*spp*frames "
+                         f"/ t), frames {frames}, peak device memory "
+                         f"{torch.cuda.max_memory_allocated()} B, launches {json.dumps(launches)} "
+                         f"(K9 and K10: K6 launches that walked the mesh and sampled the lights)")
+    require(all(launches[k] > 0 for k in counters), f"a kernel never launched: {launches}")
+    require(launches["K9 trace_mesh"] == frames == 32 and launches["K10 sample_light_nee"] == 32,
+            f"K6 did not walk the mesh and sample the lights in every frame: {launches}")
+    same = _same_render(out, warm)
+    on_mesh = float(np.all(out["albedo"] == np.asarray(MESH_ALBEDO, np.float32), -1).mean())
+    std = float(out["rgba"][..., :3].std())
+    say("hybrid render", f"deterministic {same}, mesh albedo on {on_mesh:.4f} of pixels, rgba "
+                         f"std {std:.3f}, hdr finite {bool(np.isfinite(out['hdr']).all())}, "
+                         f"gpu_resource_bytes {out['gpu_resource_bytes']}")
+    require(same, "two hybrid renders with one seed differ")
+    require(on_mesh > 0.01, "the town covers no more than 1% of the hybrid render")
+    require(std > 5.0 and np.isfinite(out["hdr"]).all(), "hybrid render is trivial or not finite")
+
+    t0 = time.perf_counter()
+    mts = MeshTracerScene(desc.mesh[0], desc.mesh[1], torch.device("cuda"))
+    say("hybrid render", f"host BVH build (build_sah_bvh, {mts.triangle_count} triangles, "
+                         f"{mts.n_nodes} nodes, max depth {mts.bvh.stats['max_depth']}): "
+                         f"{time.perf_counter() - t0:.4f} s")
+    return mts, launches
+
+
+def fields_bytes(*objs) -> int:
+    """Bytes of the tensor fields of dataclasses (the light tables)."""
+    import dataclasses
+
+    return sum(tensor_bytes(v) for o in objs for v in
+               (getattr(o, f.name) for f in dataclasses.fields(o)) if hasattr(v, "element_size"))
+
+
+def phase_hybrid_timing(dem, mts, launches):
+    """The hybrid render's phases; K8 and K6 (frames 0 and 1) with the mesh
+    and lights, as the render runs them, and K9 and K10 alone, against their
+    plain versions at the bench scene's shapes, all timed."""
+    import dataclasses
+
+    import torch
+
+    from forge3d_tpu_torch.ops import bvh
+    from forge3d_tpu_torch.ops import lightsample as ls
+    from forge3d_tpu_torch.ops import restir as rst
+    from forge3d_tpu_torch.ops import traversal as tv
+    from forge3d_tpu_torch.pt import terrain_ref as tr
+
+    from forge3d_tpu_torch.ops import tonemap as tm
+    from forge3d_tpu_torch.ops.pyramid import build_pyramid
+    from forge3d_tpu_torch.ops.traversal import scene_from_pyramid
+
+    dev = torch.device("cuda")
+    W, H = REAL_W, REAL_H
+    n = W * H
+    desc = hybrid_desc(dem)
+    rows = []
+
+    def row(name, nl, err, ms, plain_ms, agreement, nbytes, ops):
+        bms, by = bound(nbytes, ops)
+        rows.append(kernel_row(name, nl, err, ms, plain_ms, bms, by))
+        say("hybrid timing", f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                             f"{bms:.4f} ms ({by}), max |err| {err:.3e}, {agreement}")
+
+    # the render's phases as render_terrain_reference runs them, each
+    # synchronised (the BVH build is timed in phase 11's render step)
+    t_pyr, pyr = wall_ms(lambda: build_pyramid(dem))
+    t_up, scene = wall_ms(lambda: scene_from_pyramid(pyr, device=dev))
+    t_lights, lights = wall_ms(lambda: tr._lights(desc, dev))
+    ctx = dataclasses.replace(setup(dem, W, H, BENCH_CAM, dev, spp=1), scene=scene, mesh=mts,
+                              lights=lights)
+    t_gb, gk = wall_ms(lambda: tr.center_gbuffer(ctx))
+    acc = torch.zeros((H, W, 4), device=dev)
+    wf = torch.zeros((H, W, 2), device=dev)
+    res = rst.Reservoirs.zeros(n, dev)
+
+    def frames():
+        a, w, r = acc, wf, res
+        for fi in range(32):
+            a, w, m = tr.frame_step(ctx, a, w, r, fi)
+            r = rst.spatial_reuse(m, *gk["gb_n"], W, H, fi, ctx.seed_hi)
+        return a, w
+
+    t_frames, (a32, w32) = wall_ms(frames)
+
+    def readbacks():
+        mean = a32[..., :3] / a32[..., 3:4]
+        ldr = tm.f16_round(tm.reinhard(mean, desc.exposure))
+        return [x.cpu().numpy() for x in (tm.to_u8(ldr), a32, w32, ldr, gk["albedo"],
+                                          gk["normal"], gk["depth"], mean)]
+
+    t_read, _ = wall_ms(readbacks)
+    say("hybrid timing", f"phases: pyramid (host) {t_pyr:.4f} ms, scene upload {t_up:.4f} ms, "
+                         f"light tables {t_lights:.4f} ms, center G-buffer (K5 + K8 with the "
+                         f"mesh) {t_gb:.4f} ms, 32 frames (K6 + K7) {t_frames:.4f} ms, resolve "
+                         f"and readbacks {t_read:.4f} ms")
+
+    # K5 + K8 as the render runs them, against the plain center G-buffer;
+    # then K8 alone on K5's hit record, against its plain version
+    o, d = tr._center_rays(ctx)
+    fr = compare_gbuffer("bench town", tr.center_gbuffer_plain(ctx), gk)
+    say("hybrid timing", f"center G-buffer (K5 + K8) with the mesh: AOVs agree on {fr:.6f}")
+    th = tv.trace(ctx.scene, o, d)
+    work = work_counters()
+    plain_ms, gp8 = wall_ms(lambda: tr.gbuffer_resolve_plain(ctx, d, th))
+    w8 = work()
+    gk8 = tr._gbuffer_resolve_kernel(ctx, d, th)
+    fr = compare_gbuffer("bench town K8", gp8, gk8)
+    row("K8 center_gbuffer (hybrid)", launches["K8 center_gbuffer"],
+        max(max_abs(gp8[k], gk8[k]) for k in ("normal", "depth")),
+        cuda_ms(lambda: tr._gbuffer_resolve_kernel(ctx, d, th), 20), plain_ms,
+        f"AOVs agree on {fr:.6f}; {w8['node_visits']} node visits, {w8['tri_tests']} "
+        f"triangle tests", n * (12 + 13 + 44) + scene_bytes(ctx.scene) + mts.bvh.nbytes,
+        n * OPS_LEAF + traced_ops(w8))
+
+    # K6 frame 0 -> K7 -> K6 frame 1 on the hybrid context, each frame
+    # against its plain version on the kernel chain's previous outputs
+    pa, pw, pm = tr.frame_step_plain(ctx, acc, wf, res, 0)
+    a0, w0, m0 = tr.frame_step(ctx, acc, wf, res, 0)
+    fa = min(close_frac(pa, a0), close_frac(pw, w0))
+    fm = compare_reservoirs("bench town K6 frame 0", pm, m0)
+    say("hybrid timing", f"K6 frame_step (hybrid) f0: accum and welford {fa:.6f}, merged "
+                         f"reservoirs {fm:.6f} within tolerance, max |err| {max_abs(pa, a0):.3e}")
+    require(fa >= FLOAT_FRAC, "bench town: K6 frame 0 disagrees with its plain version")
+    r0 = rst.spatial_reuse(m0, *gk["gb_n"], W, H, 0, ctx.seed_hi)
+    work = work_counters()
+    plain_ms, (pa, pw, pm) = wall_ms(lambda: tr.frame_step_plain(ctx, a0, w0, r0, 1))
+    w6 = work()
+    ka, kw_, km = tr.frame_step(ctx, a0, w0, r0, 1)
+    fa = min(close_frac(pa, ka), close_frac(pw, kw_))
+    require(fa >= FLOAT_FRAC, "bench town: K6 frame 1 disagrees with its plain version")
+    fm = compare_reservoirs("bench town K6 frame 1", pm, km)
+    row("K6 frame_step (hybrid)", launches["K6 frame_step"], max_abs(pa, ka),
+        cuda_ms(lambda: tr.frame_step(ctx, a0, w0, r0, 1), 5), plain_ms,
+        f"f1: accum and welford {fa:.6f}, merged reservoirs {fm:.6f} within tolerance; "
+        f"{w6['node_visits']} node visits, {w6['tri_tests']} triangle tests, {w6['steps']} "
+        f"DDA steps", 2 * n * (16 + 8 + 40) + scene_bytes(ctx.scene) + mts.bvh.nbytes
+        + fields_bytes(*ctx.lights), traced_ops(w6) + n * ctx.spp * (OPS_SHADE + OPS_LIGHT))
+
+    so, sd = sun_rays(ctx, gk)
+    ro = tuple(torch.cat([o[k].reshape(-1), so[k]]) for k in range(3))
+    rd = tuple(torch.cat([d[k].reshape(-1), sd[k]]) for k in range(3))
+    hk = bvh.trace_mesh(mts.scene, mts.n_nodes, ro, rd)
+    work = work_counters()
+    plain_ms, hp = wall_ms(lambda: bvh.trace_mesh_plain(mts.scene, mts.n_nodes, ro, rd))
+    w9 = work()
+    agree, prim, tfrac, dt = compare_mesh_hits("bench town", hp, hk)
+    ms9 = cuda_ms(lambda: bvh.trace_mesh(mts.scene, mts.n_nodes, ro, rd), 5)
+    rays = ro[0].numel()
+    b9, by9 = bound(rays * (24 + 17) + mts.bvh.nbytes, traced_ops(w9))
+    rows.append(kernel_row("K9 trace_mesh", launches["K9 trace_mesh"], dt, ms9, plain_ms,
+                           b9, by9))
+    say("hybrid timing", f"K9 trace_mesh: {rays} center and sun rays, kernel {ms9:.4f} ms, plain "
+                         f"{plain_ms:.4f} ms, bound {b9:.4f} ms ({by9}); hits {agree:.6f}, prims "
+                         f"{prim:.6f}, t {tfrac:.6f}, max |dt| {dt:.3e}; {w9['node_visits']} node "
+                         f"visits, {w9['tri_tests']} triangle tests")
+
+    lanes = light_inputs(ctx, gk)
+    sk = ls.sample_light_nee(*ctx.lights, *lanes)
+    plain_ms, sp = wall_ms(lambda: ls.sample_light_nee_plain(*ctx.lights, *lanes))
+    frac, err = compare_lights("bench town", sp, sk)
+    ms10 = cuda_ms(lambda: ls.sample_light_nee(*ctx.lights, *lanes), 20)
+    b10, by10 = bound(n * (9 + 7) * 4, n * OPS_LIGHT)
+    rows.append(kernel_row("K10 sample_light_nee", launches["K10 sample_light_nee"], err, ms10,
+                           plain_ms, b10, by10))
+    say("hybrid timing", f"K10 sample_light_nee: {n} lanes, kernel {ms10:.4f} ms, plain "
+                         f"{plain_ms:.4f} ms, bound {b10:.4f} ms ({by10}); {frac:.6f} within "
+                         f"tolerance, max |err| {err:.3e}")
+    return rows
+
+
+def compare_planes(tag, pp, pk, frac_min, err_max):
+    """(worst fraction of elements within FLOAT_TOL over the engine's planes,
+    max |err|, fraction of rgba bytes equal); fails below frac_min or above
+    err_max."""
+    from forge3d_tpu_torch.pt.megakernel import to_u8
+
+    frac = min(close_frac(pp[k], pk[k]) for k in pp)
+    err = max(max_abs(pp[k], pk[k]) for k in pp)
+    u8 = float((to_u8(pp["ldr"].cpu().numpy()) == to_u8(pk["ldr"].cpu().numpy())).mean())
+    require(frac >= frac_min and err <= err_max,
+            f"{tag} disagrees with its plain version ({frac:.6f} within tolerance, max |err| "
+            f"{err:.3e}, rgba bytes equal {u8:.6f})")
+    return frac, err, u8
+
+
+def phase_engines(mts):
+    """P2 on the bench town and P1 on the golden spheres at 1920x1080:
+    each entry launched once, each kernel against its plain version on the
+    card, both timed."""
+    import torch
+
+    import forge3d_tpu_torch as f3t
+    from forge3d_tpu_torch.ops.shading import sun_direction
+    from forge3d_tpu_torch.pt import megakernel as mk
+    from forge3d_tpu_torch.pt import mesh_render as mr
+
+    dev = torch.device("cuda")
+    W, H = REAL_W, REAL_H
+    n = W * H
+    rows = []
+
+    cam = dict(BENCH_CAM)
+    mr.render_mesh.launches = 0
+    t_entry, out = wall_ms(lambda: f3t.pt_render_gpu_mesh(W, H, None, None, cam, scene=mts,
+                                                          aovs=mk.AOV_NAMES, device="cuda"))
+    launches = mr.render_mesh.launches
+    vis = float(out["visibility"].mean())
+    say("engines", f"pt_render_gpu_mesh {W}x{H}, {mts.triangle_count} triangles: {t_entry:.4f} "
+                   f"ms, launches {launches}, mesh on {vis:.4f} of pixels")
+    require(launches == 1 and out["rgba"].shape == (H, W, 4) and 0.01 < vis < 1.0,
+            "pt_render_gpu_mesh did not render the town through P2")
+    ecam = mk.EngineCamera.make(W, H, cam, (0.0, 1.5, 4.0), (0.0, 0.5, 0.0))
+    mat = mr._material_from_dict(None)
+    sd = sun_direction(135.0, 45.0)
+    args = (ecam, mts, mat, sd, float(np.float32(3.0)))
+    pk = mr._render_mesh_kernel(*args)
+    work = work_counters()
+    plain_ms, pp = wall_ms(lambda: mr.render_mesh_plain(*args))
+    w2 = work()
+    frac, err, u8 = compare_planes("P2 render_mesh", pp, pk, P2_FRAC, P2_MAX_ERR)
+    ms2 = cuda_ms(lambda: mr._render_mesh_kernel(*args), 10)
+    b2, by2 = bound(n * 68 + mts.bvh.nbytes, traced_ops(w2) + n * OPS_PBR)
+    rows.append(kernel_row("P2 render_mesh", launches, err, ms2, plain_ms, b2, by2))
+    say("engines", f"P2 render_mesh: kernel {ms2:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                   f"{b2:.4f} ms ({by2}); planes {frac:.6f} within tolerance, max |err| "
+                   f"{err:.3e}, rgba bytes equal {u8:.6f}")
+
+    cam = {"origin": (0, 1.5, 5.5)}
+    mk.render_spheres.launches = 0
+    t_entry, rgba = wall_ms(lambda: f3t.pt_render_gpu(W, H, GOLDEN_SPHERES, cam, device="cuda"))
+    launches = mk.render_spheres.launches
+    say("engines", f"pt_render_gpu {W}x{H}, {len(GOLDEN_SPHERES)} spheres: {t_entry:.4f} ms, "
+                   f"launches {launches}, rgba std {float(rgba[..., :3].std()):.3f}")
+    require(launches == 1 and rgba.shape == (H, W, 4) and float(rgba[..., :3].std()) > 5.0,
+            "pt_render_gpu did not render the spheres through P1")
+    ecam = mk.EngineCamera.make(W, H, cam, (0.0, 1.2, 3.0), (0.0, 1.0, 0.0))
+    sb = mk.spheres_from_dicts(GOLDEN_SPHERES, dev)
+    pk = mk._render_spheres_kernel(ecam, sb)
+    plain_ms, pp = wall_ms(lambda: mk.render_spheres_plain(ecam, sb))
+    frac, err, u8 = compare_planes("P1 render_spheres", pp, pk, P1_FRAC, P1_MAX_ERR)
+    ms1 = cuda_ms(lambda: mk._render_spheres_kernel(ecam, sb), 20)
+    b1, by1 = bound(n * 68, n * (len(GOLDEN_SPHERES) * 20 + 2 * OPS_PBR))
+    rows.append(kernel_row("P1 render_spheres", launches, err, ms1, plain_ms, b1, by1))
+    say("engines", f"P1 render_spheres: kernel {ms1:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                   f"{b1:.4f} ms ({by1}); planes {frac:.6f} within tolerance, max |err| "
+                   f"{err:.3e}, rgba bytes equal {u8:.6f}")
+    return rows
 
 
 def _jax_modules():
-    return [m for m in sys.modules
-            if m.split(".")[0] in ("jax", "jaxlib")
-            or (m.split(".")[0] == "forge3d_tpu" and m not in HOST_HELPERS)]
+    """JAX and every module of the JAX package: the port imports none."""
+    return [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "forge3d_tpu")]
 
 
 def main() -> int:
@@ -753,6 +1385,10 @@ def main() -> int:
     sweep_launches = phase_sweep_render(dem)
     phase_sweep_vs_perray(dem)
     rows += phase_sweep_timing(dem, sweep_launches)
+    phase_mesh_kernels()
+    mts, hybrid_launches = phase_hybrid_render(dem)
+    rows += phase_hybrid_timing(dem, mts, hybrid_launches)
+    rows += phase_engines(mts)
 
     loaded = sorted(set(_jax_modules()) - preloaded)
     require(not loaded, f"imported JAX or modules of the JAX package: {loaded}")

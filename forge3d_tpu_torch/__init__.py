@@ -3,9 +3,13 @@
 # The port runs the terrain path tracer on an NVIDIA H100 through
 # hand-written CUDA kernels for sm_90a (csrc/), with a plain PyTorch version
 # beside each kernel: the per-ray estimator (hybrid_render_terrain_reference
-# with traversal="dda", kernels K5-K8) and the sweep estimator
-# (traversal="sweep" and hybrid_render_terrain_sequence, kernels K1-K4). It imports torch and never jax; the
-# JAX package stays the reference it is tested against.
+# with traversal="dda", kernels K5-K8, with meshes through the BVH walk K9
+# and typed lights through the light sample K10), the sweep estimator
+# (traversal="sweep" and hybrid_render_terrain_sequence, kernels K1-K4), and
+# the deterministic sphere and mesh engines (pt_render_gpu / pt_render_aovs,
+# kernel P1; pt_render_gpu_mesh, kernel P2). It imports torch and never jax
+# nor any module of the JAX package, which stays the reference it is tested
+# against.
 #
 # Entry points load lazily, so `import forge3d_tpu_torch` is cheap and
 # builds nothing: the kernels are compiled at their first CUDA launch.
@@ -15,6 +19,10 @@ _ENTRY = {
     "hybrid_render_terrain_sequence": "pt.terrain_ref",
     "render_terrain_reference": "pt.terrain_ref",
     "TerrainRefDesc": "pt.terrain_ref",
+    "pt_render_gpu": "pt.megakernel",
+    "pt_render_aovs": "pt.megakernel",
+    "pt_render_gpu_mesh": "pt.mesh_render",
+    "Light": "lighting",
 }
 
 

@@ -1,8 +1,9 @@
 # forge3d_tpu_torch/_kernels.py
 # Build and load the port's hand-written CUDA kernels (csrc/).
 #
-# The sources are compiled by nvcc into one shared library with a plain C
-# interface and loaded with ctypes: no PyTorch headers, so a build takes
+# Each csrc/*.cu is compiled by its own nvcc process, all started together,
+# and the objects are linked into one shared library with a plain C
+# interface, loaded with ctypes: no PyTorch headers, so a build takes
 # seconds. The library is built at first use, keyed by a hash of the sources
 # and flags, into build/forge3d_tpu_torch/ beside the package (listed in
 # .gitignore). Importing this module needs neither nvcc nor a GPU.
@@ -25,10 +26,10 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "forge3d_tpu_torch"
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
+    *ARCH, "-std=c++17", "-O3", "-fmad=false",
+    "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
@@ -73,8 +74,54 @@ class FrameArgs(ctypes.Structure):
         ("cam_o", _F3), ("right", _F3), ("up", _F3), ("fwd", _F3),
         ("half_w", _F), ("half_h", _F),
         ("sun", _F3), ("alb", _F3), ("alc", _F3),
-        ("lum_lc", _F), ("env_intensity", _F), ("inv_spp", _F),
+        ("lum_lc", _F), ("env_intensity", _F), ("inv_spp", _F), ("lc", _F3),
     ]
+
+
+class MeshArgs(ctypes.Structure):
+    """Mirror of `MeshArgs` in csrc/mesh.cuh; all zero = no mesh."""
+
+    _fields_ = [(n, _P) for n in ("bmin", "bmax", "first", "count", "miss", "v0", "e1",
+                                  "e2", "fnorm")] + [
+        ("n_nodes", _I), ("n_prims", _I), ("max_iters", _I)]
+
+
+class LightArgs(ctypes.Structure):
+    """Mirror of `LightArgs` in csrc/lights.cuh; all zero = no typed lights."""
+
+    _fields_ = [(n, _P) for n in ("type_id", "color", "direction", "position", "radius",
+                                  "extent", "cones", "prob", "alias", "pdf")] + [
+        ("count", _I), ("u_hi", _F)]
+
+
+class CamArgs(ctypes.Structure):
+    """Mirror of `CamArgs` in csrc/pbr.cuh (P1, P2)."""
+
+    _fields_ = [("width", _I), ("height", _I)] + [
+        (n, _F3) for n in ("origin", "right", "up", "fwd")] + [
+        (n, _F) for n in ("aspect", "tan_half", "exposure")] + [
+        ("sun_l", _F3), ("sun_li", _F3)]
+
+
+class SphereArgs(ctypes.Structure):
+    """Mirror of `SphereArgs` in csrc/pbr.cuh (P1)."""
+
+    _fields_ = [(n, _P) for n in ("center", "radius", "albedo", "metallic", "emissive",
+                                  "roughness", "ax", "ay")] + [("n", _I)]
+
+
+class MaterialArgs(ctypes.Structure):
+    """Mirror of `MaterialArgs` in csrc/pbr.cuh (P2)."""
+
+    _fields_ = [("albedo", _F3), ("metallic", _F), ("roughness", _F), ("emissive", _F3),
+                ("sun_dir", _F3), ("sun_intensity", _F)]
+
+
+class AovArgs(ctypes.Structure):
+    """Mirror of `AovArgs` in csrc/pbr.cuh: the output planes of P1, P2."""
+
+    _fields_ = [(n, _P) for n in ("ldr", "albedo", "normal", "depth", "direct", "indirect",
+                                  "vis")]
 
 
 class RotArgs(ctypes.Structure):
@@ -121,19 +168,32 @@ _SIGNATURES = {
     # (scene, rox, roy, roz, rdx, rdy, rdz, n, tmin, tmax,
     #  hit, t, cell_x, cell_z, stream)
     "f3d_trace": [ctypes.POINTER(SceneArgs)] + [_P] * 6 + [_I, _F, _F] + [_P] * 5,
-    # (scene, frame, accum_in, welford_in, res_in, accum_out, welford_out,
-    #  res_out, stream)
+    # (scene, frame, mesh, lights, accum_in, welford_in, res_in, accum_out,
+    #  welford_out, res_out, stream)
     "f3d_frame_step": [ctypes.POINTER(SceneArgs), ctypes.POINTER(FrameArgs),
+                       ctypes.POINTER(MeshArgs), ctypes.POINTER(LightArgs),
                        _P, _P, ctypes.POINTER(ResArgs), _P, _P,
                        ctypes.POINTER(ResArgs), _P],
     # (res_in, res_out, gb_nx, gb_ny, gb_nz, width, height, frame_index,
     #  seed_hi, k_neighbors, radius, stream)
     "f3d_spatial_reuse": [ctypes.POINTER(ResArgs), ctypes.POINTER(ResArgs),
                           _P, _P, _P, _I, _I, _U, _U, _I, _I, _P],
-    # (scene, n, cam_o, albedo, dx, dz, hit, t, cell_x, cell_z,
+    # (scene, mesh, n, cam_o, albedo, dx, dy, dz, hit, t, cell_x, cell_z,
     #  albedo_out, normal_out, depth_out, vis_out, gb_nx, gb_ny, gb_nz, stream)
-    "f3d_center_gbuffer": [ctypes.POINTER(SceneArgs), _I, _F3, _F3]
-                          + [_P] * 6 + [_P] * 7 + [_P],
+    "f3d_center_gbuffer": [ctypes.POINTER(SceneArgs), ctypes.POINTER(MeshArgs), _I, _F3,
+                           _F3] + [_P] * 7 + [_P] * 7 + [_P],
+    # (mesh, rox, roy, roz, rdx, rdy, rdz, n, tmin, tmax, hit, t, prim, u, v,
+    #  stream)
+    "f3d_trace_mesh": [ctypes.POINTER(MeshArgs)] + [_P] * 6 + [_I, _F, _F] + [_P] * 6,
+    # (lights, n, px, py, pz, nx, ny, nz, u_pick, u1, u2, dx, dy, dz, dist,
+    #  wr, wg, wb, stream)
+    "f3d_sample_light_nee": [ctypes.POINTER(LightArgs), _I] + [_P] * 9 + [_P] * 7 + [_P],
+    # (cam, spheres, aovs, stream)
+    "f3d_render_spheres": [ctypes.POINTER(CamArgs), ctypes.POINTER(SphereArgs),
+                           ctypes.POINTER(AovArgs), _P],
+    # (cam, mesh, material, aovs, stream)
+    "f3d_render_mesh": [ctypes.POINTER(CamArgs), ctypes.POINTER(MeshArgs),
+                        ctypes.POINTER(MaterialArgs), ctypes.POINTER(AovArgs), _P],
 }
 
 
@@ -164,23 +224,44 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile csrc/*.cu into the shared library unless a build of these
-    exact sources exists. Writes nvcc's report (registers, spills) beside
-    the library as build.log. Raises RuntimeError if nvcc fails."""
+    """Compile csrc/*.cu, one nvcc process per source, all at once, and link
+    the objects into the shared library, unless a build of these exact
+    sources exists. Writes nvcc's report (registers, spills) beside the
+    library as build.log. Raises RuntimeError if nvcc fails."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     cus, _ = _sources()
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{cu.stem}.o" for cu in cus]
+    cmds = [[_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(o), str(cu)]
+            for cu, o in zip(cus, objs)]
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), *map(str, cus)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (BUILD_DIR / "build.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
-    os.replace(tmp, out)  # atomic: concurrent builders never load a partial file
+    link = [_nvcc(), *ARCH, "-shared", "-o", str(tmp), *map(str, objs)]
+    log = []
+    try:
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for c in cmds]
+        failed = []
+        for c, p in zip(cmds, procs):
+            so, se = p.communicate()
+            log.append(" ".join(c) + "\n" + so + se)
+            if p.returncode != 0:
+                failed.append(f"nvcc failed ({p.returncode}) on {c[-1]}:\n{se[-4000:]}")
+        if not failed:
+            proc = subprocess.run(link, capture_output=True, text=True)
+            log.append(" ".join(link) + "\n" + proc.stdout + proc.stderr)
+            if proc.returncode != 0:
+                failed.append(f"nvcc link failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+        (BUILD_DIR / "build.log").write_text("".join(log))
+        if failed:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError("\n".join(failed))
+        os.replace(tmp, out)  # atomic: concurrent builders never load a partial file
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
     return out
 
 

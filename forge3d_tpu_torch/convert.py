@@ -2,8 +2,8 @@
 # Carry state across from the JAX package as numpy arrays, so that a test
 # can feed both implementations identical scene tables, reservoir history,
 # sweep plans and sweep intermediates (rotated grid, sweep maps, polar
-# accumulator). Takes numpy arrays (or anything np.asarray accepts) and never
-# imports jax.
+# accumulator), mesh BVHs, light sets and alias tables. Takes numpy arrays
+# (or anything np.asarray accepts) and never imports jax.
 
 from __future__ import annotations
 
@@ -81,3 +81,32 @@ def sweep_maps(e_sky, z_sun, device="cpu"):
     from .ops.sweep import SweepMaps
 
     return SweepMaps(e_sky=tensor(e_sky, device), z_sun=tensor(z_sun, device))
+
+
+def bvh_from_numpy(fields: dict, device="cpu"):
+    """`fields`: the JAX MeshScene (or BvhArrays) fields by name
+    (bounds_min, bounds_max, first, count, miss_link, tri_v0, tri_e1,
+    tri_e2) -> (the port's MeshScene, n_nodes)."""
+    from .ops.bvh import MeshScene
+
+    ints = ("first", "count", "miss_link")
+    scene = MeshScene(**{k: tensor(fields[k], device, np.int32 if k in ints else np.float32)
+                         for k in MeshScene.__dataclass_fields__})
+    return scene, scene.n_nodes
+
+
+def light_buffer_from_numpy(fields: dict, device="cpu"):
+    """`fields`: the JAX LightBuffer fields by name."""
+    from .lighting import LightBuffer
+
+    return LightBuffer(**{k: tensor(fields[k], device, np.int32 if k == "type_id" else np.float32)
+                          for k in LightBuffer.__dataclass_fields__})
+
+
+def alias_table_from_numpy(fields: dict, device="cpu"):
+    """`fields`: the JAX AliasTable fields by name (prob, alias, pdf)."""
+    from .ops.lightsample import AliasTable
+
+    return AliasTable(prob=tensor(fields["prob"], device), alias=tensor(fields["alias"], device,
+                                                                        np.int32),
+                      pdf=tensor(fields["pdf"], device))

@@ -1,9 +1,10 @@
 // forge3d_tpu_torch/csrc/common.cuh
-// Per-thread device code of the terrain path tracer, shared by the four
+// Per-thread device code of the terrain path tracer, shared by the
 // kernels in kernels.cu: the xorshift32 stream, tent jitter, camera rays,
 // the slab test, the bilinear patch, the exact leaf solve, the stackless
-// max-mip DDA (`trace_ray`), `normal_at`, shading, and the ReSTIR reservoir
-// steps.
+// max-mip DDA (`trace_ray`), `normal_at`, shading, the ReSTIR reservoir
+// steps, and the frame and G-buffer bodies, which also trace a mesh
+// (mesh.cuh) and sample typed lights (lights.cuh) when the scene has them.
 //
 // Every function computes what its JAX counterpart computes, operation for
 // operation and in float32, so that with contraction off (-fmad=false) the
@@ -23,6 +24,9 @@
 #else
 #define F3D_HD inline
 #endif
+
+#include "lights.cuh"  // K10: typed-light sampling, folded into K6
+#include "mesh.cuh"    // K9: the mesh BVH walk, folded into K6 and K8
 
 // ---------------------------------------------------------------------------
 // Argument blocks (mirrored by ctypes structures in _kernels.py)
@@ -62,6 +66,8 @@ struct FrameArgs {
     float lum_lc;    // luminance of float32(sun_intensity * sun_color)
     float env_intensity;
     float inv_spp;   // float32(1 / spp)
+    float lc[3];     // float32(sun_intensity * sun_color): with a mesh, the
+                     // albedo is a float32 per pixel and multiplies this
 };
 
 struct Hit {
@@ -519,16 +525,45 @@ F3D_HD Res spatial_pixel(const ResArgs& rin, const float* gb_nx, const float* gb
 }
 
 // ---------------------------------------------------------------------------
+// The hybrid seam (terrain_ref.py:_hyb_primary / _occl_any): a mesh, when
+// the scene has one, is traced beside the terrain for every ray.
+// ---------------------------------------------------------------------------
+
+// Any-hit occlusion of a shadow ray by the terrain or the mesh.
+template <bool kHybrid>
+F3D_HD bool occluded(const SceneArgs& s, const MeshArgs& m, float ox, float oy, float oz,
+                     float dx, float dy, float dz) {
+    if (trace_ray(s, ox, oy, oz, dx, dy, dz, 1e-3f, 1e30f).hit) return true;
+    return kHybrid && m.n_nodes > 0
+           && trace_mesh_ray(m, ox, oy, oz, dx, dy, dz, 1e-4f, 1e30f).prim >= 0;
+}
+
+// Whether the nearer of the terrain's and the mesh's hits (3e38 for a
+// miss) lies before `limit`: the light-ray occlusion test `lt < limit`.
+template <bool kHybrid>
+F3D_HD bool blocked_before(const SceneArgs& s, const MeshArgs& m, float ox, float oy,
+                           float oz, float dx, float dy, float dz, float limit) {
+    Hit ht = trace_ray(s, ox, oy, oz, dx, dy, dz, 1e-3f, 1e30f);
+    if ((ht.hit ? ht.t : 3.0e38f) < limit) return true;
+    if (!(kHybrid && m.n_nodes > 0)) return 3.0e38f < limit;
+    MeshHit hm = trace_mesh_ray(m, ox, oy, oz, dx, dy, dz, 1e-4f, 1e30f);
+    return (hm.prim >= 0 ? hm.t : 3.0e38f) < limit;
+}
+
+// ---------------------------------------------------------------------------
 // One accumulation frame for pixel i (terrain_ref.py:_make_frame_step):
 // M-clamp of the history, the spp loop, the fresh candidate reservoir,
 // accumulation, the windowed Welford, and the temporal merge of the
 // history with the fresh candidates (the first half of the reuse step).
+// kHybrid = the scene has a mesh or typed lights; the terrain-only
+// instantiation is the same code with those branches compiled out.
 // ---------------------------------------------------------------------------
 
-F3D_HD void frame_pixel(const SceneArgs& s, const FrameArgs& f, int i,
-                        const float* accum_in, const float* welford_in,
-                        const ResArgs& rin, float* accum_out, float* welford_out,
-                        const ResArgs& rout) {
+template <bool kHybrid>
+F3D_HD void frame_pixel(const SceneArgs& s, const FrameArgs& f, const MeshArgs& m,
+                        const LightArgs& L, int i, const float* accum_in,
+                        const float* welford_in, const ResArgs& rin, float* accum_out,
+                        float* welford_out, const ResArgs& rout) {
     const int x = i % f.width;
     const int y = i / f.width;
     uint32_t st = f.seed_hi ^ ((uint32_t)x * 1664525u) ^ ((uint32_t)y * 1013904223u)
@@ -543,6 +578,8 @@ F3D_HD void frame_pixel(const SceneArgs& s, const FrameArgs& f, int i,
     float sdy = prev_ok ? prev.dir_y * pinv : f.sun[1];
     float sdz = prev_ok ? prev.dir_z * pinv : f.sun[2];
     float rw = prev_ok ? fminf(fmaxf(prev.weight, 0.0f), 4.0f) : 1.0f;
+    const bool has_mesh = kHybrid && m.n_nodes > 0;
+    const bool has_lights = kHybrid && L.count > 0;
 
     const float cox = f.cam_o[0], coy = f.cam_o[1], coz = f.cam_o[2];
     float fr = 0.0f, fg = 0.0f, fb = 0.0f, c_wsum = 0.0f, c_pdf = 0.0f;
@@ -556,17 +593,45 @@ F3D_HD void frame_pixel(const SceneArgs& s, const FrameArgs& f, int i,
         float dx, dy, dz;
         camera_ray(f, x, y, jx, jy, dx, dy, dz);
         Hit hp = trace_ray(s, cox, coy, coz, dx, dy, dz, 1e-3f, 1e30f);
+        bool hit = hp.hit;
+        float t = hp.t;
+        bool mesh_won = false;
+        int prim = -1;
+        if (has_mesh) {  // closest of the terrain and the mesh
+            MeshHit mh = trace_mesh_ray(m, cox, coy, coz, dx, dy, dz, 1e-4f, 1e30f);
+            mesh_won = mh.prim >= 0 && mh.t < (hp.hit ? hp.t : 3.0e38f);
+            if (mesh_won) t = mh.t;
+            hit = hit || mh.prim >= 0;
+            prim = mh.prim;
+        }
+        // albedo and albedo * sun radiance: with a mesh both are float32
+        // per pixel (mesh hits keep the constant (0.7, 0.7, 0.8)), without
+        // one the product was rounded once on the host
+        float alb[3] = {f.alb[0], f.alb[1], f.alb[2]};
+        float alc[3] = {f.alc[0], f.alc[1], f.alc[2]};
+        if (has_mesh) {
+            if (mesh_won) {
+                alb[0] = 0.7f;
+                alb[1] = 0.7f;
+                alb[2] = 0.8f;
+            }
+            for (int c = 0; c < 3; ++c) alc[c] = alb[c] * f.lc[c];
+        }
         float r, g, b;
         float cand_pdf = 0.0f;
-        if (hp.hit) {
-            float hx = cox + hp.t * dx;
-            float hy = coy + hp.t * dy;
-            float hz = coz + hp.t * dz;
-            float nx, ny, nz;
-            normal_at(s, hx, hz, hp.cell_x, hp.cell_z, nx, ny, nz);
+        float hx = 0.0f, hy = 0.0f, hz = 0.0f, nx = 0.0f, ny = 0.0f, nz = 0.0f;
+        if (hit) {
+            hx = cox + t * dx;
+            hy = coy + t * dy;
+            hz = coz + t * dz;
+            if (mesh_won) {
+                mesh_normal(m, prim, dx, dy, dz, nx, ny, nz);
+            } else {
+                normal_at(s, hx, hz, hp.cell_x, hp.cell_z, nx, ny, nz);
+            }
             // sun candidate target pdf (streaming RIS, one directional light)
             float ndotl = fmaxf(nx * f.sun[0] + ny * f.sun[1] + nz * f.sun[2], 0.0f);
-            cand_pdf = luminance(f.alc[0] * ndotl, f.alc[1] * ndotl, f.alc[2] * ndotl);
+            cand_pdf = luminance(alc[0] * ndotl, alc[1] * ndotl, alc[2] * ndotl);
             float nd = fmaxf(nx * sdx + ny * sdy + nz * sdz, 0.0f);
             // env-sample draws come before the occlusion queries; misses
             // draw nothing here
@@ -579,20 +644,37 @@ F3D_HD void frame_pixel(const SceneArgs& s, const FrameArgs& f, int i,
             float oy = hy + ny * 1e-3f;
             float oz = hz + nz * 1e-3f;
             float vis = 1.0f;
-            if (f.shadows) {
-                Hit hs = trace_ray(s, ox, oy, oz, sdx, sdy, sdz, 1e-3f, 1e30f);
-                vis = hs.hit ? 0.0f : 1.0f;
-            }
-            Hit he = trace_ray(s, ox, oy, oz, ex, ey, ez, 1e-3f, 1e30f);
-            float evis = he.hit ? 0.0f : 1.0f;
+            if (f.shadows) vis = occluded<kHybrid>(s, m, ox, oy, oz, sdx, sdy, sdz) ? 0.0f : 1.0f;
+            float evis = occluded<kHybrid>(s, m, ox, oy, oz, ex, ey, ez) ? 0.0f : 1.0f;
             float lit = nd * vis * rw;
             float er, eg, eb;
             env_radiance(f, ex, ey, ez, er, eg, eb);
-            r = f.alc[0] * lit + f.alb[0] * er * evis + 0.0f;
-            g = f.alc[1] * lit + f.alb[1] * eg * evis + 0.0f;
-            b = f.alc[2] * lit + f.alb[2] * eb * evis + 0.0f;
+            r = alc[0] * lit + alb[0] * er * evis;
+            g = alc[1] * lit + alb[1] * eg * evis;
+            b = alc[2] * lit + alb[2] * eb * evis;
         } else {
             env_radiance(f, dx, dy, dz, r, g, b);
+        }
+        float lr = 0.0f, lg = 0.0f, lb = 0.0f;
+        if (has_lights) {  // typed-light NEE: every lane draws its three words
+            float u5, u6, u7;
+            st = xorshift32(st, u5);
+            st = xorshift32(st, u6);
+            st = xorshift32(st, u7);
+            if (hit) {
+                LightSample ls = sample_light(L, hx, hy, hz, nx, ny, nz, u5, u6, u7);
+                float lvis = blocked_before<kHybrid>(s, m, hx + nx * 1e-3f, hy + ny * 1e-3f,
+                                                     hz + nz * 1e-3f, ls.dx, ls.dy, ls.dz,
+                                                     ls.dist * 0.999f) ? 0.0f : 1.0f;
+                lr = alb[0] * ls.wr * lvis;
+                lg = alb[1] * ls.wg * lvis;
+                lb = alb[2] * ls.wb * lvis;
+            }
+        }
+        if (hit) {
+            r = r + lr;
+            g = g + lg;
+            b = b + lb;
         }
         if (cand_pdf > 0.0f) {
             c_wsum = c_wsum + cand_pdf;
@@ -646,10 +728,11 @@ F3D_HD void frame_pixel(const SceneArgs& s, const FrameArgs& f, int i,
 }
 
 // terrain_ref.py:_center_gbuffer for pixel i, given the K5 hit record of
-// the unjittered center ray.
-F3D_HD void gbuffer_pixel(const SceneArgs& s, const float* cam_o, const float* alb,
-                          int i, float dx, float dz, int hit, float t,
-                          int cell_x, int cell_z, float* albedo_out,
+// the unjittered center ray (d); with a mesh (m.n_nodes > 0) the ray is
+// also traced against it and the nearer hit wins.
+F3D_HD void gbuffer_pixel(const SceneArgs& s, const MeshArgs& m, const float* cam_o,
+                          const float* alb, int i, float dx, float dy, float dz, int hit,
+                          float t, int cell_x, int cell_z, float* albedo_out,
                           float* normal_out, float* depth_out, float* vis_out,
                           float* gb_nx, float* gb_ny, float* gb_nz) {
     float nx = 0.0f, ny = 0.0f, nz = 1.0f;  // the sky record stays finite
@@ -658,7 +741,19 @@ F3D_HD void gbuffer_pixel(const SceneArgs& s, const float* cam_o, const float* a
         float hz = cam_o[2] + t * dz;
         normal_at(s, hx, hz, cell_x, cell_z, nx, ny, nz);
     }
-    for (int c = 0; c < 3; ++c) albedo_out[3 * i + c] = hit ? alb[c] : 0.0f;
+    float a[3] = {alb[0], alb[1], alb[2]};
+    if (m.n_nodes > 0) {
+        MeshHit mh = trace_mesh_ray(m, cam_o[0], cam_o[1], cam_o[2], dx, dy, dz, 1e-4f, 1e30f);
+        if (mh.prim >= 0 && mh.t < (hit ? t : 3.0e38f)) {
+            t = mh.t;
+            mesh_normal(m, mh.prim, dx, dy, dz, nx, ny, nz);
+            a[0] = 0.7f;
+            a[1] = 0.7f;
+            a[2] = 0.8f;
+        }
+        hit = hit || mh.prim >= 0;
+    }
+    for (int c = 0; c < 3; ++c) albedo_out[3 * i + c] = hit ? a[c] : 0.0f;
     normal_out[3 * i + 0] = hit ? nx : 0.0f;
     normal_out[3 * i + 1] = hit ? ny : 0.0f;
     normal_out[3 * i + 2] = hit ? nz : 0.0f;

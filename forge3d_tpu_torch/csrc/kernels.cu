@@ -1,13 +1,22 @@
 // forge3d_tpu_torch/csrc/kernels.cu
-// The four CUDA kernels of the per-ray terrain path tracer, for sm_90a,
-// with plain C launchers for ctypes (see _kernels.py). Each launcher
-// enqueues on the caller's stream, does not synchronise, allocates nothing,
-// and returns cudaGetLastError() so that a refused launch is reported.
+// The CUDA kernels of the per-ray terrain path tracer, for sm_90a, with
+// plain C launchers for ctypes (see _kernels.py). Each launcher enqueues on
+// the caller's stream, does not synchronise, allocates nothing, and returns
+// cudaGetLastError() so that a refused launch is reported.
 //
 // K5 trace_kernel        replaces forge3d_tpu/ops/traversal.py:trace (211)
 // K6 frame_kernel        replaces forge3d_tpu/pt/terrain_ref.py:_make_frame_step (174)
 // K7 spatial_kernel      replaces forge3d_tpu/ops/restir.py:spatial_reuse (107)
 // K8 gbuffer_kernel      replaces forge3d_tpu/pt/terrain_ref.py:_center_gbuffer (472)
+// K9 trace_mesh_kernel   replaces forge3d_tpu/ops/bvh.py:trace_mesh (333); its body
+//                        (mesh.cuh:trace_mesh_ray) also runs inside K6, K8 and P2
+// K10 sample_light_kernel replaces forge3d_tpu/ops/lightsample.py:sample_light_nee
+//                        (101) with alias_sample (74); its body (lights.cuh:
+//                        sample_light) also runs inside K6
+//
+// K6 comes in two instantiations: the terrain-only one, and the hybrid one
+// for scenes with a mesh or typed lights, so that the terrain-only render
+// keeps its register budget.
 //
 // What bounds them on the card: the DDA in trace_ray is a chain of
 // dependent loads (node index -> mm_pack pair -> next node; leaf ->
@@ -51,16 +60,19 @@ __global__ void trace_kernel(SceneArgs s, const float* __restrict__ rox,
 }
 
 // K6: one thread per pixel runs all spp samples of one frame (primary,
-// sun and env occlusion rays through trace_ray), then writes the
+// sun and env occlusion rays through trace_ray, and with a mesh or lights
+// the mesh walk and the light sample and its ray), then writes the
 // accumulator, the Welford pair and the temporally merged reservoir.
 // accum/welford may be updated in place (each thread reads its own pixel
 // before writing it); res_in and res_out are separate buffers.
-__global__ void frame_kernel(SceneArgs s, FrameArgs f, const float* accum_in,
-                             const float* welford_in, ResArgs res_in, float* accum_out,
-                             float* welford_out, ResArgs res_out) {
+template <bool kHybrid>
+__global__ void frame_kernel(SceneArgs s, FrameArgs f, MeshArgs m, LightArgs l,
+                             const float* accum_in, const float* welford_in, ResArgs res_in,
+                             float* accum_out, float* welford_out, ResArgs res_out) {
     int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= f.width * f.height) return;
-    frame_pixel(s, f, i, accum_in, welford_in, res_in, accum_out, welford_out, res_out);
+    frame_pixel<kHybrid>(s, f, m, l, i, accum_in, welford_in, res_in, accum_out, welford_out,
+                         res_out);
 }
 
 // K7: one thread per pixel; reads neighbours from res_in, writes res_out.
@@ -81,9 +93,11 @@ struct Vec3 {
     float v[3];
 };
 
-// K8: one thread per pixel turns K5's center-ray hit record into the AOVs.
-__global__ void gbuffer_kernel(SceneArgs s, int n, Vec3 cam_o, Vec3 alb,
-                               const float* __restrict__ dx, const float* __restrict__ dz,
+// K8: one thread per pixel turns K5's center-ray hit record into the AOVs;
+// with a mesh it traces the center ray through the BVH as well.
+__global__ void gbuffer_kernel(SceneArgs s, MeshArgs m, int n, Vec3 cam_o, Vec3 alb,
+                               const float* __restrict__ dx, const float* __restrict__ dy,
+                               const float* __restrict__ dz,
                                const unsigned char* __restrict__ hit,
                                const float* __restrict__ t, const int* __restrict__ cell_x,
                                const int* __restrict__ cell_z, float* albedo_out,
@@ -91,9 +105,49 @@ __global__ void gbuffer_kernel(SceneArgs s, int n, Vec3 cam_o, Vec3 alb,
                                float* gb_nx, float* gb_ny, float* gb_nz) {
     int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
-    gbuffer_pixel(s, cam_o.v, alb.v, i, dx[i], dz[i], hit[i], t[i], cell_x[i],
+    gbuffer_pixel(s, m, cam_o.v, alb.v, i, dx[i], dy[i], dz[i], hit[i], t[i], cell_x[i],
                   cell_z[i], albedo_out, normal_out, depth_out, vis_out, gb_nx, gb_ny,
                   gb_nz);
+}
+
+// K9 standalone: one thread per ray.
+__global__ void trace_mesh_kernel(MeshArgs m, const float* __restrict__ rox,
+                                  const float* __restrict__ roy, const float* __restrict__ roz,
+                                  const float* __restrict__ rdx, const float* __restrict__ rdy,
+                                  const float* __restrict__ rdz, int n, float tmin, float tmax,
+                                  unsigned char* __restrict__ hit, float* __restrict__ t,
+                                  int* __restrict__ prim, float* __restrict__ u,
+                                  float* __restrict__ v) {
+    int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    MeshHit h = trace_mesh_ray(m, rox[i], roy[i], roz[i], rdx[i], rdy[i], rdz[i], tmin, tmax);
+    hit[i] = (unsigned char)(h.prim >= 0);
+    t[i] = h.t;
+    prim[i] = h.prim;
+    u[i] = h.u;
+    v[i] = h.v;
+}
+
+// K10 standalone: one thread per lane.
+__global__ void sample_light_kernel(LightArgs l, int n, const float* __restrict__ px,
+                                    const float* __restrict__ py, const float* __restrict__ pz,
+                                    const float* __restrict__ nx, const float* __restrict__ ny,
+                                    const float* __restrict__ nz,
+                                    const float* __restrict__ u_pick,
+                                    const float* __restrict__ u1, const float* __restrict__ u2,
+                                    float* dx, float* dy, float* dz, float* dist, float* wr,
+                                    float* wg, float* wb) {
+    int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    LightSample s = sample_light(l, px[i], py[i], pz[i], nx[i], ny[i], nz[i], u_pick[i], u1[i],
+                                 u2[i]);
+    dx[i] = s.dx;
+    dy[i] = s.dy;
+    dz[i] = s.dz;
+    dist[i] = s.dist;
+    wr[i] = s.wr;
+    wg[i] = s.wg;
+    wb[i] = s.wb;
 }
 
 }  // namespace
@@ -113,13 +167,21 @@ int f3d_trace(const SceneArgs* s, const float* rox, const float* roy, const floa
     return (int)cudaGetLastError();
 }
 
-int f3d_frame_step(const SceneArgs* s, const FrameArgs* f, const float* accum_in,
-                   const float* welford_in, const ResArgs* res_in, float* accum_out,
-                   float* welford_out, const ResArgs* res_out, void* stream) {
+int f3d_frame_step(const SceneArgs* s, const FrameArgs* f, const MeshArgs* m,
+                   const LightArgs* l, const float* accum_in, const float* welford_in,
+                   const ResArgs* res_in, float* accum_out, float* welford_out,
+                   const ResArgs* res_out, void* stream) {
     int n = f->width * f->height;
     if (n > 0) {
-        frame_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-            *s, *f, accum_in, welford_in, *res_in, accum_out, welford_out, *res_out);
+        if (m->n_nodes > 0 || l->count > 0) {
+            frame_kernel<true><<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+                *s, *f, *m, *l, accum_in, welford_in, *res_in, accum_out, welford_out,
+                *res_out);
+        } else {
+            frame_kernel<false><<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+                *s, *f, *m, *l, accum_in, welford_in, *res_in, accum_out, welford_out,
+                *res_out);
+        }
     }
     return (int)cudaGetLastError();
 }
@@ -137,8 +199,8 @@ int f3d_spatial_reuse(const ResArgs* res_in, const ResArgs* res_out, const float
     return (int)cudaGetLastError();
 }
 
-int f3d_center_gbuffer(const SceneArgs* s, int n, const float* cam_o, const float* alb,
-                       const float* dx, const float* dz,
+int f3d_center_gbuffer(const SceneArgs* s, const MeshArgs* m, int n, const float* cam_o,
+                       const float* alb, const float* dx, const float* dy, const float* dz,
                        const unsigned char* hit, const float* t, const int* cell_x,
                        const int* cell_z, float* albedo_out, float* normal_out,
                        float* depth_out, float* vis_out, float* gb_nx, float* gb_ny,
@@ -150,8 +212,31 @@ int f3d_center_gbuffer(const SceneArgs* s, int n, const float* cam_o, const floa
             a.v[c] = alb[c];
         }
         gbuffer_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-            *s, n, o, a, dx, dz, hit, t, cell_x, cell_z, albedo_out, normal_out,
+            *s, *m, n, o, a, dx, dy, dz, hit, t, cell_x, cell_z, albedo_out, normal_out,
             depth_out, vis_out, gb_nx, gb_ny, gb_nz);
+    }
+    return (int)cudaGetLastError();
+}
+
+int f3d_trace_mesh(const MeshArgs* m, const float* rox, const float* roy, const float* roz,
+                   const float* rdx, const float* rdy, const float* rdz, int n, float tmin,
+                   float tmax, unsigned char* hit, float* t, int* prim, float* u, float* v,
+                   void* stream) {
+    if (n > 0) {
+        trace_mesh_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+            *m, rox, roy, roz, rdx, rdy, rdz, n, tmin, tmax, hit, t, prim, u, v);
+    }
+    return (int)cudaGetLastError();
+}
+
+int f3d_sample_light_nee(const LightArgs* l, int n, const float* px, const float* py,
+                         const float* pz, const float* nx, const float* ny, const float* nz,
+                         const float* u_pick, const float* u1, const float* u2, float* dx,
+                         float* dy, float* dz, float* dist, float* wr, float* wg, float* wb,
+                         void* stream) {
+    if (n > 0) {
+        sample_light_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+            *l, n, px, py, pz, nx, ny, nz, u_pick, u1, u2, dx, dy, dz, dist, wr, wg, wb);
     }
     return (int)cudaGetLastError();
 }

@@ -1,8 +1,7 @@
 # forge3d_tpu_torch/ops/pyramid.py
 # Min-max quadtree pyramid over a DEM, built on the host with numpy. It is
-# re-declared here, equal array for array to forge3d_tpu/ops/pyramid.py,
-# because importing that module loads jax (forge3d_tpu/ops/__init__.py
-# imports the traversal module).
+# re-declared here, equal array for array to forge3d_tpu/ops/pyramid.py:
+# the port imports no module of the JAX package.
 #
 # Level 0 holds the min/max of each bilinear cell's four corners, padded to
 # power-of-two dims with (+inf, -inf) sentinels so the traversal's shift
@@ -16,7 +15,7 @@ from typing import List, Tuple
 
 import numpy as np
 
-from forge3d_tpu.errors import UploadError
+from ..errors import UploadError
 
 
 def _next_pow2(x: int) -> int:

@@ -239,6 +239,7 @@ def trace_plain(scene: TerrainScene, ro, rd, tmin=1e-3, tmax=1e30) -> HitResult:
     for _ in range(scene.max_iters):
         if idx.numel() == 0:
             break
+        trace_plain.steps += idx.numel()
         (r_ox, r_oy, r_oz, r_dx, r_dy, r_dz, i_dx, i_dz, t_ex, eps) = cols.unbind(1)
         pt = t + eps
         px = r_ox + pt * r_dx
@@ -269,6 +270,7 @@ def trace_plain(scene: TerrainScene, ro, rd, tmin=1e-3, tmax=1e30) -> HitResult:
         got_hit = torch.zeros_like(band)
         leaf_sel = torch.nonzero(band & is_leaf).squeeze(1)
         if leaf_sel.numel():
+            trace_plain.leaf_tests += leaf_sel.numel()
             ok, lt = _leaf_intersect(
                 scene,
                 (r_ox[leaf_sel], r_oy[leaf_sel], r_oz[leaf_sel]),
@@ -294,6 +296,12 @@ def trace_plain(scene: TerrainScene, ro, rd, tmin=1e-3, tmax=1e30) -> HitResult:
     t_out = torch.where(hit, hit_t, tmax)
     return HitResult(hit.reshape(shape), t_out.reshape(shape),
                      cell_x.reshape(shape), cell_z.reshape(shape))
+
+
+# The work the data needed, summed over calls (rays x DDA steps taken, and
+# leaf cells solved): read by chip_smoke.py for the kernels' bounds.
+trace_plain.steps = 0
+trace_plain.leaf_tests = 0
 
 
 def _trace_kernel(scene: TerrainScene, ro, rd, tmin, tmax) -> HitResult:

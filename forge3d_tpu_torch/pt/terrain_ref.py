@@ -9,9 +9,12 @@
 # primary ray, sun NEE through the ReSTIR reservoir, one cosine env ray,
 # sun and env occlusion rays, the fresh candidate reservoir merged with the
 # history, accumulation and the windowed Welford) and the spatial reuse
-# kernel K7. The host reads one scalar, the maximum windowed variance, at
-# each 32-frame window boundary, and resolves Reinhard -> float16 -> u8 at
-# the end.
+# kernel K7. A scene with a triangle mesh traces every ray through its BVH
+# as well and keeps the nearer hit (K9's body inside K6 and K8); typed
+# lights add one alias-table light sample and its occlusion ray per camera
+# sample (K10's body inside K6). The host reads one scalar, the maximum
+# windowed variance, at each 32-frame window boundary, and resolves
+# Reinhard -> float16 -> u8 at the end.
 #
 # `device` is explicit: "cuda" launches the kernels and raises if CUDA is
 # absent or a kernel fails; "cpu" runs the plain PyTorch versions. Nothing
@@ -27,29 +30,26 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from forge3d_tpu.camera import camera_basis
-from forge3d_tpu.errors import (ContractViolation, ConvergenceError, DeviceError,
-                                RenderError, UploadError)
-from forge3d_tpu.mem import global_tracker
-
 from .. import _kernels
+from ..camera import camera_basis
+from ..errors import ContractViolation, ConvergenceError, DeviceError, RenderError, UploadError
+from ..mem import global_tracker
 from ..ops import restir as rst
 from ..ops import tonemap as tm
 from ..ops.pyramid import build_pyramid
 from ..ops.rng import MASK32, derive_seed_lo, seed_state, tent_offset, xorshift32
 from ..ops.shading import (EnvMap, cosine_dir, env_map, env_radiance, fdiv, luminance,
                            rsqrt, sun_direction)
+from ..ops.bvh import trace_mesh_plain
+from ..ops.lightsample import sample_light_nee_plain
 from ..ops.traversal import (TerrainScene, f32, normal_at, scene_from_pyramid, trace,
                              trace_plain)
 
 _F32 = torch.float32
 
 WELFORD_WINDOW = 32
-
-# Where the parts of the JAX entry that this package does not run yet are
-# scheduled (ROADMAP.md, queue 1).
-_TODO_MESH = "meshes are not ported yet (ROADMAP queue 1 item 5: per-ray extras, kernel K9)"
-_TODO_LIGHTS = "typed lights are not ported yet (ROADMAP queue 1 item 5: per-ray extras, kernel K10)"
+_MISS_T = 3.0e38    # the t of a missed ray where the nearer of two hits is taken
+_MESH_ALBEDO = (0.7, 0.7, 0.8)   # mesh hits keep this constant albedo
 
 
 @dataclass(frozen=True)
@@ -85,7 +85,11 @@ class TerrainRefDesc:
     #: Shade the sun through the ReSTIR temporal+spatial reuse chain; False
     #: = plain sun NEE with unit weight.
     restir: bool = True
+    #: Typed lights (lighting.Light), integrated by alias-table NEE: one
+    #: light sample per camera sample, selection weighted by emitted power.
     lights: Optional[tuple] = None
+    #: A triangle mesh ((N, 3) f32 vertices, (M, 3) u32 indices) traced
+    #: beside the terrain for primary and shadow rays; the nearer hit wins.
     mesh: Optional[tuple] = None
 
 
@@ -168,8 +172,11 @@ class FrameContext:
     alc: Tuple[float, float, float]   # float32(albedo * sun radiance), rounded once
     lum_lc: float                     # luminance of float32(sun radiance)
     inv_spp: float
+    lc: Tuple[float, float, float]    # float32(sun radiance)
     scene: TerrainScene
     env: EnvMap
+    mesh: Optional["MeshTracerScene"] = None   # pt/mesh_render.py
+    lights: Optional[tuple] = None             # (LightBuffer, AliasTable)
 
     def frame_args(self, frame_index: int) -> _kernels.FrameArgs:
         rgb = self.env.rgb
@@ -183,11 +190,26 @@ class FrameContext:
             int(self.restir), int(frame_index) & MASK32, self.seed_hi, self.seed_lo,
             F3(*self.cam_o), F3(*self.right), F3(*self.up), F3(*self.fwd),
             self.half_w, self.half_h, F3(*self.sun), F3(*self.alb), F3(*self.alc),
-            self.lum_lc, self.env.intensity, self.inv_spp,
+            self.lum_lc, self.env.intensity, self.inv_spp, F3(*self.lc),
         )
+
+    def mesh_args(self) -> _kernels.MeshArgs:
+        """The BVH as K6 and K8 read it; all zero without a mesh."""
+        return _kernels.MeshArgs() if self.mesh is None else self.mesh.kernel_args()
+
+    def light_args(self) -> _kernels.LightArgs:
+        """The typed lights as K6 reads them; all zero without lights."""
+        if self.lights is None:
+            return _kernels.LightArgs()
+        from ..ops.lightsample import light_args
+
+        return light_args(*self.lights)
 
 
 def make_context(desc: TerrainRefDesc, scene: TerrainScene, env: EnvMap) -> FrameContext:
+    """The per-render constants of `desc`, with its mesh (SAH BVH built on
+    the host) and typed lights (alias table by emitted power) on the
+    scene's device."""
     W, H = desc.width, desc.height
     right, up, fwd = camera_basis(desc.cam_origin, desc.cam_look_at, desc.cam_up)
     half_h = math.tan(math.radians(desc.fov_y_deg) * 0.5)
@@ -205,9 +227,27 @@ def make_context(desc: TerrainRefDesc, scene: TerrainScene, env: EnvMap) -> Fram
         sun=_vec3(sun_direction(desc.sun_azimuth_deg, desc.sun_elevation_deg)),
         alb=_vec3(desc.albedo),
         alc=tuple(f32(a * c) for a, c in zip(desc.albedo, lc)),
-        lum_lc=f32(lum_lc), inv_spp=f32(1.0 / desc.spp),
-        scene=scene, env=env,
+        lum_lc=f32(lum_lc), inv_spp=f32(1.0 / desc.spp), lc=_vec3(lc),
+        scene=scene, env=env, mesh=_mesh(desc, scene.device), lights=_lights(desc, scene.device),
     )
+
+
+def _mesh(desc: TerrainRefDesc, device):
+    if desc.mesh is None:
+        return None
+    from .mesh_render import MeshTracerScene
+
+    return MeshTracerScene(desc.mesh[0], desc.mesh[1], device)
+
+
+def _lights(desc: TerrainRefDesc, device):
+    if not desc.lights:
+        return None
+    from ..lighting import LightBuffer
+    from ..ops.lightsample import alias_table_build, light_power_weights
+
+    buf = LightBuffer.from_lights(list(desc.lights), device)
+    return buf, alias_table_build(light_power_weights(buf), device)
 
 
 def camera_rays(ctx: FrameContext, jx, jy):
@@ -234,6 +274,17 @@ def _origin(ctx: FrameContext, shape, dev):
     return tuple(torch.full(shape, c, dtype=_F32, device=dev) for c in ctx.cam_o)
 
 
+def _nearest_t(ctx: FrameContext, o, d):
+    """(any hit, nearer t with _MISS_T for a miss) of rays against the
+    terrain and, with a mesh, its BVH (terrain_ref.py:_occl_any)."""
+    th = trace_plain(ctx.scene, o, d)
+    hit, t = th.hit, torch.where(th.hit, th.t, _MISS_T)
+    if ctx.mesh is not None:
+        mh = trace_mesh_plain(ctx.mesh.scene, ctx.mesh.n_nodes, o, d)
+        hit, t = hit | mh.hit, torch.minimum(t, torch.where(mh.hit, mh.t, _MISS_T))
+    return hit, t
+
+
 def _occlusion(ctx: FrameContext, hitmask, oro, sun_dir, env_dir):
     """(sun occluded, env occluded) masks. Only the hit pixels' rays are
     traced (the others' results are never read), and the sun and env rays
@@ -244,36 +295,75 @@ def _occlusion(ctx: FrameContext, hitmask, oro, sun_dir, env_dir):
     pick = lambda c: c.reshape(-1)[sel]  # noqa: E731
     o = [pick(c) for c in oro]
     if ctx.shadows:
-        hits = trace_plain(ctx.scene, [torch.cat([c, c]) for c in o],
-                           [torch.cat([pick(s), pick(e)]) for s, e in zip(sun_dir, env_dir)]).hit
+        hits = _nearest_t(ctx, [torch.cat([c, c]) for c in o],
+                          [torch.cat([pick(s), pick(e)]) for s, e in zip(sun_dir, env_dir)])[0]
     else:
         hits = torch.cat([torch.zeros(k, dtype=torch.bool, device=sel.device),
-                          trace_plain(ctx.scene, o, [pick(e) for e in env_dir]).hit])
+                          _nearest_t(ctx, o, [pick(e) for e in env_dir])[0]])
     occ = torch.zeros(2, hitmask.numel(), dtype=torch.bool, device=sel.device)
     occ[0, sel] = hits[:k]
     occ[1, sel] = hits[k:]
     return occ[0].reshape(hitmask.shape), occ[1].reshape(hitmask.shape)
 
 
+def _light_occlusion(ctx: FrameContext, hitmask, oro, ldir, limit):
+    """Whether each hit pixel's light ray is blocked before `limit` (the
+    nearer of the terrain's and the mesh's t, terrain_ref.py:359-360)."""
+    sel = torch.nonzero(hitmask.reshape(-1)).squeeze(1)
+    pick = lambda c: c.reshape(-1)[sel]  # noqa: E731
+    _, t = _nearest_t(ctx, [pick(c) for c in oro], [pick(c) for c in ldir])
+    occ = torch.zeros(hitmask.numel(), dtype=torch.bool, device=sel.device)
+    occ[sel] = t < pick(limit)
+    return occ.reshape(hitmask.shape)
+
+
+def _merge_mesh(ctx: FrameContext, o, d, th):
+    """(t, hit, mesh_won, mesh normals) of rays whose terrain hit record is
+    `th`: the nearer of the terrain and the mesh, the mesh's face normal
+    turned against the ray (terrain_ref.py:_hyb_primary)."""
+    mh = trace_mesh_plain(ctx.mesh.scene, ctx.mesh.n_nodes, o, d)
+    mesh_won = mh.hit & (mh.t < torch.where(th.hit, th.t, _MISS_T))
+    return (torch.where(mesh_won, mh.t, th.t), th.hit | mh.hit, mesh_won,
+            ctx.mesh.hit_normals(mh.prim, *d))
+
+
+def _hybrid_primary(ctx: FrameContext, o, d):
+    """(t, hit, hit point, normal, mesh_won) of primary rays: the terrain
+    alone (mesh_won None), or merged with the mesh."""
+    th = trace_plain(ctx.scene, o, d)
+    t, hitmask, mesh_won = th.t, th.hit, None
+    if ctx.mesh is not None:
+        t, hitmask, mesh_won, mn = _merge_mesh(ctx, o, d, th)
+    p = tuple(o[k] + t * d[k] for k in range(3))
+    n = normal_at(ctx.scene, p, th.cell_x, th.cell_z)
+    if mesh_won is not None:
+        n = tuple(torch.where(mesh_won, a, b) for a, b in zip(mn, n))
+    return t, hitmask, p, n, mesh_won
+
+
 def _sample_radiance(ctx: FrameContext, st, pdir, pw, prev_ok):
     """One jittered camera sample per pixel; returns (st, rgb, cand_pdf)."""
-    scene, sun = ctx.scene, ctx.sun
+    sun = ctx.sun
     st, u1 = xorshift32(st)
     st, u2 = xorshift32(st)
     jx = tent_offset(u1) * 0.5
     jy = tent_offset(u2) * 0.5
     dx, dy, dz = camera_rays(ctx, jx, jy)
-    ox, oy, oz = _origin(ctx, dx.shape, dx.device)
-    th = trace_plain(scene, (ox, oy, oz), (dx, dy, dz))
-    hitmask = th.hit
-    t = th.t
-    hx, hy, hz = ox + t * dx, oy + t * dy, oz + t * dz
-    nx, ny, nz = normal_at(scene, (hx, hy, hz), th.cell_x, th.cell_z)
+    o = _origin(ctx, dx.shape, dx.device)
+    t, hitmask, (hx, hy, hz), (nx, ny, nz), mesh_won = _hybrid_primary(ctx, o, (dx, dy, dz))
+    if mesh_won is None:
+        alb, alc = ctx.alb, ctx.alc
+    else:
+        # float32 per pixel: mesh hits keep the constant albedo, and the
+        # product with the sun radiance is a float32 product (with no mesh
+        # it is rounded once on the host)
+        alb = [torch.where(mesh_won, f32(m), a) for m, a in zip(_MESH_ALBEDO, ctx.alb)]
+        alc = [a * c for a, c in zip(alb, ctx.lc)]
 
     mr, mg, mb = env_radiance(ctx.env, dx, dy, dz)
 
     ndotl = torch.clamp(nx * sun[0] + ny * sun[1] + nz * sun[2], min=0.0)
-    tpdf = luminance(ctx.alc[0] * ndotl, ctx.alc[1] * ndotl, ctx.alc[2] * ndotl)
+    tpdf = luminance(alc[0] * ndotl, alc[1] * ndotl, alc[2] * ndotl)
     cand_pdf = torch.where(hitmask, tpdf, 0.0)
 
     sdx = torch.where(prev_ok, pdir[0], sun[0])
@@ -293,9 +383,20 @@ def _sample_radiance(ctx: FrameContext, st, pdir, pw, prev_ok):
     lit = nd * vis * rw
     er, eg, eb = env_radiance(ctx.env, ex, ey, ez)
     evis = torch.where(eocc, 0.0, 1.0)
-    r = torch.where(hitmask, ctx.alc[0] * lit + ctx.alb[0] * er * evis + 0.0, mr)
-    g = torch.where(hitmask, ctx.alc[1] * lit + ctx.alb[1] * eg * evis + 0.0, mg)
-    b = torch.where(hitmask, ctx.alc[2] * lit + ctx.alb[2] * eb * evis + 0.0, mb)
+    lrgb = (0.0, 0.0, 0.0)
+    if ctx.lights is not None:
+        # every lane draws its three words, misses included
+        st, u5 = xorshift32(st)
+        st, u6 = xorshift32(st)
+        st, u7 = xorshift32(st)
+        ldx, ldy, ldz, ldist, wr, wg, wb = sample_light_nee_plain(
+            *ctx.lights, hx, hy, hz, nx, ny, nz, u5, u6, u7)
+        locc = _light_occlusion(ctx, hitmask, oro, (ldx, ldy, ldz), ldist * 0.999)
+        lvis = torch.where(locc, 0.0, 1.0)
+        lrgb = tuple(a * w * lvis for a, w in zip(alb, (wr, wg, wb)))
+    r = torch.where(hitmask, alc[0] * lit + alb[0] * er * evis + lrgb[0], mr)
+    g = torch.where(hitmask, alc[1] * lit + alb[1] * eg * evis + lrgb[1], mg)
+    b = torch.where(hitmask, alc[2] * lit + alb[2] * eb * evis + lrgb[2], mb)
     return st, (r, g, b), cand_pdf
 
 
@@ -381,11 +482,16 @@ def _frame_step_kernel(ctx: FrameContext, accum, welford, res_prev: rst.Reservoi
     wf_out = torch.empty_like(welford)
     merged = rst.Reservoirs.empty(H * W, dev)
     err = _kernels.lib().f3d_frame_step(
-        ctx.scene.kernel_args(), ctx.frame_args(frame_index), _kernels.ptr(accum),
-        _kernels.ptr(welford), res_prev.kernel_args(), _kernels.ptr(acc_out),
-        _kernels.ptr(wf_out), merged.kernel_args(), _kernels.stream_ptr(dev))
+        ctx.scene.kernel_args(), ctx.frame_args(frame_index), ctx.mesh_args(),
+        ctx.light_args(), _kernels.ptr(accum), _kernels.ptr(welford), res_prev.kernel_args(),
+        _kernels.ptr(acc_out), _kernels.ptr(wf_out), merged.kernel_args(),
+        _kernels.stream_ptr(dev))
     _kernels.check(err, "K6 frame_step")
     frame_step.launches += 1
+    if ctx.mesh is not None:
+        frame_step.mesh_launches += 1
+    if ctx.lights is not None:
+        frame_step.light_launches += 1
     return acc_out, wf_out, merged
 
 
@@ -399,6 +505,10 @@ def frame_step(ctx: FrameContext, accum, welford, res_prev: rst.Reservoirs,
 
 
 frame_step.launches = 0
+# the launches that walked a mesh BVH (K9's body) and sampled typed lights
+# (K10's body)
+frame_step.mesh_launches = 0
+frame_step.light_launches = 0
 
 
 def _center_rays(ctx: FrameContext):
@@ -409,7 +519,8 @@ def _center_rays(ctx: FrameContext):
 
 def gbuffer_resolve_plain(ctx: FrameContext, d, th):
     """Plain PyTorch version of K8: AOVs and ReSTIR receiver normals from
-    the center rays' hit record."""
+    the center rays' hit record; with a mesh, the center rays are traced
+    through its BVH too and the nearer hit wins."""
     H, W = ctx.height, ctx.width
     dev = d[0].device
     hitmask = th.hit
@@ -417,11 +528,16 @@ def gbuffer_resolve_plain(ctx: FrameContext, d, th):
     o = ctx.cam_o
     hx, hy, hz = o[0] + t * d[0], o[1] + t * d[1], o[2] + t * d[2]
     nx, ny, nz = normal_at(ctx.scene, (hx, hy, hz), th.cell_x, th.cell_z)
+    alb = torch.tensor(ctx.alb, dtype=_F32, device=dev).expand(H, W, 3)
+    if ctx.mesh is not None:
+        t, hitmask, mesh_won, mn = _merge_mesh(ctx, _origin(ctx, t.shape, dev), d, th)
+        nx, ny, nz = (torch.where(mesh_won, a, b) for a, b in zip(mn, (nx, ny, nz)))
+        alb = torch.where(mesh_won[..., None],
+                          torch.tensor(_MESH_ALBEDO, dtype=_F32, device=dev), alb)
     nx = torch.where(hitmask, nx, 0.0)
     ny = torch.where(hitmask, ny, 0.0)
     nz = torch.where(hitmask, nz, 1.0)  # sky record kept finite
     zero3 = torch.zeros(3, dtype=_F32, device=dev)
-    alb = torch.tensor(ctx.alb, dtype=_F32, device=dev).expand(H, W, 3)
     return {
         "albedo": torch.where(hitmask[..., None], alb, zero3),
         "normal": torch.where(hitmask[..., None], torch.stack([nx, ny, nz], dim=-1), zero3),
@@ -434,7 +550,7 @@ def gbuffer_resolve_plain(ctx: FrameContext, d, th):
 def _gbuffer_resolve_kernel(ctx: FrameContext, d, th):
     H, W = ctx.height, ctx.width
     n = H * W
-    d = [d[0].contiguous(), d[2].contiguous()]  # x and z place the hit in its cell
+    d = [c.contiguous() for c in d]
     th_c = [th.hit.contiguous(), th.t.contiguous(), th.cell_x.contiguous(),
             th.cell_z.contiguous()]
     _kernels.require_cuda("center_gbuffer", *d, *th_c)
@@ -446,7 +562,7 @@ def _gbuffer_resolve_kernel(ctx: FrameContext, d, th):
     gb = [torch.empty(n, dtype=_F32, device=dev) for _ in range(3)]
     F3 = ctypes.c_float * 3
     err = _kernels.lib().f3d_center_gbuffer(
-        ctx.scene.kernel_args(), n, F3(*ctx.cam_o), F3(*ctx.alb),
+        ctx.scene.kernel_args(), ctx.mesh_args(), n, F3(*ctx.cam_o), F3(*ctx.alb),
         *(_kernels.ptr(c) for c in d), *(_kernels.ptr(c) for c in th_c),
         _kernels.ptr(albedo), _kernels.ptr(normal), _kernels.ptr(depth), _kernels.ptr(vis),
         *(_kernels.ptr(c) for c in gb), _kernels.stream_ptr(dev))
@@ -488,14 +604,6 @@ def _contract(name: str, arr: np.ndarray, lo: float, hi: float) -> None:
         )
 
 
-def _peak_tracked_bytes(tracker) -> int:
-    """The ledger's peak, as MemoryTracker.metrics()["peak_tracked_bytes"]
-    reports it. metrics() also asks the JAX runtime for live device memory,
-    which imports jax, so the port reads the ledger alone."""
-    with tracker._lock:
-        return int(tracker._peak)
-
-
 def render_terrain_reference(desc: TerrainRefDesc, *, device="cuda") -> dict:
     """Render the converged terrain reference; raises ConvergenceError
     rather than returning a non-converged image."""
@@ -513,10 +621,6 @@ def render_terrain_reference(desc: TerrainRefDesc, *, device="cuda") -> dict:
         from .terrain_sweep import render_terrain_sweep
 
         return render_terrain_sweep(desc, device=device)
-    if desc.mesh is not None:
-        raise NotImplementedError(_TODO_MESH)
-    if desc.lights:
-        raise NotImplementedError(_TODO_LIGHTS)
     _validate(desc)
     if desc.traversal not in ("dda", "mxu"):
         raise ValueError(f"unknown traversal {desc.traversal!r}")
@@ -536,6 +640,8 @@ def render_terrain_reference(desc: TerrainRefDesc, *, device="cuda") -> dict:
     welford_bytes = n_pix * 8
     reservoir_bytes = 3 * n_pix * 40
     env_bytes = 0 if desc.env_map is None else int(np.asarray(desc.env_map).nbytes)
+    ctx = make_context(desc, scene, env)
+    mesh_bytes = 0 if ctx.mesh is None else int(ctx.mesh.bvh.nbytes)
     rids = [
         tracker.track("terrain-pt.pyramid", pyramid_bytes, "pyramid"),
         tracker.track("terrain-pt.accum", accum_bytes, "buffer"),
@@ -543,11 +649,12 @@ def render_terrain_reference(desc: TerrainRefDesc, *, device="cuda") -> dict:
         tracker.track("terrain-pt.reservoirs", reservoir_bytes, "buffer"),
         tracker.track("terrain-pt.env", env_bytes, "texture"),
     ]
+    if mesh_bytes:
+        rids.append(tracker.track("terrain-pt.mesh-bvh", mesh_bytes, "buffer"))
     gpu_resource_bytes = (pyramid_bytes + accum_bytes + welford_bytes
-                          + reservoir_bytes + env_bytes)
+                          + reservoir_bytes + env_bytes + mesh_bytes)
 
     try:
-        ctx = make_context(desc, scene, env)
         gbuf = center_gbuffer(ctx)
         gb_n = gbuf["gb_n"]
 
@@ -611,7 +718,7 @@ def render_terrain_reference(desc: TerrainRefDesc, *, device="cuda") -> dict:
             "frames": frames,
             "variance": variance,
             "converged": True,
-            "peak_host_visible_bytes": _peak_tracked_bytes(tracker),
+            "peak_host_visible_bytes": int(tracker.metrics()["peak_tracked_bytes"]),
             "minmax_pyramid_bytes": int(pyramid_bytes),
             "gpu_resource_bytes": int(gpu_resource_bytes),
             "hdr": mean.cpu().numpy().astype(np.float32),
@@ -652,9 +759,24 @@ def hybrid_render_terrain_reference(
     forge3d_tpu's hybrid_render_terrain_reference, plus the keyword
     `device` ("cuda" runs the kernels, "cpu" the plain versions). A scene
     with a mesh falls back from traversal="sweep" to the per-ray engine, as
-    in the JAX package; meshes themselves are not ported yet."""
-    if mesh_vertices is not None or mesh_indices is not None:
-        raise NotImplementedError(_TODO_MESH)
+    in the JAX package."""
+    if (mesh_vertices is None) != (mesh_indices is None):
+        raise ValueError("mesh_vertices and mesh_indices must be provided together")
+    mesh = None
+    if mesh_vertices is not None:
+        mv = np.asarray(mesh_vertices, np.float32)
+        mi = np.asarray(mesh_indices)
+        if mv.ndim != 2 or mv.shape[1] != 3 or mv.shape[0] == 0:
+            raise ValueError("mesh_vertices must have shape (N, 3)")
+        if mi.ndim != 2 or mi.shape[1] != 3 or mi.shape[0] == 0:
+            raise ValueError("mesh_indices must have shape (M, 3)")
+        if not np.isfinite(mv).all():
+            raise ValueError("mesh vertices contain non-finite values")
+        if mi.min() < 0 or int(mi.max()) >= mv.shape[0]:
+            raise ValueError("mesh indices reference out-of-bounds vertices")
+        mesh = (mv, mi.astype(np.uint32))
+        if traversal == "sweep":
+            traversal = "dda"
     if sun_color is None:
         sun_color = (1.0, 0.97, 0.92)
     else:
@@ -687,10 +809,11 @@ def hybrid_render_terrain_reference(
         min_frames=int(min_frames),
         variance_threshold=float(variance_threshold),
         traversal=str(traversal),
+        mesh=mesh,
     )
     out = render_terrain_reference(desc, device=device)
     if certificate is not None:
-        from forge3d_tpu.assurance.certificate import emit_certificate
+        from ..assurance.certificate import emit_certificate
 
         emit_certificate(certificate, "hybrid_render_terrain_reference", out)
     return out

@@ -30,11 +30,10 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from forge3d_tpu.camera import camera_basis
-from forge3d_tpu.errors import RenderError
-from forge3d_tpu.mem import global_tracker
-
 from .. import _kernels
+from ..camera import camera_basis
+from ..errors import RenderError
+from ..mem import global_tracker
 from ..ops import polarscan as pscan
 from ..ops import rng
 from ..ops import sweep as sw
@@ -493,7 +492,7 @@ def render_terrain_sweep_sequence(desc, seeds, frames: Optional[int] = None,
     """Render one converged frame per seed over a fixed scene: the rotation
     runs once, the renders run in order, each output bit-identical to
     render_terrain_sweep with that seed."""
-    from .terrain_ref import _peak_tracked_bytes, _validate, resolve_device
+    from .terrain_ref import _validate, resolve_device
 
     _validate(desc)
     dev = resolve_device(device)
@@ -513,7 +512,7 @@ def render_terrain_sweep_sequence(desc, seeds, frames: Optional[int] = None,
         for s in seeds:
             packed = render_packed(plan, scene, rot, int(s) & 0xFFFFFFFF, n_total)
             out = _unpack_render(desc, packed.cpu().numpy(), n_total)
-            out["peak_host_visible_bytes"] = _peak_tracked_bytes(tracker)
+            out["peak_host_visible_bytes"] = int(tracker.metrics()["peak_tracked_bytes"])
             out["gpu_resource_bytes"] = int(rot_bytes + polar_bytes)
             outs.append(out)
         return outs

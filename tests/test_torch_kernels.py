@@ -40,6 +40,7 @@ FRAC = 0.999
 
 HOST_LAUNCHERS = r"""
 #include "common.cuh"
+#include "pbr.cuh"
 #include "sweep.cuh"
 #include <vector>
 extern "C" {
@@ -52,11 +53,19 @@ int f3d_trace(const SceneArgs* s, const float* rox, const float* roy, const floa
     }
     return 0;
 }
-int f3d_frame_step(const SceneArgs* s, const FrameArgs* f, const float* accum_in,
-                   const float* welford_in, const ResArgs* res_in, float* accum_out,
-                   float* welford_out, const ResArgs* res_out, void*) {
-    for (int i = 0; i < f->width * f->height; ++i)
-        frame_pixel(*s, *f, i, accum_in, welford_in, *res_in, accum_out, welford_out, *res_out);
+int f3d_frame_step(const SceneArgs* s, const FrameArgs* f, const MeshArgs* m,
+                   const LightArgs* l, const float* accum_in, const float* welford_in,
+                   const ResArgs* res_in, float* accum_out, float* welford_out,
+                   const ResArgs* res_out, void*) {
+    const bool hybrid = m->n_nodes > 0 || l->count > 0;
+    for (int i = 0; i < f->width * f->height; ++i) {
+        if (hybrid)
+            frame_pixel<true>(*s, *f, *m, *l, i, accum_in, welford_in, *res_in, accum_out,
+                              welford_out, *res_out);
+        else
+            frame_pixel<false>(*s, *f, *m, *l, i, accum_in, welford_in, *res_in, accum_out,
+                               welford_out, *res_out);
+    }
     return 0;
 }
 int f3d_spatial_reuse(const ResArgs* res_in, const ResArgs* res_out, const float* gb_nx,
@@ -68,16 +77,48 @@ int f3d_spatial_reuse(const ResArgs* res_in, const ResArgs* res_out, const float
                                              frame_index, seed_hi, k_neighbors, radius, i));
     return 0;
 }
-int f3d_center_gbuffer(const SceneArgs* s, int n, const float* cam_o, const float* alb,
-                       const float* dx, const float* dz,
+int f3d_center_gbuffer(const SceneArgs* s, const MeshArgs* m, int n, const float* cam_o,
+                       const float* alb, const float* dx, const float* dy, const float* dz,
                        const unsigned char* hit, const float* t, const int* cell_x,
                        const int* cell_z, float* albedo_out, float* normal_out,
                        float* depth_out, float* vis_out, float* gb_nx, float* gb_ny,
                        float* gb_nz, void*) {
     for (int i = 0; i < n; ++i)
-        gbuffer_pixel(*s, cam_o, alb, i, dx[i], dz[i], hit[i], t[i], cell_x[i],
+        gbuffer_pixel(*s, *m, cam_o, alb, i, dx[i], dy[i], dz[i], hit[i], t[i], cell_x[i],
                       cell_z[i], albedo_out, normal_out, depth_out, vis_out, gb_nx, gb_ny,
                       gb_nz);
+    return 0;
+}
+int f3d_trace_mesh(const MeshArgs* m, const float* rox, const float* roy, const float* roz,
+                   const float* rdx, const float* rdy, const float* rdz, int n, float tmin,
+                   float tmax, unsigned char* hit, float* t, int* prim, float* u, float* v,
+                   void*) {
+    for (int i = 0; i < n; ++i) {
+        MeshHit h = trace_mesh_ray(*m, rox[i], roy[i], roz[i], rdx[i], rdy[i], rdz[i], tmin, tmax);
+        hit[i] = (unsigned char)(h.prim >= 0); t[i] = h.t; prim[i] = h.prim; u[i] = h.u; v[i] = h.v;
+    }
+    return 0;
+}
+int f3d_sample_light_nee(const LightArgs* l, int n, const float* px, const float* py,
+                         const float* pz, const float* nx, const float* ny, const float* nz,
+                         const float* u_pick, const float* u1, const float* u2, float* dx,
+                         float* dy, float* dz, float* dist, float* wr, float* wg, float* wb,
+                         void*) {
+    for (int i = 0; i < n; ++i) {
+        LightSample s = sample_light(*l, px[i], py[i], pz[i], nx[i], ny[i], nz[i], u_pick[i],
+                                     u1[i], u2[i]);
+        dx[i] = s.dx; dy[i] = s.dy; dz[i] = s.dz; dist[i] = s.dist;
+        wr[i] = s.wr; wg[i] = s.wg; wb[i] = s.wb;
+    }
+    return 0;
+}
+int f3d_render_spheres(const CamArgs* c, const SphereArgs* s, const AovArgs* o, void*) {
+    for (int i = 0; i < c->width * c->height; ++i) sphere_pixel(*c, *s, *o, i);
+    return 0;
+}
+int f3d_render_mesh(const CamArgs* c, const MeshArgs* m, const MaterialArgs* mat,
+                    const AovArgs* o, void*) {
+    for (int i = 0; i < c->width * c->height; ++i) mesh_pixel(*c, *m, *mat, *o, i);
     return 0;
 }
 const char* f3d_error_string(int) { return "host build"; }
@@ -471,3 +512,129 @@ def test_sweep_render_on_card_matches_plain():
     du = np.abs(a["rgba"].astype(np.int32) - b["rgba"].astype(np.int32)).max(-1)
     assert (du <= 1).mean() >= 0.995
     assert (np.isnan(a["depth"]) == np.isnan(b["depth"])).mean() >= 0.999
+
+
+# ---------------------------------------------------------------------------
+# Meshes, typed lights and the engines: K9 (csrc/mesh.cuh), K10
+# (csrc/lights.cuh), K6 and K8 with both, P1 and P2 (csrc/pbr.cuh) against
+# their plain versions. The BVH walk and the engines' shading run the same
+# float32 operations on both sides; the light sample's sin/cos and P1/P2's
+# powf may differ from PyTorch's by an ulp.
+# ---------------------------------------------------------------------------
+
+QUAD_TOWN = (np.array([[10, 8, 20], [38, 8, 20], [38, 22, 20], [10, 22, 20],
+                       [20, 2, 40], [30, 2, 40], [30, 14, 36], [20, 14, 36]], np.float32),
+             np.array([[0, 1, 2], [0, 2, 3], [4, 5, 6], [4, 6, 7]], np.uint32))
+
+
+def mesh_lights_ctx(device, **kw):
+    from forge3d_tpu_torch.lighting import LIGHT_TYPES, Light
+
+    lights = tuple(Light(type=t, position=(24.0 + 6 * i, 18.0, 30.0), intensity=40.0,
+                         direction=(0.1, -1.0, 0.2), radius=1.5, extent=(2.0, 1.0))
+                   for i, t in enumerate(LIGHT_TYPES))
+    return make_ctx(device, mesh=QUAD_TOWN, lights=lights, **kw)
+
+
+def test_trace_mesh_kernel(kernels):
+    from forge3d_tpu_torch.ops import bvh
+
+    ctx = mesh_lights_ctx(kernels)
+    ms = ctx.mesh
+    rng = np.random.default_rng(5)
+    ro = torch.as_tensor(rng.uniform([0, 0, 0], [48, 30, 60], (4096, 3)).astype(np.float32),
+                         device=kernels)
+    rd = torch.as_tensor(rng.standard_normal((4096, 3)).astype(np.float32), device=kernels)
+    rd = rd / rd.norm(dim=1, keepdim=True)
+    o, d = tr._center_rays(ctx)
+    ro = tuple(torch.cat([o[i].reshape(-1), ro[:, i]]) for i in range(3))
+    rd = tuple(torch.cat([d[i].reshape(-1), rd[:, i]]) for i in range(3))
+    before = bvh.trace_mesh.launches
+    hk = bvh._trace_mesh_kernel(ms.scene, ms.n_nodes, ro, rd, 1e-4, 1e30)
+    assert bvh.trace_mesh.launches == before + 1
+    hp = bvh.trace_mesh_plain(ms.scene, ms.n_nodes, ro, rd)
+    assert 0.05 < float(hp.hit.double().mean()) < 0.95
+    for a, b in zip(hp, hk):
+        assert torch.equal(a, b)
+
+
+def test_sample_light_kernel(kernels):
+    from forge3d_tpu_torch.ops import lightsample as ls
+
+    ctx = mesh_lights_ctx(kernels)
+    rng = np.random.default_rng(6)
+    n = 4096
+    p = rng.uniform([0, -5, 0], [64, 5, 64], (n, 3)).astype(np.float32)
+    nrm = rng.standard_normal((n, 3)).astype(np.float32)
+    nrm[:, 1] = np.abs(nrm[:, 1]) + 0.5
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    u = rng.random((n, 3), dtype=np.float32)
+    lanes = [torch.as_tensor(np.ascontiguousarray(a[:, i]), device=kernels)
+             for a in (p, nrm, u) for i in range(3)]
+    before = ls.sample_light_nee.launches
+    sk = ls._sample_light_kernel(*ctx.lights, *lanes)
+    assert ls.sample_light_nee.launches == before + 1
+    sp = ls.sample_light_nee_plain(*ctx.lights, *lanes)
+    for a, b in zip(sp, sk):
+        assert close_frac(a, b) == 1.0
+
+
+@pytest.mark.parametrize("kw", [dict(spp=2), dict(spp=1, restir=False, shadows_enabled=False)],
+                         ids=["restir_spp2", "plain_nee_no_shadows"])
+def test_frame_and_gbuffer_with_mesh_and_lights(kernels, kw):
+    ctx = mesh_lights_ctx(kernels, **kw)
+    H, W = ctx.height, ctx.width
+    o, d = tr._center_rays(ctx)
+    th = tv.trace_plain(ctx.scene, o, d)
+    gp = tr.gbuffer_resolve_plain(ctx, d, th)
+    gk = tr._gbuffer_resolve_kernel(ctx, d, th)
+    for k in ("albedo", "normal", "depth", "visibility"):
+        assert close_frac(gp[k], gk[k]) >= FRAC, k
+    on_mesh = torch.all(gp["albedo"] == torch.tensor([0.7, 0.7, 0.8]).to(kernels), -1)
+    assert 0.01 < float(on_mesh.double().mean()) < 0.9
+    acc = torch.zeros(H, W, 4, device=kernels)
+    wf = torch.zeros(H, W, 2, device=kernels)
+    res = rst.Reservoirs.zeros(H * W, kernels)
+    counts = (tr.frame_step.mesh_launches, tr.frame_step.light_launches)
+    for frame in (0, 1):
+        pa, pw, pm = tr.frame_step_plain(ctx, acc, wf, res, frame)
+        ka, kw_, km = tr._frame_step_kernel(ctx, acc, wf, res, frame)
+        assert close_frac(pa, ka) >= FRAC and close_frac(pw, kw_) >= FRAC
+        assert_reservoirs(pm, km)
+        acc, wf = ka, kw_
+        res = rst.spatial_reuse_plain(km, *gp["gb_n"], W, H, frame, ctx.seed_hi)
+    assert (tr.frame_step.mesh_launches, tr.frame_step.light_launches) == \
+        (counts[0] + 2, counts[1] + 2)
+
+
+def test_engine_kernels(kernels):
+    from forge3d_tpu_torch.ops.shading import sun_direction
+    from forge3d_tpu_torch.pt import megakernel as mk
+    from forge3d_tpu_torch.pt import mesh_render as mr
+
+    spheres = [{"center": (0, 1, 0), "radius": 1.0, "albedo": (0.8, 0.2, 0.2), "roughness": 0.3},
+               {"center": (2.2, 0.7, -1), "radius": 0.7, "metallic": 1.0, "roughness": 0.15},
+               {"center": (-2.0, 0.5, 0.5), "radius": 0.5, "ax": 0.1, "ay": 0.4,
+                "emissive": (0.5, 0.1, 0.0)}]
+    cam = mk.EngineCamera.make(64, 48, {"origin": (0, 1.5, 5.5)}, (0.0, 1.2, 3.0),
+                               (0.0, 1.0, 0.0))
+    sb = mk.spheres_from_dicts(spheres, kernels)
+    before = mk.render_spheres.launches
+    pk = mk._render_spheres_kernel(cam, sb)
+    assert mk.render_spheres.launches == before + 1
+    pp = mk.render_spheres_plain(cam, sb)
+    for k in pp:
+        assert close_frac(pp[k], pk[k]) >= FRAC, k
+
+    mts = mr.MeshTracerScene(*QUAD_TOWN, kernels)
+    cam = mk.EngineCamera.make(64, 48, {"origin": (24, 30, 70), "look_at": (24, 8, 24)},
+                               (0.0, 1.5, 4.0), (0.0, 0.5, 0.0))
+    args = (cam, mts, mr._material_from_dict({"metallic": 0.3, "emissive": (0.1, 0, 0)}),
+            sun_direction(135.0, 45.0), 3.0)
+    before = mr.render_mesh.launches
+    pk = mr._render_mesh_kernel(*args)
+    assert mr.render_mesh.launches == before + 1
+    pp = mr.render_mesh_plain(*args)
+    assert 0.05 < float(pp["vis"].mean()) < 0.95
+    for k in pp:
+        assert close_frac(pp[k], pk[k]) >= FRAC, k

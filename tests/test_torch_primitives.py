@@ -18,12 +18,12 @@ import torch
 
 import jax.numpy as jnp
 
-from forge3d_tpu.errors import UploadError
 from forge3d_tpu.ops import rng as jrng
 from forge3d_tpu.ops import shading as jsh
 from forge3d_tpu.ops import tonemap as jtm
 from forge3d_tpu.ops.pyramid import build_pyramid as jax_build_pyramid
 
+from forge3d_tpu_torch.errors import UploadError
 from forge3d_tpu_torch.ops import rng as trng
 from forge3d_tpu_torch.ops import shading as tsh
 from forge3d_tpu_torch.ops import tonemap as ttm

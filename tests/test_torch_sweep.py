@@ -29,6 +29,7 @@ from forge3d_tpu.pt.terrain_ref import TerrainRefDesc as JDesc
 
 import forge3d_tpu_torch as f3t
 from forge3d_tpu_torch import convert
+from forge3d_tpu_torch import errors as terr
 from forge3d_tpu_torch.ops import rng
 from forge3d_tpu_torch.ops import sweep as tsw
 from forge3d_tpu_torch.ops.shading import env_map
@@ -312,22 +313,23 @@ def test_sequence_bitwise_matches_single_calls():
 
 def test_sweep_error_paths():
     dem, W, H, cam = SCENES["33_64x48"]
-    with pytest.raises(f3d.RenderError, match="typed lights"):
+    with pytest.raises(terr.RenderError, match="typed lights"):
         ttr.render_terrain_reference(ttr.TerrainRefDesc(heights=dem, traversal="sweep",
                                                          lights=("sun",)), device="cpu")
-    with pytest.raises(f3d.RenderError, match="mesh geometry"):
+    with pytest.raises(terr.RenderError, match="mesh geometry"):
         ttr.render_terrain_reference(ttr.TerrainRefDesc(heights=dem, traversal="sweep",
                                                         mesh=("v", "i")), device="cpu")
-    # the public entry falls back to the per-ray engine for meshes, which
-    # meets the mesh path that is not ported yet
+    # the public entry falls back to the per-ray engine for meshes
     quad_v = np.array([[10, 8, 20], [28, 8, 20], [28, 16, 20]], np.float32)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        f3t.hybrid_render_terrain_reference(dem, W, H, cam, traversal="sweep",
-                                            mesh_vertices=quad_v,
-                                            mesh_indices=np.array([[0, 1, 2]]), device="cpu")
+    kw = dict(mesh_vertices=quad_v, mesh_indices=np.array([[0, 1, 2]]), spp=1, max_frames=2,
+              min_frames=2, variance_threshold=1e9, device="cpu")
+    sw = f3t.hybrid_render_terrain_reference(dem, W, H, cam, traversal="sweep", **kw)
+    dda = f3t.hybrid_render_terrain_reference(dem, W, H, cam, traversal="dda", **kw)
+    assert "method" not in sw
+    np.testing.assert_array_equal(sw["rgba"], dda["rgba"])
     down = dict(origin=(16.0, 40.0, 16.0), look_at=(16.0, 0.0, 16.001), fov_y=42.0)
     for fn in (f3d.hybrid_render_terrain_reference, f3t.hybrid_render_terrain_reference):
         extra = {} if fn is f3d.hybrid_render_terrain_reference else {"device": "cpu"}
         with pytest.raises(jts.SweepUnsupported if not extra else tts.SweepUnsupported):
             fn(dem, W, H, down, traversal="sweep", **extra)
-    assert issubclass(tts.SweepUnsupported, f3d.RenderError)
+    assert issubclass(tts.SweepUnsupported, terr.RenderError)
