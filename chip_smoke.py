@@ -54,14 +54,41 @@ Phases (one line each; any failure exits non-zero):
  12. engines -- `pt_render_gpu_mesh` (P2) on the same town and
                 `pt_render_gpu` (P1) on the three golden spheres at
                 1920x1080, each launched once, each held against its plain
-                version on the card and timed.
+                version on the card and timed;
+ 13. R1 kernels -- the TerrainRenderer's kernel R1 over bench.py's DEM (camera
+                radius 1300 about its centre, phi 225, theta 35) in
+                configuration A (make_terrain_params' defaults) at 1080p and
+                in the print configuration B (aa 4, soft shadows, height AO,
+                water with reflection, fog, clouds, layers, detail, triplanar,
+                POM, Hosek IBL, ACES, sRGB) at 480x270, 256x128 and 1080p,
+                each against its plain version on the card; both timed at
+                1080p;
+ 14. TerrainRenderer -- the main path: `render_with_aov` at 1080p in A and B,
+                twice each (bit-identical; last_gpu_timings and peak device
+                memory printed), and `render_offline` on A (32 samples in
+                batches of 8, a-trous denoiser), twice (bit-identical); every
+                count set to 0 before and read after (R1 render, R1 step, E3,
+                E5 must all have launched); then R1 step and its tile means
+                against the plain step at 256x128 (4 samples) and 1080p (1
+                sample), timed;
+ 15. post -- E3 (5 iterations, three guides) at 1080p and E5's 128x64 Hosek
+                bake against their plain versions, both timed; E3 called
+                on the numpy planes must run on the card and give the
+                kernel's bits.
+
+R1 gates (phases 13-14), set to what the card showed: rgba within one u8
+step everywhere and bytes equal on R1_U8_EQ of them, float planes within
+FLOAT_TOL on R1_FRAC with equal NaN masks, tile means all within FLOAT_TOL;
+E3 and E5 every element within FLOAT_TOL.
 
 Every kernel's row in the {"kernels": [...]} line carries `bound_ms`, the
 least time the card could take for the same work: the larger of the bytes
 it must move (inputs read once, outputs written once) over 3.35 TB/s and
 its float32 operations over 67 TFLOP/s, counted from this run's shapes and,
 for the loops that end early (the DDA, the BVH walk), from the steps that
-this run's rays took in the plain versions. No single PyTorch call computes
+this run's rays took in the plain versions. R1's operations are its rays'
+work alone (DDA steps and leaf tests): its per-pixel shading is not
+counted, so its bound is lower than the work it does. No single PyTorch call computes
 any of these functions, so `library_ms` is null throughout.
 
 Sweep kernel gates (phases 6 and 9), each set to what the kernel shows
@@ -131,6 +158,13 @@ REPLACES = {
                           "forge3d_tpu/pt/megakernel.py:186"),
     "P2 render_mesh": ("forge3d_tpu_torch/csrc/engines.cu",
                        "forge3d_tpu/pt/mesh_render.py:49"),
+    "R1 render (A)": ("forge3d_tpu_torch/csrc/renderer.cu",
+                      "forge3d_tpu/terrain/renderer.py:1036"),
+    "R1 render (B)": ("forge3d_tpu_torch/csrc/renderer.cu",
+                      "forge3d_tpu/terrain/renderer.py:1036"),
+    "R1 step": ("forge3d_tpu_torch/csrc/renderer.cu", "forge3d_tpu/terrain/renderer.py:1150"),
+    "E3 atrous_denoise": ("forge3d_tpu_torch/csrc/post.cu", "forge3d_tpu/ops/denoise.py:35"),
+    "E5 hosek_radiance": ("forge3d_tpu_torch/csrc/post.cu", "forge3d_tpu/sky.py:261"),
 }
 
 # The card's peaks for the bounds (NVIDIA's H100 SXM data sheet).
@@ -1346,6 +1380,288 @@ def phase_engines(mts):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Phases 13-15: the TerrainRenderer (kernel R1), its offline accumulation
+# and render_offline (R1 step, the a-trous denoiser E3), the Hosek bake (E5)
+# ---------------------------------------------------------------------------
+
+OPS_ATROUS_TAP = 60    # post.cuh:atrous_pixel, one tap with all three guides
+OPS_HOSEK = 70         # post.cuh:hosek_texel, one direction
+R1_PLANES = ("hdr", "albedo", "normal", "depth", "visibility")
+# R1 render and step against their plain versions: rgba within one u8 step
+# on every pixel and bytes equal on >= R1_U8_EQ; every float plane within
+# FLOAT_TOL on >= R1_FRAC with equal NaN masks; tile means within FLOAT_TOL
+# everywhere. E3 and E5: every element within FLOAT_TOL. The card showed R1
+# render and step bit-identical to their plain versions in both
+# configurations at every size (the tile means within 2.4e-7), E3 and E5
+# bit-identical, so the gates are every byte and every element.
+R1_U8_EQ, R1_FRAC = 1.0, 1.0
+# the least rgba standard deviation of a render that is not trivial: B's fog
+# (density 0.002 over the ~1.3 km to the terrain) veils most of the frame
+R1_MIN_STD = {"A": 5.0, "B": 2.0}
+
+R1_CAM = dict(cam_radius=1300.0, cam_phi_deg=225.0, cam_theta_deg=35.0)
+R1_PRINT = dict(
+    sampling=dict(aa_samples=4), shadows=dict(softness=1.5, samples=4),
+    height_ao=dict(enabled=True, samples=8, radius=24.0),
+    water=dict(enabled=True, level=0.0), reflection=dict(enabled=True),
+    fog=dict(enabled=True, density=0.002), clouds=dict(enabled=True),
+    material_layers=dict(enabled=True), detail=dict(enabled=True), triplanar=dict(enabled=True),
+    pom=dict(enabled=True, scale=0.5), lambert_contrast=0.3, height_curve_mode="smoothstep",
+    height_curve_strength=0.5, ibl=dict(enabled=True), tonemap=dict(mode="aces"),
+    output_srgb_eotf=True)
+
+
+def r1_params(config: str, width: int, height: int):
+    """Configuration A (make_terrain_params' defaults) or B (the print
+    configuration) over bench.py's DEM, camera at radius 1300 about its
+    centre."""
+    from forge3d_tpu_torch.terrain.params import make_terrain_params
+
+    return make_terrain_params(size_px=(width, height), **R1_CAM,
+                               **(R1_PRINT if config == "B" else {}))
+
+
+def compare_r1(tag, ref, got):
+    """(fraction of rgba bytes equal, worst plane fraction within FLOAT_TOL,
+    max |err| over the planes) of R1's outputs; fails outside the gates."""
+    import torch
+
+    du = (ref["rgba"].int() - got["rgba"].int()).abs()
+    eq = float((du == 0).double().mean())
+    frac = min(close_frac(ref[k], got[k]) for k in R1_PLANES if k in ref)
+    nan_same = bool(torch.equal(torch.isnan(ref["depth"]), torch.isnan(got["depth"])))
+    err = max(max_abs(ref[k], got[k]) for k in R1_PLANES if k in ref)
+    require(int(du.max()) <= 1 and eq >= R1_U8_EQ and frac >= R1_FRAC and nan_same,
+            f"{tag}: R1 disagrees with its plain version (rgba bytes equal {eq:.6f}, max step "
+            f"{int(du.max())}, planes within tolerance {frac:.6f}, NaN masks equal {nan_same}, "
+            f"max |err| {err:.3e})")
+    return eq, frac, err
+
+
+def phase_r1_kernels(dem):
+    """R1 render in configurations A (1080p) and B (480x270, 256x128, and
+    1080p) against its plain version on the card; both timed at 1080p.
+    Returns {config: (max |err|, kernel ms, plain ms, bound ms, bound by)}."""
+    import torch
+
+    from forge3d_tpu_torch.terrain import renderer as rr
+
+    r = rr.TerrainRenderer(device="cuda")
+    res = {}
+    for config, sizes in (("A", [(REAL_W, REAL_H)]),
+                          ("B", [(480, 270), (256, 128), (REAL_W, REAL_H)])):
+        for w, h in sizes:
+            _, scene, a, _ = r.render_inputs(r1_params(config, w, h), dem)
+            got = rr._render_kernel(scene, a, want_aov=True)
+            work = work_counters()
+            plain_ms, ref = wall_ms(lambda: rr.render_plain(scene, a))
+            wk = work()
+            eq, frac, err = compare_r1(f"R1 render {config} {w}x{h}", ref, got)
+            hit = float(torch.isfinite(got["depth"]).double().mean())
+            say("r1 kernels", f"R1 render ({config}) {w}x{h}: rgba bytes equal {eq:.6f}, planes "
+                              f"within tolerance {frac:.6f}, max |err| {err:.3e}, terrain "
+                              f"{hit:.4f} of pixels, plain {plain_ms:.1f} ms, {wk['steps']} DDA "
+                              f"steps, {wk['leaf_tests']} leaf tests")
+        n = w * h
+        ms = cuda_ms(lambda: rr._render_kernel(scene, a, want_aov=True), 10 if config == "A" else 5)
+        nbytes = n * 48 + scene_bytes(scene) + tensor_bytes(a.lut) + (
+            0 if a.env_rgb is None else tensor_bytes(a.env_rgb))
+        bms, by = bound(nbytes, traced_ops(wk))
+        res[config] = (err, ms, plain_ms, bms, by)
+        say("r1 kernels", f"R1 render ({config}) {w}x{h}: kernel {ms:.4f} ms, plain {plain_ms:.1f} "
+                          f"ms, bound {bms:.4f} ms ({by})")
+    return res
+
+
+def _same_frames(a, b) -> bool:
+    (fa, aa), (fb, ab) = a, b
+    return np.array_equal(fa.rgba, fb.rgba) and all(
+        np.array_equal(aa[k], ab[k], equal_nan=True) for k in aa.names())
+
+
+def phase_r1_render(dem):
+    """The TerrainRenderer's main path at 1080p: render_with_aov in A and in
+    B, twice each (bit-identical), and render_offline on A (32 samples in
+    batches of 8, a-trous), twice (bit-identical); every count set to 0
+    before and read after. Returns the launches."""
+    import torch
+
+    import forge3d_tpu_torch as f3t
+    from forge3d_tpu_torch import sky
+    from forge3d_tpu_torch.ops import denoise as dn
+    from forge3d_tpu_torch.terrain import renderer as rr
+
+    r = f3t.TerrainRenderer(device="cuda")
+    for config in ("A", "B"):   # warm: the scene upload and the first launches
+        r.render_with_aov(params=r1_params(config, REAL_W, REAL_H), heightmap=dem)
+    counters = {"R1 render": rr.render_program, "R1 step": rr.offline_step,
+                "E3 atrous_denoise": dn.atrous_denoise, "E5 hosek_radiance": sky.hosek_radiance}
+    for c in counters.values():
+        c.launches = 0
+    launches = {}
+    for config in ("A", "B"):
+        p = r1_params(config, REAL_W, REAL_H)
+        before = rr.render_program.launches
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        first = r.render_with_aov(params=p, heightmap=dem)
+        timings = dict(r.last_gpu_timings)
+        second = r.render_with_aov(params=p, heightmap=dem)
+        peak = torch.cuda.max_memory_allocated()
+        launches[f"R1 render ({config})"] = rr.render_program.launches - before
+        fr, aov = first
+        hit = float(np.isfinite(aov["depth"]).mean())
+        std = float(fr.rgba[..., :3].std())
+        same = _same_frames(first, second)
+        say("r1 render", f"render_with_aov ({config}) {REAL_W}x{REAL_H}: deterministic {same}, "
+                         f"last_gpu_timings {json.dumps({k: round(v, 4) for k, v in timings.items()})}"
+                         f", peak device memory {peak} B, terrain {hit:.4f} of pixels, rgba std "
+                         f"{std:.3f}, consumed {list(r.last_consumed_settings)}")
+        require(same, f"two renders of configuration {config} differ")
+        require(fr.rgba.shape == (REAL_H, REAL_W, 4) and std > R1_MIN_STD[config]
+                and 0.05 < hit < 1.0 and np.isfinite(aov["hdr"]).all(),
+                f"configuration {config} render is trivial")
+
+    settings = f3t.OfflineQualitySettings(enabled=True, max_samples=32, batch_size=8,
+                                          denoiser="atrous")
+    p = r1_params("A", REAL_W, REAL_H)
+    runs = []
+    for _ in range(2):
+        ms, out = wall_ms(lambda: f3t.render_offline(r, params=p, heightmap=dem,
+                                                     settings=settings))
+        runs.append((ms, out))
+    (ms, out), (ms2, out2) = runs
+    same = np.array_equal(out.frame.rgba, out2.frame.rgba) and np.array_equal(
+        out.hdr_frame.rgb, out2.hdr_frame.rgb)
+    m = out.metadata
+    say("r1 render", f"render_offline (A) {REAL_W}x{REAL_H}, a-trous: {ms:.1f} ms and {ms2:.1f} "
+                     f"ms, samples {m['samples']} in {m['batches']} batches, final metrics "
+                     f"{json.dumps(m['final_metrics'])}, deterministic {same}")
+    require(same, "two render_offline runs differ")
+    require(np.isfinite(out.hdr_frame.rgb).all() and float(out.frame.rgba[..., :3].std()) > 5.0,
+            "render_offline is trivial or not finite")
+    launches["R1 step"] = rr.offline_step.launches
+    launches["E3 atrous_denoise"] = dn.atrous_denoise.launches
+    launches["E5 hosek_radiance"] = sky.hosek_radiance.launches
+    say("r1 render", f"launches on the path {json.dumps(launches)}")
+
+    # where render_offline's time goes: its calls one at a time, synchronised
+    from forge3d_tpu_torch.frame import HdrFrame
+
+    t = {"begin": wall_ms(lambda: r.begin_offline_accumulation(params=p, heightmap=dem))[0]}
+    t["4 batches of 8 (R1 step, tile readback, numpy metrics)"] = wall_ms(
+        lambda: [r.accumulate_batch(8) for _ in range(4)])[0]
+    t["resolve (accumulator and AOV readback)"], (hdr, aov) = wall_ms(r.resolve_offline_hdr)
+    t["upload of hdr and guides"], planes = wall_ms(
+        lambda: [torch.as_tensor(x, device=r.device) for x in (hdr.rgb, aov["albedo"],
+                                                                aov["normal"], aov["depth"])])
+    t["E3 with its depth glue"], den = wall_ms(lambda: dn.atrous_denoise(*planes))
+    t["denoised readback"], rgb = wall_ms(lambda: den.cpu().numpy())
+    t["tonemap (upload, operators, readback, u8)"], _ = wall_ms(
+        lambda: r.tonemap_offline_hdr(HdrFrame(rgb=rgb)))
+    r.end_offline_accumulation()
+    say("r1 render", "render_offline (A) by call, ms: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in t.items()) + f"; sum {sum(t.values()):.4f}")
+    require(launches["R1 render (A)"] > 0 and launches["R1 render (B)"] > 0
+            and all(launches[k] > 0 for k in counters if k != "R1 render"),
+            f"a kernel never launched: {launches}")
+    return launches
+
+
+def phase_r1_step(dem):
+    """R1 step and its tile means against the plain step at 256x128 (4
+    samples) and at 1080p (1 sample), timed at 1080p. Returns (max |err|,
+    kernel ms, plain ms, bound ms, bound by)."""
+    import torch
+
+    from forge3d_tpu_torch.terrain import renderer as rr
+
+    r = rr.TerrainRenderer(device="cuda")
+    for w, h, samples in ((SMALL_W, SMALL_H, 4), (REAL_W, REAL_H, 1)):
+        _, scene, a, _ = r.render_inputs(r1_params("A", w, h), dem)
+        acc = torch.zeros((h, w, 4), device="cuda")
+        worst, err = 1.0, 0.0
+        for idx in range(samples):
+            work = work_counters()
+            plain_ms, (pa, pt, paov) = wall_ms(lambda: rr.step_plain(scene, a, acc, idx))
+            wk = work()
+            ka, kt, kaov = rr._step_kernel(scene, a, acc.clone(), idx)
+            fr = min([close_frac(pa, ka)] + [close_frac(paov[k], kaov[k]) for k in paov])
+            ft = close_frac(pt, kt)
+            err = max(err, max_abs(pa, ka), max_abs(pt, kt))
+            worst = min(worst, fr)
+            require(fr >= R1_FRAC and ft == 1.0,
+                    f"R1 step {w}x{h} sample {idx}: accumulator and AOVs within tolerance on "
+                    f"{fr:.6f}, tile means on {ft:.6f}")
+            acc = ka
+        say("r1 step", f"R1 step {w}x{h}, {samples} samples: accumulator and AOVs within "
+                       f"tolerance on {worst:.6f}, tile means all within tolerance, max |err| "
+                       f"{err:.3e}")
+    n = REAL_W * REAL_H
+    acc = torch.zeros((REAL_H, REAL_W, 4), device="cuda")
+    ms = cuda_ms(lambda: rr._step_kernel(scene, a, acc, 0), 10)
+    bms, by = bound(n * (16 + 16 + 4 + 32) + scene_bytes(scene) + tensor_bytes(a.lut),
+                    traced_ops(wk))
+    say("r1 step", f"R1 step {REAL_W}x{REAL_H}: kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, bound "
+                   f"{bms:.4f} ms ({by})")
+    return err, ms, plain_ms, bms, by
+
+
+def phase_post(dem):
+    """E3 at 1080p (5 iterations, all three guides, on a 1-sample offline
+    resolve) and E5's 128x64 bake against their plain versions; both timed.
+    Returns {name: (max |err|, kernel ms, plain ms, bound ms, bound by)}."""
+    import torch
+
+    from forge3d_tpu_torch import sky
+    from forge3d_tpu_torch.ops import denoise as dn
+    from forge3d_tpu_torch.terrain import renderer as rr
+
+    res = {}
+    r = rr.TerrainRenderer(device="cuda")
+    r.begin_offline_accumulation(params=r1_params("A", REAL_W, REAL_H), heightmap=dem)
+    r.accumulate_batch(1)
+    hdr, aov = r.resolve_offline_hdr()
+    r.end_offline_accumulation()
+    dev = torch.device("cuda")
+    c = torch.as_tensor(hdr.rgb, device=dev)
+    g = {k: torch.as_tensor(aov[k], device=dev) for k in ("albedo", "normal", "depth")}
+    prep = dn._prepare(c, g["albedo"], g["normal"], g["depth"])
+    ks = [dn._sigma_k(s) for s in (0.30, 0.30, 0.60, 0.80)]
+    got = dn._atrous_kernel(*prep, 5, *ks)
+    den = dn.atrous_denoise(hdr.rgb, aov["albedo"], aov["normal"], aov["depth"])
+    require(den.is_cuda and torch.equal(den, got),
+            "atrous_denoise on numpy input did not run E3 on the card")
+    plain_ms, ref = wall_ms(lambda: dn._atrous_plain(*prep, 5, *ks))
+    frac, err = close_frac(ref, got), max_abs(ref, got)
+    require(frac == 1.0, f"E3 disagrees with its plain version ({frac:.6f} within tolerance, "
+                         f"max |err| {err:.3e})")
+    ms = cuda_ms(lambda: dn._atrous_kernel(*prep, 5, *ks), 10)
+    n = REAL_W * REAL_H
+    bms, by = bound(n * (12 + 12 + 12 + 4 + 12), n * 5 * 25 * OPS_ATROUS_TAP)
+    res["E3 atrous_denoise"] = (err, ms, plain_ms, bms, by)
+    say("post", f"E3 atrous_denoise {REAL_W}x{REAL_H}, 5 iterations, three guides: every element "
+                f"within tolerance, max |err| {err:.3e}; kernel {ms:.4f} ms (5 launches), plain "
+                f"{plain_ms:.1f} ms, bound {bms:.4f} ms ({by})")
+
+    s = sky.make_hosek_sky(315.0, 45.0, turbidity=3.0, ground_albedo=0.3)
+    d = [torch.as_tensor(v, device=dev) for v in sky.bake_directions(128, 64)]
+    got = sky._hosek_kernel(s, *d)
+    plain_ms, ref = wall_ms(lambda: sky.hosek_radiance_plain(s, *d))
+    frac = min(close_frac(x, y) for x, y in zip(ref, got))
+    err = max(max_abs(x, y) for x, y in zip(ref, got))
+    require(frac == 1.0, f"E5 disagrees with its plain version ({frac:.6f} within tolerance, "
+                         f"max |err| {err:.3e})")
+    ms = cuda_ms(lambda: sky._hosek_kernel(s, *d), 20)
+    n = 128 * 64
+    bms, by = bound(n * 24, n * OPS_HOSEK)
+    res["E5 hosek_radiance"] = (err, ms, plain_ms, bms, by)
+    say("post", f"E5 hosek_radiance 128x64: every element within tolerance, max |err| {err:.3e}; "
+                f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bms:.6f} ms ({by})")
+    return res
+
+
 def _jax_modules():
     """JAX and every module of the JAX package: the port imports none."""
     return [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "forge3d_tpu")]
@@ -1360,9 +1676,9 @@ def main() -> int:
         return 1
     from forge3d_tpu_torch import _kernels
 
-    name = torch.cuda.get_device_name(0)
+    device_name = torch.cuda.get_device_name(0)
     smi = nvidia_smi()
-    say("device", f"{name}; torch {torch.__version__} cuda {torch.version.cuda}; "
+    say("device", f"{device_name}; torch {torch.__version__} cuda {torch.version.cuda}; "
                   f"count {torch.cuda.device_count()}; jax modules loaded before "
                   f"start: {len(preloaded)}")
     print(smi, flush=True)
@@ -1389,12 +1705,20 @@ def main() -> int:
     mts, hybrid_launches = phase_hybrid_render(dem)
     rows += phase_hybrid_timing(dem, mts, hybrid_launches)
     rows += phase_engines(mts)
+    r1 = phase_r1_kernels(dem)
+    r1_launches = phase_r1_render(dem)
+    for config in ("A", "B"):
+        rows.append(kernel_row(f"R1 render ({config})", r1_launches[f"R1 render ({config})"],
+                               *r1[config]))
+    rows.append(kernel_row("R1 step", r1_launches["R1 step"], *phase_r1_step(dem)))
+    for kernel, vals in phase_post(dem).items():
+        rows.append(kernel_row(kernel, r1_launches[kernel], *vals))
 
     loaded = sorted(set(_jax_modules()) - preloaded)
     require(not loaded, f"imported JAX or modules of the JAX package: {loaded}")
     print(json.dumps({"kernels": rows}), flush=True)
     print(nvidia_smi(), flush=True)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0
 

@@ -23,6 +23,16 @@ _ENTRY = {
     "pt_render_aovs": "pt.megakernel",
     "pt_render_gpu_mesh": "pt.mesh_render",
     "Light": "lighting",
+    "TerrainRenderer": "terrain.renderer",
+    "MaterialSet": "terrain.renderer",
+    "IBL": "terrain.renderer",
+    "TerrainRenderParams": "terrain.params",
+    "make_terrain_params": "terrain.params",
+    "render_offline": "terrain.offline",
+    "OfflineQualitySettings": "terrain.offline",
+    "Frame": "frame",
+    "AovFrame": "frame",
+    "HdrFrame": "frame",
 }
 
 

@@ -155,6 +155,52 @@ class ResolveArgs(ctypes.Structure):
         (n, ctypes.c_double) for n in ("fv", "uvhh", "y_step")]
 
 
+class TerrainArgs(ctypes.Structure):
+    """Mirror of `TerrainArgs` in csrc/terrain_shade.cuh (R1)."""
+
+    _fields_ = [("lut", _P), ("env_rgb", _P)] + [
+        (n, _I) for n in ("lut_n", "env_w", "env_h", "width", "height", "aa", "use_colormap",
+                          "tonemap", "srgb_out", "debug_normals", "curve_mode",
+                          "shadow_samples", "ao_samples", "fog_on", "water_on", "wrefl_on",
+                          "clouds_on", "layers_on", "tri_on", "det_on", "pom_on")] + [
+        ("aa_seed", _U)] + [(n, _F3) for n in ("cam_o", "right", "up", "fwd")] + [
+        ("half_h", _F), ("aspect", _F)] + [
+        (n, _F3) for n in ("sun", "sun_rgb", "ambient_rgb", "zenith")] + [
+        (n, _F) for n in ("ibl_intensity", "hmin", "hmax", "exposure", "inv_gamma",
+                          "white_point", "colormap_strength")] + [
+        ("constant_albedo", _F3)] + [
+        (n, _F) for n in ("lambert_contrast", "shadow_softness", "shadow_intensity",
+                          "shadow_bias", "curve_power", "curve_strength", "ao_mix_weight",
+                          "time", "fog_density")] + [
+        ("fog_rgb", _F3), ("fog_falloff", _F), ("fog_start", _F), ("water_level", _F),
+        ("water_rgb", _F3)] + [
+        (n, _F) for n in ("water_reflectivity", "refl_intensity", "cloud_coverage",
+                          "cloud_strength", "cloud_scale", "ao_radius", "ao_strength",
+                          "tri_scale", "tri_sharp", "det_strength", "det_scale", "det_fade",
+                          "pom_scale", "snow_h", "snow_blend")] + [
+        ("snow_rgb", _F3), ("rock_cos", _F), ("rock_blend", _F), ("rock_rgb", _F3)]
+
+
+class TerrainOut(ctypes.Structure):
+    """Mirror of `TerrainOut`: R1's output planes; a null one is not written."""
+
+    _fields_ = [(n, _P) for n in ("rgba", "hdr", "albedo", "normal", "depth", "vis")]
+
+
+class AtrousArgs(ctypes.Structure):
+    """Mirror of `AtrousArgs` in csrc/post.cuh (E3)."""
+
+    _fields_ = [(n, _P) for n in ("albedo", "normal", "depth")] + [
+        ("width", _I), ("height", _I)] + [
+        (n, _F) for n in ("k_color", "k_albedo", "k_normal", "k_depth")]
+
+
+class HosekArgs(ctypes.Structure):
+    """Mirror of `HosekArgs` in csrc/post.cuh (E5)."""
+
+    _fields_ = [("sun", _F3), ("cfg", _F * 27), ("rad", _F3), ("exposure", _F)]
+
+
 _SIGNATURES = {
     # (rot, h_rot, du, dv, stream)
     "f3d_rotate_heights": [ctypes.POINTER(RotArgs), _P, _P, _P, _P],
@@ -194,6 +240,16 @@ _SIGNATURES = {
     # (cam, mesh, material, aovs, stream)
     "f3d_render_mesh": [ctypes.POINTER(CamArgs), ctypes.POINTER(MeshArgs),
                         ctypes.POINTER(MaterialArgs), ctypes.POINTER(AovArgs), _P],
+    # (scene, terrain, out, stream)
+    "f3d_terrain_render": [ctypes.POINTER(SceneArgs), ctypes.POINTER(TerrainArgs),
+                           ctypes.POINTER(TerrainOut), _P],
+    # (scene, terrain, accum, sample_idx, lum, out, tiles, stream)
+    "f3d_terrain_step": [ctypes.POINTER(SceneArgs), ctypes.POINTER(TerrainArgs), _P, _U, _P,
+                         ctypes.POINTER(TerrainOut), _P, _P],
+    # (args, in, out, step, stream)
+    "f3d_atrous_pass": [ctypes.POINTER(AtrousArgs), _P, _P, _I, _P],
+    # (sky, dx, dy, dz, n, rgb, stream)
+    "f3d_hosek_radiance": [ctypes.POINTER(HosekArgs), _P, _P, _P, _I, _P, _P],
 }
 
 

@@ -2,8 +2,9 @@
 # Carry state across from the JAX package as numpy arrays, so that a test
 # can feed both implementations identical scene tables, reservoir history,
 # sweep plans and sweep intermediates (rotated grid, sweep maps, polar
-# accumulator), mesh BVHs, light sets and alias tables. Takes numpy arrays
-# (or anything np.asarray accepts) and never imports jax.
+# accumulator), mesh BVHs, light sets and alias tables, and terrain render
+# parameters. Takes numpy arrays (or anything np.asarray accepts) and plain
+# dicts, and never imports jax.
 
 from __future__ import annotations
 
@@ -110,3 +111,18 @@ def alias_table_from_numpy(fields: dict, device="cpu"):
     return AliasTable(prob=tensor(fields["prob"], device), alias=tensor(fields["alias"], device,
                                                                         np.int32),
                       pdf=tensor(fields["pdf"], device))
+
+
+def terrain_params_from_dict(d: dict, env_map=None, height_curve_lut=None):
+    """The port's TerrainRenderParams from the JAX params' `to_dict()` plus
+    the two arrays `to_dict` drops (`ibl.env_map`, `height_curve_lut`):
+    nested groups become the port's settings dataclasses, and the result is
+    validated as make_terrain_params validates."""
+    from .terrain.params import make_terrain_params
+
+    p = make_terrain_params(**d)
+    if env_map is not None:
+        p.ibl.env_map = np.asarray(env_map, np.float32)
+    if height_curve_lut is not None:
+        p.height_curve_lut = np.asarray(height_curve_lut, np.float32)
+    return p

@@ -165,22 +165,29 @@ F3D_HD void cosine_dir(float nx, float ny, float nz, float u1, float u2,
     dz = z * inv;
 }
 
+// Equirect nearest-texel lookup of a bound (env_h, env_w, 3) map by
+// direction, scaled by the intensity.
+F3D_HD void env_lookup(const float* env_rgb, int env_w, int env_h, float intensity,
+                       float dx, float dy, float dz, float& r, float& g, float& b) {
+    float inv = 1.0f / sqrtf(dx * dx + dy * dy + dz * dz);
+    float nxd = dx * inv, nyd = dy * inv, nzd = dz * inv;
+    float uu = atan2f(nzd, nxd) / (2.0f * F3D_PI) + 0.5f;
+    float vv = acosf(fminf(fmaxf(nyd, -1.0f), 1.0f)) / F3D_PI;
+    int px = imin((int)(uu * (float)env_w), env_w - 1);
+    int py = imin((int)(vv * (float)env_h), env_h - 1);
+    int flat = py * env_w + px;
+    r = env_rgb[3 * flat + 0] * intensity;
+    g = env_rgb[3 * flat + 1] * intensity;
+    b = env_rgb[3 * flat + 2] * intensity;
+}
+
 F3D_HD void env_radiance(const FrameArgs& f, float dx, float dy, float dz,
                          float& r, float& g, float& b) {
     if (f.env_rgb == nullptr) {
         r = g = b = f.env_intensity;
         return;
     }
-    float inv = 1.0f / sqrtf(dx * dx + dy * dy + dz * dz);
-    float nxd = dx * inv, nyd = dy * inv, nzd = dz * inv;
-    float uu = atan2f(nzd, nxd) / (2.0f * F3D_PI) + 0.5f;
-    float vv = acosf(fminf(fmaxf(nyd, -1.0f), 1.0f)) / F3D_PI;
-    int px = imin((int)(uu * (float)f.env_w), f.env_w - 1);
-    int py = imin((int)(vv * (float)f.env_h), f.env_h - 1);
-    int flat = py * f.env_w + px;
-    r = f.env_rgb[3 * flat + 0] * f.env_intensity;
-    g = f.env_rgb[3 * flat + 1] * f.env_intensity;
-    b = f.env_rgb[3 * flat + 2] * f.env_intensity;
+    env_lookup(f.env_rgb, f.env_w, f.env_h, f.env_intensity, dx, dy, dz, r, g, b);
 }
 
 // terrain_ref.py:_camera_rays for one pixel and jitter.

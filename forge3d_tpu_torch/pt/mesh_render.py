@@ -55,9 +55,11 @@ def _material_from_dict(mat: Optional[dict]) -> MeshMaterial:
 
 class MeshTracerScene:
     """Builds the SAH BVH once on the host and keeps its arrays and the
-    face normals (in BVH primitive order) on one device."""
+    face normals (in BVH primitive order) on one device: "cuda" (the
+    default, DeviceError without CUDA) or "cpu"."""
 
-    def __init__(self, vertices, indices, device="cpu"):
+    def __init__(self, vertices, indices, device="cuda"):
+        device = resolve_device(device)
         vertices = np.asarray(vertices, np.float32).reshape(-1, 3)
         indices = np.asarray(indices, np.uint32).reshape(-1, 3)
         self.bvh = build_sah_bvh(vertices, indices)

@@ -1,9 +1,11 @@
 # The port's own copies of the JAX package's host modules
-# (forge3d_tpu_torch.errors, .camera, .mem, .assurance) against the
-# originals in forge3d_tpu, on the CPU: the exception classes' names and
-# chains of base names, the camera basis bit for bit, the memory ledger's
-# budget refusals and records, and a render certificate's canonical JSON,
-# digest and Ed25519 signature byte for byte.
+# (forge3d_tpu_torch.errors, .camera, .mem, .assurance, .terrain.params,
+# .colormaps, .sky's assets, .io) against the originals in forge3d_tpu, on
+# the CPU: the exception classes' names and chains of base names, the camera
+# basis and orbit origin bit for bit, the memory ledger's budget refusals
+# and records, a render certificate's canonical JSON, digest and Ed25519
+# signature byte for byte, terrain parameter defaults and validation, the
+# LUT and Hosek arrays, and PNG bytes.
 import inspect
 
 import numpy as np
@@ -126,3 +128,103 @@ def test_certificate_capture_passes():
         reports.append(out)
     assert reports[0]["passes"] == [{"name": "frame", "ms": 1.5, "index": 0}]
     assert jcert.canonical_json(reports[0]) == tcert.canonical_json(reports[1])
+
+
+# The TerrainRenderer's host copies: params, the colormap and Hosek assets,
+# the orbit camera, and the PNG writer.
+
+def test_terrain_params_defaults_and_conversion_equal():
+    from forge3d_tpu.terrain import params as jparams
+
+    from forge3d_tpu_torch.convert import terrain_params_from_dict
+    from forge3d_tpu_torch.terrain import params as tparams
+
+    assert tparams.make_terrain_params().to_dict() == jparams.make_terrain_params().to_dict()
+    kw = dict(size_px=(320, 200), fog=dict(enabled=True, density=0.1),
+              shadows=dict(technique="pcss", softness=1.0, samples=4),
+              material_layers=dict(enabled=True), tonemap=dict(mode="aces"),
+              sky=dict(enabled=True, turbidity=4.0), domain=(0.0, 100.0))
+    ref = jparams.make_terrain_params(**kw)
+    assert tparams.make_terrain_params(**kw).to_dict() == ref.to_dict()
+    lut = np.linspace(0, 1, 16, dtype=np.float32)
+    env = np.ones((2, 4, 3), np.float32)
+    got = terrain_params_from_dict(ref.to_dict(), env_map=env, height_curve_lut=lut)
+    assert got.to_dict() == ref.to_dict() and got.height_curve_lut is not None
+    np.testing.assert_array_equal(got.ibl.env_map, env)
+    assert type(got.material_layers).__name__ == "MaterialLayerSettings"
+    assert got.pom.to_screen_cfg() == ref.pom.to_screen_cfg()
+
+
+BAD_PARAMS = [dict(size_px=(0, 10)), dict(render_scale=5.0), dict(msaa_samples=3),
+              dict(z_scale=0.0), dict(cam_radius=-1.0), dict(fov_y_deg=180.0),
+              dict(clip=(1.0, 0.5)), dict(albedo_mode="pbr"), dict(tonemap=dict(mode="hable")),
+              dict(sampling=dict(aa_samples=300)), dict(shadows=dict(technique="ssao")),
+              dict(shadows=dict(samples=0)), dict(pom=dict(scale=-1.0)),
+              dict(sky=dict(turbidity=20.0)), dict(sky=dict(model="nishita"))]
+
+
+@pytest.mark.parametrize("kw", BAD_PARAMS, ids=[str(i) for i in range(len(BAD_PARAMS))])
+def test_terrain_params_validation_equal(kw):
+    from forge3d_tpu.terrain import params as jparams
+
+    from forge3d_tpu_torch.terrain import params as tparams
+
+    errs = []
+    for mod in (jparams, tparams):
+        with pytest.raises(ValueError) as ei:
+            mod.make_terrain_params(**kw)
+        errs.append(str(ei.value))
+    assert errs[0] == errs[1]
+
+
+def test_colormap_and_hosek_assets_equal():
+    from forge3d_tpu import colormaps as jcm
+    from forge3d_tpu import sky as jsky
+
+    from forge3d_tpu_torch import colormaps as tcm
+    from forge3d_tpu_torch import sky as tsky
+
+    assert tcm.available() == jcm.available()
+    for name in jcm.available():
+        np.testing.assert_array_equal(tcm.get_lut(name), jcm.get_lut(name))
+    for a, b in zip(jsky._hosek_data(), tsky._hosek_data()):
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
+    with pytest.raises(KeyError, match="unknown colormap"):
+        tcm.get_lut("no-such-map")
+    with pytest.raises(ValueError, match="LUT must be"):
+        tcm.register("bad", np.zeros((1, 3)))
+
+
+@pytest.mark.parametrize("args", [((0.0, 0.0, 0.0), 120.0, 225.0, 35.0),
+                                  ((512.0, 0.0, 512.0), 1300.0, 225.0, 35.0),
+                                  ((3.5, -2.0, 7.25), 42.0, 17.0, -12.0)])
+def test_orbit_camera_origin_bit_equal(args):
+    ref = jcam.orbit_camera_origin(*args)
+    got = tcam.orbit_camera_origin(*args)
+    assert got.dtype == ref.dtype == np.float32
+    np.testing.assert_array_equal(got, ref)
+
+
+def test_png_bytes_equal(tmp_path):
+    from forge3d_tpu.io import image as jimage
+    from forge3d_tpu.io import png as jpng
+
+    from forge3d_tpu_torch.frame import Frame
+    from forge3d_tpu_torch.io import image as timage
+    from forge3d_tpu_torch.io import png as tpng
+
+    rng = np.random.default_rng(12)
+    for img in (rng.integers(0, 256, (9, 13, 4), dtype=np.uint8),
+                rng.integers(0, 256, (7, 5, 3), dtype=np.uint8),
+                rng.integers(0, 65536, (6, 4), dtype=np.uint16)):
+        assert tpng.encode_png(img) == jpng.encode_png(img)
+        np.testing.assert_array_equal(tpng.decode_png(tpng.encode_png(img)).squeeze(),
+                                      img.squeeze())
+    f = rng.uniform(-0.1, 1.1, (5, 6, 3)).astype(np.float32)
+    jimage.numpy_to_png(tmp_path / "j.png", f)
+    timage.numpy_to_png(tmp_path / "t.png", f)
+    assert (tmp_path / "j.png").read_bytes() == (tmp_path / "t.png").read_bytes()
+    rgba = rng.integers(0, 256, (9, 13, 4), dtype=np.uint8)
+    Frame(rgba=rgba).save_png(tmp_path / "f.png")
+    assert (tmp_path / "f.png").read_bytes() == jpng.encode_png(rgba)

@@ -41,7 +41,9 @@ FRAC = 0.999
 HOST_LAUNCHERS = r"""
 #include "common.cuh"
 #include "pbr.cuh"
+#include "post.cuh"
 #include "sweep.cuh"
+#include "terrain_shade.cuh"
 #include <vector>
 extern "C" {
 int f3d_trace(const SceneArgs* s, const float* rox, const float* roy, const float* roz,
@@ -190,6 +192,30 @@ int f3d_polar_frame(const PolarArgs* pa, const float* h_rot, const float* e_sky,
 int f3d_resolve(const ResolveArgs* r, const float* acc, unsigned char* out, void*) {
     for (int y = 0; y < r->height; ++y)
         for (int x = 0; x < r->width; ++x) resolve_pixel(*r, acc, x, y, out);
+    return 0;
+}
+int f3d_terrain_render(const SceneArgs* s, const TerrainArgs* a, const TerrainOut* o, void*) {
+    for (int i = 0; i < a->width * a->height; ++i) render_pixel(*s, *a, *o, i);
+    return 0;
+}
+int f3d_terrain_step(const SceneArgs* s, const TerrainArgs* a, float* accum,
+                     unsigned int sample_idx, float* lum, const TerrainOut* o, float* tiles,
+                     void*) {
+    for (int i = 0; i < a->width * a->height; ++i) step_pixel(*s, *a, accum, sample_idx, lum, *o, i);
+    const int tw = (a->width + F3D_TILE - 1) / F3D_TILE, th = (a->height + F3D_TILE - 1) / F3D_TILE;
+    for (int ty = 0; ty < th; ++ty)
+        for (int tx = 0; tx < tw; ++tx)
+            tiles[ty * tw + tx] = tile_mean_serial(lum, a->width, a->height, ty, tx);
+    return 0;
+}
+int f3d_atrous_pass(const AtrousArgs* a, const float* in, float* out, int step, void*) {
+    for (int y = 0; y < a->height; ++y)
+        for (int x = 0; x < a->width; ++x) atrous_pixel(*a, in, out, step, x, y);
+    return 0;
+}
+int f3d_hosek_radiance(const HosekArgs* s, const float* dx, const float* dy, const float* dz,
+                       int n, float* rgb, void*) {
+    for (int i = 0; i < n; ++i) hosek_texel(*s, dx[i], dy[i], dz[i], rgb + 3 * i);
     return 0;
 }
 // test entry: synthesize_polar's contraction for one column and row
@@ -638,3 +664,121 @@ def test_engine_kernels(kernels):
     assert 0.05 < float(pp["vis"].mean()) < 0.95
     for k in pp:
         assert close_frac(pp[k], pk[k]) >= FRAC, k
+
+
+# ---------------------------------------------------------------------------
+# The TerrainRenderer's kernels: R1 render and R1 step (csrc/
+# terrain_shade.cuh), E3 a-trous and E5 Hosek (csrc/post.cuh) against their
+# plain versions, on a 65^2 DEM at 96x48. Gates: rgba within one u8 step on
+# >= 99.5% of pixels, float planes within 1e-5 * (1 + |ref|) on >= 99.9%,
+# depth NaN masks equal on >= 99.9% (silhouette flips); E3 and E5 every
+# element within 1e-5 * (1 + |ref|). The bodies run the same float32
+# operations as the plain versions; powf, expf, acosf and the libm
+# cos/sin/atan2 may differ from PyTorch's by an ulp.
+# ---------------------------------------------------------------------------
+
+R1_CASES = {
+    "defaults": {},
+    "print": dict(sampling=dict(aa_samples=2), shadows=dict(softness=1.5, samples=2),
+                  height_ao=dict(enabled=True, samples=2, radius=12.0),
+                  water=dict(enabled=True, level=0.0), reflection=dict(enabled=True),
+                  fog=dict(enabled=True, density=0.02), clouds=dict(enabled=True, scale=0.05),
+                  material_layers=dict(enabled=True), detail=dict(enabled=True),
+                  triplanar=dict(enabled=True), pom=dict(enabled=True, scale=0.5),
+                  lambert_contrast=0.3, height_curve_mode="smoothstep",
+                  height_curve_strength=0.5, ibl=dict(enabled=True),
+                  tonemap=dict(mode="aces"), output_srgb_eotf=True),
+    "constant_filmic_normals": dict(albedo_mode="constant", tonemap=dict(mode="filmic"),
+                                    debug_mode="normals", height_curve_mode="pow",
+                                    height_curve_power=1.7),
+}
+
+
+def r1_setup(device, **kw):
+    """(scene, ShadeArgs) of a TerrainRenderer render."""
+    from forge3d_tpu_torch.terrain import renderer as rr
+    from forge3d_tpu_torch.terrain.params import make_terrain_params
+
+    n = 65
+    y, x = np.mgrid[0:n, 0:n].astype(np.float32)
+    dem = (6.0 * np.sin(x * 0.15) * np.cos(y * 0.12) + 3.0 * np.sin(x * 0.4 + y * 0.3)
+           ).astype(np.float32)
+    p = make_terrain_params(size_px=(96, 48), cam_radius=75.0, cam_theta_deg=30.0, **kw)
+    _, scene, args, _ = rr.TerrainRenderer(device=device).render_inputs(p, dem,
+                                                                        time_seconds=1.5)
+    return scene, args
+
+
+def assert_planes(ref, got, keys):
+    for k in keys:
+        assert close_frac(ref[k], got[k]) >= FRAC, k
+
+
+@pytest.mark.parametrize("case", list(R1_CASES))
+def test_terrain_render_kernel(kernels, case):
+    from forge3d_tpu_torch.terrain import renderer as rr
+
+    scene, a = r1_setup(kernels, **R1_CASES[case])
+    before = rr.render_program.launches
+    got = rr._render_kernel(scene, a, want_aov=True)
+    assert rr.render_program.launches == before + 1
+    ref = rr.render_plain(scene, a)
+    du = (ref["rgba"].int() - got["rgba"].int()).abs().amax(-1)
+    assert float((du <= 1).double().mean()) >= 0.995
+    assert torch.equal(got["rgba"][..., 3], torch.full_like(got["rgba"][..., 3], 255))
+    assert float((ref["depth"].isnan() == got["depth"].isnan()).double().mean()) >= FRAC
+    assert_planes(ref, got, ("hdr", "albedo", "normal", "depth", "visibility"))
+    beauty = rr._render_kernel(scene, a, want_aov=False)
+    assert set(beauty) == {"rgba"} and torch.equal(beauty["rgba"], got["rgba"])
+
+
+def test_terrain_step_kernel(kernels):
+    from forge3d_tpu_torch.terrain import renderer as rr
+
+    scene, a = r1_setup(kernels, **R1_CASES["print"])
+    acc = torch.zeros((a.height, a.width, 4), device=kernels)
+    before = rr.offline_step.launches
+    for idx in range(3):
+        pa, pt, paov = rr.step_plain(scene, a, acc, idx)
+        ka, kt, kaov = rr._step_kernel(scene, a, acc.clone(), idx)
+        assert close_frac(pa, ka) >= FRAC
+        assert close_frac(pt, kt) == 1.0 and tuple(kt.shape) == (2, 3)
+        assert_planes(paov, kaov, ("albedo", "normal", "depth", "visibility"))
+        acc = ka
+    assert rr.offline_step.launches == before + 3
+    assert float(acc[..., 3].min()) == 3.0
+
+
+@pytest.mark.parametrize("guides", ["none", "all", "depth_only"])
+def test_atrous_kernel(kernels, guides):
+    from forge3d_tpu_torch.ops import denoise as dn
+
+    rng = np.random.default_rng(8)
+    H, W = 40, 52
+    color = rng.gamma(2.0, 0.3, (H, W, 3)).astype(np.float32)
+    depth = rng.uniform(5, 50, (H, W)).astype(np.float32)
+    depth[:4] = np.nan
+    g = {"albedo": rng.uniform(0, 1, (H, W, 3)).astype(np.float32),
+         "normal": rng.standard_normal((H, W, 3)).astype(np.float32), "depth": depth}
+    g = {"none": {}, "all": g, "depth_only": {"depth": depth}}[guides]
+    g = {k: torch.as_tensor(v, device=kernels) for k, v in g.items()}
+    c = torch.as_tensor(color, device=kernels)
+    ref = dn.atrous_denoise_plain(c, iterations=4, **g)
+    prep = dn._prepare(c, g.get("albedo"), g.get("normal"), g.get("depth"))
+    before = dn.atrous_denoise.launches
+    got = dn._atrous_kernel(*prep, 4, *map(dn._sigma_k, (0.3, 0.3, 0.6, 0.8)))
+    assert dn.atrous_denoise.launches == before + 4
+    assert close_frac(ref, got) == 1.0
+    assert float((got - c).abs().max()) > 1e-3   # it filtered
+
+
+def test_hosek_kernel(kernels):
+    from forge3d_tpu_torch import sky
+
+    s = sky.make_hosek_sky(120.0, 20.0, turbidity=4.5, ground_albedo=0.2)
+    d = [torch.as_tensor(v, device=kernels) for v in sky.bake_directions(64, 32)]
+    before = sky.hosek_radiance.launches
+    got = sky._hosek_kernel(s, *d)
+    assert sky.hosek_radiance.launches == before + 1
+    for a, b in zip(sky.hosek_radiance_plain(s, *d), got):
+        assert close_frac(a, b) == 1.0

@@ -22,6 +22,7 @@ from forge3d_tpu.pt import mesh_render as jmr  # noqa: E402
 
 import forge3d_tpu_torch as f3t  # noqa: E402
 from forge3d_tpu_torch.pt import megakernel as tmk  # noqa: E402
+from forge3d_tpu_torch.errors import DeviceError  # noqa: E402
 from forge3d_tpu_torch.pt import mesh_render as tmr  # noqa: E402
 
 from tests.test_torch_bvh import box_town  # noqa: E402
@@ -75,7 +76,7 @@ def test_pt_render_gpu_mesh_matches_jax(case):
 def test_mesh_tracer_scene_and_refusals():
     v, i = box_town(3)
     ref = jmr.MeshTracerScene(v, i)
-    got = tmr.MeshTracerScene(v, i)
+    got = tmr.MeshTracerScene(v, i, device="cpu")
     assert got.triangle_count == ref.triangle_count and got.n_nodes == ref.n_nodes
     np.testing.assert_array_equal(np.asarray(ref.face_normals), got.face_normals.numpy())
     # a scene built once renders as the vertices do
@@ -151,3 +152,11 @@ def test_sphere_scene_parsing_and_refusals():
     for fn in (jmk.pt_render_aovs, tmk.pt_render_aovs):
         with pytest.raises(ValueError, match="positive"):
             fn(4, 0, GOLDEN_SPHERES, None)
+
+
+def test_mesh_tracer_scene_defaults_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks the refusal without one")
+    v, i = box_town(2)
+    with pytest.raises(DeviceError, match="CUDA is not available"):
+        tmr.MeshTracerScene(v, i)

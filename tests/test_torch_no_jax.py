@@ -70,6 +70,16 @@ SCRIPT = textwrap.dedent("""
     s = f3t.pt_render_gpu(32, 24, [{"center": (0, 1, 0), "radius": 1.0}],
                           {"origin": (0, 1.5, 5.5)}, device="cpu")
     assert s.shape == (24, 32, 4)
+    # the TerrainRenderer (Hosek IBL bake included) and render_offline with
+    # the a-trous denoiser
+    tr = f3t.TerrainRenderer(device="cpu")
+    p = f3t.make_terrain_params(size_px=(24, 16), cam_radius=40.0, ibl=dict(enabled=True),
+                                water=dict(enabled=True, level=-1.0))
+    fr, aov = tr.render_with_aov(params=p, heightmap=dem)
+    assert fr.rgba.shape == (16, 24, 4) and aov["hdr"].shape == (16, 24, 3)
+    off = f3t.render_offline(tr, params=p, heightmap=dem, settings=f3t.OfflineQualitySettings(
+        enabled=True, max_samples=2, min_samples=1, batch_size=2, denoiser="atrous"))
+    assert off.frame.rgba.shape == (16, 24, 4) and off.metadata["samples"] == 2
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "forge3d_tpu"))
     assert not loaded, loaded
     if not preloaded:
@@ -105,5 +115,9 @@ def test_lazy_top_level():
     assert callable(f3t.hybrid_render_terrain_reference)
     assert callable(f3t.render_terrain_reference)
     assert f3t.TerrainRefDesc.__name__ == "TerrainRefDesc"
+    for name in ("TerrainRenderer", "TerrainRenderParams", "make_terrain_params", "MaterialSet",
+                 "IBL", "render_offline", "OfflineQualitySettings", "Frame", "AovFrame",
+                 "HdrFrame"):
+        assert getattr(f3t, name).__module__.startswith("forge3d_tpu_torch."), name
     with pytest.raises(AttributeError):
         f3t.no_such_entry  # noqa: B018
