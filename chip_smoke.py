@@ -74,7 +74,19 @@ Phases (one line each; any failure exits non-zero):
  15. post -- E3 (5 iterations, three guides) at 1080p and E5's 128x64 Hosek
                 bake against their plain versions, both timed; E3 called
                 on the numpy planes must run on the card and give the
-                kernel's bits.
+                kernel's bits;
+ 16. screen kernels -- the screen-mode TerrainRenderer's kernels over the JAX
+                bench op's 513^2 DEM: S1 (the 256^2 env cube), S2/S3 (the six
+                convolutions of one IBL pyramid), S4 (the 4096^2 depth raster
+                of 2,093,058 triangles) and S8 with PCSS (S5) inside in
+                configuration A (the bench op screen_terrain_rgba) and B (IBL,
+                water with a reflection, layers with subsurface, mix, hue) at
+                256x128 and 1080p, each against its plain version on the card
+                and timed;
+ 17. screen render -- the main path: render_with_aov in A and B at 1080p,
+                cold (caches emptied; S1, S2/S3 x6, S4 and S8 must launch) and
+                warm (S8 alone), bit-identical, B launching S8 twice (its
+                mirrored half-res pass), with the times and peak memory.
 
 R1 gates (phases 13-14), set to what the card showed: rgba within one u8
 step everywhere and bytes equal on R1_U8_EQ of them, float planes within
@@ -165,6 +177,13 @@ REPLACES = {
     "R1 step": ("forge3d_tpu_torch/csrc/renderer.cu", "forge3d_tpu/terrain/renderer.py:1150"),
     "E3 atrous_denoise": ("forge3d_tpu_torch/csrc/post.cu", "forge3d_tpu/ops/denoise.py:35"),
     "E5 hosek_radiance": ("forge3d_tpu_torch/csrc/post.cu", "forge3d_tpu/sky.py:261"),
+    "S1 env_cube": ("forge3d_tpu_torch/csrc/screen.cu", "forge3d_tpu/terrain/screen.py:356"),
+    "S2/S3 cube_convolve": ("forge3d_tpu_torch/csrc/screen.cu",
+                            "forge3d_tpu/terrain/screen.py:364 (S2) and :389 (S3)"),
+    "S4 raster_depth": ("forge3d_tpu_torch/csrc/screen.cu", "forge3d_tpu/terrain/screen.py:465"),
+    # the shade with PCSS (S5, screen.py:656) inside, per configuration
+    "S8 shade (A)": ("forge3d_tpu_torch/csrc/screen.cu", "forge3d_tpu/terrain/screen.py:1098"),
+    "S8 shade (B)": ("forge3d_tpu_torch/csrc/screen.cu", "forge3d_tpu/terrain/screen.py:1098"),
 }
 
 # The card's peaks for the bounds (NVIDIA's H100 SXM data sheet).
@@ -1662,6 +1681,288 @@ def phase_post(dem):
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phases 16-17: the screen-mode TerrainRenderer (kernels S1-S4, S8 with S5)
+# ---------------------------------------------------------------------------
+
+SCREEN_N = 513          # forge3d_tpu/bench.py:_bench_dem(513), re-declared
+# float32 operations per unit of work, counted from csrc/screen.cuh's loop
+# bodies (adds, multiplies, divisions, square roots, comparisons, min/max;
+# a transcendental function as one)
+OPS_ENV_TEXEL = 60      # env_cube_texel: atan2, acos, the bilinear f16 taps
+OPS_CUBE_SAMPLE = 75    # convolve_texel, one sample: direction, normalise, face uv, bilinear
+OPS_RASTER_PIXEL = 30   # raster_triangle, one pixel of a triangle's box
+OPS_SHADE_PIXEL = 1500  # shade_front + shade_back for one pixel, PCSS's 28 taps included
+# S1-S3 gates: the f16 cubes bit-equal on >= SCREEN_F16_EQ of texels and
+# within one f16 step everywhere; S4 depth equal on >= SCREEN_DEPTH_EQ;
+# S8 rgba within one u8 step everywhere and bytes equal on >= SCREEN_U8_EQ,
+# its float planes within FLOAT_TOL on >= SCREEN_FRAC. The card showed every
+# screen kernel bit-identical to its plain version at every size, so the
+# gates are every texel, byte and element.
+SCREEN_F16_EQ = 1.0
+SCREEN_DEPTH_EQ = 1.0
+SCREEN_U8_EQ = 1.0
+SCREEN_FRAC = 1.0
+
+
+def screen_dem() -> np.ndarray:
+    n = SCREEN_N
+    y, x = np.mgrid[0:n, 0:n].astype(np.float32)
+    return (4.0 * np.sin(x * 0.21) * np.cos(y * 0.17)).astype(np.float32)
+
+
+def screen_config(config: str, width: int, height: int, dem):
+    """(params, env_maps, water_mask) of screen configuration A (the JAX
+    bench op screen_terrain_rgba: span 2.8, z scale 1.45, viridis, the
+    rest make_terrain_params' defaults) or B (the fullest this port runs:
+    IBL at intensity 1 with the gradient env, a water mask on the DEM's
+    lowest 20% with a shore band, a planar reflection with waves, snow,
+    rock and wetness layers with subsurface, albedo mix 0.5, hue 0.08)."""
+    from forge3d_tpu_torch.terrain import renderer as rr
+    from forge3d_tpu_torch.terrain import screen as scr
+    from forge3d_tpu_torch.terrain.params import make_terrain_params
+
+    kw = dict(size_px=(width, height), terrain_span=2.8, z_scale=1.45, camera_mode="screen",
+              colormap="viridis", albedo_mode="colormap", colormap_strength=1.0)
+    if config == "A":
+        return make_terrain_params(**kw), None, None
+    lo, hi = float(dem.min()), float(dem.max())
+    water = np.clip((lo + 0.2 * (hi - lo) - dem) / (0.05 * (hi - lo)), 0.0, 1.0).astype(np.float32)
+    kw.update(ibl=dict(enabled=True, intensity=1.0), albedo_mode="mix", colormap_strength=0.5,
+              hue_variation_strength=0.08,
+              reflection=dict(enabled=True, intensity=0.8, wave_strength=0.05,
+                              shore_atten_width=0.3),
+              material_layers=dict(enabled=True, snow_enabled=True, snow_altitude_min=0.3,
+                                   snow_altitude_blend=0.6, snow_subsurface_strength=0.6,
+                                   rock_enabled=True, rock_slope_min=-30.0,
+                                   rock_subsurface_strength=0.3, wetness_enabled=True,
+                                   wetness_subsurface_strength=0.2))
+    return make_terrain_params(**kw), rr.IBL(scr.decode_test_hdr()), water
+
+
+def f16_agree(ref, got):
+    """(fraction of bit-equal elements, whether all lie within one f16 step)."""
+    import torch
+
+    step = torch.clamp(ref.abs(), min=2.0 ** -14) * 2.0 ** -10
+    return float((ref == got).double().mean()), bool(((got - ref).abs() <= step * 1.0001).all())
+
+
+def compare_shade(tag, ref, got):
+    du = (ref["rgba"].int() - got["rgba"].int()).abs()
+    eq = float((du == 0).double().mean())
+    frac = min(close_frac(ref[k], got[k]) for k in ("albedo", "normal", "height"))
+    err = max(max_abs(ref[k], got[k]) for k in ("albedo", "normal", "height"))
+    require(int(du.max()) <= 1 and eq >= SCREEN_U8_EQ and frac >= SCREEN_FRAC,
+            f"{tag}: S8 disagrees with its plain version (rgba bytes equal {eq:.6f}, max step "
+            f"{int(du.max())}, planes within tolerance {frac:.6f}, max |err| {err:.3e})")
+    return eq, frac, err
+
+
+def phase_screen_kernels(dem):
+    """S1, S2/S3 and S4 at the main path's shapes, and S8 in A and B at
+    256x128 and 1080p, each against its plain version on the card, timed.
+    Returns {row name: (max |err|, kernel ms, plain ms, bound ms, bound by)}."""
+    import torch
+
+    from forge3d_tpu_torch.terrain import renderer as rr
+    from forge3d_tpu_torch.terrain import screen as scr
+
+    dev = torch.device("cuda")
+    res = {}
+    # S1 on the gradient env (configuration B's)
+    eq = torch.as_tensor(scr.decode_test_hdr(), device=dev)
+    env_k = scr._env_cube_kernel(eq, scr.ENV_SIZE)
+    plain_ms, env_p = wall_ms(lambda: scr.env_cube_plain(eq, scr.ENV_SIZE))
+    feq, one = f16_agree(env_p, env_k)
+    require(feq >= SCREEN_F16_EQ and one, f"S1 disagrees with its plain version ({feq:.6f} equal)")
+    ms = cuda_ms(lambda: scr._env_cube_kernel(eq, scr.ENV_SIZE), 20)
+    n = 6 * scr.ENV_SIZE ** 2
+    bms, by = bound(tensor_bytes(eq) + 2 * n * 12, n * OPS_ENV_TEXEL)
+    res["S1 env_cube"] = (max_abs(env_p, env_k), ms, plain_ms, bms, by)
+    say("screen kernels", f"S1 env_cube 6x256^2: {feq:.6f} of texels bit-equal, all within one f16 "
+                          f"step; kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, bound {bms:.4f} ms "
+                          f"({by})")
+
+    # S2 and S3: the six launches of one build_ibl, on the kernel's cube
+    k_ms = p_ms = err = 0.0
+    work = 0
+    for mip in range(scr.N_MIPS):
+        got = scr._cube_convolve_kernel(env_k, mip)
+        t, ref = wall_ms(lambda: scr.cube_convolve_plain(env_k, mip))
+        feq, one = f16_agree(ref, got)
+        require(feq >= SCREEN_F16_EQ and one,
+                f"S2/S3 mip {mip} disagrees with its plain version ({feq:.6f} equal)")
+        k_ms += cuda_ms(lambda: scr._cube_convolve_kernel(env_k, mip), 5)
+        p_ms += t
+        err = max(err, max_abs(ref, got))
+        work += got.shape[0] * got.shape[1] * got.shape[2] * int(scr.lobe_samples(mip).shape[0])
+        say("screen kernels", f"{'S2 irradiance' if mip == 0 else f'S3 prefilter mip {mip}'} "
+                              f"{tuple(got.shape)}: {feq:.6f} of texels bit-equal, all within one "
+                              f"f16 step")
+    out_bytes = sum(6 * (scr.IRR_SIZE if m == 0 else scr.ENV_SIZE >> m) ** 2 * 12
+                    for m in range(scr.N_MIPS))
+    bms, by = bound(tensor_bytes(env_k) + 2 * out_bytes, work * OPS_CUBE_SAMPLE)
+    res["S2/S3 cube_convolve"] = (err, k_ms, p_ms, bms, by)
+    say("screen kernels", f"S2/S3 cube_convolve, 6 launches, {work} cube samples: kernel "
+                          f"{k_ms:.4f} ms, plain {p_ms:.1f} ms, bound {bms:.4f} ms ({by})")
+
+    # S4 on the main path's shadow geometry (A's and B's: one sun, DEM, span)
+    hm = dem
+    lvp, _, tris, keep, wbb, hbb = scr.shadow_geometry(
+        hm, terrain_span=2.8, z_scale=1.45, sun_dir=-scr.light_direction(135.0, 24.0),
+        domain=(float(hm.min()), float(hm.max())))
+    t_t = torch.as_tensor(tris, device=dev)
+    k_t = torch.as_tensor(keep, device=dev)
+    got = scr._raster_depth_kernel(t_t, k_t, scr.SHADOW_RES, wbb, hbb)
+    plain_ms, ref = wall_ms(lambda: scr.raster_depth_plain(t_t, k_t, scr.SHADOW_RES, wbb, hbb))
+    deq = float((ref == got).double().mean())
+    require(deq >= SCREEN_DEPTH_EQ, f"S4 disagrees with its plain version ({deq:.6f} equal)")
+    ms = cuda_ms(lambda: scr._raster_depth_kernel(t_t, k_t, scr.SHADOW_RES, wbb, hbb), 5)
+    live, _, xmin, ymin, xmax, ymax, _ = scr._triangle_setup(t_t, k_t)
+    pix = float((torch.clamp(xmax - xmin + 1, 1, wbb) * torch.clamp(ymax - ymin + 1, 1, hbb))[live]
+                .double().sum())
+    bms, by = bound(tensor_bytes(t_t, k_t) + scr.SHADOW_RES ** 2 * 4, pix * OPS_RASTER_PIXEL)
+    res["S4 raster_depth"] = (max_abs(ref, got), ms, plain_ms, bms, by)
+    say("screen kernels", f"S4 raster_depth {tris.shape[0]} triangles ({int(live.sum())} live, "
+                          f"box {wbb}x{hbb}, {int(pix)} box pixels) into {scr.SHADOW_RES}^2: "
+                          f"{deq:.6f} of texels equal; kernel {ms:.4f} ms, plain "
+                          f"{plain_ms:.1f} ms, "
+                          f"bound {bms:.4f} ms ({by})")
+
+    # S8 (S5 inside) in A and B at 256x128 and 1080p
+    for config in ("A", "B"):
+        for w, h in ((SMALL_W, SMALL_H), (REAL_W, REAL_H)):
+            p, env, wm = screen_config(config, w, h, dem)
+            lut, kw, _ = rr.TerrainRenderer.screen_inputs(p, dem, env, wm)
+            cfg, u = scr.prepare_shade(dem, lut, device=dev, **kw)
+            got = scr._shade_kernel(cfg, u)
+            plain_ms, ref = wall_ms(lambda: scr.shade_plain(cfg, u))
+            eq_, frac, err = compare_shade(f"S8 ({config}) {w}x{h}", ref, got)
+            water = float((u["water_mask"] > 0.001).double().mean()) if cfg.has_wm else 0.0
+            say("screen kernels", f"S8 shade ({config}) {w}x{h}: rgba bytes equal {eq_:.6f}, "
+                                  f"planes "
+                                  f"within tolerance {frac:.6f}, max |err| {err:.3e}, plain "
+                                  f"{plain_ms:.1f} ms, water mask cover {water:.3f}")
+        ms = cuda_ms(lambda: scr._shade_kernel(cfg, u), 10)
+        inputs = [u["hm"], u["lut"], u["shadow_depth"], u["ibl_irradiance"], u["ibl_brdf"],
+                  *u["ibl_spec"], *(u[k] for k in ("water_mask", "refl_tex") if k in u)]
+        n = w * h
+        bms, by = bound(tensor_bytes(*inputs) + n * 32, n * OPS_SHADE_PIXEL)
+        res[f"S8 shade ({config})"] = (err, ms, plain_ms, bms, by)
+        say("screen kernels", f"S8 shade ({config}) {w}x{h}: kernel {ms:.4f} ms, plain "
+                              f"{plain_ms:.1f} ms, bound {bms:.4f} ms ({by})")
+    return res
+
+
+def _by_call(t) -> str:
+    return ", ".join(f"{k} {v:.4f}" for k, v in t.items()) + f"; sum {sum(t.values()):.4f}"
+
+
+def _warm_split(r, p, dem, env, wm):
+    """A warm screen render's calls one at a time, synchronised: ms each."""
+    from forge3d_tpu_torch.terrain import screen as scr
+
+    lut, kw, _ = r.screen_inputs(p, dem, env, wm)
+    t = {}
+    key = "host prepare" + (" and the mirrored pass (S8)" if kw["reflection"] else "")
+    t[key], (cfg, u) = wall_ms(lambda: scr.prepare_shade(dem, lut, device=r.device, **kw))
+    t["S8 with its output allocation"], out = wall_ms(lambda: scr.shade(cfg, u))
+    t["readback of rgba and AOVs"], _ = wall_ms(
+        lambda: {k: v.cpu().numpy() for k, v in out.items()})
+    return t
+
+
+def _cold_split(r, p, dem, env):
+    """The work a cold screen render adds to a warm one, one call at a
+    time, synchronised: ms each (the caches emptied first and after)."""
+    import torch
+
+    from forge3d_tpu_torch.terrain import screen as scr
+
+    lut, kw, _ = r.screen_inputs(p, dem, env, None)
+    scr.clear_caches()
+    t = {}
+    t["IBL pyramid (upload, S1, S2/S3 x6, the zero BRDF LUT)"], _ = wall_ms(
+        lambda: scr.build_ibl(kw["hdr_rgb"], r.device))
+    geo = dict(terrain_span=kw["terrain_span"], z_scale=kw["z_scale"],
+               sun_dir=-scr.light_direction(kw["light_azimuth_deg"], kw["light_elevation_deg"]),
+               domain=kw["domain"])
+    t["shadow geometry (numpy, 1024^2 grid)"], (_, _, tris, keep, wbb, hbb) = wall_ms(
+        lambda: scr.shadow_geometry(dem, **geo))
+    t["upload of triangles and vote"], (tt, kt) = wall_ms(
+        lambda: (torch.as_tensor(tris, device=r.device), torch.as_tensor(keep, device=r.device)))
+    t["S4 with its 4096^2 clear"], _ = wall_ms(
+        lambda: scr.raster_depth(tt, kt, scr.SHADOW_RES, wbb, hbb))
+    scr.clear_caches()
+    return t
+
+
+def phase_screen_render(dem):
+    """The screen-mode main path: render_with_aov in A and B at 1080p, each
+    cold (caches emptied: S1-S4 and S8) and warm (S8 alone), bit-identical;
+    every count set to 0 before each render and read after. Returns the
+    launches of the phase."""
+    import torch
+
+    import forge3d_tpu_torch as f3t
+    from forge3d_tpu_torch.terrain import screen as scr
+
+    r = f3t.TerrainRenderer(device="cuda")
+    counters = {"S1 env_cube": scr.env_cube, "S2/S3 cube_convolve": scr.cube_convolve,
+                "S4 raster_depth": scr.raster_depth, "S8 shade": scr.shade}
+    total = {k: 0 for k in counters}
+    launches = {}
+    for config in ("A", "B"):
+        p, env, wm = screen_config(config, REAL_W, REAL_H, dem)
+        runs = []
+        launches[f"S8 shade ({config})"] = 0
+        for kind in ("cold", "warm"):
+            if kind == "cold":
+                scr.clear_caches()
+            for c in counters.values():
+                c.launches = 0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ms, out = wall_ms(lambda: r.render_with_aov(env_maps=env, params=p, heightmap=dem,
+                                                        water_mask=wm))
+            counts = {k: c.launches for k, c in counters.items()}
+            for k in counts:
+                total[k] += counts[k]
+            launches[f"S8 shade ({config})"] += counts["S8 shade"]
+            runs.append(out)
+            say("screen render", f"render_with_aov ({config}) {REAL_W}x{REAL_H} {kind}: "
+                                 f"{ms:.3f} ms, "
+                                 f"launches {json.dumps(counts)}, peak device memory "
+                                 f"{torch.cuda.max_memory_allocated()} B, last_gpu_timings "
+                                 + json.dumps({k: round(v, 4)
+                                               for k, v in r.last_gpu_timings.items()}))
+            shades = 2 if config == "B" else 1
+            want = {"S1 env_cube": 1, "S2/S3 cube_convolve": 6, "S4 raster_depth": 1,
+                    "S8 shade": shades} if kind == "cold" else \
+                {"S1 env_cube": 0, "S2/S3 cube_convolve": 0, "S4 raster_depth": 0,
+                 "S8 shade": shades}
+            require(counts == want, f"({config}) {kind} render launched {counts}, not {want}")
+        say("screen render", f"({config}) warm render by call, ms: "
+                             + _by_call(_warm_split(r, p, dem, env, wm)))
+        if config == "A":
+            say("screen render", "(A) cold render's added work by call, ms: "
+                                 + _by_call(_cold_split(r, p, dem, env)))
+        (fr, aov), second = runs
+        same = _same_frames(runs[0], second)
+        std = float(fr.rgba[..., :3].std())
+        say("screen render", f"({config}) deterministic {same}, rgba std {std:.3f}, consumed "
+                             f"{list(r.last_consumed_settings)}")
+        require(same, f"two screen renders of configuration {config} differ")
+        require(fr.rgba.shape == (REAL_H, REAL_W, 4) and std > 5.0 and all(
+            np.isfinite(aov[k]).all() for k in ("albedo", "normal", "depth")),
+            f"screen configuration {config} render is trivial or not finite")
+    for k in ("S1 env_cube", "S2/S3 cube_convolve", "S4 raster_depth"):
+        launches[k] = total[k]
+    say("screen render", f"launches on the path {json.dumps(launches)}")
+    return launches
+
+
 def _jax_modules():
     """JAX and every module of the JAX package: the port imports none."""
     return [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "forge3d_tpu")]
@@ -1713,6 +2014,11 @@ def main() -> int:
     rows.append(kernel_row("R1 step", r1_launches["R1 step"], *phase_r1_step(dem)))
     for kernel, vals in phase_post(dem).items():
         rows.append(kernel_row(kernel, r1_launches[kernel], *vals))
+    sdem = screen_dem()
+    screen = phase_screen_kernels(sdem)
+    screen_launches = phase_screen_render(sdem)
+    for kernel, vals in screen.items():
+        rows.append(kernel_row(kernel, screen_launches[kernel], *vals))
 
     loaded = sorted(set(_jax_modules()) - preloaded)
     require(not loaded, f"imported JAX or modules of the JAX package: {loaded}")

@@ -201,6 +201,37 @@ class HosekArgs(ctypes.Structure):
     _fields_ = [("sun", _F3), ("cfg", _F * 27), ("rad", _F3), ("exposure", _F)]
 
 
+class ScreenArgs(ctypes.Structure):
+    """Mirror of `ScreenArgs` in csrc/screen.cuh (S8)."""
+
+    _fields_ = [(n, _P) for n in ("hm", "lut", "wm", "mat_albedo", "mmn", "mmr", "mmk", "shadow",
+                                  "irr")] + [("spec", _P * 6), ("brdf", _P), ("refl", _P)] + [
+        (n, _I) for n in ("hm_h", "hm_w", "lut_n", "wm_h", "wm_w", "mat_albedo_stride", "mmn_h",
+                          "mmn_w", "mmr_h", "mmr_w", "mmk_h", "mmk_w", "shadow_res",
+                          "irr_size")] + [("spec_size", _I * 6)] + [
+        (n, _I) for n in ("brdf_h", "brdf_w", "refl_h", "refl_w", "width", "height", "has_wm",
+                          "has_mat_albedo", "has_refl", "albedo_mode", "hue_on", "filterable",
+                          "srgb", "mm_normal", "mm_rough", "mm_mask", "mats_on", "snow_on",
+                          "sss_on")] + [
+        (n, _F) for n in ("dom_lo", "dom_hi", "dom_rng", "z_scale", "exposure", "ibl_intensity",
+                          "colormap_strength", "hue_strength", "ibl_fill", "shadow_rspan",
+                          "vert", "sun_int", "f0_water")] + [
+        ("texel", _F * 2), ("z_corners", _F3), ("wave_cs", _F * 2)] + [
+        (n, _F3) for n in ("ldir", "lcol", "camera_pos", "pcss_ld")] + [
+        ("lvp", _F * 12), ("rvp", _F * 16)] + [
+        (n, _F) for n in ("refl_wave", "refl_intensity", "refl_shore_w", "refl_fresnel",
+                          "snow_alt_min", "snow_alt_div", "snow_slope_f", "wet_scale",
+                          "rock_mix")] + [
+        ("rock_c", _F3), ("snow_c", _F3), ("layer_w", _F * 2), ("sss_strength", _F3),
+        ("sss_tint", _F * 9), ("ml", _F * 12), ("filmic", _F * 7)]
+
+
+class ScreenOut(ctypes.Structure):
+    """Mirror of `ScreenOut`: S8's output planes."""
+
+    _fields_ = [(n, _P) for n in ("rgba", "albedo", "normal", "height")]
+
+
 _SIGNATURES = {
     # (rot, h_rot, du, dv, stream)
     "f3d_rotate_heights": [ctypes.POINTER(RotArgs), _P, _P, _P, _P],
@@ -250,6 +281,14 @@ _SIGNATURES = {
     "f3d_atrous_pass": [ctypes.POINTER(AtrousArgs), _P, _P, _I, _P],
     # (sky, dx, dy, dz, n, rgb, stream)
     "f3d_hosek_radiance": [ctypes.POINTER(HosekArgs), _P, _P, _P, _I, _P, _P],
+    # (eq, eq_h, eq_w, dirs, size, out, stream)
+    "f3d_ibl_env_cube": [_P, _I, _I, _P, _I, _P, _P],
+    # (env, env_size, dirs, size, samples, count, mode, out, stream)
+    "f3d_ibl_convolve": [_P, _I, _P, _I, _P, _I, _I, _P, _P],
+    # (tris, keep, n_tris, resolution, wbb, hbb, depth, stream)
+    "f3d_raster_depth": [_P, _P, _I, _I, _I, _I, _P, _P],
+    # (args, out, stream)
+    "f3d_screen_shade": [ctypes.POINTER(ScreenArgs), ctypes.POINTER(ScreenOut), _P],
 }
 
 

@@ -1,0 +1,124 @@
+// forge3d_tpu_torch/csrc/screen.cu
+// The CUDA kernels of the screen-mode render, for sm_90a, with plain C
+// launchers for ctypes (see _kernels.py). Each launcher enqueues on the
+// caller's stream, does not synchronise, allocates nothing, and returns
+// cudaGetLastError().
+//
+// S1    env_cube_kernel   replaces forge3d_tpu/terrain/screen.py:_ibl_env_cube (355)
+// S2/S3 convolve_kernel   replaces screen.py:_ibl_irradiance (363) and
+//                         _ibl_prefilter_mip (388)
+// S4    raster_kernel     replaces screen.py:_raster_depth (464)
+// S8    shade_kernel      replaces the `shade` program of screen.py:_build_shade_fn
+//                         (1085), with pcss_visibility (S5, 656) inside
+//
+// S1: one thread per cube texel (6 x 256^2), a bilinear read of the small
+// equirect map; bound by its 4.7 MB of output.
+//
+// S2/S3: one thread per output texel runs the whole sample loop in JAX's
+// order (128 cosine samples; max(1024 >> mip, 64) GGX samples per mip), so
+// the sum is the scan's sum. The 4.7 MB env cube stays in L2; what bounds
+// it is the bilinear reads, about 70 million cube samples per pyramid.
+//
+// S4: JAX loops over the largest box (wbb x hbb) and masks every triangle
+// to its own; here one thread per triangle walks its own box and stops at
+// its edge, and each covered pixel's depth is an atomicMin on the float's
+// bits, which order as integers because z is clipped to [0, 1] (-0.0 is
+// stored as +0.0). The 4096^2 map (67 MB) is written by atomics; 2,093,058
+// triangles (75 MB) are read once.
+//
+// S8: one thread per pixel. The edge term needs the shading normals of the
+// pixel's 2x2 quad (dpdxCoarse / dpdyCoarse), so threads are laid out in
+// quads: four consecutive lanes of a warp hold one quad (top left, top
+// right, bottom left, bottom right), and the normals are exchanged with
+// __shfl_sync after shade_front. Every lane of a warp reaches the shuffle;
+// lanes past the image shade pixel (0, 0) and write nothing. What bounds it
+// is arithmetic and the PCSS taps' reads (28 scattered reads of the 67 MB
+// depth map per pixel, neighbouring pixels' taps in the same lines).
+
+#include <cuda_runtime.h>
+
+#include "screen.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+
+inline int blocks_for(long long n) { return (int)((n + kThreads - 1) / kThreads); }
+
+__global__ void env_cube_kernel(const float* __restrict__ eq, int eq_h, int eq_w,
+                                const float* __restrict__ dirs, int n, float* __restrict__ out) {
+    int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    env_cube_texel(eq, eq_h, eq_w, dirs, i, out);
+}
+
+__global__ void convolve_kernel(const float* __restrict__ env, int env_size,
+                                const float* __restrict__ dirs, int n,
+                                const float* __restrict__ smp, int count, int mode,
+                                float* __restrict__ out) {
+    int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    convolve_texel(env, env_size, dirs, smp, count, mode, i, out);
+}
+
+__global__ void raster_kernel(const float* __restrict__ tris, const unsigned char* __restrict__ keep,
+                              int n_tris, int res, int wbb, int hbb, float* depth) {
+    int t = blockIdx.x * blockDim.x + threadIdx.x;
+    if (t >= n_tris) return;
+    raster_triangle(tris, keep, t, res, wbb, hbb, depth);
+}
+
+__global__ void shade_kernel(ScreenArgs a, ScreenOut o) {
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    const bool live = i < a.width * a.height;
+    const int q = i >> 2, sub = i & 3, qw = a.width >> 1;
+    const int x = live ? 2 * (q % qw) + (sub & 1) : 0;
+    const int y = live ? 2 * (q / qw) + (sub >> 1) : 0;
+    ShadeState s;
+    shade_front(a, x, y, s);
+    float tl[3], tr[3], bl[3];
+    for (int c = 0; c < 3; ++c) {
+        tl[c] = __shfl_sync(0xffffffffu, s.sn[c], 0, 4);
+        tr[c] = __shfl_sync(0xffffffffu, s.sn[c], 1, 4);
+        bl[c] = __shfl_sync(0xffffffffu, s.sn[c], 2, 4);
+    }
+    if (live) shade_back(a, o, x, y, s, quad_grad(tl, tr, bl));
+}
+
+}  // namespace
+
+extern "C" {
+
+int f3d_ibl_env_cube(const float* eq, int eq_h, int eq_w, const float* dirs, int size,
+                     float* out, void* stream) {
+    int n = 6 * size * size;
+    if (n > 0)
+        env_cube_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(eq, eq_h, eq_w, dirs,
+                                                                               n, out);
+    return (int)cudaGetLastError();
+}
+
+int f3d_ibl_convolve(const float* env, int env_size, const float* dirs, int size,
+                     const float* smp, int count, int mode, float* out, void* stream) {
+    int n = 6 * size * size;
+    if (n > 0)
+        convolve_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+            env, env_size, dirs, n, smp, count, mode, out);
+    return (int)cudaGetLastError();
+}
+
+int f3d_raster_depth(const float* tris, const unsigned char* keep, int n_tris, int res, int wbb,
+                     int hbb, float* depth, void* stream) {
+    if (n_tris > 0)
+        raster_kernel<<<blocks_for(n_tris), kThreads, 0, (cudaStream_t)stream>>>(
+            tris, keep, n_tris, res, wbb, hbb, depth);
+    return (int)cudaGetLastError();
+}
+
+int f3d_screen_shade(const ScreenArgs* a, const ScreenOut* o, void* stream) {
+    long long n = (long long)a->width * a->height;
+    if (n > 0) shade_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(*a, *o);
+    return (int)cudaGetLastError();
+}
+
+}  // extern "C"

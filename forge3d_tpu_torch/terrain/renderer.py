@@ -15,12 +15,16 @@
 # launch the kernels, and nothing falls back from one to the other. The
 # IBL's Hosek sky is baked by kernel E5 (sky.py).
 #
+# camera_mode="screen" renders go to the screen engine (terrain/screen.py,
+# kernels S1-S4 and S8) through `_render_screen`, as the JAX package's do.
+#
 # Not ported yet, and refused by the one-shot renders with
-# NotImplementedError: camera_mode="screen" (the screen engine, ROADMAP
-# queue 1 item 8), a MaterialSet with a virtual texture store (R1's VT
-# branch with terrain/vt.py, item 7) and the anamnesis render cache
-# (`cache=`, item 13). The offline session ignores camera_mode and the VT
-# store, as the JAX package's does, and renders the perspective shade.
+# NotImplementedError: a MaterialSet with a virtual texture store (R1's VT
+# branch with terrain/vt.py, ROADMAP queue 1 item 7), the anamnesis render
+# cache (`cache=`, item 13), and in screen mode a sky with aerial
+# perspective or POM (item 8b). The offline session ignores camera_mode and
+# the VT store, as the JAX package's does, and renders the perspective
+# shade.
 
 from __future__ import annotations
 
@@ -774,9 +778,6 @@ class TerrainRenderer:
 
     @staticmethod
     def _refuse_unported(p: TerrainRenderParams, material_set) -> None:
-        if p.camera_mode == "screen":
-            raise NotImplementedError("camera_mode='screen' (the screen engine) is "
-                                      + _NOT_PORTED.format(8))
         if getattr(material_set, "vt_store", None) is not None:
             raise NotImplementedError("a MaterialSet with a virtual-texture store (R1's VT "
                                       "branch) is " + _NOT_PORTED.format(7))
@@ -841,18 +842,16 @@ class TerrainRenderer:
         the offline session as the JAX package's does: it checks the
         heightmap and the water mask no further, bakes no sky, and renders
         the perspective shade whatever camera_mode or material_set ask."""
-        if heightmap is None:
-            raise UploadError("heightmap is required")
-        p = params if params is not None else make_terrain_params()
-        p.validate()
-        env: IBL = env_maps if env_maps is not None else IBL.default()
-        hm = np.asarray(heightmap, np.float32)
-        if not offline:
-            if hm.ndim != 2 or hm.shape[0] < 2 or hm.shape[1] < 2:
-                raise UploadError("heightmap must be 2D, at least 2x2")
-            if not np.isfinite(hm).all():
-                raise UploadError("heightmap contains non-finite values")
+        if offline:
+            if heightmap is None:
+                raise UploadError("heightmap is required")
+            p = params if params is not None else make_terrain_params()
+            p.validate()
+            hm = np.asarray(heightmap, np.float32)
+        else:
+            p, hm = self._checked(params, heightmap)
             self._refuse_unported(p, material_set)
+        env: IBL = env_maps if env_maps is not None else IBL.default()
 
         W = max(1, int(round(p.size_px[0] * p.render_scale)))
         H = max(1, int(round(p.size_px[1] * p.render_scale)))
@@ -880,8 +879,25 @@ class TerrainRenderer:
                                self._lut(p), env_rgb)
         return p, scene, args, has_env
 
+    @staticmethod
+    def _checked(params, heightmap):
+        """(params, float32 heightmap) of a one-shot render, validated."""
+        if heightmap is None:
+            raise UploadError("heightmap is required")
+        p = params if params is not None else make_terrain_params()
+        p.validate()
+        hm = np.asarray(heightmap, np.float32)
+        if hm.ndim != 2 or hm.shape[0] < 2 or hm.shape[1] < 2:
+            raise UploadError("heightmap must be 2D, at least 2x2")
+        if not np.isfinite(hm).all():
+            raise UploadError("heightmap contains non-finite values")
+        return p, hm
+
     def _render(self, material_set, env_maps, params, heightmap, water_mask,
                 time_seconds, want_aov: bool):
+        p, hm = self._checked(params, heightmap)
+        if p.camera_mode == "screen":
+            return self._render_screen(p, hm, env_maps, water_mask, want_aov)
         t0 = time.perf_counter()
         p, scene, args, has_env = self.render_inputs(params, heightmap, env_maps, water_mask,
                                                      time_seconds, material_set)
@@ -919,6 +935,95 @@ class TerrainRenderer:
             "width": W, "height": H, "aa_samples": p.sampling.aa_samples,
             "albedo_mode": p.albedo_mode, "tonemap": p.tonemap.mode,
             "render_ms": ms, "gpu_timings": dict(self.last_gpu_timings),
+        }
+        frame = Frame(rgba=rgba, metadata=meta)
+        aov_frame = AovFrame(aovs=aovs, metadata=meta) if want_aov else None
+        return frame, aov_frame
+
+    @staticmethod
+    def screen_inputs(p: TerrainRenderParams, hm, env_maps=None, water_mask=None):
+        """The screen engine's arguments for params `p` and heightmap `hm`,
+        mapped as the JAX package's renderer.py:_render_screen (395) maps
+        them: (lut, keyword arguments of screen.render_screen_tensors, output
+        size)."""
+        env: IBL = env_maps if env_maps is not None else IBL.default()
+        env_rgb = p.ibl.env_map if p.ibl.env_map is not None else env.env_map
+        if env_rgb is None:
+            # product default: the reference MapScene's minimal clear-sky
+            # Radiance env (2x2 constant (180, 190, 205) @ e=128 -> byte/256)
+            env_rgb = np.full((2, 2, 3), 0.0, np.float32)
+            env_rgb[:] = np.array([180.0, 190.0, 205.0], np.float32) / 256.0
+        dom = p.domain
+        if dom is None:
+            dom = (float(hm.min()), float(hm.max()))
+            if dom[0] == dom[1]:
+                dom = (dom[0], dom[0] + 1.0)
+        albedo_mode = p.albedo_mode
+        material_albedo = None
+        if albedo_mode == "constant":
+            albedo_mode = "material"
+            material_albedo = np.broadcast_to(np.asarray(p.constant_albedo, np.float32),
+                                              (1, 1, 3))
+        lut = np.asarray(colormaps.get_lut(p.colormap), np.float32)[:, :3]
+        mats = None
+        if p.material_layers is not None and p.material_layers.enabled:
+            mats = p.material_layers.to_layer_dict()
+        pom = None
+        if p.pom is not None and p.pom.enabled and float(p.pom.scale) > 0.0:
+            pom = p.pom.to_screen_cfg()
+        refl = None
+        if p.reflection is not None and p.reflection.enabled:
+            refl = dict(enabled=True, intensity=float(p.reflection.intensity),
+                        fresnel_power=float(p.reflection.fresnel_power),
+                        wave_strength=float(p.reflection.wave_strength),
+                        shore_atten_width=float(p.reflection.shore_atten_width),
+                        water_plane_height=float(p.reflection.water_plane_height))
+        sky = p.sky.to_dict_cfg() if p.sky is not None else None
+        W_out, H_out = int(p.size_px[0]), int(p.size_px[1])
+        W = max(1, int(round(W_out * p.render_scale)))
+        H = max(1, int(round(H_out * p.render_scale)))
+        span = p.terrain_span if p.terrain_span > 0 else float(hm.shape[1] - 1)
+        kw = dict(
+            size_px=(W, H), terrain_span=span, z_scale=p.z_scale, exposure=p.exposure,
+            light_azimuth_deg=p.light.azimuth_deg, light_elevation_deg=p.light.elevation_deg,
+            sun_intensity=p.light.intensity, sun_color=tuple(p.light.color),
+            ibl_intensity=p.ibl.intensity if p.ibl.enabled else 0.0,
+            cam_radius=p.cam_radius, cam_phi_deg=p.cam_phi_deg,
+            cam_theta_deg=p.cam_theta_deg, fov_y_deg=p.fov_y_deg, clip=tuple(p.clip),
+            albedo_mode=albedo_mode, colormap_strength=p.colormap_strength,
+            hue_variation_strength=p.hue_variation_strength, water_mask=water_mask, sky=sky,
+            hdr_rgb=env_rgb, material_albedo_rgb=material_albedo, materials=mats, pom=pom,
+            reflection=refl, domain=dom)
+        return lut, kw, (W_out, H_out)
+
+    def _render_screen(self, p: TerrainRenderParams, hm, env_maps, water_mask,
+                       want_aov: bool):
+        """camera_mode="screen": the screen engine (terrain/screen.py: S1-S4
+        from their caches or built, then S8)."""
+        from . import screen as scr
+
+        t0 = time.perf_counter()
+        lut, kw, (W_out, H_out) = self.screen_inputs(p, hm, env_maps, water_mask)
+        W, H = kw["size_px"]
+        out = scr.render_screen_tensors(hm, lut, device=self.device, **kw)
+        rgba = out["rgba"].cpu().numpy()
+        aovs = None
+        if want_aov:
+            aovs = {"albedo": out["albedo"].cpu().numpy(), "normal": out["normal"].cpu().numpy(),
+                    "depth": out["height"].cpu().numpy()}
+        if (W, H) != (W_out, H_out):
+            rgba = scr.blit_resolve(rgba, W_out, H_out)
+        ms = (time.perf_counter() - t0) * 1000.0
+        self.last_gpu_timings = {
+            "terrain_main_pass_ms": ms, "prepare_ms": 0.0,
+            "vt_residency_ms": 0.0, "readback_ms": 0.0, "total_ms": ms,
+        }
+        self.last_consumed_settings, self.last_ignored_settings = \
+            self._settings_report(p, True, water_mask is not None, False)
+        meta = {
+            "width": W_out, "height": H_out, "camera_mode": "screen",
+            "albedo_mode": p.albedo_mode, "render_ms": ms,
+            "gpu_timings": dict(self.last_gpu_timings),
         }
         frame = Frame(rgba=rgba, metadata=meta)
         aov_frame = AovFrame(aovs=aovs, metadata=meta) if want_aov else None

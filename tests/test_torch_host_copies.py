@@ -228,3 +228,57 @@ def test_png_bytes_equal(tmp_path):
     rgba = rng.integers(0, 256, (9, 13, 4), dtype=np.uint8)
     Frame(rgba=rgba).save_png(tmp_path / "f.png")
     assert (tmp_path / "f.png").read_bytes() == jpng.encode_png(rgba)
+
+
+# The screen engine's host copies (forge3d_tpu_torch/terrain/screen.py)
+# against forge3d_tpu/terrain/screen.py and screen_golden._build_brdf_lut.
+
+def test_screen_host_helpers_equal(tmp_path, monkeypatch):
+    from forge3d_tpu.terrain import screen as js
+    from forge3d_tpu.terrain import screen_golden as jg
+
+    from forge3d_tpu_torch.terrain import screen as ts
+
+    for name in ("SHADOW_MIN", "SHADOW_IBL_FACTOR", "AMBIENT_FLOOR", "WATER_DEPTH_ATTEN_DEEP",
+                 "WATER_COMBINED_REFLECTION_SCALE", "WATER_SUN_SPECULAR_SCALE", "WATER_BASE_TINT",
+                 "WATER_BASE_TINT_SCALE", "WATER_SCATTER_SCALE"):
+        assert getattr(ts, name) == getattr(js, name), name
+    for name in ("_POISSON_12", "_POISSON_16", "_MATERIAL_LINEAR"):
+        np.testing.assert_array_equal(getattr(ts, name), getattr(js, name))
+    arrays = (np.arange(12, dtype=np.float32).reshape(3, 4), 2.8, (0.0, 1.0), "shadowj-v1")
+    assert ts._hash(*arrays) == js._hash(*arrays)
+    for args in [((1.2, 3.0, 4.5), (0.0, 0.0, 0.0), (0.0, 1.0, 0.0)),
+                 ((-2.0, 0.5, 1.0), (0.3, -0.1, 0.2), (0.0, 0.0, 1.0))]:
+        np.testing.assert_array_equal(ts.look_at_rh(*args), js.look_at_rh(*args))
+        to = (args[0], np.subtract(args[1], args[0]), args[2])
+        np.testing.assert_array_equal(ts.look_to_rh(*to), js.look_to_rh(*to))
+    np.testing.assert_array_equal(ts.orthographic_rh(-1.5, 2.0, -0.7, 1.1, -3.0, 4.0),
+                                  js.orthographic_rh(-1.5, 2.0, -0.7, 1.1, -3.0, 4.0))
+    for a in [(5.0, 138.0, 63.0), (120.0, 225.0, 35.0)]:
+        np.testing.assert_array_equal(ts.orbit_eye(*a), js.orbit_eye(*a))
+    for a in [(135.0, 24.0), (10.0, 80.0), (300.0, 5.0)]:
+        np.testing.assert_array_equal(ts.light_direction(*a), js.light_direction(*a))
+    np.testing.assert_array_equal(ts.perspective_proj(54.0, 4 / 3, 0.1, 6000.0),
+                                  js.perspective_proj(54.0, 4 / 3, 0.1, 6000.0))
+    for n in (8, 32):
+        np.testing.assert_array_equal(ts._face_dirs(n), js._face_dirs(n))
+    for n in (64, 128, 1024):
+        np.testing.assert_array_equal(ts._hammersley(n), js._hammersley(n))
+    for kw in ({}, dict(width=16, height=8, blue=200)):
+        np.testing.assert_array_equal(ts.decode_test_hdr(**kw), js.decode_test_hdr(**kw))
+    stops = [(0.0, "#112233"), (0.35, "#80a040"), (0.7, "#f0e0c0"), (1.0, "#ffffff")]
+    np.testing.assert_array_equal(ts.build_lut_from_stops(stops), js.build_lut_from_stops(stops))
+    assert ts.default_material_layers() == js.default_material_layers()
+    mats = dict(js.default_material_layers(), rock_color=[0.1, 0.2, 0.3])
+    assert ts._freeze(mats) == js._freeze(mats) and ts._freeze(None) is None
+    img = np.random.default_rng(41).integers(0, 256, (60, 80, 4), dtype=np.uint8)
+    for size in ((64, 48), (100, 70)):
+        np.testing.assert_array_equal(ts.blit_resolve(img, *size), js.blit_resolve(img, *size))
+    # the BRDF LUT: zero by default, the analytic LUT under FORGE3D_IBL_BRDF=analytic
+    np.testing.assert_array_equal(ts._build_brdf_lut(16, 64), jg._build_brdf_lut(16, 64))
+    monkeypatch.setenv("FORGE3D_IBL_BRDF", "analytic")
+    monkeypatch.setattr(jg, "CACHE_DIR", tmp_path)
+    ref = jg._build_brdf_lut(16, 64)
+    got = ts._build_brdf_lut(16, 64)
+    assert ref.max() > 0.0
+    np.testing.assert_array_equal(got, ref)

@@ -44,6 +44,7 @@ HOST_LAUNCHERS = r"""
 #include "post.cuh"
 #include "sweep.cuh"
 #include "terrain_shade.cuh"
+#include "screen.cuh"
 #include <vector>
 extern "C" {
 int f3d_trace(const SceneArgs* s, const float* rox, const float* roy, const float* roz,
@@ -216,6 +217,35 @@ int f3d_atrous_pass(const AtrousArgs* a, const float* in, float* out, int step, 
 int f3d_hosek_radiance(const HosekArgs* s, const float* dx, const float* dy, const float* dz,
                        int n, float* rgb, void*) {
     for (int i = 0; i < n; ++i) hosek_texel(*s, dx[i], dy[i], dz[i], rgb + 3 * i);
+    return 0;
+}
+int f3d_ibl_env_cube(const float* eq, int eq_h, int eq_w, const float* dirs, int size, float* out,
+                     void*) {
+    for (int i = 0; i < 6 * size * size; ++i) env_cube_texel(eq, eq_h, eq_w, dirs, i, out);
+    return 0;
+}
+int f3d_ibl_convolve(const float* env, int env_size, const float* dirs, int size,
+                     const float* smp, int count, int mode, float* out, void*) {
+    for (int i = 0; i < 6 * size * size; ++i)
+        convolve_texel(env, env_size, dirs, smp, count, mode, i, out);
+    return 0;
+}
+int f3d_raster_depth(const float* tris, const unsigned char* keep, int n_tris, int res, int wbb,
+                     int hbb, float* depth, void*) {
+    for (int t = 0; t < n_tris; ++t) raster_triangle(tris, keep, t, res, wbb, hbb, depth);
+    return 0;
+}
+// S8 one 2x2 quad at a time: the four pixels' fronts, the quad's normal
+// gradient, the four backs (the kernel exchanges the normals by shuffle)
+int f3d_screen_shade(const ScreenArgs* a, const ScreenOut* o, void*) {
+    for (int qy = 0; qy < a->height / 2; ++qy)
+        for (int qx = 0; qx < a->width / 2; ++qx) {
+            ShadeState s[4];
+            for (int k = 0; k < 4; ++k) shade_front(*a, 2 * qx + (k & 1), 2 * qy + (k >> 1), s[k]);
+            const float g = quad_grad(s[0].sn, s[1].sn, s[2].sn);
+            for (int k = 0; k < 4; ++k)
+                shade_back(*a, *o, 2 * qx + (k & 1), 2 * qy + (k >> 1), s[k], g);
+        }
     return 0;
 }
 // test entry: synthesize_polar's contraction for one column and row
@@ -782,3 +812,142 @@ def test_hosek_kernel(kernels):
     assert sky.hosek_radiance.launches == before + 1
     for a, b in zip(sky.hosek_radiance_plain(s, *d), got):
         assert close_frac(a, b) == 1.0
+
+
+# ---------------------------------------------------------------------------
+# The screen-mode kernels (csrc/screen.cuh): S1 env cube, S2/S3 cube
+# convolution, S4 depth raster and S8 shade with S5 inside, against their
+# plain versions in terrain/screen.py, on a 32^2 env cube, a 512^2 shadow
+# map of a 128^2 grid, and 64x48 renders. Gates: the f16 cubes equal on
+# >= 99.9% of texels and within one f16 step elsewhere; depth maps equal on
+# >= 99.9% of texels; S8's rgba within one u8 step on >= 99.5% of pixels and
+# its float planes within 1e-5 * (1 + |ref|) on >= 99.9%. Both sides run the
+# same float32 operations; atan2/acos/sin/exp/pow may differ by an ulp.
+# ---------------------------------------------------------------------------
+
+
+def f16_agree(ref, got):
+    """(fraction of equal elements, whether all lie within one f16 step)."""
+    eq = float((ref == got).double().mean())
+    step = torch.clamp(ref.abs(), min=2.0 ** -14) * 2.0 ** -10
+    return eq, bool(((got - ref).abs() <= step * 1.0001).all())
+
+
+def screen_dem(n=33):
+    y, x = np.mgrid[0:n, 0:n].astype(np.float32)
+    return (4.0 * np.sin(x * 0.21 * 33 / n) * np.cos(y * 0.17 * 33 / n)).astype(np.float32)
+
+
+def test_env_cube_and_convolve_kernels(kernels):
+    from forge3d_tpu_torch.terrain import screen as scr
+
+    eq = torch.as_tensor(np.random.default_rng(9).uniform(0, 3, (8, 16, 3)).astype(np.float32),
+                         device=kernels)
+    before = (scr.env_cube.launches, scr.cube_convolve.launches)
+    env_k = scr._env_cube_kernel(eq, 32)
+    env_p = scr.env_cube_plain(eq, 32)
+    eq_frac, one_step = f16_agree(env_p, env_k)
+    assert eq_frac >= FRAC and one_step
+    for mip in (1, 2, 5):
+        got = scr._cube_convolve_kernel(env_p, mip)
+        ref = scr.cube_convolve_plain(env_p, mip)
+        eq_frac, one_step = f16_agree(ref, got)
+        assert got.shape == (6, 32 >> mip, 32 >> mip, 3)
+        assert eq_frac >= FRAC and one_step, mip
+    assert (scr.env_cube.launches, scr.cube_convolve.launches) == (before[0] + 1, before[1] + 3)
+
+
+def test_irradiance_kernel(kernels, monkeypatch):
+    from forge3d_tpu_torch.terrain import screen as scr
+
+    monkeypatch.setattr(scr, "IRR_SIZE", 16)   # the cosine lobe on a 16^2 output
+    eq = torch.as_tensor(scr.decode_test_hdr(), device=kernels)
+    env = scr.env_cube_plain(eq, 32)
+    eq_frac, one_step = f16_agree(scr.cube_convolve_plain(env, 0),
+                                  scr._cube_convolve_kernel(env, 0))
+    assert eq_frac >= FRAC and one_step
+
+
+def test_raster_depth_kernel(kernels):
+    from forge3d_tpu_torch.terrain import screen as scr
+
+    dem = screen_dem()
+    for sun in ((-0.6, -0.5, -0.62), (0.1, 0.05, -0.99)):
+        lvp, _, tris, keep, wbb, hbb = scr.shadow_geometry(
+            dem, terrain_span=2.8, z_scale=1.45, sun_dir=np.array(sun, np.float32),
+            resolution=512, grid_res=128, domain=(float(dem.min()), float(dem.max())))
+        t = torch.as_tensor(tris, device=kernels)
+        k = torch.as_tensor(keep, device=kernels)
+        before = scr.raster_depth.launches
+        got = scr._raster_depth_kernel(t, k, 512, wbb, hbb)
+        assert scr.raster_depth.launches == before + 1
+        ref = scr.raster_depth_plain(t, k, 512, wbb, hbb)
+        assert float((ref == got).double().mean()) >= FRAC
+        assert 0.05 < float((got < 1.0).double().mean()) < 1.0
+
+
+SCREEN_CASES = {
+    "defaults": {},
+    "water_reflection_mix": dict(water=True, albedo_mode="mix", colormap_strength=0.5,
+                                 reflection=dict(enabled=True, wave_strength=0.04,
+                                                 shore_atten_width=0.3)),
+    "layers_sss_srgb": dict(materials=dict(snow_enabled=True, snow_altitude_min=0.2,
+                                           snow_altitude_blend=0.4, snow_subsurface_strength=0.5,
+                                           rock_enabled=True, rock_slope_min=-20.0,
+                                           rock_subsurface_strength=0.3, wetness_enabled=True,
+                                           wetness_subsurface_strength=0.2),
+                            encode="srgb", height_filterable=True, ibl_intensity=1.0),
+    "maps_constant": dict(material_maps="all", albedo_mode="material",
+                          material_albedo_rgb=np.array([[[0.5, 0.4, 0.3]]], np.float32),
+                          generation="consistent"),
+}
+
+
+def small_ibl(device):
+    """A random f16 pyramid at a tenth of the size: S8 samples what it is given."""
+    rng = np.random.default_rng(13)
+    cube = lambda s: torch.as_tensor(  # noqa: E731
+        rng.uniform(0, 1, (6, s, s, 3)).astype(np.float16).astype(np.float32), device=device)
+    return {"irradiance": cube(8), "spec_mips": [cube(32 >> m) for m in range(6)],
+            "brdf": torch.as_tensor(rng.uniform(0, 1, (16, 16, 2)).astype(np.float32),
+                                    device=device)}
+
+
+def screen_inputs(device, monkeypatch, W=64, H=48, **kw):
+    from forge3d_tpu_torch import colormaps
+    from forge3d_tpu_torch.terrain import screen as scr
+
+    monkeypatch.setattr(scr, "build_ibl", lambda hdr, dev: small_ibl(dev))
+    orig = scr.build_shadow_map
+    monkeypatch.setattr(scr, "build_shadow_map",
+                        lambda *a, **k: orig(*a, **k, resolution=512, grid_res=128))
+    dem = screen_dem()
+    lo, hi = float(dem.min()), float(dem.max())
+    if kw.pop("water", False):
+        kw["water_mask"] = np.clip((lo + 0.3 * (hi - lo) - dem) / (0.1 * (hi - lo)), 0, 1
+                                   ).astype(np.float32)
+    if kw.get("material_maps") == "all":
+        rng = np.random.default_rng(14)
+        kw["material_maps"] = {"normal": rng.uniform(0, 1, (8, 8, 3)).astype(np.float32),
+                               "roughness": rng.uniform(0, 1, (8, 8)).astype(np.float32),
+                               "mask": rng.uniform(0, 1, (8, 8)).astype(np.float32)}
+    lut = np.asarray(colormaps.get_lut("viridis"), np.float32)[:, :3]
+    kw.setdefault("ibl_intensity", 0.0)
+    return scr.prepare_shade(dem, lut, size_px=(W, H), device=device, domain=(lo, hi), **kw)
+
+
+@pytest.mark.parametrize("case", list(SCREEN_CASES))
+def test_screen_shade_kernel(kernels, monkeypatch, case):
+    from forge3d_tpu_torch.terrain import screen as scr
+
+    cfg, u = screen_inputs(kernels, monkeypatch, **SCREEN_CASES[case])
+    before = scr.shade.launches
+    got = scr._shade_kernel(cfg, u)
+    assert scr.shade.launches == before + 1
+    ref = scr.shade_plain(cfg, u)
+    du = (ref["rgba"].int() - got["rgba"].int()).abs().amax(-1)
+    assert float((du <= 1).double().mean()) >= 0.995
+    assert torch.equal(got["rgba"][..., 3], torch.full_like(got["rgba"][..., 3], 255))
+    for k in ("albedo", "normal", "height"):
+        assert close_frac(ref[k], got[k]) >= FRAC, k
+    assert float(ref["rgba"][..., :3].float().std()) > 5.0

@@ -1,0 +1,205 @@
+# The port's screen-mode kernels S1-S5 (forge3d_tpu_torch/terrain/screen.py,
+# their plain versions on the CPU) against the JAX package's functions in
+# forge3d_tpu/terrain/screen.py, on the same inputs made with numpy from a
+# seed, and render_screen_scene's options that TerrainRenderer does not
+# reach (the filterable height sampler, the sRGB encode, the "consistent"
+# golden generation), with the refusals of both packages.
+#
+# Gates: S1-S3 f16 cubes bit-equal on >= 99.9% of texels and within one f16
+# step elsewhere; S4's light matrix, texel size, triangles, orientation vote
+# and box bounds equal, depth equal on >= 99.9% of texels; S5's visibility
+# within 1e-5 * (1 + |ref|) on >= 99.5% of receivers; whole renders rgba
+# within one u8 step on >= 99.5% of pixels and the AOVs within
+# 1e-5 * (1 + |ref|) on >= 99.5% of elements. Both sides round every
+# float32 operation once in the same order; they differ where XLA's
+# atan2/acos/sin/exp/pow differ from PyTorch's by an ulp, and where a
+# threshold test (a PCSS tap against a depth) lands on the other side.
+#
+# Every render of this file uses one DEM, sun, span (1.0, so that both
+# golden generations raster the same shadow map), z scale, domain and
+# environment, so each package builds its IBL pyramid and shadow map once.
+import numpy as np
+import pytest
+import torch
+
+from forge3d_tpu.terrain import screen as J
+
+from forge3d_tpu_torch import colormaps
+from forge3d_tpu_torch.terrain import screen as T
+
+torch.set_num_threads(1)
+
+FRAC = 0.999
+REND_FRAC = 0.995
+
+
+def dem_n(n):
+    y, x = np.mgrid[0:n, 0:n].astype(np.float32)
+    return (4.0 * np.sin(x * 0.21) * np.cos(y * 0.17)).astype(np.float32)
+
+
+def within(ref, got, tol=1e-5):
+    ref = np.asarray(ref, np.float64)
+    got = np.asarray(got, np.float64)
+    return np.abs(got - ref) <= tol * (1.0 + np.abs(ref))
+
+
+def f16_agree(ref, got):
+    ref = np.asarray(ref, np.float32)
+    got = np.asarray(got, np.float32)
+    assert ref.shape == got.shape
+    step = np.maximum(np.abs(ref), 2.0 ** -14) * 2.0 ** -10
+    return (ref == got).mean(), bool((np.abs(got - ref) <= step * 1.0001).all())
+
+
+EQ = np.random.default_rng(21).uniform(0.0, 3.0, (16, 32, 3)).astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def cube32():
+    return np.array(J._ibl_env_cube(EQ, env_size=32))
+
+
+def test_env_cube_s1(cube32):
+    got = T.env_cube(torch.as_tensor(EQ), 32).numpy()
+    frac, one_step = f16_agree(cube32, got)
+    assert frac >= FRAC and one_step
+    gradient = J.decode_test_hdr()
+    frac, one_step = f16_agree(np.asarray(J._ibl_env_cube(gradient, env_size=32)),
+                               T.env_cube(torch.as_tensor(gradient), 32).numpy())
+    assert frac >= FRAC and one_step
+
+
+def test_irradiance_s2(cube32):
+    ref = np.asarray(J._ibl_irradiance(cube32))
+    got = T.cube_convolve(torch.as_tensor(cube32), 0).numpy()
+    frac, one_step = f16_agree(ref, got)
+    assert got.shape == (6, 128, 128, 3) and frac >= FRAC and one_step
+
+
+@pytest.mark.parametrize("mip", [1, 2, 3, 4, 5])
+def test_prefilter_s3(cube32, mip):
+    ref = np.asarray(J._ibl_prefilter_mip(cube32, mip))
+    got = T.cube_convolve(torch.as_tensor(cube32), mip).numpy()
+    frac, one_step = f16_agree(ref, got)
+    assert frac >= FRAC and one_step
+
+
+def test_lobe_samples_and_face_dirs():
+    np.testing.assert_array_equal(T._face_dirs(8), J._face_dirs(8))
+    np.testing.assert_array_equal(T._hammersley(64), J._hammersley(64))
+    assert T.lobe_samples(0).shape == (128, 3) and T.lobe_samples(5).shape == (64, 3)
+
+
+SUN = -J.light_direction(135.0, 24.0)
+
+
+@pytest.fixture(scope="module")
+def shadow512(tmp_path_factory):
+    """JAX's build_shadow_map at 512^2 over a 128^2 grid, computed afresh in
+    a scratch cache with its raster's inputs recorded."""
+    dem = dem_n(65)
+    dom = (float(dem.min()), float(dem.max()))
+    seen = {}
+    raster = J._raster_depth
+
+    def spy(tris, keep, resolution, wbb, hbb):
+        seen.update(tris=np.asarray(tris), keep=np.asarray(keep), wbb=wbb, hbb=hbb)
+        return raster(tris, keep, resolution, wbb, hbb)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(J, "CACHE_DIR", tmp_path_factory.mktemp("jax_screen_cache"))
+        mp.setattr(J, "_raster_depth", spy)
+        depth, lvp, texel = J.build_shadow_map(dem, terrain_span=2.8, z_scale=1.45,
+                                               sun_dir=SUN, resolution=512, grid_res=128,
+                                               domain=dom)
+    return dem, dom, np.asarray(depth), lvp, texel, seen
+
+
+def test_shadow_geometry_and_raster_s4(shadow512):
+    dem, dom, depth, lvp, texel, seen = shadow512
+    lvp_t, texel_t, tris, keep, wbb, hbb = T.shadow_geometry(
+        dem, terrain_span=2.8, z_scale=1.45, sun_dir=SUN, resolution=512, grid_res=128,
+        domain=dom)
+    np.testing.assert_array_equal(lvp_t, lvp)
+    assert texel_t == texel
+    np.testing.assert_array_equal(tris, seen["tris"])
+    np.testing.assert_array_equal(keep, seen["keep"])
+    assert (wbb, hbb) == (seen["wbb"], seen["hbb"])
+    got, lvp_b, texel_b = T.build_shadow_map(dem, terrain_span=2.8, z_scale=1.45, sun_dir=SUN,
+                                             resolution=512, grid_res=128, domain=dom)
+    np.testing.assert_array_equal(lvp_b, lvp)
+    assert (got.numpy() == depth).mean() >= FRAC
+    assert 0.05 < (depth < 1.0).mean() < 1.0     # the terrain covers part of the map
+
+
+def test_pcss_s5(shadow512):
+    _, _, depth, lvp, _, _ = shadow512
+    rng = np.random.default_rng(22)
+    n = 2048
+    pos = np.stack([rng.uniform(-0.5, 0.5, n), rng.uniform(-0.5, 0.5, n),
+                    rng.uniform(0.0, 1.45, n)], -1).astype(np.float32)
+    nrm = rng.standard_normal((n, 3)).astype(np.float32)
+    nrm[:, 1] = np.abs(nrm[:, 1]) + 0.5
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    ref = np.asarray(J.pcss_visibility(depth, lvp, None, pos, nrm, -SUN))
+    got = T.pcss_visibility(torch.as_tensor(depth), lvp, None, torch.as_tensor(pos),
+                            torch.as_tensor(nrm), -SUN).numpy()
+    assert within(ref, got).mean() >= REND_FRAC
+    assert 0.05 < (ref < 1.0).mean() < 0.95      # receivers both lit and shadowed
+
+
+# ---------------------------------------------------------------------------
+# render_screen_scene: the options TerrainRenderer does not set
+# ---------------------------------------------------------------------------
+
+DEM = dem_n(65)
+DOM = (float(DEM.min()), float(DEM.max()))
+LUT = np.asarray(colormaps.get_lut("viridis"), np.float32)[:, :3]
+BASE = dict(terrain_span=1.0, z_scale=1.45, domain=DOM, hdr_rgb=J.decode_test_hdr())
+
+
+def test_render_screen_scene_matches_jax():
+    """The filterable height sampler, the sRGB encode and the "consistent"
+    generation's shadow span and IBL fill, in one render."""
+    kw = dict(BASE, size_px=(96, 64), height_filterable=True, encode="srgb",
+              generation="consistent", hue_variation_strength=0.15, ibl_intensity=1.0)
+    a, aa = J.render_screen_scene(DEM, LUT, return_aov=True, **kw)
+    b, ab = T.render_screen_scene(DEM, LUT, return_aov=True, device="cpu", **kw)
+    assert b.shape == a.shape and b.dtype == np.uint8
+    du = np.abs(a.astype(np.int32) - b.astype(np.int32)).max(-1)
+    assert (du <= 1).mean() >= REND_FRAC
+    for k in ("albedo", "normal", "depth"):
+        assert ab[k].shape == aa[k].shape and ab[k].dtype == np.float32, k
+        assert within(aa[k], ab[k]).mean() >= REND_FRAC, k
+    assert a[..., :3].std() > 5.0
+
+
+def test_odd_sizes_refused_by_both():
+    kw = dict(BASE, size_px=(65, 48))
+    with pytest.raises(TypeError):      # JAX fails tracing the quad derivatives
+        J.render_screen_scene(DEM, LUT, **kw)
+    with pytest.raises(ValueError, match="even"):
+        T.render_screen_scene(DEM, LUT, device="cpu", **kw)
+    with pytest.raises(ValueError, match="even"):
+        T.render_screen_scene(DEM, LUT, device="cpu", **dict(BASE, size_px=(64, 47)))
+
+
+def test_unported_branches_refused():
+    with pytest.raises(NotImplementedError, match="item 8b"):
+        T.render_screen_scene(DEM, LUT, size_px=(64, 48), device="cpu",
+                              sky=dict(enabled=True, aerial_perspective=True))
+    with pytest.raises(NotImplementedError, match="item 8b"):
+        T.render_screen_scene(DEM, LUT, size_px=(64, 48), device="cpu",
+                              pom=dict(enabled=True, height_scale=0.05, max_steps=8))
+
+
+def test_caches_are_bounded_and_charged():
+    from forge3d_tpu_torch.mem import global_tracker
+
+    before = global_tracker().metrics()["tracked_bytes"]
+    T.build_ibl(J.decode_test_hdr(), torch.device("cpu"))
+    assert len(T._IBL_CACHE) <= T.CACHE_ENTRIES
+    assert any(k[0] == T._hash(J.decode_test_hdr().astype(np.float32), "iblj-v1", "golden")
+               for k in T._IBL_CACHE)
+    assert global_tracker().metrics()["tracked_bytes"] >= before
