@@ -86,7 +86,22 @@ Phases (one line each; any failure exits non-zero):
  17. screen render -- the main path: render_with_aov in A and B at 1080p,
                 cold (caches emptied; S1, S2/S3 x6, S4 and S8 must launch) and
                 warm (S8 alone), bit-identical, B launching S8 twice (its
-                mirrored half-res pass), with the times and peak memory.
+                mirrored half-res pass), with the times and peak memory;
+ 18. screen kernels 2 -- S8 with POM (S7) and the aerial sky (S6) inside in
+                configuration C (B plus POM at the recipe settings and the
+                Hosek aerial sky, the family generation) and D (MapScene's
+                recipe screen base over bench.py's 1025^2 DEM in metres, the
+                rainier preset, POM fully marched) at 256x128 and 1080p, S8
+                with the Preetham sky at 256x128, and S9, the clipmap shade,
+                on configuration E's G-buffer (MapScene's clipmap mode on D's
+                recipe) at 256x128 and 1080p, each against its plain version
+                on the card and timed;
+ 19. screen render 2 -- the main paths of C (render_with_aov), D
+                (mapscene_screen.render_screen_base) and E
+                (render_clipmap_scene) at 1080p, cold (caches emptied) and
+                warm, bit-identical, with the launches counted (C: S8 twice,
+                its mirrored pass renders the sky too), the times, the peak
+                memory and a warm render split by call.
 
 R1 gates (phases 13-14), set to what the card showed: rgba within one u8
 step everywhere and bytes equal on R1_U8_EQ of them, float planes within
@@ -184,6 +199,12 @@ REPLACES = {
     # the shade with PCSS (S5, screen.py:656) inside, per configuration
     "S8 shade (A)": ("forge3d_tpu_torch/csrc/screen.cu", "forge3d_tpu/terrain/screen.py:1098"),
     "S8 shade (B)": ("forge3d_tpu_torch/csrc/screen.cu", "forge3d_tpu/terrain/screen.py:1098"),
+    # with the aerial sky (S6, screen.py:748) and POM (S7, :979) inside
+    "S8 shade (C)": ("forge3d_tpu_torch/csrc/screen.cu",
+                     "forge3d_tpu/terrain/screen.py:1098 (S6 :748, S7 :979)"),
+    "S8 shade (D)": ("forge3d_tpu_torch/csrc/screen.cu",
+                     "forge3d_tpu/terrain/screen.py:1098 (S6 :748, S7 :979)"),
+    "S9 clipmap_shade": ("forge3d_tpu_torch/csrc/screen.cu", "forge3d_tpu/terrain/screen.py:1857"),
 }
 
 # The card's peaks for the bounds (NVIDIA's H100 SXM data sheet).
@@ -1714,10 +1735,12 @@ def screen_dem() -> np.ndarray:
 def screen_config(config: str, width: int, height: int, dem):
     """(params, env_maps, water_mask) of screen configuration A (the JAX
     bench op screen_terrain_rgba: span 2.8, z scale 1.45, viridis, the
-    rest make_terrain_params' defaults) or B (the fullest this port runs:
-    IBL at intensity 1 with the gradient env, a water mask on the DEM's
-    lowest 20% with a shore band, a planar reflection with waves, snow,
-    rock and wetness layers with subsurface, albedo mix 0.5, hue 0.08)."""
+    rest make_terrain_params' defaults), B (IBL at intensity 1 with the
+    gradient env, a water mask on the DEM's lowest 20% with a shore band, a
+    planar reflection with waves, snow, rock and wetness layers with
+    subsurface, albedo mix 0.5, hue 0.08) or C, the fullest: B plus POM at
+    MapScene's recipe settings and the Hosek-Wilkie aerial sky ("C
+    preetham": the Preetham sky instead)."""
     from forge3d_tpu_torch.terrain import renderer as rr
     from forge3d_tpu_torch.terrain import screen as scr
     from forge3d_tpu_torch.terrain.params import make_terrain_params
@@ -1737,6 +1760,10 @@ def screen_config(config: str, width: int, height: int, dem):
                                    rock_enabled=True, rock_slope_min=-30.0,
                                    rock_subsurface_strength=0.3, wetness_enabled=True,
                                    wetness_subsurface_strength=0.2))
+    if config.startswith("C"):
+        kw.update(pom=dict(enabled=True, scale=0.04, min_steps=12, max_steps=40, refine_steps=4),
+                  sky=dict(enabled=True, aerial_perspective=True, turbidity=3.0,
+                           model="preetham" if config.endswith("preetham") else "hosek-wilkie"))
     return make_terrain_params(**kw), rr.IBL(scr.decode_test_hdr()), water
 
 
@@ -1884,7 +1911,7 @@ def _cold_split(r, p, dem, env):
     scr.clear_caches()
     t = {}
     t["IBL pyramid (upload, S1, S2/S3 x6, the zero BRDF LUT)"], _ = wall_ms(
-        lambda: scr.build_ibl(kw["hdr_rgb"], r.device))
+        lambda: scr.build_ibl(kw["hdr_rgb"], device=r.device))
     geo = dict(terrain_span=kw["terrain_span"], z_scale=kw["z_scale"],
                sun_dir=-scr.light_direction(kw["light_azimuth_deg"], kw["light_elevation_deg"]),
                domain=kw["domain"])
@@ -1963,6 +1990,253 @@ def phase_screen_render(dem):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phases 18-19: the rest of the screen engine (S6 and S7 inside S8, and the
+# clipmap shade S9) in configurations C, D (MapScene's recipe screen base)
+# and E (MapScene's clipmap mode)
+# ---------------------------------------------------------------------------
+
+# float32 operations per unit of work, counted from csrc/screen.cuh's loop
+# bodies as OPS_SHADE_PIXEL is (S9's pixel runs about S8's terrain work)
+OPS_POM_PIXEL = 80      # pom_uv's TBN, step count and direction
+OPS_POM_STEP = 20       # one march step: two moves, the layer, a height read
+OPS_POM_REFINE = 25     # one refinement halving
+OPS_SKY_PIXEL = 200     # sky_pixel (three Hosek channels) and aerial_blend
+
+
+def recipe_for(mod, width, height):
+    """MapScene's recipe over bench.py's DEM: the rainier preset at
+    intensity 1.15, spacing (1, 1), no metadata, one sample."""
+    class Recipe:
+        water_mask = None
+        water_level = None
+        lighting = mod.LightingPreset("rainier_showcase", intensity=1.15)
+
+        class camera:
+            radius, phi_deg, theta_deg, fov_y_deg = 1.0, 0.0, 45.0, 45.0
+
+        class terrain:
+            spacing = (1.0, 1.0)
+            metadata = None
+
+        class output:
+            size_px = (width, height)
+            samples = 1
+
+    return Recipe
+
+
+def recipe_shade_inputs(bdem, width, height, device):
+    """S8's (cfg, u) of configuration D as render_screen_base prepares them."""
+    from forge3d_tpu_torch import mapscene_screen as mss
+    from forge3d_tpu_torch.terrain import screen as scr
+
+    rec = recipe_for(mss, width, height)
+    d = mss.derive_screen_params(rec, bdem)
+    return scr.prepare_shade(d["dem"], d["lut"], size_px=(width, height), device=device,
+                             water_mask=mss.derive_water_mask_for_recipe(rec, d["dem"]),
+                             encode="gamma", material_maps=mss.material_maps_for_recipe(rec),
+                             **d["kw"])
+
+
+def clipmap_args(bdem):
+    """(dem, lut, keyword arguments) of configuration E: render_clipmap_scene
+    as MapScene's clipmap mode calls it (mapscene.py:671-679) on D's recipe."""
+    from forge3d_tpu_torch import mapscene_screen as mss
+
+    d = mss.derive_screen_params(recipe_for(mss, REAL_W, REAL_H), bdem)
+    return d["dem"], d["lut"], dict(camera_mode="clipmap", **d["kw"])
+
+
+def clipmap_gbuffer(hm, kw, width, height):
+    """E's host G-buffer at width x height."""
+    from forge3d_tpu_torch.terrain.clipmap_mesh import rasterize_clipmap_gbuffer
+
+    return rasterize_clipmap_gbuffer(hm, size_px=(width, height), **{k: kw[k] for k in (
+        "camera_mode", "terrain_span", "z_scale", "cam_radius", "cam_phi_deg", "cam_theta_deg",
+        "fov_y_deg", "clip", "domain")})
+
+
+def _pom_ops(marched, n, refine):
+    return n * OPS_POM_PIXEL + marched * OPS_POM_STEP + n * refine * OPS_POM_REFINE
+
+
+def phase_screen_kernels2(dem, bdem):
+    """S8 in C and D (256x128 and 1080p) and with the Preetham sky (256x128),
+    and S9 on E's G-buffer (256x128 and 1080p), each against its plain
+    version on the card, the last of each timed. Returns {row name: (max
+    |err|, kernel ms, plain ms, bound ms, bound by)}."""
+    import torch
+
+    from forge3d_tpu_torch.terrain import renderer as rr
+    from forge3d_tpu_torch.terrain import screen as scr
+
+    dev = torch.device("cuda")
+    res = {}
+    cases = [("C", SMALL_W, SMALL_H), ("C preetham", SMALL_W, SMALL_H), ("C", REAL_W, REAL_H),
+             ("D", SMALL_W, SMALL_H), ("D", REAL_W, REAL_H)]
+    for config, w, h in cases:
+        if config == "D":
+            cfg, u = recipe_shade_inputs(bdem, w, h, dev)
+        else:
+            p, env, wm = screen_config(config, w, h, dem)
+            lut, kw, _ = rr.TerrainRenderer.screen_inputs(p, dem, env, wm)
+            cfg, u = scr.prepare_shade(dem, lut, device=dev, **kw)
+        got = scr._shade_kernel(cfg, u)
+        scr._pom_uv.marched = 0
+        plain_ms, ref = wall_ms(lambda: scr.shade_plain(cfg, u))
+        marched = scr._pom_uv.marched
+        eq_, frac, err = compare_shade(f"S8 ({config}) {w}x{h}", ref, got)
+        n = w * h
+        pom = cfg.pom_dict
+        say("screen kernels 2", f"S8 shade ({config}) {w}x{h}, sky {cfg.sky}, POM steps "
+                                f"{pom['min_steps']}-{pom['max_steps']}: rgba bytes equal "
+                                f"{eq_:.6f}, planes within tolerance {frac:.6f}, max |err| "
+                                f"{err:.3e}, plain {plain_ms:.1f} ms, {marched} march steps "
+                                f"({marched / n:.2f} a pixel)")
+        if (w, h) != (REAL_W, REAL_H) or config == "C preetham":
+            continue
+        ms = cuda_ms(lambda: scr._shade_kernel(cfg, u), 10)
+        inputs = [u["hm"], u["lut"], u["shadow_depth"], u["ibl_irradiance"], u["ibl_brdf"],
+                  *u["ibl_spec"], *(u[k] for k in ("water_mask", "refl_tex") if k in u)]
+        ops = n * OPS_SHADE_PIXEL + _pom_ops(marched, n, pom["refine_steps"]) \
+            + (n * OPS_SKY_PIXEL if cfg.sky else 0)
+        bms, by = bound(tensor_bytes(*inputs) + n * 32, ops)
+        res[f"S8 shade ({config})"] = (err, ms, plain_ms, bms, by)
+        say("screen kernels 2", f"S8 shade ({config}) {w}x{h}: kernel {ms:.4f} ms, plain "
+                                f"{plain_ms:.1f} ms, bound {bms:.4f} ms ({by})")
+
+    # S9 on E's G-buffers, each rasterized once
+    hm, lut, kw = clipmap_args(bdem)
+    for w, h in ((SMALL_W, SMALL_H), (REAL_W, REAL_H)):
+        raster_ms, gb = wall_ms(lambda: clipmap_gbuffer(hm, kw, w, h))
+        cfg, u = scr.prepare_clipmap(hm, lut, size_px=(w, h), device=dev, gbuffer=gb, **kw)
+        got = scr._clipmap_kernel(cfg, u)
+        scr._pom_uv.marched = 0
+        plain_ms, ref = wall_ms(lambda: scr.clipmap_shade_plain(cfg, u))
+        marched = scr._pom_uv.marched
+        du = (ref.int() - got.int()).abs()
+        eq_ = float((du == 0).double().mean())
+        valid = float(u["gb_valid"].double().mean())
+        require(int(du.max()) <= 1 and eq_ >= SCREEN_U8_EQ,
+                f"S9 {w}x{h} disagrees with its plain version (bytes equal {eq_:.6f}, max step "
+                f"{int(du.max())})")
+        say("screen kernels 2", f"S9 clipmap_shade {w}x{h}: host G-buffer raster {raster_ms:.1f} "
+                                f"ms, valid {valid:.4f}, rgba bytes equal {eq_:.6f}, plain "
+                                f"{plain_ms:.1f} ms, {marched} march steps")
+    n = REAL_W * REAL_H
+    ms = cuda_ms(lambda: scr._clipmap_kernel(cfg, u), 10)
+    inputs = [u["hm"], u["lut"], u["shadow_depth"], u["ibl_irradiance"], u["ibl_brdf"],
+              *u["ibl_spec"], u["gb_uv"], u["gb_world"], u["gb_valid"]]
+    ops = n * OPS_SHADE_PIXEL + _pom_ops(marched, n, cfg.pom_dict["refine_steps"])
+    bms, by = bound(tensor_bytes(*inputs) + n * 4, ops)
+    res["S9 clipmap_shade"] = (float(du.max()), ms, plain_ms, bms, by)
+    say("screen kernels 2", f"S9 clipmap_shade {REAL_W}x{REAL_H}: kernel {ms:.4f} ms, plain "
+                            f"{plain_ms:.1f} ms, bound {bms:.4f} ms ({by})")
+    return res
+
+
+def _clipmap_split(bdem):
+    """A warm clipmap render's calls one at a time, synchronised: ms each."""
+    import torch
+
+    from forge3d_tpu_torch.terrain import screen as scr
+
+    hm, lut, kw = clipmap_args(bdem)
+    dev = torch.device("cuda")
+    t = {}
+    t["host G-buffer raster (numpy)"], gb = wall_ms(lambda: clipmap_gbuffer(hm, kw, REAL_W,
+                                                                             REAL_H))
+    t["host prepare and the G-buffer upload"], (cfg, u) = wall_ms(lambda: scr.prepare_clipmap(
+        hm, lut, size_px=(REAL_W, REAL_H), device=dev, gbuffer=gb, **kw))
+    t["S9 with its output allocation"], out = wall_ms(lambda: scr.clipmap_shade(cfg, u))
+    t["readback of rgba"], _ = wall_ms(lambda: out.cpu().numpy())
+    return t
+
+
+def _recipe_split(bdem):
+    """A warm recipe base's calls one at a time, synchronised: ms each."""
+    import torch
+
+    from forge3d_tpu_torch.terrain import screen as scr
+
+    t = {}
+    t["recipe derivation and host prepare"], (cfg, u) = wall_ms(
+        lambda: recipe_shade_inputs(bdem, REAL_W, REAL_H, torch.device("cuda")))
+    t["S8 with its output allocation"], out = wall_ms(lambda: scr.shade(cfg, u))
+    t["readback of rgba"], _ = wall_ms(lambda: out["rgba"].cpu().numpy())
+    return t
+
+
+def phase_screen_render2(dem, bdem):
+    """The main paths of C (render_with_aov), D (render_screen_base) and E
+    (render_clipmap_scene) at 1080p, cold (caches emptied) and warm,
+    bit-identical; every count set to 0 before each render and read after.
+    Returns the launches of the phase."""
+    import torch
+
+    import forge3d_tpu_torch as f3t
+    from forge3d_tpu_torch import mapscene_screen as mss
+    from forge3d_tpu_torch.terrain import screen as scr
+
+    r = f3t.TerrainRenderer(device="cuda")
+    counters = {"S1 env_cube": scr.env_cube, "S2/S3 cube_convolve": scr.cube_convolve,
+                "S4 raster_depth": scr.raster_depth, "S8 shade": scr.shade,
+                "S9 clipmap_shade": scr.clipmap_shade}
+    pc, env, wm = screen_config("C", REAL_W, REAL_H, dem)
+    hm, lut, kw = clipmap_args(bdem)
+    renders = {
+        "C": (lambda: r.render_with_aov(env_maps=env, params=pc, heightmap=dem, water_mask=wm),
+              "S8 shade", 2),
+        "D": (lambda: mss.render_screen_base(recipe_for(mss, REAL_W, REAL_H), bdem),
+              "S8 shade", 1),
+        "E": (lambda: scr.render_clipmap_scene(hm, lut, size_px=(REAL_W, REAL_H), **kw),
+              "S9 clipmap_shade", 1),
+    }
+    launches = {k: 0 for k in counters}
+    launches.update({"S8 shade (C)": 0, "S8 shade (D)": 0})
+    for config, (fn, shader, shades) in renders.items():
+        runs = []
+        for kind in ("cold", "warm"):
+            if kind == "cold":
+                scr.clear_caches()
+            for c in counters.values():
+                c.launches = 0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ms, out = wall_ms(fn)
+            counts = {k: c.launches for k, c in counters.items()}
+            for k in counts:
+                launches[k] += counts[k]
+            if config != "E":
+                launches[f"S8 shade ({config})"] += counts["S8 shade"]
+            runs.append(out)
+            say("screen render 2", f"({config}) {REAL_W}x{REAL_H} {kind}: {ms:.3f} ms, launches "
+                                   f"{json.dumps(counts)}, peak device memory "
+                                   f"{torch.cuda.max_memory_allocated()} B")
+            want = {k: 0 for k in counters}
+            want[shader] = shades
+            if kind == "cold":
+                want.update({"S1 env_cube": 1, "S2/S3 cube_convolve": 6, "S4 raster_depth": 1})
+            require(counts == want, f"({config}) {kind} render launched {counts}, not {want}")
+        split = {"C": lambda: _warm_split(r, pc, dem, env, wm), "D": lambda: _recipe_split(bdem),
+                 "E": lambda: _clipmap_split(bdem)}[config]()
+        say("screen render 2", f"({config}) warm render by call, ms: " + _by_call(split))
+        if config == "C":
+            same = _same_frames(*runs)
+            rgba = runs[0][0].rgba
+        else:
+            same = np.array_equal(*runs)
+            rgba = runs[0]
+        std = float(rgba[..., :3].std())
+        say("screen render 2", f"({config}) deterministic {same}, rgba std {std:.3f}")
+        require(same, f"two renders of configuration {config} differ")
+        require(rgba.shape == (REAL_H, REAL_W, 4) and std > 5.0,
+                f"configuration {config}'s render is trivial")
+    say("screen render 2", f"launches on the paths {json.dumps(launches)}")
+    return launches
+
+
 def _jax_modules():
     """JAX and every module of the JAX package: the port imports none."""
     return [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "forge3d_tpu")]
@@ -2017,8 +2291,14 @@ def main() -> int:
     sdem = screen_dem()
     screen = phase_screen_kernels(sdem)
     screen_launches = phase_screen_render(sdem)
+    screen2 = phase_screen_kernels2(sdem, dem)
+    screen2_launches = phase_screen_render2(sdem, dem)
+    for k in ("S1 env_cube", "S2/S3 cube_convolve", "S4 raster_depth"):
+        screen_launches[k] += screen2_launches[k]
     for kernel, vals in screen.items():
         rows.append(kernel_row(kernel, screen_launches[kernel], *vals))
+    for kernel, vals in screen2.items():
+        rows.append(kernel_row(kernel, screen2_launches[kernel], *vals))
 
     loaded = sorted(set(_jax_modules()) - preloaded)
     require(not loaded, f"imported JAX or modules of the JAX package: {loaded}")

@@ -5,11 +5,13 @@
 # beside each kernel: the per-ray estimator (hybrid_render_terrain_reference
 # with traversal="dda", kernels K5-K8, with meshes through the BVH walk K9
 # and typed lights through the light sample K10), the sweep estimator
-# (traversal="sweep" and hybrid_render_terrain_sequence, kernels K1-K4), and
+# (traversal="sweep" and hybrid_render_terrain_sequence, kernels K1-K4),
 # the deterministic sphere and mesh engines (pt_render_gpu / pt_render_aovs,
-# kernel P1; pt_render_gpu_mesh, kernel P2). It imports torch and never jax
-# nor any module of the JAX package, which stays the reference it is tested
-# against.
+# kernel P1; pt_render_gpu_mesh, kernel P2), the TerrainRenderer (kernel R1;
+# its screen mode and terrain.screen's clipmap mode, kernels S1-S9) and
+# MapScene's recipe screen base (mapscene_screen). It imports torch and
+# never jax nor any module of the JAX package, which stays the reference it
+# is tested against.
 #
 # Entry points load lazily, so `import forge3d_tpu_torch` is cheap and
 # builds nothing: the kernels are compiled at their first CUDA launch.

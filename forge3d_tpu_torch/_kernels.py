@@ -201,8 +201,24 @@ class HosekArgs(ctypes.Structure):
     _fields_ = [("sun", _F3), ("cfg", _F * 27), ("rad", _F3), ("exposure", _F)]
 
 
+class SkyArgs(ctypes.Structure):
+    """Mirror of `SkyArgs` in csrc/screen.cuh (S6)."""
+
+    _fields_ = [("model", _I), ("sun", _F3), ("inv_view", _F * 16), ("inv_proj", _F * 16),
+                ("cfg", _F * 27), ("rad", _F3), ("mie_k1", _F3), ("mie_k2", _F3)] + [
+        (n, _F) for n in ("pA", "pB", "pC", "pD", "pE", "p_den")] + [
+        ("p_col", _F3), ("p_haze", _F), ("p_mix", _F), ("p_alb", _F), ("daylight", _F),
+        ("night0", _F3), ("night_d", _F3), ("disc_cos", _F), ("limb_den", _F), ("disc_c", _F3),
+        ("glow_cos", _F), ("glow_den", _F), ("ring_c", _F3)] + [
+        (n, _F) for n in ("low_sun", "e_fwd", "e_broad", "inten", "k_broad", "hglow_k",
+                          "amb")] + [
+        ("scat_c", _F3), ("exposure", _F)] + [
+        (n, _F) for n in ("density_neg", "k_fac", "k_amt", "k_desat", "k_target")] + [
+        ("tint", _F3), ("add", _F3), ("k_blend", _F)]
+
+
 class ScreenArgs(ctypes.Structure):
-    """Mirror of `ScreenArgs` in csrc/screen.cuh (S8)."""
+    """Mirror of `ScreenArgs` in csrc/screen.cuh (S8, S9)."""
 
     _fields_ = [(n, _P) for n in ("hm", "lut", "wm", "mat_albedo", "mmn", "mmr", "mmk", "shadow",
                                   "irr")] + [("spec", _P * 6), ("brdf", _P), ("refl", _P)] + [
@@ -223,13 +239,26 @@ class ScreenArgs(ctypes.Structure):
                           "snow_alt_min", "snow_alt_div", "snow_slope_f", "wet_scale",
                           "rock_mix")] + [
         ("rock_c", _F3), ("snow_c", _F3), ("layer_w", _F * 2), ("sss_strength", _F3),
-        ("sss_tint", _F * 9), ("ml", _F * 12), ("filmic", _F * 7)]
+        ("sss_tint", _F * 9), ("ml", _F * 12), ("filmic", _F * 7)] + [
+        (n, _I) for n in ("pom_on", "pom_min", "pom_max", "pom_refine", "pom_occl",
+                          "pom_layer")] + [
+        ("pom_scale", _F), ("sky", SkyArgs)]
 
 
 class ScreenOut(ctypes.Structure):
     """Mirror of `ScreenOut`: S8's output planes."""
 
     _fields_ = [(n, _P) for n in ("rgba", "albedo", "normal", "height")]
+
+
+class ClipArgs(ctypes.Structure):
+    """Mirror of `ClipArgs` in csrc/screen.cuh: S9's G-buffer."""
+
+    _fields_ = [("uv", _P), ("world", _P), ("valid", _P), ("spacing", _F), ("wtex", _F * 2)]
+
+
+#: the structs whose sizes csrc/screen.cu:f3d_struct_sizes reports, in its order
+STRUCTS = (ScreenArgs, ScreenOut, ClipArgs, SkyArgs)
 
 
 _SIGNATURES = {
@@ -289,6 +318,10 @@ _SIGNATURES = {
     "f3d_raster_depth": [_P, _P, _I, _I, _I, _I, _P, _P],
     # (args, out, stream)
     "f3d_screen_shade": [ctypes.POINTER(ScreenArgs), ctypes.POINTER(ScreenOut), _P],
+    # (args, gbuffer, rgba, stream)
+    "f3d_clipmap_shade": [ctypes.POINTER(ScreenArgs), ctypes.POINTER(ClipArgs), _P, _P],
+    # (sizes out, capacity) -> the number of structs
+    "f3d_struct_sizes": [ctypes.POINTER(ctypes.c_longlong), _I],
 }
 
 
@@ -360,17 +393,29 @@ def build() -> Path:
     return out
 
 
-@functools.lru_cache(maxsize=None)
-def lib() -> ctypes.CDLL:
-    """The loaded kernel library, built on first use."""
-    handle = ctypes.CDLL(str(build()))
+def bind(handle: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the launchers' signatures on a loaded library and check that the
+    argument structs' mirrors have the sizes the library was compiled with
+    (a field out of place shifts every uniform after it without a word)."""
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(handle, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     handle.f3d_error_string.argtypes = [ctypes.c_int]
     handle.f3d_error_string.restype = ctypes.c_char_p
+    sizes = (ctypes.c_longlong * len(STRUCTS))()
+    count = handle.f3d_struct_sizes(sizes, len(STRUCTS))
+    mirrors = [ctypes.sizeof(s) for s in STRUCTS]
+    if count != len(STRUCTS) or list(sizes) != mirrors:
+        raise RuntimeError(f"the kernels' argument structs {[s.__name__ for s in STRUCTS]} are "
+                           f"{list(sizes)[:count]} bytes, their ctypes mirrors {mirrors}")
     return handle
+
+
+@functools.lru_cache(maxsize=None)
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    return bind(ctypes.CDLL(str(build())))
 
 
 def check(err: int, kernel: str) -> None:

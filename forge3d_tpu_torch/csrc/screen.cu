@@ -9,7 +9,12 @@
 //                         _ibl_prefilter_mip (388)
 // S4    raster_kernel     replaces screen.py:_raster_depth (464)
 // S8    shade_kernel      replaces the `shade` program of screen.py:_build_shade_fn
-//                         (1085), with pcss_visibility (S5, 656) inside
+//                         (1085), with pcss_visibility (S5, 656), _pom_uv (S7,
+//                         979) and _render_sky with the aerial blend (S6, 748,
+//                         1508) inside
+// S9    clipmap_kernel    replaces the `shade` program of
+//                         screen.py:_build_clipmap_shade_fn (1853), with S5 and
+//                         S7 inside
 //
 // S1: one thread per cube texel (6 x 256^2), a bilinear read of the small
 // equirect map; bound by its 4.7 MB of output.
@@ -33,7 +38,15 @@
 // __shfl_sync after shade_front. Every lane of a warp reaches the shuffle;
 // lanes past the image shade pixel (0, 0) and write nothing. What bounds it
 // is arithmetic and the PCSS taps' reads (28 scattered reads of the 67 MB
-// depth map per pixel, neighbouring pixels' taps in the same lines).
+// depth map per pixel, neighbouring pixels' taps in the same lines). With
+// POM each thread marches its own steps (12-40 height reads and a few
+// refinements; over a DEM in metres every lane marches all its steps) and
+// stops where JAX's masked loop would freeze it; the sky is computed per
+// pixel from the per-image constants in SkyArgs.
+//
+// S9: as S8, one thread per pixel in 2x2 quads, over the host G-buffer
+// (uv, world position, valid): every pixel is shaded, and the invalid ones
+// take the background colour at the write.
 
 #include <cuda_runtime.h>
 
@@ -85,6 +98,28 @@ __global__ void shade_kernel(ScreenArgs a, ScreenOut o) {
     if (live) shade_back(a, o, x, y, s, quad_grad(tl, tr, bl));
 }
 
+__global__ void clipmap_kernel(ScreenArgs a, ClipArgs g, unsigned char* __restrict__ rgba) {
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    const bool live = i < a.width * a.height;
+    const int q = i >> 2, sub = i & 3, qw = a.width >> 1;
+    const int x = live ? 2 * (q % qw) + (sub & 1) : 0;
+    const int y = live ? 2 * (q / qw) + (sub >> 1) : 0;
+    ClipState s;
+    clip_front(a, g, x, y, s);
+    float tl[3], tr[3], bl[3];
+    for (int c = 0; c < 3; ++c) {
+        tl[c] = __shfl_sync(0xffffffffu, s.n[c], 0, 4);
+        tr[c] = __shfl_sync(0xffffffffu, s.n[c], 1, 4);
+        bl[c] = __shfl_sync(0xffffffffu, s.n[c], 2, 4);
+    }
+    if (live) clip_back(a, g, rgba, x, y, s, quad_grad(tl, tr, bl));
+}
+
+// a kernel's parameters must fit in 4 KB
+static_assert(sizeof(ScreenArgs) + sizeof(ScreenOut) <= 4096, "S8's arguments exceed 4 KB");
+static_assert(sizeof(ScreenArgs) + sizeof(ClipArgs) + sizeof(void*) <= 4096,
+              "S9's arguments exceed 4 KB");
+
 }  // namespace
 
 extern "C" {
@@ -119,6 +154,21 @@ int f3d_screen_shade(const ScreenArgs* a, const ScreenOut* o, void* stream) {
     long long n = (long long)a->width * a->height;
     if (n > 0) shade_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(*a, *o);
     return (int)cudaGetLastError();
+}
+
+int f3d_clipmap_shade(const ScreenArgs* a, const ClipArgs* g, unsigned char* rgba, void* stream) {
+    long long n = (long long)a->width * a->height;
+    if (n > 0) clipmap_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(*a, *g, rgba);
+    return (int)cudaGetLastError();
+}
+
+// the sizes of the argument structs, which _kernels.py mirrors by hand
+int f3d_struct_sizes(long long* out, int n) {
+    const long long sizes[] = {(long long)sizeof(ScreenArgs), (long long)sizeof(ScreenOut),
+                               (long long)sizeof(ClipArgs), (long long)sizeof(SkyArgs)};
+    const int count = (int)(sizeof(sizes) / sizeof(sizes[0]));
+    for (int i = 0; i < n && i < count; ++i) out[i] = sizes[i];
+    return count;
 }
 
 }  // extern "C"

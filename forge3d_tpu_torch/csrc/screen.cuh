@@ -2,9 +2,11 @@
 // Per-thread device code of the screen-mode render (forge3d_tpu/terrain/
 // screen.py): the texture and cube samplers, the equirect-to-cube resample
 // of one texel (S1), the cube convolution of one texel (S2, S3), the raster
-// of one triangle (S4), the PCSS visibility of one receiver (S5) and the
-// shade of one pixel (S8), split at the quad derivative into shade_front
-// and shade_back. Float32, in the operation order of the plain PyTorch
+// of one triangle (S4), the PCSS visibility of one receiver (S5), the
+// parallax occlusion mapping of one pixel (S7), the sky and its aerial
+// perspective at one pixel (S6), the screen shade of one pixel (S8) and the
+// clipmap shade of one pixel (S9), each shade split at the quad derivative
+// into a front and a back half. Float32, in the operation order of the plain PyTorch
 // versions in terrain/screen.py, so that with contraction off (-fmad=false)
 // the kernels in screen.cu agree with them.
 //
@@ -32,8 +34,23 @@
 #define SCR_PI 3.14159274f        // float32(pi)
 #define SCR_TWO_PI 6.28318548f    // float32(2 pi)
 
-// Mirrored by ScreenArgs in _kernels.py: S8's textures, sizes, switches and
-// float32 uniforms (terrain/screen.py:screen_args).
+// Mirrored by SkyArgs in _kernels.py: S6's per-image float32 constants
+// (terrain/screen.py:sky_consts and aerial_consts), matrices row-major.
+struct SkyArgs {
+    int model;                       // 0 off, 1 Hosek-Wilkie, 2 Preetham
+    float sun[3];                    // Y-up sun direction
+    float inv_view[16], inv_proj[16];
+    float cfg[27], rad[3], mie_k1[3], mie_k2[3];  // Hosek: A..I per channel
+    float pA, pB, pC, pD, pE, p_den, p_col[3], p_haze, p_mix, p_alb;  // Preetham
+    float daylight, night0[3], night_d[3];
+    float disc_cos, limb_den, disc_c[3], glow_cos, glow_den, ring_c[3];
+    float low_sun, e_fwd, e_broad, inten, k_broad, hglow_k, amb, scat_c[3], exposure;
+    // the aerial perspective
+    float density_neg, k_fac, k_amt, k_desat, k_target, tint[3], add[3], k_blend;
+};
+
+// Mirrored by ScreenArgs in _kernels.py: S8's and S9's textures, sizes,
+// switches and float32 uniforms (terrain/screen.py:screen_args).
 struct ScreenArgs {
     const float* hm;          // (hm_h, hm_w)
     const float* lut;         // (lut_n, 3)
@@ -64,6 +81,18 @@ struct ScreenArgs {
     float rock_c[3], snow_c[3], layer_w[2], sss_strength[3], sss_tint[9];
     float ml[12];             // (4, 3) linear material base colours
     float filmic[7];          // A, B, C*B, D*E, D*F, E/F, white scale
+    // S7: steps, refinements, occlusion, the family layer->height switch
+    int pom_on, pom_min, pom_max, pom_refine, pom_occl, pom_layer;
+    float pom_scale;
+    SkyArgs sky;              // S6 (model 0: no sky)
+};
+
+// Mirrored by ClipArgs: S9's host G-buffer and its Sobel spacing.
+struct ClipArgs {
+    const float* uv;              // (H, W, 2)
+    const float* world;           // (H, W, 3)
+    const unsigned char* valid;   // (H, W)
+    float spacing, wtex[2];       // texel * spacing
 };
 
 // Mirrored by ScreenOut: S8's output planes.
@@ -433,7 +462,7 @@ F3D_HD float pcss_visibility(const float* dm, int r, const float* lvp, const flo
 
 struct ShadeState {
     float uu, vv, world[3], vd[3], blended[3], sn[3];
-    float height_norm, rough, mat_alb[3], wdv, scatter[3];
+    float height_norm, occl, rough, mat_alb[3], wdv, scatter[3];
     bool is_water;
 };
 
@@ -449,6 +478,154 @@ F3D_HD float hm_sample(const ScreenArgs& a, float u, float v) {
 // the clamped height at (u, v), both clipped to [0, 1]
 F3D_HD float geom_h(const ScreenArgs& a, float u, float v) {
     return sc_clamp(hm_sample(a, sc_clamp01(u), sc_clamp01(v)), a.dom_lo, a.dom_hi);
+}
+
+// ---------------------------------------------------------------------------
+// S7: parallax occlusion mapping of one pixel (screen.py:979-1035). JAX
+// marches every lane max_steps times and masks the lanes that stopped; a
+// stopped lane never resumes (its layer and height freeze, and i < steps
+// only gets stricter), so here each thread stops at its own last step and
+// the values are the same. The refinement runs refine_steps halvings.
+// ---------------------------------------------------------------------------
+
+F3D_HD void pom_uv(const ScreenArgs& a, float u, float v, const float* n, const float* view_dir,
+                   float& pu, float& pv, float& layer_out, bool& crossed) {
+    const bool yup = fabsf(n[1]) > 0.99f;
+    const float up[3] = {0.0f, yup ? 0.0f : 1.0f, yup ? 1.0f : 0.0f};
+    float t[3], b[3], vd[3];
+    cross3(up, n, t);
+    normalize3(t);
+    cross3(n, t, b);
+    for (int c = 0; c < 3; ++c) vd[c] = t[c] * view_dir[0] + b[c] * view_dir[1] + n[c] * view_dir[2];
+    normalize3(vd);
+    const float blend = sc_clamp01(fabsf(vd[2]));
+    const float fsteps = sc_clamp(rintf(blend * (float)(a.pom_min - a.pom_max) + (float)a.pom_max),
+                                  1.0f, (float)a.pom_max);
+    const int steps = (int)fsteps;
+    const float L = sqrtf(vd[0] * vd[0] + vd[1] * vd[1]);
+    const bool active = L >= 1e-5f;
+    const float Lc = fmaxf(L, 1e-20f);
+    const float pdx = vd[0] / Lc * a.pom_scale, pdy = vd[1] / Lc * a.pom_scale;
+    const float step = 1.0f / fsteps;
+    float cu = u, cv = v, layer = 0.0f;
+    float ch = hm_sample(a, sc_clamp01(u), sc_clamp01(v));
+    if (active) {
+        for (int i = 0; i < steps && layer < ch; ++i) {
+            cu = cu - pdx * step;
+            cv = cv - pdy * step;
+            layer = layer + step;
+            ch = hm_sample(a, sc_clamp01(cu), sc_clamp01(cv));
+        }
+    }
+    crossed = active && layer >= ch;
+    float rss = step;
+    for (int k = 0; k < a.pom_refine; ++k) {
+        const float du = pdx * rss * 0.5f, dv = pdy * rss * 0.5f;
+        rss = rss * 0.5f;
+        const bool ge = layer >= hm_sample(a, sc_clamp01(cu), sc_clamp01(cv));
+        if (active) {
+            cu = ge ? cu - du : cu + du;
+            cv = ge ? cv - dv : cv + dv;
+            layer = ge ? layer - rss : layer + rss;
+        }
+    }
+    pu = active ? sc_clamp01(cu) : u;
+    pv = active ? sc_clamp01(cv) : v;
+    layer_out = active ? layer : 0.0f;
+}
+
+// The displaced height of a pixel, clamped to the domain, and its
+// occlusion (screen.py:1158-1192): the height at the parallax uv, or 1 -
+// layer where the family generation's march crossed.
+F3D_HD float pom_height(const ScreenArgs& a, float uu, float vv, const float* n, const float* vd,
+                        float& pu, float& pv, float& occl) {
+    float layer = 0.0f;
+    bool crossed = false;
+    pu = uu;
+    pv = vv;
+    if (a.pom_on) pom_uv(a, uu, vv, n, vd, pu, pv, layer, crossed);
+    float hs = hm_sample(a, sc_clamp01(pu), sc_clamp01(pv));
+    if (a.pom_on && a.pom_layer && crossed) hs = 1.0f - layer;
+    hs = sc_clamp(hs, a.dom_lo, a.dom_hi);
+    occl = a.pom_on && a.pom_occl ? sc_clamp(hs, 0.65f, 1.0f) : 1.0f;
+    return hs;
+}
+
+// ---------------------------------------------------------------------------
+// S6: the sky at one pixel (screen.py:748-877), in k/255 steps, and the
+// aerial perspective that blends it into the exposed shade (:1508-1541)
+// ---------------------------------------------------------------------------
+
+F3D_HD void sky_pixel(const SkyArgs& k, int W, int H, int x, int y, float* out) {
+    const float px = ((float)x + 0.5f) / (float)W, py = ((float)y + 0.5f) / (float)H;
+    const float ndc[2] = {px * 2.0f - 1.0f, 1.0f - py * 2.0f};
+    const float* P = k.inv_proj;
+    const float* V = k.inv_view;
+    float vp[4], vdir[3], wdir[3];
+    for (int r = 0; r < 4; ++r)
+        vp[r] = ndc[0] * P[4 * r] + ndc[1] * P[4 * r + 1] + P[4 * r + 2] + P[4 * r + 3];
+    for (int c = 0; c < 3; ++c) vdir[c] = vp[c] / vp[3];
+    const float nv = norm3(vdir);
+    for (int c = 0; c < 3; ++c) vdir[c] = vdir[c] / nv;
+    for (int r = 0; r < 3; ++r) wdir[r] = vdir[0] * V[4 * r] + vdir[1] * V[4 * r + 1] + vdir[2] * V[4 * r + 2];
+    const float nw = norm3(wdir);
+    for (int c = 0; c < 3; ++c) wdir[c] = wdir[c] / nw;
+    const float ct = fmaxf(wdir[1], 0.0f);
+    const float cg = sc_dot3(wdir, k.sun);
+    const float gamma = acosf(sc_clamp(cg, -1.0f, 1.0f));
+    const float ray_m = cg * cg;
+    float color[3];
+    if (k.model == 1) {
+        const float zenith = sqrtf(fmaxf(ct, 0.0f));
+        for (int ch = 0; ch < 3; ++ch) {
+            const float* q = k.cfg + 9 * ch;
+            const float mie_den = fmaxf(k.mie_k1[ch] - k.mie_k2[ch] * cg, 1e-4f);
+            const float mie = (1.0f + ray_m) / powf(mie_den, 1.5f);
+            color[ch] = k.rad[ch] * (1.0f + q[0] * expf(q[1] / (ct + 0.01f)))
+                        * (q[2] + q[3] * expf(q[4] * gamma) + q[5] * ray_m + q[6] * mie + q[7] * zenith);
+        }
+    } else {
+        const float Y = (1.0f + k.pA * expf(k.pB / (ct + 0.01f)))
+                        * (1.0f + k.pC * expf(k.pD * gamma) + k.pE * cg * cg) / k.p_den;
+        for (int c = 0; c < 3; ++c) {
+            const float v = k.p_col[c] * Y;
+            color[c] = (v + (k.p_haze - v) * k.p_mix) * k.p_alb;
+        }
+    }
+    const float horizon = 1.0f - sc_clamp01(wdir[1]);
+    const float h2 = horizon * horizon;
+    const bool inside = cg >= k.disc_cos;
+    float limb = sc_clamp01((cg - k.disc_cos) / k.limb_den);
+    limb = limb * limb * (3.0f - 2.0f * limb);
+    const bool ring = cg >= k.glow_cos && !inside;
+    float gf = sc_clamp01((cg - k.glow_cos) / k.glow_den);
+    gf = gf * gf * (3.0f - 2.0f * gf);
+    const float sun_align = fmaxf(cg, 0.0f);
+    const float fwd = powf(sun_align, k.e_fwd), broad = powf(sun_align, k.e_broad);
+    const float hglow = h2 * k.low_sun * k.hglow_k;
+    const float scat = fwd * k.inten * 0.35f + broad * k.inten * k.k_broad + hglow * k.inten * 0.22f + k.amb;
+    for (int c = 0; c < 3; ++c) {
+        const float night = k.night0[c] + k.night_d[c] * h2;
+        float v = fmaxf(color[c], 0.0f);
+        v = night + (v - night) * k.daylight;
+        v = v + (ring ? k.ring_c[c] * gf : (inside ? k.disc_c[c] * limb : 0.0f));
+        v = (v + k.scat_c[c] * scat) * k.exposure;
+        v = v / (v + 1.0f);
+        out[c] = rintf(sc_clamp01(v) * 255.0f) / 255.0f;
+    }
+}
+
+F3D_HD void aerial_blend(const SkyArgs& k, const float* world, const float* cam, const float* sky,
+                         float* shaded) {
+    const float to_cam[3] = {cam[0] - world[0], cam[1] - world[1], cam[2] - world[2]};
+    const float a_fac = 1.0f - expf(k.density_neg * norm3(to_cam) * k.k_fac);
+    const float a_amt = sc_clamp01(a_fac * k.k_amt);
+    const float luma = shaded[0] * 0.2126f + shaded[1] * 0.7152f + shaded[2] * 0.0722f;
+    const float dk = a_amt * k.k_desat, blend = a_amt * k.k_blend;
+    for (int c = 0; c < 3; ++c) {
+        const float desat = shaded[c] + (luma - shaded[c]) * dk;
+        shaded[c] = desat + (sky[c] * k.k_target * k.tint[c] + k.add[c] - desat) * blend;
+    }
 }
 
 F3D_HD void shade_front(const ScreenArgs& a, int x, int y, ShadeState& s) {
@@ -477,11 +654,14 @@ F3D_HD void shade_front(const ScreenArgs& a, int x, int y, ShadeState& s) {
     s.blended[2] = -dy / t1;
     normalize3(s.blended);
 
+    // POM (S7): the water mask, the height and the material maps are read
+    // at the parallax uv
+    float pu, pv;
+    const float hs = pom_height(a, uu, vv, s.blended, s.vd, pu, pv, s.occl);
     float wm = 0.0f;
-    if (a.has_wm) tex_nearest(a.wm, a.wm_h, a.wm_w, 1, sc_clamp01(uu), sc_clamp01(vv), &wm);
+    if (a.has_wm) tex_nearest(a.wm, a.wm_h, a.wm_w, 1, sc_clamp01(pu), sc_clamp01(pv), &wm);
     s.is_water = wm > 0.001f;
-    const float hs = hm_sample(a, sc_clamp01(uu), sc_clamp01(vv));
-    s.height_norm = sc_clamp01((sc_clamp(hs, a.dom_lo, a.dom_hi) - a.dom_lo) / a.dom_rng);
+    s.height_norm = sc_clamp01((hs - a.dom_lo) / a.dom_rng);
 
     // material layer weights (gaussian, sigma = blend_half * 1.5)
     const float centers[4] = {0.0f, 0.333333343f, 0.666666687f, 1.0f};
@@ -538,7 +718,7 @@ F3D_HD void shade_front(const ScreenArgs& a, int x, int y, ShadeState& s) {
 
     // M4 material maps, sampled at the parallax uv with the linear sampler
     if (a.mm_normal || a.mm_rough || a.mm_mask) {
-        const float mu = sc_clamp01(uu), mv = sc_clamp01(vv);
+        const float mu = sc_clamp01(pu), mv = sc_clamp01(pv);
         float mask = 1.0f;
         if (a.mm_mask) tex_bilinear(a.mmk, a.mmk_h, a.mmk_w, 1, mu, mv, &mask);
         if (a.mm_normal) {
@@ -626,6 +806,21 @@ F3D_HD float tonemap_filmic(const float* k, float c) {
     return sc_clamp01(curve / k[6]);
 }
 
+// the filmic tonemap, the gamma or sRGB encode and the u8 quantisation of
+// one exposed channel
+F3D_HD unsigned char encode_u8(const ScreenArgs& a, float shaded) {
+    const float f = tonemap_filmic(a.filmic, shaded);
+    float e;
+    if (a.srgb) {
+        const float csr = sc_clamp01(f);
+        e = csr <= 0.0031308f ? csr * 12.92f
+                              : 1.055f * powf(fmaxf(csr, 1e-8f), 0.416666657f) - 0.055f;
+    } else {
+        e = powf(sc_clamp01(f), 0.454545468f);
+    }
+    return (unsigned char)rintf(sc_clamp01(e) * 255.0f);
+}
+
 // ngrad: |n(top right) - n(top left)| + |n(bottom left) - n(top left)| of
 // the pixel's 2x2 quad
 F3D_HD void shade_back(const ScreenArgs& a, const ScreenOut& o, int x, int y, const ShadeState& s,
@@ -694,11 +889,12 @@ F3D_HD void shade_back(const ScreenArgs& a, const ScreenOut& o, int x, int y, co
     cube_sample_mips(a, refl, rc2 * rc2 * 9.0f, pref);
     tex_bilinear(a.brdf, a.brdf_h, a.brdf_w, 2, ndv, rc2, brdf);
     const float spec_brdf = F * brdf[0] + brdf[1];
+    const float ibl_occl = s.is_water ? 1.0f : sc_clamp(s.occl, 0.65f, 1.0f);
     float ibl_diffuse[3], ibl_spec[3], ibl_contrib[3];
     for (int c = 0; c < 3; ++c) {
         ibl_diffuse[c] = kD * (water ? 0.0f : albedo[c]) * irr[c];
         ibl_spec[c] = pref[c] * spec_brdf;
-        ibl_contrib[c] = (ibl_diffuse[c] * shadow_factor + ibl_spec[c]) * ibl_i * 1.0f;
+        ibl_contrib[c] = (ibl_diffuse[c] * shadow_factor + ibl_spec[c]) * ibl_i * ibl_occl;
     }
 
     float shaded[3];
@@ -710,7 +906,7 @@ F3D_HD void shade_back(const ScreenArgs& a, const ScreenOut& o, int x, int y, co
     const float edge_dark = sc_clamp(edge_sig * (1.0f - ndl) * 0.5f, 0.0f, 0.15f);
     const float diffuse_raw = base_diffuse + edge_bright - edge_dark;
     const float cs = fmaxf(shadow_factor, 0.30f);
-    const float diffuse_lit = diffuse_raw * (1.0f * cs);
+    const float diffuse_lit = diffuse_raw * (fmaxf(s.occl, 0.65f) * cs);
     const float ibl_dfac = norm3(ibl_diffuse) * ibl_i;
     const float lighting = diffuse_lit + ibl_dfac * a.ibl_fill;
     for (int c = 0; c < 3; ++c)
@@ -766,18 +962,16 @@ F3D_HD void shade_back(const ScreenArgs& a, const ScreenOut& o, int x, int y, co
         }
     }
 
+    for (int c = 0; c < 3; ++c) shaded[c] = shaded[c] * a.exposure;
+    if (a.sky.model) {   // S6: the sky and the aerial perspective
+        float sky[3];
+        sky_pixel(a.sky, a.width, a.height, x, y, sky);
+        aerial_blend(a.sky, s.world, a.camera_pos, sky, shaded);
+    }
+
     const int pix = y * a.width + x;
     for (int c = 0; c < 3; ++c) {
-        const float f = tonemap_filmic(a.filmic, shaded[c] * a.exposure);
-        float e;
-        if (a.srgb) {
-            const float csr = sc_clamp01(f);
-            e = csr <= 0.0031308f ? csr * 12.92f
-                                  : 1.055f * powf(fmaxf(csr, 1e-8f), 0.416666657f) - 0.055f;
-        } else {
-            e = powf(sc_clamp01(f), 0.454545468f);
-        }
-        o.rgba[4 * pix + c] = (unsigned char)rintf(sc_clamp01(e) * 255.0f);
+        o.rgba[4 * pix + c] = encode_u8(a, shaded[c]);
         o.albedo[3 * pix + c] = albedo[c];
         o.normal[3 * pix + c] = n[c];
     }
@@ -790,4 +984,119 @@ F3D_HD float quad_grad(const float* t, const float* a, const float* b) {
     const float dx[3] = {a[0] - t[0], a[1] - t[1], a[2] - t[2]};
     const float dy[3] = {b[0] - t[0], b[1] - t[1], b[2] - t[2]};
     return norm3(dx) + norm3(dy);
+}
+
+// ---------------------------------------------------------------------------
+// S9: the clipmap shade of one pixel (screen.py:1857-2025) over the host
+// G-buffer: nearest height samples (the caller sets a.filterable = 0), the
+// Sobel step texel * spacing, the base normal (0, 0, 1) on the apron
+// (u <= 0), POM, no water, layers, maps, reflection or sky. Every pixel is
+// shaded, invalid ones too (their normals enter their quad's edge term, as
+// in JAX); clip_back writes the background where the G-buffer is invalid.
+// ---------------------------------------------------------------------------
+
+struct ClipState {
+    float uu, vv, world[3], vd[3], n[3], height_norm, occl;
+};
+
+F3D_HD void clip_front(const ScreenArgs& a, const ClipArgs& g, int x, int y, ClipState& s) {
+    const int pix = y * a.width + x;
+    s.uu = g.uv[2 * pix];
+    s.vv = g.uv[2 * pix + 1];
+    const float uu = s.uu, vv = s.vv;
+    for (int c = 0; c < 3; ++c) {
+        s.world[c] = g.world[3 * pix + c];
+        s.vd[c] = a.camera_pos[c] - s.world[c];
+    }
+    normalize3(s.vd);
+    const float t0 = a.texel[0], t1 = a.texel[1];
+    const float tl = geom_h(a, uu - t0, vv - t1), tc = geom_h(a, uu, vv - t1);
+    const float tr = geom_h(a, uu + t0, vv - t1), lc = geom_h(a, uu - t0, vv);
+    const float rc = geom_h(a, uu + t0, vv), bl = geom_h(a, uu - t0, vv + t1);
+    const float bc = geom_h(a, uu, vv + t1), br = geom_h(a, uu + t0, vv + t1);
+    const float dx = (tr + 2.0f * rc + br) - (tl + 2.0f * lc + bl);
+    const float dy = (bl + 2.0f * bc + br) - (tl + 2.0f * tc + tr);
+    if (uu <= 0.0f) {
+        s.n[0] = 0.0f;
+        s.n[1] = 0.0f;
+        s.n[2] = 1.0f;
+    } else {
+        s.n[0] = -dx / g.wtex[0];
+        s.n[1] = a.vert;
+        s.n[2] = -dy / g.wtex[1];
+        normalize3(s.n);
+    }
+    float pu, pv;
+    const float hs = pom_height(a, uu, vv, s.n, s.vd, pu, pv, s.occl);
+    s.height_norm = sc_clamp01((hs - a.dom_lo) / a.dom_rng);
+}
+
+F3D_HD void clip_back(const ScreenArgs& a, const ClipArgs& g, unsigned char* rgba, int x, int y,
+                      const ClipState& s, float ngrad) {
+    const float centers[4] = {0.0f, 0.333333343f, 0.666666687f, 1.0f};
+    const float wmod[4] = {1.5f, 0.5f, 1.0f, 1.0f};
+    float w[4];
+    for (int k = 0; k < 4; ++k) {
+        const float d = s.height_norm - centers[k];
+        w[k] = expf(-(d * d) / 0.0703125f) * wmod[k];
+    }
+    const float wsum = fmaxf(w[0] + w[1] + w[2] + w[3], 1e-5f);
+    for (int k = 0; k < 4; ++k) w[k] = w[k] / wsum;
+    const float rough = sc_clamp(w[0] * 0.50f + w[1] * 0.85f + w[2] * 0.50f + w[3] * 0.25f, 0.25f, 1.0f);
+    float overlay[3], albedo[3];
+    lut_sample(a.lut, a.lut_n, s.height_norm, overlay);
+    for (int c = 0; c < 3; ++c) {
+        const float m = w[0] * a.ml[c] + w[1] * a.ml[3 + c] + w[2] * a.ml[6 + c] + w[3] * a.ml[9 + c];
+        const float f = a.albedo_mode == 0 ? overlay[c]
+                        : a.albedo_mode == 1 ? m
+                                             : m + (overlay[c] - m) * a.colormap_strength;
+        albedo[c] = sc_clamp01(f);
+    }
+    if (a.hue_on) hue_variation(albedo, s.height_norm, a.hue_strength, albedo);
+
+    // PCSS at the receiver's undisplaced height, in the spacing's frame
+    const float shadow_h = sc_clamp01((geom_h(a, s.uu, s.vv) - a.dom_lo) / a.dom_rng);
+    const float sp[3] = {(s.uu - 0.5f) * g.spacing, (s.vv - 0.5f) * g.spacing, shadow_h * a.z_scale};
+    const float vis = pcss_visibility(a.shadow, a.shadow_res, a.lvp, a.pcss_ld, sp, s.n);
+    const float cs = fmaxf(0.8f + 0.2f * vis, 0.30f);
+
+    // split-sum IBL
+    const float* n = s.n;
+    const float ibl_i = a.ibl_intensity;
+    const float ndv_raw = sc_dot3(n, s.vd);
+    const float ndv = sc_clamp01(ndv_raw);
+    const float rc2 = sc_clamp01(rough);
+    float refl[3];
+    for (int c = 0; c < 3; ++c) refl[c] = (2.0f * ndv_raw) * n[c] - s.vd[c];
+    normalize3(refl);
+    const float omc = sc_clamp01(1.0f - ndv);
+    const float o2 = omc * omc;
+    const float F = 0.04f + (fmaxf(1.0f - rc2, 0.04f) - 0.04f) * (omc * (o2 * o2));
+    float irr[3], pref[3], brdf[2], ibl_diffuse[3];
+    cube_sample(a.irr, a.irr_size, n, irr);
+    cube_sample_mips(a, refl, rc2 * rc2 * 9.0f, pref);
+    tex_bilinear(a.brdf, a.brdf_h, a.brdf_w, 2, ndv, rc2, brdf);
+    const float spec_brdf = F * brdf[0] + brdf[1];
+    for (int c = 0; c < 3; ++c) ibl_diffuse[c] = (1.0f - F) * albedo[c] * irr[c];
+
+    // beauty composition (P2-S4)
+    const float ndl = fmaxf(sc_dot3(n, a.ldir), 0.0f);
+    const float base_diffuse = (0.32f + (-0.22f) * ndl) + 0.26f * ndl * a.sun_int;
+    const float edge_sig = (1.0f - fabsf(n[1])) * 0.3f + ngrad * 15.0f;
+    const float edge_bright = sc_clamp(edge_sig * (ndl + 0.3f), 0.0f, 0.25f);
+    const float edge_dark = sc_clamp(edge_sig * (1.0f - ndl) * 0.5f, 0.0f, 0.15f);
+    const float diffuse_lit = (base_diffuse + edge_bright - edge_dark) * (fmaxf(s.occl, 0.65f) * cs);
+    const float lighting = diffuse_lit + norm3(ibl_diffuse) * ibl_i * a.ibl_fill;
+    const int pix = y * a.width + x;
+    const bool valid = g.valid[pix] != 0;
+    const unsigned char bg[3] = {25, 25, 38};   // floor((0.1, 0.1, 0.15) * 255)
+    for (int c = 0; c < 3; ++c) {
+        const float spec = pref[c] * spec_brdf;
+        const float shaded = (albedo[c] * lighting + fminf(spec * ibl_i * 0.12f, albedo[c] * 0.20f))
+                             * a.exposure;
+        // the sRGB encode of S8 equals JAX's unclamped one of S9: the branch
+        // that takes the power has c > 0.0031308
+        rgba[4 * pix + c] = valid ? encode_u8(a, shaded) : bg[c];
+    }
+    rgba[4 * pix + 3] = 255;
 }

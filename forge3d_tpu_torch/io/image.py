@@ -1,5 +1,6 @@
 # forge3d_tpu_torch/io/image.py
-# numpy -> PNG, a copy of forge3d_tpu/io/image.py:numpy_to_png.
+# numpy <-> PNG, copies of forge3d_tpu/io/image.py:numpy_to_png and
+# png_to_numpy.
 
 from __future__ import annotations
 
@@ -24,3 +25,8 @@ def numpy_to_png(path, array: np.ndarray) -> None:
     elif a.dtype not in (np.uint8, np.uint16):
         raise UploadError(f"unsupported dtype {a.dtype}")
     _png.write_png(path, a)
+
+
+def png_to_numpy(path) -> np.ndarray:
+    """Read a PNG into (H, W, C) uint8 (or uint16 for 16-bit files)."""
+    return _png.read_png(path)

@@ -57,9 +57,13 @@ class LightBuffer:
     cones: torch.Tensor      # (L, 2) cos(inner), cos(outer)
 
     @staticmethod
-    def from_lights(lights: List[Light], device="cpu") -> "LightBuffer":
+    def from_lights(lights: List[Light], device="cuda") -> "LightBuffer":
+        """The lights' rows on `device`, the card unless device="cpu"."""
+        from .pt.terrain_ref import resolve_device
+
         if not lights:
             raise ValueError("empty light list")
+        device = resolve_device(device)
         d = np.asarray([l.direction for l in lights], np.float32)
         d /= np.maximum(np.linalg.norm(d, axis=1, keepdims=True), 1e-12)
 

@@ -266,7 +266,12 @@ class MeshScene:
             self.n_nodes, self.n_prims, max_iters if max_iters > 0 else 4 * self.n_nodes + 64)
 
 
-def mesh_scene(bvh: BvhArrays, device="cpu") -> Tuple[MeshScene, int]:
+def mesh_scene(bvh: BvhArrays, device="cuda") -> Tuple[MeshScene, int]:
+    """The BVH's arrays on `device`, the card unless device="cpu"."""
+    from ..pt.terrain_ref import resolve_device
+
+    device = resolve_device(device)
+
     def t(a):
         return torch.as_tensor(np.ascontiguousarray(a), device=device)
 

@@ -45,13 +45,17 @@ class AliasTable:
         return AliasTable(self.prob.to(device), self.alias.to(device), self.pdf.to(device))
 
 
-def alias_table_build(weights, device="cpu") -> AliasTable:
-    """Vose's alias method over non-negative weights (host, deterministic)."""
+def alias_table_build(weights, device="cuda") -> AliasTable:
+    """Vose's alias method over non-negative weights (host, deterministic),
+    its table on `device`, the card unless device="cpu"."""
+    from ..pt.terrain_ref import resolve_device
+
     w = np.asarray(weights, np.float64).ravel()
     if w.size == 0:
         raise ValueError("alias table needs at least one weight")
     if (w < 0).any() or not np.isfinite(w).all():
         raise ValueError("weights must be finite and non-negative")
+    device = resolve_device(device)
     total = w.sum()
     if total <= 0:
         w = np.ones_like(w)

@@ -82,7 +82,11 @@ class TerrainScene:
 
 def scene_from_pyramid(pyr: MinMaxPyramid, origin_xz=(0.0, 0.0),
                        spacing_xz=(1.0, 1.0), exaggeration: float = 1.0,
-                       max_iters: int | None = None, device="cpu") -> TerrainScene:
+                       max_iters: int | None = None, device="cuda") -> TerrainScene:
+    """The scene's tensors on `device`, the card unless device="cpu"."""
+    from ..pt.terrain_ref import resolve_device
+
+    device = resolve_device(device)
     h, w = pyr.heights.shape
     if max_iters is None:
         # A ray crossing the whole grid visits O(perimeter) leaf cells, each

@@ -16,13 +16,13 @@
 # IBL's Hosek sky is baked by kernel E5 (sky.py).
 #
 # camera_mode="screen" renders go to the screen engine (terrain/screen.py,
-# kernels S1-S4 and S8) through `_render_screen`, as the JAX package's do.
+# kernels S1-S4 and S8, with POM and the aerial sky inside S8) through
+# `_render_screen`, as the JAX package's do.
 #
 # Not ported yet, and refused by the one-shot renders with
 # NotImplementedError: a MaterialSet with a virtual texture store (R1's VT
-# branch with terrain/vt.py, ROADMAP queue 1 item 7), the anamnesis render
-# cache (`cache=`, item 13), and in screen mode a sky with aerial
-# perspective or POM (item 8b). The offline session ignores camera_mode and
+# branch with terrain/vt.py, ROADMAP queue 1 item 7) and the anamnesis
+# render cache (`cache=`, item 13). The offline session ignores camera_mode and
 # the VT store, as the JAX package's does, and renders the perspective
 # shade.
 

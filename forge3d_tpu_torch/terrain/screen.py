@@ -1,15 +1,19 @@
 # forge3d_tpu_torch/terrain/screen.py
 # The screen-mode terrain render of forge3d_tpu/terrain/screen.py
 # (camera_mode="screen": the reference's fullscreen-triangle forward pass)
-# on PyTorch, through four hand-written CUDA kernels (csrc/screen.cu over
-# csrc/screen.cuh):
+# and its clipmap camera mode on PyTorch, through five hand-written CUDA
+# kernels (csrc/screen.cu over csrc/screen.cuh):
 #
 #   S1    env_cube        the equirect-to-cube resample (screen.py:355)
 #   S2/S3 cube_convolve   the cosine irradiance (:363) and the GGX prefilter
 #                         mips 1-5 (:388): one kernel, two lobes
 #   S4    raster_depth    the light-space depth raster (:464)
 #   S8    shade           the per-pixel shade (:1098), with the PCSS
-#                         visibility S5 (:656) inside
+#                         visibility S5 (:656), parallax occlusion mapping
+#                         S7 (:979) and the analytic sky with aerial
+#                         perspective S6 (:748, :1508) inside
+#   S9    clipmap_shade   the clipmap mode's shade over a host G-buffer
+#                         (:1857), with S5 and S7 inside
 #
 # Beside each wrapper is its plain PyTorch version, which the wrapper runs
 # for CPU tensors; CUDA tensors launch the kernel, and nothing falls back
@@ -21,11 +25,8 @@
 # their original names, as is screen_golden._build_brdf_lut. The IBL
 # pyramid and the shadow map are cached in process by the JAX module's
 # content-hash keys, as device tensors charged to the memory ledger; the
-# port writes no file.
-#
-# Not ported yet, and refused with NotImplementedError: a sky with aerial
-# perspective (S6) and parallax occlusion mapping (S7), both branches of
-# S8 (ROADMAP queue 1 item 8b).
+# port writes no file. The clipmap mode's G-buffer is rasterized on the
+# host by terrain/clipmap_mesh.py, a copy of the JAX package's.
 
 from __future__ import annotations
 
@@ -45,8 +46,6 @@ from ..ops.shading import fdiv, sqrt32
 from ..ops.traversal import f32
 
 _F32 = torch.float32
-
-NOT_PORTED_8B = "not ported to forge3d_tpu_torch yet (ROADMAP queue 1 item 8b)"
 
 # Composition constants (screen.py:67-75).
 SHADOW_MIN = 0.20
@@ -707,11 +706,15 @@ def clear_caches() -> None:
         cache.clear()
 
 
-def build_ibl(hdr_rgb, device) -> dict:
+def build_ibl(hdr_rgb, *, device="cuda") -> dict:
     """Split-sum IBL pyramid per the reference pipeline (IBLQuality::Medium)
-    on `device`: S1 (the 256^2 env cube, which is also mip 0), S2 (the
-    128^2 irradiance) and S3 (mips 1-5), and the BRDF LUT (zero unless
-    FORGE3D_IBL_BRDF=analytic). Cached in process by screen.py's key."""
+    on `device`, the card unless device="cpu": S1 (the 256^2 env cube, which
+    is also mip 0), S2 (the 128^2 irradiance) and S3 (mips 1-5), and the
+    BRDF LUT (zero unless FORGE3D_IBL_BRDF=analytic). Cached in process by
+    screen.py's key."""
+    from ..pt.terrain_ref import resolve_device
+
+    device = resolve_device(device)
     hdr_rgb = np.asarray(hdr_rgb, np.float32)
     brdf_mode = os.environ.get("FORGE3D_IBL_BRDF", "golden")
     key = (_hash(hdr_rgb, "iblj-v1", brdf_mode), str(device))
@@ -930,12 +933,15 @@ def shadow_geometry(heightmap, *, terrain_span, z_scale, sun_dir, resolution=SHA
 
 
 def build_shadow_map(heightmap, *, terrain_span, z_scale, sun_dir, resolution=SHADOW_RES,
-                     grid_res=SHADOW_GRID, domain=(0.0, 1.0), device="cpu"):
-    """Rasterize the DEM grid into the light's ortho depth map on `device`
-    (S4), with the host-computed light matrices. Returns (depth (R, R)
-    tensor, light_view_proj 4x4 numpy, texel_size). sun_dir is the NEGATED
-    light direction (shadows/setup.rs:150-153). Cached in process by
-    screen.py's key."""
+                     grid_res=SHADOW_GRID, domain=(0.0, 1.0), device="cuda"):
+    """Rasterize the DEM grid into the light's ortho depth map on `device`,
+    the card unless device="cpu" (S4), with the host-computed light
+    matrices. Returns (depth (R, R) tensor, light_view_proj 4x4 numpy,
+    texel_size). sun_dir is the NEGATED light direction
+    (shadows/setup.rs:150-153). Cached in process by screen.py's key."""
+    from ..pt.terrain_ref import resolve_device
+
+    device = resolve_device(device)
     heightmap = np.asarray(heightmap, np.float32)
     key = (_hash(heightmap, terrain_span, z_scale, np.asarray(sun_dir), resolution, grid_res,
                  domain, "shadowj-v1"), str(device))
@@ -1042,6 +1048,302 @@ def pcss_visibility(depth_map, lvp, texel_size, shadow_pos, normal, light_dir_cs
 
 
 # ---------------------------------------------------------------------------
+# S7: parallax occlusion mapping (screen.py:979-1035); on the card it runs
+# inside S8 and S9 (csrc/screen.cuh:pom_uv)
+# ---------------------------------------------------------------------------
+
+def _pom_uv(hm, u, v, n, view_dir, *, scale, min_steps, max_steps, refine_steps,
+            samp=_nearest):
+    """parallax_occlusion_mapping as screen.py:_pom_uv computes it: the TBN of
+    the blended normal `n`, a step count between min_steps and max_steps set
+    by the view angle, the height march (a lane stops once its layer reaches
+    the height, and never resumes, so the loop ends when every lane has
+    stopped) and `refine_steps` halvings. `n` and `view_dir` are three
+    tensors each; `samp` is the height sampler. Returns (u', v', layer,
+    crossed). Adds the lanes' marched steps to `_pom_uv.marched`."""
+    zero = torch.zeros_like(u)
+    yup = n[1].abs() > 0.99
+    up = [zero, torch.where(yup, 0.0, 1.0), torch.where(yup, 1.0, 0.0)]
+    t = _normalize(_cross(up, n))
+    b = _cross(n, t)
+    vd = _normalize([t[c] * view_dir[0] + b[c] * view_dir[1] + n[c] * view_dir[2]
+                     for c in range(3)])
+    blend = _clip01(vd[2].abs())
+    steps = torch.clamp(torch.round(blend * float(min_steps - max_steps) + float(max_steps)),
+                        1.0, float(max_steps))
+    L = sqrt32(vd[0] * vd[0] + vd[1] * vd[1])
+    active = L >= 1e-5
+    Lc = torch.clamp(L, min=1e-20)
+    pdx = vd[0] / Lc * scale
+    pdy = vd[1] / Lc * scale
+    step = fdiv(1.0, steps)
+    h = lambda a, c: samp(hm, _clip01(a), _clip01(c))[0]  # noqa: E731
+    cu, cv, layer, ch = u, v, zero, h(u, v)
+    for i in range(int(max_steps)):
+        go = active & (steps > i) & (layer < ch)
+        n_go = int(go.sum())
+        if n_go == 0:
+            break
+        _pom_uv.marched += n_go
+        cu = torch.where(go, cu - pdx * step, cu)
+        cv = torch.where(go, cv - pdy * step, cv)
+        layer = torch.where(go, layer + step, layer)
+        ch = torch.where(go, h(cu, cv), ch)
+    crossed = active & (layer >= ch)
+    rss = step
+    for _ in range(int(refine_steps)):
+        du = pdx * rss * 0.5
+        dv = pdy * rss * 0.5
+        rss = rss * 0.5
+        ge = layer >= h(cu, cv)
+        cu = torch.where(active, torch.where(ge, cu - du, cu + du), cu)
+        cv = torch.where(active, torch.where(ge, cv - dv, cv + dv), cv)
+        layer = torch.where(active, torch.where(ge, layer - rss, layer + rss), layer)
+    return (torch.where(active, _clip01(cu), u), torch.where(active, _clip01(cv), v),
+            torch.where(active, layer, zero), crossed)
+
+
+_pom_uv.marched = 0
+
+
+def pom_config(pom, generation: str) -> Optional[dict]:
+    """The POM settings a render runs (screen.py:1673-1686), or None."""
+    if pom is None or not pom.get("enabled", False) or not pom.get("height_scale", 0.0) > 0.0:
+        return None
+    return dict(enabled=True, height_scale=float(pom["height_scale"]),
+                min_steps=int(pom.get("min_steps", 1)), max_steps=int(pom.get("max_steps", 1)),
+                refine_steps=int(pom.get("refine_steps", 0)),
+                occlusion=bool(pom.get("occlusion", True)),
+                # the family generation converts the layer to a height where the
+                # march crossed; the recipe generation keeps the displaced sample
+                layer_height=(generation == "family"))
+
+
+def _pom_kw(pom: dict) -> dict:
+    return dict(scale=pom["height_scale"], min_steps=pom["min_steps"],
+                max_steps=pom["max_steps"], refine_steps=pom["refine_steps"])
+
+
+# ---------------------------------------------------------------------------
+# S6: the analytic sky (screen.py:748-877) and the aerial perspective that
+# blends it into the shade (:1508-1541); on the card a branch of S8
+# (csrc/screen.cuh:sky_pixel, aerial_blend). The per-channel Hosek configs
+# are cooked on the host (:719-745); every other per-image value is a
+# float32 scalar computed here once, in JAX's order, and read by both the
+# kernel and the plain version.
+# ---------------------------------------------------------------------------
+
+HOSEK_NAMES = ("hosek-wilkie", "hosek_wilkie", "hosekwilkie")
+SKY_HOSEK, SKY_PREETHAM = 1, 2
+
+
+def _cook_sky_uniforms(sky_cfg, light_dir):
+    from ..sky import _cook_channel, _hosek_data
+
+    sun_dir = np.array([light_dir[0], light_dir[2], light_dir[1]],
+                       np.float32)
+    turbidity = float(np.clip(sky_cfg["turbidity"], 1.0, 10.0))
+    albedo = float(np.clip(sky_cfg["ground_albedo"], 0.0, 1.0))
+    sky_sun_y = float(np.clip(light_dir[2], 0.0, 1.0))
+    solar_elev = float(np.clip(np.arcsin(sky_sun_y), 0.0, np.pi / 2))
+    cfgs, rads = _hosek_data()
+    configs = []
+    radiances = []
+    for ch in range(3):
+        cc, rr = _cook_channel(cfgs[ch], rads[ch], turbidity, albedo,
+                               solar_elev)
+        configs.append(np.asarray(cc, np.float32))
+        radiances.append(np.float32(rr))
+    return {
+        "sky_sun_dir": sun_dir,
+        "sky_configs": np.stack(configs, 0),
+        "sky_radiances": np.array(radiances, np.float32),
+        "sky_turbidity": np.float32(turbidity),
+        "sky_albedo": np.float32(albedo),
+        "sky_sun_intensity": np.float32(max(sky_cfg["sun_intensity"], 0.0)),
+        "sky_sun_size": np.float32(max(sky_cfg["sun_size"], 0.0)),
+        "sky_exposure": np.float32(max(sky_cfg["sky_exposure"], 0.0)),
+    }
+
+
+def _smooth32(e0, e1, x):
+    t = _clip01(fdiv(x - e0, e1 - e0))
+    return t * t * (3.0 - 2.0 * t)
+
+
+def _vec32(*v):
+    return torch.tensor(v, dtype=_F32)
+
+
+def sky_consts(u: dict, model: str, inv_view, inv_proj) -> dict:
+    """The sky pass's per-image constants (screen.py:748-877) from the cooked
+    uniforms `u`, as float32 scalars (Python floats) and lists of them."""
+    T = lambda x: torch.as_tensor(np.asarray(x, np.float32))  # noqa: E731
+    sun, tb, alb = T(u["sky_sun_dir"]), T(u["sky_turbidity"]), T(u["sky_albedo"])
+    inten, ssize = T(u["sky_sun_intensity"]), T(u["sky_sun_size"])
+    cfg = T(u["sky_configs"])
+    I = cfg[:, 8]   # noqa: E741
+    k = {"model": SKY_HOSEK if model in HOSEK_NAMES else SKY_PREETHAM,
+         "sun": sun.tolist(), "cfg": cfg.reshape(-1).tolist(),
+         "rad": T(u["sky_radiances"]).tolist(), "mie_k1": (1.0 + I * I).tolist(),
+         "mie_k2": (2.0 * I).tolist(),
+         "inv_view": np.asarray(inv_view, np.float32).reshape(-1).tolist(),
+         "inv_proj": np.asarray(inv_proj, np.float32).reshape(-1).tolist()}
+    # Preetham (sky.wgsl eval_preetham), luminance only
+    A = 0.1787 * tb - 1.4630
+    B = -0.3554 * tb + 0.4275
+    C = -0.0227 * tb + 5.3251
+    D = 0.1206 * tb - 2.5771
+    E = -0.0670 * tb + 0.3703
+    cts = torch.clamp(sun[1], min=0.0)
+    g1 = torch.acos(torch.clamp(cts, -1.0, 1.0))
+    perez1 = (1.0 + A * torch.exp(fdiv(B, 1.0 + 0.01))) * (1.0 + C * torch.exp(D * g1)
+                                                           + E * cts * cts)
+    sunset = _clip01(fdiv(g1 - 1.4, 0.4))      # g1 is also the sun's angle
+    sunset = sunset * sunset * (3.0 - 2.0 * sunset)
+    zc = _vec32(0.4, 0.5, 0.8)
+    dusk = zc + (_vec32(1.0, 0.6, 0.3) - zc) * sunset
+    k.update(pA=A, pB=B, pC=C, pD=D, pE=E, p_den=torch.clamp(perez1, min=0.01),
+             p_col=_vec32(0.3, 0.5, 1.0) if bool(cts > 0.1) else dusk,
+             p_haze=fdiv(tb - 2.0, 8.0), p_mix=torch.clamp(fdiv(tb, 10.0), max=0.5),
+             p_alb=1.0 + alb * 0.2)
+    # night fade, sun disc and glow
+    solar_alt = torch.asin(torch.clamp(sun[1], -1.0, 1.0)) * f32(180.0 / math.pi)
+    daylight = _clip01(fdiv(solar_alt + 18.0, 14.0))
+    n0 = _vec32(0.002, 0.003, 0.009)
+    sun_radius = 0.0093 * torch.clamp(ssize, min=0.01)
+    scr = torch.cos(sun_radius)
+    gcos = torch.cos(torch.maximum(0.05 * torch.clamp(ssize, min=0.25), sun_radius * 2.0))
+    k.update(daylight=daylight * daylight * (3.0 - 2.0 * daylight), night0=n0,
+             night_d=_vec32(0.008, 0.012, 0.024) - n0, disc_cos=scr,
+             limb_den=torch.clamp(1.0 - scr, min=1e-9),
+             disc_c=_vec32(1.0, 0.95, 0.9) * (inten * 50.0), glow_cos=gcos,
+             glow_den=torch.clamp(scr - gcos, min=1e-9),
+             ring_c=_vec32(1.0, 0.8, 0.6) * (inten * 2.0))
+    # solar scattering, exposure
+    low_sun = 1.0 - _smooth32(0.18, 0.72, torch.clamp(sun[1], min=0.0))
+    haze = _clip01(fdiv(tb - 1.0, 9.0))
+    size_norm = _clip01(fdiv(ssize, 4.0))
+    w0, d0 = _vec32(1.0, 0.95, 0.9), _vec32(1.0, 0.97, 0.92)
+    sunset_c = w0 + (_vec32(1.0, 0.72, 0.42) - w0) * (low_sun * (0.75 + haze * 0.2))
+    day_c = d0 + (_vec32(1.0, 0.9, 0.78) - d0) * (haze * 0.6)
+    k.update(low_sun=low_sun, e_fwd=22.0 + (4.0 - 22.0) * size_norm,
+             e_broad=10.0 + (2.5 - 10.0) * size_norm, inten=inten,
+             k_broad=0.06 + size_norm * 0.08, hglow_k=0.35 + haze * 0.35 + size_norm * 0.2,
+             amb=inten * (0.02 + haze * 0.03), scat_c=day_c + (sunset_c - day_c) * low_sun,
+             exposure=T(u["sky_exposure"]))
+    return {key: (val.tolist() if isinstance(val, torch.Tensor) else val)
+            for key, val in k.items()}
+
+
+def aerial_consts(u: dict, ldir) -> dict:
+    """The aerial perspective's per-image constants (screen.py:1514-1540)."""
+    T = lambda x: torch.as_tensor(np.asarray(x, np.float32))  # noqa: E731
+    sun_i, sun_sz = T(u["sky_sun_intensity_raw"]), T(u["sky_sun_size_raw"])
+    low_sun = 1.0 - _smooth32(0.18, 0.72, torch.clamp(T(ldir)[2], min=0.0))
+    haze = _clip01(fdiv(T(u["sky_turbidity"]) - 1.0, 9.0))
+    sun_energy = torch.clamp(sun_i * (0.5 + sun_sz * 0.35), 0.0, 8.0)
+    warm = 1.0 + (_vec32(1.16, 0.98, 0.82) - 1.0) * (low_sun * (0.55 + haze * 0.25))
+    k = dict(density_neg=-T(u["sky_aerial_density"]), k_fac=0.08 + haze * 0.04,
+             k_amt=0.8 + haze * 0.25 + sun_energy * 0.05, k_desat=0.4 + haze * 0.15,
+             k_target=1.0 + sun_energy * 0.04, tint=1.0 + (warm - 1.0) * low_sun,
+             add=_vec32(0.14, 0.07, 0.025) * (low_sun * sun_energy * 0.18
+                                                * T(u["sky_exposure"])),
+             k_blend=0.34 + low_sun * 0.18 + haze * 0.12)
+    return {key: val.tolist() for key, val in k.items()}
+
+
+def _pixel_grid(W, H, device):
+    """((x + 0.5) / W, (y + 0.5) / H) of every pixel, (H, W) each."""
+    px = fdiv(torch.arange(W, dtype=_F32, device=device) + 0.5, float(W)).expand(H, W)
+    py = fdiv(torch.arange(H, dtype=_F32, device=device) + 0.5, float(H))[:, None].expand(H, W)
+    return px, py
+
+
+def sky_plain(k: dict, W: int, H: int, device) -> list:
+    """Plain PyTorch version of S6's sky: three (H, W) channels in k/255
+    steps (screen.py:_render_sky)."""
+    px, py = _pixel_grid(W, H, device)
+    ndc = [px * 2.0 - 1.0, 1.0 - py * 2.0]
+    P, V = k["inv_proj"], k["inv_view"]
+    vp = [ndc[0] * P[4 * r] + ndc[1] * P[4 * r + 1] + P[4 * r + 2] + P[4 * r + 3]
+          for r in range(4)]
+    vdir = [vp[c] / vp[3] for c in range(3)]
+    nv = _norm(vdir)
+    vdir = [c / nv for c in vdir]
+    wdir = [vdir[0] * V[4 * r] + vdir[1] * V[4 * r + 1] + vdir[2] * V[4 * r + 2]
+            for r in range(3)]
+    nw = _norm(wdir)
+    wdir = [c / nw for c in wdir]
+    ct = torch.clamp(wdir[1], min=0.0)
+    cg = _dot(wdir, k["sun"])
+    gamma = torch.acos(torch.clamp(cg, -1.0, 1.0))
+    ray_m = cg * cg
+    if k["model"] == SKY_HOSEK:
+        zenith = sqrt32(torch.clamp(ct, min=0.0))
+        color = []
+        for ch in range(3):
+            A, B, C, D, E, F, G, Hc, _ = k["cfg"][9 * ch:9 * ch + 9]
+            mie_den = torch.clamp(k["mie_k1"][ch] - k["mie_k2"][ch] * cg, min=1e-4)
+            mie = (1.0 + ray_m) / torch.pow(mie_den, 1.5)
+            color.append(k["rad"][ch] * (1.0 + A * torch.exp(fdiv(B, ct + 0.01)))
+                         * (C + D * torch.exp(E * gamma) + F * ray_m + G * mie + Hc * zenith))
+    else:
+        Y = fdiv((1.0 + k["pA"] * torch.exp(fdiv(k["pB"], ct + 0.01)))
+                 * (1.0 + k["pC"] * torch.exp(k["pD"] * gamma) + k["pE"] * cg * cg), k["p_den"])
+        color = [c * Y for c in k["p_col"]]
+        color = [(c + (k["p_haze"] - c) * k["p_mix"]) * k["p_alb"] for c in color]
+    color = [torch.clamp(c, min=0.0) for c in color]
+    horizon = 1.0 - _clip01(wdir[1])
+    h2 = horizon * horizon
+    night = [n0 + nd * h2 for n0, nd in zip(k["night0"], k["night_d"])]
+    color = [n + (c - n) * k["daylight"] for n, c in zip(night, color)]
+    inside = cg >= k["disc_cos"]
+    limb = _clip01(fdiv(cg - k["disc_cos"], k["limb_den"]))
+    limb = limb * limb * (3.0 - 2.0 * limb)
+    ring = (cg >= k["glow_cos"]) & ~inside
+    gf = _clip01(fdiv(cg - k["glow_cos"], k["glow_den"]))
+    gf = gf * gf * (3.0 - 2.0 * gf)
+    zero = torch.zeros_like(cg)
+    color = [c + torch.where(ring, rc * gf, torch.where(inside, dc * limb, zero))
+             for c, dc, rc in zip(color, k["disc_c"], k["ring_c"])]
+    sun_align = torch.clamp(cg, min=0.0)
+    fwd = torch.pow(sun_align, k["e_fwd"])
+    broad = torch.pow(sun_align, k["e_broad"])
+    hglow = h2 * k["low_sun"] * k["hglow_k"]
+    inten = k["inten"]
+    scat = fwd * inten * 0.35 + broad * inten * k["k_broad"] + hglow * inten * 0.22 + k["amb"]
+    out = []
+    for c, sc in zip(color, k["scat_c"]):
+        c = (c + sc * scat) * k["exposure"]
+        c = c / (c + 1.0)
+        out.append(fdiv(torch.round(_clip01(c) * 255.0), 255.0))
+    return out
+
+
+def _render_sky(width, height, *, inv_view, inv_proj, u, model):
+    """screen.py:_render_sky on the cooked uniforms `u`: (H, W, 3) on the CPU."""
+    k = sky_consts(u, model, inv_view, inv_proj)
+    return torch.stack(sky_plain(k, width, height, torch.device("cpu")), -1)
+
+
+def _aerial_blend(k: dict, shaded, sky, world, cam):
+    """screen.py:1514-1541: desaturate the exposed shade by the distance to
+    the camera and blend it toward the sky."""
+    vdist = _norm([c - w for c, w in zip(cam, world)])
+    a_fac = 1.0 - torch.exp(k["density_neg"] * vdist * k["k_fac"])
+    a_amt = _clip01(a_fac * k["k_amt"])
+    luma = shaded[0] * 0.2126 + shaded[1] * 0.7152 + shaded[2] * 0.0722
+    dk = a_amt * k["k_desat"]
+    blend = a_amt * k["k_blend"]
+    out = []
+    for s, sk, tn, ad in zip(shaded, sky, k["tint"], k["add"]):
+        desat = s + (luma - s) * dk
+        out.append(desat + (sk * k["k_target"] * tn + ad - desat) * blend)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # S8: the shade (screen.py:1085-1600). ShadeCfg holds the static switches of
 # JAX's `cfg` (:1704-1707); the uniforms dict `u` the tensors on the device
 # and the float32 scalars (Python floats), host-derived ones included, so
@@ -1067,10 +1369,16 @@ class ShadeCfg:
     filterable: bool
     encode: str                  # "gamma" | "srgb"
     mm_flags: Tuple[bool, bool, bool]   # normal, roughness, mask maps
+    pom: Optional[tuple] = None  # _freeze(pom_config(...)) or None
+    sky: Optional[str] = None    # the sky model when the aerial perspective is on
 
     @property
     def mats_dict(self) -> Optional[dict]:
         return None if self.mats is None else dict(self.mats)
+
+    @property
+    def pom_dict(self) -> Optional[dict]:
+        return None if self.pom is None else dict(self.pom)
 
     @property
     def sss_on(self) -> bool:
@@ -1216,10 +1524,20 @@ def shade_plain(cfg: ShadeCfg, u: dict) -> Dict[str, torch.Tensor]:
     dy = (bl + 2.0 * bc + br) - (tl + 2.0 * tc + tr)
     blended = _normalize([fdiv(-dx, t0), torch.full_like(dx, u["vert"]), fdiv(-dy, t1)])
 
-    wm = _nearest(u["water_mask"], _clip01(uu), _clip01(vv))[0] if cfg.has_wm else zeros
+    # POM (S7): the parallax uv, and the occlusion from the displaced height
+    pom = cfg.pom_dict
+    pu, pv, occl = uu, vv, ones
+    if pom is not None:
+        pu, pv, layer, crossed = _pom_uv(hm, uu, vv, blended, vd, samp=samp, **_pom_kw(pom))
+    wm = _nearest(u["water_mask"], _clip01(pu), _clip01(pv))[0] if cfg.has_wm else zeros
     is_water = wm > 0.001
-    hs = samp(hm, _clip01(uu), _clip01(vv))[0]
-    height_norm = _clip01(fdiv(torch.clamp(hs, lo, hi) - lo, rng))
+    hs = samp(hm, _clip01(pu), _clip01(pv))[0]
+    if pom is not None and pom["layer_height"]:
+        hs = where(crossed, 1.0 - layer, hs)
+    hs = torch.clamp(hs, lo, hi)
+    if pom is not None and pom["occlusion"]:
+        occl = torch.clamp(hs, 0.65, 1.0)
+    height_norm = _clip01(fdiv(hs - lo, rng))
 
     # material layer weights (gaussian, sigma = blend_half * 1.5)
     centers = (0.0, f32(1.0 / 3.0), f32(2.0 / 3.0), 1.0)
@@ -1311,7 +1629,7 @@ def shade_plain(cfg: ShadeCfg, u: dict) -> Dict[str, torch.Tensor]:
     # M4 material maps
     mmf = cfg.mm_flags
     if any(mmf):
-        mm_u, mm_v = _clip01(uu), _clip01(vv)
+        mm_u, mm_v = _clip01(pu), _clip01(pv)
         map_mask = _bilinear(u["mm_mask"], mm_u, mm_v)[0] if mmf[2] else ones
         if mmf[0]:
             tn = _normalize([e * 2.0 - 1.0 for e in _bilinear(u["mm_normal"], mm_u, mm_v)])
@@ -1363,7 +1681,9 @@ def shade_plain(cfg: ShadeCfg, u: dict) -> Dict[str, torch.Tensor]:
     brdf = _bilinear(u["ibl_brdf"], ndv, rc2)
     spec_brdf = F_ibl * brdf[0] + brdf[1]
     ibl_spec = [p * spec_brdf for p in pref]
-    ibl_contrib = [(d * shadow_factor + s) * ibl_i * 1.0 for d, s in zip(ibl_diffuse, ibl_spec)]
+    ibl_occl = where(is_water, 1.0, torch.clamp(occl, 0.65, 1.0))
+    ibl_contrib = [(d * shadow_factor + s) * ibl_i * ibl_occl
+                   for d, s in zip(ibl_diffuse, ibl_spec)]
 
     # beauty composition
     lcol = u["lcol"]
@@ -1403,7 +1723,7 @@ def shade_plain(cfg: ShadeCfg, u: dict) -> Dict[str, torch.Tensor]:
     edge_dark = torch.clamp(edge_sig * (1.0 - ndl) * 0.5, 0.0, 0.15)
     diffuse_raw = base_diffuse + edge_bright - edge_dark
     combined_shadow = torch.clamp(shadow_factor, min=0.30)
-    diffuse_lit = diffuse_raw * (1.0 * combined_shadow)
+    diffuse_lit = diffuse_raw * (torch.clamp(occl, min=0.65) * combined_shadow)
     ibl_dfac = _norm(ibl_diffuse) * ibl_i
     lighting = diffuse_lit + ibl_dfac * u["ibl_fill"]
     terrain = [a * lighting + torch.minimum(s * ibl_i * 0.12, a * 0.20)
@@ -1427,7 +1747,11 @@ def shade_plain(cfg: ShadeCfg, u: dict) -> Dict[str, torch.Tensor]:
             for t_, a, tn in zip(terrain, albedo, sss_tint)]
     shaded = [where(is_water, w_, t_) for w_, t_ in zip(shaded_w, terrain)] \
         if cfg.has_wm else terrain
-    shaded = torch.stack(shaded, -1) * u["exposure"]
+    shaded = [s * u["exposure"] for s in shaded]
+    if cfg.sky is not None:   # S6: the sky and the aerial perspective
+        sky = sky_plain(u["sky"], W, H, dev)
+        shaded = _aerial_blend(u["sky"], shaded, sky, world, cam)
+    shaded = torch.stack(shaded, -1)
 
     final = tonemap_filmic_terrain(shaded)
     encoded = srgb_encode(final) if cfg.encode == "srgb" else gamma_correct(final, 2.2)
@@ -1501,9 +1825,9 @@ def shade(cfg: ShadeCfg, u: dict) -> Dict[str, torch.Tensor]:
 shade.launches = 0
 
 
-def screen_args(cfg: ShadeCfg, u: dict):
-    """The kernel's argument block (ScreenArgs in csrc/screen.cuh) and the
-    tensors it points into."""
+def screen_args(cfg, u: dict):
+    """The argument block (ScreenArgs in csrc/screen.cuh) of S8 (a ShadeCfg)
+    or S9 (a ClipCfg), and the tensors it points into."""
     a = _kernels.ScreenArgs()
     keep = []
 
@@ -1555,12 +1879,13 @@ def screen_args(cfg: ShadeCfg, u: dict):
     a.hue_on, a.filterable, a.srgb = cfg.hue_on, cfg.filterable, cfg.encode == "srgb"
     a.mm_normal, a.mm_rough, a.mm_mask = cfg.mm_flags
     for k in ("dom_lo", "dom_hi", "dom_rng", "z_scale", "exposure", "ibl_intensity",
-              "colormap_strength", "hue_strength", "ibl_fill", "shadow_rspan", "vert",
-              "sun_int"):
+              "colormap_strength", "hue_strength", "ibl_fill", "vert", "sun_int"):
         setattr(a, k, u[k])
     a.texel = (_kernels._F * 2)(*u["texel"])
-    a.z_corners = _kernels._F3(*u["z_corners"])
-    a.wave_cs = (_kernels._F * 2)(*u["wave_cs"])
+    if "z_corners" in u:   # S8's screen-space geometry
+        a.shadow_rspan = u["shadow_rspan"]
+        a.z_corners = _kernels._F3(*u["z_corners"])
+        a.wave_cs = (_kernels._F * 2)(*u["wave_cs"])
     for k in ("ldir", "lcol", "camera_pos", "pcss_ld"):
         setattr(a, k, _kernels._F3(*u[k]))
     a.lvp = (_kernels._F * 12)(*np.asarray(u["shadow_lvp"], np.float32)[:3].reshape(-1).tolist())
@@ -1578,6 +1903,14 @@ def screen_args(cfg: ShadeCfg, u: dict):
         a.layer_w = (_kernels._F * 2)(*k["weights"])
         a.sss_strength = _kernels._F3(*k["strengths"])
         a.sss_tint = (_kernels._F * 9)(*[x for t in k["tints"] for x in t])
+    pom = cfg.pom_dict
+    if pom is not None:
+        a.pom_on, a.pom_occl, a.pom_layer = True, pom["occlusion"], pom["layer_height"]
+        a.pom_min, a.pom_max, a.pom_refine = pom["min_steps"], pom["max_steps"], pom["refine_steps"]
+        a.pom_scale = pom["height_scale"]
+    if cfg.sky is not None:
+        for k, v in u["sky"].items():
+            setattr(a.sky, k, (_kernels._F * len(v))(*v) if isinstance(v, list) else v)
     return a, keep
 
 
@@ -1602,31 +1935,37 @@ def prepare_shade(
     material_maps=None,
 ) -> Tuple[ShadeCfg, dict]:
     """render_screen_scene's host work on `device` (a torch.device): the
-    refusals, the IBL pyramid (S1-S3) and the shadow map (S4) from their
-    caches or built, the uniforms, and the mirrored reflection pass (a
-    first S8 launch) where the scene has one. Returns S8's (cfg, u)."""
+    refusals, the sky's cooked uniforms, the IBL pyramid (S1-S3) and the
+    shadow map (S4) from their caches or built, the uniforms, and the
+    mirrored reflection pass (a first S8 launch) where the scene has one.
+    Returns S8's (cfg, u)."""
     W, H = int(size_px[0]), int(size_px[1])
     if W % 2 or H % 2 or W < 2 or H < 2:
         raise ValueError(f"screen mode renders even sizes only (its normal derivatives are "
                          f"taken per 2x2 pixel quad): got {W}x{H}")
-    if sky is not None and sky.get("enabled", False) and sky.get("aerial_perspective", True):
-        raise NotImplementedError("a screen-mode sky with aerial perspective (S6) is "
-                                  + NOT_PORTED_8B)
-    if pom is not None and pom.get("enabled", False) and pom.get("height_scale", 0.0) > 0.0:
-        raise NotImplementedError("screen-mode parallax occlusion mapping (S7) is "
-                                  + NOT_PORTED_8B)
     if albedo_mode not in ALBEDO_MODES:
         raise ValueError(f"albedo_mode must be one of {ALBEDO_MODES}")
     hm = np.asarray(heightmap, np.float32)
-    if hdr_rgb is None:
-        hdr_rgb = decode_test_hdr()
-    ibl = build_ibl(hdr_rgb, device)
-
     eye = orbit_eye(cam_radius, cam_phi_deg, cam_theta_deg)
     view = look_at_rh(eye, (0.0, 0.0, 0.0), (0.0, 1.0, 0.0))
     proj = perspective_proj(fov_y_deg, W / H, clip[0], clip[1])
     camera_pos = eye if _camera_pos is None else np.asarray(_camera_pos, np.float32)
     ldir = light_direction(light_azimuth_deg, light_elevation_deg)
+    sky_model, sky_k = None, None
+    if sky is not None and sky.get("enabled", False):
+        # cooked first: a sky missing a setting raises JAX's KeyError before
+        # the prepasses are built
+        cooked = _cook_sky_uniforms(sky, ldir)
+        if sky.get("aerial_perspective", True):
+            sky_model = str(sky.get("model", "hosek-wilkie"))
+            cooked.update(sky_aerial_density=np.float32(max(sky.get("aerial_density", 1.0), 0.0)),
+                          sky_sun_intensity_raw=np.float32(max(sky.get("sun_intensity", 1.0), 0.0)),
+                          sky_sun_size_raw=np.float32(max(sky.get("sun_size", 1.0), 0.0)))
+            sky_k = {**sky_consts(cooked, sky_model, np.linalg.inv(view), np.linalg.inv(proj)),
+                     **aerial_consts(cooked, ldir)}
+    if hdr_rgb is None:
+        hdr_rgb = decode_test_hdr()
+    ibl = build_ibl(hdr_rgb, device=device)
     lcol = np.asarray(sun_color, np.float32) * float(sun_intensity)
     dom_lo, dom_hi = float(domain[0]), float(domain[1])
 
@@ -1649,7 +1988,7 @@ def prepare_shade(
                 mm.get("mask") is not None)
     cfg = ShadeCfg(W, H, water_mask is not None, albedo_mode, hv_host > 0.0, _freeze(mats),
                    material_albedo_rgb is not None, has_refl, bool(height_filterable),
-                   str(encode), mm_flags)
+                   str(encode), mm_flags, pom=_freeze(pom_config(pom, generation)), sky=sky_model)
 
     t = lambda a: torch.as_tensor(np.array(a, np.float32, order="C"),  # noqa: E731
                                   device=device)
@@ -1679,7 +2018,7 @@ def prepare_shade(
         "hue_strength": float(np.clip(np.float32(hue_variation_strength), 0.0, 0.2)),
         "shadow_depth": depth_map, "shadow_lvp": lvp,
         "ibl_irradiance": ibl["irradiance"], "ibl_spec": ibl["spec_mips"],
-        "ibl_brdf": ibl["brdf"],
+        "ibl_brdf": ibl["brdf"], "sky": sky_k,
     }
     for flag, key, src in zip(mm_flags, ("mm_normal", "mm_rough", "mm_mask"),
                               ("normal", "roughness", "mask")):
@@ -1753,3 +2092,269 @@ def render_screen_scene(heightmap, lut_rgb, *, size_px, return_aov=False, device
                      "normal": out["normal"].cpu().numpy(),
                      "depth": out["height"].cpu().numpy()}
     return img
+
+
+# ---------------------------------------------------------------------------
+# S9: the clipmap camera mode (screen.py:1836-2125). The ring mesh is
+# rasterized into a per-pixel G-buffer on the host (terrain/clipmap_mesh.py,
+# word for word the JAX package's); S9 shades it.
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ClipCfg:
+    """The static switches of S9 (screen.py:2083-2085)."""
+
+    width: int
+    height: int
+    albedo_mode: str
+    hue_on: bool
+    pom: Optional[tuple]         # _freeze(pom_config(...)) or None
+    encode: str                  # "gamma" | "srgb"
+    # the switches of S8 that S9 does not have
+    has_wm = has_mat_albedo = has_refl = filterable = sss_on = False
+    mm_flags = (False, False, False)
+    mats = mats_dict = sky = None
+    pom_dict = ShadeCfg.pom_dict
+
+
+CLIP_BACKGROUND = (25, 25, 38)   # floor((0.1, 0.1, 0.15) * 255), screen.py:2023
+
+
+def clipmap_shade_plain(cfg: ClipCfg, u: dict) -> torch.Tensor:
+    """Plain PyTorch version of S9 (screen.py:_build_clipmap_shade_fn.shade),
+    PCSS (S5) and POM (S7) included: (H, W, 4) u8."""
+    H, W = cfg.height, cfg.width
+    hm = u["hm"]
+    dev = hm.device
+    lo, hi, rng = u["dom_lo"], u["dom_hi"], u["dom_rng"]
+    uu, vv = u["gb_uv"][..., 0], u["gb_uv"][..., 1]
+    world = [u["gb_world"][..., c] for c in range(3)]
+    vd = _normalize([c - w for c, w in zip(u["camera_pos"], world)])
+    ones = torch.ones_like(uu)
+    t0, t1 = u["texel"]
+
+    def geom(a, b):
+        return torch.clamp(_nearest(hm, _clip01(a), _clip01(b))[0], lo, hi)
+
+    tl, tc, tr = geom(uu - t0, vv - t1), geom(uu, vv - t1), geom(uu + t0, vv - t1)
+    lc, rc_ = geom(uu - t0, vv), geom(uu + t0, vv)
+    bl, bc, br = geom(uu - t0, vv + t1), geom(uu, vv + t1), geom(uu + t0, vv + t1)
+    dx = (tr + 2.0 * rc_ + br) - (tl + 2.0 * lc + bl)
+    dy = (bl + 2.0 * bc + br) - (tl + 2.0 * tc + tr)
+    w0, w1 = u["wtex"]
+    hn = _normalize([fdiv(-dx, w0), torch.full_like(dx, u["vert"]), fdiv(-dy, w1)])
+    apron = uu <= 0.0
+    n = [torch.where(apron, base, c) for base, c in zip((0.0, 0.0, 1.0), hn)]
+
+    pom = cfg.pom_dict
+    pu, pv, occl = uu, vv, ones
+    if pom is not None:
+        pu, pv, layer, crossed = _pom_uv(hm, uu, vv, n, vd, **_pom_kw(pom))
+    hs = _nearest(hm, _clip01(pu), _clip01(pv))[0]
+    if pom is not None and pom["layer_height"]:
+        hs = torch.where(crossed, 1.0 - layer, hs)
+    hs = torch.clamp(hs, lo, hi)
+    if pom is not None and pom["occlusion"]:
+        occl = torch.clamp(hs, 0.65, 1.0)
+    height_norm = _clip01(fdiv(hs - lo, rng))
+
+    centers = (0.0, f32(1.0 / 3.0), f32(2.0 / 3.0), 1.0)
+    wgt = []
+    for cn, sm in zip(centers, (1.5, 0.5, 1.0, 1.0)):
+        d = height_norm - cn
+        wgt.append(torch.exp(fdiv(-(d * d), f32(2.0 * 0.1875 * 0.1875))) * sm)
+    wsum = torch.clamp(wgt[0] + wgt[1] + wgt[2] + wgt[3], min=1e-5)
+    wgt = [x / wsum for x in wgt]
+    rough = torch.clamp(wgt[0] * 0.50 + wgt[1] * 0.85 + wgt[2] * 0.50 + wgt[3] * 0.25, 0.25, 1.0)
+    ML = _MATERIAL_LINEAR
+    mat_alb = [wgt[0] * float(ML[0, c]) + wgt[1] * float(ML[1, c]) + wgt[2] * float(ML[2, c])
+               + wgt[3] * float(ML[3, c]) for c in range(3)]
+    overlay = _lut_sample(u["lut"], height_norm)
+    if cfg.albedo_mode == "colormap":
+        final = overlay
+    elif cfg.albedo_mode == "material":
+        final = mat_alb
+    else:
+        final = [m + (o - m) * u["colormap_strength"] for m, o in zip(mat_alb, overlay)]
+    albedo = [_clip01(c) for c in final]
+    if cfg.hue_on:
+        albedo = _hue_variation(albedo, height_norm, u["hue_strength"])
+
+    # PCSS (S5) at the undisplaced height, in the spacing's frame
+    shadow_h = _clip01(fdiv(geom(uu, vv) - lo, rng))
+    sp_ = u["spacing"]
+    sp = [(uu - 0.5) * sp_, (vv - 0.5) * sp_, shadow_h * u["z_scale"]]
+    vis = _pcss(u["shadow_depth"], u["shadow_lvp"], sp, n, u["pcss_ld"])
+    combined_shadow = torch.clamp(f32(0.8) + f32(0.2) * vis, min=0.30)
+
+    # split-sum IBL
+    ibl_i = u["ibl_intensity"]
+    ndv_raw = _dot(n, vd)
+    ndv = _clip01(ndv_raw)
+    rc2 = _clip01(rough)
+    refl = _normalize([(2.0 * ndv_raw) * nc - v for nc, v in zip(n, vd)])
+    omc = _clip01(1.0 - ndv)
+    o2 = omc * omc
+    F_ibl = 0.04 + (torch.clamp(1.0 - rc2, min=0.04) - 0.04) * (omc * (o2 * o2))
+    irr = _cube_sample(u["ibl_irradiance"], n)
+    ibl_diffuse = [(1.0 - F_ibl) * a * i for a, i in zip(albedo, irr)]
+    pref = _cube_sample_mips(u["ibl_spec"], refl, rc2 * rc2 * 9.0)
+    brdf = _bilinear(u["ibl_brdf"], ndv, rc2)
+    spec_brdf = F_ibl * brdf[0] + brdf[1]
+
+    # beauty composition (P2-S4)
+    ndl = torch.clamp(_dot(n, u["ldir"]), min=0.0)
+    base_diffuse = (f32(0.32) + f32(0.10 - 0.32) * ndl) + f32(0.36 - 0.10) * ndl * u["sun_int"]
+    edge_sig = (1.0 - n[1].abs()) * 0.3 + _quad_grad(n) * 15.0
+    edge_bright = torch.clamp(edge_sig * (ndl + 0.3), 0.0, 0.25)
+    edge_dark = torch.clamp(edge_sig * (1.0 - ndl) * 0.5, 0.0, 0.15)
+    diffuse_lit = (base_diffuse + edge_bright - edge_dark) \
+        * (torch.clamp(occl, min=0.65) * combined_shadow)
+    lighting = diffuse_lit + _norm(ibl_diffuse) * ibl_i * u["ibl_fill"]
+    shaded = torch.stack([(a * lighting + torch.minimum(p * spec_brdf * ibl_i * 0.12, a * 0.20))
+                          * u["exposure"] for a, p in zip(albedo, pref)], -1)
+    final = tonemap_filmic_terrain(shaded)
+    # S8's sRGB encode clamps c to 1e-8 inside the power, JAX's S9 encode does
+    # not: the power's branch has c > 0.0031308, so both give the same values
+    encoded = srgb_encode(final) if cfg.encode == "srgb" else gamma_correct(final, 2.2)
+    rgb = torch.round(_clip01(encoded) * 255.0).to(torch.uint8)
+    bg = torch.tensor(CLIP_BACKGROUND, dtype=torch.uint8, device=dev)
+    rgba = torch.full((H, W, 4), 255, dtype=torch.uint8, device=dev)
+    rgba[..., :3] = torch.where(u["gb_valid"].bool()[..., None], rgb, bg)
+    return rgba
+
+
+def _clip_args(u: dict):
+    g = _kernels.ClipArgs()
+    keep = [u["gb_uv"].contiguous(), u["gb_world"].contiguous(),
+            u["gb_valid"].to(torch.uint8).contiguous()]
+    g.uv, g.world, g.valid = (t.data_ptr() for t in keep)
+    g.spacing = u["spacing"]
+    g.wtex = (_kernels._F * 2)(*u["wtex"])
+    return g, keep
+
+
+def _clipmap_kernel(cfg: ClipCfg, u: dict) -> torch.Tensor:
+    dev = u["hm"].device
+    out = torch.empty((cfg.height, cfg.width, 4), dtype=torch.uint8, device=dev)
+    a, keep = screen_args(cfg, u)
+    g, keep_g = _clip_args(u)
+    _kernels.require_cuda("S9 clipmap_shade", *keep, *keep_g, out)
+    err = _kernels.lib().f3d_clipmap_shade(a, g, _kernels.ptr(out), _kernels.stream_ptr(dev))
+    _kernels.check(err, "S9 clipmap_shade")
+    clipmap_shade.launches += 1
+    return out
+
+
+def clipmap_shade(cfg: ClipCfg, u: dict) -> torch.Tensor:
+    """S9: the clipmap shade of every pixel of the G-buffer, PCSS (S5) and
+    POM (S7) inside: (H, W, 4) u8 on the uniforms' device. CPU tensors run
+    the plain version."""
+    if u["hm"].device.type == "cpu":
+        return clipmap_shade_plain(cfg, u)
+    return _clipmap_kernel(cfg, u)
+
+
+clipmap_shade.launches = 0
+
+
+def prepare_clipmap(
+    heightmap, lut_rgb, *, size_px, camera_mode, device, terrain_span=1.0,
+    z_scale=1.0, exposure=1.0, light_azimuth_deg=135.0,
+    light_elevation_deg=25.0, sun_intensity=1.0,
+    sun_color=(1.0, 1.0, 1.0), ibl_intensity=1.0, cam_radius=1.44,
+    cam_phi_deg=135.0, cam_theta_deg=45.0, fov_y_deg=55.0,
+    clip=(0.1, 6000.0), albedo_mode="mix", colormap_strength=0.5,
+    hue_variation_strength=0.08, hdr_rgb=None, domain=(0.0, 1.0),
+    pom=None, generation="recipe", encode="gamma", gbuffer=None,
+) -> Tuple[ClipCfg, dict]:
+    """render_clipmap_scene's host work on `device` (a torch.device): the IBL
+    pyramid (S1-S3) and the shadow map (S4) from their caches or built, the
+    host G-buffer (clipmap_mesh.rasterize_clipmap_gbuffer's, or `gbuffer`
+    where the caller has it), uploaded once, and the uniforms. Returns S9's
+    (cfg, u)."""
+    from .clipmap_mesh import rasterize_clipmap_gbuffer
+
+    W, H = int(size_px[0]), int(size_px[1])
+    if W % 2 or H % 2 or W < 2 or H < 2:
+        raise ValueError(f"the clipmap mode renders even sizes only (its normal derivatives "
+                         f"are taken per 2x2 pixel quad): got {W}x{H}")
+    if albedo_mode not in ALBEDO_MODES:
+        raise ValueError(f"albedo_mode must be one of {ALBEDO_MODES}")
+    hm = np.asarray(heightmap, np.float32)
+    dom_lo, dom_hi = float(domain[0]), float(domain[1])
+    if hdr_rgb is None:
+        hdr_rgb = decode_test_hdr()
+    ibl = build_ibl(hdr_rgb, device=device)
+    gb = gbuffer if gbuffer is not None else rasterize_clipmap_gbuffer(
+        hm, size_px=(W, H), camera_mode=camera_mode, terrain_span=terrain_span,
+        z_scale=z_scale, domain=(dom_lo, dom_hi), cam_radius=cam_radius,
+        cam_phi_deg=cam_phi_deg, cam_theta_deg=cam_theta_deg, fov_y_deg=fov_y_deg, clip=clip)
+    ldir = light_direction(light_azimuth_deg, light_elevation_deg)
+    lcol = np.asarray(sun_color, np.float32) * float(sun_intensity)
+    spacing = float(max(terrain_span, 1e-3))
+    shadow_world = terrain_span if generation == "family" else spacing
+    depth_map, lvp, _texel = build_shadow_map(
+        hm, terrain_span=shadow_world, z_scale=z_scale, sun_dir=-ldir,
+        domain=(dom_lo, dom_hi), device=device)
+    hv = float(np.clip(np.float32(hue_variation_strength), 0.0, 0.2))
+    cfg = ClipCfg(W, H, str(albedo_mode), hv > 0.0, _freeze(pom_config(pom, generation)),
+                  str(encode))
+    t = lambda a: torch.as_tensor(np.array(a, np.float32, order="C"),  # noqa: E731
+                                  device=device)
+    lo32, hi32, zs32, sp32 = (np.float32(dom_lo), np.float32(dom_hi), np.float32(z_scale),
+                              np.float32(spacing))
+    texel = (np.float32(1.0 / hm.shape[1]), np.float32(1.0 / hm.shape[0]))
+    l32 = np.asarray(lcol, np.float32)
+    u = {
+        "hm": t(hm), "lut": t(lut_rgb),
+        "dom_lo": float(lo32), "dom_hi": float(hi32),
+        "dom_rng": float(max(hi32 - lo32, np.float32(1e-6))),
+        "z_scale": float(zs32), "spacing": float(sp32),
+        "texel": tuple(float(x) for x in texel),
+        "wtex": tuple(float(x * sp32) for x in texel),
+        "vert": float(max(zs32 * np.float32(0.5), np.float32(1e-3))),
+        "ibl_fill": f32(0.18 * 0.35) if generation == "family" else f32(0.22),
+        "ldir": _f32_triple(ldir), "lcol": _f32_triple(lcol),
+        "sun_int": float(np.sqrt(l32[0] * l32[0] + l32[1] * l32[1] + l32[2] * l32[2])),
+        "pcss_ld": light_dir_unit(-ldir),
+        "camera_pos": _f32_triple(gb["eye"]),
+        "exposure": float(max(np.float32(exposure), np.float32(0.0))),
+        "ibl_intensity": f32(ibl_intensity),
+        "colormap_strength": float(np.clip(np.float32(colormap_strength), 0.0, 1.0)),
+        "hue_strength": hv,
+        "shadow_depth": depth_map, "shadow_lvp": lvp,
+        "ibl_irradiance": ibl["irradiance"], "ibl_spec": ibl["spec_mips"],
+        "ibl_brdf": ibl["brdf"],
+        "gb_uv": t(gb["uv"]), "gb_world": t(gb["world_pos"]),
+        "gb_valid": torch.as_tensor(np.ascontiguousarray(gb["valid"], np.uint8), device=device),
+    }
+    return cfg, u
+
+
+def render_clipmap_scene(
+    heightmap, lut_rgb, *, size_px, camera_mode, terrain_span=1.0,
+    z_scale=1.0, exposure=1.0, light_azimuth_deg=135.0,
+    light_elevation_deg=25.0, sun_intensity=1.0,
+    sun_color=(1.0, 1.0, 1.0), ibl_intensity=1.0, cam_radius=1.44,
+    cam_phi_deg=135.0, cam_theta_deg=45.0, fov_y_deg=55.0,
+    clip=(0.1, 6000.0), albedo_mode="mix", colormap_strength=0.5,
+    hue_variation_strength=0.08, hdr_rgb=None, domain=(0.0, 1.0),
+    pom=None, generation="recipe", encode="gamma", device="cuda", **_ignored,
+):
+    """TerrainRenderer's clipmap camera mode, with every argument of the JAX
+    function (screen.py:2030-2039; others are ignored, as there), on the card
+    unless device="cpu". Returns (H, W, 4) u8."""
+    from ..pt.terrain_ref import resolve_device
+
+    cfg, u = prepare_clipmap(
+        heightmap, lut_rgb, size_px=size_px, camera_mode=camera_mode,
+        device=resolve_device(device), terrain_span=terrain_span, z_scale=z_scale,
+        exposure=exposure, light_azimuth_deg=light_azimuth_deg,
+        light_elevation_deg=light_elevation_deg, sun_intensity=sun_intensity,
+        sun_color=sun_color, ibl_intensity=ibl_intensity, cam_radius=cam_radius,
+        cam_phi_deg=cam_phi_deg, cam_theta_deg=cam_theta_deg, fov_y_deg=fov_y_deg, clip=clip,
+        albedo_mode=albedo_mode, colormap_strength=colormap_strength,
+        hue_variation_strength=hue_variation_strength, hdr_rgb=hdr_rgb, domain=domain,
+        pom=pom, generation=generation, encode=encode)
+    return clipmap_shade(cfg, u).cpu().numpy()

@@ -125,7 +125,7 @@ def test_trace_mesh_against_brute_force_and_caps():
     # wrapper checks its node count
     v, i = box_town(3)
     bvh = tbvh.build_sah_bvh(v, i)
-    scene, n = tbvh.mesh_scene(bvh)
+    scene, n = tbvh.mesh_scene(bvh, device="cpu")
     ro, rd = random_rays(v, 512, seed=9)
     hit_bf, t_bf = jbvh.trace_mesh_bruteforce_numpy(v, i, ro, rd)
     got = tbvh.trace_mesh_plain(scene, n, tuple(torch.as_tensor(ro.T.copy())),
@@ -141,3 +141,15 @@ def test_trace_mesh_against_brute_force_and_caps():
     with pytest.raises(ValueError, match="n_nodes"):
         tbvh.trace_mesh(scene, n + 1, tuple(torch.as_tensor(ro.T.copy())),
                         tuple(torch.as_tensor(rd.T.copy())))
+
+
+def test_mesh_scene_defaults_to_cuda():
+    """mesh_scene called as the JAX package's puts the BVH on the card:
+    without CUDA it raises DeviceError."""
+    from forge3d_tpu_torch.errors import DeviceError
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks the refusal without one")
+    v, i = box_town(2)
+    with pytest.raises(DeviceError, match="CUDA is not available"):
+        tbvh.mesh_scene(tbvh.build_sah_bvh(v, i))

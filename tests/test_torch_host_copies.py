@@ -5,7 +5,8 @@
 # basis and orbit origin bit for bit, the memory ledger's budget refusals
 # and records, a render certificate's canonical JSON, digest and Ed25519
 # signature byte for byte, terrain parameter defaults and validation, the
-# LUT and Hosek arrays, and PNG bytes.
+# LUT and Hosek arrays, PNG bytes and PNG reads, and the screen engine's host
+# helpers (the clipmap mode's camera spelling, the sky's cooked uniforms).
 import inspect
 
 import numpy as np
@@ -282,3 +283,50 @@ def test_screen_host_helpers_equal(tmp_path, monkeypatch):
     got = ts._build_brdf_lut(16, 64)
     assert ref.max() > 0.0
     np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.parametrize("mode", ["clipmap", "clipmap:4:32:32:10:0.3"])
+def test_clipmap_config_from_camera_mode_equal(mode):
+    from forge3d_tpu.terrain import clipmap_mesh as jcm
+
+    from forge3d_tpu_torch.terrain import clipmap_mesh as tcm
+
+    ref = jcm.ClipmapConfig.from_camera_mode(mode)
+    got = tcm.ClipmapConfig.from_camera_mode(mode)
+    assert vars(got) == vars(ref)
+    assert got == tcm.ClipmapConfig(**vars(ref))
+
+
+def test_png_to_numpy_reads_the_ports_png(tmp_path):
+    from forge3d_tpu.io import image as jimg
+
+    from forge3d_tpu_torch.io import image as timg
+    from forge3d_tpu_torch.io import png as tpng
+
+    rng = np.random.default_rng(44)
+    for shape, dtype in (((9, 13, 4), np.uint8), ((7, 5, 3), np.uint8), ((6, 4), np.uint16)):
+        a = rng.integers(0, np.iinfo(dtype).max, shape, dtype=dtype)
+        tpng.write_png(tmp_path / "a.png", a)
+        got = timg.png_to_numpy(tmp_path / "a.png")
+        ref = jimg.png_to_numpy(tmp_path / "a.png")
+        assert got.dtype == ref.dtype == dtype
+        np.testing.assert_array_equal(got, ref)
+        np.testing.assert_array_equal(got.reshape(a.shape), a)
+
+
+@pytest.mark.parametrize("turbidity", [1.0, 3.0, 10.0])
+@pytest.mark.parametrize("elevation", [0.0, 24.0, 80.0])
+def test_cook_sky_uniforms_bit_equal(turbidity, elevation):
+    from forge3d_tpu.terrain import screen as js
+
+    from forge3d_tpu_torch.terrain import screen as ts
+
+    cfg = dict(turbidity=turbidity, ground_albedo=0.3, sun_intensity=1.2, sun_size=0.8,
+               sky_exposure=1.1)
+    ldir = js.light_direction(135.0, elevation)
+    ref = js._cook_sky_uniforms(cfg, ldir)
+    got = ts._cook_sky_uniforms(cfg, ldir)
+    assert list(got) == list(ref)
+    for k, v in ref.items():
+        assert np.asarray(got[k]).dtype == np.asarray(v).dtype, k
+        np.testing.assert_array_equal(np.asarray(got[k]), np.asarray(v), err_msg=k)

@@ -248,6 +248,24 @@ int f3d_screen_shade(const ScreenArgs* a, const ScreenOut* o, void*) {
         }
     return 0;
 }
+// S9 the same way
+int f3d_clipmap_shade(const ScreenArgs* a, const ClipArgs* c, unsigned char* rgba, void*) {
+    for (int qy = 0; qy < a->height / 2; ++qy)
+        for (int qx = 0; qx < a->width / 2; ++qx) {
+            ClipState s[4];
+            for (int k = 0; k < 4; ++k) clip_front(*a, *c, 2 * qx + (k & 1), 2 * qy + (k >> 1), s[k]);
+            const float g = quad_grad(s[0].n, s[1].n, s[2].n);
+            for (int k = 0; k < 4; ++k)
+                clip_back(*a, *c, rgba, 2 * qx + (k & 1), 2 * qy + (k >> 1), s[k], g);
+        }
+    return 0;
+}
+int f3d_struct_sizes(long long* out, int n) {
+    const long long sizes[] = {(long long)sizeof(ScreenArgs), (long long)sizeof(ScreenOut),
+                               (long long)sizeof(ClipArgs), (long long)sizeof(SkyArgs)};
+    for (int i = 0; i < n && i < 4; ++i) out[i] = sizes[i];
+    return 4;
+}
 // test entry: synthesize_polar's contraction for one column and row
 float f3d_test_crossing(const float* M, const float* v, int K, int C, float Q, float* out) {
     return crossing(M, v, C, C, K, Q, out);
@@ -268,13 +286,7 @@ def host_lib(tmp_path_factory):
     subprocess.run([gxx, "-O2", "-std=c++17", "-ffp-contract=off", "-shared", "-fPIC",
                     "-I", str(_kernels.CSRC), "-o", str(out), str(src)],
                    check=True, capture_output=True, text=True, timeout=300)
-    lib = ctypes.CDLL(str(out))
-    for name, argtypes in _kernels._SIGNATURES.items():
-        getattr(lib, name).argtypes = argtypes
-        getattr(lib, name).restype = ctypes.c_int
-    lib.f3d_error_string.argtypes = [ctypes.c_int]
-    lib.f3d_error_string.restype = ctypes.c_char_p
-    return lib
+    return _kernels.bind(ctypes.CDLL(str(out)))
 
 
 @pytest.fixture(params=["host", pytest.param("cuda", marks=pytest.mark.cuda)])
@@ -816,13 +828,15 @@ def test_hosek_kernel(kernels):
 
 # ---------------------------------------------------------------------------
 # The screen-mode kernels (csrc/screen.cuh): S1 env cube, S2/S3 cube
-# convolution, S4 depth raster and S8 shade with S5 inside, against their
-# plain versions in terrain/screen.py, on a 32^2 env cube, a 512^2 shadow
-# map of a 128^2 grid, and 64x48 renders. Gates: the f16 cubes equal on
+# convolution, S4 depth raster, S8 shade with S5, S6 and S7 inside and the
+# clipmap shade S9, against their plain versions in terrain/screen.py, on a
+# 32^2 env cube, a 512^2 shadow map of a 128^2 grid, and 64x48 renders.
+# Gates: the f16 cubes equal on
 # >= 99.9% of texels and within one f16 step elsewhere; depth maps equal on
-# >= 99.9% of texels; S8's rgba within one u8 step on >= 99.5% of pixels and
-# its float planes within 1e-5 * (1 + |ref|) on >= 99.9%. Both sides run the
-# same float32 operations; atan2/acos/sin/exp/pow may differ by an ulp.
+# >= 99.9% of texels; S8's and S9's rgba within one u8 step on >= 99.5% of
+# pixels and S8's float planes within 1e-5 * (1 + |ref|) on >= 99.9%. Both
+# sides run the same float32 operations; atan2/acos/sin/exp/pow may differ
+# by an ulp.
 # ---------------------------------------------------------------------------
 
 
@@ -886,8 +900,20 @@ def test_raster_depth_kernel(kernels):
         assert 0.05 < float((got < 1.0).double().mean()) < 1.0
 
 
+SKY = dict(enabled=True, model="hosek-wilkie", turbidity=3.0, ground_albedo=0.3,
+           sun_intensity=1.0, sun_size=1.0, sky_exposure=1.0, aerial_density=1.0,
+           aerial_perspective=True)
+POM = dict(enabled=True, height_scale=0.04, min_steps=12, max_steps=40, refine_steps=4)
+
 SCREEN_CASES = {
     "defaults": {},
+    "pom_hosek_sky": dict(pom=POM, sky=SKY, ibl_intensity=1.0, hue_variation_strength=0.1),
+    "pom_preetham_sky_filterable": dict(pom=dict(POM, refine_steps=0, min_steps=4, max_steps=9),
+                                        sky=dict(SKY, model="preetham", turbidity=6.0),
+                                        height_filterable=True, generation="recipe"),
+    "pom_sky_water_reflection": dict(water=True, pom=POM, sky=dict(SKY, aerial_density=3.0),
+                                     reflection=dict(enabled=True, wave_strength=0.04,
+                                                     shore_atten_width=0.3)),
     "water_reflection_mix": dict(water=True, albedo_mode="mix", colormap_strength=0.5,
                                  reflection=dict(enabled=True, wave_strength=0.04,
                                                  shore_atten_width=0.3)),
@@ -917,7 +943,7 @@ def screen_inputs(device, monkeypatch, W=64, H=48, **kw):
     from forge3d_tpu_torch import colormaps
     from forge3d_tpu_torch.terrain import screen as scr
 
-    monkeypatch.setattr(scr, "build_ibl", lambda hdr, dev: small_ibl(dev))
+    monkeypatch.setattr(scr, "build_ibl", lambda hdr, device: small_ibl(device))
     orig = scr.build_shadow_map
     monkeypatch.setattr(scr, "build_shadow_map",
                         lambda *a, **k: orig(*a, **k, resolution=512, grid_res=128))
@@ -951,3 +977,47 @@ def test_screen_shade_kernel(kernels, monkeypatch, case):
     for k in ("albedo", "normal", "height"):
         assert close_frac(ref[k], got[k]) >= FRAC, k
     assert float(ref["rgba"][..., :3].float().std()) > 5.0
+
+
+def clipmap_inputs(device, monkeypatch, W=64, H=48, **kw):
+    from forge3d_tpu_torch.terrain import screen as scr
+
+    monkeypatch.setattr(scr, "build_ibl", lambda hdr, device: small_ibl(device))
+    orig = scr.build_shadow_map
+    monkeypatch.setattr(scr, "build_shadow_map",
+                        lambda *a, **k: orig(*a, **k, resolution=512, grid_res=128))
+    dem = screen_dem()
+    lut = scr.build_lut_from_stops(((0.0, "#00aa00"), (0.5, "#ffff00"), (1.0, "#800000")))
+    return scr.prepare_clipmap(dem, lut, size_px=(W, H), camera_mode="clipmap:4:16:16:10:0.3",
+                               device=device, domain=(float(dem.min()), float(dem.max())),
+                               z_scale=1.2, cam_radius=1.2, ibl_intensity=0.3, **kw)
+
+
+@pytest.mark.parametrize("kw", [dict(pom=POM), dict(pom=POM, generation="family", encode="srgb",
+                                                   albedo_mode="colormap")],
+                         ids=["pom_recipe", "pom_family_srgb"])
+def test_clipmap_shade_kernel(kernels, monkeypatch, kw):
+    from forge3d_tpu_torch.terrain import screen as scr
+
+    cfg, u = clipmap_inputs(kernels, monkeypatch, **kw)
+    before = scr.clipmap_shade.launches
+    got = scr._clipmap_kernel(cfg, u)
+    assert scr.clipmap_shade.launches == before + 1
+    ref = scr.clipmap_shade_plain(cfg, u)
+    du = (ref.int() - got.int()).abs().amax(-1)
+    assert float((du <= 1).double().mean()) >= 0.995
+    assert torch.equal(got[..., 3], torch.full_like(got[..., 3], 255))
+    valid = u["gb_valid"].bool()
+    assert 0.2 < float(valid.double().mean()) and float(ref[..., :3][valid].float().std()) > 5.0
+
+
+def test_struct_layout_guard(host_lib, monkeypatch):
+    """The argument structs' ctypes mirrors have the sizes the sources give
+    them, and a mirror out of step is refused when the library is bound."""
+    sizes = (ctypes.c_longlong * 4)()
+    assert host_lib.f3d_struct_sizes(sizes, 4) == len(_kernels.STRUCTS) == 4
+    assert list(sizes) == [ctypes.sizeof(s) for s in _kernels.STRUCTS]
+    short = type("ShortSky", (ctypes.Structure,), {"_fields_": _kernels.SkyArgs._fields_[:-1]})
+    monkeypatch.setattr(_kernels, "STRUCTS", (*_kernels.STRUCTS[:3], short))
+    with pytest.raises(RuntimeError, match="ctypes mirrors"):
+        _kernels.bind(host_lib)

@@ -38,7 +38,7 @@ def six(cls):
 def test_light_types_and_buffer_equal():
     assert tlt.LIGHT_TYPES == jlt.LIGHT_TYPES and tlt._TYPE_ID == jlt._TYPE_ID
     ref = jlt.LightBuffer.from_lights(six(jlt.Light))
-    got = tlt.LightBuffer.from_lights(six(tlt.Light))
+    got = tlt.LightBuffer.from_lights(six(tlt.Light), device="cpu")
     assert got.count == ref.count == 6
     for k in tlt.LightBuffer.__dataclass_fields__:
         a = np.asarray(getattr(ref, k))
@@ -62,7 +62,7 @@ def test_light_validation(kw):
         msgs.append(str(ei.value))
     assert msgs[0] == msgs[1]
     with pytest.raises(ValueError, match="empty"):
-        tlt.LightBuffer.from_lights([])
+        tlt.LightBuffer.from_lights([], device="cpu")
 
 
 WEIGHTS = {
@@ -79,7 +79,7 @@ WEIGHTS = {
 def test_alias_table_equal(name):
     w = WEIGHTS[name]()
     ref = jls.alias_table_build(w)
-    got = tls.alias_table_build(w)
+    got = tls.alias_table_build(w, device="cpu")
     for k in ("prob", "alias", "pdf"):
         a = np.asarray(getattr(ref, k))
         assert a.dtype == getattr(got, k).numpy().dtype, k
@@ -97,7 +97,7 @@ def test_alias_table_equal(name):
 
 def test_light_power_weights_and_refusals():
     ref = jls.light_power_weights(jlt.LightBuffer.from_lights(six(jlt.Light)))
-    got = tls.light_power_weights(tlt.LightBuffer.from_lights(six(tlt.Light)))
+    got = tls.light_power_weights(tlt.LightBuffer.from_lights(six(tlt.Light), device="cpu"))
     assert ref.dtype == got.dtype
     np.testing.assert_array_equal(ref, got)
     for w, msg in (([], "at least one"), ([1.0, -1.0], "non-negative"),
@@ -126,8 +126,8 @@ def test_sample_light_nee_matches_jax(which):
     tl = [six(tlt.Light)[l] for l in picked]
     jbuf = jlt.LightBuffer.from_lights(jl)
     jtab = jls.alias_table_build(jls.light_power_weights(jbuf))
-    tbuf = tlt.LightBuffer.from_lights(tl)
-    ttab = tls.alias_table_build(tls.light_power_weights(tbuf))
+    tbuf = tlt.LightBuffer.from_lights(tl, device="cpu")
+    ttab = tls.alias_table_build(tls.light_power_weights(tbuf), device="cpu")
     x = lanes(4096, seed=len(picked) + 7 * picked[0])
     ref = jls.sample_light_nee(jbuf, jtab, *(jnp.asarray(a) for a in x))
     got = tls.sample_light_nee(tbuf, ttab, *(torch.as_tensor(a) for a in x))  # CPU: plain
@@ -140,3 +140,21 @@ def test_sample_light_nee_matches_jax(which):
     assert float(np.asarray(ref[4]).max()) > 0.0   # some lanes are lit
     if which == "directional":
         assert np.all(got[3].numpy() == np.float32(1e30))
+
+
+def test_light_tables_default_to_cuda():
+    """LightBuffer.from_lights and alias_table_build called as the JAX
+    package's put their tables on the card: without CUDA they raise
+    DeviceError, after their arguments are checked."""
+    from forge3d_tpu_torch.errors import DeviceError
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks the refusal without one")
+    with pytest.raises(DeviceError, match="CUDA is not available"):
+        tlt.LightBuffer.from_lights(six(tlt.Light))
+    with pytest.raises(DeviceError, match="CUDA is not available"):
+        tls.alias_table_build([1.0, 2.0, 3.0])
+    with pytest.raises(ValueError, match="empty"):
+        tlt.LightBuffer.from_lights([])
+    with pytest.raises(ValueError, match="at least one weight"):
+        tls.alias_table_build([])

@@ -1,14 +1,19 @@
-# The port's screen-mode kernels S1-S5 (forge3d_tpu_torch/terrain/screen.py,
+# The port's screen-mode kernels S1-S7 (forge3d_tpu_torch/terrain/screen.py,
 # their plain versions on the CPU) against the JAX package's functions in
 # forge3d_tpu/terrain/screen.py, on the same inputs made with numpy from a
 # seed, and render_screen_scene's options that TerrainRenderer does not
 # reach (the filterable height sampler, the sRGB encode, the "consistent"
-# golden generation), with the refusals of both packages.
+# and "recipe" golden generations, POM and the aerial sky with them), with
+# the refusals of both packages.
 #
 # Gates: S1-S3 f16 cubes bit-equal on >= 99.9% of texels and within one f16
 # step elsewhere; S4's light matrix, texel size, triangles, orientation vote
 # and box bounds equal, depth equal on >= 99.9% of texels; S5's visibility
-# within 1e-5 * (1 + |ref|) on >= 99.5% of receivers; whole renders rgba
+# within 1e-5 * (1 + |ref|) on >= 99.5% of receivers; S7's uv and layer
+# within 1e-5 * (1 + |ref|) on every lane and its crossed flags equal; S6's
+# cooked uniforms bit-equal, its u8 sky steps equal on every pixel (the CPU
+# showed them all equal; the gate the port set is >= 99.5%, never more than
+# one step apart); whole renders rgba
 # within one u8 step on >= 99.5% of pixels and the AOVs within
 # 1e-5 * (1 + |ref|) on >= 99.5% of elements. Both sides round every
 # float32 operation once in the same order; they differ where XLA's
@@ -127,7 +132,8 @@ def test_shadow_geometry_and_raster_s4(shadow512):
     np.testing.assert_array_equal(keep, seen["keep"])
     assert (wbb, hbb) == (seen["wbb"], seen["hbb"])
     got, lvp_b, texel_b = T.build_shadow_map(dem, terrain_span=2.8, z_scale=1.45, sun_dir=SUN,
-                                             resolution=512, grid_res=128, domain=dom)
+                                             resolution=512, grid_res=128, domain=dom,
+                                             device="cpu")
     np.testing.assert_array_equal(lvp_b, lvp)
     assert (got.numpy() == depth).mean() >= FRAC
     assert 0.05 < (depth < 1.0).mean() < 1.0     # the terrain covers part of the map
@@ -186,19 +192,132 @@ def test_odd_sizes_refused_by_both():
 
 
 def test_unported_branches_refused():
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        T.render_screen_scene(DEM, LUT, size_px=(64, 48), device="cpu",
-                              sky=dict(enabled=True, aerial_perspective=True))
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        T.render_screen_scene(DEM, LUT, size_px=(64, 48), device="cpu",
-                              pom=dict(enabled=True, height_scale=0.05, max_steps=8))
+    """Both packages refuse a sky that lacks its settings, with the same
+    KeyError from _cook_sky_uniforms (the port no longer refuses the aerial
+    sky or POM: see test_pom_and_sky_render_matches_jax)."""
+    bare = dict(enabled=True, aerial_perspective=True)
+    with pytest.raises(KeyError) as ref:
+        J._cook_sky_uniforms(bare, J.light_direction(135.0, 24.0))
+    with pytest.raises(KeyError) as got:
+        T.render_screen_scene(DEM, LUT, size_px=(64, 48), device="cpu", sky=bare)
+    assert got.value.args == ref.value.args == ("turbidity",)
+
+
+def test_prepasses_default_to_cuda():
+    """build_ibl and build_shadow_map called as the JAX package's are run on
+    the card: without CUDA they raise DeviceError."""
+    from forge3d_tpu_torch.errors import DeviceError
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks the refusal without one")
+    with pytest.raises(DeviceError, match="CUDA is not available"):
+        T.build_ibl(J.decode_test_hdr())
+    with pytest.raises(DeviceError, match="CUDA is not available"):
+        T.build_shadow_map(DEM, terrain_span=2.8, z_scale=1.45, sun_dir=SUN, domain=DOM)
+
+
+# ---------------------------------------------------------------------------
+# S7 and S6 alone
+# ---------------------------------------------------------------------------
+
+def _pom_field(n=2048, seed=23):
+    """Normals (a fifth of them straight up) and view directions, grazing
+    and near-normal, with uv across the map."""
+    rng = np.random.default_rng(seed)
+    nrm = rng.standard_normal((n, 3)).astype(np.float32)
+    nrm[:, 1] = np.abs(nrm[:, 1]) + 0.05
+    nrm[: n // 5] = (0.0, 1.0, 0.0)
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    vd = rng.standard_normal((n, 3)).astype(np.float32)
+    vd[: n // 4, 2] = 20.0          # near-normal to the TBN's z
+    vd /= np.linalg.norm(vd, axis=1, keepdims=True)
+    return nrm, vd, rng.uniform(0, 1, n).astype(np.float32), rng.uniform(0, 1, n).astype(np.float32)
+
+
+@pytest.mark.parametrize("filterable", [False, True], ids=["nearest", "bilinear"])
+@pytest.mark.parametrize("metres", [False, True], ids=["unit", "metres"])
+@pytest.mark.parametrize("refine", [0, 4])
+def test_pom_uv_s7(filterable, metres, refine):
+    import jax.numpy as jnp
+
+    hm = (0.5 + 0.4 * np.sin(np.mgrid[0:33, 0:33][1] * 0.3)
+          * np.cos(np.mgrid[0:33, 0:33][0] * 0.25)).astype(np.float32)
+    if metres:
+        hm = (hm * 800.0 + 1200.0).astype(np.float32)
+    nrm, vd, u, v = _pom_field()
+    kw = dict(scale=0.04, min_steps=12, max_steps=40, refine_steps=refine)
+    ref = J._pom_uv(jnp.asarray(hm), jnp.asarray(u), jnp.asarray(v), jnp.asarray(nrm),
+                    jnp.asarray(vd), samp=J._bilinear if filterable else J._nearest, **kw)
+    got = T._pom_uv(torch.as_tensor(hm), torch.as_tensor(u), torch.as_tensor(v),
+                    [torch.as_tensor(nrm[:, c]) for c in range(3)],
+                    [torch.as_tensor(vd[:, c]) for c in range(3)],
+                    samp=T._bilinear if filterable else T._nearest, **kw)
+    for r, g in zip(ref[:3], got[:3]):
+        assert within(np.asarray(r), g.numpy()).all()
+    crossed = np.asarray(ref[3])
+    np.testing.assert_array_equal(crossed, got[3].numpy())
+    # a unit DEM stops lanes at different steps; over metres every lane marches to the end
+    assert (crossed.mean() > 0.5) if not metres else not crossed.any()
+
+
+SKY = dict(enabled=True, turbidity=3.0, ground_albedo=0.3, sun_intensity=1.0, sun_size=1.0,
+           sky_exposure=1.0, aerial_density=1.0, aerial_perspective=True)
+
+
+@pytest.mark.parametrize("model", ["hosek-wilkie", "preetham"])
+def test_render_sky_s6(model):
+    import jax.numpy as jnp
+
+    eye = J.orbit_eye(5.0, 138.0, 18.0)     # a low camera: the sky fills the frame's top
+    view = J.look_at_rh(eye, (0.0, 0.0, 0.0), (0.0, 1.0, 0.0))
+    proj = J.perspective_proj(54.0, 64 / 48, 0.1, 6000.0)
+    for turb, el in ((3.0, 24.0), (8.0, 4.0)):
+        ldir = J.light_direction(135.0, el)
+        cfg = dict(SKY, model=model, turbidity=turb)
+        ck, ck_t = J._cook_sky_uniforms(cfg, ldir), T._cook_sky_uniforms(cfg, ldir)
+        assert set(ck) == set(ck_t)
+        for k in ck:
+            np.testing.assert_array_equal(np.asarray(ck[k]), np.asarray(ck_t[k]), err_msg=k)
+        iv, ip = np.linalg.inv(view), np.linalg.inv(proj)
+        ref = np.asarray(J._render_sky(64, 48, inv_view=jnp.asarray(iv), inv_proj=jnp.asarray(ip),
+                                       u={k: jnp.asarray(x) for k, x in ck.items()}, model=model))
+        got = T._render_sky(64, 48, inv_view=iv, inv_proj=ip, u=ck_t, model=model).numpy()
+        # every u8 step equal: the CPU shows no pixel a step apart
+        np.testing.assert_array_equal(np.rint(ref * 255.0), np.rint(got * 255.0))
+        assert ref.std() > 0.01
+
+
+@pytest.mark.parametrize("case", ["pom_preetham_filterable", "recipe_reflection_sky"])
+def test_pom_and_sky_render_matches_jax(case):
+    """POM (min/max steps, refinements) under the Preetham aerial sky with the
+    filterable sampler; and the recipe generation (no layer->height switch)
+    with water and a reflection, whose mirrored pass renders the Hosek sky."""
+    pom = dict(enabled=True, height_scale=0.04, min_steps=12, max_steps=40, refine_steps=4)
+    if case == "pom_preetham_filterable":
+        kw = dict(height_filterable=True, pom=dict(pom, height_scale=0.05, max_steps=24),
+                  sky=dict(SKY, model="preetham", turbidity=5.0))
+    else:
+        lo, hi = DOM
+        kw = dict(generation="recipe", pom=pom, sky=dict(SKY, model="hosek-wilkie"),
+                  water_mask=np.clip((lo + 0.3 * (hi - lo) - DEM) / (0.1 * (hi - lo)), 0, 1
+                                     ).astype(np.float32),
+                  reflection=dict(enabled=True, wave_strength=0.05, shore_atten_width=0.3))
+    kw = dict(BASE, size_px=(64, 48), ibl_intensity=1.0, **kw)
+    a, aa = J.render_screen_scene(DEM, LUT, return_aov=True, **kw)
+    b, ab = T.render_screen_scene(DEM, LUT, return_aov=True, device="cpu", **kw)
+    du = np.abs(a.astype(np.int32) - b.astype(np.int32)).max(-1)
+    assert (du <= 1).mean() >= REND_FRAC
+    for k in ("albedo", "normal", "depth"):
+        assert within(aa[k], ab[k]).mean() >= REND_FRAC, k
+    plain = J.render_screen_scene(DEM, LUT, **dict(kw, pom=None, sky=None))
+    assert (np.abs(plain.astype(np.int32) - a.astype(np.int32)).max(-1) > 2).mean() > 0.05
 
 
 def test_caches_are_bounded_and_charged():
     from forge3d_tpu_torch.mem import global_tracker
 
     before = global_tracker().metrics()["tracked_bytes"]
-    T.build_ibl(J.decode_test_hdr(), torch.device("cpu"))
+    T.build_ibl(J.decode_test_hdr(), device="cpu")
     assert len(T._IBL_CACHE) <= T.CACHE_ENTRIES
     assert any(k[0] == T._hash(J.decode_test_hdr().astype(np.float32), "iblj-v1", "golden")
                for k in T._IBL_CACHE)

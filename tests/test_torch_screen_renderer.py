@@ -1,6 +1,7 @@
 # Whole screen-mode renders of the port (forge3d_tpu_torch: TerrainRenderer
 # with camera_mode="screen" and render_screen_scene, the plain versions of
-# S1-S5 and S8 on the CPU) against the JAX package's, at 64x48 and 96x64.
+# S1-S8 on the CPU, POM and the aerial sky included) against the JAX
+# package's, at 64x48 and 96x64.
 #
 # Gates (ROADMAP's rule): rgba within one u8 step on >= 99.5% of pixels; the
 # albedo, normal and depth AOVs within 1e-5 * (1 + |ref|) on >= 99.5% of
@@ -65,6 +66,14 @@ CASES = {
     "constant_nonunit_domain": dict(size_px=(64, 48), albedo_mode="constant",
                                     constant_albedo=(0.5, 0.4, 0.3), **CAM),
     "render_scale_blit": dict(size_px=(64, 48), render_scale=1.25, **CAM),
+    # S7 with the family generation's layer->height switch, and S6's Hosek
+    # sky with the aerial perspective
+    "pom_family_hosek_sky": dict(size_px=(64, 48), ibl=dict(enabled=True, intensity=1.0),
+                                 pom=dict(enabled=True, scale=0.04, min_steps=12, max_steps=40,
+                                          refine_steps=4),
+                                 sky=dict(enabled=True, model="hosek-wilkie", turbidity=3.0,
+                                          aerial_perspective=True, aerial_density=2.0),
+                                 hue_variation_strength=0.08, **CAM),
 }
 
 
@@ -139,6 +148,8 @@ def test_beauty_render_equals_the_aov_render(renderers):
 
 
 def test_screen_refusals(renderers):
+    """Odd sizes are refused by both (POM and the aerial sky no longer are:
+    see the case pom_family_hosek_sky)."""
     jr, tr = renderers
     p = make_terrain_params(**dict(SCENE, size_px=(63, 48)))
     with pytest.raises(TypeError):     # JAX fails tracing the quad derivatives
@@ -146,7 +157,3 @@ def test_screen_refusals(renderers):
     with pytest.raises(ValueError, match="even"):
         tr.render_with_aov(env_maps=rr.IBL(ENV), params=terrain_params_from_dict(p.to_dict()),
                            heightmap=DEM)
-    for kw in (dict(sky=dict(enabled=True)), dict(pom=dict(enabled=True, scale=0.05))):
-        p = make_terrain_params(**dict(SCENE, size_px=(64, 48)), **kw)
-        with pytest.raises(NotImplementedError, match="item 8b"):
-            tr.render_with_aov(params=terrain_params_from_dict(p.to_dict()), heightmap=DEM)

@@ -189,9 +189,6 @@ def test_error_paths_match_jax(renderers, what):
 def test_unported_options_raise(renderers):
     _, tr = renderers
     dem = dem65()
-    with pytest.raises(NotImplementedError, match="item 8b"):   # the screen sky's aerial pass
-        tr.render_with_aov(params=port_params(jax_params(camera_mode="screen",
-                                                         sky=dict(enabled=True))), heightmap=dem)
     with pytest.raises(NotImplementedError, match="item 7"):
         tr.render_with_aov(material_set=rr.MaterialSet(vt_store={"pages": 1}),
                            params=port_params(jax_params()), heightmap=dem)

@@ -135,7 +135,7 @@ def test_normal_at_matches_jax():
 def test_port_scene_equals_jax_scene():
     dem = np.random.default_rng(4).standard_normal((37, 50)).astype(np.float32)
     scene, static = jax_scene(dem, (1.0, 2.0), (0.5, 2.0), 1.7)
-    port = tv.scene_from_pyramid(build_pyramid(dem), (1.0, 2.0), (0.5, 2.0), 1.7)
+    port = tv.scene_from_pyramid(build_pyramid(dem), (1.0, 2.0), (0.5, 2.0), 1.7, device="cpu")
     for name in ("h_pair", "mm_pack", "level_offset", "level_w"):
         ref = np.asarray(getattr(scene, name))
         got = getattr(port, name).numpy()
@@ -155,7 +155,7 @@ def test_trace_matches_bruteforce():
     y, x = np.mgrid[0:17, 0:23].astype(np.float32)
     dem = (4.0 * np.sin(x * 0.4) * np.cos(y * 0.3)
            + 0.5 * rng.standard_normal((17, 23))).astype(np.float32)
-    scene = tv.scene_from_pyramid(build_pyramid(dem))
+    scene = tv.scene_from_pyramid(build_pyramid(dem), device="cpu")
     ro, rd = random_rays(dem, (1.0, 1.0), 160, seed=11)
     got = tv.trace(scene, cols(ro, torch.as_tensor), cols(rd, torch.as_tensor))
     bf_hit, bf_t = trace_bruteforce_numpy(dem, (0.0, 0.0), (1.0, 1.0), 1.0, ro, rd)
@@ -168,7 +168,7 @@ def test_trace_matches_bruteforce():
 
 def test_trace_dispatch_is_by_device():
     dem = dem65(3)
-    scene = tv.scene_from_pyramid(build_pyramid(dem))
+    scene = tv.scene_from_pyramid(build_pyramid(dem), device="cpu")
     ro, rd = random_rays(dem, (1.0, 1.0), 64, seed=1)
     before = tv.trace.launches
     tv.trace(scene, cols(ro, torch.as_tensor), cols(rd, torch.as_tensor))
@@ -178,3 +178,14 @@ def test_trace_dispatch_is_by_device():
     with pytest.raises(ValueError, match="CUDA"):
         tv.trace(scene, meta, meta)
     assert tv.trace.launches == before
+
+
+def test_scene_from_pyramid_defaults_to_cuda():
+    """scene_from_pyramid called as the JAX package's puts the scene on the
+    card: without CUDA it raises DeviceError."""
+    from forge3d_tpu_torch.errors import DeviceError
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks the refusal without one")
+    with pytest.raises(DeviceError, match="CUDA is not available"):
+        tv.scene_from_pyramid(build_pyramid(dem65(3)))
