@@ -101,7 +101,23 @@ Phases (one line each; any failure exits non-zero):
                 (render_clipmap_scene) at 1080p, cold (caches emptied) and
                 warm, bit-identical, with the launches counted (C: S8 twice,
                 its mirrored pass renders the sky too), the times, the peak
-                memory and a warm render split by call.
+                memory and a warm render split by call;
+ 20. vector kernels -- E4 per route (stroke, dashed stroke, disc, polygon
+                with a hole under nonzero, polygon under evenodd), each with
+                its fused composite, against its plain version on the card at
+                256x128 and at configuration F's 1080p shapes (each element
+                bit-identical), each 1080p route timed; then F's 81 layers as
+                MapScene hands them to E4, bit-checked and timed as a set;
+ 21. mapscene -- MapScene.render at 1080p: F (perspective over bench.py's
+                DEM: R1 with depth, K9 over a 1,024-box town, E4 over 64
+                roads, 16 polygons and 1,024 POIs, a 1024^2 raster overlay),
+                cold once and warm twice, and G (D's recipe with the
+                stroke-quality and choropleth features in screen space, SSAO
+                and SSGI: host compositing over S8), cold and warm; each run
+                counted (E4 81 times, K9 and R1 once in F; S8 once in G),
+                timed, its peak memory printed, the runs bit-identical; a
+                warm render split by stage; F with E4's plain versions on the
+                card within one u8 step of F with the kernel.
 
 R1 gates (phases 13-14), set to what the card showed: rgba within one u8
 step everywhere and bytes equal on R1_U8_EQ of them, float planes within
@@ -117,6 +133,11 @@ this run's rays took in the plain versions. R1's operations are its rays'
 work alone (DDA steps and leaf tests): its per-pixel shading is not
 counted, so its bound is lower than the work it does. No single PyTorch call computes
 any of these functions, so `library_ms` is null throughout.
+
+E4 gates (phases 20-21), set to what the card showed: coverage, rgb, alpha
+and pick bit-identical to the plain version; MapScene with the kernel
+within one u8 step of MapScene with the plain versions on MAPSCENE_U8_FRAC
+of the pixels.
 
 Sweep kernel gates (phases 6 and 9), each set to what the kernel shows
 on the card: K1 bit-identical; K2 every texel of z_sun and e_sky within
@@ -205,6 +226,10 @@ REPLACES = {
     "S8 shade (D)": ("forge3d_tpu_torch/csrc/screen.cu",
                      "forge3d_tpu/terrain/screen.py:1098 (S6 :748, S7 :979)"),
     "S9 clipmap_shade": ("forge3d_tpu_torch/csrc/screen.cu", "forge3d_tpu/terrain/screen.py:1857"),
+    # stroke_coverage (:53), disc_coverage (:73) and polygon_coverage (:90),
+    # with VectorScene.render's composite (vector/__init__.py:140) fused in
+    "E4 vector_coverage": ("forge3d_tpu_torch/csrc/vector.cu",
+                           "forge3d_tpu/vector/coverage.py:53 (:73, :90)"),
 }
 
 # The card's peaks for the bounds (NVIDIA's H100 SXM data sheet).
@@ -926,27 +951,33 @@ _BOX_FACES = np.array([[0, 2, 1], [0, 3, 2], [4, 5, 6], [4, 6, 7], [0, 1, 5], [0
                       np.uint32)
 
 
-def box_town(dem, n_side: int, lo: float, hi: float, foot, height, seed: int = 7):
-    """An n_side x n_side grid of boxes over x, z in [lo, hi] (the DEM at
-    unit spacing from the origin, rows along z): footprints drawn from
-    `foot` m, tops `height` m above the highest DEM sample under the
-    footprint, bases 2 m below the lowest. (vertices f32, indices u32)."""
+def town_boxes(n_side: int, lo: float, hi: float, foot, height, seed: int = 7):
+    """An n_side x n_side grid of boxes over x, z in [lo, hi]: (x0, z0, fx,
+    fz, h) each, footprints drawn from `foot` m and heights from `height` m."""
     rng = np.random.default_rng(seed)
     step = (hi - lo) / n_side
-    verts, tris = [], []
+    out = []
     for i in range(n_side):
         for j in range(n_side):
             fx, fz = rng.uniform(foot[0], foot[1], 2)
             h = rng.uniform(height[0], height[1])
-            x0 = lo + (i + 0.5) * step - fx / 2
-            z0 = lo + (j + 0.5) * step - fz / 2
-            under = dem[int(np.floor(z0)):int(np.ceil(z0 + fz)) + 1,
-                        int(np.floor(x0)):int(np.ceil(x0 + fx)) + 1]
-            base = float(under.min()) - 2.0
-            top = float(under.max()) + h
-            tris.append(_BOX_FACES + 8 * len(verts))
-            verts.append(_BOX_CORNERS * np.array([fx, top - base, fz], np.float32)
-                         + np.array([x0, base, z0], np.float32))
+            out.append((lo + (i + 0.5) * step - fx / 2, lo + (j + 0.5) * step - fz / 2, fx, fz, h))
+    return out
+
+
+def box_town(dem, n_side: int, lo: float, hi: float, foot, height, seed: int = 7):
+    """town_boxes as a mesh over the DEM at unit spacing from the origin (rows
+    along z): tops `h` m above the highest DEM sample under the footprint,
+    bases 2 m below the lowest. (vertices f32, indices u32)."""
+    verts, tris = [], []
+    for x0, z0, fx, fz, h in town_boxes(n_side, lo, hi, foot, height, seed):
+        under = dem[int(np.floor(z0)):int(np.ceil(z0 + fz)) + 1,
+                    int(np.floor(x0)):int(np.ceil(x0 + fx)) + 1]
+        base = float(under.min()) - 2.0
+        top = float(under.max()) + h
+        tris.append(_BOX_FACES + 8 * len(verts))
+        verts.append(_BOX_CORNERS * np.array([fx, top - base, fz], np.float32)
+                     + np.array([x0, base, z0], np.float32))
     return (np.concatenate(verts).astype(np.float32),
             np.concatenate(tris).astype(np.uint32))
 
@@ -2237,6 +2268,344 @@ def phase_screen_render2(dem, bdem):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phases 20-21: the vector coverage kernel E4 and MapScene's render
+# ---------------------------------------------------------------------------
+
+# float32 operations per primitive and pixel, counted from csrc/vector.cuh's
+# loop bodies (a fused multiply-add as two operations)
+OPS_SEGMENT = 23       # seg_dist2 and the minimum
+OPS_EDGE = 43          # seg_dist2, edge_crossing and the winding sum
+OPS_DISC = 8           # the disc's distance and the minimum
+OPS_VEC_PIXEL = 16     # cover_final and the composite, per pixel and layer
+VEC_PIXEL_BYTES = 2 * (12 + 4 + 4)   # rgb, alpha and pick read and written per layer
+# E4 gate: coverage, rgb, alpha and pick equal to the plain version's on every
+# element (the kernel and the plain version round the same float32 operations
+# once each, XLA's fused multiply-adds included)
+MAPSCENE_U8_FRAC = 0.995   # MapScene with E4's kernel vs its plain versions
+
+
+def f_recipe(bdem, width, height, seed=11):
+    """Configuration F: the default MapScene recipe (perspective, world
+    layers) at a city-map size over bench.py's DEM: 64 roads of 128
+    vertices (8 dashed), 16 lakes and parks of 64-vertex rings (4 with a
+    hole), 1,024 POIs, a 1024^2 raster overlay and a 1,024-box town."""
+    from forge3d_tpu_torch import mapscene as ms
+
+    rng = np.random.default_rng(seed)
+    layers = []
+    t = np.linspace(0.0, 2.0 * np.pi, 65)[:-1]
+    for k in range(16):
+        c = rng.uniform(150.0, 870.0, 2)
+        r = rng.uniform(20.0, 60.0)
+        wob = 1.0 + 0.2 * np.sin(3.0 * t + rng.uniform(0.0, 6.0))
+        rings = [np.stack([c[0] + r * wob * np.cos(t), c[1] + 0.8 * r * wob * np.sin(t)], 1)]
+        if k < 4:
+            rings.append(np.stack([c[0] + 0.4 * r * np.cos(-t), c[1] + 0.3 * r * np.sin(-t)], 1))
+        layers.append(ms.VectorOverlayLayer(kind="polygons", coordinates=rings, opacity=0.6,
+                                            color=(0.15, 0.45, 0.8) if k % 2 else
+                                            (0.3, 0.6, 0.25)))
+    for k in range(64):
+        ang = rng.uniform(0.0, 2.0 * np.pi) + np.cumsum(rng.normal(0.0, 0.25, 127))
+        steps = 7.0 * np.stack([np.cos(ang), np.sin(ang)], 1)
+        pts = np.clip(rng.uniform(64.0, 960.0, 2) + np.concatenate([[[0.0, 0.0]],
+                                                                   np.cumsum(steps, 0)]),
+                      64.0, 960.0)
+        layers.append(ms.VectorOverlayLayer(kind="lines", coordinates=pts, width=3.0,
+                                            color=(0.95, 0.9, 0.75),
+                                            dash_array=[12, 6] if k < 8 else None))
+    layers.append(ms.VectorOverlayLayer(kind="points", coordinates=rng.uniform(64, 960, (1024, 2)),
+                                        width=6.0, color=(0.85, 0.1, 0.1)))
+    layers.append(ms.RasterOverlayLayer(
+        image=rng.uniform(0.0, 1.0, (1024, 1024, 3)).astype(np.float32), opacity=0.35))
+    boxes = town_boxes(32, 256.0, 768.0, (8.0, 12.0), (10.0, 40.0))   # bench_town's
+    layers.append(ms.BuildingLayer(
+        footprints=[np.array([[x0, z0], [x0 + fx, z0], [x0 + fx, z0 + fz], [x0, z0 + fz]])
+                    for x0, z0, fx, fz, _ in boxes],
+        heights=[float(h) for *_, h in boxes]))
+    return ms.SceneRecipe(terrain=ms.TerrainSource(dem=bdem, spacing=(1.0, 1.0)),
+                          colormap="terrain", lighting="default", layers=layers,
+                          output=ms.OutputSpec(size_px=(width, height)), name="F")
+
+
+def g_recipe(bdem, width, height):
+    """Configuration G: D's recipe (the rainier preset at 1.15 over bench.py's
+    DEM, MapScene's screen mode) with layer_space="screen": the stroke-quality
+    and choropleth features of tests/test_reference_golden_parity.py, and
+    SSAO and SSGI."""
+    from forge3d_tpu_torch import mapscene as ms
+
+    stroke = ms.VectorOverlayLayer(
+        layer_id="cartography", crs="EPSG:32610",
+        features=[
+            {"id": "hairpin", "geometry": {"type": "LineString", "coordinates": [
+                (0.06, 0.74), (0.30, 0.18), (0.52, 0.74), (0.74, 0.22), (0.94, 0.74)]}},
+            {"id": "dashed-boundary", "geometry": {"type": "LineString", "coordinates": [
+                (0.08, 0.10), (0.92, 0.10)]}},
+            {"id": "park-with-hole", "geometry": {"type": "Polygon", "coordinates": [
+                [(0.10, 0.32), (0.38, 0.32), (0.38, 0.62), (0.10, 0.62), (0.10, 0.32)],
+                [(0.19, 0.41), (0.30, 0.41), (0.30, 0.53), (0.19, 0.53), (0.19, 0.41)]]}}],
+        width_px=6, line_cap="round", line_join="round", dash_array=[12, 7],
+        style={"version": 8, "layers": [{"id": "cartography", "type": "line", "paint": {
+            "line-color": "#f8fafc", "line-width": 6, "fill-color": "#2563eb"}}]})
+    palette = {1: "#edf8fb", 2: "#b2e2e2", 3: "#66c2a4", 4: "#238b45"}
+    feats = []
+    # the quantile classes of (12, 28, 57, 83) in four classes: 1, 2, 3, 4
+    for idx, (cls, value) in enumerate(zip((1, 2, 3, 4), (12.0, 28.0, 57.0, 83.0))):
+        x0 = 0.10 + (idx % 2) * 0.42
+        y0 = 0.14 + (idx // 2) * 0.38
+        x1, y1 = x0 + 0.32, y0 + 0.28
+        feats.append({"id": f"zone-{idx}", "geometry": {"type": "Polygon", "coordinates": [
+            [(x0, y0), (x1, y0), (x1, y1), (x0, y1), (x0, y0)]]},
+            "properties": {"class": cls, "value": value}})
+    zones = ms.VectorOverlayLayer(
+        layer_id="classified-zones", crs="EPSG:32610", features=feats, width_px=2,
+        style={"version": 8, "layers": [
+            {"id": "zones-fill", "type": "fill", "paint": {"fill-color": [
+                "match", ["get", "class"], 1, palette[1], 2, palette[2], 3, palette[3],
+                palette[4]], "fill-opacity": 0.84}},
+            {"id": "zones-outline", "type": "line",
+             "paint": {"line-color": "#0f172a", "line-width": 2}}]})
+    from forge3d_tpu_torch.mapscene_screen import LightingPreset
+
+    return ms.SceneRecipe(
+        terrain=ms.TerrainSource(dem=bdem, spacing=(1.0, 1.0)),
+        camera=ms.OrbitCamera(radius=1.0, phi_deg=0.0, theta_deg=45.0, fov_y_deg=45.0),
+        lighting=LightingPreset("rainier_showcase", intensity=1.15),
+        output=ms.OutputSpec(size_px=(width, height)), layers=[stroke, zones],
+        camera_mode="screen", layer_space="screen", name="G",
+        screen_space={"ssao": {"enabled": True, "intensity": 1.0},
+                      "ssgi": {"enabled": True, "intensity": 1.0}})
+
+
+def e4_layers(scene, device):
+    """F's world vector layers as MapScene hands them to E4: [(kind, prims
+    on the card, style)]."""
+    import torch
+
+    from forge3d_tpu_torch.vector import _layer_prims
+
+    out = []
+    for layer in scene._world_vectors(scene.compile_plan()).layers:
+        kind, prims = _layer_prims(layer)
+        out.append((kind, torch.as_tensor(prims, device=device),
+                    dict(stroke_width=layer.width, color=layer.color, opacity=layer.opacity,
+                         pick_id=layer.pick_id)))
+    return out
+
+
+def e4_planes(width, height, device, seed=5):
+    import torch
+
+    rng = np.random.default_rng(seed)
+    return (torch.zeros((height, width), device=device),
+            torch.as_tensor(rng.uniform(0, 1, (height, width, 3)).astype(np.float32),
+                            device=device),
+            torch.full((height, width), 0.25, device=device),
+            torch.full((height, width), 3, dtype=torch.int32, device=device))
+
+
+def e4_run(fn, layers, width, height, planes, rule="nonzero", cov=True):
+    """Every layer through `fn` (the kernel or the plain version) into
+    `planes` (cov, rgb, alpha, pick), in order."""
+    c, rgb, alpha, pick = planes
+    for kind, prims, style in layers:
+        fn(kind, prims, width, height, rule=rule, **style, cov=c if cov else None, rgb=rgb,
+           alpha=alpha, pick=pick)
+    return planes
+
+
+def e4_compare(tag, ref, got):
+    import torch
+
+    for name, a, b in zip(("coverage", "rgb", "alpha", "pick"), ref, got):
+        require(torch.equal(a, b), f"E4 {tag}: {name} differs from the plain version "
+                                   f"(max |d| {float((a.double() - b.double()).abs().max()):.3e})")
+
+
+def e4_work(layers, width, height):
+    """(bytes, operations) of E4 over `layers` at width x height."""
+    ops = {0: OPS_SEGMENT, 1: OPS_DISC, 2: OPS_EDGE}
+    n = width * height
+    nbytes = sum(p.numel() * 4 + n * VEC_PIXEL_BYTES for _, p, _ in layers)
+    return nbytes, sum(n * (p.shape[0] * ops[k] + OPS_VEC_PIXEL) for k, p, _ in layers)
+
+
+def phase_vector_kernels(bdem):
+    """E4 per route (stroke, dashed stroke, disc, polygon with a hole under
+    nonzero, polygon under evenodd), each with its fused composite, against
+    its plain version on the card at 256x128 (seeded shapes) and at F's 1080p
+    shapes, each 1080p route timed; then F's 81 layers as MapScene runs them,
+    timed as a set. Returns the row's (max |err|, ms, plain ms, bound ms,
+    bound by)."""
+    import torch
+
+    from forge3d_tpu_torch import mapscene as ms
+    from forge3d_tpu_torch.vector import _dash_segments
+    from forge3d_tpu_torch.vector import coverage as vc
+
+    dev = torch.device("cuda")
+    kernel, plain = vc._vector_layer_kernel, vc.vector_layer_plain
+    rng = np.random.default_rng(3)
+    w, h = SMALL_W, SMALL_H
+    t = np.linspace(0.0, 2.0 * np.pi, 65)[:-1]
+    outer = np.stack([128 + 90 * np.cos(t), 64 + 50 * np.sin(t)], 1)
+    hole = np.stack([128 + 30 * np.cos(-t), 64 + 18 * np.sin(-t)], 1)
+    walk = np.stack([np.linspace(8, 248, 128), 64 + np.cumsum(rng.normal(0, 3, 128))], 1)
+    style = dict(color=(0.9, 0.2, 0.1), opacity=0.7, pick_id=7)
+    small = {
+        "stroke": ([(vc.STROKE, rng.uniform(-8, 264, (127, 4)), dict(stroke_width=3.0))],
+                   "nonzero"),
+        "stroke dashed": ([(vc.STROKE, _dash_segments(walk.astype(np.float32), [12.0, 6.0]),
+                            dict(stroke_width=3.0))], "nonzero"),
+        "disc": ([(vc.DISC, vc.disc_prims(rng.uniform(0, 256, (1024, 2)), 3.0), {})],
+                 "nonzero"),
+        "polygon nonzero": ([(vc.POLYGON, vc.ring_edges([outer, hole]), {})], "nonzero"),
+        "polygon evenodd": ([(vc.POLYGON, vc.ring_edges([outer, outer * 0.5 + 20]), {})],
+                            "evenodd"),
+    }
+    for route, (spec, rule) in small.items():
+        layers = [(k, torch.as_tensor(np.asarray(p, np.float32), device=dev), dict(s, **style))
+                  for k, p, s in spec]
+        got = e4_run(kernel, layers, w, h, e4_planes(w, h, dev), rule)
+        ref = e4_run(plain, layers, w, h, e4_planes(w, h, dev), rule)
+        e4_compare(f"{route} {w}x{h}", ref, got)
+        cov = ref[0]
+        require(float(cov.max()) == 1.0 and bool(((cov > 0) & (cov < 1)).any()),
+                f"E4 {route} {w}x{h}: trivial coverage")
+        say("vector kernels", f"E4 {route} {w}x{h}: {layers[0][1].shape[0]} primitives, "
+                              f"coverage, rgb, alpha and pick bit-identical, coverage mean "
+                              f"{float(cov.mean()):.4f}")
+
+    w, h = REAL_W, REAL_H
+    f_layers = e4_layers(ms.MapScene(f_recipe(bdem, w, h), device="cuda"), dev)
+    by_kind = {k: [l for l in f_layers if l[0] == k] for k in (vc.STROKE, vc.DISC, vc.POLYGON)}
+    strokes = [l for l in by_kind[vc.STROKE] if l[1].shape[0] == 127]
+    dashed = [l for l in by_kind[vc.STROKE] if l[1].shape[0] != 127]
+    holed = [l for l in by_kind[vc.POLYGON] if l[1].shape[0] > 64]
+    real = {"stroke": ([strokes[0]], "nonzero"), "stroke dashed": ([dashed[0]], "nonzero"),
+            "disc": (by_kind[vc.DISC], "nonzero"), "polygon nonzero": ([holed[0]], "nonzero"),
+            "polygon evenodd": ([holed[0]], "evenodd")}
+    for route, (layers, rule) in real.items():
+        got = e4_run(kernel, layers, w, h, e4_planes(w, h, dev), rule)
+        plain_ms, ref = wall_ms(lambda: e4_run(plain, layers, w, h, e4_planes(w, h, dev), rule))
+        e4_compare(f"{route} {w}x{h}", ref, got)
+        planes = e4_planes(w, h, dev)
+        ms_ = cuda_ms(lambda: e4_run(kernel, layers, w, h, planes, rule), 10)
+        bms, by = bound(*e4_work(layers, w, h))
+        say("vector kernels", f"E4 {route} {w}x{h}: {layers[0][1].shape[0]} primitives, "
+                              f"bit-identical, coverage mean {float(ref[0].mean()):.4f}; kernel "
+                              f"{ms_:.4f} ms, plain {plain_ms:.1f} ms, bound {bms:.4f} ms ({by})")
+
+    # F's layers as one render runs them (composite only, no coverage plane)
+    got = e4_run(kernel, f_layers, w, h, e4_planes(w, h, dev), cov=False)
+    plain_ms, ref = wall_ms(lambda: e4_run(plain, f_layers, w, h, e4_planes(w, h, dev), cov=False))
+    e4_compare(f"F's {len(f_layers)} layers {w}x{h}", ref, got)
+    planes = e4_planes(w, h, dev)
+    ms_ = cuda_ms(lambda: e4_run(kernel, f_layers, w, h, planes, cov=False), 10)
+    nbytes, ops = e4_work(f_layers, w, h)
+    bms, by = bound(nbytes, ops)
+    counts = {k: (len(v), sum(p.shape[0] for _, p, _ in v)) for k, v in by_kind.items()}
+    say("vector kernels", f"E4 F's layers {w}x{h}: (layers, primitives) strokes "
+                          f"{counts[vc.STROKE]}, discs {counts[vc.DISC]}, polygons "
+                          f"{counts[vc.POLYGON]}; bit-identical; kernel {ms_:.4f} ms for the "
+                          f"set, plain {plain_ms:.1f} ms, bound {bms:.4f} ms ({by}), "
+                          f"{ops:.4e} operations, {nbytes} bytes")
+    return 0.0, ms_, plain_ms, bms, by
+
+
+def _mapscene_counters():
+    from forge3d_tpu_torch.ops import bvh
+    from forge3d_tpu_torch.terrain import renderer as rr
+    from forge3d_tpu_torch.terrain import screen as scr
+    from forge3d_tpu_torch.vector import coverage as vc
+
+    return {"E4 vector_coverage": vc.vector_layer, "K9 trace_mesh": bvh.trace_mesh,
+            "R1 render": rr.render_program, "S1 env_cube": scr.env_cube,
+            "S2/S3 cube_convolve": scr.cube_convolve, "S4 raster_depth": scr.raster_depth,
+            "S8 shade": scr.shade}
+
+
+def _u8_agree(a, b):
+    du = np.abs(a.astype(np.int32) - b.astype(np.int32)).max(-1)
+    return float((du <= 1).mean()), float((a == b).all(-1).mean()), int(du.max())
+
+
+def phase_mapscene(bdem):
+    """MapScene.render at 1080p, the main path: F (perspective: R1 with
+    depth, K9 over every pixel's ray, E4 over 81 layers) and G (screen: S8
+    and host compositing), each cold once and warm twice, bit-identical,
+    every count set to 0 before each render and read after; a warm render
+    split by call; F against a run with E4's plain versions on the card.
+    Returns the launches of the phase."""
+    import torch
+
+    from forge3d_tpu_torch import mapscene as ms
+    from forge3d_tpu_torch.terrain import screen as scr
+    from forge3d_tpu_torch.vector import coverage as vc
+
+    counters = _mapscene_counters()
+    launches = {k: 0 for k in counters}
+    out_dir = __import__("pathlib").Path("build") / "chip_smoke"   # listed in .gitignore
+    out_dir.mkdir(parents=True, exist_ok=True)
+    recipes = {"F": f_recipe(bdem, REAL_W, REAL_H), "G": g_recipe(bdem, REAL_W, REAL_H)}
+    scene = ms.MapScene(recipes["F"], device="cuda")
+    n_e4 = len(scene._world_vectors(scene.compile_plan()).layers)
+    want = {"F": {"E4 vector_coverage": n_e4, "K9 trace_mesh": 1, "R1 render": 1},
+            "G": {"S8 shade": 1}}
+    for config, rec in recipes.items():
+        scene = ms.MapScene(rec, device="cuda")
+        runs = []
+        # G cold and warm once each: its screen-space layers are host numpy
+        # (tens of seconds a 1080p render; the phase's time stays bounded)
+        for kind in ("cold", "warm", "warm")[:3 if config == "F" else 2]:
+            if kind == "cold":
+                scr.clear_caches()
+            for c in counters.values():
+                c.launches = 0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            path = str(out_dir / f"mapscene_{config}.png") if kind == "warm" else None
+            wall, frame = wall_ms(lambda: scene.render(path=path))
+            counts = {k: c.launches for k, c in counters.items()}
+            for k in counts:
+                launches[k] += counts[k]
+            runs.append(frame.rgba)
+            say("mapscene", f"({config}) {REAL_W}x{REAL_H} {kind}: {wall:.3f} ms, launches "
+                            f"{json.dumps(counts)}, peak device memory "
+                            f"{torch.cuda.max_memory_allocated()} B")
+            expect = {k: 0 for k in counters}
+            expect.update(want[config])
+            if config == "G" and kind == "cold":
+                expect.update({"S1 env_cube": 1, "S2/S3 cube_convolve": 6, "S4 raster_depth": 1})
+            require(counts == expect, f"({config}) {kind} render launched {counts}, not {expect}")
+        say("mapscene", f"({config}) warm render by stage, ms: "
+                        + _by_call(scene.last_render_timings)
+                        + f"; metadata {json.dumps(scene.last_render_metadata)}")
+        same = all(np.array_equal(runs[0], r) for r in runs[1:])
+        std = float(runs[0][..., :3].std())
+        say("mapscene", f"({config}) deterministic {same}, rgba std {std:.3f}")
+        require(same, f"renders of configuration {config} differ")
+        require(runs[0].shape == (REAL_H, REAL_W, 4) and std > 5.0,
+                f"configuration {config}'s render is trivial")
+        if config == "F":
+            kernel = vc._vector_layer_kernel
+            vc._vector_layer_kernel = vc.vector_layer_plain
+            try:
+                vc.vector_layer.launches = 0
+                wall, frame = wall_ms(lambda: scene.render())
+                require(vc.vector_layer.launches == 0, "the plain run launched E4")
+            finally:
+                vc._vector_layer_kernel = kernel
+            frac, eq_, step = _u8_agree(frame.rgba, runs[0])
+            say("mapscene", f"(F) with E4's plain versions on the card: {wall:.1f} ms; rgba "
+                            f"within one step {frac:.6f}, bytes equal {eq_:.6f}, max step {step}")
+            require(frac >= MAPSCENE_U8_FRAC, "F with E4's kernel disagrees with F with its "
+                                              "plain versions")
+    say("mapscene", f"launches on the paths {json.dumps(launches)}")
+    return launches
+
+
 def _jax_modules():
     """JAX and every module of the JAX package: the port imports none."""
     return [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "forge3d_tpu")]
@@ -2299,6 +2668,12 @@ def main() -> int:
         rows.append(kernel_row(kernel, screen_launches[kernel], *vals))
     for kernel, vals in screen2.items():
         rows.append(kernel_row(kernel, screen2_launches[kernel], *vals))
+    e4 = phase_vector_kernels(dem)
+    map_launches = phase_mapscene(dem)
+    rows.append(kernel_row("E4 vector_coverage", map_launches["E4 vector_coverage"], *e4))
+    for row in rows:
+        if row["name"] == "K9 trace_mesh":
+            row["launches"] += map_launches["K9 trace_mesh"]
 
     loaded = sorted(set(_jax_modules()) - preloaded)
     require(not loaded, f"imported JAX or modules of the JAX package: {loaded}")

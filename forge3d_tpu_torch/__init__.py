@@ -9,7 +9,9 @@
 # the deterministic sphere and mesh engines (pt_render_gpu / pt_render_aovs,
 # kernel P1; pt_render_gpu_mesh, kernel P2), the TerrainRenderer (kernel R1;
 # its screen mode and terrain.screen's clipmap mode, kernels S1-S9) and
-# MapScene's recipe screen base (mapscene_screen). It imports torch and
+# MapScene (mapscene: its perspective route over R1, world vector layers
+# through the coverage kernel E4 in vector/, buildings through K9; its
+# screen, clipmap and mesh routes). It imports torch and
 # never jax nor any module of the JAX package, which stays the reference it
 # is tested against.
 #
@@ -35,6 +37,24 @@ _ENTRY = {
     "Frame": "frame",
     "AovFrame": "frame",
     "HdrFrame": "frame",
+    "MapScene": "mapscene",
+    "SceneRecipe": "mapscene",
+    "TerrainSource": "mapscene",
+    "OrbitCamera": "mapscene",
+    "VectorOverlayLayer": "mapscene",
+    "RasterOverlayLayer": "mapscene",
+    "BuildingLayer": "mapscene",
+    "PointCloudLayer": "mapscene",
+    "Tiles3DLayer": "mapscene",
+    "LabelLayer": "mapscene",
+    "MapFurniture": "mapscene",
+    "OutputSpec": "mapscene",
+    "LightingPreset": "mapscene_screen",
+    "VectorScene": "vector",
+    "vector_render_oit": "vector",
+    "vector_render_oit_edl": "vector",
+    "vector_render_pick_map": "vector",
+    "vector_render_oit_and_pick": "vector",
 }
 
 

@@ -322,6 +322,9 @@ _SIGNATURES = {
     "f3d_clipmap_shade": [ctypes.POINTER(ScreenArgs), ctypes.POINTER(ClipArgs), _P, _P],
     # (sizes out, capacity) -> the number of structs
     "f3d_struct_sizes": [ctypes.POINTER(ctypes.c_longlong), _I],
+    # (prims, n, kind, width, height, half, evenodd, color, opacity, pick_id,
+    #  cov, rgb, alpha, pick, stream)
+    "f3d_vector_layer": [_P, _I, _I, _I, _I, _F, _I, _F3, _F, _I, _P, _P, _P, _P, _P],
 }
 
 

@@ -2,8 +2,8 @@
 # Carry state across from the JAX package as numpy arrays, so that a test
 # can feed both implementations identical scene tables, reservoir history,
 # sweep plans and sweep intermediates (rotated grid, sweep maps, polar
-# accumulator), mesh BVHs, light sets and alias tables, and terrain render
-# parameters. Takes numpy arrays (or anything np.asarray accepts) and plain
+# accumulator), mesh BVHs, light sets and alias tables, terrain render
+# parameters, and MapScene recipes. Takes numpy arrays (or anything np.asarray accepts) and plain
 # dicts, and never imports jax.
 
 from __future__ import annotations
@@ -126,3 +126,43 @@ def terrain_params_from_dict(d: dict, env_map=None, height_curve_lut=None):
     if height_curve_lut is not None:
         p.height_curve_lut = np.asarray(height_curve_lut, np.float32)
     return p
+
+
+def scene_recipe(obj):
+    """The port's SceneRecipe (and every dataclass inside it) from an object
+    with the JAX recipe's attribute names: SceneRecipe, TerrainSource,
+    OrbitCamera, each layer dataclass, MapFurniture, OutputSpec, and a
+    LightingPreset, LightSettings or MeshData inside them. Read duck-typed,
+    by class name and attributes; numpy arrays are copied, plain values
+    kept."""
+    from . import mapscene as ms
+    from .io.mesh import MeshData
+    from .mapscene_screen import LightingPreset
+    from .terrain.params import LightSettings
+
+    classes = {c.__name__: c for c in (
+        ms.SceneRecipe, ms.TerrainSource, ms.OrbitCamera, ms.VectorOverlayLayer,
+        ms.RasterOverlayLayer, ms.BuildingLayer, ms.PointCloudLayer, ms.Tiles3DLayer,
+        ms.LabelLayer, ms.MapFurniture, ms.OutputSpec, LightSettings, MeshData)}
+
+    def conv(v):
+        name = type(v).__name__
+        if name in classes and hasattr(type(v), "__dataclass_fields__"):
+            cls = classes[name]
+            return cls(**{f.name: conv(getattr(v, f.name))
+                          for f in dataclasses.fields(cls) if hasattr(v, f.name)})
+        if name == "LightingPreset":
+            return LightingPreset(name=v.name, sun_direction=conv(v.sun_direction),
+                                  intensity=v.intensity, settings=conv(v.settings),
+                                  overrides=conv(v.overrides))
+        if isinstance(v, np.ndarray):
+            return v.copy()
+        if isinstance(v, dict):
+            return {k: conv(x) for k, x in v.items()}
+        if isinstance(v, (list, tuple)):
+            return type(v)(conv(x) for x in v)
+        return v
+
+    if type(obj).__name__ != "SceneRecipe":
+        raise TypeError(f"scene_recipe takes a SceneRecipe, not {type(obj).__name__}")
+    return conv(obj)

@@ -330,3 +330,230 @@ def test_cook_sky_uniforms_bit_equal(turbidity, elevation):
     for k, v in ref.items():
         assert np.asarray(got[k]).dtype == np.asarray(v).dtype, k
         np.testing.assert_array_equal(np.asarray(got[k]), np.asarray(v), err_msg=k)
+
+
+# ---------------------------------------------------------------------------
+# MapScene's host modules: diagnostics, style, screen_compose, gis/geotiff,
+# io/mesh, geometry, buildings, furniture
+# ---------------------------------------------------------------------------
+
+def _report(mod):
+    rep = mod.ValidationReport()
+    rep.info("a.info", "fine")
+    rep.warning("b.warn", "careful", "layers[0]")
+    rep.error("c.err", "bad", "terrain")
+    return rep
+
+
+@pytest.mark.parametrize("policy", ["block_on_error", "block_on_warning", "never_block"])
+def test_validation_report_equal(policy):
+    from forge3d_tpu import diagnostics as jd
+
+    from forge3d_tpu_torch import diagnostics as td
+
+    ref, got = _report(jd), _report(td)
+    assert ref.as_dict() == got.as_dict() and len(ref) == len(got) == 3
+    assert [d.code for d in ref.blocking(policy)] == [d.code for d in got.blocking(policy)]
+    assert [s.name for s in jd.Severity] == [s.name for s in td.Severity]
+    if ref.blocking(policy):
+        msgs = []
+        for rep, err in ((ref, jerr), (got, terr)):
+            with pytest.raises(err.RenderError) as ei:
+                rep.raise_if_blocking(policy)
+            msgs.append(str(ei.value))
+        assert msgs[0] == msgs[1]
+    with pytest.raises(ValueError, match="unknown render policy"):
+        got.blocking("sometimes")
+
+
+STYLE_EXPRS = [
+    (["get", "class"], {"class": 3}),
+    (["match", ["get", "class"], 1, "#edf8fb", 2, "#b2e2e2", "#238b45"], {"class": 2}),
+    (["interpolate", ["linear"], ["zoom"], 0, 1.0, 10, 5.0], {}),
+    (["interpolate", ["exponential", 2.0], ["get", "v"], 0, "#000000", 10, "#ffffff"], {"v": 3}),
+    (["step", ["get", "v"], "a", 10, "b", 20, "c"], {"v": 15}),
+    (["case", [">", ["get", "v"], 5], "big", "small"], {"v": 7}),
+    (["all", ["has", "v"], ["!=", ["get", "v"], 1]], {"v": 2}),
+    (["+", 1, ["*", 2, ["get", "v"]], ["/", 6, 0]], {"v": 3}),
+    (["concat", "a", ["to-string", ["get", "v"]]], {"v": 4}),
+    ({"stops": [[0, 1.0], [10, 3.0]], "base": 1.5}, {}),
+    (["coalesce", ["get", "missing"], ["literal", [6, 3]]], {}),
+    ([6, 3], {}),
+]
+
+
+@pytest.mark.parametrize("i", range(len(STYLE_EXPRS)))
+def test_style_evaluate_expression_equal(i):
+    from forge3d_tpu import style as js
+
+    from forge3d_tpu_torch import style as ts
+
+    expr, props = STYLE_EXPRS[i]
+    assert ts.evaluate_expression(expr, props, zoom=4.0) == \
+        js.evaluate_expression(expr, props, zoom=4.0)
+    for c in ("#2563eb", "rgba(10, 20, 30, 0.5)", "red", (0.1, 0.2, 0.3)):
+        assert ts.parse_color(c) == js.parse_color(c)
+
+
+def _screen_layers(mod):
+    """Screen-space layers in both forms: GeoJSON features with a style, and
+    the simplified kind + coordinates."""
+    L = mod.VectorOverlayLayer
+    feats = [{"id": "a", "geometry": {"type": "LineString",
+                                      "coordinates": [(0.1, 0.2), (0.9, 0.75), (0.5, 0.9)]}},
+             {"id": "p", "geometry": {"type": "Polygon", "coordinates": [
+                 [(0.2, 0.2), (0.6, 0.25), (0.5, 0.7), (0.2, 0.2)]]},
+              "properties": {"class": 2}},
+             {"id": "m", "geometry": {"type": "MultiPoint",
+                                      "coordinates": [(0.3, 0.3), (0.7, 0.6)]}}]
+    return [
+        L(layer_id="roads", features=feats, width_px=4, line_cap="square", line_join="miter",
+          dash_array=[10, 5], style={"version": 8, "layers": [
+              {"id": "r", "type": "line", "paint": {"line-color": "#f9fafb"}},
+              {"id": "f", "type": "fill", "paint": {
+                  "fill-color": ["match", ["get", "class"], 2, "#66c2a4", "#000000"],
+                  "fill-opacity": 0.7}}]}),
+        L(layer_id="bare", features=feats),
+        L(kind="lines", coordinates=[(5, 5), (60, 40), (90, 10)], width=3.0, dash_array=[6, 3],
+          line_cap="butt", line_join="miter", color=(0.9, 0.2, 0.1)),
+        L(kind="polygons", coordinates=[[(0.1, 0.1), (0.5, 0.1), (0.3, 0.6)]], opacity=0.5),
+        L(kind="points", coordinates=[(20, 20), (0.5, 0.5)], width=2.0),
+    ]
+
+
+@pytest.mark.parametrize("opaque", [False, True], ids=["alpha", "opaque"])
+@pytest.mark.parametrize("k", range(5))
+def test_screen_compose_vector_layer_bytes_equal(k, opaque):
+    """Byte-equal on a base with random alpha and on an opaque one (where
+    the port's copy blends only each stroke's window)."""
+    from forge3d_tpu import mapscene as jms
+    from forge3d_tpu import screen_compose as jsc
+
+    from forge3d_tpu_torch import mapscene as tms
+    from forge3d_tpu_torch import screen_compose as tsc
+
+    img = np.random.default_rng(k).integers(0, 256, (64, 96, 4), dtype=np.uint8)
+    if opaque:
+        img[..., 3] = 255
+    a, b = img.copy(), img.copy()
+    jsc.composite_vector_layer(a, _screen_layers(jms)[k], 96, 64)
+    tsc.composite_vector_layer(b, _screen_layers(tms)[k], 96, 64)
+    np.testing.assert_array_equal(a, b)
+    assert (a != img).any()
+    a, b = img.copy(), img.copy()
+    jsc.draw_disc(a, 30.3, 20.7, (200, 10, 10, 255), 4.5)
+    tsc.draw_disc(b, 30.3, 20.7, (200, 10, 10, 255), 4.5)
+    np.testing.assert_array_equal(a, b)
+    assert jsc.dash_segments([(0, 0), (40, 30)], [6, 3]) == \
+        tsc.dash_segments([(0, 0), (40, 30)], [6, 3])
+
+
+def test_geotiff_bytes_and_reads_equal(tmp_path):
+    from forge3d_tpu import gis as jg
+
+    from forge3d_tpu_torch import gis as tg
+
+    dem = np.random.default_rng(0).normal(500, 40, (33, 47)).astype(np.float32)
+    kw = dict(transform=(2.0, 0.0, 1000.0, 0.0, -2.0, 5000.0), crs="EPSG:32610",
+              nodata=-9999.0)
+    for i, mod in enumerate((jg, tg)):
+        mod.write_raster(str(tmp_path / f"d{i}.tif"), dem, **kw)
+    assert (tmp_path / "d0.tif").read_bytes() == (tmp_path / "d1.tif").read_bytes()
+    rgb = (np.random.default_rng(1).uniform(0, 255, (9, 11, 3))).astype(np.uint8)
+    jg.write_raster(str(tmp_path / "rgb.tif"), rgb, compress="none")
+    for name in ("d0.tif", "rgb.tif"):
+        path = str(tmp_path / name)
+        assert jg.read_raster_info(path) == tg.read_raster_info(path)
+        np.testing.assert_array_equal(jg.read_raster(path), tg.read_raster(path))
+        np.testing.assert_array_equal(jg.read_raster(path, band=0), tg.read_raster(path, band=0))
+
+
+def _meshes(mod_geom):
+    sq = np.array([[0, 0], [4, 0], [4, 3], [0, 3]], np.float64)
+    hole = np.array([[1, 1], [1, 2], [2, 2], [2, 1]], np.float64)
+    ell = np.stack([5 + 3 * np.cos(np.linspace(0, 6, 9)), 2 + np.sin(np.linspace(0, 6, 9))], 1)
+    return [mod_geom.extrude_polygon(sq, 5.0, base=1.5),
+            mod_geom.extrude_polygon(sq, 2.0, holes=[hole], cap_bottom=False),
+            mod_geom.extrude_polygon(ell[::-1], 3.0)]
+
+
+def _mesh_equal(a, b):
+    for f in ("vertices", "indices", "normals", "uvs", "colors"):
+        x, y = getattr(a, f), getattr(b, f)
+        assert (x is None) == (y is None), f
+        if x is not None:
+            np.testing.assert_array_equal(x, y)
+    assert a.name == b.name
+
+
+def test_extrude_polygon_and_merge_meshes_equal():
+    from forge3d_tpu import geometry as jgeo
+    from forge3d_tpu.io import mesh as jmesh
+
+    from forge3d_tpu_torch import geometry as tgeo
+    from forge3d_tpu_torch.io import mesh as tmesh
+
+    ref, got = _meshes(jgeo), _meshes(tgeo)
+    for a, b in zip(ref, got):
+        _mesh_equal(a, b)
+    _mesh_equal(jmesh.merge_meshes(ref), tmesh.merge_meshes(got))
+    a = jmesh.MeshData(ref[0].vertices, ref[0].indices)
+    b = tmesh.MeshData(got[0].vertices, got[0].indices)
+    np.testing.assert_array_equal(a.compute_normals(), b.compute_normals())
+
+
+CITYJSON = {
+    "type": "CityJSON", "version": "1.1",
+    "transform": {"scale": [0.01, 0.01, 0.01], "translate": [100.0, 200.0, 0.0]},
+    "vertices": [[0, 0, 0], [1000, 0, 0], [1000, 800, 0], [0, 800, 0],
+                 [0, 0, 1200], [1000, 0, 1200], [1000, 800, 1200], [0, 800, 1200],
+                 [200, 200, 1200], [400, 200, 1200], [400, 400, 1200], [200, 400, 1200]],
+    "CityObjects": {
+        "b1": {"type": "Building", "attributes": {"h": 12}, "geometry": [{
+            "type": "Solid", "lod": "1", "boundaries": [[
+                [[0, 3, 2, 1]], [[4, 5, 6, 7], [8, 11, 10, 9]], [[0, 1, 5, 4]], [[1, 2, 6, 5]],
+                [[2, 3, 7, 6]], [[3, 0, 4, 7]]]]}]},
+        "t1": {"type": "SolitaryVegetationObject", "geometry": []},
+        "b2": {"type": "BuildingPart", "geometry": [{
+            "type": "MultiSurface", "boundaries": [[[0, 1, 2]], [[0, 2, 3]]]}]},
+    },
+}
+
+
+def test_buildings_equal():
+    from forge3d_tpu import buildings as jb
+
+    from forge3d_tpu_torch import buildings as tb
+
+    fps = [np.array([[0, 0], [4, 0], [4, 3], [0, 3]], float) + [10 * i, 2 * i] for i in range(3)]
+    _mesh_equal(jb.extrude_footprints(fps, [5, 8, 11], bases=[0.5, 1.0, 2.0]),
+                tb.extrude_footprints(fps, [5, 8, 11], bases=[0.5, 1.0, 2.0]))
+    ref, got = jb.load_cityjson(CITYJSON), tb.load_cityjson(CITYJSON)
+    assert len(ref) == len(got) == 2
+    for a, b in zip(ref, got):
+        _mesh_equal(a, b)
+        assert a.materials == b.materials
+    for mod in (jb, tb):
+        with pytest.raises(ValueError, match="no footprints"):
+            mod.extrude_footprints([], [])
+
+
+def test_furniture_equal():
+    from forge3d_tpu import furniture as jf
+
+    from forge3d_tpu_torch import furniture as tf
+
+    img = np.random.default_rng(5).integers(0, 256, (120, 200, 4), dtype=np.uint8)
+    out = []
+    for mod in (jf, tf):
+        a = img.copy()
+        mod.draw_title_plate(a, "Title", "sub", scale=1)
+        mod.draw_legend(a, mod.LegendSpec(colormap="terrain", vmin=-3.0, vmax=412.5,
+                                          label="m", width=10, height=60), x=8, y=40)
+        mod.draw_scale_bar(a, mod.ScaleBarSpec(meters_per_pixel=3.7, max_width_px=70),
+                           x=60, y=100)
+        mod.draw_north_arrow(a, x=160, y=60, size=20, rotation_deg=15.0)
+        mod.draw_graticule(a, mod.GraticuleSpec(spacing=25.0), (0.0, 0.0, 130.0, 90.0))
+        out.append(a)
+    np.testing.assert_array_equal(*out)
+    assert (out[0] != img).any()

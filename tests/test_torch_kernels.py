@@ -45,6 +45,7 @@ HOST_LAUNCHERS = r"""
 #include "sweep.cuh"
 #include "terrain_shade.cuh"
 #include "screen.cuh"
+#include "vector.cuh"
 #include <vector>
 extern "C" {
 int f3d_trace(const SceneArgs* s, const float* rox, const float* roy, const float* roz,
@@ -265,6 +266,16 @@ int f3d_struct_sizes(long long* out, int n) {
                                (long long)sizeof(ClipArgs), (long long)sizeof(SkyArgs)};
     for (int i = 0; i < n && i < 4; ++i) out[i] = sizes[i];
     return 4;
+}
+// E4 one pixel at a time, the primitives in order
+int f3d_vector_layer(const float* prims, int n, int kind, int width, int height, float half,
+                     int evenodd, const float* color, float opacity, int pick_id, float* cov,
+                     float* rgb, float* alpha, int* pick, void*) {
+    const VectorArgs a = make_vector_args(n, kind, width, height, half, evenodd, color, opacity,
+                                          pick_id);
+    for (int y = 0; y < height; ++y)
+        for (int x = 0; x < width; ++x) vector_pixel_serial(a, prims, x, y, cov, rgb, alpha, pick);
+    return 0;
 }
 // test entry: synthesize_polar's contraction for one column and row
 float f3d_test_crossing(const float* M, const float* v, int K, int C, float Q, float* out) {
@@ -1021,3 +1032,67 @@ def test_struct_layout_guard(host_lib, monkeypatch):
     monkeypatch.setattr(_kernels, "STRUCTS", (*_kernels.STRUCTS[:3], short))
     with pytest.raises(RuntimeError, match="ctypes mirrors"):
         _kernels.bind(host_lib)
+
+
+# E4: one layer of vector coverage with the composite fused in, per kind
+def e4_cases():
+    from forge3d_tpu_torch.vector import _dash_segments
+    from forge3d_tpu_torch.vector import coverage as vc
+
+    rng = np.random.default_rng(11)
+    t = np.linspace(0.0, 2.0 * np.pi, 25)[:-1]
+    outer = np.stack([40 + 30 * np.cos(t), 24 + 20 * np.sin(t)], 1)
+    hole = np.stack([40 + 10 * np.cos(-t), 24 + 7 * np.sin(-t)], 1)
+    # vertices on pixel centres: its horizontal edges lie on rows of centres
+    on_centres = np.array([[10.5, 8.5], [60.5, 8.5], [60.5, 40.5], [30.5, 20.5], [10.5, 40.5]])
+    line = np.stack([np.linspace(4, 76, 40), 24 + 14 * np.sin(np.linspace(0, 9, 40))], 1)
+    return {
+        "stroke": (vc.STROKE, rng.uniform(-8, 88, (37, 4)), dict(stroke_width=3.0)),
+        "stroke_dashed": (vc.STROKE, _dash_segments(line.astype(np.float32), [6.0, 3.0]),
+                          dict(stroke_width=2.5)),
+        "stroke_empty": (vc.STROKE, np.zeros((0, 4)), dict(stroke_width=3.0)),
+        "disc": (vc.DISC, vc.disc_prims(rng.uniform(0, 80, (50, 2)), rng.uniform(1, 5, 50)), {}),
+        "polygon_nonzero_hole": (vc.POLYGON, vc.ring_edges([outer, hole]), dict(rule="nonzero")),
+        "polygon_evenodd": (vc.POLYGON, vc.ring_edges([outer, outer * 0.5 + 10]),
+                            dict(rule="evenodd")),
+        "polygon_on_centres": (vc.POLYGON, vc.ring_edges([on_centres]), dict(rule="nonzero")),
+    }
+
+
+E4_CASES = ("stroke", "stroke_dashed", "stroke_empty", "disc", "polygon_nonzero_hole",
+            "polygon_evenodd", "polygon_on_centres")
+
+
+@pytest.mark.parametrize("case", E4_CASES)
+def test_vector_layer_kernel(kernels, case):
+    """E4's kernel (its squared-distance minimum, one square root at the
+    end) against the plain version (JAX's square root per primitive):
+    coverage, rgb, alpha and pick bit-identical."""
+    from forge3d_tpu_torch.vector import coverage as vc
+
+    W, H = 80, 48
+    kind, prims, kw = e4_cases()[case]
+    p = torch.as_tensor(np.asarray(prims, np.float32).reshape(-1, 4), device=kernels)
+    base = np.random.default_rng(5).uniform(0, 1, (H, W, 3)).astype(np.float32)
+
+    def planes():
+        return (torch.zeros((H, W), device=kernels), torch.as_tensor(base, device=kernels),
+                torch.full((H, W), 0.25, device=kernels),
+                torch.full((H, W), 3, dtype=torch.int32, device=kernels))
+
+    style = dict(color=(0.9, 0.2, 0.1), opacity=0.7, pick_id=7)
+    got, ref = planes(), planes()
+    before = vc.vector_layer.launches
+    vc._vector_layer_kernel(kind, p, W, H, **kw, **style, cov=got[0], rgb=got[1], alpha=got[2],
+                            pick=got[3])
+    assert vc.vector_layer.launches == before + 1
+    vc.vector_layer_plain(kind, p, W, H, **kw, **style, cov=ref[0], rgb=ref[1], alpha=ref[2],
+                          pick=ref[3])
+    for a, b in zip(ref, got):
+        assert torch.equal(a, b)
+    cov = ref[0]
+    if case == "stroke_empty":
+        assert float(cov.abs().max()) == 0.0 and torch.equal(got[1].cpu(), torch.as_tensor(base))
+    else:
+        assert float(cov.max()) == 1.0 and float(cov.min()) == 0.0
+        assert bool(((cov > 0) & (cov < 1)).any()) and bool((got[3] == 7).any())
