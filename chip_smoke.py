@@ -117,7 +117,27 @@ Phases (one line each; any failure exits non-zero):
                 counted (E4 81 times, K9 and R1 once in F; S8 once in G),
                 timed, its peak memory printed, the runs bit-identical; a
                 warm render split by stage; F with E4's plain versions on the
-                card within one u8 step of F with the kernel.
+                card within one u8 step of F with the kernel;
+ 22. pt kernels -- the SDF tape P6 on the landmark CSG scene (16 primitives,
+                15 operations, every kind at least twice, on bench.py's DEM):
+                evaluate and normal on 2.07 M seeded points, the march on
+                bench.py's 1080p camera rays; the TLAS walk P5 on 64 instances
+                (the town four times, a box sixty), camera rays and sun rays
+                from their hits (trace_tlas, the main path, counted); P4's
+                raster and PT lanes at 256x128 and 128x128; each against its
+                plain version on the card at 256x128 and full size, and timed;
+ 23. hybrid render -- hybrid_render at 1080p over bench.py's DEM, the town
+                and the landmark: hybrid cold (the host pyramid and BVH) and
+                twice warm, bit-identical, P3 once a render and nothing else
+                launched, split into scene build, rays, P3 and readback; the
+                other modes twice each; P3 against _trace_all and the plain
+                shading in every mode at 256x128 and in hybrid at 1080p; then
+                render_adjudication_pair at its defaults over a 257^2 crop,
+                which must launch K5-K8 and R1, with its metrics;
+ 24. adjudication -- render_adjudication_builtin(512, 512, spp=64), the
+                goldens' configuration, twice: bit-identical, each lane
+                launched once a call, timed; both lanes against their plain
+                versions on the card at that size; the SSIM between lanes.
 
 R1 gates (phases 13-14), set to what the card showed: rgba within one u8
 step everywhere and bytes equal on R1_U8_EQ of them, float planes within
@@ -133,6 +153,9 @@ this run's rays took in the plain versions. R1's operations are its rays'
 work alone (DDA steps and leaf tests): its per-pixel shading is not
 counted, so its bound is lower than the work it does. No single PyTorch call computes
 any of these functions, so `library_ms` is null throughout.
+
+P6, P5, P3 and P4 gates (phases 22-24), set to what the card showed: every
+output bit-identical to the plain version (P4's HDR and rgba too).
 
 E4 gates (phases 20-21), set to what the card showed: coverage, rgb, alpha
 and pick bit-identical to the plain version; MapScene with the kernel
@@ -2606,6 +2629,484 @@ def phase_mapscene(bdem):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phases 22-24: the other path-tracing engines: the SDF tape P6, the TLAS
+# walk P5, the hybrid tracer P3 and the adjudication pair P4
+# ---------------------------------------------------------------------------
+
+# float32 operations per unit of work, counted from csrc/sdf.cuh, pt.cuh and
+# adjudication.cuh's loop bodies (adds, multiplies, divisions, square roots,
+# comparisons, min/max; a transcendental function or a threefry round as one)
+OPS_SDF_PRIM = 22       # sdf_prim: one primitive (the capsule's 30, a plane's 7)
+OPS_SDF_OP = 10         # sdf_op: one operation with its material choice
+OPS_SDF_STEP = 12       # sdf_march: the step around the tape evaluation
+OPS_TLAS_INST = 40      # tlas_ray: one instance's transform and compare
+OPS_HYB_PIXEL = 60      # hybrid_pixel: the shading, the u8 encode and the AOVs
+OPS_ADJ_ESC = 180       # adj_raster_pixel: a live direction that escapes (nearest, BSDF, MIS)
+OPS_ADJ_SEC = 520       # ... one that hits the scene (the secondary closure, two shadow rays)
+OPS_ADJ_PIXEL = 400     # the raster pixel around its directions (ray, sun NEE, basis)
+OPS_ADJ_VERTEX = 900    # adj_pt_sample: one path vertex (six threefry draws of ~90 ops each)
+# P6, P5, P3 gates: every output bit-identical to the plain version (the
+# g++ twin and the card showed them so); P4's HDR within FLOAT_TOL on >=
+# ADJ_FRAC of elements and its rgba within one u8 step on >= ADJ_U8 of
+# pixels: the card showed both lanes bit-identical at every size (PyTorch's
+# CUDA cos, sin and pow are libdevice's, as the kernel's are)
+ADJ_FRAC, ADJ_U8 = 1.0, 1.0
+LANDMARK_PRIMS = ("cylinder", "sphere", "box", "plane", "box", "cylinder", "box", "sphere",
+                  "torus", "capsule", "cylinder", "plane", "sphere", "torus", "capsule",
+                  "capsule")
+LANDMARK_OPS = (("smooth_union", "intersect", "subtract", "smooth_intersect", "union",
+                 "intersect", "smooth_intersect", "smooth_subtract"),
+                ("union", "smooth_union", "subtract", "smooth_subtract"),
+                ("union", "smooth_union"), ("union",))
+REPLACES.update({
+    "P6 sdf_eval": ("forge3d_tpu_torch/csrc/pt.cu", "forge3d_tpu/ops/sdf.py:223 (tape loop :334)"),
+    "P6 sdf_march": ("forge3d_tpu_torch/csrc/pt.cu", "forge3d_tpu/ops/sdf.py:348 (loop :382)"),
+    "P5 trace_tlas": ("forge3d_tpu_torch/csrc/pt.cu", "forge3d_tpu/ops/tlas.py:86"),
+    "P3 hybrid_render": ("forge3d_tpu_torch/csrc/pt.cu",
+                         "forge3d_tpu/pt/hybrid.py:154 (_trace_all :77)"),
+    "P4 raster": ("forge3d_tpu_torch/csrc/adjudication.cu",
+                  "forge3d_tpu/pt/adjudication.py:327"),
+    "P4 pt": ("forge3d_tpu_torch/csrc/adjudication.cu",
+              "forge3d_tpu/pt/adjudication.py:382 (spp loop :471)"),
+})
+
+
+def landmark_sdf(dem, device, seed=11):
+    """The landmark CSG scene: 16 primitives (every kind at least twice) in
+    8 sites of two, 15 operations (every kind at least twice; smooth ones
+    with k 2-8 m), standing on bench.py's DEM within x, z in [256, 768],
+    20-60 m tall; the layout from a seeded numpy generator."""
+    from forge3d_tpu_torch.ops.sdf import SdfSceneBuilder
+
+    rng = np.random.default_rng(seed)
+    b = SdfSceneBuilder()
+    nodes = []
+    for site in range(8):
+        x, z = rng.uniform(300.0, 724.0, 2)
+        g = float(dem[int(z), int(x)])
+        h = float(rng.uniform(20.0, 60.0))
+        r = float(rng.uniform(14.0, 24.0))
+        pair = []
+        for k, kind in enumerate(LANDMARK_PRIMS[2 * site:2 * site + 2]):
+            dx, dz = rng.uniform(-0.3 * r, 0.3 * r, 2) if k else (0.0, 0.0)
+            c = (x + dx, g + 0.5 * h, z + dz)
+            m = 16 * site + k + 1
+            if kind == "sphere":
+                pair.append(b.add_sphere((c[0], g + h - r, c[2]), r, m))
+            elif kind == "box":
+                pair.append(b.add_box(c, (r, 0.5 * h + 2.0, 0.8 * r), m))
+            elif kind == "cylinder":
+                pair.append(b.add_cylinder(c, 0.6 * r, 0.5 * h + 2.0, m))
+            elif kind == "plane":
+                n = np.array([rng.uniform(-0.4, 0.4), 1.0, rng.uniform(-0.4, 0.4)])
+                n /= np.linalg.norm(n)
+                pair.append(b.add_plane(n, float(n @ np.array([x, g + 0.75 * h, z])), m))
+            elif kind == "torus":
+                pair.append(b.add_torus((c[0], g + 0.6 * h, c[2]), r, 0.25 * r, m))
+            else:
+                pair.append(b.add_capsule((c[0] - r, g + 2.0, c[2]),
+                                          (c[0] + 0.5 * r, g + h, c[2] + 0.5 * r), 0.3 * r, m))
+        nodes.append(pair)
+    level = nodes                  # each site's two primitives, then the sites pairwise
+    for depth, kinds in enumerate(LANDMARK_OPS):
+        out = []
+        for i, kind in enumerate(kinds):
+            args = tuple(level[i]) if depth == 0 else (level[2 * i], level[2 * i + 1])
+            if kind.startswith("smooth"):
+                args += (float(rng.uniform(2.0, 8.0)),)
+            out.append(getattr(b, kind)(*args, material_id=200 + 10 * depth + i))
+        level = out
+    return b.build(device=device)
+
+
+def sdf_work(scene) -> float:
+    """Operations of one evaluation of the scene's tape."""
+    return sum(OPS_SDF_OP if op else OPS_SDF_PRIM for op, *_ in scene.host)
+
+
+def tlas_scene(dem, device):
+    """64 instances of two BLASes: the bench town (12,288 triangles) four
+    times, rotated and scaled non-uniformly into the four quadrants, and a
+    12-triangle box 60 times, seeded."""
+    from forge3d_tpu_torch.ops import tlas as tl
+
+    rng = np.random.default_rng(13)
+
+    def rot_y(a):
+        c, s = np.cos(a), np.sin(a)
+        return np.array([[c, 0, s, 0], [0, 1, 0, 0], [-s, 0, c, 0], [0, 0, 0, 1]])
+
+    def tr(x, y, z):
+        m = np.eye(4)
+        m[:3, 3] = (x, y, z)
+        return m
+
+    insts = []
+    for q, (cx, cz) in enumerate(((260.0, 260.0), (764.0, 260.0), (260.0, 764.0),
+                                  (764.0, 764.0))):
+        sc = np.diag([rng.uniform(0.35, 0.5), rng.uniform(0.6, 1.2), rng.uniform(0.35, 0.5), 1])
+        insts.append(tl.Instance(0, tr(cx, 0.0, cz) @ rot_y(rng.uniform(0, 2 * np.pi)) @ sc
+                                 @ tr(-512.0, 0.0, -512.0)))
+    for _ in range(60):
+        x, z = rng.uniform(100.0, 924.0, 2)
+        sc = np.diag([*rng.uniform(8.0, 30.0, 3), 1])
+        insts.append(tl.Instance(1, tr(x, float(dem[int(z), int(x)]) - 2.0, z)
+                                 @ rot_y(rng.uniform(0, 2 * np.pi)) @ sc))
+    return tl.build_tlas([bench_town(dem), (_BOX_CORNERS, _BOX_FACES)], insts, device=device)
+
+
+def compare_exact(tag, ref, got):
+    """Every tensor of two equal-length sequences bit-identical."""
+    import torch
+
+    for k, (a, b) in enumerate(zip(ref, got)):
+        require(torch.equal(a, b), f"{tag}: output {k} differs from its plain version "
+                                   f"({float((a != b).double().mean()):.3e} of elements)")
+
+
+def flat_rays(width, height, device):
+    from forge3d_tpu_torch.pt import hybrid as hy
+
+    origin, rd = hy.camera_rays(width, height, BENCH_CAM, device)
+    ro = tuple(torch_full(rd[0].numel(), float(origin[k]), device) for k in range(3))
+    return ro, tuple(c.reshape(-1).contiguous() for c in rd)
+
+
+def torch_full(n, v, device):
+    import torch
+
+    return torch.full((n,), v, dtype=torch.float32, device=device)
+
+
+def phase_pt_kernels(dem):
+    """P6 (evaluate and normal on 2.07 M seeded points, raymarch on bench
+    camera rays), P5 (64 instances on camera and sun rays) and P4's two
+    lanes, each against its plain version on the card at 256x128 and at
+    full size, each timed. Returns {kernel: (max_err, ms, plain_ms,
+    bound_ms, bound_by)} and the TLAS main path's launches."""
+    import torch
+
+    from forge3d_tpu_torch.ops import sdf as sd, tlas as tl
+    from forge3d_tpu_torch.pt import adjudication as adj
+
+    dev = torch.device("cuda")
+    out = {}
+    scene = landmark_sdf(dem, dev)
+    kinds = {k for _, k, *_ in scene.host}
+    say("pt kernels", f"landmark: {scene.primitive_count} primitives, "
+                      f"{scene.node_count - scene.primitive_count} operations, tape "
+                      f"{scene.tape_len}, stack {scene.stack_depth}")
+    require(scene.primitive_count == 16 and scene.node_count == 31, "the landmark's shape")
+    tape_ops = sdf_work(scene)
+    rng = np.random.default_rng(17)
+    n_pts = REAL_W * REAL_H
+    pts = [torch.as_tensor(c, device=dev) for c in np.stack(
+        [rng.uniform(256, 768, n_pts), rng.uniform(-60, 140, n_pts),
+         rng.uniform(256, 768, n_pts)]).astype(np.float32)]
+    for tag, n in (("256x128", SMALL_W * SMALL_H), (f"{REAL_W}x{REAL_H}", n_pts)):
+        p = [c[:n].contiguous() for c in pts]
+        dk = sd._sdf_eval_kernel(scene, *p)
+        plain_ms, dp = wall_ms(lambda: sd.sdf_eval_plain(scene, *p))
+        compare_exact(f"P6 sdf_eval {tag}", dp, dk)
+        nk = sd._sdf_normal_kernel(scene, *p, 1e-4)
+        nplain_ms, np_ = wall_ms(lambda: sd.sdf_normal_plain(scene, *p, 1e-4))
+        compare_exact(f"P6 sdf_normal {tag}", np_, nk)
+        mats = len(torch.unique(dp[1]))
+        say("pt kernels", f"P6 sdf_eval {tag}: {n} points bit-identical ({mats} materials "
+                          f"win); normal bit-identical, plain {plain_ms:.2f} / {nplain_ms:.2f} ms")
+    ms_e = cuda_ms(lambda: sd._sdf_eval_kernel(scene, *pts), 10)
+    ms_n = cuda_ms(lambda: sd._sdf_normal_kernel(scene, *pts, 1e-4), 5)
+    b_e, by_e = bound(n_pts * 20, n_pts * tape_ops)
+    out["P6 sdf_eval"] = (0.0, ms_e, plain_ms, b_e, by_e)
+    say("pt kernels", f"P6 sdf_eval {n_pts} points: kernel {ms_e:.4f} ms (normal "
+                      f"{ms_n:.4f} ms), plain {plain_ms:.2f} ms, bound {b_e:.4f} ms ({by_e})")
+
+    ro, rd = flat_rays(REAL_W, REAL_H, dev)
+    for tag, n in (("256x128", SMALL_W * SMALL_H), (f"{REAL_W}x{REAL_H}", n_pts)):
+        sl = slice(0, n) if n < n_pts else slice(None)
+        r_o, r_d = [c[sl].contiguous() for c in ro], [c[sl].contiguous() for c in rd]
+        hk = sd._sdf_march_kernel(scene, r_o, r_d, 1e-3, 1e6, 128, 1e-3)
+        sd.sdf_march_plain.steps = 0
+        plain_ms, hp = wall_ms(lambda: sd.sdf_march_plain(scene, r_o, r_d, 1e-3, 1e6, 128, 1e-3))
+        compare_exact(f"P6 sdf_march {tag}", hp, hk)
+        say("pt kernels", f"P6 sdf_march {tag}: hits {float(hp.hit.double().mean()):.4f}, "
+                          f"{sd.sdf_march_plain.steps} steps, bit-identical, plain "
+                          f"{plain_ms:.1f} ms")
+    steps = sd.sdf_march_plain.steps
+    require(0.005 < float(hp.hit.double().mean()) < 0.9, "the landmark is not in the frame")
+    ms_m = cuda_ms(lambda: sd._sdf_march_kernel(scene, ro, rd, 1e-3, 1e6, 128, 1e-3), 5)
+    b_m, by_m = bound(n_pts * (24 + 9), steps * (tape_ops + OPS_SDF_STEP))
+    out["P6 sdf_march"] = (0.0, ms_m, plain_ms, b_m, by_m)
+    say("pt kernels", f"P6 sdf_march {n_pts} rays: kernel {ms_m:.4f} ms, plain "
+                      f"{plain_ms:.1f} ms, bound {b_m:.4f} ms ({by_m}), {steps} steps")
+
+    t0 = time.perf_counter()
+    tlas = tlas_scene(dem, dev)
+    build_ms = (time.perf_counter() - t0) * 1e3
+    tris = sum(s.n_prims for s, _ in tlas.scenes)
+    say("pt kernels", f"P5 TLAS: {len(tlas.instances)} instances of {len(tlas.scenes)} BLASes "
+                      f"({tris} triangles), host build {build_ms:.1f} ms")
+    tl.trace_tlas.launches = 0
+    cam = tl.trace_tlas(tlas, ro, rd, 1e-3, 1e30)          # the main path: camera rays ...
+    hit = cam.hit
+    p_hit = [ro[k][hit] + cam.t[hit] * rd[k][hit] for k in range(3)]
+    from forge3d_tpu_torch.ops.shading import sun_direction
+
+    sd3 = sun_direction(135.0, 45.0)
+    s_o = [p_hit[k] - rd[k][hit] * 1e-2 for k in range(3)]
+    s_d = [torch_full(int(hit.sum()), float(sd3[k]), dev) for k in range(3)]
+    sun = tl.trace_tlas(tlas, s_o, s_d, 1e-3, 1e30)        # ... and sun rays from their hits
+    tlas_launches = tl.trace_tlas.launches
+    require(tlas_launches == 2, f"trace_tlas launched P5 {tlas_launches} times, not 2")
+    say("pt kernels", f"P5 main path: camera hits {float(hit.double().mean()):.4f}, sun rays "
+                      f"blocked {float(sun.hit.double().mean()):.4f}, instances hit "
+                      f"{len(torch.unique(cam.instance))}")
+    for tag, (o_, d_) in (("256x128 camera", ([c[:SMALL_W * SMALL_H].contiguous() for c in ro],
+                                              [c[:SMALL_W * SMALL_H].contiguous() for c in rd])),
+                          (f"{REAL_W}x{REAL_H} camera", (ro, rd)), ("sun", (s_o, s_d))):
+        hk = tl._trace_tlas_kernel(tlas, o_, d_, 1e-3, 1e30)
+        work = work_counters()
+        plain_ms_t, hp = wall_ms(lambda: tl.trace_tlas_plain(tlas, o_, d_, 1e-3, 1e30))
+        if tag == f"{REAL_W}x{REAL_H} camera":
+            plain_ms, w = plain_ms_t, work()
+        compare_exact(f"P5 trace_tlas {tag}", hp, hk)
+        say("pt kernels", f"P5 trace_tlas {tag}: {o_[0].numel()} rays bit-identical, plain "
+                          f"{plain_ms_t:.1f} ms")
+    ms_t = cuda_ms(lambda: tl._trace_tlas_kernel(tlas, ro, rd, 1e-3, 1e30), 5)
+    blas_bytes = sum(tensor_bytes(*(getattr(s, f) for f in s.__dataclass_fields__))
+                     for s, _ in tlas.scenes)
+    b_t, by_t = bound(n_pts * (24 + 21) + blas_bytes,
+                      traced_ops(w) + n_pts * len(tlas.instances) * OPS_TLAS_INST)
+    out["P5 trace_tlas"] = (0.0, ms_t, plain_ms, b_t, by_t)
+    say("pt kernels", f"P5 trace_tlas {n_pts} camera rays: kernel {ms_t:.4f} ms, plain "
+                      f"{plain_ms:.1f} ms, bound {b_t:.4f} ms ({by_t})")
+
+    for (w_, h_, spp) in ((SMALL_W, SMALL_H, 4), (128, 128, 4)):
+        rk, hk = adj._raster_lane_kernel(w_, h_, dev)
+        plain_ms, (rp, hp) = wall_ms(lambda: adj.raster_lane_plain(w_, h_, dev))
+        adj_compare("pt kernels", f"P4 raster {w_}x{h_}", rp, hp, rk, hk)
+        pk, qk = adj._pt_lane_kernel(w_, h_, spp, 7, dev)
+        pplain_ms, (pp, qp) = wall_ms(lambda: adj.pt_lane_plain(w_, h_, spp, 7, dev))
+        adj_compare("pt kernels", f"P4 pt {w_}x{h_} spp {spp}", pp, qp, pk, qk)
+        say("pt kernels", f"P4 {w_}x{h_}: plain raster {plain_ms:.1f} ms, plain pt "
+                          f"{pplain_ms:.1f} ms; kernels raster "
+                          f"{cuda_ms(lambda: adj._raster_lane_kernel(w_, h_, dev), 3):.4f} ms, "
+                          f"pt {cuda_ms(lambda: adj._pt_lane_kernel(w_, h_, spp, 7, dev), 3):.4f}"
+                          f" ms")
+    return out, tlas_launches
+
+
+def adj_compare(phase, tag, rgba_p, hdr_p, rgba_k, hdr_k):
+    frac = close_frac(hdr_p, hdr_k)
+    du = (rgba_p.int() - rgba_k.int()).abs().amax(-1)
+    u8 = float((du <= 1).double().mean())
+    eq = float((du == 0).double().mean())
+    say(phase,
+        f"{tag}: hdr within tolerance {frac:.6f}, max |err| {max_abs(hdr_p, hdr_k):.3e}; rgba "
+        f"within one step {u8:.6f}, equal {eq:.6f}")
+    require(frac >= ADJ_FRAC and u8 >= ADJ_U8, f"{tag} disagrees with its plain version")
+    return max_abs(hdr_p, hdr_k)
+
+
+def _p3_counters():
+    from forge3d_tpu_torch.ops import bvh, sdf as sd, traversal as tv
+    from forge3d_tpu_torch.pt import hybrid as hy
+
+    return {"P3 hybrid_render": hy.hybrid_pixels, "P6 sdf_eval": sd.sdf_eval,
+            "P6 sdf_march": sd.sdf_march, "K5 trace": tv.trace, "K9 trace_mesh": bvh.trace_mesh}
+
+
+def phase_hybrid(dem):
+    """hybrid_render at 1920x1080 over bench.py's DEM with the town as the
+    mesh and the landmark as the SDF, in each mode; hybrid cold (the host
+    pyramid and BVH build) and twice warm, bit-identical, P3 launched once a
+    render; the kernel against _trace_all and the plain shading on the card
+    (hybrid at 1080p, every mode at 256x128), timed by stage. Then
+    render_adjudication_pair at its defaults over a 257^2 crop of the DEM.
+    Returns (the P3 row's values, the launches of the path)."""
+    import torch
+
+    import forge3d_tpu_torch as f3t
+    from forge3d_tpu_torch.ops import sdf as sd
+    from forge3d_tpu_torch.pt import hybrid as hy
+
+    dev = torch.device("cuda")
+    W, H = REAL_W, REAL_H
+    town_v, town_i = bench_town(dem)
+    landmark = landmark_sdf(dem, dev)
+    counters = _p3_counters()
+    launches = {"P3 hybrid_render": 0, "P3 with P6": 0}
+    sun = {"azimuth": 135.0, "elevation": 40.0, "intensity": 3.0}
+    runs = {"rgba": []}
+    alb = ((0.55, 0.52, 0.48), (0.7, 0.7, 0.72), (0.8, 0.3, 0.25))
+    for kind in ("cold", "warm", "warm"):
+        for c in counters.values():
+            c.launches = 0
+        hy.hybrid_pixels.sdf_launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if kind == "cold":
+            runs["scene"] = f3t.build_hybrid_scene(heightmap=dem, mesh_vertices=town_v,
+                                                   mesh_indices=town_i, sdf_scene=landmark)
+        torch.cuda.synchronize()
+        build = (time.perf_counter() - t0) * 1e3
+        hs = runs["scene"]
+        wall, out = wall_ms(lambda: f3t.hybrid_render(W, H, hs, BENCH_CAM, sun=sun,
+                                                      aovs=("kind", "depth")))
+        counts = {k: c.launches for k, c in counters.items()}
+        launches["P3 hybrid_render"] += counts["P3 hybrid_render"]
+        launches["P3 with P6"] += hy.hybrid_pixels.sdf_launches
+        require(counts == {"P3 hybrid_render": 1, "P6 sdf_eval": 0, "P6 sdf_march": 0,
+                           "K5 trace": 0, "K9 trace_mesh": 0},
+                f"the hybrid render launched {counts}, not P3 once")
+        runs["rgba"].append(out["rgba"])
+        share = {k: float((out["kind"] == v).mean()) for k, v in (("terrain", 0), ("mesh", 1),
+                                                                   ("sdf", 2), ("sky", -1))}
+        # the render by stage: rays (PyTorch), P3, readback of rgba and two AOVs
+        t1 = time.perf_counter()
+        origin, rd3 = hy.camera_rays(W, H, BENCH_CAM, dev)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        rgba, planes = hy._shade_kernel(hs, "hybrid", origin, rd3, sun, alb, 0.35, 1.0)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        host = (rgba.cpu().numpy(), planes["kind"].cpu().numpy(), planes["depth"].cpu().numpy())
+        t4 = time.perf_counter()
+        require(np.array_equal(host[0], out["rgba"]), "P3's own pass differs from the render")
+        say("hybrid render", f"hybrid {W}x{H} {kind}: scene build {build:.1f} ms, "
+                             f"hybrid_render {wall:.3f} ms (by stage: rays "
+                             f"{(t2 - t1) * 1e3:.3f} ms, P3 {(t3 - t2) * 1e3:.3f} ms, readback "
+                             f"{(t4 - t3) * 1e3:.3f} ms); launches {json.dumps(counts)}; pixels "
+                             f"by kind {json.dumps(share)}")
+        require(all(share[k] > 0.0005 for k in ("terrain", "mesh", "sdf")),
+                "every kind must be in the frame")
+    require(all(np.array_equal(runs["rgba"][0], r) for r in runs["rgba"][1:]),
+            "hybrid renders differ run to run")
+    hs = runs["scene"]
+    for mode in ("sdf_only", "mesh_only", "terrain_only"):
+        hy.hybrid_pixels.launches = 0
+        wall, out = wall_ms(lambda: f3t.hybrid_render(W, H, hs, BENCH_CAM, mode=mode, sun=sun))
+        again = f3t.hybrid_render(W, H, hs, BENCH_CAM, mode=mode, sun=sun)
+        require(hy.hybrid_pixels.launches == 2 and np.array_equal(out["rgba"], again["rgba"]),
+                f"hybrid_render mode {mode}")
+        launches["P3 hybrid_render"] += 2
+        launches["P3 with P6"] += 2 * (mode == "sdf_only")
+        say("hybrid render", f"{mode} {W}x{H}: {wall:.3f} ms, bit-identical twice")
+    for mode in hy.TRAVERSAL_MODES:
+        origin, rd3 = hy.camera_rays(SMALL_W, SMALL_H, BENCH_CAM, dev)
+        compare_hybrid(f"{mode} {SMALL_W}x{SMALL_H}", hs, mode, origin, rd3, sun, alb)
+    origin, rd3 = hy.camera_rays(W, H, BENCH_CAM, dev)
+    work = work_counters()
+    sd.sdf_march_plain.steps = 0
+    plain_ms = compare_hybrid(f"hybrid {W}x{H}", hs, "hybrid", origin, rd3, sun, alb)
+    w = work()
+    steps = sd.sdf_march_plain.steps
+    ms3 = cuda_ms(lambda: hy._shade_kernel(hs, "hybrid", origin, rd3, sun, alb, 0.35, 1.0), 3)
+    n = W * H
+    nbytes = (n * (12 + 4 + 4 + 12 + 4 + 4 + 12) + scene_bytes(hs.terrain_scene)
+              + tensor_bytes(*(getattr(hs.mesh_scene, f) for f in hs.mesh_scene.__dataclass_fields__)))
+    ops = traced_ops(w) + steps * (sdf_work(hs.sdf_scene) + OPS_SDF_STEP) + n * OPS_HYB_PIXEL
+    b3, by3 = bound(nbytes, ops)
+    say("hybrid render", f"P3 hybrid_render {W}x{H}: kernel {ms3:.4f} ms, plain {plain_ms:.1f} "
+                         f"ms, bound {b3:.4f} ms ({by3}); {steps} SDF steps, "
+                         f"{w['steps']} DDA steps, {w['node_visits']} BVH node visits")
+
+    crop = dem[384:641, 384:641].copy()
+    pair_counters = _pair_counters()
+    for c in pair_counters.values():
+        c.launches = 0
+    wall, pair = wall_ms(lambda: f3t.render_adjudication_pair(crop))
+    counts = {k: c.launches for k, c in pair_counters.items()}
+    say("hybrid render", f"render_adjudication_pair 256x192 spp 4 over a 257^2 crop: "
+                         f"{wall:.1f} ms, launches {json.dumps(counts)}, metrics "
+                         f"{json.dumps(pair['metrics'])}")
+    require(all(v >= 1 for v in counts.values()),
+            "render_adjudication_pair did not launch K5-K8 and R1")
+    require(pair["pt"].shape == pair["raster"].shape == (192, 256, 4)
+            and np.isfinite(list(pair["metrics"].values())).all(), "the pair's frames")
+    return (0.0, ms3, plain_ms, b3, by3), launches
+
+
+def _pair_counters():
+    from forge3d_tpu_torch.ops import restir as rst, traversal as tv
+    from forge3d_tpu_torch.pt import terrain_ref as tr
+    from forge3d_tpu_torch.terrain import renderer as rr
+
+    return {"K5 trace": tv.trace, "K6 frame_step": tr.frame_step,
+            "K7 spatial_reuse": rst.spatial_reuse, "K8 center_gbuffer": tr.center_gbuffer,
+            "R1 render": rr.render_program}
+
+
+def compare_hybrid(tag, hs, mode, origin, rd3, sun, alb):
+    from forge3d_tpu_torch.pt import hybrid as hy
+
+    rk, pk = hy._shade_kernel(hs, mode, origin, rd3, sun, alb, 0.35, 1.0)
+    plain_ms, (rp, pp) = wall_ms(lambda: hy._shade_plain(hs, mode, origin, rd3, sun, alb,
+                                                         0.35, 1.0))
+    compare_exact(f"P3 {tag}", [rp, *pp.values()], [rk, *pk.values()])
+    say("hybrid render", f"P3 {tag}: rgba and five AOVs bit-identical to _trace_all and the "
+                         f"plain shading; plain {plain_ms:.1f} ms")
+    return plain_ms
+
+
+def phase_adjudication():
+    """render_adjudication_builtin(512, 512, spp=64), the configuration of
+    the reference goldens: twice, bit-identical, each lane launched once a
+    call and timed; both lanes against their plain versions on the card at
+    that size; the SSIM between the lanes. Returns the rows' values and
+    launches."""
+    import torch
+
+    import forge3d_tpu_torch as f3t
+    from forge3d_tpu_torch.metrics import ssim
+    from forge3d_tpu_torch.pt import adjudication as adj
+
+    dev = torch.device("cuda")
+    W = H = 512
+    spp = 64
+    outs = []
+    launches = {"P4 raster": 0, "P4 pt": 0}
+    for _ in range(2):
+        adj.raster_lane.launches = adj.pt_lane.launches = 0
+        wall, o = wall_ms(lambda: f3t.render_adjudication_builtin(W, H, spp=spp))
+        launches["P4 raster"] += adj.raster_lane.launches
+        launches["P4 pt"] += adj.pt_lane.launches
+        require(adj.raster_lane.launches == 1 and adj.pt_lane.launches == 1,
+                "render_adjudication_builtin must launch each lane once")
+        outs.append(o)
+        say("adjudication", f"render_adjudication_builtin({W}, {H}, spp={spp}): {wall:.1f} ms")
+    require(all(np.array_equal(a, b) for a, b in zip(outs[0][:2], outs[1][:2])),
+            "the builtin renders differ run to run")
+    pt_rgba, raster_rgba, meta = outs[0]
+    require(pt_rgba.shape == raster_rgba.shape == (H, W, 4) and sorted(meta) == ["pt", "raster"],
+            "the builtin's outputs")
+    lanes_ssim = ssim(pt_rgba[..., :3], raster_rgba[..., :3])
+    say("adjudication", f"SSIM between the PT and raster lanes {lanes_ssim:.6f}; means "
+                        f"{float(pt_rgba[..., :3].mean()):.3f} / "
+                        f"{float(raster_rgba[..., :3].mean()):.3f}")
+    ms_r = cuda_ms(lambda: adj._raster_lane_kernel(W, H, dev), 3)
+    ms_p = cuda_ms(lambda: adj._pt_lane_kernel(W, H, spp, 7, dev), 2)
+    rk, hk = adj._raster_lane_kernel(W, H, dev)
+    fn = adj._raster_frame
+    fn.hits = fn.escaped = fn.blocked = 0
+    plain_r, (rp, hp) = wall_ms(lambda: adj.raster_lane_plain(W, H, dev))
+    err_r = adj_compare("adjudication", f"P4 raster {W}^2", rp, hp, rk, hk)
+    ops_r = fn.hits * OPS_ADJ_PIXEL + fn.escaped * OPS_ADJ_ESC + fn.blocked * OPS_ADJ_SEC
+    b_r, by_r = bound(W * H * 16 + 1152 * 12, ops_r)
+    pk, qk = adj._pt_lane_kernel(W, H, spp, 7, dev)
+    adj._pt_sample.vertices = 0
+    plain_p, (pp, qp) = wall_ms(lambda: adj.pt_lane_plain(W, H, spp, 7, dev))
+    err_p = adj_compare("adjudication", f"P4 pt {W}^2 spp {spp}", pp, qp, pk, qk)
+    b_p, by_p = bound(W * H * 16 + spp * 98 * 8, adj._pt_sample.vertices * OPS_ADJ_VERTEX)
+    say("adjudication", f"P4 raster: kernel {ms_r:.4f} ms, plain {plain_r:.1f} ms, bound "
+                        f"{b_r:.4f} ms ({by_r}); P4 pt: kernel {ms_p:.4f} ms, plain "
+                        f"{plain_p:.1f} ms, bound {b_p:.4f} ms ({by_p}), "
+                        f"{adj._pt_sample.vertices} path vertices")
+    return ({"P4 raster": (err_r, ms_r, plain_r, b_r, by_r),
+             "P4 pt": (err_p, ms_p, plain_p, b_p, by_p)}, launches)
+
+
 def _jax_modules():
     """JAX and every module of the JAX package: the port imports none."""
     return [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "forge3d_tpu")]
@@ -2674,6 +3175,17 @@ def main() -> int:
     for row in rows:
         if row["name"] == "K9 trace_mesh":
             row["launches"] += map_launches["K9 trace_mesh"]
+    pt, tlas_launches = phase_pt_kernels(dem)
+    p3, hyb_launches = phase_hybrid(dem)
+    p4, adj_launches = phase_adjudication()
+    # P6's kernels run inside P3 on the main path: its launches are P3's
+    # launches that marched the landmark
+    rows.append(kernel_row("P6 sdf_eval", hyb_launches["P3 with P6"], *pt["P6 sdf_eval"]))
+    rows.append(kernel_row("P6 sdf_march", hyb_launches["P3 with P6"], *pt["P6 sdf_march"]))
+    rows.append(kernel_row("P5 trace_tlas", tlas_launches, *pt["P5 trace_tlas"]))
+    rows.append(kernel_row("P3 hybrid_render", hyb_launches["P3 hybrid_render"], *p3))
+    for kernel, vals in p4.items():
+        rows.append(kernel_row(kernel, adj_launches[kernel], *vals))
 
     loaded = sorted(set(_jax_modules()) - preloaded)
     require(not loaded, f"imported JAX or modules of the JAX package: {loaded}")

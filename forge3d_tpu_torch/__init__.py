@@ -11,9 +11,11 @@
 # its screen mode and terrain.screen's clipmap mode, kernels S1-S9) and
 # MapScene (mapscene: its perspective route over R1, world vector layers
 # through the coverage kernel E4 in vector/, buildings through K9; its
-# screen, clipmap and mesh routes). It imports torch and
-# never jax nor any module of the JAX package, which stays the reference it
-# is tested against.
+# screen, clipmap and mesh routes), and the other path-tracing engines:
+# the SDF tracer (kernel P6), the TLAS walk (P5), the hybrid tracer (P3),
+# the AEQUITAS adjudication pair (P4), PathTracer and the BRDF tiles. It
+# imports torch and never jax nor any module of the JAX package, which
+# stays the reference it is tested against.
 #
 # Entry points load lazily, so `import forge3d_tpu_torch` is cheap and
 # builds nothing: the kernels are compiled at their first CUDA launch.
@@ -55,6 +57,18 @@ _ENTRY = {
     "vector_render_oit_edl": "vector",
     "vector_render_pick_map": "vector",
     "vector_render_oit_and_pick": "vector",
+    "hybrid_render": "pt.hybrid",
+    "build_hybrid_scene": "pt.hybrid",
+    "render_adjudication_pair": "pt.hybrid",
+    "render_adjudication_builtin": "pt.adjudication",
+    "SdfSceneBuilder": "ops.sdf",
+    "build_tlas": "ops.tlas",
+    "trace_tlas": "ops.tlas",
+    "Instance": "ops.tlas",
+    "PathTracer": "pt.path_tracer",
+    "render_brdf_tile": "brdf",
+    "render_brdf_tile_overrides": "brdf",
+    "render_debug_pattern_frame": "brdf",
 }
 
 

@@ -257,8 +257,46 @@ class ClipArgs(ctypes.Structure):
     _fields_ = [("uv", _P), ("world", _P), ("valid", _P), ("spacing", _F), ("wtex", _F * 2)]
 
 
-#: the structs whose sizes csrc/screen.cu:f3d_struct_sizes reports, in its order
-STRUCTS = (ScreenArgs, ScreenOut, ClipArgs, SkyArgs)
+class SdfArgs(ctypes.Structure):
+    """Mirror of `SdfArgs` in csrc/sdf.cuh (P6): the tape."""
+
+    _fields_ = [(n, _P) for n in ("is_op", "kind", "params", "smoothing", "material")] + [
+        ("tape_len", _I), ("stack_depth", _I)]
+
+
+class TlasArgs(ctypes.Structure):
+    """Mirror of `TlasArgs` in csrc/pt.cuh (P5)."""
+
+    _fields_ = [("blas", _P), ("xform", _P), ("inst_blas", _P), ("n_inst", _I)]
+
+
+class HybridArgs(ctypes.Structure):
+    """Mirror of `HybridArgs` in csrc/pt.cuh (P3)."""
+
+    _fields_ = [(n, _I) for n in ("width", "height", "use_terrain", "use_mesh", "use_sdf")] + [
+        ("cam_o", _F3), ("sun", _F3), ("sun_i", _F), ("env_intensity", _F), ("exposure", _F),
+        ("albedo", _F * 9)]
+
+
+class HybridOut(ctypes.Structure):
+    """Mirror of `HybridOut`: P3's output planes; a null one is not written."""
+
+    _fields_ = [(n, _P) for n in ("rgba", "depth", "normal", "vis", "kind", "albedo")]
+
+
+class AdjArgs(ctypes.Structure):
+    """Mirror of `AdjArgs` in csrc/adjudication.cuh (P4)."""
+
+    _fields_ = [(n, _I) for n in ("width", "height", "spp", "n_quad")] + [
+        ("sph", _F * 12), ("r2", _F3), ("alb", _F * 12), ("rough", _F * 4)] + [
+        (n, _F3) for n in ("sun_wi", "li", "amb", "sky", "pe_sun", "pe_amb", "pe_sky")] + [
+        ("pe_s", _F * 9)] + [(n, _F3) for n in ("cam_o", "right", "up", "fwd")] + [
+        (n, _F) for n in ("half_w", "half_h", "quad_w")]
+
+
+#: the structs whose sizes csrc/layout.cu:f3d_struct_sizes reports, in its order
+STRUCTS = (ScreenArgs, ScreenOut, ClipArgs, SkyArgs, SdfArgs, MeshArgs, TlasArgs, HybridArgs,
+           HybridOut, AdjArgs)
 
 
 _SIGNATURES = {
@@ -325,6 +363,24 @@ _SIGNATURES = {
     # (prims, n, kind, width, height, half, evenodd, color, opacity, pick_id,
     #  cov, rgb, alpha, pick, stream)
     "f3d_vector_layer": [_P, _I, _I, _I, _I, _F, _I, _F3, _F, _I, _P, _P, _P, _P, _P],
+    # (sdf, px, py, pz, n, d, mat, stream)
+    "f3d_sdf_eval": [ctypes.POINTER(SdfArgs), _P, _P, _P, _I, _P, _P, _P],
+    # (sdf, px, py, pz, n, eps, out (3, n), stream)
+    "f3d_sdf_normal": [ctypes.POINTER(SdfArgs), _P, _P, _P, _I, _F, _P, _P],
+    # (sdf, rox, roy, roz, rdx, rdy, rdz, n, tmin, tmax, max_steps, hit_eps,
+    #  hit, t, mat, stream)
+    "f3d_sdf_march": [ctypes.POINTER(SdfArgs)] + [_P] * 6 + [_I, _F, _F, _I, _F] + [_P] * 4,
+    # (tlas, rox, roy, roz, rdx, rdy, rdz, n, tmin, tmax, hit, t, inst, prim,
+    #  u, v, stream)
+    "f3d_trace_tlas": [ctypes.POINTER(TlasArgs)] + [_P] * 6 + [_I, _F, _F] + [_P] * 7,
+    # (scene, mesh, sdf, args, rdx, rdy, rdz, out, stream)
+    "f3d_hybrid_render": [ctypes.POINTER(SceneArgs), ctypes.POINTER(MeshArgs),
+                          ctypes.POINTER(SdfArgs), ctypes.POINTER(HybridArgs), _P, _P, _P,
+                          ctypes.POINTER(HybridOut), _P],
+    # (args, quad, rgba, hdr, stream)
+    "f3d_adj_raster": [ctypes.POINTER(AdjArgs), _P, _P, _P, _P],
+    # (args, keys, rgba, hdr, stream)
+    "f3d_adj_pt": [ctypes.POINTER(AdjArgs), _P, _P, _P, _P],
 }
 
 

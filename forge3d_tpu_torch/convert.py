@@ -3,7 +3,7 @@
 # can feed both implementations identical scene tables, reservoir history,
 # sweep plans and sweep intermediates (rotated grid, sweep maps, polar
 # accumulator), mesh BVHs, light sets and alias tables, terrain render
-# parameters, and MapScene recipes. Takes numpy arrays (or anything np.asarray accepts) and plain
+# parameters, MapScene recipes, SDF tapes, TLASes and hybrid scenes. Takes numpy arrays (or anything np.asarray accepts) and plain
 # dicts, and never imports jax.
 
 from __future__ import annotations
@@ -166,3 +166,46 @@ def scene_recipe(obj):
     if type(obj).__name__ != "SceneRecipe":
         raise TypeError(f"scene_recipe takes a SceneRecipe, not {type(obj).__name__}")
     return conv(obj)
+
+
+def sdf_scene_from_numpy(fields: dict, device="cpu"):
+    """`fields`: a JAX SdfScene's tape arrays by name (is_op, kind, params,
+    smoothing, material) with tape_len, stack_depth, primitive_count,
+    node_count and bounds -> the port's SdfScene."""
+    from .ops.sdf import SdfScene
+
+    scene = SdfScene.from_arrays(
+        *(np.asarray(fields[k]) for k in ("is_op", "kind", "params", "smoothing", "material")),
+        int(fields["stack_depth"]), int(fields["primitive_count"]), int(fields["node_count"]),
+        bounds=fields.get("bounds"), device=device)
+    if scene.tape_len != int(fields["tape_len"]):
+        raise ValueError(f"tape of {scene.tape_len} instructions, tape_len {fields['tape_len']}")
+    return scene
+
+
+def tlas_from_numpy(blases, instances, inv_mats, nrm_mats, device="cpu"):
+    """`blases`: each BLAS's JAX MeshScene fields by name; `instances`:
+    (blas_index, 4x4 transform) pairs; `inv_mats`, `nrm_mats`: the JAX
+    Tlas's float64 matrices -> the port's Tlas."""
+    from .ops.tlas import Instance, Tlas
+
+    return Tlas(scenes=tuple(bvh_from_numpy(b, device) for b in blases),
+                instances=tuple(Instance(int(i), np.asarray(m)) for i, m in instances),
+                inv_mats=tuple(np.asarray(m, np.float64) for m in inv_mats),
+                nrm_mats=tuple(np.asarray(m, np.float64) for m in nrm_mats))
+
+
+def hybrid_scene_from_numpy(terrain=None, mesh=None, mesh_normals=None, sdf=None,
+                            device="cpu"):
+    """A JAX HybridScene's parts: `terrain` the (TerrainScene fields,
+    TerrainSceneStatic fields) pair, `mesh` the MeshScene fields with
+    `mesh_normals` (n_prims, 3), `sdf` as `sdf_scene_from_numpy` takes it;
+    any may be None -> the port's HybridScene."""
+    from .pt.hybrid import HybridScene
+
+    tscene = scene_from_numpy(*terrain, device=device) if terrain is not None else None
+    mscene, nodes = bvh_from_numpy(mesh, device) if mesh is not None else (None, 0)
+    normals = tensor(mesh_normals, device) if mesh is not None else None
+    return HybridScene(terrain_scene=tscene, terrain_static=tscene, mesh_scene=mscene,
+                       mesh_nodes=nodes, mesh_normals=normals,
+                       sdf_scene=sdf_scene_from_numpy(sdf, device) if sdf is not None else None)

@@ -1,0 +1,142 @@
+// forge3d_tpu_torch/csrc/pt.cu
+// The SDF, TLAS and hybrid path-tracing kernels, for sm_90a, with plain C
+// launchers for ctypes (see _kernels.py). Each launcher enqueues on the
+// caller's stream, does not synchronise, allocates nothing, and returns
+// cudaGetLastError().
+//
+// P6 sdf_eval_kernel    replaces forge3d_tpu/ops/sdf.py:SdfScene.evaluate (223)
+//    sdf_normal_kernel  replaces forge3d_tpu/ops/sdf.py:SdfScene.normal (339)
+//    sdf_march_kernel   replaces forge3d_tpu/ops/sdf.py:SdfScene.raymarch (348)
+// P5 tlas_kernel        replaces forge3d_tpu/ops/tlas.py:trace_tlas (86)
+// P3 hybrid_kernel      replaces forge3d_tpu/pt/hybrid.py:_trace_all (77) and
+//                       hybrid_render (154)
+//
+// One thread per point, ray or pixel (sdf.cuh, pt.cuh). The JAX versions
+// step every lane of a batch in lock step (the tape's fori_loop, the
+// march's while_loop, the per-instance BVH loops); here each thread runs
+// its own loops to their ends. What bounds them: the tape loop is
+// arithmetic with a per-thread stack in local memory (L1); the march is
+// that times the steps its ray takes, divergent between rays; the TLAS
+// walk and the hybrid's mesh and terrain traces are chains of dependent
+// loads, as K9 and K5 are.
+
+#include <cuda_runtime.h>
+
+#include "pt.cuh"
+
+namespace {
+
+constexpr int kThreads = 128;
+
+inline int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
+
+__global__ void sdf_eval_kernel(SdfArgs s, const float* __restrict__ px,
+                                const float* __restrict__ py, const float* __restrict__ pz,
+                                int n, float* __restrict__ d, int* __restrict__ mat) {
+    int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    int m;
+    d[i] = sdf_eval(s, px[i], py[i], pz[i], m);
+    mat[i] = m;
+}
+
+__global__ void sdf_normal_kernel(SdfArgs s, const float* __restrict__ px,
+                                  const float* __restrict__ py, const float* __restrict__ pz,
+                                  int n, float eps, float* __restrict__ out) {
+    int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    sdf_normal(s, px[i], py[i], pz[i], eps, out[i], out[n + i], out[2 * n + i]);
+}
+
+__global__ void sdf_march_kernel(SdfArgs s, const float* __restrict__ rox,
+                                 const float* __restrict__ roy, const float* __restrict__ roz,
+                                 const float* __restrict__ rdx, const float* __restrict__ rdy,
+                                 const float* __restrict__ rdz, int n, float tmin, float tmax,
+                                 int max_steps, float hit_eps, unsigned char* __restrict__ hit,
+                                 float* __restrict__ t, int* __restrict__ mat) {
+    int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    SdfHit h = sdf_march(s, rox[i], roy[i], roz[i], rdx[i], rdy[i], rdz[i], tmin, tmax,
+                         max_steps, hit_eps);
+    hit[i] = (unsigned char)h.hit;
+    t[i] = h.t;
+    mat[i] = h.material;
+}
+
+__global__ void tlas_kernel(TlasArgs a, const float* __restrict__ rox,
+                            const float* __restrict__ roy, const float* __restrict__ roz,
+                            const float* __restrict__ rdx, const float* __restrict__ rdy,
+                            const float* __restrict__ rdz, int n, float tmin, float tmax,
+                            unsigned char* __restrict__ hit, float* __restrict__ t,
+                            int* __restrict__ inst, int* __restrict__ prim,
+                            float* __restrict__ u, float* __restrict__ v) {
+    int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    TlasHit h = tlas_ray(a, rox[i], roy[i], roz[i], rdx[i], rdy[i], rdz[i], tmin, tmax);
+    hit[i] = (unsigned char)h.hit;
+    t[i] = h.t;
+    inst[i] = h.instance;
+    prim[i] = h.prim;
+    u[i] = h.u;
+    v[i] = h.v;
+}
+
+__global__ void hybrid_kernel(SceneArgs s, MeshArgs m, SdfArgs sdf, HybridArgs a,
+                              const float* __restrict__ rdx, const float* __restrict__ rdy,
+                              const float* __restrict__ rdz, HybridOut o) {
+    int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= a.width * a.height) return;
+    hybrid_pixel(s, m, sdf, a, rdx, rdy, rdz, o, i);
+}
+
+}  // namespace
+
+extern "C" {
+
+int f3d_sdf_eval(const SdfArgs* s, const float* px, const float* py, const float* pz, int n,
+                 float* d, int* mat, void* stream) {
+    if (n > 0)
+        sdf_eval_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(*s, px, py, pz, n,
+                                                                              d, mat);
+    return (int)cudaGetLastError();
+}
+
+int f3d_sdf_normal(const SdfArgs* s, const float* px, const float* py, const float* pz, int n,
+                   float eps, float* out, void* stream) {
+    if (n > 0)
+        sdf_normal_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(*s, px, py, pz,
+                                                                                n, eps, out);
+    return (int)cudaGetLastError();
+}
+
+int f3d_sdf_march(const SdfArgs* s, const float* rox, const float* roy, const float* roz,
+                  const float* rdx, const float* rdy, const float* rdz, int n, float tmin,
+                  float tmax, int max_steps, float hit_eps, unsigned char* hit, float* t,
+                  int* mat, void* stream) {
+    if (n > 0)
+        sdf_march_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+            *s, rox, roy, roz, rdx, rdy, rdz, n, tmin, tmax, max_steps, hit_eps, hit, t, mat);
+    return (int)cudaGetLastError();
+}
+
+int f3d_trace_tlas(const TlasArgs* a, const float* rox, const float* roy, const float* roz,
+                   const float* rdx, const float* rdy, const float* rdz, int n, float tmin,
+                   float tmax, unsigned char* hit, float* t, int* inst, int* prim, float* u,
+                   float* v, void* stream) {
+    if (n > 0)
+        tlas_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+            *a, rox, roy, roz, rdx, rdy, rdz, n, tmin, tmax, hit, t, inst, prim, u, v);
+    return (int)cudaGetLastError();
+}
+
+int f3d_hybrid_render(const SceneArgs* s, const MeshArgs* m, const SdfArgs* sdf,
+                      const HybridArgs* a, const float* rdx, const float* rdy, const float* rdz,
+                      const HybridOut* o, void* stream) {
+    int n = a->width * a->height;
+    if (n > 0)
+        hybrid_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(*s, *m, *sdf, *a, rdx,
+                                                                            rdy, rdz, *o);
+    return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -162,13 +162,4 @@ int f3d_clipmap_shade(const ScreenArgs* a, const ClipArgs* g, unsigned char* rgb
     return (int)cudaGetLastError();
 }
 
-// the sizes of the argument structs, which _kernels.py mirrors by hand
-int f3d_struct_sizes(long long* out, int n) {
-    const long long sizes[] = {(long long)sizeof(ScreenArgs), (long long)sizeof(ScreenOut),
-                               (long long)sizeof(ClipArgs), (long long)sizeof(SkyArgs)};
-    const int count = (int)(sizeof(sizes) / sizeof(sizes[0]));
-    for (int i = 0; i < n && i < count; ++i) out[i] = sizes[i];
-    return count;
-}
-
 }  // extern "C"

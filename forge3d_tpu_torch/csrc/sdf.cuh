@@ -1,0 +1,208 @@
+// forge3d_tpu_torch/csrc/sdf.cuh
+// Kernel P6's body: the signed-distance tape of forge3d_tpu/ops/sdf.py
+// (SdfScene.evaluate 223, its fori_loop 334; normal 339; raymarch 348 and
+// its while_loop 382) for one point or ray. Runs alone in
+// pt.cu:sdf_eval_kernel, sdf_normal_kernel and sdf_march_kernel, and
+// inside the hybrid tracer P3 (pt.cu:hybrid_kernel).
+//
+// The tape is post-order: a primitive pushes its distance and material, an
+// operation pops two and pushes one. The stack lives in a per-thread array
+// no deeper than the compiled stack depth. Each instruction computes only
+// its own primitive or operation (a `switch` on the kind), where JAX
+// computes every branch of its lax.switch and keeps one; the capsule's
+// division is guarded by max(., 1e-12) as JAX's is, so no untaken branch
+// can matter.
+//
+// XLA compiles the tape loop with a*b + c fused into one multiply-add; the
+// sums below are written as the fmaf calls that match it on every point
+// (-fmad=false keeps everything else unfused). The sphere trace steps one
+// ray until it hits, passes tmax or runs out of steps: JAX freezes a lane
+// once it is done, so stopping there gives the same t, hit and material.
+
+#pragma once
+
+#include <math.h>
+#include <stdint.h>
+
+#ifndef F3D_HD
+#ifdef __CUDACC__
+#define F3D_HD __host__ __device__ __forceinline__
+#else
+#define F3D_HD inline
+#endif
+#endif
+
+#ifndef F3D_LDG
+#ifdef __CUDA_ARCH__
+#define F3D_LDG(p) __ldg(p)
+#else
+#define F3D_LDG(p) (*(p))
+#endif
+#endif
+
+#define F3D_SDF_STACK 66  // ops/sdf.py:MAX_STACK (trees of depth <= 64)
+
+struct SdfArgs {            // mirrored by _kernels.SdfArgs
+    const int* is_op;       // (T,) 0 = primitive, 1 = operation
+    const int* kind;        // (T,)
+    const float* params;    // (T, 8)
+    const float* smoothing; // (T,)
+    const int* material;    // (T,)
+    int tape_len, stack_depth;
+};
+
+struct SdfHit {
+    int hit;
+    float t;
+    int material;
+};
+
+// a1*b1 + a2*b2 + a3*b3 as XLA fuses it in the tape loop: a2*b2 rounded,
+// then a1*b1 and a3*b3 each fused in
+F3D_HD float sdf_dot3(float a1, float b1, float a2, float b2, float a3, float b3) {
+    return fmaf(a3, b3, fmaf(a1, b1, a2 * b2));
+}
+
+// ops/sdf.py:prim_dist, the branch of `kind` alone
+F3D_HD float sdf_prim(int kind, const float* p, float px, float py, float pz) {
+    switch (kind) {
+        case 0: {  // sphere
+            float dx = px - p[0], dy = py - p[1], dz = pz - p[2];
+            return sqrtf(sdf_dot3(dx, dx, dy, dy, dz, dz)) - p[3];
+        }
+        case 1: {  // box
+            float qx = fabsf(px - p[0]) - p[3];
+            float qy = fabsf(py - p[1]) - p[4];
+            float qz = fabsf(pz - p[2]) - p[5];
+            float mx = fmaxf(qx, 0.0f), my = fmaxf(qy, 0.0f), mz = fmaxf(qz, 0.0f);
+            float outer = sqrtf(fmaf(mz, mz, fmaf(my, my, mx * mx)));
+            float inner = fminf(fmaxf(qx, fmaxf(qy, qz)), 0.0f);
+            return outer + inner;
+        }
+        case 2: {  // cylinder about y
+            float dx = px - p[0], dz = pz - p[2];
+            float dxz = sqrtf(fmaf(dx, dx, dz * dz)) - p[3];
+            float dy = fabsf(py - p[1]) - p[4];
+            float a = fmaxf(dxz, 0.0f), b = fmaxf(dy, 0.0f);
+            return fminf(fmaxf(dxz, dy), 0.0f) + sqrtf(fmaf(a, a, b * b));
+        }
+        case 3:  // plane: dot(n, p) - d
+            return sdf_dot3(px, p[0], py, p[1], pz, p[2]) - p[3];
+        case 4: {  // torus about y
+            float dx = px - p[0], dz = pz - p[2];
+            float tq = sqrtf(fmaf(dx, dx, dz * dz)) - p[3];
+            float dy = py - p[1];
+            return sqrtf(fmaf(tq, tq, dy * dy)) - p[4];
+        }
+        default: {  // capsule a..b
+            float pax = px - p[0], pay = py - p[1], paz = pz - p[2];
+            float bax = p[3] - p[0], bay = p[4] - p[1], baz = p[5] - p[2];
+            float den = fmaxf(sdf_dot3(bax, bax, bay, bay, baz, baz), 1e-12f);
+            float h = fminf(fmaxf(sdf_dot3(pax, bax, pay, bay, paz, baz) / den, 0.0f), 1.0f);
+            float ex = fmaf(h, -bax, pax), ey = fmaf(h, -bay, pay), ez = fmaf(h, -baz, paz);
+            return sqrtf(sdf_dot3(ex, ex, ey, ey, ez, ez)) - p[6];
+        }
+    }
+}
+
+// ops/sdf.py:apply_op, the branch of `kind` alone (d1 left, d2 right)
+F3D_HD void sdf_op(int kind, float k, float d1, int m1, float d2, int m2, float& d, int& m) {
+    float kk = fmaxf(k, 1e-6f);
+    switch (kind) {
+        case 0:  // union
+            d = fminf(d1, d2);
+            m = d1 <= d2 ? m1 : m2;
+            break;
+        case 1:  // intersection
+            d = fmaxf(d1, d2);
+            m = d1 >= d2 ? m1 : m2;
+            break;
+        case 2:  // subtraction
+            d = fmaxf(d1, -d2);
+            m = m1;
+            break;
+        case 3: {  // smooth union
+            float h = fminf(fmaxf(0.5f + 0.5f * (d2 - d1) / kk, 0.0f), 1.0f);
+            d = fmaf(-(k * h), 1.0f - h, fmaf(d1 - d2, h, d2));
+            m = d1 <= d2 ? m1 : m2;
+            break;
+        }
+        case 4: {  // smooth intersection
+            float h = fminf(fmaxf(0.5f - 0.5f * (d2 - d1) / kk, 0.0f), 1.0f);
+            d = fmaf(k * h, 1.0f - h, fmaf(d1 - d2, h, d2));
+            m = d1 >= d2 ? m1 : m2;
+            break;
+        }
+        default: {  // smooth subtraction
+            float h = fminf(fmaxf(0.5f - 0.5f * (d2 + d1) / kk, 0.0f), 1.0f);
+            d = fmaf(k * h, 1.0f - h, fmaf(-d2 - d1, h, d1));
+            m = m1;
+            break;
+        }
+    }
+}
+
+// SdfScene.evaluate for one point: the distance, and the material of the
+// winning leaf or operation in `mat`
+F3D_HD float sdf_eval(const SdfArgs& s, float px, float py, float pz, int& mat) {
+    float dst[F3D_SDF_STACK];
+    int mst[F3D_SDF_STACK];
+    int sp = 0;
+    for (int i = 0; i < s.tape_len; ++i) {
+        const int kind = F3D_LDG(s.kind + i);
+        if (F3D_LDG(s.is_op + i)) {
+            float d;
+            int m;
+            sdf_op(kind, F3D_LDG(s.smoothing + i), dst[sp - 2], mst[sp - 2], dst[sp - 1],
+                   mst[sp - 1], d, m);
+            dst[sp - 2] = d;
+            mst[sp - 2] = m;
+            sp -= 1;
+        } else {
+            float p[7];
+            for (int k = 0; k < 7; ++k) p[k] = F3D_LDG(s.params + 8 * i + k);
+            dst[sp] = sdf_prim(kind, p, px, py, pz);
+            mst[sp] = F3D_LDG(s.material + i);
+            sp += 1;
+        }
+    }
+    mat = mst[0];
+    return dst[0];
+}
+
+// SdfScene.normal: central differences, then JAX's eager normalisation
+// (each operation rounded)
+F3D_HD void sdf_normal(const SdfArgs& s, float px, float py, float pz, float eps, float& nx,
+                       float& ny, float& nz) {
+    int m;
+    float x = sdf_eval(s, px + eps, py, pz, m) - sdf_eval(s, px - eps, py, pz, m);
+    float y = sdf_eval(s, px, py + eps, pz, m) - sdf_eval(s, px, py - eps, pz, m);
+    float z = sdf_eval(s, px, py, pz + eps, m) - sdf_eval(s, px, py, pz - eps, m);
+    float inv = 1.0f / sqrtf(x * x + y * y + z * z + 1e-20f);
+    nx = x * inv;
+    ny = y * inv;
+    nz = z * inv;
+}
+
+// SdfScene.raymarch for one ray (XLA fuses t * d into the ray's origin)
+F3D_HD SdfHit sdf_march(const SdfArgs& s, float rox, float roy, float roz, float rdx, float rdy,
+                        float rdz, float tmin, float tmax, int max_steps, float hit_eps) {
+    SdfHit h;
+    h.hit = 0;
+    h.t = tmin;
+    h.material = -1;
+    const float half = hit_eps * 0.5f;
+    for (int i = 0; i < max_steps; ++i) {
+        int m;
+        float d = sdf_eval(s, fmaf(h.t, rdx, rox), fmaf(h.t, rdy, roy), fmaf(h.t, rdz, roz), m);
+        if (d < hit_eps) {
+            h.hit = 1;
+            h.material = m;
+            break;
+        }
+        const bool over = h.t > tmax;
+        h.t = h.t + fmaxf(d, half);
+        if (over) break;
+    }
+    return h;
+}

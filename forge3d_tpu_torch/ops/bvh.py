@@ -217,6 +217,47 @@ def build_sah_bvh(vertices: np.ndarray, indices: np.ndarray) -> BvhArrays:
     )
 
 
+def refit_bvh(bvh: BvhArrays, vertices: np.ndarray, indices: np.ndarray) -> BvhArrays:
+    """Refit node bounds to moved vertices, keeping topology (host, numpy:
+    forge3d_tpu/ops/bvh.py:refit_bvh)."""
+    vertices = np.asarray(vertices, np.float32)
+    v0 = vertices[indices[:, 0]][bvh.prim_index]
+    v1 = vertices[indices[:, 1]][bvh.prim_index]
+    v2 = vertices[indices[:, 2]][bvh.prim_index]
+    tmin = np.minimum(np.minimum(v0, v1), v2)
+    tmax = np.maximum(np.maximum(v0, v1), v2)
+    n = bvh.node_count
+    bmin = bvh.bounds_min.copy()
+    bmax = bvh.bounds_max.copy()
+    # DFS order puts children after their parent: walk backwards, leaves
+    # from their triangles, interiors from their two children (the right
+    # child is where the left subtree's miss link lands)
+    child_of = {}
+    for i in range(n):
+        if bvh.count[i] == 0:
+            left = i + 1
+            right = bvh.miss_link[left] if bvh.miss_link[left] != bvh.miss_link[i] else left
+            child_of[i] = (left, right)
+    for i in range(n - 1, -1, -1):
+        c = bvh.count[i]
+        if c > 0:
+            f = bvh.first[i]
+            bmin[i] = tmin[f:f + c].min(0)
+            bmax[i] = tmax[f:f + c].max(0)
+        else:
+            l, r = child_of[i]
+            bmin[i] = np.minimum(bmin[l], bmin[r])
+            bmax[i] = np.maximum(bmax[l], bmax[r])
+    return BvhArrays(
+        bounds_min=bmin, bounds_max=bmax, first=bvh.first, count=bvh.count,
+        miss_link=bvh.miss_link, prim_index=bvh.prim_index,
+        tri_v0=v0, tri_e1=v1 - v0, tri_e2=v2 - v0,
+        triangle_count=bvh.triangle_count, node_count=bvh.node_count,
+        world_aabb=(tuple(map(float, tmin.min(0))), tuple(map(float, tmax.max(0)))),
+        stats=bvh.stats,
+    )
+
+
 # ---------------------------------------------------------------------------
 # Device traversal
 # ---------------------------------------------------------------------------

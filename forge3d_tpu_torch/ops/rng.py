@@ -125,3 +125,44 @@ def uniform(key, shape=()) -> np.ndarray:
     the mantissa of a float in [1, 2), minus 1."""
     bits = (random_bits(key, shape) >> _U32(9)) | _U32(0x3F800000)
     return np.maximum(np.float32(0.0), bits.view(np.float32) - np.float32(1.0))
+
+
+# ---------------------------------------------------------------------------
+# Threefry-2x32 on tensors: the same hash over per-element counters, on the
+# CPU or the card. PyTorch has no uint32 arithmetic to speak of, so each u32
+# word is held in an int64 tensor and masked to 32 bits after every add and
+# shift. Keys stay numpy pairs on the host.
+# ---------------------------------------------------------------------------
+
+def _rotl_t(v: torch.Tensor, r: int) -> torch.Tensor:
+    return ((v << r) & MASK32) | (v >> (32 - r))
+
+
+def threefry2x32_tensor(key, x1: torch.Tensor, x2: torch.Tensor):
+    """`threefry2x32` of int64-held u32 counter words (x1, x2) under `key`:
+    the two output words, int64-held."""
+    k1, k2 = int(key[0]) & MASK32, int(key[1]) & MASK32
+    ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
+    x = [(x1 + ks[0]) & MASK32, (x2 + ks[1]) & MASK32]
+    for i in range(5):
+        for r in _ROT[i % 2]:
+            x[0] = (x[0] + x[1]) & MASK32
+            x[1] = _rotl_t(x[1], r) ^ x[0]
+        x[0] = (x[0] + ks[(i + 1) % 3]) & MASK32
+        x[1] = (x[1] + ks[(i + 2) % 3] + i + 1) & MASK32
+    return x[0], x[1]
+
+
+def random_bits_tensor(key, shape, device="cpu") -> torch.Tensor:
+    """`random_bits` on `device`: int64-held u32 bits per element."""
+    n = int(np.prod(shape, dtype=np.int64))
+    idx = torch.arange(n, dtype=torch.int64, device=device)
+    a, b = threefry2x32_tensor(key, idx >> 32, idx & MASK32)
+    return (a ^ b).reshape(shape)
+
+
+def uniform_tensor(key, shape, device="cpu") -> torch.Tensor:
+    """jax.random.uniform(key, shape, float32) on `device`, bit for bit."""
+    bits = (random_bits_tensor(key, shape, device) >> 9) | 0x3F800000
+    f = bits.to(torch.int32).view(torch.float32)
+    return torch.clamp(f - 1.0, min=0.0)

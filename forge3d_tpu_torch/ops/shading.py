@@ -39,6 +39,28 @@ def sqrt32(x: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(x.to(torch.float64)).to(_F32)
 
 
+def fma32(a, b, c) -> torch.Tensor:
+    """float32 a * b + c rounded once (the kernels' fmaf), where XLA fuses a
+    multiply into the add that consumes it. The float64 product of two
+    float32 values is exact; the float64 sum is rounded to odd (TwoSum gives
+    its error, and an inexact sum with an even last bit moves one ulp toward
+    the error), and a value rounded to odd with 29 spare bits rounds to
+    float32 as the exact sum does. Python numbers are taken as float32."""
+    ref = next(x for x in (a, b, c) if isinstance(x, torch.Tensor))
+    a, b, c = (x if isinstance(x, torch.Tensor) else ref.new_tensor(x, dtype=_F32)
+               for x in (a, b, c))
+    p = a.double() * b.double()
+    cd = c.double()
+    s = p + cd
+    bv = s - p
+    err = (p - (s - bv)) + (cd - bv)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, torch.full_like(s, float("inf")),
+                         torch.full_like(s, float("-inf")))
+    s = torch.where((err != 0) & even & torch.isfinite(s), torch.nextafter(s, toward), s)
+    return s.float()
+
+
 def rsqrt(x: torch.Tensor) -> torch.Tensor:
     """1 / sqrt(x) with both steps correctly rounded (the kernels'
     `1.0f / sqrtf(x)`)."""

@@ -17,7 +17,7 @@
 # over each chunk and an int32 sum for the winding; minima and integer sums
 # are exact in any order, so chunking changes no bit. XLA compiles JAX's scan
 # bodies with every a*b + c fused into one multiply-add, rounded once; the
-# plain versions round those sums once too (`_fma`), as the kernel's fmaf
+# plain versions round those sums once too (`ops.shading.fma32`), as the kernel's fmaf
 # does, so all three agree bit for bit.
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from .. import _kernels
+from ..ops.shading import fma32, sqrt32
 
 _F32 = torch.float32
 
@@ -52,43 +53,17 @@ def _cols(prims: torch.Tensor):
     return [prims[:, k, None, None] for k in range(4)]
 
 
-def _sqrt(x: torch.Tensor) -> torch.Tensor:
-    """The correctly rounded float32 square root (JAX's, and sqrtf's in the
-    kernel). PyTorch's float32 sqrt on the CPU is off by an ulp on some
-    inputs; the float64 root rounded to float32 is the correctly rounded one
-    (53 >= 2 * 24 + 2 bits)."""
-    return torch.sqrt(x.double()).float()
-
-
-def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """float32 a * b + c rounded once (fmaf). The float64 product of two
-    float32 values is exact; the float64 sum is rounded to odd (TwoSum gives
-    its error, and an inexact sum with an even last bit moves one ulp toward
-    the error), and a value rounded to odd with 29 spare bits rounds to
-    float32 as the exact sum does."""
-    p = a.double() * b.double()
-    cd = c.double()
-    s = p + cd
-    bv = s - p
-    err = (p - (s - bv)) + (cd - bv)
-    even = (s.view(torch.int64) & 1) == 0
-    toward = torch.where(err > 0, torch.full_like(s, float("inf")),
-                         torch.full_like(s, float("-inf")))
-    s = torch.where((err != 0) & even & torch.isfinite(s), torch.nextafter(s, toward), s)
-    return s.float()
-
-
 def _seg_distance(px, py, x1, y1, x2, y2):
     """coverage.py:_seg_distance over a chunk of segments: (C, H, W)."""
     vx = x2 - x1
     vy = y2 - y1
     wx = px - x1
     wy = py - y1
-    denom = torch.clamp(_fma(vx, vx, vy * vy), min=1e-12)
-    t = torch.clamp(_fma(wx, vx, wy * vy) / denom, 0.0, 1.0)
-    dx = _fma(-t, vx, wx)
-    dy = _fma(-t, vy, wy)
-    return _sqrt(_fma(dx, dx, dy * dy))
+    denom = torch.clamp(fma32(vx, vx, vy * vy), min=1e-12)
+    t = torch.clamp(fma32(wx, vx, wy * vy) / denom, 0.0, 1.0)
+    dx = fma32(-t, vx, wx)
+    dy = fma32(-t, vy, wy)
+    return sqrt32(fma32(dx, dx, dy * dy))
 
 
 def _as_prims(a) -> torch.Tensor:
@@ -132,7 +107,7 @@ def disc_coverage_plain(width: int, height: int, discs):
         cx, cy, r, _ = _cols(d4[lo:lo + step])
         dx = px - cx
         dy = py - cy
-        dmin = torch.minimum(dmin, (_sqrt(_fma(dx, dx, dy * dy)) - r).amin(0))
+        dmin = torch.minimum(dmin, (sqrt32(fma32(dx, dx, dy * dy)) - r).amin(0))
     return torch.clamp(0.5 - dmin, 0.0, 1.0)
 
 
@@ -166,7 +141,7 @@ def polygon_coverage_plain(width: int, height: int, edges, rule: str = "nonzero"
         cond_dn = (y2 <= py) & (y1 > py)
         dy = y2 - y1
         t = (py - y1) / torch.where(dy.abs() > 1e-12, dy, torch.ones_like(dy))
-        xint = _fma(t, (x2 - x1).expand_as(t), x1.expand_as(t))
+        xint = fma32(t, (x2 - x1).expand_as(t), x1.expand_as(t))
         left = px < xint
         w = (cond_up & left).to(torch.int32) - (cond_dn & left).to(torch.int32)
         winding = winding + w.sum(0, dtype=torch.int32)

@@ -557,3 +557,79 @@ def test_furniture_equal():
         out.append(a)
     np.testing.assert_array_equal(*out)
     assert (out[0] != img).any()
+
+
+# the host copies of the other path-tracing engines' slice: the golden-gate
+# metrics, the EXR writer with its ZIP helpers, refit_bvh, build_tlas's
+# float64 matrices and iter_tiles
+@pytest.mark.parametrize("shape", [(24, 32, 3), (24, 32, 4), (24, 32)], ids=["rgb", "rgba", "gray"])
+def test_image_metrics_equal(shape):
+    from forge3d_tpu.utils import metrics as jm
+
+    from forge3d_tpu_torch import metrics as tm
+
+    rng = np.random.default_rng(len(shape) + shape[-1])
+    a = rng.integers(0, 256, shape, dtype=np.uint8)
+    b = np.clip(a.astype(int) + rng.integers(-20, 20, shape), 0, 255).astype(np.uint8)
+    assert tm.image_metrics(a, b) == jm.image_metrics(a, b)
+    assert tm.mean_abs_error(a, b.astype(np.float32) / 255) == jm.mean_abs_error(
+        a, b.astype(np.float32) / 255)
+    if len(shape) == 3:
+        np.testing.assert_array_equal(tm.delta_e2000(a, b), jm.delta_e2000(a, b))
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(half=True), dict(compression="zips"),
+                                dict(channel_names=("Z", "A", "N")),
+                                dict(half=True, compression="zips")],
+                         ids=["float", "half", "zips", "names", "half_zips"])
+def test_numpy_to_exr_byte_equal(tmp_path, kw):
+    from forge3d_tpu.io import formats as jf
+
+    from forge3d_tpu_torch.io import formats as tf
+
+    img = np.random.default_rng(7).random((20, 28, 3)).astype(np.float32)
+    img[:8] = 0.25                      # runs that ZIP shrinks
+    jf.numpy_to_exr(tmp_path / "j.exr", img, **kw)
+    tf.numpy_to_exr(tmp_path / "t.exr", img, **kw)
+    assert (tmp_path / "t.exr").read_bytes() == (tmp_path / "j.exr").read_bytes()
+    raw = img.tobytes()
+    z = tf._exr_zip_compress(raw)
+    assert z == jf._exr_zip_compress(raw) and jf._exr_zip_decompress(z, len(raw)) == raw
+    for bad in (dict(compression="piz"), dict(channel_names=("R",))):
+        with pytest.raises(tf.FormatError):
+            tf.numpy_to_exr(tmp_path / "x.exr", img, **bad)
+    with pytest.raises(tf.FormatError, match="expected"):
+        tf.numpy_to_exr(tmp_path / "x.exr", np.zeros((2, 2, 5), np.float32))
+
+
+def test_refit_bvh_and_tlas_matrices_equal():
+    from forge3d_tpu.ops import bvh as jbvh
+    from forge3d_tpu.ops import tlas as jt
+
+    from forge3d_tpu_torch.ops import bvh as tbvh
+    from forge3d_tpu_torch.ops import tlas as tt
+
+    rng = np.random.default_rng(11)
+    v = rng.uniform(-2, 2, (150, 3)).astype(np.float32)
+    f = np.arange(150, dtype=np.uint32).reshape(50, 3)
+    moved = v * np.float32(1.1) + np.float32(0.3)
+    rj = jbvh.refit_bvh(jbvh.build_sah_bvh(v, f), moved, f)
+    rt = tbvh.refit_bvh(tbvh.build_sah_bvh(v, f), moved, f)
+    for name in ("bounds_min", "bounds_max", "tri_v0", "tri_e1", "tri_e2"):
+        assert getattr(rt, name).tobytes() == getattr(rj, name).tobytes(), name
+    m = rng.normal(0, 1, (4, 4))
+    m[3] = (0, 0, 0, 1)
+    j = jt.build_tlas([(v, f)], [jt.Instance(0, m), jt.Instance(0, np.eye(4) * 2.0)])
+    t = tt.build_tlas([(v, f)], [tt.Instance(0, m), tt.Instance(0, np.eye(4) * 2.0)],
+                      device="cpu")
+    for a, b in zip(j.inv_mats + j.nrm_mats, t.inv_mats + t.nrm_mats):
+        assert a.dtype == b.dtype == np.float64 and a.tobytes() == b.tobytes()
+
+
+@pytest.mark.parametrize("size", [(130, 70, 64), (64, 64, 64), (5, 3, 2), (1, 1, 8)])
+def test_iter_tiles_equal(size):
+    from forge3d_tpu.pt import path_tracer as jpt
+
+    from forge3d_tpu_torch.pt import path_tracer as tpt
+
+    assert list(tpt.iter_tiles(*size)) == list(jpt.iter_tiles(*size))

@@ -46,6 +46,8 @@ HOST_LAUNCHERS = r"""
 #include "terrain_shade.cuh"
 #include "screen.cuh"
 #include "vector.cuh"
+#include "pt.cuh"
+#include "adjudication.cuh"
 #include <vector>
 extern "C" {
 int f3d_trace(const SceneArgs* s, const float* rox, const float* roy, const float* roz,
@@ -263,9 +265,60 @@ int f3d_clipmap_shade(const ScreenArgs* a, const ClipArgs* c, unsigned char* rgb
 }
 int f3d_struct_sizes(long long* out, int n) {
     const long long sizes[] = {(long long)sizeof(ScreenArgs), (long long)sizeof(ScreenOut),
-                               (long long)sizeof(ClipArgs), (long long)sizeof(SkyArgs)};
-    for (int i = 0; i < n && i < 4; ++i) out[i] = sizes[i];
-    return 4;
+                               (long long)sizeof(ClipArgs), (long long)sizeof(SkyArgs),
+                               (long long)sizeof(SdfArgs), (long long)sizeof(MeshArgs),
+                               (long long)sizeof(TlasArgs), (long long)sizeof(HybridArgs),
+                               (long long)sizeof(HybridOut), (long long)sizeof(AdjArgs)};
+    for (int i = 0; i < n && i < 10; ++i) out[i] = sizes[i];
+    return 10;
+}
+// P6, P5, P3 and P4 one point, ray or pixel at a time
+int f3d_sdf_eval(const SdfArgs* s, const float* px, const float* py, const float* pz, int n,
+                 float* d, int* mat, void*) {
+    for (int i = 0; i < n; ++i) d[i] = sdf_eval(*s, px[i], py[i], pz[i], mat[i]);
+    return 0;
+}
+int f3d_sdf_normal(const SdfArgs* s, const float* px, const float* py, const float* pz, int n,
+                   float eps, float* out, void*) {
+    for (int i = 0; i < n; ++i)
+        sdf_normal(*s, px[i], py[i], pz[i], eps, out[i], out[n + i], out[2 * n + i]);
+    return 0;
+}
+int f3d_sdf_march(const SdfArgs* s, const float* rox, const float* roy, const float* roz,
+                  const float* rdx, const float* rdy, const float* rdz, int n, float tmin,
+                  float tmax, int max_steps, float hit_eps, unsigned char* hit, float* t,
+                  int* mat, void*) {
+    for (int i = 0; i < n; ++i) {
+        SdfHit h = sdf_march(*s, rox[i], roy[i], roz[i], rdx[i], rdy[i], rdz[i], tmin, tmax,
+                             max_steps, hit_eps);
+        hit[i] = (unsigned char)h.hit; t[i] = h.t; mat[i] = h.material;
+    }
+    return 0;
+}
+int f3d_trace_tlas(const TlasArgs* a, const float* rox, const float* roy, const float* roz,
+                   const float* rdx, const float* rdy, const float* rdz, int n, float tmin,
+                   float tmax, unsigned char* hit, float* t, int* inst, int* prim, float* u,
+                   float* v, void*) {
+    for (int i = 0; i < n; ++i) {
+        TlasHit h = tlas_ray(*a, rox[i], roy[i], roz[i], rdx[i], rdy[i], rdz[i], tmin, tmax);
+        hit[i] = (unsigned char)h.hit; t[i] = h.t; inst[i] = h.instance; prim[i] = h.prim;
+        u[i] = h.u; v[i] = h.v;
+    }
+    return 0;
+}
+int f3d_hybrid_render(const SceneArgs* s, const MeshArgs* m, const SdfArgs* sdf,
+                      const HybridArgs* a, const float* rdx, const float* rdy, const float* rdz,
+                      const HybridOut* o, void*) {
+    for (int i = 0; i < a->width * a->height; ++i) hybrid_pixel(*s, *m, *sdf, *a, rdx, rdy, rdz, *o, i);
+    return 0;
+}
+int f3d_adj_raster(const AdjArgs* a, const float* quad, unsigned char* rgba, float* hdr, void*) {
+    for (int i = 0; i < a->width * a->height; ++i) adj_raster_pixel(*a, quad, i, rgba, hdr);
+    return 0;
+}
+int f3d_adj_pt(const AdjArgs* a, const uint32_t* keys, unsigned char* rgba, float* hdr, void*) {
+    for (int i = 0; i < a->width * a->height; ++i) adj_pt_pixel(*a, keys, i, rgba, hdr);
+    return 0;
 }
 // E4 one pixel at a time, the primitives in order
 int f3d_vector_layer(const float* prims, int n, int kind, int width, int height, float half,
@@ -1025,11 +1078,13 @@ def test_clipmap_shade_kernel(kernels, monkeypatch, kw):
 def test_struct_layout_guard(host_lib, monkeypatch):
     """The argument structs' ctypes mirrors have the sizes the sources give
     them, and a mirror out of step is refused when the library is bound."""
-    sizes = (ctypes.c_longlong * 4)()
-    assert host_lib.f3d_struct_sizes(sizes, 4) == len(_kernels.STRUCTS) == 4
+    n = len(_kernels.STRUCTS)
+    sizes = (ctypes.c_longlong * n)()
+    assert host_lib.f3d_struct_sizes(sizes, n) == n == 10
     assert list(sizes) == [ctypes.sizeof(s) for s in _kernels.STRUCTS]
     short = type("ShortSky", (ctypes.Structure,), {"_fields_": _kernels.SkyArgs._fields_[:-1]})
-    monkeypatch.setattr(_kernels, "STRUCTS", (*_kernels.STRUCTS[:3], short))
+    monkeypatch.setattr(_kernels, "STRUCTS", (*_kernels.STRUCTS[:3], short,
+                                              *_kernels.STRUCTS[4:]))
     with pytest.raises(RuntimeError, match="ctypes mirrors"):
         _kernels.bind(host_lib)
 
@@ -1096,3 +1151,150 @@ def test_vector_layer_kernel(kernels, case):
     else:
         assert float(cov.max()) == 1.0 and float(cov.min()) == 0.0
         assert bool(((cov > 0) & (cov < 1)).any()) and bool((got[3] == 7).any())
+
+
+# P6, P5, P3, P4: the SDF tape, the TLAS walk, the hybrid tracer and the
+# adjudication lanes. Both sides round XLA's fused sums once (fmaf on the
+# kernel side, ops.shading.fma32 on the plain side), so P6, P5 and P3 are
+# bit-identical to their plain versions; P4 calls cos, sin and pow, where
+# the C library and PyTorch may differ by an ulp: its HDR is held to the
+# float rule and its rgba to one u8 step on >= 99.5% of pixels.
+def sdf_all_kinds(device):
+    """Every primitive and operation kind, smooth ones included."""
+    from forge3d_tpu_torch.ops.sdf import SdfSceneBuilder
+
+    b = SdfSceneBuilder()
+    s = b.add_sphere((0.3, 0.2, 0.1), 1.1, 1)
+    bx = b.add_box((1.0, 0.1, -0.3), (0.8, 0.6, 1.0), 2)
+    c = b.add_cylinder((-1.2, 0.0, 0.4), 0.5, 1.2, 3)
+    p = b.add_plane((0.1, 1.0, -0.2), -1.0, 4)
+    t = b.add_torus((0.0, 0.6, -1.0), 1.0, 0.25, 5)
+    k = b.add_capsule((-1.5, -0.5, -1.0), (1.5, 0.8, 1.2), 0.3, 6)
+    u = b.smooth_union(s, bx, 0.4, 7)
+    i = b.intersect(u, b.add_sphere((0.4, 0.0, 0.0), 2.0), 8)
+    d = b.subtract(i, c, 9)
+    si = b.smooth_intersect(t, b.add_box((0.0, 0.6, -1.0), (1.2, 0.5, 1.2)), 0.3, 10)
+    ss = b.smooth_subtract(b.union(d, si, 11), k, 0.2, 12)
+    b.union(ss, p, 13)
+    return b.build(device=device)
+
+
+def sdf_rays(n, device, seed=5):
+    rng = np.random.default_rng(seed)
+    ro = rng.uniform([-3, 1, 5], [3, 3, 7], (n, 3)).astype(np.float32)
+    tgt = rng.uniform([-2, -1.5, -2], [2, 1.5, 2], (n, 3)).astype(np.float32)
+    rd = tgt - ro
+    rd /= np.linalg.norm(rd, axis=1, keepdims=True)
+    return (tuple(torch.as_tensor(ro[:, k].copy(), device=device) for k in range(3)),
+            tuple(torch.as_tensor(rd[:, k].copy(), device=device) for k in range(3)))
+
+
+def test_sdf_kernels(kernels):
+    from forge3d_tpu_torch.ops import sdf as sd
+
+    scene = sdf_all_kinds(kernels)
+    rng = np.random.default_rng(4)
+    pts = [torch.as_tensor(c, device=kernels)
+           for c in rng.uniform(-3, 3, (3, 4096)).astype(np.float32)]
+    before = (sd.sdf_eval.launches, sd.sdf_march.launches)
+    dk, mk = sd._sdf_eval_kernel(scene, *pts)
+    dp, mp = sd.sdf_eval_plain(scene, *pts)
+    assert torch.equal(dk, dp) and torch.equal(mk, mp)
+    assert len(set(mp.tolist())) >= 3            # several leaves and operations win
+    nk = sd._sdf_normal_kernel(scene, *pts, 1e-4)
+    np_ = sd.sdf_normal_plain(scene, *pts, 1e-4)
+    assert all(torch.equal(a, b) for a, b in zip(nk, np_))
+    ro, rd = sdf_rays(2048, kernels)
+    hk = sd._sdf_march_kernel(scene, ro, rd, 1e-3, 20.0, 128, 1e-3)
+    hp = sd.sdf_march_plain(scene, ro, rd, 1e-3, 20.0, 128, 1e-3)
+    assert all(torch.equal(a, b) for a, b in zip(hk, hp))
+    assert 0.2 < float(hp.hit.double().mean()) < 0.95
+    assert (sd.sdf_eval.launches, sd.sdf_march.launches) == (before[0] + 2, before[1] + 1)
+
+
+def tlas_case(device):
+    from forge3d_tpu_torch.ops import tlas as tl
+
+    rng = np.random.default_rng(3)
+    soup = rng.uniform(-1, 1, (60, 3)).astype(np.float32)
+
+    def rot(a):
+        c, s = np.cos(a), np.sin(a)
+        return np.array([[c, 0, s, 0], [0, 1, 0, 0], [-s, 0, c, 0], [0, 0, 0, 1]])
+
+    def tr(x, y, z, sc=(1, 1, 1)):
+        m = np.diag([*sc, 1.0])
+        m[:3, 3] = (x, y, z)
+        return m
+
+    insts = [tl.Instance(0, tr(0, 0, 0)), tl.Instance(1, tr(2, 0.5, 0) @ rot(0.7)),
+             tl.Instance(0, tr(-2, 0, 1, (1.5, 0.7, 1.2)) @ rot(-0.4))]
+    blases = [(_BOX_V, _BOX_F), (soup, np.arange(60, dtype=np.uint32).reshape(20, 3))]
+    return tl.build_tlas(blases, insts, device=device)
+
+
+_BOX_V = np.array([[0, 0, 0], [1, 0, 0], [1, 0, 1], [0, 0, 1], [0, 1, 0], [1, 1, 0], [1, 1, 1],
+                   [0, 1, 1]], np.float32)
+_BOX_F = np.array([[0, 2, 1], [0, 3, 2], [4, 5, 6], [4, 6, 7], [0, 1, 5], [0, 5, 4], [1, 2, 6],
+                   [1, 6, 5], [2, 3, 7], [2, 7, 6], [3, 0, 4], [3, 4, 7]], np.uint32)
+
+
+def test_tlas_kernel(kernels):
+    from forge3d_tpu_torch.ops import tlas as tl
+
+    tlas = tlas_case(kernels)
+    ro, rd = sdf_rays(4096, kernels, seed=6)
+    before = tl.trace_tlas.launches
+    hk = tl._trace_tlas_kernel(tlas, ro, rd, 1e-4, 1e30)
+    hp = tl.trace_tlas_plain(tlas, ro, rd, 1e-4, 1e30)
+    assert tl.trace_tlas.launches == before + 1
+    assert all(torch.equal(a, b) for a, b in zip(hk, hp))
+    assert set(hp.instance.unique().tolist()) == {-1, 0, 1, 2}
+
+
+def hybrid_case(device):
+    from forge3d_tpu_torch.ops.sdf import SdfSceneBuilder
+    from forge3d_tpu_torch.pt import hybrid as hy
+
+    n = 33
+    y, x = np.mgrid[0:n, 0:n].astype(np.float32)
+    dem = (2.0 * np.sin(x * 0.3) * np.cos(y * 0.3)).astype(np.float32)
+    b = SdfSceneBuilder()
+    b.add_sphere((24.0, 6.0, 10.0), 3.0)
+    return hy.build_hybrid_scene(heightmap=dem, mesh_vertices=_BOX_V * 6 + [13, 5, 13],
+                                 mesh_indices=_BOX_F, sdf_scene=b.build(device=device),
+                                 device=device)
+
+
+@pytest.mark.parametrize("mode", ["hybrid", "terrain_only", "mesh_only", "sdf_only"])
+def test_hybrid_kernel(kernels, mode):
+    from forge3d_tpu_torch.pt import hybrid as hy
+
+    hs = hybrid_case(kernels)
+    origin, rd = hy.camera_rays(64, 48, {"origin": (16.0, 18.0, 52.0),
+                                         "look_at": (16.0, 2.0, 16.0)}, kernels)
+    sun = {"azimuth": 120.0, "elevation": 35.0, "intensity": 3.0}
+    alb = ((0.55, 0.52, 0.48), (0.7, 0.7, 0.72), (0.8, 0.3, 0.25))
+    before = hy.hybrid_pixels.launches
+    rk, pk = hy._shade_kernel(hs, mode, origin, rd, sun, alb, 0.35, 1.0)
+    rp, pp = hy._shade_plain(hs, mode, origin, rd, sun, alb, 0.35, 1.0)
+    assert hy.hybrid_pixels.launches == before + 1
+    assert torch.equal(rk, rp)
+    for k in pp:
+        assert torch.equal(pk[k], pp[k]), k
+    assert int((pp["kind"] >= 0).sum()) > 0
+
+
+def test_adjudication_kernels(kernels):
+    from forge3d_tpu_torch.pt import adjudication as adj
+
+    before = (adj.raster_lane.launches, adj.pt_lane.launches)
+    rk, hk = adj._raster_lane_kernel(24, 16, kernels)
+    rp, hp = adj.raster_lane_plain(24, 16, kernels)
+    assert close_frac(hp, hk) >= 0.995
+    assert float(((rk.int() - rp.int()).abs() <= 1).all(-1).double().mean()) >= 0.995
+    pk, qk = adj._pt_lane_kernel(16, 16, 2, 7, kernels)
+    pp, qp = adj.pt_lane_plain(16, 16, 2, 7, kernels)
+    assert close_frac(qp, qk) >= 0.99
+    assert float(((pk.int() - pp.int()).abs() <= 1).all(-1).double().mean()) >= 0.99
+    assert (adj.raster_lane.launches, adj.pt_lane.launches) == (before[0] + 1, before[1] + 1)

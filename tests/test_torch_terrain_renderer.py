@@ -204,3 +204,77 @@ def test_device_defaults_to_cuda():
         pytest.skip("a CUDA device is present; this checks the refusal without one")
     with pytest.raises(DeviceError, match="CUDA is not available"):
         rr.TerrainRenderer()
+
+
+def test_r1_on_a_64_km_terrain():
+    """R1 on a terrain 64 km wide (MapScene over a 65^2 DEM with spacing
+    (1000, 0), 96x64, shadows on with bias 0.001): the case ROADMAP queue 3
+    logged. At 32 km the float32 spacing of a world coordinate (~0.004)
+    exceeds the shadow bias, so a shadow ray starts inside the rounding of
+    the surface and its first-hit decision turns on the last bit of the
+    hit position. Held here:
+    - the AOVs: hit masks and visibility equal, depth |d|/t <= 1e-4 (the
+      trace rule), normals within 1e-5 * (1 + |ref|), and albedo within
+      2.7e-3 (one ulp of t at 60 km moves the colormap's height by ~0.015 m;
+      the CPU shows 2.67e-3);
+    - the shadow decisions: from the same origins (the port's shadow-ray
+      origins), JAX's standalone trace and the port's K5 plain version
+      agree on every ray;
+    - rgba: within one u8 step on >= 96% of pixels (the CPU shows 96.39%).
+      The rest is JAX's own compilation: its R1 program is one jitted graph
+      in which XLA fuses the hit position's multiply-add in some consumers
+      and not in others (fusing it everywhere in the port moves this case to
+      97.7% but breaks the byte-equality of the 2 m case in
+      test_torch_mapscene.py), and its inlined shadow trace then decides
+      differently from its standalone trace, which the port matches."""
+    from forge3d_tpu import mapscene as jms
+    from forge3d_tpu.ops import traversal as jtv
+    from forge3d_tpu.ops.pyramid import build_pyramid as jbuild
+
+    import jax.numpy as jnp
+
+    from forge3d_tpu_torch.ops.traversal import normal_at, trace_plain
+
+    y, x = np.mgrid[0:65, 0:65].astype(np.float32)
+    dem = (6.0 * np.sin(x * 0.15) * np.cos(y * 0.12) + 3.0 + 0.05 * x).astype(np.float32)
+    rec = jms.SceneRecipe(terrain=jms.TerrainSource(dem=dem, spacing=(1000.0, 0.0)),
+                          output=jms.OutputSpec(size_px=(W, H)))
+    plan = jms.MapScene(rec).compile_plan()
+    p = plan["params"]
+    assert p.shadows.enabled and p.shadows.bias == pytest.approx(0.001) and p.terrain_span == 64000
+    fa, aa = JRenderer().render_with_aov(params=p, heightmap=plan["dem"])
+    tr = rr.TerrainRenderer(device="cpu")
+    pp = terrain_params_from_dict(p.to_dict())
+    fb, ab = tr.render_with_aov(params=pp, heightmap=plan["dem"])
+    ref, got = ({k: np.asarray(a[k]) for k in ("depth", "normal", "visibility", "albedo")}
+                for a in (aa, ab))
+    hit = np.isfinite(ref["depth"])
+    np.testing.assert_array_equal(np.isfinite(got["depth"]), hit)
+    np.testing.assert_array_equal(got["visibility"], ref["visibility"])
+    assert 0.1 < hit.mean() < 0.9
+    assert np.all(np.abs(got["depth"][hit] - ref["depth"][hit]) / ref["depth"][hit] <= 1e-4)
+    assert np.all(np.abs(got["normal"] - ref["normal"]) <= 1e-5 * (1 + np.abs(ref["normal"])))
+    assert np.abs(got["albedo"] - ref["albedo"]).max() <= 2.7e-3
+
+    # the shadow rays from the port's origins, traced by both packages
+    _, scene, a, _ = tr.render_inputs(params=pp, heightmap=plan["dem"])
+    zero = torch.zeros(H, W)
+    d = rr.camera_rays_r1(a, zero, zero)
+    o = tuple(torch.full((H, W), c) for c in a.cam_o)
+    h = trace_plain(scene, o, d)
+    pos = [o[k] + h.t * d[k] for k in range(3)]
+    n = normal_at(scene, pos, h.cell_x, h.cell_z)
+    sro = [pos[k] + n[k] * 1e-3 + float(np.float32(a.sun[k]) * np.float32(a.shadow_bias))
+           for k in range(3)]
+    sdir = [torch.full((H, W), s) for s in a.sun]
+    occ_t = trace_plain(scene, sro, sdir).hit.numpy()
+    js, jst = jtv.scene_from_pyramid(jbuild(plan["dem"]), spacing_xz=scene.spacing_xz,
+                                     exaggeration=scene.exaggeration)
+    occ_j = np.asarray(jtv.trace(js, jst, tuple(jnp.asarray(c.numpy()) for c in sro),
+                                 tuple(jnp.asarray(c.numpy()) for c in sdir)).hit)
+    lit = h.hit.numpy()
+    np.testing.assert_array_equal(occ_t[lit], occ_j[lit])
+    assert occ_t[lit].any()
+
+    du = np.abs(fa.rgba.astype(np.int32) - fb.rgba.astype(np.int32)).max(-1)
+    assert (du <= 1).mean() >= 0.96
