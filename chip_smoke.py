@@ -137,7 +137,27 @@ Phases (one line each; any failure exits non-zero):
  24. adjudication -- render_adjudication_builtin(512, 512, spp=64), the
                 goldens' configuration, twice: bit-identical, each lane
                 launched once a call, timed; both lanes against their plain
-                versions on the card at that size; the SSIM between lanes.
+                versions on the card at that size; the SSIM between lanes;
+ 25. post kernels -- each E2 kernel (the separable blur, the pointwise
+                stages, SSR, TAA, SSAO, the rect lights) against its plain
+                version on the card at configuration K's 1080p shapes, on K's
+                own buffers, bit for bit, and timed (the blur beside one
+                grouped conv2d of its 2-D kernel); TAA and SSAO through their
+                entry points; E1 through bake_ibl("high") on configuration M's
+                512x256 equirect (7 launches), each launch against its plain
+                version, bit for bit, and timed;
+ 26. scene -- Scene.render_rgba at 1080p over bench.py's DEM (grid 1024):
+                K0 (every effect off: the JAX bench op scene_rgba's path) and
+                K (SSAO, two rect lights, ground plane, water, SSR, bloom, DoF,
+                vignette), cold and warm, bit-identical, split by stage; K
+                launches K5 five times a render and each of its E2 kernels;
+                K at 240x136 on the card against the CPU's plain versions;
+ 27. vt render -- configuration L: TerrainRenderer A at 1080p with a
+                MaterialSet over a five-level VT store (1,364 BC7 pages, the
+                pack timed as set-up) at the default 64 MiB budget, three
+                renders (the fallback texels, the residency and R1 times),
+                R1 with the atlas against its plain version (bit for bit, the
+                fallback count equal) and timed with and without the atlas.
 
 R1 gates (phases 13-14), set to what the card showed: rgba within one u8
 step everywhere and bytes equal on R1_U8_EQ of them, float planes within
@@ -152,10 +172,17 @@ for the loops that end early (the DDA, the BVH walk), from the steps that
 this run's rays took in the plain versions. R1's operations are its rays'
 work alone (DDA steps and leaf tests): its per-pixel shading is not
 counted, so its bound is lower than the work it does. No single PyTorch call computes
-any of these functions, so `library_ms` is null throughout.
+any of these functions but the E2 blur, so `library_ms` is null elsewhere.
 
 P6, P5, P3 and P4 gates (phases 22-24), set to what the card showed: every
 output bit-identical to the plain version (P4's HDR and rgba too).
+
+E2 and E1 gates (phase 25): every element bit-identical to the plain
+version (POST_EQ); Scene on the card within one u8 step of Scene on the CPU
+on SCENE_U8_FRAC of the pixels (phase 26); R1 with the VT atlas under R1's
+gates, its fallback count equal (phase 27). The E2 blur's row carries
+`library_ms`, the time of one grouped float32 conv2d of the blur's 2-D
+kernel; no other row has a single PyTorch call that computes its function.
 
 E4 gates (phases 20-21), set to what the card showed: coverage, rgb, alpha
 and pick bit-identical to the plain version; MapScene with the kernel
@@ -253,6 +280,21 @@ REPLACES = {
     # with VectorScene.render's composite (vector/__init__.py:140) fused in
     "E4 vector_coverage": ("forge3d_tpu_torch/csrc/vector.cu",
                            "forge3d_tpu/vector/coverage.py:53 (:73, :90)"),
+    # the post-processing suite, csrc/post.cu over csrc/post.cuh
+    "E2 blur": ("forge3d_tpu_torch/csrc/post.cu", "forge3d_tpu/ops/post.py:39"),
+    "E2 point": ("forge3d_tpu_torch/csrc/post.cu",
+                 "forge3d_tpu/ops/post.py:60 (bloom), :75 (depth_of_field), :189 (vignette), "
+                 ":199 (sharpen)"),
+    "E2 ssr": ("forge3d_tpu_torch/csrc/post.cu", "forge3d_tpu/ops/post.py:164"),
+    "E2 taa": ("forge3d_tpu_torch/csrc/post.cu", "forge3d_tpu/ops/post.py:113"),
+    "E2 ssao": ("forge3d_tpu_torch/csrc/post.cu", "forge3d_tpu/ops/post.py:129"),
+    "E2 rect": ("forge3d_tpu_torch/csrc/post.cu", "forge3d_tpu/ops/post.py:206"),
+    # sample_equirect under equirect_to_cubemap (:64), prefilter_environment
+    # (:92) and irradiance_map (:167)
+    "E1 equirect_accum": ("forge3d_tpu_torch/csrc/ibl.cu", "forge3d_tpu/ops/ibl.py:48"),
+    # R1 with the virtual-texture resolve (renderer.py:833-871) inside
+    "R1 render (L, VT)": ("forge3d_tpu_torch/csrc/renderer.cu",
+                          "forge3d_tpu/terrain/renderer.py:1036 (VT :833-871)"),
 }
 
 # The card's peaks for the bounds (NVIDIA's H100 SXM data sheet).
@@ -3107,6 +3149,425 @@ def phase_adjudication():
              "P4 pt": (err_p, ms_p, plain_p, b_p, by_p)}, launches)
 
 
+# ---------------------------------------------------------------------------
+# Phases 25-27: Scene with the post-processing suite E2, the IBL bake E1, and
+# R1's virtual-texture branch
+# ---------------------------------------------------------------------------
+
+# float32 operations per unit of work, counted from csrc/post.cuh and
+# csrc/ibl.cuh (adds, multiplies, divisions, square roots, comparisons,
+# min/max; a transcendental call as one)
+OPS_BLUR_TAP = 2        # blur_axis_elem: one multiply-add (the clamp is integer work)
+OPS_POINT = 78          # post_point_pixel: brightpass 13 + bloom 12 + DoF 35 + vignette 18
+OPS_SSR_PIXEL = 15      # ssr_pixel around its march
+OPS_SSR_STEP = 4        # one march step: the wrap, the compare
+OPS_TAA_PIXEL = 69      # taa_pixel: 3 channels x (9 min/max pairs, clip, blend)
+OPS_SSAO_TAP = 8        # ssao_pixel, one tap
+OPS_RECT_LIGHT = 70     # rect_light_add: one light at one point (a powf, two sqrtf, 8 divisions)
+OPS_IBL_SAMPLE = 40     # sample_equirect and the weighted sum: atan2f, acosf, four taps
+# E2 and E1 against their plain versions: every element bit-identical
+# (POST_EQ of the elements equal, none beyond FLOAT_TOL); Scene on the card
+# against Scene on the CPU at 240x136 within one u8 step on SCENE_U8_FRAC of
+# the pixels
+POST_EQ = 1.0
+SCENE_U8_FRAC = 0.995
+
+K_EYE = (0.0, 260.0, 888.0)     # bench.py's camera rebased to the centred origin
+VT_LEVELS = ((0, 32), (1, 16), (2, 8), (3, 4), (4, 2))   # L's store: 1,364 pages
+CARD = "cuda"   # the device of phases 25-27
+
+
+def k_scene(dem, effects: bool, width=None, height=None, grid=1024, device=None):
+    """Configuration K (every effect on) or K0 (every effect off, the JAX
+    package's scene_rgba bench op's path): Scene over bench.py's DEM."""
+    from forge3d_tpu_torch.scene import Scene
+
+    s = Scene(width or REAL_W, height or REAL_H, grid=grid, device=device or CARD)
+    s.set_height_from_r32f(dem)
+    s.set_terrain_span(1024.0, 1.0)
+    s.set_camera_look_at(K_EYE, (0.0, 0.0, 0.0), (0.0, 1.0, 0.0), 45.0, 0.1, 5000.0)
+    if effects:
+        s.set_ssao_enabled(True)
+        s.set_ssao_parameters(16.0, 1.0, 0.025)
+        for cx, cz in np.random.default_rng(29).uniform(-300.0, 300.0, (2, 2)):
+            s.add_rect_area_light((float(cx), 120.0, float(cz)), (1.0, 0.0, 0.0),
+                                  (0.0, 0.0, 1.0), (40.0, 40.0), intensity=4.0)
+        s.set_ground_plane(True, float(dem.min()))
+        s.set_water_surface(True, float(np.percentile(dem, 20)), opacity=0.75)
+        s.set_ssr_enabled(True, 0.5)
+        s.set_bloom_enabled(True)
+        s.set_bloom_parameters(0.8, 0.5)
+        s.set_dof_enabled(True)
+        s.set_dof_parameters(900.0, 300.0, 6.0)
+        s.set_vignette_enabled(True, 0.35)
+    return s
+
+
+def compare_post(tag, ref, got):
+    """(fraction of elements bit-equal, max |err|); fails outside POST_EQ or
+    FLOAT_TOL."""
+    import torch
+
+    ref = ref if isinstance(ref, (tuple, list)) else (ref,)
+    got = got if isinstance(got, (tuple, list)) else (got,)
+    eq = min(float((a == b).double().mean()) for a, b in zip(ref, got))
+    frac = min(close_frac(a, b) for a, b in zip(ref, got))
+    err = max(max_abs(a, b) for a, b in zip(ref, got))
+    require(all(a.shape == b.shape for a, b in zip(ref, got)) and eq >= POST_EQ and frac == 1.0
+            and all(bool(torch.isfinite(b).all()) for b in got),
+            f"{tag}: the kernel disagrees with its plain version (bit-equal {eq:.6f}, within "
+            f"tolerance {frac:.6f}, max |err| {err:.3e})")
+    return eq, err
+
+
+def ssr_steps(depth, stride=2, max_steps=24) -> int:
+    """The march steps SSR's pixels take on this depth buffer (a pixel stops
+    at its first closer row)."""
+    import torch
+
+    found = torch.zeros_like(depth, dtype=torch.bool)
+    steps = 0
+    for s in range(1, max_steps + 1):
+        steps += int((~found).sum())
+        found |= torch.roll(depth, s * stride, 0) < depth
+    return steps
+
+
+def m_env() -> np.ndarray:
+    """Configuration M's 512x256 HDR equirect: a sky gradient, a sun and
+    seeded noise."""
+    rng = np.random.default_rng(41)
+    v = (np.arange(256) + 0.5) / 256
+    sky = np.stack([0.4 + 0.8 * (1 - v), 0.6 + 0.9 * (1 - v), 1.0 + 1.2 * (1 - v)], -1)
+    env = sky[:, None, :] * rng.uniform(0.8, 1.2, (256, 512, 3))
+    yy, xx = np.mgrid[0:256, 0:512]
+    env += 40.0 * np.exp(-((yy - 70) ** 2 + (xx - 300) ** 2) / 18.0)[..., None]
+    return env.astype(np.float32)
+
+
+def phase_post_kernels(dem):
+    """Each E2 kernel against its plain version on the card at configuration
+    K's 1080p shapes, on K's own buffers (the pre-post image, depth, normals,
+    hit points), and E1 on configuration M (bake_ibl "high" of a 512x256
+    equirect); every one timed; the blur beside the grouped conv2d of its
+    2-D kernel. TAA and SSAO, which Scene does not call, and bake_ibl run
+    through their entry points with the counts set to 0. Returns ({row:
+    (max |err|, ms, plain ms, bound ms, bound by)}, launches, blur library
+    ms)."""
+    import torch
+    import torch.nn.functional as F
+
+    from forge3d_tpu_torch.ops import ibl
+    from forge3d_tpu_torch.ops import post as P
+
+    dev = torch.device(CARD)
+    n = REAL_W * REAL_H
+    sc = k_scene(dem, True)
+    buf = sc._buffers()
+    ldr, dep, nrm, pts, view = (buf[k] for k in ("ldr", "depth", "normal", "points", "view"))
+    res, launches = {}, {}
+
+    # SSR on K's pre-post image
+    args = (ldr, dep, nrm, 2, 24, 0.5, float(np.float32(REAL_H * 0.1)))
+    got = P._ssr_kernel(*args)
+    plain_ms, ref = wall_ms(lambda: P._ssr_plain(*args))
+    eq, err = compare_post("E2 ssr 1080p", ref, got)
+    ms = cuda_ms(lambda: P._ssr_kernel(*args), 20)
+    steps = ssr_steps(dep)
+    bms, by = bound(n * 40, n * OPS_SSR_PIXEL + steps * OPS_SSR_STEP)
+    res["E2 ssr"] = (err, ms, plain_ms, bms, by)
+    say("post kernels", f"E2 ssr {REAL_W}x{REAL_H}: bit-equal {eq:.6f}, max |err| {err:.3e}, "
+                        f"{steps / n:.2f} march steps a pixel; kernel {ms:.4f} ms, plain "
+                        f"{plain_ms:.1f} ms, bound {bms:.4f} ms ({by})")
+    c0 = got
+
+    # the chain's blurs and pointwise stages, on K's own intermediates
+    def blur_pair(x, sigma):
+        r = max(1, int(np.ceil(3 * sigma)))
+        taps = P._gauss_kernel(sigma, r)
+        td = taps.to(dev)
+        k = lambda: P._blur_axis_kernel(P._blur_axis_kernel(x, td, r, 0), td, r, 1)  # noqa: E731
+        tl = [float(t) for t in taps]
+        p = lambda: P._blur_axis_plain(P._blur_axis_plain(x, tl, r, 0), tl, r, 1)  # noqa: E731
+        return k, p, taps, r
+
+    f = lambda v: float(np.float32(v))  # noqa: E731
+    point_runs = []
+    bright_args = (P.PP_BRIGHT, c0, None, None, None, (f(0.8), f(0.8)))
+    bright = P._point_kernel(*bright_args)
+    point_runs.append(("brightpass", bright_args, bright))
+    blurs = {}
+    for name, x, sigma in (("bloom 6", bright, 6.0), ("bloom 15", bright, 15.0)):
+        k, p, taps, r = blur_pair(x, sigma)
+        blurs[name] = (k, p, taps, r, x, k())
+    bloom_args = (P.PP_BLOOM, c0, blurs["bloom 6"][5], blurs["bloom 15"][5], None, (f(0.5),))
+    c1 = P._point_kernel(*bloom_args)
+    point_runs.append(("bloom", bloom_args, c1))
+    for name, sigma in (("dof 1.5", 1.5), ("dof 4.5", 4.5)):
+        k, p, taps, r = blur_pair(c1, sigma)
+        blurs[name] = (k, p, taps, r, c1, k())
+    dof_args = (P.PP_DOF, c1, dep, blurs["dof 1.5"][5], blurs["dof 4.5"][5],
+                (f(900.0), f(300.0), f(6.0), f(6.0), 1.0))
+    c2 = P._point_kernel(*dof_args)
+    point_runs.append(("dof", dof_args, c2))
+    vig_args = (P.PP_VIGNETTE, c2, None, None, None, (f(0.35), f(0.85), f(1 - 0.85),
+                                                      f(np.sqrt(2))))
+    point_runs.append(("vignette", vig_args, P._point_kernel(*vig_args)))
+    ms_sum = plain_sum = err_max = 0.0
+    for name, a, got in point_runs:
+        plain_ms, ref = wall_ms(lambda: P._point_plain(*a[:5], list(a[5])))
+        eq, err = compare_post(f"E2 point {name} 1080p", ref, got)
+        ms = cuda_ms(lambda: P._point_kernel(*a), 20)
+        ms_sum, plain_sum, err_max = ms_sum + ms, plain_sum + plain_ms, max(err_max, err)
+        say("post kernels", f"E2 point ({name}) {REAL_W}x{REAL_H}: bit-equal {eq:.6f}; kernel "
+                            f"{ms:.4f} ms, plain {plain_ms:.2f} ms")
+    bms, by = bound(n * (24 + 48 + 52 + 24), n * OPS_POINT)
+    res["E2 point"] = (err_max, ms_sum, plain_sum, bms, by)
+    say("post kernels", f"E2 point, K's four stages: kernel {ms_sum:.4f} ms, plain "
+                        f"{plain_sum:.2f} ms, bound {bms:.4f} ms ({by})")
+
+    blur_row = None
+    for name, (k, p, taps, r, x, got) in blurs.items():
+        plain_ms, ref = wall_ms(p)
+        eq, err = compare_post(f"E2 blur ({name}) 1080p", ref, got)
+        ms = cuda_ms(k, 10)
+        # the library yardstick: one grouped conv2d of the 2-D kernel k k^T on
+        # the replicate-padded image (the padding made before timing), full
+        # float32 (no TF32)
+        td = taps.to(dev)
+        weight = (td[:, None] * td[None, :]).expand(3, 1, 2 * r + 1, 2 * r + 1).contiguous()
+        xpad = F.pad(x.permute(2, 0, 1)[None], (r, r, r, r), mode="replicate")
+        tf32 = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        lib_out = F.conv2d(xpad, weight, groups=3)[0].permute(1, 2, 0)
+        lib_ms = cuda_ms(lambda: F.conv2d(xpad, weight, groups=3), 5)
+        torch.backends.cudnn.allow_tf32 = tf32
+        lib_err = max_abs(ref, lib_out)
+        bms, by = bound(2 * n * 12, 2 * (2 * r + 1) * OPS_BLUR_TAP * n * 3)
+        say("post kernels", f"E2 blur ({name}, r {r}) {REAL_W}x{REAL_H}x3: bit-equal {eq:.6f}; "
+                            f"kernel {ms:.4f} ms (2 launches), plain {plain_ms:.1f} ms, conv2d "
+                            f"{lib_ms:.4f} ms (max |d| {lib_err:.3e} from the blur), bound "
+                            f"{bms:.4f} ms ({by})")
+        if name == "bloom 15":   # the row: K's largest blur
+            res["E2 blur"] = (err, ms, plain_ms, bms, by)
+            blur_row = lib_ms
+
+    # TAA and SSAO through their entry points, at K's shapes
+    hist = torch.roll(ldr, (1, 1), (0, 1)).contiguous()
+    P.taa_resolve.launches = P.ssao.launches = 0
+    taa_out = P.taa_resolve(ldr, hist, blend=0.1)
+    ao_out = P.ssao(dep, nrm, radius=16.0, intensity=1.0, bias=0.025)
+    launches["E2 taa"], launches["E2 ssao"] = P.taa_resolve.launches, P.ssao.launches
+    plain_ms, ref = wall_ms(lambda: P._taa_plain(ldr, hist, f(0.1), f(0.9), True))
+    eq, err = compare_post("E2 taa 1080p", ref, taa_out)
+    ms = cuda_ms(lambda: P._taa_kernel(ldr, hist, f(0.1), f(0.9), True), 20)
+    bms, by = bound(n * 36, n * OPS_TAA_PIXEL)
+    res["E2 taa"] = (err, ms, plain_ms, bms, by)
+    say("post kernels", f"E2 taa {REAL_W}x{REAL_H}: bit-equal {eq:.6f}; kernel {ms:.4f} ms, "
+                        f"plain {plain_ms:.1f} ms, bound {bms:.4f} ms ({by})")
+    taps = P.ssao_offsets(16.0, 8)
+    ao_args = (dep, nrm, taps, f(0.025), f(16.0 * 0.25 + 1e-4), f(1.0))
+    plain_ms, ref = wall_ms(lambda: P._ssao_plain(*ao_args))
+    eq, err = compare_post("E2 ssao 1080p", ref, ao_out)
+    ms = cuda_ms(lambda: P._ssao_kernel(*ao_args), 20)
+    bms, by = bound(n * 20, n * 8 * OPS_SSAO_TAP)
+    res["E2 ssao"] = (err, ms, plain_ms, bms, by)
+    say("post kernels", f"E2 ssao {REAL_W}x{REAL_H}: bit-equal {eq:.6f}; kernel {ms:.4f} ms, "
+                        f"plain {plain_ms:.1f} ms, bound {bms:.4f} ms ({by})")
+
+    # the rect lights of K on K's hit points
+    lights = [P.rect_light_record(L["center"], L["right"], L["up"], L["half_extent"],
+                                  L["color"], L["intensity"]) for L in sc._rect_area_lights]
+    got = P._rect_kernel(pts, nrm, view, lights)
+    plain_ms, ref = wall_ms(lambda: P._rect_plain(pts, nrm, view, lights))
+    eq, err = compare_post("E2 rect 1080p", ref, got)
+    ms = cuda_ms(lambda: P._rect_kernel(pts, nrm, view, lights), 20)
+    bms, by = bound(n * 48, n * len(lights) * OPS_RECT_LIGHT)
+    res["E2 rect"] = (err, ms, plain_ms, bms, by)
+    say("post kernels", f"E2 rect {REAL_W}x{REAL_H}, {len(lights)} lights: bit-equal {eq:.6f}, "
+                        f"max |err| {err:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, "
+                        f"bound {bms:.4f} ms ({by})")
+
+    # E1: configuration M through bake_ibl, then each of its launches
+    env_np = m_env()
+    ibl.equirect_accum.launches = 0
+    bake_ms, maps = wall_ms(lambda: ibl.bake_ibl(env_np, quality="high", device=CARD))
+    launches["E1 equirect_accum"] = ibl.equirect_accum.launches
+    require(maps.cubemap.shape == (6, 64, 64, 3) and len(maps.specular_mips) == 5
+            and maps.irradiance.shape == (32, 64, 3) and maps.brdf.shape == (32, 32, 2)
+            and all(bool(torch.isfinite(m).all()) for m in (maps.cubemap, maps.irradiance,
+                                                            *maps.specular_mips)),
+            "bake_ibl('high') gave maps of the wrong shape or not finite")
+    env = torch.as_tensor(env_np, device=dev)
+    stages = [(np.stack([ibl._face_dirs(fc, 64) for fc in range(6)])[None], None, ibl.ONE)]
+    stages += [(d, w, ibl.ONE if w is None else ibl.WEIGHTED)
+               for d, w in ibl.prefilter_tables(64, 5, 64)]
+    stages.append((ibl.irradiance_tables(32, 128), None, ibl.MEAN))
+    dev_stages = [(torch.as_tensor(d, device=dev),
+                   None if w is None else torch.as_tensor(w, device=dev), m)
+                  for d, w, m in stages]
+    err_max, eq_min, samples, nbytes = 0.0, 1.0, 0, tensor_bytes(env)
+    plain_ms = 0.0
+    for (d, w, m), baked in zip(dev_stages, [maps.cubemap, *maps.specular_mips,
+                                             maps.irradiance]):
+        got = ibl._accum_kernel(env, d, w, m)
+        pm, ref = wall_ms(lambda: ibl._accum_plain(env, d, w, m))
+        plain_ms += pm
+        eq, err = compare_post("E1 equirect_accum", ref, got)
+        require(torch.equal(got, baked), "bake_ibl's map differs from its stage's launch")
+        err_max, eq_min = max(err_max, err), min(eq_min, eq)
+        samples += d.shape[0] * (d[0].numel() // 3)
+        nbytes += tensor_bytes(d, got) + (0 if w is None else tensor_bytes(w))
+    ms = cuda_ms(lambda: [ibl._accum_kernel(env, d, w, m) for d, w, m in dev_stages], 10)
+    bms, by = bound(nbytes, samples * OPS_IBL_SAMPLE)
+    res["E1 equirect_accum"] = (err_max, ms, plain_ms, bms, by)
+    say("post kernels", f"E1 bake_ibl('high') of a 512x256 equirect: {bake_ms:.1f} ms wall "
+                        f"(host tables and the numpy BRDF LUT included), "
+                        f"{launches['E1 equirect_accum']} launches; the 7 stages bit-equal "
+                        f"{eq_min:.6f}, {samples} samples; kernel {ms:.4f} ms, plain "
+                        f"{plain_ms:.1f} ms, bound {bms:.4f} ms ({by})")
+    return res, launches, blur_row
+
+
+def _scene_counters():
+    from forge3d_tpu_torch.ops import post as P
+    from forge3d_tpu_torch.ops import traversal as tv
+
+    return {"K5 trace": tv.trace, "E2 blur": P.blur_axis, "E2 point": P.post_point,
+            "E2 ssr": P.ssr, "E2 rect": P.rect_area_light_sum, "E2 taa": P.taa_resolve,
+            "E2 ssao": P.ssao}
+
+
+def phase_scene(dem):
+    """Scene's main path: K0 and K at 1080p, cold and warm, bit-identical,
+    split by stage; every count set to 0 before and read after (K: K5 five
+    times a render, each of its E2 kernels at least once); then Scene on the
+    card against Scene on the CPU at 240x136. Returns K's launches."""
+    import torch
+
+    counters = _scene_counters()
+    launches = {}
+    for name, effects in (("K0", False), ("K", True)):
+        sc = k_scene(dem, effects)
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        cold_ms, a = wall_ms(sc.render_rgba)
+        cold = dict(sc.last_timings)
+        warm_ms, b = wall_ms(sc.render_rgba)
+        warm = dict(sc.last_timings)
+        peak = torch.cuda.max_memory_allocated()
+        counts = {k: c.launches for k, c in counters.items()}
+        same = np.array_equal(a, b)
+        std = float(a[..., :3].std())
+        say("scene", f"{name} {REAL_W}x{REAL_H}: cold {cold_ms:.1f} ms "
+                     f"{json.dumps({k: round(v, 3) for k, v in cold.items()})}; warm "
+                     f"{warm_ms:.1f} ms {json.dumps({k: round(v, 3) for k, v in warm.items()})}; "
+                     f"deterministic {same}, rgba std {std:.3f}, peak device memory {peak} B, "
+                     f"launches {json.dumps(counts)}")
+        require(same, f"two renders of {name} differ")
+        require(a.shape == (REAL_H, REAL_W, 4) and std > 5.0 and bool((a[..., 3] == 255).all()),
+                f"{name}'s render is trivial")
+        if effects:
+            require(counts["K5 trace"] == 10 and counts["E2 blur"] == 16
+                    and counts["E2 point"] == 8 and counts["E2 ssr"] == 2
+                    and counts["E2 rect"] == 2, f"K did not run its kernels: {counts}")
+            launches = counts
+        else:
+            require(counts["K5 trace"] == 2 and sum(counts.values()) == 2,
+                    f"K0 launched more than its two traces: {counts}")
+    # the card's render against the plain versions on the CPU, K at 240x136
+    dem_small = dem[::8, ::8].copy()
+    got = k_scene(dem_small, True, 240, 136, 129).render_rgba()
+    ref = k_scene(dem_small, True, 240, 136, 129, device="cpu").render_rgba()
+    d = np.abs(ref.astype(np.int16) - got.astype(np.int16)).max(-1)
+    frac = float((d <= 1).mean())
+    say("scene", f"K at 240x136 on the card against the CPU: within one u8 step on {frac:.6f} "
+                 f"of pixels, equal on {float((d == 0).mean()):.6f}, max step {int(d.max())}")
+    require(frac >= SCENE_U8_FRAC, "Scene on the card disagrees with Scene on the CPU")
+    return launches
+
+
+def vt_page(level: int, x: int, y: int) -> np.ndarray:
+    """L's seeded procedural albedo page (tests/test_vt_render.py's checker
+    with a per-page seeded tint)."""
+    i = np.arange(128)
+    xx, yy = np.meshgrid(i, i)
+    tint = np.random.default_rng(level * 1_000_003 + y * 1_009 + x).integers(0, 50, 3)
+    r = ((xx // 16 + yy // 16) % 2) * 120 + 40 + 20 * level + tint[0]
+    g = np.full_like(r, 40 + 37 * ((x * 5 + y * 3) % 5) + tint[1])
+    b = np.full_like(r, 200 - 30 * level + tint[2])
+    return np.stack([r, g, b, np.full_like(r, 255)], -1).astype(np.uint8)
+
+
+def phase_vt_render(dem):
+    """Configuration L: TerrainRenderer A at 1080p with a MaterialSet over a
+    five-level VT store (1,364 pages, packed once, timed as set-up) at the
+    default 64 MiB budget: three renders (settling), the fallback texels,
+    the residency time and R1's time each; R1 with the VT atlas against its
+    plain version on the card, and timed with and without it. Returns (max
+    |err|, ms, plain ms, bound ms, bound by) and the launches."""
+    import torch
+
+    import forge3d_tpu_torch as f3t
+    from forge3d_tpu_torch.terrain import renderer as rr
+    from forge3d_tpu_torch.terrain.vt import vt_pack
+
+    out_dir = __import__("pathlib").Path("build") / "chip_smoke"   # listed in .gitignore
+    out_dir.mkdir(parents=True, exist_ok=True)
+    path = out_dir / "L.f3dvt"
+    pages = {("albedo", lv, x, y): vt_page(lv, x, y)
+             for lv, nt in VT_LEVELS for y in range(nt) for x in range(nt)}
+    pack_ms, manifest = wall_ms(lambda: vt_pack(path, pages))
+    size = path.stat().st_size
+    say("vt render", f"packed {len(manifest['entries'])} pages of 128^2 texels "
+                     f"({len(pages) * 128 * 128} logical texels) into {size} B in {pack_ms:.1f} ms")
+    ms_set = f3t.MaterialSet(vt_store=path)
+    r = f3t.TerrainRenderer(device=CARD)
+    p = r1_params("A", REAL_W, REAL_H)
+    rr.render_program.launches = 0
+    frames = []
+    for i in range(3):
+        wall, fa = wall_ms(lambda: r.render_with_aov(material_set=ms_set, params=p,
+                                                     heightmap=dem))
+        st, t = dict(r.last_vt_stats), dict(r.last_gpu_timings)
+        frames.append(fa)
+        say("vt render", f"L frame {i}: {wall:.1f} ms, fallback texels "
+                         f"{st['fallback_texels_frame']:.0f}, vt_residency_ms "
+                         f"{t['vt_residency_ms']:.3f}, terrain_main_pass_ms "
+                         f"{t['terrain_main_pass_ms']:.3f}, readback_ms {t['readback_ms']:.3f}; "
+                         f"store {json.dumps(st)}")
+    launches = rr.render_program.launches
+    require(launches == 3, f"L launched R1 {launches} times in three renders")
+    require(_same_frames(frames[1], frames[2]), "two settled L renders differ")
+    base, _ = r.render_with_aov(params=p, heightmap=dem)
+    d = np.abs(frames[-1][0].rgba[..., :3].astype(int) - base.rgba[..., :3].astype(int)).sum(-1)
+    moved = float((d > 20).mean())
+    say("vt render", f"L against A without the store: {moved:.4f} of pixels moved by > 20")
+    require(moved > 0.05, "the VT albedo does not show in L's render")
+
+    _, scene, a, _ = r.render_inputs(p, dem, material_set=ms_set)
+    got = rr._render_kernel(scene, a, want_aov=True)
+    work = work_counters()
+    plain_ms, ref = wall_ms(lambda: rr.render_plain(scene, a))
+    wk = work()
+    eq, frac, err = compare_r1("R1 render (L, VT) 1080p", ref, got)
+    fb_k, fb_p = int(got["vt_fallback"]), int(ref["vt_fallback"])
+    require(fb_k == fb_p, f"R1's VT fallback count {fb_k} differs from the plain version's {fb_p}")
+    atlas = tensor_bytes(a.vt_atlas)
+    ms = cuda_ms(lambda: rr._render_kernel(scene, a, want_aov=True), 10)
+    _, scene0, a0, _ = r.render_inputs(p, dem)
+    ms0 = cuda_ms(lambda: rr._render_kernel(scene0, a0, want_aov=True), 10)
+    nbytes = REAL_W * REAL_H * 48 + scene_bytes(scene) + tensor_bytes(a.lut, a.vt_table) + atlas
+    bms, by = bound(nbytes, traced_ops(wk))
+    say("vt render", f"R1 render (L, VT) {REAL_W}x{REAL_H}: rgba bytes equal {eq:.6f}, planes "
+                     f"within tolerance {frac:.6f}, max |err| {err:.3e}, fallback texels {fb_k} "
+                     f"(equal), atlas {atlas} B ({a.vt_atlas.shape[0] // (128 * 128)} slots); "
+                     f"kernel {ms:.4f} ms with VT, {ms0:.4f} ms without, plain {plain_ms:.1f} "
+                     f"ms, bound {bms:.4f} ms ({by})")
+    return (err, ms, plain_ms, bms, by), launches
+
+
 def _jax_modules():
     """JAX and every module of the JAX package: the port imports none."""
     return [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "forge3d_tpu")]
@@ -3186,6 +3647,15 @@ def main() -> int:
     rows.append(kernel_row("P3 hybrid_render", hyb_launches["P3 hybrid_render"], *p3))
     for kernel, vals in p4.items():
         rows.append(kernel_row(kernel, adj_launches[kernel], *vals))
+    post, post_launches, blur_lib_ms = phase_post_kernels(dem)
+    scene_launches = phase_scene(dem)
+    vt_row, vt_launches = phase_vt_render(dem)
+    for kernel, vals in post.items():
+        n = post_launches.get(kernel, scene_launches.get(kernel))
+        rows.append(kernel_row(kernel, n, *vals))
+        if kernel == "E2 blur":
+            rows[-1]["library_ms"] = blur_lib_ms
+    rows.append(kernel_row("R1 render (L, VT)", vt_launches, *vt_row))
 
     loaded = sorted(set(_jax_modules()) - preloaded)
     require(not loaded, f"imported JAX or modules of the JAX package: {loaded}")

@@ -13,7 +13,10 @@
 # through the coverage kernel E4 in vector/, buildings through K9; its
 # screen, clipmap and mesh routes), and the other path-tracing engines:
 # the SDF tracer (kernel P6), the TLAS walk (P5), the hybrid tracer (P3),
-# the AEQUITAS adjudication pair (P4), PathTracer and the BRDF tiles. It
+# the AEQUITAS adjudication pair (P4), PathTracer and the BRDF tiles, the
+# render-to-texture Scene with the post-processing suite (E2, ops/post.py),
+# the virtual-texture store (terrain/vt.py, resolved inside R1) and the IBL
+# bake (E1, ops/ibl.py). It
 # imports torch and never jax nor any module of the JAX package, which
 # stays the reference it is tested against.
 #
@@ -69,6 +72,9 @@ _ENTRY = {
     "render_brdf_tile": "brdf",
     "render_brdf_tile_overrides": "brdf",
     "render_debug_pattern_frame": "brdf",
+    "Scene": "scene",
+    "VTStore": "terrain.vt",
+    "bake_ibl": "ops.ibl",
 }
 
 

@@ -155,6 +155,10 @@ class ResolveArgs(ctypes.Structure):
         (n, ctypes.c_double) for n in ("fv", "uvhh", "y_step")]
 
 
+#: levels a VT store may have (F3D_VT_MAX_LEVELS in csrc/terrain_shade.cuh)
+VT_MAX_LEVELS = 16
+
+
 class TerrainArgs(ctypes.Structure):
     """Mirror of `TerrainArgs` in csrc/terrain_shade.cuh (R1)."""
 
@@ -178,13 +182,19 @@ class TerrainArgs(ctypes.Structure):
                           "cloud_strength", "cloud_scale", "ao_radius", "ao_strength",
                           "tri_scale", "tri_sharp", "det_strength", "det_scale", "det_fade",
                           "pom_scale", "snow_h", "snow_blend")] + [
-        ("snow_rgb", _F3), ("rock_cos", _F), ("rock_blend", _F), ("rock_rgb", _F3)]
+        ("snow_rgb", _F3), ("rock_cos", _F), ("rock_blend", _F), ("rock_rgb", _F3)] + [
+        ("vt_atlas", _P), ("vt_table", _P)] + [
+        (n, _I) for n in ("vt_levels", "vt_level0", "vt_level_last", "vt_page")] + [
+        ("vt_tiles", _I * VT_MAX_LEVELS), ("vt_offs", _I * VT_MAX_LEVELS)] + [
+        (n, _F) for n in ("vt_pix_angle", "vt_tpw0", "vt_inv_span")]
 
 
 class TerrainOut(ctypes.Structure):
-    """Mirror of `TerrainOut`: R1's output planes; a null one is not written."""
+    """Mirror of `TerrainOut`: R1's output planes and its VT fallback
+    count; a null one is not written."""
 
-    _fields_ = [(n, _P) for n in ("rgba", "hdr", "albedo", "normal", "depth", "vis")]
+    _fields_ = [(n, _P) for n in ("rgba", "hdr", "albedo", "normal", "depth", "vis",
+                                  "vt_fallback")]
 
 
 class AtrousArgs(ctypes.Structure):
@@ -296,7 +306,7 @@ class AdjArgs(ctypes.Structure):
 
 #: the structs whose sizes csrc/layout.cu:f3d_struct_sizes reports, in its order
 STRUCTS = (ScreenArgs, ScreenOut, ClipArgs, SkyArgs, SdfArgs, MeshArgs, TlasArgs, HybridArgs,
-           HybridOut, AdjArgs)
+           HybridOut, AdjArgs, TerrainArgs, TerrainOut)
 
 
 _SIGNATURES = {
@@ -381,6 +391,22 @@ _SIGNATURES = {
     "f3d_adj_raster": [ctypes.POINTER(AdjArgs), _P, _P, _P, _P],
     # (args, keys, rgba, hdr, stream)
     "f3d_adj_pt": [ctypes.POINTER(AdjArgs), _P, _P, _P, _P],
+    # E2: (in, out, taps, radius, outer, n, inner, stream)
+    "f3d_blur_axis": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # (mode, height, width, channels, a, b, c, d, out, p0..p5, stream)
+    "f3d_post_point": [_I, _I, _I, _I] + [_P] * 5 + [_F] * 6 + [_P],
+    # (color, depth, normal, nc, out, height, width, stride, max_steps,
+    #  intensity, fade_den, stream)
+    "f3d_ssr": [_P, _P, _P, _I, _P, _I, _I, _I, _I, _F, _F, _P],
+    # (cur, hist, out, height, width, channels, blend, 1 - blend, clamp, stream)
+    "f3d_taa": [_P, _P, _P, _I, _I, _I, _F, _F, _I, _P],
+    # (depth, normal, nc, offsets, n_samples, out, height, width, bias, rden,
+    #  intensity, stream)
+    "f3d_ssao": [_P, _P, _I, _P, _I, _P, _I, _I, _F, _F, _F, _P],
+    # (p, n, v, count, lights, n_lights, out, stream)
+    "f3d_rect_lights": [_P, _P, _P, _I, _P, _I, _P, _P],
+    # E1: (env, env_h, env_w, dirs, weights, samples, texels, mode, out, stream)
+    "f3d_equirect_accum": [_P, _I, _I, _P, _P, _I, _I, _I, _P, _P],
 }
 
 

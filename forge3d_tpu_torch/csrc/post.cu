@@ -7,6 +7,15 @@
 // E3 atrous_kernel  replaces forge3d_tpu/ops/denoise.py:atrous_denoise (35),
 //                   one launch per iteration
 // E5 hosek_kernel   replaces forge3d_tpu/sky.py:hosek_radiance (261)
+// E2 blur_axis_kernel  replaces forge3d_tpu/ops/post.py:gaussian_blur (39),
+//                      two launches a blur (axis 0, then axis 1)
+// E2 post_point_kernel replaces bloom (60), depth_of_field (75),
+//                      vignette (189) and sharpen (199) around their blurs
+// E2 ssr_kernel        replaces ssr (164)
+// E2 taa_kernel        replaces taa_resolve (113)
+// E2 ssao_kernel       replaces ssao (129)
+// E2 rect_light_kernel replaces rect_area_light (206), every light of a list
+//                      summed in list order in one launch
 //
 // E3: the JAX version forms each iteration as 25 shifted copies of the
 // image and its guides, summed as whole arrays; here one thread per pixel
@@ -20,6 +29,20 @@
 //
 // E5: one thread per direction of the environment bake, arithmetic only
 // (an acosf, a sqrtf and per channel two expf).
+//
+// E2: the JAX functions build each stage from whole shifted copies of the
+// image (a padded slice per blur tap, a jnp.roll per SSR step and TAA
+// neighbour), summed as arrays; here one thread per output element or
+// pixel reads its taps and keeps the sums in registers, so every
+// intermediate copy stays out of device memory. The blur reads its 2r + 1
+// taps along one axis from L1/L2 (the rows of axis 0 are W * C floats
+// apart, so neighbouring threads read neighbouring addresses on both
+// passes); at 1080p with the bloom's r = 45 it does 91 multiply-adds an
+// element and is bound by that arithmetic and the cache, not by device
+// memory (each pass reads and writes 25 MB once). The point stages, SSR,
+// TAA and SSAO are a few dozen operations a pixel over a few loads: bound by
+// bytes. The rect lights are arithmetic bound: ~70 operations (a sqrtf, a
+// powf, two divisions) per light and pixel.
 
 #include <cuda_runtime.h>
 
@@ -44,6 +67,62 @@ __global__ void hosek_kernel(HosekArgs s, const float* __restrict__ dx,
     hosek_texel(s, dx[i], dy[i], dz[i], rgb + 3 * i);
 }
 
+__global__ void blur_axis_kernel(const float* __restrict__ in, float* __restrict__ out,
+                                 const float* __restrict__ taps, int radius, int n, int inner,
+                                 long long count) {
+    long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (e >= count) return;
+    out[e] = blur_axis_elem(in, taps, radius, n, inner, e);
+}
+
+__global__ void post_point_kernel(int mode, int height, int width, int channels,
+                                  const float* __restrict__ a, const float* __restrict__ b,
+                                  const float* __restrict__ c, const float* __restrict__ d,
+                                  float* __restrict__ out, PointParams q) {
+    int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= width * height) return;
+    post_point_pixel(mode, height, width, channels, a, b, c, d, out, q, i);
+}
+
+__global__ void ssr_kernel(const float* __restrict__ color, const float* __restrict__ depth,
+                           const float* __restrict__ normal, int nc, float* __restrict__ out,
+                           int height, int width, int stride, int max_steps, float intensity,
+                           float fade_den) {
+    int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= width * height) return;
+    ssr_pixel(color, depth, normal, nc, height, width, stride, max_steps, intensity, fade_den,
+              out, i);
+}
+
+__global__ void taa_kernel(const float* __restrict__ cur, const float* __restrict__ hist,
+                           float* __restrict__ out, int height, int width, int channels,
+                           float blend, float one_minus_blend, int clamp) {
+    int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= width * height) return;
+    taa_pixel(cur, hist, out, height, width, channels, blend, one_minus_blend, clamp, i);
+}
+
+__global__ void ssao_kernel(const float* __restrict__ depth, const float* __restrict__ normal,
+                            int nc, const int* __restrict__ offsets, int n_samples,
+                            float* __restrict__ out, int height, int width, float bias,
+                            float rden, float intensity) {
+    int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= width * height) return;
+    out[i] = ssao_pixel(depth, normal, nc, offsets, n_samples, height, width, bias, rden,
+                        intensity, i);
+}
+
+__global__ void rect_light_kernel(const float* __restrict__ p, const float* __restrict__ n,
+                                  const float* __restrict__ v, int count,
+                                  const RectLight* __restrict__ lights, int n_lights,
+                                  float* __restrict__ out) {
+    int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= count) return;
+    rect_lights_point(p, n, v, lights, n_lights, out, i);
+}
+
+inline unsigned blocks(long long n) { return (unsigned)((n + kThreads - 1) / kThreads); }
+
 }  // namespace
 
 extern "C" {
@@ -62,6 +141,70 @@ int f3d_hosek_radiance(const HosekArgs* s, const float* dx, const float* dy, con
     if (n > 0) {
         hosek_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, (cudaStream_t)stream>>>(
             *s, dx, dy, dz, n, rgb);
+    }
+    return (int)cudaGetLastError();
+}
+
+int f3d_blur_axis(const float* in, float* out, const float* taps, int radius, int outer, int n,
+                  int inner, void* stream) {
+    long long count = (long long)outer * n * inner;
+    if (count > 0) {
+        blur_axis_kernel<<<blocks(count), kThreads, 0, (cudaStream_t)stream>>>(
+            in, out, taps, radius, n, inner, count);
+    }
+    return (int)cudaGetLastError();
+}
+
+int f3d_post_point(int mode, int height, int width, int channels, const float* a,
+                   const float* b, const float* c, const float* d, float* out, float p0,
+                   float p1, float p2, float p3, float p4, float p5, void* stream) {
+    int n = width * height;
+    if (n > 0) {
+        PointParams q{p0, p1, p2, p3, p4, p5};
+        post_point_kernel<<<blocks(n), kThreads, 0, (cudaStream_t)stream>>>(
+            mode, height, width, channels, a, b, c, d, out, q);
+    }
+    return (int)cudaGetLastError();
+}
+
+int f3d_ssr(const float* color, const float* depth, const float* normal, int nc, float* out,
+            int height, int width, int stride, int max_steps, float intensity, float fade_den,
+            void* stream) {
+    int n = width * height;
+    if (n > 0) {
+        ssr_kernel<<<blocks(n), kThreads, 0, (cudaStream_t)stream>>>(
+            color, depth, normal, nc, out, height, width, stride, max_steps, intensity,
+            fade_den);
+    }
+    return (int)cudaGetLastError();
+}
+
+int f3d_taa(const float* cur, const float* hist, float* out, int height, int width,
+            int channels, float blend, float one_minus_blend, int clamp, void* stream) {
+    int n = width * height;
+    if (n > 0) {
+        taa_kernel<<<blocks(n), kThreads, 0, (cudaStream_t)stream>>>(
+            cur, hist, out, height, width, channels, blend, one_minus_blend, clamp);
+    }
+    return (int)cudaGetLastError();
+}
+
+int f3d_ssao(const float* depth, const float* normal, int nc, const int* offsets, int n_samples,
+             float* out, int height, int width, float bias, float rden, float intensity,
+             void* stream) {
+    int n = width * height;
+    if (n > 0) {
+        ssao_kernel<<<blocks(n), kThreads, 0, (cudaStream_t)stream>>>(
+            depth, normal, nc, offsets, n_samples, out, height, width, bias, rden, intensity);
+    }
+    return (int)cudaGetLastError();
+}
+
+int f3d_rect_lights(const float* p, const float* n, const float* v, int count,
+                    const float* lights, int n_lights, float* out, void* stream) {
+    if (count > 0) {
+        rect_light_kernel<<<blocks(count), kThreads, 0, (cudaStream_t)stream>>>(
+            p, n, v, count, reinterpret_cast<const RectLight*>(lights), n_lights, out);
     }
     return (int)cudaGetLastError();
 }

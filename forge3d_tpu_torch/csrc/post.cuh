@@ -97,3 +97,236 @@ F3D_HD void hosek_texel(const HosekArgs& s, float dx, float dy, float dz, float*
         rgb[c] = val * s.rad[c] * s.exposure;
     }
 }
+
+// ---------------------------------------------------------------------------
+// E2: the post-processing suite of forge3d_tpu/ops/post.py (39-270). The JAX
+// functions run eagerly, one rounded jnp operation at a time; each body below
+// does the same float32 operations in the same order (the kernels are built
+// with -fmad=false), so that the kernels in post.cu agree with the plain
+// PyTorch versions in ops/post.py.
+// ---------------------------------------------------------------------------
+
+// post.py:gaussian_blur's conv1d (46-55) for element e of a tensor viewed as
+// (outer, n, inner) with the blurred axis in the middle: the 2r + 1 taps
+// summed from i = 0 upward, starting from zero, each reading the
+// edge-clamped element a + i - r of the axis.
+F3D_HD float blur_axis_elem(const float* in, const float* taps, int radius, int n, int inner,
+                            long long e) {
+    const long long plane = (long long)n * inner;
+    const long long o = e / plane;
+    const long long rem = e - o * plane;
+    const int a = (int)(rem / inner);
+    const long long base = o * plane + (rem - (long long)a * inner);
+    float acc = 0.0f;
+    for (int i = 0; i <= 2 * radius; ++i) {
+        const int s = clampi(a + i - radius, 0, n - 1);
+        acc = acc + taps[i] * in[base + (long long)s * inner];
+    }
+    return acc;
+}
+
+// The pointwise stages of the chain, one thread per pixel (all channels).
+enum {
+    F3D_PP_BRIGHT = 0,  // bloom's brightpass (post.py:65-68); 3 channels
+    F3D_PP_BLOOM,       // bloom's composite color + i * (0.65 b1 + 0.35 b2) (70-72)
+    F3D_PP_DOF,         // depth_of_field's CoC and its two mixes (82-92)
+    F3D_PP_VIGNETTE,    // vignette (189-196)
+    F3D_PP_SHARPEN      // sharpen's unsharp composite (203)
+};
+
+// Mode parameters, float32 values formed on the host as JAX forms them:
+//   BRIGHT   p0 threshold, p1 max(threshold, 1e-4)
+//   BLOOM    p0 intensity
+//   DOF      p0 focus, p1 max(range, 1e-4), p2 max_coc, p3 max(max_coc, 1e-4),
+//            p4 near_blur (1 or 0)
+//   VIGNETTE p0 strength, p1 radius, p2 max(1 - radius, 1e-4), p3 sqrt(2)
+//   SHARPEN  p0 amount
+struct PointParams {
+    float p0, p1, p2, p3, p4, p5;
+};
+
+F3D_HD void post_point_pixel(int mode, int height, int width, int channels, const float* a,
+                             const float* b, const float* c, const float* d, float* out,
+                             const PointParams& q, int i) {
+    const int C = channels;
+    switch (mode) {
+        case F3D_PP_BRIGHT: {
+            const float* px = a + 3 * i;
+            float lum = 0.2126f * px[0] + 0.7152f * px[1] + 0.0722f * px[2];
+            float knee = fmaxf((lum - q.p0) / q.p1, 0.0f);
+            float s = knee / fmaxf(lum, 1e-4f);
+            for (int k = 0; k < 3; ++k) out[3 * i + k] = px[k] * s;
+            break;
+        }
+        case F3D_PP_BLOOM:
+            for (int k = 0; k < C; ++k) {
+                float blurred = 0.65f * b[C * i + k] + 0.35f * c[C * i + k];
+                out[C * i + k] = a[C * i + k] + q.p0 * blurred;
+            }
+            break;
+        case F3D_PP_DOF: {
+            float dep = b[i];
+            float coc = fabsf(dep - q.p0) / q.p1;
+            if (q.p4 == 0.0f && dep < q.p0) coc = 0.0f;
+            coc = fminf(fmaxf(coc, 0.0f), 1.0f) * q.p2;
+            float t = coc / q.p3;
+            float sharp = fminf(fmaxf(t * 2.0f, 0.0f), 1.0f);
+            float blur = fminf(fmaxf(t * 2.0f - 1.0f, 0.0f), 1.0f);
+            for (int k = 0; k < C; ++k) {
+                out[C * i + k] = (a[C * i + k] * (1.0f - sharp) + c[C * i + k] * sharp)
+                                 * (1.0f - blur) + d[C * i + k] * blur;
+            }
+            break;
+        }
+        case F3D_PP_VIGNETTE: {
+            const int y = i / width, x = i % width;
+            float yy = ((float)y / (float)(height - 1) - 0.5f) * 2.0f;
+            float xx = ((float)x / (float)(width - 1) - 0.5f) * 2.0f;
+            float r = sqrtf(yy * yy + xx * xx) / q.p3;
+            float fall = fminf(fmaxf((r - q.p1) / q.p2, 0.0f), 1.0f);
+            float s = 1.0f - q.p0 * fall * fall;
+            for (int k = 0; k < C; ++k) out[C * i + k] = a[C * i + k] * s;
+            break;
+        }
+        default:  // F3D_PP_SHARPEN
+            for (int k = 0; k < C; ++k) {
+                float v = a[C * i + k];
+                out[C * i + k] = fmaxf(v + q.p0 * (v - b[C * i + k]), 0.0f);
+            }
+    }
+}
+
+// post.py:ssr (164-186) for pixel i: march up the column `max_steps` times
+// by `stride` rows, the rows wrapping as jnp.roll wraps them; the first
+// closer depth wins, then the strength from the upward normal and the fade
+// from the top edge. `nc` 3: normal is (H, W, 3) and its y is clipped to
+// [0, 1]; 1: normal is the (H, W) strength itself.
+F3D_HD void ssr_pixel(const float* color, const float* depth, const float* normal, int nc,
+                      int height, int width, int stride, int max_steps, float intensity,
+                      float fade_den, float* out, int i) {
+    const int y = i / width, x = i % width;
+    const float d0 = depth[i];
+    bool found = false;
+    float best[3] = {0.0f, 0.0f, 0.0f};
+    for (int step = 1; step <= max_steps && !found; ++step) {
+        int sy = (y - step * stride) % height;
+        if (sy < 0) sy += height;
+        const int j = sy * width + x;
+        if (depth[j] < d0) {
+            for (int k = 0; k < 3; ++k) best[k] = color[3 * j + k];
+            found = true;
+        }
+    }
+    float up = nc == 3 ? fminf(fmaxf(normal[3 * i + 1], 0.0f), 1.0f) : normal[i];
+    float fade = fminf(fmaxf((float)y / fade_den, 0.0f), 1.0f);
+    float strength = intensity * up * (found ? 1.0f : 0.0f) * fade;
+    for (int k = 0; k < 3; ++k)
+        out[3 * i + k] = color[3 * i + k] * (1.0f - strength) + best[k] * strength;
+}
+
+// post.py:taa_resolve (113-126) for pixel i: the history clipped to the
+// min and max of the 3x3 neighbourhood (rows and columns wrapping, as
+// jnp.roll does), then the exponential blend.
+F3D_HD void taa_pixel(const float* cur, const float* hist, float* out, int height, int width,
+                      int channels, float blend, float one_minus_blend, int clamp, int i) {
+    const int y = i / width, x = i % width;
+    for (int k = 0; k < channels; ++k) {
+        float h = hist[channels * i + k];
+        if (clamp) {
+            float lo = INFINITY, hi = -INFINITY;
+            for (int dy = -1; dy <= 1; ++dy) {
+                int sy = y - dy;
+                sy = sy < 0 ? sy + height : (sy >= height ? sy - height : sy);
+                for (int dx = -1; dx <= 1; ++dx) {
+                    int sx = x - dx;
+                    sx = sx < 0 ? sx + width : (sx >= width ? sx - width : sx);
+                    float v = cur[channels * (sy * width + sx) + k];
+                    lo = fminf(lo, v);
+                    hi = fmaxf(hi, v);
+                }
+            }
+            h = fminf(fmaxf(h, lo), hi);
+        }
+        out[channels * i + k] = blend * cur[channels * i + k] + one_minus_blend * h;
+    }
+}
+
+// post.py:ssao (129-161) for pixel i: the spiral taps (dy, dx) from the
+// host's table, each reading the edge-clamped neighbour; `rden` is
+// float32(radius * 0.25 + 1e-4). `nc` as in ssr_pixel (the facing term
+// reads normal z, or the (H, W) plane itself).
+F3D_HD float ssao_pixel(const float* depth, const float* normal, int nc, const int* offsets,
+                        int n_samples, int height, int width, float bias, float rden,
+                        float intensity, int i) {
+    const int y = i / width, x = i % width;
+    const float d0 = depth[i];
+    float occl = 0.0f;
+    for (int s = 0; s < n_samples; ++s) {
+        const int sy = clampi(y + offsets[2 * s], 0, height - 1);
+        const int sx = clampi(x + offsets[2 * s + 1], 0, width - 1);
+        float delta = d0 - depth[sy * width + sx] - bias;
+        float w = fminf(fmaxf(1.0f - fabsf(delta) / rden, 0.0f), 1.0f);
+        occl = occl + (delta > 0.0f ? w : 0.0f);
+    }
+    float ao = 1.0f - intensity * occl / (float)n_samples;
+    float facing = fminf(fmaxf(nc == 3 ? normal[3 * i + 2] : normal[i], 0.0f), 1.0f);
+    return fminf(fmaxf(ao * (0.75f + 0.25f * facing), 0.0f), 1.0f);
+}
+
+// One rect light of post.py:rect_area_light (206-239), float32 values formed
+// on the host as JAX forms them: the centre, right and up axes, the
+// half-extents, the area 4 hx hy, the Blinn-Phong exponent shin and its
+// normalisation (shin + 2) / (2 pi), the colour and the intensity.
+#define F3D_RECT_FLOATS 18
+struct RectLight {
+    float c[3], r[3], u[3], hx, hy, area, shin, spec_k, color[3], intensity;
+};
+
+#ifndef F3D_PI_F
+#define F3D_PI_F 3.14159265358979323846f  // float32(pi)
+#endif
+
+// jnp.linalg.norm of a 3-vector: XLA's jitted norm fuses the squares into
+// its sum as fma(x2, x2, fma(x1, x1, x0 * x0)). (A jnp.sum over the last
+// axis, eager, is (x0 + x1) + x2.)
+F3D_HD float xla_norm3(const float* x) {
+    return sqrtf(fmaf(x[2], x[2], fmaf(x[1], x[1], x[0] * x[0])));
+}
+
+// The representative-point light at point p with normal n and view v
+// (each float[3]), added into acc[3].
+F3D_HD void rect_light_add(const RectLight& L, const float* p, const float* n, const float* v,
+                           float* acc) {
+    float nt[3], nu[3];
+    for (int k = 0; k < 3; ++k) {
+        float neg = -(L.c[k] - p[k]);
+        nt[k] = neg * L.r[k];
+        nu[k] = neg * L.u[k];
+    }
+    float s = fminf(fmaxf(nt[0] + nt[1] + nt[2], -L.hx), L.hx);
+    float t = fminf(fmaxf(nu[0] + nu[1] + nu[2], -L.hy), L.hy);
+    float Lv[3];
+    for (int k = 0; k < 3; ++k) Lv[k] = L.c[k] + s * L.r[k] + t * L.u[k] - p[k];
+    float dist = xla_norm3(Lv);
+    float dm = fmaxf(dist, 1e-6f);
+    float Ld[3] = {Lv[0] / dm, Lv[1] / dm, Lv[2] / dm};
+    float ndl = fminf(fmaxf(n[0] * Ld[0] + n[1] * Ld[1] + n[2] * Ld[2], 0.0f), 1.0f);
+    float omega = L.area / fmaxf(dist * dist, 1e-4f);
+    float diffuse = ndl * fminf(omega, F3D_PI_F) / F3D_PI_F;
+    float h[3] = {Ld[0] + v[0], Ld[1] + v[1], Ld[2] + v[2]};
+    float hn = fmaxf(xla_norm3(h), 1e-6f);
+    for (int k = 0; k < 3; ++k) h[k] = h[k] / hn;
+    float ndh = fminf(fmaxf(n[0] * h[0] + n[1] * h[1] + n[2] * h[2], 0.0f), 1.0f);
+    float spec = L.spec_k * powf(ndh, L.shin) * fminf(omega, 1.0f) * ndl;
+    for (int k = 0; k < 3; ++k) acc[k] = acc[k] + (diffuse + spec) * L.color[k] * L.intensity;
+}
+
+// Every light of the list at point i, summed in list order from zero (the
+// Scene's `add = add + rect_area_light(...)`, scene.py:299-305).
+F3D_HD void rect_lights_point(const float* p, const float* n, const float* v,
+                              const RectLight* lights, int n_lights, float* out, int i) {
+    float acc[3] = {0.0f, 0.0f, 0.0f};
+    for (int l = 0; l < n_lights; ++l)
+        rect_light_add(lights[l], p + 3 * i, n + 3 * i, v + 3 * i, acc);
+    for (int k = 0; k < 3; ++k) out[3 * i + k] = acc[k];
+}

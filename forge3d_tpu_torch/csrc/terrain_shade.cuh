@@ -24,6 +24,8 @@
 
 #include "common.cuh"
 
+#define F3D_VT_MAX_LEVELS 16  // renderer.py:VT_MAX_LEVELS
+
 // Mirrored by TerrainArgs in _kernels.py. Flags select the settings groups
 // of _make_shade; values are the float32 uniforms of renderer.py:_uniforms.
 struct TerrainArgs {
@@ -50,6 +52,12 @@ struct TerrainArgs {
     float ao_radius, ao_strength, tri_scale, tri_sharp;
     float det_strength, det_scale, det_fade, pom_scale;
     float snow_h, snow_blend, snow_rgb[3], rock_cos, rock_blend, rock_rgb[3];
+    // the virtual-texture albedo (renderer.py:833-871); vt_atlas null: off
+    const float* vt_atlas;  // (slots * page * page, 3) resident pages
+    const int* vt_table;    // slot per (level, tile), level by level; -1: not resident
+    int vt_levels, vt_level0, vt_level_last, vt_page;
+    int vt_tiles[F3D_VT_MAX_LEVELS], vt_offs[F3D_VT_MAX_LEVELS];  // per entry of the level list
+    float vt_pix_angle, vt_tpw0, vt_inv_span;
 };
 
 // Output planes; a null pointer is not written.
@@ -60,6 +68,7 @@ struct TerrainOut {
     float* normal;        // (H, W, 3), 0 off the terrain
     float* depth;         // (H, W), NaN off the terrain
     float* vis;           // (H, W), 1 on the terrain
+    unsigned int* vt_fallback;  // VT: terrain pixels of sample 0 whose page was not resident
 };
 
 enum { F3D_TM_OFF = 0, F3D_TM_REINHARD, F3D_TM_REINHARD_EXT, F3D_TM_FILMIC, F3D_TM_ACES };
@@ -73,6 +82,7 @@ struct ShadeAux {
     float t;   // its distance, or the water plane's where water is in front
     float n[3];
     float alb[3];
+    int vt_miss;  // a terrain hit whose VT page was not resident
 };
 
 // float32 -> int32 as the lattice takes it; saturates (CUDA's conversion)
@@ -175,6 +185,40 @@ F3D_HD void surface_albedo(const TerrainArgs& a, float hn, float& r, float& g, f
     }
 }
 
+// renderer.py:833-871, the virtual-texture albedo of a terrain hit at
+// distance t and world (px, pz): the mip level from the pixel's footprint
+// (log2, rounded half to even, clamped to the store's levels), the page
+// table, then the atlas texel. Returns false, leaving the albedo as it is,
+// where the page is not resident. The level indexes the store's level list
+// from its first level, as JAX's does; past the list's end (a store whose
+// levels are not contiguous) jnp.take fills INT_MIN, which no page matches.
+F3D_HD bool vt_resolve(const TerrainArgs& a, float t, float px, float pz, float& r, float& g,
+                       float& b) {
+    float foot = t * a.vt_pix_angle;
+    float des = log2f(fmaxf(foot * a.vt_tpw0, 1e-9f));
+    float lvl = fminf(fmaxf(rintf(des), (float)a.vt_level0), (float)a.vt_level_last);
+    int li = (int)(lvl - (float)a.vt_level0);
+    if (li < 0 || li >= a.vt_levels) return false;
+    const int ntl = a.vt_tiles[li];
+    const float ntl_f = (float)ntl;
+    const float page = (float)a.vt_page;
+    float uu = fminf(fmaxf(px * a.vt_inv_span, 0.0f), 0.999999f);
+    float vv = fminf(fmaxf(pz * a.vt_inv_span, 0.0f), 0.999999f);
+    float gx = uu * ntl_f * page;
+    float gz = vv * ntl_f * page;
+    int tx = (int)floorf(uu * ntl_f);
+    int tz = (int)floorf(vv * ntl_f);
+    int tix = (int)fminf(fmaxf(gx - (float)tx * page, 0.0f), page - 1.0f);
+    int tiz = (int)fminf(fmaxf(gz - (float)tz * page, 0.0f), page - 1.0f);
+    int slot = a.vt_table[a.vt_offs[li] + tz * ntl + tx];
+    if (slot < 0) return false;
+    long long addr = (long long)slot * (a.vt_page * a.vt_page) + tiz * a.vt_page + tix;
+    r = a.vt_atlas[3 * addr + 0];
+    g = a.vt_atlas[3 * addr + 1];
+    b = a.vt_atlas[3 * addr + 2];
+    return true;
+}
+
 // renderer.py:_make_shade.shade for pixel (x, y) and jitter (jx, jy);
 // advances the random state `st` by the draws of the soft-shadow and AO
 // samples.
@@ -251,6 +295,8 @@ F3D_HD void shade_sample(const SceneArgs& s, const TerrainArgs& a, int x, int y,
     }
     float ar, ag, ab;
     surface_albedo(a, hn, ar, ag, ab);
+    // a missed ray's t is unbounded: its page indices are never formed
+    aux.vt_miss = a.vt_atlas != nullptr && hp.hit && !vt_resolve(a, t, px, pz, ar, ag, ab);
     if (a.layers_on) {
         float snow = clamp01((hn - a.snow_h) / a.snow_blend) * clamp01((ny - 0.6f) / 0.4f);
         float rock = clamp01((a.rock_cos - ny) / a.rock_blend + 1.0f)
@@ -441,6 +487,15 @@ F3D_HD void write_aovs(const TerrainOut& o, int i, const ShadeAux& aux) {
     if (o.vis != nullptr) o.vis[i] = m;
 }
 
+// One more fallback texel (an integer count, exact in any order).
+F3D_HD void count_fallback(unsigned int* counter) {
+#ifdef __CUDA_ARCH__
+    atomicAdd(counter, 1u);
+#else
+    *counter += 1u;
+#endif
+}
+
 // renderer.py:_build_program.program for pixel i: `aa` samples (jittered
 // when aa > 1), their mean, the tonemap and the u8 rgba by the host's
 // float32 formula (renderer.py:349-356); the AOVs are sample 0's.
@@ -462,7 +517,10 @@ F3D_HD void render_pixel(const SceneArgs& s, const TerrainArgs& a, const Terrain
         }
         float r, g, b;
         shade_sample(s, a, x, y, jx, jy, st, r, g, b, aux);
-        if (k == 0) aux0 = aux;
+        if (k == 0) {
+            aux0 = aux;
+            if (aux.vt_miss && o.vt_fallback != nullptr) count_fallback(o.vt_fallback);
+        }
         racc = racc + r;
         gacc = gacc + g;
         bacc = bacc + b;

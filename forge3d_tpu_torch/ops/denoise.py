@@ -126,16 +126,6 @@ def _atrous_kernel(c, alb, nrm, dep, iterations, kc, ka, kn, kd):
     return src
 
 
-def _device_for(color, device):
-    """Where to denoise: `device` when given, else a tensor's own device,
-    else (numpy or array-like input) the card."""
-    from ..pt.terrain_ref import resolve_device
-
-    if device is None and isinstance(color, torch.Tensor):
-        return color.device
-    return resolve_device("cuda" if device is None else device)
-
-
 def atrous_denoise(color, albedo=None, normal=None, depth=None, iterations: int = 5,
                    sigma_color: float = 0.30, sigma_albedo: float = 0.30,
                    sigma_normal: float = 0.60, sigma_depth: float = 0.80, *, device=None):
@@ -145,7 +135,9 @@ def atrous_denoise(color, albedo=None, normal=None, depth=None, iterations: int 
     `device`, else on color's device when color is a tensor, else on
     "cuda" (DeviceError without CUDA); on the CPU it runs the plain
     version."""
-    c, alb, nrm, dep = _prepare(color, albedo, normal, depth, _device_for(color, device))
+    from ..pt.terrain_ref import device_for
+
+    c, alb, nrm, dep = _prepare(color, albedo, normal, depth, device_for(color, device))
     run = _atrous_plain if c.device.type == "cpu" else _atrous_kernel
     return run(c, alb, nrm, dep, iterations,
                *map(_sigma_k, (sigma_color, sigma_albedo, sigma_normal, sigma_depth)))

@@ -144,6 +144,15 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def device_for(x, device) -> torch.device:
+    """Where a function that takes numpy or tensors runs: `device` when
+    given, else a tensor's own device, else (numpy or array-like input) the
+    card."""
+    if device is None and isinstance(x, torch.Tensor):
+        return x.device
+    return resolve_device("cuda" if device is None else device)
+
+
 def _vec3(v) -> Tuple[float, float, float]:
     return tuple(f32(c) for c in v)
 

@@ -15,16 +15,24 @@
 # launch the kernels, and nothing falls back from one to the other. The
 # IBL's Hosek sky is baked by kernel E5 (sky.py).
 #
+# A MaterialSet with a virtual-texture store (terrain/vt.py) resolves the
+# albedo per pixel inside R1 as the JAX package's does (renderer.py:833-871):
+# the host residency pass `_vt_residency` decodes the pages whose mip level
+# matches their footprint from this camera into an atlas under the byte
+# budget and builds the page table; R1 then reads the level from each hit's
+# footprint, the page table and the atlas texel, and counts the terrain
+# pixels of sample 0 whose page is not resident (the fallback texels). Only
+# the atlas slots that were filled go to the card.
+#
 # camera_mode="screen" renders go to the screen engine (terrain/screen.py,
 # kernels S1-S4 and S8, with POM and the aerial sky inside S8) through
 # `_render_screen`, as the JAX package's do.
 #
 # Not ported yet, and refused by the one-shot renders with
-# NotImplementedError: a MaterialSet with a virtual texture store (R1's VT
-# branch with terrain/vt.py, ROADMAP queue 1 item 7) and the anamnesis
-# render cache (`cache=`, item 13). The offline session ignores camera_mode and
-# the VT store, as the JAX package's does, and renders the perspective
-# shade.
+# NotImplementedError: the anamnesis render cache (`cache=`, ROADMAP item
+# 13). The offline session ignores camera_mode and the VT store, as the JAX
+# package's does, and renders the perspective shade; so does screen mode
+# ignore the store.
 
 from __future__ import annotations
 
@@ -61,14 +69,21 @@ _NOT_PORTED = "not ported to forge3d_tpu_torch yet (ROADMAP queue 1 item {})"
 
 
 class MaterialSet:
-    """Material description for the terrain surface. A virtual-texture
-    store (`vt_store`) is accepted but refused by the one-shot renders:
-    R1's VT branch is not ported yet. The offline session ignores it."""
+    """Material description for the terrain surface. It can bind a packed
+    VT store (terrain/vt.py; a path opens a VTStore under the budget): per
+    render, the residency pass decodes the needed albedo pages into an atlas
+    and R1 samples it, falling back to the colormap or constant albedo
+    where a page is not resident (the fallback texels are counted per
+    render). The offline session and screen mode ignore the store."""
 
     def __init__(self, name: str = "default", vt_store=None,
                  vt_budget_bytes: int = 64 * 1024 * 1024):
         self.name = name
         self.vt_budget_bytes = int(vt_budget_bytes)
+        if vt_store is not None and not hasattr(vt_store, "request"):
+            from .vt import VTStore
+
+            vt_store = VTStore(vt_store, budget_bytes=self.vt_budget_bytes)
         self.vt_store = vt_store
 
     @staticmethod
@@ -180,6 +195,16 @@ class ShadeArgs:
     rock_cos: float = 0.0
     rock_blend: float = 0.0
     rock_rgb: Tuple[float, float, float] = (0.0, 0.0, 0.0)
+    # the virtual-texture albedo (renderer.py:_vt_residency); vt_atlas None: off
+    vt_atlas: Optional[torch.Tensor] = None   # (slots * page * page, 3) f32
+    vt_table: Optional[torch.Tensor] = None   # slot per (level, tile), i32; -1 not resident
+    vt_levels: Tuple[int, ...] = ()           # the store's albedo levels, ascending
+    vt_tiles: Tuple[int, ...] = ()            # pages per side, per level
+    vt_offs: Tuple[int, ...] = ()             # each level's first table entry
+    vt_page: int = 0
+    vt_pix_angle: float = 0.0
+    vt_tpw0: float = 0.0
+    vt_inv_span: float = 0.0
 
     @property
     def env(self) -> Optional[EnvMap]:
@@ -195,10 +220,22 @@ class ShadeArgs:
             args.env_rgb = self.env_rgb.data_ptr()
             args.env_h, args.env_w = int(self.env_rgb.shape[0]), int(self.env_rgb.shape[1])
         for f in dataclasses.fields(self):
-            if f.name in ("lut", "env_rgb"):
+            if f.name in ("lut", "env_rgb") or f.name.startswith("vt_"):
                 continue
             v = getattr(self, f.name)
             setattr(args, f.name, _kernels._F3(*v) if isinstance(v, tuple) else v)
+        if self.vt_atlas is not None:
+            _kernels.require_cuda("terrain VT", self.vt_atlas, self.vt_table)
+            args.vt_atlas = self.vt_atlas.data_ptr()
+            args.vt_table = self.vt_table.data_ptr()
+            args.vt_levels = len(self.vt_levels)
+            args.vt_level0, args.vt_level_last = self.vt_levels[0], self.vt_levels[-1]
+            args.vt_page = self.vt_page
+            for i, (n, off) in enumerate(zip(self.vt_tiles, self.vt_offs)):
+                args.vt_tiles[i], args.vt_offs[i] = n, off
+            args.vt_pix_angle = self.vt_pix_angle
+            args.vt_tpw0 = self.vt_tpw0
+            args.vt_inv_span = self.vt_inv_span
         return args
 
 
@@ -377,6 +414,39 @@ def _surface_albedo(a: ShadeArgs, hn):
     return [torch.full_like(hn, k) for k in a.constant_albedo]
 
 
+def _vt_resolve(a: ShadeArgs, hit, t, px, pz, alb):
+    """renderer.py:833-871: the albedo from the VT atlas where the hit's
+    page is resident. Returns (albedo, fallback mask: terrain hits whose
+    page is not resident). A missed ray's indices are never used."""
+    dev = t.device
+    levels = a.vt_levels
+    page = a.vt_page
+    foot = t * a.vt_pix_angle
+    des = torch.log2(torch.clamp(foot * a.vt_tpw0, min=1e-9))
+    lvl = torch.clamp(torch.round(des), levels[0], levels[-1])
+    li = (lvl - levels[0]).to(torch.int64)
+    listed = li < len(levels)   # past the list jnp.take fills INT_MIN: no page
+    li = torch.clamp(li, max=len(levels) - 1)
+    ntl = torch.as_tensor(a.vt_tiles, dtype=torch.int64, device=dev)[li]
+    offs = torch.as_tensor(a.vt_offs, dtype=torch.int64, device=dev)[li]
+    ntl_f = ntl.to(_F32)
+    uu = torch.clamp(px * a.vt_inv_span, 0.0, 0.999999)
+    vv = torch.clamp(pz * a.vt_inv_span, 0.0, 0.999999)
+    gx = uu * ntl_f * page
+    gz = vv * ntl_f * page
+    tx = torch.floor(uu * ntl_f).to(torch.int64)
+    tz = torch.floor(vv * ntl_f).to(torch.int64)
+    tix = torch.clamp(gx - tx.to(_F32) * page, 0, page - 1).to(torch.int64)
+    tiz = torch.clamp(gz - tz.to(_F32) * page, 0, page - 1).to(torch.int64)
+    ok = hit & listed
+    slot = a.vt_table.to(torch.int64)[torch.where(ok, offs + tz * ntl + tx, 0)]
+    resident = ok & (slot >= 0)
+    addr = torch.where(resident, slot * (page * page) + tiz * page + tix, 0)
+    texel = a.vt_atlas[addr]
+    alb = [torch.where(resident, texel[..., k], c) for k, c in enumerate(alb)]
+    return alb, hit & ~resident
+
+
 def shade_plain(scene: TerrainScene, a: ShadeArgs, jx, jy, st):
     """Plain PyTorch version of one sample of R1 for every pixel
     (renderer.py:_make_shade.shade). st: int64-held u32 random state per
@@ -435,6 +505,9 @@ def shade_plain(scene: TerrainScene, a: ShadeArgs, jx, jy, st):
         sm = hn * hn * (3.0 - 2.0 * hn)
         hn = hn + (sm - hn) * a.curve_strength
     alb = _surface_albedo(a, hn)
+    vt_miss = None
+    if a.vt_atlas is not None:
+        alb, vt_miss = _vt_resolve(a, hit.hit, t, px, pz, alb)
     if a.layers_on:
         snow = torch.clamp(fdiv(hn - a.snow_h, a.snow_blend), 0.0, 1.0) \
             * torch.clamp(fdiv(ny - 0.6, 0.4), 0.0, 1.0)
@@ -536,7 +609,8 @@ def shade_plain(scene: TerrainScene, a: ShadeArgs, jx, jy, st):
         r, g, b = (c + (f - c) * fogf for c, f in zip((r, g, b), a.fog_rgb))
     sky_c = _sky_rgb(a, dy)
     r, g, b = (torch.where(hit_any, c, s) for c, s in zip((r, g, b), sky_c))
-    return (r, g, b), st, {"hit": hit.hit, "t": t, "n": (nx, ny, nz), "albedo": tuple(alb)}
+    return (r, g, b), st, {"hit": hit.hit, "t": t, "n": (nx, ny, nz), "albedo": tuple(alb),
+                           "vt_miss": vt_miss}
 
 
 def _pixel_grid(a: ShadeArgs, dev):
@@ -597,7 +671,10 @@ def render_plain(scene: TerrainScene, a: ShadeArgs) -> Dict[str, torch.Tensor]:
     ldr = _encode(a, hdr, aux0["n"])
     rgba = torch.full((a.height, a.width, 4), 255, dtype=torch.uint8, device=dev)
     rgba[..., :3] = tm.to_u8(ldr).to(torch.uint8)
-    return {"rgba": rgba, "hdr": hdr, **_aovs(aux0)}
+    out = {"rgba": rgba, "hdr": hdr, **_aovs(aux0)}
+    if aux0["vt_miss"] is not None:
+        out["vt_fallback"] = aux0["vt_miss"].sum()
+    return out
 
 
 def _render_kernel(scene: TerrainScene, a: ShadeArgs, want_aov: bool):
@@ -608,9 +685,11 @@ def _render_kernel(scene: TerrainScene, a: ShadeArgs, want_aov: bool):
     if want_aov:
         out.update(hdr=empty(3), albedo=empty(3), normal=empty(3), depth=empty(),
                    visibility=empty())
+    if a.vt_atlas is not None:
+        out["vt_fallback"] = torch.zeros((), dtype=torch.int32, device=dev)
     ptr = lambda k: out[k].data_ptr() if k in out else None  # noqa: E731
     planes = _kernels.TerrainOut(ptr("rgba"), ptr("hdr"), ptr("albedo"), ptr("normal"),
-                                 ptr("depth"), ptr("visibility"))
+                                 ptr("depth"), ptr("visibility"), ptr("vt_fallback"))
     err = _kernels.lib().f3d_terrain_render(scene.kernel_args(), a.kernel_args(), planes,
                                             _kernels.stream_ptr(dev))
     _kernels.check(err, "R1 render")
@@ -620,8 +699,9 @@ def _render_kernel(scene: TerrainScene, a: ShadeArgs, want_aov: bool):
 
 def render_program(scene: TerrainScene, a: ShadeArgs, want_aov: bool = True):
     """One render of R1: {"rgba": (H, W, 4) u8, and with want_aov "hdr",
-    "albedo", "normal", "depth", "visibility"} as tensors on the scene's
-    device. CPU scenes run `render_plain`; CUDA scenes launch the kernel."""
+    "albedo", "normal", "depth", "visibility"; with a VT atlas the fallback
+    count "vt_fallback"} as tensors on the scene's device. CPU scenes run
+    `render_plain`; CUDA scenes launch the kernel."""
     if scene.device.type == "cpu":
         return render_plain(scene, a)
     return _render_kernel(scene, a, want_aov)
@@ -777,10 +857,81 @@ class TerrainRenderer:
         return entry
 
     @staticmethod
-    def _refuse_unported(p: TerrainRenderParams, material_set) -> None:
-        if getattr(material_set, "vt_store", None) is not None:
-            raise NotImplementedError("a MaterialSet with a virtual-texture store (R1's VT "
-                                      "branch) is " + _NOT_PORTED.format(7))
+    def _vt_residency(vt, p: TerrainRenderParams, span, W, H, *, budget: int) -> dict:
+        """renderer.py:_vt_residency on the host: pick the albedo pages whose
+        mip level matches their footprint from this camera, decode them under
+        the budget into atlas slots and build the page table. Returns the
+        filled slots (n, page, page, 3) float32, the table and the level
+        geometry."""
+        from .vt import PAGE_SIZE
+
+        levels = sorted({k[1] for k in vt.index if k[0] == "albedo"})
+        if not levels:
+            raise UploadError("VT store has no albedo pages")
+        if len(levels) > _kernels.VT_MAX_LEVELS:
+            raise NotImplementedError(f"a VT store of {len(levels)} albedo levels: R1 takes at "
+                                      f"most {_kernels.VT_MAX_LEVELS}")
+        tiles = []
+        for lv in levels:
+            n = max(k[2] for k in vt.index if k[0] == "albedo" and k[1] == lv) + 1
+            tiles.append(int(n))
+        level_offs = []
+        acc = 0
+        for n in tiles:
+            level_offs.append(acc)
+            acc += n * n
+        capacity = max(int(budget) // (PAGE_SIZE * PAGE_SIZE * 3 * 4), 1)
+
+        origin = orbit_camera_origin(p.cam_target, p.cam_radius, p.cam_phi_deg, p.cam_theta_deg)
+        pix_angle = 2.0 * math.tan(math.radians(p.fov_y_deg) * 0.5) / H
+        tpw0 = tiles[0] * PAGE_SIZE / max(span, 1e-6)
+
+        # desired level per candidate page from its centre's distance
+        cands = []
+        for li, lv in enumerate(levels):
+            n = tiles[li]
+            for (kind, lvv, x, y) in vt.index:
+                if kind != "albedo" or lvv != lv:
+                    continue
+                cx = (x + 0.5) / n * span
+                cz = (y + 0.5) / n * span
+                d = math.dist((cx, 0.0, cz), (origin[0], origin[1], origin[2]))
+                desired = math.log2(max(d * pix_angle * tpw0, 1e-9))
+                # the shader clamps per-pixel levels into the pyramid range
+                desired = min(max(desired, levels[0]), levels[-1])
+                cands.append((abs(desired - lv), d, li, x, y))
+        cands.sort()
+        table = np.full(acc, -1, np.int32)
+        pages = []
+        for prio, d, li, x, y in cands:
+            if len(pages) >= capacity or prio > 1.0:
+                break
+            rgb = np.asarray(vt.request("albedo", levels[li], x, y), np.float32)
+            if rgb.max() > 1.5:
+                rgb = rgb / 255.0
+            table[level_offs[li] + y * tiles[li] + x] = len(pages)
+            pages.append(rgb[..., :3])
+        if not pages:   # no page resident: the atlas is never read
+            pages.append(np.zeros((PAGE_SIZE, PAGE_SIZE, 3), np.float32))
+        return dict(atlas=np.stack(pages), table=table, levels=tuple(levels), tiles=tuple(tiles),
+                    offs=tuple(level_offs), page=PAGE_SIZE, pix_angle=pix_angle, tpw0=tpw0,
+                    inv_span=1.0 / max(span, 1e-6))
+
+    def _with_vt(self, p: TerrainRenderParams, args: ShadeArgs, material_set, span: float):
+        """`args` with the VT atlas and page table of `material_set`'s store
+        on the device, or `args` itself without a store."""
+        vt = getattr(material_set, "vt_store", None) if material_set is not None else None
+        if vt is None:
+            return args
+        r = self._vt_residency(vt, p, span, args.width, args.height,
+                               budget=getattr(material_set, "vt_budget_bytes", 64 * 1024 * 1024))
+        atlas = np.ascontiguousarray(r["atlas"].reshape(-1, 3))
+        return dataclasses.replace(
+            args, vt_atlas=torch.as_tensor(atlas, device=self.device),
+            vt_table=torch.as_tensor(r["table"], device=self.device), vt_levels=r["levels"],
+            vt_tiles=r["tiles"], vt_offs=r["offs"], vt_page=r["page"],
+            vt_pix_angle=f32(r["pix_angle"]), vt_tpw0=f32(r["tpw0"]),
+            vt_inv_span=f32(r["inv_span"]))
 
     def _lut(self, p: TerrainRenderParams) -> torch.Tensor:
         return torch.as_tensor(np.ascontiguousarray(colormaps.get_lut(p.colormap), np.float32),
@@ -841,7 +992,18 @@ class TerrainRenderer:
         map bakes the Hosek sky through kernel E5. `offline=True` prepares
         the offline session as the JAX package's does: it checks the
         heightmap and the water mask no further, bakes no sky, and renders
-        the perspective shade whatever camera_mode or material_set ask."""
+        the perspective shade whatever camera_mode or material_set ask. A
+        one-shot render's material_set with a VT store adds its atlas and page
+        table (the residency pass) to the ShadeArgs."""
+        p, scene, args, has_env, span = self._inputs(params, heightmap, env_maps, water_mask,
+                                                     time_seconds, offline)
+        if not offline:
+            args = self._with_vt(p, args, material_set, span)
+        return p, scene, args, has_env
+
+    def _inputs(self, params, heightmap, env_maps, water_mask, time_seconds, offline):
+        """render_inputs without the VT store: (params, scene, ShadeArgs,
+        has_env, span)."""
         if offline:
             if heightmap is None:
                 raise UploadError("heightmap is required")
@@ -850,7 +1012,6 @@ class TerrainRenderer:
             hm = np.asarray(heightmap, np.float32)
         else:
             p, hm = self._checked(params, heightmap)
-            self._refuse_unported(p, material_set)
         env: IBL = env_maps if env_maps is not None else IBL.default()
 
         W = max(1, int(round(p.size_px[0] * p.render_scale)))
@@ -877,7 +1038,7 @@ class TerrainRenderer:
                 raise UploadError("water_mask must match heightmap shape")
         args = make_shade_args(p, hm.shape, span, hmin, hmax, W, H, time_seconds,
                                self._lut(p), env_rgb)
-        return p, scene, args, has_env
+        return p, scene, args, has_env, span
 
     @staticmethod
     def _checked(params, heightmap):
@@ -899,17 +1060,24 @@ class TerrainRenderer:
         if p.camera_mode == "screen":
             return self._render_screen(p, hm, env_maps, water_mask, want_aov)
         t0 = time.perf_counter()
-        p, scene, args, has_env = self.render_inputs(params, heightmap, env_maps, water_mask,
-                                                     time_seconds, material_set)
+        p, scene, args, has_env, span = self._inputs(params, heightmap, env_maps, water_mask,
+                                                     time_seconds, False)
         W, H = args.width, args.height
+        _sync(self.device)
         t_scene = time.perf_counter()
+        args = self._with_vt(p, args, material_set, span)
+        vt = args.vt_atlas is not None
         self.last_consumed_settings, self.last_ignored_settings = \
-            self._settings_report(p, has_env, water_mask is not None, False)
+            self._settings_report(p, has_env, water_mask is not None, vt)
         _sync(self.device)
         t_prep = time.perf_counter()
         out = render_program(scene, args, want_aov)
+        vt_fallback = float(out["vt_fallback"]) if vt else 0.0   # synchronises
         _sync(self.device)
         t_exec = time.perf_counter()
+        if vt:
+            self.last_vt_stats = {**material_set.vt_store.stats(),
+                                  "fallback_texels_frame": vt_fallback}
         rgba = out["rgba"].cpu().numpy()
         aovs = None
         if want_aov:

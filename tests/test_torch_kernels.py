@@ -48,6 +48,7 @@ HOST_LAUNCHERS = r"""
 #include "vector.cuh"
 #include "pt.cuh"
 #include "adjudication.cuh"
+#include "ibl.cuh"
 #include <vector>
 extern "C" {
 int f3d_trace(const SceneArgs* s, const float* rox, const float* roy, const float* roz,
@@ -268,9 +269,10 @@ int f3d_struct_sizes(long long* out, int n) {
                                (long long)sizeof(ClipArgs), (long long)sizeof(SkyArgs),
                                (long long)sizeof(SdfArgs), (long long)sizeof(MeshArgs),
                                (long long)sizeof(TlasArgs), (long long)sizeof(HybridArgs),
-                               (long long)sizeof(HybridOut), (long long)sizeof(AdjArgs)};
-    for (int i = 0; i < n && i < 10; ++i) out[i] = sizes[i];
-    return 10;
+                               (long long)sizeof(HybridOut), (long long)sizeof(AdjArgs),
+                               (long long)sizeof(TerrainArgs), (long long)sizeof(TerrainOut)};
+    for (int i = 0; i < n && i < 12; ++i) out[i] = sizes[i];
+    return 12;
 }
 // P6, P5, P3 and P4 one point, ray or pixel at a time
 int f3d_sdf_eval(const SdfArgs* s, const float* px, const float* py, const float* pz, int n,
@@ -328,6 +330,55 @@ int f3d_vector_layer(const float* prims, int n, int kind, int width, int height,
                                           pick_id);
     for (int y = 0; y < height; ++y)
         for (int x = 0; x < width; ++x) vector_pixel_serial(a, prims, x, y, cov, rgb, alpha, pick);
+    return 0;
+}
+// E2 and E1 one element, pixel or texel at a time
+int f3d_blur_axis(const float* in, float* out, const float* taps, int radius, int outer, int n,
+                  int inner, void*) {
+    for (long long e = 0; e < (long long)outer * n * inner; ++e)
+        out[e] = blur_axis_elem(in, taps, radius, n, inner, e);
+    return 0;
+}
+int f3d_post_point(int mode, int height, int width, int channels, const float* a,
+                   const float* b, const float* c, const float* d, float* out, float p0,
+                   float p1, float p2, float p3, float p4, float p5, void*) {
+    PointParams q{p0, p1, p2, p3, p4, p5};
+    for (int i = 0; i < width * height; ++i)
+        post_point_pixel(mode, height, width, channels, a, b, c, d, out, q, i);
+    return 0;
+}
+int f3d_ssr(const float* color, const float* depth, const float* normal, int nc, float* out,
+            int height, int width, int stride, int max_steps, float intensity, float fade_den,
+            void*) {
+    for (int i = 0; i < width * height; ++i)
+        ssr_pixel(color, depth, normal, nc, height, width, stride, max_steps, intensity,
+                  fade_den, out, i);
+    return 0;
+}
+int f3d_taa(const float* cur, const float* hist, float* out, int height, int width,
+            int channels, float blend, float one_minus_blend, int clamp, void*) {
+    for (int i = 0; i < width * height; ++i)
+        taa_pixel(cur, hist, out, height, width, channels, blend, one_minus_blend, clamp, i);
+    return 0;
+}
+int f3d_ssao(const float* depth, const float* normal, int nc, const int* offsets, int n_samples,
+             float* out, int height, int width, float bias, float rden, float intensity,
+             void*) {
+    for (int i = 0; i < width * height; ++i)
+        out[i] = ssao_pixel(depth, normal, nc, offsets, n_samples, height, width, bias, rden,
+                            intensity, i);
+    return 0;
+}
+int f3d_rect_lights(const float* p, const float* n, const float* v, int count,
+                    const float* lights, int n_lights, float* out, void*) {
+    for (int i = 0; i < count; ++i)
+        rect_lights_point(p, n, v, reinterpret_cast<const RectLight*>(lights), n_lights, out, i);
+    return 0;
+}
+int f3d_equirect_accum(const float* env, int env_h, int env_w, const float* dirs,
+                       const float* w, int samples, int texels, int mode, float* out, void*) {
+    for (int t = 0; t < texels; ++t)
+        equirect_accum_texel(env, env_h, env_w, dirs, w, samples, texels, mode, out, t);
     return 0;
 }
 // test entry: synthesize_polar's contraction for one column and row
@@ -891,6 +942,130 @@ def test_hosek_kernel(kernels):
 
 
 # ---------------------------------------------------------------------------
+# E2, the post-processing suite (csrc/post.cuh), and E1, the IBL bake
+# (csrc/ibl.cuh), against their plain versions in ops/post.py and ops/ibl.py
+# on seeded 40x52 planes and a 16x32 equirect. Gates: every element equal,
+# except where a transcendental call decides (the rect light's powf, the
+# equirect's atan2f and acosf: the host's libm and PyTorch's may differ by
+# an ulp), there every element within 1e-5 * (1 + |ref|).
+# ---------------------------------------------------------------------------
+
+
+def e2_planes(device):
+    rng = np.random.default_rng(31)
+    H, W = 40, 52
+    n = rng.standard_normal((H, W, 3)).astype(np.float32)
+    v = rng.standard_normal((H, W, 3)).astype(np.float32)
+    planes = dict(color=rng.uniform(0, 2, (H, W, 3)), hist=rng.uniform(0, 2, (H, W, 3)),
+                  depth=rng.uniform(1, 50, (H, W)), b1=rng.uniform(0, 1, (H, W, 3)),
+                  b2=rng.uniform(0, 1, (H, W, 3)), normal=n / np.linalg.norm(n, axis=-1,
+                                                                             keepdims=True),
+                  points=rng.uniform(-20, 20, (H, W, 3)),
+                  view=v / np.linalg.norm(v, axis=-1, keepdims=True))
+    return {k: torch.as_tensor(x.astype(np.float32), device=device) for k, x in planes.items()}
+
+
+def test_post_kernels(kernels):
+    from forge3d_tpu_torch.ops import post as P
+
+    q = e2_planes(kernels)
+    c, dep, nrm = q["color"], q["depth"], q["normal"]
+    before = (P.blur_axis.launches, P.post_point.launches, P.ssr.launches,
+              P.taa_resolve.launches, P.ssao.launches, P.rect_area_light_sum.launches)
+    for sigma, r in ((6.0, 18), (1.5, 5), (1.0, 2)):
+        taps = P._gauss_kernel(sigma, r)
+        for x in (c, dep):
+            for axis in (0, 1):
+                assert torch.equal(P._blur_axis_kernel(x, taps.to(kernels), r, axis),
+                                   P._blur_axis_plain(x, [float(t) for t in taps], r, axis))
+    modes = [(P.PP_BRIGHT, (c,), (0.8, 0.8)), (P.PP_BLOOM, (c, q["b1"], q["b2"]), (0.5,)),
+             (P.PP_DOF, (c, dep, q["b1"], q["b2"]), (20.0, 5.0, 6.0, 6.0, 1.0)),
+             (P.PP_DOF, (c, dep, q["b1"], q["b2"]), (20.0, 5.0, 6.0, 6.0, 0.0)),
+             (P.PP_VIGNETTE, (c,), (0.35, 0.85, float(np.float32(0.15)),
+                                    float(np.float32(np.sqrt(2))))),
+             (P.PP_SHARPEN, (c, q["b1"]), (0.3,))]
+    for mode, planes, params in modes:
+        args = list(planes) + [None] * (4 - len(planes))
+        assert torch.equal(P._point_kernel(mode, *args, params),
+                           P._point_plain(mode, *args, list(params))), mode
+    for n_ in (nrm, nrm[..., 1].contiguous()):
+        assert torch.equal(P._ssr_kernel(c, dep, n_, 2, 24, 0.5, 4.0),
+                           P._ssr_plain(c, dep, n_, 2, 24, 0.5, 4.0))
+    for clamp in (True, False):
+        assert torch.equal(P._taa_kernel(c, q["hist"], 0.1, 0.9, clamp),
+                           P._taa_plain(c, q["hist"], 0.1, 0.9, clamp))
+    taps = P.ssao_offsets(16.0, 8)
+    for n_ in (nrm, nrm[..., 2].contiguous()):
+        assert torch.equal(P._ssao_kernel(dep, n_, taps, 0.025, 4.0001, 1.0),
+                           P._ssao_plain(dep, n_, taps, 0.025, 4.0001, 1.0))
+    lights = [P.rect_light_record((1.0, 15.0, 2.0), (1.0, 0.0, 0.0), (0.0, 0.0, 1.0), (4, 3),
+                                  intensity=4.0),
+              P.rect_light_record((-6.0, 9.0, -3.0), (0.6, 0.0, 0.8), (0.0, 1.0, 0.0), (2, 5),
+                                  color=(1.0, 0.8, 0.6), roughness=0.6)]
+    pts, view = q["points"], q["view"]
+    assert close_frac(P._rect_plain(pts, nrm, view, lights),
+                      P._rect_kernel(pts, nrm, view, lights)) == 1.0
+    assert (P.blur_axis.launches, P.post_point.launches, P.ssr.launches,
+            P.taa_resolve.launches, P.ssao.launches, P.rect_area_light_sum.launches) == \
+        (before[0] + 12, before[1] + 6, before[2] + 2, before[3] + 2, before[4] + 2,
+         before[5] + 1)
+
+
+def test_ibl_kernel(kernels):
+    from forge3d_tpu_torch.ops import ibl
+
+    env = torch.as_tensor(np.random.default_rng(4).uniform(0, 3, (16, 32, 3)).astype(np.float32),
+                          device=kernels)
+    before = ibl.equirect_accum.launches
+    faces = np.stack([ibl._face_dirs(f, 8) for f in range(6)])[None]
+    (d0, _), (d1, w1) = ibl.prefilter_tables(8, 2, 16)
+    for dirs, w, mode in ((faces, None, ibl.ONE), (d0, None, ibl.ONE), (d1, w1, ibl.WEIGHTED),
+                          (ibl.irradiance_tables(4, 32), None, ibl.MEAN)):
+        d = torch.as_tensor(dirs, device=kernels)
+        wt = None if w is None else torch.as_tensor(w, device=kernels)
+        got = ibl._accum_kernel(env, d, wt, mode)
+        assert got.shape == dirs.shape[1:]
+        assert close_frac(ibl._accum_plain(env, d, wt, mode), got) == 1.0
+    assert ibl.equirect_accum.launches == before + 4
+
+
+def vt_args(device, scene_args, budget_pages):
+    """ShadeArgs with a VT atlas: a two-level store of 4x4 and 2x2 pages
+    whose tiles alternate between resident and not."""
+    import dataclasses
+
+    from forge3d_tpu_torch.terrain.vt import PAGE_SIZE
+
+    rng = np.random.default_rng(12)
+    table = np.full(16 + 4, -1, np.int32)
+    slots = rng.permutation(20)[:budget_pages]
+    table[slots] = np.arange(budget_pages, dtype=np.int32)
+    atlas = rng.uniform(0, 1, (budget_pages * PAGE_SIZE * PAGE_SIZE, 3)).astype(np.float32)
+    return dataclasses.replace(
+        scene_args, vt_atlas=torch.as_tensor(atlas, device=device),
+        vt_table=torch.as_tensor(table, device=device), vt_levels=(0, 1), vt_tiles=(4, 2),
+        vt_offs=(0, 16), vt_page=PAGE_SIZE, vt_pix_angle=float(np.float32(0.02)),
+        vt_tpw0=float(np.float32(8.0)), vt_inv_span=float(np.float32(1.0 / 64.0)))
+
+
+@pytest.mark.parametrize("aa", [1, 3])
+def test_terrain_render_kernel_with_vt(kernels, aa):
+    from forge3d_tpu_torch.terrain import renderer as rr
+
+    scene, a = r1_setup(kernels, sampling=dict(aa_samples=aa, aa_seed=5))
+    a = vt_args(kernels, a, 9)
+    got = rr._render_kernel(scene, a, want_aov=True)
+    ref = rr.render_plain(scene, a)
+    du = (ref["rgba"].int() - got["rgba"].int()).abs().amax(-1)
+    assert float((du <= 1).double().mean()) >= 0.995
+    assert_planes(ref, got, ("hdr", "albedo", "normal", "depth", "visibility"))
+    # the fallback texels are an exact count of sample 0's terrain pixels
+    assert int(got["vt_fallback"]) == int(ref["vt_fallback"]) > 0
+    hit = ~ref["depth"].isnan()
+    assert int(ref["vt_fallback"]) < int(hit.sum())   # some pages were resident
+
+
+# ---------------------------------------------------------------------------
 # The screen-mode kernels (csrc/screen.cuh): S1 env cube, S2/S3 cube
 # convolution, S4 depth raster, S8 shade with S5, S6 and S7 inside and the
 # clipmap shade S9, against their plain versions in terrain/screen.py, on a
@@ -1080,7 +1255,7 @@ def test_struct_layout_guard(host_lib, monkeypatch):
     them, and a mirror out of step is refused when the library is bound."""
     n = len(_kernels.STRUCTS)
     sizes = (ctypes.c_longlong * n)()
-    assert host_lib.f3d_struct_sizes(sizes, n) == n == 10
+    assert host_lib.f3d_struct_sizes(sizes, n) == n == 12
     assert list(sizes) == [ctypes.sizeof(s) for s in _kernels.STRUCTS]
     short = type("ShortSky", (ctypes.Structure,), {"_fields_": _kernels.SkyArgs._fields_[:-1]})
     monkeypatch.setattr(_kernels, "STRUCTS", (*_kernels.STRUCTS[:3], short,

@@ -186,12 +186,19 @@ def test_error_paths_match_jax(renderers, what):
     assert ref is not None and got == ref
 
 
-def test_unported_options_raise(renderers):
+def test_unported_options_raise(renderers, tmp_path):
     _, tr = renderers
     dem = dem65()
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tr.render_with_aov(material_set=rr.MaterialSet(vt_store={"pages": 1}),
-                           params=port_params(jax_params()), heightmap=dem)
+    # a VT store no longer raises (ROADMAP item 7 is ported): the render runs
+    # through R1's VT branch and reports the store's statistics
+    from forge3d_tpu_torch.terrain import vt as tvt
+
+    page = np.full((tvt.PAGE_SIZE, tvt.PAGE_SIZE, 4), 180, np.uint8)
+    tvt.vt_pack(tmp_path / "s.f3dvt", {("albedo", 0, x, y): page for x in (0, 1) for y in (0, 1)})
+    frame, _ = tr.render_with_aov(material_set=rr.MaterialSet(vt_store=tmp_path / "s.f3dvt"),
+                                  params=port_params(jax_params()), heightmap=dem)
+    assert frame.rgba.shape == (H, W, 4) and "vt" in tr.last_consumed_settings
+    assert tr.last_vt_stats["pages_in_store"] == 4
     with pytest.raises(NotImplementedError, match="item 13"):
         tr.render_terrain_pbr_pom(params=port_params(jax_params()), heightmap=dem,
                                   cache="store")
