@@ -157,7 +157,25 @@ Phases (one line each; any failure exits non-zero):
                 pack timed as set-up) at the default 64 MiB budget, three
                 renders (the fallback texels, the residency and R1 times),
                 R1 with the atlas against its plain version (bit for bit, the
-                fallback count equal) and timed with and without the atlas.
+                fallback count equal) and timed with and without the atlas;
+ 28. smoke kernels -- E8 step against its plain version on the card on a
+                20x24x28 domain (jacobi 0 and 20) and, stage by stage (the
+                forces, the velocity self-advection, the divergence, a
+                Jacobi sweep, the projection with the scalar advection) and
+                whole, on configuration W's 256x50x256 state, each timed (the
+                advections beside one grid_sample, a sweep beside a conv3d);
+                E8 march at 96x64 and on W's state at 1920x1080, timed;
+ 29. wildfire -- configuration W, the main path: fetch_dem("rainier")
+                (1024^2) through the Terrarium codec, TerrainRenderer's base
+                at 1080p, then 8 frames of add_emitter, step and render_rgba
+                at 1080p composited over the base, counted (E8's step
+                kernels once a frame, 20 sweeps, the march once a frame and
+                once for a 7200x7200 master of the last state), each frame
+                split by stage cold and warm, a warm step split by launch,
+                the device's busy share of two warm frames, the grids' finite
+                share and the frames' alpha coverage; the master timed
+                (kernel and readback); W's pipeline on the example's
+                24x16x24 domain on the card against the CPU's plain versions.
 
 R1 gates (phases 13-14), set to what the card showed: rgba within one u8
 step everywhere and bytes equal on R1_U8_EQ of them, float planes within
@@ -172,7 +190,20 @@ for the loops that end early (the DDA, the BVH walk), from the steps that
 this run's rays took in the plain versions. R1's operations are its rays'
 work alone (DDA steps and leaf tests): its per-pixel shading is not
 counted, so its bound is lower than the work it does. No single PyTorch call computes
-any of these functions but the E2 blur, so `library_ms` is null elsewhere.
+any of these functions but the E2 blur and E8 step's stages, so `library_ms` is null
+elsewhere.
+
+E8 gates (phases 28-29): every stage of the step and the whole step
+bit-identical to its plain version; the march within one u8 step on every
+pixel and bit-equal on SMOKE_U8_EQ of them; W's grids finite after every
+step, each frame's alpha coverage above 5%; the 24x16x24 pipeline on the
+card within FLOAT_TOL of the CPU's on FLOAT_FRAC of the voxels, its
+overlays within one u8 step everywhere and equal on U8_FRAC of the pixels.
+E8 step's rows carry `library_ms`: one F.grid_sample (trilinear, border,
+align_corners) over the fields each advection samples (three, four, and all
+seven for the whole step) and, for a sweep, one float32 F.conv3d of the
+7-point neighbour sum on the replicate-padded pressure (the whole step:
+the seven-field grid_sample plus 20 conv3d); the march has none.
 
 P6, P5, P3 and P4 gates (phases 22-24), set to what the card showed: every
 output bit-identical to the plain version (P4's HDR and rgba too).
@@ -295,6 +326,20 @@ REPLACES = {
     # R1 with the virtual-texture resolve (renderer.py:833-871) inside
     "R1 render (L, VT)": ("forge3d_tpu_torch/csrc/renderer.cu",
                           "forge3d_tpu/terrain/renderer.py:1036 (VT :833-871)"),
+    # the smoke path, csrc/smoke.cu over csrc/smoke.cuh: the jitted step
+    # (smoke.py:206, jit 269, _trilinear 87, the Jacobi fori_loop 251-255),
+    # whole and by launch, and the march (render_rgba 332, fori_loop 429)
+    "E8 step": ("forge3d_tpu_torch/csrc/smoke.cu",
+                "forge3d_tpu/smoke.py:206 (jit :269, _trilinear :87, Jacobi :251-255)"),
+    "E8 step: forces": ("forge3d_tpu_torch/csrc/smoke.cu", "forge3d_tpu/smoke.py:223-227"),
+    "E8 step: advect_velocity": ("forge3d_tpu_torch/csrc/smoke.cu",
+                                 "forge3d_tpu/smoke.py:230 (_trilinear :87)"),
+    "E8 step: divergence": ("forge3d_tpu_torch/csrc/smoke.cu", "forge3d_tpu/smoke.py:242-248"),
+    "E8 step: jacobi": ("forge3d_tpu_torch/csrc/smoke.cu", "forge3d_tpu/smoke.py:251-255"),
+    "E8 step: project_advect": ("forge3d_tpu_torch/csrc/smoke.cu",
+                                "forge3d_tpu/smoke.py:256-266 (_trilinear :87)"),
+    "E8 march": ("forge3d_tpu_torch/csrc/smoke.cu",
+                 "forge3d_tpu/smoke.py:332 (fori_loop :429, body :403-425, sun_trans :394-401)"),
 }
 
 # The card's peaks for the bounds (NVIDIA's H100 SXM data sheet).
@@ -3174,7 +3219,7 @@ SCENE_U8_FRAC = 0.995
 
 K_EYE = (0.0, 260.0, 888.0)     # bench.py's camera rebased to the centred origin
 VT_LEVELS = ((0, 32), (1, 16), (2, 8), (3, 4), (4, 2))   # L's store: 1,364 pages
-CARD = "cuda"   # the device of phases 25-27
+CARD = "cuda"   # the device of phases 25-29
 
 
 def k_scene(dem, effects: bool, width=None, height=None, grid=1024, device=None):
@@ -3568,6 +3613,419 @@ def phase_vt_render(dem):
     return (err, ms, plain_ms, bms, by), launches
 
 
+# ---------------------------------------------------------------------------
+# Phases 28-29: the wildfire-smoke path, E8 step and E8 march
+# ---------------------------------------------------------------------------
+
+# float32 operations per unit of work, counted from csrc/smoke.cuh (adds,
+# multiplies, min/max, floors and conversions; an fmaf as two, an expf as one)
+OPS_TRILINEAR = 43      # smoke_trilinear: clamps 6, floors 6, fractions 3, seven lerps of 4
+OPS_FORCES = 9          # smoke_forces_voxel
+OPS_ADVECT_VEL = 135    # the backtrace (3 fmaf) and three samples
+OPS_DIVERGENCE = 6
+OPS_JACOBI = 7          # five adds, the subtraction, the multiplication
+OPS_PROJECT = 191       # the projection 9, the backtrace 6, four samples and their keeps
+OPS_MARCH_PIXEL = 60    # the ray, the slabs, the background, Reinhard, the u8 pack
+OPS_MARCH_STEP = 184    # a step around its sun march: three samples, exp, the sums
+OPS_SUN_SAMPLE = 56     # one sun sample: the offset, to_vox, a sample, the sum
+# E8 against its plain version on the card: every stage of the step bit-
+# identical; the march within one u8 step everywhere and bit-equal on
+# SMOKE_U8_EQ of the pixels
+SMOKE_U8_EQ = 0.999
+W_SHAPE = (256, 50, 256)          # (nz, ny, nx): a 1 km HRRR-like cube at 4 m, 50 levels
+W_VOXEL = (4.0, 4.0, 4.0)
+W_EMITTER = dict(center=(512.0, 16.0, 512.0), radius=72.0, density_rate=4.0,
+                 temperature_rate=3.0)
+W_STEP = dict(dt=0.6, buoyancy=1.2, dissipation=0.02)
+W_CAM = dict(cam_origin=(512, 1040, 2160), cam_look_at=(512, 0, 512))
+W_FRAMES = 8                      # the reference's video has 240
+MASTER = 7200
+
+
+def w_density() -> np.ndarray:
+    """Configuration W's smoke cube: six Gaussian plumes (sigma 8-24 voxels)
+    decaying with height over uniform noise of amplitude 0.05, from
+    default_rng(17)."""
+    rng = np.random.default_rng(17)
+    nz, ny, nx = W_SHAPE
+    dens = 0.05 * rng.uniform(0.0, 1.0, W_SHAPE)
+    z, x = np.mgrid[0:nz, 0:nx].astype(np.float64)
+    y = np.arange(ny, dtype=np.float64)
+    for _ in range(6):
+        cz, cx = rng.uniform(0.15, 0.85, 2) * (nz, nx)
+        sigma, amp, h = rng.uniform(8.0, 24.0), rng.uniform(0.6, 1.5), rng.uniform(8.0, 20.0)
+        plume = amp * np.exp(-((z - cz) ** 2 + (x - cx) ** 2) / (2.0 * sigma * sigma))
+        dens += plume[:, None, :] * np.exp(-y / h)[None, :, None]
+    return dens.astype(np.float32)
+
+
+def smoke_state(shape, seed, device):
+    import torch
+
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.as_tensor(a.astype(np.float32), device=device)  # noqa: E731
+    return {"density": t(rng.uniform(0.0, 1.0, shape)),
+            "velocity": t(rng.normal(0.0, 2.0, (3, *shape))),
+            "temperature": t(rng.uniform(0.0, 2.0, shape)),
+            "soot": t(rng.uniform(0.0, 0.5, shape)), "emission": t(rng.uniform(0.0, 1.0, shape))}
+
+
+def compare_march(tag, ref, got):
+    """(fraction of pixels bit-equal, max u8 step); fails outside the
+    march's gate."""
+    d = (ref.int() - got.int()).abs().amax(-1)
+    eq, step = float((d == 0).double().mean()), int(d.max())
+    require(ref.shape == got.shape and step <= 1 and eq >= SMOKE_U8_EQ,
+            f"{tag}: the kernel disagrees with its plain version (pixels equal {eq:.6f}, "
+            f"max step {step})")
+    return eq, step
+
+
+def grid_sample_fields(fields, b):
+    """The library yardstick of an advection: one F.grid_sample of the
+    stacked fields (1, C, nz, ny, nx) at the backtraces b (x, y, z), trilinear,
+    border padding, align_corners=True."""
+    import torch
+    import torch.nn.functional as F
+
+    nz, ny, nx = fields.shape[1:]
+    g = torch.stack([2.0 * b[0] / (nx - 1) - 1.0, 2.0 * b[1] / (ny - 1) - 1.0,
+                     2.0 * b[2] / (nz - 1) - 1.0], -1).expand(nz, ny, nx, 3)[None]
+    return lambda: F.grid_sample(fields[None], g, mode="bilinear", padding_mode="border",
+                                 align_corners=True)
+
+
+def phase_smoke_kernels():
+    """Each E8 kernel against its plain version on the card: the five step
+    stages on a 20x24x28 domain (jacobi 0 and 20) and on W's 256x50x256 step,
+    bit for bit; the march at 96x64 and on W's state at 1920x1080. At W's
+    shapes each timed beside its plain version, the advection beside one
+    grid_sample and the sweeps beside a conv3d. Returns {row: (max |err|,
+    ms, plain ms, bound ms, bound by, library ms)}."""
+    import torch
+    import torch.nn.functional as F
+
+    from forge3d_tpu_torch.ops import smoke as O
+    from forge3d_tpu_torch.smoke import SmokeRenderSettings, SmokeStepSettings
+
+    dev = torch.device(CARD)
+    for shape, jac in (((20, 24, 28), 0), ((20, 24, 28), 20)):
+        g = smoke_state(shape, 3, dev)
+        k = O.step_consts(SmokeStepSettings(dt=0.37, buoyancy=1.3, ambient_temperature=0.2,
+                                            wind=(0.3, -0.1, 0.7), jacobi_iters=jac))
+        out = O.smoke_step(*(g[n] for n in SMOKE_GRIDS), k)
+        ref = O.smoke_step_plain(*(g[n] for n in SMOKE_GRIDS), k)
+        same = all(torch.equal(a, b) for a, b in zip(out, ref))
+        say("smoke kernels", f"E8 step {shape[2]}x{shape[1]}x{shape[0]}, jacobi {jac}: "
+                             f"bit-identical {same}")
+        require(same, f"E8 step at {shape}, jacobi {jac}, disagrees with its plain version")
+
+    # W's step at full size: the state after an emitter and two steps
+    dom = w_domain(dev)
+    em = w_emitter()
+    sset = SmokeStepSettings(**W_STEP)
+    for _ in range(2):
+        dom.add_emitter(em, sset.dt)
+        dom.step(sset)
+    k = O.step_consts(sset)
+    g = {n: getattr(dom, n) for n in SMOKE_GRIDS}
+    nvox = dom.nx * dom.ny * dom.nz
+    res = {}
+
+    def stage(name, kern, plain, nbytes, ops, lib=None):
+        got = kern()
+        plain_ms, ref = wall_ms(plain)
+        got, ref = (got if isinstance(got, tuple) else (got,)), (
+            ref if isinstance(ref, tuple) else (ref,))
+        same = all(torch.equal(a, b) for a, b in zip(got, ref))
+        require(same, f"{name} at W's shapes disagrees with its plain version")
+        err = max(max_abs(a, b) for a, b in zip(ref, got))
+        ms = cuda_ms(kern, 10)
+        bms, by = bound(nbytes, ops)
+        lib_ms = cuda_ms(lib, 5) if lib is not None else None
+        res[name] = (err, ms, plain_ms, bms, by, lib_ms)
+        say("smoke kernels", f"{name} {dom.nx}x{dom.ny}x{dom.nz}: bit-identical {same}; kernel "
+                             f"{ms:.4f} ms, plain {plain_ms:.1f} ms, bound {bms:.4f} ms ({by})"
+                             + (f", library {lib_ms:.4f} ms" if lib_ms is not None else ""))
+        return got
+
+    (vf,) = stage("E8 step: forces", lambda: O._forces_kernel(g["velocity"], g["temperature"], k),
+                  lambda: O._forces_plain(g["velocity"], g["temperature"], k), nvox * 28,
+                  nvox * OPS_FORCES)
+    xs, ys, zs = O._axes(W_SHAPE, dev)
+    bvel = (xs - k.dt * vf[0], ys - k.dt * vf[1], zs - k.dt * vf[2])
+    (va,) = stage("E8 step: advect_velocity", lambda: O._advect_velocity_kernel(vf, k),
+                  lambda: O._advect_velocity_plain(vf, k), nvox * 24, nvox * OPS_ADVECT_VEL,
+                  grid_sample_fields(vf, bvel))
+    (div,) = stage("E8 step: divergence", lambda: O._divergence_kernel(va),
+                   lambda: O._divergence_plain(va), nvox * 16, nvox * OPS_DIVERGENCE)
+    p1 = O._jacobi_kernel(None, div, k)
+    w7 = torch.zeros((1, 1, 3, 3, 3), device=dev)
+    for z, y, x in ((0, 1, 1), (2, 1, 1), (1, 0, 1), (1, 2, 1), (1, 1, 0), (1, 1, 2)):
+        w7[0, 0, z, y, x] = 1.0
+    ppad = F.pad(p1[None, None], (1, 1, 1, 1, 1, 1), mode="replicate")
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    (p2,) = stage("E8 step: jacobi", lambda: O._jacobi_kernel(p1, div, k),
+                  lambda: O._jacobi_plain(p1, div, k), nvox * 12, nvox * OPS_JACOBI,
+                  lambda: F.conv3d(ppad, w7))
+    conv_err = max_abs(O._jacobi_plain(p1, div, k),
+                       (F.conv3d(ppad, w7)[0, 0] - div) * k.sixth)
+    torch.backends.cudnn.allow_tf32 = tf32
+    pa_args = (va, p2, g["density"], g["temperature"], g["soot"], g["emission"], k)
+    xs_, ys_, zs_ = (xs - k.dt * va[0], ys - k.dt * va[1], zs - k.dt * va[2])
+    scalars = torch.stack([g["density"], g["temperature"], g["soot"], g["emission"]])
+    stage("E8 step: project_advect", lambda: O._project_advect_kernel(*pa_args),
+          lambda: O._project_advect_plain(*pa_args), nvox * 60, nvox * OPS_PROJECT,
+          grid_sample_fields(scalars, (xs_, ys_, zs_)))
+    # the library's advection of all seven fields against the plain advection
+    seven = torch.cat([vf, scalars])
+    gs7 = grid_sample_fields(seven, bvel)
+    gs7_ms = cuda_ms(gs7, 5)
+    gs_err = max_abs(O._advect_velocity_plain(vf, k), gs7()[0, :3])
+    # the whole step
+    step_args = tuple(g[n] for n in SMOKE_GRIDS)
+    out = O.smoke_step(*step_args, k)
+    plain_ms, ref = wall_ms(lambda: O.smoke_step_plain(*step_args, k))
+    require(all(torch.equal(a, b) for a, b in zip(out, ref)),
+            "E8 step at W's shapes disagrees with its plain version")
+    ms = cuda_ms(lambda: O.smoke_step(*step_args, k), 5)
+    ops = nvox * (OPS_FORCES + OPS_ADVECT_VEL + OPS_DIVERGENCE + k.jacobi * OPS_JACOBI
+                  + OPS_PROJECT)
+    bms, by = bound(nvox * 56, ops)
+    conv_ms = res["E8 step: jacobi"][5]
+    res["E8 step"] = (0.0, ms, plain_ms, bms, by, gs7_ms + k.jacobi * conv_ms)
+    say("smoke kernels", f"E8 step {dom.nx}x{dom.ny}x{dom.nz}, {4 + k.jacobi} launches: "
+                         f"bit-identical; kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, bound "
+                         f"{bms:.4f} ms ({by}); library: grid_sample of the 7 fields "
+                         f"{gs7_ms:.4f} ms (max |d| {gs_err:.3e} from the plain velocity "
+                         f"advection) + {k.jacobi} conv3d {conv_ms:.4f} ms each (max |d| "
+                         f"{conv_err:.3e} from a sweep)")
+
+    # the march: test scale, then W at 1080p
+    small = O.march_setup((20, 24, 28), (2.0, 1.5, 3.0), (-5.0, 1.0, 2.0), 96, 64,
+                          SmokeRenderSettings(), (16.0, 22.0, 110.0), (23.0, 19.0, 32.0), 45.0)
+    gs = smoke_state((20, 24, 28), 5, dev)
+    eq, step = compare_march("E8 march 96x64",
+                             O.smoke_march_plain(gs["density"], gs["emission"], gs["soot"], small),
+                             O._march_kernel(gs["density"], gs["emission"], gs["soot"], small))
+    say("smoke kernels", f"E8 march 96x64: pixels equal {eq:.6f}, max step {step}")
+    rs = SmokeRenderSettings()
+    m = O.march_setup(W_SHAPE, W_VOXEL, (0.0, 0.0, 0.0), REAL_W, REAL_H, rs,
+                      W_CAM["cam_origin"], W_CAM["cam_look_at"], 45.0)
+    dens, emis, soot = dom.density, dom.emission, dom.soot
+    got = O._march_kernel(dens, emis, soot, m)
+    plain_ms, ref = wall_ms(lambda: O.smoke_march_plain(dens, emis, soot, m))
+    eq, step = compare_march(f"E8 march {REAL_W}x{REAL_H}", ref, got)
+    ms = cuda_ms(lambda: O._march_kernel(dens, emis, soot, m), 5)
+    npx = REAL_W * REAL_H
+    bms, by = bound(tensor_bytes(dens, emis, soot) + npx * 4,
+                    npx * (OPS_MARCH_PIXEL + rs.step_count * (OPS_MARCH_STEP
+                                                              + rs.sun_steps * OPS_SUN_SAMPLE)))
+    res["E8 march"] = (float(step), ms, plain_ms, bms, by, None)
+    say("smoke kernels", f"E8 march {REAL_W}x{REAL_H} on W's state ({rs.step_count} steps, "
+                         f"{rs.sun_steps} sun steps): pixels equal {eq:.6f}, max step {step}; "
+                         f"kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, bound {bms:.4f} ms "
+                         f"({by}); no library call: no single PyTorch call marches emission and "
+                         f"absorption with a sun march at every step")
+    return res
+
+
+SMOKE_GRIDS = ("density", "velocity", "temperature", "soot", "emission")
+
+
+def w_domain(device):
+    from forge3d_tpu_torch.smoke import AtmosphericSmokeCube
+
+    return AtmosphericSmokeCube(w_density(), voxel_size=W_VOXEL, source="seeded plumes",
+                                vertical_levels=tuple(range(W_SHAPE[1]))).to_domain(
+        device=device)
+
+
+def w_emitter():
+    from forge3d_tpu_torch.smoke import SmokeEmitter
+
+    return SmokeEmitter(**W_EMITTER)
+
+
+def composite(base, overlay):
+    """examples/wildfire_smoke_frames.py:50-53."""
+    a = overlay[..., 3:4].astype(np.float32) / 255.0
+    frame = base.copy()
+    frame[..., :3] = (base[..., :3] * (1 - a) + overlay[..., :3] * a).astype(np.uint8)
+    return frame
+
+
+def _smoke_counters():
+    from forge3d_tpu_torch.ops import smoke as O
+
+    return {"E8 step: forces": O.smoke_forces, "E8 step: advect_velocity": O.smoke_advect_velocity,
+            "E8 step: divergence": O.smoke_divergence, "E8 step: jacobi": O.smoke_jacobi,
+            "E8 step: project_advect": O.smoke_project_advect, "E8 march": O.smoke_march}
+
+
+def device_busy_ms(fn):
+    """(host ms, device kernel ms) of fn() under torch.profiler; the device
+    ms is None where the profiler saw no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        host = (time.perf_counter() - t0) * 1e3
+    total = 0.0
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) is not None and "CUDA" in str(e.device_type):
+            total += getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+    return host, (total / 1e3 if total > 0 else None)
+
+
+def phase_wildfire():
+    """Configuration W, the main path: the rainier DEM (1024^2) through the
+    Terrarium codec, TerrainRenderer's base at 1080p, then 8 frames of
+    add_emitter, step and render_rgba at 1080p composited over the base, with
+    every count set to 0 before and read after (E8's five step kernels and
+    the march must launch), the frame time split by stage cold and warm, the
+    device's busy share, the grids' finite share and the frames' alpha
+    coverage; then one 7200x7200 master of the last state, and W's pipeline
+    at 24x16x24 on the card against the CPU's plain versions. Returns the
+    launches."""
+    import os
+
+    import torch
+
+    import forge3d_tpu_torch as f3t
+    from forge3d_tpu_torch.ops import smoke as O
+    from forge3d_tpu_torch.smoke import SmokeRenderSettings, SmokeStepSettings
+    from forge3d_tpu_torch.terrain.params import make_terrain_params
+
+    data = os.path.join("build", "chip_smoke", "data")   # listed in .gitignore
+    os.environ["FORGE3D_DATA_DIR"] = data
+    dem_ms, (dem, info) = wall_ms(lambda: f3t.fetch_dem("rainier"))
+    rgb = f3t.build_terrarium_dem(dem)
+    dem = f3t.decode_terrarium_dem(rgb)
+    p = make_terrain_params(size_px=(REAL_W, REAL_H), cam_target=(512.0, 0.0, 512.0),
+                            cam_radius=1680.0, cam_theta_deg=35.0, z_scale=0.08)
+    r = f3t.TerrainRenderer(device=CARD)
+    base_ms, fr = wall_ms(lambda: r.render_terrain_pbr_pom(params=p, heightmap=dem))
+    base = fr.rgba
+    say("wildfire", f"DEM rainier {dem.shape[1]}x{dem.shape[0]} in {dem_ms:.1f} ms (generated "
+                    f"and cached: {not info['cached']}), Terrarium round trip max |d| "
+                    f"{float(np.abs(f3t.fetch_dem('rainier')[0] - dem).max()):.4f} m; base "
+                    f"{REAL_W}x{REAL_H} in {base_ms:.1f} ms, rgba std {float(base.std()):.2f}")
+    require(base.shape == (REAL_H, REAL_W, 4) and float(base[..., :3].std()) > 5.0,
+            "W's terrain base is trivial")
+
+    setup_ms, dom = wall_ms(lambda: w_domain(CARD))
+    em = w_emitter()
+    sset = SmokeStepSettings(**W_STEP)
+    rs = SmokeRenderSettings()
+    counters = _smoke_counters()
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    frames, splits = [], []
+    for i in range(W_FRAMES):
+        t = {}
+        t["emitter"], _ = wall_ms(lambda: dom.add_emitter(em, sset.dt))
+        t["step"], _ = wall_ms(lambda: dom.step(sset))
+        t["render_rgba"], overlay = wall_ms(lambda: dom.render_rgba(REAL_W, REAL_H, rs, **W_CAM))
+        t0 = time.perf_counter()
+        frames.append(composite(base, overlay))
+        t["composite"] = (time.perf_counter() - t0) * 1e3
+        t["frame"] = sum(t.values())
+        t["alpha_coverage"] = float((overlay[..., 3] > 0).mean())
+        t["finite"] = float(min(torch.isfinite(getattr(dom, n)).double().mean()
+                                for n in SMOKE_GRIDS))
+        splits.append(t)
+        say("wildfire", f"frame {i} ({'cold' if i == 0 else 'warm'}): "
+                        f"{json.dumps({k: round(v, 4) for k, v in t.items()})}")
+    master_ms, master = wall_ms(lambda: dom.render_rgba(MASTER, MASTER, rs, **W_CAM))
+    counts = {k: c.launches for k, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    say("wildfire", f"launches {json.dumps(counts)}; peak device memory {peak} B; the domain "
+                    f"{dom.nx}x{dom.ny}x{dom.nz} set up in {setup_ms:.1f} ms")
+    require(counts == {"E8 step: forces": W_FRAMES, "E8 step: advect_velocity": W_FRAMES,
+                       "E8 step: divergence": W_FRAMES, "E8 step: jacobi": 20 * W_FRAMES,
+                       "E8 step: project_advect": W_FRAMES, "E8 march": W_FRAMES + 1},
+            f"W did not run E8's kernels as its path should: {counts}")
+    require(all(t["finite"] == 1.0 for t in splits), "W's grids hold non-finite values")
+    cov = [t["alpha_coverage"] for t in splits]
+    require(all(0.05 < c for c in cov) and master.shape == (MASTER, MASTER, 4),
+            f"W's smoke does not show: alpha coverage {cov}")
+    warm = {k: float(np.mean([t[k] for t in splits[1:]])) for k in splits[0]}
+    say("wildfire", f"frame time cold {splits[0]['frame']:.2f} ms, warm mean {warm['frame']:.2f} "
+                    f"ms {json.dumps({k: round(v, 4) for k, v in warm.items()})}")
+    # render_rgba's march and readback apart, at 1080p and for the master
+    grids = (dom.density, dom.emission, dom.soot)
+    for name, (w, h), total in (("frame", (REAL_W, REAL_H), warm["render_rgba"]),
+                                ("master", (MASTER, MASTER), master_ms)):
+        m = O.march_setup(W_SHAPE, W_VOXEL, (0.0, 0.0, 0.0), w, h, rs, W_CAM["cam_origin"],
+                          W_CAM["cam_look_at"], 45.0)
+        mk = cuda_ms(lambda: O._march_kernel(*grids, m), 2)
+        out = O._march_kernel(*grids, m)
+        rb, host = wall_ms(lambda: out.cpu().numpy())
+        say("wildfire", f"{name} {w}x{h}: render_rgba {total:.2f} ms; its march kernel {mk:.3f} "
+                        f"ms, the readback of {host.nbytes} B {rb:.2f} ms"
+                        + (f"; alpha coverage {float((master[..., 3] > 0).mean()):.4f}"
+                           if name == "master" else ""))
+    # a split of one warm step by launch, and the device's busy share of two
+    # warm frames
+    k = O.step_consts(sset)
+    args = tuple(getattr(dom, n) for n in SMOKE_GRIDS)
+    vf = O._forces_kernel(args[1], args[2], k)
+    va = O._advect_velocity_kernel(vf, k)
+    div = O._divergence_kernel(va)
+    p1 = O._jacobi_kernel(None, div, k)
+    split = {"forces": cuda_ms(lambda: O._forces_kernel(args[1], args[2], k), 5),
+             "advect_velocity": cuda_ms(lambda: O._advect_velocity_kernel(vf, k), 5),
+             "divergence": cuda_ms(lambda: O._divergence_kernel(va), 5),
+             "jacobi (one sweep)": cuda_ms(lambda: O._jacobi_kernel(p1, div, k), 20),
+             "project_advect": cuda_ms(lambda: O._project_advect_kernel(va, p1, args[0],
+                                                                        args[2], args[3],
+                                                                        args[4], k), 5)}
+    say("wildfire", f"a warm step by launch (kernel ms): "
+                    f"{json.dumps({k2: round(v, 4) for k2, v in split.items()})}")
+
+    def two_frames():
+        for _ in range(2):
+            dom.add_emitter(em, sset.dt)
+            dom.step(sset)
+            composite(base, dom.render_rgba(REAL_W, REAL_H, rs, **W_CAM))
+
+    host, device = device_busy_ms(two_frames)
+    say("wildfire", f"two warm frames under the profiler: {host:.1f} ms host, device kernels "
+                    + (f"{device:.2f} ms, busy {device / host:.4f}" if device is not None else
+                       "not measured (the profiler showed no device time)"))
+    # W's pipeline at 24x16x24 (the example's domain) on the card against the CPU
+    outs = {}
+    for devname in (CARD, "cpu"):
+        d = f3t.SmokeDomain(24, 16, 24, voxel_size=(8.0, 8.0, 8.0), device=devname)
+        e = f3t.SmokeEmitter(center=(96.0, 8.0, 96.0), radius=18.0, density_rate=4.0,
+                             temperature_rate=3.0)
+        ov = []
+        for _ in range(3):
+            d.add_emitter(e, sset.dt)
+            d.step(sset)
+            ov.append(d.render_rgba(160, 100, rs, cam_origin=(128, 260, 540),
+                                    cam_look_at=(128, 0, 128)))
+        outs[devname] = (d, ov)
+    (dc, oc), (dp, op) = outs[CARD], outs["cpu"]
+    gfrac = min(close_frac(getattr(dp, n), getattr(dc, n).cpu()) for n in SMOKE_GRIDS)
+    dmax = max(int(np.abs(a.astype(int) - b.astype(int)).max()) for a, b in zip(oc, op))
+    eqf = min(float((np.abs(a.astype(int) - b.astype(int)).max(-1) == 0).mean())
+              for a, b in zip(oc, op))
+    say("wildfire", f"W's pipeline at 24x16x24, 3 frames at 160x100, card against CPU: grids "
+                    f"within tolerance {gfrac:.6f}, overlays equal on {eqf:.6f} of pixels, max "
+                    f"step {dmax}")
+    require(gfrac >= FLOAT_FRAC and dmax <= 1 and eqf >= U8_FRAC,
+            "the smoke path on the card disagrees with the CPU's plain versions")
+    return counts
+
+
 def _jax_modules():
     """JAX and every module of the JAX package: the port imports none."""
     return [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "forge3d_tpu")]
@@ -3656,6 +4114,16 @@ def main() -> int:
         if kernel == "E2 blur":
             rows[-1]["library_ms"] = blur_lib_ms
     rows.append(kernel_row("R1 render (L, VT)", vt_launches, *vt_row))
+    smoke = phase_smoke_kernels()
+    smoke_launches = phase_wildfire()
+    smoke_launches["E8 step"] = sum(v for k, v in smoke_launches.items()
+                                    if k.startswith("E8 step: "))
+    for kernel in ("E8 step", "E8 step: forces", "E8 step: advect_velocity",
+                   "E8 step: divergence", "E8 step: jacobi", "E8 step: project_advect",
+                   "E8 march"):
+        *vals, lib_ms = smoke[kernel]
+        rows.append(kernel_row(kernel, smoke_launches[kernel], *vals))
+        rows[-1]["library_ms"] = lib_ms
 
     loaded = sorted(set(_jax_modules()) - preloaded)
     require(not loaded, f"imported JAX or modules of the JAX package: {loaded}")

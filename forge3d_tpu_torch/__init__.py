@@ -15,8 +15,10 @@
 # the SDF tracer (kernel P6), the TLAS walk (P5), the hybrid tracer (P3),
 # the AEQUITAS adjudication pair (P4), PathTracer and the BRDF tiles, the
 # render-to-texture Scene with the post-processing suite (E2, ops/post.py),
-# the virtual-texture store (terrain/vt.py, resolved inside R1) and the IBL
-# bake (E1, ops/ibl.py). It
+# the virtual-texture store (terrain/vt.py, resolved inside R1), the IBL
+# bake (E1, ops/ibl.py), and the smoke domains of the wildfire path (smoke:
+# the fluid step E8 step and the volume march E8 march, ops/smoke.py) with
+# the named DEMs (datasets) and the Terrarium codec (gis/osm.py). It
 # imports torch and never jax nor any module of the JAX package, which
 # stays the reference it is tested against.
 #
@@ -75,6 +77,18 @@ _ENTRY = {
     "Scene": "scene",
     "VTStore": "terrain.vt",
     "bake_ibl": "ops.ibl",
+    "SmokeDomain": "smoke",
+    "SmokeEmitter": "smoke",
+    "SmokeStepSettings": "smoke",
+    "SmokeRenderSettings": "smoke",
+    "AtmosphericSmokeCube": "smoke",
+    "domain_from_density": "smoke",
+    "native_smoke_available": "smoke",
+    "fetch_dem": "datasets",
+    "dataset_names": "datasets",
+    "mini_dem": "datasets",
+    "build_terrarium_dem": "gis.osm",
+    "decode_terrarium_dem": "gis.osm",
 }
 
 

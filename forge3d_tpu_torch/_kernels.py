@@ -304,9 +304,19 @@ class AdjArgs(ctypes.Structure):
         (n, _F) for n in ("half_w", "half_h", "quad_w")]
 
 
+class SmokeMarchArgs(ctypes.Structure):
+    """Mirror of `SmokeMarchArgs` in csrc/smoke.cuh (E8 march)."""
+
+    _fields_ = [(n, _I) for n in ("nx", "ny", "nz", "width", "height", "steps", "sun_steps")] + [
+        (n, _F) for n in ("half_w", "half_h", "steps_f")] + [
+        (n, _F3) for n in ("right", "up", "fwd", "cam_o", "lo", "hi", "org", "rcp")] + [
+        (n, _F) for n in ("sigma_t", "sun_k", "scat_k")] + [
+        (n, _F3) for n in ("alb", "sun_c", "emis_c", "bg")]
+
+
 #: the structs whose sizes csrc/layout.cu:f3d_struct_sizes reports, in its order
 STRUCTS = (ScreenArgs, ScreenOut, ClipArgs, SkyArgs, SdfArgs, MeshArgs, TlasArgs, HybridArgs,
-           HybridOut, AdjArgs, TerrainArgs, TerrainOut)
+           HybridOut, AdjArgs, TerrainArgs, TerrainOut, SmokeMarchArgs)
 
 
 _SIGNATURES = {
@@ -407,6 +417,19 @@ _SIGNATURES = {
     "f3d_rect_lights": [_P, _P, _P, _I, _P, _I, _P, _P],
     # E1: (env, env_h, env_w, dirs, weights, samples, texels, mode, out, stream)
     "f3d_equirect_accum": [_P, _I, _I, _P, _P, _I, _I, _I, _P, _P],
+    # E8 step: (vel, temp, vf, n, dtb, amb, w0, w1, w2, kdamp, stream)
+    "f3d_smoke_forces": [_P, _P, _P, ctypes.c_longlong] + [_F] * 6 + [_P],
+    # (vf, va, nx, ny, nz, dt, forms, stream)
+    "f3d_smoke_advect_velocity": [_P, _P, _I, _I, _I, _F, _I, _P],
+    # (va, div, nx, ny, nz, stream)
+    "f3d_smoke_divergence": [_P, _P, _I, _I, _I, _P],
+    # (p or null, div, p_out, nx, ny, nz, sixth, stream)
+    "f3d_smoke_jacobi": [_P, _P, _P, _I, _I, _I, _F, _P],
+    # (va, p or null, dens, temp, soot, emis, vel_out, dens_out, temp_out,
+    #  soot_out, emis_out, nx, ny, nz, dt, keep, keep2, stream)
+    "f3d_smoke_project_advect": [_P] * 11 + [_I, _I, _I, _F, _F, _F, _P],
+    # E8 march: (args, dens, emis, soot, sun_off, rgba, stream)
+    "f3d_smoke_march": [ctypes.POINTER(SmokeMarchArgs)] + [_P] * 6,
 }
 
 

@@ -1,9 +1,9 @@
 # forge3d_tpu_torch/buildings.py
 # A host copy of forge3d_tpu/buildings.py for the PyTorch port (footprint
-# extrusion and CityJSON; the OSM and CityGML importers are not copied): the
-# port imports no module of the JAX package, so it keeps its own copy, held
-# against the original by tests/test_torch_host_copies.py. The original's
-# notes follow.
+# extrusion, CityJSON and the OSM GeoJSON importer; the CityGML importer is
+# not copied): the port imports no module of the JAX package, so it keeps
+# its own copy, held against the original by tests/test_torch_host_copies.py.
+# The original's notes follow.
 #
 # Building importers: footprint extrusion, CityJSON (LOD1/LOD2), OSM
 # (GeoJSON building features).
@@ -18,6 +18,7 @@
 from __future__ import annotations
 
 import json
+import math
 from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -27,7 +28,8 @@ import numpy as np
 from .geometry import extrude_polygon
 from .io.mesh import MeshData, merge_meshes
 
-__all__ = ["Building", "extrude_footprints", "load_cityjson", "buildings_to_mesh"]
+__all__ = ["Building", "extrude_footprints", "load_cityjson", "parse_osm_buildings",
+           "buildings_to_mesh"]
 
 _DEFAULT_LEVEL_HEIGHT_M = 3.0
 
@@ -170,3 +172,76 @@ def _plane_basis(n: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     u = np.cross(n, a)
     u /= np.linalg.norm(u)
     return u, np.cross(n, u)
+
+
+# ---------------------------------------------------------------------------
+# OSM buildings from GeoJSON (reference src/import/osm_buildings.rs derives
+# heights from height= / building:levels= tags with a 3 m/level default).
+
+
+def _osm_height(props: dict) -> float:
+    for key in ("height", "building:height"):
+        hv = props.get(key)
+        if hv is not None:
+            try:
+                return float(str(hv).replace("m", "").strip())
+            except ValueError:
+                pass
+    lv = props.get("building:levels", props.get("levels"))
+    if lv is not None:
+        try:
+            return float(lv) * _DEFAULT_LEVEL_HEIGHT_M
+        except ValueError:
+            pass
+    return 2.0 * _DEFAULT_LEVEL_HEIGHT_M
+
+
+def parse_osm_buildings(geojson, *, origin: Optional[Tuple[float, float]] = None
+                        ) -> List[Building]:
+    """Parse GeoJSON building features into local-meter Buildings.
+
+    `origin=(lon, lat)` anchors the local tangent plane; default = centroid
+    of all footprints. Equirectangular local projection (adequate at city
+    scale; for large extents reproject with geo.crs first).
+    """
+    if isinstance(geojson, (str, Path)):
+        geojson = json.loads(Path(geojson).read_text())
+    feats = geojson.get("features", [])
+    polys = []
+    for f in feats:
+        geom = f.get("geometry") or {}
+        props = f.get("properties") or {}
+        if "building" not in props and "height" not in props \
+                and "building:levels" not in props:
+            continue
+        gtype = geom.get("type")
+        if gtype == "Polygon":
+            polys.append((geom["coordinates"], props, f.get("id", "")))
+        elif gtype == "MultiPolygon":
+            for part in geom["coordinates"]:
+                polys.append((part, props, f.get("id", "")))
+    if not polys:
+        raise ValueError("no building polygons in GeoJSON")
+
+    if origin is None:
+        all_pts = np.concatenate([np.asarray(p[0][0], np.float64)[:, :2]
+                                  for p in polys])
+        origin = (float(all_pts[:, 0].mean()), float(all_pts[:, 1].mean()))
+    lon0, lat0 = origin
+    kx = 111320.0 * math.cos(math.radians(lat0))
+    ky = 110540.0
+
+    def to_local(ring) -> np.ndarray:
+        r = np.asarray(ring, np.float64)[:, :2]
+        return np.stack([(r[:, 0] - lon0) * kx, (lat0 - r[:, 1]) * ky], 1)
+
+    out = []
+    for i, (rings, props, fid) in enumerate(polys):
+        out.append(Building(
+            footprint=to_local(rings[0]),
+            holes=[to_local(r) for r in rings[1:]],
+            height=_osm_height(props),
+            id=str(fid or f"osm-{i}"),
+            properties=dict(props),
+        ))
+    return out

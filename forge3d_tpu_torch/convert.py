@@ -3,7 +3,8 @@
 # can feed both implementations identical scene tables, reservoir history,
 # sweep plans and sweep intermediates (rotated grid, sweep maps, polar
 # accumulator), mesh BVHs, light sets and alias tables, terrain render
-# parameters, MapScene recipes, SDF tapes, TLASes and hybrid scenes. Takes numpy arrays (or anything np.asarray accepts) and plain
+# parameters, MapScene recipes, SDF tapes, TLASes, hybrid scenes and smoke
+# domains. Takes numpy arrays (or anything np.asarray accepts) and plain
 # dicts, and never imports jax.
 
 from __future__ import annotations
@@ -209,3 +210,21 @@ def hybrid_scene_from_numpy(terrain=None, mesh=None, mesh_normals=None, sdf=None
     return HybridScene(terrain_scene=tscene, terrain_static=tscene, mesh_scene=mscene,
                        mesh_nodes=nodes, mesh_normals=normals,
                        sdf_scene=sdf_scene_from_numpy(sdf, device) if sdf is not None else None)
+
+
+def smoke_domain_from_numpy(state: dict, voxel_size, origin, time: float = 0.0,
+                            steps: int = 0, device="cpu"):
+    """A JAX SmokeDomain mid-simulation: `state` its grids by name (density,
+    velocity, temperature, soot, emission, from its to_*_numpy methods),
+    with its voxel size, origin, time and step count -> the port's
+    SmokeDomain on `device`."""
+    from .smoke import SmokeDomain
+
+    dom = SmokeDomain.from_density(state["density"], voxel_size, origin, device=device)
+    dom.set_velocity(state["velocity"])
+    dom.set_temperature(state["temperature"])
+    dom.set_soot(state["soot"])
+    dom.set_emission(state["emission"])
+    dom.time = float(time)
+    dom.steps = int(steps)
+    return dom

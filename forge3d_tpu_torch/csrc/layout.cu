@@ -7,6 +7,7 @@
 #include "adjudication.cuh"
 #include "pt.cuh"
 #include "screen.cuh"
+#include "smoke.cuh"
 #include "terrain_shade.cuh"
 
 extern "C" {
@@ -18,7 +19,8 @@ int f3d_struct_sizes(long long* out, int n) {
                                (long long)sizeof(SdfArgs),    (long long)sizeof(MeshArgs),
                                (long long)sizeof(TlasArgs),   (long long)sizeof(HybridArgs),
                                (long long)sizeof(HybridOut),  (long long)sizeof(AdjArgs),
-                               (long long)sizeof(TerrainArgs), (long long)sizeof(TerrainOut)};
+                               (long long)sizeof(TerrainArgs), (long long)sizeof(TerrainOut),
+                               (long long)sizeof(SmokeMarchArgs)};
     const int count = (int)(sizeof(sizes) / sizeof(sizes[0]));
     for (int i = 0; i < n && i < count; ++i) out[i] = sizes[i];
     return count;

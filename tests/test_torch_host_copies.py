@@ -5,8 +5,10 @@
 # basis and orbit origin bit for bit, the memory ledger's budget refusals
 # and records, a render certificate's canonical JSON, digest and Ed25519
 # signature byte for byte, terrain parameter defaults and validation, the
-# LUT and Hosek arrays, PNG bytes and PNG reads, and the screen engine's host
-# helpers (the clipmap mode's camera spelling, the sky's cooked uniforms).
+# LUT and Hosek arrays, PNG bytes and PNG reads, the screen engine's host
+# helpers (the clipmap mode's camera spelling, the sky's cooked uniforms),
+# and the wildfire path's named DEMs (datasets: heights and GeoTIFF bytes)
+# and gis/osm (the Terrarium codec, the OSM parse, query and scene split).
 import inspect
 
 import numpy as np
@@ -633,3 +635,74 @@ def test_iter_tiles_equal(size):
     from forge3d_tpu_torch.pt import path_tracer as tpt
 
     assert list(tpt.iter_tiles(*size)) == list(jpt.iter_tiles(*size))
+
+
+@pytest.mark.parametrize("name,size", [("mini", None), ("rainier", 129)])
+def test_fetch_dem_equal(tmp_path, monkeypatch, name, size):
+    """The named DEM registry: the same heights and GeoTIFF bytes, each side
+    writing its own cache under FORGE3D_DATA_DIR, then the cached read."""
+    from forge3d_tpu import datasets as jd
+
+    from forge3d_tpu_torch import datasets as td
+
+    out = {}
+    for tag, mod in (("jax", jd), ("port", td)):
+        monkeypatch.setenv("FORGE3D_DATA_DIR", str(tmp_path / tag))
+        dem, info = mod.fetch_dem(name, size=size)
+        again, info2 = mod.fetch_dem(name, size=size)
+        assert not info["cached"] and info2["cached"]
+        np.testing.assert_array_equal(dem, again)
+        out[tag] = (dem, info, (tmp_path / tag / f"{name}_{info['size']}.tif").read_bytes(),
+                    mod.dem_spacing(info))
+    (a, ia, fa, sa), (b, ib, fb, sb) = out["jax"], out["port"]
+    assert a.dtype == b.dtype == np.float32 and np.array_equal(a, b)
+    assert fa == fb and sa == sb
+    assert {k: v for k, v in ia.items() if k != "path"} == {
+        k: v for k, v in ib.items() if k != "path"}
+    assert jd.dataset_names() == td.dataset_names()
+    assert jd.dataset_info(name) == td.dataset_info(name)
+    if name == "mini":
+        np.testing.assert_array_equal(jd.mini_dem(), td.mini_dem())
+    for mod in (jd, td):
+        with pytest.raises(KeyError, match="unknown dataset"):
+            mod.dataset_info("atlantis")
+
+
+OVERPASS = {"elements": [
+    {"type": "node", "id": 1, "lon": -122.40, "lat": 37.79},
+    {"type": "node", "id": 2, "lon": -122.399, "lat": 37.79},
+    {"type": "node", "id": 3, "lon": -122.399, "lat": 37.791},
+    {"type": "node", "id": 4, "lon": -122.40, "lat": 37.791},
+    {"type": "node", "id": 5, "lon": -122.398, "lat": 37.792, "tags": {"amenity": "cafe"}},
+    {"type": "way", "id": 10, "nodes": [1, 2, 3, 4, 1], "tags": {"building": "yes",
+                                                                  "building:levels": "4"}},
+    {"type": "way", "id": 11, "nodes": [1, 3, 5], "tags": {"highway": "residential"}},
+    {"type": "way", "id": 12, "nodes": [2, 3, 4, 2], "tags": {"natural": "water"}},
+]}
+
+
+def test_osm_and_terrarium_equal():
+    from forge3d_tpu.gis import osm as jo
+
+    from forge3d_tpu_torch.gis import osm as to
+
+    dem = np.random.default_rng(2).normal(800.0, 300.0, (37, 29)).astype(np.float32)
+    dem[0, :3] = (-40000.0, 40000.0, 0.0)   # both clip ends of the code
+    rgb = jo.build_terrarium_dem(dem)
+    assert rgb.dtype == np.uint8 and np.array_equal(rgb, to.build_terrarium_dem(dem))
+    np.testing.assert_array_equal(jo.decode_terrarium_dem(rgb), to.decode_terrarium_dem(rgb))
+    coll = jo.parse_osm_features(OVERPASS)
+    assert coll == to.parse_osm_features(OVERPASS)
+    q = dict(tags={"highway": None}, geometry_type="LineString", bbox=(-123, 37, -122, 38))
+    assert jo.query_osm_features(coll, **q) == to.query_osm_features(coll, **q)
+    a, b = jo.prepare_osm_scene(coll), to.prepare_osm_scene(coll)
+    ma, mb = a.pop("buildings_mesh"), b.pop("buildings_mesh")
+    assert a == b and a["building_count"] == 1
+    _mesh_equal(ma, mb)
+    for mod in (jo, to):
+        with pytest.raises(mod.OsmError, match="non-finite"):
+            mod.build_terrarium_dem(np.array([[np.nan]]))
+        with pytest.raises(mod.OsmError, match="terrarium RGB"):
+            mod.decode_terrarium_dem(np.zeros((4, 4)))
+        with pytest.raises(mod.OsmError, match="not an Overpass"):
+            mod.parse_osm_features({"foo": 1})

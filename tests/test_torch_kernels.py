@@ -49,6 +49,7 @@ HOST_LAUNCHERS = r"""
 #include "pt.cuh"
 #include "adjudication.cuh"
 #include "ibl.cuh"
+#include "smoke.cuh"
 #include <vector>
 extern "C" {
 int f3d_trace(const SceneArgs* s, const float* rox, const float* roy, const float* roz,
@@ -270,9 +271,10 @@ int f3d_struct_sizes(long long* out, int n) {
                                (long long)sizeof(SdfArgs), (long long)sizeof(MeshArgs),
                                (long long)sizeof(TlasArgs), (long long)sizeof(HybridArgs),
                                (long long)sizeof(HybridOut), (long long)sizeof(AdjArgs),
-                               (long long)sizeof(TerrainArgs), (long long)sizeof(TerrainOut)};
-    for (int i = 0; i < n && i < 12; ++i) out[i] = sizes[i];
-    return 12;
+                               (long long)sizeof(TerrainArgs), (long long)sizeof(TerrainOut),
+                               (long long)sizeof(SmokeMarchArgs)};
+    for (int i = 0; i < n && i < 13; ++i) out[i] = sizes[i];
+    return 13;
 }
 // P6, P5, P3 and P4 one point, ray or pixel at a time
 int f3d_sdf_eval(const SdfArgs* s, const float* px, const float* py, const float* pz, int n,
@@ -379,6 +381,46 @@ int f3d_equirect_accum(const float* env, int env_h, int env_w, const float* dirs
                        const float* w, int samples, int texels, int mode, float* out, void*) {
     for (int t = 0; t < texels; ++t)
         equirect_accum_texel(env, env_h, env_w, dirs, w, samples, texels, mode, out, t);
+    return 0;
+}
+// E8 one voxel or pixel at a time
+int f3d_smoke_forces(const float* vel, const float* temp, float* vf, long long n, float dtb,
+                     float amb, float w0, float w1, float w2, float kdamp, void*) {
+    for (long long i = 0; i < n; ++i)
+        smoke_forces_voxel(vel, temp, vf, n, dtb, amb, w0, w1, w2, kdamp, i);
+    return 0;
+}
+int f3d_smoke_advect_velocity(const float* vf, float* va, int nx, int ny, int nz, float dt,
+                              int forms, void*) {
+    for (long long i = 0; i < (long long)nx * ny * nz; ++i)
+        smoke_advect_velocity_voxel(vf, va, nx, ny, nz, dt, forms, i);
+    return 0;
+}
+int f3d_smoke_divergence(const float* va, float* div, int nx, int ny, int nz, void*) {
+    for (long long i = 0; i < (long long)nx * ny * nz; ++i)
+        div[i] = smoke_divergence_voxel(va, nx, ny, nz, i);
+    return 0;
+}
+int f3d_smoke_jacobi(const float* p, const float* div, float* p_out, int nx, int ny, int nz,
+                     float sixth, void*) {
+    for (long long i = 0; i < (long long)nx * ny * nz; ++i)
+        p_out[i] = smoke_jacobi_voxel(p, div, nx, ny, nz, sixth, i);
+    return 0;
+}
+int f3d_smoke_project_advect(const float* va, const float* p, const float* dens,
+                             const float* temp, const float* soot, const float* emis,
+                             float* vel_out, float* dens_out, float* temp_out, float* soot_out,
+                             float* emis_out, int nx, int ny, int nz, float dt, float keep,
+                             float keep2, void*) {
+    for (long long i = 0; i < (long long)nx * ny * nz; ++i)
+        smoke_project_advect_voxel(va, p, dens, temp, soot, emis, vel_out, dens_out, temp_out,
+                                   soot_out, emis_out, nx, ny, nz, dt, keep, keep2, i);
+    return 0;
+}
+int f3d_smoke_march(const SmokeMarchArgs* a, const float* dens, const float* emis,
+                    const float* soot, const float* sun_off, unsigned char* rgba, void*) {
+    for (long long i = 0; i < (long long)a->width * a->height; ++i)
+        smoke_march_pixel(*a, dens, emis, soot, sun_off, rgba, i);
     return 0;
 }
 // test entry: synthesize_polar's contraction for one column and row
@@ -1255,7 +1297,7 @@ def test_struct_layout_guard(host_lib, monkeypatch):
     them, and a mirror out of step is refused when the library is bound."""
     n = len(_kernels.STRUCTS)
     sizes = (ctypes.c_longlong * n)()
-    assert host_lib.f3d_struct_sizes(sizes, n) == n == 12
+    assert host_lib.f3d_struct_sizes(sizes, n) == n == 13
     assert list(sizes) == [ctypes.sizeof(s) for s in _kernels.STRUCTS]
     short = type("ShortSky", (ctypes.Structure,), {"_fields_": _kernels.SkyArgs._fields_[:-1]})
     monkeypatch.setattr(_kernels, "STRUCTS", (*_kernels.STRUCTS[:3], short,
@@ -1473,3 +1515,72 @@ def test_adjudication_kernels(kernels):
     assert close_frac(qp, qk) >= 0.99
     assert float(((pk.int() - pp.int()).abs() <= 1).all(-1).double().mean()) >= 0.99
     assert (adj.raster_lane.launches, adj.pt_lane.launches) == (before[0] + 1, before[1] + 1)
+
+
+# E8: each stage of the step and the march against its plain version
+def smoke_case(device, jacobi):
+    from forge3d_tpu_torch.ops import smoke as O
+
+    shape = (12, 10, 14)
+    rng = np.random.default_rng(41)
+    t = lambda a: torch.as_tensor(a.astype(np.float32), device=device)  # noqa: E731
+    grids = dict(density=t(rng.uniform(0.0, 1.0, shape)),
+                 velocity=t(rng.normal(0.0, 1.5, (3, *shape))),
+                 temperature=t(rng.uniform(0.0, 2.0, shape)), soot=t(rng.uniform(0.0, 0.5, shape)),
+                 emission=t(rng.uniform(0.0, 1.0, shape)))
+    from forge3d_tpu_torch.smoke import SmokeStepSettings
+
+    k = O.step_consts(SmokeStepSettings(dt=0.4, buoyancy=1.3, ambient_temperature=0.1,
+                                        wind=(0.2, 0.0, -0.3), jacobi_iters=jacobi))
+    return O, grids, k
+
+
+@pytest.mark.parametrize("jacobi", [0, 6])
+def test_smoke_step_kernels(kernels, jacobi):
+    O, g, k = smoke_case(kernels, jacobi)
+    before = [f.launches for f in (O.smoke_forces, O.smoke_advect_velocity, O.smoke_divergence,
+                                   O.smoke_jacobi, O.smoke_project_advect)]
+    vf = O._forces_kernel(g["velocity"], g["temperature"], k)
+    assert torch.equal(vf, O._forces_plain(g["velocity"], g["temperature"], k))
+    va = O._advect_velocity_kernel(vf, k)
+    assert torch.equal(va, O._advect_velocity_plain(vf, k))
+    div = O._divergence_kernel(va)
+    assert torch.equal(div, O._divergence_plain(va))
+    p = None
+    for _ in range(jacobi):
+        got = O._jacobi_kernel(p, div, k)
+        assert torch.equal(got, O._jacobi_plain(p, div, k))
+        p = got
+    args = (va, p, g["density"], g["temperature"], g["soot"], g["emission"], k)
+    for a, b in zip(O._project_advect_kernel(*args), O._project_advect_plain(*args)):
+        assert torch.equal(a, b)
+    # the whole step through the wrappers on the kernels' device
+    out = O.smoke_step(g["density"], g["velocity"], g["temperature"], g["soot"], g["emission"], k)
+    ref = O.smoke_step_plain(g["density"], g["velocity"], g["temperature"], g["soot"],
+                             g["emission"], k)
+    assert all(torch.equal(a, b) for a, b in zip(out, ref))
+    after = [f.launches for f in (O.smoke_forces, O.smoke_advect_velocity, O.smoke_divergence,
+                                  O.smoke_jacobi, O.smoke_project_advect)]
+    # the stages' launches above, and the step's on the card (CPU tensors run
+    # the plain versions)
+    step = [1, 1, int(jacobi > 0), jacobi, 1] if kernels.type == "cuda" else [0] * 5
+    assert [a - b for a, b in zip(after, before)] == [
+        1 + step[0], 1 + step[1], 1 + step[2], jacobi + step[3], 1 + step[4]]
+
+
+def test_smoke_march_kernel(kernels):
+    O, g, _ = smoke_case(kernels, 0)
+    from forge3d_tpu_torch.smoke import SmokeRenderSettings
+
+    m = O.march_setup((12, 10, 14), (2.0, 1.5, 3.0), (-1.0, 0.5, 2.0), 40, 30,
+                      SmokeRenderSettings(step_count=24, sun_steps=5), (14.0, 12.0, 90.0),
+                      (13.0, 7.0, 20.0), 45.0)
+    before = O.smoke_march.launches
+    got = O._march_kernel(g["density"], g["emission"], g["soot"], m)
+    ref = O.smoke_march_plain(g["density"], g["emission"], g["soot"], m)
+    assert O.smoke_march.launches == before + 1
+    assert got.dtype == torch.uint8 and got.shape == ref.shape == (30, 40, 4)
+    d = (got.int() - ref.int()).abs().amax(-1)
+    # the host build's expf is glibc's, the plain version's torch.exp SLEEF's
+    assert int(d.max()) <= 1 and float((d == 0).double().mean()) >= 0.999
+    assert float((ref[..., 3] > 0).double().mean()) > 0.1   # the box covers part of the frame

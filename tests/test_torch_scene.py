@@ -127,7 +127,16 @@ SETTER_ERRORS = [
 
 
 @pytest.mark.parametrize("case", [c[0] for c in SETTER_ERRORS])
-def test_setter_errors_match_jax(case):
+def test_setter_errors_match_jax(case, monkeypatch):
+    # the unknown-colormap message lists the registered maps: both sides see
+    # the built-in maps alone, whatever another test in this process
+    # registered with either package
+    from forge3d_tpu import colormaps as jcm
+
+    from forge3d_tpu_torch import colormaps as tcm
+
+    for mod in (jcm, tcm):
+        monkeypatch.setattr(mod, "_RUNTIME", {})
     fn = dict(SETTER_ERRORS)[case]
     if case in ("size", "grid", "colormap"):
         ref, got = _error(lambda: fn(JScene)), _error(lambda: fn(TScene))
