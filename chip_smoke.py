@@ -159,7 +159,7 @@ Phases (one line each; any failure exits non-zero):
                 R1 with the atlas against its plain version (bit for bit, the
                 fallback count equal) and timed with and without the atlas;
  28. smoke kernels -- E8 step against its plain version on the card on a
-                20x24x28 domain (jacobi 0 and 20) and, stage by stage (the
+                20x24x28 domain (jacobi 0, 1 and 20) and, stage by stage (the
                 forces, the velocity self-advection, the divergence, a
                 Jacobi sweep, the projection with the scalar advection) and
                 whole, on configuration W's 256x50x256 state, each timed (the
@@ -175,7 +175,43 @@ Phases (one line each; any failure exits non-zero):
                 the device's busy share of two warm frames, the grids' finite
                 share and the frames' alpha coverage; the master timed
                 (kernel and readback); W's pipeline on the example's
-                24x16x24 domain on the card against the CPU's plain versions.
+                24x16x24 domain on the card against the CPU's plain versions;
+ 30. leaf kernels -- each kernel of csrc/leaf.cu against its plain version
+                on the card at its users' sizes, and timed: E9 (each DD op
+                on dd_selftest's 1,000,000 pairs, bit for bit; timed at 2^24
+                pairs), E5 Preetham (bench.py's 1080p camera directions,
+                most below the horizon), E6 (bench.py's 1080p G-buffer
+                points and normals under six lights, without and with the
+                R2 jitter), E7 octa_encode and octa_decode (the 1080p camera
+                directions, a zero and the axes at octa_res 8 and 16, their
+                bins and every bin), E7 (a cache over bench.py's DEM, 32^2
+                cells at octa_res 8 and 16: record of 2,073,600 records, one a 1080p
+                pixel with its hit's xz, the sun's direction and a rendered
+                frame's luminance, bit for bit and against a second run,
+                index_add_ timed beside it; then sample of 2,073,600
+                queries); then the slice's main path, counted: dd_selftest,
+                dd_harness for each op, dd_jitter_demo, sky_environment_map
+                at 2048x1024, eval_lights, GuidingCache create, record and
+                sample at both resolutions, octa_encode of the camera
+                directions and octa_decode of their bins, and
+                validate_csm_peter_panning over bench.py's DEM at 128
+                samples (the dict equal to the CPU's) and 1,000,000. The
+                phase's kernel times are the device's alone (queued_ms:
+                the launches wait behind a spinning kernel, so the host's
+                set-up between them is hidden);
+ 31. daycycle -- examples/daycycle_shadows_torch.py's three hours (the
+                ephemeris, then a 96x72 sweep render each, K1-K4 counted)
+                on the card against the same on the CPU.
+
+Leaf gates (phase 30), set to what the card showed: E9's (hi, lo), E7
+octa_encode's bins (a zero direction in bin 0), octa_decode's directions, E7
+record's histogram and E7 sample's bins and pdf bit-identical to the plain
+versions (and E7 record to a second run); E5 Preetham, E6 and E7 sample's
+directions every element bit-identical too (the kernel and the plain
+version share the card's expf, acosf, cosf and sinf); dd_selftest's report
+ok; the CSM probe's dict at 128 samples equal to the CPU port's. Daycycle
+gate (phase 31): rgba within one u8 step of the CPU's on U8_FRAC of the
+pixels.
 
 R1 gates (phases 13-14), set to what the card showed: rgba within one u8
 step everywhere and bytes equal on R1_U8_EQ of them, float planes within
@@ -190,8 +226,8 @@ for the loops that end early (the DDA, the BVH walk), from the steps that
 this run's rays took in the plain versions. R1's operations are its rays'
 work alone (DDA steps and leaf tests): its per-pixel shading is not
 counted, so its bound is lower than the work it does. No single PyTorch call computes
-any of these functions but the E2 blur and E8 step's stages, so `library_ms` is null
-elsewhere.
+any of these functions but the E2 blur, E8 step's stages and E7 record (index_add_, whose
+sums depend on the order its atomics land), so `library_ms` is null elsewhere.
 
 E8 gates (phases 28-29): every stage of the step and the whole step
 bit-identical to its plain version; the march within one u8 step on every
@@ -340,6 +376,20 @@ REPLACES = {
                                 "forge3d_tpu/smoke.py:256-266 (_trilinear :87)"),
     "E8 march": ("forge3d_tpu_torch/csrc/smoke.cu",
                  "forge3d_tpu/smoke.py:332 (fori_loop :429, body :403-425, sun_trans :394-401)"),
+    # the leaf modules, csrc/leaf.cu over csrc/leaf.cuh
+    "E9 dd_add": ("forge3d_tpu_torch/csrc/leaf.cu", "forge3d_tpu/precision.py:79 (two_sum :42)"),
+    "E9 dd_mul": ("forge3d_tpu_torch/csrc/leaf.cu",
+                  "forge3d_tpu/precision.py:86 (two_prod :58, _split :50)"),
+    "E9 dd_div": ("forge3d_tpu_torch/csrc/leaf.cu", "forge3d_tpu/precision.py:93"),
+    "E9 dd_sqrt": ("forge3d_tpu_torch/csrc/leaf.cu", "forge3d_tpu/precision.py:104"),
+    "E5 Preetham": ("forge3d_tpu_torch/csrc/leaf.cu", "forge3d_tpu/sky.py:101 (_perez :94)"),
+    "E6 eval_lights": ("forge3d_tpu_torch/csrc/leaf.cu", "forge3d_tpu/lighting.py:102"),
+    "E7 record": ("forge3d_tpu_torch/csrc/leaf.cu",
+                  "forge3d_tpu/guiding.py:82 (octa_encode :26, _cell_of :75)"),
+    "E7 sample": ("forge3d_tpu_torch/csrc/leaf.cu",
+                  "forge3d_tpu/guiding.py:92 (octa_decode :43)"),
+    "E7 octa_encode": ("forge3d_tpu_torch/csrc/leaf.cu", "forge3d_tpu/guiding.py:26"),
+    "E7 octa_decode": ("forge3d_tpu_torch/csrc/leaf.cu", "forge3d_tpu/guiding.py:43"),
 }
 
 # The card's peaks for the bounds (NVIDIA's H100 SXM data sheet).
@@ -412,6 +462,36 @@ def cuda_ms(fn, reps: int) -> float:
         fn()
     end.record()
     torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def queued_ms(fn, reps: int) -> float:
+    """Mean device time of fn() over `reps` launches, after one warm call,
+    with the launches queued behind a spinning kernel so that the host's
+    work between them (argument set-up, the launch itself) is hidden: the
+    events time the device alone. If the spin ended before the host had
+    queued every launch, it is doubled and the run repeated; after three
+    doublings the last run's time stands, host gaps and all, and is said
+    so."""
+    import torch
+
+    warm_ms = wall_ms(fn)[0]
+    cycles = int(max(warm_ms, 0.05) * reps * 4e6)      # ~2x the calls' wall time at 2 GHz
+    for _ in range(4):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        hidden = not start.query()
+        torch.cuda.synchronize()
+        if hidden:
+            break
+        cycles *= 2
+    else:
+        say("timing", "queued_ms: the host's work was not hidden; the time includes it")
     return start.elapsed_time(end) / reps
 
 
@@ -3697,7 +3777,7 @@ def grid_sample_fields(fields, b):
 
 def phase_smoke_kernels():
     """Each E8 kernel against its plain version on the card: the five step
-    stages on a 20x24x28 domain (jacobi 0 and 20) and on W's 256x50x256 step,
+    stages on a 20x24x28 domain (jacobi 0, 1 and 20) and on W's 256x50x256 step,
     bit for bit; the march at 96x64 and on W's state at 1920x1080. At W's
     shapes each timed beside its plain version, the advection beside one
     grid_sample and the sweeps beside a conv3d. Returns {row: (max |err|,
@@ -3709,7 +3789,7 @@ def phase_smoke_kernels():
     from forge3d_tpu_torch.smoke import SmokeRenderSettings, SmokeStepSettings
 
     dev = torch.device(CARD)
-    for shape, jac in (((20, 24, 28), 0), ((20, 24, 28), 20)):
+    for shape, jac in (((20, 24, 28), 0), ((20, 24, 28), 1), ((20, 24, 28), 20)):
         g = smoke_state(shape, 3, dev)
         k = O.step_consts(SmokeStepSettings(dt=0.37, buoyancy=1.3, ambient_temperature=0.2,
                                             wind=(0.3, -0.1, 0.7), jacobi_iters=jac))
@@ -4026,6 +4106,307 @@ def phase_wildfire():
     return counts
 
 
+# float32 operations per element, counted from csrc/leaf.cuh (a division, a
+# square root and a libm call each count one)
+OPS_DD = {"add": 14, "mul": 27, "div": 36, "sqrt": 39}   # dd_op, per pair
+OPS_PREETHAM = 92       # preetham_texel: three Perez channels, xyY -> sRGB
+OPS_EVAL_LIGHT = 35     # eval_lights_point, per point and light (15-45 by type)
+OPS_GUIDE_KEY = 36      # guide_key: the cell and octa_encode, and the bin's add
+OPS_GUIDE_BIN = 4       # xla_row_sum + xla_cdf_count, per query and bin
+OPS_GUIDE_QUERY = 60    # guide_sample_query besides its bins: decode, pdf, jitter
+OPS_OCTA_ENCODE = 22    # octa_encode_dir: the L1 norm, two divisions, the fold, two bins
+OPS_OCTA_DECODE = 26    # octa_decode_bin: the bin centre, the fold, the norm, three divisions
+LEAF_GRID = 32          # the guiding cache's cells a side over bench.py's DEM
+
+
+def _leaf_counters():
+    from forge3d_tpu_torch import guiding, lighting, precision, sky
+    from forge3d_tpu_torch.ops import traversal as tv
+
+    return {"E9 dd_add": precision.dd_add, "E9 dd_mul": precision.dd_mul,
+            "E9 dd_div": precision.dd_div, "E9 dd_sqrt": precision.dd_sqrt,
+            "E5 Preetham": sky.sky_radiance, "E6 eval_lights": lighting.eval_lights,
+            "E7 record": guiding.GuidingCache.record, "E7 sample": guiding.GuidingCache.sample,
+            "E7 octa_encode": guiding.octa_encode, "E7 octa_decode": guiding.octa_decode,
+            "K5 trace": tv.trace}
+
+
+def leaf_frame(dem, dev):
+    """bench.py's 1080p camera over its DEM: the camera directions, the
+    center G-buffer's hit points and normals (K5 + K8), the sun's direction
+    and the luminance of two per-ray frames (K6, K7), as (H, W) planes."""
+    import torch
+
+    from forge3d_tpu_torch.ops import restir as rst
+    from forge3d_tpu_torch.pt import terrain_ref as tr
+
+    ctx = setup(dem, REAL_W, REAL_H, BENCH_CAM, dev, spp=1)
+    gb = tr.center_gbuffer(ctx)
+    o, d = tr._center_rays(ctx)
+    t = torch.where(torch.isfinite(gb["depth"]), gb["depth"], 10.0)
+    p = torch.stack([o[k] + t * d[k] for k in range(3)], -1).contiguous()
+    acc = torch.zeros((REAL_H, REAL_W, 4), device=dev)
+    wf = torch.zeros((REAL_H, REAL_W, 2), device=dev)
+    res = rst.Reservoirs.zeros(REAL_W * REAL_H, dev)
+    for fi in range(2):
+        acc, wf, m = tr.frame_step(ctx, acc, wf, res, fi)
+        res = rst.spatial_reuse(m, *gb["gb_n"], REAL_W, REAL_H, fi, ctx.seed_hi)
+    mean = acc[..., :3] / acc[..., 3:4]
+    lum = (0.2126 * mean[..., 0] + 0.7152 * mean[..., 1] + 0.0722 * mean[..., 2]).contiguous()
+    return dict(dirs=[c.contiguous() for c in d], p=p, n=gb["normal"].contiguous(),
+                sun=tuple(float(c) for c in ctx.sun), lum=lum)
+
+
+def phase_leaf_kernels(dem):
+    """Phase 30: each leaf kernel against its plain version on the card at
+    its users' sizes, timed; then the slice's main path, counted. Returns
+    {row: (max |err|, ms, plain ms, bound ms, bound by, library ms)} and the
+    main path's launches."""
+    import torch
+
+    import forge3d_tpu_torch as f3t
+    from forge3d_tpu_torch import guiding as gd
+    from forge3d_tpu_torch import lighting as lt
+    from forge3d_tpu_torch import precision as pr
+    from forge3d_tpu_torch import shadows as sh
+    from forge3d_tpu_torch import sky
+
+    dev = torch.device(CARD)
+    res = {}
+
+    def same(name, kern, plain):
+        """(max |err|, plain ms, the kernel's outputs): the kernel against
+        its plain version, every element bit-identical, the plain timed"""
+        got = kern()
+        plain_ms, ref = wall_ms(plain)
+        got, ref = (got if isinstance(got, tuple) else (got,)), (
+            ref if isinstance(ref, tuple) else (ref,))
+        ok = all(torch.equal(a, b) for a, b in zip(ref, got))
+        require(ok, f"{name} disagrees with its plain version on the card")
+        return max(max_abs(a, b) for a, b in zip(ref, got)), plain_ms, got
+
+    def timed(name, kern, plain_ms, nbytes, ops, reps, err, lib=None, note=""):
+        ms = queued_ms(kern, reps)
+        bms, by = bound(nbytes, ops)
+        lib_ms = queued_ms(lib, reps) if lib is not None else None
+        res[name] = (err, ms, plain_ms, bms, by, lib_ms)
+        say("leaf kernels", f"{name}: bit-identical; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                            f"bound {bms:.4f} ms ({by}, {bms / ms:.1%} of it)"
+                            + (f", library {lib_ms:.4f} ms{note}" if lib is not None else ""))
+
+    # E9 on dd_selftest's pairs, bit for bit; timed at 2^24 pairs
+    rng = np.random.default_rng(0)
+    a64 = rng.uniform(-1e3, 1e3, 1_000_000)
+    b64 = rng.uniform(-1e3, 1e3, 1_000_000)
+    b64 = np.where(np.abs(b64) < 1e-3, 1.0, b64)
+    a, b = pr.dd_from_f64(a64), pr.dd_from_f64(b64)
+    sq = pr.dd_from_f64(np.abs(a64))
+    for op in ("add", "mul", "div", "sqrt"):
+        args = (sq,) if op == "sqrt" else (a, b)
+        same(f"E9 dd_{op} (1,000,000 pairs)", lambda: pr._dd_kernel(op, *args),
+             lambda: pr.PLAIN[op](*args))
+    big = 1 << 24
+    r = np.random.default_rng(1)
+    x24 = r.uniform(-1e3, 1e3, (3, big))
+    a24 = pr.dd_from_f64(x24[0])
+    b24 = pr.dd_from_f64(np.where(np.abs(x24[1]) < 1e-3, 1.0, x24[1]))
+    s24 = pr.dd_from_f64(np.abs(x24[2]))
+    for op in ("add", "mul", "div", "sqrt"):
+        args = (s24,) if op == "sqrt" else (a24, b24)
+        err, plain_ms, _ = same(f"E9 dd_{op} (2^24 pairs)", lambda: pr._dd_kernel(op, *args),
+                                lambda: pr.PLAIN[op](*args))
+        timed(f"E9 dd_{op}", lambda: pr._dd_kernel(op, *args), plain_ms,
+              big * (8 * len(args) + 8), big * OPS_DD[op], 20, err)
+
+    # E5 Preetham over bench.py's 1080p camera directions
+    frame = leaf_frame(dem, dev)
+    below = float((frame["dirs"][1] < 0).double().mean())
+    psky = sky.make_sky(135.0, 35.0, turbidity=3.0)
+    err, plain_ms, _ = same("E5 Preetham (1080p camera directions)",
+                            lambda: sky._preetham_kernel(psky, *frame["dirs"]),
+                            lambda: sky.sky_radiance_plain(psky, *frame["dirs"]))
+    n = REAL_W * REAL_H
+    pargs = sky._preetham_args(psky)       # the host's scalar set-up, once
+    timed("E5 Preetham", lambda: sky._preetham_kernel(psky, *frame["dirs"], args=pargs),
+          plain_ms, n * 24, n * OPS_PREETHAM, 20, err)
+    say("leaf kernels", f"E5 Preetham through its wrapper, the host's set-up each call: "
+                        f"{cuda_ms(lambda: sky._preetham_kernel(psky, *frame['dirs']), 20):.4f} ms")
+    say("leaf kernels", f"E5 Preetham: {below:.4f} of the 1080p directions below the horizon")
+
+    # E6 at the 1080p G-buffer with six lights, without and with the R2 jitter
+    lights = lt.LightBuffer.from_lights(list(six_lights(512.0, 512.0, 150.0, 128.0)))
+    rows = lights.leaf_rows()
+    u = torch.as_tensor(lt.r2_sequence(n).reshape(REAL_H, REAL_W, 2), device=dev)
+    for uu, tag in ((None, "no jitter"), (u, "R2 jitter")):
+        err, plain_ms, _ = same(f"E6 eval_lights ({tag})",
+                                lambda: lt._eval_lights_kernel(rows, frame["p"], frame["n"], uu),
+                                lambda: lt.eval_lights_plain(rows, frame["p"], frame["n"], uu))
+    rows_dev = torch.as_tensor(rows, device=dev)   # the lights' rows on the card, once
+    timed("E6 eval_lights", lambda: lt._eval_lights_kernel(rows_dev, frame["p"], frame["n"], u),
+          plain_ms, n * 44, n * len(rows) * OPS_EVAL_LIGHT, 20, err)
+
+    # E7 octa_encode over the 1080p camera directions (below the horizon
+    # too) and a zero direction, octa_decode over their bins and every bin
+    edge = torch.tensor([[0.0, 0.0, 0.0], [0.0, 1.0, 0.0], [0.0, -1.0, 0.0], [1.0, 0.0, 0.0],
+                         [-1.0, 0.0, 0.0], [0.0, 0.0, -1.0], [-0.0, -0.0, -0.0]], device=dev)
+    for res_o in (8, 16):
+        err_e, plain_e, (cam_bins,) = same(
+            f"E7 octa_encode (octa_res {res_o}, 1080p camera directions)",
+            lambda: gd._octa_encode_kernel(*frame["dirs"], res_o),
+            lambda: gd._octa_encode_plain(*frame["dirs"], res_o))
+        _, _, (edge_bins,) = same(f"E7 octa_encode (octa_res {res_o}, zero and axis directions)",
+                                  lambda: gd._octa_encode_kernel(*edge.T, res_o),
+                                  lambda: gd._octa_encode_plain(*edge.T, res_o))
+        require(int(edge_bins[0]) == 0, "E7 octa_encode: a zero direction is not bin 0")
+        err_d, plain_d, _ = same(f"E7 octa_decode (octa_res {res_o}, the camera's bins)",
+                                 lambda: gd._octa_decode_kernel(cam_bins, res_o),
+                                 lambda: gd._octa_decode_plain(cam_bins, res_o))
+        every = torch.arange(res_o * res_o, device=dev)
+        same(f"E7 octa_decode (octa_res {res_o}, every bin)",
+             lambda: gd._octa_decode_kernel(every, res_o),
+             lambda: gd._octa_decode_plain(every, res_o))
+        say("leaf kernels", f"E7 octa_res {res_o}: the camera's directions fill "
+                            f"{int(torch.unique(cam_bins).numel())} of {res_o * res_o} bins")
+        if res_o == 8:
+            timed("E7 octa_encode", lambda: gd._octa_encode_kernel(*frame["dirs"], res_o),
+                  plain_e, n * 16, n * OPS_OCTA_ENCODE, 20, err_e)
+            timed("E7 octa_decode", lambda: gd._octa_decode_kernel(cam_bins, res_o),
+                  plain_d, n * 16, n * OPS_OCTA_DECODE, 20, err_d)
+
+    # E7: record a 1080p frame's records, sample as many queries
+    px, pz = frame["p"][..., 0].contiguous(), frame["p"][..., 2].contiguous()
+    sd = [torch.full_like(px, c) for c in frame["sun"]]
+    q = np.random.default_rng(2).random((2, REAL_H, REAL_W), dtype=np.float32)
+    u1, u2 = (torch.as_tensor(c, device=dev) for c in q)
+    for res_o in (8, 16):
+        cache = gd.GuidingCache.create((0.0, 0.0), (1024.0, 1024.0), cells=LEAF_GRID,
+                                       octa_res=res_o)
+        flat = (cache._cell_of(px, pz) * res_o * res_o
+                + gd._octa_encode_plain(*sd, res_o)).reshape(-1)
+        lum_flat = frame["lum"].reshape(-1)
+        err, plain_r, (rec,) = same(
+            f"E7 record (octa_res {res_o})",
+            lambda: gd._record_kernel(cache, px, pz, *sd, frame["lum"]),
+            lambda: gd.record_plain(cache.hist, flat, lum_flat))
+        require(torch.equal(rec, gd._record_kernel(cache, px, pz, *sd, frame["lum"])),
+                f"E7 record (octa_res {res_o}) differs between two runs on the card")
+        runs = torch.bincount(flat)
+        filled = cache._replace(hist=rec)
+        err_s, plain_s, _ = same(f"E7 sample (octa_res {res_o})",
+                                 lambda: gd._sample_kernel(filled, px, pz, u1, u2),
+                                 lambda: gd.sample_plain(filled, px, pz, u1, u2))
+        say("leaf kernels", f"E7 octa_res {res_o}: {int((runs > 0).sum())} bins touched, the "
+                            f"longest run {int(runs.max())} records")
+        if res_o == 8:
+            hb = rec.numel() * 4
+            idx = flat.to(torch.int64)
+            timed("E7 record", lambda: gd._record_kernel(cache, px, pz, *sd, frame["lum"]),
+                  plain_r, n * 24 + 2 * hb, n * OPS_GUIDE_KEY, 10, err,
+                  lib=lambda: cache.hist.reshape(-1).clone().index_add_(0, idx, lum_flat),
+                  note=" (index_add_: its sums depend on the order its atomics land)")
+            B = res_o * res_o
+            timed("E7 sample", lambda: gd._sample_kernel(filled, px, pz, u1, u2), plain_s,
+                  n * 32 + hb, n * (OPS_GUIDE_BIN * B + OPS_GUIDE_QUERY), 10, err_s)
+        else:
+            ms_r = queued_ms(lambda: gd._record_kernel(cache, px, pz, *sd, frame["lum"]), 10)
+            ms_s = queued_ms(lambda: gd._sample_kernel(filled, px, pz, u1, u2), 10)
+            say("leaf kernels", f"E7 at octa_res 16: record and sample bit-identical; record "
+                                f"{ms_r:.4f} ms, sample {ms_s:.4f} ms")
+
+    # the slice's main path, every count set to 0 just before
+    counters = _leaf_counters()
+    for w in counters.values():
+        w.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    report = f3t.dd_selftest()
+    harness = [f3t.dd_harness(op, a64[:256], None if op == "sqrt" else b64[:256])
+               for op in ("add", "mul", "div")] + [f3t.dd_harness("sqrt", np.abs(a64[:256]))]
+    jitter = f3t.dd_jitter_demo()
+    env = sky.sky_environment_map(psky, 2048, 1024)
+    rad = sky.sky_radiance(psky, *frame["dirs"])
+    irr = [lt.eval_lights(lights, frame["p"], frame["n"]),
+           lt.eval_lights(lights, frame["p"], frame["n"], u=u)]
+    samples = {}
+    for res_o in (8, 16):
+        c = gd.GuidingCache.create((0.0, 0.0), (1024.0, 1024.0), cells=LEAF_GRID, octa_res=res_o)
+        c = c.record(px, pz, *sd, frame["lum"])
+        samples[res_o] = (c.stats(), c.sample(px, pz, u1, u2))
+    bins = gd.octa_encode(*frame["dirs"], 8)
+    dirs = gd.octa_decode(bins, 8)
+    sh.set_csm_light_direction(-0.5, -0.8, -0.3)
+    probe = f3t.validate_csm_peter_panning(dem)
+    probe_1m = f3t.validate_csm_peter_panning(dem, samples=1_000_000)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in counters.items()}
+    say("leaf kernels", f"main path {dt:.3f} s, launches {json.dumps(launches)}")
+    require(all(v > 0 for v in launches.values()), f"a leaf kernel never launched: {launches}")
+    require(report["ok"] and all(report[k]["ok"] for k in ("add", "mul", "div", "sqrt")),
+            f"dd_selftest's bounds are not met on the card: {report}")
+    say("leaf kernels", "dd_selftest (1,000,000 pairs) " + json.dumps(
+        {k: report[k]["max_err_u2"] for k in ("add", "mul", "div", "sqrt")}) + " u^2, ok; "
+        f"dd_harness max |err| {[h['max_abs_err'] for h in harness]}; dd_jitter_demo "
+        f"{json.dumps(jitter)}")
+    require(jitter["dd_max_err"] < jitter["f32_max_err"], "dd_jitter_demo: DD is no better")
+    require(env.shape == (1024, 2048, 3) and np.isfinite(env).all() and env.min() >= 0,
+            "sky_environment_map is not finite and non-negative")
+    require(all(torch.isfinite(c).all() for c in rad + tuple(irr)),
+            "sky_radiance or eval_lights is not finite")
+    for res_o, (st, smp) in samples.items():
+        require(all(torch.isfinite(c).all() for c in smp) and bool((smp[3] > 0).all()),
+                f"GuidingCache.sample (octa_res {res_o}) is not finite and positive")
+        say("leaf kernels", f"guiding octa_res {res_o}: {json.dumps(st)}")
+    require(dirs.shape == (REAL_H, REAL_W, 3) and bool(torch.isfinite(dirs).all())
+            and bool(((dirs.norm(dim=-1) - 1.0).abs() < 1e-5).all())
+            and float((dirs * torch.nn.functional.normalize(torch.stack(frame["dirs"], -1),
+                                                            dim=-1)).sum(-1).min()) > 0.85,
+            "octa_decode of the camera directions' bins is not near them")
+    cpu_probe = sh.validate_csm_peter_panning(dem, device="cpu")
+    require(probe == cpu_probe, f"the CSM probe on the card {probe} != on the CPU {cpu_probe}")
+    say("leaf kernels", f"CSM probe at 128 samples equal to the CPU's: {json.dumps(probe)}; at "
+                        f"1,000,000: {json.dumps(probe_1m)}")
+    return res, launches
+
+
+def phase_daycycle():
+    """Phase 31: examples/daycycle_shadows_torch.py's three hours on the
+    card, counted, against the same hours on the CPU."""
+    import importlib.util
+    import pathlib
+
+    import torch
+
+    path = pathlib.Path(__file__).resolve().parent / "examples" / "daycycle_shadows_torch.py"
+    spec = importlib.util.spec_from_file_location("daycycle_shadows_torch", path)
+    day = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(day)
+    counters = _sweep_counters()
+    for w in counters.values():
+        w.launches = 0
+    card_ms, card = wall_ms(lambda: day.render_hours("cuda"))
+    launches = {k: w.launches for k, w in counters.items()}
+    t0 = time.perf_counter()
+    cpu = day.render_hours("cpu")
+    cpu_s = time.perf_counter() - t0
+    say("daycycle", f"three hours on the card {card_ms:.1f} ms (launches {json.dumps(launches)}), "
+                    f"on the CPU {cpu_s:.2f} s")
+    require(all(v > 0 for v in launches.values()), f"a sweep kernel never launched: {launches}")
+    for h, (az, el, rgba) in card.items():
+        ref = cpu[h][2]
+        require((az, el) == cpu[h][:2], f"hour {h}: the sun differs between the runs")
+        if rgba is None:
+            require(ref is None, f"hour {h}: rendered on one device only")
+            continue
+        frac, eq, dmax = _u8_agree(ref, rgba)
+        say("daycycle", f"hour {h}: sun az {az:.3f} el {el:.3f}, rgba within one step of the "
+                        f"CPU's on {frac:.6f} of the pixels (equal on {eq:.6f}, max step "
+                        f"{dmax}), std {float(rgba[..., :3].std()):.3f}")
+        require(frac >= U8_FRAC, f"hour {h}: the card's render differs from the CPU's ({frac})")
+        require(float(rgba[..., :3].std()) > 5.0, f"hour {h}: the render is trivial")
+    return launches
+
+
 def _jax_modules():
     """JAX and every module of the JAX package: the port imports none."""
     return [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "forge3d_tpu")]
@@ -4124,6 +4505,15 @@ def main() -> int:
         *vals, lib_ms = smoke[kernel]
         rows.append(kernel_row(kernel, smoke_launches[kernel], *vals))
         rows[-1]["library_ms"] = lib_ms
+
+    leaf, leaf_launches = phase_leaf_kernels(dem)
+    for kernel in ("E9 dd_add", "E9 dd_mul", "E9 dd_div", "E9 dd_sqrt", "E5 Preetham",
+                   "E6 eval_lights", "E7 octa_encode", "E7 octa_decode", "E7 record",
+                   "E7 sample"):
+        *vals, lib_ms = leaf[kernel]
+        rows.append(kernel_row(kernel, leaf_launches[kernel], *vals))
+        rows[-1]["library_ms"] = lib_ms
+    phase_daycycle()
 
     loaded = sorted(set(_jax_modules()) - preloaded)
     require(not loaded, f"imported JAX or modules of the JAX package: {loaded}")

@@ -18,9 +18,13 @@
 # the virtual-texture store (terrain/vt.py, resolved inside R1), the IBL
 # bake (E1, ops/ibl.py), and the smoke domains of the wildfire path (smoke:
 # the fluid step E8 step and the volume march E8 march, ops/smoke.py) with
-# the named DEMs (datasets) and the Terrarium codec (gis/osm.py). It
-# imports torch and never jax nor any module of the JAX package, which
-# stays the reference it is tested against.
+# the named DEMs (datasets) and the Terrarium codec (gis/osm.py), and the
+# leaf modules with kernels of their own (csrc/leaf.cu): the Preetham sky
+# (sky, E5 Preetham), eval_lights (lighting, E6), the path-guiding cache
+# (guiding, E7) and double-float arithmetic (precision, E9), with the CSM
+# shadow state (shadows, over K5) and the ephemeris (astro). It imports
+# torch and never jax nor any module of the JAX package, which stays the
+# reference it is tested against.
 #
 # Entry points load lazily, so `import forge3d_tpu_torch` is cheap and
 # builds nothing: the kernels are compiled at their first CUDA launch.
@@ -89,12 +93,28 @@ _ENTRY = {
     "mini_dem": "datasets",
     "build_terrarium_dem": "gis.osm",
     "decode_terrarium_dem": "gis.osm",
+    "dd_selftest": "precision",
+    "dd_harness": "precision",
+    "dd_jitter_demo": "precision",
+    "configure_csm": "shadows",
+    "set_csm_enabled": "shadows",
+    "set_csm_light_direction": "shadows",
+    "set_csm_pcf_kernel": "shadows",
+    "set_csm_bias_params": "shadows",
+    "set_csm_debug_mode": "shadows",
+    "get_csm_cascade_info": "shadows",
+    "validate_csm_peter_panning": "shadows",
 }
+
+# modules the JAX package resolves by name at its top level
+_MODULES = ("sky", "guiding", "precision", "shadows")
 
 
 def __getattr__(name):
-    if name in _ENTRY:
+    if name in _ENTRY or name in _MODULES:
         import importlib
 
+        if name in _MODULES:
+            return importlib.import_module(f".{name}", __name__)
         return getattr(importlib.import_module(f".{_ENTRY[name]}", __name__), name)
     raise AttributeError(f"module 'forge3d_tpu_torch' has no attribute {name!r}")

@@ -42,6 +42,7 @@ _I = ctypes.c_int
 _U = ctypes.c_uint
 _F = ctypes.c_float
 _F3 = ctypes.c_float * 3
+_LL = ctypes.c_longlong
 
 
 class SceneArgs(ctypes.Structure):
@@ -314,9 +315,23 @@ class SmokeMarchArgs(ctypes.Structure):
         (n, _F3) for n in ("alb", "sun_c", "emis_c", "bg")]
 
 
+class PreethamArgs(ctypes.Structure):
+    """Mirror of `PreethamArgs` in csrc/leaf.cuh (E5 Preetham)."""
+
+    _fields_ = [("sun", _F3), ("perez", _F * 15), ("zenith", _F3), ("den", _F3),
+                ("exposure", _F)]
+
+
+class GuideArgs(ctypes.Structure):
+    """Mirror of `GuideArgs` in csrc/leaf.cuh (E7)."""
+
+    _fields_ = [(n, _F) for n in ("ox", "oz", "ex", "ez", "cells_f", "ang_k")] + [
+        ("cells", _I), ("res", _I)]
+
+
 #: the structs whose sizes csrc/layout.cu:f3d_struct_sizes reports, in its order
 STRUCTS = (ScreenArgs, ScreenOut, ClipArgs, SkyArgs, SdfArgs, MeshArgs, TlasArgs, HybridArgs,
-           HybridOut, AdjArgs, TerrainArgs, TerrainOut, SmokeMarchArgs)
+           HybridOut, AdjArgs, TerrainArgs, TerrainOut, SmokeMarchArgs, PreethamArgs, GuideArgs)
 
 
 _SIGNATURES = {
@@ -425,11 +440,28 @@ _SIGNATURES = {
     "f3d_smoke_divergence": [_P, _P, _I, _I, _I, _P],
     # (p or null, div, p_out, nx, ny, nz, sixth, stream)
     "f3d_smoke_jacobi": [_P, _P, _P, _I, _I, _I, _F, _P],
-    # (va, p or null, dens, temp, soot, emis, vel_out, dens_out, temp_out,
-    #  soot_out, emis_out, nx, ny, nz, dt, keep, keep2, stream)
-    "f3d_smoke_project_advect": [_P] * 11 + [_I, _I, _I, _F, _F, _F, _P],
+    # (va, p or null, div or null, dens, temp, soot, emis, vel_out, dens_out,
+    #  temp_out, soot_out, emis_out, nx, ny, nz, dt, keep, keep2, sixth, stream)
+    "f3d_smoke_project_advect": [_P] * 12 + [_I, _I, _I, _F, _F, _F, _F, _P],
     # E8 march: (args, dens, emis, soot, sun_off, rgba, stream)
     "f3d_smoke_march": [ctypes.POINTER(SmokeMarchArgs)] + [_P] * 6,
+    # E9: (op, a_hi, a_lo, b_hi, b_lo, n, hi, lo, stream)
+    "f3d_dd": [_I, _P, _P, _P, _P, _LL, _P, _P, _P],
+    # E5 Preetham: (sky, dx, dy, dz, n, rgb (3, n), stream)
+    "f3d_preetham": [ctypes.POINTER(PreethamArgs), _P, _P, _P, _LL, _P, _P],
+    # E6: (lights (L, 16), L, p, n, u or null, count, out, stream)
+    "f3d_eval_lights": [_P, _I, _P, _P, _P, _LL, _P, _P],
+    # E7: (dx, dy, dz, n, res, bins, stream); (bins, n, res, dirs (3, n), stream)
+    "f3d_octa_encode": [_P, _P, _P, _LL, _I, _P, _P],
+    "f3d_octa_decode": [_P, _LL, _I, _P, _P],
+    # (guide, px, pz, dx, dy, dz, n, keys, stream)
+    "f3d_guide_keys": [ctypes.POINTER(GuideArgs)] + [_P] * 5 + [_LL, _P, _P],
+    # (sorted keys, perm, luminance, n, seg_start, seg_end, lum_sorted, stream)
+    "f3d_guide_bounds": [_P, _P, _P, _LL, _P, _P, _P, _P],
+    # (seg_start, seg_end, lum_sorted, hist_in, bins, hist_out, stream)
+    "f3d_guide_bins": [_P, _P, _P, _P, _LL, _P, _P],
+    # (guide, hist, px, pz, u1, u2, n, out (4, n), stream)
+    "f3d_guide_sample": [ctypes.POINTER(GuideArgs)] + [_P] * 5 + [_LL, _P, _P],
 }
 
 

@@ -5,6 +5,7 @@
 // without a word).
 
 #include "adjudication.cuh"
+#include "leaf.cuh"
 #include "pt.cuh"
 #include "screen.cuh"
 #include "smoke.cuh"
@@ -20,7 +21,8 @@ int f3d_struct_sizes(long long* out, int n) {
                                (long long)sizeof(TlasArgs),   (long long)sizeof(HybridArgs),
                                (long long)sizeof(HybridOut),  (long long)sizeof(AdjArgs),
                                (long long)sizeof(TerrainArgs), (long long)sizeof(TerrainOut),
-                               (long long)sizeof(SmokeMarchArgs)};
+                               (long long)sizeof(SmokeMarchArgs), (long long)sizeof(PreethamArgs),
+                               (long long)sizeof(GuideArgs)};
     const int count = (int)(sizeof(sizes) / sizeof(sizes[0]));
     for (int i = 0; i < n && i < count; ++i) out[i] = sizes[i];
     return count;

@@ -12,7 +12,9 @@
 //                            the forces in a launch of its own;
 //   divergence_kernel        div_of (242-246);
 //   jacobi_kernel            one sweep a launch, `jacobi_iters` launches
-//                            ping-ponging two buffers (251-255);
+//                            ping-ponging two buffers (251-255); a single
+//                            sweep has no launch of its own: it runs inside
+//                            the projection, where XLA unrolls it;
 //   project_advect_kernel    the projection (256-259) fused with the four
 //                            scalar advections (262-266): each voxel
 //                            backtraces with its own projected velocity.
@@ -72,17 +74,19 @@ __global__ void jacobi_kernel(const float* __restrict__ p, const float* __restri
 }
 
 __global__ void project_advect_kernel(const float* __restrict__ va, const float* __restrict__ p,
+                                      const float* __restrict__ div,
                                       const float* __restrict__ dens,
                                       const float* __restrict__ temp,
                                       const float* __restrict__ soot,
                                       const float* __restrict__ emis, float* __restrict__ vel_out,
                                       float* __restrict__ dens_out, float* __restrict__ temp_out,
                                       float* __restrict__ soot_out, float* __restrict__ emis_out,
-                                      int nx, int ny, int nz, float dt, float keep, float keep2) {
+                                      int nx, int ny, int nz, float dt, float keep, float keep2,
+                                      float sixth) {
     const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= (long long)nx * ny * nz) return;
-    smoke_project_advect_voxel(va, p, dens, temp, soot, emis, vel_out, dens_out, temp_out,
-                               soot_out, emis_out, nx, ny, nz, dt, keep, keep2, i);
+    smoke_project_advect_voxel(va, p, div, dens, temp, soot, emis, vel_out, dens_out, temp_out,
+                               soot_out, emis_out, nx, ny, nz, dt, keep, keep2, sixth, i);
 }
 
 __global__ void march_kernel(SmokeMarchArgs a, const float* __restrict__ dens,
@@ -125,15 +129,15 @@ int f3d_smoke_jacobi(const float* p, const float* div, float* p_out, int nx, int
     return (int)cudaGetLastError();
 }
 
-int f3d_smoke_project_advect(const float* va, const float* p, const float* dens,
-                             const float* temp, const float* soot, const float* emis,
-                             float* vel_out, float* dens_out, float* temp_out, float* soot_out,
-                             float* emis_out, int nx, int ny, int nz, float dt, float keep,
-                             float keep2, void* stream) {
+int f3d_smoke_project_advect(const float* va, const float* p, const float* div,
+                             const float* dens, const float* temp, const float* soot,
+                             const float* emis, float* vel_out, float* dens_out, float* temp_out,
+                             float* soot_out, float* emis_out, int nx, int ny, int nz, float dt,
+                             float keep, float keep2, float sixth, void* stream) {
     project_advect_kernel<<<blocks((long long)nx * ny * nz), kThreads, 0,
-                            (cudaStream_t)stream>>>(va, p, dens, temp, soot, emis, vel_out,
+                            (cudaStream_t)stream>>>(va, p, div, dens, temp, soot, emis, vel_out,
                                                     dens_out, temp_out, soot_out, emis_out, nx,
-                                                    ny, nz, dt, keep, keep2);
+                                                    ny, nz, dt, keep, keep2, sixth);
     return (int)cudaGetLastError();
 }
 

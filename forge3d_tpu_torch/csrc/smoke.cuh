@@ -18,7 +18,10 @@
 // - the backtrace x - dt v is fmaf(-dt, v, x);
 // - the buoyancy dt (b (T - T0)) is fmaf(T - T0, dt b, v), dt b folded in
 //   float32; a division by a constant is a multiplication by its float32
-//   reciprocal (the Jacobi / 6 and the march's / voxel size).
+//   reciprocal (the Jacobi / 6 and the march's / voxel size);
+// - with one Jacobi sweep XLA unrolls the loop into the projection, and
+//   each difference of two neighbours' pressures keeps one of the two
+//   products by 1/6 unrounded (smoke_project_advect_voxel).
 //
 // One fault of the reference is not carried over: `_trilinear` clips to
 // n - 1.000001, which rounds to n - 1 in float32 for n >= 34, and its +1
@@ -160,23 +163,35 @@ F3D_HD float smoke_jacobi_voxel(const float* p, const float* div, int nx, int ny
 
 // the projection (256-259) and the scalar advection with dissipation
 // (262-266) of one voxel: its projected velocity, then its four scalars
-// sampled at the backtrace of that velocity; a null p (no Jacobi sweep)
-// leaves the velocity as advected
-F3D_HD void smoke_project_advect_voxel(const float* va, const float* p, const float* dens,
-                                       const float* temp, const float* soot, const float* emis,
-                                       float* vel_out, float* dens_out, float* temp_out,
-                                       float* soot_out, float* emis_out, int nx, int ny, int nz,
-                                       float dt, float keep, float keep2, long long i) {
+// sampled at the backtrace of that velocity. A non-null p is the pressure
+// after two or more sweeps. A non-null div (p null) is the step with one
+// sweep, which XLA unrolls into the projection: each neighbour's pressure
+// a s, a = 0 - div, is formed in place, and each difference of two
+// neighbours keeps one product unrounded, fmaf(-a_m, s, a_p s) along x
+// and y and fmaf(a_p, s, -(a_m s)) along z. Both null (no sweep) leave
+// the velocity as advected.
+F3D_HD void smoke_project_advect_voxel(const float* va, const float* p, const float* div,
+                                       const float* dens, const float* temp, const float* soot,
+                                       const float* emis, float* vel_out, float* dens_out,
+                                       float* temp_out, float* soot_out, float* emis_out, int nx,
+                                       int ny, int nz, float dt, float keep, float keep2,
+                                       float sixth, long long i) {
     const long long n = (long long)nx * ny * nz;
     int x, y, z;
     smoke_voxel_xyz(nx, ny, i, x, y, z);
     float v0 = va[i], v1 = va[n + i], v2 = va[2 * n + i];
+    float nb[6];
     if (p) {
-        float nb[6];
         smoke_neighbours(p, nx, ny, nz, x, y, z, nb);
         v0 = v0 + -0.5f * (nb[1] - nb[0]);
         v1 = v1 + -0.5f * (nb[3] - nb[2]);
         v2 = v2 + -0.5f * (nb[5] - nb[4]);
+    } else if (div) {
+        smoke_neighbours(div, nx, ny, nz, x, y, z, nb);
+        for (int k = 0; k < 6; ++k) nb[k] = 0.0f - nb[k];
+        v0 = v0 + -0.5f * fmaf(-nb[0], sixth, nb[1] * sixth);
+        v1 = v1 + -0.5f * fmaf(-nb[2], sixth, nb[3] * sixth);
+        v2 = v2 + -0.5f * fmaf(nb[5], sixth, -(nb[4] * sixth));
     }
     vel_out[i] = v0;
     vel_out[n + i] = v1;

@@ -245,13 +245,22 @@ def smoke_jacobi(p: Optional[torch.Tensor], div, k: StepConsts, out=None) -> tor
 smoke_jacobi.launches = 0
 
 
-def _project_advect_plain(va, p, density, temperature, soot, emission, k: StepConsts):
-    if p is None:
-        vel = va
-    else:
+def _project_advect_plain(va, p, density, temperature, soot, emission, k: StepConsts,
+                          div=None):
+    if p is not None:
         xm, xp, ym, yp, zm, zp = _neighbours(p)
         vel = torch.stack([va[0] + -0.5 * (xp - xm), va[1] + -0.5 * (yp - ym),
                            va[2] + -0.5 * (zp - zm)])
+    elif div is not None:
+        # one sweep, unrolled into the projection: p = (0 - div) / 6 formed
+        # in place, one product of each difference left unrounded
+        xm, xp, ym, yp, zm, zp = (0.0 - a for a in _neighbours(div))
+        s = k.sixth
+        vel = torch.stack([va[0] + -0.5 * fma32(-xm, s, xp * s),
+                           va[1] + -0.5 * fma32(-ym, s, yp * s),
+                           va[2] + -0.5 * fma32(zp, s, -(zm * s))])
+    else:
+        vel = va
     xs, ys, zs = _axes(density.shape, density.device)
     b = (fma32(-k.dt, vel[0], xs), fma32(-k.dt, vel[1], ys), fma32(-k.dt, vel[2], zs))
     return (trilinear_plain(density, *b, LERP_FUSED) * k.keep, vel,
@@ -260,29 +269,35 @@ def _project_advect_plain(va, p, density, temperature, soot, emission, k: StepCo
             trilinear_plain(emission, *b, LERP_FUSED) * k.keep2)
 
 
-def _project_advect_kernel(va, p, density, temperature, soot, emission, k: StepConsts):
+def _project_advect_kernel(va, p, density, temperature, soot, emission, k: StepConsts,
+                           div=None):
     _kernels.require_cuda("E8 project_advect", va, density, temperature, soot, emission,
-                          *(() if p is None else (p,)))
+                          *(t for t in (p, div) if t is not None))
     nx, ny, nz = _dims(density)
     vel = torch.empty_like(va)
     outs = [torch.empty_like(density) for _ in range(4)]
     err = _kernels.lib().f3d_smoke_project_advect(
-        _kernels.ptr(va), None if p is None else p.data_ptr(), _kernels.ptr(density),
+        _kernels.ptr(va), None if p is None else p.data_ptr(),
+        None if div is None else div.data_ptr(), _kernels.ptr(density),
         _kernels.ptr(temperature), _kernels.ptr(soot), _kernels.ptr(emission),
         _kernels.ptr(vel), *map(_kernels.ptr, outs), nx, ny, nz, k.dt, k.keep, k.keep2,
-        _kernels.stream_ptr(va.device))
+        k.sixth, _kernels.stream_ptr(va.device))
     _kernels.check(err, "E8 project_advect")
     smoke_project_advect.launches += 1
     return outs[0], vel, outs[1], outs[2], outs[3]
 
 
-def smoke_project_advect(va, p, density, temperature, soot, emission, k: StepConsts):
+def smoke_project_advect(va, p, density, temperature, soot, emission, k: StepConsts,
+                         div=None):
     """The pressure projection (smoke.py:256-259) and the advection of the
     four scalars with dissipation (262-266): (density, velocity, temperature,
-    soot, emission)."""
+    soot, emission). p is the pressure after two or more sweeps; with one
+    sweep pass p None and the divergence as `div`: the sweep runs here, in
+    the form XLA gives the unrolled loop; with neither the velocity stays as
+    advected."""
     if va.device.type == "cpu":
-        return _project_advect_plain(va, p, density, temperature, soot, emission, k)
-    return _project_advect_kernel(va, p, density, temperature, soot, emission, k)
+        return _project_advect_plain(va, p, density, temperature, soot, emission, k, div)
+    return _project_advect_kernel(va, p, density, temperature, soot, emission, k, div)
 
 
 smoke_project_advect.launches = 0
@@ -291,27 +306,30 @@ smoke_project_advect.launches = 0
 def smoke_step_plain(density, velocity, temperature, soot, emission, k: StepConsts):
     """One fluid step by the plain versions (any device)."""
     va = _advect_velocity_plain(_forces_plain(velocity, temperature, k), k)
-    p = None
+    p = div = None
     if k.jacobi:
         div = _divergence_plain(va)
-        for _ in range(k.jacobi):
+        for _ in range(k.jacobi if k.jacobi > 1 else 0):
             p = _jacobi_plain(p, div, k)
-    return _project_advect_plain(va, p, density, temperature, soot, emission, k)
+    return _project_advect_plain(va, p, density, temperature, soot, emission, k,
+                                 div if k.jacobi == 1 else None)
 
 
 def smoke_step(density, velocity, temperature, soot, emission, k: StepConsts):
     """One fluid step (`_build_step`'s program): the forces, the
     self-advection, the divergence, `jacobi_iters` sweeps and the fused
     projection and scalar advection. CPU tensors run the plain versions;
-    CUDA tensors launch 4 + jacobi_iters kernels (3 with no sweep)."""
+    CUDA tensors launch 4 + jacobi_iters kernels (3 with no sweep, 4 with
+    one: a single sweep runs inside the projection, as XLA unrolls it)."""
     va = smoke_advect_velocity(smoke_forces(velocity, temperature, k), k)
-    p = None
+    p = div = None
     if k.jacobi:
         div = smoke_divergence(va)
         bufs = (torch.empty_like(div), torch.empty_like(div)) if div.is_cuda else (None, None)
-        for i in range(k.jacobi):
+        for i in range(k.jacobi if k.jacobi > 1 else 0):
             p = smoke_jacobi(p, div, k, out=bufs[i % 2])
-    return smoke_project_advect(va, p, density, temperature, soot, emission, k)
+    return smoke_project_advect(va, p, density, temperature, soot, emission, k,
+                                div if k.jacobi == 1 else None)
 
 
 # ---------------------------------------------------------------------------

@@ -7,8 +7,10 @@
 # signature byte for byte, terrain parameter defaults and validation, the
 # LUT and Hosek arrays, PNG bytes and PNG reads, the screen engine's host
 # helpers (the clipmap mode's camera spelling, the sky's cooked uniforms),
-# and the wildfire path's named DEMs (datasets: heights and GeoTIFF bytes)
-# and gis/osm (the Terrarium codec, the OSM parse, query and scene split).
+# the wildfire path's named DEMs (datasets: heights and GeoTIFF bytes)
+# and gis/osm (the Terrarium codec, the OSM parse, query and scene split),
+# and the daycycle path's astro.py (the Meeus ephemeris behind
+# sky.sun_position_at) and shadows.py's CSM state.
 import inspect
 
 import numpy as np
@@ -706,3 +708,49 @@ def test_osm_and_terrarium_equal():
             mod.decode_terrarium_dem(np.zeros((4, 4)))
         with pytest.raises(mod.OsmError, match="not an Overpass"):
             mod.parse_osm_features({"foo": 1})
+
+
+def test_astro_sun_ephemeris_equal():
+    """julian_date, the sun's position, the alt/az conversion and
+    sun_position_at over a day of hours, value for value"""
+    from forge3d_tpu import astro as ja
+    from forge3d_tpu import sky as js
+
+    from forge3d_tpu_torch import astro as ta
+    from forge3d_tpu_torch import sky as ts
+
+    for args in ((2026, 6, 21, 20.0), (2000, 1, 1, 12.0), (2049, 12, 31, 23.5), (2025, 2, 28)):
+        assert ta.julian_date(*args) == ja.julian_date(*args)
+    for lat, lon in ((46.85, -121.76), (-33.9, 151.2), (64.1, -21.9)):
+        for h in range(24):
+            jd = 2460855.5 + h / 24.0
+            sun = ja.astro_body_position("sun", jd)
+            assert ta.astro_body_position("sun", jd) == sun
+            for refract in (True, False):
+                assert ta.equatorial_to_altaz(sun["ra_deg"], sun["dec_deg"], jd, lat, lon,
+                                              refract=refract) == ja.equatorial_to_altaz(
+                    sun["ra_deg"], sun["dec_deg"], jd, lat, lon, refract=refract)
+            assert ts.sun_position_at(jd, lat, lon) == js.sun_position_at(jd, lat, lon)
+    for mod in (ja, ta):
+        with pytest.raises(ValueError):
+            mod.astro_body_position("sun", mod.julian_date(2100, 1, 1))
+
+
+def test_csm_state_functions_equal():
+    from forge3d_tpu import shadows as jsh
+
+    from forge3d_tpu_torch import shadows as tsh
+
+    saved = (jsh.csm_state(), tsh.csm_state())
+    try:
+        for mod in (jsh, tsh):
+            mod.configure_csm(cascade_count=3, near=1.0, far=800.0, lam=0.5, pcf_kernel=7)
+            mod.set_csm_light_direction(0.3, -1.0, 0.2)
+            mod.set_csm_bias_params(2e-3, 4e-3)
+        assert tsh.csm_state() == jsh.csm_state()
+        assert tsh.get_csm_cascade_info() == jsh.get_csm_cascade_info()
+        assert tsh.cascade_splits(0.2, 300.0, 5, 0.9) == jsh.cascade_splits(0.2, 300.0, 5, 0.9)
+    finally:
+        for mod, st in zip((jsh, tsh), saved):
+            mod._STATE.clear()
+            mod._STATE.update(st)

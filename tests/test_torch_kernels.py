@@ -50,6 +50,7 @@ HOST_LAUNCHERS = r"""
 #include "adjudication.cuh"
 #include "ibl.cuh"
 #include "smoke.cuh"
+#include "leaf.cuh"
 #include <vector>
 extern "C" {
 int f3d_trace(const SceneArgs* s, const float* rox, const float* roy, const float* roz,
@@ -272,9 +273,10 @@ int f3d_struct_sizes(long long* out, int n) {
                                (long long)sizeof(TlasArgs), (long long)sizeof(HybridArgs),
                                (long long)sizeof(HybridOut), (long long)sizeof(AdjArgs),
                                (long long)sizeof(TerrainArgs), (long long)sizeof(TerrainOut),
-                               (long long)sizeof(SmokeMarchArgs)};
-    for (int i = 0; i < n && i < 13; ++i) out[i] = sizes[i];
-    return 13;
+                               (long long)sizeof(SmokeMarchArgs), (long long)sizeof(PreethamArgs),
+                               (long long)sizeof(GuideArgs)};
+    for (int i = 0; i < n && i < 15; ++i) out[i] = sizes[i];
+    return 15;
 }
 // P6, P5, P3 and P4 one point, ray or pixel at a time
 int f3d_sdf_eval(const SdfArgs* s, const float* px, const float* py, const float* pz, int n,
@@ -407,20 +409,80 @@ int f3d_smoke_jacobi(const float* p, const float* div, float* p_out, int nx, int
         p_out[i] = smoke_jacobi_voxel(p, div, nx, ny, nz, sixth, i);
     return 0;
 }
-int f3d_smoke_project_advect(const float* va, const float* p, const float* dens,
-                             const float* temp, const float* soot, const float* emis,
-                             float* vel_out, float* dens_out, float* temp_out, float* soot_out,
-                             float* emis_out, int nx, int ny, int nz, float dt, float keep,
-                             float keep2, void*) {
+int f3d_smoke_project_advect(const float* va, const float* p, const float* div,
+                             const float* dens, const float* temp, const float* soot,
+                             const float* emis, float* vel_out, float* dens_out, float* temp_out,
+                             float* soot_out, float* emis_out, int nx, int ny, int nz, float dt,
+                             float keep, float keep2, float sixth, void*) {
     for (long long i = 0; i < (long long)nx * ny * nz; ++i)
-        smoke_project_advect_voxel(va, p, dens, temp, soot, emis, vel_out, dens_out, temp_out,
-                                   soot_out, emis_out, nx, ny, nz, dt, keep, keep2, i);
+        smoke_project_advect_voxel(va, p, div, dens, temp, soot, emis, vel_out, dens_out,
+                                   temp_out, soot_out, emis_out, nx, ny, nz, dt, keep, keep2,
+                                   sixth, i);
     return 0;
 }
 int f3d_smoke_march(const SmokeMarchArgs* a, const float* dens, const float* emis,
                     const float* soot, const float* sun_off, unsigned char* rgba, void*) {
     for (long long i = 0; i < (long long)a->width * a->height; ++i)
         smoke_march_pixel(*a, dens, emis, soot, sun_off, rgba, i);
+    return 0;
+}
+// E9, E5 Preetham, E6 and E7 one element, direction, point, record, bin or
+// query at a time
+int f3d_dd(int op, const float* ahi, const float* alo, const float* bhi, const float* blo,
+           long long n, float* hi, float* lo, void*) {
+    for (long long i = 0; i < n; ++i)
+        dd_op(op, ahi[i], alo[i], op == F3D_DD_SQRT ? 0.0f : bhi[i],
+              op == F3D_DD_SQRT ? 0.0f : blo[i], hi[i], lo[i]);
+    return 0;
+}
+int f3d_preetham(const PreethamArgs* s, const float* dx, const float* dy, const float* dz,
+                 long long n, float* rgb, void*) {
+    for (long long i = 0; i < n; ++i)
+        preetham_texel(*s, dx[i], dy[i], dz[i], rgb + i, rgb + n + i, rgb + 2 * n + i);
+    return 0;
+}
+int f3d_eval_lights(const float* lights, int n_lights, const float* p, const float* n,
+                    const float* u, long long count, float* out, void*) {
+    for (long long i = 0; i < count; ++i) eval_lights_point(lights, n_lights, p, n, u, out, i);
+    return 0;
+}
+int f3d_octa_encode(const float* dx, const float* dy, const float* dz, long long n, int res,
+                    int* out, void*) {
+    for (long long i = 0; i < n; ++i) out[i] = octa_encode_dir(dx[i], dy[i], dz[i], res);
+    return 0;
+}
+int f3d_octa_decode(const int* bins, long long n, int res, float* out, void*) {
+    for (long long i = 0; i < n; ++i) {
+        float d[3];
+        octa_decode_bin(bins[i], res, d);
+        out[i] = d[0]; out[n + i] = d[1]; out[2 * n + i] = d[2];
+    }
+    return 0;
+}
+int f3d_guide_keys(const GuideArgs* g, const float* px, const float* pz, const float* dx,
+                   const float* dy, const float* dz, long long n, int* keys, void*) {
+    for (long long i = 0; i < n; ++i) keys[i] = guide_key(*g, px[i], pz[i], dx[i], dy[i], dz[i]);
+    return 0;
+}
+int f3d_guide_bounds(const int* keys, const long long* perm, const float* lum, long long n,
+                     int* seg_start, int* seg_end, float* lum_sorted, void*) {
+    for (long long s = 0; s < n; ++s)
+        guide_bounds(keys, perm, lum, n, seg_start, seg_end, lum_sorted, s);
+    return 0;
+}
+int f3d_guide_bins(const int* seg_start, const int* seg_end, const float* lum_sorted,
+                   const float* hist_in, long long bins, float* hist_out, void*) {
+    for (long long k = 0; k < bins; ++k)
+        hist_out[k] = guide_bin_sum(seg_start, seg_end, lum_sorted, hist_in, k);
+    return 0;
+}
+int f3d_guide_sample(const GuideArgs* g, const float* hist, const float* px, const float* pz,
+                     const float* u1, const float* u2, long long n, float* out, void*) {
+    for (long long i = 0; i < n; ++i) {
+        float o[4];
+        guide_sample_query(*g, hist, px[i], pz[i], u1[i], u2[i], o);
+        for (int c = 0; c < 4; ++c) out[c * n + i] = o[c];
+    }
     return 0;
 }
 // test entry: synthesize_polar's contraction for one column and row
@@ -1297,7 +1359,7 @@ def test_struct_layout_guard(host_lib, monkeypatch):
     them, and a mirror out of step is refused when the library is bound."""
     n = len(_kernels.STRUCTS)
     sizes = (ctypes.c_longlong * n)()
-    assert host_lib.f3d_struct_sizes(sizes, n) == n == 13
+    assert host_lib.f3d_struct_sizes(sizes, n) == n == 15
     assert list(sizes) == [ctypes.sizeof(s) for s in _kernels.STRUCTS]
     short = type("ShortSky", (ctypes.Structure,), {"_fields_": _kernels.SkyArgs._fields_[:-1]})
     monkeypatch.setattr(_kernels, "STRUCTS", (*_kernels.STRUCTS[:3], short,
@@ -1535,7 +1597,7 @@ def smoke_case(device, jacobi):
     return O, grids, k
 
 
-@pytest.mark.parametrize("jacobi", [0, 6])
+@pytest.mark.parametrize("jacobi", [0, 1, 6])
 def test_smoke_step_kernels(kernels, jacobi):
     O, g, k = smoke_case(kernels, jacobi)
     before = [f.launches for f in (O.smoke_forces, O.smoke_advect_velocity, O.smoke_divergence,
@@ -1554,6 +1616,10 @@ def test_smoke_step_kernels(kernels, jacobi):
     args = (va, p, g["density"], g["temperature"], g["soot"], g["emission"], k)
     for a, b in zip(O._project_advect_kernel(*args), O._project_advect_plain(*args)):
         assert torch.equal(a, b)
+    if jacobi == 1:   # the step's form: the one sweep inside the projection
+        args = (va, None, *args[2:], div)
+        for a, b in zip(O._project_advect_kernel(*args), O._project_advect_plain(*args)):
+            assert torch.equal(a, b)
     # the whole step through the wrappers on the kernels' device
     out = O.smoke_step(g["density"], g["velocity"], g["temperature"], g["soot"], g["emission"], k)
     ref = O.smoke_step_plain(g["density"], g["velocity"], g["temperature"], g["soot"],
@@ -1563,9 +1629,11 @@ def test_smoke_step_kernels(kernels, jacobi):
                                   O.smoke_jacobi, O.smoke_project_advect)]
     # the stages' launches above, and the step's on the card (CPU tensors run
     # the plain versions)
-    step = [1, 1, int(jacobi > 0), jacobi, 1] if kernels.type == "cuda" else [0] * 5
+    step = ([1, 1, int(jacobi > 0), jacobi * (jacobi > 1), 1] if kernels.type == "cuda"
+            else [0] * 5)
     assert [a - b for a, b in zip(after, before)] == [
-        1 + step[0], 1 + step[1], 1 + step[2], jacobi + step[3], 1 + step[4]]
+        1 + step[0], 1 + step[1], 1 + step[2], jacobi + step[3],
+        1 + int(jacobi == 1) + step[4]]
 
 
 def test_smoke_march_kernel(kernels):
@@ -1584,3 +1652,135 @@ def test_smoke_march_kernel(kernels):
     # the host build's expf is glibc's, the plain version's torch.exp SLEEF's
     assert int(d.max()) <= 1 and float((d == 0).double().mean()) >= 0.999
     assert float((ref[..., 3] > 0).double().mean()) > 0.1   # the box covers part of the frame
+
+
+# E9, E5 Preetham, E6 and E7: the leaf kernels (csrc/leaf.cuh) against their
+# plain versions. On the card every output is bit-equal; the host build
+# differs only where glibc's expf, acosf, cosf and sinf differ from torch's.
+def leaf_exact(kernels, ref, got):
+    """bits on the card and for the host build's arithmetic-only outputs"""
+    assert got.shape == ref.shape and torch.equal(got, ref)
+
+
+def leaf_close(kernels, ref, got):
+    assert got.shape == ref.shape
+    if kernels.type == "cuda":
+        assert torch.equal(got, ref)
+    else:
+        assert close_frac(ref, got) == 1.0
+
+
+def test_dd_kernel(kernels):
+    from forge3d_tpu_torch import precision as pr
+
+    rng = np.random.default_rng(23)
+    a64 = rng.uniform(-1e3, 1e3, 20_000) * 10.0 ** rng.integers(-5, 5, 20_000)
+    b64 = rng.uniform(-1e3, 1e3, 20_000) * 10.0 ** rng.integers(-5, 5, 20_000)
+    a64[:4] = (1.0 + 2.0 ** -30, 0.0, -4.0, 2.0 ** -31)   # exact DD, sqrt of 0, of a negative
+    a, b = pr.dd_from_f64(a64, "cpu"), pr.dd_from_f64(b64, "cpu")
+    a, b = (pr.DD(x.hi.to(kernels), x.lo.to(kernels)) for x in (a, b))
+    for op in ("add", "mul", "div", "sqrt"):
+        fn = getattr(pr, f"dd_{op}")
+        before = fn.launches
+        got = pr._dd_kernel(op, a) if op == "sqrt" else pr._dd_kernel(op, a, b)
+        ref = pr.PLAIN[op](a) if op == "sqrt" else pr.PLAIN[op](a, b)
+        assert fn.launches == before + 1
+        leaf_exact(kernels, ref.hi, got.hi)
+        leaf_exact(kernels, ref.lo, got.lo)
+        if op == "sqrt":
+            assert float(got.hi[1]) == float(got.lo[1]) == 0.0
+            assert float(got.hi[2]) == float(got.lo[2]) == 0.0
+
+
+def test_preetham_kernel(kernels):
+    from forge3d_tpu_torch import sky
+
+    rng = np.random.default_rng(29)
+    d = [torch.as_tensor(v, device=kernels)
+         for v in rng.normal(size=(3, 48, 64)).astype(np.float32)]   # below the horizon too
+    for args in ((135.0, 35.0, 3.0), (300.0, 80.0, 2.0), (20.0, 4.0, 8.0)):
+        s = sky.make_sky(args[0], args[1], turbidity=args[2])
+        before = sky.sky_radiance.launches
+        got = sky._preetham_kernel(s, *d)
+        ref = sky.sky_radiance_plain(s, *d)
+        assert sky.sky_radiance.launches == before + 1
+        for r, g in zip(ref, got):
+            leaf_close(kernels, r, g)
+
+
+def leaf_lights(kernels):
+    from forge3d_tpu_torch.lighting import Light, LightBuffer
+
+    return LightBuffer.from_lights([
+        Light(type="directional", direction=(0.3, -1.0, 0.2), intensity=2.0),
+        Light(type="point", position=(1.0, 5.0, 2.0), intensity=25.0),
+        Light(type="spot", position=(10.0, 5.0, 0.0), direction=(0.1, -1.0, 0.0),
+              intensity=25.0, inner_cone_deg=15, outer_cone_deg=25),
+        Light(type="rect", position=(0.0, 4.0, 0.0), extent=(2.0, 1.5), intensity=16.0),
+        Light(type="disk", position=(3.0, 6.0, -2.0), radius=1.5, intensity=9.0),
+        Light(type="sphere", position=(-3.0, 3.0, 2.0), radius=2.0, intensity=12.0)],
+        device="cpu")
+
+
+def test_eval_lights_kernel(kernels):
+    from forge3d_tpu_torch import lighting
+
+    rng = np.random.default_rng(31)
+    p = rng.uniform(-10.0, 10.0, (30, 40, 3)).astype(np.float32)
+    n = rng.normal(size=(30, 40, 3)).astype(np.float32)
+    n /= np.linalg.norm(n, axis=-1, keepdims=True)
+    u = lighting.r2_sequence(1200).reshape(30, 40, 2)
+    p, n, u = (torch.as_tensor(v, device=kernels) for v in (p, n, u))
+    rows = leaf_lights(kernels).leaf_rows()
+    for uu in (None, u):
+        before = lighting.eval_lights.launches
+        got = lighting._eval_lights_kernel(rows, p, n, uu)
+        ref = lighting.eval_lights_plain(rows, p, n, uu)
+        assert lighting.eval_lights.launches == before + 1
+        leaf_close(kernels, ref, got)
+
+
+@pytest.mark.parametrize("res", [8, 16, 24, 64])   # 24, 64: more than 16 blocks of 16 bins
+def test_guiding_kernels(kernels, res):
+    from forge3d_tpu_torch import guiding as gd
+
+    rng = np.random.default_rng(37 + res)
+    n = 6000
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=kernels)  # noqa: E731
+    px, pz = t(rng.uniform(-20.0, 110.0, n)), t(rng.uniform(-5.0, 90.0, n))
+    d = [t(v) for v in rng.normal(size=(3, n))]
+    d[0][:5] = 0.0                                  # zero directions: bin 0
+    d[1][:5] = 0.0
+    d[2][:5] = 0.0
+    lum = t(rng.uniform(0.0, 1.0, n) * rng.choice([1e-3, 1.0, 1e3, 1e5], n))
+    cache = gd.GuidingCache.create((-5.0, 3.0), (100.0, 80.0), cells=6, octa_res=res,
+                                   device="cpu")
+    cache = cache._replace(hist=cache.hist.to(kernels))
+    # octa_encode / octa_decode
+    before = (gd.octa_encode.launches, gd.octa_decode.launches)
+    bins = gd._octa_encode_kernel(*d, res)
+    leaf_exact(kernels, gd._octa_encode_plain(*d, res), bins)
+    assert int(bins[:5].abs().sum()) == 0
+    all_bins = torch.arange(res * res, device=kernels)
+    leaf_exact(kernels, gd._octa_decode_plain(all_bins, res), gd._octa_decode_kernel(all_bins, res))
+    assert (gd.octa_encode.launches, gd.octa_decode.launches) == (before[0] + 1, before[1] + 1)
+    # record: bits, and the old histogram untouched
+    before = gd.GuidingCache.record.launches
+    hist0 = cache.hist.clone()
+    got = gd._record_kernel(cache, px, pz, *d, lum)
+    flat = cache._cell_of(px, pz) * res * res + gd._octa_encode_plain(*d, res)
+    ref = gd.record_plain(cache.hist, flat, lum)
+    assert gd.GuidingCache.record.launches == before + 1
+    leaf_exact(kernels, ref, got)
+    assert torch.equal(cache.hist, hist0)
+    cache = cache._replace(hist=got)
+    # sample: bins and pdf bit-equal, the jittered directions through cos/sin
+    u1, u2 = t(rng.uniform(0.0, 1.0, n)), t(rng.uniform(0.0, 1.0, n))
+    before = gd.GuidingCache.sample.launches
+    got = gd._sample_kernel(cache, px, pz, u1, u2)
+    ref = gd.sample_plain(cache, px, pz, u1, u2)
+    assert gd.GuidingCache.sample.launches == before + 1
+    leaf_exact(kernels, ref[1], got[1])
+    leaf_exact(kernels, ref[3], got[3])
+    leaf_close(kernels, ref[0], got[0])
+    leaf_close(kernels, ref[2], got[2])
