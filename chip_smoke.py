@@ -201,7 +201,29 @@ Phases (one line each; any failure exits non-zero):
                 set-up between them is hidden);
  31. daycycle -- examples/daycycle_shadows_torch.py's three hours (the
                 ephemeris, then a 96x72 sweep render each, K1-K4 counted)
-                on the card against the same on the CPU.
+                on the card against the same on the CPU;
+ 32. codec -- the F3DZ device lane C1 on bench.py's DEM recipe over a 4096^2
+                grid (256 tiles, a streamed page set) and on the 1024^2 crop
+                of bench.py's DEM, each encoded at max_error 0.1 and 0.01:
+                C1 entropy and C1 reconstruction against the plain C1 on the
+                1024^2 page, bit for bit, and timed (the device alone) with
+                the host parse; then the main path, decompress_dem_device on
+                all four streams, counted, each page equal to the C++ lane
+                bit for bit and within its max_error;
+ 33. sharded -- the sharded renders over a one-rank NCCL group (the card's
+                machine has one H100): K6 and K7 on the band row0 540, rows
+                270 of bench.py's 1080p scene against those rows of the
+                whole-frame launches and against their plain versions, bit
+                for bit, and timed; render_frames_sharded (8 frames) against
+                the unsharded frame loop and render_sweep_sharded (bench.py's
+                spp 2, 8 frames) against render_terrain_sweep with the same
+                frames, bit for bit, counted; the all_reduce of the sweep's
+                (E, A, 9) accumulator and the per-frame all_gather of the
+                1080p reservoirs timed; the group destroyed at the end.
+
+C1 and M1 gates (phases 32-33): every kernel bit-identical to its plain
+version; the device lane equal to the C++ lane on every page; the sharded
+renders equal to the unsharded ones on every element.
 
 Leaf gates (phase 30), set to what the card showed: E9's (hi, lo), E7
 octa_encode's bins (a zero direction in bin 0), octa_decode's directions, E7
@@ -390,6 +412,16 @@ REPLACES = {
                   "forge3d_tpu/guiding.py:92 (octa_decode :43)"),
     "E7 octa_encode": ("forge3d_tpu_torch/csrc/leaf.cu", "forge3d_tpu/guiding.py:26"),
     "E7 octa_decode": ("forge3d_tpu_torch/csrc/leaf.cu", "forge3d_tpu/guiding.py:43"),
+    # the F3DZ device lane, csrc/codec.cu over csrc/codec.cuh
+    "C1 entropy": ("forge3d_tpu_torch/csrc/codec.cu",
+                   "forge3d_tpu/codec/f3dz_device.py:46 (rANS scan :52-89, zig-zag :91-94)"),
+    "C1 reconstruction": ("forge3d_tpu_torch/csrc/codec.cu",
+                          "forge3d_tpu/codec/f3dz_device.py:96-133 (reassembly :223-230)"),
+    # the sharded per-ray render's K6 and K7 on a rank's rows
+    "K6 band": ("forge3d_tpu_torch/csrc/kernels.cu",
+                "forge3d_tpu/parallel/tiles.py:39 (the row-sharded frame step :95-98)"),
+    "K7 band": ("forge3d_tpu_torch/csrc/kernels.cu",
+                "forge3d_tpu/parallel/tiles.py:39 (the reuse step with GSPMD's halo :99)"),
 }
 
 # The card's peaks for the bounds (NVIDIA's H100 SXM data sheet).
@@ -4407,6 +4439,238 @@ def phase_daycycle():
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phases 32-33: the F3DZ device lane C1 and the sharded renders M1
+# ---------------------------------------------------------------------------
+
+CODEC_N = 4096             # the streamed page set: 16 x 16 tiles of 256^2
+CODEC_EPS = (0.1, 0.01)
+OPS_RANS_TOKEN = 12        # rans_chain: the table read's fields, the multiply-add, the
+                           # renormalisation compares, the escape select, the zig-zag
+OPS_MED_PIXEL = 8          # med_pred, the add and the double product
+BAND = (540, 270)          # phase 33's band of rows: the third quarter of 1080
+
+
+def codec_pages():
+    """bench.py's DEM recipe evaluated on a 4096^2 grid, and the 1024^2 crop
+    of bench.py's 1025^2 DEM."""
+    n = CODEC_N
+    y, x = np.mgrid[0:n, 0:n].astype(np.float32)
+    rng = np.random.default_rng(7)
+    big = (40.0 * np.sin(x * 0.02) * np.cos(y * 0.017)
+           + 12.0 * np.sin(x * 0.11 + 1.3) * np.cos(y * 0.09)
+           + 2.0 * rng.standard_normal((n, n)).astype(np.float32)).astype(np.float32)
+    return {"4096^2": big, "1024^2": np.ascontiguousarray(bench_dem()[:1024, :1024])}
+
+
+def phase_codec():
+    """Phase 32: C1 against the plain C1 and the C++ lane; returns
+    {row: (max |err|, ms, plain ms, bound ms, bound by)} and the main path's
+    launches."""
+    import torch
+
+    from forge3d_tpu_torch import codec
+    from forge3d_tpu_torch.codec import f3dz_device as fd
+
+    dev = torch.device("cuda")
+    pages = codec_pages()
+    blobs = {}
+    for name, h in pages.items():
+        for eps in CODEC_EPS:
+            t0 = time.perf_counter()
+            blobs[(name, eps)] = codec.compress_dem(h, eps)
+            n = len(blobs[(name, eps)])
+            say("codec", f"{name} @ {eps}: encoded {n} B ({h.nbytes / n:.3f}x) in "
+                         f"{(time.perf_counter() - t0) * 1e3:.1f} ms (host C++)")
+
+    res = {}
+    for eps in CODEC_EPS:
+        blob = blobs[("1024^2", eps)]
+        t0 = time.perf_counter()
+        page = fd.parse_page(blob)
+        parse_ms = (time.perf_counter() - t0) * 1e3
+        t = page.tensors(dev)
+        d = fd._rans_kernel(*t)
+        plain_r, d_p = wall_ms(lambda: fd.rans_decode_plain(*t))
+        require(torch.equal(d, d_p), f"C1 entropy (1024^2 @ {eps}) differs from its plain version")
+        out = fd._med_kernel(d, page.ntx, page.nty, page.step)
+        plain_m, out_p = wall_ms(lambda: fd.med_reconstruct_plain(d, page.ntx, page.nty,
+                                                                  page.step))
+        require(torch.equal(out.view(torch.int32), out_p.view(torch.int32)),
+                f"C1 reconstruction (1024^2 @ {eps}) differs from its plain version")
+        ms_r = queued_ms(lambda: fd._rans_kernel(*t), 5)
+        ms_m = queued_ms(lambda: fd._med_kernel(d, page.ntx, page.nty, page.step), 20)
+        n_px = out.numel()
+        in_bytes = tensor_bytes(*t)
+        say("codec", f"1024^2 @ {eps}: 16 tiles bit-identical to the plain C1; host parse "
+                     f"{parse_ms:.3f} ms, entropy {ms_r:.4f} ms (plain {plain_r:.1f}), "
+                     f"reconstruction {ms_m:.4f} ms (plain {plain_m:.1f}), {in_bytes} B in")
+        if eps == CODEC_EPS[0]:
+            res["C1 entropy"] = (0.0, ms_r, plain_r,
+                                 *bound(len(blob) + 4 * n_px, n_px * OPS_RANS_TOKEN))
+            res["C1 reconstruction"] = (0.0, ms_m, plain_m,
+                                        *bound(8 * n_px, n_px * OPS_MED_PIXEL))
+
+    # the 4096^2 page set's split: the host parse, each kernel, the readback
+    blob = blobs[("4096^2", CODEC_EPS[0])]
+    t0 = time.perf_counter()
+    page = fd.parse_page(blob)
+    parse_ms = (time.perf_counter() - t0) * 1e3
+    t = page.tensors(dev)
+    d = fd._rans_kernel(*t)
+    ms_r = queued_ms(lambda: fd._rans_kernel(*t), 3)
+    ms_m = queued_ms(lambda: fd._med_kernel(d, page.ntx, page.nty, page.step), 10)
+    bms, _ = bound(len(blob) + 4 * CODEC_N * CODEC_N, 0)
+    say("codec", f"4096^2 @ {CODEC_EPS[0]} (256 tiles, {len(blob)} B): host parse "
+                 f"{parse_ms:.3f} ms, entropy {ms_r:.4f} ms, reconstruction {ms_m:.4f} ms; "
+                 f"the decode's bound (the stream plus 4 B a pixel) {bms:.4f} ms")
+
+    # the main path, counted: the device lane on every stream
+    counters = {"C1 entropy": fd.rans_decode, "C1 reconstruction": fd.med_reconstruct}
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.synchronize()
+    for (name, eps), blob in blobs.items():
+        dev_ms, got = wall_ms(lambda: codec.decompress_dem_device(blob))
+        t0 = time.perf_counter()
+        ref = codec.decompress_dem(blob)
+        cpp_ms = (time.perf_counter() - t0) * 1e3
+        require(np.array_equal(got.view(np.uint32), ref.view(np.uint32)),
+                f"the device lane differs from the C++ lane on {name} @ {eps}")
+        err = float(np.abs(got.astype(np.float64) - pages[name].astype(np.float64)).max())
+        require(err <= float(np.float32(eps)), f"{name} @ {eps}: error {err} over the bound")
+        say("codec", f"decompress_dem_device {name} @ {eps}: {dev_ms:.2f} ms (the C++ lane "
+                     f"{cpp_ms:.2f} ms), equal to the C++ lane bit for bit, max error {err:.6g}")
+    launches = {k: c.launches for k, c in counters.items()}
+    say("codec", f"main path launches {json.dumps(launches)}")
+    require(all(v > 0 for v in launches.values()), f"a C1 kernel never launched: {launches}")
+    return res, launches
+
+
+def phase_sharded(dem):
+    """Phase 33: the sharded renders on a one-rank NCCL group; returns
+    {row: (max |err|, ms, plain ms, bound ms, bound by)} and the main path's
+    launches."""
+    import torch
+    import torch.distributed as dist
+
+    from forge3d_tpu_torch.ops import restir as rst
+    from forge3d_tpu_torch.parallel import frame_mesh, render_frames_sharded
+    from forge3d_tpu_torch.parallel import render_sweep_sharded
+    from forge3d_tpu_torch.parallel.tiles import _gather_reservoirs
+    from forge3d_tpu_torch.pt import terrain_ref as tr
+    from forge3d_tpu_torch.pt import terrain_sweep as ts
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = frame_mesh()
+        require(mesh.size == 1 and mesh.group is not None and dist.get_backend() == "nccl",
+                "the one-rank NCCL group did not form")
+        dev = mesh.device
+        W, H = REAL_W, REAL_H
+        row0, rows = BAND
+        px = slice(row0 * W, (row0 + rows) * W)
+        ctx = setup(dem, W, H, BENCH_CAM, dev, spp=1)
+        gb = tr.center_gbuffer(ctx)["gb_n"]
+        a0, w0, m0 = tr.frame_step(ctx, torch.zeros((H, W, 4), device=dev),
+                                   torch.zeros((H, W, 2), device=dev),
+                                   rst.Reservoirs.zeros(H * W, dev), 0)
+        r0 = rst.spatial_reuse(m0, *gb, W, H, 0, ctx.seed_hi)
+        a1, w1, m1 = tr.frame_step(ctx, a0, w0, r0, 1)
+        r1 = rst.spatial_reuse(m1, *gb, W, H, 1, ctx.seed_hi)
+        band = (ctx, a0[row0:row0 + rows], w0[row0:row0 + rows],
+                rst.Reservoirs(*(f[px] for f in r0.fields())), 1, row0)
+        ba, bw, bm = tr.frame_step_band(*band)
+        work = work_counters()
+        plain6, (pa, pw, pm) = wall_ms(lambda: tr.frame_step_plain(*band))
+        w6 = work()
+        same = (torch.equal(ba, a1[row0:row0 + rows]) and torch.equal(bw, w1[row0:row0 + rows])
+                and all(torch.equal(f, g[px]) for f, g in zip(bm.fields(), m1.fields())))
+        require(same, "K6 band differs from those rows of the whole-frame launch")
+        require(torch.equal(pa, ba) and torch.equal(pw, bw)
+                and all(torch.equal(f, g) for f, g in zip(pm.fields(), bm.fields())),
+                "K6 band differs from its plain version")
+        br = rst.spatial_reuse_band(m1, *gb, W, H, 1, ctx.seed_hi, row0, rows)
+        plain7, bp = wall_ms(lambda: rst.spatial_reuse_plain(m1, *gb, W, H, 1, ctx.seed_hi, 8, 3,
+                                                            row0, rows))
+        require(all(torch.equal(f, g[px]) for f, g in zip(br.fields(), r1.fields())),
+                "K7 band differs from those rows of the whole-frame launch")
+        require(all(torch.equal(f, g) for f, g in zip(bp.fields(), br.fields())),
+                "K7 band differs from its plain version")
+        ms6 = cuda_ms(lambda: tr.frame_step_band(*band), 5)
+        ms7 = cuda_ms(lambda: rst.spatial_reuse_band(m1, *gb, W, H, 1, ctx.seed_hi, row0,
+                                                     rows), 20)
+        n = rows * W
+        res = {"K6 band": (0.0, ms6, plain6, *bound(2 * n * (16 + 8 + 40) + scene_bytes(ctx.scene),
+                                                   traced_ops(w6) + n * ctx.spp * OPS_SHADE)),
+               "K7 band": (0.0, ms7, plain7, *bound(n * (40 + 12 + 40), n * 9 * 30))}
+        for k, v in res.items():
+            say("sharded", f"{k} (rows {row0}-{row0 + rows - 1}): bit-identical to the "
+                           f"whole-frame rows and the plain version; kernel {v[1]:.4f} ms, "
+                           f"plain {v[2]:.1f} ms, bound {v[3]:.4f} ms ({v[4]})")
+
+        # the main path: the sharded per-ray render and the sharded sweep, counted
+        desc = tr.TerrainRefDesc(heights=dem, width=W, height=H, cam_origin=BENCH_CAM["origin"],
+                                 cam_look_at=BENCH_CAM["look_at"],
+                                 fov_y_deg=BENCH_CAM["fov_y"], spp=1)
+        counters = {"K6 band": tr.frame_step_band, "K7 band": rst.spatial_reuse_band}
+        sweep_counters = _sweep_counters()
+        # the first collective forms NCCL's communicator: a cold call, then the counted one
+        cold_ms, _ = wall_ms(lambda: render_frames_sharded(desc, 8, mesh=mesh))
+        for c in list(counters.values()) + list(sweep_counters.values()):
+            c.launches = 0
+        torch.cuda.synchronize()
+        shard_ms, (sa, sw_, sr) = wall_ms(lambda: render_frames_sharded(desc, 8, mesh=mesh))
+        launches = {k: c.launches for k, c in counters.items()}
+        sdesc = tr.TerrainRefDesc(heights=dem, width=W, height=H, cam_origin=BENCH_CAM["origin"],
+                                  cam_look_at=BENCH_CAM["look_at"],
+                                  fov_y_deg=BENCH_CAM["fov_y"], spp=2, traversal="sweep")
+        sweep_ms, sharded = wall_ms(lambda: render_sweep_sharded(sdesc, 8, mesh=mesh))
+        sweep_launches = {k: c.launches for k, c in sweep_counters.items()}
+        say("sharded", f"render_frames_sharded 8 frames {shard_ms:.2f} ms (cold, NCCL's "
+                       f"communicator formed: {cold_ms:.2f} ms), launches "
+                       f"{json.dumps(launches)}; render_sweep_sharded 8 frames {sweep_ms:.2f} ms "
+                       f"(before the lazy decode), launches {json.dumps(sweep_launches)}")
+        require(all(v == 8 for v in launches.values()), f"K6/K7 band launches {launches}")
+        require(all(v > 0 for v in sweep_launches.values()), f"sweep launches {sweep_launches}")
+        require(sharded["devices"] == 1 and sharded["frames_per_device"] == 8,
+                "render_sweep_sharded's devices / frames_per_device")
+
+        gbuf = tr.center_gbuffer(ctx)
+        acc = torch.zeros((H, W, 4), device=dev)
+        wf = torch.zeros((H, W, 2), device=dev)
+        res_prev = rst.Reservoirs.zeros(H * W, dev)
+        for f in range(8):
+            acc, wf, merged = tr.frame_step(ctx, acc, wf, res_prev, f)
+            res_prev = rst.spatial_reuse(merged, *gbuf["gb_n"], W, H, f, ctx.seed_hi)
+        require(torch.equal(sa, acc) and torch.equal(sw_, wf)
+                and all(torch.equal(f, g) for f, g in zip(sr.fields(), res_prev.fields())),
+                "render_frames_sharded differs from the unsharded frame loop")
+        ref = ts.render_terrain_sweep(sdesc, frames=8)
+        require(ref["frames"] == sharded["frames"] == 8, "the sweep's frame counts differ")
+        for k in ("rgba", "hdr", "depth"):
+            require(np.array_equal(np.asarray(sharded[k]).view(np.uint8),
+                                   np.asarray(ref[k]).view(np.uint8)),
+                    f"render_sweep_sharded's {k} differs from render_terrain_sweep's")
+        say("sharded", "render_frames_sharded equal to the unsharded 8-frame loop and "
+                       "render_sweep_sharded to render_terrain_sweep, bit for bit; rgba std "
+                       f"{float(sharded['rgba'][..., :3].std()):.3f}")
+
+        # the collectives: the sweep's psum and the per-frame reservoir gather
+        ps = ts.plan_for(sdesc).ps
+        polar = torch.ones((ps.e_count, ps.a_count, 9), device=dev)
+        ar_ms = cuda_ms(lambda: mesh.all_reduce_(polar), 20)
+        ag_ms = cuda_ms(lambda: _gather_reservoirs(mesh, m1), 20)
+        say("sharded", f"NCCL (one rank): all_reduce of the ({ps.e_count}, {ps.a_count}, 9) "
+                       f"accumulator ({polar.numel() * 4} B) {ar_ms:.4f} ms; all_gather of a "
+                       f"frame's reservoirs ({10 * H * W * 4} B, packed, with the unpack) "
+                       f"{ag_ms:.4f} ms")
+        return res, launches
+    finally:
+        dist.destroy_process_group()
+
+
 def _jax_modules():
     """JAX and every module of the JAX package: the port imports none."""
     return [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "forge3d_tpu")]
@@ -4514,6 +4778,12 @@ def main() -> int:
         rows.append(kernel_row(kernel, leaf_launches[kernel], *vals))
         rows[-1]["library_ms"] = lib_ms
     phase_daycycle()
+    c1, c1_launches = phase_codec()
+    for kernel in ("C1 entropy", "C1 reconstruction"):
+        rows.append(kernel_row(kernel, c1_launches[kernel], *c1[kernel]))
+    m1, m1_launches = phase_sharded(dem)
+    for kernel in ("K6 band", "K7 band"):
+        rows.append(kernel_row(kernel, m1_launches[kernel], *m1[kernel]))
 
     loaded = sorted(set(_jax_modules()) - preloaded)
     require(not loaded, f"imported JAX or modules of the JAX package: {loaded}")

@@ -22,7 +22,10 @@
 # leaf modules with kernels of their own (csrc/leaf.cu): the Preetham sky
 # (sky, E5 Preetham), eval_lights (lighting, E6), the path-guiding cache
 # (guiding, E7) and double-float arithmetic (precision, E9), with the CSM
-# shadow state (shadows, over K5) and the ephemeris (astro). It imports
+# shadow state (shadows, over K5) and the ephemeris (astro), the F3DZ DEM
+# codec with its device decode lane (codec, kernel C1), and the sharded
+# renders over torch.distributed (parallel: K6 and K7 on a rank's rows, the
+# sweep's frames split across ranks). It imports
 # torch and never jax nor any module of the JAX package, which stays the
 # reference it is tested against.
 #
@@ -104,10 +107,17 @@ _ENTRY = {
     "set_csm_debug_mode": "shadows",
     "get_csm_cascade_info": "shadows",
     "validate_csm_peter_panning": "shadows",
+    "compress_dem": "codec.f3dz",
+    "decompress_dem": "codec.f3dz",
+    "verify_dem": "codec.f3dz",
+    "encode_bc7_rgba8": "codec.bc",
+    "decode_bc7": "codec.bc",
+    "encode_bc5_rg8": "codec.bc",
+    "decode_bc5": "codec.bc",
 }
 
 # modules the JAX package resolves by name at its top level
-_MODULES = ("sky", "guiding", "precision", "shadows")
+_MODULES = ("sky", "guiding", "precision", "shadows", "codec")
 
 
 def __getattr__(name):

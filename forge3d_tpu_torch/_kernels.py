@@ -65,7 +65,8 @@ class ResArgs(ctypes.Structure):
 
 
 class FrameArgs(ctypes.Structure):
-    """Mirror of `FrameArgs`: per-render constants of the frame kernel."""
+    """Mirror of `FrameArgs`: per-render constants of the frame kernel, and
+    the band of rows row0 .. row0 + rows - 1 it runs on."""
 
     _fields_ = [
         ("env_rgb", _P),
@@ -76,6 +77,7 @@ class FrameArgs(ctypes.Structure):
         ("half_w", _F), ("half_h", _F),
         ("sun", _F3), ("alb", _F3), ("alc", _F3),
         ("lum_lc", _F), ("env_intensity", _F), ("inv_spp", _F), ("lc", _F3),
+        ("row0", _I), ("rows", _I),
     ]
 
 
@@ -354,9 +356,9 @@ _SIGNATURES = {
                        _P, _P, ctypes.POINTER(ResArgs), _P, _P,
                        ctypes.POINTER(ResArgs), _P],
     # (res_in, res_out, gb_nx, gb_ny, gb_nz, width, height, frame_index,
-    #  seed_hi, k_neighbors, radius, stream)
+    #  seed_hi, k_neighbors, radius, row0, rows, stream)
     "f3d_spatial_reuse": [ctypes.POINTER(ResArgs), ctypes.POINTER(ResArgs),
-                          _P, _P, _P, _I, _I, _U, _U, _I, _I, _P],
+                          _P, _P, _P, _I, _I, _U, _U, _I, _I, _I, _I, _P],
     # (scene, mesh, n, cam_o, albedo, dx, dy, dz, hit, t, cell_x, cell_z,
     #  albedo_out, normal_out, depth_out, vis_out, gb_nx, gb_ny, gb_nz, stream)
     "f3d_center_gbuffer": [ctypes.POINTER(SceneArgs), ctypes.POINTER(MeshArgs), _I, _F3,
@@ -462,6 +464,10 @@ _SIGNATURES = {
     "f3d_guide_bins": [_P, _P, _P, _P, _LL, _P, _P],
     # (guide, hist, px, pz, u1, u2, n, out (4, n), stream)
     "f3d_guide_sample": [ctypes.POINTER(GuideArgs)] + [_P] * 5 + [_LL, _P, _P],
+    # C1 entropy: (stream, lens, cap, freq, extras, ecap, n_tiles, d, stream)
+    "f3d_rans_decode": [_P, _P, _I, _P, _P, _I, _I, _P, _P],
+    # C1 reconstruction: (d, n_tiles, ntx, width, step, out, stream)
+    "f3d_med_reconstruct": [_P, _I, _I, _I, ctypes.c_double, _P, _P],
 }
 
 

@@ -68,6 +68,7 @@ struct FrameArgs {
     float inv_spp;   // float32(1 / spp)
     float lc[3];     // float32(sun_intensity * sun_color): with a mesh, the
                      // albedo is a float32 per pixel and multiplies this
+    int row0, rows;  // the band of rows the launch covers (0, height: the frame)
 };
 
 struct Hit {
@@ -489,9 +490,10 @@ F3D_HD void consider(SpatialState& st, const Res& cand, float gx, float gy, floa
     }
 }
 
-// restir.py:spatial_reuse for pixel i: the self candidate, then K random
-// taps in a (2r+1)^2 window. A (0, 0) tap keeps its two offset draws but
-// skips the candidate and its draw. Reads `rin` only.
+// restir.py:spatial_reuse for pixel i of the frame: the self candidate,
+// then K random taps in a (2r+1)^2 window. A (0, 0) tap keeps its two
+// offset draws but skips the candidate and its draw. Reads `rin` (the whole
+// frame's reservoirs) only.
 F3D_HD Res spatial_pixel(const ResArgs& rin, const float* gb_nx, const float* gb_ny,
                          const float* gb_nz, int width, int height,
                          uint32_t frame_index, uint32_t seed_hi, int k_neighbors,
@@ -558,7 +560,10 @@ F3D_HD bool blocked_before(const SceneArgs& s, const MeshArgs& m, float ox, floa
 }
 
 // ---------------------------------------------------------------------------
-// One accumulation frame for pixel i (terrain_ref.py:_make_frame_step):
+// One accumulation frame for pixel i of the band f.row0 .. f.row0 + f.rows - 1
+// (terrain_ref.py:_make_frame_step): the pixel's seeds and camera ray take
+// its place in the frame, its buffers are the band's. With the band the
+// whole frame (row0 0, rows = height), i is the frame's pixel index.
 // M-clamp of the history, the spp loop, the fresh candidate reservoir,
 // accumulation, the windowed Welford, and the temporal merge of the
 // history with the fresh candidates (the first half of the reuse step).
@@ -572,7 +577,7 @@ F3D_HD void frame_pixel(const SceneArgs& s, const FrameArgs& f, const MeshArgs& 
                         const float* welford_in, const ResArgs& rin, float* accum_out,
                         float* welford_out, const ResArgs& rout) {
     const int x = i % f.width;
-    const int y = i / f.width;
+    const int y = f.row0 + i / f.width;
     uint32_t st = f.seed_hi ^ ((uint32_t)x * 1664525u) ^ ((uint32_t)y * 1013904223u)
                   ^ f.seed_lo ^ (f.frame_index * 92837111u);
 

@@ -7,6 +7,11 @@
 // K5 trace_kernel        replaces forge3d_tpu/ops/traversal.py:trace (211)
 // K6 frame_kernel        replaces forge3d_tpu/pt/terrain_ref.py:_make_frame_step (174)
 // K7 spatial_kernel      replaces forge3d_tpu/ops/restir.py:spatial_reuse (107)
+// K6 band, K7 band      the same kernels on a band of rows (row0, rows): a
+//                        rank's rows of the sharded render (M1,
+//                        parallel/tiles.py), which replaces
+//                        forge3d_tpu/parallel/tiles.py:render_frames_sharded
+//                        (39); the whole frame is the band (0, height)
 // K8 gbuffer_kernel      replaces forge3d_tpu/pt/terrain_ref.py:_center_gbuffer (472)
 // K9 trace_mesh_kernel   replaces forge3d_tpu/ops/bvh.py:trace_mesh (333); its body
 //                        (mesh.cuh:trace_mesh_ray) also runs inside K6, K8 and P2
@@ -59,34 +64,38 @@ __global__ void trace_kernel(SceneArgs s, const float* __restrict__ rox,
     cell_z[i] = h.cell_z;
 }
 
-// K6: one thread per pixel runs all spp samples of one frame (primary,
-// sun and env occlusion rays through trace_ray, and with a mesh or lights
-// the mesh walk and the light sample and its ray), then writes the
-// accumulator, the Welford pair and the temporally merged reservoir.
-// accum/welford may be updated in place (each thread reads its own pixel
-// before writing it); res_in and res_out are separate buffers.
+// K6: one thread per pixel of the band f.row0 .. f.row0 + f.rows - 1 (the
+// whole frame, or a rank's rows of a sharded render) runs all spp samples
+// of one frame (primary, sun and env occlusion rays through trace_ray, and
+// with a mesh or lights the mesh walk and the light sample and its ray),
+// then writes the accumulator, the Welford pair and the temporally merged
+// reservoir, all band-sized. accum/welford may be updated in place (each
+// thread reads its own pixel before writing it); res_in and res_out are
+// separate buffers.
 template <bool kHybrid>
 __global__ void frame_kernel(SceneArgs s, FrameArgs f, MeshArgs m, LightArgs l,
                              const float* accum_in, const float* welford_in, ResArgs res_in,
                              float* accum_out, float* welford_out, ResArgs res_out) {
     int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= f.width * f.height) return;
+    if (i >= f.width * f.rows) return;
     frame_pixel<kHybrid>(s, f, m, l, i, accum_in, welford_in, res_in, accum_out, welford_out,
                          res_out);
 }
 
-// K7: one thread per pixel; reads neighbours from res_in, writes res_out.
+// K7: one thread per pixel of the band row0 .. row0 + rows - 1; reads the
+// whole frame's reservoirs and normals (res_in, gb_n*), writes the band's
+// (res_out).
 __global__ void spatial_kernel(ResArgs res_in, ResArgs res_out,
                                const float* __restrict__ gb_nx,
                                const float* __restrict__ gb_ny,
                                const float* __restrict__ gb_nz, int width, int height,
                                uint32_t frame_index, uint32_t seed_hi, int k_neighbors,
-                               int radius) {
-    int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= width * height) return;
+                               int radius, int row0, int rows) {
+    int j = blockIdx.x * blockDim.x + threadIdx.x;
+    if (j >= width * rows) return;
     Res out = spatial_pixel(res_in, gb_nx, gb_ny, gb_nz, width, height, frame_index,
-                            seed_hi, k_neighbors, radius, i);
-    store_res(res_out, i, out);
+                            seed_hi, k_neighbors, radius, row0 * width + j);
+    store_res(res_out, j, out);
 }
 
 struct Vec3 {
@@ -171,7 +180,7 @@ int f3d_frame_step(const SceneArgs* s, const FrameArgs* f, const MeshArgs* m,
                    const LightArgs* l, const float* accum_in, const float* welford_in,
                    const ResArgs* res_in, float* accum_out, float* welford_out,
                    const ResArgs* res_out, void* stream) {
-    int n = f->width * f->height;
+    int n = f->width * f->rows;
     if (n > 0) {
         if (m->n_nodes > 0 || l->count > 0) {
             frame_kernel<true><<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
@@ -189,12 +198,12 @@ int f3d_frame_step(const SceneArgs* s, const FrameArgs* f, const MeshArgs* m,
 int f3d_spatial_reuse(const ResArgs* res_in, const ResArgs* res_out, const float* gb_nx,
                       const float* gb_ny, const float* gb_nz, int width, int height,
                       unsigned int frame_index, unsigned int seed_hi, int k_neighbors,
-                      int radius, void* stream) {
-    int n = width * height;
+                      int radius, int row0, int rows, void* stream) {
+    int n = width * rows;
     if (n > 0) {
         spatial_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
             *res_in, *res_out, gb_nx, gb_ny, gb_nz, width, height, frame_index, seed_hi,
-            k_neighbors, radius);
+            k_neighbors, radius, row0, rows);
     }
     return (int)cudaGetLastError();
 }

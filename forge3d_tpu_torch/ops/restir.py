@@ -110,15 +110,20 @@ def temporal_merge(prev: Reservoirs, curr: Reservoirs) -> Reservoirs:
 
 def spatial_reuse_plain(res_in: Reservoirs, gb_nx, gb_ny, gb_nz, width: int, height: int,
                         frame_index: int, seed_hi: int, k_neighbors: int = 8,
-                        radius: int = 3) -> Reservoirs:
+                        radius: int = 3, row0: int = 0, rows=None) -> Reservoirs:
     """Plain PyTorch version of K7: streaming RIS over the pixel itself and
     K random neighbours in radius `radius` (one directional light:
-    selection pdf 1, facing test against the receiver normal)."""
+    selection pdf 1, facing test against the receiver normal). Reads the
+    whole frame's reservoirs and normals; returns the reservoirs of the rows
+    row0 .. row0 + rows - 1 (the whole frame by default)."""
     dev = res_in.m.device
-    n = width * height
-    idx = torch.arange(n, dtype=torch.int64, device=dev)
+    rows = height if rows is None else int(rows)
+    band = slice(row0 * width, (row0 + rows) * width)
+    idx = torch.arange(band.start, band.stop, dtype=torch.int64, device=dev)
+    n = idx.numel()
     x = idx % width
     y = idx // width
+    gb_nx, gb_ny, gb_nz = gb_nx[band], gb_ny[band], gb_nz[band]
     seed = (((int(seed_hi) ^ int(frame_index)) & MASK32) + idx * 1664525 + 1013904223) & MASK32
 
     def consider(w_acc, ch, ch_pdf, seed, cand: Reservoirs):
@@ -134,7 +139,7 @@ def spatial_reuse_plain(res_in: Reservoirs, gb_nx, gb_ny, gb_nz, width: int, hei
         choose = take & (u < w / torch.clamp(w_acc, min=1e-30))
         return (w_acc, _select(choose, cand, ch), torch.where(choose, p_curr, ch_pdf), seed)
 
-    r_self = res_in
+    r_self = Reservoirs(*(c[band] for c in res_in.fields()))
     state = consider(torch.zeros(n, dtype=_F32, device=dev), r_self, r_self.target_pdf,
                      seed, r_self)
     m_total = r_self.m.to(torch.int64)
@@ -166,20 +171,26 @@ def spatial_reuse_plain(res_in: Reservoirs, gb_nx, gb_ny, gb_nz, width: int, hei
 
 
 def _spatial_reuse_kernel(res_in: Reservoirs, gb_nx, gb_ny, gb_nz, width, height,
-                          frame_index, seed_hi, k_neighbors, radius) -> Reservoirs:
+                          frame_index, seed_hi, k_neighbors, radius, row0=0, rows=None,
+                          counter=None) -> Reservoirs:
     n = width * height
+    rows = height if rows is None else int(rows)
+    if not 0 <= row0 <= row0 + rows <= height:
+        raise ValueError(f"spatial_reuse: rows {row0} .. {row0 + rows - 1} outside the "
+                         f"frame's {height}")
     for t in res_in.fields() + (gb_nx, gb_ny, gb_nz):
         if t.numel() != n:
             raise ValueError(f"spatial_reuse: expected {n} elements, got {t.numel()}")
     _kernels.require_cuda("spatial_reuse", gb_nx, gb_ny, gb_nz)
-    out = Reservoirs.empty(n, res_in.m.device)
+    out = Reservoirs.empty(width * rows, res_in.m.device)
     dev = gb_nx.device
     err = _kernels.lib().f3d_spatial_reuse(
         res_in.kernel_args(), out.kernel_args(), _kernels.ptr(gb_nx), _kernels.ptr(gb_ny),
         _kernels.ptr(gb_nz), int(width), int(height), int(frame_index) & MASK32,
-        int(seed_hi) & MASK32, int(k_neighbors), int(radius), _kernels.stream_ptr(dev))
+        int(seed_hi) & MASK32, int(k_neighbors), int(radius), int(row0), rows,
+        _kernels.stream_ptr(dev))
     _kernels.check(err, "K7 spatial_reuse")
-    spatial_reuse.launches += 1
+    (spatial_reuse if counter is None else counter).launches += 1
     return out
 
 
@@ -197,3 +208,23 @@ def spatial_reuse(res_in: Reservoirs, gb_nx, gb_ny, gb_nz, width: int, height: i
 
 
 spatial_reuse.launches = 0
+
+
+def spatial_reuse_band(res_in: Reservoirs, gb_nx, gb_ny, gb_nz, width: int, height: int,
+                       frame_index: int, seed_hi: int, row0: int, rows: int,
+                       k_neighbors: int = 8, radius: int = 3) -> Reservoirs:
+    """Spatial reuse on the band of rows row0 .. row0 + rows - 1 (K7 band, a
+    rank's rows of a sharded render): reads the whole frame's reservoirs
+    and normals, as neighbours lie up to `radius` rows outside the band,
+    and returns the band's reservoirs, bit-equal to those rows of
+    spatial_reuse. CPU tensors run the plain version; CUDA tensors launch
+    the kernel."""
+    if res_in.m.device.type == "cpu":
+        return spatial_reuse_plain(res_in, gb_nx, gb_ny, gb_nz, width, height, frame_index,
+                                   seed_hi, k_neighbors, radius, row0, rows)
+    return _spatial_reuse_kernel(res_in, gb_nx, gb_ny, gb_nz, width, height, frame_index,
+                                 seed_hi, k_neighbors, radius, row0, rows,
+                                 counter=spatial_reuse_band)
+
+
+spatial_reuse_band.launches = 0

@@ -187,7 +187,10 @@ class FrameContext:
     mesh: Optional["MeshTracerScene"] = None   # pt/mesh_render.py
     lights: Optional[tuple] = None             # (LightBuffer, AliasTable)
 
-    def frame_args(self, frame_index: int) -> _kernels.FrameArgs:
+    def frame_args(self, frame_index: int, row0: int = 0,
+                   rows: Optional[int] = None) -> _kernels.FrameArgs:
+        """K6's constants for one frame on the band of rows row0 .. row0 +
+        rows - 1 (the whole frame by default)."""
         rgb = self.env.rgb
         if rgb is not None:
             _kernels.require_cuda("env_map", rgb)
@@ -200,6 +203,7 @@ class FrameContext:
             F3(*self.cam_o), F3(*self.right), F3(*self.up), F3(*self.fwd),
             self.half_w, self.half_h, F3(*self.sun), F3(*self.alb), F3(*self.alc),
             self.lum_lc, self.env.intensity, self.inv_spp, F3(*self.lc),
+            int(row0), self.height if rows is None else int(rows),
         )
 
     def mesh_args(self) -> _kernels.MeshArgs:
@@ -259,12 +263,14 @@ def _lights(desc: TerrainRefDesc, device):
     return buf, alias_table_build(light_power_weights(buf), device)
 
 
-def camera_rays(ctx: FrameContext, jx, jy):
-    """Primary ray directions for pixel jitters (jx, jy) of shape (H, W)."""
+def camera_rays(ctx: FrameContext, jx, jy, row0: int = 0):
+    """Primary ray directions for pixel jitters (jx, jy) of shape (rows, W):
+    the rows row0 .. row0 + rows - 1 of the frame (all of it by default)."""
     W, H = ctx.width, ctx.height
+    rows = jx.shape[0]
     dev = jx.device
-    xs = torch.arange(W, dtype=_F32, device=dev).expand(H, W)
-    ys = torch.arange(H, dtype=_F32, device=dev)[:, None].expand(H, W)
+    xs = torch.arange(W, dtype=_F32, device=dev).expand(rows, W)
+    ys = torch.arange(row0, row0 + rows, dtype=_F32, device=dev)[:, None].expand(rows, W)
     ndc_x = fdiv(xs + 0.5 + jx, float(W)) * 2.0 - 1.0
     ndc_y = (1.0 - fdiv(ys + 0.5 + jy, float(H))) * 2.0 - 1.0
     cx = ndc_x * ctx.half_w
@@ -350,14 +356,15 @@ def _hybrid_primary(ctx: FrameContext, o, d):
     return t, hitmask, p, n, mesh_won
 
 
-def _sample_radiance(ctx: FrameContext, st, pdir, pw, prev_ok):
-    """One jittered camera sample per pixel; returns (st, rgb, cand_pdf)."""
+def _sample_radiance(ctx: FrameContext, st, pdir, pw, prev_ok, row0: int = 0):
+    """One jittered camera sample per pixel of the band starting at row
+    row0; returns (st, rgb, cand_pdf)."""
     sun = ctx.sun
     st, u1 = xorshift32(st)
     st, u2 = xorshift32(st)
     jx = tent_offset(u1) * 0.5
     jy = tent_offset(u2) * 0.5
-    dx, dy, dz = camera_rays(ctx, jx, jy)
+    dx, dy, dz = camera_rays(ctx, jx, jy, row0)
     o = _origin(ctx, dx.shape, dx.device)
     t, hitmask, (hx, hy, hz), (nx, ny, nz), mesh_won = _hybrid_primary(ctx, o, (dx, dy, dz))
     if mesh_won is None:
@@ -410,15 +417,17 @@ def _sample_radiance(ctx: FrameContext, st, pdir, pw, prev_ok):
 
 
 def frame_step_plain(ctx: FrameContext, accum, welford, res_prev: rst.Reservoirs,
-                     frame_index: int):
+                     frame_index: int, row0: int = 0):
     """Plain PyTorch version of K6. accum: (H, W, 4); welford: (H, W, 2);
     res_prev: the reservoirs after the previous frame's spatial reuse.
     Returns (accum, welford, merged) where merged is the M-clamped history
-    temporally merged with this frame's candidates."""
-    W, H = ctx.width, ctx.height
+    temporally merged with this frame's candidates. On a band of rows
+    (row0 .. row0 + accum.shape[0] - 1) every argument and result is the
+    band's (H = its rows)."""
+    W, H = ctx.width, accum.shape[0]
     dev = accum.device
     xs = torch.arange(W, device=dev).expand(H, W)
-    ys = torch.arange(H, device=dev)[:, None].expand(H, W)
+    ys = torch.arange(row0, row0 + H, device=dev)[:, None].expand(H, W)
     st = seed_state(ctx.seed_hi, ctx.seed_lo, xs, ys, 0) ^ (
         (int(frame_index) * 92837111) & MASK32)
 
@@ -437,7 +446,7 @@ def frame_step_plain(ctx: FrameContext, accum, welford, res_prev: rst.Reservoirs
     fr, fg, fb, c_wsum, c_pdf = z, z, z, z, z
     c_m = torch.zeros((H, W), dtype=torch.int32, device=dev)
     for _ in range(ctx.spp):
-        st, (r, g, b), cand_pdf = _sample_radiance(ctx, st, pdir, pw, prev_ok)
+        st, (r, g, b), cand_pdf = _sample_radiance(ctx, st, pdir, pw, prev_ok, row0)
         good = cand_pdf > 0.0
         c_wsum = c_wsum + torch.where(good, cand_pdf, 0.0)
         c_m = c_m + good.to(torch.int32)
@@ -478,8 +487,11 @@ def frame_step_plain(ctx: FrameContext, accum, welford, res_prev: rst.Reservoirs
 
 
 def _frame_step_kernel(ctx: FrameContext, accum, welford, res_prev: rst.Reservoirs,
-                       frame_index: int):
-    H, W = ctx.height, ctx.width
+                       frame_index: int, row0: int = 0, counter=None):
+    H, W = accum.shape[0], ctx.width
+    if not 0 <= row0 <= row0 + H <= ctx.height:
+        raise ValueError(f"frame_step: rows {row0} .. {row0 + H - 1} outside the frame's "
+                         f"{ctx.height}")
     if tuple(accum.shape) != (H, W, 4) or tuple(welford.shape) != (H, W, 2):
         raise ValueError(f"frame_step: accum must be (H, W, 4) and welford (H, W, 2) "
                          f"for H, W = {H}, {W}")
@@ -491,16 +503,16 @@ def _frame_step_kernel(ctx: FrameContext, accum, welford, res_prev: rst.Reservoi
     wf_out = torch.empty_like(welford)
     merged = rst.Reservoirs.empty(H * W, dev)
     err = _kernels.lib().f3d_frame_step(
-        ctx.scene.kernel_args(), ctx.frame_args(frame_index), ctx.mesh_args(),
+        ctx.scene.kernel_args(), ctx.frame_args(frame_index, row0, H), ctx.mesh_args(),
         ctx.light_args(), _kernels.ptr(accum), _kernels.ptr(welford), res_prev.kernel_args(),
         _kernels.ptr(acc_out), _kernels.ptr(wf_out), merged.kernel_args(),
         _kernels.stream_ptr(dev))
     _kernels.check(err, "K6 frame_step")
-    frame_step.launches += 1
-    if ctx.mesh is not None:
-        frame_step.mesh_launches += 1
-    if ctx.lights is not None:
-        frame_step.light_launches += 1
+    counter = frame_step if counter is None else counter
+    counter.launches += 1
+    if counter is frame_step:
+        frame_step.mesh_launches += ctx.mesh is not None
+        frame_step.light_launches += ctx.lights is not None
     return acc_out, wf_out, merged
 
 
@@ -518,6 +530,23 @@ frame_step.launches = 0
 # (K10's body)
 frame_step.mesh_launches = 0
 frame_step.light_launches = 0
+
+
+def frame_step_band(ctx: FrameContext, accum, welford, res_prev: rst.Reservoirs,
+                    frame_index: int, row0: int):
+    """One accumulation frame on the band of rows row0 .. row0 +
+    accum.shape[0] - 1 (K6 band, a rank's rows of a sharded render): the
+    band's accum, welford and reservoirs in, the band's out; each pixel's
+    seeds and camera ray are those of its place in the frame, so the bands
+    of a frame together equal frame_step's frame bit for bit. CPU tensors
+    run the plain version; CUDA tensors launch the kernel."""
+    if accum.device.type == "cpu":
+        return frame_step_plain(ctx, accum, welford, res_prev, frame_index, row0)
+    return _frame_step_kernel(ctx, accum, welford, res_prev, frame_index, row0,
+                              counter=frame_step_band)
+
+
+frame_step_band.launches = 0
 
 
 def _center_rays(ctx: FrameContext):

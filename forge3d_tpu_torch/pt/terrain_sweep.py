@@ -464,16 +464,23 @@ resolve.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def render_packed(plan: SweepPlan, scene: SweepScene, rot, seed: int, n_total: int):
-    """All frames of one render from the rotated grid `rot` = (h_rot, du,
-    dv); returns the packed buffer on the device."""
+def accumulate(plan: SweepPlan, scene: SweepScene, rot, jitters) -> torch.Tensor:
+    """The frames `jitters` summed in order into one (E, A, 9) polar
+    accumulator (K2 and K3 a frame), from the rotated grid `rot` = (h_rot,
+    du, dv)."""
     ps = plan.ps
     h_rot, du, dv = rot
     acc = torch.zeros((ps.e_count, ps.a_count, 9), dtype=_F32, device=h_rot.device)
-    for jit in frame_jitters(seed, n_total):
+    for jit in jitters:
         maps = sw.sweep_lighting(h_rot, du, dv, frame_bins(plan, scene, jit))
         polar_frame(plan, scene, acc, h_rot, maps, jit.xi, jit.ja, jit.je)
-    return resolve(plan, acc, n_total)
+    return acc
+
+
+def render_packed(plan: SweepPlan, scene: SweepScene, rot, seed: int, n_total: int):
+    """All frames of one render from the rotated grid `rot`; returns the
+    packed buffer on the device."""
+    return resolve(plan, accumulate(plan, scene, rot, frame_jitters(seed, n_total)), n_total)
 
 
 def render_terrain_sweep(desc, frames: Optional[int] = None, sky_azimuths: int = 32,

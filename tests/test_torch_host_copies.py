@@ -9,8 +9,9 @@
 # helpers (the clipmap mode's camera spelling, the sky's cooked uniforms),
 # the wildfire path's named DEMs (datasets: heights and GeoTIFF bytes)
 # and gis/osm (the Terrarium codec, the OSM parse, query and scene split),
-# and the daycycle path's astro.py (the Meeus ephemeris behind
-# sky.sun_position_at) and shadows.py's CSM state.
+# the daycycle path's astro.py (the Meeus ephemeris behind
+# sky.sun_position_at) and shadows.py's CSM state, and the F3DZ codec's
+# codec/f3dz.py (over native/f3dz.cpp) and codec/f3dz_pylane.py.
 import inspect
 
 import numpy as np
@@ -754,3 +755,43 @@ def test_csm_state_functions_equal():
         for mod, st in zip((jsh, tsh), saved):
             mod._STATE.clear()
             mod._STATE.update(st)
+
+
+# the F3DZ codec's host copies: codec/f3dz.py (over its copy of
+# native/f3dz.cpp) and codec/f3dz_pylane.py, on pages that exercise the
+# partial edge tiles, escapes (a 9,278 m step) and a flat page
+def _f3dz_pages():
+    rng = np.random.default_rng(5)
+    y, x = np.mgrid[0:300, 0:270].astype(np.float32)
+    return {"sloped_noise": (200 + 0.5 * x + 3 * rng.standard_normal((300, 270))),
+            "step": np.where(x > 100, 8848.0, -430.5) + 0.01 * y,
+            "flat": np.full((70, 33), 12.5)}
+
+
+@pytest.mark.parametrize("name", sorted(_f3dz_pages()))
+@pytest.mark.parametrize("eps", [0.01, 0.25])
+def test_f3dz_host_codec_and_python_lane_equal(name, eps):
+    from forge3d_tpu.codec import f3dz as jf
+    from forge3d_tpu.codec import f3dz_pylane as jpy
+    from forge3d_tpu_torch.codec import f3dz as tf
+    from forge3d_tpu_torch.codec import f3dz_pylane as tpy
+
+    h = np.asarray(_f3dz_pages()[name], np.float32)
+    blob = tf.compress_dem(h, eps)
+    assert blob == jf.compress_dem(h, eps)
+    assert tf.f3dz_info(blob) == jf.f3dz_info(blob)
+    a, b = tf.decompress_dem(blob), jf.decompress_dem(blob)
+    assert a.view(np.uint32).tolist() == b.view(np.uint32).tolist()
+    assert tf.verify_dem(blob, h) == jf.verify_dem(blob, h)
+    py = tpy.decompress_dem_pylane(blob)
+    assert py.view(np.uint32).tolist() == jpy.decompress_dem_pylane(blob).view(np.uint32).tolist()
+    assert py.view(np.uint32).tolist() == a.view(np.uint32).tolist()
+    bad = bytearray(blob)
+    bad[-1] ^= 0x5A     # inside the last tile's record
+    for mod, err in ((tf, tf.F3dzError), (jf, jf.F3dzError)):
+        with pytest.raises(err, match="F3DZ decode failed"):
+            mod.decompress_dem(bytes(bad))
+    for mod, err in ((tpy, tf.F3dzError), (jpy, jf.F3dzError)):
+        with pytest.raises(err, match="tile CRC mismatch"):
+            mod.decompress_dem_pylane(bytes(bad))
+    assert tf.F3dzError.__mro__[1].__name__ == jf.F3dzError.__mro__[1].__name__ == "RenderError"

@@ -51,6 +51,7 @@ HOST_LAUNCHERS = r"""
 #include "ibl.cuh"
 #include "smoke.cuh"
 #include "leaf.cuh"
+#include "codec.cuh"
 #include <vector>
 extern "C" {
 int f3d_trace(const SceneArgs* s, const float* rox, const float* roy, const float* roz,
@@ -67,7 +68,7 @@ int f3d_frame_step(const SceneArgs* s, const FrameArgs* f, const MeshArgs* m,
                    const ResArgs* res_in, float* accum_out, float* welford_out,
                    const ResArgs* res_out, void*) {
     const bool hybrid = m->n_nodes > 0 || l->count > 0;
-    for (int i = 0; i < f->width * f->height; ++i) {
+    for (int i = 0; i < f->width * f->rows; ++i) {
         if (hybrid)
             frame_pixel<true>(*s, *f, *m, *l, i, accum_in, welford_in, *res_in, accum_out,
                               welford_out, *res_out);
@@ -80,10 +81,11 @@ int f3d_frame_step(const SceneArgs* s, const FrameArgs* f, const MeshArgs* m,
 int f3d_spatial_reuse(const ResArgs* res_in, const ResArgs* res_out, const float* gb_nx,
                       const float* gb_ny, const float* gb_nz, int width, int height,
                       unsigned int frame_index, unsigned int seed_hi, int k_neighbors,
-                      int radius, void*) {
-    for (int i = 0; i < width * height; ++i)
-        store_res(*res_out, i, spatial_pixel(*res_in, gb_nx, gb_ny, gb_nz, width, height,
-                                             frame_index, seed_hi, k_neighbors, radius, i));
+                      int radius, int row0, int rows, void*) {
+    for (int j = 0; j < width * rows; ++j)
+        store_res(*res_out, j, spatial_pixel(*res_in, gb_nx, gb_ny, gb_nz, width, height,
+                                             frame_index, seed_hi, k_neighbors, radius,
+                                             row0 * width + j));
     return 0;
 }
 int f3d_center_gbuffer(const SceneArgs* s, const MeshArgs* m, int n, const float* cam_o,
@@ -485,6 +487,41 @@ int f3d_guide_sample(const GuideArgs* g, const float* hist, const float* px, con
     }
     return 0;
 }
+// C1: a tile at a time, the table built as the block builds it; the
+// reconstruction in raster order (each value needs only its left, up and
+// up-left neighbours, which the kernel's wavefront also has computed)
+int f3d_rans_decode(const uint8_t* stream, const uint32_t* lens, int cap, const uint32_t* freq,
+                    const uint32_t* extras, int ecap, int n_tiles, int32_t* d, void*) {
+    std::vector<uint32_t> tab(F3DZ_PROB_SCALE);
+    for (int t = 0; t < n_tiles; ++t) {
+        const uint32_t* f = freq + (size_t)t * 256;
+        uint32_t c = 0;
+        for (int s = 0; s < 256; ++s) {
+            rans_fill((uint32_t)s, f[s], c, tab.data());
+            c += f[s];
+        }
+        rans_chain(tab.data(), stream + (size_t)t * cap, lens[t], (uint32_t)cap,
+                   extras + (size_t)t * ecap, ecap, F3DZ_TILE_PX, d + (size_t)t * F3DZ_TILE_PX);
+    }
+    return 0;
+}
+int f3d_med_reconstruct(const int32_t* d, int n_tiles, int ntx, int width, double step,
+                        float* out, void*) {
+    std::vector<int32_t> q(F3DZ_TILE_PX);
+    for (int t = 0; t < n_tiles; ++t) {
+        const int32_t* dt = d + (size_t)t * F3DZ_TILE_PX;
+        for (int y = 0; y < F3DZ_TILE; ++y)
+            for (int x = 0; x < F3DZ_TILE; ++x) {
+                const int32_t left = x > 0 ? q[y * F3DZ_TILE + x - 1] : 0;
+                const int32_t up = y > 0 ? q[(y - 1) * F3DZ_TILE + x] : 0;
+                const int32_t ul = (x > 0 && y > 0) ? q[(y - 1) * F3DZ_TILE + x - 1] : 0;
+                q[y * F3DZ_TILE + x] = wrap_add(med_pred(left, up, ul, x, y), dt[y * F3DZ_TILE + x]);
+                out[(size_t)((t / ntx) * F3DZ_TILE + y) * width + (t % ntx) * F3DZ_TILE + x] =
+                    f3dz_height(q[y * F3DZ_TILE + x], step);
+            }
+    }
+    return 0;
+}
 // test entry: synthesize_polar's contraction for one column and row
 float f3d_test_crossing(const float* M, const float* v, int K, int C, float Q, float* out) {
     return crossing(M, v, C, C, K, Q, out);
@@ -604,6 +641,49 @@ def test_frame_and_spatial_reuse(kernels, kw):
         assert_reservoirs(rp, rk)
         acc, wf, res = ka, kw_, rk
     assert int(res.m.sum()) > 0
+
+
+# K6 band and K7 band (M1): the kernels on a band of rows equal the
+# whole-frame launches' rows bit for bit, and the plain versions on the
+# band; bands of 16, 2 and 30 rows, the last at the frame's bottom edge
+BANDS = [(0, 16), (16, 2), (18, 30)]
+
+
+@pytest.mark.parametrize("kw", [dict(spp=2), dict(spp=1, restir=False)],
+                         ids=["restir_spp2", "plain_nee"])
+def test_frame_and_spatial_reuse_bands(kernels, kw):
+    ctx = make_ctx(kernels, **kw)
+    H, W = ctx.height, ctx.width
+    gb = tr.center_gbuffer_plain(ctx)["gb_n"]
+    acc = torch.zeros(H, W, 4, device=kernels)
+    wf = torch.zeros(H, W, 2, device=kernels)
+    res = rst.Reservoirs.zeros(H * W, kernels)
+    before = (tr.frame_step_band.launches, rst.spatial_reuse_band.launches)
+    for frame in (0, 1):
+        ka, kw_, km = tr._frame_step_kernel(ctx, acc, wf, res, frame)
+        rk = rst._spatial_reuse_kernel(km, *gb, W, H, frame, ctx.seed_hi, 8, 3)
+        for row0, rows in BANDS:
+            px = slice(row0 * W, (row0 + rows) * W)
+            band = rst.Reservoirs(*(f[px] for f in res.fields()))
+            args = (ctx, acc[row0:row0 + rows], wf[row0:row0 + rows], band, frame, row0)
+            ba, bw, bm = tr._frame_step_kernel(*args, counter=tr.frame_step_band)
+            assert torch.equal(ba, ka[row0:row0 + rows]) and torch.equal(bw, kw_[row0:row0 + rows])
+            for f, g in zip(bm.fields(), km.fields()):
+                assert torch.equal(f, g[px])
+            pa, pw, pm = tr.frame_step_plain(*args)
+            assert close_frac(pa, ba) >= FRAC and close_frac(pw, bw) >= FRAC
+            assert_reservoirs(pm, bm)
+            br = rst._spatial_reuse_kernel(km, *gb, W, H, frame, ctx.seed_hi, 8, 3, row0, rows,
+                                           counter=rst.spatial_reuse_band)
+            for f, g in zip(br.fields(), rk.fields()):
+                assert torch.equal(f, g[px])
+            assert_reservoirs(rst.spatial_reuse_plain(km, *gb, W, H, frame, ctx.seed_hi, 8, 3,
+                                                      row0, rows), br)
+        acc, wf, res = ka, kw_, rk
+    assert (tr.frame_step_band.launches, rst.spatial_reuse_band.launches) == (
+        before[0] + 2 * len(BANDS), before[1] + 2 * len(BANDS))
+    with pytest.raises(ValueError, match="outside"):
+        tr._frame_step_kernel(ctx, acc[:4], wf[:4], rst.Reservoirs.zeros(4 * W, kernels), 2, H - 2)
 
 
 @pytest.mark.cuda
@@ -1784,3 +1864,36 @@ def test_guiding_kernels(kernels, res):
     leaf_exact(kernels, ref[3], got[3])
     leaf_close(kernels, ref[0], got[0])
     leaf_close(kernels, ref[2], got[2])
+
+
+# C1: the rANS chain and the MED reconstruction against their plain
+# versions, bit for bit, on one- and two-tile pages, escapes included
+# (the extreme page's 9,278 m step)
+def codec_page(name, shape, eps):
+    from forge3d_tpu_torch.codec import f3dz, f3dz_device
+
+    h, w = shape
+    y, x = np.mgrid[0:h, 0:w].astype(np.float32)
+    dem = (np.where(x > 128, 8848.0, -430.5) + y * 0.01 if name == "extreme"
+           else 1500 + np.random.default_rng(3).normal(0, 40, (h, w)))
+    blob = f3dz.compress_dem(np.asarray(dem, np.float32), eps)
+    return blob, f3dz_device.parse_page(blob)
+
+
+@pytest.mark.parametrize("case", [("extreme", (256, 512), 0.05), ("noisy", (512, 256), 0.5)],
+                         ids=["extreme_256x512", "noisy_512x256"])
+def test_codec_kernels(kernels, case):
+    from forge3d_tpu_torch.codec import f3dz, f3dz_device as fd
+
+    blob, page = codec_page(*case)
+    t = page.tensors(kernels)
+    assert int(t[3].ne(0).sum()) > 0 or case[0] != "extreme"    # escapes were taken
+    before = (fd.rans_decode.launches, fd.med_reconstruct.launches)
+    d = fd._rans_kernel(*t)
+    assert torch.equal(d.cpu(), fd.rans_decode_plain(*(a.cpu() for a in t)))
+    out = fd._med_kernel(d, page.ntx, page.nty, page.step)
+    ref = fd.med_reconstruct_plain(d.cpu(), page.ntx, page.nty, page.step)
+    assert torch.equal(out.cpu().view(torch.int32), ref.view(torch.int32))
+    assert np.array_equal(out.cpu().numpy().view(np.uint32),
+                          f3dz.decompress_dem(blob).view(np.uint32))
+    assert (fd.rans_decode.launches, fd.med_reconstruct.launches) == (before[0] + 1, before[1] + 1)
