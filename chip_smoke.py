@@ -5,6 +5,11 @@ Run from the repository root on a machine with one CUDA GPU:
 
     python3 chip_smoke.py
 
+`python3 chip_smoke.py --probe` runs only the timings of K2 and E7 record
+at the main path's shapes and the day cycle's three hours, without gates
+(see probe()); copied into a checkout of an earlier tree and run there, it
+times that tree's kernels, so two designs can be compared on one card.
+
 Phases (one line each; any failure exits non-zero):
   1. device  -- the card's name, and `nvidia-smi` name and power limit;
   2. build   -- compile the CUDA kernels from forge3d_tpu_torch/csrc;
@@ -34,7 +39,14 @@ Phases (one line each; any failure exits non-zero):
                 at 128x96 over the 65^2 DEM (SSIM > 0.99, mean |d| < 0.8/255),
                 printed at bench.py's 1080p scene;
   9. sweep timing -- K1-K4 against their plain versions at the bench
-                scene's shapes, with the gates of phase 6, both timed;
+                scene's shapes, with the gates of phase 6, both timed; then
+                K2 by kind of task (a one-task table each: a stratum of each
+                quadrant, the sun), at the day cycle's 72 x 72 grid, and at
+                2064 x 2064 and 4100 x 4100 (the launcher's device time and
+                a whole call; at 2064 also with device-memory rows), its
+                launch (cluster size, band, the card's resident clusters:
+                cudaOccupancyMaxActiveClusters) at each width, and the
+                frame at clusters of 4, 8 and 16 CTAs;
  10. mesh and light kernels -- on the 256x128 / 129^2 scene with a town of
                 64 boxes and one light of each of the six types: K9 (BVH
                 walk) on center and sun rays and K10 (light sample) on
@@ -188,7 +200,8 @@ Phases (one line each; any failure exits non-zero):
                 cells at octa_res 8 and 16: record of 2,073,600 records, one a 1080p
                 pixel with its hit's xz, the sun's direction and a rendered
                 frame's luminance, bit for bit and against a second run,
-                index_add_ timed beside it; then sample of 2,073,600
+                index_add_ timed beside it, its steps (keys, sort, bounds,
+                short runs, long runs) timed apart; then sample of 2,073,600
                 queries); then the slice's main path, counted: dd_selftest,
                 dd_harness for each op, dd_jitter_demo, sky_environment_map
                 at 2048x1024, eval_lights, GuidingCache create, record and
@@ -280,7 +293,10 @@ of the pixels.
 
 Sweep kernel gates (phases 6 and 9), each set to what the kernel shows
 on the card: K1 bit-identical; K2 every texel of z_sun and e_sky within
-FLOAT_TOL; K3 max |err| <= K3_MAX_ERR and, in every azimuth column, at
+FLOAT_TOL of the plain version, z_sun bit-identical to it, and z_sun and
+e_sky bit-identical to sweep_lighting_stratum_order (the plain recurrence
+summed in the kernel's order: a stratum's bins in bin order, then the
+planes); K3 max |err| <= K3_MAX_ERR and, in every azimuth column, at
 least K3_COL_FRAC of the elements within FLOAT_TOL; K4 at least K4_BYTES
 of the packed bytes equal. K2 and K3 are also run with their rows in
 device memory (the shared-memory limit set to 0) and must give the same
@@ -597,8 +613,19 @@ def scene_bytes(scene) -> int:
     return tensor_bytes(scene.h_pair, scene.mm_pack, scene.level_offset, scene.level_w)
 
 
+# Kernels redesigned for the card: the earlier design and its time in ms,
+# recorded in PERF.md's table from that design's proof run (H100 80GB HBM3,
+# 700.00 W). Printed beside the new time, outside the `kernels` line, whose
+# numbers are all of this run.
+EARLIER = {"K2 sweep_lighting": "one-CTA-a-task design 10.6760",
+           "E7 record": "one-thread-a-bin design 7.6999"}
+
+
 def kernel_row(name, launches, err, ms, plain_ms, bound_ms, bound_by):
     src, rep = REPLACES[name]
+    if name in EARLIER:
+        say("earlier", f"{name}: {ms:.4f} ms in this run; the {EARLIER[name]} ms "
+                       f"(PERF.md, not measured in this run)")
     return {"name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
@@ -919,11 +946,18 @@ def compare_sweep_kernels(tag, plan, scene, rot, jit, timed=False):
     be = int((~within(mp.e_sky, mk.e_sky)).sum())
     require(bz == 0 and be == 0, f"{tag}: K2 disagrees with its plain version on {bz} "
                                  f"texels of z_sun and {be} elements of e_sky")
+    mo = sw.sweep_lighting_stratum_order(*rot, bins)
+    dz, de = int((mo.z_sun != mk.z_sun).sum()), int((mo.e_sky != mk.e_sky).sum())
+    require(dz == 0 and de == 0 and bool(torch.equal(mp.z_sun, mk.z_sun)),
+            f"{tag}: K2 is not bit-identical to its sums in stratum order ({dz} texels of "
+            f"z_sun and {de} elements of e_sky differ) or its z_sun to the plain version's")
     mg = device_memory_rows(lambda: sw._sweep_kernel(*rot, bins))
     require(bool(torch.equal(mg.e_sky, mk.e_sky) and torch.equal(mg.z_sun, mk.z_sun)),
             f"{tag}: K2 differs between shared-memory and device-memory rows")
     res["K2 sweep_lighting"] = (max_abs(mp.e_sky, mk.e_sky),
-                                "every texel within tolerance, global-row path equal",
+                                "every texel within tolerance; z_sun and e_sky bit-identical "
+                                "to the stratum-order sums (0 differ), z_sun to the plain "
+                                "version's; global-row path equal",
                                 *times(lambda: sw._sweep_kernel(*rot, bins),
                                        lambda: sw.sweep_lighting_plain(*rot, bins), 5))
 
@@ -1151,7 +1185,148 @@ def phase_sweep_timing(dem, launches):
         rows.append(kernel_row(name, launches[name], err, ms, plain_ms, bms, by))
         say("sweep timing", f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
                             f"{bms:.4f} ms ({by}), max |err| {err:.3e}, {text}")
+    bins = ts.frame_bins(plan, scene, jit)
+    k2_probe(rot, bins)
+    k2_clusters(rot, bins)
     return rows
+
+
+def k2_one_task(bins, q: int, sun: bool):
+    """SweepBins holding one task of `bins`: the sun, or quadrant q's first
+    sky stratum (its group's substeps kept)."""
+    import torch
+
+    from forge3d_tpu_torch.ops import sweep as sw
+
+    for g in bins.groups:
+        if g.q != q or (sun and not g.has_sun) or (not sun and not g.strata):
+            continue
+        first = 1 if g.has_sun else 0
+        sel = torch.tensor([0] if sun else list(range(first, first + bins.ne)))
+        return sw.SweepBins(groups=(g._replace(
+            has_sun=sun, strata=() if sun else g.strata[:1], w_u=g.w_u[sel], w_v=g.w_v[sel],
+            w_y=g.w_y[sel], tau=g.tau[sel], delta=g.delta[sel], env_w=g.env_w[sel]),),
+            ne=bins.ne)
+    return None
+
+
+def k2_grid(rot, n):
+    """The first n x n of the rotated grid `rot` (h, du, dv), tiled where n
+    is wider: K2's inputs at another width, with the scene's bins."""
+    import torch
+
+    k = -(-n // rot[0].shape[0])
+    return [torch.cat([torch.cat([a] * k, 1)] * k, 0)[:n, :n].contiguous() for a in rot]
+
+
+K2_WIDTHS = (72, 2064, 4100)   # the day cycle's grid (phase 31); 2049^2 and 4097^2 DEMs
+
+
+def launcher_ms(fn, symbol: str, reps: int) -> float:
+    """Mean device time of what fn() enqueues through the ctypes launcher
+    `symbol`: CUDA events recorded just before and after each call of it,
+    after one warm fn(). The wrapper's host work around the launcher (its
+    tables, a pageable copy that waits for the device) is left out."""
+    import torch
+
+    from forge3d_tpu_torch import _kernels
+
+    real, spans = _kernels.lib, []
+
+    class Timed:
+        def __init__(self, lib):
+            self._lib = lib
+
+        def __getattr__(self, name):
+            f = getattr(self._lib, name)
+            if name != symbol:
+                return f
+
+            def call(*args):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = f(*args)
+                end.record()
+                spans.append((start, end))
+                return out
+            return call
+
+    fn()
+    _kernels.lib = lambda: Timed(real())
+    try:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    finally:
+        _kernels.lib = real
+    return sum(a.elapsed_time(b) for a, b in spans) / len(spans)
+
+
+def k2_probe(rot, bins):
+    """K2 at the main path's shapes: each kind of task alone (a one-task
+    table through the launcher), then the whole frame at K2_WIDTHS: the
+    launcher's device time and a synchronised call's wall time, and at the
+    second width also with the rows in device memory."""
+    import torch
+
+    from forge3d_tpu_torch.ops import sweep as sw
+
+    sun_q = next(g.q for g in bins.groups if g.has_sun)
+    for name, q, sun in (("q0 stratum", 0, False), ("q1 stratum", 1, False),
+                         ("q2 stratum", 2, False), ("q3 stratum", 3, False),
+                         (f"sun (q{sun_q})", sun_q, True)):
+        one = k2_one_task(bins, q, sun)
+        if one is None:
+            continue
+        ms = cuda_ms(lambda: sw._sweep_kernel(*rot, one), 5)
+        say("sweep timing", f"K2 {name} alone (ss {one.groups[0].substeps}, "
+                            f"{len(one.groups[0].w_u)} bins): {ms:.4f} ms")
+    for n in K2_WIDTHS:
+        g = k2_grid(rot, n)
+        reps = 10 if n < 1000 else 3
+        ms = launcher_ms(lambda: sw._sweep_kernel(*g, bins), "f3d_sweep_lighting", reps)
+        wall = min(wall_ms(lambda: sw._sweep_kernel(*g, bins))[0] for _ in range(reps))
+        say("sweep timing", f"K2 at {n} x {n}: {ms:.4f} ms a frame on the device (the "
+                            f"launcher's), {wall:.4f} ms a synchronised call (the fastest of "
+                            f"{reps})")
+        if n == K2_WIDTHS[1]:
+            ms = device_memory_rows(lambda: launcher_ms(lambda: sw._sweep_kernel(*g, bins),
+                                                        "f3d_sweep_lighting", reps))
+            say("sweep timing", f"K2 at {n} x {n} with its rows in device memory: {ms:.4f} ms "
+                                f"a frame on the device")
+    torch.cuda.empty_cache()   # the 4100^2 frame's partial planes: 6.45 GB
+
+
+def k2_clusters(rot, bins):
+    """K2's launch at bench.py's width and at K2_WIDTHS: the cluster size,
+    band and the card's resident clusters (cudaOccupancyMaxActiveClusters);
+    at bench.py's width also the frame at other cluster sizes (set through
+    K2_CLUSTERS), and the partial planes' bytes."""
+    from forge3d_tpu_torch.ops import sweep as sw
+
+    V, U = rot[0].shape
+    tasks, _, n_planes = sw.kernel_tables(bins)
+    for n in (V,) + K2_WIDTHS:
+        resident, p = sw.k2_resident_clusters(n, n, bins)
+        say("sweep timing", f"K2's launch at {n} x {n}: {tasks.shape[0]} tasks, "
+                            f"{p.ctas.shape[0]} CTAs of {p.threads} threads in clusters of "
+                            f"{p.cluster}, band {p.band}, {p.smem} B of shared memory, rows in "
+                            f"{'device' if p.use_global else 'shared'} memory; resident clusters "
+                            f"(cudaOccupancyMaxActiveClusters) {resident} for "
+                            f"{tasks.shape[0]} tasks")
+    saved = sw.K2_CLUSTERS
+    try:
+        for cluster in (4, 8, 16):
+            sw.K2_CLUSTERS = (cluster,)
+            resident, p = sw.k2_resident_clusters(V, U, bins)
+            ms = cuda_ms(lambda: sw._sweep_kernel(*rot, bins), 5)
+            say("sweep timing", f"K2 at clusters of {p.cluster} (band {p.band}, {p.threads} "
+                                f"threads): {ms:.4f} ms a frame; resident clusters {resident}")
+    finally:
+        sw.K2_CLUSTERS = saved
+    say("sweep timing", f"K2's partial planes: {n_planes} x {V} x {U} x 12 B = "
+                        f"{n_planes * V * U * 12} B written and read again a frame")
 
 
 # ---------------------------------------------------------------------------
@@ -4189,6 +4364,51 @@ def leaf_frame(dem, dev):
                 sun=tuple(float(c) for c in ctx.sun), lum=lum)
 
 
+SM_CLOCK_HZ = 1.98e9     # the H100 SXM's top SM clock (nvidia-smi clocks.max.sm)
+FADD_CYCLES = 4          # a float add's latency: one link of E7 record's chain
+
+
+def e7_split(cache, px, pz, sd, lum, longest: int, reps: int = 10):
+    """E7 record's steps on the device alone (keys, sort, bounds, short
+    runs, long runs): CUDA events between them, launches queued behind a
+    spin; and the chain floor of the longest run (one float add a record
+    at the top SM clock)."""
+    import torch
+
+    from forge3d_tpu_torch import guiding as gd
+
+    floor_ms = longest * FADD_CYCLES / SM_CLOCK_HZ * 1e3
+    names = ["keys", "sort", "bounds", "short runs", "long runs"]
+    gd._record_kernel(cache, px, pz, *sd, lum)
+    torch.cuda.synchronize()
+    runs = []
+    torch.cuda._sleep(int(4e6 * reps * 8))
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        start.record()
+        marks = []
+
+        def mark(step):
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            marks.append((step, e))
+
+        gd._record_kernel(cache, px, pz, *sd, lum, mark=mark)
+        runs.append((start, marks))
+    hidden = not runs[0][0].query()
+    torch.cuda.synchronize()
+    total = dict.fromkeys(names, 0.0)
+    for start, marks in runs:
+        prev = start
+        for step, e in marks:
+            total[step] += prev.elapsed_time(e) / reps
+            prev = e
+    say("leaf kernels", "E7 record's steps (device ms" + ("" if hidden else ", host gaps in")
+        + "): " + ", ".join(f"{k} {v:.4f}" for k, v in total.items())
+        + f"; sum {sum(total.values()):.4f}; the longest run {longest} records, chain floor "
+          f"{floor_ms:.4f} ms ({FADD_CYCLES} cycles a record at {SM_CLOCK_HZ / 1e9:.2f} GHz)")
+
+
 def phase_leaf_kernels(dem):
     """Phase 30: each leaf kernel against its plain version on the card at
     its users' sizes, timed; then the slice's main path, counted. Returns
@@ -4336,6 +4556,7 @@ def phase_leaf_kernels(dem):
                   plain_r, n * 24 + 2 * hb, n * OPS_GUIDE_KEY, 10, err,
                   lib=lambda: cache.hist.reshape(-1).clone().index_add_(0, idx, lum_flat),
                   note=" (index_add_: its sums depend on the order its atomics land)")
+            e7_split(cache, px, pz, sd, frame["lum"], int(runs.max()))
             B = res_o * res_o
             timed("E7 sample", lambda: gd._sample_kernel(filled, px, pz, u1, u2), plain_s,
                   n * 32 + hb, n * (OPS_GUIDE_BIN * B + OPS_GUIDE_QUERY), 10, err_s)
@@ -4671,6 +4892,43 @@ def phase_sharded(dem):
         dist.destroy_process_group()
 
 
+def probe(torch):
+    """`chip_smoke.py --probe`: K2 and E7 record timed at the main path's
+    shapes (k2_probe), with the day cycle's three hours (phase 31) and no
+    gates. It calls only entry points that the port has had since K2 and
+    E7 were first ported, so copied into a checkout of an earlier tree it
+    times that tree's kernels, and two designs can be compared on one card."""
+    import importlib.util
+    import pathlib
+
+    from forge3d_tpu_torch import guiding as gd
+    from forge3d_tpu_torch.ops import sweep as sw
+    from forge3d_tpu_torch.pt import terrain_sweep as ts
+
+    dem = bench_dem()
+    plan, scene, rot, jit = sweep_setup(dem, REAL_W, REAL_H, BENCH_CAM, torch.device("cuda"),
+                                        spp=2)
+    bins = ts.frame_bins(plan, scene, jit)
+    say("probe", f"K2 whole frame: {cuda_ms(lambda: sw._sweep_kernel(*rot, bins), 5):.4f} ms")
+    k2_probe(rot, bins)
+    path = pathlib.Path(__file__).resolve().parent / "examples" / "daycycle_shadows_torch.py"
+    spec = importlib.util.spec_from_file_location("daycycle_shadows_torch", path)
+    day = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(day)
+    day.render_hours("cuda")
+    runs = [wall_ms(lambda: day.render_hours("cuda"))[0] for _ in range(8)]
+    say("probe", "the day cycle's three hours, warm (ms): " + ", ".join(f"{t:.2f}" for t in runs)
+        + f"; the fastest {min(runs):.2f}")
+    frame = leaf_frame(dem, torch.device("cuda"))
+    px, pz = frame["p"][..., 0].contiguous(), frame["p"][..., 2].contiguous()
+    sd = [torch.full_like(px, c) for c in frame["sun"]]
+    for res_o in (8, 16):
+        cache = gd.GuidingCache.create((0.0, 0.0), (1024.0, 1024.0), cells=LEAF_GRID,
+                                       octa_res=res_o)
+        ms = queued_ms(lambda: gd._record_kernel(cache, px, pz, *sd, frame["lum"]), 10)
+        say("probe", f"E7 record octa_res {res_o}: {ms:.4f} ms")
+
+
 def _jax_modules():
     """JAX and every module of the JAX package: the port imports none."""
     return [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "forge3d_tpu")]
@@ -4703,6 +4961,9 @@ def main() -> int:
                 say("build", line.strip())
 
     torch.backends.cuda.matmul.allow_tf32 = False   # plain versions' einsums in float32
+    if sys.argv[1:] == ["--probe"]:
+        probe(torch)
+        return 0
     phase_kernels()
     launches, dem = phase_render()
     rows = phase_timing(dem, launches)

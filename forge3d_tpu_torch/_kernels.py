@@ -339,9 +339,13 @@ STRUCTS = (ScreenArgs, ScreenOut, ClipArgs, SkyArgs, SdfArgs, MeshArgs, TlasArgs
 _SIGNATURES = {
     # (rot, h_rot, du, dv, stream)
     "f3d_rotate_heights": [ctypes.POINTER(RotArgs), _P, _P, _P, _P],
-    # (h, du, dv, V, U, tasks, n_tasks, table, nb_max, zglob, partial,
-    #  n_planes, e_sky, z_sun, stream)
-    "f3d_sweep_lighting": [_P, _P, _P, _I, _I, _P, _I, _P, _I, _P, _P, _I, _P, _P, _P],
+    # (h, du, dv, V, U, tasks, n_tasks, ctas, n_ctas, cluster, threads, table, nb_max, zs,
+    #  band, groups, invn, zglob, partial, z_orient, plane_q, n_planes, sun_q, e_sky, z_sun,
+    #  stream)
+    "f3d_sweep_lighting": [_P, _P, _P, _I, _I, _P, _I, _P, _I, _I, _I, _P, _I, _I, _I, _I, _P,
+                           _P, _P, _P, _P, _I, _I, _P, _P, _P],
+    # (cluster, threads, nb_max, zs, band, global, n out)
+    "f3d_sweep_clusters": [_I, _I, _I, _I, _I, _I, _P],
     # (polar, h_rot, e_sky, z_sun, corners, acc, scratch, stream)
     "f3d_polar_frame": [ctypes.POINTER(PolarArgs)] + [_P] * 7,
     # (resolve, acc, out, stream)
@@ -460,8 +464,11 @@ _SIGNATURES = {
     "f3d_guide_keys": [ctypes.POINTER(GuideArgs)] + [_P] * 5 + [_LL, _P, _P],
     # (sorted keys, perm, luminance, n, seg_start, seg_end, lum_sorted, stream)
     "f3d_guide_bounds": [_P, _P, _P, _LL, _P, _P, _P, _P],
-    # (seg_start, seg_end, lum_sorted, hist_in, bins, hist_out, stream)
-    "f3d_guide_bins": [_P, _P, _P, _P, _LL, _P, _P],
+    # (seg_start, seg_end, lum_sorted, hist_in, bins, threshold, long_list, hist_out,
+    #  stream)
+    "f3d_guide_bins": [_P, _P, _P, _P, _LL, _I, _P, _P, _P],
+    # (seg_start, seg_end, lum_sorted, hist_in, long_list, max_long, hist_out, stream)
+    "f3d_guide_long": [_P, _P, _P, _P, _P, _I, _P, _P],
     # (guide, hist, px, pz, u1, u2, n, out (4, n), stream)
     "f3d_guide_sample": [ctypes.POINTER(GuideArgs)] + [_P] * 5 + [_LL, _P, _P],
     # C1 entropy: (stream, lens, cap, freq, extras, ecap, n_tiles, d, stream)

@@ -14,16 +14,23 @@
 // E7 octa_encode_kernel, octa_decode_kernel
 //                        replace forge3d_tpu/guiding.py:octa_encode (26) and
 //                        octa_decode (43), one thread a direction or bin
-// E7 record: guide_keys_kernel, guide_bounds_kernel, guide_bins_kernel
+// E7 record: guide_keys_kernel, guide_bounds_kernel, guide_bins_kernel,
+//            guide_long_kernel
 //                        replace GuidingCache.record (82): one thread a
 //                        record forms its flat bin; the caller sorts the
 //                        records by bin, stably (torch.sort); one thread a
 //                        sorted record moves its luminance into sorted
 //                        order and marks where its bin's run starts or ends;
-//                        one thread a bin then adds its run to the bin's old
-//                        value in record order, as JAX's CPU scatter-add
-//                        does. Atomics would land in any order, so the sums
-//                        would change from run to run.
+//                        each bin's run is then added to the bin's old value
+//                        in record order, as JAX's CPU scatter-add does.
+//                        Atomics would land in any order, so the sums would
+//                        change from run to run. One thread a bin adds a
+//                        short run from device memory and lists a long one
+//                        (more than `threshold` records); a block a listed
+//                        bin then streams its run into a shared-memory ring
+//                        with bulk copies (cp.async.bulk, completion on an
+//                        mbarrier a stage) kept ahead of its adder, so
+//                        that the chain waits on float adds, not loads.
 // E7 guide_sample_kernel replaces GuidingCache.sample (92): one thread a
 //                        query walks its cell's row twice, once for the
 //                        total and once for the CDF count, in XLA's sum and
@@ -38,19 +45,48 @@
 // throughput instead: IEEE divisions, sqrtf and the libm calls (E5: six
 // expf and an acosf a direction) are tens of instructions each. E7 record's
 // sums are sequential by contract (record order): the longest run of
-// records in one bin sets its time, one dependent add a record over
-// luminance read contiguously; a 1080p frame under one sun puts ~5 x 10^5
-// records in the bin of the cell at the terrain's near edge.
+// records in one bin sets its time, one dependent add a record; a 1080p
+// frame under one sun puts ~5 x 10^5 records in the bin of the cell at the
+// terrain's near edge. One thread reading such a run from device memory
+// waits on a load every few records (~28 cycles a record); staged ahead in
+// shared memory, the chain's floor is the float add's latency, ~4 cycles
+// a record.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #include "leaf.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kGuideStage = F3D_GUIDE_STAGE;
+constexpr int kGuideStages = 4;     // stages in flight ahead of the adder
 
 inline unsigned blocks(long long n) { return (unsigned)((n + kThreads - 1) / kThreads); }
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+    asm volatile(
+        "{\n\t.reg .pred p;\n"
+        "WAIT:\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n\t"
+        "@!p bra WAIT;\n}\n" ::"r"(bar), "r"(parity) : "memory");
+}
+
+// One bulk copy of `bytes` (a multiple of 16) from src (16-byte aligned)
+// into the stage at dst; the stage's barrier completes when they land.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+                 "r"(bytes) : "memory");
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+        "[%3];\n" ::"r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
 
 __global__ void dd_kernel(int op, const float* __restrict__ ahi, const float* __restrict__ alo,
                           const float* __restrict__ bhi, const float* __restrict__ blo,
@@ -121,14 +157,61 @@ __global__ void guide_bounds_kernel(const int* __restrict__ keys,
     guide_bounds(keys, perm, lum, n, seg_start, seg_end, lum_sorted, s);
 }
 
+// Short runs, one thread a bin; a long run's bin goes on the list
+// (long_list[0] counts them, in no fixed order: each is summed alone).
 __global__ void guide_bins_kernel(const int* __restrict__ seg_start,
                                   const int* __restrict__ seg_end,
                                   const float* __restrict__ lum_sorted,
                                   const float* __restrict__ hist_in, long long bins,
+                                  int threshold, int* __restrict__ long_list,
                                   float* __restrict__ hist_out) {
     const long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     if (k >= bins) return;
+    if (guide_is_long(seg_start, seg_end, k, threshold)) {
+        long_list[1 + atomicAdd(long_list, 1)] = (int)k;
+        return;
+    }
     hist_out[k] = guide_bin_sum(seg_start, seg_end, lum_sorted, hist_in, k);
+}
+
+// Long runs, a block (one warp, one working thread) a listed bin: the
+// thread keeps kGuideStages bulk copies in flight and adds each stage's
+// records in order as it lands.
+__global__ void __launch_bounds__(32)
+guide_long_kernel(const int* __restrict__ seg_start, const int* __restrict__ seg_end,
+                  const float* __restrict__ lum_sorted, const float* __restrict__ hist_in,
+                  const int* __restrict__ long_list, float* __restrict__ hist_out) {
+    __shared__ __align__(128) float ring[kGuideStages][kGuideStage];
+    __shared__ unsigned long long full[kGuideStages];
+    if (threadIdx.x != 0 || (int)blockIdx.x >= long_list[0]) return;
+    const int k = long_list[1 + blockIdx.x];
+    const int start = seg_start[k], end = seg_end[k];
+    const int n = guide_chunk_count(start, end, kGuideStage);
+    for (int s = 0; s < kGuideStages; ++s)
+        asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(&full[s]))
+                     : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    int src, lo, hi;
+    for (int i = 0; i < n && i < kGuideStages; ++i) {
+        const int m = guide_chunk(start, end, kGuideStage, i, &src, &lo, &hi);
+        bulk_load(smem_addr(ring[i]), lum_sorted + src, 4u * m, smem_addr(&full[i]));
+    }
+    float acc = hist_in[k];
+    for (int i = 0; i < n; ++i) {
+        const int s = i % kGuideStages;
+        mbar_wait(smem_addr(&full[s]), (uint32_t)(i / kGuideStages) & 1u);
+        guide_chunk(start, end, kGuideStage, i, &src, &lo, &hi);
+        acc = guide_stage_sum(acc, ring[s], lo, hi);
+        const int nx = i + kGuideStages;
+        if (nx < n) {
+            // the stage's reads are done before the async proxy rewrites it
+            asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+            const int m = guide_chunk(start, end, kGuideStage, nx, &src, &lo, &hi);
+            bulk_load(smem_addr(ring[s]), lum_sorted + src, 4u * m, smem_addr(&full[s]));
+        }
+    }
+    hist_out[k] = acc;
 }
 
 __global__ void guide_sample_kernel(GuideArgs g, const float* __restrict__ hist,
@@ -201,10 +284,22 @@ int f3d_guide_bounds(const int* keys, const long long* perm, const float* lum, l
 }
 
 int f3d_guide_bins(const int* seg_start, const int* seg_end, const float* lum_sorted,
-                   const float* hist_in, long long bins, float* hist_out, void* stream) {
+                   const float* hist_in, long long bins, int threshold, int* long_list,
+                   float* hist_out, void* stream) {
     if (bins > 0)
         guide_bins_kernel<<<blocks(bins), kThreads, 0, (cudaStream_t)stream>>>(
-            seg_start, seg_end, lum_sorted, hist_in, bins, hist_out);
+            seg_start, seg_end, lum_sorted, hist_in, bins, threshold, long_list, hist_out);
+    return (int)cudaGetLastError();
+}
+
+// max_long: the most long runs there can be (the grid; blocks past the
+// listed count return at once). lum_sorted is padded to a multiple of 4.
+int f3d_guide_long(const int* seg_start, const int* seg_end, const float* lum_sorted,
+                   const float* hist_in, const int* long_list, int max_long, float* hist_out,
+                   void* stream) {
+    if (max_long > 0)
+        guide_long_kernel<<<max_long, 32, 0, (cudaStream_t)stream>>>(
+            seg_start, seg_end, lum_sorted, hist_in, long_list, hist_out);
     return (int)cudaGetLastError();
 }
 

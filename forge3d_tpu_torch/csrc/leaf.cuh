@@ -300,6 +300,68 @@ F3D_HD float guide_bin_sum(const int* seg_start, const int* seg_end, const float
     return acc;
 }
 
+// Pass two splits the bins: a run of more than `threshold` records is
+// summed by a block of its own (leaf.cu:guide_long_kernel), which stages
+// the run in chunks of S floats. Chunk i copies the floats from
+// a0 + i * S, a0 = the run's start rounded down to 4 floats (16 bytes, the
+// bulk copy's unit), the last chunk ending at the run's end rounded up to
+// 4 floats (lum_sorted is padded to a multiple of 4). The sum is the same
+// chain as guide_bin_sum's, in record order.
+#define F3D_GUIDE_STAGE 1024   // S: floats a stage of a long run (4 KB)
+
+F3D_HD bool guide_is_long(const int* seg_start, const int* seg_end, long long k,
+                          int threshold) {
+    return seg_end[k] - seg_start[k] > threshold;
+}
+
+F3D_HD int guide_chunk_count(int start, int end, int S) {
+    const int a0 = start & ~3, a1 = (end + 3) & ~3;
+    return (a1 - a0 + S - 1) / S;
+}
+
+// Chunk i of the run [start, end): returns the floats it copies (a multiple
+// of 4) from lum_sorted + *src; [lo, hi) are the run's records in it, as
+// offsets into the chunk.
+F3D_HD int guide_chunk(int start, int end, int S, int i, int* src, int* lo, int* hi) {
+    const int base = (start & ~3) + i * S, a1 = (end + 3) & ~3;
+    *src = base;
+    *lo = start > base ? start - base : 0;
+    *hi = end - base < S ? end - base : S;
+    return a1 - base < S ? a1 - base : S;
+}
+
+// Four records from a 16-byte-aligned address: one vector load on the card.
+F3D_HD void guide_load4(const float* p, float& a, float& b, float& c, float& d) {
+#ifdef __CUDA_ARCH__
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    a = v.x, b = v.y, c = v.z, d = v.w;
+#else
+    a = p[0], b = p[1], c = p[2], d = p[3];
+#endif
+}
+
+// acc plus stage[lo, hi) in record order, stage 16-byte aligned: to a
+// 16-byte boundary, then four records a load (on the card the loads run
+// ahead of the chain of adds), then the rest. guide_long_kernel's sum of a
+// staged chunk, and the host twin's.
+F3D_HD float guide_stage_sum(float acc, const float* stage, int lo, int hi) {
+    int t = lo;
+    for (; t < hi && (t & 3); ++t) acc = acc + stage[t];
+#ifdef __CUDA_ARCH__
+#pragma unroll 8
+#endif
+    for (int u = t >> 2; u < (hi >> 2); ++u) {
+        float a, b, c, d;
+        guide_load4(stage + 4 * u, a, b, c, d);
+        acc = acc + a;
+        acc = acc + b;
+        acc = acc + c;
+        acc = acc + d;
+    }
+    for (t = t > (hi & ~3) ? t : hi & ~3; t < hi; ++t) acc = acc + stage[t];
+    return acc;
+}
+
 // sequential sum of row[lo, hi) from zero
 F3D_HD float leaf_seq_sum(const float* row, int lo, int hi) {
     float acc = 0.0f;

@@ -78,8 +78,12 @@ struct SweepBin {  // one row of the bin table (ops/sweep.py:kernel_tables)
     float wu, wv, wy, one_m, tpos, tneg, deltab, er, eg, eb;
 };
 
-struct SweepTask {  // one CTA: the sun alone, or one sky stratum's bins
+struct SweepTask {  // one task: the sun alone, or one sky stratum's bins
     int q, ss, bin0, nb, plane, emit;
+};
+
+struct SweepCta {  // one CTA of a task: its band of columns [c0, c0 + w)
+    int task, c0, w;
 };
 
 // Rows along the march and the row width of quadrant q's oriented view.
@@ -97,62 +101,74 @@ F3D_HD int sweep_index(int q, int r, int c, int V, int U) {
     }
 }
 
-// _propagate_group.shift_drop at column c of one bin's z row (width Cw).
-F3D_HD float shift_drop(const float* z, int c, int Cw, const SweepBin& b) {
-    float zp = c > 0 ? z[c - 1] : F3D_NEG;
-    float zm = c < Cw - 1 ? z[c + 1] : F3D_NEG;
-    return z[c] * b.one_m + b.tpos * zp + b.tneg * zm - b.deltab;
+// Flat index of texel (v, u) in quadrant q's oriented layout (row r of
+// sweep_width columns): where the task's partial plane and z_sun rows are
+// written, row by row, so that a band's writes are contiguous.
+F3D_HD int sweep_oriented(int q, int v, int u, int V, int U) {
+    switch (q) {
+        case 0: return v * U + u;
+        case 1: return (V - 1 - v) * U + u;
+        case 2: return u * V + v;
+        default: return (U - 1 - u) * V + v;
+    }
 }
 
-// Sub-row step j of ss at oriented row r (r >= 0), for bin b, column c:
-// z <- max(lerp(h_prev, h_row, j/ss), shift_drop(z)).
-F3D_HD float sweep_substep(const float* h, int q, int r, int c, int V, int U, float f,
-                           const float* z, int Cw, const SweepBin& b) {
-    float h_row = h[sweep_index(q, r, c, V, U)];
-    float h_prev = h[sweep_index(q, r > 0 ? r - 1 : 0, c, V, U)];
+// _propagate_group.shift_drop at a column whose z is zc, with its
+// neighbours zp (column - 1) and zm (column + 1), F3D_NEG past the grid.
+F3D_HD float shift_drop(float zp, float zc, float zm, const SweepBin& b) {
+    return zc * b.one_m + b.tpos * zp + b.tneg * zm - b.deltab;
+}
+
+// A band's z rows: a row of zs floats a bin, slot j + 1 holding the band's
+// column c0 + j; slots 0 and w + 1 hold the neighbouring bands' edge
+// columns, or F3D_NEG at the grid's edges (never written).
+
+// Sub-row step (f = j / ss) of row r, for bin b at band slot j:
+// z <- max(lerp(h_prev, h_row, f), shift_drop(z)).
+F3D_HD float sweep_substep(float h_prev, float h_row, float f, const float* z, int j,
+                           const SweepBin& b) {
     float h_mid = h_prev + f * (h_row - h_prev);
-    return fmaxf(h_mid, shift_drop(z, c, Cw, b));
+    return fmaxf(h_mid, shift_drop(z[j - 1], z[j], z[j + 1], b));
 }
 
-// The last (or only) step of oriented row r at column c, for the task's nb
-// bins: reads z_cur (nb rows of width Cw), writes z_nxt, the task's partial
-// e_sky plane and, for the sun, z_sun.
-F3D_HD void sweep_column(const float* h, const float* du, const float* dv, int V, int U,
-                         const SweepTask& t, const SweepBin* bins, int r, int c,
-                         const float* z_cur, float* z_nxt, float* partial, float* z_sun) {
-    const int Cw = sweep_width(t.q, V, U);
-    const int idx = sweep_index(t.q, r, c, V, U);
-    const float h_row = h[idx];
-    const float d_u = du[idx], d_v = dv[idx];
-    const float invn = 1.0f / sqrtf(1.0f + d_u * d_u + d_v * d_v);
-    float e0 = 0.0f, e1 = 0.0f, e2 = 0.0f;
-    for (int b = 0; b < t.nb; ++b) {
-        const SweepBin& bn = bins[b];
-        float z_in = shift_drop(z_cur + b * Cw, c, Cw, bn);
-        float lit = h_row >= z_in ? 1.0f : 0.0f;
-        float cosb = (bn.wy - bn.wu * d_u - bn.wv * d_v) * invn;
-        float contrib = lit * fmaxf(cosb, 0.0f);
-        e0 += contrib * bn.er;
-        e1 += contrib * bn.eg;
-        e2 += contrib * bn.eb;
-        z_nxt[b * Cw + c] = fmaxf(h_row, z_in);
-        if (t.emit && b == 0) z_sun[idx] = z_in;
-    }
-    if (t.plane >= 0) {
-        float* o = partial + ((size_t)t.plane * V * U + idx) * 3;
-        o[0] = e0;
-        o[1] = e1;
-        o[2] = e2;
-    }
+// 1 / |(-du, 1, -dv)|, the normal's length at a node
+F3D_HD float sweep_invn(float d_u, float d_v) {
+    return 1.0f / sqrtf(1.0f + d_u * d_u + d_v * d_v);
 }
 
-// e_sky at texel i: the partial planes summed in their fixed order.
-F3D_HD void sweep_reduce(const float* partial, int n_planes, size_t plane_size, size_t i,
-                         float* e_sky) {
+// The last (or only) step of a row for bin b at band slot j: the bin's new
+// z (z_nxt) and incoming z_in, and its contribution lit * max(cos, 0).
+F3D_HD float sweep_bin(float h_row, float d_u, float d_v, float invn, const SweepBin& bn,
+                       const float* z, int j, float& z_nxt, float& z_in) {
+    z_in = shift_drop(z[j - 1], z[j], z[j + 1], bn);
+    float lit = h_row >= z_in ? 1.0f : 0.0f;
+    float cosb = (bn.wy - bn.wu * d_u - bn.wv * d_v) * invn;
+    z_nxt = fmaxf(h_row, z_in);
+    return lit * fmaxf(cosb, 0.0f);
+}
+
+// Channel c (0 r, 1 g, 2 b) of a column's e_sky: its nb bins'
+// contributions (stride floats apart) weighted and summed in bin order.
+F3D_HD float sweep_sum(const float* __restrict__ contrib, int stride, int nb,
+                       const SweepBin* __restrict__ bins, int c) {
+    float e = 0.0f;
+#ifdef __CUDA_ARCH__
+#pragma unroll 4
+#endif
+    for (int b = 0; b < nb; ++b) e += contrib[b * stride] * (&bins[b].er)[c];
+    return e;
+}
+
+// e_sky at texel (v, u): the partial planes (oriented by plane_q) summed
+// in their fixed order.
+F3D_HD void sweep_reduce(const float* partial, const int* plane_q, int n_planes, int V, int U,
+                         int v, int u, float* e_sky) {
+    const size_t plane = (size_t)V * U;
     for (int c = 0; c < 3; ++c) {
         float s = 0.0f;
-        for (int p = 0; p < n_planes; ++p) s += partial[p * plane_size * 3 + i * 3 + c];
-        e_sky[i * 3 + c] = s;
+        for (int p = 0; p < n_planes; ++p)
+            s += partial[(p * plane + sweep_oriented(plane_q[p], v, u, V, U)) * 3 + c];
+        e_sky[((size_t)v * U + u) * 3 + c] = s;
     }
 }
 

@@ -254,31 +254,57 @@ def record_plain(hist: torch.Tensor, flat: torch.Tensor, lum: torch.Tensor) -> t
     return torch.from_numpy(out).reshape(hist.shape).to(hist.device)
 
 
-def _record_kernel(cache: GuidingCache, px, pz, dx, dy, dz, lum) -> torch.Tensor:
+# E7 record's split: a run of more records than this is summed by a block
+# of its own from a shared-memory ring (csrc/leaf.cu:guide_long_kernel);
+# shorter runs by one thread a bin from device memory.
+RECORD_LONG_RUN = 1024
+
+
+def _record_kernel(cache: GuidingCache, px, pz, dx, dy, dz, lum, mark=None) -> torch.Tensor:
+    """E7 record on the card: keys, a stable sort by key, the runs' bounds,
+    then the short runs one thread a bin and the long runs a block a bin.
+    `mark(step)`, if given, is called after each step is queued (the split
+    timing in chip_smoke.py)."""
     ins = [t.contiguous() for t in (px, pz, dx, dy, dz, lum)]
     _kernels.require_cuda("E7 record", cache.hist, *ins)
+    mark = mark or (lambda step: None)
     n = ins[0].numel()
     g = cache.kernel_args()
-    keys = torch.empty(n, dtype=torch.int32, device=cache.hist.device)
-    stream = _kernels.stream_ptr(keys.device)
+    dev = cache.hist.device
+    keys = torch.empty(n, dtype=torch.int32, device=dev)
+    stream = _kernels.stream_ptr(dev)
     err = _kernels.lib().f3d_guide_keys(g, *(_kernels.ptr(t) for t in ins[:5]), n,
                                         _kernels.ptr(keys), stream)
     _kernels.check(err, "E7 record (keys)")
+    mark("keys")
     skeys, perm = torch.sort(keys, stable=True)
+    mark("sort")
     hist_in = cache.hist.contiguous()
     bins = hist_in.numel()
-    seg = torch.zeros((2, bins), dtype=torch.int32, device=keys.device)   # empty runs
-    lum_sorted = torch.empty_like(ins[5])
+    seg = torch.zeros((2, bins), dtype=torch.int32, device=dev)   # empty runs
+    # padded to 4 floats: the long runs' bulk copies move 16 bytes at a time
+    lum_sorted = torch.zeros(-(-n // 4) * 4, dtype=_F32, device=dev)
     err = _kernels.lib().f3d_guide_bounds(_kernels.ptr(skeys.contiguous()),
                                           _kernels.ptr(perm.contiguous()), _kernels.ptr(ins[5]),
                                           n, _kernels.ptr(seg[0]), _kernels.ptr(seg[1]),
                                           _kernels.ptr(lum_sorted), stream)
     _kernels.check(err, "E7 record (bounds)")
+    mark("bounds")
+    max_long = min(bins, n // (RECORD_LONG_RUN + 1))
+    long_list = torch.zeros(1 + max_long, dtype=torch.int32, device=dev)
     out = torch.empty_like(hist_in)
     err = _kernels.lib().f3d_guide_bins(_kernels.ptr(seg[0]), _kernels.ptr(seg[1]),
                                         _kernels.ptr(lum_sorted), _kernels.ptr(hist_in), bins,
+                                        RECORD_LONG_RUN, _kernels.ptr(long_list),
                                         _kernels.ptr(out), stream)
-    _kernels.check(err, "E7 record")
+    _kernels.check(err, "E7 record (short runs)")
+    mark("short runs")
+    err = _kernels.lib().f3d_guide_long(_kernels.ptr(seg[0]), _kernels.ptr(seg[1]),
+                                        _kernels.ptr(lum_sorted), _kernels.ptr(hist_in),
+                                        _kernels.ptr(long_list), max_long, _kernels.ptr(out),
+                                        stream)
+    _kernels.check(err, "E7 record (long runs)")
+    mark("long runs")
     GuidingCache.record.launches += 1
     return out
 

@@ -23,6 +23,7 @@
 
 from __future__ import annotations
 
+import ctypes
 import math
 from dataclasses import dataclass
 from typing import List, NamedTuple, Tuple
@@ -446,6 +447,63 @@ def sweep_lighting_plain(h, du, dv, bins: SweepBins) -> SweepMaps:
     return SweepMaps(e_sky=e_total, z_sun=z_sun)
 
 
+def sweep_lighting_stratum_order(h, du, dv, bins: SweepBins) -> SweepMaps:
+    """K2's own summation order in plain PyTorch: the recurrence of
+    `sweep_lighting_plain`, but each sky stratum's bins summed in bin order
+    into the stratum's plane and the planes added in the order of
+    `kernel_tables`, as the kernel sums them (sweep_lighting_plain sums a
+    quadrant's bins as one matrix product, so its e_sky differs in the last
+    bits). The kernel equals this bit for bit, whatever its decomposition."""
+    V, U = h.shape
+    dev = h.device
+    planes = []
+    z_sun = torch.full((V, U), NEG32, dtype=_F32, device=dev)
+    for g in bins.groups:
+        hq, duq, dvq = _orient(h, g.q), _orient(du, g.q), _orient(dv, g.q)
+        R, Cw = hq.shape
+        B = g.tau.shape[0]
+        one_m, tpos, tneg, deltab = (c.to(dev)[:, None] for c in _step_constants(
+            g.tau, g.delta, g.substeps))
+        w_u, w_v, w_y = (c.to(dev)[:, None] for c in (g.w_u, g.w_v, g.w_y))
+        sky = slice(1 if g.has_sun else 0, B)
+        env = g.env_w.to(dev)[sky].reshape(len(g.strata), bins.ne, 1, 3)
+        neg = torch.full((B, 1), NEG32, dtype=_F32, device=dev)
+
+        def shift_drop(z):
+            zp = torch.cat([neg, z[:, :-1]], dim=1)
+            zm = torch.cat([z[:, 1:], neg], dim=1)
+            return z * one_m + tpos * zp + tneg * zm - deltab
+
+        z = torch.full((B, Cw), NEG32, dtype=_F32, device=dev)
+        e_rows, z_rows = [], []
+        for r in range(R):
+            h_row, h_prev = hq[r], hq[max(r - 1, 0)]
+            for j in range(1, g.substeps):
+                h_mid = h_prev + f32(j / g.substeps) * (h_row - h_prev)
+                z = torch.maximum(h_mid[None, :], shift_drop(z))
+            z_in = shift_drop(z)
+            invn = rsqrt(1.0 + duq[r] * duq[r] + dvq[r] * dvq[r])
+            lit = (h_row[None, :] >= z_in).to(_F32)
+            cosb = (w_y - w_u * duq[r][None, :] - w_v * dvq[r][None, :]) * invn[None, :]
+            contrib = (lit * torch.clamp(cosb, min=0.0))[sky].reshape(len(g.strata), bins.ne,
+                                                                      Cw, 1)
+            e = torch.zeros((len(g.strata), Cw, 3), dtype=_F32, device=dev)
+            for k in range(bins.ne):
+                e = e + contrib[:, k] * env[:, k]
+            e_rows.append(e)
+            z_rows.append(z_in[0])
+            z = torch.maximum(h_row[None, :], z_in)
+        if g.strata:
+            planes += list(_unorient(torch.stack(e_rows, 1).permute(1, 2, 0, 3), g.q)
+                           .permute(2, 0, 1, 3))
+        if g.has_sun:
+            z_sun = _unorient(torch.stack(z_rows), g.q).contiguous()
+    e_sky = torch.zeros((V, U, 3), dtype=_F32, device=dev)
+    for p in planes:
+        e_sky = e_sky + p
+    return SweepMaps(e_sky=e_sky, z_sun=z_sun)
+
+
 # Columns of a K2 bin-table row (csrc/sweep.cuh:SweepBin).
 _BIN_FIELDS = 10
 
@@ -476,6 +534,117 @@ def kernel_tables(bins: SweepBins):
     return torch.tensor(tasks, dtype=torch.int32).reshape(-1, 6), table, n_planes
 
 
+# K2's thread block clusters: a task's columns split into bands, one CTA
+# each, a cluster of K2_CLUSTERS[i] CTAs a task: the fewest whose bands are
+# at most K2_BAND columns wide, else the most (16, a non-portable size past
+# 8, which an H100 allows) while a band's threads fit a CTA. Measured on an
+# H100 (PERF.md): 1 CTA a task runs a narrow grid with no exchange; 7 keeps
+# the 32 strata of bench.py's 1032-column grid resident at once
+# (cudaOccupancyMaxActiveClusters 32; 4 and 8 leave 30, 11 or 14 fewer),
+# the sun's task queued last; 16 is the fastest past that width.
+K2_CLUSTERS = (1, 7, 16)
+K2_BAND = 148
+# A device-memory task's bins in this many groups, its one CTA's threads
+# looping over the (group, column) pairs (the fastest of 1-4 on an H100).
+K2_GLOBAL_GROUPS = 2
+# Shared memory of K2's input ring a band column: kRingSlots (3) chunks of
+# kRingRows + 1 (5) floats for h, du, dv and the normal's 1/length
+# (csrc/sweep.cu).
+_RING_FLOATS_PER_COLUMN = 3 * 4 * 5
+_BINS_PER_THREAD = 4    # kBinsPerThread
+_SMEM_THREADS = 800     # kSweepSmemThreads
+
+
+def _even_bands(width: int, n: int) -> List[int]:
+    """Band widths of `width` columns over n CTAs: ceil(width / n) each, the
+    last ones narrower or empty."""
+    band = -(-width // n)
+    return [max(0, min(band, width - k * band)) for k in range(n)]
+
+
+class K2Plan(NamedTuple):
+    """K2's launch: one (task, c0, w) row a CTA, a task's CTAs consecutive
+    inside one cluster; the CTA scheduler places clusters in this order, so
+    the tasks with the most steps come first and the sun's (one bin, the
+    least work a step) last, where it waits if the card holds no more."""
+
+    ctas: torch.Tensor    # (n_ctas, 3) int32
+    cluster: int
+    band: int             # the widest band
+    zs: int               # z rows' pitch: band + 2 ghost columns
+    threads: int
+    groups: int           # a task's bins split into this many groups, a thread a group
+    use_global: bool      # z rows in device memory, one CTA a task
+    smem: int             # dynamic shared memory bytes a CTA
+
+
+def _k2_layout(V: int, U: int, tasks: torch.Tensor, n: int, use_global: bool,
+               groups: int) -> K2Plan:
+    """Each task's columns in n bands (`_even_bands`), its bins in `groups`
+    groups, a thread a (group, column)."""
+    nb_max = int(tasks[:, 3].max()) if tasks.numel() else 0
+    steps = [(V if q < 2 else U) * ss for q, ss in tasks[:, :2].tolist()]
+    order = sorted(range(len(steps)), key=lambda ti: (int(tasks[ti, 3]) < 2, -steps[ti]))
+    rows = []
+    for ti in order:
+        width = U if int(tasks[ti, 0]) < 2 else V
+        c0 = 0
+        for w in _even_bands(width, n):
+            rows.append((ti, c0, w))
+            c0 += w
+    band = max([w for _, _, w in rows], default=1)
+    zs = band + 2
+    smem = ((nb_max * _BIN_FIELDS + 3) & ~3) * 4
+    if not use_global:
+        smem += (2 * nb_max * (zs + band) + _RING_FLOATS_PER_COLUMN * band) * 4
+    threads = max(32, min(1024, -(-groups * band // 32) * 32))
+    ctas = torch.tensor(rows, dtype=torch.int32).reshape(-1, 3)
+    return K2Plan(ctas, n, band, zs, threads, groups, use_global, smem)
+
+
+def k2_plan(V: int, U: int, tasks: torch.Tensor) -> K2Plan:
+    """K2's launch for a (V, U) grid: a task's bins in the fewest groups of
+    at most _BINS_PER_THREAD, a thread a (group, column), its columns in
+    bands over a cluster of K2_CLUSTERS' size (see there). Where no size
+    fits a band's threads in _SMEM_THREADS, or a CTA passes
+    _kernels.SMEM_LIMIT, each task runs as one CTA with its z rows in device
+    memory."""
+    nb_max = int(tasks[:, 3].max()) if tasks.numel() else 0
+    g = max(1, -(-nb_max // _BINS_PER_THREAD))
+    width = max(V, U, 1)
+    fits = [c for c in K2_CLUSTERS if g * -(-width // c) <= _SMEM_THREADS]
+    if fits:
+        n = next((c for c in fits if -(-width // c) <= K2_BAND), fits[-1])
+        p = _k2_layout(V, U, tasks, n, False, g)
+        if p.smem <= _kernels.SMEM_LIMIT:
+            return p
+    return _k2_layout(V, U, tasks, 1, True, K2_GLOBAL_GROUPS)
+
+
+# (V, U, task table, K2's settings) -> (plan, the task, CTA and plane tables
+# on the card): a grid and stratification keep their launch from frame to
+# frame, so its tables are built and copied once (at most _K2_KEEP kept).
+_K2_LAUNCHES = {}
+_K2_KEEP = 64
+
+
+def _k2_launch(V: int, U: int, tasks: torch.Tensor, n_planes: int, dev):
+    key = (V, U, tasks.numpy().tobytes(), n_planes, K2_CLUSTERS, K2_BAND, K2_GLOBAL_GROUPS,
+           _kernels.SMEM_LIMIT, str(dev))
+    hit = _K2_LAUNCHES.get(key)
+    if hit is None:
+        if len(_K2_LAUNCHES) >= _K2_KEEP:
+            _K2_LAUNCHES.clear()
+        p = k2_plan(V, U, tasks)
+        plane_q = torch.zeros(n_planes, dtype=torch.int32)
+        for q, plane in tasks[:, [0, 4]].tolist():
+            if plane >= 0:
+                plane_q[plane] = q
+        ints = torch.cat([tasks.reshape(-1), p.ctas.reshape(-1), plane_q]).to(dev)
+        hit = _K2_LAUNCHES[key] = (p, ints)
+    return hit
+
+
 def _sweep_kernel(h, du, dv, bins: SweepBins) -> SweepMaps:
     h, du, dv = (t.contiguous() for t in (h, du, dv))
     _kernels.require_cuda("sweep_lighting", h, du, dv)
@@ -483,24 +652,43 @@ def _sweep_kernel(h, du, dv, bins: SweepBins) -> SweepMaps:
     V, U = h.shape
     tasks, table, n_planes = kernel_tables(bins)
     nb_max = int(tasks[:, 3].max()) if tasks.numel() else 0
-    width = max(V, U)
-    zbytes = 2 * nb_max * width * 4
-    use_global = zbytes > _kernels.SMEM_LIMIT
-    zbuf = torch.empty((tasks.shape[0], 2 * nb_max * width) if use_global else (0,),
+    p, ints = _k2_launch(V, U, tasks, n_planes, dev)
+    emit = [q for q, e in tasks[:, [0, 5]].tolist() if e]
+    sun_q = emit[0] if emit else -1
+    t_ptr, c_ptr, q_ptr = (_kernels.ptr(ints[a:]) for a in
+                           (0, tasks.numel(), tasks.numel() + p.ctas.numel()))
+    zbuf = torch.empty(p.ctas.shape[0] * 2 * nb_max * (p.zs + p.band) if p.use_global else 0,
                        dtype=_F32, device=dev)
+    # partial planes and the sun's z rows in the oriented layout of their task
     partial = torch.empty((n_planes, V, U, 3), dtype=_F32, device=dev)
+    z_orient = torch.empty((V * U) if emit else (0,), dtype=_F32, device=dev)
+    invn = torch.empty((V, U), dtype=_F32, device=dev)
     e_sky = torch.empty((V, U, 3), dtype=_F32, device=dev)
     z_sun = torch.full((V, U), NEG32, dtype=_F32, device=dev)
-    tasks_d = tasks.to(dev)
     table_d = table.to(dev)
     err = _kernels.lib().f3d_sweep_lighting(
-        _kernels.ptr(h), _kernels.ptr(du), _kernels.ptr(dv), V, U,
-        _kernels.ptr(tasks_d), int(tasks.shape[0]), _kernels.ptr(table_d), nb_max,
-        _kernels.ptr(zbuf) if use_global else None, _kernels.ptr(partial), n_planes,
+        _kernels.ptr(h), _kernels.ptr(du), _kernels.ptr(dv), V, U, t_ptr, int(tasks.shape[0]),
+        c_ptr, int(p.ctas.shape[0]), p.cluster, p.threads, _kernels.ptr(table_d), nb_max, p.zs,
+        p.band, p.groups, _kernels.ptr(invn), _kernels.ptr(zbuf) if p.use_global else None,
+        _kernels.ptr(partial), _kernels.ptr(z_orient), q_ptr, n_planes, sun_q,
         _kernels.ptr(e_sky), _kernels.ptr(z_sun), _kernels.stream_ptr(dev))
     _kernels.check(err, "K2 sweep_lighting")
     sweep_lighting.launches += 1
     return SweepMaps(e_sky=e_sky, z_sun=z_sun)
+
+
+def k2_resident_clusters(V: int, U: int, bins: SweepBins) -> Tuple[int, K2Plan]:
+    """(cudaOccupancyMaxActiveClusters, plan) of K2's launch for these bins
+    on a (V, U) grid: the most clusters of its shape the card holds at
+    once."""
+    tasks, _, _ = kernel_tables(bins)
+    p = k2_plan(V, U, tasks)
+    n = ctypes.c_int(0)
+    nb_max = int(tasks[:, 3].max()) if tasks.numel() else 0
+    err = _kernels.lib().f3d_sweep_clusters(p.cluster, p.threads, nb_max, p.zs, p.band,
+                                            int(p.use_global), ctypes.addressof(n))
+    _kernels.check(err, "K2 sweep_lighting (occupancy)")
+    return n.value, p
 
 
 def sweep_lighting(h, du, dv, bins: SweepBins) -> SweepMaps:

@@ -744,6 +744,10 @@ def test_csm_state_functions_equal():
 
     saved = (jsh.csm_state(), tsh.csm_state())
     try:
+        # start equal: another test file may have left the JAX module's
+        # state changed, and the comparison reads keys it does not set
+        tsh._STATE.clear()
+        tsh._STATE.update(jsh.csm_state())
         for mod in (jsh, tsh):
             mod.configure_csm(cascade_count=3, near=1.0, far=800.0, lam=0.5, pcf_kernel=7)
             mod.set_csm_light_direction(0.3, -1.0, 0.2)

@@ -52,6 +52,7 @@ HOST_LAUNCHERS = r"""
 #include "smoke.cuh"
 #include "leaf.cuh"
 #include "codec.cuh"
+#include <algorithm>
 #include <vector>
 extern "C" {
 int f3d_trace(const SceneArgs* s, const float* rox, const float* roy, const float* roz,
@@ -141,32 +142,87 @@ int f3d_rotate_heights(const RotArgs* r, float* h_rot, float* du, float* dv, voi
         }
     return 0;
 }
+// K2 as the clustered kernel decomposes it, run in order: each task's
+// bands (its CTAs) step one after another, then the halo exchange (each
+// band's edge columns into its neighbours' ghost slots) that the kernel's
+// pushes make; a row's last step in its two phases; the partial planes and
+// the sun's z rows in their oriented layout, then the reduce's unorient and
+// plane-order sum
 int f3d_sweep_lighting(const float* h, const float* du, const float* dv, int V, int U,
-                       const int* tasks, int n_tasks, const float* table, int, float*,
-                       float* partial, int n_planes, float* e_sky, float* z_sun, void*) {
+                       const int* tasks, int, const int* ctas, int n_ctas, int, int,
+                       const float* table, int nb_max, int zs, int, int, float* invn, float*,
+                       float* partial, float* z_orient, const int* plane_q, int n_planes,
+                       int sun_q, float* e_sky, float* z_sun, void*) {
+    for (size_t i = 0; i < (size_t)V * U; ++i) invn[i] = sweep_invn(du[i], dv[i]);
     const SweepTask* T = reinterpret_cast<const SweepTask*>(tasks);
+    const SweepCta* C = reinterpret_cast<const SweepCta*>(ctas);
     const SweepBin* B = reinterpret_cast<const SweepBin*>(table);
-    for (int ti = 0; ti < n_tasks; ++ti) {
-        const SweepTask t = T[ti];
+    for (int first = 0; first < n_ctas;) {
+        const SweepTask t = T[C[first].task];
+        int n = 0;
+        while (first + n < n_ctas && C[first + n].task == C[first].task) ++n;
+        const SweepCta* band = C + first;
         const int R = sweep_rows(t.q, V, U), Cw = sweep_width(t.q, V, U);
-        std::vector<float> za(t.nb * Cw, F3D_NEG), zb(t.nb * Cw);
+        const SweepBin* bins = B + t.bin0;
+        std::vector<float> z((size_t)n * 2 * nb_max * zs, F3D_NEG);
+        auto buf = [&](int k, int p) { return z.data() + ((size_t)k * 2 + p) * nb_max * zs; };
+        auto at = [&](const float* a, int r, int k, int j) {
+            return a[sweep_index(t.q, r, band[k].c0 + j, V, U)];
+        };
+        auto exchange = [&](int p) {
+            for (int k = 0; k < n; ++k)
+                for (int b = 0; b < t.nb && band[k].w > 0; ++b) {
+                    if (k > 0) buf(k - 1, p)[b * zs + band[k - 1].w + 1] = buf(k, p)[b * zs + 1];
+                    if (k + 1 < n) buf(k + 1, p)[b * zs] = buf(k, p)[b * zs + band[k].w];
+                }
+        };
+        int cur = 0;
         for (int r = 0; r < R; ++r) {
             for (int j = 1; j < t.ss; ++j) {
                 const float f = (float)((double)j / (double)t.ss);
-                for (int i = 0; i < t.nb * Cw; ++i) {
-                    int b = i / Cw, c = i - b * Cw;
-                    zb[i] = sweep_substep(h, t.q, r, c, V, U, f, za.data() + b * Cw, Cw,
-                                          B[t.bin0 + b]);
-                }
-                za.swap(zb);
+                for (int k = 0; k < n; ++k)
+                    for (int b = 0; b < t.nb; ++b)
+                        for (int jj = 0; jj < band[k].w; ++jj)
+                            buf(k, 1 - cur)[b * zs + jj + 1] = sweep_substep(
+                                at(h, r > 0 ? r - 1 : 0, k, jj), at(h, r, k, jj), f,
+                                buf(k, cur) + b * zs, jj + 1, bins[b]);
+                exchange(1 - cur);
+                cur = 1 - cur;
             }
-            for (int c = 0; c < Cw; ++c)
-                sweep_column(h, du, dv, V, U, t, B + t.bin0, r, c, za.data(), zb.data(),
-                             partial, z_sun);
-            za.swap(zb);
+            // a row's last step: phase A a (bin, column), phase B a column
+            for (int k = 0; k < n; ++k) {
+                std::vector<float> contrib((size_t)t.nb * band[k].w);
+                for (int b = 0; b < t.nb; ++b)
+                    for (int jj = 0; jj < band[k].w; ++jj) {
+                        float zv, z_in;
+                        contrib[(size_t)b * band[k].w + jj] = sweep_bin(
+                            at(h, r, k, jj), at(du, r, k, jj), at(dv, r, k, jj),
+                            at(invn, r, k, jj), bins[b],
+                            buf(k, cur) + b * zs, jj + 1, zv, z_in);
+                        buf(k, 1 - cur)[b * zs + jj + 1] = zv;
+                        if (b == 0 && t.emit) z_orient[(size_t)r * Cw + band[k].c0 + jj] = z_in;
+                    }
+                for (int jj = 0; jj < band[k].w && t.plane >= 0; ++jj) {
+                    const size_t o = (size_t)r * Cw + band[k].c0 + jj;
+                    for (int c = 0; c < 3; ++c)
+                        partial[((size_t)t.plane * V * U + o) * 3 + c] =
+                            sweep_sum(contrib.data() + jj, band[k].w, t.nb, bins, c);
+                }
+            }
+            exchange(1 - cur);
+            cur = 1 - cur;
         }
+        first += n;
     }
-    for (size_t i = 0; i < (size_t)V * U; ++i) sweep_reduce(partial, n_planes, (size_t)V * U, i, e_sky);
+    for (int v = 0; v < V; ++v)
+        for (int u = 0; u < U; ++u) {
+            sweep_reduce(partial, plane_q, n_planes, V, U, v, u, e_sky);
+            if (sun_q >= 0) z_sun[(size_t)v * U + u] = z_orient[sweep_oriented(sun_q, v, u, V, U)];
+        }
+    return 0;
+}
+int f3d_sweep_clusters(int, int, int, int, int, int, int* n) {   // no clusters on the host
+    *n = 0;
     return 0;
 }
 int f3d_polar_frame(const PolarArgs* pa, const float* h_rot, const float* e_sky,
@@ -473,9 +529,34 @@ int f3d_guide_bounds(const int* keys, const long long* perm, const float* lum, l
     return 0;
 }
 int f3d_guide_bins(const int* seg_start, const int* seg_end, const float* lum_sorted,
-                   const float* hist_in, long long bins, float* hist_out, void*) {
-    for (long long k = 0; k < bins; ++k)
-        hist_out[k] = guide_bin_sum(seg_start, seg_end, lum_sorted, hist_in, k);
+                   const float* hist_in, long long bins, int threshold, int* long_list,
+                   float* hist_out, void*) {
+    for (long long k = 0; k < bins; ++k) {
+        if (guide_is_long(seg_start, seg_end, k, threshold))
+            long_list[1 + long_list[0]++] = (int)k;
+        else
+            hist_out[k] = guide_bin_sum(seg_start, seg_end, lum_sorted, hist_in, k);
+    }
+    return 0;
+}
+// a listed bin's run staged chunk by chunk, as the block's ring holds it
+int f3d_guide_long(const int* seg_start, const int* seg_end, const float* lum_sorted,
+                   const float* hist_in, const int* long_list, int max_long, float* hist_out,
+                   void*) {
+    std::vector<float> stage(F3D_GUIDE_STAGE);
+    for (int b = 0; b < long_list[0] && b < max_long; ++b) {
+        const int k = long_list[1 + b], start = seg_start[k], end = seg_end[k];
+        float acc = hist_in[k];
+        for (int i = 0; i < guide_chunk_count(start, end, F3D_GUIDE_STAGE); ++i) {
+            int src, lo, hi;
+            const int m = guide_chunk(start, end, F3D_GUIDE_STAGE, i, &src, &lo, &hi);
+            if (src % 4 != 0 || m % 4 != 0 || m > F3D_GUIDE_STAGE) return 1;   // not 16-byte copies
+            std::fill(stage.begin(), stage.end(), NAN);   // a read outside [lo, hi) shows
+            std::copy(lum_sorted + src, lum_sorted + src + m, stage.begin());
+            acc = guide_stage_sum(acc, stage.data(), lo, hi);
+        }
+        hist_out[k] = acc;
+    }
     return 0;
 }
 int f3d_guide_sample(const GuideArgs* g, const float* hist, const float* px, const float* pz,
@@ -772,6 +853,102 @@ def test_sweep_lighting_kernel_sun_only(kernels):
     got = sw._sweep_kernel(*rot, bins)
     assert close_frac(ref.z_sun, got.z_sun) >= FRAC
     assert float(got.e_sky.abs().max()) == 0.0
+
+
+def narrow_last(width, n):
+    """Band widths of `width` columns over n CTAs with the last band 2
+    columns wide (in place of sw._even_bands)."""
+    head = width - 2
+    return [head // (n - 1) + (k < head % (n - 1)) for k in range(n - 1)] + [2]
+
+
+@pytest.mark.parametrize("rows,bands,narrow", [
+    ("shared_rows", 1, False), ("shared_rows", 2, False), ("shared_rows", 3, True),
+    ("global_rows", 1, False)], ids=["1_band", "2_bands", "3_bands_last_2_wide", "global_rows"])
+@pytest.mark.parametrize("ss", [1, 2])
+def test_sweep_lighting_bands(kernels, rows, bands, narrow, ss, monkeypatch):
+    """K2's decomposition (bands, a halo exchange a step, the oriented
+    partial planes and the reduce's unorient) against its sums in plain
+    PyTorch, bit for bit: z_sun equal to sweep_lighting_plain's, e_sky to
+    sweep_lighting_stratum_order's (the plain version's within tolerance),
+    every quadrant at ss substeps a row. The band count is set through
+    K2_CLUSTERS, the band widths through _even_bands."""
+    plan, scene, rot, jit = sweep_case(kernels, env=ENV)
+    bins = sw.sweep_bins(strata=plan.strata, key=jit.k_sky, env=scene.env_host,
+                         e_u=plan.rg.e_u, e_v=plan.rg.e_v, sun_world=plan.sun_w,
+                         spacing=plan.rg.spacing, substeps=ss, sky_substeps=ss)
+    assert sorted(g.q for g in bins.groups) == [0, 1, 2, 3]
+    assert all(g.substeps == ss for g in bins.groups)
+    monkeypatch.setattr(sw, "_K2_LAUNCHES", {})
+    monkeypatch.setattr(sw, "K2_CLUSTERS", (bands,))
+    if narrow:
+        monkeypatch.setattr(sw, "_even_bands", narrow_last)
+    if rows == "global_rows":  # a limit of 0 sends the z rows to device memory
+        monkeypatch.setattr(_kernels, "SMEM_LIMIT", 0)
+    tasks, _, _ = sw.kernel_tables(bins)
+    p = sw.k2_plan(*rot[0].shape, tasks)
+    assert p.use_global == (rows == "global_rows") and p.cluster == bands
+    if narrow:
+        assert int(p.ctas[:, 2].min()) == 2
+    got = sw._sweep_kernel(*rot, bins)
+    ref = sw.sweep_lighting_stratum_order(*rot, bins)
+    plain = sw.sweep_lighting_plain(*rot, bins)
+    assert torch.equal(got.z_sun, plain.z_sun) and torch.equal(ref.z_sun, plain.z_sun)
+    assert torch.equal(got.e_sky, ref.e_sky)
+    assert close_frac(plain.e_sky, got.e_sky) >= 0.995 and float(got.e_sky.max()) > 0.0
+
+
+def k2_tasks(ss_sun=2):
+    """bench.py's K2 task table: the sun (quadrant 1, ss_sun substeps a
+    row), then 32 strata of 12 bins, 8 a quadrant."""
+    rows = [[1, ss_sun, 0, 1, -1, 1]]
+    rows += [[k // 8, ss_sun if k // 8 == 1 else 1, 1 + 12 * k, 12, k, 0] for k in range(32)]
+    return torch.tensor(rows, dtype=torch.int32)
+
+
+@pytest.mark.parametrize("width,cluster,band,rows", [
+    (72, 1, 72, "shared"), (148, 1, 148, "shared"), (149, 7, 22, "shared"),
+    (1032, 7, 148, "shared"), (1036, 7, 148, "shared"), (1037, 16, 65, "shared"),
+    (2064, 16, 129, "shared"), (4256, 16, 266, "shared"), (4257, 1, 4257, "device")])
+def test_k2_plan_by_width(width, cluster, band, rows):
+    """K2's cluster size follows the grid's width: one CTA a task up to
+    K2_BAND columns, then 7, then 16 while a band's threads fit a CTA,
+    then one CTA a task with its rows in device memory. Every column is in
+    exactly one band of its task, the longest tasks first and the sun
+    last."""
+    tasks = k2_tasks()
+    p = sw.k2_plan(width, width, tasks)
+    assert (p.cluster, p.band, "device" if p.use_global else "shared") == (cluster, band, rows)
+    assert p.groups == (sw.K2_GLOBAL_GROUPS if p.use_global else 3)
+    assert p.threads <= (1024 if p.use_global else sw._SMEM_THREADS)
+    ctas = p.ctas.tolist()
+    assert len(ctas) == tasks.shape[0] * p.cluster
+    for k in range(tasks.shape[0]):
+        mine = ctas[k * p.cluster:(k + 1) * p.cluster]
+        assert len({t for t, _, _ in mine}) == 1
+        assert [c0 for _, c0, _ in mine] == [sum(w for _, _, w in mine[:i]) for i in range(len(mine))]
+        assert sum(w for _, _, w in mine) == width
+    order = [t for t, _, _ in ctas[::p.cluster]]
+    assert order[-1] == 0 and all(int(tasks[t, 1]) == 2 for t in order[:8])
+
+
+def test_k2_launch_is_built_once(monkeypatch):
+    """A grid and task table keep their launch (plan and the tables on the
+    device) from frame to frame; a change of either, or of a setting, gives
+    another."""
+    monkeypatch.setattr(sw, "_K2_LAUNCHES", {})
+    tasks = k2_tasks()
+    first = sw._k2_launch(90, 92, tasks, 32, "cpu")
+    assert sw._k2_launch(90, 92, tasks.clone(), 32, "cpu") is first
+    assert sw._k2_launch(92, 92, tasks, 32, "cpu") is not first
+    assert sw._k2_launch(90, 92, k2_tasks(ss_sun=1), 32, "cpu") is not first
+    monkeypatch.setattr(sw, "K2_CLUSTERS", (7,))
+    again = sw._k2_launch(90, 92, tasks, 32, "cpu")
+    assert again is not first and again[0].cluster == 7 and first[0].cluster == 1
+    p, ints = first
+    assert torch.equal(ints[:tasks.numel()], tasks.reshape(-1))
+    assert torch.equal(ints[tasks.numel():tasks.numel() + p.ctas.numel()], p.ctas.reshape(-1))
+    assert ints[tasks.numel() + p.ctas.numel():].tolist() == [k // 8 for k in range(32)]
 
 
 @pytest.mark.parametrize("env", [None, ENV], ids=["constant_env", "env_map"])
@@ -1864,6 +2041,51 @@ def test_guiding_kernels(kernels, res):
     leaf_exact(kernels, ref[3], got[3])
     leaf_close(kernels, ref[0], got[0])
     leaf_close(kernels, ref[2], got[2])
+
+
+# E7 record's split: short runs one thread a bin, long runs (more than
+# RECORD_LONG_RUN records) staged chunk by chunk (F3D_GUIDE_STAGE floats from
+# a 16-byte boundary; 1500 and 2600 straddle chunks); bit-equal to
+# record_plain whatever the split
+RUN_LENGTHS = (1, 63, 64, 65, 1023, 1024, 1025, 1500, 2600)
+
+
+def record_case(device, lengths, seed):
+    """A 6x6-cell, octa_res 8 cache and records whose keys make one run of
+    each length (the other bins empty), in shuffled record order."""
+    from forge3d_tpu_torch import guiding as gd
+
+    res, cells = 8, 6
+    cache = gd.GuidingCache.create((-5.0, 3.0), (100.0, 80.0), cells=cells, octa_res=res,
+                                   device="cpu")
+    rng = np.random.default_rng(seed)
+    keys = rng.choice(cells * cells * res * res, len(lengths), replace=False)
+    flat = np.repeat(keys, lengths)
+    rng.shuffle(flat)
+    cell, b = flat // (res * res), flat % (res * res)
+    px = -5.0 + (cell % cells + 0.5) * (100.0 / cells)
+    pz = 3.0 + (cell // cells + 0.5) * (80.0 / cells)
+    d = gd._octa_decode_plain(torch.as_tensor(b), res)
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)  # noqa: E731
+    lum = rng.uniform(0.0, 1.0, flat.size) * rng.choice([1e-3, 1.0, 1e3, 1e5], flat.size)
+    ins = [t(px), t(pz)] + [t(d[:, c].numpy()) for c in range(3)] + [t(lum)]
+    got_flat = cache._cell_of(ins[0].cpu(), ins[1].cpu()) * res * res + gd._octa_encode_plain(
+        *(c.cpu() for c in ins[2:5]), res)
+    assert np.array_equal(got_flat.numpy(), flat)
+    return cache._replace(hist=cache.hist.to(device)), ins, torch.as_tensor(flat)
+
+
+@pytest.mark.parametrize("lengths", [RUN_LENGTHS, (5000,)], ids=["runs", "one_run_of_5000"])
+def test_record_long_runs(kernels, lengths):
+    from forge3d_tpu_torch import guiding as gd
+
+    assert gd.RECORD_LONG_RUN == 1024   # RUN_LENGTHS holds its ±1
+    cache, ins, flat = record_case(kernels, lengths, seed=len(lengths))
+    steps = []
+    got = gd._record_kernel(cache, *ins, mark=steps.append)
+    ref = gd.record_plain(cache.hist, flat, ins[5])
+    assert steps == ["keys", "sort", "bounds", "short runs", "long runs"]
+    leaf_exact(kernels, ref, got)
 
 
 # C1: the rANS chain and the MED reconstruction against their plain

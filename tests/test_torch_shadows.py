@@ -7,6 +7,7 @@
 # Gates: every state function's result and error equal; the probe's dict
 # equal at the same DEM, seed and sample count (K5's hit masks agree on
 # every probe here).
+import importlib.util
 import inspect
 
 import numpy as np
@@ -27,10 +28,20 @@ CSM_NAMES = ("configure_csm", "set_csm_enabled", "set_csm_light_direction",
              "get_csm_cascade_info", "validate_csm_peter_panning")
 
 
+def sync_state():
+    """Start the port's state from the JAX module's: the comparisons below
+    read keys that they do not set, and another test file in the same
+    process may have left the JAX module's state changed."""
+    P._STATE.clear()
+    P._STATE.update(J.csm_state())
+
+
 @pytest.fixture(autouse=True)
 def restore_state():
-    """Both modules keep process-wide state: leave it as found."""
+    """Both modules keep process-wide state: start them equal, and leave
+    them as found."""
     saved = (J.csm_state(), P.csm_state())
+    sync_state()
     yield
     J._STATE.clear()
     J._STATE.update(saved[0])
@@ -42,8 +53,9 @@ def both(name, *args, **kw):
     return getattr(J, name)(*args, **kw), getattr(P, name)(*args, **kw)
 
 
-def test_csm_state_and_cascades_equal():
-    """tests/test_misc_modules.py:243, on both"""
+def compare_configure_sequence():
+    """tests/test_misc_modules.py:243's calls on both modules: every result
+    and the state after them equal."""
     ref, got = both("configure_csm", cascade_count=4, near=0.5, far=500.0, debug_mode=2,
                     unknown_key=1)
     assert got == ref
@@ -57,6 +69,64 @@ def test_csm_state_and_cascades_equal():
     assert got["count"] == 4 and got["splits"] == sorted(got["splits"])
     assert got["splits"][-1] == pytest.approx(500.0, rel=1e-6)
     assert np.isclose(np.linalg.norm(got["light_direction"]), 1.0)
+
+
+def compare_state_functions():
+    """tests/test_torch_host_copies.py:test_csm_state_functions_equal's calls
+    on both modules."""
+    for mod in (J, P):
+        mod.configure_csm(cascade_count=3, near=1.0, far=800.0, lam=0.5, pcf_kernel=7)
+        mod.set_csm_light_direction(0.3, -1.0, 0.2)
+        mod.set_csm_bias_params(2e-3, 4e-3)
+    assert P.csm_state() == J.csm_state()
+    assert P.get_csm_cascade_info() == J.get_csm_cascade_info()
+
+
+def fresh_instance(mod):
+    """A second instance of `mod`'s file, loaded apart from the one that
+    the other tests (and other files in the process) change."""
+    spec = importlib.util.spec_from_file_location(f"{mod.__package__}._fresh_shadows",
+                                                  mod.__file__)
+    out = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(out)
+    return out
+
+
+def test_csm_default_state_equal():
+    """The state each module starts with, before any call: every key, those
+    that no comparison sets (lambda, bias, slope_bias, enabled, the light,
+    pcf_kernel) included, and the cascades it gives."""
+    j, p = fresh_instance(J), fresh_instance(P)
+    assert j._STATE and p._STATE == j._STATE
+    assert p.csm_state() == j.csm_state()
+    assert p.get_csm_cascade_info() == j.get_csm_cascade_info()
+
+
+def test_csm_state_and_cascades_equal():
+    """tests/test_misc_modules.py:243, on both"""
+    compare_configure_sequence()
+
+
+def test_csm_state_equal_after_misc_modules_state():
+    """The order that once failed: tests/test_misc_modules.py:243-264 leaves
+    the JAX module configured (cascades 4 over 0.5-500, the light
+    (-1, -2, -0.5) normalised, pcf_kernel 5, biases 1e-3 and 2e-3, enabled)
+    when it runs earlier in the same process. Put the JAX module into that
+    state and the port into its defaults' light and PCF kernel, start the
+    port from the JAX module's state as the fixture does, then run both
+    comparisons."""
+    P.set_csm_light_direction(-0.5, -0.8, -0.3)
+    P.set_csm_pcf_kernel(3)
+    J.configure_csm(cascade_count=4, near=0.5, far=500.0)
+    J.set_csm_light_direction(-1.0, -2.0, -0.5)
+    J.set_csm_pcf_kernel(5)
+    J.set_csm_bias_params(1e-3, 2e-3)
+    J.set_csm_enabled(True)
+    assert J.csm_state()["pcf_kernel"] == 5 and J.csm_state() != P.csm_state()
+    sync_state()
+    compare_configure_sequence()
+    sync_state()
+    compare_state_functions()
 
 
 @pytest.mark.parametrize("args", [(0.1, 1000.0, 4, 0.7), (1.0, 50.0, 1, 0.0),
