@@ -5,10 +5,11 @@ Run from the repository root on a machine with one CUDA GPU:
 
     python3 chip_smoke.py
 
-`python3 chip_smoke.py --probe` runs only the timings of K2 and E7 record
-at the main path's shapes and the day cycle's three hours, without gates
-(see probe()); copied into a checkout of an earlier tree and run there, it
-times that tree's kernels, so two designs can be compared on one card.
+`python3 chip_smoke.py --probe` runs only the timings of K2, E7 record,
+E8 march (1080p and 7200^2) and K6 (both instantiations, split by ray) at
+the main path's shapes and the day cycle's three hours, without gates (see
+probe()); copied into a checkout of an earlier tree and run there, it times
+that tree's kernels, so two designs can be compared on one card.
 
 Phases (one line each; any failure exits non-zero):
   1. device  -- the card's name, and `nvidia-smi` name and power limit;
@@ -22,7 +23,10 @@ Phases (one line each; any failure exits non-zero):
                 one warm render, then a counted and timed render; both must
                 be bit-identical and all four kernels must have launched;
   5. timing  -- each per-ray kernel against its plain version at that
-                scene's shapes, with the same tolerances, and both timed;
+                scene's shapes, with the same tolerances (K6 bit for bit),
+                and both timed; each K6 instantiation's registers and
+                resident blocks, and K6's time split by ray: with shadows
+                off, and K5 alone on the frame's primary, sun and env rays;
   6. sweep kernels -- each sweep kernel (K1 rotate, K2 sweeps, K3 polar
                 frame, K4 resolve) against its plain version on the card at
                 256x128 over the 129^2 DEM, then a 4-frame sweep render on
@@ -61,8 +65,8 @@ Phases (one line each; any failure exits non-zero):
                 the host BVH build timed; K6 (frames 0 and 1) and K8 as the
                 hybrid render runs them (walking the town, sampling the
                 lights), and K9 and K10 alone, against their plain versions
-                at that scene's shapes, with the gates of phases 5 and 10,
-                all timed;
+                at that scene's shapes, with the gates of phases 5 and 10
+                (K6 bit for bit), all timed; the hybrid K6 split by ray;
  12. engines -- `pt_render_gpu_mesh` (P2) on the same town and
                 `pt_render_gpu` (P1) on the three golden spheres at
                 1920x1080, each launched once, each held against its plain
@@ -176,7 +180,11 @@ Phases (one line each; any failure exits non-zero):
                 Jacobi sweep, the projection with the scalar advection) and
                 whole, on configuration W's 256x50x256 state, each timed (the
                 advections beside one grid_sample, a sweep beside a conv3d);
-                E8 march at 96x64 and on W's state at 1920x1080, timed;
+                E8 march at 96x64 and on W's state at 1920x1080, timed,
+                which must skip the rays that miss the box (the share that
+                enter printed, the bound counted over their steps), and on
+                W's state with one negative density voxel, which must march
+                every pixel; every pixel whose ray misses the box equal;
  29. wildfire -- configuration W, the main path: fetch_dem("rainier")
                 (1024^2) through the Terrarium codec, TerrainRenderer's base
                 at 1080p, then 8 frames of add_emitter, step and render_rgba
@@ -185,9 +193,11 @@ Phases (one line each; any failure exits non-zero):
                 once for a 7200x7200 master of the last state), each frame
                 split by stage cold and warm, a warm step split by launch,
                 the device's busy share of two warm frames, the grids' finite
-                share and the frames' alpha coverage; the master timed
-                (kernel and readback); W's pipeline on the example's
-                24x16x24 domain on the card against the CPU's plain versions;
+                share and the frames' alpha coverage, every march skipping
+                the rays that miss the box; the master timed (kernel and
+                readback) and held against the plain march; W's pipeline on
+                the example's 24x16x24 domain on the card against the CPU's
+                plain versions;
  30. leaf kernels -- each kernel of csrc/leaf.cu against its plain version
                 on the card at its users' sizes, and timed: E9 (each DD op
                 on dd_selftest's 1,000,000 pairs, bit for bit; timed at 2^24
@@ -618,7 +628,10 @@ def scene_bytes(scene) -> int:
 # 700.00 W). Printed beside the new time, outside the `kernels` line, whose
 # numbers are all of this run.
 EARLIER = {"K2 sweep_lighting": "one-CTA-a-task design 10.6760",
-           "E7 record": "one-thread-a-bin design 7.6999"}
+           "E7 record": "one-thread-a-bin design 7.6999",
+           "E8 march": "every-pixel-marched, row-of-256 design 8.1171",
+           "K6 frame_step": "row-of-256 design 1.6946",
+           "K6 frame_step (hybrid)": "row-of-256 design 3.6083"}
 
 
 def kernel_row(name, launches, err, ms, plain_ms, bound_ms, bound_by):
@@ -857,11 +870,15 @@ def phase_timing(dem, launches):
     fa = min(close_frac(pa, ka), close_frac(pw, kw_))
     require(fa >= FLOAT_FRAC, "bench scene: K6 frame_step disagrees with its plain version")
     fm = compare_reservoirs("bench scene K6", pm, km)
+    require(same_frame((pa, pw, pm), (ka, kw_, km)),
+            "bench scene: K6 frame_step is not bit-identical to its plain version")
     row("K6 frame_step", max_abs(pa, ka),
         cuda_ms(lambda: tr.frame_step(ctx, a0, w0, r0, 1), 5), plain_ms,
-        f"accum and welford {fa:.6f}, merged reservoirs {fm:.6f} within tolerance",
-        2 * n * (16 + 8 + 40) + scene_bytes(ctx.scene),
+        f"bit-identical; accum and welford {fa:.6f}, merged reservoirs {fm:.6f} within "
+        f"tolerance", 2 * n * (16 + 8 + 40) + scene_bytes(ctx.scene),
         traced_ops(w6) + n * ctx.spp * OPS_SHADE)
+    k6_attrs("timing")
+    k6_split("timing", "K6", ctx, gk, (a0, w0, r0))
 
     rk = rst.spatial_reuse(m0, *gk["gb_n"], W, H, 0, ctx.seed_hi)
     rp = rst.spatial_reuse_plain(m0, *gk["gb_n"], W, H, 0, ctx.seed_hi)
@@ -872,6 +889,15 @@ def phase_timing(dem, launches):
         f"reservoirs {fr7:.6f} within tolerance",
         n * (40 + 12 + 40), n * 9 * 30)
     return rows
+
+
+def same_frame(ref, got) -> bool:
+    """Whether two K6 results (accum, welford, reservoirs) are equal bit for
+    bit."""
+    import torch
+
+    return all(torch.equal(a, b) for a, b in zip(ref[:2], got[:2])) and all(
+        torch.equal(a, b) for a, b in zip(ref[2].fields(), got[2].fields()))
 
 
 def device_memory_rows(fn):
@@ -1424,6 +1450,78 @@ def sun_rays(ctx, gb):
     return ro, rd
 
 
+def env_rays(ctx, gb, seed=9):
+    """Rays from the center G-buffer's hit points (lifted 1e-3 along the
+    normal) in cosine-weighted directions about the normal (the normal plus
+    a uniform unit vector from numpy): the kind of env occlusion rays K6
+    traces."""
+    import torch
+
+    so, _ = sun_rays(ctx, gb)
+    n = gb["normal"][torch.isfinite(gb["depth"])]
+    u = np.random.default_rng(seed).standard_normal((n.shape[0], 3)).astype(np.float32)
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    d = n + torch.as_tensor(u, device=n.device)
+    d = d / d.norm(dim=1, keepdim=True)
+    return so, tuple(d[:, k].contiguous() for k in range(3))
+
+
+def k6_frame_inputs(ctx):
+    """(center G-buffer, frame 1's inputs (accum, welford, reservoirs)) as the
+    render gives them: frame 0 by K6, its reservoirs reused by K7."""
+    import torch
+
+    from forge3d_tpu_torch.ops import restir as rst
+    from forge3d_tpu_torch.pt import terrain_ref as tr
+
+    W, H = ctx.width, ctx.height
+    dev = ctx.scene.device
+    gk = tr.center_gbuffer(ctx)
+    acc = torch.zeros((H, W, 4), device=dev)
+    wf = torch.zeros((H, W, 2), device=dev)
+    a0, w0, m0 = tr.frame_step(ctx, acc, wf, rst.Reservoirs.zeros(H * W, dev), 0)
+    return gk, (a0, w0, rst.spatial_reuse(m0, *gk["gb_n"], W, H, 0, ctx.seed_hi))
+
+
+def k6_split(phase, tag, ctx, gk, inputs, reps=5):
+    """K6's frame 1 timed whole and with shadows off, and K5 alone on the
+    frame's primary (unjittered center), sun and env rays: how K6's time
+    splits by ray. Calls only entry points that K5's and K6's earlier designs had
+    too, so that --probe times an earlier tree as well.
+    Returns {part: ms}."""
+    import dataclasses
+
+    from forge3d_tpu_torch.ops import traversal as tv
+    from forge3d_tpu_torch.pt import terrain_ref as tr
+
+    out = {"K6": cuda_ms(lambda: tr._frame_step_kernel(ctx, *inputs, 1), reps)}
+    dark = dataclasses.replace(ctx, shadows=False)
+    out["K6 shadows off"] = cuda_ms(lambda: tr._frame_step_kernel(dark, *inputs, 1), reps)
+    for kind, (ro, rd) in (("primary", tr._center_rays(ctx)), ("sun", sun_rays(ctx, gk)),
+                           ("env", env_rays(ctx, gk))):
+        ro = tuple(c.reshape(-1).contiguous() for c in ro)
+        rd = tuple(c.reshape(-1).contiguous() for c in rd)
+        out[f"K5 {kind} ({ro[0].numel()} rays)"] = cuda_ms(
+            lambda: tv._trace_kernel(ctx.scene, ro, rd, 1e-3, 1e30), reps)
+    say(phase, f"{tag} split (kernel ms): " + json.dumps({k: round(v, 4) for k, v in out.items()}))
+    return out
+
+
+def k6_attrs(phase):
+    """Each K6 instantiation's registers, spilled bytes and resident blocks
+    an SM (cudaFuncGetAttributes, cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    import ctypes
+
+    from forge3d_tpu_torch import _kernels
+
+    for hybrid in (0, 1):
+        out = (ctypes.c_int * 3)()
+        _kernels.check(_kernels.lib().f3d_frame_kernel_attrs(hybrid, out), "K6 attributes")
+        say(phase, f"K6 {'hybrid' if hybrid else 'terrain-only'} instantiation: "
+                   f"{out[0]} registers, {out[1]} B spilled a thread, {out[2]} resident blocks "
+                   f"of 256 threads an SM")
+
+
 def compare_mesh_hits(tag, hp, hk):
     """(hit agreement, prim agreement where both hit, fraction of t within
     1e-6 * (1 + t), max |dt|); fails below K9_FRAC or above K9_MAX_DT."""
@@ -1722,6 +1820,8 @@ def phase_hybrid_timing(dem, mts, launches):
     say("hybrid timing", f"K6 frame_step (hybrid) f0: accum and welford {fa:.6f}, merged "
                          f"reservoirs {fm:.6f} within tolerance, max |err| {max_abs(pa, a0):.3e}")
     require(fa >= FLOAT_FRAC, "bench town: K6 frame 0 disagrees with its plain version")
+    require(same_frame((pa, pw, pm), (a0, w0, m0)),
+            "bench town: K6 frame 0 is not bit-identical to its plain version")
     r0 = rst.spatial_reuse(m0, *gk["gb_n"], W, H, 0, ctx.seed_hi)
     work = work_counters()
     plain_ms, (pa, pw, pm) = wall_ms(lambda: tr.frame_step_plain(ctx, a0, w0, r0, 1))
@@ -1729,13 +1829,16 @@ def phase_hybrid_timing(dem, mts, launches):
     ka, kw_, km = tr.frame_step(ctx, a0, w0, r0, 1)
     fa = min(close_frac(pa, ka), close_frac(pw, kw_))
     require(fa >= FLOAT_FRAC, "bench town: K6 frame 1 disagrees with its plain version")
+    require(same_frame((pa, pw, pm), (ka, kw_, km)),
+            "bench town: K6 frame 1 is not bit-identical to its plain version")
     fm = compare_reservoirs("bench town K6 frame 1", pm, km)
     row("K6 frame_step (hybrid)", launches["K6 frame_step"], max_abs(pa, ka),
         cuda_ms(lambda: tr.frame_step(ctx, a0, w0, r0, 1), 5), plain_ms,
-        f"f1: accum and welford {fa:.6f}, merged reservoirs {fm:.6f} within tolerance; "
-        f"{w6['node_visits']} node visits, {w6['tri_tests']} triangle tests, {w6['steps']} "
+        f"f1: bit-identical; accum and welford {fa:.6f}, merged reservoirs {fm:.6f} within "
+        f"tolerance; {w6['node_visits']} node visits, {w6['tri_tests']} triangle tests, {w6['steps']} "
         f"DDA steps", 2 * n * (16 + 8 + 40) + scene_bytes(ctx.scene) + mts.bvh.nbytes
         + fields_bytes(*ctx.lights), traced_ops(w6) + n * ctx.spp * (OPS_SHADE + OPS_LIGHT))
+    k6_split("hybrid timing", "K6 hybrid", ctx, gk, (a0, w0, r0))
 
     so, sd = sun_rays(ctx, gk)
     ro = tuple(torch.cat([o[k].reshape(-1), so[k]]) for k in range(3))
@@ -3957,14 +4060,19 @@ def smoke_state(shape, seed, device):
             "soot": t(rng.uniform(0.0, 0.5, shape)), "emission": t(rng.uniform(0.0, 1.0, shape))}
 
 
-def compare_march(tag, ref, got):
+def compare_march(tag, ref, got, entered=None):
     """(fraction of pixels bit-equal, max u8 step); fails outside the
-    march's gate."""
+    march's gate, or where a pixel whose ray misses the box (~entered) is
+    not equal."""
+    import torch
+
     d = (ref.int() - got.int()).abs().amax(-1)
     eq, step = float((d == 0).double().mean()), int(d.max())
     require(ref.shape == got.shape and step <= 1 and eq >= SMOKE_U8_EQ,
             f"{tag}: the kernel disagrees with its plain version (pixels equal {eq:.6f}, "
             f"max step {step})")
+    require(entered is None or torch.equal(ref[~entered], got[~entered]),
+            f"{tag}: a pixel whose ray misses the box differs from the plain version")
     return eq, step
 
 
@@ -3992,6 +4100,7 @@ def phase_smoke_kernels():
     import torch
     import torch.nn.functional as F
 
+    from forge3d_tpu_torch import _kernels
     from forge3d_tpu_torch.ops import smoke as O
     from forge3d_tpu_torch.smoke import SmokeRenderSettings, SmokeStepSettings
 
@@ -4102,20 +4211,52 @@ def phase_smoke_kernels():
                       W_CAM["cam_origin"], W_CAM["cam_look_at"], 45.0)
     dens, emis, soot = dom.density, dom.emission, dom.soot
     got = O._march_kernel(dens, emis, soot, m)
+    require(march_skipped(), "E8 march on W's state did not skip the rays that miss the box")
     plain_ms, ref = wall_ms(lambda: O.smoke_march_plain(dens, emis, soot, m))
-    eq, step = compare_march(f"E8 march {REAL_W}x{REAL_H}", ref, got)
+    entered = O.march_entered(m, dev)
+    eq, step = compare_march(f"E8 march {REAL_W}x{REAL_H}", ref, got, entered)
     ms = cuda_ms(lambda: O._march_kernel(dens, emis, soot, m), 5)
-    npx = REAL_W * REAL_H
+    # the check's launch alone, the share of `ms` that is not the march
+    lib, stream, flag = _kernels.lib(), _kernels.stream_ptr(dev), torch.zeros(
+        1, dtype=torch.int32, device=dev)
+    check_ms = cuda_ms(lambda: _kernels.check(lib.f3d_smoke_march_check(
+        _kernels.ptr(dens), _kernels.ptr(emis), _kernels.ptr(soot), dens.numel(),
+        _kernels.ptr(flag), stream), "E8 march (check)"), 5)
+    require(int(flag) == 0, "E8 march's check flagged W's state")
+    npx, n_in = REAL_W * REAL_H, int(entered.sum())
+    # the steps are counted over the pixels that need them: the rays that
+    # enter the box (the others' steps add exactly nothing)
     bms, by = bound(tensor_bytes(dens, emis, soot) + npx * 4,
-                    npx * (OPS_MARCH_PIXEL + rs.step_count * (OPS_MARCH_STEP
-                                                              + rs.sun_steps * OPS_SUN_SAMPLE)))
+                    npx * OPS_MARCH_PIXEL + n_in * rs.step_count * (
+                        OPS_MARCH_STEP + rs.sun_steps * OPS_SUN_SAMPLE))
     res["E8 march"] = (float(step), ms, plain_ms, bms, by, None)
     say("smoke kernels", f"E8 march {REAL_W}x{REAL_H} on W's state ({rs.step_count} steps, "
-                         f"{rs.sun_steps} sun steps): pixels equal {eq:.6f}, max step {step}; "
-                         f"kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, bound {bms:.4f} ms "
-                         f"({by}); no library call: no single PyTorch call marches emission and "
-                         f"absorption with a sun march at every step")
+                         f"{rs.sun_steps} sun steps): skipped the misses; rays entering the box "
+                         f"{n_in / npx:.6f}; pixels equal {eq:.6f}, max step {step}; "
+                         f"kernel {ms:.4f} ms (of which the check {check_ms:.4f}), plain "
+                         f"{plain_ms:.1f} ms, bound {bms:.4f} ms "
+                         f"({by}, the steps of the {n_in} entering rays); no library call: no "
+                         f"single PyTorch call marches emission and absorption with a sun march "
+                         f"at every step")
+    # one voxel of negative density: the check clears the skip, every pixel
+    # marches, and the result still agrees with the plain march
+    neg = dens.clone()
+    neg[W_SHAPE[0] // 2, 4, W_SHAPE[2] // 2] = -0.5
+    got = O._march_kernel(neg, emis, soot, m)
+    require(not march_skipped(), "E8 march skipped the misses on a grid with a negative density")
+    eq, step = compare_march(f"E8 march {REAL_W}x{REAL_H}, a negative density",
+                             O.smoke_march_plain(neg, emis, soot, m), got, entered)
+    say("smoke kernels", f"E8 march {REAL_W}x{REAL_H} with one negative density voxel: every "
+                         f"pixel marched; pixels equal {eq:.6f}, max step {step}")
     return res
+
+
+def march_skipped() -> bool:
+    """Whether the last E8 march skipped the rays that miss the box (its
+    check's device flag stayed 0)."""
+    from forge3d_tpu_torch.ops import smoke as O
+
+    return O.smoke_march.last_bad is not None and int(O.smoke_march.last_bad) == 0
 
 
 SMOKE_GRIDS = ("density", "velocity", "temperature", "soot", "emission")
@@ -4214,12 +4355,13 @@ def phase_wildfire():
     for c in counters.values():
         c.launches = 0
     torch.cuda.reset_peak_memory_stats()
-    frames, splits = [], []
+    frames, splits, skipped = [], [], []
     for i in range(W_FRAMES):
         t = {}
         t["emitter"], _ = wall_ms(lambda: dom.add_emitter(em, sset.dt))
         t["step"], _ = wall_ms(lambda: dom.step(sset))
         t["render_rgba"], overlay = wall_ms(lambda: dom.render_rgba(REAL_W, REAL_H, rs, **W_CAM))
+        skipped.append(march_skipped())
         t0 = time.perf_counter()
         frames.append(composite(base, overlay))
         t["composite"] = (time.perf_counter() - t0) * 1e3
@@ -4231,7 +4373,9 @@ def phase_wildfire():
         say("wildfire", f"frame {i} ({'cold' if i == 0 else 'warm'}): "
                         f"{json.dumps({k: round(v, 4) for k, v in t.items()})}")
     master_ms, master = wall_ms(lambda: dom.render_rgba(MASTER, MASTER, rs, **W_CAM))
+    skipped.append(march_skipped())
     counts = {k: c.launches for k, c in counters.items()}
+    require(all(skipped), f"W's marches did not all skip the rays that miss the box: {skipped}")
     peak = torch.cuda.max_memory_allocated()
     say("wildfire", f"launches {json.dumps(counts)}; peak device memory {peak} B; the domain "
                     f"{dom.nx}x{dom.ny}x{dom.nz} set up in {setup_ms:.1f} ms")
@@ -4255,10 +4399,18 @@ def phase_wildfire():
         mk = cuda_ms(lambda: O._march_kernel(*grids, m), 2)
         out = O._march_kernel(*grids, m)
         rb, host = wall_ms(lambda: out.cpu().numpy())
+        entered = O.march_entered(m, CARD)
         say("wildfire", f"{name} {w}x{h}: render_rgba {total:.2f} ms; its march kernel {mk:.3f} "
-                        f"ms, the readback of {host.nbytes} B {rb:.2f} ms"
+                        f"ms, the readback of {host.nbytes} B {rb:.2f} ms; rays entering the box "
+                        f"{float(entered.double().mean()):.6f}"
                         + (f"; alpha coverage {float((master[..., 3] > 0).mean()):.4f}"
                            if name == "master" else ""))
+        if name == "master":   # the master against the plain march (every pixel marched)
+            plain_ms, ref = wall_ms(lambda: O.smoke_march_plain(*grids, m))
+            eq, step = compare_march(f"E8 march {w}x{h}", ref, out, entered)
+            say("wildfire", f"master {w}x{h} against the plain march ({plain_ms:.1f} ms): pixels "
+                            f"equal {eq:.6f}, max step {step}")
+            del ref
     # a split of one warm step by launch, and the device's busy share of two
     # warm frames
     k = O.step_consts(sset)
@@ -4892,12 +5044,53 @@ def phase_sharded(dem):
         dist.destroy_process_group()
 
 
+def probe_e8(torch):
+    """E8 march timed at 1080p and 7200^2 on W's state after two emitter
+    steps (phase 28's)."""
+    from forge3d_tpu_torch.ops import smoke as O
+    from forge3d_tpu_torch.smoke import SmokeRenderSettings, SmokeStepSettings
+
+    dom = w_domain(torch.device("cuda"))
+    em, sset, rs = w_emitter(), SmokeStepSettings(**W_STEP), SmokeRenderSettings()
+    for _ in range(2):
+        dom.add_emitter(em, sset.dt)
+        dom.step(sset)
+    grids = (dom.density, dom.emission, dom.soot)
+    for w, h in ((REAL_W, REAL_H), (MASTER, MASTER)):
+        m = O.march_setup(W_SHAPE, W_VOXEL, (0.0, 0.0, 0.0), w, h, rs, W_CAM["cam_origin"],
+                          W_CAM["cam_look_at"], 45.0)
+        ms = cuda_ms(lambda: O._march_kernel(*grids, m), 5 if w == REAL_W else 2)
+        say("probe", f"E8 march {w}x{h}: {ms:.4f} ms")
+
+
+def probe_k6(torch, dem):
+    """K6, terrain-only at bench.py's scene (spp 1) and hybrid with the town
+    and the six lights: frame 1 timed and split by ray (k6_split), and
+    checked against its plain version bit for bit."""
+    import dataclasses
+
+    from forge3d_tpu_torch.pt import terrain_ref as tr
+    from forge3d_tpu_torch.pt.mesh_render import MeshTracerScene
+
+    dev = torch.device("cuda")
+    ctx = setup(dem, REAL_W, REAL_H, BENCH_CAM, dev, spp=1)
+    desc = hybrid_desc(dem)
+    hyb = dataclasses.replace(ctx, mesh=MeshTracerScene(desc.mesh[0], desc.mesh[1], dev),
+                              lights=tr._lights(desc, dev))
+    for tag, c in (("K6", ctx), ("K6 hybrid", hyb)):
+        gk, inputs = k6_frame_inputs(c)
+        k6_split("probe", tag, c, gk, inputs)
+        same = same_frame(tr.frame_step_plain(c, *inputs, 1), tr._frame_step_kernel(c, *inputs, 1))
+        say("probe", f"{tag} frame 1 bit-identical to the plain version: {same}")
+
+
 def probe(torch):
     """`chip_smoke.py --probe`: K2 and E7 record timed at the main path's
-    shapes (k2_probe), with the day cycle's three hours (phase 31) and no
-    gates. It calls only entry points that the port has had since K2 and
-    E7 were first ported, so copied into a checkout of an earlier tree it
-    times that tree's kernels, and two designs can be compared on one card."""
+    shapes (k2_probe), with the day cycle's three hours (phase 31), E8 march
+    (probe_e8) and K6 (probe_k6), and no gates. It calls only entry points
+    that the port has had since these kernels were first ported, so copied
+    into a checkout of an earlier tree it times that tree's kernels, and two
+    designs can be compared on one card."""
     import importlib.util
     import pathlib
 
@@ -4906,6 +5099,8 @@ def probe(torch):
     from forge3d_tpu_torch.pt import terrain_sweep as ts
 
     dem = bench_dem()
+    probe_e8(torch)
+    probe_k6(torch, dem)
     plan, scene, rot, jit = sweep_setup(dem, REAL_W, REAL_H, BENCH_CAM, torch.device("cuda"),
                                         spp=2)
     bins = ts.frame_bins(plan, scene, jit)

@@ -359,6 +359,8 @@ _SIGNATURES = {
                        ctypes.POINTER(MeshArgs), ctypes.POINTER(LightArgs),
                        _P, _P, ctypes.POINTER(ResArgs), _P, _P,
                        ctypes.POINTER(ResArgs), _P],
+    # (hybrid, out (registers, spilled bytes, resident blocks))
+    "f3d_frame_kernel_attrs": [_I, _P],
     # (res_in, res_out, gb_nx, gb_ny, gb_nz, width, height, frame_index,
     #  seed_hi, k_neighbors, radius, row0, rows, stream)
     "f3d_spatial_reuse": [ctypes.POINTER(ResArgs), ctypes.POINTER(ResArgs),
@@ -449,8 +451,10 @@ _SIGNATURES = {
     # (va, p or null, div or null, dens, temp, soot, emis, vel_out, dens_out,
     #  temp_out, soot_out, emis_out, nx, ny, nz, dt, keep, keep2, sixth, stream)
     "f3d_smoke_project_advect": [_P] * 12 + [_I, _I, _I, _F, _F, _F, _F, _P],
-    # E8 march: (args, dens, emis, soot, sun_off, rgba, stream)
-    "f3d_smoke_march": [ctypes.POINTER(SmokeMarchArgs)] + [_P] * 6,
+    # E8 march: (dens, emis, soot, n, bad, stream); (args, dens, emis, soot, sun_off,
+    #  bad or null, rgba, stream)
+    "f3d_smoke_march_check": [_P, _P, _P, _LL, _P, _P],
+    "f3d_smoke_march": [ctypes.POINTER(SmokeMarchArgs)] + [_P] * 7,
     # E9: (op, a_hi, a_lo, b_hi, b_lo, n, hi, lo, stream)
     "f3d_dd": [_I, _P, _P, _P, _P, _LL, _P, _P, _P],
     # E5 Preetham: (sky, dx, dy, dz, n, rgb (3, n), stream)

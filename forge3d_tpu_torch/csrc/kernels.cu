@@ -33,10 +33,10 @@
 // loops on its own, so a finished ray costs nothing and no global
 // iteration count is needed. The pyramid and DEM pairs (~20 MB at a 1025^2
 // DEM) fit in the 50 MB L2 cache and are read through the read-only path
-// as one 8-byte load per pair. Consecutive threads take
-// consecutive pixels of a row, so neighbouring rays walk neighbouring
-// nodes. Making the kernels fast (tiling, ray sorting, persistent
-// threads) is later work.
+// as one 8-byte load per pair. K5, K7 and K8 give consecutive threads
+// consecutive pixels of a row; K6 gives a warp an 8x4 tile of pixels and
+// holds its terrain-only instantiation to 4 blocks an SM (frame_kernel).
+// Ray sorting and persistent threads are later work.
 
 #include <cuda_runtime.h>
 
@@ -45,6 +45,7 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kTile = 16;   // K6: a block's 16x16 pixels, a warp's 8x4
 
 inline int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
 
@@ -71,16 +72,31 @@ __global__ void trace_kernel(SceneArgs s, const float* __restrict__ rox,
 // then writes the accumulator, the Welford pair and the temporally merged
 // reservoir, all band-sized. accum/welford may be updated in place (each
 // thread reads its own pixel before writing it); res_in and res_out are
-// separate buffers.
-template <bool kHybrid>
-__global__ void frame_kernel(SceneArgs s, FrameArgs f, MeshArgs m, LightArgs l,
-                             const float* accum_in, const float* welford_in, ResArgs res_in,
-                             float* accum_out, float* welford_out, ResArgs res_out) {
-    int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= f.width * f.rows) return;
-    frame_pixel<kHybrid>(s, f, m, l, i, accum_in, welford_in, res_in, accum_out, welford_out,
-                         res_out);
+// separate buffers. A block takes a 16x16 tile of the band, a warp 8x4
+// pixels: a warp's primary rays leave the camera side by side in x and y,
+// its sun rays start from neighbouring hit points, so they walk the same
+// nodes and take more nearly the same number of steps. kMinBlocks is the
+// launch bound: the terrain-only instantiation is held to 64 registers, 4
+// blocks of 256 threads an SM (a DDA step waits on its node load; more
+// warps hide more of it, and that pays for a few spilled bytes); the
+// hybrid one keeps its registers, which its BVH walk needs.
+template <bool kHybrid, int kMinBlocks>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+frame_kernel(SceneArgs s, FrameArgs f, MeshArgs m, LightArgs l, const float* accum_in,
+             const float* welford_in, ResArgs res_in, float* accum_out, float* welford_out,
+             ResArgs res_out) {
+    const int tiles_x = (f.width + kTile - 1) / kTile;
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int x = (blockIdx.x % tiles_x) * kTile + (warp & 1) * 8 + (lane & 7);
+    const int y = (blockIdx.x / tiles_x) * kTile + (warp >> 1) * 4 + (lane >> 3);
+    if (x >= f.width || y >= f.rows) return;
+    frame_pixel<kHybrid>(s, f, m, l, y * f.width + x, accum_in, welford_in, res_in, accum_out,
+                         welford_out, res_out);
 }
+
+// K6's launch bounds: terrain-only, and hybrid (a mesh or typed lights)
+constexpr int kTerrainBlocks = 4;
+constexpr int kHybridBlocks = 1;
 
 // K7: one thread per pixel of the band row0 .. row0 + rows - 1; reads the
 // whole frame's reservoirs and normals (res_in, gb_n*), writes the band's
@@ -180,19 +196,35 @@ int f3d_frame_step(const SceneArgs* s, const FrameArgs* f, const MeshArgs* m,
                    const LightArgs* l, const float* accum_in, const float* welford_in,
                    const ResArgs* res_in, float* accum_out, float* welford_out,
                    const ResArgs* res_out, void* stream) {
-    int n = f->width * f->rows;
-    if (n > 0) {
+    if (f->width > 0 && f->rows > 0) {
+        const int grid = ((f->width + kTile - 1) / kTile) * ((f->rows + kTile - 1) / kTile);
         if (m->n_nodes > 0 || l->count > 0) {
-            frame_kernel<true><<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+            frame_kernel<true, kHybridBlocks><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
                 *s, *f, *m, *l, accum_in, welford_in, *res_in, accum_out, welford_out,
                 *res_out);
         } else {
-            frame_kernel<false><<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+            frame_kernel<false, kTerrainBlocks><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
                 *s, *f, *m, *l, accum_in, welford_in, *res_in, accum_out, welford_out,
                 *res_out);
         }
     }
     return (int)cudaGetLastError();
+}
+
+// K6's instantiation (hybrid or terrain-only): out = {registers a thread,
+// local (spilled) bytes a thread, resident blocks of kThreads an SM}
+int f3d_frame_kernel_attrs(int hybrid, int* out) {
+    const void* fn = hybrid ? (const void*)frame_kernel<true, kHybridBlocks>
+                            : (const void*)frame_kernel<false, kTerrainBlocks>;
+    cudaFuncAttributes a;
+    cudaError_t e = cudaFuncGetAttributes(&a, fn);
+    if (e != cudaSuccess) return (int)e;
+    int blocks = 0;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, kThreads, 0);
+    out[0] = a.numRegs;
+    out[1] = (int)a.localSizeBytes;
+    out[2] = blocks;
+    return (int)e;
 }
 
 int f3d_spatial_reuse(const ResArgs* res_in, const ResArgs* res_out, const float* gb_nx,

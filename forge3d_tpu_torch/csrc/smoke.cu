@@ -20,9 +20,19 @@
 //                            backtraces with its own projected velocity.
 // E8 march       replaces smoke.py:SmokeDomain.render_rgba (332), its
 //                lax.fori_loop (429) over body (403-425) with sun_trans
-//                (394-401): march_kernel, one thread a pixel, the ray and
-//                slab set-up, the steps with the sun march inside, the
-//                background, the tonemap and the u8 pack.
+//                (394-401): two launches,
+//   march_check_kernel       one pass over the three grids into a device
+//                            flag: some value outside the skip's bounds
+//                            (smoke.cuh:smoke_skip_voxel_ok);
+//   march_kernel             one thread a pixel, a warp an 8x4 tile, the ray
+//                            and slab set-up, the steps with the sun march
+//                            inside, the background, the tonemap and the u8
+//                            pack. Where the flag stayed clear, a ray that
+//                            misses the box skips its steps: the TPU marches
+//                            every lane through the fori_loop, but on the card
+//                            such a thread is done at once, and the result is
+//                            the same bit for bit. The flag is read on the
+//                            device: the host never waits for it.
 //
 // What bounds them on the H100. The step moves bytes: about 1 GB at a
 // 256x50x256 domain (20 Jacobi sweeps of six neighbour reads and a write a
@@ -31,7 +41,11 @@
 // caches, one voxel a thread, x fastest across a warp so that a warp's reads
 // are contiguous. The march does operations: (3 + sun_steps) trilinear
 // samples a step, eight gathers and seven lerps each, on grids that fit in
-// L2; one thread a pixel walks its steps in registers. Shared-memory tiles
+// L2, for the pixels whose rays enter the box; one thread a pixel walks its
+// steps in registers. A warp's 8x4 pixels sample neighbouring voxels in y as
+// well as x. The march's constants are a kernel parameter (SmokeMarchArgs);
+// the sun offsets stay a device buffer, read at one address across a warp
+// (staging them in shared memory measured no faster). Shared-memory tiles
 // of the stencil and texture or TMA paths for the gathers are later work.
 
 #include <cuda_runtime.h>
@@ -89,12 +103,33 @@ __global__ void project_advect_kernel(const float* __restrict__ va, const float*
                                soot_out, emis_out, nx, ny, nz, dt, keep, keep2, sixth, i);
 }
 
+// Any voxel outside the skip's bounds sets *bad (zeroed by the caller).
+__global__ void march_check_kernel(const float* __restrict__ dens,
+                                   const float* __restrict__ emis,
+                                   const float* __restrict__ soot, long long n,
+                                   int* __restrict__ bad) {
+    bool out = false;
+    for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+         i += (long long)gridDim.x * blockDim.x)
+        out = out || !smoke_skip_voxel_ok(dens[i], emis[i], soot[i]);
+    if (__any_sync(0xffffffffu, out) && (threadIdx.x & 31) == 0) atomicOr(bad, 1);
+}
+
+// A block is a 16x16 tile of pixels, each warp 8 wide and 4 tall; the
+// tiles of a row of tiles are consecutive blocks. bad null: no skip.
+constexpr int kTile = 16;
+
 __global__ void march_kernel(SmokeMarchArgs a, const float* __restrict__ dens,
                              const float* __restrict__ emis, const float* __restrict__ soot,
-                             const float* __restrict__ sun_off, unsigned char* __restrict__ rgba) {
-    const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= (long long)a.width * a.height) return;
-    smoke_march_pixel(a, dens, emis, soot, sun_off, rgba, i);
+                             const float* __restrict__ sun_off, const int* __restrict__ bad,
+                             unsigned char* __restrict__ rgba) {
+    const int tiles_x = (a.width + kTile - 1) / kTile;
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int px = (blockIdx.x % tiles_x) * kTile + (warp & 1) * 8 + (lane & 7);
+    const int py = (blockIdx.x / tiles_x) * kTile + (warp >> 1) * 4 + (lane >> 3);
+    if (px >= a.width || py >= a.height) return;
+    smoke_march_pixel(a, dens, emis, soot, sun_off, bad && *bad == 0, rgba,
+                      (long long)py * a.width + px);
 }
 
 }  // namespace
@@ -141,12 +176,28 @@ int f3d_smoke_project_advect(const float* va, const float* p, const float* div,
     return (int)cudaGetLastError();
 }
 
-int f3d_smoke_march(const SmokeMarchArgs* a, const float* dens, const float* emis,
-                    const float* soot, const float* sun_off, unsigned char* rgba, void* stream) {
-    const long long n = (long long)a->width * a->height;
+int f3d_smoke_march_check(const float* dens, const float* emis, const float* soot,
+                          long long n, int* bad, void* stream) {
+    // 16 blocks an SM, each thread looping over the rest
+    int dev = 0, sms = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    const long long cap = 16LL * (sms > 0 ? sms : 1);
+    const long long b = blocks(n) < cap ? blocks(n) : cap;
     if (n > 0)
-        march_kernel<<<blocks(n), kThreads, 0, (cudaStream_t)stream>>>(*a, dens, emis, soot,
-                                                                        sun_off, rgba);
+        march_check_kernel<<<(int)b, kThreads, 0, (cudaStream_t)stream>>>(dens, emis, soot, n,
+                                                                          bad);
+    return (int)cudaGetLastError();
+}
+
+int f3d_smoke_march(const SmokeMarchArgs* a, const float* dens, const float* emis,
+                    const float* soot, const float* sun_off, const int* bad, unsigned char* rgba,
+                    void* stream) {
+    const long long tiles = (long long)((a->width + kTile - 1) / kTile) *
+                            ((a->height + kTile - 1) / kTile);
+    if (tiles > 0)
+        march_kernel<<<(unsigned)tiles, kTile * kTile, 0, (cudaStream_t)stream>>>(
+            *a, dens, emis, soot, sun_off, bad, rgba);
     return (int)cudaGetLastError();
 }
 

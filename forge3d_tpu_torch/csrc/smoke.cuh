@@ -226,13 +226,32 @@ F3D_HD unsigned char smoke_u8(float v) {
     return (unsigned char)(fminf(fmaxf(v, 0.0f), 1.0f) * 255.0f + 0.5f);
 }
 
+// The skip of a ray that misses the box. Such a ray's steps force the
+// absorption to 0, so each step adds oat = (1 - expf(-0)) tr = 0 times the
+// step's samples, and the pixel ends as the background with alpha 0 exactly
+// when every product of 0 is 0: every sample finite, and lsun =
+// expf(acc sun_k) finite. Sufficient, and checked before a march: every
+// density in [0, 2^100] and every emission and soot value within +-2^100 on
+// the device (a trilinear sample of such values is finite, a sun march's sum
+// of densities finite and >= 0), and on the host every float constant finite,
+// sun_k <= 0 and sun_steps <= 2^20 (MarchSetup.skip_consts_ok). NaN fails
+// every comparison.
+#define F3D_SMOKE_SKIP_BOUND 0x1p100f
+
+F3D_HD bool smoke_skip_voxel_ok(float dens, float emis, float soot) {
+    return dens >= 0.0f && dens <= F3D_SMOKE_SKIP_BOUND && fabsf(emis) <= F3D_SMOKE_SKIP_BOUND
+           && fabsf(soot) <= F3D_SMOKE_SKIP_BOUND;
+}
+
 // One pixel: the camera ray (eager ops: every operation rounded), the slab
 // entry and exit, `steps` steps of three samples and the sun march of
 // `sun_steps` samples along the offsets sun_off (3 a step), then the
-// background, Reinhard and the u8 pack with alpha = 1 - transmittance.
+// background, Reinhard and the u8 pack with alpha = 1 - transmittance. With
+// skip_misses (the check above held) a ray that misses the box goes straight
+// to the background: what its steps would give, bit for bit.
 F3D_HD void smoke_march_pixel(const SmokeMarchArgs& a, const float* dens, const float* emis,
-                              const float* soot, const float* sun_off, unsigned char* rgba,
-                              long long i) {
+                              const float* soot, const float* sun_off, bool skip_misses,
+                              unsigned char* rgba, long long i) {
     const int px = (int)(i % a.width);
     const int py = (int)(i / a.width);
     const float cx = ((2.0f * ((float)px + 0.5f)) / (float)a.width - 1.0f) * a.half_w;
@@ -253,8 +272,9 @@ F3D_HD void smoke_march_pixel(const SmokeMarchArgs& a, const float* dens, const 
     const float t_out = fminf(fminf(t1[0], t1[1]), t1[2]);
     const bool has = t_in < t_out;
     const float dtm = (t_out - t_in) / a.steps_f;
+    const int steps = (has || !skip_misses) ? a.steps : 0;
     float tr = 1.0f, r = 0.0f, g = 0.0f, b = 0.0f;
-    for (int s = 0; s < a.steps; ++s) {
+    for (int s = 0; s < steps; ++s) {
         const float t = fmaf((float)s + 0.5f, dtm, t_in);
         float w[3], p[3];
         for (int c = 0; c < 3; ++c) {
@@ -276,7 +296,9 @@ F3D_HD void smoke_march_pixel(const SmokeMarchArgs& a, const float* dens, const 
                                         F3D_LERP_FUSED);
         }
         const float lsun = expf(acc * a.sun_k);
-        const float sf = fminf(fmaxf(so / (de + 1e-4f), 0.0f), 1.0f);
+        // jnp.clip, which keeps a NaN (fminf and fmaxf would drop it)
+        const float q = so / (de + 1e-4f);
+        const float sf = q < 0.0f ? 0.0f : (q > 1.0f ? 1.0f : q);
         const float oat = (1.0f - att) * tr;
         const float scat = (oat * lsun) * a.scat_k;
         const float glow = oat * em;

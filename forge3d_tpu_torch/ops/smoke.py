@@ -344,6 +344,16 @@ class MarchSetup:
     args: dict
     sun_off: np.ndarray
 
+    @property
+    def skip_consts_ok(self) -> bool:
+        """The host's half of the skip's condition (csrc/smoke.cuh): every
+        float constant and sun offset finite, sun_k <= 0 and at most 2^20 sun
+        steps."""
+        vals = [c for v in self.args.values() if isinstance(v, (float, tuple))
+                for c in (v if isinstance(v, tuple) else (v,))]
+        return (bool(np.isfinite(vals).all() and np.isfinite(self.sun_off).all())
+                and self.args["sun_k"] <= 0.0 and self.args["sun_steps"] <= 1 << 20)
+
     def ctypes_args(self) -> _kernels.SmokeMarchArgs:
         a = _kernels.SmokeMarchArgs()
         for name, v in self.args.items():
@@ -391,11 +401,10 @@ def _u8(v):
     return (torch.clamp(v, 0.0, 1.0) * 255.0 + 0.5).to(torch.uint8)
 
 
-def smoke_march_plain(density, emission, soot, m: MarchSetup) -> torch.Tensor:
-    """The march of `render_rgba` by plain PyTorch (any device): (H, W, 4)
-    u8 rgba, alpha = 1 - transmittance."""
+def _march_rays(m: MarchSetup, dev):
+    """Each pixel's unit ray direction (3 planes), its slab entry and exit,
+    and whether it enters the box, (H, W) each."""
     a = m.args
-    dev = density.device
     H, W = a["height"], a["width"]
     xsp = torch.arange(W, dtype=_F32, device=dev)[None, :].expand(H, W)
     ysp = torch.arange(H, dtype=_F32, device=dev)[:, None].expand(H, W)
@@ -415,15 +424,28 @@ def smoke_march_plain(density, emission, soot, m: MarchSetup) -> torch.Tensor:
         t1.append(torch.maximum(ta, tb))
     t_in = torch.maximum(torch.maximum(t0[0], t0[1]), torch.clamp(t0[2], min=0.0))
     t_out = torch.minimum(torch.minimum(t1[0], t1[1]), t1[2])
-    has = t_in < t_out
+    return d, t_in, t_out, t_in < t_out
+
+
+def march_entered(m: MarchSetup, device) -> torch.Tensor:
+    """(H, W) bool: the pixels whose rays enter the box, the only ones whose
+    steps the kernel runs when the skip holds."""
+    return _march_rays(m, torch.device(device))[3]
+
+
+def smoke_march_plain(density, emission, soot, m: MarchSetup) -> torch.Tensor:
+    """The march of `render_rgba` by plain PyTorch (any device): (H, W, 4)
+    u8 rgba, alpha = 1 - transmittance. It marches every pixel."""
+    a = m.args
+    d, t_in, t_out, has = _march_rays(m, density.device)
     dtm = fdiv(t_out - t_in, a["steps_f"])
     off = m.sun_off.tolist()
 
     def to_vox(w):
         return [fma32(w[c] - a["org"][c], a["rcp"][c], -0.5) for c in range(3)]
 
-    tr = torch.ones_like(cx)
-    r, g, b = torch.zeros_like(cx), torch.zeros_like(cx), torch.zeros_like(cx)
+    tr = torch.ones_like(t_in)
+    r, g, b = torch.zeros_like(t_in), torch.zeros_like(t_in), torch.zeros_like(t_in)
     for i in range(a["steps"]):
         t = fma32(i + 0.5, dtm, t_in)
         w = [fma32(t, d[c], a["cam_o"][c]) for c in range(3)]
@@ -432,7 +454,7 @@ def smoke_march_plain(density, emission, soot, m: MarchSetup) -> torch.Tensor:
         emis = trilinear_plain(emission, *p, LERP_FUSED)
         so = trilinear_plain(soot, *p, LERP_FUSED)
         att = torch.exp(-torch.where(has, (a["sigma_t"] * dens) * dtm, 0.0))
-        acc = torch.zeros_like(cx)
+        acc = torch.zeros_like(t_in)
         for o in off:
             acc = acc + trilinear_plain(density, *to_vox([w[c] + o[c] for c in range(3)]),
                                         LERP_FUSED)
@@ -451,16 +473,33 @@ def smoke_march_plain(density, emission, soot, m: MarchSetup) -> torch.Tensor:
 
 
 def _march_kernel(density, emission, soot, m: MarchSetup) -> torch.Tensor:
+    """Kernel E8 march: the skip's check of the grids into a device flag,
+    then the march, on one stream; the flag (None where the host's half of
+    the condition fails) is kept as smoke_march.last_bad, 0 where the
+    march skipped the rays that miss the box."""
     _kernels.require_cuda("E8 march", density, emission, soot)
+    shape = (m.args["nz"], m.args["ny"], m.args["nx"])
+    if not density.shape == emission.shape == soot.shape == shape:
+        raise ValueError(f"E8 march: the grids must be {shape}, got {tuple(density.shape)}, "
+                         f"{tuple(emission.shape)}, {tuple(soot.shape)}")
     dev = density.device
+    lib, stream = _kernels.lib(), _kernels.stream_ptr(dev)
+    bad = None
+    if m.skip_consts_ok:
+        bad = torch.zeros(1, dtype=torch.int32, device=dev)
+        _kernels.check(lib.f3d_smoke_march_check(
+            _kernels.ptr(density), _kernels.ptr(emission), _kernels.ptr(soot),
+            density.numel(), _kernels.ptr(bad), stream), "E8 march (check)")
     off = torch.as_tensor(m.sun_off, device=dev).contiguous()
     rgba = torch.empty((m.args["height"], m.args["width"], 4), dtype=torch.uint8, device=dev)
     args = m.ctypes_args()
-    err = _kernels.lib().f3d_smoke_march(
+    err = lib.f3d_smoke_march(
         ctypes.byref(args), _kernels.ptr(density), _kernels.ptr(emission), _kernels.ptr(soot),
-        _kernels.ptr(off), _kernels.ptr(rgba), _kernels.stream_ptr(dev))
+        _kernels.ptr(off), None if bad is None else _kernels.ptr(bad), _kernels.ptr(rgba),
+        stream)
     _kernels.check(err, "E8 march")
     smoke_march.launches += 1
+    smoke_march.last_bad = bad
     return rgba
 
 
@@ -473,3 +512,4 @@ def smoke_march(density, emission, soot, m: MarchSetup) -> torch.Tensor:
 
 
 smoke_march.launches = 0
+smoke_march.last_bad = None

@@ -79,6 +79,10 @@ int f3d_frame_step(const SceneArgs* s, const FrameArgs* f, const MeshArgs* m,
     }
     return 0;
 }
+int f3d_frame_kernel_attrs(int, int* out) {
+    out[0] = out[1] = out[2] = 0;   // no device function on the host
+    return 0;
+}
 int f3d_spatial_reuse(const ResArgs* res_in, const ResArgs* res_out, const float* gb_nx,
                       const float* gb_ny, const float* gb_nz, int width, int height,
                       unsigned int frame_index, unsigned int seed_hi, int k_neighbors,
@@ -478,10 +482,17 @@ int f3d_smoke_project_advect(const float* va, const float* p, const float* div,
                                    sixth, i);
     return 0;
 }
+int f3d_smoke_march_check(const float* dens, const float* emis, const float* soot,
+                          long long n, int* bad, void*) {
+    for (long long i = 0; i < n; ++i)
+        if (!smoke_skip_voxel_ok(dens[i], emis[i], soot[i])) *bad = 1;
+    return 0;
+}
 int f3d_smoke_march(const SmokeMarchArgs* a, const float* dens, const float* emis,
-                    const float* soot, const float* sun_off, unsigned char* rgba, void*) {
+                    const float* soot, const float* sun_off, const int* bad, unsigned char* rgba,
+                    void*) {
     for (long long i = 0; i < (long long)a->width * a->height; ++i)
-        smoke_march_pixel(*a, dens, emis, soot, sun_off, rgba, i);
+        smoke_march_pixel(*a, dens, emis, soot, sun_off, bad && *bad == 0, rgba, i);
     return 0;
 }
 // E9, E5 Preetham, E6 and E7 one element, direction, point, record, bin or
@@ -648,14 +659,13 @@ def close_frac(ref, got):
     return float((ok | (torch.isnan(ref) & torch.isnan(got))).double().mean())
 
 
-def make_ctx(device, **kw):
-    n = 65
+def make_ctx(device, n=65, width=96, height=48, **kw):
     y, x = np.mgrid[0:n, 0:n].astype(np.float32)
     dem = (6.0 * np.sin(x * 0.15) * np.cos(y * 0.12)).astype(np.float32)
     em = kw.pop("env", None)
     desc = tr.TerrainRefDesc(heights=dem, cam_origin=(32.0, 22.0, 90.0),
-                             cam_look_at=(32.0, 0.0, 32.0), fov_y_deg=42.0, width=96,
-                             height=48, env_map=em, **kw)
+                             cam_look_at=(32.0, 0.0, 32.0), fov_y_deg=42.0, width=width,
+                             height=height, env_map=em, **kw)
     scene = tv.scene_from_pyramid(tr.build_pyramid(dem), spacing_xz=desc.spacing,
                                   exaggeration=desc.exaggeration, device=device)
     return tr.make_context(desc, scene, env_map(em, desc.env_intensity, device))
@@ -1149,6 +1159,39 @@ def test_frame_and_gbuffer_with_mesh_and_lights(kernels, kw):
         res = rst.spatial_reuse_plain(km, *gp["gb_n"], W, H, frame, ctx.seed_hi)
     assert (tr.frame_step.mesh_launches, tr.frame_step.light_launches) == \
         (counts[0] + 2, counts[1] + 2)
+
+
+# K6's 16x16 tiles (a warp 8x4 pixels): a 37x23 frame, no multiple of the
+# tile, terrain-only and hybrid, over a 65^2 and a 513^2 DEM; the whole
+# frame against the plain version, and a band of rows 5-15 against the
+# whole frame's rows bit for bit
+@pytest.mark.parametrize("n", [65, 513], ids=["dem65", "dem513"])
+@pytest.mark.parametrize("hybrid", [False, True], ids=["terrain", "hybrid"])
+def test_frame_kernel_ragged_tiles(kernels, n, hybrid):
+    H, W = 23, 37
+    ctx = (mesh_lights_ctx if hybrid else make_ctx)(kernels, n=n, width=W, height=H, spp=2)
+    acc = torch.zeros(H, W, 4, device=kernels)
+    wf = torch.zeros(H, W, 2, device=kernels)
+    res = rst.Reservoirs.zeros(H * W, kernels)
+    before = (tr.frame_step.launches, tr.frame_step.mesh_launches, tr.frame_step.light_launches)
+    for frame in (0, 1):
+        pa, pw, pm = tr.frame_step_plain(ctx, acc, wf, res, frame)
+        ka, kw_, km = tr._frame_step_kernel(ctx, acc, wf, res, frame)
+        assert close_frac(pa, ka) >= FRAC and close_frac(pw, kw_) >= FRAC
+        assert_reservoirs(pm, km)
+        if kernels.type == "cuda":   # the card's math library is the plain version's
+            assert torch.equal(pa, ka) and torch.equal(pw, kw_)
+            assert all(torch.equal(f, g) for f, g in zip(pm.fields(), km.fields()))
+        px = slice(5 * W, 16 * W)
+        band = rst.Reservoirs(*(f[px] for f in res.fields()))
+        ba, bw, bm = tr._frame_step_kernel(ctx, acc[5:16], wf[5:16], band, frame, 5,
+                                           counter=tr.frame_step_band)
+        assert torch.equal(ba, ka[5:16]) and torch.equal(bw, kw_[5:16])
+        assert all(torch.equal(f, g[px]) for f, g in zip(bm.fields(), km.fields()))
+        acc, wf, res = ka, kw_, km
+    assert (tr.frame_step.launches, tr.frame_step.mesh_launches,
+            tr.frame_step.light_launches) == (before[0] + 2, before[1] + 2 * hybrid,
+                                              before[2] + 2 * hybrid)
 
 
 def test_engine_kernels(kernels):
@@ -1909,6 +1952,60 @@ def test_smoke_march_kernel(kernels):
     # the host build's expf is glibc's, the plain version's torch.exp SLEEF's
     assert int(d.max()) <= 1 and float((d == 0).double().mean()) >= 0.999
     assert float((ref[..., 3] > 0).double().mean()) > 0.1   # the box covers part of the frame
+
+
+def march_gate(O, g, m):
+    """E8 march through the kernel wrapper against the plain march (which
+    marches every pixel): within one u8 step on >= 99.9% of pixels equal,
+    and every pixel whose ray misses the box equal. Returns the flag of the
+    skip's check (0: the misses were skipped)."""
+    got = O._march_kernel(g["density"], g["emission"], g["soot"], m)
+    ref = O.smoke_march_plain(g["density"], g["emission"], g["soot"], m)
+    d = (got.int() - ref.int()).abs().amax(-1)
+    assert got.shape == ref.shape == (m.args["height"], m.args["width"], 4)
+    assert int(d.max()) <= 1 and float((d == 0).double().mean()) >= 0.999
+    miss = ~O.march_entered(m, got.device)
+    assert torch.equal(got[miss], ref[miss])
+    return int(O.smoke_march.last_bad)
+
+
+def march_settings():
+    from forge3d_tpu_torch.smoke import SmokeRenderSettings
+
+    return SmokeRenderSettings(step_count=24, sun_steps=5)
+
+
+def test_smoke_march_kernel_skips_the_misses(kernels):
+    """A frame that mostly misses the box: the misses take the skip."""
+    O, g, _ = smoke_case(kernels, 0)
+    m = O.march_setup((12, 10, 14), (2.0, 1.5, 3.0), (-1.0, 0.5, 2.0), 48, 32, march_settings(),
+                      (13.0, 8.0, 110.0), (13.0, 8.0, 20.0), 45.0)
+    entered = float(O.march_entered(m, kernels).double().mean())
+    assert 0.02 < entered < 0.5
+    assert march_gate(O, g, m) == 0
+
+
+@pytest.mark.parametrize("grid,value", [("density", -0.5), ("emission", float("inf")),
+                                        ("soot", float("nan"))],
+                         ids=["negative_density", "infinite_emission", "nan_soot"])
+def test_smoke_march_kernel_marches_every_pixel_on_bad_values(kernels, grid, value):
+    """One voxel outside the skip's bounds: every pixel marches, and the
+    result still agrees with the plain march (NaN soot keeps jnp.clip's NaN)."""
+    O, g, _ = smoke_case(kernels, 0)
+    g[grid][6, 5, 7] = value
+    m = O.march_setup((12, 10, 14), (2.0, 1.5, 3.0), (-1.0, 0.5, 2.0), 40, 30, march_settings(),
+                      (14.0, 12.0, 90.0), (13.0, 7.0, 20.0), 45.0)
+    assert march_gate(O, g, m) == 1
+
+
+def test_smoke_march_kernel_ragged_tiles(kernels):
+    """A frame of 37x23 pixels, no multiple of the 8x4 warp or 16x16 block tile."""
+    O, g, _ = smoke_case(kernels, 0)
+    m = O.march_setup((12, 10, 14), (2.0, 1.5, 3.0), (-1.0, 0.5, 2.0), 37, 23, march_settings(),
+                      (14.0, 12.0, 90.0), (13.0, 7.0, 20.0), 45.0)
+    assert march_gate(O, g, m) == 0
+    with pytest.raises(ValueError, match="grids must be"):
+        O._march_kernel(g["density"], g["emission"][:-1], g["soot"], m)
 
 
 # E9, E5 Preetham, E6 and E7: the leaf kernels (csrc/leaf.cuh) against their
