@@ -5,11 +5,13 @@ Run from the repository root on a machine with one CUDA GPU:
 
     python3 chip_smoke.py
 
-`python3 chip_smoke.py --probe` runs only the timings of K2, E7 record,
-E8 march (1080p and 7200^2) and K6 (both instantiations, split by ray) at
-the main path's shapes and the day cycle's three hours, without gates (see
-probe()); copied into a checkout of an earlier tree and run there, it times
-that tree's kernels, so two designs can be compared on one card.
+`python3 chip_smoke.py --probe` runs only the timings of E4 (F's 81
+layers and each route, bit-checked), R1 render (A and B, bit-checked) and
+R1 step, K2, E7 record, E8 march (1080p and 7200^2) and K6 (both
+instantiations, split by ray) at the main path's shapes and the day
+cycle's three hours, without gates (see probe()); `--probe E4R1` stops
+after R1. Copied into a checkout of an earlier tree and run there, it
+times that tree's kernels, so two designs can be compared on one card.
 
 Phases (one line each; any failure exits non-zero):
   1. device  -- the card's name, and `nvidia-smi` name and power limit;
@@ -78,7 +80,9 @@ Phases (one line each; any failure exits non-zero):
                 water with reflection, fog, clouds, layers, detail, triplanar,
                 POM, Hosek IBL, ACES, sRGB) at 480x270, 256x128 and 1080p,
                 each against its plain version on the card; both timed at
-                1080p;
+                1080p; the registers, spilled bytes and resident blocks of
+                R1's two kernels (16x16 tiles: A; a lane per AA sample at aa
+                4: B);
  14. TerrainRenderer -- the main path: `render_with_aov` at 1080p in A and B,
                 twice each (bit-identical; last_gpu_timings and peak device
                 memory printed), and `render_offline` on A (32 samples in
@@ -122,18 +126,22 @@ Phases (one line each; any failure exits non-zero):
                 with a hole under nonzero, polygon under evenodd), each with
                 its fused composite, against its plain version on the card at
                 256x128 and at configuration F's 1080p shapes (each element
-                bit-identical), each 1080p route timed; then F's 81 layers as
-                MapScene hands them to E4, bit-checked and timed as a set;
+                bit-identical), each 1080p route timed; two adversarial layer
+                lists (e4_adversarial) through vector_layers at 256x128 and
+                1080p; then F's 81 layers as MapScene hands them to E4, in one
+                vector_layers launch, bit-checked, timed as a set, split into
+                the binning and the rest, and bounded by the pairs the cull
+                keeps beside the brute force's count;
  21. mapscene -- MapScene.render at 1080p: F (perspective over bench.py's
                 DEM: R1 with depth, K9 over a 1,024-box town, E4 over 64
                 roads, 16 polygons and 1,024 POIs, a 1024^2 raster overlay),
                 cold once and warm twice, and G (D's recipe with the
                 stroke-quality and choropleth features in screen space, SSAO
                 and SSGI: host compositing over S8), cold and warm; each run
-                counted (E4 81 times, K9 and R1 once in F; S8 once in G),
+                counted (E4, K9 and R1 once in F; S8 once in G),
                 timed, its peak memory printed, the runs bit-identical; a
                 warm render split by stage; F with E4's plain versions on the
-                card within one u8 step of F with the kernel;
+                card equal to F with the kernel on every byte;
  22. pt kernels -- the SDF tape P6 on the landmark CSG scene (16 primitives,
                 15 operations, every kind at least twice, on bench.py's DEM):
                 evaluate and normal on 2.07 M seeded points, the march on
@@ -297,9 +305,9 @@ gates, its fallback count equal (phase 27). The E2 blur's row carries
 kernel; no other row has a single PyTorch call that computes its function.
 
 E4 gates (phases 20-21), set to what the card showed: coverage, rgb, alpha
-and pick bit-identical to the plain version; MapScene with the kernel
-within one u8 step of MapScene with the plain versions on MAPSCENE_U8_FRAC
-of the pixels.
+and pick bit-identical to the plain version (NaN where NaN, on the
+adversarial lists); MapScene F with the kernel equal to MapScene F with the
+plain versions on every byte (MAPSCENE_U8_EQ), and one E4 launch a render.
 
 Sweep kernel gates (phases 6 and 9), each set to what the kernel shows
 on the card: K1 bit-identical; K2 every texel of z_sun and e_sky within
@@ -627,7 +635,11 @@ def scene_bytes(scene) -> int:
 # recorded in PERF.md's table from that design's proof run (H100 80GB HBM3,
 # 700.00 W). Printed beside the new time, outside the `kernels` line, whose
 # numbers are all of this run.
-EARLIER = {"K2 sweep_lighting": "one-CTA-a-task design 10.6760",
+EARLIER = {"E4 vector_coverage": "a-launch-a-layer, every-primitive design 29.6492",
+           "R1 render (A)": "thread-a-pixel, row-of-128 design 0.9277",
+           "R1 render (B)": "thread-a-pixel, row-of-128 design 23.4872",
+           "R1 render (L, VT)": "thread-a-pixel, row-of-128 design 0.9325",
+           "K2 sweep_lighting": "one-CTA-a-task design 10.6760",
            "E7 record": "one-thread-a-bin design 7.6999",
            "E8 march": "every-pixel-marched, row-of-256 design 8.1171",
            "K6 frame_step": "row-of-256 design 1.6946",
@@ -2014,8 +2026,11 @@ def phase_r1_kernels(dem):
     """R1 render in configurations A (1080p) and B (480x270, 256x128, and
     1080p) against its plain version on the card; both timed at 1080p.
     Returns {config: (max |err|, kernel ms, plain ms, bound ms, bound by)}."""
+    import ctypes
+
     import torch
 
+    from forge3d_tpu_torch import _kernels
     from forge3d_tpu_torch.terrain import renderer as rr
 
     r = rr.TerrainRenderer(device="cuda")
@@ -2042,6 +2057,11 @@ def phase_r1_kernels(dem):
         res[config] = (err, ms, plain_ms, bms, by)
         say("r1 kernels", f"R1 render ({config}) {w}x{h}: kernel {ms:.4f} ms, plain {plain_ms:.1f} "
                           f"ms, bound {bms:.4f} ms ({by})")
+    for lanes, name in ((0, "16x16 tiles (A)"), (1, "a lane per AA sample (B)")):
+        out = (ctypes.c_int * 3)()
+        _kernels.check(_kernels.lib().f3d_terrain_render_attrs(lanes, out), "R1 attrs")
+        say("r1 kernels", f"R1 render, {name}: {out[0]} registers, {out[1]} B spilled, "
+                          f"{out[2]} blocks of 256 an SM")
     return res
 
 
@@ -2780,9 +2800,12 @@ OPS_DISC = 8           # the disc's distance and the minimum
 OPS_VEC_PIXEL = 16     # cover_final and the composite, per pixel and layer
 VEC_PIXEL_BYTES = 2 * (12 + 4 + 4)   # rgb, alpha and pick read and written per layer
 # E4 gate: coverage, rgb, alpha and pick equal to the plain version's on every
-# element (the kernel and the plain version round the same float32 operations
-# once each, XLA's fused multiply-adds included)
-MAPSCENE_U8_FRAC = 0.995   # MapScene with E4's kernel vs its plain versions
+# element, -0.0 apart from +0.0 and NaN where NaN (the kernel and the plain
+# version round the same float32 operations once each, XLA's fused
+# multiply-adds included, and the cull drops only what changes no bit)
+# MapScene F with E4's kernel against F with its plain versions: every byte
+# (the rest of the render is the same code on the same card in both)
+MAPSCENE_U8_EQ = 1.0
 
 
 def f_recipe(bdem, width, height, seed=11):
@@ -2915,29 +2938,164 @@ def e4_run(fn, layers, width, height, planes, rule="nonzero", cov=True):
     return planes
 
 
-def e4_compare(tag, ref, got):
+def e4_same(a, b) -> bool:
+    """Equal element for element, -0.0 apart from +0.0, NaN where NaN."""
     import torch
 
+    if a.dtype != torch.float32:
+        return bool(torch.equal(a, b))
+    nan = torch.isnan(a)
+    return bool(torch.equal(nan, torch.isnan(b))
+                and torch.equal(a.view(torch.int32)[~nan], b.view(torch.int32)[~nan]))
+
+
+def e4_compare(tag, ref, got):
     for name, a, b in zip(("coverage", "rgb", "alpha", "pick"), ref, got):
-        require(torch.equal(a, b), f"E4 {tag}: {name} differs from the plain version "
-                                   f"(max |d| {float((a.double() - b.double()).abs().max()):.3e})")
+        require(e4_same(a, b), f"E4 {tag}: {name} differs from the plain version "
+                               f"(max |d| {float((a.double() - b.double()).abs().max()):.3e})")
 
 
-def e4_work(layers, width, height):
-    """(bytes, operations) of E4 over `layers` at width x height."""
+def e4_tile_pixels(width, height):
+    """(tiles,) pixels of each 16x16 tile, ragged edges included."""
+    cols = np.minimum(16, width - 16 * np.arange(-(-width // 16)))
+    rows = np.minimum(16, height - 16 * np.arange(-(-height // 16)))
+    return (rows[:, None] * cols[None, :]).ravel()
+
+
+def e4_work(layers, width, height, counts=None):
+    """(bytes, operations) of E4 over `layers` at width x height: every
+    primitive read once and the rgb, alpha and pick planes read and written
+    once; the primitive-pixel pairs of `counts` ((tiles, layers), what the
+    cull keeps) or, without it, every pair (the brute force's count), each
+    layer's final and composite at every pixel, and a polygon layer's
+    backdrop add at every pixel."""
     ops = {0: OPS_SEGMENT, 1: OPS_DISC, 2: OPS_EDGE}
     n = width * height
-    nbytes = sum(p.numel() * 4 + n * VEC_PIXEL_BYTES for _, p, _ in layers)
-    return nbytes, sum(n * (p.shape[0] * ops[k] + OPS_VEC_PIXEL) for k, p, _ in layers)
+    kinds = np.array([k for k, _, _ in layers])
+    per_op = np.array([ops[k] for k in kinds], np.float64)
+    if counts is None:
+        pairs = float(sum(n * p.shape[0] * ops[k] for k, p, _ in layers))
+    else:
+        kept = counts.cpu().numpy().astype(np.float64)          # (tiles, layers)
+        pairs = float((e4_tile_pixels(width, height) @ kept) @ per_op)
+    nbytes = sum(p.shape[0] * 16 for _, p, _ in layers) + n * VEC_PIXEL_BYTES
+    return nbytes, pairs + n * len(layers) * OPS_VEC_PIXEL + n * int((kinds == 2).sum())
+
+
+def e4_adversarial(width, height):
+    """Two layer lists chosen against E4's cull at width x height. Finite:
+    a stroke and discs exactly at the cull's reach from tile row 0's pixel
+    centres and one ulp beyond; segments on tile borders and a ring whose
+    horizontal edges lie on rows of centres; a stroke 40 px wide, a disc
+    larger than the frame and polygons that cover it; layers without
+    primitives; opacities 2.0 and -0.5. Not finite: NaN and infinite
+    coordinates, strokes and a polygon out at +-1e20 (they go to every
+    tile)."""
+    from forge3d_tpu_torch.vector import coverage as vc
+
+    w, h = float(width), float(height)
+    m = 1.0 + (max(width, height) + 16) / 65536.0      # vector.cuh's margin
+    y_at = 15.5 + 2.0 + m                              # a stroke of width 3's reach
+    y_beyond = float(np.nextafter(np.float32(y_at), np.float32(1e9)))
+    d_at = 15.5 + 0.5 + m + 2.0                        # a disc of radius 2's
+    cx, cy = w / 2, h / 2
+    z = np.zeros((0, 4))
+    finite = [
+        (vc.STROKE, [[0, y_at, w, y_at], [0.5, cy + 0.5, w - 0.5, cy + 0.5]],
+         dict(stroke_width=3.0, pick_id=1)),
+        (vc.STROKE, [[0, y_beyond, w, y_beyond], [15.5 + 2.0 + m, 0, 15.5 + 2.0 + m, h]],
+         dict(stroke_width=3.0, pick_id=2)),
+        (vc.DISC, [[cx, d_at, 2, 0], [d_at, cy, 2, 0], [cx, 18.0, 2, 0]], dict(pick_id=3)),
+        (vc.STROKE, [[16, 0, 16, h], [0, 16, w, 16], [15.5, 3, 15.5, h - 3], [32, 32, 48, 32]],
+         dict(stroke_width=1.0, pick_id=4)),
+        (vc.POLYGON, vc.ring_edges([[[10.5, 8.5], [0.75 * w + 0.5, 8.5],
+                                     [0.75 * w + 0.5, 0.8 * h + 0.5],
+                                     [0.4 * w + 0.5, 0.4 * h + 0.5], [10.5, 0.8 * h + 0.5]]]),
+         dict(pick_id=5, opacity=0.7)),
+        (vc.STROKE, [[-30, h + 12, w + 20, -20], [cx, cy, cx + 1, cy + 1]],
+         dict(stroke_width=40.0, pick_id=6, opacity=0.4)),
+        (vc.DISC, [[cx, cy, 2 * max(w, h), 0], [10, 10, -3, 0]], dict(pick_id=7, opacity=0.3)),
+        (vc.POLYGON, vc.ring_edges([[[-1000, -1000], [w + 1000, -1000], [w + 1000, h + 1000],
+                                     [-1000, h + 1000]],
+                                    [[0.25 * w, 0.2 * h], [0.25 * w, 0.6 * h],
+                                     [0.75 * w, 0.6 * h], [0.75 * w, 0.2 * h]]]),
+         dict(pick_id=8)),
+        (vc.STROKE, z, dict(stroke_width=2.0, opacity=-0.5, pick_id=9)),
+        (vc.POLYGON, z, dict(pick_id=10)),
+        (vc.DISC, z, dict(pick_id=11)),
+        (vc.STROKE, [[5, 5, 0.9 * w, 0.8 * h]], dict(stroke_width=6.0, opacity=2.0, pick_id=12)),
+        (vc.DISC, [[cx, cy, 9, 0]], dict(opacity=-0.5, pick_id=13)),
+    ]
+    nan, inf, big = np.nan, np.inf, 1e20
+    nonfinite = [
+        (vc.STROKE, [[5, 5, 30, 9], [nan, 20, 40, 20], [10, 40, 70, 30]],
+         dict(stroke_width=2.0, pick_id=1)),
+        (vc.STROKE, [[20, 10, inf, 10], [4, 30, 9, 44]], dict(stroke_width=3.0, pick_id=2)),
+        (vc.DISC, [[30, 20, nan, 0], [60, 30, 4, 0]], dict(pick_id=3)),
+        (vc.POLYGON, vc.ring_edges([[[10, 10], [70, 12], [-inf, 40]]]), dict(pick_id=4)),
+        (vc.STROKE, [[-big, 20, big, 30], [-1e19, -1e19, 1e19, 1e19]],
+         dict(stroke_width=4.0, pick_id=5, opacity=0.5)),
+        (vc.POLYGON, vc.ring_edges([[[-big, -big], [big, -big], [big, big], [-big, big]]]),
+         dict(pick_id=6, opacity=0.3)),
+    ]
+    as32 = lambda ls: [(k, np.asarray(p, np.float32).reshape(-1, 4), st)  # noqa: E731
+                       for k, p, st in ls]
+    return {"finite": as32(finite), "not finite": as32(nonfinite)}
+
+
+def e4_special_planes(width, height, device):
+    """e4_planes' rgb, alpha and pick with -0.0 and NaN in the base rgb and
+    NaN and inf in the alpha."""
+    _, rgb, alpha, pick = e4_planes(width, height, device)
+    rgb[::3, ::2, 0] = -0.0
+    rgb[1::5, 1::3, 1] = float("nan")
+    alpha[::7, ::5] = float("nan")
+    alpha[2::7, ::4] = float("inf")
+    return rgb, alpha, pick
+
+
+def e4_packed(layers, device):
+    """`pack_layers`' table and primitives of `layers`, on `device`."""
+    import torch
+
+    from forge3d_tpu_torch.vector import coverage as vc
+
+    table, prims, n_poly = vc.pack_layers(layers)
+    return torch.as_tensor(table.ravel()).to(device), torch.as_tensor(prims).to(device), n_poly
+
+
+def e4_split(table, prims, n_poly, w, h, planes, reps=10):
+    """Device ms of E4's binning (count and scan) and of the rest (scatter,
+    backdrop sums, tiles), from events at `_vector_layers_kernel`'s marks;
+    between them the host reads the list's size."""
+    import torch
+
+    from forge3d_tpu_torch.vector import coverage as vc
+
+    binned = composed = 0.0
+    for rep in range(reps + 1):
+        ev = {k: torch.cuda.Event(enable_timing=True)
+              for k in ("start", "binned", "sized", "composited")}
+        ev["start"].record()
+        vc._vector_layers_kernel(table, prims, n_poly, w, h, rgb=planes[0], alpha=planes[1],
+                                 pick=planes[2], mark=lambda stage: ev[stage].record())
+        torch.cuda.synchronize()
+        if rep > 0:   # the first is a warm call
+            binned += ev["start"].elapsed_time(ev["binned"])
+            composed += ev["sized"].elapsed_time(ev["composited"])
+    return binned / reps, composed / reps
 
 
 def phase_vector_kernels(bdem):
-    """E4 per route (stroke, dashed stroke, disc, polygon with a hole under
-    nonzero, polygon under evenodd), each with its fused composite, against
-    its plain version on the card at 256x128 (seeded shapes) and at F's 1080p
-    shapes, each 1080p route timed; then F's 81 layers as MapScene runs them,
-    timed as a set. Returns the row's (max |err|, ms, plain ms, bound ms,
-    bound by)."""
+    """E4 per route through vector_layer (stroke, dashed stroke, disc,
+    polygon with a hole under nonzero, polygon under evenodd: one layer with
+    its coverage plane and its composite) against its plain version on the
+    card at 256x128 (seeded shapes) and at F's 1080p shapes, each 1080p route
+    timed; the adversarial lists (e4_adversarial) through vector_layers at
+    256x128 and 1080p over planes holding -0.0, NaN and inf; then F's 81
+    layers through vector_layers, one launch, timed, split and bounded by
+    the pairs the cull keeps. Returns the row's (max |err|, ms, plain ms,
+    bound ms, bound by)."""
     import torch
 
     from forge3d_tpu_torch import mapscene as ms
@@ -2967,7 +3125,9 @@ def phase_vector_kernels(bdem):
     for route, (spec, rule) in small.items():
         layers = [(k, torch.as_tensor(np.asarray(p, np.float32), device=dev), dict(s, **style))
                   for k, p, s in spec]
+        before = vc.vector_layer.launches
         got = e4_run(kernel, layers, w, h, e4_planes(w, h, dev), rule)
+        require(vc.vector_layer.launches == before + 1, f"E4 {route}: not one launch")
         ref = e4_run(plain, layers, w, h, e4_planes(w, h, dev), rule)
         e4_compare(f"{route} {w}x{h}", ref, got)
         cov = ref[0]
@@ -2976,6 +3136,22 @@ def phase_vector_kernels(bdem):
         say("vector kernels", f"E4 {route} {w}x{h}: {layers[0][1].shape[0]} primitives, "
                               f"coverage, rgb, alpha and pick bit-identical, coverage mean "
                               f"{float(cov.mean()):.4f}")
+
+    for w, h in ((SMALL_W, SMALL_H), (REAL_W, REAL_H)):
+        for name, layers in e4_adversarial(w, h).items():
+            got = e4_special_planes(w, h, dev)
+            before = vc.vector_layer.launches
+            vc.vector_layers(layers, w, h, rgb=got[0], alpha=got[1], pick=got[2])
+            require(vc.vector_layer.launches == before + 1, f"E4 {name}: not one launch")
+            ref = e4_special_planes(w, h, dev)
+            vc.vector_layers_plain(layers, w, h, rgb=ref[0], alpha=ref[1], pick=ref[2])
+            for plane, a, b in zip(("rgb", "alpha", "pick"), ref, got):
+                require(e4_same(a, b), f"E4 adversarial ({name}) {w}x{h}: {plane} differs")
+            picks = sorted(set(ref[2].unique().tolist()) - {3})
+            say("vector kernels", f"E4 adversarial ({name}) {w}x{h}: {len(layers)} layers in one "
+                                  f"launch, rgb, alpha and pick bit-identical (NaN where NaN), "
+                                  f"rgb NaN on {float(torch.isnan(ref[0]).double().mean()):.4f} "
+                                  f"of elements, picks {picks}")
 
     w, h = REAL_W, REAL_H
     f_layers = e4_layers(ms.MapScene(f_recipe(bdem, w, h), device="cuda"), dev)
@@ -2992,25 +3168,46 @@ def phase_vector_kernels(bdem):
         e4_compare(f"{route} {w}x{h}", ref, got)
         planes = e4_planes(w, h, dev)
         ms_ = cuda_ms(lambda: e4_run(kernel, layers, w, h, planes, rule), 10)
-        bms, by = bound(*e4_work(layers, w, h))
+        table, prims, n_poly = e4_packed([(k, p, dict(st, rule=rule)) for k, p, st in layers],
+                                         dev)
+        counts, _ = vc.bin_counts(table, prims, n_poly, w, h)
+        bms, by = bound(*e4_work(layers, w, h, counts))
         say("vector kernels", f"E4 {route} {w}x{h}: {layers[0][1].shape[0]} primitives, "
                               f"bit-identical, coverage mean {float(ref[0].mean()):.4f}; kernel "
                               f"{ms_:.4f} ms, plain {plain_ms:.1f} ms, bound {bms:.4f} ms ({by})")
 
-    # F's layers as one render runs them (composite only, no coverage plane)
-    got = e4_run(kernel, f_layers, w, h, e4_planes(w, h, dev), cov=False)
+    # F's layers as one render runs them: vector_layers, one launch, no coverage plane
+    got = e4_planes(w, h, dev)
+    vc.vector_layers(f_layers, w, h, rgb=got[1], alpha=got[2], pick=got[3])
     plain_ms, ref = wall_ms(lambda: e4_run(plain, f_layers, w, h, e4_planes(w, h, dev), cov=False))
-    e4_compare(f"F's {len(f_layers)} layers {w}x{h}", ref, got)
+    e4_compare(f"F's {len(f_layers)} layers {w}x{h}", ref[1:], got[1:])
+    table, prims, n_poly = e4_packed(f_layers, dev)
     planes = e4_planes(w, h, dev)
-    ms_ = cuda_ms(lambda: e4_run(kernel, f_layers, w, h, planes, cov=False), 10)
-    nbytes, ops = e4_work(f_layers, w, h)
+    ms_ = cuda_ms(lambda: vc._vector_layers_kernel(table, prims, n_poly, w, h, rgb=planes[1],
+                                                    alpha=planes[2], pick=planes[3]), 10)
+    bin_ms, rest_ms = e4_split(table, prims, n_poly, w, h, planes[1:])
+    wall = min(wall_ms(lambda: vc.vector_layers(f_layers, w, h, rgb=planes[1], alpha=planes[2],
+                                                 pick=planes[3]))[0] for _ in range(5))
+    counts, _ = vc.bin_counts(table, prims, n_poly, w, h)
+    nbytes, ops = e4_work(f_layers, w, h, counts)
     bms, by = bound(nbytes, ops)
-    counts = {k: (len(v), sum(p.shape[0] for _, p, _ in v)) for k, v in by_kind.items()}
+    old_bytes, old_ops = e4_work(f_layers, w, h)
+    old_bytes += (len(f_layers) - 1) * w * h * VEC_PIXEL_BYTES   # each layer's planes
+    obms, oby = bound(old_bytes, old_ops)
+    counts_kind = {k: (len(v), sum(p.shape[0] for _, p, _ in v)) for k, v in by_kind.items()}
+    kept = int(counts.sum())
     say("vector kernels", f"E4 F's layers {w}x{h}: (layers, primitives) strokes "
-                          f"{counts[vc.STROKE]}, discs {counts[vc.DISC]}, polygons "
-                          f"{counts[vc.POLYGON]}; bit-identical; kernel {ms_:.4f} ms for the "
-                          f"set, plain {plain_ms:.1f} ms, bound {bms:.4f} ms ({by}), "
-                          f"{ops:.4e} operations, {nbytes} bytes")
+                          f"{counts_kind[vc.STROKE]}, discs {counts_kind[vc.DISC]}, polygons "
+                          f"{counts_kind[vc.POLYGON]}; one launch, bit-identical; kernel "
+                          f"{ms_:.4f} ms for the set (of it on the device: count and scan "
+                          f"{bin_ms:.4f}, scatter, backdrop sums and tiles {rest_ms:.4f}; the rest "
+                          f"the host's read of the list's size), vector_layers with the packing "
+                          f"and the upload {wall:.4f} ms (fastest of 5 calls), plain "
+                          f"{plain_ms:.1f} ms; {kept} (tile, primitive) entries of "
+                          f"{sum(p.shape[0] for _, p, _ in f_layers) * len(e4_tile_pixels(w, h))}"
+                          f"; bound {bms:.4f} ms ({by}; {ops:.4e} operations, {nbytes} bytes); "
+                          f"the brute force's count {obms:.4f} ms ({oby}; {old_ops:.4e} "
+                          f"operations, {old_bytes} bytes)")
     return 0.0, ms_, plain_ms, bms, by
 
 
@@ -3050,8 +3247,9 @@ def phase_mapscene(bdem):
     out_dir.mkdir(parents=True, exist_ok=True)
     recipes = {"F": f_recipe(bdem, REAL_W, REAL_H), "G": g_recipe(bdem, REAL_W, REAL_H)}
     scene = ms.MapScene(recipes["F"], device="cuda")
-    n_e4 = len(scene._world_vectors(scene.compile_plan()).layers)
-    want = {"F": {"E4 vector_coverage": n_e4, "K9 trace_mesh": 1, "R1 render": 1},
+    require(len(scene._world_vectors(scene.compile_plan()).layers) == 81,
+            "F has not its 81 world vector layers")
+    want = {"F": {"E4 vector_coverage": 1, "K9 trace_mesh": 1, "R1 render": 1},
             "G": {"S8 shade": 1}}
     for config, rec in recipes.items():
         scene = ms.MapScene(rec, device="cuda")
@@ -3089,19 +3287,20 @@ def phase_mapscene(bdem):
         require(runs[0].shape == (REAL_H, REAL_W, 4) and std > 5.0,
                 f"configuration {config}'s render is trivial")
         if config == "F":
-            kernel = vc._vector_layer_kernel
-            vc._vector_layer_kernel = vc.vector_layer_plain
+            from forge3d_tpu_torch import vector as vec
+
+            vec.vector_layers = vc.vector_layers_plain
             try:
                 vc.vector_layer.launches = 0
                 wall, frame = wall_ms(lambda: scene.render())
                 require(vc.vector_layer.launches == 0, "the plain run launched E4")
             finally:
-                vc._vector_layer_kernel = kernel
+                vec.vector_layers = vc.vector_layers
             frac, eq_, step = _u8_agree(frame.rgba, runs[0])
             say("mapscene", f"(F) with E4's plain versions on the card: {wall:.1f} ms; rgba "
                             f"within one step {frac:.6f}, bytes equal {eq_:.6f}, max step {step}")
-            require(frac >= MAPSCENE_U8_FRAC, "F with E4's kernel disagrees with F with its "
-                                              "plain versions")
+            require(eq_ >= MAPSCENE_U8_EQ, "F with E4's kernel disagrees with F with its "
+                                           "plain versions")
     say("mapscene", f"launches on the paths {json.dumps(launches)}")
     return launches
 
@@ -5084,8 +5283,83 @@ def probe_k6(torch, dem):
         say("probe", f"{tag} frame 1 bit-identical to the plain version: {same}")
 
 
-def probe(torch):
-    """`chip_smoke.py --probe`: K2 and E7 record timed at the main path's
+def _r1_same(ref, got) -> bool:
+    import torch
+
+    return bool(torch.equal(ref["rgba"], got["rgba"]) and all(
+        torch.equal(torch.isnan(ref[k]), torch.isnan(got[k]))
+        and torch.equal(torch.nan_to_num(ref[k]), torch.nan_to_num(got[k]))
+        for k in R1_PLANES))
+
+
+def probe_r1(torch, dem):
+    """R1 render in A and B at 1080p, timed and bit-checked against
+    render_plain (with the kernels' registers and resident blocks where the
+    tree reports them); R1 step at 1080p timed."""
+    import ctypes
+
+    from forge3d_tpu_torch import _kernels
+    from forge3d_tpu_torch.terrain import renderer as rr
+
+    attrs = getattr(_kernels.lib(), "f3d_terrain_render_attrs", None)
+    r = rr.TerrainRenderer(device="cuda")
+    for config in ("A", "B"):
+        _, scene, a, _ = r.render_inputs(r1_params(config, REAL_W, REAL_H), dem)
+        ref = rr.render_plain(scene, a)
+        got = rr._render_kernel(scene, a, want_aov=True)
+        ms = cuda_ms(lambda: rr._render_kernel(scene, a, want_aov=True), 5)
+        regs = ""
+        if attrs is not None:
+            out = (ctypes.c_int * 3)()
+            attrs(int(a.aa == 4), out)
+            regs = f" {out[0]} registers, {out[1]} B spilled, {out[2]} blocks an SM;"
+        say("probe", f"R1 render ({config}) {REAL_W}x{REAL_H}:{regs} {ms:.4f} ms, "
+                     f"bit-identical to render_plain: {_r1_same(ref, got)}")
+    _, scene, a, _ = r.render_inputs(r1_params("A", REAL_W, REAL_H), dem)
+    acc = torch.zeros((REAL_H, REAL_W, 4), device="cuda")
+    say("probe", f"R1 step {REAL_W}x{REAL_H}: "
+                 f"{cuda_ms(lambda: rr._step_kernel(scene, a, acc, 0), 10):.4f} ms")
+
+
+def probe_e4(torch, dem):
+    """E4 on F's 81 layers at 1080p (one vector_layers launch where the tree
+    has it, else the loop of one launch a layer) and on each 1080p route
+    through vector_layer, timed and bit-checked against the plain version."""
+    from forge3d_tpu_torch import mapscene as ms
+    from forge3d_tpu_torch.vector import coverage as vc
+
+    dev = torch.device("cuda")
+    w, h = REAL_W, REAL_H
+    layers = e4_layers(ms.MapScene(f_recipe(dem, w, h), device="cuda"), dev)
+    ref = e4_run(vc.vector_layer_plain, layers, w, h, e4_planes(w, h, dev), cov=False)
+    if hasattr(vc, "vector_layers"):
+        table, prims, n_poly = e4_packed(layers, dev)
+        run = lambda pl: vc._vector_layers_kernel(  # noqa: E731
+            table, prims, n_poly, w, h, rgb=pl[1], alpha=pl[2], pick=pl[3])
+        how = "one vector_layers launch"
+    else:
+        run = lambda pl: e4_run(vc._vector_layer_kernel, layers, w, h, pl, cov=False)  # noqa: E731
+        how = "a launch a layer"
+    got = e4_planes(w, h, dev)
+    run(got)
+    planes = e4_planes(w, h, dev)
+    t = cuda_ms(lambda: run(planes), 10)
+    same = all(torch.equal(a, b) for a, b in zip(ref[1:], got[1:]))
+    say("probe", f"E4 F's {len(layers)} layers {w}x{h} ({how}): {t:.4f} ms, bit-identical {same}")
+    by_kind = {k: [l for l in layers if l[0] == k] for k in (vc.STROKE, vc.DISC, vc.POLYGON)}
+    routes = {"stroke": [l for l in by_kind[vc.STROKE] if l[1].shape[0] == 127][:1],
+              "stroke dashed": [l for l in by_kind[vc.STROKE] if l[1].shape[0] != 127][:1],
+              "disc": by_kind[vc.DISC],
+              "polygon": [l for l in by_kind[vc.POLYGON] if l[1].shape[0] > 64][:1]}
+    for route, one in routes.items():
+        planes = e4_planes(w, h, dev)
+        t = cuda_ms(lambda: e4_run(vc._vector_layer_kernel, one, w, h, planes), 10)
+        say("probe", f"E4 {route} {w}x{h} through vector_layer: {t:.4f} ms")
+
+
+def probe(torch, e4_r1_only=False):
+    """`chip_smoke.py --probe`: E4 (probe_e4) and R1 (probe_r1), then K2 and
+    E7 record timed at the main path's
     shapes (k2_probe), with the day cycle's three hours (phase 31), E8 march
     (probe_e8) and K6 (probe_k6), and no gates. It calls only entry points
     that the port has had since these kernels were first ported, so copied
@@ -5099,6 +5373,10 @@ def probe(torch):
     from forge3d_tpu_torch.pt import terrain_sweep as ts
 
     dem = bench_dem()
+    probe_e4(torch, dem)
+    probe_r1(torch, dem)
+    if e4_r1_only:
+        return
     probe_e8(torch)
     probe_k6(torch, dem)
     plan, scene, rot, jit = sweep_setup(dem, REAL_W, REAL_H, BENCH_CAM, torch.device("cuda"),
@@ -5156,8 +5434,8 @@ def main() -> int:
                 say("build", line.strip())
 
     torch.backends.cuda.matmul.allow_tf32 = False   # plain versions' einsums in float32
-    if sys.argv[1:] == ["--probe"]:
-        probe(torch)
+    if sys.argv[1:2] == ["--probe"]:
+        probe(torch, e4_r1_only=sys.argv[2:] == ["E4R1"])
         return 0
     phase_kernels()
     launches, dem = phase_render()

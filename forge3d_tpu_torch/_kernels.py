@@ -384,6 +384,8 @@ _SIGNATURES = {
     # (scene, terrain, out, stream)
     "f3d_terrain_render": [ctypes.POINTER(SceneArgs), ctypes.POINTER(TerrainArgs),
                            ctypes.POINTER(TerrainOut), _P],
+    # (lanes, out (registers, spilled bytes, resident blocks))
+    "f3d_terrain_render_attrs": [_I, _P],
     # (scene, terrain, accum, sample_idx, lum, out, tiles, stream)
     "f3d_terrain_step": [ctypes.POINTER(SceneArgs), ctypes.POINTER(TerrainArgs), _P, _U, _P,
                          ctypes.POINTER(TerrainOut), _P, _P],
@@ -403,9 +405,11 @@ _SIGNATURES = {
     "f3d_clipmap_shade": [ctypes.POINTER(ScreenArgs), ctypes.POINTER(ClipArgs), _P, _P],
     # (sizes out, capacity) -> the number of structs
     "f3d_struct_sizes": [ctypes.POINTER(ctypes.c_longlong), _I],
-    # (prims, n, kind, width, height, half, evenodd, color, opacity, pick_id,
-    #  cov, rgb, alpha, pick, stream)
-    "f3d_vector_layer": [_P, _I, _I, _I, _I, _F, _I, _F3, _F, _I, _P, _P, _P, _P, _P],
+    # E4: (table, n_layers, prims, n_prims, width, height, counts, backdrop, stream);
+    # (table, n_layers, prims, n_prims, n_poly, width, height, counts, offs, entries,
+    #  backdrop, cov, rgb, alpha, pick, stream)
+    "f3d_vector_count": [_P, _I, _P, _I, _I, _I, _P, _P, _P],
+    "f3d_vector_compose": [_P, _I, _P, _I, _I, _I, _I] + [_P] * 9,
     # (sdf, px, py, pz, n, d, mat, stream)
     "f3d_sdf_eval": [ctypes.POINTER(SdfArgs), _P, _P, _P, _I, _P, _P, _P],
     # (sdf, px, py, pz, n, eps, out (3, n), stream)

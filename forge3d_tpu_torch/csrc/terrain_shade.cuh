@@ -496,35 +496,46 @@ F3D_HD void count_fallback(unsigned int* counter) {
 #endif
 }
 
-// renderer.py:_build_program.program for pixel i: `aa` samples (jittered
-// when aa > 1), their mean, the tonemap and the u8 rgba by the host's
-// float32 formula (renderer.py:349-356); the AOVs are sample 0's.
-F3D_HD void render_pixel(const SceneArgs& s, const TerrainArgs& a, const TerrainOut& o, int i) {
-    const int x = i % a.width;
-    const int y = i / a.width;
-    uint32_t st = a.aa_seed ^ ((uint32_t)x * 1664525u) ^ ((uint32_t)y * 1013904223u)
-                  ^ F3D_SEED_RENDER;
-    float racc = 0.0f, gacc = 0.0f, bacc = 0.0f;
-    ShadeAux aux0, aux;
-    for (int k = 0; k < a.aa; ++k) {
-        float jx = 0.0f, jy = 0.0f;
-        if (a.aa > 1) {
-            float u1, u2;
-            st = xorshift32(st, u1);
-            st = xorshift32(st, u2);
-            jx = u1 - 0.5f;
-            jy = u2 - 0.5f;
-        }
-        float r, g, b;
-        shade_sample(s, a, x, y, jx, jy, st, r, g, b, aux);
-        if (k == 0) {
-            aux0 = aux;
-            if (aux.vt_miss && o.vt_fallback != nullptr) count_fallback(o.vt_fallback);
-        }
-        racc = racc + r;
-        gacc = gacc + g;
-        bacc = bacc + b;
+// The random state at the start of pixel (x, y)'s first AA sample.
+F3D_HD uint32_t r1_seed(const TerrainArgs& a, int x, int y) {
+    return a.aa_seed ^ ((uint32_t)x * 1664525u) ^ ((uint32_t)y * 1013904223u) ^ F3D_SEED_RENDER;
+}
+
+// The draws one AA sample takes from the stream, whatever its rays hit: 2
+// for the jitter (aa > 1), 2 for each sun ray when shadow_samples > 1, 2 for
+// each AO ray (shade_sample).
+F3D_HD int r1_sample_draws(const TerrainArgs& a) {
+    return (a.aa > 1 ? 2 : 0) + (a.shadow_samples > 1 ? 2 * a.shadow_samples : 0)
+           + (a.ao_samples > 0 ? 2 * a.ao_samples : 0);
+}
+
+// The state n draws further on.
+F3D_HD uint32_t xorshift_skip(uint32_t st, int n) {
+    float u;
+    for (int j = 0; j < n; ++j) st = xorshift32(st, u);
+    return st;
+}
+
+// One AA sample of pixel (x, y) from the stream state `st` at its start:
+// its jitter (aa > 1), then shade_sample.
+F3D_HD void r1_sample(const SceneArgs& s, const TerrainArgs& a, int x, int y, uint32_t& st,
+                      float& r, float& g, float& b, ShadeAux& aux) {
+    float jx = 0.0f, jy = 0.0f;
+    if (a.aa > 1) {
+        float u1, u2;
+        st = xorshift32(st, u1);
+        st = xorshift32(st, u2);
+        jx = u1 - 0.5f;
+        jy = u2 - 0.5f;
     }
+    shade_sample(s, a, x, y, jx, jy, st, r, g, b, aux);
+}
+
+// Pixel i's outputs from the sums of its samples (taken in sample order)
+// and sample 0's record: their mean, the tonemap and the u8 rgba by the
+// host's float32 formula (renderer.py:349-356), and the AOVs.
+F3D_HD void r1_write(const TerrainArgs& a, const TerrainOut& o, int i, float racc, float gacc,
+                     float bacc, const ShadeAux& aux0) {
     float hdr[3] = {racc / (float)a.aa, gacc / (float)a.aa, bacc / (float)a.aa};
     for (int c = 0; c < 3; ++c) {
         float l = a.debug_normals ? aux0.n[c] * 0.5f + 0.5f : tonemap_encode(a, hdr[c]);
@@ -533,6 +544,41 @@ F3D_HD void render_pixel(const SceneArgs& s, const TerrainArgs& a, const Terrain
     }
     if (o.rgba != nullptr) o.rgba[4 * i + 3] = 255;
     write_aovs(o, i, aux0);
+}
+
+// renderer.py:_build_program.program for pixel i: `aa` samples (jittered
+// when aa > 1) in order, their mean, the tonemap and the u8 rgba; the AOVs
+// and the VT fallback count are sample 0's.
+F3D_HD void render_pixel(const SceneArgs& s, const TerrainArgs& a, const TerrainOut& o, int i) {
+    const int x = i % a.width;
+    const int y = i / a.width;
+    uint32_t st = r1_seed(a, x, y);
+    float racc = 0.0f, gacc = 0.0f, bacc = 0.0f;
+    ShadeAux aux0, aux;
+    for (int k = 0; k < a.aa; ++k) {
+        float r, g, b;
+        r1_sample(s, a, x, y, st, r, g, b, aux);
+        if (k == 0) {
+            aux0 = aux;
+            if (aux.vt_miss && o.vt_fallback != nullptr) count_fallback(o.vt_fallback);
+        }
+        racc = racc + r;
+        gacc = gacc + g;
+        bacc = bacc + b;
+    }
+    r1_write(a, o, i, racc, gacc, bacc, aux0);
+}
+
+// R1 render's pixel mapping (renderer.cu:render_kernel, K6's): a block of
+// 256 threads takes a 16x16 tile, its warp w the 8x4 pixels at (8 (w & 1),
+// 4 (w >> 1)), lane l the pixel (l & 7, l >> 3) of those. False for a
+// thread of a ragged tile that has no pixel.
+F3D_HD bool r1_tile_pixel(const TerrainArgs& a, int block, int thread, int& x, int& y) {
+    const int tiles_x = (a.width + 15) / 16;
+    const int lane = thread & 31, warp = thread >> 5;
+    x = (block % tiles_x) * 16 + (warp & 1) * 8 + (lane & 7);
+    y = (block / tiles_x) * 16 + (warp >> 1) * 4 + (lane >> 3);
+    return x < a.width && y < a.height;
 }
 
 // renderer.py:begin_offline_accumulation.step for pixel i: one jittered

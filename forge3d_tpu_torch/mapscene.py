@@ -7,7 +7,7 @@
 #   perspective  TerrainRenderer (kernel R1; render_with_aov when a layer
 #                needs depth), then buildings through the BVH walk K9, point
 #                clouds, raster overlays, and world vector layers through
-#                kernel E4 (vector.VectorScene, one launch per layer);
+#                kernel E4 (vector.VectorScene, one launch for every layer);
 #   screen       mapscene_screen.render_screen_base (S1-S4, S8), cloud
 #                shadow and postfx, screen-space layers through
 #                screen_compose (host numpy);

@@ -8,7 +8,8 @@
 # The JAX package compiles one XLA program per configuration from the
 # shading closure `_make_shade`; here that program is kernel R1
 # (csrc/terrain_shade.cuh, launched by csrc/renderer.cu): `render_program`
-# launches the one-shot render (every AA sample of a pixel in one thread),
+# launches the one-shot render (a thread a pixel in 16x16 tiles, or at aa 4
+# a lane per AA sample, four lanes a pixel),
 # `offline_step` one accumulation sample and the 32x32 tile means. Beside
 # each is its plain PyTorch version (`render_plain`, `step_plain`, over
 # `shade_plain`), which the wrappers run for CPU tensors; CUDA tensors

@@ -3,8 +3,8 @@
 # The port of forge3d_tpu/vector/__init__.py: the same add_points /
 # add_lines / add_polygons / clear_vectors + render seam and the flat
 # vector_render_* functions. render() runs every layer through kernel E4
-# (vector/coverage.py:vector_layer, one launch per layer with the composite
-# fused in) on `device`, "cuda" unless the caller asks for the CPU, and
+# (vector/coverage.py:vector_layers: one launch for all the layers, the
+# composite fused in) on `device`, "cuda" unless the caller asks for the CPU, and
 # returns JAX's numpy planes: rgb (H,W,3) f32, alpha (H,W) f32, pick (H,W)
 # i32. The dash walk and the payload parsing are the JAX package's host code.
 
@@ -26,6 +26,7 @@ from .coverage import (  # noqa: F401
     ring_edges,
     stroke_coverage,
     vector_layer,
+    vector_layers,
 )
 
 
@@ -165,11 +166,9 @@ class VectorScene:
             raise ValueError(f"base_rgb must be ({height}, {width}, 3), got {tuple(rgb.shape)}")
         alpha = torch.zeros((height, width), dtype=torch.float32, device=dev)
         pick = torch.zeros((height, width), dtype=torch.int32, device=dev)
-        for layer in self.layers:
-            kind, prims = _layer_prims(layer)
-            vector_layer(kind, torch.as_tensor(prims, device=dev), width, height,
-                         stroke_width=layer.width, color=layer.color, opacity=layer.opacity,
-                         pick_id=layer.pick_id, rgb=rgb, alpha=alpha, pick=pick)
+        vector_layers([(*_layer_prims(layer), dict(stroke_width=layer.width, color=layer.color,
+                                                   opacity=layer.opacity, pick_id=layer.pick_id))
+                       for layer in self.layers], width, height, rgb=rgb, alpha=alpha, pick=pick)
         return rgb, alpha, pick
 
     def render(self, width: int, height: int,

@@ -10,12 +10,17 @@
 # 1), composited source-over into rgb and alpha, and the layer's pick id
 # written where coverage > 0.5.
 #
-# `vector_layer` runs one layer: the plain PyTorch version on CPU tensors,
-# the CUDA kernel (csrc/vector.cu over csrc/vector.cuh) on CUDA tensors,
-# counted in `vector_layer.launches`. The plain versions compute JAX's float32
+# `vector_layers` composites a whole layer list in one launch of the CUDA
+# kernel (csrc/vector.cu over csrc/vector.cuh: it bins each primitive to the
+# 16x16 pixel tiles it can change, then one CTA a tile takes every layer in
+# order, composite in registers); `vector_layer` runs one layer, with an
+# optional coverage plane, through the same kernel. Both run the plain
+# PyTorch versions on CPU tensors, and E4's launches are counted in
+# `vector_layer.launches`. The plain versions compute JAX's float32
 # expressions in JAX's order over (chunk, H, W) broadcasts, with the minimum
 # over each chunk and an int32 sum for the winding; minima and integer sums
-# are exact in any order, so chunking changes no bit. XLA compiles JAX's scan
+# are exact in any order, so chunking changes no bit, nor does the kernel's
+# cull (vector.cuh says why). XLA compiles JAX's scan
 # bodies with every a*b + c fused into one multiply-add, rounded once; the
 # plain versions round those sums once too (`ops.shading.fma32`), as the kernel's fmaf
 # does, so all three agree bit for bit.
@@ -182,41 +187,172 @@ def vector_layer_plain(kind: int, prims, width: int, height: int, *,
         composite_plain(c, rgb, alpha, pick, color, opacity, pick_id)
 
 
+#: words of one VecLayer (csrc/vector.cuh): kind, offset, count, evenodd,
+#: pick_id, bd_slot, then half, opacity, color[3] and a pad as float32
+LAYER_WORDS = 12
+#: the kernel's pixel tile (F3D_VEC_TILE)
+TILE = 16
+
+
+def _style(style) -> dict:
+    kw = dict(stroke_width=0.0, rule="nonzero", color=(0.0, 0.0, 0.0), opacity=1.0, pick_id=0)
+    unknown = set(style) - set(kw)
+    if unknown:
+        raise ValueError(f"E4: unknown layer settings {sorted(unknown)}")
+    kw.update(style)
+    if kw["rule"] not in RULES:
+        raise ValueError(f"unknown fill rule {kw['rule']!r}; use one of {RULES}")
+    return kw
+
+
+def _table(specs) -> np.ndarray:
+    """The (L, 12) words of the kernel's layer table, as float32, from
+    (kind, offset, count, style) per layer; each polygon layer gets the next
+    backdrop plane."""
+    words = np.zeros((len(specs), LAYER_WORDS), np.int32)
+    floats = words.view(np.float32)
+    n_poly = 0
+    for j, (kind, offset, count, style) in enumerate(specs):
+        if kind not in (STROKE, DISC, POLYGON):
+            raise ValueError(f"unknown primitive kind {kind}")
+        kw = _style(style)
+        words[j, :6] = (kind, offset, count, kw["rule"] == "evenodd", int(kw["pick_id"]),
+                        n_poly if kind == POLYGON else -1)
+        floats[j, 6:11] = (np.float32(kw["stroke_width"] * 0.5), kw["opacity"], *kw["color"])
+        n_poly += kind == POLYGON
+    return floats
+
+
+def pack_layers(layers) -> tuple:
+    """(table, prims, n_poly) of a layer list [(kind, prims (n, 4), style
+    dict of stroke_width, rule, color, opacity, pick_id)]: the (L, 12) words
+    of the kernel's layer table as float32, the primitives concatenated in
+    layer order as one (N, 4) float32 array, and the number of polygon
+    layers (each gets its own backdrop plane)."""
+    parts = [np.asarray(p.detach().cpu().numpy() if isinstance(p, torch.Tensor) else p,
+                        np.float32).reshape(-1, 4) for _, p, _ in layers]
+    offsets = np.cumsum([0] + [len(p) for p in parts])
+    table = _table([(k, int(o), len(p), st)
+                    for (k, _, st), o, p in zip(layers, offsets, parts)])
+    prims = np.concatenate(parts) if parts else np.zeros((0, 4), np.float32)
+    return table, np.ascontiguousarray(prims), sum(k == POLYGON for k, _, _ in layers)
+
+
 def _null_or_ptr(t):
     return None if t is None else _kernels.ptr(t)
+
+
+def _check_planes(width, height, cov, rgb, alpha, pick, one_layer: bool):
+    planes = [t for t in (cov, rgb, alpha, pick) if t is not None]
+    if rgb is not None:
+        if alpha is None or pick is None:
+            raise ValueError("E4: the composite needs rgb, alpha and pick")
+        if rgb.dtype != _F32 or alpha.dtype != _F32 or pick.dtype != torch.int32:
+            raise ValueError("E4: rgb and alpha are float32, pick int32")
+        if rgb.shape != (height, width, 3) or alpha.shape != (height, width) \
+                or pick.shape != (height, width):
+            raise ValueError("E4: planes must be (H, W, 3) and (H, W)")
+        if not all(t.is_contiguous() for t in (rgb, alpha, pick)):
+            raise ValueError("E4: planes must be contiguous")
+    if cov is not None:
+        if not one_layer:
+            raise ValueError("E4: a coverage plane is written for one layer only")
+        if cov.dtype != _F32 or cov.shape != (height, width) or not cov.is_contiguous():
+            raise ValueError("E4: cov must be a contiguous (H, W) float32 plane")
+    return planes
+
+
+def bin_counts(table: torch.Tensor, prims: torch.Tensor, n_poly: int, width: int,
+               height: int):
+    """The binning's first pass on the card: (counts (tiles, layers) int32,
+    the primitives of each layer kept in each tile; backdrop (n_poly,
+    height, tiles_x) int32, each polygon edge's winding at the tile next
+    left of its tiles, before the sums from the right)."""
+    n_layers = table.numel() // LAYER_WORDS
+    tiles_x, tiles_y = -(-width // TILE), -(-height // TILE)
+    counts = torch.zeros((tiles_y * tiles_x, n_layers), dtype=torch.int32, device=table.device)
+    backdrop = torch.zeros((n_poly, height, tiles_x), dtype=torch.int32, device=table.device)
+    err = _kernels.lib().f3d_vector_count(
+        _kernels.ptr(table), n_layers, _kernels.ptr(prims), int(prims.numel() // 4), width,
+        height, _kernels.ptr(counts), _kernels.ptr(backdrop), _kernels.stream_ptr(table.device))
+    _kernels.check(err, "E4 vector_layers (count)")
+    return counts, backdrop
+
+
+def _vector_layers_kernel(table: torch.Tensor, prims: torch.Tensor, n_poly: int, width: int,
+                          height: int, *, cov=None, rgb=None, alpha=None, pick=None,
+                          mark=None) -> None:
+    """Kernel E4 over a packed layer list (`pack_layers`' table and
+    primitives, on the card): bin, then composite every layer in order.
+    `mark(stage)`, where given, is called after the count and scan are
+    queued ("binned"), after the host has read the list's size ("sized")
+    and after the rest is queued ("composited"), for timing."""
+    n_layers = table.numel() // LAYER_WORDS
+    planes = _check_planes(width, height, cov, rgb, alpha, pick, n_layers == 1)
+    _kernels.require_cuda("E4 vector_layers", table, prims, *planes)
+    if table.dtype != _F32 or prims.dtype != _F32 or not prims.is_contiguous():
+        raise ValueError("E4: the table and primitives must be contiguous float32")
+    if width <= 0 or height <= 0 or n_layers == 0:
+        return
+    counts, backdrop = bin_counts(table, prims, n_poly, width, height)
+    offs = torch.zeros(counts.numel() + 1, dtype=torch.int32, device=table.device)
+    torch.cumsum(counts.view(-1), 0, dtype=torch.int32, out=offs[1:])
+    if mark is not None:
+        mark("binned")
+    entries = torch.empty((int(offs[-1]), 4), dtype=_F32, device=table.device)   # the list's size
+    if mark is not None:
+        mark("sized")
+    err = _kernels.lib().f3d_vector_compose(
+        _kernels.ptr(table), n_layers, _kernels.ptr(prims), int(prims.numel() // 4), n_poly,
+        width, height, _kernels.ptr(counts), _kernels.ptr(offs), _kernels.ptr(entries),
+        _kernels.ptr(backdrop), _null_or_ptr(cov), _null_or_ptr(rgb), _null_or_ptr(alpha),
+        _null_or_ptr(pick), _kernels.stream_ptr(table.device))
+    _kernels.check(err, "E4 vector_layers")
+    if mark is not None:
+        mark("composited")
+    vector_layer.launches += 1
+
+
+def vector_layers_plain(layers, width: int, height: int, *, rgb, alpha, pick) -> None:
+    """The plain version of `vector_layers`: each layer through
+    `vector_layer_plain`, in order, on the planes' device."""
+    for kind, prims, style in layers:
+        vector_layer_plain(kind, _as_prims(prims).to(rgb.device), width, height,
+                           **_style(style), rgb=rgb, alpha=alpha, pick=pick)
+
+
+def vector_layers(layers, width: int, height: int, *, rgb, alpha, pick) -> None:
+    """Kernel E4 over a whole layer list [(kind, prims (n, 4), style dict of
+    stroke_width, rule, color, opacity, pick_id)]: every layer composited
+    into rgb (H, W, 3), alpha (H, W) and pick (H, W) int32 in place, in
+    order, as `vector_layer` would one at a time. The planes' device decides:
+    CPU tensors run the plain version; on the card the primitives and the
+    layer table go up in one copy, and one E4 launch (binning included)
+    composites them all."""
+    if rgb.device.type == "cpu":
+        return vector_layers_plain(layers, width, height, rgb=rgb, alpha=alpha, pick=pick)
+    table, prims, n_poly = pack_layers(layers)
+    buf = torch.as_tensor(np.concatenate([table.ravel(), prims.ravel()])).to(rgb.device)
+    _vector_layers_kernel(buf[:table.size], buf[table.size:].view(-1, 4), n_poly, width,
+                          height, rgb=rgb, alpha=alpha, pick=pick)
 
 
 def _vector_layer_kernel(kind: int, prims, width: int, height: int, *,
                          stroke_width: float = 0.0, rule: str = "nonzero",
                          color=(0.0, 0.0, 0.0), opacity: float = 1.0, pick_id: int = 0,
                          cov=None, rgb=None, alpha=None, pick=None) -> None:
-    if rule not in RULES:
-        raise ValueError(f"unknown fill rule {rule!r}; use one of {RULES}")
     if kind not in (STROKE, DISC, POLYGON):
         raise ValueError(f"unknown primitive kind {kind}")
     prims = prims.reshape(-1, 4)
-    planes = [t for t in (cov, rgb, alpha, pick) if t is not None]
-    _kernels.require_cuda("E4 vector_layer", prims, *planes)
-    if rgb is not None:
-        if alpha is None or pick is None:
-            raise ValueError("E4 vector_layer: the composite needs rgb, alpha and pick")
-        if rgb.dtype != _F32 or alpha.dtype != _F32 or pick.dtype != torch.int32:
-            raise ValueError("E4 vector_layer: rgb and alpha are float32, pick int32")
-        if rgb.shape != (height, width, 3) or alpha.shape != (height, width) \
-                or pick.shape != (height, width):
-            raise ValueError("E4 vector_layer: planes must be (H, W, 3) and (H, W)")
-    if cov is not None and (cov.dtype != _F32 or cov.shape != (height, width)):
-        raise ValueError("E4 vector_layer: cov must be (H, W) float32")
+    _kernels.require_cuda("E4 vector_layer", prims)
     if prims.dtype != _F32:
         raise ValueError("E4 vector_layer: primitives must be float32")
-    err = _kernels.lib().f3d_vector_layer(
-        _kernels.ptr(prims), int(prims.shape[0]), int(kind), int(width), int(height),
-        float(np.float32(stroke_width * 0.5)), int(rule == "evenodd"),
-        _kernels._F3(*(float(c) for c in color)), float(opacity), int(pick_id),
-        _null_or_ptr(cov), _null_or_ptr(rgb), _null_or_ptr(alpha), _null_or_ptr(pick),
-        _kernels.stream_ptr(prims.device))
-    _kernels.check(err, "E4 vector_layer")
-    vector_layer.launches += 1
+    table = _table([(kind, 0, prims.shape[0], dict(stroke_width=stroke_width, rule=rule,
+                                                   color=color, opacity=opacity,
+                                                   pick_id=pick_id))])
+    _vector_layers_kernel(torch.as_tensor(table.ravel()).to(prims.device), prims.contiguous(),
+                          int(kind == POLYGON), width, height, cov=cov, rgb=rgb, alpha=alpha,
+                          pick=pick)
 
 
 def vector_layer(kind: int, prims, width: int, height: int, *, stroke_width: float = 0.0,
@@ -227,7 +363,8 @@ def vector_layer(kind: int, prims, width: int, height: int, *, stroke_width: flo
     over a width x height grid, written to `cov` (H, W) and composited into
     rgb (H, W, 3), alpha (H, W) and pick (H, W) int32 in place, each where
     given. CPU tensors run the plain versions; CUDA tensors launch the
-    kernel."""
+    kernel (the one `vector_layers` launches, with one layer).
+    `vector_layer.launches` counts E4's launches from either entry point."""
     if prims.device.type == "cpu":
         return vector_layer_plain(kind, prims, width, height, stroke_width=stroke_width,
                                   rule=rule, color=color, opacity=opacity, pick_id=pick_id,
@@ -275,7 +412,8 @@ def polygon_coverage(width: int, height: int, rings, rule: str = "nonzero", *,
     return _coverage(POLYGON, edges, width, height, device, rule=rule)
 
 
-__all__ = ["STROKE", "DISC", "POLYGON", "vector_layer", "vector_layer_plain",
+__all__ = ["STROKE", "DISC", "POLYGON", "vector_layer", "vector_layer_plain", "vector_layers",
+           "vector_layers_plain", "pack_layers", "bin_counts",
            "stroke_coverage_plain", "disc_coverage_plain", "polygon_coverage_plain",
            "composite_plain", "disc_prims", "ring_edges", "stroke_coverage", "disc_coverage",
            "polygon_coverage"]

@@ -263,9 +263,54 @@ int f3d_resolve(const ResolveArgs* r, const float* acc, unsigned char* out, void
         for (int x = 0; x < r->width; ++x) resolve_pixel(*r, acc, x, y, out);
     return 0;
 }
+// R1 render as renderer.cu maps it: at aa 4 a lane per AA sample, each from
+// the skipped-ahead state, summed in sample order as the pixel's lane 0
+// sums; otherwise the blocks of 16x16 pixels in r1_tile_pixel's order
 int f3d_terrain_render(const SceneArgs* s, const TerrainArgs* a, const TerrainOut* o, void*) {
-    for (int i = 0; i < a->width * a->height; ++i) render_pixel(*s, *a, *o, i);
+    if (a->aa == 4) {
+        for (int i = 0; i < a->width * a->height; ++i) {
+            const int x = i % a->width, y = i / a->width;
+            float r[4], g[4], b[4];
+            ShadeAux aux[4];
+            for (int k = 0; k < 4; ++k) {
+                uint32_t st = xorshift_skip(r1_seed(*a, x, y), k * r1_sample_draws(*a));
+                r1_sample(*s, *a, x, y, st, r[k], g[k], b[k], aux[k]);
+            }
+            float rs = 0.0f, gs = 0.0f, bs = 0.0f;
+            for (int k = 0; k < 4; ++k) {
+                rs = rs + r[k];
+                gs = gs + g[k];
+                bs = bs + b[k];
+            }
+            if (aux[0].vt_miss && o->vt_fallback != nullptr) count_fallback(o->vt_fallback);
+            r1_write(*a, *o, i, rs, gs, bs, aux[0]);
+        }
+        return 0;
+    }
+    const int blocks = ((a->width + 15) / 16) * ((a->height + 15) / 16);
+    for (int blk = 0; blk < blocks; ++blk)
+        for (int t = 0; t < 256; ++t) {
+            int x, y;
+            if (r1_tile_pixel(*a, blk, t, x, y)) render_pixel(*s, *a, *o, y * a->width + x);
+        }
     return 0;
+}
+int f3d_terrain_render_attrs(int, int* out) {
+    out[0] = out[1] = out[2] = 0;   // no device function on the host
+    return 0;
+}
+// test entry: pixel (x, y)'s stream state at the start of each AA sample,
+// as render_pixel's serial loop leaves it and as xorshift_skip forms it
+void f3d_test_r1_states(const SceneArgs* s, const TerrainArgs* a, int x, int y,
+                        unsigned int* serial, unsigned int* skipped) {
+    uint32_t st = r1_seed(*a, x, y);
+    for (int k = 0; k < a->aa; ++k) {
+        serial[k] = st;
+        skipped[k] = xorshift_skip(r1_seed(*a, x, y), k * r1_sample_draws(*a));
+        float r, g, b;
+        ShadeAux aux;
+        r1_sample(*s, *a, x, y, st, r, g, b, aux);
+    }
 }
 int f3d_terrain_step(const SceneArgs* s, const TerrainArgs* a, float* accum,
                      unsigned int sample_idx, float* lum, const TerrainOut* o, float* tiles,
@@ -388,14 +433,34 @@ int f3d_adj_pt(const AdjArgs* a, const uint32_t* keys, unsigned char* rgba, floa
     for (int i = 0; i < a->width * a->height; ++i) adj_pt_pixel(*a, keys, i, rgba, hdr);
     return 0;
 }
-// E4 one pixel at a time, the primitives in order
-int f3d_vector_layer(const float* prims, int n, int kind, int width, int height, float half,
-                     int evenodd, const float* color, float opacity, int pick_id, float* cov,
-                     float* rgb, float* alpha, int* pick, void*) {
-    const VectorArgs a = make_vector_args(n, kind, width, height, half, evenodd, color, opacity,
-                                          pick_id);
-    for (int y = 0; y < height; ++y)
-        for (int x = 0; x < width; ++x) vector_pixel_serial(a, prims, x, y, cov, rgb, alpha, pick);
+// E4: the binning one primitive (and backdrop row) at a time, then each
+// tile's pixels in order
+int f3d_vector_count(const void* table, int n_layers, const float* prims, int n_prims, int width,
+                     int height, int* counts, int* backdrop, void*) {
+    if (width <= 0 || height <= 0) return 0;
+    for (int i = 0; i < n_prims; ++i)
+        vec_count_prim((const VecLayer*)table, n_layers, prims, i, width, height, counts,
+                       backdrop);
+    return 0;
+}
+int f3d_vector_compose(const void* table, int n_layers, const float* prims, int n_prims,
+                       int n_poly, int width, int height, int* counts, const int* offs,
+                       float* entries, int* backdrop, float* cov, float* rgb, float* alpha,
+                       int* pick, void*) {
+    if (width <= 0 || height <= 0 || n_layers <= 0) return 0;
+    const VecLayer* t = (const VecLayer*)table;
+    for (int i = 0; i < n_prims; ++i)
+        vec_scatter_prim(t, n_layers, prims, i, width, height, counts, offs, entries);
+    const int tiles_x = vec_tiles(width);
+    for (int j = 0; j < n_poly * height; ++j) vec_backdrop_row(backdrop, j, tiles_x);
+    for (int tile = 0; tile < tiles_x * vec_tiles(height); ++tile)
+        for (int k = 0; k < F3D_VEC_TILE * F3D_VEC_TILE; ++k) {
+            const int x = (tile % tiles_x) * F3D_VEC_TILE + k % F3D_VEC_TILE;
+            const int y = (tile / tiles_x) * F3D_VEC_TILE + k / F3D_VEC_TILE;
+            if (x < width && y < height)
+                vec_pixel_binned(t, n_layers, width, height, offs, entries, backdrop, tile, x,
+                                 y, cov, rgb, alpha, pick);
+        }
     return 0;
 }
 // E2 and E1 one element, pixel or texel at a time
@@ -1275,11 +1340,10 @@ def assert_planes(ref, got, keys):
         assert close_frac(ref[k], got[k]) >= FRAC, k
 
 
-@pytest.mark.parametrize("case", list(R1_CASES))
-def test_terrain_render_kernel(kernels, case):
+def check_r1_render(kernels, kw):
     from forge3d_tpu_torch.terrain import renderer as rr
 
-    scene, a = r1_setup(kernels, **R1_CASES[case])
+    scene, a = r1_setup(kernels, **kw)
     before = rr.render_program.launches
     got = rr._render_kernel(scene, a, want_aov=True)
     assert rr.render_program.launches == before + 1
@@ -1289,8 +1353,46 @@ def test_terrain_render_kernel(kernels, case):
     assert torch.equal(got["rgba"][..., 3], torch.full_like(got["rgba"][..., 3], 255))
     assert float((ref["depth"].isnan() == got["depth"].isnan()).double().mean()) >= FRAC
     assert_planes(ref, got, ("hdr", "albedo", "normal", "depth", "visibility"))
+    if kernels.type == "cuda":   # the card's math library is the plain version's
+        assert torch.equal(ref["rgba"], got["rgba"])
+        assert all(same_bits(ref[k], got[k]) for k in ("hdr", "albedo", "normal", "depth",
+                                                          "visibility"))
+    return scene, a, got
+
+
+# R1 render in 16x16 tiles (96x48 is 6x3 of them) at each case's aa
+@pytest.mark.parametrize("case", list(R1_CASES))
+def test_terrain_render_kernel(kernels, case):
+    from forge3d_tpu_torch.terrain import renderer as rr
+
+    scene, a, got = check_r1_render(kernels, R1_CASES[case])
     beauty = rr._render_kernel(scene, a, want_aov=False)
     assert set(beauty) == {"rgba"} and torch.equal(beauty["rgba"], got["rgba"])
+
+
+# R1 render at aa 4: a lane per AA sample, each from the state skipped ahead
+# (8x8 blocks: 96x48 is 12x6 of them)
+@pytest.mark.parametrize("case", list(R1_CASES))
+def test_terrain_render_kernel_lanes(kernels, case):
+    check_r1_render(kernels, dict(R1_CASES[case], sampling=dict(aa_samples=4, aa_seed=7)))
+
+
+@pytest.mark.parametrize("case", list(R1_CASES))
+def test_r1_skipped_state_is_the_serial_state(host_lib, monkeypatch, case):
+    """Each AA sample of a pixel starts from its seed advanced by k times the
+    draws a sample takes, whatever its rays hit: the state render_pixel's
+    serial loop reaches, at every sample of pixels on the terrain, the
+    water, the sky and the frame's corners."""
+    import ctypes
+
+    monkeypatch.setattr(_kernels, "require_cuda", lambda name, *t: None)
+    scene, a = r1_setup("cpu", **dict(R1_CASES[case], sampling=dict(aa_samples=4, aa_seed=3)))
+    sa, ta = scene.kernel_args(), a.kernel_args()
+    host_lib.f3d_test_r1_states.restype = None
+    for x, y in ((0, 0), (95, 47), (48, 24), (10, 40), (90, 3), (33, 30)):
+        ser, skp = (ctypes.c_uint * a.aa)(), (ctypes.c_uint * a.aa)()
+        host_lib.f3d_test_r1_states(ctypes.byref(sa), ctypes.byref(ta), x, y, ser, skp)
+        assert list(ser) == list(skp) and len(set(ser)) == a.aa
 
 
 def test_terrain_step_kernel(kernels):
@@ -1452,7 +1554,7 @@ def vt_args(device, scene_args, budget_pages):
         vt_tpw0=float(np.float32(8.0)), vt_inv_span=float(np.float32(1.0 / 64.0)))
 
 
-@pytest.mark.parametrize("aa", [1, 3])
+@pytest.mark.parametrize("aa", [1, 3, 4])
 def test_terrain_render_kernel_with_vt(kernels, aa):
     from forge3d_tpu_torch.terrain import renderer as rr
 
@@ -1730,6 +1832,202 @@ def test_vector_layer_kernel(kernels, case):
     else:
         assert float(cov.max()) == 1.0 and float(cov.min()) == 0.0
         assert bool(((cov > 0) & (cov < 1)).any()) and bool((got[3] == 7).any())
+
+
+# E4 over whole layer lists (vector_layers: the binning, then every layer of
+# a tile in one pass) against the loop of vector_layer_plain, bit for bit,
+# on sets chosen against the cull: primitives with NaN and infinite
+# coordinates and coordinates near +-1e20 (they go to every tile); strokes,
+# discs and an edge exactly at the cull's reach from a tile's pixel centres
+# and just beyond it; segments on tile borders and horizontal edges on rows
+# of pixel centres; a stroke 40 px wide, a disc larger than the frame and a
+# polygon that covers it; layers without primitives; opacities 2.0 and
+# -0.5 over a base holding -0.0 and NaN (and an alpha with NaN and inf);
+# ragged frames of 1x1 and 17x15.
+def e4_mixed():
+    from forge3d_tpu_torch.vector import coverage as vc
+
+    rng = np.random.default_rng(17)
+    t = np.linspace(0.0, 2.0 * np.pi, 25)[:-1]
+    outer = np.stack([40 + 30 * np.cos(t), 24 + 20 * np.sin(t)], 1)
+    hole = np.stack([40 + 10 * np.cos(-t), 24 + 7 * np.sin(-t)], 1)
+    return [
+        (vc.STROKE, rng.uniform(-8, 88, (37, 4)), dict(stroke_width=3.0, opacity=0.8,
+                                                     pick_id=1, color=(0.9, 0.2, 0.1))),
+        (vc.POLYGON, vc.ring_edges([outer, hole]), dict(opacity=0.6, pick_id=2)),
+        (vc.STROKE, np.zeros((0, 4)), dict(stroke_width=3.0, pick_id=3)),
+        (vc.DISC, vc.disc_prims(rng.uniform(0, 80, (50, 2)), rng.uniform(1, 5, 50)),
+         dict(opacity=0.9, pick_id=4, color=(0.1, 0.2, 0.95))),
+        (vc.POLYGON, vc.ring_edges([outer, outer * 0.5 + 10]), dict(rule="evenodd",
+                                                                     pick_id=5)),
+        (vc.POLYGON, np.zeros((0, 4)), dict(pick_id=6)),
+        (vc.DISC, np.zeros((0, 4)), dict(pick_id=7)),
+    ]
+
+
+def e4_adversarial():
+    from forge3d_tpu_torch.vector import coverage as vc
+
+    nan, inf, big = np.nan, np.inf, 1e20
+    # the cull's reach for a stroke of width 3 in an 80x48 frame: half +
+    # 0.5 + 1 + (80 + 16) / 2^16, exact in float32
+    reach = 1.5 + 0.5 + 1.0 + 96.0 / 65536.0
+    y_at = 15.5 + reach                    # tile row 0's last centres at exactly the reach
+    y_beyond = float(np.nextafter(np.float32(y_at), np.float32(100)))
+    d_at = 15.5 + 0.5 + 1.0 + 96.0 / 65536.0 + 2.0   # a disc of radius 2 at its reach
+    return {
+        "nonfinite": [
+            (vc.STROKE, [[5, 5, 30, 9], [nan, 20, 40, 20], [10, 40, 70, 30]],
+             dict(stroke_width=2.0, pick_id=1)),
+            (vc.STROKE, [[20, 10, inf, 10], [4, 30, 9, 44]], dict(stroke_width=3.0, pick_id=2)),
+            (vc.DISC, [[30, 20, nan, 0], [60, 30, 4, 0]], dict(pick_id=3)),
+            (vc.POLYGON, vc.ring_edges([[[10, 10], [70, 12], [-inf, 40]]]), dict(pick_id=4)),
+            (vc.STROKE, [[-big, 20, big, 30], [-1e19, -1e19, 1e19, 1e19]],
+             dict(stroke_width=4.0, pick_id=5, opacity=0.5)),
+            (vc.POLYGON, vc.ring_edges([[[-big, -big], [big, -big], [big, big], [-big, big]]]),
+             dict(pick_id=6, opacity=0.3)),
+        ],
+        "at_reach": [
+            (vc.STROKE, [[0, y_at, 80, y_at], [0.5, 33.5, 79.5, 33.5]],
+             dict(stroke_width=3.0, pick_id=1)),
+            (vc.STROKE, [[0, y_beyond, 80, y_beyond], [15.5 + reach, 0, 15.5 + reach, 48]],
+             dict(stroke_width=3.0, pick_id=2)),
+            (vc.DISC, [[40, d_at, 2, 0], [d_at, 40, 2, 0], [40, 15.5 + 2.5, 2, 0]],
+             dict(pick_id=3)),
+            (vc.POLYGON, vc.ring_edges([[[16.0, 2.0], [47.5 + 2.0 + 96.0 / 65536.0, 6.5],
+                                         [32.0, 44.0]]]), dict(pick_id=4)),
+        ],
+        "borders": [
+            (vc.STROKE, [[16, 0, 16, 48], [0, 16, 80, 16], [15.5, 3, 15.5, 45],
+                         [32, 32, 48, 32]], dict(stroke_width=1.0, pick_id=1)),
+            (vc.POLYGON, vc.ring_edges([[[10.5, 8.5], [60.5, 8.5], [60.5, 40.5], [30.5, 20.5],
+                                         [10.5, 40.5]]]), dict(pick_id=2, opacity=0.7)),
+            (vc.POLYGON, vc.ring_edges([[[16, 16], [64, 16], [64, 32], [16, 32]]]),
+             dict(rule="evenodd", pick_id=3)),
+        ],
+        "wide": [
+            (vc.STROKE, [[-30, 60, 100, -20], [40, 24, 41, 25]], dict(stroke_width=40.0,
+                                                                       pick_id=1, opacity=0.4)),
+            (vc.DISC, [[40, 24, 200, 0], [10, 10, -3, 0]], dict(pick_id=2, opacity=0.3)),
+            (vc.POLYGON, vc.ring_edges([[[-1000, -1000], [1000, -1000], [1000, 1000],
+                                         [-1000, 1000]], [[20, 10], [20, 30], [60, 30],
+                                                          [60, 10]]]), dict(pick_id=3)),
+            (vc.POLYGON, vc.ring_edges([[[-500, -500], [900, -500], [900, 900]]]),
+             dict(pick_id=4, rule="evenodd", opacity=0.5)),
+        ],
+        "opacity": [
+            (vc.STROKE, [[5, 5, 70, 40]], dict(stroke_width=6.0, opacity=2.0, pick_id=1)),
+            (vc.DISC, [[40, 24, 9, 0], [70, 5, 3, 0]], dict(opacity=-0.5, pick_id=2)),
+            (vc.STROKE, np.zeros((0, 4)), dict(stroke_width=2.0, opacity=-0.5, pick_id=3)),
+            (vc.POLYGON, vc.ring_edges([[[60, 20], [75, 45], [45, 45]]]),
+             dict(opacity=2.0, pick_id=4)),
+        ],
+    }
+
+
+def e4_planes(W, H, device, special: bool):
+    rng = np.random.default_rng(5)
+    rgb = rng.uniform(0, 1, (H, W, 3)).astype(np.float32)
+    alpha = np.full((H, W), 0.25, np.float32)
+    if special:
+        rgb[::3, ::2, 0] = -0.0
+        rgb[1::5, 1::3, 1] = np.nan
+        alpha[::7, ::5] = np.nan
+        alpha[2::7, ::4] = np.inf
+    return (torch.as_tensor(rgb, device=device), torch.as_tensor(alpha, device=device),
+            torch.full((H, W), 9, dtype=torch.int32, device=device))
+
+
+def same_bits(a, b):
+    """Equal element for element, -0.0 apart from +0.0, NaN where NaN (its
+    sign and payload are not compared)."""
+    a, b = a.cpu(), b.cpu()
+    if a.dtype != torch.float32:
+        return torch.equal(a, b)
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and torch.equal(
+        a.view(torch.int32)[~nan], b.view(torch.int32)[~nan])
+
+
+def e4_layers_through_kernel(layers, W, H, planes, device):
+    from forge3d_tpu_torch.vector import coverage as vc
+
+    table, prims, n_poly = vc.pack_layers(layers)
+    before = vc.vector_layer.launches
+    vc._vector_layers_kernel(torch.as_tensor(table.ravel(), device=device),
+                             torch.as_tensor(prims, device=device), n_poly, W, H,
+                             rgb=planes[0], alpha=planes[1], pick=planes[2])
+    assert vc.vector_layer.launches == before + 1
+    return planes
+
+
+E4_LISTS = ("mixed", "nonfinite", "at_reach", "borders", "wide", "opacity")
+
+
+@pytest.mark.parametrize("size", [(80, 48), (17, 15), (1, 1)], ids=["80x48", "17x15", "1x1"])
+@pytest.mark.parametrize("case", E4_LISTS)
+def test_vector_layers_kernel(kernels, case, size):
+    """Every layer of a list in one E4 launch, bit for bit the loop of
+    vector_layer_plain over the same planes: rgb, alpha and pick."""
+    from forge3d_tpu_torch.vector import coverage as vc
+
+    W, H = size
+    layers = e4_mixed() if case == "mixed" else e4_adversarial()[case]
+    layers = [(k, np.asarray(p, np.float32).reshape(-1, 4), st) for k, p, st in layers]
+    special = case in ("opacity", "mixed")
+    got = e4_layers_through_kernel(layers, W, H, e4_planes(W, H, kernels, special), kernels)
+    ref = e4_planes(W, H, kernels, special)
+    vc.vector_layers_plain(layers, W, H, rgb=ref[0], alpha=ref[1], pick=ref[2])
+    for a, b in zip(ref, got):
+        assert same_bits(a, b)
+    if kernels.type == "cuda":   # the public entry point: one upload, one launch
+        pub = e4_planes(W, H, kernels, special)
+        before = vc.vector_layer.launches
+        vc.vector_layers(layers, W, H, rgb=pub[0], alpha=pub[1], pick=pub[2])
+        assert vc.vector_layer.launches == before + 1
+        assert all(same_bits(a, b) for a, b in zip(ref, pub))
+    if size == (80, 48) and case != "nonfinite":   # there NaN reaches every pixel
+        assert len(set(ref[2].unique().tolist()) - {9}) >= 2   # layers reached the pick map
+    for kind, prims, style in layers:   # each layer's coverage plane alone
+        kw = {k: v for k, v in style.items() if k in ("stroke_width", "rule")}
+        cov_k, cov_p = torch.zeros((H, W), device=kernels), torch.zeros((H, W), device=kernels)
+        vc._vector_layer_kernel(kind, torch.as_tensor(prims, device=kernels), W, H, **kw,
+                                cov=cov_k)
+        vc.vector_layer_plain(kind, torch.as_tensor(prims, device=kernels), W, H, **kw,
+                              cov=cov_p)
+        assert same_bits(cov_p, cov_k)
+
+
+def test_vector_binning_culls(host_lib):
+    """The binning keeps a primitive in the tiles it can change and counts a
+    polygon's far edges into the backdrop of the tiles left of them: at
+    80x48 (5x3 tiles), a short segment inside tile (1, 1) lands in it alone;
+    of the triangle (20, 4), (75, 40), (70, 4), the long edge is in tile
+    columns 1-4, the short one in column 4 and the top one in row 0, and on
+    rows 4-39 the long edge (upward) adds +1 left of column 1 and the short
+    one (downward) -1 left of column 4."""
+    import ctypes
+
+    from forge3d_tpu_torch.vector import coverage as vc
+
+    W, H = 80, 48
+    tri = vc.ring_edges([[[20, 4], [75, 40], [70, 4]]])
+    table, prims, n_poly = vc.pack_layers([(vc.STROKE, [[22, 22, 26, 25]],
+                                            dict(stroke_width=2.0)),
+                                           (vc.POLYGON, tri, {})])
+    counts = np.zeros(5 * 3 * 2, np.int32)
+    backdrop = np.zeros(n_poly * H * 5, np.int32)
+    p = lambda a: ctypes.c_void_p(a.ctypes.data)  # noqa: E731
+    table = np.ascontiguousarray(table)
+    assert host_lib.f3d_vector_count(p(table), 2, p(prims), len(prims), W, H, p(counts),
+                                     p(backdrop), None) == 0
+    stroke, poly = counts[0::2].reshape(3, 5), counts[1::2].reshape(3, 5)
+    assert stroke.tolist() == [[0, 0, 0, 0, 0], [0, 1, 0, 0, 0], [0, 0, 0, 0, 0]]
+    assert poly.tolist() == [[0, 2, 2, 2, 3], [0, 1, 1, 1, 2], [0, 1, 1, 1, 2]]
+    bd = backdrop.reshape(H, 5)
+    want = np.zeros((H, 5), np.int32)
+    want[4:40, 0], want[4:40, 3] = 1, -1
+    np.testing.assert_array_equal(bd, want)
 
 
 # P6, P5, P3, P4: the SDF tape, the TLAS walk, the hybrid tracer and the

@@ -3,7 +3,8 @@
 # with no segment and a dashed polyline through _dash_segments), discs, and a
 # polygon with a hole under both fill rules, including a ring whose vertices
 # and horizontal edges lie on pixel centres; and the port's VectorScene.render
-# and the four flat vector_render_* functions against the JAX package's.
+# (also with opacities 2.0 and -0.5 over a base holding -0.0 and NaN, bit for
+# bit) and the four flat vector_render_* functions against the JAX package's.
 #
 # Gates: coverage and rgb/alpha |d| <= 1e-5 * (1 + |ref|) on every element,
 # pick maps equal, u8 overlays within one step on every byte and equal on
@@ -172,6 +173,36 @@ def test_vector_scene_render_matches_jax(base):
     assert ts.pick_at(got[2], 48, 32) == js.pick_at(ref[2], 48, 32)
     ts.clear_vectors()
     assert ts.layers == [] and ts.add_points([[1, 1]]) == 1
+
+
+def test_vector_scene_special_values_match_jax():
+    """Opacities 2.0 and -0.5, a zero-length segment and a point far outside
+    the frame, over a base holding -0.0 and NaN: every layer's composite is
+    applied at every pixel, coverage 0 included, so the port's render (all
+    layers through vector_layers, whose kernel keeps every layer's composite
+    too) equals JAX's element for element, -0.0 apart from +0.0 and NaN
+    where NaN."""
+    out = []
+    for mod in (jv, tv):
+        vs = mod.VectorScene()
+        vs.add_lines(polyline(4), width=5.0, opacity=2.0)
+        vs.add_points([[40.0, 30.0], [500.0, -400.0]], size=9.0, opacity=-0.5)
+        vs.add_polygons([ellipse(30, 20, 14, 10)], opacity=-0.5)
+        vs.add_lines(np.array([[7.0, 7.0], [7.0, 7.0]]), opacity=2.0)
+        out.append(vs)
+    base = np.random.default_rng(8).uniform(0, 1, (H, W, 3)).astype(np.float32)
+    base[::3, ::2, 0] = -0.0
+    base[1::5, 1::3, 1] = np.nan
+    ref = out[0].render(W, H, base)
+    got = out[1].render(W, H, base, device="cpu")
+    for a, b in zip(ref, got):
+        a, b = np.asarray(a), np.asarray(b)
+        nan = np.isnan(a) if a.dtype == np.float32 else np.zeros(a.shape, bool)
+        np.testing.assert_array_equal(nan, np.isnan(b) if b.dtype == np.float32 else nan)
+        np.testing.assert_array_equal(a[~nan].view(np.int32), b[~nan].view(np.int32))
+    # a composite at coverage 0 is not the identity: -0.0 + (+0.0) is +0.0
+    zeros = got[0][::3, ::2, 0][got[0][::3, ::2, 0] == 0]
+    assert np.signbit(base[::3, ::2, 0]).all() and zeros.size and not np.signbit(zeros).any()
 
 
 def test_render_overlay_rgba_matches_jax():
