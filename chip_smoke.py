@@ -6,11 +6,12 @@ Run from the repository root on a machine with one CUDA GPU:
     python3 chip_smoke.py
 
 `python3 chip_smoke.py --probe` runs only the timings of E4 (F's 81
-layers and each route, bit-checked), R1 render (A and B, bit-checked) and
-R1 step, K2, E7 record, E8 march (1080p and 7200^2) and K6 (both
-instantiations, split by ray) at the main path's shapes and the day
-cycle's three hours, without gates (see probe()); `--probe E4R1` stops
-after R1. Copied into a checkout of an earlier tree and run there, it
+layers and each route, bit-checked), R1 render (A and B, bit-checked),
+R1 step and P3 (each with a sha256 of its outputs), K2, E7 record, E8
+march (1080p and 7200^2) and K6 (both instantiations, split by ray) at
+the main path's shapes and the day cycle's three hours, without gates
+(see probe()); `--probe E4R1` stops after P3, `--probe R1P3` runs only R1
+and P3. Copied into a checkout of an earlier tree and run there, it
 times that tree's kernels, so two designs can be compared on one card.
 
 Phases (one line each; any failure exits non-zero):
@@ -82,15 +83,16 @@ Phases (one line each; any failure exits non-zero):
                 each against its plain version on the card; both timed at
                 1080p; the registers, spilled bytes and resident blocks of
                 R1's two kernels (16x16 tiles: A; a lane per AA sample at aa
-                4: B);
+                4: B) and of R1 step (16x16 tiles);
  14. TerrainRenderer -- the main path: `render_with_aov` at 1080p in A and B,
                 twice each (bit-identical; last_gpu_timings and peak device
                 memory printed), and `render_offline` on A (32 samples in
                 batches of 8, a-trous denoiser), twice (bit-identical); every
                 count set to 0 before and read after (R1 render, R1 step, E3,
-                E5 must all have launched); then R1 step and its tile means
-                against the plain step at 256x128 (4 samples) and 1080p (1
-                sample), timed;
+                E5 must all have launched); then R1 step against the plain
+                step at 256x128 (4 samples) and 1080p (1 sample), its
+                accumulator and AOVs bit for bit, its tile means bit for bit
+                to their fixed order, timed;
  15. post -- E3 (5 iterations, three guides) at 1080p and E5's 128x64 Hosek
                 bake against their plain versions, both timed; E3 called
                 on the numpy planes must run on the card and give the
@@ -155,7 +157,14 @@ Phases (one line each; any failure exits non-zero):
                 twice warm, bit-identical, P3 once a render and nothing else
                 launched, split into scene build, rays, P3 and readback; the
                 other modes twice each; P3 against _trace_all and the plain
-                shading in every mode at 256x128 and in hybrid at 1080p; then
+                shading in every mode at 256x128, in the cull's cases at
+                256x128 (a camera inside the SDF's cull box, rays along its
+                faces, a tape with no box, smooth operations with k 50) and
+                in hybrid at 1080p, bit for bit; the share of marches the
+                cull skips and the work P3 does (its SDF steps, its any-hit
+                shadow walks) against the plain run's counts, its bound
+                counted from that work; P3's registers and resident blocks;
+                then
                 render_adjudication_pair at its defaults over a 257^2 crop,
                 which must launch K5-K8 and R1, with its metrics;
  24. adjudication -- render_adjudication_builtin(512, 512, spp=64), the
@@ -323,6 +332,7 @@ bits.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import subprocess
 import sys
@@ -1977,7 +1987,9 @@ R1_PLANES = ("hdr", "albedo", "normal", "depth", "visibility")
 # everywhere. E3 and E5: every element within FLOAT_TOL. The card showed R1
 # render and step bit-identical to their plain versions in both
 # configurations at every size (the tile means within 2.4e-7), E3 and E5
-# bit-identical, so the gates are every byte and every element.
+# bit-identical, so the gates are every byte and every element; R1 step's
+# accumulator and AOVs are held bit for bit to the plain step, and its tile
+# means bit for bit to their fixed order (renderer.tile_means_ordered).
 R1_U8_EQ, R1_FRAC = 1.0, 1.0
 # the least rgba standard deviation of a render that is not trivial: B's fog
 # (density 0.002 over the ~1.3 km to the terrain) veils most of the frame
@@ -2057,10 +2069,11 @@ def phase_r1_kernels(dem):
         res[config] = (err, ms, plain_ms, bms, by)
         say("r1 kernels", f"R1 render ({config}) {w}x{h}: kernel {ms:.4f} ms, plain {plain_ms:.1f} "
                           f"ms, bound {bms:.4f} ms ({by})")
-    for lanes, name in ((0, "16x16 tiles (A)"), (1, "a lane per AA sample (B)")):
+    for which, name in ((0, "R1 render, 16x16 tiles (A)"), (1, "R1 render, a lane per AA "
+                         "sample (B)"), (2, "R1 step, 16x16 tiles")):
         out = (ctypes.c_int * 3)()
-        _kernels.check(_kernels.lib().f3d_terrain_render_attrs(lanes, out), "R1 attrs")
-        say("r1 kernels", f"R1 render, {name}: {out[0]} registers, {out[1]} B spilled, "
+        _kernels.check(_kernels.lib().f3d_terrain_render_attrs(which, out), "R1 attrs")
+        say("r1 kernels", f"{name}: {out[0]} registers, {out[1]} B spilled, "
                           f"{out[2]} blocks of 256 an SM")
     return res
 
@@ -2182,13 +2195,18 @@ def phase_r1_step(dem):
             ft = close_frac(pt, kt)
             err = max(err, max_abs(pa, ka), max_abs(pt, kt))
             worst = min(worst, fr)
-            require(fr >= R1_FRAC and ft == 1.0,
+            # the tile means in the kernel's fixed order, from the plain accumulator
+            lum = rr.luminance(*(pa[..., c] / pa[..., 3] for c in range(3)))
+            same = (bit_equal(pa, ka) and all(bit_equal(paov[k], kaov[k]) for k in paov)
+                    and bit_equal(rr.tile_means_ordered(lum), kt))
+            require(fr >= R1_FRAC and ft == 1.0 and same,
                     f"R1 step {w}x{h} sample {idx}: accumulator and AOVs within tolerance on "
-                    f"{fr:.6f}, tile means on {ft:.6f}")
+                    f"{fr:.6f}, tile means on {ft:.6f}; bit-identical to the plain step and "
+                    f"the fixed order: {same}")
             acc = ka
-        say("r1 step", f"R1 step {w}x{h}, {samples} samples: accumulator and AOVs within "
-                       f"tolerance on {worst:.6f}, tile means all within tolerance, max |err| "
-                       f"{err:.3e}")
+        say("r1 step", f"R1 step {w}x{h}, {samples} samples: accumulator and AOVs bit-identical "
+                       f"to the plain step, tile means to the fixed order (within {err:.3e} of "
+                       f"tile_means_plain's)")
     n = REAL_W * REAL_H
     acc = torch.zeros((REAL_H, REAL_W, 4), device="cuda")
     ms = cuda_ms(lambda: rr._step_kernel(scene, a, acc, 0), 10)
@@ -3348,11 +3366,17 @@ REPLACES.update({
 })
 
 
-def landmark_sdf(dem, device, seed=11):
+# phase 23's sun and albedos (terrain, mesh, SDF)
+P3_SUN = {"azimuth": 135.0, "elevation": 40.0, "intensity": 3.0}
+P3_ALBEDO = ((0.55, 0.52, 0.48), (0.7, 0.7, 0.72), (0.8, 0.3, 0.25))
+
+
+def landmark_sdf(dem, device, seed=11, plane=False):
     """The landmark CSG scene: 16 primitives (every kind at least twice) in
     8 sites of two, 15 operations (every kind at least twice; smooth ones
     with k 2-8 m), standing on bench.py's DEM within x, z in [256, 768],
-    20-60 m tall; the layout from a seeded numpy generator."""
+    20-60 m tall; the layout from a seeded numpy generator. With `plane`,
+    in a union with a plane 10 m below the DEM's lowest point."""
     from forge3d_tpu_torch.ops.sdf import SdfSceneBuilder
 
     rng = np.random.default_rng(seed)
@@ -3393,6 +3417,8 @@ def landmark_sdf(dem, device, seed=11):
                 args += (float(rng.uniform(2.0, 8.0)),)
             out.append(getattr(b, kind)(*args, material_id=200 + 10 * depth + i))
         level = out
+    if plane:
+        b.union(level[0], b.add_plane((0.0, 1.0, 0.0), float(dem.min()) - 10.0, 250))
     return b.build(device=device)
 
 
@@ -3598,12 +3624,16 @@ def phase_hybrid(dem):
     mesh and the landmark as the SDF, in each mode; hybrid cold (the host
     pyramid and BVH build) and twice warm, bit-identical, P3 launched once a
     render; the kernel against _trace_all and the plain shading on the card
-    (hybrid at 1080p, every mode at 256x128), timed by stage. Then
+    (hybrid at 1080p, every mode and the cull's cases at 256x128), timed by
+    stage, its bound counted from the work the kernel does (p3_work). Then
     render_adjudication_pair at its defaults over a 257^2 crop of the DEM.
     Returns (the P3 row's values, the launches of the path)."""
+    import ctypes
+
     import torch
 
     import forge3d_tpu_torch as f3t
+    from forge3d_tpu_torch import _kernels
     from forge3d_tpu_torch.ops import sdf as sd
     from forge3d_tpu_torch.pt import hybrid as hy
 
@@ -3613,9 +3643,8 @@ def phase_hybrid(dem):
     landmark = landmark_sdf(dem, dev)
     counters = _p3_counters()
     launches = {"P3 hybrid_render": 0, "P3 with P6": 0}
-    sun = {"azimuth": 135.0, "elevation": 40.0, "intensity": 3.0}
+    sun, alb = P3_SUN, P3_ALBEDO
     runs = {"rgba": []}
-    alb = ((0.55, 0.52, 0.48), (0.7, 0.7, 0.72), (0.8, 0.3, 0.25))
     for kind in ("cold", "warm", "warm"):
         for c in counters.values():
             c.launches = 0
@@ -3672,21 +3701,39 @@ def phase_hybrid(dem):
     for mode in hy.TRAVERSAL_MODES:
         origin, rd3 = hy.camera_rays(SMALL_W, SMALL_H, BENCH_CAM, dev)
         compare_hybrid(f"{mode} {SMALL_W}x{SMALL_H}", hs, mode, origin, rd3, sun, alb)
+    p3_cull_cases(hs, dem)
     origin, rd3 = hy.camera_rays(W, H, BENCH_CAM, dev)
     work = work_counters()
     sd.sdf_march_plain.steps = 0
-    plain_ms = compare_hybrid(f"hybrid {W}x{H}", hs, "hybrid", origin, rd3, sun, alb)
+    plain_ms, pp = compare_hybrid(f"hybrid {W}x{H}", hs, "hybrid", origin, rd3, sun, alb)
     w = work()
-    steps = sd.sdf_march_plain.steps
-    ms3 = cuda_ms(lambda: hy._shade_kernel(hs, "hybrid", origin, rd3, sun, alb, 0.35, 1.0), 3)
+    steps_plain = sd.sdf_march_plain.steps
+    k3, (prim_culled, shadow_culled) = p3_work(hs, origin, rd3, sun, pp)
+    steps = k3["sdf_primary"] + k3["sdf_shadow"]
+    say("hybrid render", f"P3 {W}x{H}: the cull box {hs.sdf_scene.cull[1:]} culls "
+                         f"{prim_culled:.6f} of the primary rays' marches and {shadow_culled:.6f} "
+                         f"of the shadow rays' that reach the SDF; SDF steps "
+                         f"{k3['sdf_primary']} primary + {k3['sdf_shadow']} shadow = {steps}, "
+                         f"against {steps_plain} in the plain run's unculled marches")
+    ms3 = cuda_ms(lambda: hy._shade_kernel(hs, "hybrid", origin, rd3, sun, alb, 0.35, 1.0), 10)
     n = W * H
     nbytes = (n * (12 + 4 + 4 + 12 + 4 + 4 + 12) + scene_bytes(hs.terrain_scene)
               + tensor_bytes(*(getattr(hs.mesh_scene, f) for f in hs.mesh_scene.__dataclass_fields__)))
-    ops = traced_ops(w) + steps * (sdf_work(hs.sdf_scene) + OPS_SDF_STEP) + n * OPS_HYB_PIXEL
-    b3, by3 = bound(nbytes, ops)
-    say("hybrid render", f"P3 hybrid_render {W}x{H}: kernel {ms3:.4f} ms, plain {plain_ms:.1f} "
-                         f"ms, bound {b3:.4f} ms ({by3}); {steps} SDF steps, "
-                         f"{w['steps']} DDA steps, {w['node_visits']} BVH node visits")
+    step_ops = sdf_work(hs.sdf_scene) + OPS_SDF_STEP
+    # the kernel's work: its culled marches, and its shadow rays' mesh walks
+    # only where the terrain leaves them free, each to its first triangle
+    b3, by3 = bound(nbytes, traced_ops(k3) + n * OPS_HYB_PIXEL + steps * step_ops)
+    b_old, _ = bound(nbytes, traced_ops(w) + n * OPS_HYB_PIXEL + steps_plain * step_ops)
+    attrs = (ctypes.c_int * 3)()
+    _kernels.check(_kernels.lib().f3d_hybrid_attrs(attrs), "P3 attrs")
+    say("hybrid render", f"P3 hybrid_render {W}x{H}: kernel {ms3:.4f} ms ({attrs[0]} registers, "
+                         f"{attrs[1]} B spilled, {attrs[2]} blocks of 256 an SM), plain "
+                         f"{plain_ms:.1f} ms, bound {b3:.4f} ms ({by3}; from the plain run's "
+                         f"counts {b_old:.4f}); the kernel's work: {steps} SDF steps, "
+                         f"{k3['steps']} DDA steps, {k3['leaf_tests']} leaf tests, "
+                         f"{k3['node_visits']} BVH node visits, {k3['tri_tests']} triangle tests; "
+                         f"the plain run's: {steps_plain}, {w['steps']}, {w['leaf_tests']}, "
+                         f"{w['node_visits']}, {w['tri_tests']}")
 
     crop = dem[384:641, 384:641].copy()
     pair_counters = _pair_counters()
@@ -3702,6 +3749,115 @@ def phase_hybrid(dem):
     require(pair["pt"].shape == pair["raster"].shape == (192, 256, 4)
             and np.isfinite(list(pair["metrics"].values())).all(), "the pair's frames")
     return (0.0, ms3, plain_ms, b3, by3), launches
+
+
+def p3_work(hs, origin, rd3, sun, planes):
+    """The work P3 does in hybrid mode, counted by the plain versions in the
+    kernel's order (pt.cuh:hybrid_nearest, hybrid_occluded). A primary ray
+    walks the terrain and the whole mesh (as _trace_all), then marches the
+    SDF to min(the t so far, the cull box's exit) or not at all
+    (sdf_cull_span_plain). A hit pixel's shadow ray walks the terrain; the
+    mesh only if the terrain leaves it free, and that walk stops at its
+    first accepted triangle (mesh_any_hit_plain); the SDF only if neither
+    blocks it, to the box's exit. `planes` are _shade_plain's (depth,
+    normal, kind). Returns (work, culled): work holds work_counters()'s
+    counts plus "sdf_primary" and "sdf_shadow" steps; culled is (the share
+    of primary rays' marches culled, the share of marched shadow rays')."""
+    import torch
+
+    from forge3d_tpu_torch.ops import sdf as sd
+    from forge3d_tpu_torch.ops.shading import sun_direction
+    from forge3d_tpu_torch.ops.traversal import trace_plain
+    from forge3d_tpu_torch.pt import hybrid as hy
+
+    dev = rd3[0].device
+    rd = tuple(c.reshape(-1) for c in rd3)
+    n = rd[0].numel()
+    ro = tuple(torch_full(n, float(origin[k]), dev) for k in range(3))
+
+    def marched(o, d, tmin, tmax):
+        go, tm = sd.sdf_cull_span_plain(hs.sdf_scene, o, d, tmin, tmax)
+        sel = torch.nonzero(go).squeeze(1)
+        before = sd.sdf_march_plain.steps
+        sd.sdf_march_plain(hs.sdf_scene, [c[sel] for c in o], [c[sel] for c in d], tmin,
+                           tm[sel], 128, 1e-3)
+        return sd.sdf_march_plain.steps - before, 1.0 - sel.numel() / max(go.numel(), 1)
+
+    count = work_counters()
+    _, t_so_far, *_ = hy._trace_all(hs._replace(sdf_scene=None), "hybrid", ro, rd, 1e-3, 1e6)
+    prim, prim_culled = marched(ro, rd, 1e-3, t_so_far)
+    hit = (planes["kind"] >= 0).reshape(-1)
+    t = planes["depth"].reshape(-1)
+    nrm = [planes["normal"][..., k].reshape(-1) for k in range(3)]
+    p = [(ro[k] + t * rd[k] + nrm[k] * 1e-3)[hit] for k in range(3)]
+    sdir = sun_direction(float(sun["azimuth"]), float(sun["elevation"]))
+    sdv = tuple(torch_full(p[0].numel(), float(v), dev) for v in sdir)
+    tr = trace_plain(hs.terrain_scene, p, sdv, tmin=1e-3, tmax=1e6)
+    work = count()
+    free = ~(tr.hit & (tr.t < 1e6))
+    sel = torch.nonzero(free).squeeze(1)
+    blocked, visits, tests = mesh_any_hit_plain(hs.mesh_scene, hs.mesh_nodes,
+                                                [c[sel] for c in p], [c[sel] for c in sdv],
+                                                1e-3, 1e6)
+    work["node_visits"] += visits
+    work["tri_tests"] += tests
+    free[sel[blocked]] = False
+    shadow, shadow_culled = marched([c[free] for c in p], [c[free] for c in sdv], 1e-3, 1e6)
+    work.update(sdf_primary=prim, sdf_shadow=shadow)
+    return work, (prim_culled, shadow_culled)
+
+
+def mesh_any_hit_plain(scene, n_nodes, ro, rd, tmin, tmax):
+    """K9's walk stopped at its first accepted triangle, as P3's shadow rays
+    take it (mesh.cuh:trace_mesh_ray<true>), in trace_mesh_plain's steps
+    and counts: (blocked (n,) bool, node visits, triangle tests)."""
+    import torch
+
+    from forge3d_tpu_torch.ops.bvh import _LEAF_SIZE, _inv, _moller_trumbore
+
+    dev = ro[0].device
+    n = ro[0].numel()
+    blocked = torch.zeros(n, dtype=torch.bool, device=dev)
+    idx = torch.arange(n, device=dev)
+    cols = torch.stack([*ro, *rd, *(_inv(c) for c in rd)], 1)
+    node = torch.zeros(n, dtype=torch.int64, device=dev)
+    tmin, tmax = float(np.float32(tmin)), float(np.float32(tmax))
+    last = scene.n_prims - 1
+    visits = tests = 0
+    for _ in range(4 * n_nodes + 64):
+        if idx.numel() == 0:
+            break
+        visits += idx.numel()
+        r_ox, r_oy, r_oz, r_dx, r_dy, r_dz, ix, iy, iz = cols.unbind(1)
+        bmin = scene.bounds_min[node].unbind(-1)
+        bmax = scene.bounds_max[node].unbind(-1)
+        t0x, t1x = (bmin[0] - r_ox) * ix, (bmax[0] - r_ox) * ix
+        t0y, t1y = (bmin[1] - r_oy) * iy, (bmax[1] - r_oy) * iy
+        t0z, t1z = (bmin[2] - r_oz) * iz, (bmax[2] - r_oz) * iz
+        t_enter = torch.maximum(torch.maximum(torch.minimum(t0x, t1x), torch.minimum(t0y, t1y)),
+                                torch.clamp(torch.minimum(t0z, t1z), min=tmin))
+        t_exit = torch.minimum(torch.minimum(torch.maximum(t0x, t1x), torch.maximum(t0y, t1y)),
+                               torch.clamp(torch.maximum(t0z, t1z), max=tmax))
+        box_hit = t_enter <= t_exit
+        cnt = scene.count[node]
+        fst = scene.first[node]
+        is_leaf = cnt > 0
+        found = torch.zeros_like(box_hit)
+        for k in range(_LEAF_SIZE):
+            active = box_hit & is_leaf & (k < cnt) & ~found
+            n_active = int(active.sum())
+            if n_active == 0:
+                break
+            tests += n_active
+            pid = torch.clamp(fst + k, max=last)
+            ok, *_ = _moller_trumbore(scene, pid, (r_ox, r_oy, r_oz), (r_dx, r_dy, r_dz),
+                                      tmin, tmax)
+            found |= active & ok
+        blocked[idx[found]] = True
+        node = torch.where(box_hit & ~is_leaf, node + 1, scene.miss_link[node].to(torch.int64))
+        keep = ~(found | (node >= n_nodes))
+        idx, cols, node = idx[keep], cols[keep], node[keep]
+    return blocked, visits, tests
 
 
 def _pair_counters():
@@ -3723,7 +3879,57 @@ def compare_hybrid(tag, hs, mode, origin, rd3, sun, alb):
     compare_exact(f"P3 {tag}", [rp, *pp.values()], [rk, *pk.values()])
     say("hybrid render", f"P3 {tag}: rgba and five AOVs bit-identical to _trace_all and the "
                          f"plain shading; plain {plain_ms:.1f} ms")
-    return plain_ms
+    return plain_ms, pp
+
+
+def p3_cull_cases(hs, dem):
+    """P3's cull at 256x128 against the plain versions, bit for bit, in
+    hybrid and sdf_only mode: a camera inside the landmark's cull box; rays
+    from the box's corner along its faces (one direction component exactly
+    zero); the landmark in a union with a plane below the DEM (no box: P3
+    marches as before); and a tape of smooth operations with k = 50 on the
+    DEM seen from bench.py's camera."""
+    import torch
+
+    from forge3d_tpu_torch.ops.sdf import SdfSceneBuilder
+    from forge3d_tpu_torch.pt import hybrid as hy
+
+    dev = torch.device("cuda")
+    lo, hi = (np.asarray(v, np.float32) for v in hs.sdf_scene.cull[1:])
+    c = (lo + hi) / 2
+    g = float(dem[int(c[2]), int(c[0])])
+    inside = {"origin": (float(c[0]), g + 25.0, float(c[2])),
+              "look_at": (float(c[0]) + 200.0, g - 20.0, float(c[2]) - 150.0), "fov_y": 90.0}
+    rng = np.random.default_rng(17)
+    d = rng.normal(size=(SMALL_H, SMALL_W, 3)).astype(np.float32)
+    for col in range(0, SMALL_W, 4):
+        d[:, col, (col // 4) % 3] = 0.0
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    graze = (tuple(float(v) for v in hi),
+             tuple(torch.as_tensor(np.ascontiguousarray(d[..., k]), device=dev) for k in range(3)))
+    b = SdfSceneBuilder()
+    x, z = 512.0, 512.0
+    y = float(dem[512, 512])
+    u = b.smooth_union(b.add_sphere((x, y + 30.0, z), 25.0, 1),
+                       b.add_box((x + 40.0, y + 20.0, z), (20.0, 20.0, 15.0), 2), 50.0)
+    i = b.smooth_intersect(b.add_torus((x - 60.0, y + 15.0, z + 40.0), 30.0, 10.0, 3),
+                           b.add_cylinder((x - 50.0, y + 15.0, z + 40.0), 28.0, 12.0, 4), 50.0)
+    sub = b.smooth_subtract(b.add_capsule((x, y, z - 80.0), (x + 60.0, y + 40.0, z - 60.0), 15.0, 5),
+                            b.add_sphere((x + 30.0, y + 20.0, z - 70.0), 12.0, 6), 50.0)
+    b.union(b.union(u, i), sub)
+    smooth = b.build(device=dev)
+    cases = {"camera inside the box": (hs, hy.camera_rays(SMALL_W, SMALL_H, inside, dev)),
+             "rays along the box's faces": (hs, graze),
+             "no box (a plane in the root's union)": (
+                 hs._replace(sdf_scene=landmark_sdf(dem, dev, plane=True)),
+                 hy.camera_rays(SMALL_W, SMALL_H, inside, dev)),
+             "smooth operations, k 50": (hs._replace(sdf_scene=smooth),
+                                         hy.camera_rays(SMALL_W, SMALL_H, BENCH_CAM, dev))}
+    for name, (scene, (origin, rd3)) in cases.items():
+        require(scene.sdf_scene.cull[0] == (0 if "plane" in name else 1), f"P3 {name}: cull box")
+        for mode in ("hybrid", "sdf_only"):
+            compare_hybrid(f"{name}, {mode} {SMALL_W}x{SMALL_H}", scene, mode, origin, rd3,
+                           P3_SUN, P3_ALBEDO)
 
 
 def phase_adjudication():
@@ -5283,6 +5489,15 @@ def probe_k6(torch, dem):
         say("probe", f"{tag} frame 1 bit-identical to the plain version: {same}")
 
 
+def bit_equal(a, b) -> bool:
+    """Two float tensors equal bit for bit, NaN where NaN."""
+    import torch
+
+    nan = torch.isnan(a)
+    return bool(torch.equal(nan, torch.isnan(b))
+                and torch.equal(a.view(torch.int32)[~nan], b.view(torch.int32)[~nan]))
+
+
 def _r1_same(ref, got) -> bool:
     import torch
 
@@ -5295,7 +5510,8 @@ def _r1_same(ref, got) -> bool:
 def probe_r1(torch, dem):
     """R1 render in A and B at 1080p, timed and bit-checked against
     render_plain (with the kernels' registers and resident blocks where the
-    tree reports them); R1 step at 1080p timed."""
+    tree reports them); R1 step at 1080p timed, and a sha256 of its outputs
+    over 4 samples."""
     import ctypes
 
     from forge3d_tpu_torch import _kernels
@@ -5319,6 +5535,42 @@ def probe_r1(torch, dem):
     acc = torch.zeros((REAL_H, REAL_W, 4), device="cuda")
     say("probe", f"R1 step {REAL_W}x{REAL_H}: "
                  f"{cuda_ms(lambda: rr._step_kernel(scene, a, acc, 0), 10):.4f} ms")
+    acc = torch.zeros((REAL_H, REAL_W, 4), device="cuda")
+    h = hashlib.sha256()
+    for idx in range(4):
+        acc, tiles, aov = rr._step_kernel(scene, a, acc, idx)
+        for x in (tiles, *(aov[k] for k in ("albedo", "normal", "depth", "visibility"))):
+            h.update(x.cpu().numpy().tobytes())
+    h.update(acc.cpu().numpy().tobytes())
+    say("probe", f"R1 step {REAL_W}x{REAL_H}, 4 samples: sha256 of the tile means and AOVs of "
+                 f"each sample and the accumulator {h.hexdigest()}")
+
+
+def probe_p3(torch, dem):
+    """P3 on H at 1080p (phase 23's scene, hybrid mode): timed as launched
+    and queued behind a spin (the device alone), its pixels by kind, and a
+    sha256 of its rgba and five planes."""
+    import forge3d_tpu_torch as f3t
+    from forge3d_tpu_torch.pt import hybrid as hy
+
+    dev = torch.device("cuda")
+    town_v, town_i = bench_town(dem)
+    hs = f3t.build_hybrid_scene(heightmap=dem, mesh_vertices=town_v, mesh_indices=town_i,
+                                sdf_scene=landmark_sdf(dem, dev))
+    origin, rd3 = hy.camera_rays(REAL_W, REAL_H, BENCH_CAM, dev)
+    args = (hs, "hybrid", origin, rd3, P3_SUN, P3_ALBEDO, 0.35, 1.0)
+    rgba, planes = hy._shade_kernel(*args)
+    ms = cuda_ms(lambda: hy._shade_kernel(*args), 10)
+    alone = queued_ms(lambda: hy._shade_kernel(*args), 10)
+    h = hashlib.sha256(rgba.cpu().numpy().tobytes())
+    for k in ("depth", "normal", "visibility", "kind", "albedo"):
+        h.update(planes[k].cpu().numpy().tobytes())
+    kind = planes["kind"]
+    share = {k: float((kind == v).double().mean()) for k, v in (("terrain", 0), ("mesh", 1),
+                                                                 ("sdf", 2), ("sky", -1))}
+    say("probe", f"P3 hybrid_render {REAL_W}x{REAL_H} (H): {ms:.4f} ms ({alone:.4f} with "
+                 f"the launches queued behind a spin, the device alone); pixels by kind "
+                 f"{json.dumps(share)}; sha256 of rgba and the five planes {h.hexdigest()}")
 
 
 def probe_e4(torch, dem):
@@ -5357,8 +5609,9 @@ def probe_e4(torch, dem):
         say("probe", f"E4 {route} {w}x{h} through vector_layer: {t:.4f} ms")
 
 
-def probe(torch, e4_r1_only=False):
-    """`chip_smoke.py --probe`: E4 (probe_e4) and R1 (probe_r1), then K2 and
+def probe(torch, only=None):
+    """`chip_smoke.py --probe`: E4 (probe_e4), R1 (probe_r1) and P3
+    (probe_p3), then K2 and
     E7 record timed at the main path's
     shapes (k2_probe), with the day cycle's three hours (phase 31), E8 march
     (probe_e8) and K6 (probe_k6), and no gates. It calls only entry points
@@ -5373,9 +5626,11 @@ def probe(torch, e4_r1_only=False):
     from forge3d_tpu_torch.pt import terrain_sweep as ts
 
     dem = bench_dem()
-    probe_e4(torch, dem)
+    if only != "R1P3":
+        probe_e4(torch, dem)
     probe_r1(torch, dem)
-    if e4_r1_only:
+    probe_p3(torch, dem)
+    if only:                # "E4R1" or "R1P3": stop after P3
         return
     probe_e8(torch)
     probe_k6(torch, dem)
@@ -5435,7 +5690,7 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False   # plain versions' einsums in float32
     if sys.argv[1:2] == ["--probe"]:
-        probe(torch, e4_r1_only=sys.argv[2:] == ["E4R1"])
+        probe(torch, only=(sys.argv[2:] + [None])[0])
         return 0
     phase_kernels()
     launches, dem = phase_render()

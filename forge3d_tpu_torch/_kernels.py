@@ -274,7 +274,8 @@ class SdfArgs(ctypes.Structure):
     """Mirror of `SdfArgs` in csrc/sdf.cuh (P6): the tape."""
 
     _fields_ = [(n, _P) for n in ("is_op", "kind", "params", "smoothing", "material")] + [
-        ("tape_len", _I), ("stack_depth", _I)]
+        ("tape_len", _I), ("stack_depth", _I), ("cull", _I), ("cull_lo", _F3),
+        ("cull_hi", _F3), ("cull_eps", _F)]
 
 
 class TlasArgs(ctypes.Structure):
@@ -384,7 +385,7 @@ _SIGNATURES = {
     # (scene, terrain, out, stream)
     "f3d_terrain_render": [ctypes.POINTER(SceneArgs), ctypes.POINTER(TerrainArgs),
                            ctypes.POINTER(TerrainOut), _P],
-    # (lanes, out (registers, spilled bytes, resident blocks))
+    # (0 render, 1 render at aa 4, 2 step; out (registers, spilled bytes, resident blocks))
     "f3d_terrain_render_attrs": [_I, _P],
     # (scene, terrain, accum, sample_idx, lum, out, tiles, stream)
     "f3d_terrain_step": [ctypes.POINTER(SceneArgs), ctypes.POINTER(TerrainArgs), _P, _U, _P,
@@ -424,6 +425,8 @@ _SIGNATURES = {
     "f3d_hybrid_render": [ctypes.POINTER(SceneArgs), ctypes.POINTER(MeshArgs),
                           ctypes.POINTER(SdfArgs), ctypes.POINTER(HybridArgs), _P, _P, _P,
                           ctypes.POINTER(HybridOut), _P],
+    # (out (registers, spilled bytes, resident blocks))
+    "f3d_hybrid_attrs": [_P],
     # (args, quad, rgba, hdr, stream)
     "f3d_adj_raster": [ctypes.POINTER(AdjArgs), _P, _P, _P, _P],
     # (args, keys, rgba, hdr, stream)

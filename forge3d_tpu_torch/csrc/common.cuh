@@ -90,6 +90,23 @@ struct Res {
 #define F3D_M_CAP 512                  // restir.py:M_CAP
 #define F3D_WELFORD_WINDOW 32u         // terrain_ref.py:WELFORD_WINDOW
 
+#ifdef __CUDACC__
+// A kernel's build on this card, for the attrs entry points: out =
+// {registers a thread, local (spilled) bytes a thread, resident blocks of
+// `threads` an SM}
+inline int f3d_kernel_attrs(const void* fn, int threads, int* out) {
+    cudaFuncAttributes at;
+    cudaError_t e = cudaFuncGetAttributes(&at, fn);
+    if (e != cudaSuccess) return (int)e;
+    int resident = 0;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, fn, threads, 0);
+    out[0] = at.numRegs;
+    out[1] = (int)at.localSizeBytes;
+    out[2] = resident;
+    return (int)e;
+}
+#endif
+
 F3D_HD int imin(int a, int b) { return a < b ? a : b; }
 F3D_HD int imax(int a, int b) { return a > b ? a : b; }
 F3D_HD float clamp01(float x) { return fminf(fmaxf(x, 0.0f), 1.0f); }

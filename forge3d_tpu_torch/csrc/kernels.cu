@@ -214,17 +214,9 @@ int f3d_frame_step(const SceneArgs* s, const FrameArgs* f, const MeshArgs* m,
 // K6's instantiation (hybrid or terrain-only): out = {registers a thread,
 // local (spilled) bytes a thread, resident blocks of kThreads an SM}
 int f3d_frame_kernel_attrs(int hybrid, int* out) {
-    const void* fn = hybrid ? (const void*)frame_kernel<true, kHybridBlocks>
-                            : (const void*)frame_kernel<false, kTerrainBlocks>;
-    cudaFuncAttributes a;
-    cudaError_t e = cudaFuncGetAttributes(&a, fn);
-    if (e != cudaSuccess) return (int)e;
-    int blocks = 0;
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, kThreads, 0);
-    out[0] = a.numRegs;
-    out[1] = (int)a.localSizeBytes;
-    out[2] = blocks;
-    return (int)e;
+    return f3d_kernel_attrs(hybrid ? (const void*)frame_kernel<true, kHybridBlocks>
+                                   : (const void*)frame_kernel<false, kTerrainBlocks>,
+                            kThreads, out);
 }
 
 int f3d_spatial_reuse(const ResArgs* res_in, const ResArgs* res_out, const float* gb_nx,

@@ -88,7 +88,11 @@ F3D_HD bool moller_trumbore(const MeshArgs& m, int p, float rox, float roy, floa
     return big && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > tmin && t < tmax;
 }
 
-// bvh.py:trace_mesh for one ray.
+// bvh.py:trace_mesh for one ray. kAny (P3's shadow rays) stops the walk at
+// the first triangle it accepts: up to that triangle the walk is the same
+// step for step, so the ray is blocked (prim >= 0) exactly when the whole
+// walk would have accepted one.
+template <bool kAny = false>
 F3D_HD MeshHit trace_mesh_ray(const MeshArgs& m, float rox, float roy, float roz,
                               float rdx, float rdy, float rdz, float tmin, float tmax) {
     MeshHit h;
@@ -124,6 +128,7 @@ F3D_HD MeshHit trace_mesh_ray(const MeshArgs& m, float rox, float roy, float roz
                     h.prim = p;
                     h.u = u;
                     h.v = v;
+                    if (kAny) return h;
                 }
             }
         }

@@ -27,6 +27,8 @@
 namespace {
 
 constexpr int kThreads = 128;
+constexpr int kTileThreads = 256;
+constexpr int kHybridBlocks = 3;   // P3's minimum of resident blocks (see hybrid_kernel)
 
 inline int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
 
@@ -81,12 +83,22 @@ __global__ void tlas_kernel(TlasArgs a, const float* __restrict__ rox,
     v[i] = h.v;
 }
 
-__global__ void hybrid_kernel(SceneArgs s, MeshArgs m, SdfArgs sdf, HybridArgs a,
-                              const float* __restrict__ rdx, const float* __restrict__ rdy,
-                              const float* __restrict__ rdz, HybridOut o) {
-    int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= a.width * a.height) return;
-    hybrid_pixel(s, m, sdf, a, rdx, rdy, rdz, o, i);
+// P3 in K6's tiles: a block 16x16 pixels, a warp 8x4 (neighbouring rays
+// walk the same terrain nodes and BVH boxes, and cross the cull box
+// together). The minimum of 3 blocks pins its build on an H100: 68
+// registers, 3 resident blocks, 1.86 ms at 1080p. Without it nvcc chose 49
+// registers and 4 blocks (no bound, 1.98 ms) or 48 and 5 (a maximum of 256
+// threads alone, 2.07 ms); a minimum of 4 (58 registers) was 3% slower
+// (PERF.md §6). The SDF's value stack stays in local memory.
+__global__ void __launch_bounds__(kTileThreads, kHybridBlocks)
+hybrid_kernel(SceneArgs s, MeshArgs m, SdfArgs sdf, HybridArgs a, const float* __restrict__ rdx,
+              const float* __restrict__ rdy, const float* __restrict__ rdz, HybridOut o) {
+    const int tiles_x = (a.width + 15) / 16;
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int x = (blockIdx.x % tiles_x) * 16 + (warp & 1) * 8 + (lane & 7);
+    const int y = (blockIdx.x / tiles_x) * 16 + (warp >> 1) * 4 + (lane >> 3);
+    if (x >= a.width || y >= a.height) return;
+    hybrid_pixel(s, m, sdf, a, rdx, rdy, rdz, o, y * a.width + x);
 }
 
 }  // namespace
@@ -132,11 +144,16 @@ int f3d_trace_tlas(const TlasArgs* a, const float* rox, const float* roy, const 
 int f3d_hybrid_render(const SceneArgs* s, const MeshArgs* m, const SdfArgs* sdf,
                       const HybridArgs* a, const float* rdx, const float* rdy, const float* rdz,
                       const HybridOut* o, void* stream) {
-    int n = a->width * a->height;
-    if (n > 0)
-        hybrid_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(*s, *m, *sdf, *a, rdx,
-                                                                            rdy, rdz, *o);
+    if (a->width > 0 && a->height > 0)
+        hybrid_kernel<<<((a->width + 15) / 16) * ((a->height + 15) / 16), kTileThreads, 0,
+                        (cudaStream_t)stream>>>(*s, *m, *sdf, *a, rdx, rdy, rdz, *o);
     return (int)cudaGetLastError();
+}
+
+// P3's kernel: out = {registers a thread, local (spilled) bytes a thread,
+// resident blocks an SM}
+int f3d_hybrid_attrs(int* out) {
+    return f3d_kernel_attrs((const void*)hybrid_kernel, kTileThreads, out);
 }
 
 }  // extern "C"

@@ -19,6 +19,21 @@
 // as -fmad=false keeps it. The shadow ray is any-hit: once one kind blocks
 // it the others cannot unblock it, so the thread stops there; a pixel that
 // missed everything casts none (JAX computes its shadow ray and masks it).
+//
+// The SDF march is culled by the tape's box (sdf.cuh: sdf_cull_span). A
+// primary ray marches only [tmin, min(t so far, the box's exit)] and not at
+// all when that misses the box: a hit the bounded march finds is the
+// unbounded march's first hit; where it stops without one, the unbounded
+// march has none, or hits at t >= the t so far, which `r.t < t` discards,
+// or beyond the box, where the tape cannot fall below the threshold. A
+// shadow ray marches only to the box's exit and not at all when it misses
+// the box. The shadow ray's mesh test is any-hit (mesh.cuh: kAny): it asks
+// only whether some triangle blocks. The primary ray's mesh walk keeps
+// tmax = 1e6 and is not cut at the terrain's t: the walk prunes its boxes
+// by its best t, and a triangle lying on its leaf box's face (every wall of
+// the town) can have a computed t an ulp below the box's computed entry;
+// with a terrain t between the two, a walk started at the terrain's t would
+// prune a box whose triangle the whole walk keeps.
 
 #pragma once
 
@@ -120,9 +135,9 @@ F3D_HD int hybrid_nearest(const SceneArgs& s, const MeshArgs& m, const SdfArgs& 
             kind = 1;
         }
     }
-    if (a.use_sdf) {
-        SdfHit r = sdf_march(sdf, ox, oy, oz, dx, dy, dz, tmin, F3D_HYB_FAR, F3D_SDF_STEPS,
-                             F3D_SDF_HIT);
+    float tm = t;
+    if (a.use_sdf && sdf_cull_span(sdf, ox, oy, oz, dx, dy, dz, F3D_SDF_HIT, tmin, tm)) {
+        SdfHit r = sdf_march(sdf, ox, oy, oz, dx, dy, dz, tmin, tm, F3D_SDF_STEPS, F3D_SDF_HIT);
         if (r.hit && r.t < t) {
             t = r.t;
             sdf_normal(sdf, ox + r.t * dx, oy + r.t * dy, oz + r.t * dz, 1e-4f, nx, ny, nz);
@@ -141,12 +156,12 @@ F3D_HD bool hybrid_occluded(const SceneArgs& s, const MeshArgs& m, const SdfArgs
         if (r.hit && r.t < F3D_HYB_FAR) return true;
     }
     if (a.use_mesh) {
-        MeshHit r = trace_mesh_ray(m, ox, oy, oz, dx, dy, dz, 1e-3f, F3D_HYB_FAR);
+        MeshHit r = trace_mesh_ray<true>(m, ox, oy, oz, dx, dy, dz, 1e-3f, F3D_HYB_FAR);
         if (r.prim >= 0 && r.t < F3D_HYB_FAR) return true;
     }
-    if (a.use_sdf) {
-        SdfHit r = sdf_march(sdf, ox, oy, oz, dx, dy, dz, 1e-3f, F3D_HYB_FAR, F3D_SDF_STEPS,
-                             F3D_SDF_HIT);
+    float tm = F3D_HYB_FAR;
+    if (a.use_sdf && sdf_cull_span(sdf, ox, oy, oz, dx, dy, dz, F3D_SDF_HIT, 1e-3f, tm)) {
+        SdfHit r = sdf_march(sdf, ox, oy, oz, dx, dy, dz, 1e-3f, tm, F3D_SDF_STEPS, F3D_SDF_HIT);
         if (r.hit && r.t < F3D_HYB_FAR) return true;
     }
     return false;

@@ -29,7 +29,12 @@
 // writes the luminance of the running mean; a second small kernel, one CTA
 // of 256 threads per 32x32 metric tile, reduces each tile's mean (edge
 // tiles read the clamped last row and column, renderer.py:1147) in a fixed
-// tree order, so the tile means are deterministic.
+// tree order, so the tile means are deterministic. The step takes R1
+// render's tiles and bound (a sample is R1 render's shade_sample): on an
+// H100, 0.600 ms at 1080p, from 0.735 in rows of 128 and 0.646 at 3
+// blocks; a fused kernel, a CTA a metric tile with the luminance in shared
+// memory and no second launch, took 0.745-0.78 (PERF.md §6): a CTA holds
+// its SM until its slowest warp is done.
 
 #include <cuda_runtime.h>
 
@@ -37,12 +42,9 @@
 
 namespace {
 
-constexpr int kThreads = 128;
 constexpr int kRenderThreads = 256;
 constexpr int kRenderBlocks = 4;   // R1 render's bound: 4 blocks an SM, at most 64 registers
 constexpr int kTileThreads = F3D_TILE_THREADS;
-
-inline int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
 
 // R1 render, K6's mapping (r1_tile_pixel): a block 16x16 pixels, a warp
 // 8x4, so that a warp's primary, sun and reflection rays leave neighbouring
@@ -88,23 +90,29 @@ __global__ void __launch_bounds__(kRenderThreads, kRenderBlocks)
     r1_write(a, o, y * a.width + x, rs, gs, bs, aux);
 }
 
-__global__ void step_kernel(SceneArgs s, TerrainArgs a, float* accum, uint32_t sample_idx,
-                            float* lum, TerrainOut o) {
-    int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= a.width * a.height) return;
-    step_pixel(s, a, accum, sample_idx, lum, o, i);
+// R1 step, K6's and R1 render's mapping (r1_tile_pixel): a block 16x16
+// pixels, a warp 8x4, 4 blocks an SM. A pixel's sample is R1 render's
+// shade_sample, so the warp's rays diverge as little there as here.
+__global__ void __launch_bounds__(kRenderThreads, kRenderBlocks)
+    step_kernel(SceneArgs s, TerrainArgs a, float* accum, uint32_t sample_idx, float* lum,
+                TerrainOut o) {
+    int x, y;
+    if (r1_tile_pixel(a, blockIdx.x, threadIdx.x, x, y)) {
+        const int i = y * a.width + x;
+        lum[i] = step_pixel(s, a, accum, sample_idx, o, i);
+    }
 }
 
-// One CTA per tile: each thread sums 4 of the tile's 1024 elements, then a
-// shared-memory tree; the mean is the sum / 1024.
+// One CTA per tile: thread j sums the tile's elements j, j + 256, j + 512,
+// j + 768 (tile_partial), then a shared-memory tree; the mean is the sum /
+// 1024.
 __global__ void tile_mean_kernel(const float* __restrict__ lum, int width, int height,
                                  int tiles_w, float* __restrict__ tiles) {
     __shared__ float part[kTileThreads];
     const int ty = blockIdx.y, tx = blockIdx.x;
-    float acc = 0.0f;
-    for (int k = threadIdx.x; k < F3D_TILE * F3D_TILE; k += kTileThreads)
-        acc += tile_lum(lum, width, height, ty, tx, k);
-    part[threadIdx.x] = acc;
+    part[threadIdx.x] = tile_partial(lum + (ty * width + tx) * F3D_TILE, width,
+                                     imin(F3D_TILE, height - ty * F3D_TILE),
+                                     imin(F3D_TILE, width - tx * F3D_TILE), threadIdx.x);
     __syncthreads();
     for (int w = kTileThreads / 2; w > 0; w >>= 1) {
         if ((int)threadIdx.x < w) part[threadIdx.x] += part[threadIdx.x + w];
@@ -130,33 +138,27 @@ int f3d_terrain_render(const SceneArgs* s, const TerrainArgs* a, const TerrainOu
     return (int)cudaGetLastError();
 }
 
-// R1 render's kernel for aa 4 (lanes 1) or any other aa (lanes 0): out =
-// {registers a thread, local (spilled) bytes a thread, resident blocks an SM}
-int f3d_terrain_render_attrs(int lanes, int* out) {
-    const void* fn = lanes ? (const void*)render_lane_kernel : (const void*)render_kernel;
-    cudaFuncAttributes at;
-    cudaError_t e = cudaFuncGetAttributes(&at, fn);
-    if (e != cudaSuccess) return (int)e;
-    int resident = 0;
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, fn, kRenderThreads, 0);
-    out[0] = at.numRegs;
-    out[1] = (int)at.localSizeBytes;
-    out[2] = resident;
-    return (int)e;
+// R1's kernels: R1 render for any aa but 4 (0) or for aa 4 (1), R1 step
+// (2): out = {registers a thread, local (spilled) bytes a thread, resident
+// blocks an SM}
+int f3d_terrain_render_attrs(int which, int* out) {
+    return f3d_kernel_attrs(which == 0   ? (const void*)render_kernel
+                            : which == 1 ? (const void*)render_lane_kernel
+                                         : (const void*)step_kernel,
+                            kRenderThreads, out);
 }
 
 int f3d_terrain_step(const SceneArgs* s, const TerrainArgs* a, float* accum,
                      unsigned int sample_idx, float* lum, const TerrainOut* o, float* tiles,
                      void* stream) {
-    int n = a->width * a->height;
-    if (n <= 0) return 0;
-    step_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(*s, *a, accum, sample_idx,
-                                                                      lum, *o);
+    if (a->width <= 0 || a->height <= 0) return 0;
+    cudaStream_t st = (cudaStream_t)stream;
+    step_kernel<<<((a->width + 15) / 16) * ((a->height + 15) / 16), kRenderThreads, 0, st>>>(
+        *s, *a, accum, sample_idx, lum, *o);
     int err = (int)cudaGetLastError();
     if (err != 0) return err;
     dim3 grid((a->width + F3D_TILE - 1) / F3D_TILE, (a->height + F3D_TILE - 1) / F3D_TILE);
-    tile_mean_kernel<<<grid, kTileThreads, 0, (cudaStream_t)stream>>>(lum, a->width, a->height,
-                                                                      grid.x, tiles);
+    tile_mean_kernel<<<grid, kTileThreads, 0, st>>>(lum, a->width, a->height, grid.x, tiles);
     return (int)cudaGetLastError();
 }
 

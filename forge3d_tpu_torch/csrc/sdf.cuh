@@ -18,6 +18,36 @@
 // (-fmad=false keeps everything else unfused). The sphere trace steps one
 // ray until it hits, passes tmax or runs out of steps: JAX freezes a lane
 // once it is done, so stopping there gives the same t, hit and material.
+//
+// The cull box (P3 only; P6's own kernels ignore it). ops/sdf.py:cull_box
+// derives, when the scene is compiled, a box outside which the tape's
+// float32 value is >= F3D_SDF_HIT (1e-3) at every point, so no march can hit
+// there. It works top-down in float64 with a level c for each node (the
+// root's c is 1e-3): a primitive's box is its support inflated by c plus a
+// margin (a plane is unbounded); a union or intersection takes the union's
+// bounding box or the intersection of its operands' boxes at c, a
+// subtraction its left operand's (max(d1, -d2) >= d1); a smooth union takes
+// its operands at c + k/4 (smin >= min - k/4), a smooth intersection and a
+// smooth subtraction at c (smax >= max; for k < 1e-6, where h takes
+// max(k, 1e-6), at c + 1e-6 + max(-k, 0)/4). The margin, 2^-16 (4 S + 1)
+// at each node, S the largest |parameter| plus the sum of |k|, covers the
+// float32 evaluation: each primitive and smooth operation is within
+// 64 u (|p| + S), u = 2^-24, of the exact value on float32 inputs, and at a
+// point a distance delta outside a primitive's box the exact distance
+// grows by delta. The box is rounded outward to float32. A tape with an
+// unbounded root (a plane in a union) has no box, and P3 marches as before.
+//
+// sdf_cull_span turns the box into the march's interval: for a ray it
+// finds, in double, the exact t at which the ray enters and leaves the box
+// (each widened by 2^-40 of itself, above double's rounding), and returns
+// false if [tmin, tmax] misses it; otherwise it lowers tmax to the exit,
+// rounded up to float32. The march evaluates fmaf(t, d, o): one rounding of
+// o + t d, which is monotone, so a t beyond the exit gives a point outside
+// the box. That is exact: sdf_march steps through the same t whatever its
+// tmax, so a hit it finds is the unbounded march's first hit, and when it
+// stops at a t past the box's exit the unbounded march cannot hit later.
+// Rays with |o| > 2^40 or |d| > 2^8 (and NaN) are not culled: beyond those
+// the tape's values could overflow, where the margin argument ends.
 
 #pragma once
 
@@ -49,6 +79,9 @@ struct SdfArgs {            // mirrored by _kernels.SdfArgs
     const float* smoothing; // (T,)
     const int* material;    // (T,)
     int tape_len, stack_depth;
+    int cull;               // 0 no box (unbounded), 1 the box below, 2 never below the threshold
+    float cull_lo[3], cull_hi[3];
+    float cull_eps;         // the threshold the box was derived for (ops/sdf.py:CULL_THRESHOLD)
 };
 
 struct SdfHit {
@@ -205,4 +238,45 @@ F3D_HD SdfHit sdf_march(const SdfArgs& s, float rox, float roy, float roz, float
         if (over) break;
     }
     return h;
+}
+
+// P3's cull of one march with threshold hit_eps (see the head of this
+// file): false if the ray cannot hit the tape in [tmin, tmax]; else true
+// with tmax lowered to the cull box's exit. A march whose threshold exceeds
+// the box's own is not culled: the box holds only the points below that.
+F3D_HD bool sdf_cull_span(const SdfArgs& s, float ox, float oy, float oz, float dx, float dy,
+                          float dz, float hit_eps, float tmin, float& tmax) {
+    if (s.cull == 0 || !(hit_eps <= s.cull_eps)) return true;
+    if (s.cull == 2) return false;
+    const float o[3] = {ox, oy, oz}, d[3] = {dx, dy, dz};
+    for (int a = 0; a < 3; ++a)
+        if (!(fabsf(o[a]) <= 1099511627776.0f && fabsf(d[a]) <= 256.0f)) return true;
+    double t0 = -HUGE_VAL, t1 = HUGE_VAL;
+    for (int a = 0; a < 3; ++a) {
+        const double lo = (double)s.cull_lo[a], hi = (double)s.cull_hi[a], oa = (double)o[a];
+        if (d[a] == 0.0f) {
+            if (oa < lo || oa > hi) return false;
+            continue;
+        }
+        const double inv = 1.0 / (double)d[a];
+        double ta = (lo - oa) * inv, tb = (hi - oa) * inv;
+        if (ta > tb) {
+            const double tt = ta;
+            ta = tb;
+            tb = tt;
+        }
+        t0 = ta > t0 ? ta : t0;
+        t1 = tb < t1 ? tb : t1;
+    }
+    t0 = t0 - fabs(t0) * 0x1p-40;
+    t1 = t1 + fabs(t1) * 0x1p-40;
+    if (t0 > t1 || t1 < (double)tmin || t0 > (double)tmax) return false;
+#ifdef __CUDA_ARCH__
+    const float exit = __double2float_ru(t1);
+#else
+    float exit = (float)t1;
+    if ((double)exit < t1) exit = nextafterf(exit, HUGE_VALF);
+#endif
+    tmax = exit < tmax ? exit : tmax;
+    return true;
 }

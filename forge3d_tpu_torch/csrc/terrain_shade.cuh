@@ -582,10 +582,11 @@ F3D_HD bool r1_tile_pixel(const TerrainArgs& a, int block, int thread, int& x, i
 }
 
 // renderer.py:begin_offline_accumulation.step for pixel i: one jittered
-// sample added to the (H, W, 4) accumulator in place, the luminance of the
-// running mean into `lum`, and this sample's AOVs.
-F3D_HD void step_pixel(const SceneArgs& s, const TerrainArgs& a, float* accum,
-                       uint32_t sample_idx, float* lum, const TerrainOut& o, int i) {
+// sample added to the (H, W, 4) accumulator in place and this sample's
+// AOVs; returns the luminance of the running mean, which the metric tiles
+// average.
+F3D_HD float step_pixel(const SceneArgs& s, const TerrainArgs& a, float* accum,
+                        uint32_t sample_idx, const TerrainOut& o, int i) {
     const int x = i % a.width;
     const int y = i / a.width;
     uint32_t st = (a.aa_seed ^ ((uint32_t)x * 1664525u) ^ ((uint32_t)y * 1013904223u)
@@ -604,33 +605,31 @@ F3D_HD void step_pixel(const SceneArgs& s, const TerrainArgs& a, float* accum,
     accum[4 * i + 1] = a1;
     accum[4 * i + 2] = a2;
     accum[4 * i + 3] = a3;
-    lum[i] = luminance(a0 / a3, a1 / a3, a2 / a3);
     write_aovs(o, i, aux);
+    return luminance(a0 / a3, a1 / a3, a2 / a3);
 }
 
-#define F3D_TILE 32  // renderer.py:_TILE
+#define F3D_TILE 32          // renderer.py:_TILE
+#define F3D_TILE_THREADS 256 // the partial sums of a tile's reduction
 
-// The luminance a 32x32 metric tile reads at its (ty, tx) element: the
-// image is padded by replicating its last row and column (renderer.py:1147).
-F3D_HD float tile_lum(const float* lum, int width, int height, int ty, int tx, int k) {
-    int y = imin(ty * F3D_TILE + k / F3D_TILE, height - 1);
-    int x = imin(tx * F3D_TILE + k % F3D_TILE, width - 1);
-    return lum[y * width + x];
+// Thread j's partial sum of one 32x32 metric tile whose image pixels are
+// `rows` x `cols` (fewer at the image's last row and column of tiles),
+// `lum` its first pixel, rows `pitch` apart: elements j, j + 256, j + 512,
+// j + 768 (element k is row k / 32, column k % 32) in that order. The image
+// is padded by replicating its last row and column (renderer.py:1147),
+// which lie in the same tile.
+F3D_HD float tile_partial(const float* lum, int pitch, int rows, int cols, int j) {
+    float acc = 0.0f;
+    for (int k = j; k < F3D_TILE * F3D_TILE; k += F3D_TILE_THREADS)
+        acc += lum[imin(k / F3D_TILE, rows - 1) * pitch + imin(k % F3D_TILE, cols - 1)];
+    return acc;
 }
 
-#define F3D_TILE_THREADS 256  // renderer.cu:tile_mean_kernel's CTA
-
-// The mean of tile (ty, tx) in tile_mean_kernel's summation order, one
-// thread at a time (the host build's launcher): 256 partial sums over the
-// elements k, k + 256, ..., then a halving tree.
-F3D_HD float tile_mean_serial(const float* lum, int width, int height, int ty, int tx) {
+// The mean of a tile in the kernel's summation order, one thread at a time
+// (the host build's launcher): the 256 partial sums, then a halving tree.
+F3D_HD float tile_mean_serial(const float* lum, int pitch, int rows, int cols) {
     float part[F3D_TILE_THREADS];
-    for (int j = 0; j < F3D_TILE_THREADS; ++j) {
-        float acc = 0.0f;
-        for (int k = j; k < F3D_TILE * F3D_TILE; k += F3D_TILE_THREADS)
-            acc += tile_lum(lum, width, height, ty, tx, k);
-        part[j] = acc;
-    }
+    for (int j = 0; j < F3D_TILE_THREADS; ++j) part[j] = tile_partial(lum, pitch, rows, cols, j);
     for (int w = F3D_TILE_THREADS / 2; w > 0; w >>= 1)
         for (int j = 0; j < w; ++j) part[j] += part[j + w];
     return part[0] / (float)(F3D_TILE * F3D_TILE);

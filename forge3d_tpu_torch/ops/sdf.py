@@ -40,6 +40,10 @@ UNION, INTERSECTION, SUBTRACTION, SMOOTH_UNION, SMOOTH_INTERSECTION, SMOOTH_SUBT
 #: builder refuses trees deeper than 64, whose tapes need at most 66
 MAX_STACK = 66
 
+#: the march's hit threshold that the cull box is derived for (the hybrid
+#: tracer's, csrc/pt.cuh:F3D_SDF_HIT)
+CULL_THRESHOLD = 1e-3
+
 
 @dataclass
 class _Prim:
@@ -156,6 +160,8 @@ class SdfScene:
     bounds: Optional[Tuple[Tuple[float, ...], Tuple[float, ...]]] = None
     # the tape on the host, read by the plain versions' Python loop
     host: Optional[tuple] = field(default=None, repr=False, compare=False)
+    # the hybrid tracer's cull box (cull_box): (0 none, 1 box, 2 never a hit; lo; hi)
+    cull: tuple = field(default=(0, (0.0,) * 3, (0.0,) * 3), repr=False, compare=False)
 
     @staticmethod
     def _compile(prims: List[_Prim], ops: List[_Op], root: int, device="cuda") -> "SdfScene":
@@ -220,7 +226,7 @@ class SdfScene:
                      for o, k, prm, s, m in zip(*arrs))
         return SdfScene(tape=tape, tape_len=len(host), stack_depth=int(stack_depth),
                         primitive_count=int(primitive_count), node_count=int(node_count),
-                        bounds=bounds, host=host)
+                        bounds=bounds, host=host, cull=cull_box(host))
 
     def with_bounds(self, bmin, bmax) -> "SdfScene":
         return replace(self, bounds=(tuple(float(v) for v in bmin),
@@ -240,7 +246,9 @@ class SdfScene:
                               tape.material)
         args = _kernels.SdfArgs(_kernels.ptr(is_op), _kernels.ptr(tape.kind),
                                 _kernels.ptr(tape.params), _kernels.ptr(tape.smoothing),
-                                _kernels.ptr(tape.material), self.tape_len, self.stack_depth)
+                                _kernels.ptr(tape.material), self.tape_len, self.stack_depth,
+                                self.cull[0], _kernels._F3(*self.cull[1]),
+                                _kernels._F3(*self.cull[2]), _f32(CULL_THRESHOLD))
         args._keep = is_op   # the int copy lives as long as the arguments
         return args
 
@@ -269,6 +277,153 @@ class SdfScene:
         shape, comps = self._points(*ro, *rd)
         h = sdf_march(self, comps[:3], comps[3:], tmin, tmax, max_steps, hit_eps)
         return tuple(c.reshape(shape) for c in h)
+
+
+# ---------------------------------------------------------------------------
+# The hybrid tracer's cull box (csrc/sdf.cuh states the argument)
+# ---------------------------------------------------------------------------
+
+_ALL, _EMPTY = "all", "empty"   # unbounded; below the level nowhere
+_MAX_COORD = 2.0 ** 40          # sdf.cuh:sdf_cull_span culls no ray beyond it
+
+
+def _prim_box(kind: int, prm, c: float):
+    """The box outside which primitive `kind` (float64 params) is >= c."""
+    pos = lambda v: max(v, 0.0)  # noqa: E731
+    if kind == PLANE:
+        return _ALL
+    if kind == SPHERE:
+        half = [pos(prm[3]) + c] * 3
+    elif kind == BOX:
+        half = [pos(prm[3 + k]) + c for k in range(3)]
+    elif kind == CYLINDER:
+        half = [pos(prm[3]) + c, pos(prm[4]) + c, pos(prm[3]) + c]
+    elif kind == TORUS:
+        r = pos(prm[3]) + pos(prm[4]) + c
+        half = [r, pos(prm[4]) + c, r]
+    else:   # capsule: the segment's box
+        r = pos(prm[6]) + c
+        return ([min(prm[k], prm[3 + k]) - r for k in range(3)],
+                [max(prm[k], prm[3 + k]) + r for k in range(3)])
+    return [prm[k] - half[k] for k in range(3)], [prm[k] + half[k] for k in range(3)]
+
+
+def _join(kind: int, a, b):
+    """A node's box from its operands' (union / intersection / left)."""
+    if kind in (SUBTRACTION, SMOOTH_SUBTRACTION):
+        return a
+    if kind in (UNION, SMOOTH_UNION):
+        if _ALL in (a, b):
+            return _ALL
+        if a == _EMPTY or b == _EMPTY:
+            return b if a == _EMPTY else a
+        return ([min(x, y) for x, y in zip(a[0], b[0])], [max(x, y) for x, y in zip(a[1], b[1])])
+    if _EMPTY in (a, b):
+        return _EMPTY
+    if a == _ALL or b == _ALL:
+        return b if a == _ALL else a
+    lo = [max(x, y) for x, y in zip(a[0], b[0])]
+    hi = [min(x, y) for x, y in zip(a[1], b[1])]
+    return _EMPTY if any(x > y for x, y in zip(lo, hi)) else (lo, hi)
+
+
+def cull_box(host) -> tuple:
+    """The hybrid tracer's cull box of a tape (`SdfScene.host`): (1, lo,
+    hi), float32 bounds outside which the tape's float32 value is >=
+    CULL_THRESHOLD at every point; (2, ...) if it is nowhere below it; (0,
+    ...) if no box holds (an unbounded root, or parameters beyond 2^40).
+    Derived top-down in float64, each node's level c from its parent's
+    (csrc/sdf.cuh gives the rules and the margin), then rounded outward."""
+    none = (0, (0.0,) * 3, (0.0,) * 3)
+    n = len(host)
+    kids, stack = [None] * n, []
+    for i, (is_op, *_rest) in enumerate(host):
+        if is_op:
+            if len(stack) < 2:
+                return none
+            r, l = stack.pop(), stack.pop()
+            kids[i] = (l, r)
+        stack.append(i)
+    if len(stack) != 1:
+        return none
+    f32 = np.float32
+    S = sum(abs(float(k)) for is_op, _, _, k, _ in host if is_op) + max(
+        [abs(float(v)) for is_op, _, prm, _, _ in host if not is_op for v in prm] + [0.0])
+    if not np.isfinite(S) or S > _MAX_COORD:
+        return none
+    eps = 2.0 ** -16 * (4.0 * S + 1.0)
+    level = [0.0] * n
+    level[stack[0]] = float(f32(CULL_THRESHOLD))
+    for i in reversed(range(n)):       # a parent precedes its operands here
+        is_op, kind, _, k, _ = host[i]
+        if not is_op:
+            continue
+        k, c = float(k), level[i]
+        if kind == SMOOTH_UNION:
+            c = c + max(k, 0.0) / 4.0 + eps
+        elif kind in (SMOOTH_INTERSECTION, SMOOTH_SUBTRACTION):
+            c = c + eps + (0.0 if k >= float(f32(1e-6)) else 1e-6 + max(-k, 0.0) / 4.0)
+        level[kids[i][0]] = level[kids[i][1]] = c
+    box = [None] * n
+    for i, (is_op, kind, prm, _, _) in enumerate(host):
+        if is_op:
+            box[i] = _join(kind, box[kids[i][0]], box[kids[i][1]])
+        else:
+            box[i] = _prim_box(kind, [float(v) for v in prm], level[i] + eps)
+    root = box[stack[0]]
+    if root == _ALL:
+        return none
+    if root == _EMPTY:
+        return (2, (0.0,) * 3, (0.0,) * 3)
+    lo = np.asarray(root[0], np.float64)
+    hi = np.asarray(root[1], np.float64)
+    if np.abs(np.concatenate([lo, hi])).max() > _MAX_COORD:
+        return none
+    lo32, hi32 = lo.astype(f32), hi.astype(f32)
+    lo32 = np.where(lo32.astype(np.float64) > lo, np.nextafter(lo32, f32(-np.inf)), lo32)
+    hi32 = np.where(hi32.astype(np.float64) < hi, np.nextafter(hi32, f32(np.inf)), hi32)
+    return (1, tuple(float(v) for v in lo32), tuple(float(v) for v in hi32))
+
+
+def sdf_cull_span_plain(scene: SdfScene, ro, rd, tmin: float, tmax, hit_eps: float = 1e-3):
+    """Plain version of csrc/sdf.cuh:sdf_cull_span on flat float32 rays and
+    a march with threshold `hit_eps`: (march, tmax) -- whether each ray's
+    march runs, and its tmax lowered to the cull box's exit (float32)."""
+    dev = rd[0].device
+    n = rd[0].numel()
+    tm = torch.as_tensor(tmax, dtype=_F32, device=dev).expand(n).clone()
+    flag, blo, bhi = scene.cull
+    if flag == 0 or not _f32(hit_eps) <= _f32(CULL_THRESHOLD):
+        return torch.ones(n, dtype=torch.bool, device=dev), tm
+    if flag == 2:
+        return torch.zeros(n, dtype=torch.bool, device=dev), tm
+    o = [c.reshape(-1) for c in ro]
+    d = [c.reshape(-1) for c in rd]
+    sane = torch.ones(n, dtype=torch.bool, device=dev)
+    for a in range(3):
+        sane &= (o[a].abs() <= _MAX_COORD) & (d[a].abs() <= 256.0)
+    f64 = torch.float64
+    t0 = torch.full((n,), -np.inf, dtype=f64, device=dev)
+    t1 = torch.full((n,), np.inf, dtype=f64, device=dev)
+    out = torch.zeros(n, dtype=torch.bool, device=dev)
+    for a in range(3):
+        oa, da = o[a].to(f64), d[a].to(f64)
+        zero = da == 0.0
+        out |= zero & ((oa < blo[a]) | (oa > bhi[a]))
+        inv = 1.0 / torch.where(zero, torch.ones_like(da), da)
+        ta, tb = (blo[a] - oa) * inv, (bhi[a] - oa) * inv
+        lo_t, hi_t = torch.minimum(ta, tb), torch.maximum(ta, tb)
+        t0 = torch.where(zero, t0, torch.maximum(t0, lo_t))
+        t1 = torch.where(zero, t1, torch.minimum(t1, hi_t))
+    t0 = t0 - t0.abs() * 2.0 ** -40
+    t1 = t1 + t1.abs() * 2.0 ** -40
+    out |= (t0 > t1) | (t1 < float(np.float32(tmin))) | (t0 > tm.to(f64))
+    exit_ = t1.to(_F32)
+    up = torch.nextafter(exit_, torch.full_like(exit_, np.inf))
+    exit_ = torch.where(exit_.to(f64) < t1, up, exit_)
+    march = ~(sane & out)
+    tm = torch.where(sane & ~out, torch.minimum(exit_, tm), tm)
+    return march, tm
 
 
 # ---------------------------------------------------------------------------
@@ -405,7 +560,9 @@ def sdf_march_plain(scene: SdfScene, ro, rd, tmin=1e-3, tmax=100.0, max_steps: i
     mat_out = torch.full((n,), -1, dtype=_I32, device=dev)
     idx = torch.arange(n, device=dev)
     t = t_out.clone()
-    eps, half, tmx = _f32(hit_eps), _f32(hit_eps * 0.5), _f32(tmax)
+    eps, half = _f32(hit_eps), _f32(hit_eps * 0.5)
+    # a tensor tmax is a ray's own (the hybrid tracer's culled marches)
+    tmx = tmax.to(dev).clone() if torch.is_tensor(tmax) else _f32(tmax)
     cols = torch.stack([rox, roy, roz, rdx, rdy, rdz], 1)
     for _ in range(int(max_steps)):
         if idx.numel() == 0:
@@ -424,6 +581,8 @@ def sdf_march_plain(scene: SdfScene, ro, rd, tmin=1e-3, tmax=100.0, max_steps: i
             mat_out[sel] = torch.where(got, m, -1)[done]
             keep = ~done
             idx, cols, t = idx[keep], cols[keep], t[keep]
+            if torch.is_tensor(tmx):
+                tmx = tmx[keep]
     t_out[idx] = t
     return SdfHit(hit_out, t_out, mat_out)
 

@@ -721,6 +721,26 @@ def tile_means_plain(lum: torch.Tensor) -> torch.Tensor:
     return lum[rows][:, cols].reshape(th, TILE, tw, TILE).mean(dim=(1, 3))
 
 
+def tile_means_ordered(lum: torch.Tensor) -> torch.Tensor:
+    """The tile means in R1 step's summation order (csrc/terrain_shade.cuh:
+    tile_partial, tile_mean_serial): per tile, partial sums j = 0..255 over
+    the elements j, j + 256, j + 512, j + 768 (row-major in the tile), then
+    a halving tree, then / 1024; float32 throughout."""
+    H, W = lum.shape
+    th, tw = -(-H // TILE), -(-W // TILE)
+    rows = torch.clamp(torch.arange(th * TILE, device=lum.device), max=H - 1)
+    cols = torch.clamp(torch.arange(tw * TILE, device=lum.device), max=W - 1)
+    e = lum[rows][:, cols].reshape(th, TILE, tw, TILE).permute(0, 2, 1, 3).reshape(th, tw, -1)
+    part = torch.zeros((th, tw, 256), dtype=_F32, device=lum.device)
+    for q in range(TILE * TILE // 256):
+        part = part + e[..., 256 * q:256 * (q + 1)]
+    w = 128
+    while w:
+        part = torch.cat([part[..., :w] + part[..., w:2 * w], part[..., 2 * w:]], -1)
+        w //= 2
+    return part[..., 0] / float(TILE * TILE)
+
+
 def step_plain(scene: TerrainScene, a: ShadeArgs, accum: torch.Tensor, sample_idx: int):
     """Plain PyTorch version of R1 step: one jittered sample added to the
     (H, W, 4) accumulator. Returns (accum, tile means, the sample's AOVs);

@@ -312,14 +312,26 @@ void f3d_test_r1_states(const SceneArgs* s, const TerrainArgs* a, int x, int y,
         r1_sample(*s, *a, x, y, st, r, g, b, aux);
     }
 }
+// R1 step as renderer.cu maps it: the blocks of 16x16 pixels in
+// r1_tile_pixel's order, then each 32x32 metric tile's mean
 int f3d_terrain_step(const SceneArgs* s, const TerrainArgs* a, float* accum,
                      unsigned int sample_idx, float* lum, const TerrainOut* o, float* tiles,
                      void*) {
-    for (int i = 0; i < a->width * a->height; ++i) step_pixel(*s, *a, accum, sample_idx, lum, *o, i);
+    const int blocks = ((a->width + 15) / 16) * ((a->height + 15) / 16);
+    for (int blk = 0; blk < blocks; ++blk)
+        for (int t = 0; t < 256; ++t) {
+            int x, y;
+            if (r1_tile_pixel(*a, blk, t, x, y)) {
+                const int i = y * a->width + x;
+                lum[i] = step_pixel(*s, *a, accum, sample_idx, *o, i);
+            }
+        }
     const int tw = (a->width + F3D_TILE - 1) / F3D_TILE, th = (a->height + F3D_TILE - 1) / F3D_TILE;
     for (int ty = 0; ty < th; ++ty)
         for (int tx = 0; tx < tw; ++tx)
-            tiles[ty * tw + tx] = tile_mean_serial(lum, a->width, a->height, ty, tx);
+            tiles[ty * tw + tx] = tile_mean_serial(
+                lum + (ty * a->width + tx) * F3D_TILE, a->width,
+                std::min(F3D_TILE, a->height - ty * F3D_TILE), std::min(F3D_TILE, a->width - tx * F3D_TILE));
     return 0;
 }
 int f3d_atrous_pass(const AtrousArgs* a, const float* in, float* out, int step, void*) {
@@ -419,10 +431,22 @@ int f3d_trace_tlas(const TlasArgs* a, const float* rox, const float* roy, const 
     }
     return 0;
 }
+// P3 as pt.cu maps it: blocks of 16x16 pixels, a warp 8x4
 int f3d_hybrid_render(const SceneArgs* s, const MeshArgs* m, const SdfArgs* sdf,
                       const HybridArgs* a, const float* rdx, const float* rdy, const float* rdz,
                       const HybridOut* o, void*) {
-    for (int i = 0; i < a->width * a->height; ++i) hybrid_pixel(*s, *m, *sdf, *a, rdx, rdy, rdz, *o, i);
+    const int tiles_x = (a->width + 15) / 16;
+    for (int blk = 0; blk < tiles_x * ((a->height + 15) / 16); ++blk)
+        for (int t = 0; t < 256; ++t) {
+            const int x = (blk % tiles_x) * 16 + ((t >> 5) & 1) * 8 + (t & 7);
+            const int y = (blk / tiles_x) * 16 + (t >> 6) * 4 + ((t & 31) >> 3);
+            if (x < a->width && y < a->height)
+                hybrid_pixel(*s, *m, *sdf, *a, rdx, rdy, rdz, *o, y * a->width + x);
+        }
+    return 0;
+}
+int f3d_hybrid_attrs(int* out) {
+    out[0] = out[1] = out[2] = 0;   // no device function on the host
     return 0;
 }
 int f3d_adj_raster(const AdjArgs* a, const float* quad, unsigned char* rgba, float* hdr, void*) {
@@ -678,6 +702,46 @@ int f3d_med_reconstruct(const int32_t* d, int n_tiles, int ntx, int width, doubl
             }
     }
     return 0;
+}
+// test entry: R1 step as one serial loop over the pixels, then each
+// metric tile's mean in the fixed order
+void f3d_test_step_serial(const SceneArgs* s, const TerrainArgs* a, float* accum,
+                          unsigned int sample_idx, const TerrainOut* o, float* lum, float* tiles) {
+    for (int i = 0; i < a->width * a->height; ++i) lum[i] = step_pixel(*s, *a, accum, sample_idx, *o, i);
+    const int tw = (a->width + F3D_TILE - 1) / F3D_TILE, th = (a->height + F3D_TILE - 1) / F3D_TILE;
+    for (int t = 0; t < tw * th; ++t) {
+        const int ty = t / tw, tx = t % tw;
+        tiles[t] = tile_mean_serial(lum + (ty * a->width + tx) * F3D_TILE, a->width,
+                                    std::min(F3D_TILE, a->height - ty * F3D_TILE),
+                                    std::min(F3D_TILE, a->width - tx * F3D_TILE));
+    }
+}
+// test entry: P3's cull of n marches (sdf_cull_span) at threshold hit_eps:
+// march[i], tmax[i] in and out
+void f3d_test_sdf_span(const SdfArgs* s, const float* o, const float* d, int n, float hit_eps,
+                       float tmin, unsigned char* march, float* tmax) {
+    for (int i = 0; i < n; ++i)
+        march[i] = sdf_cull_span(*s, o[3 * i], o[3 * i + 1], o[3 * i + 2], d[3 * i], d[3 * i + 1],
+                                 d[3 * i + 2], hit_eps, tmin, tmax[i]);
+}
+// test entry: the mesh walk of each ray that hits, again with tmax `ulps`
+// float32 steps above its hit: how many of those walks lose the hit
+int f3d_test_mesh_cut(const MeshArgs* m, const float* o, const float* d, int n, int ulps,
+                      int* hits) {
+    int lost = 0;
+    *hits = 0;
+    for (int i = 0; i < n; ++i) {
+        const float* p = o + 3 * i;
+        const float* q = d + 3 * i;
+        MeshHit a = trace_mesh_ray(*m, p[0], p[1], p[2], q[0], q[1], q[2], 1e-3f, 1e6f);
+        if (a.prim < 0) continue;
+        ++*hits;
+        float tmax = a.t;
+        for (int k = 0; k < ulps; ++k) tmax = nextafterf(tmax, HUGE_VALF);
+        MeshHit b = trace_mesh_ray(*m, p[0], p[1], p[2], q[0], q[1], q[2], 1e-3f, tmax);
+        lost += !(b.prim == a.prim && b.t == a.t);
+    }
+    return lost;
 }
 // test entry: synthesize_polar's contraction for one column and row
 float f3d_test_crossing(const float* M, const float* v, int K, int C, float Q, float* out) {
@@ -1320,7 +1384,7 @@ R1_CASES = {
 }
 
 
-def r1_setup(device, **kw):
+def r1_setup(device, size=(96, 48), **kw):
     """(scene, ShadeArgs) of a TerrainRenderer render."""
     from forge3d_tpu_torch.terrain import renderer as rr
     from forge3d_tpu_torch.terrain.params import make_terrain_params
@@ -1329,7 +1393,7 @@ def r1_setup(device, **kw):
     y, x = np.mgrid[0:n, 0:n].astype(np.float32)
     dem = (6.0 * np.sin(x * 0.15) * np.cos(y * 0.12) + 3.0 * np.sin(x * 0.4 + y * 0.3)
            ).astype(np.float32)
-    p = make_terrain_params(size_px=(96, 48), cam_radius=75.0, cam_theta_deg=30.0, **kw)
+    p = make_terrain_params(size_px=size, cam_radius=75.0, cam_theta_deg=30.0, **kw)
     _, scene, args, _ = rr.TerrainRenderer(device=device).render_inputs(p, dem,
                                                                         time_seconds=1.5)
     return scene, args
@@ -1410,6 +1474,40 @@ def test_terrain_step_kernel(kernels):
         acc = ka
     assert rr.offline_step.launches == before + 3
     assert float(acc[..., 3].min()) == 3.0
+
+
+# R1 step in 16x16 blocks at ragged sizes: every pixel once, the tile means
+# in the fixed order (edge tiles read their own last row and column)
+@pytest.mark.parametrize("size", [(1, 1), (17, 15), (33, 31), (96, 48)])
+def test_terrain_step_kernel_ragged(kernels, size, request):
+    from forge3d_tpu_torch.terrain import renderer as rr
+
+    W, H = size
+    scene, a = r1_setup(kernels, size=size, **R1_CASES["print"])
+    assert (a.width, a.height) == size
+    acc = torch.zeros((H, W, 4), device=kernels)
+    if kernels.type == "cpu":
+        lib = request.getfixturevalue("host_lib")
+        lib.f3d_test_step_serial.restype = None
+    for idx in range(2):
+        ka, kt, kaov = rr._step_kernel(scene, a, acc.clone(), idx)
+        if kernels.type == "cpu":
+            sa, lum = acc.clone(), torch.empty((H, W))
+            st = torch.empty_like(kt)
+            aov = {k: torch.empty_like(v) for k, v in kaov.items()}
+            planes = _kernels.TerrainOut(None, None, *(aov[k].data_ptr() for k in aov))
+            lib.f3d_test_step_serial(ctypes.byref(scene.kernel_args()), ctypes.byref(a.kernel_args()),
+                                     _kernels.ptr(sa), idx, ctypes.byref(planes), _kernels.ptr(lum),
+                                     _kernels.ptr(st))
+        else:
+            sa, st, aov = rr.step_plain(scene, a, acc, idx)
+            lum = rr.luminance(*(sa[..., c] / sa[..., 3] for c in range(3)))
+            st = rr.tile_means_ordered(lum)
+        assert same_bits(sa, ka) and same_bits(st, kt)
+        assert all(same_bits(aov[k], kaov[k]) for k in aov)
+        assert same_bits(rr.tile_means_ordered(lum), kt)
+        acc = ka
+    assert float(acc[..., 3].min()) == 2.0
 
 
 @pytest.mark.parametrize("guides", ["none", "all", "depth_only"])
@@ -2160,6 +2258,268 @@ def test_hybrid_kernel(kernels, mode):
     for k in pp:
         assert torch.equal(pk[k], pp[k]), k
     assert int((pp["kind"] >= 0).sum()) > 0
+
+
+def random_tape(rng, n_sites=6, kmax=10.0):
+    """A seeded CSG tree over every primitive kind (a plane only under an
+    intersection, so the root stays bounded) and every operation kind,
+    smooth ones with k up to kmax."""
+    from forge3d_tpu_torch.ops.sdf import SdfSceneBuilder
+
+    b = SdfSceneBuilder()
+    kinds = ["sphere", "box", "cylinder", "torus", "capsule", "plane"]
+    ops = ["union", "intersect", "subtract", "smooth_union", "smooth_intersect",
+           "smooth_subtract"]
+    nodes = []
+    for i in range(n_sites):
+        c = rng.uniform(-20, 20, 3)
+        r = float(rng.uniform(0.5, 4.0))
+        kind = kinds[i % len(kinds)]
+        if kind == "sphere":
+            n = b.add_sphere(c, r)
+        elif kind == "box":
+            n = b.add_box(c, rng.uniform(0.3, 3.0, 3))
+        elif kind == "cylinder":
+            n = b.add_cylinder(c, r, float(rng.uniform(0.5, 3.0)))
+        elif kind == "torus":
+            n = b.add_torus(c, r, 0.3 * r)
+        elif kind == "capsule":
+            n = b.add_capsule(c, c + rng.uniform(-4, 4, 3), 0.4 * r)
+        else:
+            n = b.intersect(b.add_box(c, (r, r, r)),
+                            b.add_plane(rng.uniform(-1, 1, 3) + [0, 2, 0], float(c[1])))
+        nodes.append(n)
+    while len(nodes) > 1:
+        l, r = nodes.pop(0), nodes.pop(0)
+        op = ops[len(nodes) % len(ops)]
+        args = (l, r, float(rng.uniform(0.5, kmax))) if op.startswith("smooth") else (l, r)
+        nodes.append(getattr(b, op)(*args))
+    return b.build(device="cpu")
+
+
+def landmark_recipe():
+    """chip_smoke.py's landmark CSG scene over bench.py's DEM."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_recipes", path)
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    return cs.landmark_sdf(cs.bench_dem(), "cpu")
+
+
+def box_probe_points(lo, hi, rng, n=64):
+    """Points on and just outside each face, edge and corner of the box (0-4
+    float32 ulps out), and far outside it."""
+    lo, hi = np.asarray(lo, np.float32), np.asarray(hi, np.float32)
+    out = []
+    for ulps in range(5):
+        lo_o, hi_o = lo.copy(), hi.copy()
+        for _ in range(ulps):
+            lo_o, hi_o = np.nextafter(lo_o, -np.inf), np.nextafter(hi_o, np.inf)
+        for mask in range(1, 27):     # which axes sit at a face: 26 faces, edges, corners
+            sides = [(mask // 3 ** a) % 3 for a in range(3)]
+            p = rng.uniform(lo, hi, (n, 3)).astype(np.float32)
+            for a, sd_ in enumerate(sides):
+                if sd_ == 1:
+                    p[:, a] = lo_o[a]
+                elif sd_ == 2:
+                    p[:, a] = hi_o[a]
+            out.append(p)
+    span = float(np.max(hi - lo)) + 1.0
+    far = rng.normal(size=(4096, 3))
+    far /= np.abs(far).max(1, keepdims=True)
+    far = (lo + hi) / 2 + far * ((hi - lo) / 2 + span * rng.uniform(1e-3, 1e3, (4096, 1)))
+    out.append(far.astype(np.float32))
+    return np.concatenate(out)
+
+
+def test_sdf_cull_box_is_conservative():
+    """Outside the cull box (on its float32 faces, a few ulps out, and far
+    away) every tape is at or above the march's threshold; a tape whose root
+    is a union with a plane has no box."""
+    from forge3d_tpu_torch.ops import sdf as sd
+
+    rng = np.random.default_rng(21)
+    scenes = [random_tape(np.random.default_rng(s), kmax=10.0) for s in range(6)]
+    scenes += [random_tape(np.random.default_rng(9), n_sites=12, kmax=50.0), landmark_recipe()]
+    for k in (0.5, 10.0):    # side by side: the blend bulges k/4 out of the boxes' faces
+        b = sd.SdfSceneBuilder()
+        b.smooth_union(b.add_box((0.0, 0.0, 0.0), (2.0, 1.0, 2.0)),
+                       b.add_box((4.0, 0.0, 0.0), (2.0, 1.0, 2.0)), k)
+        scenes.append(b.build(device="cpu"))
+    thr = np.float32(sd.CULL_THRESHOLD)
+    for scene in scenes:
+        flag, lo, hi = scene.cull
+        assert flag == 1
+        pts = torch.as_tensor(box_probe_points(lo, hi, rng))
+        d, _ = sd.sdf_eval_plain(scene, pts[:, 0], pts[:, 1], pts[:, 2])
+        assert float(d.min()) >= thr, float(d.min())
+        inside = torch.as_tensor(rng.uniform(lo, hi, (4096, 3)).astype(np.float32))
+        di, _ = sd.sdf_eval_plain(scene, inside[:, 0], inside[:, 1], inside[:, 2])
+        assert float(di.min()) < thr     # the box is not empty of the surface
+    b = sd.SdfSceneBuilder()
+    b.union(b.add_sphere((0, 0, 0), 1.0), b.add_plane((0, 1, 0), -2.0))
+    assert b.build(device="cpu").cull[0] == 0
+    b = sd.SdfSceneBuilder()
+    b.intersect(b.add_sphere((0, 0, 0), 1.0), b.add_sphere((5, 0, 0), 1.0))
+    assert b.build(device="cpu").cull[0] == 2      # no point below the threshold
+
+
+def test_sdf_cull_span_matches_plain(host_lib, monkeypatch):
+    """The kernel's cull of a march (sdf_cull_span, host build) equals its
+    plain version on rays through, past and along the box, from inside it,
+    with zero direction components, NaN, and origins beyond 2^40; a march
+    whose threshold exceeds the box's is not culled by either."""
+    from forge3d_tpu_torch.ops import sdf as sd
+
+    scene = random_tape(np.random.default_rng(3))
+    lo, hi = (np.asarray(v, np.float32) for v in scene.cull[1:])
+    rng = np.random.default_rng(8)
+    n = 6000
+    o = rng.uniform(lo - 30, hi + 30, (n, 3)).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d[800:4000] = rng.uniform(lo, hi, (3200, 3)) - o[800:4000]   # toward the box
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    d[:500, rng.integers(0, 3, 500)] = 0.0
+    d[500:600] = 0.0
+    o[600:700, 1] = hi[1]
+    d[600:700, 1] = 0.0
+    o[700:710] = np.nan
+    o[710:720, 0] = 3e12
+    d[720:730, 2] = 1e3
+    o[730:800] = rng.uniform(lo, hi, (70, 3))
+    tmax = rng.choice([1e6, 5.0, 40.0], n).astype(np.float32)
+    ro = tuple(torch.as_tensor(np.ascontiguousarray(o[:, k])) for k in range(3))
+    rd = tuple(torch.as_tensor(np.ascontiguousarray(d[:, k])) for k in range(3))
+    monkeypatch.setattr(_kernels, "require_cuda", lambda name, *t: None)
+    host_lib.f3d_test_sdf_span.restype = None
+    for eps in (1e-3, 2e-3):
+        march, tm = sd.sdf_cull_span_plain(scene, ro, rd, 1e-3, torch.as_tensor(tmax), eps)
+        km = np.zeros(n, np.uint8)
+        kt = tmax.copy()
+        host_lib.f3d_test_sdf_span(ctypes.byref(scene.kernel_args()),
+                                   o.ctypes.data_as(ctypes.c_void_p),
+                                   d.ctypes.data_as(ctypes.c_void_p), n, ctypes.c_float(eps),
+                                   ctypes.c_float(1e-3), km.ctypes.data_as(ctypes.c_void_p),
+                                   kt.ctypes.data_as(ctypes.c_void_p))
+        assert np.array_equal(km.astype(bool), march.numpy())
+        assert np.array_equal(kt.view(np.int32), tm.numpy().view(np.int32))
+        if eps == sd.CULL_THRESHOLD:
+            assert 0.2 < float(march.double().mean()) < 0.9
+            assert bool((tm < torch.as_tensor(tmax)).any())
+        else:
+            assert bool(march.all()) and np.array_equal(kt, tmax)
+
+
+def test_mesh_walk_cut_at_a_nearer_t_loses_hits(host_lib, monkeypatch):
+    """Why P3's primary mesh walk is not given the terrain's t as its tmax:
+    a walk started with tmax one or two float32 steps above the whole
+    walk's hit loses that hit on some rays (the walk prunes a box whose
+    computed entry lies above tmax while its wall triangle's computed t lies
+    below), so a terrain t between the two would hand the pixel to the
+    terrain."""
+    from forge3d_tpu_torch.ops.bvh import build_sah_bvh, mesh_scene
+
+    monkeypatch.setattr(_kernels, "require_cuda", lambda name, *t: None)
+    rng = np.random.default_rng(0)
+    vs, fs = [], []
+    for i in range(16):
+        size = rng.uniform([5, 5, 5], [20, 40, 20]).astype(np.float32)
+        vs.append(_BOX_V * size + [(i % 4) * 40.0 + 300, 0.0, (i // 4) * 40.0 + 300])
+        fs.append(_BOX_F + 8 * i)
+    bvh = build_sah_bvh(np.concatenate(vs).astype(np.float32), np.concatenate(fs))
+    scene, _ = mesh_scene(bvh, device="cpu")
+    n = 100000
+    o = np.tile(np.array([512.0, 260.0, 1400.0], np.float32), (n, 1))
+    d = rng.uniform([300, 0, 300], [460, 40, 460], (n, 3)).astype(np.float32) - o
+    d = np.ascontiguousarray(d / np.linalg.norm(d, axis=1, keepdims=True), np.float32)
+    hits, lost = ctypes.c_int(), []
+    for ulps in (1, 2, 8):
+        lost.append(host_lib.f3d_test_mesh_cut(
+            ctypes.byref(scene.kernel_args()), o.ctypes.data_as(ctypes.c_void_p),
+            d.ctypes.data_as(ctypes.c_void_p), n, ulps, ctypes.byref(hits)))
+    assert hits.value > n // 4
+    assert lost[0] > 0 and lost[1] > 0 and lost[2] == 0, lost
+
+
+def cull_scene(device, k=50.0, plane=False):
+    """A small terrain, a mesh box and an SDF of smooth operations with k
+    (and, with `plane`, a union with a plane, so no cull box)."""
+    from forge3d_tpu_torch.ops.sdf import SdfSceneBuilder
+    from forge3d_tpu_torch.pt import hybrid as hy
+
+    n = 33
+    y, x = np.mgrid[0:n, 0:n].astype(np.float32)
+    dem = (2.0 * np.sin(x * 0.3) * np.cos(y * 0.3)).astype(np.float32)
+    b = SdfSceneBuilder()
+    u = b.smooth_union(b.add_sphere((22.0, 5.0, 10.0), 2.5, 1), b.add_box((25.0, 4.0, 12.0),
+                                                                         (1.5, 3.0, 1.0), 2), k)
+    i = b.smooth_intersect(b.add_torus((20.0, 3.0, 18.0), 3.0, 1.0, 3),
+                           b.add_cylinder((21.0, 3.0, 18.0), 2.5, 2.0, 4), k)
+    sub = b.smooth_subtract(b.add_capsule((8.0, 2.0, 8.0), (12.0, 7.0, 10.0), 1.5, 5),
+                            b.add_sphere((10.0, 5.0, 9.0), 1.0), k)
+    root = b.union(b.union(u, i), sub)
+    if plane:
+        b.union(root, b.add_plane((0.0, 1.0, 0.0), -1.5, 6))
+    return hy.build_hybrid_scene(heightmap=dem, mesh_vertices=_BOX_V * 4 + [13, 3, 14],
+                                 mesh_indices=_BOX_F, sdf_scene=b.build(device=device),
+                                 device=device)
+
+
+def cull_rays(case, lo, hi, device):
+    """(origin, (rdx, rdy, rdz) (H, W)) of a cull case: `inside`, a camera
+    in the box; `graze`, rays along the box's faces from a corner (zero
+    components); `miss`, a camera beside the box looking away from it;
+    `view`, a camera that sees all of the scene."""
+    from forge3d_tpu_torch.pt import hybrid as hy
+
+    lo, hi = np.asarray(lo, np.float32), np.asarray(hi, np.float32)
+    if case == "view":
+        return hy.camera_rays(48, 32, {"origin": (16.0, 18.0, 52.0), "look_at": (16.0, 2.0, 16.0)},
+                              device)
+    if case == "inside":
+        c = (lo + hi) / 2
+        return hy.camera_rays(48, 32, {"origin": tuple(c + [0.0, 1.0, 0.3]),
+                                       "look_at": (float(c[0]) + 3.0, 0.0, float(c[2]) - 5.0),
+                                       "fov_y": 100.0}, device)
+    if case == "miss":
+        return hy.camera_rays(48, 32, {"origin": (float(lo[0]) - 2.0, 9.0, float(hi[2]) + 2.0),
+                                       "look_at": (float(lo[0]) - 30.0, 12.0, 60.0)}, device)
+    rng = np.random.default_rng(2)
+    d = rng.normal(size=(32, 48, 3)).astype(np.float32)
+    for k, col in enumerate(range(0, 48, 3)):
+        d[:, col, k % 3] = 0.0           # along a face: one component exactly zero
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return tuple(float(v) for v in hi), tuple(torch.as_tensor(np.ascontiguousarray(d[..., k]),
+                                                              device=device) for k in range(3))
+
+
+@pytest.mark.parametrize("case", ["view", "inside", "graze", "miss", "unbounded"])
+@pytest.mark.parametrize("mode", ["hybrid", "terrain_only", "mesh_only", "sdf_only"])
+def test_hybrid_kernel_cull_cases(kernels, case, mode):
+    """P3 with the SDF march culled by the tape's box, bit for bit against
+    _trace_all and the plain shading: rays that miss the box, graze its
+    faces or start inside it, shadow rays that leave the SDF's surface,
+    smooth operations with k = 50, and a tape with no box."""
+    from forge3d_tpu_torch.pt import hybrid as hy
+
+    hs = cull_scene(kernels, plane=case == "unbounded")
+    flag, lo, hi = hs.sdf_scene.cull
+    assert flag == (0 if case == "unbounded" else 1)
+    if case == "unbounded":
+        lo, hi = cull_scene("cpu").sdf_scene.cull[1:]
+    origin, rd = cull_rays("inside" if case == "unbounded" else case, lo, hi, kernels)
+    sun = {"azimuth": 120.0, "elevation": 35.0, "intensity": 3.0}
+    alb = ((0.55, 0.52, 0.48), (0.7, 0.7, 0.72), (0.8, 0.3, 0.25))
+    rk, pk = hy._shade_kernel(hs, mode, origin, rd, sun, alb, 0.35, 1.0)
+    rp, pp = hy._shade_plain(hs, mode, origin, rd, sun, alb, 0.35, 1.0)
+    assert torch.equal(rk, rp)
+    for k in pp:
+        assert torch.equal(pk[k], pp[k]), k
+    if mode in ("hybrid", "sdf_only") and case in ("view", "inside", "unbounded"):
+        assert int((pp["kind"] == 2).sum()) > 0 and int((pp["visibility"] > 0).sum()) > 0
 
 
 def test_adjudication_kernels(kernels):
