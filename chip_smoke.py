@@ -11,8 +11,10 @@ R1 step and P3 (each with a sha256 of its outputs), K2, E7 record, E8
 march (1080p and 7200^2) and K6 (both instantiations, split by ray) at
 the main path's shapes and the day cycle's three hours, without gates
 (see probe()); `--probe E4R1` stops after P3, `--probe R1P3` runs only R1
-and P3. Copied into a checkout of an earlier tree and run there, it
-times that tree's kernels, so two designs can be compared on one card.
+and P3, `--probe C1P4` only C1 entropy (1024^2 and 4096^2 at max_error
+0.1) and P4 raster (512^2), each with a sha256 of its outputs. Copied
+into a checkout of an earlier tree and run there, it times that tree's
+kernels, so two designs can be compared on one card.
 
 Phases (one line each; any failure exits non-zero):
   1. device  -- the card's name, and `nvidia-smi` name and power limit;
@@ -171,6 +173,12 @@ Phases (one line each; any failure exits non-zero):
                 goldens' configuration, twice: bit-identical, each lane
                 launched once a call, timed; both lanes against their plain
                 versions on the card at that size; the SSIM between lanes;
+                P4 raster's work from the plain masks (raster_work: hit and
+                lit pixels, escaped and blocked directions, the blocked ones
+                on the ground and with an unlit sun NEE, the lane efficiency
+                of rows of 32 and of 8x4 warps), its registers and resident
+                blocks, and its bound from the kernel's own work beside the
+                count of every sun test and plane exit;
  25. post kernels -- each E2 kernel (the separable blur, the pointwise
                 stages, SSR, TAA, SSAO, the rect lights) against its plain
                 version on the card at configuration K's 1080p shapes, on K's
@@ -247,7 +255,9 @@ Phases (one line each; any failure exits non-zero):
                 of bench.py's DEM, each encoded at max_error 0.1 and 0.01:
                 C1 entropy and C1 reconstruction against the plain C1 on the
                 1024^2 page, bit for bit, and timed (the device alone) with
-                the host parse; then the main path, decompress_dem_device on
+                the host parse; C1 entropy's registers, resident blocks
+                (two or more required), shared memory, cycles a token and
+                chain floor; then the main path, decompress_dem_device on
                 all four streams, counted, each page equal to the C++ lane
                 bit for bit and within its max_error;
  33. sharded -- the sharded renders over a one-rank NCCL group (the card's
@@ -504,6 +514,14 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def sm_clock_mhz() -> int:
+    """The card's maximum SM clock in MHz, as nvidia-smi reads it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return int(out.stdout.strip().splitlines()[0])
+
+
 def sine_dem(n: int, scale: float) -> np.ndarray:
     """__graft_entry__._small_desc's DEM, stretched by `scale` in x, y and z."""
     y, x = np.mgrid[0:n, 0:n].astype(np.float32)
@@ -653,7 +671,9 @@ EARLIER = {"E4 vector_coverage": "a-launch-a-layer, every-primitive design 29.64
            "E7 record": "one-thread-a-bin design 7.6999",
            "E8 march": "every-pixel-marched, row-of-256 design 8.1171",
            "K6 frame_step": "row-of-256 design 1.6946",
-           "K6 frame_step (hybrid)": "row-of-256 design 3.6083"}
+           "K6 frame_step (hybrid)": "row-of-256 design 3.6083",
+           "C1 entropy": "one-thread, global-stream chain design 7.2561",
+           "P4 raster": "thread-a-pixel, row-of-128 design 8.6544"}
 
 
 def kernel_row(name, launches, err, ms, plain_ms, bound_ms, bound_by):
@@ -3338,6 +3358,9 @@ OPS_TLAS_INST = 40      # tlas_ray: one instance's transform and compare
 OPS_HYB_PIXEL = 60      # hybrid_pixel: the shading, the u8 encode and the AOVs
 OPS_ADJ_ESC = 180       # adj_raster_pixel: a live direction that escapes (nearest, BSDF, MIS)
 OPS_ADJ_SEC = 520       # ... one that hits the scene (the secondary closure, two shadow rays)
+OPS_ADJ_SUN = 160       # of it (and of a pixel's 400) the sun NEE's BSDF and shadow ray
+OPS_ADJ_PLANE = 140     # of it the plane exit (its shadow ray and the spheres' AO)
+OPS_ADJ_SEC_BASE = OPS_ADJ_SEC - OPS_ADJ_SUN - OPS_ADJ_PLANE   # the rest of a blocked direction
 OPS_ADJ_PIXEL = 400     # the raster pixel around its directions (ray, sun NEE, basis)
 OPS_ADJ_VERTEX = 900    # adj_pt_sample: one path vertex (six threefry draws of ~90 ops each)
 # P6, P5, P3 gates: every output bit-identical to the plain version (the
@@ -3938,9 +3961,12 @@ def phase_adjudication():
     call and timed; both lanes against their plain versions on the card at
     that size; the SSIM between the lanes. Returns the rows' values and
     launches."""
+    import ctypes
+
     import torch
 
     import forge3d_tpu_torch as f3t
+    from forge3d_tpu_torch import _kernels
     from forge3d_tpu_torch.metrics import ssim
     from forge3d_tpu_torch.pt import adjudication as adj
 
@@ -3974,8 +4000,38 @@ def phase_adjudication():
     fn.hits = fn.escaped = fn.blocked = 0
     plain_r, (rp, hp) = wall_ms(lambda: adj.raster_lane_plain(W, H, dev))
     err_r = adj_compare("adjudication", f"P4 raster {W}^2", rp, hp, rk, hk)
-    ops_r = fn.hits * OPS_ADJ_PIXEL + fn.escaped * OPS_ADJ_ESC + fn.blocked * OPS_ADJ_SEC
+    ops_old = fn.hits * OPS_ADJ_PIXEL + fn.escaped * OPS_ADJ_ESC + fn.blocked * OPS_ADJ_SEC
+    b_old, by_old = bound(W * H * 16 + 1152 * 12, ops_old)
+    # the kernel's own work: the sun NEE's BSDF and shadow ray only where it
+    # is lit, the plane exit only where fp != 0 (adj_sun_nee_lit,
+    # adj_secondary), counted from the plain masks
+    work = adj.raster_work(W, H, dev, weights=(OPS_ADJ_ESC, OPS_ADJ_SEC, OPS_ADJ_SEC_BASE,
+                                               OPS_ADJ_PLANE, OPS_ADJ_SUN))
+    require((work["hits"], work["escaped"], work["blocked"]) == (fn.hits, fn.escaped, fn.blocked),
+            "raster_work's counts differ from the plain frame's")
+    ops_r = (work["hits"] * (OPS_ADJ_PIXEL - OPS_ADJ_SUN) + work["primary_lit"] * OPS_ADJ_SUN
+             + work["escaped"] * OPS_ADJ_ESC + work["blocked"] * OPS_ADJ_SEC_BASE
+             + work["plane_exit"] * OPS_ADJ_PLANE + work["sun_lit"] * OPS_ADJ_SUN)
     b_r, by_r = bound(W * H * 16 + 1152 * 12, ops_r)
+    blk = work["blocked"]
+    say("adjudication", f"P4 raster {W}^2 work: {work['hits']} hit pixels ({work['primary_lit']} "
+                        f"lit), {work['escaped']} escaped and {blk} blocked directions; of the "
+                        f"blocked {work['blocked_ground']} on the ground "
+                        f"({work['blocked_ground'] / blk:.4f}), {work['plane_exit']} with a plane "
+                        f"share, {blk - work['sun_lit']} whose sun NEE has cos_surf 0 "
+                        f"({(blk - work['sun_lit']) / blk:.4f})")
+    say("adjudication", "P4 raster lane efficiency (lanes' work over the warps' issued work), "
+                        f"the parent's cost (180 escaped, 520 blocked): rows of 32 "
+                        f"{work['lanes_parent_row']:.4f}, warps of 8x4 "
+                        f"{work['lanes_parent_8x4']:.4f}; the kernel's cost: rows of 32 "
+                        f"{work['lanes_kernel_row']:.4f}, warps of 8x4 "
+                        f"{work['lanes_kernel_8x4']:.4f}")
+    attrs = (ctypes.c_int * 3)()
+    _kernels.check(_kernels.lib().f3d_adj_raster_attrs(attrs), "P4 raster attrs")
+    say("adjudication", f"P4 raster kernel: {attrs[0]} registers, {attrs[1]} B spilled, "
+                        f"{attrs[2]} blocks of 256 an SM; bound {b_r:.4f} ms ({by_r}, the kernel's "
+                        f"own work), {b_old:.4f} ms ({by_old}) counting every sun test and plane "
+                        f"exit")
     pk, qk = adj._pt_lane_kernel(W, H, spp, 7, dev)
     adj._pt_sample.vertices = 0
     plain_p, (pp, qp) = wall_ms(lambda: adj.pt_lane_plain(W, H, spp, 7, dev))
@@ -5226,6 +5282,12 @@ CODEC_EPS = (0.1, 0.01)
 OPS_RANS_TOKEN = 12        # rans_chain: the table read's fields, the multiply-add, the
                            # renormalisation compares, the escape select, the zig-zag
 OPS_MED_PIXEL = 8          # med_pred, the add and the double product
+# C1 entropy's chain floor: rans_fast_step's dependent chain in its SASS (the
+# 64-bit table load, the multiply-add, a compare into a predicated funnel
+# shift, a second predicated funnel shift, the mask; then the next load), at
+# the latencies scripts/sass_latency.py measured on an H100 (23.00, 4.06,
+# 8.11, 4.06 and half of a logic-and-add pair's 9.48): cycles a token
+RANS_CHAIN_CYCLES = 44
 BAND = (540, 270)          # phase 33's band of rows: the third quarter of 1080
 
 
@@ -5245,9 +5307,11 @@ def phase_codec():
     """Phase 32: C1 against the plain C1 and the C++ lane; returns
     {row: (max |err|, ms, plain ms, bound ms, bound by)} and the main path's
     launches."""
+    import ctypes
+
     import torch
 
-    from forge3d_tpu_torch import codec
+    from forge3d_tpu_torch import _kernels, codec
     from forge3d_tpu_torch.codec import f3dz_device as fd
 
     dev = torch.device("cuda")
@@ -5288,6 +5352,17 @@ def phase_codec():
                                  *bound(len(blob) + 4 * n_px, n_px * OPS_RANS_TOKEN))
             res["C1 reconstruction"] = (0.0, ms_m, plain_m,
                                         *bound(8 * n_px, n_px * OPS_MED_PIXEL))
+
+    # C1 entropy's build and its chain: cycles a token at the card's SM clock
+    attrs = (ctypes.c_int * 4)()
+    _kernels.check(_kernels.lib().f3d_rans_attrs(attrs), "C1 entropy attrs")
+    mhz = sm_clock_mhz()
+    say("codec", f"C1 entropy kernel: {attrs[0]} registers, {attrs[1]} B spilled, {attrs[2]} "
+                 f"blocks of 288 an SM, {attrs[3]} B of shared memory a block; "
+                 f"{res['C1 entropy'][1] * 1e-3 * mhz * 1e6 / 65536:.1f} cycles a token at "
+                 f"{mhz} MHz; chain floor {RANS_CHAIN_CYCLES} cycles a token, "
+                 f"{RANS_CHAIN_CYCLES * 65536 / (mhz * 1e3):.4f} ms a tile")
+    require(attrs[2] >= 2, "C1 entropy must fit two blocks an SM (the 4096^2 page in one wave)")
 
     # the 4096^2 page set's split: the host parse, each kernel, the readback
     blob = blobs[("4096^2", CODEC_EPS[0])]
@@ -5609,6 +5684,61 @@ def probe_e4(torch, dem):
         say("probe", f"E4 {route} {w}x{h} through vector_layer: {t:.4f} ms")
 
 
+def probe_c1(torch):
+    """C1 entropy on phase 32's 1024^2 and 4096^2 pages at max_error 0.1,
+    timed with the launches queued behind a spin (the device alone), in
+    cycles a token at the card's SM clock, with a sha256 of the residuals
+    (and the kernel's build where the tree reports it)."""
+    from forge3d_tpu_torch import _kernels, codec
+    from forge3d_tpu_torch.codec import f3dz_device as fd
+
+    dev = torch.device("cuda")
+    mhz = sm_clock_mhz()
+    pages = codec_pages()
+    for name in ("1024^2", "4096^2"):
+        page = fd.parse_page(codec.compress_dem(pages[name], CODEC_EPS[0]))
+        t = page.tensors(dev)
+        d = fd._rans_kernel(*t)
+        ms = queued_ms(lambda: fd._rans_kernel(*t), 5 if name == "1024^2" else 3)
+        h = hashlib.sha256(d.cpu().numpy().tobytes()).hexdigest()
+        say("probe", f"C1 entropy {name} @ {CODEC_EPS[0]} ({d.shape[0]} tiles): {ms:.4f} ms, "
+                     f"{ms * 1e-3 * mhz * 1e6 / 65536:.1f} cycles a token at {mhz} MHz; sha256 "
+                     f"of the residuals {h}")
+    attrs = getattr(_kernels.lib(), "f3d_rans_attrs", None)
+    if attrs is not None:
+        import ctypes
+
+        out = (ctypes.c_int * 4)()
+        attrs(out)
+        say("probe", f"C1 entropy kernel: {out[0]} registers, {out[1]} B spilled, {out[2]} "
+                     f"blocks an SM, {out[3]} B of shared memory a block")
+
+
+def probe_p4(torch):
+    """P4 raster at 512^2 (phase 24's size): timed as launched and queued
+    behind a spin, with a sha256 of its rgba and HDR (and the kernel's
+    build where the tree reports it)."""
+    from forge3d_tpu_torch import _kernels
+    from forge3d_tpu_torch.pt import adjudication as adj
+
+    dev = torch.device("cuda")
+    rgba, hdr = adj._raster_lane_kernel(512, 512, dev)
+    ms = cuda_ms(lambda: adj._raster_lane_kernel(512, 512, dev), 5)
+    alone = queued_ms(lambda: adj._raster_lane_kernel(512, 512, dev), 5)
+    h = hashlib.sha256(rgba.cpu().numpy().tobytes())
+    h.update(hdr.cpu().numpy().tobytes())
+    regs = ""
+    attrs = getattr(_kernels.lib(), "f3d_adj_raster_attrs", None)
+    if attrs is not None:
+        import ctypes
+
+        out = (ctypes.c_int * 3)()
+        attrs(out)
+        regs = f" {out[0]} registers, {out[1]} B spilled, {out[2]} blocks of 256 an SM;"
+    say("probe", f"P4 raster 512x512:{regs} {ms:.4f} ms ({alone:.4f} queued behind a spin, the "
+                 f"device alone); sha256 of rgba and HDR {h.hexdigest()}")
+
+
 def probe(torch, only=None):
     """`chip_smoke.py --probe`: E4 (probe_e4), R1 (probe_r1) and P3
     (probe_p3), then K2 and
@@ -5625,6 +5755,10 @@ def probe(torch, only=None):
     from forge3d_tpu_torch.ops import sweep as sw
     from forge3d_tpu_torch.pt import terrain_sweep as ts
 
+    if only == "C1P4":
+        probe_c1(torch)
+        probe_p4(torch)
+        return
     dem = bench_dem()
     if only != "R1P3":
         probe_e4(torch, dem)

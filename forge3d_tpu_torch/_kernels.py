@@ -429,6 +429,8 @@ _SIGNATURES = {
     "f3d_hybrid_attrs": [_P],
     # (args, quad, rgba, hdr, stream)
     "f3d_adj_raster": [ctypes.POINTER(AdjArgs), _P, _P, _P, _P],
+    # (out (registers, spilled bytes, resident blocks))
+    "f3d_adj_raster_attrs": [_P],
     # (args, keys, rgba, hdr, stream)
     "f3d_adj_pt": [ctypes.POINTER(AdjArgs), _P, _P, _P, _P],
     # E2: (in, out, taps, radius, outer, n, inner, stream)
@@ -484,6 +486,8 @@ _SIGNATURES = {
     "f3d_guide_sample": [ctypes.POINTER(GuideArgs)] + [_P] * 5 + [_LL, _P, _P],
     # C1 entropy: (stream, lens, cap, freq, extras, ecap, n_tiles, d, stream)
     "f3d_rans_decode": [_P, _P, _I, _P, _P, _I, _I, _P, _P],
+    # C1 entropy's build: (out[4]: registers, spilled bytes, resident blocks, shared bytes)
+    "f3d_rans_attrs": [_P],
     # C1 reconstruction: (d, n_tiles, ntx, width, step, out, stream)
     "f3d_med_reconstruct": [_P, _I, _I, _I, ctypes.c_double, _P, _P],
 }

@@ -16,22 +16,43 @@
 // divergence (paths die at different depths); they read nothing but their
 // constants, the quadrature table and the key table, and write 4 bytes a
 // pixel (12 more with the HDR plane).
+//
+// The raster runs in K6's tiles: a block 16x16 pixels, a warp 8x4, so a
+// warp's lanes see nearby surface points, whose directions escape or hit
+// the scene together more often than along a row of 32 (PERF.md §6). The
+// block copies the quadrature table (13.8 KB) into shared memory once; each
+// direction's three words are then one broadcast read for the warp.
 
 #include <cuda_runtime.h>
 
 #include "adjudication.cuh"
+#include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
+constexpr int kTileThreads = 256;
 
 inline int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
 
-__global__ void adj_raster_kernel(AdjArgs a, const float* __restrict__ quad,
-                                  unsigned char* __restrict__ rgba, float* __restrict__ hdr) {
-    int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= a.width * a.height) return;
-    adj_raster_pixel(a, quad, i, rgba, hdr);
+// At least 3 resident blocks of 256 an SM: 80 registers, 32 B spilled on an
+// H100, 7.39-7.56 ms at 512^2 in three turns against 8.41-8.58 without a
+// bound (nvcc's 96 registers, 2 blocks); a minimum of 2 (104 registers) or
+// 4 (64, 96 B spilled) was no faster than none (PERF.md §6).
+constexpr int kRasterBlocks = 3;
+
+__global__ void __launch_bounds__(kTileThreads, kRasterBlocks)
+adj_raster_kernel(AdjArgs a, const float* __restrict__ quad, unsigned char* __restrict__ rgba,
+                  float* __restrict__ hdr) {
+    __shared__ float sq[3 * F3D_ADJ_QUAD];
+    for (int k = threadIdx.x; k < 3 * a.n_quad; k += kTileThreads) sq[k] = quad[k];
+    __syncthreads();
+    const int tiles_x = (a.width + 15) / 16;
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int x = (blockIdx.x % tiles_x) * 16 + (warp & 1) * 8 + (lane & 7);
+    const int y = (blockIdx.x / tiles_x) * 16 + (warp >> 1) * 4 + (lane >> 3);
+    if (x >= a.width || y >= a.height) return;
+    adj_raster_pixel(a, sq, y * a.width + x, rgba, hdr);
 }
 
 __global__ void adj_pt_kernel(AdjArgs a, const uint32_t* __restrict__ keys,
@@ -47,10 +68,17 @@ extern "C" {
 
 int f3d_adj_raster(const AdjArgs* a, const float* quad, unsigned char* rgba, float* hdr,
                    void* stream) {
-    int n = a->width * a->height;
-    if (n > 0)
-        adj_raster_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(*a, quad, rgba, hdr);
+    if (a->n_quad < 0 || a->n_quad > F3D_ADJ_QUAD) return (int)cudaErrorInvalidValue;
+    if (a->width > 0 && a->height > 0)
+        adj_raster_kernel<<<((a->width + 15) / 16) * ((a->height + 15) / 16), kTileThreads, 0,
+                            (cudaStream_t)stream>>>(*a, quad, rgba, hdr);
     return (int)cudaGetLastError();
+}
+
+// P4 raster's kernel: out = {registers a thread, local (spilled) bytes a
+// thread, resident blocks of 256 an SM}
+int f3d_adj_raster_attrs(int* out) {
+    return f3d_kernel_attrs((const void*)adj_raster_kernel, kTileThreads, out);
 }
 
 int f3d_adj_pt(const AdjArgs* a, const uint32_t* keys, unsigned char* rgba, float* hdr,

@@ -38,6 +38,7 @@
 #define F3D_ADJ_DEPTH 16   // adjudication.py:MAX_DEPTH
 #define F3D_ADJ_RR 4       // RR_START_DEPTH
 #define F3D_ADJ_KEYS 98    // keys per sample: 2 jitter + 16 depths x 6 draws
+#define F3D_ADJ_QUAD 1152  // the quadrature's directions: ENV_QUAD_U x ENV_QUAD_V
 
 struct AdjArgs {           // mirrored by _kernels.AdjArgs
     int width, height, spp, n_quad;
@@ -150,32 +151,51 @@ F3D_HD V3 adj_to_world(V3 n, float x, float y, float z) {
     return adj_normalize(vadd(vadd(vscale(t, x), vscale(bt, y)), vscale(n, z)));
 }
 
+// _bsdf_eval_pdf's terms that depend on the view side alone (wo, n and the
+// material): a raster pixel's escaped directions share them, so it forms
+// them once, with the same operations as the whole evaluation
+struct AdjView {
+    V3 fd;          // albedo / pi
+    float ndv, a2, k, k1, gv;   // k1 = 1 - k; gv the view's Smith factor
+};
+
+F3D_HD AdjView adj_view(V3 wo, V3 n, V3 albedo, float rough) {
+    AdjView v;
+    v.ndv = fmaxf(adj_dot(n, wo), 0.0f);
+    v.fd = v3(albedo.x / F3D_ADJ_PI, albedo.y / F3D_ADJ_PI, albedo.z / F3D_ADJ_PI);
+    float m = fmaxf(0.02f, rough * rough);
+    v.a2 = m * m;
+    float mk = m + 1.0f;
+    v.k = (mk * mk) / 8.0f;
+    v.k1 = 1.0f - v.k;
+    v.gv = v.ndv / (v.ndv * v.k1 + v.k);
+    return v;
+}
+
 // _bsdf_eval_pdf: Lambert + isotropic GGX (metallic 0); returns f, pdf
-F3D_HD V3 adj_bsdf(V3 wo, V3 wi, V3 n, V3 albedo, float rough, float& pdf) {
+F3D_HD V3 adj_bsdf_view(const AdjView& v, V3 wo, V3 wi, V3 n, float& pdf) {
     float ndl = fmaxf(adj_dot(n, wi), 0.0f);
-    float ndv = fmaxf(adj_dot(n, wo), 0.0f);
-    bool valid = ndl > 0.0f && ndv > 0.0f;
+    bool valid = ndl > 0.0f && v.ndv > 0.0f;
     if (!valid) {
         pdf = 0.0f;
         return v3(0.0f, 0.0f, 0.0f);
     }
-    V3 fd = v3(albedo.x / F3D_ADJ_PI, albedo.y / F3D_ADJ_PI, albedo.z / F3D_ADJ_PI);
     float pdf_d = ndl / F3D_ADJ_PI;
-    float m = fmaxf(0.02f, rough * rough);
     V3 h = adj_normalize(vadd(wi, wo));
     float ndh = fmaxf(adj_dot(n, h), 0.0f);
     float vdh = fmaxf(adj_dot(wo, h), 0.0f);
-    float a2 = m * m;
-    float q = ndh * ndh * (a2 - 1.0f) + 1.0f;
-    float d = a2 / fmaxf(F3D_ADJ_PI * (q * q), 1e-6f);
-    float mk = m + 1.0f;
-    float k = (mk * mk) / 8.0f;
-    float g = (ndl / (ndl * (1.0f - k) + k)) * (ndv / (ndv * (1.0f - k) + k));
+    float q = ndh * ndh * (v.a2 - 1.0f) + 1.0f;
+    float d = v.a2 / fmaxf(F3D_ADJ_PI * (q * q), 1e-6f);
+    float g = (ndl / (ndl * v.k1 + v.k)) * v.gv;
     float f = 0.04f + 0.96f * powf(1.0f - fminf(fmaxf(vdh, 0.0f), 1.0f), 5.0f);
-    float spec = d * g / fmaxf(4.0f * ndl * ndv, 1e-6f);
+    float spec = d * g / fmaxf(4.0f * ndl * v.ndv, 1e-6f);
     float fs = spec * f;
     pdf = fmaxf(pdf_d, 1e-8f);
-    return v3(fd.x + fs, fd.y + fs, fd.z + fs);
+    return v3(v.fd.x + fs, v.fd.y + fs, v.fd.z + fs);
+}
+
+F3D_HD V3 adj_bsdf(V3 wo, V3 wi, V3 n, V3 albedo, float rough, float& pdf) {
+    return adj_bsdf_view(adj_view(wo, n, albedo, rough), wo, wi, n, pdf);
 }
 
 // _env_mixture_pdf
@@ -195,6 +215,17 @@ F3D_HD V3 adj_sun_nee(const AdjArgs& a, V3 pos, V3 n, V3 wo, V3 alb, float rough
     bool vis = !adj_occluded(a, vadd(pos, vscale(n, 1e-3f)), wi);
     float w = cos_surf * (vis ? 1.0f : 0.0f);
     return vscale(vmul(f, vld(a.li)), w);
+}
+
+// adj_sun_nee without the work an exact zero multiplies, for the raster
+// lane: where cos_surf is not above 0, adj_bsdf's ndl (the same value) is
+// not either, so f is 0 and the result is (0 * li) * w, where w = cos_surf *
+// (vis ? 1 : 0) has cos_surf's bits (a zero times 1 or +0 keeps its sign):
+// the BSDF and the shadow ray change no bit of it
+F3D_HD V3 adj_sun_nee_lit(const AdjArgs& a, V3 pos, V3 n, V3 wo, V3 alb, float rough) {
+    float cos_surf = fmaxf(adj_dot(n, vld(a.sun_wi)), 0.0f);
+    if (!(cos_surf > 0.0f)) return vscale(vmul(v3(0.0f, 0.0f, 0.0f), vld(a.li)), cos_surf);
+    return adj_sun_nee(a, pos, n, wo, alb, rough);
 }
 
 // _plane_exit_radiance at (qx, 0, qz)
@@ -217,7 +248,7 @@ F3D_HD V3 adj_plane_exit(const AdjArgs& a, float qx, float qz) {
 F3D_HD V3 adj_secondary(const AdjArgs& a, V3 p2, V3 n2, int idx2, V3 wo2) {
     int ic = idx2 < 0 ? 0 : (idx2 > 3 ? 3 : idx2);
     V3 alb2 = vld(a.alb + 3 * ic);
-    V3 l = adj_sun_nee(a, p2, n2, wo2, alb2, a.rough[ic]);
+    V3 l = adj_sun_nee_lit(a, p2, n2, wo2, alb2, a.rough[ic]);
     float ny = n2.y;
     float fp = idx2 != 3 ? 0.5f * (1.0f - ny) : 0.0f;
     float ao = 1.0f - fp;
@@ -235,8 +266,11 @@ F3D_HD V3 adj_secondary(const AdjArgs& a, V3 p2, V3 n2, int idx2, V3 wo2) {
     float tmis = 0.35583f + c * (0.06546f + c * (0.03152f - c * 0.01529f));
     l = vadd(l, vscale(vmul(alb2, vld(a.amb)), tmis * ao));
     l = vadd(l, vscale(vmul(alb2, vld(a.sky)), ao));
-    V3 pe_here = adj_plane_exit(a, p2.x, p2.z);
-    l = vadd(l, vscale(vmul(alb2, pe_here), fp));
+    // the plane's share only where fp != 0: the term is (alb2 * pe) * fp with
+    // alb2 and pe finite and >= +0 (the scene's albedos and radiances), so
+    // at fp == +0 (the ground, or ny == 1) it is +0, and l is a sum of such
+    // terms whose ambient term above already made it >= +0 and not -0
+    if (fp != 0.0f) l = vadd(l, vscale(vmul(alb2, adj_plane_exit(a, p2.x, p2.z)), fp));
     for (int i = 0; i < 3; ++i)
         l = vadd(l, vscale(vmul(vmul(alb2, vld(a.alb + 3 * i)), vld(a.pe_s + 3 * i)), fss[i]));
     return l;
@@ -273,7 +307,11 @@ F3D_HD void adj_store(const AdjArgs& a, V3 c, int i, unsigned char* rgba, float*
 }
 
 // _raster_frame for pixel i; quad holds the (x, y, z) of each direction's
-// _cosine_local in scan order
+// _cosine_local in scan order. The pixel's view side of the BSDF is formed
+// once, before the directions (adj_view: the same operations, so the same
+// bits; nvcc hoists the secondary rays' sphere terms from `so` itself); the
+// sun NEE and the plane's share skip the work an exact zero multiplies
+// (adj_sun_nee_lit, adj_secondary).
 F3D_HD void adj_raster_pixel(const AdjArgs& a, const float* quad, int i, unsigned char* rgba,
                              float* hdr) {
     const int x = i % a.width, y = i / a.width;
@@ -290,8 +328,9 @@ F3D_HD void adj_raster_pixel(const AdjArgs& a, const float* quad, int i, unsigne
     V3 alb = vld(a.alb + 3 * kind);
     float rough = a.rough[kind];
     V3 wo = adj_normalize(vsub(ro, pos));
-    V3 radiance = adj_sun_nee(a, pos, n, wo, alb, rough);
+    V3 radiance = adj_sun_nee_lit(a, pos, n, wo, alb, rough);
     V3 so = vadd(pos, vscale(n, 1e-3f));
+    const AdjView view = adj_view(wo, n, alb, rough);
     V3 tv, bt;
     adj_basis(n, tv, bt);
     V3 alb_pi = v3(alb.x / F3D_ADJ_PI, alb.y / F3D_ADJ_PI, alb.z / F3D_ADJ_PI);
@@ -306,7 +345,7 @@ F3D_HD void adj_raster_pixel(const AdjArgs& a, const float* quad, int i, unsigne
         V3 contrib;
         if (kind2 < 0) {
             float pdf_b;
-            V3 f = adj_bsdf(wo, wi, n, alb, rough, pdf_b);
+            V3 f = adj_bsdf_view(view, wo, wi, n, pdf_b);
             float pdf_l = adj_env_pdf(n, wi);
             float w_mis = pdf_l / fmaxf(pdf_l + pdf_b, 1e-8f);
             contrib = vadd(vscale(vmul(f, vld(a.amb)), w_mis), vmul(alb_pi, vld(a.sky)));

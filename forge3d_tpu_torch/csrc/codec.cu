@@ -6,10 +6,9 @@
 //
 // C1 entropy  rans_kernel replaces the rANS scan, the escape substitution
 //             and the zig-zag step of forge3d_tpu/codec/f3dz_device.py:
-//             _tile_decoder (46-101): one block a tile; its 256 threads
-//             build the tile's decode table in shared memory (4096 words),
-//             then one thread runs the tile's 65,536-step chain and writes
-//             the residuals to a (T, 65536) int32 buffer.
+//             _tile_decoder (46-101): one block a tile, one thread running
+//             the tile's 65,536-step chain, eight warps of helpers around
+//             it, which write the residuals to a (T, 65536) int32 buffer.
 // C1 reconstruction  med_kernel replaces the MED/LOCO-I reconstruction and
 //             the height scale (96-133) and the host's reassembly of the
 //             tiles (223-230): one block a tile, four passes of 64 rows; a
@@ -23,17 +22,23 @@
 // What bounds them on the H100. The entropy chain is one rANS state a tile,
 // fixed by the wire format: every step's table lookup depends on the step
 // before it, so the kernel is latency-bound by design: a tile's 65,536
-// tokens take the same time whatever the tile count, up to the ~1,000 tiles
-// that fit on the card at once. The design keeps each step to one
-// shared-memory lookup on the chain: the table packs the symbol, its
-// frequency and the slot's offset in one word, the stream's bytes come from
-// a 64-bit register buffer refilled a word ahead, the pulls are counted
-// from the top set bit instead of JAX's four dependent compares, and an
-// escape's extra is loaded an escape ahead. A first design, which loaded
-// each step's four candidate bytes from global memory at the step's start
-// and pulled through nested branches, took 8.3185 ms for the 1024^2 page's
-// 16 tiles on an H100; a register window of 16-byte chunks with the same
-// branches, 9.2666 ms. The reconstruction is bound
+// tokens take the same time whatever the tile count, as long as the tiles
+// fit on the card at once (three blocks an SM on an H100: 396 tiles). The
+// design keeps the chain's step to the shared-memory lookup and a few
+// integer instructions (codec.cuh: rans_fast_step) and moves everything
+// else off the chain thread: the stream is staged by the helpers in a shared ring of
+// big-endian word pairs with zeros past `len`, so the chain has no global
+// load and no length mask; its symbols go to a shared ring, and the helpers
+// substitute the escapes (a block scan gives each escape its rank), zig-zag
+// decode and store them, 16 bytes a thread, a chunk behind the chain. A
+// tile whose first state is under 2^23 takes the general step instead
+// (rans_chain: up to four pulls, the stream from global memory through a
+// register buffer). The first designs ran the general step on one thread
+// for every tile, with the stores and the escape loads on that thread:
+// 7.2561 ms for the 1024^2 page's 16 tiles on an H100 (a 64-bit register
+// buffer refilled a word ahead), 8.3185 (each step's four candidate bytes
+// loaded at its start, nested branches), 9.2666 (a register window of
+// 16-byte chunks); PERF.md §6 splits the first. The reconstruction is bound
 // by its 1,276 barrier steps a tile (4 x (64 + 255)) and by bytes: 4 B read
 // and 4 B written a pixel. A wavefront over the whole tile in 511 steps,
 // one thread a row of 256 with the rows above in a ring, took 0.2189 ms for
@@ -47,27 +52,119 @@
 
 namespace {
 
-__global__ void __launch_bounds__(256) rans_kernel(
+// C1 entropy, a block a tile: warp 0's first thread runs the chain, the
+// other eight warps (the helpers) build the tables, fill the stream ring
+// ahead of it and drain its symbols a chunk behind it (rans_fast_step's
+// comment in codec.cuh). Iteration c of the loop runs the chain's chunk c
+// and the helpers' drain of chunk c - 1, and ends in one block barrier.
+// The helpers' fill during iteration c covers chunk c + 1 from the chunk's
+// start position pos[c & 1], and writes only entries past those chunk c
+// reads (rans_fill_end): the chain can pull at most 2 bytes a token, so
+// the entries chunk c reads and those written beside it span at most
+// F3DZ_CHUNK + 2 of the ring's 4096.
+constexpr int kRansHelpers = 256;
+constexpr int kRansThreads = 32 + kRansHelpers;
+constexpr uint32_t kRansChunks = F3DZ_TILE_PX / F3DZ_CHUNK;
+constexpr uint32_t kRansSubs = F3DZ_CHUNK / (4u * kRansHelpers);   // symbol words a helper a chunk
+constexpr size_t kRansTabBytes = F3DZ_PROB_SCALE * sizeof(uint2);
+constexpr size_t kRansRingBytes = F3DZ_RING_WORDS * sizeof(uint2);
+constexpr size_t kRansSymBytes = 2 * F3DZ_CHUNK;
+constexpr size_t kRansSmem = kRansTabBytes + kRansRingBytes + kRansSymBytes + F3DZ_PROB_SCALE
+                             + 2 * 8 * 4 + 2 * 4;
+
+// An exclusive scan of v over the 256 helpers in order (named barrier 1,
+// the chain's warp takes no part); `wsum` holds the eight warps' sums and
+// alternates between two halves from one scan to the next, so one barrier
+// a scan suffices. Returns the sum of v over helpers before this one;
+// `total` gets the sum over all.
+__device__ __forceinline__ uint32_t helper_scan(uint32_t v, uint32_t* wsum, uint32_t& total) {
+    const int lane = threadIdx.x & 31, hw = (threadIdx.x >> 5) - 1;
+    uint32_t inc = v;
+    for (int o = 1; o < 32; o <<= 1) {
+        const uint32_t n = __shfl_up_sync(0xFFFFFFFFu, inc, o);
+        if (lane >= o) inc += n;
+    }
+    if (lane == 31) wsum[hw] = inc;
+    asm volatile("bar.sync 1, %0;" ::"n"(kRansHelpers) : "memory");
+    uint32_t before = 0, all = 0;
+    for (int k = 0; k < kRansHelpers / 32; ++k) {
+        const uint32_t w = wsum[k];
+        before += k < hw ? w : 0u;
+        all += w;
+    }
+    total = all;
+    return before + inc - v;
+}
+
+__global__ void __launch_bounds__(kRansThreads) rans_kernel(
         const uint8_t* __restrict__ stream, const uint32_t* __restrict__ lens, int cap,
         const uint32_t* __restrict__ freq, const uint32_t* __restrict__ extras, int ecap,
         int32_t* __restrict__ d) {
-    __shared__ uint32_t tab[F3DZ_PROB_SCALE];
-    __shared__ uint32_t cum[256];
-    const int t = blockIdx.x, s = threadIdx.x;
-    const uint32_t* f = freq + (size_t)t * 256;
-    if (s == 0) {
-        uint32_t c = 0;
-        for (int k = 0; k < 256; ++k) {
-            cum[k] = c;
-            c += f[k];
-        }
+    extern __shared__ __align__(16) unsigned char rans_smem[];
+    uint2* tab = reinterpret_cast<uint2*>(rans_smem);
+    uint2* ring = reinterpret_cast<uint2*>(rans_smem + kRansTabBytes);
+    uint32_t* syms = reinterpret_cast<uint32_t*>(rans_smem + kRansTabBytes + kRansRingBytes);
+    uint8_t* sym = rans_smem + kRansTabBytes + kRansRingBytes + kRansSymBytes;
+    uint32_t* wsum = reinterpret_cast<uint32_t*>(sym + F3DZ_PROB_SCALE);   // [2][8]
+    uint32_t* pos = wsum + 16;                                              // [2]
+    const int t = blockIdx.x, tid = threadIdx.x, h = tid - 32;
+    const uint8_t* row = stream + (size_t)t * cap;
+    const uint32_t len = lens[t];
+    const uint32_t* ex = extras + (size_t)t * ecap;
+    int32_t* dt = d + (size_t)t * F3DZ_TILE_PX;
+
+    // the tables (a helper a symbol) and the ring's first fill
+    uint32_t par = 0, fill = rans_fill_end(4u);
+    if (h >= 0) {
+        const uint32_t f = freq[(size_t)t * 256 + h];
+        uint32_t total;
+        const uint32_t cum = helper_scan(f, wsum, total);
+        par = 1;
+        rans_fill_fast((uint32_t)h, f, cum, tab, sym);
+        for (uint32_t w = h; w < fill; w += kRansHelpers)
+            ring[w & (F3DZ_RING_WORDS - 1u)] = rans_ring_entry(row, len, (uint32_t)cap, w);
+        if (h == 0) pos[0] = 4u;
     }
     __syncthreads();
-    rans_fill((uint32_t)s, f[s], cum[s], tab);
-    __syncthreads();
-    if (s == 0)
-        rans_chain(tab, stream + (size_t)t * cap, lens[t], (uint32_t)cap,
-                   extras + (size_t)t * ecap, ecap, F3DZ_TILE_PX, d + (size_t)t * F3DZ_TILE_PX);
+    if (ring[0].x < F3DZ_RANS_LO) {   // the first state: the general step (block-uniform)
+        if (tid == 0) rans_chain(tab, sym, row, len, (uint32_t)cap, ex, ecap, F3DZ_TILE_PX, dt);
+        return;
+    }
+    RansFast c = rans_fast_start(ring);
+    uint32_t carry = 0;   // escapes in the chunks drained so far
+    for (uint32_t k = 0; k <= kRansChunks; ++k) {
+        if (tid == 0) {
+            if (k < kRansChunks) {
+                rans_fast_chunk(rans_smem, sym, ring, c, syms + (k & 1u) * (F3DZ_CHUNK / 4u),
+                                F3DZ_CHUNK / 4u);
+                pos[(k + 1u) & 1u] = c.pb >> 3;
+            }
+        } else if (h >= 0) {
+            if (k < kRansChunks) {   // the ring for chunk k + 1
+                const uint32_t end = rans_fill_end(pos[k & 1u]);
+                for (uint32_t w = fill + h; w < end; w += kRansHelpers)
+                    ring[w & (F3DZ_RING_WORDS - 1u)] = rans_ring_entry(row, len, (uint32_t)cap, w);
+                fill = end > fill ? end : fill;
+            }
+            if (k > 0) {             // drain chunk k - 1
+                const uint32_t* in = syms + ((k - 1u) & 1u) * (F3DZ_CHUNK / 4u);
+                int32_t* out = dt + (size_t)(k - 1u) * F3DZ_CHUNK;
+                for (uint32_t q = 0; q < kRansSubs; ++q) {
+                    const uint32_t g = q * kRansHelpers + h;
+                    const uint32_t v = in[g];
+                    uint32_t total;
+                    const uint32_t before = helper_scan(rans_escapes(v), wsum + 8 * par, total);
+                    par ^= 1u;
+                    int4 o;
+                    rans_drain_word(v, carry + before, ex, (uint32_t)ecap,
+                                    reinterpret_cast<int32_t*>(&o));
+                    carry += total;
+                    reinterpret_cast<int4*>(out)[g] = o;
+                }
+            }
+        }
+        __syncthreads();
+    }
 }
 
 // The tile in four passes of kMedRows rows: load the pass's residuals into
@@ -129,10 +226,32 @@ extern "C" {
 // extras (T, ecap), ecap, T, d (T, 65536) int32, stream)
 int f3d_rans_decode(const uint8_t* stream, const uint32_t* lens, int cap, const uint32_t* freq,
                     const uint32_t* extras, int ecap, int n_tiles, int32_t* d, void* cs) {
-    if (n_tiles > 0)
-        rans_kernel<<<n_tiles, 256, 0, (cudaStream_t)cs>>>(stream, lens, cap, freq, extras, ecap,
-                                                           d);
+    if (n_tiles > 0) {
+        cudaFuncSetAttribute(rans_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)kRansSmem);
+        rans_kernel<<<n_tiles, kRansThreads, kRansSmem, (cudaStream_t)cs>>>(
+            stream, lens, cap, freq, extras, ecap, d);
+    }
     return (int)cudaGetLastError();
+}
+
+// C1 entropy's kernel: out = {registers a thread, local (spilled) bytes a
+// thread, resident blocks an SM, shared memory bytes a block}
+int f3d_rans_attrs(int* out) {
+    cudaError_t e = cudaFuncSetAttribute(rans_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)kRansSmem);
+    if (e != cudaSuccess) return (int)e;
+    cudaFuncAttributes at;
+    e = cudaFuncGetAttributes(&at, rans_kernel);
+    if (e != cudaSuccess) return (int)e;
+    int resident = 0;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, rans_kernel, kRansThreads,
+                                                      kRansSmem);
+    out[0] = at.numRegs;
+    out[1] = (int)at.localSizeBytes;
+    out[2] = resident;
+    out[3] = (int)(kRansSmem + at.sharedSizeBytes);
+    return (int)e;
 }
 
 // C1 reconstruction: (d (T, 65536) int32, T, ntx, width, step, out (H, W)

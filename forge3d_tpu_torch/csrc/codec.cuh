@@ -20,6 +20,12 @@
 
 #include <stdint.h>
 
+#ifndef __CUDACC__
+struct uint2 {     // CUDA's vector type, for the host build of the tests
+    uint32_t x, y;
+};
+#endif
+
 #ifndef F3D_HD
 #ifdef __CUDACC__
 #define F3D_HD __host__ __device__ __forceinline__
@@ -34,21 +40,6 @@
 #define F3DZ_PROB_SCALE (1u << F3DZ_PROB_BITS)
 #define F3DZ_RANS_LO (1u << 23)          // the renormalisation bound
 #define F3DZ_ESCAPE 255u                 // token of a residual carried in the extras
-
-// One tile's decode table, a slot a word: the symbol in bits 24-31, its
-// frequency less one in bits 12-23 and the slot's offset in the symbol's
-// run (slot - cum[s]) in bits 0-11. One lookup then gives everything a step
-// needs: slot2sym[slot], freq[s] and slot - cum[s] of JAX's step.
-F3D_HD uint32_t rans_entry(uint32_t sym, uint32_t freq, uint32_t offset) {
-    return (sym << 24) | ((freq - 1u) << 12) | offset;
-}
-
-// Fill symbol s's run of the table, slots cum .. cum + freq - 1 (np.repeat
-// of JAX's host parse); the host checked that the frequencies sum to 4096.
-F3D_HD void rans_fill(uint32_t s, uint32_t freq, uint32_t cum, uint32_t* tab) {
-    for (uint32_t j = 0; j < freq && cum + j < F3DZ_PROB_SCALE; ++j)
-        tab[cum + j] = rans_entry(s, freq, j);
-}
 
 // JAX's zig-zag step: (z >> 1) ^ -(z & 1) in int32.
 F3D_HD int32_t unzigzag32(uint32_t z) {
@@ -113,16 +104,17 @@ F3D_HD uint32_t pulls(uint64_t x) {
     return (uint32_t)(j < 0 ? 0 : (j > 4 ? 4 : j));
 }
 
-// The tile's whole rANS chain, one token a step (JAX's rans_step under
-// lax.scan): decode the slot, at most four byte pulls to bring the state
-// back over 2^23, an escape takes extras[min(n_esc, ecap - 1)]; each token
-// is written to d as its zig-zag-decoded residual. The chain's critical
-// path is one shared-memory lookup, a multiply-add and the pulls' count:
-// no branch, and no load (the bytes come from the register buffer; an
-// escape's extra is loaded an escape ahead). `stream` is the tile's row of
+// The tile's whole rANS chain with the general step, one token a step
+// (JAX's rans_step under lax.scan): decode the slot (rans_fill_fast's
+// tables), at most four byte pulls to bring the state back over 2^23, an
+// escape takes extras[min(n_esc, ecap - 1)]; each token is written to d as
+// its zig-zag-decoded residual. rans_kernel runs it for a tile whose first
+// state is under 2^23 (rans_fast_step's comment). The pulls are counted
+// from the top set bit, the bytes come from the register buffer and an
+// escape's extra is loaded an escape ahead. `stream` is the tile's row of
 // `cap` bytes, a multiple of 4, 4-byte aligned.
-F3D_HD void rans_chain(const uint32_t* tab, const uint8_t* stream, uint32_t len, uint32_t cap,
-                       const uint32_t* extras, int ecap, int n_tokens, int32_t* d) {
+F3D_HD void rans_chain(const uint2* tab, const uint8_t* sym, const uint8_t* stream, uint32_t len,
+                       uint32_t cap, const uint32_t* extras, int ecap, int n_tokens, int32_t* d) {
     ByteBuffer in;
     in.init(stream, len, cap);
     uint32_t state = in.peek();
@@ -132,9 +124,10 @@ F3D_HD void rans_chain(const uint32_t* tab, const uint8_t* stream, uint32_t len,
     uint32_t extra = extras[0];
     for (int i = 0; i < n_tokens; ++i) {
         const uint32_t next = in.peek();
-        const uint32_t e = tab[state & (F3DZ_PROB_SCALE - 1u)];
-        const uint32_t s = e >> 24;
-        state = (((e >> 12) & 0xFFFu) + 1u) * (state >> F3DZ_PROB_BITS) + (e & 0xFFFu);
+        const uint32_t slot = state & (F3DZ_PROB_SCALE - 1u);
+        const uint2 e = tab[slot];
+        const uint32_t s = sym[slot];
+        state = e.x * (state >> F3DZ_PROB_BITS) + e.y;
         const uint64_t x = ((uint64_t)state << 32) | next;
         const uint32_t j = pulls(x);
         state = (uint32_t)(x >> (32u - 8u * j));
@@ -143,6 +136,161 @@ F3D_HD void rans_chain(const uint32_t* tab, const uint8_t* stream, uint32_t len,
         d[i] = unzigzag32(esc ? extra : s);
         n_esc += esc ? 1u : 0u;
         if (esc) extra = extras[n_esc < last ? n_esc : last];
+    }
+}
+
+// ---------------------------------------------------------------------------
+// The staged chain (rans_kernel's fast path). Once the state is 2^23 or
+// more at a step's start, the new state freq * (x >> 12) + slot - cum is
+// 2^11 or more, so two byte pulls always bring it back over 2^23: every step
+// takes 0, 1 or 2 pulls, decided by two compares on the 32-bit state, and
+// the state stays 2^23 or more. A stream whose first state is at least 2^23
+// (every encoder's flushed state is) runs this step from its first token;
+// any other takes rans_chain's general step.
+//
+// The stream comes from a ring in shared memory, which the block's helper
+// threads fill ahead of the chain: entry i holds the stream's big-endian
+// words i and i + 1, zero at and past `len`, so one 64-bit load gives any
+// four bytes. The chain keeps the next 8 bytes in two registers and loads
+// the 4 after them beside each step. Its symbols go to a ring of bytes,
+// F3DZ_CHUNK tokens a chunk; the helpers substitute the escapes, zig-zag
+// decode and store them a chunk behind the chain.
+// ---------------------------------------------------------------------------
+
+#define F3DZ_CHUNK 2048u                  // tokens a chunk (divides 65,536)
+#define F3DZ_RING_WORDS 4096u             // the stream ring's entries (a power of two)
+
+// The tile's stream word w (bytes 4w .. 4w + 3) as a big-endian word, the
+// bytes at or past len zero, as JAX pulls them. `row` is `cap` bytes, 4-byte
+// aligned, cap a multiple of 4.
+F3D_HD uint32_t rans_stream_word(const uint8_t* row, uint32_t len, uint32_t cap, uint32_t w) {
+    const uint32_t b = 4u * w;
+    if (b >= len || b >= cap) return 0u;
+    const uint32_t v = ByteBuffer::bswap(reinterpret_cast<const uint32_t*>(row)[w]);
+    return len - b >= 4u ? v : v & ~(0xFFFFFFFFu >> (8u * (len - b)));
+}
+
+// The ring's entry for word w: words w and w + 1
+F3D_HD uint2 rans_ring_entry(const uint8_t* row, uint32_t len, uint32_t cap, uint32_t w) {
+    uint2 e;
+    e.x = rans_stream_word(row, len, cap, w);
+    e.y = rans_stream_word(row, len, cap, w + 1u);
+    return e;
+}
+
+// The end (exclusive) of the ring's fill that covers the next chunk, for a
+// chunk that starts at byte `pos`: the next chunk starts at most
+// 2 * F3DZ_CHUNK bytes on and reads the entries of the words up to
+// 2 * F3DZ_CHUNK + 6 bytes past its start (rans_fast_step's look-ahead).
+F3D_HD uint32_t rans_fill_end(uint32_t pos) { return (pos + 4u * F3DZ_CHUNK + 6u) / 4u + 1u; }
+
+// The top 32 bits of (hi:lo) << (sh mod 32): __funnelshift_l
+F3D_HD uint32_t rans_funnel(uint32_t lo, uint32_t hi, uint32_t sh) {
+#ifdef __CUDA_ARCH__
+    return __funnelshift_l(lo, hi, sh);
+#else
+    const uint32_t s = sh & 31u;
+    return s ? (hi << s) | (lo >> (32u - s)) : hi;
+#endif
+}
+
+// The fast chain's registers: the state, the byte offset of its slot's
+// entry in the table ((x & 0xfff) * 8), the stream's next 8 bytes (hi
+// first) and the position of hi's first byte, in bits.
+struct RansFast {
+    uint32_t x, off, hi, lo, pb;
+};
+
+// The table offset of the state whose top 32 bits (hi:nx) << sh gives
+F3D_HD uint32_t rans_slot_off(uint32_t hi, uint32_t nx, uint32_t sh) {
+    return rans_funnel(hi, nx, sh + 3u) & ((F3DZ_PROB_SCALE - 1u) << 3);
+}
+
+// One token: the slot's (freq, slot - cum) from `tab` (a byte-addressed
+// table of 8-byte entries) and its symbol from `sym`; the new state; the
+// pulls (0, 1 or 2) by two compares; each pull count's state and table
+// offset formed beside them by funnel shifts of the state and the window,
+// then selected; the window moved on by funnel shifts, its next word from
+// one load of the ring on the position alone. The chain is the lookup, the
+// multiply-add, a compare and two selects.
+F3D_HD uint32_t rans_fast_step(const unsigned char* tab, const uint8_t* sym, const uint2* ring,
+                               RansFast& c) {
+    const uint2 e = *reinterpret_cast<const uint2*>(tab + c.off);
+    const uint32_t s = sym[c.off >> 3];
+    const uint2 w = ring[((c.pb >> 5) + 2u) & (F3DZ_RING_WORDS - 1u)];   // bytes pos + 8 ..
+    const uint32_t r = rans_funnel(w.y, w.x, c.pb);
+    const uint32_t nx = e.x * (c.x >> F3DZ_PROB_BITS) + e.y;
+    const bool none = nx >= F3DZ_RANS_LO, one = nx >= (1u << 15);
+    const uint32_t o0 = rans_slot_off(c.hi, nx, 0u), o1 = rans_slot_off(c.hi, nx, 8u),
+                   o2 = rans_slot_off(c.hi, nx, 16u);
+    c.off = none ? o0 : (one ? o1 : o2);
+    const uint32_t x1 = rans_funnel(c.hi, nx, 8u), x2 = rans_funnel(c.hi, nx, 16u);
+    const uint32_t sh = none ? 0u : (one ? 8u : 16u);
+    c.x = none ? nx : (one ? x1 : x2);
+    const uint32_t hi = c.hi;
+    c.hi = rans_funnel(c.lo, hi, sh);
+    c.lo = rans_funnel(r, c.lo, sh);
+    c.pb += sh;
+    return s;
+}
+
+// The chain's registers at the tile's first token: the state from the
+// ring's first entry, the window from the next two
+F3D_HD RansFast rans_fast_start(const uint2* ring) {
+    RansFast c;
+    c.x = ring[0].x;
+    c.off = (c.x & (F3DZ_PROB_SCALE - 1u)) << 3;
+    c.hi = ring[1].x;
+    c.lo = ring[2].x;
+    c.pb = 32u;
+    return c;
+}
+
+// n_words * 4 tokens of the fast chain, their symbols packed four to a
+// word (token 4g + u in bits 8u .. 8u + 7 of word g)
+F3D_HD void rans_fast_chunk(const unsigned char* tab, const uint8_t* sym, const uint2* ring,
+                            RansFast& c, uint32_t* out, uint32_t n_words) {
+    for (uint32_t g = 0; g < n_words; ++g) {
+        uint32_t v = rans_fast_step(tab, sym, ring, c);
+        v |= rans_fast_step(tab, sym, ring, c) << 8;
+        v |= rans_fast_step(tab, sym, ring, c) << 16;
+        v |= rans_fast_step(tab, sym, ring, c) << 24;
+        out[g] = v;
+    }
+}
+
+// The escapes among a word's four symbols
+F3D_HD uint32_t rans_escapes(uint32_t v) {
+    uint32_t n = 0u;
+    for (uint32_t u = 0; u < 4u; ++u) n += ((v >> (8u * u)) & 0xFFu) == F3DZ_ESCAPE ? 1u : 0u;
+    return n;
+}
+
+// A word's four tokens as residuals: the escapes in it, in order, take
+// extras[min(rank, ecap - 1)] with rank counting on from `rank` (the
+// escapes before the word), then the zig-zag step
+F3D_HD void rans_drain_word(uint32_t v, uint32_t rank, const uint32_t* extras, uint32_t ecap,
+                            int32_t* out) {
+    for (uint32_t u = 0; u < 4u; ++u) {
+        const uint32_t s = (v >> (8u * u)) & 0xFFu;
+        uint32_t z = s;
+        if (s == F3DZ_ESCAPE) {
+            z = extras[rank < ecap - 1u ? rank : ecap - 1u];
+            ++rank;
+        }
+        out[u] = unzigzag32(z);
+    }
+}
+
+// One tile's decode tables for symbol s's run, slots cum .. cum + freq - 1
+// (np.repeat of JAX's host parse): (freq, slot - cum) in `tab` and the
+// symbol in `sym`, so one lookup gives JAX's freq[s] and slot - cum[s];
+// the host checked that the frequencies sum to 4096
+F3D_HD void rans_fill_fast(uint32_t s, uint32_t freq, uint32_t cum, uint2* tab, uint8_t* sym) {
+    for (uint32_t j = 0; j < freq && cum + j < F3DZ_PROB_SCALE; ++j) {
+        tab[cum + j].x = freq;
+        tab[cum + j].y = j;
+        sym[cum + j] = (uint8_t)s;
     }
 }
 

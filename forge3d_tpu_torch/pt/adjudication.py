@@ -387,6 +387,80 @@ _raster_frame.escaped = 0
 _raster_frame.blocked = 0
 
 
+def _warp_cost(cls, weights, layout):
+    """(lanes' work, the warps' issued work) of a (chunk, H, W) tensor of
+    per-(direction, pixel) work classes: a warp runs each class's code for
+    a direction if any of its lanes needs it, so it issues the class's
+    weight for all 32 lanes. Warps are 32 pixels of a row ("row") or 8x4
+    (K6's); pixels past the frame are idle lanes."""
+    c, h, w = cls[0].shape
+    wy, wx = (1, 32) if layout == "row" else (4, 8)
+    ph, pw = -h % wy, -w % wx
+    useful = issued = 0.0
+    for mask, weight in zip(cls, weights):
+        m = torch.nn.functional.pad(mask, (0, pw, 0, ph))
+        m = m.reshape(c, (h + ph) // wy, wy, (w + pw) // wx, wx)
+        useful += weight * float(m.sum())
+        issued += weight * 32.0 * float(m.any(4).any(2).sum())
+    return useful, issued
+
+
+def raster_work(width: int, height: int, device="cpu", weights=None) -> Dict[str, float]:
+    """The work of P4 raster at (width, height), counted from the plain
+    version's masks in its order: pixels that hit the scene and those whose
+    sun NEE is lit (cos_surf > 0); live directions of hit pixels that escape
+    and that hit the scene ("blocked"); of the blocked, those that hit the
+    ground, those with a plane-exit share (fp != 0) and those whose
+    secondary sun NEE is lit. With `weights` (escaped, blocked; the kernel's
+    blocked base, plane share, lit sun NEE) it adds the lane efficiency of
+    warps of a row of 32 pixels and of 8x4 pixels: the lanes' work over the
+    warps' issued work, for the parent's cost (escaped, blocked) and the
+    kernel's (escaped, base, plane, sun)."""
+    half = torch.full((height, width), 0.5, dtype=_F32, device=device)
+    ro, rd = _camera_rays(width, height, half, half)
+    t, kind = _nearest_hit(ro, rd)
+    hit = kind >= 0
+    pos, n, _, _ = _surface(ro, rd, t, kind)
+    sun = _c(_SUN_WI, pos)
+    so = pos + n * 1e-3
+    tvec, btvec = _tangent_basis(n)
+    quad = quadrature_table(device)
+    keys = ("escaped", "blocked", "blocked_ground", "plane_exit", "sun_lit")
+    out = {k: 0 for k in keys}
+    out["hits"] = int(hit.sum())
+    out["primary_lit"] = int((hit & (torch.clamp(_dot(n, sun.expand(n.shape)), min=0.0) > 0)).sum())
+    eff = {}
+    chunk = max(1, QUAD_CHUNK_ELEMENTS // max(1, width * height))
+    for q0 in range(0, quad.shape[0], chunk):
+        qc = quad[q0:q0 + chunk]
+        x, y, z = (qc[:, k, None, None, None] for k in range(3))
+        wi = _normalize(x * tvec + y * btvec + z * n)
+        live = (torch.clamp(_dot(n, wi), min=0.0) > 0.0) & hit
+        t2, kind2 = _nearest_hit(so.expand(wi.shape), wi)
+        p2 = so + t2[..., None] * wi
+        n2 = _c([0.0, 1.0, 0.0], p2).expand(p2.shape)
+        for i in range(3):
+            n2 = torch.where((kind2 == i)[..., None], _normalize(p2 - _c(SPHERES[i, :3], p2)), n2)
+        fp = torch.where(kind2 != 3, 0.5 * (1.0 - n2[..., 1]), 0.0)
+        esc = live & (kind2 < 0)
+        blk = live & (kind2 >= 0)
+        plane = blk & (fp != 0.0)
+        lit = blk & (torch.clamp(_dot(n2, sun.expand(n2.shape)), min=0.0) > 0.0)
+        for k, m in zip(keys, (esc, blk, blk & (kind2 == 3), plane, lit)):
+            out[k] += int(m.sum())
+        if weights is not None:
+            for model, cls, wts in (("parent", (esc, blk), weights[:2]),
+                                    ("kernel", (esc, blk, plane, lit),
+                                     (weights[0], *weights[2:]))):
+                for layout in ("row", "8x4"):
+                    u, i = _warp_cost(cls, wts, layout)
+                    a, b = eff.get((model, layout), (0.0, 0.0))
+                    eff[(model, layout)] = (a + u, b + i)
+    for (model, layout), (u, i) in eff.items():
+        out[f"lanes_{model}_{layout}"] = u / i if i else 1.0
+    return out
+
+
 def _sample_keys(key) -> np.ndarray:
     """(98, 2) uint32: the keys of one sample's draws, in the kernels'
     order: fold_in(kj, 0), fold_in(kj, 1), then fold_in(fold_in(kpath,

@@ -449,8 +449,20 @@ int f3d_hybrid_attrs(int* out) {
     out[0] = out[1] = out[2] = 0;   // no device function on the host
     return 0;
 }
+// P4 raster: 16x16 tiles in the kernel's lane order, ragged edges skipped
 int f3d_adj_raster(const AdjArgs* a, const float* quad, unsigned char* rgba, float* hdr, void*) {
-    for (int i = 0; i < a->width * a->height; ++i) adj_raster_pixel(*a, quad, i, rgba, hdr);
+    const int tiles_x = (a->width + 15) / 16, tiles = tiles_x * ((a->height + 15) / 16);
+    for (int blk = 0; blk < tiles; ++blk)
+        for (int t = 0; t < 256; ++t) {
+            const int x = (blk % tiles_x) * 16 + ((t >> 5) & 1) * 8 + (t & 7);
+            const int y = (blk / tiles_x) * 16 + (t >> 6) * 4 + ((t & 31) >> 3);
+            if (x < a->width && y < a->height)
+                adj_raster_pixel(*a, quad, y * a->width + x, rgba, hdr);
+        }
+    return 0;
+}
+int f3d_adj_raster_attrs(int* out) {
+    out[0] = out[1] = out[2] = 0;   // no device function on the host
     return 0;
 }
 int f3d_adj_pt(const AdjArgs* a, const uint32_t* keys, unsigned char* rgba, float* hdr, void*) {
@@ -668,23 +680,84 @@ int f3d_guide_sample(const GuideArgs* g, const float* hist, const float* px, con
     }
     return 0;
 }
-// C1: a tile at a time, the table built as the block builds it; the
-// reconstruction in raster order (each value needs only its left, up and
-// up-left neighbours, which the kernel's wavefront also has computed)
+// C1: a tile at a time, as the block runs it: the tables (a helper a
+// symbol), the ring's first fill, then the general chain, or each iteration
+// k of the staged loop with its three parts one after the other: the ring
+// filled for chunk k + 1, chunk k - 1 drained (the helpers' scan a serial
+// prefix), and the chain's chunk k. `chain_first` runs the chain's chunk
+// first: the block's barrier allows either order, so both must decode alike.
+// The reconstruction in raster order (each value needs only its left, up
+// and up-left neighbours, which the kernel's wavefront also has computed).
+static void rans_tile_host(const uint8_t* row, uint32_t len, uint32_t cap, const uint32_t* f,
+                           const uint32_t* ex, uint32_t ecap, int32_t* dt, bool chain_first) {
+    std::vector<uint2> tab(F3DZ_PROB_SCALE);
+    std::vector<uint8_t> sym(F3DZ_PROB_SCALE);
+    std::vector<uint2> ring(F3DZ_RING_WORDS);
+    std::vector<uint32_t> syms(2 * F3DZ_CHUNK / 4);
+    const unsigned char* tabb = reinterpret_cast<const unsigned char*>(tab.data());
+    uint32_t cum = 0;
+    for (uint32_t s = 0; s < 256; ++s) {
+        rans_fill_fast(s, f[s], cum, tab.data(), sym.data());
+        cum += f[s];
+    }
+    uint32_t fill = rans_fill_end(4u);
+    for (uint32_t w = 0; w < fill; ++w)
+        ring[w & (F3DZ_RING_WORDS - 1u)] = rans_ring_entry(row, len, cap, w);
+    if (ring[0].x < F3DZ_RANS_LO) {
+        rans_chain(tab.data(), sym.data(), row, len, cap, ex, (int)ecap, F3DZ_TILE_PX, dt);
+        return;
+    }
+    RansFast c = rans_fast_start(ring.data());
+    uint32_t pos[2] = {4u, 0u}, carry = 0;
+    const uint32_t chunks = F3DZ_TILE_PX / F3DZ_CHUNK, words = F3DZ_CHUNK / 4u;
+    for (uint32_t k = 0; k <= chunks; ++k) {
+        const bool run = k < chunks;
+        if (run && chain_first) {
+            rans_fast_chunk(tabb, sym.data(), ring.data(), c, syms.data() + (k & 1u) * words,
+                            words);
+            pos[(k + 1u) & 1u] = c.pb >> 3;
+        }
+        if (run) {
+            const uint32_t end = rans_fill_end(pos[k & 1u]);
+            for (uint32_t w = fill; w < end; ++w)
+                ring[w & (F3DZ_RING_WORDS - 1u)] = rans_ring_entry(row, len, cap, w);
+            fill = end > fill ? end : fill;
+        }
+        if (k > 0)
+            for (uint32_t g = 0; g < words; ++g) {
+                const uint32_t v = syms[((k - 1u) & 1u) * words + g];
+                rans_drain_word(v, carry, ex, ecap, dt + (size_t)(k - 1u) * F3DZ_CHUNK + 4u * g);
+                carry += rans_escapes(v);
+            }
+        if (run && !chain_first) {
+            rans_fast_chunk(tabb, sym.data(), ring.data(), c, syms.data() + (k & 1u) * words,
+                            words);
+            pos[(k + 1u) & 1u] = c.pb >> 3;
+        }
+    }
+}
+static void rans_decode_host(const uint8_t* stream, const uint32_t* lens, int cap,
+                             const uint32_t* freq, const uint32_t* extras, int ecap, int n_tiles,
+                             int32_t* d, bool chain_first) {
+    for (int t = 0; t < n_tiles; ++t)
+        rans_tile_host(stream + (size_t)t * cap, lens[t], (uint32_t)cap, freq + (size_t)t * 256,
+                       extras + (size_t)t * ecap, (uint32_t)ecap, d + (size_t)t * F3DZ_TILE_PX,
+                       chain_first);
+}
 int f3d_rans_decode(const uint8_t* stream, const uint32_t* lens, int cap, const uint32_t* freq,
                     const uint32_t* extras, int ecap, int n_tiles, int32_t* d, void*) {
-    std::vector<uint32_t> tab(F3DZ_PROB_SCALE);
-    for (int t = 0; t < n_tiles; ++t) {
-        const uint32_t* f = freq + (size_t)t * 256;
-        uint32_t c = 0;
-        for (int s = 0; s < 256; ++s) {
-            rans_fill((uint32_t)s, f[s], c, tab.data());
-            c += f[s];
-        }
-        rans_chain(tab.data(), stream + (size_t)t * cap, lens[t], (uint32_t)cap,
-                   extras + (size_t)t * ecap, ecap, F3DZ_TILE_PX, d + (size_t)t * F3DZ_TILE_PX);
-    }
+    rans_decode_host(stream, lens, cap, freq, extras, ecap, n_tiles, d, false);
     return 0;
+}
+int f3d_rans_attrs(int* out) {
+    out[0] = out[1] = out[2] = out[3] = 0;   // no device function on the host
+    return 0;
+}
+// test entry: C1 entropy with each iteration's chain chunk run first
+void f3d_test_rans_chain_first(const uint8_t* stream, const uint32_t* lens, int cap,
+                               const uint32_t* freq, const uint32_t* extras, int ecap,
+                               int n_tiles, int32_t* d) {
+    rans_decode_host(stream, lens, cap, freq, extras, ecap, n_tiles, d, true);
 }
 int f3d_med_reconstruct(const int32_t* d, int n_tiles, int ntx, int width, double step,
                         float* out, void*) {
@@ -2537,6 +2610,40 @@ def test_adjudication_kernels(kernels):
     assert (adj.raster_lane.launches, adj.pt_lane.launches) == (before[0] + 1, before[1] + 1)
 
 
+# P4 raster in 16x16 tiles at a ragged size and at a whole-tile one, both
+# with ground hits, back-facing secondaries (whose sun NEE the kernel skips)
+# and unlit primaries: the same gates as test_adjudication_kernels
+@pytest.mark.parametrize("size", [(33, 17), (32, 16)], ids=["33x17", "32x16"])
+def test_adjudication_raster_tiles(kernels, size):
+    from forge3d_tpu_torch.pt import adjudication as adj
+
+    w, h = size
+    work = adj.raster_work(w, h, kernels)
+    assert work["blocked_ground"] > 0 and work["plane_exit"] > 0
+    assert work["blocked"] > work["sun_lit"] > 0 and work["hits"] > work["primary_lit"] > 0
+    before = adj.raster_lane.launches
+    rk, hk = adj._raster_lane_kernel(w, h, kernels)
+    rp, hp = adj.raster_lane_plain(w, h, kernels)
+    assert close_frac(hp, hk) >= 0.995
+    assert float(((rk.int() - rp.int()).abs() <= 1).all(-1).double().mean()) >= 0.995
+    assert adj.raster_lane.launches == before + 1
+
+
+def test_adjudication_raster_work_counts():
+    """raster_work counts the plain frame's own hits, escaped and blocked
+    directions, and splits the blocked ones into ground and plane-exit."""
+    from forge3d_tpu_torch.pt import adjudication as adj
+
+    fn = adj._raster_frame
+    fn.hits = fn.escaped = fn.blocked = 0
+    adj._raster_frame(24, 16)
+    work = adj.raster_work(24, 16, weights=(180, 520, 230, 130, 160))
+    assert (work["hits"], work["escaped"], work["blocked"]) == (fn.hits, fn.escaped, fn.blocked)
+    assert work["blocked_ground"] + work["plane_exit"] == work["blocked"]
+    for k in ("lanes_parent_row", "lanes_parent_8x4", "lanes_kernel_row", "lanes_kernel_8x4"):
+        assert 0.0 < work[k] <= 1.0
+
+
 # E8: each stage of the step and the march against its plain version
 def smoke_case(device, jacobi):
     from forge3d_tpu_torch.ops import smoke as O
@@ -2874,3 +2981,82 @@ def test_codec_kernels(kernels, case):
     assert np.array_equal(out.cpu().numpy().view(np.uint32),
                           f3dz.decompress_dem(blob).view(np.uint32))
     assert (fd.rans_decode.launches, fd.med_reconstruct.launches) == (before[0] + 1, before[1] + 1)
+
+
+# C1 entropy on synthetic pages, bit for bit against the plain chain: the
+# staged chain's ring wraps several times a tile (up to ~100 KB of stream,
+# 1- and 2-pull steps from symbols of frequency 1), rows hold bytes past
+# `len`, and the escapes' extras (1,000 or more) decode to residuals no
+# symbol gives, so |d| >= 500 marks an escape
+def rans_freq(rng, esc):
+    w = rng.gamma(0.3, size=255)
+    f = np.floor(w / w.sum() * (4096 - esc - 255)).astype(np.int64) + 1
+    f[np.argmax(f)] += 4096 - esc - int(f.sum())
+    return np.concatenate([f, [esc]]).astype(np.int32)
+
+
+RANS_CASES = {   # per tile: (stream length, escape frequency, first two bytes), ecap
+    "general": ([(90000, 40, (0x00, 0x3F))], 8),         # first state under 2^23
+    "short": ([(3, 100, (0x91, 0x07))], 4),               # len 3, bytes past it
+    "clamped": ([(100000, 1500, None)], 3),               # far more escapes than ecap
+    "last_escape": ([(100000, 3000, None)], 64),          # the last token an escape
+    "two_tiles": ([(90000, 200, None), (20000, 600, None)], 16),
+}
+
+
+def rans_case(name):
+    tiles, ecap = RANS_CASES[name]
+    rng = np.random.default_rng(sorted(RANS_CASES).index(name) + 17)
+    cap = -(-max(n for n, _, _ in tiles) // 4) * 4 + 8
+    stream = rng.integers(0, 256, (len(tiles), cap), dtype=np.uint8)
+    lens = np.array([n for n, _, _ in tiles], np.int32)
+    freq = np.stack([rans_freq(rng, esc) for _, esc, _ in tiles])
+    for t, (_, _, first) in enumerate(tiles):
+        if first is not None:
+            stream[t, :2] = first
+        else:
+            stream[t, 0] |= 0x80
+    extras = rng.integers(1000, 2 ** 31, (len(tiles), ecap), dtype=np.int64).astype(np.int32)
+    return tuple(torch.as_tensor(a) for a in (stream, lens, freq, extras))
+
+
+def rans_first_state(stream, lens, t):
+    row = stream[t].tolist()
+    return sum((row[i] if i < int(lens[t]) else 0) << (24 - 8 * i) for i in range(4))
+
+
+@pytest.mark.parametrize("name", sorted(RANS_CASES))
+def test_rans_kernel_cases(kernels, name):
+    from forge3d_tpu_torch.codec import f3dz_device as fd
+
+    args = rans_case(name)
+    ref = fd.rans_decode_plain(*args)
+    first = rans_first_state(args[0], args[1], 0)
+    assert (first < 1 << 23) == (name == "general")
+    esc = ref.abs() >= 500
+    if name in ("clamped", "last_escape"):
+        assert int(esc[0].sum()) > args[3].shape[1]
+    if name == "last_escape":
+        assert bool(esc[0, -1])
+    before = fd.rans_decode.launches
+    got = fd._rans_kernel(*(a.to(kernels) for a in args))
+    assert torch.equal(got.cpu(), ref)
+    assert fd.rans_decode.launches == before + 1
+
+
+@pytest.mark.parametrize("name", sorted(RANS_CASES))
+def test_rans_chain_first_order(host_lib, name):
+    """The staged loop with each iteration's chain chunk run before the
+    helpers' fill and drain decodes as the other order does: the ring's
+    fill is ready a chunk ahead and never overwrites a word the chain reads."""
+    from forge3d_tpu_torch.codec import f3dz_device as fd
+
+    stream, lens, freq, extras = rans_case(name)
+    out = torch.empty((stream.shape[0], fd.TILE * fd.TILE), dtype=torch.int32)
+    fn = host_lib.f3d_test_rans_chain_first
+    fn.restype = None
+    fn(*(ctypes.c_void_p(a.data_ptr()) for a in (stream, lens)), ctypes.c_int(stream.shape[1]),
+       ctypes.c_void_p(freq.data_ptr()), ctypes.c_void_p(extras.data_ptr()),
+       ctypes.c_int(extras.shape[1]), ctypes.c_int(stream.shape[0]),
+       ctypes.c_void_p(out.data_ptr()))
+    assert torch.equal(out, fd.rans_decode_plain(stream, lens, freq, extras))
