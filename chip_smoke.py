@@ -12,7 +12,9 @@ march (1080p and 7200^2) and K6 (both instantiations, split by ray) at
 the main path's shapes and the day cycle's three hours, without gates
 (see probe()); `--probe E4R1` stops after P3, `--probe R1P3` runs only R1
 and P3, `--probe C1P4` only C1 entropy (1024^2 and 4096^2 at max_error
-0.1) and P4 raster (512^2), each with a sha256 of its outputs. Copied
+0.1) and P4 raster (512^2), `--probe P6P4` only P6 (march, eval and normal on
+phase 22's landmark), P3 and P4 pt (512^2, spp 64), each with a sha256 of
+its outputs. Copied
 into a checkout of an earlier tree and run there, it times that tree's
 kernels, so two designs can be compared on one card.
 
@@ -149,11 +151,16 @@ Phases (one line each; any failure exits non-zero):
  22. pt kernels -- the SDF tape P6 on the landmark CSG scene (16 primitives,
                 15 operations, every kind at least twice, on bench.py's DEM):
                 evaluate and normal on 2.07 M seeded points, the march on
-                bench.py's 1080p camera rays; the TLAS walk P5 on 64 instances
+                bench.py's 1080p camera rays, with the march kernel's
+                registers and resident blocks; a deep tape (stack 13) and two
+                tapes longer than the shared-memory copy holds (the
+                global-memory instantiation) through SdfScene's entry points,
+                counted by instantiation; the TLAS walk P5 on 64 instances
                 (the town four times, a box sixty), camera rays and sun rays
                 from their hits (trace_tlas, the main path, counted); P4's
-                raster and PT lanes at 256x128 and 128x128; each against its
-                plain version on the card at 256x128 and full size, and timed;
+                raster and PT lanes at 256x128 and 128x128 (PT bit for bit);
+                each against its plain version on the card at 256x128 and
+                full size, and timed;
  23. hybrid render -- hybrid_render at 1080p over bench.py's DEM, the town
                 and the landmark: hybrid cold (the host pyramid and BVH) and
                 twice warm, bit-identical, P3 once a render and nothing else
@@ -178,7 +185,10 @@ Phases (one line each; any failure exits non-zero):
                 on the ground and with an unlit sun NEE, the lane efficiency
                 of rows of 32 and of 8x4 warps), its registers and resident
                 blocks, and its bound from the kernel's own work beside the
-                count of every sun test and plane exit;
+                count of every sun test and plane exit; P4 PT bit for bit,
+                its registers, resident blocks and lanes, and its lanes'
+                share of the warps' vertex steps and iterations by design
+                (pt_work, in rows of 32 and 8x4 warps);
  25. post kernels -- each E2 kernel (the separable blur, the pointwise
                 stages, SSR, TAA, SSAO, the rect lights) against its plain
                 version on the card at configuration K's 1080p shapes, on K's
@@ -673,7 +683,10 @@ EARLIER = {"E4 vector_coverage": "a-launch-a-layer, every-primitive design 29.64
            "K6 frame_step": "row-of-256 design 1.6946",
            "K6 frame_step (hybrid)": "row-of-256 design 3.6083",
            "C1 entropy": "one-thread, global-stream chain design 7.2561",
-           "P4 raster": "thread-a-pixel, row-of-128 design 8.6544"}
+           "P4 raster": "thread-a-pixel, row-of-128 design 8.6544",
+           "P6 sdf_eval": "unpacked-tape, local-stack design 0.1506",
+           "P6 sdf_march": "unpacked-tape, local-stack design 2.4975",
+           "P4 pt": "thread-a-pixel, sample-by-sample design 5.2431"}
 
 
 def kernel_row(name, launches, err, ms, plain_ms, bound_ms, bound_by):
@@ -3379,6 +3392,10 @@ LANDMARK_OPS = (("smooth_union", "intersect", "subtract", "smooth_intersect", "u
 REPLACES.update({
     "P6 sdf_eval": ("forge3d_tpu_torch/csrc/pt.cu", "forge3d_tpu/ops/sdf.py:223 (tape loop :334)"),
     "P6 sdf_march": ("forge3d_tpu_torch/csrc/pt.cu", "forge3d_tpu/ops/sdf.py:348 (loop :382)"),
+    "P6 sdf_eval (global tape)": ("forge3d_tpu_torch/csrc/pt.cu",
+                                  "forge3d_tpu/ops/sdf.py:223 (tape loop :334)"),
+    "P6 sdf_march (global tape)": ("forge3d_tpu_torch/csrc/pt.cu",
+                                   "forge3d_tpu/ops/sdf.py:348 (loop :382)"),
     "P5 trace_tlas": ("forge3d_tpu_torch/csrc/pt.cu", "forge3d_tpu/ops/tlas.py:86"),
     "P3 hybrid_render": ("forge3d_tpu_torch/csrc/pt.cu",
                          "forge3d_tpu/pt/hybrid.py:154 (_trace_all :77)"),
@@ -3443,6 +3460,119 @@ def landmark_sdf(dem, device, seed=11, plane=False):
     if plane:
         b.union(level[0], b.add_plane((0.0, 1.0, 0.0), float(dem.min()) - 10.0, 250))
     return b.build(device=device)
+
+
+def p6_tapes(dem, device):
+    """Tapes beside the landmark (31 entries, stack 5), each over bench.py's
+    DEM about its centre: a right-deep chain of 12 unions of spheres and
+    boxes (25 entries, stack 13: the deep tape); a left-deep spine of 20
+    smooth unions of left-deep unions of 30 spheres (1,199 entries, stack 3)
+    and a balanced union of 520 spheres (1,039 entries, stack 10), both
+    longer than the shared-memory copy holds. Seeded."""
+    from forge3d_tpu_torch.ops.sdf import SdfSceneBuilder
+
+    rng = np.random.default_rng(23)
+    g = float(dem[512, 512])
+
+    def site():
+        x, z = rng.uniform(380.0, 644.0, 2)
+        return float(x), g + float(rng.uniform(0.0, 60.0)), float(z)
+
+    b = SdfSceneBuilder()
+    ids = [b.add_sphere(site(), float(rng.uniform(8.0, 20.0)), k + 1) if k % 2 else
+           b.add_box(site(), tuple(float(v) for v in rng.uniform(6.0, 16.0, 3)), k + 1)
+           for k in range(13)]
+    node = ids[-1]
+    for k in range(11, -1, -1):
+        node = b.union(ids[k], node, material_id=100 + k)
+    chain = b.build(device=device)
+    b = SdfSceneBuilder()
+    ids = [b.add_sphere(site(), float(rng.uniform(3.0, 9.0)), k + 1) for k in range(600)]
+    node = None
+    for j in range(20):
+        sub = ids[30 * j]
+        for k in range(1, 30):
+            sub = b.union(sub, ids[30 * j + k], material_id=1000 + k)
+        node = sub if node is None else b.smooth_union(node, sub, 4.0, material_id=2000 + j)
+    spine = b.build(device=device)
+    b = SdfSceneBuilder()
+    level = [b.add_sphere(site(), float(rng.uniform(3.0, 9.0)), k + 1) for k in range(520)]
+    while len(level) > 1:
+        nxt = [b.union(level[i], level[i + 1], material_id=3000 + i)
+               for i in range(0, len(level) - 1, 2)]
+        level = nxt + level[len(level) - len(level) % 2:]
+    balanced = b.build(device=device)
+    return {"chain": chain, "spine": spine, "balanced": balanced}
+
+
+def p6_instances(dem, dev, ro, rd):
+    """P6's eval, normal and march kernels on p6_tapes' tapes, each driven
+    through SdfScene's entry points (evaluate, normal, raymarch at max_steps
+    48, tmax 1e6) on 256x128 points and camera rays with the counts set to 0
+    just before, then held bit for bit against the plain versions and timed.
+    Returns the global-memory instantiation's rows from the spine's tape,
+    {row name: (max_err, ms, plain_ms, bound_ms, bound_by)}, and {row name:
+    launches}."""
+    import ctypes
+
+    import torch
+
+    from forge3d_tpu_torch import _kernels
+    from forge3d_tpu_torch.ops import sdf as sd
+
+    n = SMALL_W * SMALL_H
+    rng = np.random.default_rng(29)
+    pts = [torch.as_tensor(c, device=dev) for c in np.stack(
+        [rng.uniform(380, 644, n), rng.uniform(-20, 140, n),
+         rng.uniform(380, 644, n)]).astype(np.float32)]
+    r_o, r_d = [c[:n].contiguous() for c in ro], [c[:n].contiguous() for c in rd]
+    # the 256x128 rays of the frame's centre, where the tapes stand
+    cx, cy = REAL_W // 2 - SMALL_W // 2, REAL_H // 2 - SMALL_H // 2
+    sel = (torch.arange(SMALL_H, device=dev)[:, None] + cy) * REAL_W + (
+        torch.arange(SMALL_W, device=dev)[None, :] + cx)
+    r_d = [c[sel.reshape(-1)].contiguous() for c in rd]
+    rows, launches = {}, {}
+    for tag, scene in p6_tapes(dem, dev).items():
+        inst = sd.kernel_instance(scene)
+        sd.sdf_eval.instances.clear()
+        sd.sdf_march.instances.clear()
+        d, m = scene.evaluate(*pts)                           # the main path ...
+        nrm = scene.normal(*pts)
+        hit = scene.raymarch(r_o, r_d, 1e-3, 1e6, 48, 1e-3)   # ... counted
+        got_e, got_m = dict(sd.sdf_eval.instances), dict(sd.sdf_march.instances)
+        require(got_e == {inst: 2} and got_m == {inst: 1},
+                f"P6 on the {tag} tape launched {got_e}, {got_m}, not {inst} twice and once")
+        plain_e, dp = wall_ms(lambda: sd.sdf_eval_plain(scene, *pts))
+        compare_exact(f"P6 sdf_eval {tag}", dp, (d, m))
+        compare_exact(f"P6 sdf_normal {tag}", sd.sdf_normal_plain(scene, *pts, 1e-4), nrm)
+        sd.sdf_march_plain.steps = 0
+        plain_m, hp = wall_ms(lambda: sd.sdf_march_plain(scene, r_o, r_d, 1e-3, 1e6, 48, 1e-3))
+        compare_exact(f"P6 sdf_march {tag}", hp, hit)
+        steps = sd.sdf_march_plain.steps
+        attrs = (ctypes.c_int * 4)()
+        _kernels.check(_kernels.lib().f3d_sdf_march_attrs(ctypes.byref(scene.kernel_args()),
+                                                          attrs), "P6 attrs")
+        require(inst == ("shared tape" if attrs[3] else "global tape")
+                and inst == ("shared tape" if tag == "chain" else "global tape"),
+                f"the {tag} tape's instantiation")
+        ops = sdf_work(scene)
+        ms_e = cuda_ms(lambda: sd._sdf_eval_kernel(scene, *pts), 5)
+        ms_m = cuda_ms(lambda: sd._sdf_march_kernel(scene, r_o, r_d, 1e-3, 1e6, 48, 1e-3), 3)
+        b_e, by_e = bound(n * 20 + tensor_bytes(scene.packed), n * ops)
+        b_m, by_m = bound(n * 33 + tensor_bytes(scene.packed), steps * (ops + OPS_SDF_STEP))
+        if tag == "spine":
+            rows[f"P6 sdf_eval ({inst})"] = (0.0, ms_e, plain_e, b_e, by_e)
+            rows[f"P6 sdf_march ({inst})"] = (0.0, ms_m, plain_m, b_m, by_m)
+            launches[f"P6 sdf_eval ({inst})"] = got_e[inst]
+            launches[f"P6 sdf_march ({inst})"] = got_m[inst]
+        say("pt kernels", f"P6 {tag} tape ({scene.tape_len} entries, stack {scene.stack_depth}; "
+                          f"{inst}): eval, normal and march on {n} points and rays "
+                          f"bit-identical (hits {float(hp.hit.double().mean()):.4f}, {steps} "
+                          f"steps); eval {ms_e:.4f} ms (plain {plain_e:.1f}), march "
+                          f"{ms_m:.4f} ms (plain {plain_m:.1f}); the march kernel "
+                          f"{attrs[0]} registers, {attrs[1]} B local, {attrs[2]} blocks of "
+                          f"128 an SM")
+    return rows, launches
 
 
 def sdf_work(scene) -> float:
@@ -3515,6 +3645,10 @@ def phase_pt_kernels(dem):
     from forge3d_tpu_torch.ops import sdf as sd, tlas as tl
     from forge3d_tpu_torch.pt import adjudication as adj
 
+    import ctypes
+
+    from forge3d_tpu_torch import _kernels
+
     dev = torch.device("cuda")
     out = {}
     scene = landmark_sdf(dem, dev)
@@ -3563,8 +3697,17 @@ def phase_pt_kernels(dem):
     ms_m = cuda_ms(lambda: sd._sdf_march_kernel(scene, ro, rd, 1e-3, 1e6, 128, 1e-3), 5)
     b_m, by_m = bound(n_pts * (24 + 9), steps * (tape_ops + OPS_SDF_STEP))
     out["P6 sdf_march"] = (0.0, ms_m, plain_ms, b_m, by_m)
+    attrs = (ctypes.c_int * 4)()
+    _kernels.check(_kernels.lib().f3d_sdf_march_attrs(ctypes.byref(scene.kernel_args()), attrs),
+                   "P6 attrs")
+    require(sd.kernel_instance(scene) == "shared tape" and attrs[3] == 1,
+            "the landmark's tape takes the shared-memory instantiation")
     say("pt kernels", f"P6 sdf_march {n_pts} rays: kernel {ms_m:.4f} ms, plain "
-                      f"{plain_ms:.1f} ms, bound {b_m:.4f} ms ({by_m}), {steps} steps")
+                      f"{plain_ms:.1f} ms, bound {b_m:.4f} ms ({by_m}), {steps} steps, "
+                      f"{steps / n_pts:.2f} a ray; {sd.kernel_instance(scene)}: {attrs[0]} "
+                      f"registers, {attrs[1]} B local, {attrs[2]} blocks of 128 an SM")
+    rows6, p6_launches = p6_instances(dem, dev, ro, rd)
+    out.update(rows6)
 
     t0 = time.perf_counter()
     tlas = tlas_scene(dem, dev)
@@ -3614,12 +3757,13 @@ def phase_pt_kernels(dem):
         pk, qk = adj._pt_lane_kernel(w_, h_, spp, 7, dev)
         pplain_ms, (pp, qp) = wall_ms(lambda: adj.pt_lane_plain(w_, h_, spp, 7, dev))
         adj_compare("pt kernels", f"P4 pt {w_}x{h_} spp {spp}", pp, qp, pk, qk)
+        compare_exact(f"P4 pt {w_}x{h_} spp {spp}", (pp, qp), (pk, qk))
         say("pt kernels", f"P4 {w_}x{h_}: plain raster {plain_ms:.1f} ms, plain pt "
                           f"{pplain_ms:.1f} ms; kernels raster "
                           f"{cuda_ms(lambda: adj._raster_lane_kernel(w_, h_, dev), 3):.4f} ms, "
                           f"pt {cuda_ms(lambda: adj._pt_lane_kernel(w_, h_, spp, 7, dev), 3):.4f}"
                           f" ms")
-    return out, tlas_launches
+    return out, tlas_launches, p6_launches
 
 
 def adj_compare(phase, tag, rgba_p, hdr_p, rgba_k, hdr_k):
@@ -4036,7 +4180,32 @@ def phase_adjudication():
     adj._pt_sample.vertices = 0
     plain_p, (pp, qp) = wall_ms(lambda: adj.pt_lane_plain(W, H, spp, 7, dev))
     err_p = adj_compare("adjudication", f"P4 pt {W}^2 spp {spp}", pp, qp, pk, qk)
+    compare_exact(f"P4 pt {W}^2 spp {spp}", (pp, qp), (pk, qk))
     b_p, by_p = bound(W * H * 16 + spp * 98 * 8, adj._pt_sample.vertices * OPS_ADJ_VERTEX)
+    attrs = (ctypes.c_int * 4)()
+    _kernels.check(_kernels.lib().f3d_adj_pt_attrs(attrs), "P4 pt attrs")
+    # the lanes resident at once: the queue design's lanes (pt_work)
+    lanes = attrs[2] * attrs[3] * torch.cuda.get_device_properties(0).multi_processor_count
+    say("adjudication", f"P4 pt kernel: {attrs[0]} registers, {attrs[1]} B spilled, {attrs[2]} "
+                        f"blocks of {attrs[3]} an SM ({lanes} lanes resident; the kernel runs a "
+                        f"lane a pixel, the queue design of pt_work hands them the {W * H} "
+                        f"pixels)")
+    for layout in ("row", "8x4"):
+        t0 = time.perf_counter()
+        work = adj.pt_work(W, H, spp, 7, layout, lanes=lanes, device=dev)
+        require(work["vertices"] == adj._pt_sample.vertices,
+                "pt_work's vertices differ from the plain lane's")
+        say("adjudication", f"P4 pt work {W}^2 spp {spp}, warps of {layout} "
+                            f"({(time.perf_counter() - t0):.1f} s to count): "
+                            f"{work['vertices']} vertices, {work['iterations']} nearest-hit "
+                            f"steps, {work['pixels_sky']} pixels that shade none; lanes' share "
+                            f"of the warps' vertex steps / iterations, and the vertex steps "
+                            f"against the serial design's: " + "; ".join(
+                                f"{d} {work[d + '_vertex']:.4f} / {work[d + '_iter']:.4f}, "
+                                f"{work[d + '_steps']:.4f}"
+                                for d in ("serial", "regen", "hit_loop", "queue"))
+                            + " (CPU estimate at spp 16: 0.437 / 0.564 / 0.776 of the vertex "
+                              "steps for serial, regen, hit loop)")
     say("adjudication", f"P4 raster: kernel {ms_r:.4f} ms, plain {plain_r:.1f} ms, bound "
                         f"{b_r:.4f} ms ({by_r}); P4 pt: kernel {ms_p:.4f} ms, plain "
                         f"{plain_p:.1f} ms, bound {b_p:.4f} ms ({by_p}), "
@@ -5739,6 +5908,74 @@ def probe_p4(torch):
                  f"device alone); sha256 of rgba and HDR {h.hexdigest()}")
 
 
+def probe_p6(torch, dem):
+    """P6 on phase 22's landmark: the march on bench.py's 1080p camera rays,
+    eval and normal on the 2.07 M seeded points, each timed as launched and
+    queued behind a spin, with a sha256 of its outputs (and the march
+    kernel's build where the tree reports it)."""
+    import ctypes
+
+    from forge3d_tpu_torch import _kernels
+    from forge3d_tpu_torch.ops import sdf as sd
+
+    dev = torch.device("cuda")
+    scene = landmark_sdf(dem, dev)
+    ro, rd = flat_rays(REAL_W, REAL_H, dev)
+    rng = np.random.default_rng(17)
+    n = REAL_W * REAL_H
+    pts = [torch.as_tensor(c, device=dev) for c in np.stack(
+        [rng.uniform(256, 768, n), rng.uniform(-60, 140, n),
+         rng.uniform(256, 768, n)]).astype(np.float32)]
+    runs = (("march", lambda: sd._sdf_march_kernel(scene, ro, rd, 1e-3, 1e6, 128, 1e-3), 5),
+            ("eval", lambda: sd._sdf_eval_kernel(scene, *pts), 10),
+            ("normal", lambda: sd._sdf_normal_kernel(scene, *pts, 1e-4), 5))
+    for name, fn, reps in runs:
+        out = fn()
+        ms = cuda_ms(fn, reps)
+        alone = queued_ms(fn, reps)
+        h = hashlib.sha256()
+        for x in out:
+            h.update(x.cpu().numpy().tobytes())
+        say("probe", f"P6 sdf_{name} {REAL_W}x{REAL_H} (landmark): {ms:.4f} ms ({alone:.4f} "
+                     f"queued behind a spin, the device alone); sha256 {h.hexdigest()}")
+    attrs = getattr(_kernels.lib(), "f3d_sdf_march_attrs", None)
+    if attrs is not None:
+        out = (ctypes.c_int * 4)()
+        attrs(ctypes.byref(scene.kernel_args()), out)
+        say("probe", f"P6 sdf_march kernel (shared tape {out[3]}): {out[0]} registers, "
+                     f"{out[1]} B local, {out[2]} blocks of 128 an SM")
+    out = (ctypes.c_int * 3)()
+    _kernels.lib().f3d_hybrid_attrs(out)
+    say("probe", f"P3 hybrid kernel with the landmark: {out[0]} registers, {out[1]} B local, "
+                 f"{out[2]} blocks of 256 an SM")
+
+
+def probe_p4_pt(torch):
+    """P4 pt at 512^2, spp 64 (phase 24's): timed as launched and queued
+    behind a spin, with a sha256 of its rgba and HDR (and the kernel's build
+    where the tree reports it)."""
+    from forge3d_tpu_torch import _kernels
+    from forge3d_tpu_torch.pt import adjudication as adj
+
+    dev = torch.device("cuda")
+    fn = lambda: adj._pt_lane_kernel(512, 512, 64, 7, dev)  # noqa: E731
+    rgba, hdr = fn()
+    ms = cuda_ms(fn, 3)
+    alone = queued_ms(fn, 3)
+    h = hashlib.sha256(rgba.cpu().numpy().tobytes())
+    h.update(hdr.cpu().numpy().tobytes())
+    regs = ""
+    attrs = getattr(_kernels.lib(), "f3d_adj_pt_attrs", None)
+    if attrs is not None:
+        import ctypes
+
+        out = (ctypes.c_int * 4)()
+        attrs(out)
+        regs = f" {out[0]} registers, {out[1]} B spilled, {out[2]} blocks of {out[3]} an SM;"
+    say("probe", f"P4 pt 512x512 spp 64:{regs} {ms:.4f} ms ({alone:.4f} queued behind a spin, "
+                 f"the device alone); sha256 of rgba and HDR {h.hexdigest()}")
+
+
 def probe(torch, only=None):
     """`chip_smoke.py --probe`: E4 (probe_e4), R1 (probe_r1) and P3
     (probe_p3), then K2 and
@@ -5758,6 +5995,12 @@ def probe(torch, only=None):
     if only == "C1P4":
         probe_c1(torch)
         probe_p4(torch)
+        return
+    if only == "P6P4":
+        dem = bench_dem()
+        probe_p6(torch, dem)
+        probe_p3(torch, dem)
+        probe_p4_pt(torch)
         return
     dem = bench_dem()
     if only != "R1P3":
@@ -5862,13 +6105,15 @@ def main() -> int:
     for row in rows:
         if row["name"] == "K9 trace_mesh":
             row["launches"] += map_launches["K9 trace_mesh"]
-    pt, tlas_launches = phase_pt_kernels(dem)
+    pt, tlas_launches, p6_launches = phase_pt_kernels(dem)
     p3, hyb_launches = phase_hybrid(dem)
     p4, adj_launches = phase_adjudication()
     # P6's kernels run inside P3 on the main path: its launches are P3's
     # launches that marched the landmark
     rows.append(kernel_row("P6 sdf_eval", hyb_launches["P3 with P6"], *pt["P6 sdf_eval"]))
     rows.append(kernel_row("P6 sdf_march", hyb_launches["P3 with P6"], *pt["P6 sdf_march"]))
+    for kernel, n in p6_launches.items():     # the other instantiations, on their own tapes
+        rows.append(kernel_row(kernel, n, *pt[kernel]))
     rows.append(kernel_row("P5 trace_tlas", tlas_launches, *pt["P5 trace_tlas"]))
     rows.append(kernel_row("P3 hybrid_render", hyb_launches["P3 hybrid_render"], *p3))
     for kernel, vals in p4.items():

@@ -271,11 +271,10 @@ class ClipArgs(ctypes.Structure):
 
 
 class SdfArgs(ctypes.Structure):
-    """Mirror of `SdfArgs` in csrc/sdf.cuh (P6): the tape."""
+    """Mirror of `SdfArgs` in csrc/sdf.cuh (P6): the packed tape."""
 
-    _fields_ = [(n, _P) for n in ("is_op", "kind", "params", "smoothing", "material")] + [
-        ("tape_len", _I), ("stack_depth", _I), ("cull", _I), ("cull_lo", _F3),
-        ("cull_hi", _F3), ("cull_eps", _F)]
+    _fields_ = [("tape", _P), ("tape_len", _I), ("stack_depth", _I), ("cull", _I),
+                ("cull_lo", _F3), ("cull_hi", _F3), ("cull_eps", _F)]
 
 
 class TlasArgs(ctypes.Structure):
@@ -418,6 +417,8 @@ _SIGNATURES = {
     # (sdf, rox, roy, roz, rdx, rdy, rdz, n, tmin, tmax, max_steps, hit_eps,
     #  hit, t, mat, stream)
     "f3d_sdf_march": [ctypes.POINTER(SdfArgs)] + [_P] * 6 + [_I, _F, _F, _I, _F] + [_P] * 4,
+    # (sdf, out (registers, local bytes, resident blocks, shared tape))
+    "f3d_sdf_march_attrs": [ctypes.POINTER(SdfArgs), _P],
     # (tlas, rox, roy, roz, rdx, rdy, rdz, n, tmin, tmax, hit, t, inst, prim,
     #  u, v, stream)
     "f3d_trace_tlas": [ctypes.POINTER(TlasArgs)] + [_P] * 6 + [_I, _F, _F] + [_P] * 7,
@@ -433,6 +434,8 @@ _SIGNATURES = {
     "f3d_adj_raster_attrs": [_P],
     # (args, keys, rgba, hdr, stream)
     "f3d_adj_pt": [ctypes.POINTER(AdjArgs), _P, _P, _P, _P],
+    # (out (registers, spilled bytes, resident blocks, threads a block))
+    "f3d_adj_pt_attrs": [_P],
     # E2: (in, out, taps, radius, outer, n, inner, stream)
     "f3d_blur_axis": [_P, _P, _P, _I, _I, _I, _I, _P],
     # (mode, height, width, channels, a, b, c, d, out, p0..p5, stream)

@@ -19,6 +19,7 @@
 // sample, depth and draw (threefry-2x32, the key table built on the host),
 // sums its samples in order, and stops a path once it dies: every update
 // of JAX's masked loop is masked by `alive`, so nothing after that changes.
+// It runs as a hit loop (adj_pt_lane, below).
 
 #pragma once
 
@@ -410,73 +411,177 @@ F3D_HD float adj_uniform(const uint32_t* key, uint32_t idx) {
     return fmaxf(0.0f, f - 1.0f);
 }
 
-// _pt_sample for pixel i under one sample's keys (F3D_ADJ_KEYS pairs)
-F3D_HD V3 adj_pt_sample(const AdjArgs& a, const uint32_t* keys, int i) {
-    const int x = i % a.width, y = i / a.width;
-    const uint32_t idx = (uint32_t)i;
-    float jx = adj_uniform(keys, idx), jy = adj_uniform(keys + 2, idx);
-    V3 ro = vld(a.cam_o);
-    V3 rd = adj_camera_ray(a, x, y, jx, jy);
-    V3 thr = v3(1.0f, 1.0f, 1.0f);
-    V3 acc = v3(0.0f, 0.0f, 0.0f);
-    for (int depth = 0; depth < F3D_ADJ_DEPTH; ++depth) {
-        const uint32_t* kd = keys + 4 + 12 * depth;
-        float t;
-        int kind = adj_nearest(a, ro, rd, t);
-        if (kind < 0) {
-            acc = vadd(acc, vmul(thr, vld(a.sky)));
-            break;
+// ---------------------------------------------------------------------------
+// The path-traced lane as a hit loop (adj_pt_kernel)
+// ---------------------------------------------------------------------------
+//
+// JAX's _pt_sample steps a sample's paths depth by depth, and the spp loop
+// sums the samples in order. A thread that ran its pixel's samples the same
+// way would keep a warp in the depth loop until its longest path ended,
+// with the lanes whose paths had ended idle through the vertex's shading,
+// the expensive part (44% of the lanes busy there at 512^2, 87% in a hit
+// loop: pt/adjudication.py:pt_work). Here a lane instead carries its
+// pixel's state (AdjLane) from pass to pass. A pass first runs the cheap
+// steps (adj_pt_advance) until the lane holds a hit to shade: a new
+// sample's jitter and camera ray, the nearest hit, the sky term of a miss,
+// the end of the sample, and once its pixel's spp samples are done, the
+// pixel's store and the next pixel if the lane is given one. Only then
+// does it shade the vertex (adj_pt_vertex), with the other lanes of the
+// warp that hold one. Each sample computes what _pt_sample computes, in
+// its order, under the keys of its own index and depth, and a pixel's
+// samples are added to its sum in order 0..spp-1 by the one lane that
+// holds it: no bit depends on which lane, pass or block runs a pixel.
+//
+// On an H100 the vertex step still sets the time: its warp-steps fell to
+// half, the kernel's time by a fifth (PERF.md §6). The threefry
+// draws, the IEEE divisions and square roots, the transcendentals and the
+// shadow rays that keep every bit JAX's take most of it.
+
+struct AdjLane {
+    int pix;         // the pixel (its row-major index is the threefry counter); -1: none left
+    int s;           // the sample being traced; spp: the pixel is done
+    int depth;       // the vertex the held ray reaches; -1: sample s has not started
+    V3 ro, rd, thr, acc;
+    V3 sum;          // the pixel's samples before s, summed in order
+};
+
+F3D_HD void adj_pt_begin(AdjLane& L, int pix) {
+    L.pix = pix;
+    L.s = 0;
+    L.depth = -1;
+    L.sum = v3(0.0f, 0.0f, 0.0f);
+}
+
+// the end of sample s's path: its radiance joins the pixel's sum
+F3D_HD void adj_pt_end_sample(AdjLane& L) {
+    L.sum = vadd(L.sum, L.acc);
+    L.s += 1;
+    L.depth = -1;
+}
+
+// The cheap steps of a pass: true with the held hit (t, kind) of the ray
+// (L.ro, L.rd) at vertex L.depth; false once the lane's pixels are done.
+// `next()` gives the lane its next pixel, or -1.
+template <class Next>
+F3D_HD bool adj_pt_advance(const AdjArgs& a, const uint32_t* keys, AdjLane& L, Next& next,
+                           unsigned char* rgba, float* hdr, float& t, int& kind) {
+    for (;;) {
+        if (L.pix < 0) return false;
+        if (L.s == a.spp) {   // render_adjudication_builtin: the mean, tone mapped
+            const float spp = (float)a.spp;
+            adj_store(a, v3(L.sum.x / spp, L.sum.y / spp, L.sum.z / spp), L.pix, rgba, hdr);
+            adj_pt_begin(L, next());
+            continue;
         }
-        V3 pos = vadd(ro, vscale(rd, t));
-        V3 n = adj_normal(a, pos, kind);
-        V3 alb = vld(a.alb + 3 * kind);
-        float rough = a.rough[kind];
-        V3 wo = vscale(rd, -1.0f);
-        acc = vadd(acc, vmul(thr, adj_sun_nee(a, pos, n, wo, alb, rough)));
-        float u[6];  // the vertex's six draws, fold_in(kd, j) for j = 0..5
-        for (int j = 0; j < 6; ++j) u[j] = adj_uniform(kd + 2 * j, idx);
-        const float u1 = u[0], u2 = u[1], u3 = u[2];
-        float cos_t = powf(1.0f - u2, 1.0f / 17.0f);
-        float sin_t = sqrtf(fmaxf(0.0f, 1.0f - cos_t * cos_t));
-        float phi = 2.0f * F3D_ADJ_PI * u3;
-        V3 wi_l;
-        if (u1 < 0.5f) {
-            wi_l = v3(sin_t * cosf(phi), cos_t, sin_t * sinf(phi));
-        } else {
-            float r = sqrtf(u2), ph = 2.0f * F3D_ADJ_PI * u3;
-            wi_l = adj_to_world(n, r * cosf(ph), r * sinf(ph), sqrtf(fmaxf(1.0f - u2, 0.0f)));
+        if (L.depth < 0) {    // _pt_sample's camera ray under sample s's jitter keys
+            const uint32_t* ks = keys + 2 * F3D_ADJ_KEYS * L.s;
+            const uint32_t idx = (uint32_t)L.pix;
+            float jx = adj_uniform(ks, idx), jy = adj_uniform(ks + 2, idx);
+            L.ro = vld(a.cam_o);
+            L.rd = adj_camera_ray(a, L.pix % a.width, L.pix / a.width, jx, jy);
+            L.thr = v3(1.0f, 1.0f, 1.0f);
+            L.acc = v3(0.0f, 0.0f, 0.0f);
+            L.depth = 0;
         }
-        float cos_surf = fmaxf(adj_dot(n, wi_l), 0.0f);
+        kind = adj_nearest(a, L.ro, L.rd, t);
+        if (kind >= 0) return true;
+        L.acc = vadd(L.acc, vmul(L.thr, vld(a.sky)));   // a miss ends the path
+        adj_pt_end_sample(L);
+    }
+}
+
+// _pt_sample's vertex at the held hit (t, kind): the sun and environment
+// NEE, then the bounce and Russian roulette; the path ends where JAX's
+// `alive` goes false. Three skips change no bit:
+// - the sun NEE is adj_sun_nee_lit, whose argument holds here as in the
+//   raster lane: the same pos, n, wo, albedo and roughness reach
+//   adj_sun_nee, and where cos_surf is not above 0 its BSDF (ndl is the
+//   same value) and shadow ray only multiply an exact zero;
+// - the environment sample's BSDF, pdfs, MIS weight and shadow ray are
+//   formed only where cos_surf > 0: _pt_sample adds their product under
+//   that condition alone, and adds nothing elsewhere;
+// - the roulette's draw is made only from depth F3D_ADJ_RR: before it q is
+//   0, and a uniform is never below 0 (adj_uniform: max(0, f - 1)), so the
+//   draw cannot end the path.
+F3D_HD void adj_pt_vertex(const AdjArgs& a, const uint32_t* keys, AdjLane& L, float t,
+                          int kind) {
+    const uint32_t* kd = keys + 2 * F3D_ADJ_KEYS * L.s + 4 + 12 * L.depth;
+    const uint32_t idx = (uint32_t)L.pix;
+    V3 pos = vadd(L.ro, vscale(L.rd, t));
+    V3 n = adj_normal(a, pos, kind);
+    V3 alb = vld(a.alb + 3 * kind);
+    float rough = a.rough[kind];
+    V3 wo = vscale(L.rd, -1.0f);
+    L.acc = vadd(L.acc, vmul(L.thr, adj_sun_nee_lit(a, pos, n, wo, alb, rough)));
+    float u[6];  // the vertex's six draws, fold_in(kd, j) for j = 0..5
+    for (int j = 0; j < 5; ++j) u[j] = adj_uniform(kd + 2 * j, idx);
+    u[5] = L.depth >= F3D_ADJ_RR ? adj_uniform(kd + 10, idx) : 0.0f;
+    const float u1 = u[0], u2 = u[1], u3 = u[2];
+    float cos_t = powf(1.0f - u2, 1.0f / 17.0f);
+    float sin_t = sqrtf(fmaxf(0.0f, 1.0f - cos_t * cos_t));
+    float phi = 2.0f * F3D_ADJ_PI * u3;
+    V3 wi_l;
+    if (u1 < 0.5f) {
+        wi_l = v3(sin_t * cosf(phi), cos_t, sin_t * sinf(phi));
+    } else {
+        float r = sqrtf(u2), ph = 2.0f * F3D_ADJ_PI * u3;
+        wi_l = adj_to_world(n, r * cosf(ph), r * sinf(ph), sqrtf(fmaxf(1.0f - u2, 0.0f)));
+    }
+    float cos_surf = fmaxf(adj_dot(n, wi_l), 0.0f);
+    if (cos_surf > 0.0f) {
         float pdf_l = adj_env_pdf(n, wi_l);
         float pdf_b;
         V3 f = adj_bsdf(wo, wi_l, n, alb, rough, pdf_b);
         float w_mis = pdf_l / fmaxf(pdf_l + pdf_b, 1e-8f);
         bool vis = !adj_occluded(a, vadd(pos, vscale(n, 1e-3f)), wi_l);
-        if (cos_surf > 0.0f) {
-            float w = cos_surf / fmaxf(pdf_l, 1e-8f) * w_mis * (vis ? 1.0f : 0.0f);
-            acc = vadd(acc, vmul(thr, vscale(vmul(f, vld(a.amb)), w)));
-        }
-        const float u4 = u[3], u5 = u[4];
-        float r4 = sqrtf(u4), ph4 = 2.0f * F3D_ADJ_PI * u5;
-        V3 d = adj_to_world(n, r4 * cosf(ph4), r4 * sinf(ph4), sqrtf(fmaxf(1.0f - u4, 0.0f)));
-        V3 thr_new = vmul(thr, alb);
-        float max_c = fmaxf(fmaxf(thr_new.x, thr_new.y), thr_new.z);
-        float q = depth >= F3D_ADJ_RR ? fminf(fmaxf(1.0f - max_c, 0.0f), 0.95f) : 0.0f;
-        if (!(u[5] >= q) || depth + 1 >= F3D_ADJ_DEPTH) break;
-        float inv = fmaxf(1.0f - q, 1e-6f);
-        thr = v3(thr_new.x / inv, thr_new.y / inv, thr_new.z / inv);
-        ro = vadd(pos, vscale(n, 1e-3f));
-        rd = d;
+        float w = cos_surf / fmaxf(pdf_l, 1e-8f) * w_mis * (vis ? 1.0f : 0.0f);
+        L.acc = vadd(L.acc, vmul(L.thr, vscale(vmul(f, vld(a.amb)), w)));
     }
-    return acc;
+    const float u4 = u[3], u5 = u[4];
+    float r4 = sqrtf(u4), ph4 = 2.0f * F3D_ADJ_PI * u5;
+    V3 d = adj_to_world(n, r4 * cosf(ph4), r4 * sinf(ph4), sqrtf(fmaxf(1.0f - u4, 0.0f)));
+    V3 thr_new = vmul(L.thr, alb);
+    float max_c = fmaxf(fmaxf(thr_new.x, thr_new.y), thr_new.z);
+    float q = L.depth >= F3D_ADJ_RR ? fminf(fmaxf(1.0f - max_c, 0.0f), 0.95f) : 0.0f;
+    if (!(u[5] >= q) || L.depth + 1 >= F3D_ADJ_DEPTH) {
+        adj_pt_end_sample(L);
+        return;
+    }
+    float inv = fmaxf(1.0f - q, 1e-6f);
+    L.thr = v3(thr_new.x / inv, thr_new.y / inv, thr_new.z / inv);
+    L.ro = vadd(pos, vscale(n, 1e-3f));
+    L.rd = d;
+    L.depth += 1;
 }
 
-// render_adjudication_builtin's PT lane for pixel i: spp samples summed in
-// order, divided by spp, tone mapped
-F3D_HD void adj_pt_pixel(const AdjArgs& a, const uint32_t* keys, int i, unsigned char* rgba,
-                         float* hdr) {
-    V3 sum = v3(0.0f, 0.0f, 0.0f);
-    for (int s = 0; s < a.spp; ++s) sum = vadd(sum, adj_pt_sample(a, keys + 2 * F3D_ADJ_KEYS * s, i));
-    const float spp = (float)a.spp;
-    adj_store(a, v3(sum.x / spp, sum.y / spp, sum.z / spp), i, rgba, hdr);
+// a lane that holds one pixel: no next one
+struct AdjNoQueue {
+    F3D_HD int operator()() const { return -1; }
+};
+
+// one lane's work from its first pixel until `next()` gives none: the
+// kernel's lanes hold a pixel each; the host twin hands a lane further
+// pixels in other orders to show that the schedule changes no bit
+template <class Next>
+F3D_HD void adj_pt_lane(const AdjArgs& a, const uint32_t* keys, int first, Next& next,
+                        unsigned char* rgba, float* hdr) {
+    AdjLane L;
+    adj_pt_begin(L, first);
+    float t;
+    int kind;
+    while (adj_pt_advance(a, keys, L, next, rgba, hdr, t, kind))
+        adj_pt_vertex(a, keys, L, t, kind);
+}
+
+// The lanes' order: lane k of adj_pt_lanes takes pixel (x, y) of K6's 8x4
+// warps over the frame's 8x4 tiles in row-major order, or none (-1) past
+// the frame's ragged edge
+F3D_HD int adj_pt_pixel_of(int width, int height, int k) {
+    const int tiles_x = (width + 7) / 8, tile = k >> 5, lane = k & 31;
+    const int x = (tile % tiles_x) * 8 + (lane & 7), y = (tile / tiles_x) * 4 + (lane >> 3);
+    return x < width && y < height ? y * width + x : -1;
+}
+
+F3D_HD int adj_pt_lanes(int width, int height) {
+    return ((width + 7) / 8) * ((height + 3) / 4) * 32;
 }

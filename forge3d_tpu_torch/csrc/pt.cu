@@ -14,15 +14,24 @@
 // One thread per point, ray or pixel (sdf.cuh, pt.cuh). The JAX versions
 // step every lane of a batch in lock step (the tape's fori_loop, the
 // march's while_loop, the per-instance BVH loops); here each thread runs
-// its own loops to their ends. What bounds them: the tape loop is
-// arithmetic with a per-thread stack in local memory (L1); the march is
-// that times the steps its ray takes, divergent between rays; the TLAS
+// its own loops to their ends. What bounds them: the tape loop is issue,
+// the same dispatch, reads and stack moves on every thread around ~20
+// operations an entry (sdf.cuh); the march is that times the steps its ray
+// takes (97% of a warp's lanes busy on bench.py's camera rays); the TLAS
 // walk and the hybrid's mesh and terrain traces are chains of dependent
 // loads, as K9 and K5 are.
+//
+// P6's three kernels are instantiated two ways: the packed tape in shared
+// memory (each block copies it once) or, for tapes longer than
+// F3D_SDF_SHARED, read through the read-only cache. The launchers pick by
+// the tape (sdf_in_shared); both give the same bits.
 
 #include <cuda_runtime.h>
 
 #include "pt.cuh"
+
+// the block's copy of P6's packed tape (sdf.cuh): 3 * tape_len 16-byte words
+extern __shared__ float4 sdf_shared[];
 
 namespace {
 
@@ -32,38 +41,61 @@ constexpr int kHybridBlocks = 3;   // P3's minimum of resident blocks (see hybri
 
 inline int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
 
+template <bool kShared>
+__device__ __forceinline__ const float* sdf_block_tape(const SdfArgs& s) {
+    if (!kShared) return s.tape;
+    const float4* g = reinterpret_cast<const float4*>(s.tape);
+    for (int k = threadIdx.x; k < 3 * s.tape_len; k += blockDim.x) sdf_shared[k] = __ldg(g + k);
+    __syncthreads();
+    return reinterpret_cast<const float*>(sdf_shared);
+}
+
+template <bool kShared>
 __global__ void sdf_eval_kernel(SdfArgs s, const float* __restrict__ px,
                                 const float* __restrict__ py, const float* __restrict__ pz,
                                 int n, float* __restrict__ d, int* __restrict__ mat) {
+    const float* tape = sdf_block_tape<kShared>(s);
     int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
     int m;
-    d[i] = sdf_eval(s, px[i], py[i], pz[i], m);
+    d[i] = sdf_eval_t<!kShared>(tape, s.tape_len, px[i], py[i], pz[i], m);
     mat[i] = m;
 }
 
+template <bool kShared>
 __global__ void sdf_normal_kernel(SdfArgs s, const float* __restrict__ px,
                                   const float* __restrict__ py, const float* __restrict__ pz,
                                   int n, float eps, float* __restrict__ out) {
+    const float* tape = sdf_block_tape<kShared>(s);
     int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
-    sdf_normal(s, px[i], py[i], pz[i], eps, out[i], out[n + i], out[2 * n + i]);
+    sdf_normal_t<!kShared>(tape, s.tape_len, px[i], py[i], pz[i], eps, out[i], out[n + i],
+                           out[2 * n + i]);
 }
 
+template <bool kShared>
 __global__ void sdf_march_kernel(SdfArgs s, const float* __restrict__ rox,
                                  const float* __restrict__ roy, const float* __restrict__ roz,
                                  const float* __restrict__ rdx, const float* __restrict__ rdy,
                                  const float* __restrict__ rdz, int n, float tmin, float tmax,
                                  int max_steps, float hit_eps, unsigned char* __restrict__ hit,
                                  float* __restrict__ t, int* __restrict__ mat) {
+    const float* tape = sdf_block_tape<kShared>(s);
     int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
-    SdfHit h = sdf_march(s, rox[i], roy[i], roz[i], rdx[i], rdy[i], rdz[i], tmin, tmax,
-                         max_steps, hit_eps);
+    SdfHit h = sdf_march_t<!kShared>(tape, s.tape_len, rox[i], roy[i], roz[i], rdx[i], rdy[i],
+                                     rdz[i], tmin, tmax, max_steps, hit_eps);
     hit[i] = (unsigned char)h.hit;
     t[i] = h.t;
     mat[i] = h.material;
 }
+
+// the instantiation of P6 kernel K that the tape `s` takes, K<shared> in
+// `fn`, and its dynamic shared memory
+#define F3D_SDF_PICK(K, s, fn, shmem)                                                   \
+    const bool sh_ = sdf_in_shared(s);                                                  \
+    const size_t shmem = sh_ ? (size_t)(s).tape_len * F3D_SDF_WORDS * sizeof(float) : 0; \
+    const void* fn = sh_ ? (const void*)K<true> : (const void*)K<false>
 
 __global__ void tlas_kernel(TlasArgs a, const float* __restrict__ rox,
                             const float* __restrict__ roy, const float* __restrict__ roz,
@@ -89,7 +121,8 @@ __global__ void tlas_kernel(TlasArgs a, const float* __restrict__ rox,
 // registers, 3 resident blocks, 1.86 ms at 1080p. Without it nvcc chose 49
 // registers and 4 blocks (no bound, 1.98 ms) or 48 and 5 (a maximum of 256
 // threads alone, 2.07 ms); a minimum of 4 (58 registers) was 3% slower
-// (PERF.md §6). The SDF's value stack stays in local memory.
+// (PERF.md §6). The SDF's tape is read through the read-only cache: few
+// rays march it (the cull box).
 __global__ void __launch_bounds__(kTileThreads, kHybridBlocks)
 hybrid_kernel(SceneArgs s, MeshArgs m, SdfArgs sdf, HybridArgs a, const float* __restrict__ rdx,
               const float* __restrict__ rdy, const float* __restrict__ rdz, HybridOut o) {
@@ -105,19 +138,24 @@ hybrid_kernel(SceneArgs s, MeshArgs m, SdfArgs sdf, HybridArgs a, const float* _
 
 extern "C" {
 
+// P6's launchers: cudaLaunchKernel with the instantiation F3D_SDF_PICK chose
 int f3d_sdf_eval(const SdfArgs* s, const float* px, const float* py, const float* pz, int n,
                  float* d, int* mat, void* stream) {
-    if (n > 0)
-        sdf_eval_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(*s, px, py, pz, n,
-                                                                              d, mat);
+    if (n > 0) {
+        F3D_SDF_PICK(sdf_eval_kernel, *s, fn, shmem);
+        void* args[] = {(void*)s, &px, &py, &pz, &n, &d, &mat};
+        cudaLaunchKernel(fn, blocks_for(n), kThreads, args, shmem, (cudaStream_t)stream);
+    }
     return (int)cudaGetLastError();
 }
 
 int f3d_sdf_normal(const SdfArgs* s, const float* px, const float* py, const float* pz, int n,
                    float eps, float* out, void* stream) {
-    if (n > 0)
-        sdf_normal_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(*s, px, py, pz,
-                                                                                n, eps, out);
+    if (n > 0) {
+        F3D_SDF_PICK(sdf_normal_kernel, *s, fn, shmem);
+        void* args[] = {(void*)s, &px, &py, &pz, &n, &eps, &out};
+        cudaLaunchKernel(fn, blocks_for(n), kThreads, args, shmem, (cudaStream_t)stream);
+    }
     return (int)cudaGetLastError();
 }
 
@@ -125,10 +163,30 @@ int f3d_sdf_march(const SdfArgs* s, const float* rox, const float* roy, const fl
                   const float* rdx, const float* rdy, const float* rdz, int n, float tmin,
                   float tmax, int max_steps, float hit_eps, unsigned char* hit, float* t,
                   int* mat, void* stream) {
-    if (n > 0)
-        sdf_march_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-            *s, rox, roy, roz, rdx, rdy, rdz, n, tmin, tmax, max_steps, hit_eps, hit, t, mat);
+    if (n > 0) {
+        F3D_SDF_PICK(sdf_march_kernel, *s, fn, shmem);
+        void* args[] = {(void*)s, &rox, &roy, &roz, &rdx,      &rdy, &rdz, &n,
+                        &tmin,    &tmax, &max_steps, &hit_eps, &hit, &t,   &mat};
+        cudaLaunchKernel(fn, blocks_for(n), kThreads, args, shmem, (cudaStream_t)stream);
+    }
     return (int)cudaGetLastError();
+}
+
+// the march kernel that tape `s` takes: out = {registers a thread, local
+// (spilled and stack) bytes a thread, resident blocks of 128 an SM, 1 if
+// the tape is in shared memory}
+int f3d_sdf_march_attrs(const SdfArgs* s, int* out) {
+    F3D_SDF_PICK(sdf_march_kernel, *s, fn, shmem);
+    out[3] = sh_;
+    cudaFuncAttributes at;
+    cudaError_t e = cudaFuncGetAttributes(&at, fn);
+    if (e != cudaSuccess) return (int)e;
+    int resident = 0;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, fn, kThreads, shmem);
+    out[0] = at.numRegs;
+    out[1] = (int)at.localSizeBytes;
+    out[2] = resident;
+    return (int)e;
 }
 
 int f3d_trace_tlas(const TlasArgs* a, const float* rox, const float* roy, const float* roz,

@@ -109,7 +109,8 @@ struct HybridOut {         // mirrored by _kernels.HybridOut; a null plane is no
 #define F3D_SDF_HIT 1e-3f
 
 // hybrid.py:_trace_all for one ray: the nearest hit, its normal and kind
-// (0 terrain, 1 mesh, 2 sdf, -1 none; the normal (0, 1, 0) on a miss)
+// (0 terrain, 1 mesh, 2 sdf, -1 none; the normal (0, 1, 0) on a miss);
+// the SDF's tape read through the read-only cache
 F3D_HD int hybrid_nearest(const SceneArgs& s, const MeshArgs& m, const SdfArgs& sdf,
                           const HybridArgs& a, float ox, float oy, float oz, float dx, float dy,
                           float dz, float tmin, float tmax, float& t, float& nx, float& ny,
@@ -137,10 +138,12 @@ F3D_HD int hybrid_nearest(const SceneArgs& s, const MeshArgs& m, const SdfArgs& 
     }
     float tm = t;
     if (a.use_sdf && sdf_cull_span(sdf, ox, oy, oz, dx, dy, dz, F3D_SDF_HIT, tmin, tm)) {
-        SdfHit r = sdf_march(sdf, ox, oy, oz, dx, dy, dz, tmin, tm, F3D_SDF_STEPS, F3D_SDF_HIT);
+        SdfHit r = sdf_march_t<true>(sdf.tape, sdf.tape_len, ox, oy, oz, dx, dy, dz, tmin, tm,
+                                     F3D_SDF_STEPS, F3D_SDF_HIT);
         if (r.hit && r.t < t) {
             t = r.t;
-            sdf_normal(sdf, ox + r.t * dx, oy + r.t * dy, oz + r.t * dz, 1e-4f, nx, ny, nz);
+            sdf_normal_t<true>(sdf.tape, sdf.tape_len, ox + r.t * dx, oy + r.t * dy, oz + r.t * dz,
+                               1e-4f, nx, ny, nz);
             kind = 2;
         }
     }
@@ -161,7 +164,8 @@ F3D_HD bool hybrid_occluded(const SceneArgs& s, const MeshArgs& m, const SdfArgs
     }
     float tm = F3D_HYB_FAR;
     if (a.use_sdf && sdf_cull_span(sdf, ox, oy, oz, dx, dy, dz, F3D_SDF_HIT, 1e-3f, tm)) {
-        SdfHit r = sdf_march(sdf, ox, oy, oz, dx, dy, dz, 1e-3f, tm, F3D_SDF_STEPS, F3D_SDF_HIT);
+        SdfHit r = sdf_march_t<true>(sdf.tape, sdf.tape_len, ox, oy, oz, dx, dy, dz, 1e-3f, tm,
+                                     F3D_SDF_STEPS, F3D_SDF_HIT);
         if (r.hit && r.t < F3D_HYB_FAR) return true;
     }
     return false;

@@ -6,12 +6,30 @@
 // inside the hybrid tracer P3 (pt.cu:hybrid_kernel).
 //
 // The tape is post-order: a primitive pushes its distance and material, an
-// operation pops two and pushes one. The stack lives in a per-thread array
-// no deeper than the compiled stack depth. Each instruction computes only
-// its own primitive or operation (a `switch` on the kind), where JAX
-// computes every branch of its lax.switch and keeps one; the capsule's
-// division is guarded by max(., 1e-12) as JAX's is, so no untaken branch
-// can matter.
+// operation pops two and pushes one. Each instruction computes only its own
+// primitive or operation (a `switch` on the kind), where JAX computes every
+// branch of its lax.switch and keeps one; the capsule's division is guarded
+// by max(., 1e-12) as JAX's is, so no untaken branch can matter.
+//
+// What bounds a step on the card is issue, not arithmetic: every thread
+// walks the same tape in the same order, so the dispatch, the tape's reads
+// and the stack's traffic are overhead on each of the ~20 operations an
+// entry computes. ops/sdf.py packs the tape into 48-byte entries (a header
+// and the params in three 16-byte words), which the eval, normal and march
+// kernels copy to shared memory once a block: an entry is then one or
+// three broadcast loads for a warp, where the unpacked arrays took up to
+// nine loads from the cache. The top of the value stack stays in
+// registers, so a primitive stores one 8-byte slot of local memory and an
+// operation loads one, where the unpacked stack took two loads and two
+// stores an operation. A tape longer than F3D_SDF_SHARED entries is read
+// through the read-only cache with the same loop; pt.cu's launchers pick
+// the instantiation from the tape (sdf_in_shared). Both compute the same
+// operations in the same order, so both give the same bits.
+//
+// Holding the slots in registers too (switches on a slot index that is the
+// same for every thread, for tapes no deeper than 8) measured slower on an
+// H100: 2.50 ms against 1.59 for the landmark's march, 64 registers against
+// 42 and chains of compares and moves at each entry (PERF.md §6).
 //
 // XLA compiles the tape loop with a*b + c fused into one multiply-add; the
 // sums below are written as the fmaf calls that match it on every point
@@ -43,7 +61,7 @@
 // false if [tmin, tmax] misses it; otherwise it lowers tmax to the exit,
 // rounded up to float32. The march evaluates fmaf(t, d, o): one rounding of
 // o + t d, which is monotone, so a t beyond the exit gives a point outside
-// the box. That is exact: sdf_march steps through the same t whatever its
+// the box. That is exact: sdf_march_t steps through the same t whatever its
 // tmax, so a hit it finds is the unbounded march's first hit, and when it
 // stops at a t past the box's exit the unbounded march cannot hit later.
 // Rays with |o| > 2^40 or |d| > 2^8 (and NaN) are not culled: beyond those
@@ -53,6 +71,7 @@
 
 #include <math.h>
 #include <stdint.h>
+#include <string.h>
 
 #ifndef F3D_HD
 #ifdef __CUDACC__
@@ -62,22 +81,13 @@
 #endif
 #endif
 
-#ifndef F3D_LDG
-#ifdef __CUDA_ARCH__
-#define F3D_LDG(p) __ldg(p)
-#else
-#define F3D_LDG(p) (*(p))
-#endif
-#endif
-
 #define F3D_SDF_STACK 66  // ops/sdf.py:MAX_STACK (trees of depth <= 64)
+#define F3D_SDF_SHARED 1024  // the longest tape a block copies to shared memory (48 KB)
+#define F3D_SDF_WORDS 12   // words of a packed tape entry (ops/sdf.py:pack_tape)
 
 struct SdfArgs {            // mirrored by _kernels.SdfArgs
-    const int* is_op;       // (T,) 0 = primitive, 1 = operation
-    const int* kind;        // (T,)
-    const float* params;    // (T, 8)
-    const float* smoothing; // (T,)
-    const int* material;    // (T,)
+    const float* tape;      // (T, 12) packed: is_op, kind, material (int bits), smoothing;
+                            // then the 8 params, as three 16-byte words an entry
     int tape_len, stack_depth;
     int cull;               // 0 no box (unbounded), 1 the box below, 2 never below the threshold
     float cull_lo[3], cull_hi[3];
@@ -90,50 +100,97 @@ struct SdfHit {
     int material;
 };
 
+// The tape's reads. An entry is three 16-byte words: the header, then the
+// params in two. Every thread of a launch reads the same entry at the same
+// step, so a word is one broadcast load for the warp: from shared memory
+// where the block copied the tape (kGlobal false; pt.cu:sdf_block_tape), else
+// through the read-only cache.
+struct SdfWord {
+    float x, y, z, w;
+};
+
+template <bool kGlobal>
+F3D_HD SdfWord sdf_word(const float* p) {
+    SdfWord r;
+#ifdef __CUDA_ARCH__
+    const float4 v = kGlobal ? __ldg(reinterpret_cast<const float4*>(p))
+                             : *reinterpret_cast<const float4*>(p);
+    r.x = v.x, r.y = v.y, r.z = v.z, r.w = v.w;
+#else
+    r.x = p[0], r.y = p[1], r.z = p[2], r.w = p[3];
+#endif
+    return r;
+}
+
+F3D_HD int sdf_bits(float f) {
+#ifdef __CUDA_ARCH__
+    return __float_as_int(f);
+#else
+    int i;
+    memcpy(&i, &f, 4);
+    return i;
+#endif
+}
+
+// which instantiation a launch takes: the tape in shared memory where it fits
+F3D_HD bool sdf_in_shared(const SdfArgs& s) { return s.tape_len <= F3D_SDF_SHARED; }
+
+// The value stack. The top value and its material stay in registers (top,
+// topm); the values below it live in slots 1 .. depth - 1 of a per-thread
+// array in local memory, slot 0 taking the empty stack's dummy top at the
+// first push, so a primitive stores one 8-byte slot and an operation loads
+// one.
+struct alignas(8) SdfSlot {
+    float d;
+    int m;
+};
+
 // a1*b1 + a2*b2 + a3*b3 as XLA fuses it in the tape loop: a2*b2 rounded,
 // then a1*b1 and a3*b3 each fused in
 F3D_HD float sdf_dot3(float a1, float b1, float a2, float b2, float a3, float b3) {
     return fmaf(a3, b3, fmaf(a1, b1, a2 * b2));
 }
 
-// ops/sdf.py:prim_dist, the branch of `kind` alone
-F3D_HD float sdf_prim(int kind, const float* p, float px, float py, float pz) {
+// ops/sdf.py:prim_dist, the branch of `kind` alone; p the params
+// (p0, p1, p2, p3) and (p4, p5, p6, p7)
+F3D_HD float sdf_prim(int kind, const SdfWord& p, const SdfWord& q, float px, float py,
+                      float pz) {
     switch (kind) {
         case 0: {  // sphere
-            float dx = px - p[0], dy = py - p[1], dz = pz - p[2];
-            return sqrtf(sdf_dot3(dx, dx, dy, dy, dz, dz)) - p[3];
+            float dx = px - p.x, dy = py - p.y, dz = pz - p.z;
+            return sqrtf(sdf_dot3(dx, dx, dy, dy, dz, dz)) - p.w;
         }
         case 1: {  // box
-            float qx = fabsf(px - p[0]) - p[3];
-            float qy = fabsf(py - p[1]) - p[4];
-            float qz = fabsf(pz - p[2]) - p[5];
+            float qx = fabsf(px - p.x) - p.w;
+            float qy = fabsf(py - p.y) - q.x;
+            float qz = fabsf(pz - p.z) - q.y;
             float mx = fmaxf(qx, 0.0f), my = fmaxf(qy, 0.0f), mz = fmaxf(qz, 0.0f);
             float outer = sqrtf(fmaf(mz, mz, fmaf(my, my, mx * mx)));
             float inner = fminf(fmaxf(qx, fmaxf(qy, qz)), 0.0f);
             return outer + inner;
         }
         case 2: {  // cylinder about y
-            float dx = px - p[0], dz = pz - p[2];
-            float dxz = sqrtf(fmaf(dx, dx, dz * dz)) - p[3];
-            float dy = fabsf(py - p[1]) - p[4];
+            float dx = px - p.x, dz = pz - p.z;
+            float dxz = sqrtf(fmaf(dx, dx, dz * dz)) - p.w;
+            float dy = fabsf(py - p.y) - q.x;
             float a = fmaxf(dxz, 0.0f), b = fmaxf(dy, 0.0f);
             return fminf(fmaxf(dxz, dy), 0.0f) + sqrtf(fmaf(a, a, b * b));
         }
         case 3:  // plane: dot(n, p) - d
-            return sdf_dot3(px, p[0], py, p[1], pz, p[2]) - p[3];
+            return sdf_dot3(px, p.x, py, p.y, pz, p.z) - p.w;
         case 4: {  // torus about y
-            float dx = px - p[0], dz = pz - p[2];
-            float tq = sqrtf(fmaf(dx, dx, dz * dz)) - p[3];
-            float dy = py - p[1];
-            return sqrtf(fmaf(tq, tq, dy * dy)) - p[4];
+            float dx = px - p.x, dz = pz - p.z;
+            float tq = sqrtf(fmaf(dx, dx, dz * dz)) - p.w;
+            float dy = py - p.y;
+            return sqrtf(fmaf(tq, tq, dy * dy)) - q.x;
         }
         default: {  // capsule a..b
-            float pax = px - p[0], pay = py - p[1], paz = pz - p[2];
-            float bax = p[3] - p[0], bay = p[4] - p[1], baz = p[5] - p[2];
+            float pax = px - p.x, pay = py - p.y, paz = pz - p.z;
+            float bax = p.w - p.x, bay = q.x - p.y, baz = q.y - p.z;
             float den = fmaxf(sdf_dot3(bax, bax, bay, bay, baz, baz), 1e-12f);
             float h = fminf(fmaxf(sdf_dot3(pax, bax, pay, bay, paz, baz) / den, 0.0f), 1.0f);
             float ex = fmaf(h, -bax, pax), ey = fmaf(h, -bay, pay), ez = fmaf(h, -baz, paz);
-            return sqrtf(sdf_dot3(ex, ex, ey, ey, ez, ez)) - p[6];
+            return sqrtf(sdf_dot3(ex, ex, ey, ey, ez, ez)) - q.z;
         }
     }
 }
@@ -175,42 +232,48 @@ F3D_HD void sdf_op(int kind, float k, float d1, int m1, float d2, int m2, float&
     }
 }
 
-// SdfScene.evaluate for one point: the distance, and the material of the
-// winning leaf or operation in `mat`
-F3D_HD float sdf_eval(const SdfArgs& s, float px, float py, float pz, int& mat) {
-    float dst[F3D_SDF_STACK];
-    int mst[F3D_SDF_STACK];
-    int sp = 0;
-    for (int i = 0; i < s.tape_len; ++i) {
-        const int kind = F3D_LDG(s.kind + i);
-        if (F3D_LDG(s.is_op + i)) {
-            float d;
-            int m;
-            sdf_op(kind, F3D_LDG(s.smoothing + i), dst[sp - 2], mst[sp - 2], dst[sp - 1],
-                   mst[sp - 1], d, m);
-            dst[sp - 2] = d;
-            mst[sp - 2] = m;
+// SdfScene.evaluate for one point over the packed tape at `tape` (global or
+// shared memory by kGlobal): the distance, and the material of the winning
+// leaf or operation in `mat`
+template <bool kGlobal>
+F3D_HD float sdf_eval_t(const float* tape, int n, float px, float py, float pz, int& mat) {
+    SdfSlot st[F3D_SDF_STACK];
+    float top = 0.0f;
+    int topm = 0, sp = 0;   // sp: values on the stack, the top included
+    for (int i = 0; i < n; ++i) {
+        const float* e = tape + F3D_SDF_WORDS * i;
+        const SdfWord h = sdf_word<kGlobal>(e);
+        const int kind = sdf_bits(h.y);
+        if (sdf_bits(h.x)) {
+            const SdfSlot below = st[sp - 1];
+            sdf_op(kind, h.w, below.d, below.m, top, topm, top, topm);
             sp -= 1;
         } else {
-            float p[7];
-            for (int k = 0; k < 7; ++k) p[k] = F3D_LDG(s.params + 8 * i + k);
-            dst[sp] = sdf_prim(kind, p, px, py, pz);
-            mst[sp] = F3D_LDG(s.material + i);
+            const float d = sdf_prim(kind, sdf_word<kGlobal>(e + 4), sdf_word<kGlobal>(e + 8),
+                                     px, py, pz);
+            st[sp].d = top;
+            st[sp].m = topm;
+            top = d;
+            topm = sdf_bits(h.z);
             sp += 1;
         }
     }
-    mat = mst[0];
-    return dst[0];
+    mat = topm;
+    return top;
 }
 
 // SdfScene.normal: central differences, then JAX's eager normalisation
 // (each operation rounded)
-F3D_HD void sdf_normal(const SdfArgs& s, float px, float py, float pz, float eps, float& nx,
-                       float& ny, float& nz) {
+template <bool kGlobal>
+F3D_HD void sdf_normal_t(const float* tape, int n, float px, float py, float pz, float eps,
+                         float& nx, float& ny, float& nz) {
     int m;
-    float x = sdf_eval(s, px + eps, py, pz, m) - sdf_eval(s, px - eps, py, pz, m);
-    float y = sdf_eval(s, px, py + eps, pz, m) - sdf_eval(s, px, py - eps, pz, m);
-    float z = sdf_eval(s, px, py, pz + eps, m) - sdf_eval(s, px, py, pz - eps, m);
+    float x = sdf_eval_t<kGlobal>(tape, n, px + eps, py, pz, m) -
+              sdf_eval_t<kGlobal>(tape, n, px - eps, py, pz, m);
+    float y = sdf_eval_t<kGlobal>(tape, n, px, py + eps, pz, m) -
+              sdf_eval_t<kGlobal>(tape, n, px, py - eps, pz, m);
+    float z = sdf_eval_t<kGlobal>(tape, n, px, py, pz + eps, m) -
+              sdf_eval_t<kGlobal>(tape, n, px, py, pz - eps, m);
     float inv = 1.0f / sqrtf(x * x + y * y + z * z + 1e-20f);
     nx = x * inv;
     ny = y * inv;
@@ -218,8 +281,10 @@ F3D_HD void sdf_normal(const SdfArgs& s, float px, float py, float pz, float eps
 }
 
 // SdfScene.raymarch for one ray (XLA fuses t * d into the ray's origin)
-F3D_HD SdfHit sdf_march(const SdfArgs& s, float rox, float roy, float roz, float rdx, float rdy,
-                        float rdz, float tmin, float tmax, int max_steps, float hit_eps) {
+template <bool kGlobal>
+F3D_HD SdfHit sdf_march_t(const float* tape, int n, float rox, float roy, float roz, float rdx,
+                          float rdy, float rdz, float tmin, float tmax, int max_steps,
+                          float hit_eps) {
     SdfHit h;
     h.hit = 0;
     h.t = tmin;
@@ -227,7 +292,8 @@ F3D_HD SdfHit sdf_march(const SdfArgs& s, float rox, float roy, float roz, float
     const float half = hit_eps * 0.5f;
     for (int i = 0; i < max_steps; ++i) {
         int m;
-        float d = sdf_eval(s, fmaf(h.t, rdx, rox), fmaf(h.t, rdy, roy), fmaf(h.t, rdz, roz), m);
+        float d = sdf_eval_t<kGlobal>(tape, n, fmaf(h.t, rdx, rox), fmaf(h.t, rdy, roy),
+                                             fmaf(h.t, rdz, roz), m);
         if (d < hit_eps) {
             h.hit = 1;
             h.material = m;

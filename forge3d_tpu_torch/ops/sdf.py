@@ -16,9 +16,15 @@
 # multiply-add; the plain versions round those sums once too (`fma32`) and
 # take the correctly rounded square root (`sqrt32`), as the kernel's fmaf
 # and sqrtf do.
+#
+# The kernels read the tape packed (`pack_tape`, made when the scene is
+# compiled), from shared memory up to SHARED_TAPE entries; `kernel_instance`
+# names the instantiation a tape takes, and the wrappers count launches by
+# it.
 
 from __future__ import annotations
 
+from collections import Counter
 from dataclasses import dataclass, field, replace
 from typing import List, NamedTuple, Optional, Tuple
 
@@ -40,9 +46,28 @@ UNION, INTERSECTION, SUBTRACTION, SMOOTH_UNION, SMOOTH_INTERSECTION, SMOOTH_SUBT
 #: builder refuses trees deeper than 64, whose tapes need at most 66
 MAX_STACK = 66
 
+#: the longest tape the kernels copy to shared memory
+#: (csrc/sdf.cuh:F3D_SDF_SHARED); longer ones are read from global memory
+SHARED_TAPE = 1024
+
 #: the march's hit threshold that the cull box is derived for (the hybrid
 #: tracer's, csrc/pt.cuh:F3D_SDF_HIT)
 CULL_THRESHOLD = 1e-3
+
+
+def pack_tape(is_op, kind, params, smoothing, material) -> np.ndarray:
+    """(T, 12) float32: the kernels' packed tape (csrc/sdf.cuh), an entry a
+    row of three 16-byte words: is_op, kind and material as int32 bits and
+    the smoothing, then the 8 params."""
+    n = len(kind)
+    out = np.zeros((n, 12), np.float32)
+    ints = out.view(np.int32)
+    ints[:, 0] = np.asarray(is_op, np.int32)
+    ints[:, 1] = np.asarray(kind, np.int32)
+    ints[:, 2] = np.asarray(material, np.int32)
+    out[:, 3] = np.asarray(smoothing, np.float32)
+    out[:, 4:] = np.asarray(params, np.float32).reshape(n, 8)
+    return out
 
 
 @dataclass
@@ -162,6 +187,8 @@ class SdfScene:
     host: Optional[tuple] = field(default=None, repr=False, compare=False)
     # the hybrid tracer's cull box (cull_box): (0 none, 1 box, 2 never a hit; lo; hi)
     cull: tuple = field(default=(0, (0.0,) * 3, (0.0,) * 3), repr=False, compare=False)
+    # the kernels' packed tape (pack_tape) on the scene's device
+    packed: Optional[torch.Tensor] = field(default=None, repr=False, compare=False)
 
     @staticmethod
     def _compile(prims: List[_Prim], ops: List[_Op], root: int, device="cuda") -> "SdfScene":
@@ -226,7 +253,8 @@ class SdfScene:
                      for o, k, prm, s, m in zip(*arrs))
         return SdfScene(tape=tape, tape_len=len(host), stack_depth=int(stack_depth),
                         primitive_count=int(primitive_count), node_count=int(node_count),
-                        bounds=bounds, host=host, cull=cull_box(host))
+                        bounds=bounds, host=host, cull=cull_box(host),
+                        packed=torch.as_tensor(pack_tape(*arrs), device=device))
 
     def with_bounds(self, bmin, bmax) -> "SdfScene":
         return replace(self, bounds=(tuple(float(v) for v in bmin),
@@ -237,20 +265,14 @@ class SdfScene:
         return self.tape.kind.device
 
     def to(self, device) -> "SdfScene":
-        return replace(self, tape=SdfTape(*(t.to(device) for t in self.tape)))
+        return replace(self, tape=SdfTape(*(t.to(device) for t in self.tape)),
+                       packed=self.packed.to(device))
 
     def kernel_args(self) -> "_kernels.SdfArgs":
-        tape = self.tape
-        is_op = tape.is_op.to(_I32).contiguous()
-        _kernels.require_cuda("sdf", is_op, tape.kind, tape.params, tape.smoothing,
-                              tape.material)
-        args = _kernels.SdfArgs(_kernels.ptr(is_op), _kernels.ptr(tape.kind),
-                                _kernels.ptr(tape.params), _kernels.ptr(tape.smoothing),
-                                _kernels.ptr(tape.material), self.tape_len, self.stack_depth,
+        _kernels.require_cuda("sdf", self.packed)
+        return _kernels.SdfArgs(_kernels.ptr(self.packed), self.tape_len, self.stack_depth,
                                 self.cull[0], _kernels._F3(*self.cull[1]),
                                 _kernels._F3(*self.cull[2]), _f32(CULL_THRESHOLD))
-        args._keep = is_op   # the int copy lives as long as the arguments
-        return args
 
     def _points(self, *comps):
         comps = torch.broadcast_tensors(*(torch.as_tensor(c, device=self.device).to(_F32)
@@ -596,6 +618,12 @@ sdf_march_plain.steps = 0
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
+def kernel_instance(scene: SdfScene) -> str:
+    """The instantiation P6's kernels take for `scene`'s tape (csrc/pt.cu:
+    F3D_SDF_PICK): where the tape is read from."""
+    return "shared tape" if scene.tape_len <= SHARED_TAPE else "global tape"
+
+
 def _sdf_eval_kernel(scene: SdfScene, px, py, pz):
     _kernels.require_cuda("sdf_eval", px, py, pz)
     n = px.numel()
@@ -606,6 +634,7 @@ def _sdf_eval_kernel(scene: SdfScene, px, py, pz):
                                       _kernels.stream_ptr(px.device))
     _kernels.check(err, "P6 sdf_eval")
     sdf_eval.launches += 1
+    sdf_eval.instances[kernel_instance(scene)] += 1
     return d, m
 
 
@@ -618,6 +647,7 @@ def sdf_eval(scene: SdfScene, px, py, pz):
 
 
 sdf_eval.launches = 0
+sdf_eval.instances = Counter()   # launches (eval and normal) by kernel_instance
 
 
 def _sdf_normal_kernel(scene: SdfScene, px, py, pz, eps):
@@ -629,6 +659,7 @@ def _sdf_normal_kernel(scene: SdfScene, px, py, pz, eps):
                                         _kernels.stream_ptr(px.device))
     _kernels.check(err, "P6 sdf_normal")
     sdf_eval.launches += 1
+    sdf_eval.instances[kernel_instance(scene)] += 1
     return out[0], out[1], out[2]
 
 
@@ -653,6 +684,7 @@ def _sdf_march_kernel(scene: SdfScene, ro, rd, tmin, tmax, max_steps, hit_eps):
         _kernels.stream_ptr(dev))
     _kernels.check(err, "P6 sdf_march")
     sdf_march.launches += 1
+    sdf_march.instances[kernel_instance(scene)] += 1
     return SdfHit(hit, t, m)
 
 
@@ -666,3 +698,4 @@ def sdf_march(scene: SdfScene, ro, rd, tmin=1e-3, tmax=100.0, max_steps: int = 1
 
 
 sdf_march.launches = 0
+sdf_march.instances = Counter()  # launches by kernel_instance

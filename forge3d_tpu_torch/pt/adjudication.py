@@ -542,6 +542,167 @@ def _pt_sample(keys, width, height, device="cpu"):
 _pt_sample.vertices = 0
 
 
+def pt_paths(width: int, height: int, spp: int, seed: int, device="cpu"):
+    """(iters, verts), each (spp, H, W) int32: the nearest-hit steps and the
+    shaded vertices of each sample's path, from the plain lane's masks
+    (`_pt_sample`'s rays, alive mask and roulette, without its radiance)."""
+    keys = key_table(seed, spp)
+    shape = (height, width)
+    iters = torch.zeros((spp, *shape), dtype=torch.int32, device=device)
+    verts = torch.zeros_like(iters)
+    for i in range(spp):
+        def u(k):
+            return rng.uniform_tensor(keys[i][k], shape, device)
+
+        ro, rd = _camera_rays(width, height, u(0), u(1))
+        thr = torch.ones(ro.shape, dtype=_F32, device=device)
+        alive = torch.ones(shape, dtype=torch.bool, device=device)
+        for depth in range(MAX_DEPTH):
+            kd = 2 + 6 * depth
+            t, kind = _nearest_hit(ro, rd)
+            iters[i] += alive.to(torch.int32)
+            alive = alive & (kind >= 0)
+            if not bool(alive.any()):
+                break
+            verts[i] += alive.to(torch.int32)
+            pos, n, alb, _ = _surface(ro, rd, t, kind)
+            d = _to_world(n, *_cosine_local(u(kd + 3), u(kd + 4)))
+            thr_new = thr * alb
+            q = (torch.clamp(1.0 - thr_new.amax(-1), 0.0, 0.95) if depth >= RR_START_DEPTH
+                 else torch.zeros_like(t))
+            alive = alive & (u(kd + 5) >= q) & (depth + 1 < MAX_DEPTH)
+            thr = thr_new / torch.clamp(1.0 - q, min=1e-6)[..., None]
+            ro, rd = pos + n * 1e-3, d
+    return iters, verts
+
+
+def _warp_lanes(x, layout: str) -> torch.Tensor:
+    """(..., H, W) -> (..., warps, 32): warps of 32 pixels of a row ("row")
+    or of 8x4 pixels ("8x4"), row-major; pixels past the frame are zeros
+    (idle lanes)."""
+    h, w = x.shape[-2:]
+    wy, wx = (1, 32) if layout == "row" else (4, 8)
+    x = torch.nn.functional.pad(x, (0, -w % wx, 0, -h % wy))
+    lead = x.shape[:-2]
+    x = x.reshape(*lead, x.shape[-2] // wy, wy, x.shape[-1] // wx, wx)
+    x = x.movedim(-3, -2).reshape(*lead, -1, wy * wx)
+    return x
+
+
+def _lane_steps(iters, verts):
+    """Each lane's steps over its samples in order: (pixels, K) bool, True
+    where the step shades a vertex, and (pixels, K) bool, True where the
+    lane has a step; iters, verts (spp, pixels)."""
+    end = torch.cumsum(iters, 0)
+    start = end - iters
+    k_max = int(end[-1].max()) if end.numel() else 0
+    n = iters.shape[1]
+    diff = torch.zeros((n, k_max + 1), dtype=torch.int32, device=iters.device)
+    ones = torch.ones(start.T.shape, dtype=torch.int32, device=iters.device)
+    diff.scatter_add_(1, start.T.long(), ones)
+    diff.scatter_add_(1, (start + verts).T.long(), -ones)
+    vert = torch.cumsum(diff, 1)[:, :k_max] > 0
+    step = torch.arange(k_max, device=iters.device)[None, :] < end[-1][:, None]
+    return vert, step
+
+
+def _queue_passes(verts_px, lead_px, tail_px, lanes: int):
+    """The hit loop with a pixel queue: `lanes` lanes (warps of 32) take
+    pixels in order, one each at the start and the next when a pixel's
+    vertices are done, lanes asking in the same pass in lane order. In a
+    pass a lane shades one vertex, after its cheap steps: the steps of its
+    pixel up to that vertex, and when it takes pixels, the trailing steps
+    of the one it ends and every step of any that has no vertex. verts_px
+    (P,) vertices a pixel; lead_px (V,) the steps up to each vertex, pixel
+    by pixel in queue order; tail_px (P,) the steps after a pixel's last
+    vertex. Returns (issued vertex steps, issued iterations) of the warps."""
+    dev = verts_px.device
+    n_px = verts_px.numel()
+    first = torch.cumsum(verts_px, 0) - verts_px   # each pixel's first entry in lead_px
+    lanes = -(-lanes // 32) * 32
+    pix = torch.full((lanes,), -1, dtype=torch.long, device=dev)
+    k = torch.zeros(lanes, dtype=torch.long, device=dev)
+    live = torch.ones(lanes, dtype=torch.bool, device=dev)
+    nxt = 0
+    issued_v = issued_i = 0
+    while bool(live.any()):
+        cost = torch.zeros(lanes, dtype=torch.long, device=dev)
+        ends = live & ((pix < 0) | (k >= verts_px[pix.clamp(min=0)]))
+        cost += torch.where(ends & (pix >= 0), tail_px[pix.clamp(min=0)], 0)
+        ask = ends
+        while bool(ask.any()):
+            idx = torch.nonzero(ask).flatten()
+            got = torch.arange(nxt, nxt + idx.numel(), device=dev)
+            nxt += idx.numel()
+            ok = got < n_px
+            live[idx[~ok]] = False
+            idx, got = idx[ok], got[ok]
+            pix[idx], k[idx] = got, 0
+            empty = verts_px[got] == 0
+            cost[idx[empty]] += tail_px[got[empty]]
+            ask = torch.zeros_like(ask)
+            ask[idx[empty]] = True
+        shade = live & (pix >= 0)
+        cost += torch.where(shade, lead_px[(first[pix.clamp(min=0)] + k).clamp(max=max(
+            lead_px.numel() - 1, 0))] if lead_px.numel() else 0, 0)
+        k += shade.to(torch.long)
+        issued_v += int(shade.reshape(-1, 32).any(1).sum())
+        issued_i += int(cost.reshape(-1, 32).amax(1).sum())
+    return issued_v, issued_i
+
+
+def pt_work(width: int, height: int, spp: int, seed: int, layout: str = "8x4",
+            lanes=None, device="cpu") -> Dict[str, float]:
+    """The lanes' share of the warps' vertex steps and of their iterations
+    (nearest-hit steps) for P4 pt at (width, height, spp, seed), counted from
+    the plain lane's masks (pt_paths), under four designs: "serial" (a lane
+    a pixel, its samples in turn, each path's depth loop until the warp's
+    longest path ends), "regen" (a lane starts its next sample as soon as a
+    path ends, shading at whichever step it is), "hit_loop" (a lane runs
+    cheap steps until it holds a vertex, then the warp shades together) and
+    "queue" (the hit loop, `lanes` lanes taking the next pixel in the
+    layout's order when theirs is done; default a lane a pixel). Warps are
+    32 pixels of a row or 8x4 (`layout`). Returns, for each design, the
+    shares (`<design>_vertex`, `<design>_iter`) and the issued vertex steps
+    relative to serial's (`<design>_steps`), with the totals `vertices`,
+    `iterations` and `pixels_sky` (pixels that shade no vertex)."""
+    iters, verts = pt_paths(width, height, spp, seed, device)
+    out = {"vertices": int(verts.sum()), "iterations": int(iters.sum()),
+           "pixels_sky": int((verts.sum(0) == 0).sum())}
+    it_w, vt_w = _warp_lanes(iters, layout), _warp_lanes(verts, layout)   # (spp, warps, 32)
+    issued = {"serial": (int(vt_w.amax(2).sum()), int(it_w.amax(2).sum()))}
+    # the lanes' steps in order (warp-major), for regen and the hit loop
+    it_l, vt_l = it_w.reshape(spp, -1), vt_w.reshape(spp, -1)
+    vert, step = _lane_steps(it_l, vt_l)
+    issued["regen"] = (int(vert.reshape(-1, 32, vert.shape[1]).any(1).sum()),
+                       int(step.reshape(-1, 32, step.shape[1]).any(1).sum()))
+    # hit loop: step k belongs to pass (vertices before it) + 1
+    before = torch.cumsum(vert.to(torch.int32), 1) - vert.to(torch.int32)
+    n_pass = int(before.max()) + 1 if before.numel() else 1
+    per_pass = torch.zeros((vert.shape[0], n_pass), dtype=torch.int32, device=device)
+    per_pass.scatter_add_(1, before.long(), step.to(torch.int32))
+    issued["hit_loop"] = (int(vt_l.sum(0).reshape(-1, 32).amax(1).sum()),
+                          int(per_pass.reshape(-1, 32, n_pass).amax(1).sum()))
+    # the queue: pixels in the layout's order (the lanes above, the frame's
+    # padding left out); each vertex's steps since the pixel's previous one
+    real = _warp_lanes(torch.ones((height, width), dtype=torch.int32, device=device),
+                       layout).reshape(-1) > 0
+    row, pos = torch.nonzero(vert).T
+    prev = torch.cat([pos.new_full((1,), -1), pos[:-1]])
+    prev[torch.cat([row.new_ones(1, dtype=torch.bool), row[1:] != row[:-1]])] = -1
+    last = torch.full((vert.shape[0],), -1, dtype=torch.long, device=device)
+    last.scatter_reduce_(0, row, pos, "amax")
+    v_px = vt_l.sum(0)
+    issued["queue"] = _queue_passes(v_px[real], (pos - prev)[real[row]],
+                                    (step.sum(1) - 1 - last)[real],
+                                    width * height if lanes is None else int(lanes))
+    for name, (v, i) in issued.items():
+        out[f"{name}_vertex"] = out["vertices"] / (32.0 * v) if v else 1.0
+        out[f"{name}_iter"] = out["iterations"] / (32.0 * i) if i else 1.0
+        out[f"{name}_steps"] = v / issued["serial"][0] if issued["serial"][0] else 1.0
+    return out
+
+
 def _tonemap(hdr):
     """The shared resolve: Reinhard, then the exact piecewise sRGB encode,
     +0.5 round. (H, W, 3) float32 -> (H, W, 4) uint8."""

@@ -397,28 +397,69 @@ int f3d_struct_sizes(long long* out, int n) {
     for (int i = 0; i < n && i < 15; ++i) out[i] = sizes[i];
     return 15;
 }
-// P6, P5, P3 and P4 one point, ray or pixel at a time
+// P6, P5, P3 and P4 one point, ray or pixel at a time; P6 in the
+// instantiation pt.cu's launchers pick for the tape
 int f3d_sdf_eval(const SdfArgs* s, const float* px, const float* py, const float* pz, int n,
                  float* d, int* mat, void*) {
-    for (int i = 0; i < n; ++i) d[i] = sdf_eval(*s, px[i], py[i], pz[i], mat[i]);
+    const bool g = !sdf_in_shared(*s);
+    for (int i = 0; i < n; ++i)
+        d[i] = g ? sdf_eval_t<true>(s->tape, s->tape_len, px[i], py[i], pz[i], mat[i])
+                 : sdf_eval_t<false>(s->tape, s->tape_len, px[i], py[i], pz[i], mat[i]);
     return 0;
 }
 int f3d_sdf_normal(const SdfArgs* s, const float* px, const float* py, const float* pz, int n,
                    float eps, float* out, void*) {
-    for (int i = 0; i < n; ++i)
-        sdf_normal(*s, px[i], py[i], pz[i], eps, out[i], out[n + i], out[2 * n + i]);
+    const bool g = !sdf_in_shared(*s);
+    for (int i = 0; i < n; ++i) {
+        float* o = out + i;
+        if (g)
+            sdf_normal_t<true>(s->tape, s->tape_len, px[i], py[i], pz[i], eps, o[0], o[n], o[2 * n]);
+        else
+            sdf_normal_t<false>(s->tape, s->tape_len, px[i], py[i], pz[i], eps, o[0], o[n],
+                                o[2 * n]);
+    }
     return 0;
 }
 int f3d_sdf_march(const SdfArgs* s, const float* rox, const float* roy, const float* roz,
                   const float* rdx, const float* rdy, const float* rdz, int n, float tmin,
                   float tmax, int max_steps, float hit_eps, unsigned char* hit, float* t,
                   int* mat, void*) {
+    const bool g = !sdf_in_shared(*s);
     for (int i = 0; i < n; ++i) {
-        SdfHit h = sdf_march(*s, rox[i], roy[i], roz[i], rdx[i], rdy[i], rdz[i], tmin, tmax,
-                             max_steps, hit_eps);
+        SdfHit h = g ? sdf_march_t<true>(s->tape, s->tape_len, rox[i], roy[i], roz[i], rdx[i],
+                                         rdy[i], rdz[i], tmin, tmax, max_steps, hit_eps)
+                     : sdf_march_t<false>(s->tape, s->tape_len, rox[i], roy[i], roz[i], rdx[i],
+                                          rdy[i], rdz[i], tmin, tmax, max_steps, hit_eps);
         hit[i] = (unsigned char)h.hit; t[i] = h.t; mat[i] = h.material;
     }
     return 0;
+}
+int f3d_sdf_march_attrs(const SdfArgs* s, int* out) {
+    out[0] = out[1] = out[2] = 0;   // no device function on the host
+    out[3] = sdf_in_shared(*s);
+    return 0;
+}
+// test entry: P6's body with the tape read as from global or shared memory
+// (`global`) whatever its length: the distance and material at each point,
+// then the march of each ray
+void f3d_test_sdf_variant(const SdfArgs* s, int global, const float* px, const float* py,
+                          const float* pz, int n, float* d, int* mat, const float* ro,
+                          const float* rd, int n_rays, float tmin, float tmax, int max_steps,
+                          float hit_eps, unsigned char* hit, float* t, int* hmat) {
+    const float* tp = s->tape;
+    const int T = s->tape_len;
+    for (int i = 0; i < n; ++i)
+        d[i] = global ? sdf_eval_t<true>(tp, T, px[i], py[i], pz[i], mat[i])
+                      : sdf_eval_t<false>(tp, T, px[i], py[i], pz[i], mat[i]);
+    for (int i = 0; i < n_rays; ++i) {
+        const float* o = ro + 3 * i;
+        const float* q = rd + 3 * i;
+        SdfHit h = global ? sdf_march_t<true>(tp, T, o[0], o[1], o[2], q[0], q[1], q[2], tmin,
+                                              tmax, max_steps, hit_eps)
+                          : sdf_march_t<false>(tp, T, o[0], o[1], o[2], q[0], q[1], q[2], tmin,
+                                               tmax, max_steps, hit_eps);
+        hit[i] = (unsigned char)h.hit; t[i] = h.t; hmat[i] = h.material;
+    }
 }
 int f3d_trace_tlas(const TlasArgs* a, const float* rox, const float* roy, const float* roz,
                    const float* rdx, const float* rdy, const float* rdz, int n, float tmin,
@@ -465,9 +506,128 @@ int f3d_adj_raster_attrs(int* out) {
     out[0] = out[1] = out[2] = 0;   // no device function on the host
     return 0;
 }
+// P4 pt as adjudication.cu maps it: a lane a pixel in 8x4 tiles, each lane
+// run to its end in turn
 int f3d_adj_pt(const AdjArgs* a, const uint32_t* keys, unsigned char* rgba, float* hdr, void*) {
-    for (int i = 0; i < a->width * a->height; ++i) adj_pt_pixel(*a, keys, i, rgba, hdr);
+    for (int k = 0; k < adj_pt_lanes(a->width, a->height); ++k) {
+        const int p = adj_pt_pixel_of(a->width, a->height, k);
+        AdjNoQueue none;
+        if (p >= 0) adj_pt_lane(*a, keys, p, none, rgba, hdr);
+    }
     return 0;
+}
+int f3d_adj_pt_attrs(int* out) {
+    for (int k = 0; k < 4; ++k) out[k] = 0;   // no device function on the host
+    return 0;
+}
+// test entry: a pixel queue on the host, the pixels in row-major order or
+// the kernel's tile order (`tiles`), handed out from the last back with
+// `reverse`
+struct HostQueue {
+    int k, len, width, height;
+    bool reverse, tiles;
+    int operator()() {
+        for (;;) {
+            if (k >= len) return -1;
+            const int j = reverse ? len - 1 - k : k;
+            ++k;
+            const int p = tiles ? adj_pt_pixel_of(width, height, j) : j;
+            if (p >= 0) return p;
+        }
+    }
+};
+// test entry: P4 pt as a thread a pixel ran it before the hit loop: each
+// sample's depth loop in turn, the sun NEE's BSDF and shadow ray and the
+// environment sample's BSDF, pdfs and shadow ray formed at every vertex
+void f3d_test_adj_pt_serial(const AdjArgs* a, const uint32_t* keys, unsigned char* rgba,
+                            float* hdr) {
+    for (int i = 0; i < a->width * a->height; ++i) {
+        const uint32_t idx = (uint32_t)i;
+        V3 sum = v3(0.0f, 0.0f, 0.0f);
+        for (int s = 0; s < a->spp; ++s) {
+            const uint32_t* ks = keys + 2 * F3D_ADJ_KEYS * s;
+            float jx = adj_uniform(ks, idx), jy = adj_uniform(ks + 2, idx);
+            V3 ro = vld(a->cam_o);
+            V3 rd = adj_camera_ray(*a, i % a->width, i / a->width, jx, jy);
+            V3 thr = v3(1.0f, 1.0f, 1.0f), acc = v3(0.0f, 0.0f, 0.0f);
+            for (int depth = 0; depth < F3D_ADJ_DEPTH; ++depth) {
+                const uint32_t* kd = ks + 4 + 12 * depth;
+                float t;
+                int kind = adj_nearest(*a, ro, rd, t);
+                if (kind < 0) {
+                    acc = vadd(acc, vmul(thr, vld(a->sky)));
+                    break;
+                }
+                V3 pos = vadd(ro, vscale(rd, t));
+                V3 n = adj_normal(*a, pos, kind);
+                V3 alb = vld(a->alb + 3 * kind);
+                float rough = a->rough[kind];
+                V3 wo = vscale(rd, -1.0f);
+                acc = vadd(acc, vmul(thr, adj_sun_nee(*a, pos, n, wo, alb, rough)));
+                float u[6];
+                for (int j = 0; j < 6; ++j) u[j] = adj_uniform(kd + 2 * j, idx);
+                float cos_t = powf(1.0f - u[1], 1.0f / 17.0f);
+                float sin_t = sqrtf(fmaxf(0.0f, 1.0f - cos_t * cos_t));
+                float phi = 2.0f * F3D_ADJ_PI * u[2];
+                V3 wi_l;
+                if (u[0] < 0.5f) {
+                    wi_l = v3(sin_t * cosf(phi), cos_t, sin_t * sinf(phi));
+                } else {
+                    float r = sqrtf(u[1]), ph = 2.0f * F3D_ADJ_PI * u[2];
+                    wi_l = adj_to_world(n, r * cosf(ph), r * sinf(ph),
+                                        sqrtf(fmaxf(1.0f - u[1], 0.0f)));
+                }
+                float cos_surf = fmaxf(adj_dot(n, wi_l), 0.0f);
+                float pdf_l = adj_env_pdf(n, wi_l);
+                float pdf_b;
+                V3 f = adj_bsdf(wo, wi_l, n, alb, rough, pdf_b);
+                float w_mis = pdf_l / fmaxf(pdf_l + pdf_b, 1e-8f);
+                bool vis = !adj_occluded(*a, vadd(pos, vscale(n, 1e-3f)), wi_l);
+                if (cos_surf > 0.0f) {
+                    float w = cos_surf / fmaxf(pdf_l, 1e-8f) * w_mis * (vis ? 1.0f : 0.0f);
+                    acc = vadd(acc, vmul(thr, vscale(vmul(f, vld(a->amb)), w)));
+                }
+                float r4 = sqrtf(u[3]), ph4 = 2.0f * F3D_ADJ_PI * u[4];
+                V3 d = adj_to_world(n, r4 * cosf(ph4), r4 * sinf(ph4),
+                                    sqrtf(fmaxf(1.0f - u[3], 0.0f)));
+                V3 thr_new = vmul(thr, alb);
+                float max_c = fmaxf(fmaxf(thr_new.x, thr_new.y), thr_new.z);
+                float q = depth >= F3D_ADJ_RR ? fminf(fmaxf(1.0f - max_c, 0.0f), 0.95f) : 0.0f;
+                if (!(u[5] >= q) || depth + 1 >= F3D_ADJ_DEPTH) break;
+                float inv = fmaxf(1.0f - q, 1e-6f);
+                thr = v3(thr_new.x / inv, thr_new.y / inv, thr_new.z / inv);
+                ro = vadd(pos, vscale(n, 1e-3f));
+                rd = d;
+            }
+            sum = vadd(sum, acc);
+        }
+        const float spp = (float)a->spp;
+        adj_store(*a, v3(sum.x / spp, sum.y / spp, sum.z / spp), i, rgba, hdr);
+    }
+}
+// test entry: P4 pt as `lanes` lanes taking pixels from one queue, in
+// passes: each lane in turn (from the last back with `reverse`) runs its
+// cheap steps, taking the queue's next pixel when its own is done, then
+// shades its held vertex
+void f3d_test_adj_pt_queue(const AdjArgs* a, const uint32_t* keys, unsigned char* rgba,
+                           float* hdr, int lanes, int reverse, int tiles) {
+    const int len = tiles ? adj_pt_lanes(a->width, a->height) : a->width * a->height;
+    HostQueue q{0, len, a->width, a->height, reverse != 0, tiles != 0};
+    std::vector<AdjLane> L(lanes);
+    std::vector<int> live(lanes, 1);
+    for (int l = 0; l < lanes; ++l) adj_pt_begin(L[l], q());
+    for (int busy = lanes; busy > 0;) {
+        busy = 0;
+        for (int j = 0; j < lanes; ++j) {
+            const int l = reverse ? lanes - 1 - j : j;
+            float t;
+            int kind;
+            if (!live[l]) continue;
+            live[l] = adj_pt_advance(*a, keys, L[l], q, rgba, hdr, t, kind);
+            if (live[l]) adj_pt_vertex(*a, keys, L[l], t, kind);
+            busy += live[l];
+        }
+    }
 }
 // E4: the binning one primitive (and backdrop row) at a time, then each
 // tile's pixels in order
@@ -2260,6 +2420,155 @@ def test_sdf_kernels(kernels):
     assert (sd.sdf_eval.launches, sd.sdf_march.launches) == (before[0] + 2, before[1] + 1)
 
 
+# P6's packed tape. A right-deep chain of primitives under operations
+# needs a stack as deep as its primitives; the chains cycle through every
+# primitive and operation kind. Both instantiations of the body (the tape
+# read as from global or from shared memory) are held bit for bit to the
+# plain versions at every stack depth from 1 to 8, on every kind and on a
+# deep tape, the t and material of the rays that miss included.
+def sdf_chain(depth, device, kinds=None):
+    from forge3d_tpu_torch.ops.sdf import SdfSceneBuilder
+
+    b = SdfSceneBuilder()
+    rng = np.random.default_rng(depth)
+    prims = []
+    for i in range(depth):
+        c = tuple(float(v) for v in rng.uniform(-1.2, 1.2, 3))
+        kind = (i if kinds is None else kinds[i]) % 6
+        if kind == 0:
+            prims.append(b.add_sphere(c, 0.5 + 0.1 * i, i + 1))
+        elif kind == 1:
+            prims.append(b.add_box(c, (0.6, 0.4, 0.5), i + 1))
+        elif kind == 2:
+            prims.append(b.add_cylinder(c, 0.4, 0.6, i + 1))
+        elif kind == 3:
+            prims.append(b.add_plane((0.1, 1.0, 0.2), -1.5, i + 1))
+        elif kind == 4:
+            prims.append(b.add_torus(c, 0.6, 0.2, i + 1))
+        else:
+            prims.append(b.add_capsule(c, (c[0] + 0.8, c[1] + 0.5, c[2] - 0.3), 0.25, i + 1))
+    ops = ["union", "smooth_union", "intersect", "smooth_intersect", "subtract",
+           "smooth_subtract"]
+    node = prims[-1]
+    for i in range(depth - 2, -1, -1):
+        op = ops[i % 6] if kinds is None else "union"
+        args = (prims[i], node) + ((0.3,) if op.startswith("smooth") else ())
+        node = getattr(b, op)(*args, material_id=100 + i)
+    return b.build(device=device)
+
+
+def host_sdf_args(scene):
+    """The kernels' SdfArgs of a scene on the CPU (the host twin's)."""
+    return _kernels.SdfArgs(_kernels.ptr(scene.packed), scene.tape_len, scene.stack_depth,
+                            scene.cull[0], _kernels._F3(*scene.cull[1]),
+                            _kernels._F3(*scene.cull[2]), 1e-3)
+
+
+def sdf_variant(host_lib, scene, pts, ro, rd, shared, tmax=20.0):
+    n, m = pts[0].numel(), ro[0].numel()
+    d = torch.empty(n, dtype=torch.float32)
+    mat = torch.empty(n, dtype=torch.int32)
+    hit = torch.empty(m, dtype=torch.bool)
+    t = torch.empty(m, dtype=torch.float32)
+    hm = torch.empty(m, dtype=torch.int32)
+    o = torch.stack(ro, 1).contiguous()
+    q = torch.stack(rd, 1).contiguous()
+    host_lib.f3d_test_sdf_variant(
+        ctypes.byref(host_sdf_args(scene)), int(not shared), *(_kernels.ptr(c) for c in pts), n,
+        _kernels.ptr(d), _kernels.ptr(mat), _kernels.ptr(o), _kernels.ptr(q), m,
+        ctypes.c_float(1e-3), ctypes.c_float(tmax), 128, ctypes.c_float(1e-3),
+        _kernels.ptr(hit), _kernels.ptr(t), _kernels.ptr(hm))
+    return (d, mat), (hit, t, hm)
+
+
+@pytest.mark.parametrize("depth", list(range(1, 9)) + ["all_kinds", "deep_13"])
+def test_sdf_packed_tape_and_stacks(host_lib, kernels, depth):
+    from forge3d_tpu_torch.ops import sdf as sd
+
+    if depth == "all_kinds":
+        scene = sdf_all_kinds("cpu")
+    elif depth == "deep_13":          # a right-deep chain of 12 unions
+        scene = sdf_chain(13, "cpu", kinds=[0, 1, 2, 4, 5] * 3)
+    else:
+        scene = sdf_chain(depth, "cpu")
+    want = depth if isinstance(depth, int) else (13 if depth == "deep_13" else None)
+    if want is not None:
+        assert scene.stack_depth == want
+    packed = scene.packed.view(torch.int32)
+    assert packed.shape == (scene.tape_len, 12)
+    assert torch.equal(packed[:, 0], scene.tape.is_op.to(torch.int32))
+    assert torch.equal(packed[:, 1], scene.tape.kind)
+    assert torch.equal(packed[:, 2], scene.tape.material)
+    assert torch.equal(scene.packed[:, 4:], scene.tape.params)
+    rng = np.random.default_rng(8)
+    pts = [torch.as_tensor(c) for c in rng.uniform(-3, 3, (3, 2048)).astype(np.float32)]
+    ro, rd = sdf_rays(1024, "cpu", seed=9)
+    dp = sd.sdf_eval_plain(scene, *pts)
+    hp = sd.sdf_march_plain(scene, ro, rd, 1e-3, 20.0, 128, 1e-3)
+    for shared in (False, True):
+        (d, m), h = sdf_variant(host_lib, scene, pts, ro, rd, shared)
+        assert torch.equal(d, dp[0]) and torch.equal(m, dp[1]), shared
+        assert all(torch.equal(a, b) for a, b in zip(h, hp)), shared
+    assert bool((~hp.hit).any()) and bool((hp.material[~hp.hit] == -1).all())
+    # the launchers' choice, and the wrappers through it
+    attrs = (ctypes.c_int * 4)()
+    host_lib.f3d_sdf_march_attrs(ctypes.byref(host_sdf_args(scene)), attrs)
+    assert attrs[3] == 1 and sd.kernel_instance(scene) == "shared tape"
+    sc = scene.to(kernels)
+    dk = sd._sdf_eval_kernel(sc, *(c.to(kernels) for c in pts))
+    hk = sd._sdf_march_kernel(sc, [c.to(kernels) for c in ro], [c.to(kernels) for c in rd],
+                              1e-3, 20.0, 128, 1e-3)
+    nk = sd._sdf_normal_kernel(sc, *(c.to(kernels) for c in pts), 1e-4)
+    np_ = sd.sdf_normal_plain(scene, *pts, 1e-4)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(dk, dp))
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(hk, hp))
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(nk, np_))
+
+
+def sdf_long_tape(device, spine=20, branch=30, seed=3):
+    """A tape longer than the kernels' shared-memory copy holds, with a
+    shallow stack: a left-deep spine of `spine` unions, each taking a
+    left-deep union of `branch` spheres (stack depth 3, tree depth 50)."""
+    from forge3d_tpu_torch.ops.sdf import SdfSceneBuilder
+
+    b = SdfSceneBuilder()
+    rng = np.random.default_rng(seed)
+    ids = [b.add_sphere(tuple(float(v) for v in rng.uniform(-2, 2, 3)),
+                        float(rng.uniform(0.05, 0.2)), k + 1) for k in range(spine * branch)]
+    node = None
+    for j in range(spine):
+        sub = ids[j * branch]
+        for k in range(1, branch):
+            sub = b.union(sub, ids[j * branch + k], material_id=1000 + k)
+        node = sub if node is None else b.smooth_union(node, sub, 0.1, material_id=2000 + j)
+    return b.build(device=device)
+
+
+def test_sdf_long_tape_is_read_from_global_memory(host_lib, kernels):
+    """A tape longer than the shared-memory copy holds takes the
+    global-memory instantiation."""
+    from forge3d_tpu_torch.ops import sdf as sd
+
+    scene = sdf_long_tape("cpu")
+    assert scene.tape_len > sd.SHARED_TAPE and scene.stack_depth == 3
+    attrs = (ctypes.c_int * 4)()
+    host_lib.f3d_sdf_march_attrs(ctypes.byref(host_sdf_args(scene)), attrs)
+    assert attrs[3] == 0 and sd.kernel_instance(scene) == "global tape"
+    rng = np.random.default_rng(4)
+    pts = [torch.as_tensor(c, device=kernels)
+           for c in rng.uniform(-3, 3, (3, 256)).astype(np.float32)]
+    ro, rd = sdf_rays(64, kernels, seed=5)
+    sc = scene.to(kernels)
+    dk = sd._sdf_eval_kernel(sc, *pts)
+    dp = sd.sdf_eval_plain(scene, *(c.cpu() for c in pts))
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(dk, dp))
+    hk = sd._sdf_march_kernel(sc, ro, rd, 1e-3, 20.0, 64, 1e-3)
+    hp = sd.sdf_march_plain(scene, [c.cpu() for c in ro], [c.cpu() for c in rd], 1e-3, 20.0,
+                            64, 1e-3)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(hk, hp))
+    assert bool(hp.hit.any()) and bool((~hp.hit).any())
+
+
 def tlas_case(device):
     from forge3d_tpu_torch.ops import tlas as tl
 
@@ -2642,6 +2951,186 @@ def test_adjudication_raster_work_counts():
     assert work["blocked_ground"] + work["plane_exit"] == work["blocked"]
     for k in ("lanes_parent_row", "lanes_parent_8x4", "lanes_kernel_row", "lanes_kernel_8x4"):
         assert 0.0 < work[k] <= 1.0
+
+
+# P4 pt's hit loop. On the host the twin calls the C library's cosf, sinf
+# and powf, which may differ from PyTorch's by an ulp, so it is held bit for
+# bit to the serial loop it replaces (the same library, the skipped work
+# formed) and to the plain lane by test_adjudication_kernels' gates; on the
+# card, bit for bit to the plain lane.
+def pt_twin_out(width, height):
+    return (torch.empty(height, width, 4, dtype=torch.uint8),
+            torch.empty(height, width, 3, dtype=torch.float32))
+
+
+@pytest.mark.parametrize("spp", [4, 7])
+def test_adjudication_pt_hit_loop(host_lib, kernels, spp):
+    from forge3d_tpu_torch.pt import adjudication as adj
+
+    w, h = 32, 24
+    keys = torch.as_tensor(adj.key_table(7, spp).view(np.int32).copy())
+    rgba_s, hdr_s = pt_twin_out(w, h)
+    host_lib.f3d_test_adj_pt_serial(ctypes.byref(adj.adj_args(w, h, spp)), _kernels.ptr(keys),
+                                    _kernels.ptr(rgba_s), _kernels.ptr(hdr_s))
+    before = adj.pt_lane.launches
+    rk, hk = adj._pt_lane_kernel(w, h, spp, 7, kernels)
+    assert adj.pt_lane.launches == before + 1
+    rp, hp = adj.pt_lane_plain(w, h, spp, 7, kernels)
+    if kernels.type == "cuda":
+        # pt_lane_plain's mean, hdr / float(spp), is a product by the
+        # reciprocal in PyTorch's CUDA division by a scalar (one ulp off the
+        # quotient at spp 7); the kernel divides, as JAX does. The reference
+        # is the plain samples summed in order, divided element by element.
+        keys_np = adj.key_table(7, spp)
+        acc = torch.zeros(h, w, 3, dtype=torch.float32, device=kernels)
+        for i in range(spp):
+            acc = acc + adj._pt_sample(keys_np[i], w, h, kernels)
+        ref = acc / torch.full_like(acc, float(spp))
+        assert torch.equal(hk, ref) and torch.equal(rk, adj._tonemap(ref))
+        if spp == 4:
+            assert torch.equal(hk, hp) and torch.equal(rk, rp)
+    else:
+        assert torch.equal(rk, rgba_s) and torch.equal(hk, hdr_s)
+        assert close_frac(hp, hk) >= 0.995
+        assert float(((rk.int() - rp.int()).abs() <= 1).all(-1).double().mean()) >= 0.995
+
+
+@pytest.mark.parametrize("tiles", [False, True], ids=["rows", "tiles"])
+def test_adjudication_pt_queue_order(host_lib, tiles):
+    """P4 pt's lanes under another schedule: a pixel queue handed out from
+    its last index back, to lanes run pass by pass from the last back, a
+    lane for every 3.5 pixels of 64x48 (in 8x4 tiles: with the ragged
+    tiles' holes at 60x45), and 96 lanes in order: the same bits as the
+    kernel's lane a pixel."""
+    from forge3d_tpu_torch.pt import adjudication as adj
+
+    w, h, spp = (60, 45, 3) if tiles else (64, 48, 3)
+    a = adj.adj_args(w, h, spp)
+    keys = torch.as_tensor(adj.key_table(7, spp).view(np.int32).copy())
+    ref = pt_twin_out(w, h)
+    host_lib.f3d_adj_pt(ctypes.byref(a), _kernels.ptr(keys), _kernels.ptr(ref[0]),
+                        _kernels.ptr(ref[1]), None)
+    for lanes, reverse in ((w * h * 2 // 7, 1), (96, 0)):
+        got = pt_twin_out(w, h)
+        host_lib.f3d_test_adj_pt_queue(ctypes.byref(a), _kernels.ptr(keys), _kernels.ptr(got[0]),
+                                       _kernels.ptr(got[1]), lanes, reverse, int(tiles))
+        assert torch.equal(ref[0], got[0]) and torch.equal(ref[1], got[1]), (lanes, reverse)
+
+
+def pt_work_brute(iters, verts, layout, lanes):
+    """pt_work's four designs counted lane by lane in plain Python."""
+    spp, h, w = iters.shape
+    wy, wx = (1, 32) if layout == "row" else (4, 8)
+    order = [(y, x) for ty in range(-(-h // wy)) for tx in range(-(-w // wx))
+             for y in range(ty * wy, ty * wy + wy) for x in range(tx * wx, tx * wx + wx)]
+    seq = []   # each lane's steps in order: True where it shades a vertex
+    for y, x in order:
+        if y < h and x < w:
+            seq.append([k < int(verts[s, y, x]) for s in range(spp)
+                        for k in range(int(iters[s, y, x]))])
+        else:
+            seq.append(None)
+    warps = [seq[i:i + 32] for i in range(0, len(seq), 32)]
+    live = [[l for l in wp if l is not None] for wp in warps]
+    n_v = sum(sum(l) for l in seq if l)
+    n_i = sum(len(l) for l in seq if l)
+    out = {}
+
+    def per_sample(y, x, s):
+        return (int(iters[s, y, x]), int(verts[s, y, x])) if y < h and x < w else (0, 0)
+
+    sv = si = 0
+    for i in range(len(warps)):
+        px = order[32 * i:32 * i + 32]
+        for s in range(spp):
+            sv += max(per_sample(y, x, s)[1] for y, x in px)
+            si += max(per_sample(y, x, s)[0] for y, x in px)
+    out["serial"] = (sv, si)
+    rv = ri = 0
+    for wp in live:
+        k_max = max(len(l) for l in wp)
+        ri += k_max
+        rv += sum(any(k < len(l) and l[k] for l in wp) for k in range(k_max))
+    out["regen"] = (rv, ri)
+
+    def passes(l):
+        """a lane's cheap steps in each pass (the last: trailing misses)"""
+        c, out_ = 0, []
+        for v in l:
+            c += 1
+            if v:
+                out_.append(c)
+                c = 0
+        return out_ + ([c] if c else [])
+
+    hv = hi = 0
+    for wp in live:
+        ps = [passes(l) for l in wp]
+        hv += max(sum(l) for l in wp)
+        n_p = max(len(p) for p in ps)
+        hi += sum(max((p[j] if j < len(p) else 0) for p in ps) for j in range(n_p))
+    out["hit_loop"] = (hv, hi)
+    # the queue: pixels in the layout's order, `lanes` lanes in warps of 32
+    pix = [l for l in seq if l is not None]
+    lanes = -(-lanes // 32) * 32
+    cur = [None] * lanes     # [passes of the pixel, next pass]
+    done = [False] * lanes
+    nxt = qv = qi = 0
+    while not all(done):
+        cost = [0] * lanes
+        shade = [False] * lanes
+        ask = []
+        for l in range(lanes):
+            if done[l] or (cur[l] is not None and cur[l][1] < sum(cur[l][2])):
+                continue
+            if cur[l] is not None:
+                cost[l] += cur[l][0][-1] if len(cur[l][0]) > sum(cur[l][2]) else 0
+            ask.append(l)
+        while ask:           # the asking lanes take a pixel each in lane order, again
+            again = []       # for those whose pixel shades nothing
+            for l in ask:
+                if nxt >= len(pix):
+                    done[l] = True
+                    continue
+                p = pix[nxt]
+                nxt += 1
+                cur[l] = [passes(p), 0, p]
+                if not sum(p):
+                    cost[l] += len(p)
+                    again.append(l)
+            ask = again
+        for l in range(lanes):
+            if not done[l]:
+                cost[l] += cur[l][0][cur[l][1]]
+                cur[l][1] += 1
+                shade[l] = True
+        qv += sum(any(shade[i:i + 32]) for i in range(0, lanes, 32))
+        qi += sum(max(cost[i:i + 32]) for i in range(0, lanes, 32))
+    out["queue"] = (qv, qi)
+    return n_v, n_i, out
+
+
+@pytest.mark.parametrize("layout", ["row", "8x4"])
+def test_pt_work_counts(layout):
+    """pt_work's counts at 32x32 (rows of 32 and 8x4 warps, and a queue of
+    64 lanes) equal a lane-by-lane count, and its vertices those the plain
+    lane shades."""
+    from forge3d_tpu_torch.pt import adjudication as adj
+
+    w = h = 32
+    spp = 3
+    work = adj.pt_work(w, h, spp, 7, layout, lanes=64)
+    iters, verts = adj.pt_paths(w, h, spp, 7)
+    adj._pt_sample.vertices = 0
+    adj.pt_lane_plain(w, h, spp, 7)
+    assert work["vertices"] == int(verts.sum()) == adj._pt_sample.vertices
+    n_v, n_i, brute = pt_work_brute(iters, verts, layout, 64)
+    assert (work["vertices"], work["iterations"]) == (n_v, n_i)
+    for name, (v, i) in brute.items():
+        assert work[f"{name}_vertex"] == pytest.approx(n_v / (32.0 * v), rel=1e-12), name
+        assert work[f"{name}_iter"] == pytest.approx(n_i / (32.0 * i), rel=1e-12), name
+        assert work[f"{name}_steps"] == pytest.approx(v / brute["serial"][0], rel=1e-12), name
+    assert work["pixels_sky"] > 0 and work["serial_vertex"] < work["hit_loop_vertex"]
 
 
 # E8: each stage of the step and the march against its plain version

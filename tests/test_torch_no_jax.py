@@ -198,6 +198,25 @@ SCRIPT = textwrap.dedent("""
     assert bool(th.hit.all()) and tl.trace_tlas.launches == 0
     pt_rgba, raster_rgba, meta = f3t.render_adjudication_builtin(8, 8, spp=1, device="cpu")
     assert pt_rgba.shape == raster_rgba.shape == (8, 8, 4) and "pt" in meta
+    # a deep tape (stack 10), its packed form, and
+    # P4 pt's lane work by design
+    from forge3d_tpu_torch.ops import sdf as sdf_ops
+    from forge3d_tpu_torch.pt import adjudication as adj_ops
+    b = f3t.SdfSceneBuilder()
+    leaves = [b.add_sphere((float(k), 1.0, 0.0), 0.6) for k in range(10)]
+    node = leaves[-1]
+    for k in range(8, -1, -1):
+        node = b.union(leaves[k], node)
+    deep = b.build(device="cpu")
+    assert deep.stack_depth == 10 and deep.packed.shape == (deep.tape_len, 12)
+    assert sdf_ops.kernel_instance(deep) == "shared tape"
+    hit = deep.raymarch((np.full(4, 4.0, np.float32), np.full(4, 4.0, np.float32),
+                         np.full(4, 4.0, np.float32)),
+                        (np.zeros(4, np.float32), -np.full(4, 0.6, np.float32),
+                         -np.full(4, 0.8, np.float32)))
+    assert bool(hit[0].all())
+    work = adj_ops.pt_work(16, 8, 1, 7, "8x4", lanes=32)
+    assert 0.0 < work["serial_vertex"] <= work["hit_loop_vertex"] <= 1.0
     tracer = f3t.PathTracer(16, 16, device="cpu")
     img = tracer.render_rgba(16, 16, scene=[{"center": (0, 1, 0), "radius": 1.0}],
                              camera={"origin": (0, 1.2, 3)})
