@@ -14,7 +14,10 @@ the main path's shapes and the day cycle's three hours, without gates
 and P3, `--probe C1P4` only C1 entropy (1024^2 and 4096^2 at max_error
 0.1) and P4 raster (512^2), `--probe P6P4` only P6 (march, eval and normal on
 phase 22's landmark), P3 and P4 pt (512^2, spp 64), each with a sha256 of
-its outputs. Copied
+its outputs; `--probe K9S2` K9 alone and every kernel that runs its body
+(K8, K6 hybrid frame 1, P2, P3, P5) at the main path's shapes and S2/S3 by
+convolution and in one launch by lane groups (`--probe K9` and `--probe S2`
+one half each), with a sha256 of each output. Copied
 into a checkout of an earlier tree and run there, it times that tree's
 kernels, so two designs can be compared on one card.
 
@@ -73,7 +76,10 @@ Phases (one line each; any failure exits non-zero):
                 hybrid render runs them (walking the town, sampling the
                 lights), and K9 and K10 alone, against their plain versions
                 at that scene's shapes, with the gates of phases 5 and 10
-                (K6 bit for bit), all timed; the hybrid K6 split by ray;
+                (K6 and K9 bit for bit), all timed; the hybrid K6 split by
+                ray; the host ms of the packing of K9's records, and the
+                registers, local bytes and resident blocks of every kernel
+                that runs K9's body (K9, K6 hybrid, K8, P2, P3, P5);
  12. engines -- `pt_render_gpu_mesh` (P2) on the same town and
                 `pt_render_gpu` (P1) on the three golden spheres at
                 1920x1080, each launched once, each held against its plain
@@ -103,15 +109,16 @@ Phases (one line each; any failure exits non-zero):
                 kernel's bits;
  16. screen kernels -- the screen-mode TerrainRenderer's kernels over the JAX
                 bench op's 513^2 DEM: S1 (the 256^2 env cube), S2/S3 (the six
-                convolutions of one IBL pyramid), S4 (the 4096^2 depth raster
+                convolutions of one IBL pyramid in one launch, and each
+                launched alone to split its time), S4 (the 4096^2 depth raster
                 of 2,093,058 triangles) and S8 with PCSS (S5) inside in
                 configuration A (the bench op screen_terrain_rgba) and B (IBL,
                 water with a reflection, layers with subsurface, mix, hue) at
                 256x128 and 1080p, each against its plain version on the card
                 and timed;
  17. screen render -- the main path: render_with_aov in A and B at 1080p,
-                cold (caches emptied; S1, S2/S3 x6, S4 and S8 must launch) and
-                warm (S8 alone), bit-identical, B launching S8 twice (its
+                cold (caches emptied; S1, S2/S3 (one launch), S4 and S8 must
+                launch) and warm (S8 alone), bit-identical, B launching S8 twice (its
                 mirrored half-res pass), with the times and peak memory;
  18. screen kernels 2 -- S8 with POM (S7) and the aerial sky (S6) inside in
                 configuration C (B plus POM at the recipe settings and the
@@ -377,11 +384,11 @@ K4_BYTES = 0.9999      # sweep K4: >= 99.99% of the packed bytes equal
 # max |err| 0; the margin leaves an ulp of powf)
 P1_FRAC, P1_MAX_ERR = 1.0, 1e-4
 P2_FRAC, P2_MAX_ERR = 1.0, 1e-4
-# K9 alone: hits and primitives equal on every ray, every t within
-# 1e-6 * (1 + t) and max |dt| <= K9_MAX_DT; K10 alone: every output within
-# FLOAT_TOL and max |err| <= K10_MAX_ERR (the card showed both bit-identical
-# to their plain versions, max |err| 0, at 256x128 and at the bench shapes)
-K9_FRAC, K9_MAX_DT = 1.0, 1e-3
+# K9 alone: hit, prim, t, u and v bit-identical to the plain version on
+# every ray (compare_mesh_hits; the card showed that since K9 was ported);
+# K10 alone: every output within FLOAT_TOL and max |err| <= K10_MAX_ERR (the
+# card showed it bit-identical to its plain version, max |err| 0, at 256x128
+# and at the bench shapes)
 K10_FRAC, K10_MAX_ERR = 1.0, 1e-3
 
 REPLACES = {
@@ -1577,9 +1584,27 @@ def k6_attrs(phase):
                    f"of 256 threads an SM")
 
 
+def k9_attrs(phase):
+    """The registers, local bytes and resident blocks an SM of every kernel
+    that runs K9's body (cudaFuncGetAttributes,
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    for name, fn, args in (("K9 alone", "f3d_mesh_kernel_attrs", (0,)),
+                           ("K6 hybrid", "f3d_mesh_kernel_attrs", (1,)),
+                           ("K8", "f3d_mesh_kernel_attrs", (2,)),
+                           ("P2", "f3d_render_mesh_attrs", ()),
+                           ("P3", "f3d_hybrid_attrs", ()),
+                           ("P5", "f3d_tlas_attrs", ())):
+        a = _attrs(fn, *args)
+        say(phase, f"K9's body in {name}: {a[0]} registers, {a[1]} B local, {a[2]} resident "
+                   f"blocks an SM")
+
+
 def compare_mesh_hits(tag, hp, hk):
     """(hit agreement, prim agreement where both hit, fraction of t within
-    1e-6 * (1 + t), max |dt|); fails below K9_FRAC or above K9_MAX_DT."""
+    1e-6 * (1 + t), max |dt|); fails unless hit, prim, t, u and v are
+    bit-identical on every ray."""
+    import torch
+
     agree = float((hp.hit == hk.hit).double().mean())
     both = hp.hit & hk.hit
     prim = float((hp.prim[both] == hk.prim[both]).double().mean()) if bool(both.any()) else 1.0
@@ -1587,9 +1612,11 @@ def compare_mesh_hits(tag, hp, hk):
     tfrac = float(((tp - tk).abs() <= 1e-6 * (1.0 + tp.abs())).double().mean()) \
         if bool(both.any()) else 1.0
     dt = max_abs(hp.t[both], hk.t[both])
-    require(min(agree, prim, tfrac) >= K9_FRAC and dt <= K9_MAX_DT,
-            f"{tag}: K9 trace_mesh disagrees with its plain version (hits {agree:.6f}, "
-            f"prims {prim:.6f}, t {tfrac:.6f}, max |dt| {dt:.3e})")
+    same = {k: bool(torch.equal(a.view(torch.int32), b.view(torch.int32)) if a.is_floating_point()
+                    else torch.equal(a, b)) for k, a, b in zip(hp._fields, hp, hk)}
+    require(all(same.values()),
+            f"{tag}: K9 trace_mesh is not bit-identical to its plain version ({same}; hits "
+            f"{agree:.6f}, prims {prim:.6f}, t {tfrac:.6f}, max |dt| {dt:.3e})")
     return agree, prim, tfrac, dt
 
 
@@ -1773,8 +1800,24 @@ def phase_hybrid_render(dem):
     mts = MeshTracerScene(desc.mesh[0], desc.mesh[1], torch.device("cuda"))
     say("hybrid render", f"host BVH build (build_sah_bvh, {mts.triangle_count} triangles, "
                          f"{mts.n_nodes} nodes, max depth {mts.bvh.stats['max_depth']}): "
-                         f"{time.perf_counter() - t0:.4f} s")
+                         f"{time.perf_counter() - t0:.4f} s, of it the packing of K9's records "
+                         f"{records_pack_ms(mts.scene):.3f} ms ({mts.scene.kernel_nbytes} B)")
     return mts, launches
+
+
+def records_pack_ms(*scenes) -> float:
+    """Host ms of packing K9's records (ops/bvh.py: pack_nodes, pack_tris)
+    from the BVH arrays of MeshScenes or BvhArrays, as MeshScene.from_arrays
+    packs them where a scene goes to the card."""
+    from forge3d_tpu_torch.ops import bvh
+
+    arrays = [[np.asarray(a.cpu() if hasattr(a, "cpu") else a)
+               for a in (getattr(s, k) for k in bvh._SOA)] for s in scenes]
+    t0 = time.perf_counter()
+    for bmin, bmax, first, count, miss, v0, e1, e2 in arrays:
+        bvh.pack_nodes(bmin, bmax, first, count, miss)
+        bvh.pack_tris(v0, e1, e2)
+    return (time.perf_counter() - t0) * 1e3
 
 
 def fields_bytes(*objs) -> int:
@@ -1863,7 +1906,7 @@ def phase_hybrid_timing(dem, mts, launches):
         max(max_abs(gp8[k], gk8[k]) for k in ("normal", "depth")),
         cuda_ms(lambda: tr._gbuffer_resolve_kernel(ctx, d, th), 20), plain_ms,
         f"AOVs agree on {fr:.6f}; {w8['node_visits']} node visits, {w8['tri_tests']} "
-        f"triangle tests", n * (12 + 13 + 44) + scene_bytes(ctx.scene) + mts.bvh.nbytes,
+        f"triangle tests", n * (12 + 13 + 44) + scene_bytes(ctx.scene) + mts.scene.kernel_nbytes,
         n * OPS_LEAF + traced_ops(w8))
 
     # K6 frame 0 -> K7 -> K6 frame 1 on the hybrid context, each frame
@@ -1878,9 +1921,8 @@ def phase_hybrid_timing(dem, mts, launches):
     require(same_frame((pa, pw, pm), (a0, w0, m0)),
             "bench town: K6 frame 0 is not bit-identical to its plain version")
     r0 = rst.spatial_reuse(m0, *gk["gb_n"], W, H, 0, ctx.seed_hi)
-    work = work_counters()
-    plain_ms, (pa, pw, pm) = wall_ms(lambda: tr.frame_step_plain(ctx, a0, w0, r0, 1))
-    w6 = work()
+    # the work as the kernel does it: any-hit shadow walks
+    plain_ms, (pa, pw, pm), w6 = k6_hybrid_work(ctx, a0, w0, r0)
     ka, kw_, km = tr.frame_step(ctx, a0, w0, r0, 1)
     fa = min(close_frac(pa, ka), close_frac(pw, kw_))
     require(fa >= FLOAT_FRAC, "bench town: K6 frame 1 disagrees with its plain version")
@@ -1891,7 +1933,7 @@ def phase_hybrid_timing(dem, mts, launches):
         cuda_ms(lambda: tr.frame_step(ctx, a0, w0, r0, 1), 5), plain_ms,
         f"f1: bit-identical; accum and welford {fa:.6f}, merged reservoirs {fm:.6f} within "
         f"tolerance; {w6['node_visits']} node visits, {w6['tri_tests']} triangle tests, {w6['steps']} "
-        f"DDA steps", 2 * n * (16 + 8 + 40) + scene_bytes(ctx.scene) + mts.bvh.nbytes
+        f"DDA steps", 2 * n * (16 + 8 + 40) + scene_bytes(ctx.scene) + mts.scene.kernel_nbytes
         + fields_bytes(*ctx.lights), traced_ops(w6) + n * ctx.spp * (OPS_SHADE + OPS_LIGHT))
     k6_split("hybrid timing", "K6 hybrid", ctx, gk, (a0, w0, r0))
 
@@ -1905,9 +1947,10 @@ def phase_hybrid_timing(dem, mts, launches):
     agree, prim, tfrac, dt = compare_mesh_hits("bench town", hp, hk)
     ms9 = cuda_ms(lambda: bvh.trace_mesh(mts.scene, mts.n_nodes, ro, rd), 5)
     rays = ro[0].numel()
-    b9, by9 = bound(rays * (24 + 17) + mts.bvh.nbytes, traced_ops(w9))
+    b9, by9 = bound(rays * (24 + 17) + mts.scene.kernel_nbytes, traced_ops(w9))
     rows.append(kernel_row("K9 trace_mesh", launches["K9 trace_mesh"], dt, ms9, plain_ms,
                            b9, by9))
+    k9_attrs("hybrid timing")
     say("hybrid timing", f"K9 trace_mesh: {rays} center and sun rays, kernel {ms9:.4f} ms, plain "
                          f"{plain_ms:.4f} ms, bound {b9:.4f} ms ({by9}); hits {agree:.6f}, prims "
                          f"{prim:.6f}, t {tfrac:.6f}, max |dt| {dt:.3e}; {w9['node_visits']} node "
@@ -1973,12 +2016,11 @@ def phase_engines(mts):
     sd = sun_direction(135.0, 45.0)
     args = (ecam, mts, mat, sd, float(np.float32(3.0)))
     pk = mr._render_mesh_kernel(*args)
-    work = work_counters()
     plain_ms, pp = wall_ms(lambda: mr.render_mesh_plain(*args))
-    w2 = work()
+    w2 = p2_work(ecam, mts, sd)     # the work as the kernel does it: an any-hit shadow walk
     frac, err, u8 = compare_planes("P2 render_mesh", pp, pk, P2_FRAC, P2_MAX_ERR)
     ms2 = cuda_ms(lambda: mr._render_mesh_kernel(*args), 10)
-    b2, by2 = bound(n * 68 + mts.bvh.nbytes, traced_ops(w2) + n * OPS_PBR)
+    b2, by2 = bound(n * 68 + mts.scene.kernel_nbytes, traced_ops(w2) + n * OPS_PBR)
     rows.append(kernel_row("P2 render_mesh", launches, err, ms2, plain_ms, b2, by2))
     say("engines", f"P2 render_mesh: kernel {ms2:.4f} ms, plain {plain_ms:.4f} ms, bound "
                    f"{b2:.4f} ms ({by2}); planes {frac:.6f} within tolerance, max |err| "
@@ -2313,7 +2355,7 @@ SCREEN_N = 513          # forge3d_tpu/bench.py:_bench_dem(513), re-declared
 # bodies (adds, multiplies, divisions, square roots, comparisons, min/max;
 # a transcendental function as one)
 OPS_ENV_TEXEL = 60      # env_cube_texel: atan2, acos, the bilinear f16 taps
-OPS_CUBE_SAMPLE = 75    # convolve_texel, one sample: direction, normalise, face uv, bilinear
+OPS_CUBE_SAMPLE = 75    # convolve_sample, one sample: direction, normalise, face uv, bilinear
 OPS_RASTER_PIXEL = 30   # raster_triangle, one pixel of a triangle's box
 OPS_SHADE_PIXEL = 1500  # shade_front + shade_back for one pixel, PCSS's 28 taps included
 # S1-S3 gates: the f16 cubes bit-equal on >= SCREEN_F16_EQ of texels and
@@ -2413,28 +2455,44 @@ def phase_screen_kernels(dem):
                           f"step; kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, bound {bms:.4f} ms "
                           f"({by})")
 
-    # S2 and S3: the six launches of one build_ibl, on the kernel's cube
-    k_ms = p_ms = err = 0.0
+    # S2 and S3: build_ibl's one launch of the six on the kernel's cube, as
+    # build_ibl calls it (the RGBx copy that the launch reads formed first);
+    # each convolution against its plain version, and timed alone (a launch
+    # of its own, with its copy) to split the pyramid's time
+    got = scr.cube_pyramid(env_k)
+    p_ms = err = 0.0
     work = 0
+    split = {}
     for mip in range(scr.N_MIPS):
-        got = scr._cube_convolve_kernel(env_k, mip)
         t, ref = wall_ms(lambda: scr.cube_convolve_plain(env_k, mip))
-        feq, one = f16_agree(ref, got)
+        feq, one = f16_agree(ref, got[mip])
         require(feq >= SCREEN_F16_EQ and one,
                 f"S2/S3 mip {mip} disagrees with its plain version ({feq:.6f} equal)")
-        k_ms += cuda_ms(lambda: scr._cube_convolve_kernel(env_k, mip), 5)
         p_ms += t
-        err = max(err, max_abs(ref, got))
-        work += got.shape[0] * got.shape[1] * got.shape[2] * int(scr.lobe_samples(mip).shape[0])
+        err = max(err, max_abs(ref, got[mip]))
+        count = int(scr.lobe_samples(mip).shape[0])
+        work += got[mip].shape[0] * got[mip].shape[1] * got[mip].shape[2] * count
+        split[f"mip {mip}" if mip else "irradiance"] = queued_ms(
+            lambda: scr._cube_convolve_kernel(env_k, mip), 10)
         say("screen kernels", f"{'S2 irradiance' if mip == 0 else f'S3 prefilter mip {mip}'} "
-                              f"{tuple(got.shape)}: {feq:.6f} of texels bit-equal, all within one "
-                              f"f16 step")
-    out_bytes = sum(6 * (scr.IRR_SIZE if m == 0 else scr.ENV_SIZE >> m) ** 2 * 12
-                    for m in range(scr.N_MIPS))
-    bms, by = bound(tensor_bytes(env_k) + 2 * out_bytes, work * OPS_CUBE_SAMPLE)
+                              f"{tuple(got[mip].shape)}, {count} samples a texel on "
+                              f"{scr.CONV_GROUPS[mip]} lanes: {feq:.6f} of texels bit-equal, all "
+                              f"within one f16 step")
+    k_ms = cuda_ms(lambda: scr.cube_pyramid(env_k), 10)
+    copy_ms = cuda_ms(lambda: scr._rgbx(env_k), 10)
+    out_bytes = sum(6 * scr.conv_size(scr.ENV_SIZE, m) ** 2 * 12 for m in range(scr.N_MIPS))
+    # the cube read and its copy written, the copy read, the outputs
+    bms, by = bound(tensor_bytes(env_k) + 2 * tensor_bytes(scr._rgbx(env_k)) + 2 * out_bytes,
+                    work * OPS_CUBE_SAMPLE)
     res["S2/S3 cube_convolve"] = (err, k_ms, p_ms, bms, by)
-    say("screen kernels", f"S2/S3 cube_convolve, 6 launches, {work} cube samples: kernel "
-                          f"{k_ms:.4f} ms, plain {p_ms:.1f} ms, bound {bms:.4f} ms ({by})")
+    regs = _attrs("f3d_ibl_convolve_attrs")
+    say("screen kernels", f"S2/S3 cube_convolve, one launch, {work} cube samples: kernel "
+                          f"{k_ms:.4f} ms with the RGBx copy (the copy alone {copy_ms:.4f} ms; "
+                          f"{regs[0]} registers, {regs[1]} B local, {regs[2]} "
+                          f"blocks of 256 an SM), plain {p_ms:.1f} ms, bound {bms:.4f} ms ({by}); "
+                          f"each convolution launched alone, queued behind a spin (ms): "
+                          + json.dumps({k: round(v, 4) for k, v in split.items()})
+                          + f", sum {sum(split.values()):.4f}")
 
     # S4 on the main path's shadow geometry (A's and B's: one sun, DEM, span)
     hm = dem
@@ -2512,7 +2570,7 @@ def _cold_split(r, p, dem, env):
     lut, kw, _ = r.screen_inputs(p, dem, env, None)
     scr.clear_caches()
     t = {}
-    t["IBL pyramid (upload, S1, S2/S3 x6, the zero BRDF LUT)"], _ = wall_ms(
+    t["IBL pyramid (upload, S1, S2/S3 in one launch, the zero BRDF LUT)"], _ = wall_ms(
         lambda: scr.build_ibl(kw["hdr_rgb"], device=r.device))
     geo = dict(terrain_span=kw["terrain_span"], z_scale=kw["z_scale"],
                sun_dir=-scr.light_direction(kw["light_azimuth_deg"], kw["light_elevation_deg"]),
@@ -2567,7 +2625,7 @@ def phase_screen_render(dem):
                                  + json.dumps({k: round(v, 4)
                                                for k, v in r.last_gpu_timings.items()}))
             shades = 2 if config == "B" else 1
-            want = {"S1 env_cube": 1, "S2/S3 cube_convolve": 6, "S4 raster_depth": 1,
+            want = {"S1 env_cube": 1, "S2/S3 cube_convolve": 1, "S4 raster_depth": 1,
                     "S8 shade": shades} if kind == "cold" else \
                 {"S1 env_cube": 0, "S2/S3 cube_convolve": 0, "S4 raster_depth": 0,
                  "S8 shade": shades}
@@ -2819,7 +2877,7 @@ def phase_screen_render2(dem, bdem):
             want = {k: 0 for k in counters}
             want[shader] = shades
             if kind == "cold":
-                want.update({"S1 env_cube": 1, "S2/S3 cube_convolve": 6, "S4 raster_depth": 1})
+                want.update({"S1 env_cube": 1, "S2/S3 cube_convolve": 1, "S4 raster_depth": 1})
             require(counts == want, f"({config}) {kind} render launched {counts}, not {want}")
         split = {"C": lambda: _warm_split(r, pc, dem, env, wm), "D": lambda: _recipe_split(bdem),
                  "E": lambda: _clipmap_split(bdem)}[config]()
@@ -3326,7 +3384,7 @@ def phase_mapscene(bdem):
             expect = {k: 0 for k in counters}
             expect.update(want[config])
             if config == "G" and kind == "cold":
-                expect.update({"S1 env_cube": 1, "S2/S3 cube_convolve": 6, "S4 raster_depth": 1})
+                expect.update({"S1 env_cube": 1, "S2/S3 cube_convolve": 1, "S4 raster_depth": 1})
             require(counts == expect, f"({config}) {kind} render launched {counts}, not {expect}")
         say("mapscene", f"({config}) warm render by stage, ms: "
                         + _by_call(scene.last_render_timings)
@@ -3339,6 +3397,14 @@ def phase_mapscene(bdem):
                 f"configuration {config}'s render is trivial")
         if config == "F":
             from forge3d_tpu_torch import vector as vec
+            from forge3d_tpu_torch.ops.bvh import build_sah_bvh
+
+            town = [scene._layer_mesh(scene.compile_plan(), layer) for layer in rec.layers
+                    if isinstance(layer, ms.BuildingLayer)]
+            arrays = [build_sah_bvh(np.asarray(m.vertices, np.float32),
+                                    np.asarray(m.indices, np.uint32)) for m in town]
+            say("mapscene", f"(F) the packing of K9's records of the building mesh, which each "
+                            f"F render builds again: {records_pack_ms(*arrays):.3f} ms (host)")
 
             vec.vector_layers = vc.vector_layers_plain
             try:
@@ -3712,9 +3778,14 @@ def phase_pt_kernels(dem):
     t0 = time.perf_counter()
     tlas = tlas_scene(dem, dev)
     build_ms = (time.perf_counter() - t0) * 1e3
+    pack = records_pack_ms(*(s for s, _ in tlas.scenes))
     tris = sum(s.n_prims for s, _ in tlas.scenes)
     say("pt kernels", f"P5 TLAS: {len(tlas.instances)} instances of {len(tlas.scenes)} BLASes "
-                      f"({tris} triangles), host build {build_ms:.1f} ms")
+                      f"({tris} triangles), host build {build_ms:.1f} ms, of it the packing of "
+                      f"K9's records {pack:.3f} ms")
+    a5 = _attrs("f3d_tlas_attrs")
+    say("pt kernels", f"P5 kernel: {a5[0]} registers, {a5[1]} B local, {a5[2]} resident blocks "
+                      f"of 256 an SM")
     tl.trace_tlas.launches = 0
     cam = tl.trace_tlas(tlas, ro, rd, 1e-3, 1e30)          # the main path: camera rays ...
     hit = cam.hit
@@ -3742,8 +3813,7 @@ def phase_pt_kernels(dem):
         say("pt kernels", f"P5 trace_tlas {tag}: {o_[0].numel()} rays bit-identical, plain "
                           f"{plain_ms_t:.1f} ms")
     ms_t = cuda_ms(lambda: tl._trace_tlas_kernel(tlas, ro, rd, 1e-3, 1e30), 5)
-    blas_bytes = sum(tensor_bytes(*(getattr(s, f) for f in s.__dataclass_fields__))
-                     for s, _ in tlas.scenes)
+    blas_bytes = sum(s.kernel_nbytes for s, _ in tlas.scenes)
     b_t, by_t = bound(n_pts * (24 + 21) + blas_bytes,
                       traced_ops(w) + n_pts * len(tlas.instances) * OPS_TLAS_INST)
     out["P5 trace_tlas"] = (0.0, ms_t, plain_ms, b_t, by_t)
@@ -3824,6 +3894,7 @@ def phase_hybrid(dem):
         torch.cuda.synchronize()
         build = (time.perf_counter() - t0) * 1e3
         hs = runs["scene"]
+        pack = records_pack_ms(hs.mesh_scene) if kind == "cold" else 0.0
         wall, out = wall_ms(lambda: f3t.hybrid_render(W, H, hs, BENCH_CAM, sun=sun,
                                                       aovs=("kind", "depth")))
         counts = {k: c.launches for k, c in counters.items()}
@@ -3846,7 +3917,8 @@ def phase_hybrid(dem):
         host = (rgba.cpu().numpy(), planes["kind"].cpu().numpy(), planes["depth"].cpu().numpy())
         t4 = time.perf_counter()
         require(np.array_equal(host[0], out["rgba"]), "P3's own pass differs from the render")
-        say("hybrid render", f"hybrid {W}x{H} {kind}: scene build {build:.1f} ms, "
+        say("hybrid render", f"hybrid {W}x{H} {kind}: scene build {build:.1f} ms (K9's "
+                             f"records packed in {pack:.3f} ms of it), "
                              f"hybrid_render {wall:.3f} ms (by stage: rays "
                              f"{(t2 - t1) * 1e3:.3f} ms, P3 {(t3 - t2) * 1e3:.3f} ms, readback "
                              f"{(t4 - t3) * 1e3:.3f} ms); launches {json.dumps(counts)}; pixels "
@@ -3885,7 +3957,7 @@ def phase_hybrid(dem):
     ms3 = cuda_ms(lambda: hy._shade_kernel(hs, "hybrid", origin, rd3, sun, alb, 0.35, 1.0), 10)
     n = W * H
     nbytes = (n * (12 + 4 + 4 + 12 + 4 + 4 + 12) + scene_bytes(hs.terrain_scene)
-              + tensor_bytes(*(getattr(hs.mesh_scene, f) for f in hs.mesh_scene.__dataclass_fields__)))
+              + hs.mesh_scene.kernel_nbytes)
     step_ops = sdf_work(hs.sdf_scene) + OPS_SDF_STEP
     # the kernel's work: its culled marches, and its shadow rays' mesh walks
     # only where the terrain leaves them free, each to its first triangle
@@ -3974,10 +4046,12 @@ def p3_work(hs, origin, rd3, sun, planes):
     return work, (prim_culled, shadow_culled)
 
 
-def mesh_any_hit_plain(scene, n_nodes, ro, rd, tmin, tmax):
-    """K9's walk stopped at its first accepted triangle, as P3's shadow rays
-    take it (mesh.cuh:trace_mesh_ray<true>), in trace_mesh_plain's steps
-    and counts: (blocked (n,) bool, node visits, triangle tests)."""
+def mesh_any_hit_plain(scene, n_nodes, ro, rd, tmin, tmax, stop=float("inf")):
+    """K9's walk as the shadow rays take it (mesh.cuh:trace_mesh_ray<true>):
+    a ray stops once a triangle is accepted with t below `stop` (a number or
+    one a ray; by default at its first accepted), in trace_mesh_plain's
+    steps and counts: (blocked below `stop` (n,) bool, node visits, triangle
+    tests)."""
     import torch
 
     from forge3d_tpu_torch.ops.bvh import _LEAF_SIZE, _inv, _moller_trumbore
@@ -3989,6 +4063,8 @@ def mesh_any_hit_plain(scene, n_nodes, ro, rd, tmin, tmax):
     cols = torch.stack([*ro, *rd, *(_inv(c) for c in rd)], 1)
     node = torch.zeros(n, dtype=torch.int64, device=dev)
     tmin, tmax = float(np.float32(tmin)), float(np.float32(tmax))
+    best = torch.full((n,), tmax, dtype=torch.float32, device=dev)
+    stop = torch.as_tensor(stop, dtype=torch.float32, device=dev).expand(n).clone()
     last = scene.n_prims - 1
     visits = tests = 0
     for _ in range(4 * n_nodes + 64):
@@ -4004,7 +4080,7 @@ def mesh_any_hit_plain(scene, n_nodes, ro, rd, tmin, tmax):
         t_enter = torch.maximum(torch.maximum(torch.minimum(t0x, t1x), torch.minimum(t0y, t1y)),
                                 torch.clamp(torch.minimum(t0z, t1z), min=tmin))
         t_exit = torch.minimum(torch.minimum(torch.maximum(t0x, t1x), torch.maximum(t0y, t1y)),
-                               torch.clamp(torch.maximum(t0z, t1z), max=tmax))
+                               torch.minimum(torch.maximum(t0z, t1z), best))
         box_hit = t_enter <= t_exit
         cnt = scene.count[node]
         fst = scene.first[node]
@@ -4017,14 +4093,98 @@ def mesh_any_hit_plain(scene, n_nodes, ro, rd, tmin, tmax):
                 break
             tests += n_active
             pid = torch.clamp(fst + k, max=last)
-            ok, *_ = _moller_trumbore(scene, pid, (r_ox, r_oy, r_oz), (r_dx, r_dy, r_dz),
-                                      tmin, tmax)
-            found |= active & ok
+            ok, t, *_ = _moller_trumbore(scene, pid, (r_ox, r_oy, r_oz), (r_dx, r_dy, r_dz),
+                                         tmin, best)
+            take = active & ok
+            best = torch.where(take, t, best)
+            found |= take & (t < stop)
         blocked[idx[found]] = True
         node = torch.where(box_hit & ~is_leaf, node + 1, scene.miss_link[node].to(torch.int64))
         keep = ~(found | (node >= n_nodes))
-        idx, cols, node = idx[keep], cols[keep], node[keep]
+        idx, cols, node, best, stop = idx[keep], cols[keep], node[keep], best[keep], stop[keep]
     return blocked, visits, tests
+
+
+def k6_hybrid_work(ctx, a0, w0, r0):
+    """(host ms, outputs, work) of the plain K6 frame 1 on a context with a
+    mesh. The work is the plain frame's counts with each shadow ray's whole
+    mesh walk replaced by the kernel's (common.cuh: occluded,
+    blocked_before): the mesh walked only where the terrain leaves the ray
+    free, any-hit (mesh_any_hit_plain), stopped below the limit for the
+    light rays; each such walk is checked to block the rays that the whole
+    walk blocks. The shadow rays are the arguments of the plain frame's
+    calls of _occlusion and _light_occlusion, recorded as it runs."""
+    from unittest import mock
+
+    import torch
+
+    from forge3d_tpu_torch.ops.bvh import trace_mesh_plain
+    from forge3d_tpu_torch.ops.traversal import trace_plain
+    from forge3d_tpu_torch.pt import terrain_ref as tr
+
+    with mock.patch.object(tr, "_occlusion", wraps=tr._occlusion) as occ, \
+            mock.patch.object(tr, "_light_occlusion", wraps=tr._light_occlusion) as locc:
+        work = work_counters()
+        plain_ms, out = wall_ms(lambda: tr.frame_step_plain(ctx, a0, w0, r0, 1))
+        w = work()
+    rays = []   # (hit pixels, origins, directions, limit or None)
+    for call in occ.call_args_list:
+        _, hitmask, oro, sun_dir, env_dir = call.args
+        rays += [(hitmask, oro, d, None) for d in ((sun_dir, env_dir) if ctx.shadows
+                                                     else (env_dir,))]
+    rays += [(hitmask, oro, ldir, limit)
+             for _, hitmask, oro, ldir, limit in (c.args for c in locc.call_args_list)]
+    m = ctx.mesh
+    for hitmask, oro, dvec, limit in rays:
+        sel = torch.nonzero(hitmask.reshape(-1)).squeeze(1)
+        o, d = [c.reshape(-1)[sel] for c in oro], [c.reshape(-1)[sel] for c in dvec]
+        th = trace_plain(ctx.scene, o, d)
+        count = work_counters()
+        whole = trace_mesh_plain(m.scene, m.n_nodes, o, d)
+        full = count()
+        if limit is None:
+            free, stop, want = ~th.hit, float("inf"), whole.hit
+        else:
+            lim = limit.reshape(-1)[sel]
+            free = ~(torch.where(th.hit, th.t, 3.0e38) < lim)
+            want = torch.where(whole.hit, whole.t, 3.0e38) < lim
+        f = torch.nonzero(free).squeeze(1)
+        blocked, visits, tests = mesh_any_hit_plain(
+            m.scene, m.n_nodes, [c[f] for c in o], [c[f] for c in d], 1e-4, 1e30,
+            stop if limit is None else lim[f])
+        require(torch.equal(blocked, want[f]),
+                "K6's shadow rays: the kernel's walk blocks other rays than the whole walk")
+        w["node_visits"] += visits - full["node_visits"]
+        w["tri_tests"] += tests - full["tri_tests"]
+    return plain_ms, out, w
+
+
+def p2_work(cam, mts, sun_dir):
+    """The mesh work P2 does (pbr.cuh:mesh_pixel), counted by the plain
+    walks: every pixel's primary ray walks the whole mesh, a hit pixel's
+    shadow ray walks it any-hit (mesh_any_hit_plain), which is checked to
+    block the rays that render_mesh_plain's whole walk blocks."""
+    import torch
+
+    from forge3d_tpu_torch.ops.bvh import trace_mesh_plain
+    from forge3d_tpu_torch.pt import mesh_render as mr
+
+    rd = mr.engine_rays(cam, mts.device)
+    ro = tuple(torch.full_like(rd[0], c) for c in cam.origin)
+    count = work_counters()
+    hit = trace_mesh_plain(mts.scene, mts.n_nodes, ro, rd)
+    w = count()
+    n = mts.hit_normals(hit.prim, *rd)
+    sel = torch.nonzero(hit.hit.reshape(-1)).squeeze(1)
+    sp = [((ro[k] + hit.t * rd[k]) + n[k] * 1e-3).reshape(-1)[sel] for k in range(3)]
+    sd = [torch.full_like(sp[0], c) for c in sun_dir]
+    blocked, visits, tests = mesh_any_hit_plain(mts.scene, mts.n_nodes, sp, sd, 1e-4, 1e6)
+    whole = trace_mesh_plain(mts.scene, mts.n_nodes, sp, sd, tmax=1e6)
+    require(torch.equal(blocked, whole.hit),
+            "P2's shadow rays: the kernel's walk blocks other rays than the whole walk")
+    w["node_visits"] += visits
+    w["tri_tests"] += tests
+    return w
 
 
 def _pair_counters():
@@ -5976,6 +6136,164 @@ def probe_p4_pt(torch):
                  f"the device alone); sha256 of rgba and HDR {h.hexdigest()}")
 
 
+def _sha(*ts) -> str:
+    """sha256 over the bytes of tensors, dicts of tensors (by sorted key)
+    and dataclasses of tensors (by field), in order."""
+    import dataclasses
+
+    h = hashlib.sha256()
+
+    def add(x):
+        if isinstance(x, dict):
+            for k in sorted(x):
+                add(x[k])
+        elif dataclasses.is_dataclass(x):
+            for f in dataclasses.fields(x):
+                add(getattr(x, f.name))
+        elif isinstance(x, (tuple, list)):
+            for y in x:
+                add(y)
+        elif hasattr(x, "cpu"):
+            h.update(x.detach().cpu().numpy().tobytes())
+    add(ts)
+    return h.hexdigest()
+
+
+def _attrs(fn_name, *args):
+    """(registers, local bytes, resident blocks) from a launcher's attribute
+    entry, or None where the tree has no such entry."""
+    import ctypes
+
+    from forge3d_tpu_torch import _kernels
+
+    fn = getattr(_kernels.lib(), fn_name, None)
+    if fn is None:
+        return None
+    out = (ctypes.c_int * 4)()
+    _kernels.check(fn(*args, out), fn_name)
+    return tuple(out[:3])
+
+
+def probe_k9(torch):
+    """K9 and every kernel that runs its body, at the main path's shapes:
+    K9 alone on bench.py's 1080p center and sun rays against the 1,024-box
+    town, K8 and K6 (frame 1) with the town and six lights, P2 on the town,
+    P3 on H, P5 on J's 64 instances; each timed as launched and queued
+    behind a spin, with a sha256 of its outputs, and each instantiation's
+    registers, local bytes and resident blocks where the tree reports them."""
+    import dataclasses
+
+    from forge3d_tpu_torch.ops import bvh
+    from forge3d_tpu_torch.ops import restir as rst
+    from forge3d_tpu_torch.ops import tlas as tl
+    from forge3d_tpu_torch.ops import traversal as tv
+    from forge3d_tpu_torch.ops.shading import sun_direction
+    from forge3d_tpu_torch.pt import megakernel as mk
+    from forge3d_tpu_torch.pt import mesh_render as mr
+    from forge3d_tpu_torch.pt import terrain_ref as tr
+    from forge3d_tpu_torch.pt.mesh_render import MeshTracerScene
+
+    dev = torch.device("cuda")
+    W, H = REAL_W, REAL_H
+    dem = bench_dem()
+    t0 = time.perf_counter()
+    mts = MeshTracerScene(*bench_town(dem), dev)
+    build_s = time.perf_counter() - t0
+    say("probe", f"K9 town: {mts.triangle_count} triangles, {mts.n_nodes} nodes, host build "
+                 f"{build_s:.4f} s" + (f", of it the packing of the records "
+                                       f"{records_pack_ms(mts.scene):.4f} ms"
+                                       if hasattr(bvh, "pack_nodes") else ""))
+    desc = hybrid_desc(dem)
+    ctx = dataclasses.replace(setup(dem, W, H, BENCH_CAM, dev, spp=1), mesh=mts,
+                              lights=tr._lights(desc, dev))
+    gk = tr.center_gbuffer(ctx)
+
+    def run(name, fn, reps, attrs=None):
+        out = fn()
+        ms = cuda_ms(fn, reps)
+        alone = queued_ms(fn, reps)
+        regs = "" if attrs is None else (f"; {attrs[0]} registers, {attrs[1]} B local, "
+                                         f"{attrs[2]} resident blocks an SM")
+        say("probe", f"{name}: {ms:.4f} ms ({alone:.4f} queued behind a spin){regs}; sha256 "
+                     f"{_sha(out)}")
+        return out
+
+    o, d = tr._center_rays(ctx)
+    so, sd = sun_rays(ctx, gk)
+    ro = tuple(torch.cat([o[k].reshape(-1), so[k]]) for k in range(3))
+    rd = tuple(torch.cat([d[k].reshape(-1), sd[k]]) for k in range(3))
+    run(f"K9 trace_mesh alone ({ro[0].numel()} center and sun rays)",
+        lambda: bvh.trace_mesh(mts.scene, mts.n_nodes, ro, rd), 10,
+        _attrs("f3d_mesh_kernel_attrs", 0))
+    th = tv.trace(ctx.scene, o, d)
+    run("K8 center_gbuffer (hybrid)", lambda: tr._gbuffer_resolve_kernel(ctx, d, th), 20,
+        _attrs("f3d_mesh_kernel_attrs", 2))
+    acc = torch.zeros((H, W, 4), device=dev)
+    wf = torch.zeros((H, W, 2), device=dev)
+    a0, w0, m0 = tr.frame_step(ctx, acc, wf, rst.Reservoirs.zeros(W * H, dev), 0)
+    r0 = rst.spatial_reuse(m0, *gk["gb_n"], W, H, 0, ctx.seed_hi)
+    run("K6 frame_step (hybrid), frame 1", lambda: tr.frame_step(ctx, a0, w0, r0, 1), 5,
+        _attrs("f3d_frame_kernel_attrs", 1))
+    ecam = mk.EngineCamera.make(W, H, dict(BENCH_CAM), (0.0, 1.5, 4.0), (0.0, 0.5, 0.0))
+    args = (ecam, mts, mr._material_from_dict(None), sun_direction(135.0, 45.0),
+            float(np.float32(3.0)))
+    run("P2 render_mesh", lambda: mr._render_mesh_kernel(*args), 10,
+        _attrs("f3d_render_mesh_attrs"))
+    probe_p3(torch, dem)
+    a3 = _attrs("f3d_hybrid_attrs")
+    if a3 is not None:
+        say("probe", f"P3 hybrid kernel: {a3[0]} registers, {a3[1]} B local, {a3[2]} resident "
+                     f"blocks an SM")
+    tlas = tlas_scene(dem, dev)
+    fr, fd = flat_rays(W, H, dev)
+    run(f"P5 trace_tlas ({len(tlas.instances)} instances, camera rays)",
+        lambda: tl._trace_tlas_kernel(tlas, fr, fd, 1e-3, 1e30), 5, _attrs("f3d_tlas_attrs"))
+
+
+def probe_s23(torch):
+    """S2/S3 on configuration B's env cube: each convolution launched alone
+    and, where the tree has it, the pyramid's one launch and its lane
+    groups; each timed as launched and queued behind a spin, with a sha256
+    of its outputs."""
+    from forge3d_tpu_torch.terrain import screen as scr
+
+    dev = torch.device("cuda")
+    eq = torch.as_tensor(scr.decode_test_hdr(), device=dev)
+    env = scr._env_cube_kernel(eq, scr.ENV_SIZE)
+    total = 0.0
+    outs = []
+    for mip in range(scr.N_MIPS):
+        fn = lambda: scr._cube_convolve_kernel(env, mip)  # noqa: E731
+        outs.append(fn())
+        ms = cuda_ms(fn, 10)
+        alone = queued_ms(fn, 10)
+        total += alone
+        say("probe", f"S2/S3 mip {mip} {tuple(outs[-1].shape)} alone: {ms:.4f} ms ({alone:.4f} "
+                     f"queued); sha256 {_sha(outs[-1])}")
+    say("probe", f"S2/S3 six launches: {total:.4f} ms queued in all; sha256 {_sha(outs)}")
+    a = _attrs("f3d_ibl_convolve_attrs")
+    if a is not None:
+        say("probe", f"S2/S3 kernel: {a[0]} registers, {a[1]} B local, {a[2]} resident blocks "
+                     f"of 256 an SM")
+    if not hasattr(scr, "cube_pyramid"):
+        return
+    variants = [scr.CONV_GROUPS] + [g for g in PROBE_GROUPS if g != scr.CONV_GROUPS]
+    for groups in variants:
+        fn = lambda: scr._cube_pyramid_kernel(env, groups)  # noqa: E731
+        got = fn()
+        ms = cuda_ms(fn, 10)
+        alone = queued_ms(fn, 10)
+        say("probe", f"S2/S3 pyramid, one launch, groups {groups}: {ms:.4f} ms ({alone:.4f} "
+                     f"queued); sha256 {_sha(got)}, equal to the six launches "
+                     f"{all(bool(torch.equal(x, y)) for x, y in zip(got, outs))}")
+
+
+# lane groups (by mip) the probe times beside screen.CONV_GROUPS
+PROBE_GROUPS = ((1, 1, 1, 1, 1, 1), (4, 4, 4, 8, 16, 32), (1, 2, 2, 4, 8, 16),
+                (2, 2, 4, 8, 16, 32), (1, 2, 4, 8, 16, 32), (2, 2, 2, 8, 16, 32),
+                (1, 2, 2, 8, 16, 32), (2, 1, 2, 4, 8, 16), (1, 2, 4, 4, 8, 16))
+
+
 def probe(torch, only=None):
     """`chip_smoke.py --probe`: E4 (probe_e4), R1 (probe_r1) and P3
     (probe_p3), then K2 and
@@ -5995,6 +6313,12 @@ def probe(torch, only=None):
     if only == "C1P4":
         probe_c1(torch)
         probe_p4(torch)
+        return
+    if only in ("K9S2", "K9", "S2"):
+        if only != "S2":
+            probe_k9(torch)
+        if only != "K9":
+            probe_s23(torch)
         return
     if only == "P6P4":
         dem = bench_dem()

@@ -84,8 +84,7 @@ class FrameArgs(ctypes.Structure):
 class MeshArgs(ctypes.Structure):
     """Mirror of `MeshArgs` in csrc/mesh.cuh; all zero = no mesh."""
 
-    _fields_ = [(n, _P) for n in ("bmin", "bmax", "first", "count", "miss", "v0", "e1",
-                                  "e2", "fnorm")] + [
+    _fields_ = [(n, _P) for n in ("nodes", "tris", "fnorm")] + [
         ("n_nodes", _I), ("n_prims", _I), ("max_iters", _I)]
 
 
@@ -361,6 +360,7 @@ _SIGNATURES = {
                        ctypes.POINTER(ResArgs), _P],
     # (hybrid, out (registers, spilled bytes, resident blocks))
     "f3d_frame_kernel_attrs": [_I, _P],
+    "f3d_mesh_kernel_attrs": [_I, _P],
     # (res_in, res_out, gb_nx, gb_ny, gb_nz, width, height, frame_index,
     #  seed_hi, k_neighbors, radius, row0, rows, stream)
     "f3d_spatial_reuse": [ctypes.POINTER(ResArgs), ctypes.POINTER(ResArgs),
@@ -381,6 +381,7 @@ _SIGNATURES = {
     # (cam, mesh, material, aovs, stream)
     "f3d_render_mesh": [ctypes.POINTER(CamArgs), ctypes.POINTER(MeshArgs),
                         ctypes.POINTER(MaterialArgs), ctypes.POINTER(AovArgs), _P],
+    "f3d_render_mesh_attrs": [_P],
     # (scene, terrain, out, stream)
     "f3d_terrain_render": [ctypes.POINTER(SceneArgs), ctypes.POINTER(TerrainArgs),
                            ctypes.POINTER(TerrainOut), _P],
@@ -395,8 +396,9 @@ _SIGNATURES = {
     "f3d_hosek_radiance": [ctypes.POINTER(HosekArgs), _P, _P, _P, _I, _P, _P],
     # (eq, eq_h, eq_w, dirs, size, out, stream)
     "f3d_ibl_env_cube": [_P, _I, _I, _P, _I, _P, _P],
-    # (env, env_size, dirs, size, samples, count, mode, out, stream)
-    "f3d_ibl_convolve": [_P, _I, _P, _I, _P, _I, _I, _P, _P],
+    # (env4, env_size, jobs (n_jobs x 7 long long), n_jobs, stream); (out)
+    "f3d_ibl_convolve": [_P, _I, ctypes.POINTER(_LL), _I, _P],
+    "f3d_ibl_convolve_attrs": [_P],
     # (tris, keep, n_tris, resolution, wbb, hbb, depth, stream)
     "f3d_raster_depth": [_P, _P, _I, _I, _I, _I, _P, _P],
     # (args, out, stream)
@@ -428,6 +430,7 @@ _SIGNATURES = {
                           ctypes.POINTER(HybridOut), _P],
     # (out (registers, spilled bytes, resident blocks))
     "f3d_hybrid_attrs": [_P],
+    "f3d_tlas_attrs": [_P],
     # (args, quad, rgba, hdr, stream)
     "f3d_adj_raster": [ctypes.POINTER(AdjArgs), _P, _P, _P, _P],
     # (out (registers, spilled bytes, resident blocks))

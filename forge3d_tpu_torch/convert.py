@@ -89,11 +89,9 @@ def bvh_from_numpy(fields: dict, device="cpu"):
     """`fields`: the JAX MeshScene (or BvhArrays) fields by name
     (bounds_min, bounds_max, first, count, miss_link, tri_v0, tri_e1,
     tri_e2) -> (the port's MeshScene, n_nodes)."""
-    from .ops.bvh import MeshScene
+    from .ops.bvh import MeshScene, _SOA
 
-    ints = ("first", "count", "miss_link")
-    scene = MeshScene(**{k: tensor(fields[k], device, np.int32 if k in ints else np.float32)
-                         for k in MeshScene.__dataclass_fields__})
+    scene = MeshScene.from_arrays(device, **{k: np.asarray(fields[k]) for k in _SOA})
     return scene, scene.n_nodes
 
 

@@ -555,24 +555,26 @@ F3D_HD Res spatial_pixel(const ResArgs& rin, const float* gb_nx, const float* gb
 // the scene has one, is traced beside the terrain for every ray.
 // ---------------------------------------------------------------------------
 
-// Any-hit occlusion of a shadow ray by the terrain or the mesh.
+// Any-hit occlusion of a shadow ray by the terrain or the mesh (the mesh
+// walk stops at its first accepted triangle: mesh.cuh, kAny).
 template <bool kHybrid>
 F3D_HD bool occluded(const SceneArgs& s, const MeshArgs& m, float ox, float oy, float oz,
                      float dx, float dy, float dz) {
     if (trace_ray(s, ox, oy, oz, dx, dy, dz, 1e-3f, 1e30f).hit) return true;
     return kHybrid && m.n_nodes > 0
-           && trace_mesh_ray(m, ox, oy, oz, dx, dy, dz, 1e-4f, 1e30f).prim >= 0;
+           && trace_mesh_ray<true>(m, ox, oy, oz, dx, dy, dz, 1e-4f, 1e30f).prim >= 0;
 }
 
 // Whether the nearer of the terrain's and the mesh's hits (3e38 for a
-// miss) lies before `limit`: the light-ray occlusion test `lt < limit`.
+// miss) lies before `limit`: the light-ray occlusion test `lt < limit`. The
+// mesh walk stops once its best t is below `limit` (mesh.cuh: kAny).
 template <bool kHybrid>
 F3D_HD bool blocked_before(const SceneArgs& s, const MeshArgs& m, float ox, float oy,
                            float oz, float dx, float dy, float dz, float limit) {
     Hit ht = trace_ray(s, ox, oy, oz, dx, dy, dz, 1e-3f, 1e30f);
     if ((ht.hit ? ht.t : 3.0e38f) < limit) return true;
     if (!(kHybrid && m.n_nodes > 0)) return 3.0e38f < limit;
-    MeshHit hm = trace_mesh_ray(m, ox, oy, oz, dx, dy, dz, 1e-4f, 1e30f);
+    MeshHit hm = trace_mesh_ray<true>(m, ox, oy, oz, dx, dy, dz, 1e-4f, 1e30f, limit);
     return (hm.prim >= 0 ? hm.t : 3.0e38f) < limit;
 }
 
@@ -772,7 +774,8 @@ F3D_HD void gbuffer_pixel(const SceneArgs& s, const MeshArgs& m, const float* ca
     }
     float a[3] = {alb[0], alb[1], alb[2]};
     if (m.n_nodes > 0) {
-        MeshHit mh = trace_mesh_ray(m, cam_o[0], cam_o[1], cam_o[2], dx, dy, dz, 1e-4f, 1e30f);
+        MeshHit mh = trace_mesh_ray<false, true>(m, cam_o[0], cam_o[1], cam_o[2], dx, dy, dz,
+                                                 1e-4f, 1e30f);
         if (mh.prim >= 0 && mh.t < (hit ? t : 3.0e38f)) {
             t = mh.t;
             mesh_normal(m, mh.prim, dx, dy, dz, nx, ny, nz);

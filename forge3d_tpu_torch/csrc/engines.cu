@@ -19,6 +19,7 @@
 
 #include <cuda_runtime.h>
 
+#include "common.cuh"  // f3d_kernel_attrs
 #include "pbr.cuh"
 
 namespace {
@@ -59,6 +60,11 @@ int f3d_render_mesh(const CamArgs* c, const MeshArgs* m, const MaterialArgs* mat
         mesh_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(*c, *m, *mat, *o);
     }
     return (int)cudaGetLastError();
+}
+
+// P2's registers, local bytes and resident blocks of kThreads an SM
+int f3d_render_mesh_attrs(int* out) {
+    return f3d_kernel_attrs((const void*)mesh_kernel, kThreads, out);
 }
 
 }  // extern "C"

@@ -14,7 +14,8 @@
 //                        (39); the whole frame is the band (0, height)
 // K8 gbuffer_kernel      replaces forge3d_tpu/pt/terrain_ref.py:_center_gbuffer (472)
 // K9 trace_mesh_kernel   replaces forge3d_tpu/ops/bvh.py:trace_mesh (333); its body
-//                        (mesh.cuh:trace_mesh_ray) also runs inside K6, K8 and P2
+//                        (mesh.cuh:trace_mesh_ray, over the packed records) also
+//                        runs inside K6, K8, P2, P3 and P5
 // K10 sample_light_kernel replaces forge3d_tpu/ops/lightsample.py:sample_light_nee
 //                        (101) with alias_sample (74); its body (lights.cuh:
 //                        sample_light) also runs inside K6
@@ -145,7 +146,8 @@ __global__ void trace_mesh_kernel(MeshArgs m, const float* __restrict__ rox,
                                   float* __restrict__ v) {
     int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
-    MeshHit h = trace_mesh_ray(m, rox[i], roy[i], roz[i], rdx[i], rdy[i], rdz[i], tmin, tmax);
+    MeshHit h = trace_mesh_ray<false, true>(m, rox[i], roy[i], roz[i], rdx[i], rdy[i], rdz[i],
+                                            tmin, tmax);
     hit[i] = (unsigned char)(h.prim >= 0);
     t[i] = h.t;
     prim[i] = h.prim;
@@ -216,6 +218,15 @@ int f3d_frame_step(const SceneArgs* s, const FrameArgs* f, const MeshArgs* m,
 int f3d_frame_kernel_attrs(int hybrid, int* out) {
     return f3d_kernel_attrs(hybrid ? (const void*)frame_kernel<true, kHybridBlocks>
                                    : (const void*)frame_kernel<false, kTerrainBlocks>,
+                            kThreads, out);
+}
+
+// The kernels here that walk a mesh (K9's body): which 0 K9 alone, 1 K6
+// hybrid, 2 K8; out as f3d_frame_kernel_attrs
+int f3d_mesh_kernel_attrs(int which, int* out) {
+    return f3d_kernel_attrs(which == 0   ? (const void*)trace_mesh_kernel
+                            : which == 1 ? (const void*)frame_kernel<true, kHybridBlocks>
+                                         : (const void*)gbuffer_kernel,
                             kThreads, out);
 }
 

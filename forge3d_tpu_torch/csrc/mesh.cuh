@@ -2,7 +2,8 @@
 // Kernel K9's body: the closest hit of one ray against a triangle mesh
 // through the threaded SAH BVH (forge3d_tpu/ops/bvh.py:trace_mesh with
 // _moller_trumbore). Runs inside the frame kernel K6, the G-buffer kernel
-// K8 and the mesh engine P2, and alone in kernels.cu:trace_mesh_kernel.
+// K8, the mesh engine P2, the TLAS walk P5 and the hybrid tracer P3, and
+// alone in kernels.cu:trace_mesh_kernel.
 //
 // The JAX version steps every ray of a batch in lock step under one global
 // iteration cap and freezes rays that left the tree; a frozen ray never
@@ -13,16 +14,31 @@
 // F3D_LEAF_SIZE triangles with the strict `t < best_t` update, so the
 // first of two equal hits in BVH order wins, as in JAX.
 //
-// What bounds it on the card: a chain of dependent loads (node -> box ->
-// next node; leaf -> triangles), so latency, with divergence between rays
-// that take different paths through the tree. The node and triangle
-// arrays (~1.2 MB for 12k triangles) stay in L2 and are read through the
-// read-only path.
+// The records are packed on the host (ops/bvh.py: pack_nodes, pack_tris;
+// the JAX layout's arrays stay for the plain version). A node is 32 bytes,
+// lo.xyz with the miss link and hi.xyz with first << 3 | count: two 16-byte
+// loads in one round, so the next node's index comes with the box, where
+// the arrays took seven loads and, on leaving a subtree, an eighth that
+// waited on the box test. A triangle is 48 bytes (v0, e1, e2, each padded
+// to 16): three loads, where the arrays took nine.
+//
+// What bounds it on the card: a chain of dependent loads (node -> next node;
+// leaf -> triangles), so latency, with divergence between rays that take
+// different paths through the tree. The records (~1 MB for 12k triangles)
+// stay in L2 and are read through the read-only path.
+//
+// An exact 4-wide walk over the same tree (every other level of interior
+// nodes folded away, a stack of the hit slots popped in DFS order and
+// tested again with the best t of the pop) measured slower than this walk
+// in every kernel that runs it on an H100 (PERF.md §6): it tests more
+// boxes a ray for fewer load rounds, and the walks here are not bound by
+// the rounds alone.
 
 #pragma once
 
 #include <math.h>
 #include <stdint.h>
+#include <string.h>
 
 #ifndef F3D_HD
 #ifdef __CUDACC__
@@ -35,14 +51,8 @@
 #define F3D_LEAF_SIZE 4  // bvh.py:_LEAF_SIZE
 
 struct MeshArgs {               // mirrored by _kernels.MeshArgs
-    const float* bmin;          // (n_nodes, 3)
-    const float* bmax;          // (n_nodes, 3)
-    const int* first;           // (n_nodes,)
-    const int* count;           // (n_nodes,): 0 = interior
-    const int* miss;            // (n_nodes,): DFS successor skipping the subtree
-    const float* v0;            // (n_prims, 3), BVH order
-    const float* e1;            // (n_prims, 3): v1 - v0
-    const float* e2;            // (n_prims, 3): v2 - v0
+    const float* nodes;         // (n_nodes, 8): bvh.py:pack_nodes
+    const float* tris;          // (n_prims, 12): bvh.py:pack_tris, BVH order
     const float* fnorm;         // (n_prims, 3) unit face normals, or null
     int n_nodes, n_prims, max_iters;
 };
@@ -58,6 +68,32 @@ struct MeshHit {
 #define F3D_LDG(p) (*(p))
 #endif
 
+// one 16-byte word of a record, through the read-only path
+struct MeshWord {
+    float x, y, z, w;
+};
+
+F3D_HD MeshWord mesh_word(const float* p) {
+    MeshWord r;
+#ifdef __CUDA_ARCH__
+    const float4 v = __ldg(reinterpret_cast<const float4*>(p));
+    r.x = v.x, r.y = v.y, r.z = v.z, r.w = v.w;
+#else
+    r.x = p[0], r.y = p[1], r.z = p[2], r.w = p[3];
+#endif
+    return r;
+}
+
+F3D_HD int mesh_bits(float f) {
+#ifdef __CUDA_ARCH__
+    return __float_as_int(f);
+#else
+    int i;
+    memcpy(&i, &f, 4);
+    return i;
+#endif
+}
+
 F3D_HD float mesh_inv(float d) {
     return fabsf(d) > 1e-12f ? 1.0f / d : (d >= 0.0f ? 1e12f : -1e12f);
 }
@@ -66,12 +102,11 @@ F3D_HD float mesh_inv(float d) {
 F3D_HD bool moller_trumbore(const MeshArgs& m, int p, float rox, float roy, float roz,
                             float rdx, float rdy, float rdz, float tmin, float tmax,
                             float& t, float& u, float& v) {
-    const float* a = m.v0 + 3 * p;
-    const float* b = m.e1 + 3 * p;
-    const float* c = m.e2 + 3 * p;
-    float v0x = F3D_LDG(a), v0y = F3D_LDG(a + 1), v0z = F3D_LDG(a + 2);
-    float e1x = F3D_LDG(b), e1y = F3D_LDG(b + 1), e1z = F3D_LDG(b + 2);
-    float e2x = F3D_LDG(c), e2y = F3D_LDG(c + 1), e2z = F3D_LDG(c + 2);
+    const float* r = m.tris + 12 * p;
+    const MeshWord a = mesh_word(r), b = mesh_word(r + 4), c = mesh_word(r + 8);
+    const float v0x = a.x, v0y = a.y, v0z = a.z;
+    const float e1x = b.x, e1y = b.y, e1z = b.z;
+    const float e2x = c.x, e2y = c.y, e2z = c.z;
     float px = rdy * e2z - rdz * e2y;
     float py = rdz * e2x - rdx * e2z;
     float pz = rdx * e2y - rdy * e2x;
@@ -88,13 +123,59 @@ F3D_HD bool moller_trumbore(const MeshArgs& m, int p, float rox, float roy, floa
     return big && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > tmin && t < tmax;
 }
 
-// bvh.py:trace_mesh for one ray. kAny (P3's shadow rays) stops the walk at
-// the first triangle it accepts: up to that triangle the walk is the same
-// step for step, so the ray is blocked (prim >= 0) exactly when the whole
-// walk would have accepted one.
-template <bool kAny = false>
-F3D_HD MeshHit trace_mesh_ray(const MeshArgs& m, float rox, float roy, float roz,
-                              float rdx, float rdy, float rdz, float tmin, float tmax) {
+// Triangle p of a leaf against the ray, the best hit updated where it is
+// nearer; true where kAny stops (the best t below `stop`).
+template <bool kAny>
+F3D_HD bool mesh_leaf_tri(const MeshArgs& m, int p, float rox, float roy, float roz, float rdx,
+                          float rdy, float rdz, float tmin, float stop, MeshHit& h) {
+    float t, u, v;
+    if (!moller_trumbore(m, p, rox, roy, roz, rdx, rdy, rdz, tmin, h.t, t, u, v)) return false;
+    h.t = t;
+    h.prim = p;
+    h.u = u;
+    h.v = v;
+    return kAny && t < stop;
+}
+
+// A leaf's triangles in order, word = first << 3 | count (each index
+// clamped to the last triangle); true where kAny stops. kUnroll unrolls the
+// loop, so that the leaf's triangle loads can issue together: faster where
+// the walk is most of the kernel (K9 alone, K8, P2, P5), slower inside K6
+// and P3, which keep the loop (PERF.md §6).
+template <bool kAny, bool kUnroll>
+F3D_HD bool mesh_leaf(const MeshArgs& m, int word, float rox, float roy, float roz, float rdx,
+                      float rdy, float rdz, float tmin, float stop, MeshHit& h) {
+    const int fst = word >> 3, cnt = word & 7;
+    const int last = m.n_prims - 1;
+    // The loop twice, only the pragma differs: one loop under
+    // `#pragma unroll (kUnroll ? F3D_LEAF_SIZE : 1)`, with `k < cnt` in its
+    // test or as a break, compiled to more registers (K9 alone 52, not 44;
+    // K8 52, not 47) and measured slower on an H100 (PERF.md §6).
+    if (kUnroll) {
+#pragma unroll
+        for (int k = 0; k < F3D_LEAF_SIZE && k < cnt; ++k)
+            if (mesh_leaf_tri<kAny>(m, fst + k < last ? fst + k : last, rox, roy, roz, rdx, rdy,
+                                    rdz, tmin, stop, h))
+                return true;
+    } else {
+#pragma unroll 1
+        for (int k = 0; k < F3D_LEAF_SIZE && k < cnt; ++k)
+            if (mesh_leaf_tri<kAny>(m, fst + k < last ? fst + k : last, rox, roy, roz, rdx, rdy,
+                                    rdz, tmin, stop, h))
+                return true;
+    }
+    return false;
+}
+
+// bvh.py:trace_mesh for one ray. kAny (the shadow rays of K6, P2 and P3)
+// stops once a triangle is accepted with t below `stop` (by default at the
+// first accepted): up to there the walk is the whole walk, whose best t can
+// only fall further, so the ray is blocked (prim >= 0), or blocked before
+// `stop`, exactly when the whole walk's hit is.
+template <bool kAny = false, bool kUnroll = false>
+F3D_HD MeshHit trace_mesh_ray(const MeshArgs& m, float rox, float roy, float roz, float rdx,
+                              float rdy, float rdz, float tmin, float tmax,
+                              float stop = HUGE_VALF) {
     MeshHit h;
     h.prim = -1;
     h.t = tmax;
@@ -103,36 +184,24 @@ F3D_HD MeshHit trace_mesh_ray(const MeshArgs& m, float rox, float roy, float roz
     const float ix = mesh_inv(rdx), iy = mesh_inv(rdy), iz = mesh_inv(rdz);
     int node = 0;
     for (int it = 0; it < m.max_iters && node < m.n_nodes; ++it) {
-        const float* lo = m.bmin + 3 * node;
-        const float* hi = m.bmax + 3 * node;
-        float t0x = (F3D_LDG(lo) - rox) * ix, t1x = (F3D_LDG(hi) - rox) * ix;
-        float t0y = (F3D_LDG(lo + 1) - roy) * iy, t1y = (F3D_LDG(hi + 1) - roy) * iy;
-        float t0z = (F3D_LDG(lo + 2) - roz) * iz, t1z = (F3D_LDG(hi + 2) - roz) * iz;
+        const MeshWord lo = mesh_word(m.nodes + 8 * node), hi = mesh_word(m.nodes + 8 * node + 4);
+        float t0x = (lo.x - rox) * ix, t1x = (hi.x - rox) * ix;
+        float t0y = (lo.y - roy) * iy, t1y = (hi.y - roy) * iy;
+        float t0z = (lo.z - roz) * iz, t1z = (hi.z - roz) * iz;
         float t_enter = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
                               fmaxf(fminf(t0z, t1z), tmin));
         float t_exit = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
                              fminf(fmaxf(t0z, t1z), h.t));
         bool box_hit = t_enter <= t_exit;
-        int cnt = F3D_LDG(m.count + node);
-        if (box_hit && cnt == 0) {  // interior: first child follows
+        const int word = mesh_bits(hi.w);
+        if (box_hit && (word & 7) == 0) {  // interior: first child follows
             node += 1;
             continue;
         }
-        if (box_hit) {  // leaf
-            int fst = F3D_LDG(m.first + node);
-            for (int k = 0; k < F3D_LEAF_SIZE && k < cnt; ++k) {
-                int p = fst + k < m.n_prims - 1 ? fst + k : m.n_prims - 1;
-                float t, u, v;
-                if (moller_trumbore(m, p, rox, roy, roz, rdx, rdy, rdz, tmin, h.t, t, u, v)) {
-                    h.t = t;
-                    h.prim = p;
-                    h.u = u;
-                    h.v = v;
-                    if (kAny) return h;
-                }
-            }
-        }
-        node = F3D_LDG(m.miss + node);
+        if (box_hit
+            && mesh_leaf<kAny, kUnroll>(m, word, rox, roy, roz, rdx, rdy, rdz, tmin, stop, h))
+            return h;
+        node = mesh_bits(lo.w);
     }
     return h;
 }

@@ -272,7 +272,8 @@ F3D_HD void mesh_pixel(const CamArgs& c, const MeshArgs& m, const MaterialArgs& 
     const float* ro = c.origin;
     const float ng[3] = {0.0f, 1.0f, 0.0f};
     const float zero[3] = {0.0f, 0.0f, 0.0f};
-    MeshHit h = trace_mesh_ray(m, ro[0], ro[1], ro[2], rd[0], rd[1], rd[2], 1e-4f, 1e30f);
+    MeshHit h = trace_mesh_ray<false, true>(m, ro[0], ro[1], ro[2], rd[0], rd[1], rd[2], 1e-4f,
+                                            1e30f);
     if (h.prim < 0) {
         float env[3];
         env_color(rd[1], env);
@@ -288,7 +289,8 @@ F3D_HD void mesh_pixel(const CamArgs& c, const MeshArgs& m, const MaterialArgs& 
     float sp[3];
     for (int k = 0; k < 3; ++k) sp[k] = (ro[k] + h.t * rd[k]) + n[k] * 1e-3f;
     const float* sd = mat.sun_dir;
-    MeshHit sh = trace_mesh_ray(m, sp[0], sp[1], sp[2], sd[0], sd[1], sd[2], 1e-4f, 1e6f);
+    MeshHit sh = trace_mesh_ray<true, true>(m, sp[0], sp[1], sp[2], sd[0], sd[1], sd[2], 1e-4f,
+                                            1e6f);
     float ndl = fmaxf(n[0] * sd[0] + n[1] * sd[1] + n[2] * sd[2], 0.0f);
     float w = mat.sun_intensity * ndl * (sh.prim >= 0 ? 0.0f : 1.0f);
     for (int k = 0; k < 3; ++k) {

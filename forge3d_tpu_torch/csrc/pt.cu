@@ -214,4 +214,9 @@ int f3d_hybrid_attrs(int* out) {
     return f3d_kernel_attrs((const void*)hybrid_kernel, kTileThreads, out);
 }
 
+// P5's registers, local bytes and resident blocks of kThreads an SM
+int f3d_tlas_attrs(int* out) {
+    return f3d_kernel_attrs((const void*)tlas_kernel, kThreads, out);
+}
+
 }  // extern "C"

@@ -75,7 +75,7 @@ F3D_HD TlasHit tlas_ray(const TlasArgs& a, float rox, float roy, float roz, floa
         float dy = l[3] * rdx + l[4] * rdy + l[5] * rdz;
         float dz = l[6] * rdx + l[7] * rdy + l[8] * rdz;
         const MeshArgs mesh = a.blas[F3D_LDG(a.inst_blas + i)];
-        MeshHit h = trace_mesh_ray(mesh, ox, oy, oz, dx, dy, dz, tmin, tmax);
+        MeshHit h = trace_mesh_ray<false, true>(mesh, ox, oy, oz, dx, dy, dz, tmin, tmax);
         if (h.prim >= 0 && h.t < b.t) {
             b.hit = 1;
             b.t = h.t;

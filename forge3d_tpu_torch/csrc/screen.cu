@@ -19,10 +19,21 @@
 // S1: one thread per cube texel (6 x 256^2), a bilinear read of the small
 // equirect map; bound by its 4.7 MB of output.
 //
-// S2/S3: one thread per output texel runs the whole sample loop in JAX's
-// order (128 cosine samples; max(1024 >> mip, 64) GGX samples per mip), so
-// the sum is the scan's sum. The 4.7 MB env cube stays in L2; what bounds
-// it is the bilinear reads, about 70 million cube samples per pyramid.
+// S2/S3: a pyramid's six convolutions (the 128^2 irradiance, 128 cosine
+// samples a texel; mips 1-5, max(1024 >> mip, 64) GGX samples) in one
+// launch, the largest first, so the small mips fill the card beside the
+// large ones instead of running alone as tails. A texel takes a group of
+// G lanes (a launch parameter of each convolution, screen.py:CONV_GROUPS):
+// lane j computes samples j, j + G, ..., and after each round of G samples
+// every lane of the group adds the G terms in lane order, read with
+// __shfl_sync, so the adds are the scan's adds in the scan's order and the
+// sums are the scan's bit for bit (a tree over the samples would not be).
+// Mip 1, most of the work, runs on twice the lanes, mip 5 in two rounds
+// instead of 64 dependent samples. The env cube is read from its RGBx copy
+// (screen.py:_rgbx forms it before the launch), a bilinear tap one 16-byte
+// load; the 6.3 MB copy stays in L2. What bounds it is issue: each of the
+// ~70 million samples a pyramid takes eight IEEE divisions and two square
+// roots, which keep every bit.
 //
 // S4: JAX loops over the largest box (wbb x hbb) and masks every triangle
 // to its own; here one thread per triangle walks its own box and stops at
@@ -50,6 +61,7 @@
 
 #include <cuda_runtime.h>
 
+#include "common.cuh"  // f3d_kernel_attrs
 #include "screen.cuh"
 
 namespace {
@@ -65,13 +77,46 @@ __global__ void env_cube_kernel(const float* __restrict__ eq, int eq_h, int eq_w
     env_cube_texel(eq, eq_h, eq_w, dirs, i, out);
 }
 
-__global__ void convolve_kernel(const float* __restrict__ env, int env_size,
-                                const float* __restrict__ dirs, int n,
-                                const float* __restrict__ smp, int count, int mode,
-                                float* __restrict__ out) {
-    int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
-    convolve_texel(env, env_size, dirs, smp, count, mode, i, out);
+constexpr int kConvJobs = 6;   // a pyramid's convolutions
+
+struct ConvPlan {
+    ConvJob job[kConvJobs];
+    int first_block[kConvJobs + 1];
+    int n_jobs;
+};
+
+__global__ void __launch_bounds__(kThreads)
+convolve_kernel(const float* __restrict__ env4, int env_size, ConvPlan p) {
+    // the block's convolution, selected with static indices (no local copy)
+    int j = 0;
+#pragma unroll
+    for (int k = 1; k < kConvJobs; ++k) j += (k < p.n_jobs && (int)blockIdx.x >= p.first_block[k]);
+    ConvJob job = p.job[0];
+#pragma unroll
+    for (int k = 1; k < kConvJobs; ++k)
+        if (j == k) job = p.job[k];
+    // every lane of the block runs the same loops (the job, its sample count
+    // and group are the block's), so the shuffles take the whole warp; a
+    // texel past the end computes texel 0's sums and writes nothing
+    const int g = job.group;
+    const int lane = threadIdx.x & (g - 1);
+    const int i = ((int)blockIdx.x - p.first_block[j]) * (kThreads / g) + (int)threadIdx.x / g;
+    const bool live = i < job.n;
+    float n[3], t[3], b[3];
+    convolve_frame(job.dirs, live ? i : 0, n, t, b);
+    float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    for (int k0 = 0; k0 < job.count; k0 += g) {
+        float x[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        if (k0 + lane < job.count)
+            convolve_sample(env4, env_size, n, t, b, job.smp, k0 + lane, job.mode, x);
+        const int m = job.count - k0 < g ? job.count - k0 : g;
+        for (int q = 0; q < m; ++q) {
+#pragma unroll
+            for (int c = 0; c < 4; ++c)     // the irradiance has no weight sum
+                if (c < 3 || job.mode != 0) acc[c] = acc[c] + __shfl_sync(0xffffffffu, x[c], q, g);
+        }
+    }
+    if (live && lane == 0) convolve_finish(acc, job.mode, i, job.out);
 }
 
 __global__ void raster_kernel(const float* __restrict__ tris, const unsigned char* __restrict__ keep,
@@ -133,13 +178,41 @@ int f3d_ibl_env_cube(const float* eq, int eq_h, int eq_w, const float* dirs, int
     return (int)cudaGetLastError();
 }
 
-int f3d_ibl_convolve(const float* env, int env_size, const float* dirs, int size,
-                     const float* smp, int count, int mode, float* out, void* stream) {
-    int n = 6 * size * size;
-    if (n > 0)
-        convolve_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-            env, env_size, dirs, n, smp, count, mode, out);
+// S2/S3: `jobs` holds n_jobs (<= 6) convolutions of the RGBx cube env4, seven
+// words each (dirs, samples, out, texels, samples a texel, mode, lanes a
+// texel), in launch order; one launch runs them all. Returns
+// cudaErrorInvalidValue for more than six or a group that is not a power of
+// two up to 32.
+int f3d_ibl_convolve(const float* env4, int env_size, const long long* jobs, int n_jobs,
+                     void* stream) {
+    if (n_jobs < 0 || n_jobs > kConvJobs) return (int)cudaErrorInvalidValue;
+    ConvPlan p = {};
+    p.n_jobs = n_jobs;
+    int blocks = 0;
+    for (int j = 0; j < n_jobs; ++j) {
+        const long long* w = jobs + 7 * j;
+        ConvJob& c = p.job[j];
+        c.dirs = (const float*)w[0];
+        c.smp = (const float*)w[1];
+        c.out = (float*)w[2];
+        c.n = (int)w[3];
+        c.count = (int)w[4];
+        c.mode = (int)w[5];
+        c.group = (int)w[6];
+        if (c.group < 1 || c.group > 32 || (c.group & (c.group - 1)) != 0)
+            return (int)cudaErrorInvalidValue;
+        p.first_block[j] = blocks;
+        blocks += (int)(((long long)c.n * c.group + kThreads - 1) / kThreads);
+    }
+    for (int j = n_jobs; j <= kConvJobs; ++j) p.first_block[j] = blocks;
+    if (blocks > 0)
+        convolve_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(env4, env_size, p);
     return (int)cudaGetLastError();
+}
+
+// S2/S3's registers, local bytes and resident blocks of kThreads an SM
+int f3d_ibl_convolve_attrs(int* out) {
+    return f3d_kernel_attrs((const void*)convolve_kernel, kThreads, out);
 }
 
 int f3d_raster_depth(const float* tris, const unsigned char* keep, int n_tris, int res, int wbb,

@@ -280,44 +280,106 @@ F3D_HD void env_cube_texel(const float* eq, int eq_h, int eq_w, const float* dir
 }
 
 // ---------------------------------------------------------------------------
-// S2 / S3: one texel of the cube convolution (screen.py:363-422). mode 0:
-// the cosine irradiance; mode 1: the GGX prefilter. `smp` holds the
-// (count, 3) sample vectors in JAX's order; the scan keeps it.
+// S2 / S3: the cube convolution (screen.py:363-422). mode 0: the cosine
+// irradiance; mode 1: the GGX prefilter. `smp` holds the (count, 3) sample
+// vectors in JAX's order. JAX sums them in a scan, one sample after the
+// other; screen.cu gives a texel G lanes, lane j computing samples j, j + G,
+// ..., and every lane adds the group's G terms of a round in lane order, so
+// each add is the scan's add and the sum is the scan's, bit for bit.
 // ---------------------------------------------------------------------------
 
-F3D_HD void convolve_texel(const float* env, int env_size, const float* dirs, const float* smp,
-                           int count, int mode, int i, float* out) {
-    const float n[3] = {dirs[3 * i], dirs[3 * i + 1], dirs[3 * i + 2]};
-    float t[3], b[3];
+// a texel's normal and tangent frame
+F3D_HD void convolve_frame(const float* dirs, int i, float* n, float* t, float* b) {
+    for (int c = 0; c < 3; ++c) n[c] = dirs[3 * i + c];
     tangent_frame(n, t, b);
-    float acc[3] = {0.0f, 0.0f, 0.0f}, wacc = 0.0f;
-    for (int k = 0; k < count; ++k) {
-        const float s0 = smp[3 * k], s1 = smp[3 * k + 1], s2 = smp[3 * k + 2];
-        float d[3];
-        for (int c = 0; c < 3; ++c) d[c] = t[c] * s0 + b[c] * s1 + n[c] * s2;
-        const float nrm = norm3(d);
-        for (int c = 0; c < 3; ++c) d[c] = d[c] / nrm;
-        float col[3];
-        if (mode == 0) {
-            cube_sample(env, env_size, d, col);
-            for (int c = 0; c < 3; ++c) acc[c] = acc[c] + col[c] * s2;
-        } else {
-            const float vdh = sc_dot3(n, d);
-            float l[3];
-            for (int c = 0; c < 3; ++c) l[c] = (2.0f * vdh) * d[c] - n[c];
-            normalize3(l);
-            const float ndl = fmaxf(sc_dot3(n, l), 0.0f);
-            cube_sample(env, env_size, l, col);
-            for (int c = 0; c < 3; ++c) acc[c] = acc[c] + col[c] * ndl;
-            wacc = wacc + ndl;
-        }
-    }
+}
+
+struct ScWord {
+    float x, y, z, w;
+};
+
+// a 16-byte word through the read-only path
+F3D_HD ScWord sc_word(const float* p) {
+    ScWord r;
+#ifdef __CUDA_ARCH__
+    const float4 v = __ldg(reinterpret_cast<const float4*>(p));
+    r.x = v.x, r.y = v.y, r.z = v.z, r.w = v.w;
+#else
+    r.x = p[0], r.y = p[1], r.z = p[2], r.w = p[3];
+#endif
+    return r;
+}
+
+// bilinear sample of an RGBx (6, s, s, 4) cube: tex_bilinear's arithmetic,
+// a texel one 16-byte load
+F3D_HD void cube_sample4(const float* cube4, int s, const float* d, float* out) {
+    int face;
+    float u, v;
+    dir_to_face_uv(d, face, u, v);
+    const float* t = cube4 + (size_t)face * s * s * 4;
+    const float x = u * (float)s - 0.5f;
+    const float y = v * (float)s - 0.5f;
+    const float x0 = floorf(x), y0 = floorf(y);
+    const float fx = x - x0, fy = y - y0;
+    const int ix0 = sc_clampi((int)x0, 0, s - 1), iy0 = sc_clampi((int)y0, 0, s - 1);
+    const int ix1 = sc_clampi(ix0 + 1, 0, s - 1), iy1 = sc_clampi(iy0 + 1, 0, s - 1);
+    const ScWord t00 = sc_word(t + (iy0 * s + ix0) * 4);
+    const ScWord t10 = sc_word(t + (iy0 * s + ix1) * 4);
+    const ScWord t01 = sc_word(t + (iy1 * s + ix0) * 4);
+    const ScWord t11 = sc_word(t + (iy1 * s + ix1) * 4);
+    const float a00[3] = {t00.x, t00.y, t00.z}, a10[3] = {t10.x, t10.y, t10.z};
+    const float a01[3] = {t01.x, t01.y, t01.z}, a11[3] = {t11.x, t11.y, t11.z};
     for (int c = 0; c < 3; ++c) {
-        const float r = mode == 0 ? sc_clamp01((SCR_PI * acc[c]) / 128.0f)
-                                  : sc_clamp01(acc[c] / fmaxf(wacc, 1e-3f));
-        out[3 * i + c] = f16_round(r);
+        const float top = a00[c] + (a10[c] - a00[c]) * fx;
+        const float bot = a01[c] + (a11[c] - a01[c]) * fx;
+        out[c] = top + (bot - top) * fy;
     }
 }
+
+// sample k's terms of the sums: x[0..2] the colour's, x[3] the prefilter's
+// weight (0 for the irradiance)
+F3D_HD void convolve_sample(const float* env4, int env_size, const float* n, const float* t,
+                            const float* b, const float* smp, int k, int mode, float* x) {
+    const float s0 = smp[3 * k], s1 = smp[3 * k + 1], s2 = smp[3 * k + 2];
+    float d[3];
+    for (int c = 0; c < 3; ++c) d[c] = t[c] * s0 + b[c] * s1 + n[c] * s2;
+    const float nrm = norm3(d);
+    for (int c = 0; c < 3; ++c) d[c] = d[c] / nrm;
+    float col[3];
+    if (mode == 0) {
+        cube_sample4(env4, env_size, d, col);
+        for (int c = 0; c < 3; ++c) x[c] = col[c] * s2;
+        x[3] = 0.0f;
+    } else {
+        const float vdh = sc_dot3(n, d);
+        float l[3];
+        for (int c = 0; c < 3; ++c) l[c] = (2.0f * vdh) * d[c] - n[c];
+        normalize3(l);
+        const float ndl = fmaxf(sc_dot3(n, l), 0.0f);
+        cube_sample4(env4, env_size, l, col);
+        for (int c = 0; c < 3; ++c) x[c] = col[c] * ndl;
+        x[3] = ndl;
+    }
+}
+
+// the texel's output from its sums (acc[3] the prefilter's weight); a NaN
+// sum (an inf texel beside another: inf - inf in the bilinear weights) stays
+// NaN, as jnp.clip and torch.clamp keep it
+F3D_HD void convolve_finish(const float* acc, int mode, int i, float* out) {
+    for (int c = 0; c < 3; ++c) {
+        const float x = mode == 0 ? (SCR_PI * acc[c]) / 128.0f : acc[c] / fmaxf(acc[3], 1e-3f);
+        out[3 * i + c] = f16_round(x != x ? x : sc_clamp01(x));
+    }
+}
+
+// One convolution of a launch: the texels' directions (n, 3), the samples,
+// the output (n, 3), and the lanes a texel (a power of two up to 32).
+struct ConvJob {
+    const float* dirs;
+    const float* smp;
+    float* out;
+    int n, count, mode, group;
+};
 
 // ---------------------------------------------------------------------------
 // S4: one triangle of the depth raster (screen.py:464-519), over its own

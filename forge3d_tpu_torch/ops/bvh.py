@@ -12,7 +12,10 @@
 # (csrc/kernels.cu:trace_mesh_kernel over csrc/mesh.cuh:trace_mesh_ray): on
 # CUDA tensors it launches the kernel, on CPU tensors it runs
 # `trace_mesh_plain`. On the render paths the same device function runs
-# inside the frame kernel K6, the G-buffer kernel K8 and the mesh engine P2.
+# inside the frame kernel K6, the G-buffer kernel K8, the mesh engine P2, the
+# TLAS walk P5 and the hybrid tracer P3. The kernel reads the BVH as packed
+# records (pack_nodes, pack_tris), formed on the host where the scene is put
+# on the device (MeshScene.from_arrays); the plain version reads the arrays.
 
 from __future__ import annotations
 
@@ -259,6 +262,42 @@ def refit_bvh(bvh: BvhArrays, vertices: np.ndarray, indices: np.ndarray) -> BvhA
 
 
 # ---------------------------------------------------------------------------
+# The kernel's records: packed nodes and triangles (csrc/mesh.cuh)
+# ---------------------------------------------------------------------------
+
+_MAX_FIRST = 1 << 28   # `first` shares its word with the count's 3 bits
+
+
+def _bits(a) -> np.ndarray:
+    """int32 values as the float32 words that hold their bits."""
+    return np.ascontiguousarray(a, np.int32).view(np.float32)
+
+
+def pack_nodes(bmin, bmax, first, count, miss) -> np.ndarray:
+    """(n_nodes, 8) float32, a node's 32-byte record: lo.xyz and the miss
+    link's bits, hi.xyz and the bits of first << 3 | min(count, 4) (the
+    walk tests at most F3D_LEAF_SIZE (4) triangles of a leaf; count 0 marks
+    an interior node)."""
+    n = len(count)
+    if n and int(np.max(first)) >= _MAX_FIRST:
+        raise ValueError(f"a leaf's first primitive must be below {_MAX_FIRST}")
+    out = np.empty((n, 8), np.float32)
+    out[:, 0:3] = bmin
+    out[:, 3] = _bits(miss)
+    out[:, 4:7] = bmax
+    out[:, 7] = _bits(np.asarray(first, np.int64) << 3 | np.minimum(count, _LEAF_SIZE))
+    return out
+
+
+def pack_tris(v0, e1, e2) -> np.ndarray:
+    """(n_prims, 12) float32, a triangle's 48-byte record: v0, e1, e2, each
+    padded to 16 bytes."""
+    out = np.zeros((len(v0), 12), np.float32)
+    out[:, 0:3], out[:, 4:7], out[:, 8:11] = v0, e1, e2
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Device traversal
 # ---------------------------------------------------------------------------
 
@@ -267,8 +306,9 @@ _I32 = torch.int32
 
 @dataclass(frozen=True)
 class MeshScene:
-    """Flattened BVH and triangles on one device (the JAX MeshScene's
-    fields)."""
+    """Flattened BVH and triangles on one device: the JAX MeshScene's
+    fields, which the plain version reads, and the kernel's records `nodes`
+    (pack_nodes) and `tris` (pack_tris)."""
 
     bounds_min: torch.Tensor  # (n_nodes, 3) f32
     bounds_max: torch.Tensor
@@ -278,6 +318,22 @@ class MeshScene:
     tri_v0: torch.Tensor      # (n_prims, 3) f32
     tri_e1: torch.Tensor
     tri_e2: torch.Tensor
+    nodes: torch.Tensor       # (n_nodes, 8) f32
+    tris: torch.Tensor        # (n_prims, 12) f32
+
+    @classmethod
+    def from_arrays(cls, device, **a) -> "MeshScene":
+        """The scene of the BVH arrays `a` (bounds_min, bounds_max, first,
+        count, miss_link, tri_v0, tri_e1, tri_e2; numpy) on `device`, the
+        records packed on the host."""
+        a = {k: np.array(a[k], np.int32 if k in ("first", "count", "miss_link") else np.float32,
+                         copy=True) for k in _SOA}
+        nodes = pack_nodes(a["bounds_min"], a["bounds_max"], a["first"], a["count"],
+                           a["miss_link"])
+        tris = pack_tris(a["tri_v0"], a["tri_e1"], a["tri_e2"])
+        t = {k: torch.as_tensor(v, device=device) for k, v in a.items()}
+        return cls(**t, nodes=torch.as_tensor(nodes, device=device),
+                   tris=torch.as_tensor(tris, device=device))
 
     @property
     def n_nodes(self) -> int:
@@ -291,35 +347,40 @@ class MeshScene:
     def device(self) -> torch.device:
         return self.tri_v0.device
 
+    @property
+    def kernel_nbytes(self) -> int:
+        """Bytes of the records the kernel reads."""
+        return sum(t.numel() * t.element_size() for t in (self.nodes, self.tris))
+
     def to(self, device) -> "MeshScene":
         return MeshScene(*(getattr(self, f).to(device) for f in self.__dataclass_fields__))
 
     def kernel_args(self, face_normals=None, max_iters: int = 0) -> "_kernels.MeshArgs":
         """The kernels' view of the BVH; `face_normals` (n_prims, 3) in BVH
         order where the kernel shades the hit."""
-        fields = [getattr(self, f) for f in self.__dataclass_fields__]
+        fields = [self.nodes, self.tris]
         if face_normals is not None:
             fields.append(face_normals)
         _kernels.require_cuda("mesh", *fields)
         return _kernels.MeshArgs(
-            *(_kernels.ptr(f) for f in fields[:8]),
+            _kernels.ptr(self.nodes), _kernels.ptr(self.tris),
             None if face_normals is None else _kernels.ptr(face_normals),
             self.n_nodes, self.n_prims, max_iters if max_iters > 0 else 4 * self.n_nodes + 64)
 
 
+_SOA = ("bounds_min", "bounds_max", "first", "count", "miss_link", "tri_v0", "tri_e1", "tri_e2")
+
+
 def mesh_scene(bvh: BvhArrays, device="cuda") -> Tuple[MeshScene, int]:
-    """The BVH's arrays on `device`, the card unless device="cpu"."""
+    """The BVH's arrays and the kernel's records on `device`, the card
+    unless device="cpu"."""
     from ..pt.terrain_ref import resolve_device
 
     device = resolve_device(device)
-
-    def t(a):
-        return torch.as_tensor(np.ascontiguousarray(a), device=device)
-
-    scene = MeshScene(
-        bounds_min=t(bvh.bounds_min), bounds_max=t(bvh.bounds_max), first=t(bvh.first),
-        count=t(bvh.count), miss_link=t(bvh.miss_link), tri_v0=t(bvh.tri_v0),
-        tri_e1=t(bvh.tri_e1), tri_e2=t(bvh.tri_e2))
+    scene = MeshScene.from_arrays(
+        device, bounds_min=bvh.bounds_min, bounds_max=bvh.bounds_max, first=bvh.first,
+        count=bvh.count, miss_link=bvh.miss_link, tri_v0=bvh.tri_v0, tri_e1=bvh.tri_e1,
+        tri_e2=bvh.tri_e2)
     return scene, bvh.node_count
 
 

@@ -6,7 +6,8 @@
 #
 #   S1    env_cube        the equirect-to-cube resample (screen.py:355)
 #   S2/S3 cube_convolve   the cosine irradiance (:363) and the GGX prefilter
-#                         mips 1-5 (:388): one kernel, two lobes
+#                         mips 1-5 (:388): one kernel, two lobes, a
+#                         pyramid's six in one launch (cube_pyramid)
 #   S4    raster_depth    the light-space depth raster (:464)
 #   S8    shade           the per-pixel shade (:1098), with the PCSS
 #                         visibility S5 (:656), parallax occlusion mapping
@@ -30,6 +31,7 @@
 
 from __future__ import annotations
 
+import ctypes
 import hashlib
 import math
 import os
@@ -642,21 +644,53 @@ def cube_convolve_plain(env: torch.Tensor, mip: int) -> torch.Tensor:
     return _f16(torch.stack(out, -1))
 
 
-def _cube_convolve_kernel(env: torch.Tensor, mip: int) -> torch.Tensor:
+#: the lanes that share a texel in each convolution (index: the mip, 0 the
+#: irradiance), powers of two up to 32: the fastest of the sets timed on an
+#: H100 in one launch (PERF.md §6)
+CONV_GROUPS = (1, 2, 4, 8, 16, 32)
+
+
+def conv_size(env_size: int, mip: int) -> int:
+    """The texels a side of convolution `mip` of an env cube of env_size."""
+    return IRR_SIZE if mip == 0 else env_size >> mip
+
+
+def _rgbx(env: torch.Tensor) -> torch.Tensor:
+    """The RGBx copy (6, S, S, 4), x = 0, of a (6, S, S, 3) cube."""
+    return torch.cat([env, torch.zeros_like(env[..., :1])], -1).contiguous()
+
+
+def _convolve_launch(env: torch.Tensor, mips, groups) -> list:
+    """One launch of the convolutions `mips` of the cube, read from its RGBx
+    copy, each texel on groups[mip] lanes, the largest first; their outputs
+    in the order of `mips`."""
     if env.dim() != 4 or env.shape[0] != 6 or env.shape[3] != 3 or env.dtype != _F32:
         raise ValueError("cube_convolve: env must be a float32 (6, S, S, 3) cube")
-    size = IRR_SIZE if mip == 0 else int(env.shape[1]) >> mip
-    dirs = _table("dirs", size, env.device)
-    smp = _table("lobe", mip, env.device)
-    _kernels.require_cuda("S2/S3 cube_convolve", env, dirs, smp)
-    out = torch.empty((6, size, size, 3), dtype=_F32, device=env.device)
-    err = _kernels.lib().f3d_ibl_convolve(
-        _kernels.ptr(env), int(env.shape[1]), _kernels.ptr(dirs), int(size), _kernels.ptr(smp),
-        int(smp.shape[0]), MODE_IRRADIANCE if mip == 0 else MODE_PREFILTER, _kernels.ptr(out),
-        _kernels.stream_ptr(env.device))
+    env4 = _rgbx(env)
+    env_size = int(env.shape[1])
+    outs, jobs = {}, []
+    for mip in mips:
+        size = conv_size(env_size, mip)
+        dirs = _table("dirs", size, env.device)
+        smp = _table("lobe", mip, env.device)
+        out = torch.empty((6, size, size, 3), dtype=_F32, device=env.device)
+        _kernels.require_cuda("S2/S3 cube_convolve", env4, dirs, smp, out)
+        outs[mip] = out
+        n, count = 6 * size * size, int(smp.shape[0])
+        jobs.append((n * count, [dirs.data_ptr(), smp.data_ptr(), out.data_ptr(), n, count,
+                                 MODE_IRRADIANCE if mip == 0 else MODE_PREFILTER,
+                                 int(groups[mip])]))
+    jobs.sort(key=lambda j: -j[0])     # the largest work first; sort is stable
+    words = (ctypes.c_longlong * (7 * len(jobs)))(*(w for _, job in jobs for w in job))
+    err = _kernels.lib().f3d_ibl_convolve(_kernels.ptr(env4), env_size, words, len(jobs),
+                                          _kernels.stream_ptr(env.device))
     _kernels.check(err, "S2/S3 cube_convolve")
     cube_convolve.launches += 1
-    return out
+    return [outs[m] for m in mips]
+
+
+def _cube_convolve_kernel(env: torch.Tensor, mip: int, groups=None) -> torch.Tensor:
+    return _convolve_launch(env, [mip], groups or CONV_GROUPS)[0]
 
 
 def cube_convolve(env: torch.Tensor, mip: int) -> torch.Tensor:
@@ -666,6 +700,20 @@ def cube_convolve(env: torch.Tensor, mip: int) -> torch.Tensor:
     if env.device.type == "cpu":
         return cube_convolve_plain(env, mip)
     return _cube_convolve_kernel(env, mip)
+
+
+def _cube_pyramid_kernel(env: torch.Tensor, groups=None) -> list:
+    return _convolve_launch(env, list(range(N_MIPS)), groups or CONV_GROUPS)
+
+
+def cube_pyramid(env: torch.Tensor) -> list:
+    """S2 and S3 of a pyramid, [irradiance, mip 1, ..., mip 5]: on the card
+    one launch of all six, equal to six cube_convolve calls. CPU tensors run
+    the plain versions."""
+    env = env.contiguous()
+    if env.device.type == "cpu":
+        return [cube_convolve_plain(env, m) for m in range(N_MIPS)]
+    return _cube_pyramid_kernel(env)
 
 
 cube_convolve.launches = 0
@@ -709,9 +757,9 @@ def clear_caches() -> None:
 def build_ibl(hdr_rgb, *, device="cuda") -> dict:
     """Split-sum IBL pyramid per the reference pipeline (IBLQuality::Medium)
     on `device`, the card unless device="cpu": S1 (the 256^2 env cube, which
-    is also mip 0), S2 (the 128^2 irradiance) and S3 (mips 1-5), and the
-    BRDF LUT (zero unless FORGE3D_IBL_BRDF=analytic). Cached in process by
-    screen.py's key."""
+    is also mip 0), S2 (the 128^2 irradiance) and S3 (mips 1-5) in one launch
+    (cube_pyramid), and the BRDF LUT (zero unless
+    FORGE3D_IBL_BRDF=analytic). Cached in process by screen.py's key."""
     from ..pt.terrain_ref import resolve_device
 
     device = resolve_device(device)
@@ -723,8 +771,8 @@ def build_ibl(hdr_rgb, *, device="cuda") -> dict:
         return hit
     eq = torch.as_tensor(np.ascontiguousarray(hdr_rgb), device=device)
     env = env_cube(eq, ENV_SIZE)
-    irradiance = cube_convolve(env, 0)
-    spec_mips = [env] + [cube_convolve(env, m) for m in range(1, N_MIPS)]
+    irradiance, *mips = cube_pyramid(env)
+    spec_mips = [env] + mips
     brdf = torch.as_tensor(_build_brdf_lut(), device=device)
     ibl = {"irradiance": irradiance, "spec_mips": spec_mips, "brdf": brdf}
     nbytes = sum(t.numel() * 4 for t in [irradiance, brdf, *spec_mips])

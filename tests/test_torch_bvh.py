@@ -153,3 +153,53 @@ def test_mesh_scene_defaults_to_cuda():
     v, i = box_town(2)
     with pytest.raises(DeviceError, match="CUDA is not available"):
         tbvh.mesh_scene(tbvh.build_sah_bvh(v, i))
+
+
+# K9's records (ops/bvh.py: pack_nodes, pack_tris): the packed nodes and
+# triangles hold the arrays' values bit for bit, packed again after a refit.
+
+@pytest.mark.parametrize("name", sorted(MESHES))
+def test_packed_records_hold_the_arrays(name):
+    v, i = MESHES[name]()
+    bvh = tbvh.build_sah_bvh(v, i)
+    scene, n = tbvh.mesh_scene(bvh, device="cpu")
+    nodes = scene.nodes.numpy()
+    words = nodes.view(np.int32)
+    np.testing.assert_array_equal(nodes[:, 0:3], bvh.bounds_min)
+    np.testing.assert_array_equal(nodes[:, 4:7], bvh.bounds_max)
+    np.testing.assert_array_equal(words[:, 3], bvh.miss_link)
+    leaf = bvh.count > 0
+    np.testing.assert_array_equal((words[:, 7] >> 3)[leaf], bvh.first[leaf])
+    np.testing.assert_array_equal(words[:, 7] & 7, np.minimum(bvh.count, 4))
+    tris = scene.tris.numpy()
+    for k, a in enumerate((bvh.tri_v0, bvh.tri_e1, bvh.tri_e2)):
+        np.testing.assert_array_equal(tris[:, 4 * k:4 * k + 3], a)
+        assert not tris[:, 4 * k + 3].any()
+    assert n == bvh.node_count and scene.kernel_nbytes == 32 * n + 48 * len(i)
+
+
+def test_records_are_packed_again_after_a_refit():
+    v, i = box_town(4)
+    bvh = tbvh.build_sah_bvh(v, i)
+    moved = (v * np.float32(1.5) + np.float32(3.0)).astype(np.float32)
+    re = tbvh.refit_bvh(bvh, moved, i)
+    a, _ = tbvh.mesh_scene(bvh, device="cpu")
+    b, _ = tbvh.mesh_scene(re, device="cpu")
+    np.testing.assert_array_equal(b.nodes[:, 0:3].numpy(), re.bounds_min)
+    np.testing.assert_array_equal(b.nodes[:, 4:7].numpy(), re.bounds_max)
+    np.testing.assert_array_equal(b.tris[:, 0:3].numpy(), re.tri_v0)
+    # the same topology (miss links, leaves), the moved boxes
+    for k in (3, 7):
+        np.testing.assert_array_equal(a.nodes[:, k].numpy().view(np.int32),
+                                      b.nodes[:, k].numpy().view(np.int32))
+    assert not torch.equal(a.nodes[:, 0:3], b.nodes[:, 0:3])
+
+
+def test_packed_nodes_refuse_a_first_primitive_past_28_bits():
+    """`first` shares its word with the count: a mesh of 2^28 primitives or
+    more is refused when it is packed."""
+    z = np.zeros((1, 3), np.float32)
+    with pytest.raises(ValueError, match="first primitive"):
+        tbvh.pack_nodes(z, z, np.array([1 << 28]), np.array([2]), np.array([1]))
+    ok = tbvh.pack_nodes(z, z, np.array([(1 << 28) - 1]), np.array([9]), np.array([1]))
+    assert ok[0, 7:].view(np.int32)[0] == ((1 << 28) - 1) << 3 | 4

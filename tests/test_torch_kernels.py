@@ -83,6 +83,18 @@ int f3d_frame_kernel_attrs(int, int* out) {
     out[0] = out[1] = out[2] = 0;   // no device function on the host
     return 0;
 }
+int f3d_mesh_kernel_attrs(int, int* out) {
+    out[0] = out[1] = out[2] = 0;
+    return 0;
+}
+int f3d_render_mesh_attrs(int* out) {
+    out[0] = out[1] = out[2] = 0;
+    return 0;
+}
+int f3d_tlas_attrs(int* out) {
+    out[0] = out[1] = out[2] = 0;
+    return 0;
+}
 int f3d_spatial_reuse(const ResArgs* res_in, const ResArgs* res_out, const float* gb_nx,
                       const float* gb_ny, const float* gb_nz, int width, int height,
                       unsigned int frame_index, unsigned int seed_hi, int k_neighbors,
@@ -349,10 +361,63 @@ int f3d_ibl_env_cube(const float* eq, int eq_h, int eq_w, const float* dirs, int
     for (int i = 0; i < 6 * size * size; ++i) env_cube_texel(eq, eq_h, eq_w, dirs, i, out);
     return 0;
 }
-int f3d_ibl_convolve(const float* env, int env_size, const float* dirs, int size,
-                     const float* smp, int count, int mode, float* out, void*) {
-    for (int i = 0; i < 6 * size * size; ++i)
-        convolve_texel(env, env_size, dirs, smp, count, mode, i, out);
+// S2/S3: texel i's sums with its group of g lanes run one after the other:
+// after each round the group's terms are added in lane order (reverse:
+// backwards, which the scan's order rules out), as every lane of the group
+// adds the __shfl_sync values in the kernel
+void group_sums(const float* env4, int env_size, const float* dirs, const float* smp, int count,
+                int mode, int g, int i, bool reverse, float* acc) {
+    float nn[3], t[3], b[3];
+    convolve_frame(dirs, i, nn, t, b);
+    for (int c = 0; c < 4; ++c) acc[c] = 0.0f;
+    for (int k0 = 0; k0 < count; k0 += g) {
+        float x[32][4] = {};
+        for (int lane = 0; lane < g && k0 + lane < count; ++lane)
+            convolve_sample(env4, env_size, nn, t, b, smp, k0 + lane, mode, x[lane]);
+        for (int j = 0; j < g; ++j) {
+            const int q = reverse ? g - 1 - j : j;
+            if (k0 + q < count)
+                for (int c = 0; c < 4; ++c) acc[c] = acc[c] + x[q][c];
+        }
+    }
+}
+int f3d_ibl_convolve(const float* env4, int env_size, const long long* jobs, int n_jobs, void*) {
+    for (int j = 0; j < n_jobs; ++j) {
+        const long long* w = jobs + 7 * j;
+        const float* dirs = (const float*)w[0];
+        const float* smp = (const float*)w[1];
+        float* out = (float*)w[2];
+        const int n = (int)w[3], count = (int)w[4], mode = (int)w[5], g = (int)w[6];
+        if (g < 1 || g > 32 || (g & (g - 1)) != 0) return 1;
+        for (int i = 0; i < n; ++i) {
+            float acc[4];
+            group_sums(env4, env_size, dirs, smp, count, mode, g, i, false, acc);
+            convolve_finish(acc, mode, i, out);
+        }
+    }
+    return 0;
+}
+// test entry: the float32 sums (before the f16 output) of texels 0 .. n - 1
+// of a convolution, out (3, n, 4): the scan's order, group_sums' for g lanes
+// (ibl_convolve's), and group_sums' in reverse lane order
+void f3d_test_convolve_sums(const float* env4, int env_size, const float* dirs,
+                            const float* smp, int count, int mode, int g, int n, float* out) {
+    for (int i = 0; i < n; ++i) {
+        float nn[3], t[3], b[3];
+        convolve_frame(dirs, i, nn, t, b);
+        float* scan = out + 4 * i;
+        for (int c = 0; c < 4; ++c) scan[c] = 0.0f;
+        for (int k = 0; k < count; ++k) {
+            float x[4];
+            convolve_sample(env4, env_size, nn, t, b, smp, k, mode, x);
+            for (int c = 0; c < 4; ++c) scan[c] = scan[c] + x[c];
+        }
+        group_sums(env4, env_size, dirs, smp, count, mode, g, i, false, out + 4 * (n + i));
+        group_sums(env4, env_size, dirs, smp, count, mode, g, i, true, out + 4 * (2 * n + i));
+    }
+}
+int f3d_ibl_convolve_attrs(int* out) {
+    out[0] = out[1] = out[2] = 0;   // no device function on the host
     return 0;
 }
 int f3d_raster_depth(const float* tris, const unsigned char* keep, int n_tris, int res, int wbb,
@@ -976,6 +1041,20 @@ int f3d_test_mesh_cut(const MeshArgs* m, const float* o, const float* d, int n, 
     }
     return lost;
 }
+// test entry: K9's any-hit walk stopping below `stop` on rays (n, 3): out
+// (4, n), its prim (as a float), t, u and v
+void f3d_test_mesh_any(const MeshArgs* m, const float* o, const float* d, int n, float tmin,
+                       float tmax, float stop, float* out) {
+    for (int i = 0; i < n; ++i) {
+        const float* p = o + 3 * i;
+        const float* q = d + 3 * i;
+        MeshHit h = trace_mesh_ray<true>(*m, p[0], p[1], p[2], q[0], q[1], q[2], tmin, tmax, stop);
+        out[i] = (float)h.prim;
+        out[n + i] = h.t;
+        out[2 * n + i] = h.u;
+        out[3 * n + i] = h.v;
+    }
+}
 // test entry: synthesize_polar's contraction for one column and row
 float f3d_test_crossing(const float* M, const float* v, int K, int C, float Q, float* out) {
     return crossing(M, v, C, C, K, Q, out);
@@ -1474,6 +1553,158 @@ def test_trace_mesh_kernel(kernels):
         assert torch.equal(a, b)
 
 
+# K9's walk over the packed records (csrc/mesh.cuh) bit for bit against
+# trace_mesh_plain (hit, t, prim, u, v) on meshes and rays chosen for the
+# walk's edges: ties between duplicated triangles, walls on their boxes'
+# faces, directions with zero components, origins inside boxes, cuts by tmin
+# and tmax, a refitted tree, a binding max_iters; and its any-hit form.
+
+def k9_box_grid(n_side=5, seed=3):
+    """An n_side^2 grid of boxes of random footprint and height (walls on
+    their leaf boxes' faces)."""
+    rng = np.random.default_rng(seed)
+    verts, tris = [], []
+    for a in range(n_side):
+        for b in range(n_side):
+            fx, fz = rng.uniform(2.0, 6.0, 2)
+            h = rng.uniform(3.0, 12.0)
+            tris.append(_BOX_F + 8 * len(verts))
+            verts.append(_BOX_V * np.array([fx, h, fz], np.float32)
+                         + np.array([8.0 * a, 0.0, 8.0 * b], np.float32))
+    return np.concatenate(verts).astype(np.float32), np.concatenate(tris).astype(np.uint32)
+
+
+def k9_soup(n=300, seed=11):
+    rng = np.random.default_rng(seed)
+    c = rng.uniform(0.0, 40.0, (n, 1, 3))
+    v = (c + rng.normal(0.0, 2.0, (n, 3, 3))).reshape(-1, 3).astype(np.float32)
+    return v, np.arange(3 * n, dtype=np.uint32).reshape(n, 3)
+
+
+def k9_ties():
+    """The box grid with every triangle twice: equal hits, the first in BVH
+    order wins."""
+    v, i = k9_box_grid(3)
+    return v, np.concatenate([i, i[::-1]]).astype(np.uint32)
+
+
+def k9_rays(v, n, seed, kind="mixed"):
+    """(ro, rd) as (n, 3) float32: "mixed" half aimed at the mesh from
+    around it, half random from inside its box; "axis" directions with one
+    or two zero components; "inside" origins inside the mesh's box near
+    its vertices."""
+    rng = np.random.default_rng(seed)
+    lo, hi = v.min(0), v.max(0)
+    pad = 0.2 * (hi - lo) + 1.0
+    if kind == "inside":
+        ro = v[rng.integers(0, len(v), n)] + rng.uniform(-0.5, 0.5, (n, 3))
+        rd = rng.normal(size=(n, 3))
+    else:
+        ro = rng.uniform(lo - pad, hi + pad, (n, 3))
+        target = v[rng.integers(0, len(v), n)] + rng.normal(0, 0.3, (n, 3))
+        rd = np.where(np.arange(n)[:, None] < n // 2, target - ro, rng.normal(size=(n, 3)))
+    if kind == "axis":
+        keep = rng.integers(0, 3, (n, 1)) == np.arange(3)
+        two = rng.random((n, 1)) < 0.5
+        keep |= two & (rng.integers(0, 3, (n, 1)) == np.arange(3))
+        rd = np.where(keep, rd, 0.0)
+        ro[:, 1] = np.where(rng.random(n) < 0.3, v[0, 1], ro[:, 1])   # on a face's plane
+    return ro.astype(np.float32), rd.astype(np.float32)
+
+
+K9_CASES = {
+    "quad_town": (lambda: QUAD_TOWN, "mixed", 1e-4, 1e30),
+    "box_grid": (k9_box_grid, "mixed", 1e-4, 1e30),
+    "soup": (k9_soup, "mixed", 1e-4, 1e30),
+    "ties": (k9_ties, "mixed", 1e-4, 1e30),
+    "zero_components": (k9_box_grid, "axis", 1e-4, 1e30),
+    "inside_boxes": (k9_soup, "inside", 1e-4, 1e30),
+    "tmin_tmax_cut": (k9_box_grid, "mixed", 5.0, 30.0),
+    "refit": (k9_box_grid, "mixed", 1e-3, 1e6),
+}
+
+
+def k9_case(name, device):
+    from forge3d_tpu_torch.ops import bvh
+
+    make, kind, tmin, tmax = K9_CASES[name]
+    v, i = make()
+    b = bvh.build_sah_bvh(v, i)
+    if name == "refit":
+        v = v + np.random.default_rng(8).normal(0, 0.4, v.shape).astype(np.float32)
+        b = bvh.refit_bvh(b, v, i)
+    scene, n_nodes = bvh.mesh_scene(b, device="cpu")
+    ro, rd = k9_rays(v, 3000, seed=len(name), kind=kind)
+    ro = tuple(torch.as_tensor(ro[:, k].copy(), device=device) for k in range(3))
+    rd = tuple(torch.as_tensor(rd[:, k].copy(), device=device) for k in range(3))
+    return scene.to(device), n_nodes, ro, rd, tmin, tmax
+
+
+def same_bits(a, b):
+    """Equal tensors, floats compared by their bits."""
+    if a.is_floating_point():
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
+
+
+@pytest.mark.parametrize("case", list(K9_CASES))
+def test_mesh_walk_bit_for_bit(kernels, case):
+    from forge3d_tpu_torch.ops import bvh
+
+    scene, n, ro, rd, tmin, tmax = k9_case(case, kernels)
+    hk = bvh._trace_mesh_kernel(scene, n, ro, rd, tmin, tmax)
+    hp = bvh.trace_mesh_plain(scene, n, ro, rd, tmin, tmax)
+    assert 0.02 < float(hp.hit.double().mean()) < 0.98
+    for name, a, b in zip(hp._fields, hp, hk):
+        assert same_bits(a, b), name
+
+
+@pytest.mark.parametrize("max_iters", [1, 7, 40])
+def test_mesh_walk_keeps_the_cap(kernels, max_iters):
+    """A cap below 4 n_nodes + 64 binds, as JAX's does: the walk stops each
+    ray where the plain walk stops it."""
+    from forge3d_tpu_torch.ops import bvh
+
+    scene, n, ro, rd, tmin, tmax = k9_case("box_grid", kernels)
+    hk = bvh._trace_mesh_kernel(scene, n, ro, rd, tmin, tmax, max_iters=max_iters)
+    hp = bvh.trace_mesh_plain(scene, n, ro, rd, tmin, tmax, max_iters=max_iters)
+    full = bvh.trace_mesh_plain(scene, n, ro, rd, tmin, tmax)
+    for name, a, b in zip(hp._fields, hp, hk):
+        assert same_bits(a, b), name
+    if max_iters < 40:
+        assert not torch.equal(hp.hit, full.hit)     # the cap cut some walks short
+
+
+@pytest.mark.parametrize("case", ["box_grid", "ties", "soup", "refit"])
+def test_mesh_walk_any_hit(host_lib, monkeypatch, case):
+    """kAny (the shadow rays of K6, P2 and P3): the walk stops at the first
+    triangle accepted below `stop` and blocks (below `stop`) exactly the
+    rays whose whole walk hits (below `stop`); a ray it does not block it
+    walks to the end. On the card, the shadow rays of K6, P2 and P3 take it
+    (test_frame_kernel_ragged_tiles, test_engine_kernels, test_hybrid_kernel)."""
+    from forge3d_tpu_torch.ops import bvh
+
+    scene, n, ro, rd, tmin, tmax = k9_case(case, "cpu")
+    hp = bvh.trace_mesh_plain(scene, n, ro, rd, tmin, tmax)
+    m = len(ro[0])
+    o = torch.stack(ro, 1).contiguous()
+    d = torch.stack(rd, 1).contiguous()
+    monkeypatch.setattr(_kernels, "require_cuda", lambda name, *t: None)
+    margs = scene.kernel_args()
+    for stop in (float("inf"), float(hp.t[hp.hit].median())):
+        out = torch.zeros((4, m), dtype=torch.float32)
+        host_lib.f3d_test_mesh_any(ctypes.byref(margs), _kernels.ptr(o), _kernels.ptr(d), m,
+                                   ctypes.c_float(tmin), ctypes.c_float(tmax),
+                                   ctypes.c_float(stop), _kernels.ptr(out))
+        blocked = (out[0] >= 0) & (out[1] < stop)
+        assert torch.equal(blocked, hp.hit & (hp.t < stop)), stop
+        rest = ~blocked
+        assert torch.equal(out[0][rest].int(), hp.prim[rest])       # walked to the end
+        assert same_bits(out[1][rest], hp.t[rest])
+        if stop == float("inf"):
+            assert bool((out[0][blocked] >= 0).all())
+
+
 def test_sample_light_kernel(kernels):
     from forge3d_tpu_torch.ops import lightsample as ls
 
@@ -1956,6 +2187,95 @@ def test_irradiance_kernel(kernels, monkeypatch):
     eq_frac, one_step = f16_agree(scr.cube_convolve_plain(env, 0),
                                   scr._cube_convolve_kernel(env, 0))
     assert eq_frac >= FRAC and one_step
+
+
+# S2/S3's lane groups (screen.cu:convolve_kernel): on the host the launcher
+# runs a texel's lanes one after the other and adds the group's terms in
+# lane order, as every lane adds the shuffled terms on the card; each group
+# size, and the pyramid's one launch, bit for bit against
+# cube_convolve_plain (NaN where it is NaN).
+
+def s23_cube(kind, device, size=32):
+    """A (6, size, size, 3) cube of f16 values from a seed; "special" sets
+    texels to 0, 65504 and inf (an inf beside an inf makes the bilinear
+    weights NaN)."""
+    rng = np.random.default_rng(19)
+    cube = rng.uniform(0.0, 3.0, (6, size, size, 3)).astype(np.float16).astype(np.float32)
+    if kind == "special":
+        flat = cube.reshape(-1, 3)
+        pick = rng.permutation(len(flat))
+        flat[pick[:600]] = 0.0
+        flat[pick[600:700]] = 65504.0
+        flat[pick[700:704]] = np.inf
+        flat[pick[704:706], 1] = np.inf
+    return torch.as_tensor(cube, device=device)
+
+
+def same_or_nan(a, b):
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and torch.equal(a[~nan], b[~nan])
+
+
+@pytest.mark.parametrize("groups", [(1, 2, 4, 8, 16, 32), (1, 1, 1, 1, 1, 1),
+                                    (32, 32, 32, 32, 32, 32), (2, 8, 16, 4, 32, 1)],
+                         ids=["default", "g1", "g32", "mixed"])
+@pytest.mark.parametrize("cube", ["uniform", "special"])
+def test_cube_pyramid_lane_groups(kernels, monkeypatch, cube, groups):
+    from forge3d_tpu_torch.terrain import screen as scr
+
+    monkeypatch.setattr(scr, "IRR_SIZE", 16)   # the cosine lobe on a 16^2 output
+    env = s23_cube(cube, kernels)
+    before = scr.cube_convolve.launches
+    got = scr._cube_pyramid_kernel(env, groups)
+    assert scr.cube_convolve.launches == before + 1
+    for mip in range(scr.N_MIPS):
+        ref = scr.cube_convolve_plain(env, mip)
+        assert got[mip].shape == ref.shape
+        assert same_or_nan(ref, got[mip]), mip
+    if cube == "special":
+        assert bool(torch.isnan(got[0]).any()) and bool((got[0] == 1.0).any())
+
+
+@pytest.mark.parametrize("mip", [0, 1, 3])
+def test_lane_group_sums_keep_the_scan_order(host_lib, mip):
+    """The float32 sums under the f16 output (which hides most orders): the
+    lane groups' order, for every group size, is the scan's bit for bit;
+    adding a round's terms in reverse lane order is not."""
+    from forge3d_tpu_torch.terrain import screen as scr
+
+    env = s23_cube("uniform", "cpu")
+    env4 = scr._rgbx(env)
+    size = 8
+    dirs = scr._table("dirs", size, "cpu")
+    smp = scr._table("lobe", mip, "cpu")
+    n = 6 * size * size
+    for g in (1, 2, 4, 8, 16, 32):
+        out = torch.zeros((3, n, 4), dtype=torch.float32)
+        host_lib.f3d_test_convolve_sums(_kernels.ptr(env4), 32, _kernels.ptr(dirs),
+                                        _kernels.ptr(smp), int(smp.shape[0]), int(mip > 0), g, n,
+                                        _kernels.ptr(out))
+        assert same_bits(out[0], out[1]), g
+        if g > 1:
+            assert not same_bits(out[0], out[2]), g
+
+
+def test_cube_pyramid_entry_is_the_six_launches(kernels, monkeypatch):
+    """build_ibl's one launch equals the six per-mip launches; the RGBx
+    copy the launch reads is the cube with a zero fourth channel; a group
+    that is not a power of two up to 32 is refused."""
+    from forge3d_tpu_torch.terrain import screen as scr
+
+    monkeypatch.setattr(scr, "IRR_SIZE", 16)
+    eq = torch.as_tensor(scr.decode_test_hdr(), device=kernels)
+    env = scr._env_cube_kernel(eq, 32)
+    env4 = scr._rgbx(env)
+    assert env4.shape == (6, 32, 32, 4) and env4.is_contiguous()
+    assert torch.equal(env4[..., :3], env) and not env4[..., 3].any()
+    whole = scr.cube_pyramid(env) if kernels.type == "cuda" else scr._cube_pyramid_kernel(env)
+    for mip in range(scr.N_MIPS):
+        assert torch.equal(whole[mip], scr._cube_convolve_kernel(env, mip)), mip
+    with pytest.raises(RuntimeError):
+        scr._cube_pyramid_kernel(env, (4, 4, 3, 8, 16, 32))
 
 
 def test_raster_depth_kernel(kernels):

@@ -90,6 +90,21 @@ def test_prefilter_s3(cube32, mip):
     assert frac >= FRAC and one_step
 
 
+def test_cube_pyramid_s2_s3(cube32):
+    """build_ibl's entry for S2 and S3 (one launch on the card): on the CPU
+    the six plain convolutions, each JAX's within the gates, and each the
+    per-mip call's bit for bit."""
+    env = torch.as_tensor(cube32)
+    got = T.cube_pyramid(env)
+    assert len(got) == T.N_MIPS
+    refs = [J._ibl_irradiance(cube32)] + [J._ibl_prefilter_mip(cube32, m)
+                                          for m in range(1, T.N_MIPS)]
+    for mip, (ref, g) in enumerate(zip(refs, got)):
+        frac, one_step = f16_agree(np.asarray(ref), g.numpy())
+        assert frac >= FRAC and one_step, mip
+        assert torch.equal(g, T.cube_convolve(env, mip)), mip
+
+
 def test_lobe_samples_and_face_dirs():
     np.testing.assert_array_equal(T._face_dirs(8), J._face_dirs(8))
     np.testing.assert_array_equal(T._hammersley(64), J._hammersley(64))
