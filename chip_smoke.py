@@ -17,7 +17,10 @@ phase 22's landmark), P3 and P4 pt (512^2, spp 64), each with a sha256 of
 its outputs; `--probe K9S2` K9 alone and every kernel that runs its body
 (K8, K6 hybrid frame 1, P2, P3, P5) at the main path's shapes and S2/S3 by
 convolution and in one launch by lane groups (`--probe K9` and `--probe S2`
-one half each), with a sha256 of each output. Copied
+one half each), with a sha256 of each output; `--probe K7K3` K7 (whole
+frame and phase 33's band) and K3 with their splits (see k7_split,
+k3_split), then a sha256 of K7's reservoirs, K3's 8-frame accumulator, the
+sweep render and the per-ray render. Copied
 into a checkout of an earlier tree and run there, it times that tree's
 kernels, so two designs can be compared on one card.
 
@@ -25,18 +28,21 @@ Phases (one line each; any failure exits non-zero):
   1. device  -- the card's name, and `nvidia-smi` name and power limit;
   2. build   -- compile the CUDA kernels from forge3d_tpu_torch/csrc;
   3. kernels -- each per-ray kernel (K5 trace, K8 G-buffer, K6 frame, K7
-                spatial reuse) against its plain PyTorch version on the same
-                inputs on the card, then a whole 4-frame render against the
+                spatial reuse, bit for bit) against its plain PyTorch version
+                on the same inputs on the card, then a whole 4-frame render against the
                 plain render on the CPU, on a 256x128 frame over a 129^2 DEM;
   4. render  -- the port's entry `hybrid_render_terrain_reference` on the
                 1920x1080 / 1025^2 DEM scene of bench.py, spp=1, 32 frames:
                 one warm render, then a counted and timed render; both must
-                be bit-identical and all four kernels must have launched;
+                be bit-identical, all four kernels must have launched and K7
+                from its staged window;
   5. timing  -- each per-ray kernel against its plain version at that
-                scene's shapes, with the same tolerances (K6 bit for bit),
-                and both timed; each K6 instantiation's registers and
+                scene's shapes, with the same tolerances (K6 and K7 bit for
+                bit), and both timed; each K6 instantiation's registers and
                 resident blocks, and K6's time split by ray: with shadows
                 off, and K5 alone on the frame's primary, sun and env rays;
+                K7's build and its time with every tap on the pixel itself
+                (a measurement build: the gather's share);
   6. sweep kernels -- each sweep kernel (K1 rotate, K2 sweeps, K3 polar
                 frame, K4 resolve) against its plain version on the card at
                 256x128 over the 129^2 DEM, then a 4-frame sweep render on
@@ -60,7 +66,10 @@ Phases (one line each; any failure exits non-zero):
                 a whole call; at 2064 also with device-memory rows), its
                 launch (cluster size, band, the card's resident clusters:
                 cudaOccupancyMaxActiveClusters) at each width, and the
-                frame at clusters of 4, 8 and 16 CTAs;
+                frame at clusters of 4, 8 and 16 CTAs; K3's build
+                (registers, shared bytes, resident CTAs, waves, columns a
+                CTA) and its split by measurement builds (no rows, rows
+                without the accumulator's read-modify-write, the scan);
  10. mesh and light kernels -- on the 256x128 / 129^2 scene with a town of
                 64 boxes and one light of each of the six types: K9 (BVH
                 walk) on center and sun rays and K10 (light sample) on
@@ -693,7 +702,11 @@ EARLIER = {"E4 vector_coverage": "a-launch-a-layer, every-primitive design 29.64
            "P4 raster": "thread-a-pixel, row-of-128 design 8.6544",
            "P6 sdf_eval": "unpacked-tape, local-stack design 0.1506",
            "P6 sdf_march": "unpacked-tape, local-stack design 2.4975",
-           "P4 pt": "thread-a-pixel, sample-by-sample design 5.2431"}
+           "P4 pt": "thread-a-pixel, sample-by-sample design 5.2431",
+           # K7: queued behind a spin, as this run times it (as launched 0.2721, 0.1449)
+           "K7 spatial_reuse": "row-of-256, every-tap-from-device-memory design 0.2676",
+           "K7 band": "row-of-256, every-tap-from-device-memory design 0.0771",
+           "K3 polar_frame": "CTA-a-column, row-by-row accumulator design 0.8874"}
 
 
 def kernel_row(name, launches, err, ms, plain_ms, bound_ms, bound_by):
@@ -816,8 +829,8 @@ def phase_kernels():
         rp = rst.spatial_reuse_plain(km, *gb, W, H, fi, ctx.seed_hi)
         rk = rst.spatial_reuse(km, *gb, W, H, fi, ctx.seed_hi)
         torch.cuda.synchronize()
-        fr7 = compare_reservoirs(f"K7 frame {fi}", rp, rk)
-        say("kernels", f"K7 spatial_reuse f{fi}: reservoirs {fr7:.6f} within tolerance")
+        compare_exact(f"K7 frame {fi}", rp.fields(), rk.fields())
+        say("kernels", f"K7 spatial_reuse f{fi}: every reservoir field bit-identical")
         acc, wf, res = ka, kw_, rk
 
     # whole render: kernels on the card against the plain render on the CPU
@@ -854,6 +867,7 @@ def phase_render():
                 "K7 spatial_reuse": rst.spatial_reuse, "K8 center_gbuffer": tr.center_gbuffer}
     for w in wrappers.values():
         w.launches = 0
+    rst.spatial_reuse.instances.clear()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -861,6 +875,9 @@ def phase_render():
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = {k: w.launches for k, w in wrappers.items()}
+    require(dict(rst.spatial_reuse.instances) == {"shared window": launches["K7 spatial_reuse"]},
+            f"K7 did not run from its staged window on the main path: "
+            f"{dict(rst.spatial_reuse.instances)}")
     samples = REAL_W * REAL_H * 1 * out["frames"]
     say("render", f"timed render: {dt:.4f} s, {samples / dt / 1e6:.4f} Msamples/s "
                   f"(W*H*spp*frames / t), frames {out['frames']}, peak device memory "
@@ -944,12 +961,17 @@ def phase_timing(dem, launches):
 
     rk = rst.spatial_reuse(m0, *gk["gb_n"], W, H, 0, ctx.seed_hi)
     rp = rst.spatial_reuse_plain(m0, *gk["gb_n"], W, H, 0, ctx.seed_hi)
-    fr7 = compare_reservoirs("bench scene K7", rp, rk)
-    row("K7 spatial_reuse", max_abs(rp.w_sum, rk.w_sum),
-        cuda_ms(lambda: rst.spatial_reuse(m0, *gk["gb_n"], W, H, 0, ctx.seed_hi), 20),
+    compare_exact("bench scene K7", rp.fields(), rk.fields())
+    # queued behind a spin: a launch takes about as long on the host as K7
+    # takes on the device; the time as launched beside it
+    k7 = lambda: rst.spatial_reuse(m0, *gk["gb_n"], W, H, 0, ctx.seed_hi)  # noqa: E731
+    launched = cuda_ms(k7, 20)
+    row("K7 spatial_reuse", max(max_abs(a, b) for a, b in zip(rp.fields(), rk.fields())),
+        queued_ms(k7, 20),
         cuda_ms(lambda: rst.spatial_reuse_plain(m0, *gk["gb_n"], W, H, 0, ctx.seed_hi), 3),
-        f"reservoirs {fr7:.6f} within tolerance",
-        n * (40 + 12 + 40), n * 9 * 30)
+        f"every reservoir field bit-identical; as launched {launched:.4f} ms",
+        k7_bytes(W, H, 0, H), n * 9 * 30)
+    k7_split("timing", km, gk["gb_n"], W, H, 1, ctx.seed_hi)
     return rows
 
 
@@ -1249,6 +1271,7 @@ def phase_sweep_timing(dem, launches):
     main path's shapes), with phase 6's gates, both timed."""
     import torch
 
+    from forge3d_tpu_torch.ops import sweep as sw
     from forge3d_tpu_torch.pt import terrain_sweep as ts
 
     plan, scene, rot, jit = sweep_setup(dem, REAL_W, REAL_H, BENCH_CAM, torch.device("cuda"),
@@ -1263,7 +1286,10 @@ def phase_sweep_timing(dem, launches):
     work = {  # (bytes, float32 operations) of one launch at these shapes
         "K1 rotate_heights": (dem_n * 4 + V * U * 12, V * U * 30),
         "K2 sweep_lighting": (V * U * (12 + 8), V * U * bin_ops),
-        "K3 polar_frame": (V * U * 12 + 2 * acc_bytes, A * (K * 40 + E * 30)),
+        # h_rot, e_sky and z_sun a rotated texel, the DEM's corner pack, acc
+        # read and written
+        "K3 polar_frame": (V * U * (4 + 12 + 4) + tensor_bytes(scene.corners) + 2 * acc_bytes,
+                           A * (K * 40 + E * 30)),
         "K4 resolve": (acc_bytes + REAL_W * REAL_H * 9, REAL_W * REAL_H * 100),
     }
     rows = []
@@ -1274,6 +1300,7 @@ def phase_sweep_timing(dem, launches):
         say("sweep timing", f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
                             f"{bms:.4f} ms ({by}), max |err| {err:.3e}, {text}")
     bins = ts.frame_bins(plan, scene, jit)
+    k3_split("sweep timing", plan, scene, rot, sw.sweep_lighting(*rot, bins), jit)
     k2_probe(rot, bins)
     k2_clusters(rot, bins)
     return rows
@@ -1349,6 +1376,117 @@ def launcher_ms(fn, symbol: str, reps: int) -> float:
     finally:
         _kernels.lib = real
     return sum(a.elapsed_time(b) for a, b in spans) / len(spans)
+
+
+# The measurement builds of phase 5's and phase 9's splits: the library
+# built again from this checkout's sources with these macros set. A: every
+# K7 tap reads the pixel itself, K3 stops after its scan; B: K3's rows run
+# without the accumulator's read-modify-write; C: K3's scan alone over a
+# filled profile. Their outputs are not the kernels' and are not checked.
+SPLIT_BUILDS = {"A": ("F3D_K7_SELF_TAPS", "F3D_K3_SPLIT=1"), "B": ("F3D_K3_SPLIT=2",),
+                "C": ("F3D_K3_SPLIT=3",)}
+_VARIANT_LIBS = {}
+
+
+def variant_lib(name: str):
+    """The kernel library of measurement build `name` (SPLIT_BUILDS), built
+    once and bound as _kernels.lib() is."""
+    import ctypes
+
+    from forge3d_tpu_torch import _kernels
+
+    if name not in _VARIANT_LIBS:
+        saved = _kernels.NVCC_FLAGS
+        _kernels.NVCC_FLAGS = saved + tuple(f"-D{d}" for d in SPLIT_BUILDS[name])
+        try:
+            t0 = time.perf_counter()
+            path = _kernels.build()
+            say("build", f"measurement build {name} {SPLIT_BUILDS[name]}: {path.name} in "
+                         f"{time.perf_counter() - t0:.2f} s")
+        finally:
+            _kernels.NVCC_FLAGS = saved
+        _VARIANT_LIBS[name] = _kernels.bind(ctypes.CDLL(str(path)))
+    return _VARIANT_LIBS[name]
+
+
+def with_lib(lib, fn):
+    """fn() with the kernel wrappers launching from `lib`."""
+    from forge3d_tpu_torch import _kernels
+
+    real = _kernels.lib
+    _kernels.lib = lambda: lib
+    try:
+        return fn()
+    finally:
+        _kernels.lib = real
+
+
+def k7_bytes(W, H, row0, rows, radius=3):
+    """The bytes K7 must move on the band row0 .. row0 + rows - 1: read once,
+    the nine reservoir fields a tap or the output reads (all but `weight`,
+    36 B) over the band and the rows of its window outside it, and the
+    band's normals (12 B); written once, its ten fields (40 B)."""
+    halo = min(radius, row0) + min(radius, H - row0 - rows)
+    return rows * W * (36 + 12 + 40) + halo * W * 36
+
+
+def k7_split(phase, res, gb, W, H, frame, seed_hi, radius=3):
+    """K7 on `res` at the main path's shapes: its build at `radius`
+    (registers, spilled bytes, resident blocks, shared bytes, where the tree
+    reports them), its time, and the time of measurement build A, whose
+    taps all read the pixel itself (what the gather costs)."""
+    from forge3d_tpu_torch.ops import restir as rst
+
+    def fn():
+        return rst.spatial_reuse(res, *gb, W, H, frame, seed_hi, 8, radius)
+
+    ms = queued_ms(fn, 20)
+    self_ms = with_lib(variant_lib("A"), lambda: queued_ms(fn, 20))
+    instance = getattr(rst, "kernel_instance", None)
+    a = None if instance is None else _attrs(
+        "f3d_spatial_attrs", int(instance(radius) == "shared window"), radius, n=4)
+    build = "" if a is None else (f"; {a[0]} registers, {a[1]} B spilled, {a[2]} resident "
+                                  f"blocks of 256 an SM, {a[3]} B of shared memory a block")
+    say(phase, f"K7 split at radius {radius}: {ms:.4f} ms queued, every tap on the pixel "
+               f"itself {self_ms:.4f} ms (the taps' gather {ms - self_ms:.4f}){build}")
+    return ms, self_ms
+
+
+def k3_split(phase, plan, scene, rot, maps, jit):
+    """K3 on one frame at the main path's shapes: its time and build
+    (registers, spilled bytes, resident CTAs an SM, shared bytes a CTA,
+    waves over the card's SMs, columns a CTA, where the tree reports them);
+    then the measurement builds: A up to the scan (no rows), B the rows
+    without the accumulator's read-modify-write, C the scan alone."""
+    import torch
+
+    from forge3d_tpu_torch.pt import terrain_sweep as ts
+
+    ps = plan.ps
+    acc = torch.zeros((ps.e_count, ps.a_count, 9), device=rot[0].device)
+
+    def fn():
+        return ts._polar_kernel(plan, scene, acc, rot[0], maps, jit.xi, jit.ja, jit.je)
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    full = queued_ms(fn, 10)
+    a = _attrs("f3d_polar_attrs", ps.k_count, 0, n=5)
+    build = ""
+    if a is not None:
+        require(a[4] == ts.POLAR_COLUMNS, f"K3's build takes {a[4]} columns a CTA, its wrapper "
+                                          f"sizes for {ts.POLAR_COLUMNS}")
+        ctas = -(-ps.a_count // a[4])
+        build = (f"; {a[4]} columns a CTA, {a[0]} registers, {a[1]} B spilled, {a[2]} resident "
+                 f"CTAs an SM, {a[3]} B of shared memory a CTA, {ctas} CTAs in "
+                 f"{ctas / max(a[2] * sms, 1):.2f} waves over {sms} SMs")
+    say(phase, f"K3: {full:.4f} ms queued{build}")
+    split = {name: with_lib(variant_lib(name), lambda: queued_ms(fn, 10)) for name in "ABC"}
+    say(phase, f"K3 split (ms queued): whole {full:.4f}; up to the scan, no rows {split['A']:.4f}; "
+               f"rows without the accumulator's read-modify-write {split['B']:.4f}; the scan "
+               f"alone over a filled profile {split['C']:.4f}; so the rows "
+               f"{split['B'] - split['A']:.4f}, the read-modify-write {full - split['B']:.4f}, "
+               f"the profile and edge {split['A'] - split['C']:.4f}")
+    return full, split
 
 
 def k2_probe(rot, bins):
@@ -5773,7 +5911,11 @@ def phase_sharded(dem):
         require(torch.equal(pa, ba) and torch.equal(pw, bw)
                 and all(torch.equal(f, g) for f, g in zip(pm.fields(), bm.fields())),
                 "K6 band differs from its plain version")
+        rst.spatial_reuse_band.instances.clear()
         br = rst.spatial_reuse_band(m1, *gb, W, H, 1, ctx.seed_hi, row0, rows)
+        require(dict(rst.spatial_reuse_band.instances) == {"shared window": 1},
+                f"K7 band did not run from its staged window: "
+                f"{dict(rst.spatial_reuse_band.instances)}")
         plain7, bp = wall_ms(lambda: rst.spatial_reuse_plain(m1, *gb, W, H, 1, ctx.seed_hi, 8, 3,
                                                             row0, rows))
         require(all(torch.equal(f, g[px]) for f, g in zip(br.fields(), r1.fields())),
@@ -5781,12 +5923,14 @@ def phase_sharded(dem):
         require(all(torch.equal(f, g) for f, g in zip(bp.fields(), br.fields())),
                 "K7 band differs from its plain version")
         ms6 = cuda_ms(lambda: tr.frame_step_band(*band), 5)
-        ms7 = cuda_ms(lambda: rst.spatial_reuse_band(m1, *gb, W, H, 1, ctx.seed_hi, row0,
-                                                     rows), 20)
+        k7b = lambda: rst.spatial_reuse_band(m1, *gb, W, H, 1, ctx.seed_hi, row0,  # noqa: E731
+                                             rows)
+        ms7 = queued_ms(k7b, 20)   # host-bound as launched
+        say("sharded", f"K7 band as launched: {cuda_ms(k7b, 20):.4f} ms")
         n = rows * W
         res = {"K6 band": (0.0, ms6, plain6, *bound(2 * n * (16 + 8 + 40) + scene_bytes(ctx.scene),
                                                    traced_ops(w6) + n * ctx.spp * OPS_SHADE)),
-               "K7 band": (0.0, ms7, plain7, *bound(n * (40 + 12 + 40), n * 9 * 30))}
+               "K7 band": (0.0, ms7, plain7, *bound(k7_bytes(W, H, row0, rows), n * 9 * 30))}
         for k, v in res.items():
             say("sharded", f"{k} (rows {row0}-{row0 + rows - 1}): bit-identical to the "
                            f"whole-frame rows and the plain version; kernel {v[1]:.4f} ms, "
@@ -6159,9 +6303,10 @@ def _sha(*ts) -> str:
     return h.hexdigest()
 
 
-def _attrs(fn_name, *args):
-    """(registers, local bytes, resident blocks) from a launcher's attribute
-    entry, or None where the tree has no such entry."""
+def _attrs(fn_name, *args, n=3):
+    """(registers, local bytes, resident blocks[, shared bytes]) from a
+    launcher's attribute entry (its first n values), or None where the tree
+    has no such entry."""
     import ctypes
 
     from forge3d_tpu_torch import _kernels
@@ -6169,9 +6314,9 @@ def _attrs(fn_name, *args):
     fn = getattr(_kernels.lib(), fn_name, None)
     if fn is None:
         return None
-    out = (ctypes.c_int * 4)()
+    out = (ctypes.c_int * 8)()
     _kernels.check(fn(*args, out), fn_name)
-    return tuple(out[:3])
+    return tuple(out[:n])
 
 
 def probe_k9(torch):
@@ -6250,6 +6395,67 @@ def probe_k9(torch):
         lambda: tl._trace_tlas_kernel(tlas, fr, fd, 1e-3, 1e30), 5, _attrs("f3d_tlas_attrs"))
 
 
+def probe_k7k3(torch):
+    """K7 (frame 1 at bench.py's scene: the whole frame and phase 33's band)
+    and K3 (frame 1 at bench.py's sweep scene), each timed as launched and
+    queued behind a spin, with their splits (k7_split, k3_split); then a
+    sha256 of K7's reservoirs (whole frame and band), of K3's accumulator
+    after bench.py's 8 frames, of the sweep render's and of the per-ray
+    render's outputs. Calls only entry points the port has had since K3 and
+    K7 were first ported (the splits' attributes where the tree has them)."""
+    import forge3d_tpu_torch as f3t
+    from forge3d_tpu_torch.ops import restir as rst
+    from forge3d_tpu_torch.ops import sweep as sw
+    from forge3d_tpu_torch.pt import terrain_ref as tr
+    from forge3d_tpu_torch.pt import terrain_sweep as ts
+
+    dev = torch.device("cuda")
+    W, H = REAL_W, REAL_H
+    dem = bench_dem()
+    ctx = setup(dem, W, H, BENCH_CAM, dev, spp=1)
+    gb = tr.center_gbuffer(ctx)["gb_n"]
+    a0, w0, m0 = tr.frame_step(ctx, torch.zeros((H, W, 4), device=dev),
+                               torch.zeros((H, W, 2), device=dev), rst.Reservoirs.zeros(H * W, dev),
+                               0)
+    r0 = rst.spatial_reuse(m0, *gb, W, H, 0, ctx.seed_hi)
+    _, _, m1 = tr.frame_step(ctx, a0, w0, r0, 1)
+    row0, rows = BAND
+    for name, fn, reps in (
+            ("K7 spatial_reuse, frame 1", lambda: rst.spatial_reuse(m1, *gb, W, H, 1, ctx.seed_hi),
+             20),
+            (f"K7 band, rows {row0}-{row0 + rows - 1}",
+             lambda: rst.spatial_reuse_band(m1, *gb, W, H, 1, ctx.seed_hi, row0, rows), 20)):
+        out = fn()
+        say("probe", f"{name}: {cuda_ms(fn, reps):.4f} ms ({queued_ms(fn, reps):.4f} queued); "
+                     f"sha256 {_sha(out)}")
+    k7_split("probe", m1, gb, W, H, 1, ctx.seed_hi)
+
+    plan, scene, rot, jit = sweep_setup(dem, W, H, BENCH_CAM, dev, spp=2)
+    maps = sw.sweep_lighting(*rot, ts.frame_bins(plan, scene, jit))
+    ps = plan.ps
+    acc = torch.zeros((ps.e_count, ps.a_count, 9), device=dev)
+
+    def k3():
+        return ts._polar_kernel(plan, scene, acc, rot[0], maps, jit.xi, jit.ja, jit.je)
+
+    say("probe", f"K3 polar_frame, frame 1: {cuda_ms(k3, 10):.4f} ms ({queued_ms(k3, 10):.4f} "
+                 f"queued)")
+    k3_split("probe", plan, scene, rot, maps, jit)
+    seed = tr.TerrainRefDesc(heights=dem, width=W, height=H).seed
+    acc8 = ts.accumulate(plan, scene, rot, ts.frame_jitters(int(seed), 8))
+    say("probe", f"K3's accumulator after 8 frames (K2 and K3 a frame): sha256 {_sha(acc8)}")
+    keys = ("rgba", "hdr", "depth", "normal")
+    out = f3t.hybrid_render_terrain_reference(dem, W, H, BENCH_CAM, traversal="sweep", spp=2,
+                                              device="cuda")
+    say("probe", f"sweep render (bench.py's, {out['frames']} frames): sha256 "
+                 f"{_sha({k: torch.as_tensor(out[k]) for k in keys})}")
+    out = f3t.hybrid_render_terrain_reference(dem, W, H, BENCH_CAM, spp=1, min_frames=32,
+                                              max_frames=32, variance_threshold=1e9,
+                                              device="cuda")
+    say("probe", f"per-ray render ({out['frames']} frames, K5-K8): sha256 "
+                 f"{_sha({k: torch.as_tensor(out[k]) for k in keys})}")
+
+
 def probe_s23(torch):
     """S2/S3 on configuration B's env cube: each convolution launched alone
     and, where the tree has it, the pyramid's one launch and its lane
@@ -6319,6 +6525,9 @@ def probe(torch, only=None):
             probe_k9(torch)
         if only != "K9":
             probe_s23(torch)
+        return
+    if only == "K7K3":
+        probe_k7k3(torch)
         return
     if only == "P6P4":
         dem = bench_dem()

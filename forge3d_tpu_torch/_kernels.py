@@ -347,6 +347,9 @@ _SIGNATURES = {
     "f3d_sweep_clusters": [_I, _I, _I, _I, _I, _I, _P],
     # (polar, h_rot, e_sky, z_sun, corners, acc, scratch, stream)
     "f3d_polar_frame": [ctypes.POINTER(PolarArgs)] + [_P] * 7,
+    # (K, global, out (registers, spilled bytes, resident CTAs, shared bytes,
+    #  columns a CTA))
+    "f3d_polar_attrs": [_I, _I, _P],
     # (resolve, acc, out, stream)
     "f3d_resolve": [ctypes.POINTER(ResolveArgs), _P, _P, _P],
     # (scene, rox, roy, roz, rdx, rdy, rdz, n, tmin, tmax,
@@ -362,9 +365,11 @@ _SIGNATURES = {
     "f3d_frame_kernel_attrs": [_I, _P],
     "f3d_mesh_kernel_attrs": [_I, _P],
     # (res_in, res_out, gb_nx, gb_ny, gb_nz, width, height, frame_index,
-    #  seed_hi, k_neighbors, radius, row0, rows, stream)
+    #  seed_hi, k_neighbors, radius, row0, rows, shared, stream)
     "f3d_spatial_reuse": [ctypes.POINTER(ResArgs), ctypes.POINTER(ResArgs),
-                          _P, _P, _P, _I, _I, _U, _U, _I, _I, _I, _I, _P],
+                          _P, _P, _P, _I, _I, _U, _U, _I, _I, _I, _I, _I, _P],
+    # (shared, radius, out (registers, spilled bytes, resident blocks, shared bytes))
+    "f3d_spatial_attrs": [_I, _I, _P],
     # (scene, mesh, n, cam_o, albedo, dx, dy, dz, hit, t, cell_x, cell_z,
     #  albedo_out, normal_out, depth_out, vis_out, gb_nx, gb_ny, gb_nz, stream)
     "f3d_center_gbuffer": [ctypes.POINTER(SceneArgs), ctypes.POINTER(MeshArgs), _I, _F3,

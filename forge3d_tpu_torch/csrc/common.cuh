@@ -480,73 +480,182 @@ F3D_HD Res temporal_merge(const Res& prev, const Res& curr) {
     return out;
 }
 
-struct SpatialState {
-    float w_acc;
-    Res ch;
-    float ch_pdf;
-    uint32_t seed;
+// K7's view of a candidate reservoir: what restir.py:spatial_reuse.consider
+// reads of it, formed once a candidate. `inv` is consider's 1/|dir|; `w` is
+// its weight before the receiver's facing test (the light directional and
+// target_pdf > 0: p_curr 1, w_sum * (1 / max(target_pdf, 1e-6)); else 0),
+// so consider's operations run as they did, each on the same operands.
+struct Cand {
+    float dx, dy, dz, inv, w;
+    int m;
 };
 
-// restir.py:spatial_reuse.consider -- streaming RIS with one directional
-// light: selection pdf 1, gated by the receiver facing the sample.
-F3D_HD void consider(SpatialState& st, const Res& cand, float gx, float gy, float gz) {
-    float inv = 1.0f / sqrtf(cand.dir_x * cand.dir_x + cand.dir_y * cand.dir_y
-                             + cand.dir_z * cand.dir_z + 1e-30f);
-    float cosr = gx * cand.dir_x * inv + gy * cand.dir_y * inv + gz * cand.dir_z * inv;
-    bool ok = (cand.light_type == 1) && (cosr > 0.0f) && (cand.target_pdf > 0.0f);
-    float p_curr = ok ? 1.0f : 0.0f;
-    float w = ok ? cand.w_sum * (p_curr / fmaxf(cand.target_pdf, 1e-6f)) : 0.0f;
-    bool take = w > 0.0f;
-    st.w_acc = st.w_acc + (take ? w : 0.0f);
-    float u;
-    st.seed = xorshift32(st.seed, u);
-    bool choose = take && (u < w / fmaxf(st.w_acc, 1e-30f));
-    if (choose) {
-        st.ch = cand;
-        st.ch_pdf = p_curr;
-    }
+F3D_HD Cand spatial_cand(const ResArgs& r, int i) {
+    Cand c;
+    c.dx = r.dir_x[i];
+    c.dy = r.dir_y[i];
+    c.dz = r.dir_z[i];
+    c.inv = 1.0f / sqrtf(c.dx * c.dx + c.dy * c.dy + c.dz * c.dz + 1e-30f);
+    const float tp = r.target_pdf[i];
+    c.w = (r.light_type[i] == 1 && tp > 0.0f) ? r.w_sum[i] * (1.0f / fmaxf(tp, 1e-6f)) : 0.0f;
+    c.m = r.m[i];
+    return c;
 }
 
-// restir.py:spatial_reuse for pixel i of the frame: the self candidate,
-// then K random taps in a (2r+1)^2 window. A (0, 0) tap keeps its two
-// offset draws but skips the candidate and its draw. Reads `rin` (the whole
-// frame's reservoirs) only.
-F3D_HD Res spatial_pixel(const ResArgs& rin, const float* gb_nx, const float* gb_ny,
-                         const float* gb_nz, int width, int height,
-                         uint32_t frame_index, uint32_t seed_hi, int k_neighbors,
-                         int radius, int i) {
-    int x = i % width;
-    int y = i / width;
-    float gx = gb_nx[i], gy = gb_ny[i], gz = gb_nz[i];
-    SpatialState st;
-    st.w_acc = 0.0f;
-    st.ch = load_res(rin, i);
-    st.ch_pdf = st.ch.target_pdf;
-    st.seed = (seed_hi ^ frame_index) + (uint32_t)i * 1664525u + 1013904223u;
-    Res self = st.ch;
-    consider(st, self, gx, gy, gz);
+// restir.py:spatial_reuse.consider -- streaming RIS with one directional
+// light: selection pdf 1, gated by the receiver facing the sample. Adds the
+// candidate's weight into w_acc, draws from the stream, and returns whether
+// the candidate is chosen (its pdf is then 1).
+F3D_HD bool consider(float& w_acc, uint32_t& seed, const Cand& c, float gx, float gy, float gz) {
+    float cosr = gx * c.dx * c.inv + gy * c.dy * c.inv + gz * c.dz * c.inv;
+    float w = cosr > 0.0f ? c.w : 0.0f;
+    bool take = w > 0.0f;
+    w_acc = w_acc + (take ? w : 0.0f);
+    float u;
+    seed = xorshift32(seed, u);
+    return take && (u < w / fmaxf(w_acc, 1e-30f));
+}
+
+// K6's and K7's tiles: a block takes a 16x16 tile of the band, a warp 8x4
+// pixels. Thread t of block b covers band pixel (x, y) of the tile whose
+// corner is (x0, y0); `inside` is false past the band.
+#define F3D_TILE 16
+
+struct TilePixel {
+    int x0, y0, x, y;
+    bool inside;
+};
+
+F3D_HD int tile_blocks(int width, int rows) {
+    return ((width + F3D_TILE - 1) / F3D_TILE) * ((rows + F3D_TILE - 1) / F3D_TILE);
+}
+
+F3D_HD TilePixel tile_pixel(int width, int rows, int b, int t) {
+    const int tiles_x = (width + F3D_TILE - 1) / F3D_TILE;
+    const int lane = t & 31, warp = t >> 5;
+    TilePixel p;
+    p.x0 = (b % tiles_x) * F3D_TILE;
+    p.y0 = (b / tiles_x) * F3D_TILE;
+    p.x = p.x0 + (warp & 1) * 8 + (lane & 7);
+    p.y = p.y0 + (warp >> 1) * 4 + (lane >> 3);
+    p.inside = p.x < width && p.y < rows;
+    return p;
+}
+
+// K7's window, staged: the candidates of a tile and its `radius`-wide
+// halo, span x span entries (span = F3D_TILE + 2 radius) as
+// structure-of-arrays (in shared memory on the card). Entry (sx, sy) holds
+// the pixel at the clamped frame coordinate (x0 + sx, y0 + sy): the one
+// spatial_reuse reads for a tap there, so a tap reads its entry with no
+// clamp. Which radii are staged is the caller's choice
+// (ops/restir.py:kernel_instance).
+struct TileWindow {
+    float *dx, *dy, *dz, *inv, *w;
+    int* m;
+    int span, x0, y0;
+
+    F3D_HD static int floats(int radius) {
+        const int span = F3D_TILE + 2 * radius;
+        return 6 * span * span;
+    }
+    // over `buf` of floats(radius) floats (the m field as int)
+    F3D_HD TileWindow(float* buf, int radius, int x0_, int y0_)
+        : span(F3D_TILE + 2 * radius), x0(x0_), y0(y0_) {
+        const int n = span * span;
+        dx = buf;
+        dy = buf + n;
+        dz = buf + 2 * n;
+        inv = buf + 3 * n;
+        w = buf + 4 * n;
+        m = reinterpret_cast<int*>(buf + 5 * n);
+    }
+    F3D_HD int entries() const { return span * span; }
+    // entry e of the window from the frame's reservoirs
+    F3D_HD void stage(const ResArgs& r, int width, int height, int e) const {
+        const int X = imin(imax(x0 + e % span, 0), width - 1);
+        const int Y = imin(imax(y0 + e / span, 0), height - 1);
+        const Cand c = spatial_cand(r, Y * width + X);
+        dx[e] = c.dx;
+        dy[e] = c.dy;
+        dz[e] = c.dz;
+        inv[e] = c.inv;
+        w[e] = c.w;
+        m[e] = c.m;
+    }
+    // the candidate at unclamped frame coordinates (x, y) of the window
+    F3D_HD Cand at(int x, int y) const {
+        const int e = (y - y0) * span + (x - x0);
+        Cand c;
+        c.dx = dx[e];
+        c.dy = dy[e];
+        c.dz = dz[e];
+        c.inv = inv[e];
+        c.w = w[e];
+        c.m = m[e];
+        return c;
+    }
+};
+
+// K7's window for a radius whose halo is not staged: each tap formed from
+// the frame's reservoirs.
+struct FrameWindow {
+    const ResArgs* r;
+    int width, height;
+
+    F3D_HD Cand at(int x, int y) const {
+        return spatial_cand(*r, imin(imax(y, 0), height - 1) * width + imin(imax(x, 0), width - 1));
+    }
+};
+
+// restir.py:spatial_reuse for pixel (x, y) of the frame: the self
+// candidate, then K random taps in a (2r+1)^2 window, read through `win`. A
+// (0, 0) tap keeps its two offset draws but skips the candidate and its
+// draw. The chosen candidate is kept as its pixel index; its six sample
+// fields are read from `rin` (the whole frame's reservoirs) at the end.
+template <class Window>
+F3D_HD Res spatial_pixel(const Window& win, const ResArgs& rin, const float* gb_nx,
+                         const float* gb_ny, const float* gb_nz, int width, int height,
+                         uint32_t frame_index, uint32_t seed_hi, int k_neighbors, int radius,
+                         int x, int y) {
+    const int i = y * width + x;
+    const float gx = gb_nx[i], gy = gb_ny[i], gz = gb_nz[i];
+    float w_acc = 0.0f;
+    uint32_t seed = (seed_hi ^ frame_index) + (uint32_t)i * 1664525u + 1013904223u;
+    int ch = i;
+    float ch_pdf = rin.target_pdf[i];
+    const Cand self = win.at(x, y);
+    if (consider(w_acc, seed, self, gx, gy, gz)) ch_pdf = 1.0f;
     uint32_t m_total = (uint32_t)self.m;
     const int span = 2 * radius + 1;
     for (int k = 0; k < k_neighbors; ++k) {
         float u1, u2;
-        st.seed = xorshift32(st.seed, u1);
-        st.seed = xorshift32(st.seed, u2);
+        seed = xorshift32(seed, u1);
+        seed = xorshift32(seed, u2);
         int rx = (int)floorf(u1 * (float)span) - radius;
         int ry = (int)floorf(u2 * (float)span) - radius;
         if (rx == 0 && ry == 0) continue;
-        int nxi = imin(imax(x + rx, 0), width - 1);
-        int nyi = imin(imax(y + ry, 0), height - 1);
-        Res rn = load_res(rin, nyi * width + nxi);
-        consider(st, rn, gx, gy, gz);
-        m_total += (uint32_t)rn.m;
+#ifdef F3D_K7_SELF_TAPS   // measurement build: every tap reads the pixel itself
+        rx = ry = 0;
+#endif
+        const Cand c = win.at(x + rx, y + ry);
+        if (consider(w_acc, seed, c, gx, gy, gz)) {
+            ch = imin(imax(y + ry, 0), height - 1) * width + imin(imax(x + rx, 0), width - 1);
+            ch_pdf = 1.0f;
+        }
+        m_total += (uint32_t)c.m;
     }
-    Res out = st.ch;
-    float tp = st.ch_pdf;
-    out.weight = (st.w_acc > 0.0f && tp > 0.0f)
-                     ? st.w_acc / ((float)m_total * fmaxf(tp, 1e-30f)) : 0.0f;
-    out.w_sum = st.w_acc;
+    Res out;
+    out.dir_x = rin.dir_x[ch];
+    out.dir_y = rin.dir_y[ch];
+    out.dir_z = rin.dir_z[ch];
+    out.intensity = rin.intensity[ch];
+    out.light_type = rin.light_type[ch];
+    out.light_index = rin.light_index[ch];
+    out.weight = (w_acc > 0.0f && ch_pdf > 0.0f)
+                     ? w_acc / ((float)m_total * fmaxf(ch_pdf, 1e-30f)) : 0.0f;
+    out.w_sum = w_acc;
     out.m = (int)m_total;
-    out.target_pdf = tp;
+    out.target_pdf = ch_pdf;
     return out;
 }
 

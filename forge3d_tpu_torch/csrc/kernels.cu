@@ -34,9 +34,12 @@
 // loops on its own, so a finished ray costs nothing and no global
 // iteration count is needed. The pyramid and DEM pairs (~20 MB at a 1025^2
 // DEM) fit in the 50 MB L2 cache and are read through the read-only path
-// as one 8-byte load per pair. K5, K7 and K8 give consecutive threads
+// as one 8-byte load per pair. K5 and K8 give consecutive threads
 // consecutive pixels of a row; K6 gives a warp an 8x4 tile of pixels and
 // holds its terrain-only instantiation to 4 blocks an SM (frame_kernel).
+// K7 is bound by its gather: a pixel's 9 candidates lie at random offsets
+// in a 7x7 window of a frame (83 MB at 1080p) that L2 does not hold; its
+// blocks stage their tile's window in shared memory once (spatial_kernel).
 // Ray sorting and persistent threads are later work.
 
 #include <cuda_runtime.h>
@@ -46,7 +49,6 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kTile = 16;   // K6: a block's 16x16 pixels, a warp's 8x4
 
 inline int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
 
@@ -74,7 +76,7 @@ __global__ void trace_kernel(SceneArgs s, const float* __restrict__ rox,
 // reservoir, all band-sized. accum/welford may be updated in place (each
 // thread reads its own pixel before writing it); res_in and res_out are
 // separate buffers. A block takes a 16x16 tile of the band, a warp 8x4
-// pixels: a warp's primary rays leave the camera side by side in x and y,
+// pixels (tile_pixel): a warp's primary rays leave the camera side by side in x and y,
 // its sun rays start from neighbouring hit points, so they walk the same
 // nodes and take more nearly the same number of steps. kMinBlocks is the
 // launch bound: the terrain-only instantiation is held to 64 registers, 4
@@ -86,33 +88,54 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 frame_kernel(SceneArgs s, FrameArgs f, MeshArgs m, LightArgs l, const float* accum_in,
              const float* welford_in, ResArgs res_in, float* accum_out, float* welford_out,
              ResArgs res_out) {
-    const int tiles_x = (f.width + kTile - 1) / kTile;
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    const int x = (blockIdx.x % tiles_x) * kTile + (warp & 1) * 8 + (lane & 7);
-    const int y = (blockIdx.x / tiles_x) * kTile + (warp >> 1) * 4 + (lane >> 3);
-    if (x >= f.width || y >= f.rows) return;
-    frame_pixel<kHybrid>(s, f, m, l, y * f.width + x, accum_in, welford_in, res_in, accum_out,
-                         welford_out, res_out);
+    const TilePixel p = tile_pixel(f.width, f.rows, blockIdx.x, threadIdx.x);
+    if (!p.inside) return;
+    frame_pixel<kHybrid>(s, f, m, l, p.y * f.width + p.x, accum_in, welford_in, res_in,
+                         accum_out, welford_out, res_out);
 }
 
 // K6's launch bounds: terrain-only, and hybrid (a mesh or typed lights)
 constexpr int kTerrainBlocks = 4;
 constexpr int kHybridBlocks = 1;
 
-// K7: one thread per pixel of the band row0 .. row0 + rows - 1; reads the
-// whole frame's reservoirs and normals (res_in, gb_n*), writes the band's
-// (res_out).
-__global__ void spatial_kernel(ResArgs res_in, ResArgs res_out,
-                               const float* __restrict__ gb_nx,
-                               const float* __restrict__ gb_ny,
-                               const float* __restrict__ gb_nz, int width, int height,
-                               uint32_t frame_index, uint32_t seed_hi, int k_neighbors,
-                               int radius, int row0, int rows) {
-    int j = blockIdx.x * blockDim.x + threadIdx.x;
-    if (j >= width * rows) return;
-    Res out = spatial_pixel(res_in, gb_nx, gb_ny, gb_nz, width, height, frame_index,
-                            seed_hi, k_neighbors, radius, row0 * width + j);
-    store_res(res_out, j, out);
+// K7: a block takes a 16x16 tile of the band row0 .. row0 + rows - 1, a
+// warp 8x4 pixels (tile_pixel, as K6); reads the whole frame's reservoirs
+// and normals (res_in, gb_n*), writes the band's (res_out). kShared: the
+// block first stages the candidates of its tile and a `radius`-wide halo
+// (TileWindow, 6 fields of 4 bytes an entry: 22^2 entries, 11,616 B at
+// radius 3) with loads along the frame's rows, then every tap reads shared
+// memory; otherwise each tap is formed from device memory (FrameWindow).
+// The caller chooses (ops/restir.py:kernel_instance). Either way the
+// chosen candidate's six sample fields are read once, at the end.
+template <bool kShared>
+__global__ void __launch_bounds__(kThreads)
+spatial_kernel(ResArgs res_in, ResArgs res_out, const float* __restrict__ gb_nx,
+               const float* __restrict__ gb_ny, const float* __restrict__ gb_nz, int width,
+               int height, uint32_t frame_index, uint32_t seed_hi, int k_neighbors, int radius,
+               int row0, int rows) {
+    extern __shared__ float k7_window[];
+    const TilePixel p = tile_pixel(width, rows, blockIdx.x, threadIdx.x);
+    if (kShared) {
+        const TileWindow win(k7_window, radius, p.x0 - radius, row0 + p.y0 - radius);
+        for (int e = threadIdx.x; e < win.entries(); e += kThreads)
+            win.stage(res_in, width, height, e);
+        __syncthreads();
+        if (!p.inside) return;
+        store_res(res_out, p.y * width + p.x,
+                  spatial_pixel(win, res_in, gb_nx, gb_ny, gb_nz, width, height, frame_index,
+                                seed_hi, k_neighbors, radius, p.x, row0 + p.y));
+    } else {
+        if (!p.inside) return;
+        const FrameWindow win{&res_in, width, height};
+        store_res(res_out, p.y * width + p.x,
+                  spatial_pixel(win, res_in, gb_nx, gb_ny, gb_nz, width, height, frame_index,
+                                seed_hi, k_neighbors, radius, p.x, row0 + p.y));
+    }
+}
+
+// K7's dynamic shared bytes: the window at `radius` where it is staged
+inline size_t spatial_smem(bool shared, int radius) {
+    return shared ? TileWindow::floats(radius) * sizeof(float) : 0;
 }
 
 struct Vec3 {
@@ -199,7 +222,7 @@ int f3d_frame_step(const SceneArgs* s, const FrameArgs* f, const MeshArgs* m,
                    const ResArgs* res_in, float* accum_out, float* welford_out,
                    const ResArgs* res_out, void* stream) {
     if (f->width > 0 && f->rows > 0) {
-        const int grid = ((f->width + kTile - 1) / kTile) * ((f->rows + kTile - 1) / kTile);
+        const int grid = tile_blocks(f->width, f->rows);
         if (m->n_nodes > 0 || l->count > 0) {
             frame_kernel<true, kHybridBlocks><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
                 *s, *f, *m, *l, accum_in, welford_in, *res_in, accum_out, welford_out,
@@ -230,17 +253,46 @@ int f3d_mesh_kernel_attrs(int which, int* out) {
                             kThreads, out);
 }
 
+// shared: the instantiation that stages each block's window
+// (spatial_kernel<true>; a window past the 48 KB a block may take without
+// opting in, radius > 14, is refused), else the one that reads the taps
+// from device memory (spatial_kernel<false>)
 int f3d_spatial_reuse(const ResArgs* res_in, const ResArgs* res_out, const float* gb_nx,
                       const float* gb_ny, const float* gb_nz, int width, int height,
                       unsigned int frame_index, unsigned int seed_hi, int k_neighbors,
-                      int radius, int row0, int rows, void* stream) {
-    int n = width * rows;
-    if (n > 0) {
-        spatial_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-            *res_in, *res_out, gb_nx, gb_ny, gb_nz, width, height, frame_index, seed_hi,
-            k_neighbors, radius, row0, rows);
+                      int radius, int row0, int rows, int shared, void* stream) {
+    if (width > 0 && rows > 0) {
+        const int grid = tile_blocks(width, rows);
+        if (shared)
+            spatial_kernel<true><<<grid, kThreads, spatial_smem(true, radius),
+                                   (cudaStream_t)stream>>>(
+                *res_in, *res_out, gb_nx, gb_ny, gb_nz, width, height, frame_index, seed_hi,
+                k_neighbors, radius, row0, rows);
+        else
+            spatial_kernel<false><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+                *res_in, *res_out, gb_nx, gb_ny, gb_nz, width, height, frame_index, seed_hi,
+                k_neighbors, radius, row0, rows);
     }
     return (int)cudaGetLastError();
+}
+
+// K7's instantiation (shared as f3d_spatial_reuse) at `radius`: out =
+// {registers a thread, local (spilled) bytes a thread, resident blocks of
+// kThreads an SM with the radius's window, shared bytes a block}
+int f3d_spatial_attrs(int shared, int radius, int* out) {
+    const void* fn = shared ? (const void*)spatial_kernel<true>
+                            : (const void*)spatial_kernel<false>;
+    const size_t smem = spatial_smem(shared, radius);
+    cudaFuncAttributes at;
+    cudaError_t e = cudaFuncGetAttributes(&at, fn);
+    if (e != cudaSuccess) return (int)e;
+    int resident = 0;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, fn, kThreads, smem);
+    out[0] = at.numRegs;
+    out[1] = (int)at.localSizeBytes;
+    out[2] = resident;
+    out[3] = (int)(at.sharedSizeBytes + smem);
+    return (int)e;
 }
 
 int f3d_center_gbuffer(const SceneArgs* s, const MeshArgs* m, int n, const float* cam_o,

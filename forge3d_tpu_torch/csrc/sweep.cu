@@ -41,11 +41,15 @@
 //   operations' bound, which counts every bin-row as if all ran at once.
 // - K3 replaces the TPU's dense (E, K, A) crossing-indicator contraction,
 //   which is ~3.7 G elements per frame at the bench scene, by a binary
-//   search: one CTA per azimuth column builds the column's K profile
-//   samples (q and 9 channels, 44 B each) in shared memory, takes their
+//   search: a CTA builds its azimuth columns' K profile samples (q, 7
+//   channels and a validity byte, 33 B each) in shared memory, takes their
 //   running max, and each of the E rows finds its crossing in log2(K) steps
 //   and lerps two rows. Its cost is the profile gathers (L2-resident rotated
-//   grid and corner pack) and the accumulator's read-modify-write. Each
+//   grid and corner pack) and the accumulator's read-modify-write (129 MB
+//   at the bench scene, more than L2): a row's texels go to shared memory
+//   and the CTA adds them along acc's rows, so a warp's loads and stores
+//   touch a few sectors, not one a lane; two columns a CTA make those runs
+//   72 bytes and let neighbouring lanes share the grid's lines in L1. Each
 //   (e, a) has one writer, so the sum over frames is deterministic.
 // Where a CTA's rows do not fit in shared memory (very wide grids), the
 // wrapper passes a device scratch buffer and the same code runs on it (K2:
@@ -400,58 +404,123 @@ sweep_reduce_kernel(const float* __restrict__ partial, const int* __restrict__ p
     }
 }
 
-// K3: one CTA per azimuth column a. Per column (in shared memory unless
-// scratch is given): M (the q values, then their running max) [K], the
-// channels v [K][9] and the sample heights [K].
-__global__ void __launch_bounds__(kPolarThreads)
+// K3: a CTA of kPolarThreads takes kG = F3D_K3_COLUMNS (2) adjacent
+// azimuth columns a0 .. a0 + kG - 1 (the last CTA's past A idle). Per column (in shared memory unless
+// scratch is given) a PolarColumn; in shared memory always the staged
+// texels of a pass of rows, the edges and the scan's warp maxima.
+// 1. Profile: thread t takes column t % kG and every (kPolarThreads /
+//    kG)-th sample k from t / kG, so neighbouring lanes read neighbouring
+//    columns' samples, which share the rotated grid's lines; each thread
+//    keeps its first valid k, and a warp's minimum per column (shuffles),
+//    then a shared atomicMin, gives the column's first valid row.
+// 2. Edge: thread g forms column g's boundary-entry sample, which replaces
+//    a slot of q and of the channels before the scan.
+// 3. Scan: the column's kPolarThreads / kG threads take consecutive chunks
+//    of its rows; each chunk's running max, then a warp-shuffle scan of the
+//    chunks' maxima and the maxima of the column's earlier warps (max is
+//    exact, so any association gives the sequential cummax).
+// 4. Rows, in passes of kPolarThreads / kG rows: thread t forms texel (e0 +
+//    t / kG, a0 + t % kG) into the stage; after a barrier the CTA adds the
+//    pass into acc along its rows, kG * 36 contiguous bytes a row, with
+//    consecutive lanes on consecutive floats, each thread's 9 loads issued
+//    before its adds.
+// Each (e, a) has one writer and one add a frame, as before, so the sum
+// over frames is deterministic and equal to the row-by-row kernel's.
+// F3D_K3_SPLIT (measurement builds only): 1 stops after the scan, 2 runs
+// the rows without the accumulator's read-modify-write, 3 runs the scan
+// alone over a filled profile.
+// The launch bound asks for as many CTAs an SM as the two columns'
+// profiles leave room for in shared memory at bench.py's K (1029): 2.
+// One and four columns a CTA measured slower (PERF.md, section 6).
+constexpr int kG = F3D_K3_COLUMNS;
+
+__global__ void __launch_bounds__(kPolarThreads, 2)
 polar_kernel(PolarArgs p, const float* __restrict__ h_rot, const float* __restrict__ e_sky,
-             const float* __restrict__ z_sun, const float* __restrict__ corners, float* acc,
-             float* scratch) {
-    extern __shared__ float smem[];
-    __shared__ int k_first;
-    __shared__ Edge edge;
-    __shared__ float chunk_max[kPolarThreads];
-    const int a = blockIdx.x, K = p.K, tid = threadIdx.x, nt = blockDim.x;
-    float* M = scratch ? scratch + (size_t)a * K * 11 : smem;
-    float* v = M + K;
-    float* hp = v + (size_t)K * 9;
-    const float t = azimuth_t(p, a);
-    if (tid == 0) k_first = K;
+             const float* __restrict__ z_sun, const float* __restrict__ corners,
+             float* __restrict__ acc, float* scratch) {
+    extern __shared__ float profiles[];
+    __shared__ float stage[kPolarThreads * 9];
+    __shared__ Edge edges[kG];
+    __shared__ int k_first[kG];
+    __shared__ float warp_max[kPolarThreads / 32];
+    constexpr int kPer = kPolarThreads / kG;    // threads a column, rows a pass
+    const int a0 = blockIdx.x * kG, K = p.K, tid = threadIdx.x, lane = tid & 31;
+    const int pf = PolarColumn::floats(K);
+    float* base = scratch ? scratch + (size_t)blockIdx.x * kG * pf : profiles;
+    const int gp = tid % kG;                     // the profile's and the rows' column
+    const bool live = a0 + gp < p.A;
+    auto col_of = [&](int g) { return PolarColumn(base + g * pf, K); };
+    const PolarColumn col = col_of(gp);
+    const float t = azimuth_t(p, a0 + gp);
+    if (tid < kG) k_first[tid] = K;
     __syncthreads();
-    for (int k = tid; k < K; k += nt) {
-        float h = sample_values(p, h_rot, e_sky, z_sun, corners, k, t, M[k], v + k * 9);
-        hp[k] = h;
-        if (h > -1e20f) atomicMin(&k_first, k);
+    int first = K;
+#if F3D_K3_SPLIT == 3
+    for (int k = tid / kG; k < K && live; k += kPer) {
+        col.M[k] = (float)(k % 13);
+        col.valid[k] = 1;
     }
+#else
+    for (int k = tid / kG; k < K && live; k += kPer)
+        if (polar_sample(p, h_rot, e_sky, z_sun, corners, col, k, t) && first == K) first = k;
+    for (int o = 16; o >= kG; o >>= 1) first = min(first, __shfl_xor_sync(0xffffffffu, first, o));
+    if (lane < kG && first < K) atomicMin(&k_first[lane], first);
     __syncthreads();
-    if (tid == 0) {
-        edge = edge_sample(p, h_rot, e_sky, z_sun, corners, k_first, t);
-        if (edge.can) {
-            M[edge.slot] = edge.q;
-            for (int c = 0; c < 7; ++c) v[edge.slot * 9 + c] = edge.v[c];
+    if (tid < kG && a0 + tid < p.A) {
+        edges[tid] = edge_sample(p, h_rot, e_sky, z_sun, corners, k_first[tid],
+                                 azimuth_t(p, a0 + tid));
+        polar_apply_edge(col_of(tid), edges[tid]);
+    }
+#endif
+    __syncthreads();
+    {   // the scan: column tid / kPer, chunk tid % kPer
+        const int g = tid / kPer, j = tid % kPer, chunk = (K + kPer - 1) / kPer;
+        const int k0 = min(K, j * chunk), k1 = min(K, k0 + chunk);
+        float* M = base + g * pf;
+        const bool mine = a0 + g < p.A;
+        float run = mine ? polar_scan_chunk(M, k0, k1) : -INFINITY;
+        float incl = run;
+        for (int o = 1; o < 32; o <<= 1) {
+            float up = __shfl_up_sync(0xffffffffu, incl, o);
+            if (lane >= o) incl = fmaxf(incl, up);
         }
+        if (lane == 31) warp_max[tid >> 5] = incl;
+        float before = __shfl_up_sync(0xffffffffu, incl, 1);
+        if (lane == 0) before = -INFINITY;
+        __syncthreads();
+        for (int w = (g * kPer) >> 5; w < (tid >> 5); ++w) before = fmaxf(before, warp_max[w]);
+        for (int k = k0; k < k1 && mine; ++k) M[k] = fmaxf(before, M[k]);
     }
     __syncthreads();
-    // boundary-entry flags, and the running max of q over k (max is exact,
-    // so the blocked scan gives the sequential cummax)
-    const int chunk = (K + nt - 1) / nt;
-    const int k0 = tid * chunk, k1 = min(K, k0 + chunk);
-    float run = -INFINITY;
-    for (int k = k0; k < k1; ++k) {
-        bool valid = hp[k] > -1e20f;
-        bool valid_prev = k > 0 && hp[k - 1] > -1e20f;
-        v[k * 9 + 8] = edge.can ? (k == edge.slot ? 1.0f : 0.0f)
-                                : (valid && !valid_prev ? 1.0f : 0.0f);
-        run = fmaxf(run, M[k]);
-        M[k] = run;
+#if F3D_K3_SPLIT == 1 || F3D_K3_SPLIT == 3
+    if (tid == 0 && base[0] == -1.2345e-37f) acc[0] = base[1];   // never: keeps the work live
+    return;
+#endif
+    const Edge ed = edges[gp];
+    for (int e0 = 0; e0 < p.E; e0 += kPer) {
+        const int e = e0 + tid / kG;
+        if (live && e < p.E) polar_texel(p, col, ed, e, t, stage + tid * 9);
+        __syncthreads();
+#if F3D_K3_SPLIT == 2
+        if (stage[tid] == -1.2345e-37f) acc[tid] = stage[tid + 1];   // never: keeps the rows live
+#else
+        // the pass's 9 floats a thread: every load issued before an add
+        const int n = min(kPer, p.E - e0) * kG * 9;
+        float* rows = acc + ((size_t)e0 * p.A + a0) * 9;
+        float cur[9];
+        int off[9];
+#pragma unroll
+        for (int j = 0; j < 9; ++j) {
+            const int f = tid + j * kPolarThreads;
+            off[j] = f < n ? polar_acc_offset(p, a0, f) : -1;
+            if (off[j] >= 0) cur[j] = rows[off[j]];
+        }
+#pragma unroll
+        for (int j = 0; j < 9; ++j)
+            if (off[j] >= 0) rows[off[j]] = cur[j] + stage[tid + j * kPolarThreads];
+#endif
+        __syncthreads();
     }
-    chunk_max[tid] = run;
-    __syncthreads();
-    float before = -INFINITY;
-    for (int i = 0; i < tid; ++i) before = fmaxf(before, chunk_max[i]);
-    for (int k = k0; k < k1; ++k) M[k] = fmaxf(before, M[k]);
-    __syncthreads();
-    for (int e = tid; e < p.E; e += nt) polar_row(p, M, v, a, e, t, edge.h_ent, edge.s_ent, acc);
 }
 
 __global__ void resolve_kernel(ResolveArgs r, const float* __restrict__ acc,
@@ -500,6 +569,11 @@ cudaError_t sweep_prepare(SweepFn fn, size_t smem, int cluster) {
     if (err == cudaSuccess && cluster > 8)
         err = cudaFuncSetAttribute(fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     return err;
+}
+
+// K3's dynamic shared bytes: the CTA's column profiles, unless in scratch
+size_t polar_smem(int K, bool global) {
+    return global ? 0 : (size_t)kG * PolarColumn::floats(K) * sizeof(float);
 }
 
 }  // namespace
@@ -569,16 +643,38 @@ int f3d_sweep_lighting(const float* h, const float* du, const float* dv, int V, 
     return (int)cudaGetLastError();
 }
 
+// scratch, if not null, holds every CTA's profiles (F3D_K3_COLUMNS *
+// PolarColumn::floats(K) floats each).
 int f3d_polar_frame(const PolarArgs* p, const float* h_rot, const float* e_sky,
                     const float* z_sun, const float* corners, float* acc, float* scratch,
                     void* stream) {
-    size_t smem = scratch ? 0 : (size_t)p->K * 11 * sizeof(float);
+    const size_t smem = polar_smem(p->K, scratch != nullptr);
     cudaError_t err = allow_smem(polar_kernel, smem);
     if (err != cudaSuccess) return (int)err;
     if (p->A > 0 && p->K > 0)
-        polar_kernel<<<p->A, kPolarThreads, smem, (cudaStream_t)stream>>>(
+        polar_kernel<<<(p->A + kG - 1) / kG, kPolarThreads, smem, (cudaStream_t)stream>>>(
             *p, h_rot, e_sky, z_sun, corners, acc, scratch);
     return (int)cudaGetLastError();
+}
+
+// K3 over profiles of K rows (in shared memory unless global): out =
+// {registers a thread, local (spilled) bytes a thread, resident CTAs an
+// SM, shared bytes a CTA, columns a CTA}
+int f3d_polar_attrs(int K, int global, int* out) {
+    const size_t smem = polar_smem(K, global);
+    cudaError_t e = allow_smem(polar_kernel, smem);
+    cudaFuncAttributes at;
+    if (e == cudaSuccess) e = cudaFuncGetAttributes(&at, polar_kernel);
+    if (e != cudaSuccess) return (int)e;
+    int resident = 0;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, polar_kernel, kPolarThreads,
+                                                      smem);
+    out[0] = at.numRegs;
+    out[1] = (int)at.localSizeBytes;
+    out[2] = resident;
+    out[3] = (int)(at.sharedSizeBytes + smem);
+    out[4] = kG;
+    return (int)e;
 }
 
 int f3d_resolve(const ResolveArgs* r, const float* acc, unsigned char* out, void* stream) {

@@ -5,7 +5,8 @@
 // K1 rotate_node    replaces forge3d_tpu/ops/sweep.py:rotate_heights (384)
 // K2 sweep_*        replaces forge3d_tpu/ops/sweep.py:sweep_lighting (188),
 //                   _propagate_group (119)
-// K3 profile_sample, edge_sample, polar_row
+// K3 profile_sample, sample_values, edge_sample, polar_texel (over a
+//                   PolarColumn), polar_acc_offset
 //                   replace forge3d_tpu/pt/terrain_sweep.py:frame_one (146)
 //                   with ops/polarscan.py:extract_profiles (179),
 //                   profile_hit_tangents (226), synthesize_polar (250),
@@ -287,8 +288,10 @@ F3D_HD void shade(const PolarArgs& p, float nx, float ny, float nz, float h, con
 }
 
 // Everything frame_one computes for profile sample (k, a) before the edge
-// replacement: the reduced tangent q, the channels v[0..7] (rgb, t, normal,
-// 1) and the sample height. Returns the height (-1e30 outside the grid).
+// replacement: the reduced tangent q, the channels v[0..6] (rgb, t, normal)
+// and the sample height. Returns the height (-1e30 outside the grid).
+// frame_one's channel 7 is the constant 1 and its channel 8 the entry flag;
+// K3 forms both where it reads them (PolarRows).
 F3D_HD float sample_values(const PolarArgs& p, const float* h_rot, const float* e_sky,
                            const float* z_sun, const float* corners, int k, float t,
                            float& q, float* v) {
@@ -313,7 +316,6 @@ F3D_HD float sample_values(const PolarArgs& p, const float* h_rot, const float* 
     v[4] = nx;
     v[5] = ny;
     v[6] = nz;
-    v[7] = 1.0f;
     return s.h;
 }
 
@@ -410,7 +412,7 @@ F3D_HD float crossing_alpha(const float* M, int K, int k, float Q) {
 }
 
 // synthesize_polar's contraction for one (e, a): sum_k (alpha[k] -
-// alpha[k-1]) * v[k] over C channels, and hit_any = alpha[K-1].
+// alpha[k-1]) * rows(k, c) over C channels, and hit_any = alpha[K-1].
 // m_next[k] = M[k+1] is non-decreasing, so alpha is 0 exactly up to the
 // first row k* with m_next[k*] > Q (found by binary search) and reaches 1
 // within a row or two after it: the walk from k* stops at the first row
@@ -418,8 +420,8 @@ F3D_HD float crossing_alpha(const float* M, int K, int k, float Q) {
 // ratio that is > 1 exactly, which the dense form sums as well; those are
 // dropped. Plateaus (M[k+1] - M[k] < 1e-9) take the 1e9 reciprocal as in
 // the dense form and are walked through.
-F3D_HD float crossing(const float* M, const float* v, int stride, int C, int K, float Q,
-                      float* out) {
+template <class Rows>
+F3D_HD float crossing(const float* M, const Rows& rows, int C, int K, float Q, float* out) {
     for (int c = 0; c < C; ++c) out[c] = 0.0f;
     int lo = 0, hi = K;
     while (lo < hi) {
@@ -433,7 +435,7 @@ F3D_HD float crossing(const float* M, const float* v, int stride, int C, int K, 
         float a = crossing_alpha(M, K, k, Q);
         if (a != prev) {
             float d = a - prev;
-            for (int c = 0; c < C; ++c) out[c] += d * v[(size_t)k * stride + c];
+            for (int c = 0; c < C; ++c) out[c] += d * rows(k, c);
         }
         prev = a;
         if (a >= 1.0f) break;
@@ -441,24 +443,95 @@ F3D_HD float crossing(const float* M, const float* v, int stride, int C, int K, 
     return crossing_alpha(M, K, K - 1, Q);
 }
 
-// One polar texel (e, a) of the frame: the first-crossing lerp, the miss
-// blend and the phantom rule; adds the 9 channels into acc.
-F3D_HD void polar_row(const PolarArgs& p, const float* M, const float* v, int a, int e,
-                      float t, float h_ent, float s_ent, float* acc) {
+// A column's profile as K3 keeps it (in shared memory, or in the device
+// scratch for columns too long for it): M [K] (the q values, then their
+// running max), the channels 0..6 [K][7] and whether each row's sample lies
+// on the grid [K bytes], floats(K) floats in all.
+struct PolarColumn {
+    float* M;
+    float* v;
+    unsigned char* valid;
+
+    F3D_HD static int floats(int K) { return 8 * K + (K + 3) / 4; }
+    F3D_HD PolarColumn(float* base, int K)
+        : M(base), v(base + K), valid(reinterpret_cast<unsigned char*>(base + 8 * K)) {}
+};
+
+// frame_one's nine channels of profile row k: 0..6 as stored, 7 the
+// constant 1, 8 the boundary-entry flag (the edge sample's slot where the
+// edge replaced one, else each valid row after an invalid one or the
+// first), as frame_one builds them.
+struct PolarRows {
+    const PolarColumn& col;
+    int can, slot;
+
+    F3D_HD float operator()(int k, int c) const {
+        if (c < 7) return col.v[k * 7 + c];
+        if (c == 7) return 1.0f;
+        bool entry = can ? k == slot : col.valid[k] && !(k > 0 && col.valid[k - 1]);
+        return entry ? 1.0f : 0.0f;
+    }
+};
+
+// Profile sample k of column a (azimuth tangent t) into `col`; returns
+// whether it lies on the grid.
+F3D_HD bool polar_sample(const PolarArgs& p, const float* h_rot, const float* e_sky,
+                         const float* z_sun, const float* corners, const PolarColumn& col,
+                         int k, float t) {
+    bool valid = sample_values(p, h_rot, e_sky, z_sun, corners, k, t, col.M[k], col.v + k * 7)
+                 > -1e20f;
+    col.valid[k] = valid ? 1 : 0;
+    return valid;
+}
+
+// The edge sample replaces its slot's q and channels 0..6.
+F3D_HD void polar_apply_edge(const PolarColumn& col, const Edge& e) {
+    if (!e.can) return;
+    col.M[e.slot] = e.q;
+    for (int c = 0; c < 7; ++c) col.v[e.slot * 7 + c] = e.v[c];
+}
+
+// The running max of M over rows k0 .. k1 - 1 in place; returns the last.
+F3D_HD float polar_scan_chunk(float* M, int k0, int k1) {
+    float run = -INFINITY;
+    for (int k = k0; k < k1; ++k) {
+        run = fmaxf(run, M[k]);
+        M[k] = run;
+    }
+    return run;
+}
+
+// One polar texel (e, a) of the frame, column a's profile scanned: the
+// first-crossing lerp, the miss blend and the phantom rule; its 9 channels
+// into r.
+F3D_HD void polar_texel(const PolarArgs& p, const PolarColumn& col, const Edge& ed, int e,
+                        float t, float* r) {
     float Q = q_row(p, e);
     float out[9];
-    float hit = crossing(M, v, 9, 9, p.K, Q, out);
+    float hit = crossing(col.M, PolarRows{col, ed.can, ed.slot}, 9, p.K, Q, out);
     float omh = 1.0f - hit;
-    float z_ray = p.cam_y + Q * s_ent;
-    bool phantom = out[8] > 0.98f && z_ray < h_ent - p.eps;
+    float z_ray = p.cam_y + Q * ed.s_ent;
+    bool phantom = out[8] > 0.98f && z_ray < ed.h_ent - p.eps;
     float miss[3] = {0.0f, 0.0f, 0.0f};
     if (omh != 0.0f || phantom) miss_radiance(p, t, Q, miss);
-    float* dst = acc + ((size_t)e * p.A + a) * 9;
     for (int c = 0; c < 9; ++c) {
         float m = c < 3 ? miss[c] : 0.0f;
-        float r = phantom ? m : out[c] + omh * m;
-        dst[c] += r;
+        r[c] = phantom ? m : out[c] + omh * m;
     }
+}
+
+// K3's azimuth columns a CTA (G). terrain_sweep.py:POLAR_COLUMNS sizes the
+// profiles' scratch by it, and f3d_polar_attrs reports it.
+#define F3D_K3_COLUMNS 2
+
+// K3's pass of rows e0 .. e0 + R - 1 over columns a0 .. a0 + G - 1: its
+// stage holds texel (e0 + s, a0 + g)'s channels at ((s * G + g) * 9 + c),
+// so float f of the pass (rows of G * 9 floats, each contiguous in acc)
+// adds into acc[((e0 * A) + a0) * 9 + offset]; -1 for a column past A.
+F3D_HD int polar_acc_offset(const PolarArgs& p, int a0, int f) {
+    const int seg = F3D_K3_COLUMNS * 9;
+    const int s = f / seg, o = f - s * seg;
+    return a0 * 9 + o < p.A * 9 ? s * p.A * 9 + o : -1;
 }
 
 // ---------------------------------------------------------------------------

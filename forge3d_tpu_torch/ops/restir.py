@@ -4,7 +4,9 @@
 # the K-neighbour spatial streaming RIS.
 #
 # `spatial_reuse` is the wrapper of kernel K7 (csrc/kernels.cu:
-# spatial_kernel). `m_clamp` and `temporal_merge` are per pixel; the frame
+# spatial_kernel), which comes in two instantiations by where a tap's
+# window is read from (`kernel_instance`); the wrappers count launches by
+# it. `m_clamp` and `temporal_merge` are per pixel; the frame
 # kernel K6 applies them to its own pixel (csrc/common.cuh:frame_pixel), so
 # their plain versions here serve the plain frame step and the tests.
 # Integer fields are int32 (the JAX package keeps u32; values stay far
@@ -13,6 +15,7 @@
 from __future__ import annotations
 
 import dataclasses
+from collections import Counter
 from dataclasses import dataclass
 
 import torch
@@ -25,6 +28,10 @@ _F32 = torch.float32
 _I32 = torch.int32
 
 M_CAP = 512  # history cap
+
+#: the widest radius whose window K7 stages in shared memory (kernel_instance);
+#: wider ones are read from device memory
+SHARED_RADIUS = 8
 
 
 @dataclass(frozen=True)
@@ -170,6 +177,13 @@ def spatial_reuse_plain(res_in: Reservoirs, gb_nx, gb_ny, gb_nz, width: int, hei
     return ch.replace(w_sum=w_acc, m=m_total, weight=weight, target_pdf=ch_pdf)
 
 
+def kernel_instance(radius: int) -> str:
+    """The instantiation K7 launches for `radius`: where its taps' window is
+    read from (csrc/kernels.cu:spatial_kernel<true> stages it, <false>
+    reads device memory)."""
+    return "shared window" if 0 <= radius <= SHARED_RADIUS else "global window"
+
+
 def _spatial_reuse_kernel(res_in: Reservoirs, gb_nx, gb_ny, gb_nz, width, height,
                           frame_index, seed_hi, k_neighbors, radius, row0=0, rows=None,
                           counter=None) -> Reservoirs:
@@ -184,13 +198,16 @@ def _spatial_reuse_kernel(res_in: Reservoirs, gb_nx, gb_ny, gb_nz, width, height
     _kernels.require_cuda("spatial_reuse", gb_nx, gb_ny, gb_nz)
     out = Reservoirs.empty(width * rows, res_in.m.device)
     dev = gb_nx.device
+    instance = kernel_instance(int(radius))
     err = _kernels.lib().f3d_spatial_reuse(
         res_in.kernel_args(), out.kernel_args(), _kernels.ptr(gb_nx), _kernels.ptr(gb_ny),
         _kernels.ptr(gb_nz), int(width), int(height), int(frame_index) & MASK32,
         int(seed_hi) & MASK32, int(k_neighbors), int(radius), int(row0), rows,
-        _kernels.stream_ptr(dev))
+        int(instance == "shared window"), _kernels.stream_ptr(dev))
     _kernels.check(err, "K7 spatial_reuse")
-    (spatial_reuse if counter is None else counter).launches += 1
+    counter = spatial_reuse if counter is None else counter
+    counter.launches += 1
+    counter.instances[instance] += 1
     return out
 
 
@@ -208,6 +225,7 @@ def spatial_reuse(res_in: Reservoirs, gb_nx, gb_ny, gb_nz, width: int, height: i
 
 
 spatial_reuse.launches = 0
+spatial_reuse.instances = Counter()   # launches by kernel_instance
 
 
 def spatial_reuse_band(res_in: Reservoirs, gb_nx, gb_ny, gb_nz, width: int, height: int,
@@ -228,3 +246,4 @@ def spatial_reuse_band(res_in: Reservoirs, gb_nx, gb_ny, gb_nz, width: int, heig
 
 
 spatial_reuse_band.launches = 0
+spatial_reuse_band.instances = Counter()

@@ -345,6 +345,23 @@ def polar_args(plan: SweepPlan, scene: SweepScene, xi: float, ja: float,
         f32(xi), f32(ja), f32(je))
 
 
+#: K3's azimuth columns a CTA (csrc/sweep.cuh:F3D_K3_COLUMNS, which
+#: f3d_polar_attrs reports): what a CTA's profiles take
+POLAR_COLUMNS = 2
+
+
+def polar_profile_floats(k_count: int) -> int:
+    """Floats of one column's profile in K3 (csrc/sweep.cuh:PolarColumn):
+    q, seven channels and a validity byte a row."""
+    return 8 * k_count + (k_count + 3) // 4
+
+
+def polar_uses_scratch(k_count: int) -> bool:
+    """Whether K3 keeps a CTA's column profiles in a device scratch buffer:
+    where they pass _kernels.SMEM_LIMIT."""
+    return POLAR_COLUMNS * polar_profile_floats(k_count) * 4 > _kernels.SMEM_LIMIT
+
+
 def _polar_kernel(plan, scene, acc, h_rot, maps, xi, ja, je):
     ps = plan.ps
     tensors = [h_rot.contiguous(), maps.e_sky.contiguous(), maps.z_sun.contiguous(),
@@ -355,9 +372,10 @@ def _polar_kernel(plan, scene, acc, h_rot, maps, xi, ja, je):
     if scene.env.rgb is not None:
         _kernels.require_cuda("env_map", scene.env.rgb)
     dev = acc.device
-    use_global = ps.k_count * 11 * 4 > _kernels.SMEM_LIMIT  # the column's profile bytes
-    scratch = torch.empty((ps.a_count * ps.k_count * 11,) if use_global else (0,),
-                          dtype=_F32, device=dev)
+    use_global = polar_uses_scratch(ps.k_count)
+    ctas = -(-ps.a_count // POLAR_COLUMNS)
+    scratch = torch.empty((ctas * POLAR_COLUMNS * polar_profile_floats(ps.k_count),)
+                          if use_global else (0,), dtype=_F32, device=dev)
     args = polar_args(plan, scene, xi, ja, je)
     err = _kernels.lib().f3d_polar_frame(
         args, *(_kernels.ptr(t) for t in tensors), _kernels.ptr(acc),

@@ -19,6 +19,7 @@
 # once (-ffp-contract=off / -fmad=false), so they differ only where the math
 # library's cos/sin/atan2/acos differ from PyTorch's by an ulp.
 import ctypes
+import dataclasses
 import shutil
 import subprocess
 
@@ -95,14 +96,36 @@ int f3d_tlas_attrs(int* out) {
     out[0] = out[1] = out[2] = 0;
     return 0;
 }
+// K7 as kernels.cu maps it: the blocks of 16x16 band pixels in order; with
+// a staged window (shared) each block first stages its tile and halo, then
+// its threads read their taps from it
 int f3d_spatial_reuse(const ResArgs* res_in, const ResArgs* res_out, const float* gb_nx,
                       const float* gb_ny, const float* gb_nz, int width, int height,
                       unsigned int frame_index, unsigned int seed_hi, int k_neighbors,
-                      int radius, int row0, int rows, void*) {
-    for (int j = 0; j < width * rows; ++j)
-        store_res(*res_out, j, spatial_pixel(*res_in, gb_nx, gb_ny, gb_nz, width, height,
-                                             frame_index, seed_hi, k_neighbors, radius,
-                                             row0 * width + j));
+                      int radius, int row0, int rows, int shared, void*) {
+    if (width <= 0 || rows <= 0) return 0;
+    std::vector<float> buf(TileWindow::floats(radius));
+    for (int b = 0; b < tile_blocks(width, rows); ++b) {
+        const TilePixel corner = tile_pixel(width, rows, b, 0);
+        const TileWindow win(buf.data(), radius, corner.x0 - radius, row0 + corner.y0 - radius);
+        if (shared)
+            for (int e = 0; e < win.entries(); ++e) win.stage(*res_in, width, height, e);
+        for (int t = 0; t < 256; ++t) {
+            const TilePixel p = tile_pixel(width, rows, b, t);
+            if (!p.inside) continue;
+            const FrameWindow frame{res_in, width, height};
+            const Res out = shared
+                ? spatial_pixel(win, *res_in, gb_nx, gb_ny, gb_nz, width, height, frame_index,
+                                seed_hi, k_neighbors, radius, p.x, row0 + p.y)
+                : spatial_pixel(frame, *res_in, gb_nx, gb_ny, gb_nz, width, height,
+                                frame_index, seed_hi, k_neighbors, radius, p.x, row0 + p.y);
+            store_res(*res_out, p.y * width + p.x, out);
+        }
+    }
+    return 0;
+}
+int f3d_spatial_attrs(int, int, int* out) {
+    out[0] = out[1] = out[2] = out[3] = 0;   // no device function on the host
     return 0;
 }
 int f3d_center_gbuffer(const SceneArgs* s, const MeshArgs* m, int n, const float* cam_o,
@@ -241,8 +264,104 @@ int f3d_sweep_clusters(int, int, int, int, int, int, int* n) {   // no clusters 
     *n = 0;
     return 0;
 }
+// K3 as sweep.cu maps it, a CTA of 256 threads over F3D_K3_COLUMNS columns
+// at a time, its steps in the kernel's order: each thread's profile samples and
+// first valid row, the first valid row of each column, the edges, the scan
+// (each thread's chunk, then the maxima of the chunks before it, in the
+// order of the lanes and warps), then the passes of rows into the stage and
+// the stage's floats into acc
 int f3d_polar_frame(const PolarArgs* pa, const float* h_rot, const float* e_sky,
-                    const float* z_sun, const float* corners, float* acc, float*, void*) {
+                    const float* z_sun, const float* corners, float* acc, float* scratch,
+                    void*) {
+    const PolarArgs& p = *pa;
+    const int K = p.K, G = F3D_K3_COLUMNS, per = 256 / G, pf = PolarColumn::floats(K);
+    if (p.A <= 0 || K <= 0) return 0;
+    std::vector<float> smem((size_t)G * pf), stage(256 * 9);
+    std::vector<Edge> edges(G);
+    for (int b = 0; b < (p.A + G - 1) / G; ++b) {
+        const int a0 = b * G;
+        float* base = scratch ? scratch + (size_t)b * G * pf : smem.data();
+        std::vector<int> k_first(G, K);
+        for (int tid = 0; tid < 256; ++tid) {
+            const int g = tid % G;
+            if (a0 + g >= p.A) continue;
+            const PolarColumn col(base + g * pf, K);
+            const float t = azimuth_t(p, a0 + g);
+            int first = K;
+            for (int k = tid / G; k < K; k += per)
+                if (polar_sample(p, h_rot, e_sky, z_sun, corners, col, k, t) && first == K)
+                    first = k;
+            k_first[g] = std::min(k_first[g], first);
+        }
+        for (int g = 0; g < G && a0 + g < p.A; ++g) {
+            edges[g] = edge_sample(p, h_rot, e_sky, z_sun, corners, k_first[g],
+                                   azimuth_t(p, a0 + g));
+            polar_apply_edge(PolarColumn(base + g * pf, K), edges[g]);
+        }
+        const int chunk = (K + per - 1) / per;
+        std::vector<float> chunk_max(256);
+        for (int tid = 0; tid < 256; ++tid) {
+            const int g = tid / per, k0 = std::min(K, (tid % per) * chunk);
+            chunk_max[tid] = a0 + g < p.A
+                ? polar_scan_chunk(base + g * pf, k0, std::min(K, k0 + chunk)) : -INFINITY;
+        }
+        for (int tid = 0; tid < 256; ++tid) {
+            const int g = tid / per, k0 = std::min(K, (tid % per) * chunk);
+            if (a0 + g >= p.A) continue;
+            float before = -INFINITY;
+            for (int u = g * per; u < tid; ++u) before = fmaxf(before, chunk_max[u]);
+            float* M = base + g * pf;
+            for (int k = k0; k < std::min(K, k0 + chunk); ++k) M[k] = fmaxf(before, M[k]);
+        }
+        for (int e0 = 0; e0 < p.E; e0 += per) {
+            for (int tid = 0; tid < 256; ++tid) {
+                const int g = tid % G, e = e0 + tid / G;
+                if (a0 + g < p.A && e < p.E)
+                    polar_texel(p, PolarColumn(base + g * pf, K), edges[g], e,
+                                azimuth_t(p, a0 + g), stage.data() + tid * 9);
+            }
+            const int n = std::min(per, p.E - e0) * G * 9;
+            float* rows = acc + ((size_t)e0 * p.A + a0) * 9;
+            for (int f = 0; f < n; ++f) {
+                const int o = polar_acc_offset(p, a0, f);
+                if (o >= 0) rows[o] += stage[f];
+            }
+        }
+    }
+    return 0;
+}
+int f3d_polar_attrs(int, int, int* out) {
+    out[0] = out[1] = out[2] = out[3] = 0;   // no device function on the host
+    out[4] = F3D_K3_COLUMNS;
+    return 0;
+}
+// test entry: each column's first valid profile row (K if none) and
+// whether its edge sample replaces a slot
+void f3d_test_polar_columns(const PolarArgs* pa, const float* h_rot, const float* e_sky,
+                            const float* z_sun, const float* corners, int* k_first, int* can) {
+    const PolarArgs& p = *pa;
+    for (int a = 0; a < p.A; ++a) {
+        const float t = azimuth_t(p, a);
+        k_first[a] = p.K;
+        for (int k = 0; k < p.K && k_first[a] == p.K; ++k) {
+            float q, v[7];
+            if (sample_values(p, h_rot, e_sky, z_sun, corners, k, t, q, v) > -1e20f)
+                k_first[a] = k;
+        }
+        can[a] = edge_sample(p, h_rot, e_sky, z_sun, corners, k_first[a], t).can;
+    }
+}
+// frame_one's nine channels of a profile held as K rows of `stride` floats
+struct StridedRows {
+    const float* v;
+    int stride;
+    float operator()(int k, int c) const { return v[(size_t)k * stride + c]; }
+};
+// test entry: K3 as its row-by-row design ran it, a column at a time: the
+// profile with nine channels a row (7 the constant 1, 8 the entry flag),
+// the edge, the running max, then every row's texel added into acc
+void f3d_test_polar_serial(const PolarArgs* pa, const float* h_rot, const float* e_sky,
+                           const float* z_sun, const float* corners, float* acc) {
     const PolarArgs& p = *pa;
     const int K = p.K;
     std::vector<float> M(K), v((size_t)K * 9), hp(K);
@@ -251,6 +370,7 @@ int f3d_polar_frame(const PolarArgs* pa, const float* h_rot, const float* e_sky,
         int k_first = K;
         for (int k = 0; k < K; ++k) {
             hp[k] = sample_values(p, h_rot, e_sky, z_sun, corners, k, t, M[k], &v[k * 9]);
+            v[k * 9 + 7] = 1.0f;
             if (hp[k] > -1e20f && k < k_first) k_first = k;
         }
         Edge e = edge_sample(p, h_rot, e_sky, z_sun, corners, k_first, t);
@@ -265,10 +385,22 @@ int f3d_polar_frame(const PolarArgs* pa, const float* h_rot, const float* e_sky,
             run = fmaxf(run, M[k]);
             M[k] = run;
         }
-        for (int row = 0; row < p.E; ++row)
-            polar_row(p, M.data(), v.data(), a, row, t, e.h_ent, e.s_ent, acc);
+        for (int row = 0; row < p.E; ++row) {
+            float Q = q_row(p, row);
+            float out[9];
+            float hit = crossing(M.data(), StridedRows{v.data(), 9}, 9, K, Q, out);
+            float omh = 1.0f - hit;
+            float z_ray = p.cam_y + Q * e.s_ent;
+            bool phantom = out[8] > 0.98f && z_ray < e.h_ent - p.eps;
+            float miss[3] = {0.0f, 0.0f, 0.0f};
+            if (omh != 0.0f || phantom) miss_radiance(p, t, Q, miss);
+            float* dst = acc + ((size_t)row * p.A + a) * 9;
+            for (int c = 0; c < 9; ++c) {
+                float m = c < 3 ? miss[c] : 0.0f;
+                dst[c] += phantom ? m : out[c] + omh * m;
+            }
+        }
     }
-    return 0;
 }
 int f3d_resolve(const ResolveArgs* r, const float* acc, unsigned char* out, void*) {
     for (int y = 0; y < r->height; ++y)
@@ -1057,7 +1189,7 @@ void f3d_test_mesh_any(const MeshArgs* m, const float* o, const float* d, int n,
 }
 // test entry: synthesize_polar's contraction for one column and row
 float f3d_test_crossing(const float* M, const float* v, int K, int C, float Q, float* out) {
-    return crossing(M, v, C, C, K, Q, out);
+    return crossing(M, StridedRows{v, C}, C, K, Q, out);
 }
 }
 """
@@ -1218,6 +1350,75 @@ def test_frame_and_spatial_reuse_bands(kernels, kw):
         tr._frame_step_kernel(ctx, acc[:4], wf[:4], rst.Reservoirs.zeros(4 * W, kernels), 2, H - 2)
 
 
+def random_reservoirs(n, device, seed):
+    """Reservoirs over n pixels with every kind of candidate K7 weighs:
+    directional and other lights, target pdfs of 0, below 1e-6 and
+    negative, zero directions, large m."""
+    rng = np.random.default_rng(seed)
+    d = rng.standard_normal((3, n)).astype(np.float32)
+    d[:, rng.random(n) < 0.05] = 0.0
+    tp = rng.uniform(-0.1, 2.0, n).astype(np.float32)
+    tp[rng.random(n) < 0.1] = 0.0
+    tp[rng.random(n) < 0.05] = np.float32(3e-7)
+    f = {"dir_x": d[0], "dir_y": d[1], "dir_z": d[2],
+         "intensity": rng.uniform(0, 5, n).astype(np.float32),
+         "light_type": (rng.random(n) < 0.85).astype(np.int32),
+         "light_index": rng.integers(0, 7, n).astype(np.int32),
+         "w_sum": rng.exponential(1.0, n).astype(np.float32),
+         "m": rng.integers(0, 600, n).astype(np.int32),
+         "weight": rng.exponential(1.0, n).astype(np.float32), "target_pdf": tp}
+    return rst.Reservoirs(**{k: torch.as_tensor(v, device=device) for k, v in f.items()})
+
+
+def random_normals(n, device, seed):
+    g = np.random.default_rng(seed).standard_normal((3, n)).astype(np.float32)
+    g /= np.linalg.norm(g, axis=0, keepdims=True)
+    return tuple(torch.as_tensor(c, device=device) for c in g)
+
+
+# K7's window cases: (width, height, radius, k_neighbors, row0, rows); rows
+# None is the whole frame
+K7_CASES = {
+    "smaller_than_a_tile": (5, 3, 3, 8, 0, None),
+    "ragged": (33, 17, 3, 8, 0, None),
+    "radius_0": (33, 17, 0, 8, 0, None),
+    "radius_1": (33, 17, 1, 8, 0, None),
+    "widest_shared": (33, 17, rst.SHARED_RADIUS, 8, 0, None),
+    "past_the_shared": (33, 17, rst.SHARED_RADIUS + 1, 8, 0, None),
+    "k_0": (33, 17, 3, 0, 0, None),
+    "band_at_the_top": (33, 17, 3, 8, 0, 5),
+    "band_at_the_bottom": (33, 17, 3, 8, 12, 5),
+    "band_thinner_than_radius": (33, 17, 3, 8, 7, 2),
+    "band_past_the_shared": (33, 17, rst.SHARED_RADIUS + 1, 8, 6, 9),
+    "clamped_at_all_edges": (7, 6, 5, 8, 0, None),
+}
+
+
+@pytest.mark.parametrize("case", list(K7_CASES))
+def test_spatial_reuse_window(kernels, case):
+    """K7 (a 16x16 tile a block; the tile's window staged, or each tap from
+    device memory past SHARED_RADIUS) bit for bit to spatial_reuse_plain on
+    all ten fields, through the instantiation kernel_instance names."""
+    W, H, radius, k, row0, rows = K7_CASES[case]
+    res = random_reservoirs(W * H, kernels, seed=len(case))
+    gb = random_normals(W * H, kernels, seed=7)
+    band = rows is not None
+    counter = rst.spatial_reuse_band if band else rst.spatial_reuse
+    before = dict(counter.instances)
+    got = rst._spatial_reuse_kernel(res, *gb, W, H, 3, 0x9E3779B9, k, radius, row0,
+                                    rows if band else None,
+                                    counter=counter if band else None)
+    ref = rst.spatial_reuse_plain(res, *gb, W, H, 3, 0x9E3779B9, k, radius, row0,
+                                  rows if band else None)
+    for name, a, b in zip(rst.Reservoirs.__dataclass_fields__, ref.fields(), got.fields()):
+        assert torch.equal(a, b), name
+    inst = rst.kernel_instance(radius)
+    assert inst == ("shared window" if radius <= rst.SHARED_RADIUS else "global window")
+    assert counter.instances[inst] == before.get(inst, 0) + 1
+    if case != "k_0" and radius > 0:   # some taps chose a neighbour
+        assert int((got.m != res.m[row0 * W:row0 * W + got.m.numel()]).sum()) > 0
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kw", [
     dict(spp=2, max_frames=4, min_frames=2),
@@ -1254,11 +1455,11 @@ def test_render_on_card_matches_plain_render(kw):
 # ---------------------------------------------------------------------------
 
 
-def sweep_case(device, env=None, sun_elevation_deg=45.0):
+def sweep_case(device, env=None, sun_elevation_deg=45.0, cam_origin=(32.0, 22.0, 90.0)):
     n = 65
     y, x = np.mgrid[0:n, 0:n].astype(np.float32)
     dem = (6.0 * np.sin(x * 0.15) * np.cos(y * 0.12)).astype(np.float32)
-    desc = tr.TerrainRefDesc(heights=dem, cam_origin=(32.0, 22.0, 90.0),
+    desc = tr.TerrainRefDesc(heights=dem, cam_origin=cam_origin,
                              cam_look_at=(32.0, 0.0, 32.0), fov_y_deg=42.0, width=128,
                              height=96, env_map=env, env_intensity=0.8,
                              sun_elevation_deg=sun_elevation_deg)
@@ -1418,6 +1619,82 @@ def test_polar_frame_kernel(kernels, env):
         mp.setattr(_kernels, "SMEM_LIMIT", 0)
         got_g = ts._polar_kernel(plan, scene, acc0.clone(), rot[0], maps, jit.xi, jit.ja, jit.je)
     assert torch.equal(got, got_g)
+
+
+def polar_reference(host_lib, args, rot, maps, scene, acc):
+    """acc plus one frame of K3 as its row-by-row design ran it (the host
+    build's f3d_test_polar_serial), on the CPU."""
+    lib = host_lib
+    lib.f3d_test_polar_serial.argtypes = [ctypes.POINTER(_kernels.PolarArgs)] + [ctypes.c_void_p] * 5
+    lib.f3d_test_polar_serial.restype = None
+    out = acc.cpu().clone()
+    ins = [t.cpu().contiguous() for t in (rot[0], maps.e_sky, maps.z_sun, scene.corners)]
+    lib.f3d_test_polar_serial(args, *(t.data_ptr() for t in ins), out.data_ptr())
+    return out
+
+
+def polar_columns(host_lib, args, rot, maps, scene):
+    """(first valid profile row, edge replaces a slot) of each column."""
+    lib = host_lib
+    lib.f3d_test_polar_columns.argtypes = ([ctypes.POINTER(_kernels.PolarArgs)]
+                                           + [ctypes.c_void_p] * 6)
+    lib.f3d_test_polar_columns.restype = None
+    k_first = np.zeros(args.A, np.int32)
+    can = np.zeros(args.A, np.int32)
+    ins = [t.cpu().contiguous() for t in (rot[0], maps.e_sky, maps.z_sun, scene.corners)]
+    lib.f3d_test_polar_columns(args, *(t.data_ptr() for t in ins), k_first.ctypes.data,
+                               can.ctypes.data)
+    return k_first, can.astype(bool)
+
+
+@pytest.mark.parametrize("case", ["edges", "off_grid_columns", "camera_over_the_grid",
+                                  "device_scratch"])
+@pytest.mark.parametrize("azimuths,frames", [(253, 1), (254, 1), (253, 2)],
+                         ids=["odd_A", "even_A", "odd_A_two_frames"])
+def test_polar_frame_columns(kernels, host_lib, monkeypatch, azimuths, frames, case):
+    """K3 (POLAR_COLUMNS columns a CTA, as the build reports) over 253
+    azimuth columns (the last CTA's second column idle), over 254, and over
+    253 for two frames added into one accumulator, bit for bit to its
+    row-by-row design, on columns whose edge sample replaces a slot, on
+    columns with no valid sample (the camera shifted off the grid's side),
+    on columns whose profile starts on the grid (the camera over it: no
+    edge, the entry flags from the valid rows) and with the profiles in the
+    device scratch. The env is constant, so both sides run only IEEE
+    operations."""
+    attrs = (ctypes.c_int * 5)()
+    _kernels.check(_kernels.lib().f3d_polar_attrs(1029, 0, attrs), "f3d_polar_attrs")
+    assert attrs[4] == ts.POLAR_COLUMNS == 2
+    origin = (32.0, 22.0, 50.0) if case == "camera_over_the_grid" else (32.0, 22.0, 90.0)
+    plan, scene, rot, _ = sweep_case(kernels, cam_origin=origin)
+    plan = dataclasses.replace(plan, ps=dataclasses.replace(plan.ps, a_count=azimuths))
+    if case == "off_grid_columns":
+        real = ts.polar_args
+
+        def shifted(*a):
+            args = real(*a)
+            args.cam_iu += 40.0
+            return args
+        monkeypatch.setattr(ts, "polar_args", shifted)
+    if case == "device_scratch":
+        monkeypatch.setattr(_kernels, "SMEM_LIMIT", 0)
+        assert ts.polar_uses_scratch(plan.ps.k_count)
+    acc0 = torch.rand((plan.ps.e_count, azimuths, 9), generator=torch.Generator().manual_seed(3))
+    ref, got = acc0, acc0.to(kernels)
+    for jit in ts.frame_jitters(5, 2)[2 - frames:]:
+        maps = sw.sweep_lighting_plain(*rot, ts.frame_bins(plan, scene, jit))
+        args = ts.polar_args(plan, scene, jit.xi, jit.ja, jit.je)
+        k_first, can = polar_columns(host_lib, args, rot, maps, scene)
+        if case == "off_grid_columns":
+            assert (k_first == plan.ps.k_count).any() and (k_first < plan.ps.k_count).any()
+        elif case == "camera_over_the_grid":
+            assert (~can & (k_first < plan.ps.k_count)).sum() > 100
+        else:
+            assert can.any() and (k_first < plan.ps.k_count).all()
+        ref = polar_reference(host_lib, args, rot, maps, scene, ref)
+        before = ts.polar_frame.launches
+        got = ts._polar_kernel(plan, scene, got, rot[0], maps, jit.xi, jit.ja, jit.je)
+        assert ts.polar_frame.launches == before + 1
+    assert torch.equal(got.cpu(), ref)
 
 
 def decode(packed, W, H):
