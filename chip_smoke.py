@@ -20,7 +20,11 @@ convolution and in one launch by lane groups (`--probe K9` and `--probe S2`
 one half each), with a sha256 of each output; `--probe K7K3` K7 (whole
 frame and phase 33's band) and K3 with their splits (see k7_split,
 k3_split), then a sha256 of K7's reservoirs, K3's 8-frame accumulator, the
-sweep render and the per-ray render. Copied
+sweep render and the per-ray render; `--probe E2S8` K's four blurs and S8
+in A-D at 1080p, each timed as launched and queued, with E2 blur's
+device-window instantiation and S8's splits (s8_reading) where the tree
+has them, then a sha256 of each blur, of S8's planes in A-D, of S9's rgba in
+E and of K's render. Copied
 into a checkout of an earlier tree and run there, it times that tree's
 kernels, so two designs can be compared on one card.
 
@@ -124,7 +128,11 @@ Phases (one line each; any failure exits non-zero):
                 configuration A (the bench op screen_terrain_rgba) and B (IBL,
                 water with a reflection, layers with subsurface, mix, hue) at
                 256x128 and 1080p, each against its plain version on the card
-                and timed;
+                and timed; S8 as launched and queued, split by two
+                measurement builds (s8_reading: the taps' scatter, PCSS whole),
+                its registers, local bytes, resident blocks and static
+                SASS count; S5 through the texture
+                against S5 through the pointer on A's 4096^2 map (pcss_check);
  17. screen render -- the main path: render_with_aov in A and B at 1080p,
                 cold (caches emptied; S1, S2/S3 (one launch), S4 and S8 must
                 launch) and warm (S8 alone), bit-identical, B launching S8 twice (its
@@ -137,7 +145,8 @@ Phases (one line each; any failure exits non-zero):
                 with the Preetham sky at 256x128, and S9, the clipmap shade,
                 on configuration E's G-buffer (MapScene's clipmap mode on D's
                 recipe) at 256x128 and 1080p, each against its plain version
-                on the card and timed;
+                on the card and timed; S8 in C and D split as in phase 16, C
+                also with POM off and with the sky off;
  19. screen render 2 -- the main paths of C (render_with_aov), D
                 (mapscene_screen.render_screen_base) and E
                 (render_clipmap_scene) at 1080p, cold (caches emptied) and
@@ -208,8 +217,9 @@ Phases (one line each; any failure exits non-zero):
  25. post kernels -- each E2 kernel (the separable blur, the pointwise
                 stages, SSR, TAA, SSAO, the rect lights) against its plain
                 version on the card at configuration K's 1080p shapes, on K's
-                own buffers, bit for bit, and timed (the blur beside one
-                grouped conv2d of its 2-D kernel); TAA and SSAO through their
+                own buffers, bit for bit, and timed (each of K's four blurs
+                as launched and queued, with its build, beside one grouped
+                conv2d of its 2-D kernel; the row sums the four); TAA and SSAO through their
                 entry points; E1 through bake_ibl("high") on configuration M's
                 512x256 equirect (7 launches), each launch against its plain
                 version, bit for bit, and timed;
@@ -217,7 +227,9 @@ Phases (one line each; any failure exits non-zero):
                 K0 (every effect off: the JAX bench op scene_rgba's path) and
                 K (SSAO, two rect lights, ground plane, water, SSR, bloom, DoF,
                 vignette), cold and warm, bit-identical, split by stage; K
-                launches K5 five times a render and each of its E2 kernels;
+                launches K5 five times a render and each of its E2 kernels
+                (E2 blur 16 times, four at each of r 5, 14, 18 and 45, all
+                through the staged window);
                 K at 240x136 on the card against the CPU's plain versions;
  27. vt render -- configuration L: TerrainRenderer A at 1080p with a
                 MaterialSet over a five-level VT store (1,364 BC7 pages, the
@@ -706,7 +718,13 @@ EARLIER = {"E4 vector_coverage": "a-launch-a-layer, every-primitive design 29.64
            # K7: queued behind a spin, as this run times it (as launched 0.2721, 0.1449)
            "K7 spatial_reuse": "row-of-256, every-tap-from-device-memory design 0.2676",
            "K7 band": "row-of-256, every-tap-from-device-memory design 0.0771",
-           "K3 polar_frame": "CTA-a-column, row-by-row accumulator design 0.8874"}
+           "K3 polar_frame": "CTA-a-column, row-by-row accumulator design 0.8874",
+           # the designs before the staged blur and S8's tiles, as launched
+           "E2 blur": "thread-an-element design, K's four blurs, 1.5979",
+           "S8 shade (A)": "row-of-128, taps-through-pointers design 0.3161",
+           "S8 shade (B)": "row-of-128, taps-through-pointers design 0.3884",
+           "S8 shade (C)": "row-of-128, taps-through-pointers design 0.6454",
+           "S8 shade (D)": "row-of-128, taps-through-pointers design 0.5104"}
 
 
 def kernel_row(name, launches, err, ms, plain_ms, bound_ms, bound_by):
@@ -1382,9 +1400,13 @@ def launcher_ms(fn, symbol: str, reps: int) -> float:
 # built again from this checkout's sources with these macros set. A: every
 # K7 tap reads the pixel itself, K3 stops after its scan; B: K3's rows run
 # without the accumulator's read-modify-write; C: K3's scan alone over a
-# filled profile. Their outputs are not the kernels' and are not checked.
+# filled profile; S8 self: every PCSS load at the receiver's own texel
+# (what the taps' scatter costs); S8 const: PCSS a constant that the
+# receiver keeps live (what PCSS costs). Their outputs are not the kernels'
+# and are not checked.
 SPLIT_BUILDS = {"A": ("F3D_K7_SELF_TAPS", "F3D_K3_SPLIT=1"), "B": ("F3D_K3_SPLIT=2",),
-                "C": ("F3D_K3_SPLIT=3",)}
+                "C": ("F3D_K3_SPLIT=3",), "S8 self": ("F3D_S8_PCSS_SELF",),
+                "S8 const": ("F3D_S8_PCSS_CONST",)}
 _VARIANT_LIBS = {}
 
 
@@ -2495,7 +2517,7 @@ SCREEN_N = 513          # forge3d_tpu/bench.py:_bench_dem(513), re-declared
 OPS_ENV_TEXEL = 60      # env_cube_texel: atan2, acos, the bilinear f16 taps
 OPS_CUBE_SAMPLE = 75    # convolve_sample, one sample: direction, normalise, face uv, bilinear
 OPS_RASTER_PIXEL = 30   # raster_triangle, one pixel of a triangle's box
-OPS_SHADE_PIXEL = 1500  # shade_front + shade_back for one pixel, PCSS's 28 taps included
+OPS_SHADE_PIXEL = 1500  # shade_front + shade_back for one pixel, PCSS's 12 + 16 taps included
 # S1-S3 gates: the f16 cubes bit-equal on >= SCREEN_F16_EQ of texels and
 # within one f16 step everywhere; S4 depth equal on >= SCREEN_DEPTH_EQ;
 # S8 rgba within one u8 step everywhere and bytes equal on >= SCREEN_U8_EQ,
@@ -2649,6 +2671,13 @@ def phase_screen_kernels(dem):
                 .double().sum())
     bms, by = bound(tensor_bytes(t_t, k_t) + scr.SHADOW_RES ** 2 * 4, pix * OPS_RASTER_PIXEL)
     res["S4 raster_depth"] = (max_abs(ref, got), ms, plain_ms, bms, by)
+    # what a cold render adds after S4: S8's texture object over the map
+    # itself (no copy)
+    scr.ShadowTexture(got).close()  # warm
+    tex_ms, tex = wall_ms(lambda: scr.ShadowTexture(got))
+    tex.close()
+    say("screen kernels", f"S8's shadow texture over the {scr.SHADOW_RES}^2 map (a texture "
+                          f"object, no copy): {tex_ms:.4f} ms synchronised")
     say("screen kernels", f"S4 raster_depth {tris.shape[0]} triangles ({int(live.sum())} live, "
                           f"box {wbb}x{hbb}, {int(pix)} box pixels) into {scr.SHADOW_RES}^2: "
                           f"{deq:.6f} of texels equal; kernel {ms:.4f} ms, plain "
@@ -2669,15 +2698,81 @@ def phase_screen_kernels(dem):
                                   f"planes "
                                   f"within tolerance {frac:.6f}, max |err| {err:.3e}, plain "
                                   f"{plain_ms:.1f} ms, water mask cover {water:.3f}")
-        ms = cuda_ms(lambda: scr._shade_kernel(cfg, u), 10)
+        t = s8_reading("screen kernels", config, cfg, u)
+        ms = t["as launched"]
         inputs = [u["hm"], u["lut"], u["shadow_depth"], u["ibl_irradiance"], u["ibl_brdf"],
                   *u["ibl_spec"], *(u[k] for k in ("water_mask", "refl_tex") if k in u)]
         n = w * h
         bms, by = bound(tensor_bytes(*inputs) + n * 32, n * OPS_SHADE_PIXEL)
         res[f"S8 shade ({config})"] = (err, ms, plain_ms, bms, by)
-        say("screen kernels", f"S8 shade ({config}) {w}x{h}: kernel {ms:.4f} ms, plain "
-                              f"{plain_ms:.1f} ms, bound {bms:.4f} ms ({by})")
+        say("screen kernels", f"S8 shade ({config}) {w}x{h}: kernel {ms:.4f} ms as launched, "
+                              f"{t['queued']:.4f} queued, plain {plain_ms:.1f} ms, bound "
+                              f"{bms:.4f} ms ({by})")
+        if config == "A":
+            pcss_check("screen kernels", u)
+    a = _attrs("f3d_screen_shade_attrs")
+    say("screen kernels", f"S8 shade kernel: {a[0]} registers, {a[1]} B local, {a[2]} resident "
+                          f"blocks of 256 an SM; static SASS instructions "
+                          f"{json.dumps(sass_count('shade_kernel'))}")
     return res
+
+
+def pcss_points(u, sp, nrm, texture):
+    """S5 alone (csrc/screen.cu:f3d_pcss_points) on receivers sp, nrm ((n, 3)
+    float32 on the card) over S8's map, light matrix and light in `u`:
+    through the texture (S8's path) or the pointer (S9's)."""
+    import torch
+
+    from forge3d_tpu_torch import _kernels
+    from forge3d_tpu_torch.terrain import screen as scr
+
+    depth = u["shadow_depth"]
+    a = _kernels.ScreenArgs()
+    a.shadow, a.shadow_res = depth.data_ptr(), depth.shape[0]
+    a.shadow_tex = scr.shadow_texture(depth).handle
+    a.lvp = (_kernels._F * 12)(*np.asarray(u["shadow_lvp"], np.float32)[:3].reshape(-1).tolist())
+    a.pcss_ld = _kernels._F3(*u["pcss_ld"])
+    out = torch.empty(sp.shape[0], device=depth.device)
+    _kernels.check(_kernels.lib().f3d_pcss_points(a, _kernels.ptr(sp), _kernels.ptr(nrm),
+                                                  sp.shape[0], int(texture), _kernels.ptr(out),
+                                                  _kernels.stream_ptr(depth.device)),
+                   "S5 pcss_points")
+    torch.cuda.synchronize()
+    return out
+
+
+def pcss_check(phase, u, seed=19):
+    """S5 through the texture against S5 through the pointer, on the card,
+    over S8's map: receivers that put the taps at the map's four edges and
+    corners, on texel corners and centres, and a seeded spread over the
+    map, at depths that find blockers; every result bit for bit."""
+    import torch
+
+    r = int(u["shadow_depth"].shape[0])
+    L = np.asarray(u["shadow_lvp"], np.float64)
+    rng = np.random.default_rng(seed)
+    edge = np.concatenate([np.arange(0, 4) / r, np.arange(0, 4) / (4 * r), [1e-7, 0.5 / r]])
+    us = np.concatenate([edge, 1 - edge, np.arange(1, 64) / r, (np.arange(1, 64) + 0.5) / r,
+                         rng.uniform(0, 1, 256)])
+    uu, vv = np.meshgrid(us, us)
+    depth = u["shadow_depth"].cpu().numpy()
+    zz = depth[np.clip((vv * r).astype(int), 0, r - 1), np.clip((uu * r).astype(int), 0, r - 1)]
+    zz = zz + rng.uniform(-0.02, 0.05, zz.shape)
+    # the light-space point whose (su, sv, depth01) is (u, v, z)
+    ndc = np.stack([uu.ravel() * 2 - 1, 1 - vv.ravel() * 2, zz.ravel()], 1)
+    sp = np.linalg.solve(L[:3, :3], (ndc - L[:3, 3]).T).T.astype(np.float32)
+    nrm = rng.normal(size=sp.shape).astype(np.float32)
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    sp_t, n_t = (torch.as_tensor(v, device="cuda") for v in (sp, nrm))
+    via_tex = pcss_points(u, sp_t, n_t, True)
+    via_ptr = pcss_points(u, sp_t, n_t, False)
+    shadowed = float((via_ptr < 1.0).double().mean())
+    require(torch.equal(via_tex, via_ptr),
+            f"S5 through the texture differs from S5 through the pointer on "
+            f"{int((via_tex != via_ptr).sum())} of {sp.shape[0]} receivers")
+    say(phase, f"S5 on {sp.shape[0]} receivers over the {r}^2 map (its edges, texel corners "
+               f"and centres, a spread): through the texture bit-identical to the pointer's "
+               f"reads; {shadowed:.4f} of them partly shadowed")
 
 
 def _by_call(t) -> str:
@@ -2894,15 +2989,17 @@ def phase_screen_kernels2(dem, bdem):
                                 f"({marched / n:.2f} a pixel)")
         if (w, h) != (REAL_W, REAL_H) or config == "C preetham":
             continue
-        ms = cuda_ms(lambda: scr._shade_kernel(cfg, u), 10)
+        t = s8_reading("screen kernels 2", config, cfg, u)
+        ms = t["as launched"]
         inputs = [u["hm"], u["lut"], u["shadow_depth"], u["ibl_irradiance"], u["ibl_brdf"],
                   *u["ibl_spec"], *(u[k] for k in ("water_mask", "refl_tex") if k in u)]
         ops = n * OPS_SHADE_PIXEL + _pom_ops(marched, n, pom["refine_steps"]) \
             + (n * OPS_SKY_PIXEL if cfg.sky else 0)
         bms, by = bound(tensor_bytes(*inputs) + n * 32, ops)
         res[f"S8 shade ({config})"] = (err, ms, plain_ms, bms, by)
-        say("screen kernels 2", f"S8 shade ({config}) {w}x{h}: kernel {ms:.4f} ms, plain "
-                                f"{plain_ms:.1f} ms, bound {bms:.4f} ms ({by})")
+        say("screen kernels 2", f"S8 shade ({config}) {w}x{h}: kernel {ms:.4f} ms as launched, "
+                                f"{t['queued']:.4f} queued, plain {plain_ms:.1f} ms, bound "
+                                f"{bms:.4f} ms ({by})")
 
     # S9 on E's G-buffers, each rasterized once
     hm, lut, kw = clipmap_args(bdem)
@@ -4520,7 +4617,7 @@ def phase_adjudication():
 # float32 operations per unit of work, counted from csrc/post.cuh and
 # csrc/ibl.cuh (adds, multiplies, divisions, square roots, comparisons,
 # min/max; a transcendental call as one)
-OPS_BLUR_TAP = 2        # blur_axis_elem: one multiply-add (the clamp is integer work)
+OPS_BLUR_TAP = 2        # post.cuh:blur_tap: one multiply and one add an output
 OPS_POINT = 78          # post_point_pixel: brightpass 13 + bloom 12 + DoF 35 + vignette 18
 OPS_SSR_PIXEL = 15      # ssr_pixel around its march
 OPS_SSR_STEP = 4        # one march step: the wrap, the compare
@@ -4689,11 +4786,16 @@ def phase_post_kernels(dem):
     say("post kernels", f"E2 point, K's four stages: kernel {ms_sum:.4f} ms, plain "
                         f"{plain_sum:.2f} ms, bound {bms:.4f} ms ({by})")
 
-    blur_row = None
+    # the row: K's four blurs, each a pair of launches (its kernel ms, bound,
+    # plain ms and conv2d summed), every one through the staged window
+    blur_sum = dict(err=0.0, ms=0.0, queued=0.0, plain=0.0, ops=0.0, lib=0.0)
     for name, (k, p, taps, r, x, got) in blurs.items():
+        require(P.blur_instance(r) == "shared window",
+                f"K's blur {name} (r {r}) does not take the staged window")
         plain_ms, ref = wall_ms(p)
         eq, err = compare_post(f"E2 blur ({name}) 1080p", ref, got)
         ms = cuda_ms(k, 10)
+        q_ms = queued_ms(k, 10)
         # the library yardstick: one grouped conv2d of the 2-D kernel k k^T on
         # the replicate-padded image (the padding made before timing), full
         # float32 (no TF32)
@@ -4706,14 +4808,23 @@ def phase_post_kernels(dem):
         lib_ms = cuda_ms(lambda: F.conv2d(xpad, weight, groups=3), 5)
         torch.backends.cudnn.allow_tf32 = tf32
         lib_err = max_abs(ref, lib_out)
-        bms, by = bound(2 * n * 12, 2 * (2 * r + 1) * OPS_BLUR_TAP * n * 3)
+        ops = 2 * (2 * r + 1) * OPS_BLUR_TAP * n * 3
+        bms, by = bound(2 * n * 12, ops)
         say("post kernels", f"E2 blur ({name}, r {r}) {REAL_W}x{REAL_H}x3: bit-equal {eq:.6f}; "
-                            f"kernel {ms:.4f} ms (2 launches), plain {plain_ms:.1f} ms, conv2d "
+                            f"kernel {ms:.4f} ms as launched, {q_ms:.4f} queued (2 launches; "
+                            f"{blur_build(r)}), plain {plain_ms:.1f} ms, conv2d "
                             f"{lib_ms:.4f} ms (max |d| {lib_err:.3e} from the blur), bound "
                             f"{bms:.4f} ms ({by})")
-        if name == "bloom 15":   # the row: K's largest blur
-            res["E2 blur"] = (err, ms, plain_ms, bms, by)
-            blur_row = lib_ms
+        for key, v in (("err", err), ("ms", ms), ("queued", q_ms), ("plain", plain_ms),
+                       ("ops", ops), ("lib", lib_ms)):
+            blur_sum[key] = max(blur_sum[key], v) if key == "err" else blur_sum[key] + v
+    bms, by = bound(len(blurs) * 2 * n * 12, blur_sum["ops"])
+    res["E2 blur"] = (blur_sum["err"], blur_sum["ms"], blur_sum["plain"], bms, by)
+    blur_row = blur_sum["lib"]
+    say("post kernels", f"E2 blur, K's four blurs: kernel {blur_sum['ms']:.4f} ms as launched, "
+                        f"{blur_sum['queued']:.4f} queued (8 launches), plain "
+                        f"{blur_sum['plain']:.1f} ms, conv2d {blur_sum['lib']:.4f} ms, bound "
+                        f"{bms:.4f} ms ({by})")
 
     # TAA and SSAO through their entry points, at K's shapes
     hist = torch.roll(ldr, (1, 1), (0, 1)).contiguous()
@@ -4808,17 +4919,33 @@ def phase_scene(dem):
     card against Scene on the CPU at 240x136. Returns K's launches."""
     import torch
 
+    from collections import Counter
+
+    from forge3d_tpu_torch.ops import post as P
+
     counters = _scene_counters()
     launches = {}
     for name, effects in (("K0", False), ("K", True)):
         sc = k_scene(dem, effects)
         for c in counters.values():
             c.launches = 0
+        P.blur_axis.instances.clear()
+        by_radius = Counter()
+        real_blur = P._blur_axis_kernel
+
+        def blur_by_radius(x, taps, radius, axis):   # E2 blur's launches by radius
+            by_radius[int(radius)] += 1
+            return real_blur(x, taps, radius, axis)
+
+        P._blur_axis_kernel = blur_by_radius
         torch.cuda.reset_peak_memory_stats()
-        cold_ms, a = wall_ms(sc.render_rgba)
-        cold = dict(sc.last_timings)
-        warm_ms, b = wall_ms(sc.render_rgba)
-        warm = dict(sc.last_timings)
+        try:
+            cold_ms, a = wall_ms(sc.render_rgba)
+            cold = dict(sc.last_timings)
+            warm_ms, b = wall_ms(sc.render_rgba)
+            warm = dict(sc.last_timings)
+        finally:
+            P._blur_axis_kernel = real_blur
         peak = torch.cuda.max_memory_allocated()
         counts = {k: c.launches for k, c in counters.items()}
         same = np.array_equal(a, b)
@@ -4835,6 +4962,14 @@ def phase_scene(dem):
             require(counts["K5 trace"] == 10 and counts["E2 blur"] == 16
                     and counts["E2 point"] == 8 and counts["E2 ssr"] == 2
                     and counts["E2 rect"] == 2, f"K did not run its kernels: {counts}")
+            # bloom's r 18 and 45, DoF's r 5 and 14: two launches each a render
+            require(dict(P.blur_axis.instances) == {"shared window": 16}
+                    and dict(by_radius) == {18: 4, 45: 4, 5: 4, 14: 4},
+                    f"K's blurs launched {dict(P.blur_axis.instances)} by instantiation, "
+                    f"{dict(by_radius)} by radius")
+            say("scene", f"K's E2 blur launches by radius (two renders): "
+                         f"{json.dumps(dict(sorted(by_radius.items())))}, by instantiation "
+                         f"{json.dumps(dict(P.blur_axis.instances))}")
             launches = counts
         else:
             require(counts["K5 trace"] == 2 and sum(counts.values()) == 2,
@@ -6500,6 +6635,202 @@ PROBE_GROUPS = ((1, 1, 1, 1, 1, 1), (4, 4, 4, 8, 16, 32), (1, 2, 2, 4, 8, 16),
                 (1, 2, 2, 8, 16, 32), (2, 1, 2, 4, 8, 16), (1, 2, 4, 4, 8, 16))
 
 
+def k_blur_inputs(dem):
+    """{name: (input, sigma)} of K's four blurs at 1080p, on K's own
+    buffers as the post chain forms them (SSR, the brightpass, the bloom
+    composite), through the kernels."""
+    from forge3d_tpu_torch.ops import post as P
+
+    f = lambda v: float(np.float32(v))  # noqa: E731
+    buf = k_scene(dem, True)._buffers()
+    c0 = P._ssr_kernel(buf["ldr"], buf["depth"], buf["normal"], 2, 24, 0.5,
+                       float(np.float32(REAL_H * 0.1)))
+    bright = P._point_kernel(P.PP_BRIGHT, c0, None, None, None, (f(0.8), f(0.8)))
+
+    def blur(x, sigma):
+        r = max(1, int(np.ceil(3 * sigma)))
+        td = P._gauss_kernel(sigma, r).to(x.device)
+        return P._blur_axis_kernel(P._blur_axis_kernel(x, td, r, 0), td, r, 1)
+
+    c1 = P._point_kernel(P.PP_BLOOM, c0, blur(bright, 6.0), blur(bright, 15.0), None, (f(0.5),))
+    return {"bloom 6": (bright, 6.0), "bloom 15": (bright, 15.0), "dof 1.5": (c1, 1.5),
+            "dof 4.5": (c1, 4.5)}
+
+
+def sass_count(symbol: str):
+    """The static SASS instruction count of the library's kernels whose
+    names contain `symbol` (cuobjdump -sass, scripts/sass_dump.py's
+    parser), or None where the toolkit has no cuobjdump."""
+    import importlib.util
+    import pathlib
+
+    from forge3d_tpu_torch import _kernels
+
+    path = pathlib.Path(__file__).resolve().parent / "scripts" / "sass_dump.py"
+    spec = importlib.util.spec_from_file_location("sass_dump", path)
+    sd = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(sd)
+    try:
+        text = subprocess.run([sd.cuobjdump(), "-sass", str(_kernels.library_path())],
+                              capture_output=True, text=True, check=True).stdout
+    except (RuntimeError, subprocess.CalledProcessError):
+        return None
+    return {n: sum(sd.mix(t).values()) for n, t in sd.functions(text).items() if symbol in n}
+
+
+def blur_device_window(x, taps, r, axis):
+    """E2 blur along `axis` of x through its device-window instantiation
+    (the launcher called with shared = 0, whatever the radius): the other
+    contract's kernel, timed on K's blurs. Not counted."""
+    import torch
+
+    from forge3d_tpu_torch import _kernels
+
+    outer = int(np.prod(x.shape[:axis], dtype=np.int64))
+    inner = int(np.prod(x.shape[axis + 1:], dtype=np.int64))
+    out = torch.empty_like(x)
+    _kernels.check(_kernels.lib().f3d_blur_axis(_kernels.ptr(x), _kernels.ptr(out),
+                                                _kernels.ptr(taps), int(r), outer,
+                                                int(x.shape[axis]), inner, 0,
+                                                _kernels.stream_ptr(x.device)),
+                   "E2 blur_axis (device window)")
+    return out
+
+
+def blur_build(r) -> str:
+    """E2 blur's staged instantiation at radius r: its build."""
+    a = _attrs("f3d_blur_attrs", 1, r, n=5)
+    return (f"{a[0]} registers, {a[1]} B local, {a[2]} blocks of 256 an SM, {a[3]} B shared, "
+            f"{a[4]} outputs a thread")
+
+
+def s8_tweaked(fn, tweak):
+    """fn() with S8's argument block changed by tweak(args) before each
+    launch (a measurement: POM or the sky off)."""
+    from forge3d_tpu_torch.terrain import screen as scr
+
+    real = scr.screen_args
+
+    def patched(cfg, u):
+        a, keep = real(cfg, u)
+        tweak(a)
+        return a, keep
+
+    scr.screen_args = patched
+    try:
+        return fn()
+    finally:
+        scr.screen_args = real
+
+
+def s8_cases(sdem, bdem, dev, width=REAL_W, height=REAL_H):
+    """{config: (cfg, u)} of S8 in A-D at width x height."""
+    from forge3d_tpu_torch.terrain import renderer as rr
+    from forge3d_tpu_torch.terrain import screen as scr
+
+    cases = {}
+    for config in ("A", "B", "C"):
+        p, env, wm = screen_config(config, width, height, sdem)
+        lut, kw, _ = rr.TerrainRenderer.screen_inputs(p, sdem, env, wm)
+        cases[config] = scr.prepare_shade(sdem, lut, device=dev, **kw)
+    cases["D"] = recipe_shade_inputs(bdem, width, height, dev)
+    return cases
+
+
+def s8_own_texture(cfg, u):
+    """S8 queued behind a spin, with a shadow texture that the current
+    library (a measurement build's) makes itself."""
+    from forge3d_tpu_torch.terrain import screen as scr
+
+    tex = scr.ShadowTexture(u["shadow_depth"])
+    try:
+        u2 = dict(u, shadow_tex=tex)
+        return queued_ms(lambda: scr._shade_kernel(cfg, u2), 10)
+    finally:
+        tex.close()
+
+
+# the reading's measurement builds of S8 (SPLIT_BUILDS): the taps' scatter,
+# PCSS whole
+S8_SPLITS = ("S8 self", "S8 const")
+
+
+def s8_reading(phase, config, cfg, u, split=True):
+    """S8 in one configuration at the main path's shapes: its time as
+    launched and queued behind a spin, and with `split` the measurement
+    builds S8_SPLITS and, in C, POM off and the sky off. Returns
+    {part: ms queued}."""
+    from forge3d_tpu_torch.terrain import screen as scr
+
+    fn = lambda: scr._shade_kernel(cfg, u)  # noqa: E731
+    out = {"as launched": cuda_ms(fn, 10), "queued": queued_ms(fn, 10)}
+    if split:
+        for name in S8_SPLITS:
+            out[name] = with_lib(variant_lib(name), lambda: s8_own_texture(cfg, u))
+        if config == "C":
+            def no_pom(a):
+                a.pom_on = 0
+
+            def no_sky(a):
+                a.sky.model = 0
+
+            out["POM off"] = s8_tweaked(lambda: queued_ms(fn, 10), no_pom)
+            out["sky off"] = s8_tweaked(lambda: queued_ms(fn, 10), no_sky)
+    say(phase, f"S8 ({config}) {cfg.width}x{cfg.height} (ms): "
+               + json.dumps({k: round(v, 4) for k, v in out.items()}))
+    return out
+
+
+def probe_e2s8(torch):
+    """E2 blur (K's four blurs at 1080p) and S8 (A-D at 1080p) timed as
+    launched and queued behind a spin, with the blur's device-window
+    instantiation and S8's measurement splits where the tree has them, then a sha256 of each blur's output, of
+    S8's planes in A-D, of S9's rgba in E and of K's whole render. Calls
+    only entry points the port has had since E2, S8 and S9 were first
+    ported (the attributes where the tree has them)."""
+    from forge3d_tpu_torch.ops import post as P
+    from forge3d_tpu_torch.terrain import screen as scr
+
+    dev = torch.device("cuda")
+    bdem = bench_dem()
+    new = hasattr(P, "blur_instance")   # the staged blur's tree: its splits
+    for name, (x, sigma) in k_blur_inputs(bdem).items():
+        r = max(1, int(np.ceil(3 * sigma)))
+        td = P._gauss_kernel(sigma, r).to(dev)
+        fn = lambda: P._blur_axis_kernel(P._blur_axis_kernel(x, td, r, 0), td, r, 1)  # noqa
+        out = fn()
+        t = {"as launched": cuda_ms(fn, 10), "queued": queued_ms(fn, 10)}
+        if new:
+            t["device window"] = queued_ms(
+                lambda: blur_device_window(blur_device_window(x, td, r, 0), td, r, 1), 10)
+            t["axis 0 alone"] = queued_ms(lambda: P._blur_axis_kernel(x, td, r, 0), 10)
+            t["axis 1 alone"] = queued_ms(lambda: P._blur_axis_kernel(x, td, r, 1), 10)
+            t["build"] = blur_build(r)
+        shown = {k: v if isinstance(v, str) else round(v, 4) for k, v in t.items()}
+        say("probe", f"E2 blur ({name}, r {r}) {REAL_W}x{REAL_H}x3, 2 launches (ms): "
+                     f"{json.dumps(shown)}; sha256 {_sha(out)}")
+
+    cases = s8_cases(screen_dem(), bdem, dev)
+    for config, (cfg, u) in cases.items():
+        s8_reading("probe", config, cfg, u, split=new)
+        say("probe", f"S8 ({config}) {REAL_W}x{REAL_H}: sha256 {_sha(scr._shade_kernel(cfg, u))}")
+    a = _attrs("f3d_screen_shade_attrs")
+    if a is not None:
+        say("probe", f"S8 shade kernel: {a[0]} registers, {a[1]} B local, {a[2]} resident "
+                     f"blocks of 256 an SM")
+    say("probe", f"S8 static SASS instructions: {json.dumps(sass_count('shade_kernel'))}")
+
+    hm, lut, kw = clipmap_args(bdem)
+    cfg, u = scr.prepare_clipmap(hm, lut, size_px=(REAL_W, REAL_H), device=dev,
+                                 gbuffer=clipmap_gbuffer(hm, kw, REAL_W, REAL_H), **kw)
+    fn = lambda: scr._clipmap_kernel(cfg, u)  # noqa: E731
+    out = fn()
+    say("probe", f"S9 (E) {REAL_W}x{REAL_H}: {cuda_ms(fn, 10):.4f} ms ({queued_ms(fn, 10):.4f} "
+                 f"queued); sha256 {_sha(out)}")
+    rgba = k_scene(bdem, True).render_rgba()
+    say("probe", f"K's render {REAL_W}x{REAL_H}: sha256 {_sha(torch.as_tensor(rgba))}")
+
+
 def probe(torch, only=None):
     """`chip_smoke.py --probe`: E4 (probe_e4), R1 (probe_r1) and P3
     (probe_p3), then K2 and
@@ -6528,6 +6859,9 @@ def probe(torch, only=None):
         return
     if only == "K7K3":
         probe_k7k3(torch)
+        return
+    if only == "E2S8":
+        probe_e2s8(torch)
         return
     if only == "P6P4":
         dem = bench_dem()
@@ -6688,6 +7022,11 @@ def main() -> int:
 
     loaded = sorted(set(_jax_modules()) - preloaded)
     require(not loaded, f"imported JAX or modules of the JAX package: {loaded}")
+    from forge3d_tpu_torch.mem import global_tracker
+
+    m = global_tracker().metrics()
+    say("device", f"the resource ledger's peak over the run: {m['peak_tracked_bytes']} B of its "
+                  f"{m['budget_bytes']} B budget")
     print(json.dumps({"kernels": rows}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,

@@ -233,7 +233,8 @@ class ScreenArgs(ctypes.Structure):
     """Mirror of `ScreenArgs` in csrc/screen.cuh (S8, S9)."""
 
     _fields_ = [(n, _P) for n in ("hm", "lut", "wm", "mat_albedo", "mmn", "mmr", "mmk", "shadow",
-                                  "irr")] + [("spec", _P * 6), ("brdf", _P), ("refl", _P)] + [
+                                  "irr")] + [("spec", _P * 6), ("brdf", _P), ("refl", _P),
+                                             ("shadow_tex", ctypes.c_ulonglong)] + [
         (n, _I) for n in ("hm_h", "hm_w", "lut_n", "wm_h", "wm_w", "mat_albedo_stride", "mmn_h",
                           "mmn_w", "mmr_h", "mmr_w", "mmk_h", "mmk_w", "shadow_res",
                           "irr_size")] + [("spec_size", _I * 6)] + [
@@ -408,6 +409,11 @@ _SIGNATURES = {
     "f3d_raster_depth": [_P, _P, _I, _I, _I, _I, _P, _P],
     # (args, out, stream)
     "f3d_screen_shade": [ctypes.POINTER(ScreenArgs), ctypes.POINTER(ScreenOut), _P],
+    "f3d_screen_shade_attrs": [_P],
+    # (map, res, texture out); (texture)
+    "f3d_shadow_texture_create": [_P, _I, ctypes.POINTER(ctypes.c_ulonglong)],
+    "f3d_shadow_texture_destroy": [ctypes.c_ulonglong],
+    "f3d_pcss_points": [ctypes.POINTER(ScreenArgs), _P, _P, _I, _I, _P, _P],
     # (args, gbuffer, rgba, stream)
     "f3d_clipmap_shade": [ctypes.POINTER(ScreenArgs), ctypes.POINTER(ClipArgs), _P, _P],
     # (sizes out, capacity) -> the number of structs
@@ -445,7 +451,8 @@ _SIGNATURES = {
     # (out (registers, spilled bytes, resident blocks, threads a block))
     "f3d_adj_pt_attrs": [_P],
     # E2: (in, out, taps, radius, outer, n, inner, stream)
-    "f3d_blur_axis": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "f3d_blur_axis": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "f3d_blur_attrs": [_I, _I, _P],
     # (mode, height, width, channels, a, b, c, d, out, p0..p5, stream)
     "f3d_post_point": [_I, _I, _I, _I] + [_P] * 5 + [_F] * 6 + [_P],
     # (color, depth, normal, nc, out, height, width, stride, max_steps,

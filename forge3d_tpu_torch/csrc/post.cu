@@ -7,7 +7,7 @@
 // E3 atrous_kernel  replaces forge3d_tpu/ops/denoise.py:atrous_denoise (35),
 //                   one launch per iteration
 // E5 hosek_kernel   replaces forge3d_tpu/sky.py:hosek_radiance (261)
-// E2 blur_axis_kernel  replaces forge3d_tpu/ops/post.py:gaussian_blur (39),
+// E2 blur_kernel       replaces forge3d_tpu/ops/post.py:gaussian_blur (39),
 //                      two launches a blur (axis 0, then axis 1)
 // E2 post_point_kernel replaces bloom (60), depth_of_field (75),
 //                      vignette (189) and sharpen (199) around their blurs
@@ -32,17 +32,22 @@
 //
 // E2: the JAX functions build each stage from whole shifted copies of the
 // image (a padded slice per blur tap, a jnp.roll per SSR step and TAA
-// neighbour), summed as arrays; here one thread per output element or
-// pixel reads its taps and keeps the sums in registers, so every
-// intermediate copy stays out of device memory. The blur reads its 2r + 1
-// taps along one axis from L1/L2 (the rows of axis 0 are W * C floats
-// apart, so neighbouring threads read neighbouring addresses on both
-// passes); at 1080p with the bloom's r = 45 it does 91 multiply-adds an
-// element and is bound by that arithmetic and the cache, not by device
-// memory (each pass reads and writes 25 MB once). The point stages, SSR,
-// TAA and SSAO are a few dozen operations a pixel over a few loads: bound by
-// bytes. The rect lights are arithmetic bound: ~70 operations (a sqrtf, a
-// powf, two divisions) per light and pixel.
+// neighbour), summed as arrays; here the sums stay in registers, so every
+// intermediate copy stays out of device memory. The blur (blur_kernel) is
+// bound by its multiplies and adds: at 1080p with the bloom's r = 45 each
+// output takes 91 of each, separately issued (-fmad=false), ~1.1 G of each
+// a blur's two passes, against 25 MB read and written once a pass. A thread
+// an output with its clamp and 64-bit index in the tap loop spent ~10
+// instructions and two loads a multiply-add; here a CTA stages a tile of 32
+// columns by 128 positions with its halo in shared memory (the clamp
+// applied as it stages), and a thread runs F3D_BLUR_M outputs of a column
+// at once from a window in registers: a tap is two shared loads (the tap,
+// the window's next value) and M multiplies and adds (post.cuh:blur_run).
+// Both passes take the same tile: axis 0's columns are neighbouring
+// elements of a row, axis 1's the channels of neighbouring rows. The point
+// stages, SSR, TAA and SSAO are a few dozen operations a pixel over a few
+// loads: bound by bytes. The rect lights are arithmetic bound: ~70
+// operations (a sqrtf, a powf, two divisions) per light and pixel.
 
 #include <cuda_runtime.h>
 
@@ -67,12 +72,33 @@ __global__ void hosek_kernel(HosekArgs s, const float* __restrict__ dx,
     hosek_texel(s, dx[i], dy[i], dz[i], rgb + 3 * i);
 }
 
-__global__ void blur_axis_kernel(const float* __restrict__ in, float* __restrict__ out,
-                                 const float* __restrict__ taps, int radius, int n, int inner,
-                                 long long count) {
-    long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (e >= count) return;
-    out[e] = blur_axis_elem(in, taps, radius, n, inner, e);
+// a CTA a tile (post.cuh:blur_tile); kShared stages the tile, its halo and
+// the taps in shared memory first
+template <bool kShared>
+__global__ void __launch_bounds__(F3D_BLUR_THREADS)
+blur_kernel(BlurGeom g, const float* __restrict__ taps) {
+    extern __shared__ float sm[];
+    long long col0;
+    int pos0;
+    blur_tile(g, blockIdx.x, col0, pos0);
+    const int k = threadIdx.x % F3D_BLUR_COLS;
+    const long long base = blur_col_base(g, col0 + k);
+    const float* t = taps;
+    if (kShared) {
+        float* staged_taps = sm + blur_staged_rows(g.radius) * F3D_BLUR_COLS;
+        for (int i = threadIdx.x; i <= 2 * g.radius; i += F3D_BLUR_THREADS)
+            staged_taps[i] = taps[i];
+        blur_stage_column(g, base, pos0, k, threadIdx.x / F3D_BLUR_COLS,
+                          F3D_BLUR_THREADS / F3D_BLUR_COLS, sm);
+        __syncthreads();
+        t = staged_taps;
+    }
+#pragma unroll 1
+    for (int m = 0; m < kBlurRuns; ++m) {
+        float acc[F3D_BLUR_M];
+        if (blur_thread_acc<kShared>(g, base, sm, t, pos0, threadIdx.x, m, acc))
+            blur_store_run(g, base, col0, pos0, threadIdx.x, m, acc);
+    }
 }
 
 __global__ void post_point_kernel(int mode, int height, int width, int channels,
@@ -145,14 +171,44 @@ int f3d_hosek_radiance(const HosekArgs* s, const float* dx, const float* dy, con
     return (int)cudaGetLastError();
 }
 
+// E2 blur along the middle axis of (outer, n, inner), the window staged in
+// shared memory (`shared`; the caller picks the radii whose window fits,
+// ops/post.py:blur_instance) or read from device memory; returns
+// cudaErrorInvalidValue for a negative radius or a grid past 2^31 - 1
+// tiles, and the launch's error where the window does not fit
 int f3d_blur_axis(const float* in, float* out, const float* taps, int radius, int outer, int n,
-                  int inner, void* stream) {
-    long long count = (long long)outer * n * inner;
-    if (count > 0) {
-        blur_axis_kernel<<<blocks(count), kThreads, 0, (cudaStream_t)stream>>>(
-            in, out, taps, radius, n, inner, count);
-    }
+                  int inner, int shared, void* stream) {
+    const BlurGeom g{in, out, (long long)outer * inner, n, inner, radius};
+    if (g.cols <= 0 || n <= 0) return (int)cudaGetLastError();
+    const long long tiles = blur_tiles(g);
+    if (radius < 0 || tiles > 0x7fffffffLL)
+        return (int)cudaErrorInvalidValue;
+    if (shared)
+        blur_kernel<true><<<(unsigned)tiles, F3D_BLUR_THREADS, blur_shared_bytes(radius),
+                            (cudaStream_t)stream>>>(g, taps);
+    else
+        blur_kernel<false><<<(unsigned)tiles, F3D_BLUR_THREADS, 0, (cudaStream_t)stream>>>(
+            g, taps);
     return (int)cudaGetLastError();
+}
+
+// E2 blur's instantiation (shared as f3d_blur_axis) at `radius`: out =
+// {registers a thread, local (spilled) bytes a thread, resident blocks an
+// SM with the radius's window, shared bytes a block, outputs a thread run}
+int f3d_blur_attrs(int shared, int radius, int* out) {
+    const void* fn = shared ? (const void*)blur_kernel<true> : (const void*)blur_kernel<false>;
+    const size_t smem = shared ? blur_shared_bytes(radius) : 0;
+    cudaFuncAttributes at;
+    cudaError_t e = cudaFuncGetAttributes(&at, fn);
+    if (e != cudaSuccess) return (int)e;
+    int resident = 0;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, fn, F3D_BLUR_THREADS, smem);
+    out[0] = at.numRegs;
+    out[1] = (int)at.localSizeBytes;
+    out[2] = resident;
+    out[3] = (int)(at.sharedSizeBytes + smem);
+    out[4] = F3D_BLUR_M;
+    return (int)e;
 }
 
 int f3d_post_point(int mode, int height, int width, int channels, const float* a,

@@ -106,23 +106,172 @@ F3D_HD void hosek_texel(const HosekArgs& s, float dx, float dy, float dz, float*
 // PyTorch versions in ops/post.py.
 // ---------------------------------------------------------------------------
 
-// post.py:gaussian_blur's conv1d (46-55) for element e of a tensor viewed as
-// (outer, n, inner) with the blurred axis in the middle: the 2r + 1 taps
-// summed from i = 0 upward, starting from zero, each reading the
-// edge-clamped element a + i - r of the axis.
-F3D_HD float blur_axis_elem(const float* in, const float* taps, int radius, int n, int inner,
-                            long long e) {
-    const long long plane = (long long)n * inner;
-    const long long o = e / plane;
-    const long long rem = e - o * plane;
-    const int a = (int)(rem / inner);
-    const long long base = o * plane + (rem - (long long)a * inner);
-    float acc = 0.0f;
-    for (int i = 0; i <= 2 * radius; ++i) {
-        const int s = clampi(a + i - radius, 0, n - 1);
-        acc = acc + taps[i] * in[base + (long long)s * inner];
+// post.py:gaussian_blur's conv1d (46-55) along the middle axis of a tensor
+// viewed as (outer, n, inner): output a of a column is the 2r + 1 taps summed
+// from i = 0 upward, starting from zero, each tap times the edge-clamped
+// element a + i - r of the axis. The columns are the outer * inner
+// flattened (outer, inner) pairs; column f starts at element
+// (f / inner) * n * inner + f % inner and steps by inner.
+//
+// Kernel E2 blur (post.cu:blur_kernel) takes a tile of F3D_BLUR_COLS
+// consecutive columns by F3D_BLUR_SPAN positions a CTA: a lane a column, a
+// warp 16 positions. With a shared window the CTA first stages its span and
+// the r-wide halo on both sides into shared memory, the clamp applied as it
+// stages (staged row s of a column holds position pos0 + s - r); without,
+// the taps read device memory through the clamp (the radii whose window
+// does not fit shared memory, past ops/post.py:BLUR_SHARED_RADIUS). A
+// thread then computes F3D_BLUR_M consecutive outputs of its column at a
+// time: for tap i it reads taps[i] once, adds
+// taps[i] * window[i + j] into output j's sum for each j, and slides its
+// window of F3D_BLUR_M values in registers by one value a tap. Each output
+// still adds its taps from i = 0 upward, starting from zero, so the sums
+// are the plain version's bit for bit (the build does not contract the
+// multiply and the add).
+//
+// Both passes take the same tile. Axis 0's 32 columns are neighbouring
+// floats of an image row; axis 1's (inner = C channels) are the channels of
+// 32 / C neighbouring rows, so a warp's staging load or output store at one
+// position touches each row's C floats, the rest of their sectors staying
+// in L1 for the next positions. (Staging and storing each row's floats in
+// memory order instead, a tile of whole rows, measured slower on K's
+// blurs: PERF.md.)
+
+#define F3D_BLUR_COLS 32        // columns a tile: a lane each
+#define F3D_BLUR_SPAN 128       // positions a tile: a warp 16 of them
+#define F3D_BLUR_THREADS 256
+#define F3D_BLUR_M 8            // outputs a thread computes together
+
+static_assert(F3D_BLUR_SPAN % ((F3D_BLUR_THREADS / F3D_BLUR_COLS) * F3D_BLUR_M) == 0,
+              "a warp's positions must be whole runs of F3D_BLUR_M");
+
+struct BlurGeom {
+    const float* in;
+    float* out;
+    long long cols;   // outer * inner
+    int n, inner, radius;
+};
+
+F3D_HD int blur_pos_tiles(int n) { return (n + F3D_BLUR_SPAN - 1) / F3D_BLUR_SPAN; }
+
+F3D_HD long long blur_tiles(const BlurGeom& g) {
+    return (g.cols + F3D_BLUR_COLS - 1) / F3D_BLUR_COLS * blur_pos_tiles(g.n);
+}
+
+// the first element of column f (clamped to the last column: a lane past
+// the columns stages the last one and writes nothing); a thread's column is
+// the same in its staging and its runs, so it finds it once
+F3D_HD long long blur_col_base(const BlurGeom& g, long long f) {
+    if (f >= g.cols) f = g.cols - 1;
+    const long long plane = (long long)g.n * g.inner;
+    if (f <= 0x7fffffffLL) {   // 32-bit division where the column index fits
+        const int fi = (int)f;
+        return (long long)(fi / g.inner) * plane + fi % g.inner;
     }
-    return acc;
+    return f / g.inner * plane + f % g.inner;
+}
+
+// tile b's first column and first position: the tiles of a column range
+// run along the axis
+F3D_HD void blur_tile(const BlurGeom& g, long long b, long long& col0, int& pos0) {
+    const int tn = blur_pos_tiles(g.n);
+    col0 = b / tn * F3D_BLUR_COLS;
+    pos0 = (int)(b % tn) * F3D_BLUR_SPAN;
+}
+
+F3D_HD int blur_staged_rows(int radius) { return F3D_BLUR_SPAN + 2 * radius; }
+
+F3D_HD size_t blur_shared_bytes(int radius) {
+    return ((size_t)blur_staged_rows(radius) * F3D_BLUR_COLS + 2 * radius + 1) * sizeof(float);
+}
+
+// stage column k (its first element at `base`) of the tile at pos0: staged
+// rows s0, s0 + ds, ..., each the edge-clamped position pos0 + s - r, into
+// sm[s * COLS + k]
+F3D_HD void blur_stage_column(const BlurGeom& g, long long base, int pos0, int k, int s0, int ds,
+                              float* sm) {
+    const float* src = g.in + base;
+    const int rows = blur_staged_rows(g.radius);
+#pragma unroll 4
+    for (int s = s0; s < rows; s += ds)
+        sm[s * F3D_BLUR_COLS + k] = src[(long long)clampi(pos0 + s - g.radius, 0, g.n - 1) * g.inner];
+}
+
+// a run's window in the staged tile: value s is staged row s0 + s of column k
+struct BlurSharedWindow {
+    const float* sm;
+    int s0, k;
+    F3D_HD float operator()(int s) const { return sm[(s0 + s) * F3D_BLUR_COLS + k]; }
+};
+
+// a run's window in device memory: value s is the column's edge-clamped
+// position a0 + s
+struct BlurDeviceWindow {
+    const float* src;
+    int a0, n, inner;
+    F3D_HD float operator()(int s) const {
+        return src[(long long)clampi(a0 + s, 0, n - 1) * inner];
+    }
+};
+
+// one tap of a run: the window's newest value loaded, the M products added
+template <int M, class Window>
+F3D_HD void blur_tap(const Window& w, float t, int i, float* win, float* acc) {
+    win[M - 1] = w(i + M - 1);
+#pragma unroll
+    for (int j = 0; j < M; ++j) acc[j] = acc[j] + t * win[j];
+#pragma unroll
+    for (int j = 0; j + 1 < M; ++j) win[j] = win[j + 1];
+}
+
+// M consecutive outputs of one column: acc[j] = sum over i of taps[i] * w(i + j)
+template <int M, class Window>
+F3D_HD void blur_run(const Window& w, const float* taps, int radius, float* acc) {
+    float win[M];
+#pragma unroll
+    for (int j = 0; j + 1 < M; ++j) win[j] = w(j);
+#pragma unroll
+    for (int j = 0; j < M; ++j) acc[j] = 0.0f;
+    const int n_taps = 2 * radius + 1;
+    int i = 0;
+    for (; i + M <= n_taps; i += M) {
+#pragma unroll
+        for (int u = 0; u < M; ++u) blur_tap<M>(w, taps[i + u], i + u, win, acc);
+    }
+    for (; i < n_taps; ++i) blur_tap<M>(w, taps[i], i, win, acc);
+}
+
+// thread t's runs in its tile: column t % COLS, the runs of M positions
+// starting at staged row (warp * runs + m) * M, m = 0 .. runs - 1
+constexpr int kBlurRuns = F3D_BLUR_SPAN / (F3D_BLUR_THREADS / F3D_BLUR_COLS) / F3D_BLUR_M;
+
+F3D_HD int blur_run_start(int t, int m) {
+    return ((t / F3D_BLUR_COLS) * kBlurRuns + m) * F3D_BLUR_M;
+}
+
+// run m of thread t (its column's first element at `base`) in the tile at
+// pos0, its window staged in `sm` (kShared) or read from device memory;
+// false where the run starts past the axis (acc unset)
+template <bool kShared>
+F3D_HD bool blur_thread_acc(const BlurGeom& g, long long base, const float* sm, const float* taps,
+                            int pos0, int t, int m, float* acc) {
+    const int k = t % F3D_BLUR_COLS, s0 = blur_run_start(t, m);
+    if (pos0 + s0 >= g.n) return false;
+    if (kShared)
+        blur_run<F3D_BLUR_M>(BlurSharedWindow{sm, s0, k}, taps, g.radius, acc);
+    else
+        blur_run<F3D_BLUR_M>(BlurDeviceWindow{g.in + base, pos0 + s0 - g.radius, g.n, g.inner},
+                             taps, g.radius, acc);
+    return true;
+}
+
+// the store of run m of thread t: its outputs inside the tensor
+F3D_HD void blur_store_run(const BlurGeom& g, long long base, long long col0, int pos0, int t,
+                           int m, const float* acc) {
+    const int s0 = blur_run_start(t, m);
+    if (col0 + t % F3D_BLUR_COLS >= g.cols) return;
+#pragma unroll
+    for (int j = 0; j < F3D_BLUR_M; ++j)
+        if (pos0 + s0 + j < g.n) g.out[base + (long long)(pos0 + s0 + j) * g.inner] = acc[j];
 }
 
 // The pointwise stages of the chain, one thread per pixel (all channels).

@@ -42,22 +42,28 @@
 // stored as +0.0). The 4096^2 map (67 MB) is written by atomics; 2,093,058
 // triangles (75 MB) are read once.
 //
-// S8: one thread per pixel. The edge term needs the shading normals of the
-// pixel's 2x2 quad (dpdxCoarse / dpdyCoarse), so threads are laid out in
-// quads: four consecutive lanes of a warp hold one quad (top left, top
-// right, bottom left, bottom right), and the normals are exchanged with
-// __shfl_sync after shade_front. Every lane of a warp reaches the shuffle;
-// lanes past the image shade pixel (0, 0) and write nothing. What bounds it
-// is arithmetic and the PCSS taps' reads (28 scattered reads of the 67 MB
-// depth map per pixel, neighbouring pixels' taps in the same lines). With
-// POM each thread marches its own steps (12-40 height reads and a few
-// refinements; over a DEM in metres every lane marches all its steps) and
-// stops where JAX's masked loop would freeze it; the sky is computed per
-// pixel from the per-image constants in SkyArgs.
+// S8: one thread per pixel, a block a 16x16 tile and a warp an 8x4 patch
+// of it (screen.cuh:s8_pixel). The edge term needs the shading normals of
+// the pixel's 2x2 quad (dpdxCoarse / dpdyCoarse), so four consecutive lanes
+// of a warp hold one quad (top left, top right, bottom left, bottom right),
+// and the normals are exchanged with __shfl_sync after shade_front. Every
+// lane of a warp reaches the shuffle; lanes past the image shade pixel
+// (0, 0) and write nothing. What bounds it is arithmetic and the PCSS taps
+// (S5): each pixel makes 12 blocker reads and 16 PCF footprints of 4 texels
+// each, 76 scattered reads of the 67 MB 4096^2 depth map, every one within
+// about 6 texels of the receiver's. They go through the texture unit as
+// point fetches (screen.cuh:ShadowTex), so their clamps and addresses are
+// its work, over a texture object on the cached map itself, with no copy
+// (screen.py:shadow_texture). With POM each thread marches its own
+// steps (12-40 height reads and a few refinements; over a DEM in metres
+// every lane marches all its steps) and stops where JAX's masked loop
+// would freeze it; the sky is computed per pixel from the per-image
+// constants in SkyArgs.
 //
-// S9: as S8, one thread per pixel in 2x2 quads, over the host G-buffer
-// (uv, world position, valid): every pixel is shaded, and the invalid ones
-// take the background colour at the write.
+// S9: as S8's earlier layout, one thread per pixel in 2x2 quads along the
+// image's rows, over the host G-buffer (uv, world position, valid): every
+// pixel is shaded, and the invalid ones take the background colour at the
+// write. Its PCSS taps read the map through the pointer (ShadowPtr).
 
 #include <cuda_runtime.h>
 
@@ -126,12 +132,11 @@ __global__ void raster_kernel(const float* __restrict__ tris, const unsigned cha
     raster_triangle(tris, keep, t, res, wbb, hbb, depth);
 }
 
-__global__ void shade_kernel(ScreenArgs a, ScreenOut o) {
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    const bool live = i < a.width * a.height;
-    const int q = i >> 2, sub = i & 3, qw = a.width >> 1;
-    const int x = live ? 2 * (q % qw) + (sub & 1) : 0;
-    const int y = live ? 2 * (q / qw) + (sub >> 1) : 0;
+// S8's register budget: 4 resident blocks of kThreads an SM asked of ptxas
+// (64 registers; 70 and 3 blocks without)
+__global__ void __launch_bounds__(kThreads, 4) shade_kernel(ScreenArgs a, ScreenOut o) {
+    int x, y;
+    const bool live = s8_pixel(a.width, a.height, blockIdx.x, threadIdx.x, x, y);
     ShadeState s;
     shade_front(a, x, y, s);
     float tl[3], tr[3], bl[3];
@@ -158,6 +163,18 @@ __global__ void clipmap_kernel(ScreenArgs a, ClipArgs g, unsigned char* __restri
         bl[c] = __shfl_sync(0xffffffffu, s.n[c], 2, 4);
     }
     if (live) clip_back(a, g, rgba, x, y, s, quad_grad(tl, tr, bl));
+}
+
+// S5 alone on receivers, through the texture or the pointer (f3d_pcss_points)
+__global__ void pcss_points_kernel(ScreenArgs a, const float* __restrict__ sp,
+                                   const float* __restrict__ nrm, int n, int tex,
+                                   float* __restrict__ out) {
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    out[i] = tex ? pcss_visibility(ShadowTex{a.shadow_tex, a.shadow_res}, a.lvp, a.pcss_ld,
+                                   sp + 3 * i, nrm + 3 * i)
+                 : pcss_visibility(ShadowPtr{a.shadow, a.shadow_res}, a.lvp, a.pcss_ld,
+                                   sp + 3 * i, nrm + 3 * i);
 }
 
 // a kernel's parameters must fit in 4 KB
@@ -223,9 +240,63 @@ int f3d_raster_depth(const float* tris, const unsigned char* keep, int n_tris, i
     return (int)cudaGetLastError();
 }
 
+// S8 over a->width x a->height (even) pixels; the PCSS taps read the map
+// through a->shadow_tex, which must be a texture object over a->shadow
+// (f3d_shadow_texture_create)
 int f3d_screen_shade(const ScreenArgs* a, const ScreenOut* o, void* stream) {
-    long long n = (long long)a->width * a->height;
-    if (n > 0) shade_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(*a, *o);
+    const long long blocks = a->width > 0 && a->height > 0 ? s8_blocks(a->width, a->height) : 0;
+    if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    if (blocks > 0)
+        shade_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(*a, *o);
+    return (int)cudaGetLastError();
+}
+
+// S8's registers, local bytes and resident blocks of kThreads an SM
+int f3d_screen_shade_attrs(int* out) {
+    return f3d_kernel_attrs((const void*)shade_kernel, kThreads, out);
+}
+
+// S5's map for S8: a texture object over the (res, res) float map `depth`
+// itself, a pitch-2D resource (no copy), with point filtering, clamp
+// addressing and unnormalised coordinates. Writes it to *tex; free it with
+// f3d_shadow_texture_destroy while the map still lives.
+int f3d_shadow_texture_create(const float* depth, int res, unsigned long long* tex) {
+    *tex = 0;
+    if (res <= 0) return (int)cudaErrorInvalidValue;
+    cudaResourceDesc rd = {};
+    rd.resType = cudaResourceTypePitch2D;
+    rd.res.pitch2D.devPtr = (void*)depth;
+    rd.res.pitch2D.desc = cudaCreateChannelDesc<float>();
+    rd.res.pitch2D.width = res;
+    rd.res.pitch2D.height = res;
+    rd.res.pitch2D.pitchInBytes = (size_t)res * sizeof(float);
+    cudaTextureDesc td = {};
+    td.addressMode[0] = td.addressMode[1] = cudaAddressModeClamp;
+    td.filterMode = cudaFilterModePoint;
+    td.readMode = cudaReadModeElementType;
+    td.normalizedCoords = 0;
+    cudaTextureObject_t obj = 0;
+    const cudaError_t e = cudaCreateTextureObject(&obj, &rd, &td, nullptr);
+    if (e == cudaSuccess) *tex = (unsigned long long)obj;
+    return (int)e;
+}
+
+// frees what f3d_shadow_texture_create made, once the device is idle (a
+// launch may still read it)
+int f3d_shadow_texture_destroy(unsigned long long tex) {
+    const cudaError_t e = cudaDeviceSynchronize();
+    const cudaError_t e1 = cudaDestroyTextureObject((cudaTextureObject_t)tex);
+    return (int)(e != cudaSuccess ? e : e1);
+}
+
+// S5 alone on n receivers (sp, nrm: (n, 3)) with a's map, lvp and light:
+// through the texture (`tex`, S8's path) or the pointer (S9's); a check
+// that the two read the same texels
+int f3d_pcss_points(const ScreenArgs* a, const float* sp, const float* nrm, int n, int tex,
+                    float* out, void* stream) {
+    if (n > 0)
+        pcss_points_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(*a, sp, nrm, n,
+                                                                                tex, out);
     return (int)cudaGetLastError();
 }
 

@@ -64,6 +64,7 @@ struct ScreenArgs {
     const float* spec[6];     // (6, spec_size[m], spec_size[m], 3)
     const float* brdf;        // (brdf_h, brdf_w, 2)
     const float* refl;        // (refl_h, refl_w, 3) mirrored pass, u8 / 255
+    unsigned long long shadow_tex;  // S8's texture object over `shadow`
     int hm_h, hm_w, lut_n, wm_h, wm_w, mat_albedo_stride;
     int mmn_h, mmn_w, mmr_h, mmr_w, mmk_h, mmk_w;
     int shadow_res, irr_size, spec_size[6], brdf_h, brdf_w, refl_h, refl_w;
@@ -453,24 +454,95 @@ F3D_HD void raster_triangle(const float* tris, const unsigned char* keep, int t,
      -0.24188840f, 0.99706507f,  -0.81409955f, 0.91437590f,  0.19984126f,   0.78641367f,  \
      0.14383161f,  -0.14100790f}
 
+// The shadow map as PCSS reads it: texel(tx, ty) is the texel at integer
+// coordinates inside the map, quad(x0i, y0i, ...) the 2x2 footprint of a
+// bilinear tap whose top-left texel is (x0i, y0i), its right and lower
+// neighbours clamped to the map.
+//
+// ShadowPtr reads the map through a pointer (S9).
+struct ShadowPtr {
+    const float* dm;
+    int r;
+    F3D_HD float texel(int tx, int ty) const { return dm[(size_t)ty * r + tx]; }
+    F3D_HD void quad(int x0i, int y0i, float& t00, float& t10, float& t01, float& t11) const {
+        const int x1i = sc_clampi(x0i + 1, 0, r - 1), y1i = sc_clampi(y0i + 1, 0, r - 1);
+        t00 = dm[(size_t)y0i * r + x0i];
+        t10 = dm[(size_t)y0i * r + x1i];
+        t01 = dm[(size_t)y1i * r + x0i];
+        t11 = dm[(size_t)y1i * r + x1i];
+    }
+};
+
+// ShadowTex reads the map through the texture unit (S8): `tex` is a texture
+// object over the map itself, a pitch-2D resource with no copy (screen.cu:
+// f3d_shadow_texture_create: point filtering, clamp addressing,
+// unnormalised coordinates). A texel is a point fetch at its centre, so its
+// address and clamp are the texture unit's work; a footprint is the point
+// fetches of its four texels, the right and lower ones clamped by the
+// addressing: the texels ShadowPtr reads, at the map's edges too. On the
+// host (the kernels' CPU twin) the handle is the map's pointer and the
+// fetches are emulated by the rules the hardware follows.
+struct ShadowTex {
+    unsigned long long tex;
+    int r;
+#ifdef __CUDA_ARCH__
+    __device__ float texel(int tx, int ty) const {
+        return tex2D<float>((cudaTextureObject_t)tex, (float)tx + 0.5f, (float)ty + 0.5f);
+    }
+#else
+    // the texel under unnormalised coordinate (tx + 0.5, ty + 0.5): its
+    // floor, clamped to the map
+    float texel(int tx, int ty) const {
+        const float* dm = (const float*)(uintptr_t)tex;
+        const int i = sc_clampi((int)floorf((float)tx + 0.5f), 0, r - 1);
+        const int j = sc_clampi((int)floorf((float)ty + 0.5f), 0, r - 1);
+        return dm[(size_t)j * r + i];
+    }
+#endif
+    F3D_HD void quad(int x0i, int y0i, float& t00, float& t10, float& t01, float& t11) const {
+        t00 = texel(x0i, y0i);
+        t10 = texel(x0i + 1, y0i);
+        t01 = texel(x0i, y0i + 1);
+        t11 = texel(x0i + 1, y0i + 1);
+    }
+};
+
+#ifdef F3D_S8_PCSS_SELF
+// measurement build: every load of a map at the receiver's own texel
+template <class Map>
+struct ShadowSelf {
+    Map m;
+    int tx, ty, r;
+    F3D_HD float texel(int, int) const { return m.texel(tx, ty); }
+    F3D_HD void quad(int, int, float& t00, float& t10, float& t01, float& t11) const {
+        m.quad(tx, ty, t00, t10, t01, t11);
+    }
+};
+#endif
+
 // hardware PCF: bilinear weight of per-texel (ref <= texel)
-F3D_HD float pcf2x2(const float* dm, int r, float u, float v, float ref) {
+template <class Map>
+F3D_HD float pcf2x2(const Map& m, float u, float v, float ref) {
+    const int r = m.r;
     const float x = u * (float)r - 0.5f, y = v * (float)r - 0.5f;
     const float x0 = floorf(x), y0 = floorf(y);
     const float fx = x - x0, fy = y - y0;
     const int x0i = sc_clampi((int)x0, 0, r - 1), y0i = sc_clampi((int)y0, 0, r - 1);
-    const int x1i = sc_clampi(x0i + 1, 0, r - 1), y1i = sc_clampi(y0i + 1, 0, r - 1);
-    const float c00 = ref <= dm[(size_t)y0i * r + x0i] ? 1.0f : 0.0f;
-    const float c10 = ref <= dm[(size_t)y0i * r + x1i] ? 1.0f : 0.0f;
-    const float c01 = ref <= dm[(size_t)y1i * r + x0i] ? 1.0f : 0.0f;
-    const float c11 = ref <= dm[(size_t)y1i * r + x1i] ? 1.0f : 0.0f;
+    float t00, t10, t01, t11;
+    m.quad(x0i, y0i, t00, t10, t01, t11);
+    const float c00 = ref <= t00 ? 1.0f : 0.0f;
+    const float c10 = ref <= t10 ? 1.0f : 0.0f;
+    const float c01 = ref <= t01 ? 1.0f : 0.0f;
+    const float c11 = ref <= t11 ? 1.0f : 0.0f;
     const float top = c00 + (c10 - c00) * fx;
     const float bot = c01 + (c11 - c01) * fx;
     return top + (bot - top) * fy;
 }
 
-F3D_HD float pcss_visibility(const float* dm, int r, const float* lvp, const float* ld,
-                             const float* sp, const float* nrm) {
+template <class Map>
+F3D_HD float pcss_visibility(const Map& map, const float* lvp, const float* ld, const float* sp,
+                             const float* nrm) {
+    const int r = map.r;
     float ndc[3];
     for (int k = 0; k < 3; ++k)
         ndc[k] = sp[0] * lvp[4 * k] + sp[1] * lvp[4 * k + 1] + sp[2] * lvp[4 * k + 2]
@@ -483,6 +555,16 @@ F3D_HD float pcss_visibility(const float* dm, int r, const float* lvp, const flo
     const float cmp = depth01 - (0.0005f + 0.001f * slope + 0.0002f);
     const bool inb = su >= 0.0f && su <= 1.0f && sv >= 0.0f && sv <= 1.0f && depth01 >= 0.0f
                      && depth01 <= 1.0f;
+#ifdef F3D_S8_PCSS_CONST
+    // measurement build: PCSS replaced by a constant that the receiver keeps live
+    return inb ? 1.0f : 0.5f;
+#endif
+#ifdef F3D_S8_PCSS_SELF
+    const ShadowSelf<Map> m{map, (int)sc_clamp(su * (float)r, 0.0f, (float)r - 1.0f),
+                            (int)sc_clamp(sv * (float)r, 0.0f, (float)r - 1.0f), r};
+#else
+    const Map& m = map;
+#endif
     const float kPoisson[32] = SCR_POISSON_16;
     const float sr = 6.0f / 4096.0f;
     float bsum = 0.0f, bcnt = 0.0f;
@@ -493,7 +575,7 @@ F3D_HD float pcss_visibility(const float* dm, int r, const float* lvp, const flo
         const bool binb = bu >= 0.0f && bu <= 1.0f && bv >= 0.0f && bv <= 1.0f;
         const int tx = (int)sc_clamp(bu * (float)r, 0.0f, (float)r - 1.0f);
         const int ty = (int)sc_clamp(bv * (float)r, 0.0f, (float)r - 1.0f);
-        const float sdep = dm[(size_t)ty * r + tx];
+        const float sdep = m.texel(tx, ty);
         const bool blk = binb && sdep < cmp;
         bsum = bsum + (blk ? sdep : 0.0f);
         bcnt = bcnt + (blk ? 1.0f : 0.0f);
@@ -510,7 +592,7 @@ F3D_HD float pcss_visibility(const float* dm, int r, const float* lvp, const flo
         const float fu = su + kPoisson[2 * k] * sfr;
         const float fv = sv + kPoisson[2 * k + 1] * sfr;
         const bool finb = fu >= 0.0f && fu <= 1.0f && fv >= 0.0f && fv <= 1.0f;
-        ssum = ssum + (finb ? pcf2x2(dm, r, fu, fv, cref) : 1.0f);
+        ssum = ssum + (finb ? pcf2x2(m, fu, fv, cref) : 1.0f);
     }
     ssum = ssum / 16.0f;
     return inb ? (has_blk ? ssum : 1.0f) : 1.0f;
@@ -930,7 +1012,8 @@ F3D_HD void shade_back(const ScreenArgs& a, const ScreenOut& o, int x, int y, co
     const float shadow_h = sc_clamp01((geom_h(a, s.uu, s.vv) - a.dom_lo) / a.dom_rng);
     const float sp[3] = {(s.uu - 0.5f) * a.shadow_rspan, (s.vv - 0.5f) * a.shadow_rspan,
                          shadow_h * a.z_scale};
-    const float vis = pcss_visibility(a.shadow, a.shadow_res, a.lvp, a.pcss_ld, sp, s.blended);
+    const float vis = pcss_visibility(ShadowTex{a.shadow_tex, a.shadow_res}, a.lvp, a.pcss_ld, sp,
+                                      s.blended);
     const float shadow_factor = 0.8f + 0.2f * vis;
 
     // IBL (eval_ibl_split)
@@ -1048,6 +1131,33 @@ F3D_HD float quad_grad(const float* t, const float* a, const float* b) {
     return norm3(dx) + norm3(dy);
 }
 
+// S8's layout: a block of 256 threads shades a 16x16 tile of pixels and a
+// warp an 8x4 patch of it (4x2 quads; two warps across, four down), so a
+// warp's PCSS taps, height reads and material reads come from a compact
+// patch of the screen. Four consecutive lanes hold a 2x2 quad, top left,
+// top right, bottom left, bottom right, as quad_grad's shuffles want.
+// s8_pixel gives thread t of block b its pixel and whether it lies in the
+// image; a thread past the image (widths and heights are even, so whole
+// quads) shades pixel (0, 0) and writes nothing, so every lane reaches the
+// shuffles.
+#define F3D_S8_TILE 16
+
+F3D_HD long long s8_blocks(int width, int height) {
+    return (long long)((width + F3D_S8_TILE - 1) / F3D_S8_TILE)
+           * ((height + F3D_S8_TILE - 1) / F3D_S8_TILE);
+}
+
+F3D_HD bool s8_pixel(int width, int height, long long b, int t, int& x, int& y) {
+    const int w = t >> 5, qi = (t & 31) >> 2, sub = t & 3;
+    const int tiles_x = (width + F3D_S8_TILE - 1) / F3D_S8_TILE;
+    const int px = (int)(b % tiles_x) * F3D_S8_TILE + (w & 1) * 8 + (qi & 3) * 2 + (sub & 1);
+    const int py = (int)(b / tiles_x) * F3D_S8_TILE + (w >> 1) * 4 + (qi >> 2) * 2 + (sub >> 1);
+    const bool live = px < width && py < height;
+    x = live ? px : 0;
+    y = live ? py : 0;
+    return live;
+}
+
 // ---------------------------------------------------------------------------
 // S9: the clipmap shade of one pixel (screen.py:1857-2025) over the host
 // G-buffer: nearest height samples (the caller sets a.filterable = 0), the
@@ -1119,7 +1229,7 @@ F3D_HD void clip_back(const ScreenArgs& a, const ClipArgs& g, unsigned char* rgb
     // PCSS at the receiver's undisplaced height, in the spacing's frame
     const float shadow_h = sc_clamp01((geom_h(a, s.uu, s.vv) - a.dom_lo) / a.dom_rng);
     const float sp[3] = {(s.uu - 0.5f) * g.spacing, (s.vv - 0.5f) * g.spacing, shadow_h * a.z_scale};
-    const float vis = pcss_visibility(a.shadow, a.shadow_res, a.lvp, a.pcss_ld, sp, s.n);
+    const float vis = pcss_visibility(ShadowPtr{a.shadow, a.shadow_res}, a.lvp, a.pcss_ld, sp, s.n);
     const float cs = fmaxf(0.8f + 0.2f * vis, 0.30f);
 
     // split-sum IBL

@@ -4,7 +4,8 @@
 # with the JAX package's names, arguments and float32 (H, W, 3) images.
 #
 # Each stage has a plain PyTorch version and a CUDA kernel in csrc/post.cu
-# over csrc/post.cuh: the separable blur (`blur_axis`, two launches a blur),
+# over csrc/post.cuh: the separable blur (`blur_axis`, two launches a blur,
+# counted by instantiation: `blur_instance`),
 # the pointwise stages around the blurs (`post_point`: bloom's brightpass
 # and composite, the depth-of-field mix, the vignette, the unsharp
 # composite), `ssr`, `taa_resolve`, `ssao` and the rect lights
@@ -27,6 +28,7 @@
 from __future__ import annotations
 
 import math
+from collections import Counter
 from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -85,17 +87,34 @@ def _blur_axis_plain(x: torch.Tensor, taps, radius: int, axis: int) -> torch.Ten
     return out
 
 
+#: the widest radius whose window E2 blur stages in shared memory (at 120
+#: its (128 + 2r) * 32 staged floats and 2r + 1 taps, csrc/post.cuh:
+#: blur_shared_bytes, take 48,068 B of the 48 KB a CTA has without opting
+#: in); wider ones read device memory
+BLUR_SHARED_RADIUS = 120
+
+
+def blur_instance(radius: int) -> str:
+    """The instantiation E2 blur launches for `radius`: where its window is
+    read from (csrc/post.cu:blur_kernel<true> stages it, <false> reads
+    device memory)."""
+    return "shared window" if 0 <= radius <= BLUR_SHARED_RADIUS else "device window"
+
+
 def _blur_axis_kernel(x: torch.Tensor, taps: torch.Tensor, radius: int, axis: int):
     _kernels.require_cuda("gaussian_blur", x, taps)
     shape = x.shape
     outer = int(np.prod(shape[:axis], dtype=np.int64))
     inner = int(np.prod(shape[axis + 1:], dtype=np.int64))
     out = torch.empty_like(x)
+    instance = blur_instance(int(radius))
     err = _kernels.lib().f3d_blur_axis(_kernels.ptr(x), _kernels.ptr(out), _kernels.ptr(taps),
                                        int(radius), outer, int(shape[axis]), inner,
+                                       int(instance == "shared window"),
                                        _kernels.stream_ptr(x.device))
     _kernels.check(err, "E2 blur_axis")
     blur_axis.launches += 1
+    blur_axis.instances[instance] += 1
     return out
 
 
@@ -110,6 +129,7 @@ def blur_axis(x: torch.Tensor, taps: torch.Tensor, radius: int, axis: int) -> to
 
 
 blur_axis.launches = 0
+blur_axis.instances = Counter()   # launches by blur_instance
 
 
 def gaussian_blur(img, sigma: float = 2.0, radius: Optional[int] = None, *, device=None):

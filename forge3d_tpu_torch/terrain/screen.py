@@ -26,8 +26,11 @@
 # their original names, as is screen_golden._build_brdf_lut. The IBL
 # pyramid and the shadow map are cached in process by the JAX module's
 # content-hash keys, as device tensors charged to the memory ledger; the
-# port writes no file. The clipmap mode's G-buffer is rasterized on the
-# host by terrain/clipmap_mesh.py, a copy of the JAX package's.
+# port writes no file. S8 reads the shadow map through a texture object
+# over the cached map itself (ShadowTexture, no copy), made once with the
+# map's cache entry (shadow_texture) and dropped with it. The clipmap mode's
+# G-buffer is rasterized on the host by terrain/clipmap_mesh.py, a copy of
+# the JAX package's.
 
 from __future__ import annotations
 
@@ -739,19 +742,71 @@ def _cache_put(cache, key, value, nbytes: int, name: str):
     rid = tracker.track(name, nbytes, "screen")
     cache[key] = (value, rid)
     while len(cache) > CACHE_ENTRIES:
-        _, (_, old) = cache.popitem(last=False)
+        old_key, (_, old) = cache.popitem(last=False)
         tracker.free(old)
+        _SHADOW_TEX.pop(old_key, None)
     return value
 
 
 def clear_caches() -> None:
-    """Drop the cached IBL pyramids and shadow maps (and their ledger
-    records)."""
+    """Drop the cached IBL pyramids and shadow maps with their textures
+    (and their ledger records)."""
     tracker = global_tracker()
     for cache in (_IBL_CACHE, _SHADOW_CACHE):
-        for _, rid in cache.values():
+        for key, (_, rid) in list(cache.items()):
             tracker.free(rid)
+            _SHADOW_TEX.pop(key, None)
         cache.clear()
+
+
+class ShadowTexture:
+    """S8's view of a shadow map: a texture object over the (R, R) float32
+    map itself, a pitch-2D resource that takes no memory of its own
+    (csrc/screen.cu:f3d_shadow_texture_create: point filtering, clamp
+    addressing, unnormalised coordinates), through which its PCSS taps are
+    fetched. It holds the map until it is closed or collected. Raises
+    where the texture cannot be made (a map that is not contiguous, or
+    whose start or row pitch the texture unit cannot address)."""
+
+    def __init__(self, depth: torch.Tensor):
+        self.res = int(depth.shape[0])
+        if depth.dim() != 2 or depth.shape[1] != self.res or not depth.is_contiguous():
+            raise ValueError(f"a shadow texture is made of a contiguous square map, got "
+                             f"{tuple(depth.shape)}")
+        self._lib = _kernels.lib()
+        tex = ctypes.c_ulonglong(0)
+        _kernels.check(self._lib.f3d_shadow_texture_create(_kernels.ptr(depth), self.res,
+                                                           ctypes.byref(tex)),
+                       "S5 shadow texture")
+        self.handle, self._depth = int(tex.value), depth
+
+    def close(self) -> None:
+        if self._depth is not None:
+            err = self._lib.f3d_shadow_texture_destroy(self.handle)
+            self._depth = None
+            _kernels.check(err, "S5 shadow texture")
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:   # the CUDA context may be gone at interpreter exit
+            pass
+
+
+# the textures of the cached shadow maps, by the maps' cache keys
+_SHADOW_TEX: Dict[tuple, ShadowTexture] = {}
+
+
+def shadow_texture(depth: torch.Tensor) -> ShadowTexture:
+    """The texture S8 reads `depth` through: for a map of the shadow cache,
+    the one made with its cache entry on first use and dropped with the
+    entry; for any other map a new one that lives as long as its holder."""
+    for key, (value, _) in _SHADOW_CACHE.items():
+        if value[0] is depth:
+            if key not in _SHADOW_TEX:
+                _SHADOW_TEX[key] = ShadowTexture(depth)
+            return _SHADOW_TEX[key]
+    return ShadowTexture(depth)
 
 
 def build_ibl(hdr_rgb, *, device="cuda") -> dict:
@@ -1853,6 +1908,11 @@ def _shade_kernel(cfg: ShadeCfg, u: dict) -> Dict[str, torch.Tensor]:
            "height": torch.empty((H, W), dtype=_F32, device=dev)}
     args, keep = screen_args(cfg, u)
     _kernels.require_cuda("S8 shade", *keep, *out.values())
+    tex = u.get("shadow_tex") or shadow_texture(u["shadow_depth"])
+    if tex.res != args.shadow_res:
+        raise ValueError(f"S8 shade: the shadow texture is {tex.res}^2, the map "
+                         f"{args.shadow_res}^2")
+    args.shadow_tex = tex.handle
     planes = _kernels.ScreenOut(*(out[k].data_ptr() for k in ("rgba", "albedo", "normal",
                                                               "height")))
     err = _kernels.lib().f3d_screen_shade(args, planes, _kernels.stream_ptr(dev))
@@ -2068,6 +2128,8 @@ def prepare_shade(
         "ibl_irradiance": ibl["irradiance"], "ibl_spec": ibl["spec_mips"],
         "ibl_brdf": ibl["brdf"], "sky": sky_k,
     }
+    if depth_map.device.type == "cuda":   # S8's PCSS taps read the map through it
+        u["shadow_tex"] = shadow_texture(depth_map)
     for flag, key, src in zip(mm_flags, ("mm_normal", "mm_rough", "mm_mask"),
                               ("normal", "roughness", "mask")):
         if flag:

@@ -557,17 +557,47 @@ int f3d_raster_depth(const float* tris, const unsigned char* keep, int n_tris, i
     for (int t = 0; t < n_tris; ++t) raster_triangle(tris, keep, t, res, wbb, hbb, depth);
     return 0;
 }
-// S8 one 2x2 quad at a time: the four pixels' fronts, the quad's normal
-// gradient, the four backs (the kernel exchanges the normals by shuffle)
+// S8 as screen.cu maps it: the blocks' 16x16 tiles in order, each block's
+// threads a 2x2 quad (four lanes) at a time: the four pixels' fronts (a
+// lane past the image shades pixel (0, 0)), the quad's normal gradient,
+// the four backs of the pixels inside the image (the kernel exchanges the
+// normals by shuffle). The PCSS taps go through ShadowTex, whose host
+// fetches emulate the texture unit over the pointer the handle holds.
 int f3d_screen_shade(const ScreenArgs* a, const ScreenOut* o, void*) {
-    for (int qy = 0; qy < a->height / 2; ++qy)
-        for (int qx = 0; qx < a->width / 2; ++qx) {
+    if (a->width <= 0 || a->height <= 0) return 0;
+    for (long long b = 0; b < s8_blocks(a->width, a->height); ++b)
+        for (int t0 = 0; t0 < 256; t0 += 4) {
             ShadeState s[4];
-            for (int k = 0; k < 4; ++k) shade_front(*a, 2 * qx + (k & 1), 2 * qy + (k >> 1), s[k]);
+            int x[4], y[4];
+            bool live[4];
+            for (int k = 0; k < 4; ++k) {
+                live[k] = s8_pixel(a->width, a->height, b, t0 + k, x[k], y[k]);
+                shade_front(*a, x[k], y[k], s[k]);
+            }
             const float g = quad_grad(s[0].sn, s[1].sn, s[2].sn);
             for (int k = 0; k < 4; ++k)
-                shade_back(*a, *o, 2 * qx + (k & 1), 2 * qy + (k >> 1), s[k], g);
+                if (live[k]) shade_back(*a, *o, x[k], y[k], s[k], g);
         }
+    return 0;
+}
+int f3d_screen_shade_attrs(int* out) {
+    out[0] = out[1] = out[2] = 0;   // no device function on the host
+    return 0;
+}
+// the host's texture object over a shadow map is the map's pointer, which
+// ShadowTex's host fetches read as the texture unit would
+int f3d_shadow_texture_create(const float* depth, int res, unsigned long long* tex) {
+    *tex = (unsigned long long)(uintptr_t)depth;
+    return res > 0 ? 0 : 1;
+}
+int f3d_shadow_texture_destroy(unsigned long long) { return 0; }
+int f3d_pcss_points(const ScreenArgs* a, const float* sp, const float* nrm, int n, int tex,
+                    float* out, void*) {
+    for (int i = 0; i < n; ++i)
+        out[i] = tex ? pcss_visibility(ShadowTex{a->shadow_tex, a->shadow_res}, a->lvp,
+                                       a->pcss_ld, sp + 3 * i, nrm + 3 * i)
+                     : pcss_visibility(ShadowPtr{a->shadow, a->shadow_res}, a->lvp, a->pcss_ld,
+                                       sp + 3 * i, nrm + 3 * i);
     return 0;
 }
 // S9 the same way
@@ -856,11 +886,39 @@ int f3d_vector_compose(const void* table, int n_layers, const float* prims, int 
         }
     return 0;
 }
-// E2 and E1 one element, pixel or texel at a time
+// E2 blur as post.cu maps it: the tiles in order; with a shared window
+// each tile first stages its columns' span and halo, then its threads run
+// their F3D_BLUR_M outputs at a time, in thread order; E1 and the rest of
+// E2 one element, pixel or texel at a time
 int f3d_blur_axis(const float* in, float* out, const float* taps, int radius, int outer, int n,
-                  int inner, void*) {
-    for (long long e = 0; e < (long long)outer * n * inner; ++e)
-        out[e] = blur_axis_elem(in, taps, radius, n, inner, e);
+                  int inner, int shared, void*) {
+    const BlurGeom g{in, out, (long long)outer * inner, n, inner, radius};
+    if (g.cols <= 0 || n <= 0) return 0;
+    if (radius < 0) return 1;
+    std::vector<float> sm(shared ? blur_staged_rows(radius) * F3D_BLUR_COLS : 0);
+    for (long long b = 0; b < blur_tiles(g); ++b) {
+        long long col0;
+        int pos0;
+        blur_tile(g, b, col0, pos0);
+        if (shared)
+            for (int k = 0; k < F3D_BLUR_COLS; ++k)
+                blur_stage_column(g, blur_col_base(g, col0 + k), pos0, k, 0, 1, sm.data());
+        for (int t = 0; t < F3D_BLUR_THREADS; ++t) {
+            const long long base = blur_col_base(g, col0 + t % F3D_BLUR_COLS);
+            for (int m = 0; m < kBlurRuns; ++m) {
+                float acc[F3D_BLUR_M];
+                const bool ok = shared
+                    ? blur_thread_acc<true>(g, base, sm.data(), taps, pos0, t, m, acc)
+                    : blur_thread_acc<false>(g, base, nullptr, taps, pos0, t, m, acc);
+                if (ok) blur_store_run(g, base, col0, pos0, t, m, acc);
+            }
+        }
+    }
+    return 0;
+}
+int f3d_blur_attrs(int, int, int* out) {
+    out[0] = out[1] = out[2] = out[3] = 0;   // no device function on the host
+    out[4] = F3D_BLUR_M;
     return 0;
 }
 int f3d_post_point(int mode, int height, int width, int channels, const float* a,

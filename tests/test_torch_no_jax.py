@@ -323,6 +323,11 @@ SCRIPT = textwrap.dedent("""
     assert [trst.kernel_instance(r) for r in (0, 3, trst.SHARED_RADIUS, trst.SHARED_RADIUS + 1)] \
         == ["shared window"] * 3 + ["global window"]
     assert tsw.POLAR_COLUMNS == 2 and not tsw.polar_uses_scratch(1029)
+    # E2 blur's window by radius
+    from forge3d_tpu_torch.ops import post as tpost
+    assert [tpost.blur_instance(r) for r in (0, 45, tpost.BLUR_SHARED_RADIUS,
+                                             tpost.BLUR_SHARED_RADIUS + 1)] \
+        == ["shared window"] * 3 + ["device window"]
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "forge3d_tpu"))
     assert not loaded, loaded
     if not preloaded:
