@@ -24,7 +24,12 @@ sweep render and the per-ray render; `--probe E2S8` K's four blurs and S8
 in A-D at 1080p, each timed as launched and queued, with E2 blur's
 device-window instantiation and S8's splits (s8_reading) where the tree
 has them, then a sha256 of each blur, of S8's planes in A-D, of S9's rgba in
-E and of K's render. Copied
+E and of K's render; `--probe E8E3` E8 step on W's state (as launched,
+queued, launch by launch, a sweep and a brick launch alone) and E3 at 1080p
+by pass with its two measurement builds (probe_e8e3; `--probe E8` and
+`--probe E3` one half each), then a sha256 of the step's grids and of E3's
+output; `--probe W` W's frames by stage as phase 29 runs them (probe_w).
+Copied
 into a checkout of an earlier tree and run there, it times that tree's
 kernels, so two designs can be compared on one card.
 
@@ -117,7 +122,8 @@ Phases (one line each; any failure exits non-zero):
                 accumulator and AOVs bit for bit, its tile means bit for bit
                 to their fixed order, timed;
  15. post -- E3 (5 iterations, three guides) at 1080p and E5's 128x64 Hosek
-                bake against their plain versions, both timed; E3 called
+                bake against their plain versions, both timed (E3 also by
+                pass, queued, with its build); E3 called
                 on the numpy planes must run on the card and give the
                 kernel's bits;
  16. screen kernels -- the screen-mode TerrainRenderer's kernels over the JAX
@@ -238,11 +244,12 @@ Phases (one line each; any failure exits non-zero):
                 R1 with the atlas against its plain version (bit for bit, the
                 fallback count equal) and timed with and without the atlas;
  28. smoke kernels -- E8 step against its plain version on the card on a
-                20x24x28 domain (jacobi 0, 1 and 20) and, stage by stage (the
-                forces, the velocity self-advection, the divergence, a
-                Jacobi sweep, the projection with the scalar advection) and
+                20x24x28 domain (jacobi 0, 1 and 20) and, launch by launch
+                (the forces with the velocity's self-advection, the
+                divergence with the first sweep, a launch of k sweeps in
+                bricks, the projection with the scalar advection) and
                 whole, on configuration W's 256x50x256 state, each timed (the
-                advections beside one grid_sample, a sweep beside a conv3d);
+                advections beside one grid_sample, k sweeps beside k conv3d);
                 E8 march at 96x64 and on W's state at 1920x1080, timed,
                 which must skip the rays that miss the box (the share that
                 enter printed, the bound counted over their steps), and on
@@ -252,7 +259,9 @@ Phases (one line each; any failure exits non-zero):
                 (1024^2) through the Terrarium codec, TerrainRenderer's base
                 at 1080p, then 8 frames of add_emitter, step and render_rgba
                 at 1080p composited over the base, counted (E8's step
-                kernels once a frame, 20 sweeps, the march once a frame and
+                launches a frame: the advection, the divergence and the
+                projection once, the 19 sweeps after the first in
+                ceil(19 / k) brick launches; the march once a frame and
                 once for a 7200x7200 master of the last state), each frame
                 split by stage cold and warm, a warm step split by launch,
                 the device's busy share of two warm frames, the grids' finite
@@ -347,9 +356,9 @@ card within FLOAT_TOL of the CPU's on FLOAT_FRAC of the voxels, its
 overlays within one u8 step everywhere and equal on U8_FRAC of the pixels.
 E8 step's rows carry `library_ms`: one F.grid_sample (trilinear, border,
 align_corners) over the fields each advection samples (three, four, and all
-seven for the whole step) and, for a sweep, one float32 F.conv3d of the
-7-point neighbour sum on the replicate-padded pressure (the whole step:
-the seven-field grid_sample plus 20 conv3d); the march has none.
+seven for the whole step) and, for a brick launch of k sweeps, k float32
+F.conv3d of the 7-point neighbour sum on the replicate-padded pressure (the
+whole step: the seven-field grid_sample plus 20 conv3d); the march has none.
 
 P6, P5, P3 and P4 gates (phases 22-24), set to what the card showed: every
 output bit-identical to the plain version (P4's HDR and rgba too).
@@ -481,10 +490,12 @@ REPLACES = {
     # whole and by launch, and the march (render_rgba 332, fori_loop 429)
     "E8 step": ("forge3d_tpu_torch/csrc/smoke.cu",
                 "forge3d_tpu/smoke.py:206 (jit :269, _trilinear :87, Jacobi :251-255)"),
-    "E8 step: forces": ("forge3d_tpu_torch/csrc/smoke.cu", "forge3d_tpu/smoke.py:223-227"),
+    # the forces folded into the self-advection, the first sweep into the
+    # divergence, the other sweeps up to k a launch
     "E8 step: advect_velocity": ("forge3d_tpu_torch/csrc/smoke.cu",
-                                 "forge3d_tpu/smoke.py:230 (_trilinear :87)"),
-    "E8 step: divergence": ("forge3d_tpu_torch/csrc/smoke.cu", "forge3d_tpu/smoke.py:242-248"),
+                                 "forge3d_tpu/smoke.py:223-230 (_trilinear :87)"),
+    "E8 step: divergence": ("forge3d_tpu_torch/csrc/smoke.cu",
+                            "forge3d_tpu/smoke.py:242-248 (the first sweep :251-253)"),
     "E8 step: jacobi": ("forge3d_tpu_torch/csrc/smoke.cu", "forge3d_tpu/smoke.py:251-255"),
     "E8 step: project_advect": ("forge3d_tpu_torch/csrc/smoke.cu",
                                 "forge3d_tpu/smoke.py:256-266 (_trilinear :87)"),
@@ -724,7 +735,10 @@ EARLIER = {"E4 vector_coverage": "a-launch-a-layer, every-primitive design 29.64
            "S8 shade (A)": "row-of-128, taps-through-pointers design 0.3161",
            "S8 shade (B)": "row-of-128, taps-through-pointers design 0.3884",
            "S8 shade (C)": "row-of-128, taps-through-pointers design 0.6454",
-           "S8 shade (D)": "row-of-128, taps-through-pointers design 0.5104"}
+           "S8 shade (D)": "row-of-128, taps-through-pointers design 0.5104",
+           # the designs before the Jacobi bricks and E3's lattice tiles
+           "E8 step": "24-launch, a-sweep-a-launch design 0.7685",
+           "E3 atrous_denoise": "thread-a-pixel, taps-from-memory design 2.2900"}
 
 
 def kernel_row(name, launches, err, ms, plain_ms, bound_ms, bound_by):
@@ -1402,11 +1416,14 @@ def launcher_ms(fn, symbol: str, reps: int) -> float:
 # without the accumulator's read-modify-write; C: K3's scan alone over a
 # filled profile; S8 self: every PCSS load at the receiver's own texel
 # (what the taps' scatter costs); S8 const: PCSS a constant that the
-# receiver keeps live (what PCSS costs). Their outputs are not the kernels'
-# and are not checked.
+# receiver keeps live (what PCSS costs); E3 self: every E3 tap (every staged
+# slot) read at one pixel (what the scattered reads cost); E3 const: each of
+# E3's four exponentials a constant (what the weights' arithmetic costs).
+# Their outputs are not the kernels' and are not checked.
 SPLIT_BUILDS = {"A": ("F3D_K7_SELF_TAPS", "F3D_K3_SPLIT=1"), "B": ("F3D_K3_SPLIT=2",),
                 "C": ("F3D_K3_SPLIT=3",), "S8 self": ("F3D_S8_PCSS_SELF",),
-                "S8 const": ("F3D_S8_PCSS_CONST",)}
+                "S8 const": ("F3D_S8_PCSS_CONST",), "E3 self": ("F3D_E3_SELF_TAPS",),
+                "E3 const": ("F3D_E3_CONST_EXP",)}
 _VARIANT_LIBS = {}
 
 
@@ -2452,17 +2469,39 @@ def phase_r1_step(dem):
     return err, ms, plain_ms, bms, by
 
 
-def phase_post(dem):
-    """E3 at 1080p (5 iterations, all three guides, on a 1-sample offline
-    resolve) and E5's 128x64 bake against their plain versions; both timed.
-    Returns {name: (max |err|, kernel ms, plain ms, bound ms, bound by)}."""
+def atrous_by_pass(prep, ks, reps=10):
+    """{spacing: ms} of E3's five passes at 1080p, each launch alone queued
+    behind a spin (the launcher called with the pass's input)."""
     import torch
 
-    from forge3d_tpu_torch import sky
+    from forge3d_tpu_torch import _kernels
+
+    c, alb, nrm, dep = prep
+    args = _kernels.AtrousArgs(*(None if g is None else g.data_ptr() for g in (alb, nrm, dep)),
+                               c.shape[1], c.shape[0], *ks)
+    src, out = c, {}
+    for it in range(5):
+        dst = torch.empty_like(c)
+
+        def one(src=src, dst=dst, s=1 << it):
+            _kernels.check(_kernels.lib().f3d_atrous_pass(args, _kernels.ptr(src),
+                                                          _kernels.ptr(dst), s,
+                                                          _kernels.stream_ptr(c.device)),
+                           "E3 atrous_denoise (a pass)")
+        out[1 << it] = round(queued_ms(one, reps), 4)
+        src = dst
+    return out
+
+
+def offline_e3_inputs(dem):
+    """E3's 1080p inputs as phase 15 forms them: a 1-sample offline resolve
+    of TerrainRenderer A over bench.py's DEM, prepared (the depth scaled),
+    and the four float32 sigma terms."""
+    import torch
+
     from forge3d_tpu_torch.ops import denoise as dn
     from forge3d_tpu_torch.terrain import renderer as rr
 
-    res = {}
     r = rr.TerrainRenderer(device="cuda")
     r.begin_offline_accumulation(params=r1_params("A", REAL_W, REAL_H), heightmap=dem)
     r.accumulate_batch(1)
@@ -2472,7 +2511,21 @@ def phase_post(dem):
     c = torch.as_tensor(hdr.rgb, device=dev)
     g = {k: torch.as_tensor(aov[k], device=dev) for k in ("albedo", "normal", "depth")}
     prep = dn._prepare(c, g["albedo"], g["normal"], g["depth"])
-    ks = [dn._sigma_k(s) for s in (0.30, 0.30, 0.60, 0.80)]
+    return prep, [dn._sigma_k(s) for s in (0.30, 0.30, 0.60, 0.80)], hdr, aov
+
+
+def phase_post(dem):
+    """E3 at 1080p (5 iterations, all three guides, on a 1-sample offline
+    resolve) and E5's 128x64 bake against their plain versions; both timed.
+    Returns {name: (max |err|, kernel ms, plain ms, bound ms, bound by)}."""
+    import torch
+
+    from forge3d_tpu_torch import sky
+    from forge3d_tpu_torch.ops import denoise as dn
+
+    res = {}
+    dev = torch.device("cuda")
+    prep, ks, hdr, aov = offline_e3_inputs(dem)
     got = dn._atrous_kernel(*prep, 5, *ks)
     den = dn.atrous_denoise(hdr.rgb, aov["albedo"], aov["normal"], aov["depth"])
     require(den.is_cuda and torch.equal(den, got),
@@ -2487,7 +2540,9 @@ def phase_post(dem):
     res["E3 atrous_denoise"] = (err, ms, plain_ms, bms, by)
     say("post", f"E3 atrous_denoise {REAL_W}x{REAL_H}, 5 iterations, three guides: every element "
                 f"within tolerance, max |err| {err:.3e}; kernel {ms:.4f} ms (5 launches), plain "
-                f"{plain_ms:.1f} ms, bound {bms:.4f} ms ({by})")
+                f"{plain_ms:.1f} ms, bound {bms:.4f} ms ({by}); by pass (queued): "
+                f"{json.dumps(atrous_by_pass(prep, ks))}; build "
+                f"{json.dumps(dn.atrous_attrs()) if hasattr(dn, 'atrous_attrs') else 'n/a'}")
 
     s = sky.make_hosek_sky(315.0, 45.0, turbidity=3.0, ground_albedo=0.3)
     d = [torch.as_tensor(v, device=dev) for v in sky.bake_directions(128, 64)]
@@ -5154,12 +5209,15 @@ def grid_sample_fields(fields, b):
 
 
 def phase_smoke_kernels():
-    """Each E8 kernel against its plain version on the card: the five step
-    stages on a 20x24x28 domain (jacobi 0, 1 and 20) and on W's 256x50x256 step,
-    bit for bit; the march at 96x64 and on W's state at 1920x1080. At W's
-    shapes each timed beside its plain version, the advection beside one
-    grid_sample and the sweeps beside a conv3d. Returns {row: (max |err|,
-    ms, plain ms, bound ms, bound by, library ms)}."""
+    """Each E8 kernel against its plain version on the card: the step on a
+    20x24x28 domain (jacobi 0, 1 and 20) and, launch by launch (the forces
+    with the self-advection, the divergence with the first sweep, a launch of
+    k sweeps in bricks, the projection with the scalar advection) and whole,
+    on W's 256x50x256 step, bit for bit; the march at 96x64 and on W's state
+    at 1920x1080. At W's shapes each timed beside its plain version, the
+    advection beside one grid_sample and the sweeps beside k conv3d.
+    Returns {row: (max |err|, ms, plain ms, bound ms, bound by, library
+    ms)}."""
     import torch
     import torch.nn.functional as F
 
@@ -5208,30 +5266,41 @@ def phase_smoke_kernels():
                              + (f", library {lib_ms:.4f} ms" if lib_ms is not None else ""))
         return got
 
-    (vf,) = stage("E8 step: forces", lambda: O._forces_kernel(g["velocity"], g["temperature"], k),
-                  lambda: O._forces_plain(g["velocity"], g["temperature"], k), nvox * 28,
-                  nvox * OPS_FORCES)
+    levels = O.jacobi_levels()
+    vf = O._forces_plain(g["velocity"], g["temperature"], k)
     xs, ys, zs = O._axes(W_SHAPE, dev)
     bvel = (xs - k.dt * vf[0], ys - k.dt * vf[1], zs - k.dt * vf[2])
-    (va,) = stage("E8 step: advect_velocity", lambda: O._advect_velocity_kernel(vf, k),
-                  lambda: O._advect_velocity_plain(vf, k), nvox * 24, nvox * OPS_ADVECT_VEL,
-                  grid_sample_fields(vf, bvel))
-    (div,) = stage("E8 step: divergence", lambda: O._divergence_kernel(va),
-                   lambda: O._divergence_plain(va), nvox * 16, nvox * OPS_DIVERGENCE)
-    p1 = O._jacobi_kernel(None, div, k)
+    (va,) = stage("E8 step: advect_velocity",
+                  lambda: O._advect_velocity_kernel(g["velocity"], g["temperature"], k),
+                  lambda: O._forces_advect_plain(g["velocity"], g["temperature"], k), nvox * 28,
+                  nvox * (OPS_FORCES + OPS_ADVECT_VEL), grid_sample_fields(vf, bvel))
+    def plain_div():
+        d = O._divergence_plain(va)
+        return d, O._jacobi_plain(None, d, k)
+
+    def plain_sweeps():
+        p = p1
+        for _ in range(levels):
+            p = O._jacobi_plain(p, div, k)
+        return p
+
+    div, p1 = stage("E8 step: divergence", lambda: O._divergence_kernel(va, k), plain_div,
+                    nvox * 20, nvox * (OPS_DIVERGENCE + 2))
     w7 = torch.zeros((1, 1, 3, 3, 3), device=dev)
     for z, y, x in ((0, 1, 1), (2, 1, 1), (1, 0, 1), (1, 2, 1), (1, 1, 0), (1, 1, 2)):
         w7[0, 0, z, y, x] = 1.0
     ppad = F.pad(p1[None, None], (1, 1, 1, 1, 1, 1), mode="replicate")
     tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
-    (p2,) = stage("E8 step: jacobi", lambda: O._jacobi_kernel(p1, div, k),
-                  lambda: O._jacobi_plain(p1, div, k), nvox * 12, nvox * OPS_JACOBI,
-                  lambda: F.conv3d(ppad, w7))
+    (pk,) = stage("E8 step: jacobi", lambda: O._jacobi_kernel(p1, div, k, levels=levels),
+                  plain_sweeps,
+                  nvox * 12, nvox * OPS_JACOBI * levels,
+                  lambda: [F.conv3d(ppad, w7) for _ in range(levels)])
+    conv_ms = res["E8 step: jacobi"][5] / levels
     conv_err = max_abs(O._jacobi_plain(p1, div, k),
                        (F.conv3d(ppad, w7)[0, 0] - div) * k.sixth)
     torch.backends.cudnn.allow_tf32 = tf32
-    pa_args = (va, p2, g["density"], g["temperature"], g["soot"], g["emission"], k)
+    pa_args = (va, pk, g["density"], g["temperature"], g["soot"], g["emission"], k)
     xs_, ys_, zs_ = (xs - k.dt * va[0], ys - k.dt * va[1], zs - k.dt * va[2])
     scalars = torch.stack([g["density"], g["temperature"], g["soot"], g["emission"]])
     stage("E8 step: project_advect", lambda: O._project_advect_kernel(*pa_args),
@@ -5252,14 +5321,14 @@ def phase_smoke_kernels():
     ops = nvox * (OPS_FORCES + OPS_ADVECT_VEL + OPS_DIVERGENCE + k.jacobi * OPS_JACOBI
                   + OPS_PROJECT)
     bms, by = bound(nvox * 56, ops)
-    conv_ms = res["E8 step: jacobi"][5]
     res["E8 step"] = (0.0, ms, plain_ms, bms, by, gs7_ms + k.jacobi * conv_ms)
-    say("smoke kernels", f"E8 step {dom.nx}x{dom.ny}x{dom.nz}, {4 + k.jacobi} launches: "
-                         f"bit-identical; kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, bound "
-                         f"{bms:.4f} ms ({by}); library: grid_sample of the 7 fields "
-                         f"{gs7_ms:.4f} ms (max |d| {gs_err:.3e} from the plain velocity "
-                         f"advection) + {k.jacobi} conv3d {conv_ms:.4f} ms each (max |d| "
-                         f"{conv_err:.3e} from a sweep)")
+    say("smoke kernels", f"E8 step {dom.nx}x{dom.ny}x{dom.nz}, "
+                         f"{O.step_launches(k.jacobi, levels)} launches (up to {levels} sweeps "
+                         f"a launch; {json.dumps(O.jacobi_attrs())}): bit-identical; kernel "
+                         f"{ms:.4f} ms, plain {plain_ms:.1f} ms, bound {bms:.4f} ms ({by}); "
+                         f"library: grid_sample of the 7 fields {gs7_ms:.4f} ms (max |d| "
+                         f"{gs_err:.3e} from the plain velocity advection) + {k.jacobi} conv3d "
+                         f"{conv_ms:.4f} ms each (max |d| {conv_err:.3e} from a sweep)")
 
     # the march: test scale, then W at 1080p
     small = O.march_setup((20, 24, 28), (2.0, 1.5, 3.0), (-5.0, 1.0, 2.0), 96, 64,
@@ -5339,6 +5408,41 @@ def w_emitter():
     return SmokeEmitter(**W_EMITTER)
 
 
+def w_base():
+    """W's terrain base: the rainier DEM (1024^2, generated and cached under
+    build/chip_smoke/data) through the Terrarium codec, TerrainRenderer at
+    1080p. Returns (DEM ms, the decoded DEM, fetch_dem's info, base ms, the
+    base rgba)."""
+    import os
+
+    import forge3d_tpu_torch as f3t
+    from forge3d_tpu_torch.terrain.params import make_terrain_params
+
+    os.environ["FORGE3D_DATA_DIR"] = os.path.join("build", "chip_smoke", "data")  # .gitignore'd
+    dem_ms, (dem, info) = wall_ms(lambda: f3t.fetch_dem("rainier"))
+    dem = f3t.decode_terrarium_dem(f3t.build_terrarium_dem(dem))
+    p = make_terrain_params(size_px=(REAL_W, REAL_H), cam_target=(512.0, 0.0, 512.0),
+                            cam_radius=1680.0, cam_theta_deg=35.0, z_scale=0.08)
+    r = f3t.TerrainRenderer(device=CARD)
+    base_ms, fr = wall_ms(lambda: r.render_terrain_pbr_pom(params=p, heightmap=dem))
+    return dem_ms, dem, info, base_ms, fr.rgba
+
+
+def w_frame(dom, em, sset, rs, base):
+    """One frame of W: add_emitter, step, render_rgba at 1080p, composited
+    over the base. Returns (wall ms by stage and the frame's, the overlay,
+    the frame)."""
+    t = {}
+    t["emitter"], _ = wall_ms(lambda: dom.add_emitter(em, sset.dt))
+    t["step"], _ = wall_ms(lambda: dom.step(sset))
+    t["render_rgba"], overlay = wall_ms(lambda: dom.render_rgba(REAL_W, REAL_H, rs, **W_CAM))
+    t0 = time.perf_counter()
+    frame = composite(base, overlay)
+    t["composite"] = (time.perf_counter() - t0) * 1e3
+    t["frame"] = sum(t.values())
+    return t, overlay, frame
+
+
 def composite(base, overlay):
     """examples/wildfire_smoke_frames.py:50-53."""
     a = overlay[..., 3:4].astype(np.float32) / 255.0
@@ -5350,7 +5454,7 @@ def composite(base, overlay):
 def _smoke_counters():
     from forge3d_tpu_torch.ops import smoke as O
 
-    return {"E8 step: forces": O.smoke_forces, "E8 step: advect_velocity": O.smoke_advect_velocity,
+    return {"E8 step: advect_velocity": O.smoke_advect_velocity,
             "E8 step: divergence": O.smoke_divergence, "E8 step: jacobi": O.smoke_jacobi,
             "E8 step: project_advect": O.smoke_project_advect, "E8 march": O.smoke_march}
 
@@ -5377,32 +5481,21 @@ def device_busy_ms(fn):
 def phase_wildfire():
     """Configuration W, the main path: the rainier DEM (1024^2) through the
     Terrarium codec, TerrainRenderer's base at 1080p, then 8 frames of
-    add_emitter, step and render_rgba at 1080p composited over the base, with
-    every count set to 0 before and read after (E8's five step kernels and
-    the march must launch), the frame time split by stage cold and warm, the
-    device's busy share, the grids' finite share and the frames' alpha
+    add_emitter, step and render_rgba at 1080p composited over the base
+    (w_frame), with every count set to 0 before and read after (E8's four
+    step kernels, the sweeps in ceil(19 / k) launches a step, and the march
+    must launch), the frame time split by stage cold and warm, the device's
+    busy share, the grids' finite share and the frames' alpha
     coverage; then one 7200x7200 master of the last state, and W's pipeline
     at 24x16x24 on the card against the CPU's plain versions. Returns the
     launches."""
-    import os
-
     import torch
 
     import forge3d_tpu_torch as f3t
     from forge3d_tpu_torch.ops import smoke as O
     from forge3d_tpu_torch.smoke import SmokeRenderSettings, SmokeStepSettings
-    from forge3d_tpu_torch.terrain.params import make_terrain_params
 
-    data = os.path.join("build", "chip_smoke", "data")   # listed in .gitignore
-    os.environ["FORGE3D_DATA_DIR"] = data
-    dem_ms, (dem, info) = wall_ms(lambda: f3t.fetch_dem("rainier"))
-    rgb = f3t.build_terrarium_dem(dem)
-    dem = f3t.decode_terrarium_dem(rgb)
-    p = make_terrain_params(size_px=(REAL_W, REAL_H), cam_target=(512.0, 0.0, 512.0),
-                            cam_radius=1680.0, cam_theta_deg=35.0, z_scale=0.08)
-    r = f3t.TerrainRenderer(device=CARD)
-    base_ms, fr = wall_ms(lambda: r.render_terrain_pbr_pom(params=p, heightmap=dem))
-    base = fr.rgba
+    dem_ms, dem, info, base_ms, base = w_base()
     say("wildfire", f"DEM rainier {dem.shape[1]}x{dem.shape[0]} in {dem_ms:.1f} ms (generated "
                     f"and cached: {not info['cached']}), Terrarium round trip max |d| "
                     f"{float(np.abs(f3t.fetch_dem('rainier')[0] - dem).max()):.4f} m; base "
@@ -5420,15 +5513,9 @@ def phase_wildfire():
     torch.cuda.reset_peak_memory_stats()
     frames, splits, skipped = [], [], []
     for i in range(W_FRAMES):
-        t = {}
-        t["emitter"], _ = wall_ms(lambda: dom.add_emitter(em, sset.dt))
-        t["step"], _ = wall_ms(lambda: dom.step(sset))
-        t["render_rgba"], overlay = wall_ms(lambda: dom.render_rgba(REAL_W, REAL_H, rs, **W_CAM))
+        t, overlay, frame = w_frame(dom, em, sset, rs, base)
         skipped.append(march_skipped())
-        t0 = time.perf_counter()
-        frames.append(composite(base, overlay))
-        t["composite"] = (time.perf_counter() - t0) * 1e3
-        t["frame"] = sum(t.values())
+        frames.append(frame)
         t["alpha_coverage"] = float((overlay[..., 3] > 0).mean())
         t["finite"] = float(min(torch.isfinite(getattr(dom, n)).double().mean()
                                 for n in SMOKE_GRIDS))
@@ -5442,10 +5529,13 @@ def phase_wildfire():
     peak = torch.cuda.max_memory_allocated()
     say("wildfire", f"launches {json.dumps(counts)}; peak device memory {peak} B; the domain "
                     f"{dom.nx}x{dom.ny}x{dom.nz} set up in {setup_ms:.1f} ms")
-    require(counts == {"E8 step: forces": W_FRAMES, "E8 step: advect_velocity": W_FRAMES,
-                       "E8 step: divergence": W_FRAMES, "E8 step: jacobi": 20 * W_FRAMES,
-                       "E8 step: project_advect": W_FRAMES, "E8 march": W_FRAMES + 1},
-            f"W did not run E8's kernels as its path should: {counts}")
+    levels = O.jacobi_levels()
+    jac = O.step_launches(sset.jacobi_iters, levels) - 3   # ceil((jacobi - 1) / levels)
+    require(counts == {"E8 step: advect_velocity": W_FRAMES, "E8 step: divergence": W_FRAMES,
+                       "E8 step: jacobi": jac * W_FRAMES, "E8 step: project_advect": W_FRAMES,
+                       "E8 march": W_FRAMES + 1},
+            f"W did not run E8's kernels as its path should ({jac} Jacobi launches a step, up "
+            f"to {levels} sweeps each): {counts}")
     require(all(t["finite"] == 1.0 for t in splits), "W's grids hold non-finite values")
     cov = [t["alpha_coverage"] for t in splits]
     require(all(0.05 < c for c in cov) and master.shape == (MASTER, MASTER, 4),
@@ -5478,14 +5568,16 @@ def phase_wildfire():
     # warm frames
     k = O.step_consts(sset)
     args = tuple(getattr(dom, n) for n in SMOKE_GRIDS)
-    vf = O._forces_kernel(args[1], args[2], k)
-    va = O._advect_velocity_kernel(vf, k)
-    div = O._divergence_kernel(va)
-    p1 = O._jacobi_kernel(None, div, k)
-    split = {"forces": cuda_ms(lambda: O._forces_kernel(args[1], args[2], k), 5),
-             "advect_velocity": cuda_ms(lambda: O._advect_velocity_kernel(vf, k), 5),
-             "divergence": cuda_ms(lambda: O._divergence_kernel(va), 5),
-             "jacobi (one sweep)": cuda_ms(lambda: O._jacobi_kernel(p1, div, k), 20),
+    va = O._advect_velocity_kernel(args[1], args[2], k)
+    div, p1 = O._divergence_kernel(va, k)
+    last = (sset.jacobi_iters - 1) % levels or levels
+    split = {"advect_velocity (with the forces)":
+             cuda_ms(lambda: O._advect_velocity_kernel(args[1], args[2], k), 5),
+             "divergence (with the first sweep)": cuda_ms(lambda: O._divergence_kernel(va, k), 5),
+             f"jacobi ({levels} sweeps)": cuda_ms(lambda: O._jacobi_kernel(p1, div, k,
+                                                                           levels=levels), 20),
+             f"jacobi ({last} sweeps, the last launch)": cuda_ms(
+                 lambda: O._jacobi_kernel(p1, div, k, levels=last), 20),
              "project_advect": cuda_ms(lambda: O._project_advect_kernel(va, p1, args[0],
                                                                         args[2], args[3],
                                                                         args[4], k), 5)}
@@ -6831,6 +6923,144 @@ def probe_e2s8(torch):
     say("probe", f"K's render {REAL_W}x{REAL_H}: sha256 {_sha(torch.as_tensor(rgba))}")
 
 
+def launch_spans(fn, prefix: str):
+    """[(launcher, device ms)] of the launches fn() makes through the
+    ctypes launchers whose names start with `prefix`, in order: CUDA events
+    recorded just before and after each call, after one warm fn(), with
+    the calls queued behind a spinning kernel so that each span is its
+    launch's device time alone."""
+    import torch
+
+    from forge3d_tpu_torch import _kernels
+
+    real, spans = _kernels.lib, []
+
+    class Timed:
+        def __init__(self, lib):
+            self._lib = lib
+
+        def __getattr__(self, name):
+            f = getattr(self._lib, name)
+            if not name.startswith(prefix):
+                return f
+
+            def call(*args):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = f(*args)
+                end.record()
+                spans.append((name, start, end))
+                return out
+            return call
+
+    warm_ms = wall_ms(fn)[0]
+    _kernels.lib = lambda: Timed(real())
+    try:
+        torch.cuda._sleep(int(max(warm_ms, 0.05) * 8e6))   # ~4x the call's wall time at 2 GHz
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        _kernels.lib = real
+    return [(name, a.elapsed_time(b)) for name, a, b in spans]
+
+
+def probe_e8e3(torch, half=None):
+    """E8 step on W's state after two emitter steps (jacobi 20) and E3 at
+    1080p with three guides (phase 15's inputs), each timed as launched and
+    queued behind a spin. The step's launches timed one by one, queued,
+    their sum against the step (the rest is the gaps between launches), its
+    Jacobi launches inside the step against a sweep launched alone (and, in
+    a tree with bricks, a launch of k sweeps alone); E3 by pass, and by pass
+    in the measurement builds E3 self and E3 const (SPLIT_BUILDS; a parent
+    copy needs their macros added); then a sha256 of the step's five grids
+    and of E3's output. Calls only entry points that the port has had since
+    E8 and E3 were first ported (the bricks' attributes where the tree has
+    them). `half` "E8" or "E3" runs that half alone."""
+    from forge3d_tpu_torch.ops import denoise as dn
+    from forge3d_tpu_torch.ops import smoke as O
+    from forge3d_tpu_torch.smoke import SmokeStepSettings
+
+    if half == "E3":
+        return probe_e3(torch, dn)
+    dev = torch.device("cuda")
+    dom = w_domain(dev)
+    em, sset = w_emitter(), SmokeStepSettings(**W_STEP)
+    for _ in range(2):
+        dom.add_emitter(em, sset.dt)
+        dom.step(sset)
+    k = O.step_consts(sset)
+    args = tuple(getattr(dom, n) for n in SMOKE_GRIDS)
+    fn = lambda: O.smoke_step(*args, k)  # noqa: E731
+    out = fn()
+    t = {"as launched": cuda_ms(fn, 10), "queued": queued_ms(fn, 10)}
+    spans = launch_spans(fn, "f3d_smoke_")
+    by = {}
+    for name, ms in spans:
+        by.setdefault(name[len("f3d_smoke_"):], []).append(round(ms, 4))
+    t["launches"] = len(spans)
+    t["sum of launches"] = sum(ms for _, ms in spans)
+    t["queued - sum"] = t["queued"] - t["sum of launches"]
+    va = O._advect_velocity_plain(O._forces_plain(args[1], args[2], k), k)
+    div = O._divergence_plain(va)
+    p1 = O._jacobi_plain(None, div, k)
+    t["a sweep alone"] = cuda_ms(lambda: O._jacobi_kernel(p1, div, k), 20)
+    if hasattr(O, "jacobi_attrs"):
+        a = O.jacobi_attrs()
+        t[f"{a['levels']} sweeps alone"] = cuda_ms(
+            lambda: O._jacobi_kernel(p1, div, k, levels=a["levels"]), 20)
+        say("probe", f"E8 jacobi bricks: {json.dumps(a)}")
+    jac = by.get("jacobi", [])
+    shown = {n: round(v, 4) if isinstance(v, float) else v for n, v in t.items()}
+    say("probe", f"E8 step {W_SHAPE[2]}x{W_SHAPE[1]}x{W_SHAPE[0]}, jacobi {k.jacobi} (ms): "
+                 f"{json.dumps(shown)}; by launcher, queued: {json.dumps(by)}; a Jacobi "
+                 f"launch in the step {np.mean(jac) if jac else 0.0:.4f} on average")
+    say("probe", f"E8 step W: sha256 {_sha(list(out))}")
+    if half != "E8":
+        probe_e3(torch, dn)
+
+
+def probe_e3(torch, dn):
+    """probe_e8e3's E3 half."""
+    prep, ks, _, _ = offline_e3_inputs(bench_dem())
+    fn = lambda: dn._atrous_kernel(*prep, 5, *ks)  # noqa: E731
+    out = fn()
+    t = {"as launched": cuda_ms(fn, 10), "queued": queued_ms(fn, 10),
+         "by pass": atrous_by_pass(prep, ks)}
+    for name in ("E3 self", "E3 const"):
+        t[name] = with_lib(variant_lib(name), lambda: atrous_by_pass(prep, ks))
+    shown = {n: round(v, 4) if isinstance(v, float) else v for n, v in t.items()}
+    say("probe", f"E3 {REAL_W}x{REAL_H}, 5 passes, three guides (ms, by spacing queued): "
+                 f"{json.dumps(shown)}")
+    if hasattr(dn, "atrous_attrs"):
+        say("probe", f"E3 build: {json.dumps(dn.atrous_attrs())}")
+    say("probe", f"E3 {REAL_W}x{REAL_H}: sha256 {_sha(out)}")
+
+
+def probe_w(torch):
+    """W's frames as phase 29 runs them (w_frame, W_FRAMES frames from the
+    same seeded state), each frame's split and the warm frames' mean, then
+    the device's busy share of two warm frames. Calls only entry points the
+    port has had since E8 was first ported."""
+    from forge3d_tpu_torch.smoke import SmokeRenderSettings, SmokeStepSettings
+
+    base = w_base()[-1]
+    dom, em = w_domain(CARD), w_emitter()
+    sset, rs = SmokeStepSettings(**W_STEP), SmokeRenderSettings()
+    splits = []
+    for i in range(W_FRAMES):
+        splits.append(w_frame(dom, em, sset, rs, base)[0])
+        shown = {k: round(v, 4) for k, v in splits[-1].items()}
+        say("probe", f"W frame {i} (ms): {json.dumps(shown)}")
+    warm = {k: float(np.mean([t[k] for t in splits[1:]])) for k in splits[0]}
+    say("probe", f"W warm mean of {W_FRAMES - 1} (ms): "
+                 f"{json.dumps({k: round(v, 4) for k, v in warm.items()})}")
+    host, device = device_busy_ms(lambda: [w_frame(dom, em, sset, rs, base) for _ in range(2)])
+    say("probe", f"W two warm frames under the profiler: {host:.1f} ms host, device kernels "
+                 + (f"{device:.2f} ms, busy {device / host:.4f}" if device is not None else
+                    "not measured"))
+
+
 def probe(torch, only=None):
     """`chip_smoke.py --probe`: E4 (probe_e4), R1 (probe_r1) and P3
     (probe_p3), then K2 and
@@ -6862,6 +7092,12 @@ def probe(torch, only=None):
         return
     if only == "E2S8":
         probe_e2s8(torch)
+        return
+    if only in ("E8E3", "E8", "E3"):
+        probe_e8e3(torch, None if only == "E8E3" else only)
+        return
+    if only == "W":
+        probe_w(torch)
         return
     if only == "P6P4":
         dem = bench_dem()
@@ -6998,7 +7234,7 @@ def main() -> int:
     smoke_launches = phase_wildfire()
     smoke_launches["E8 step"] = sum(v for k, v in smoke_launches.items()
                                     if k.startswith("E8 step: "))
-    for kernel in ("E8 step", "E8 step: forces", "E8 step: advect_velocity",
+    for kernel in ("E8 step", "E8 step: advect_velocity",
                    "E8 step: divergence", "E8 step: jacobi", "E8 step: project_advect",
                    "E8 march"):
         *vals, lib_ms = smoke[kernel]

@@ -398,6 +398,8 @@ _SIGNATURES = {
                          ctypes.POINTER(TerrainOut), _P, _P],
     # (args, in, out, step, stream)
     "f3d_atrous_pass": [ctypes.POINTER(AtrousArgs), _P, _P, _I, _P],
+    # (out (registers, local bytes, resident blocks, shared bytes, tile x, tile y))
+    "f3d_atrous_attrs": [_P],
     # (sky, dx, dy, dz, n, rgb, stream)
     "f3d_hosek_radiance": [ctypes.POINTER(HosekArgs), _P, _P, _P, _I, _P, _P],
     # (eq, eq_h, eq_w, dirs, size, out, stream)
@@ -467,14 +469,14 @@ _SIGNATURES = {
     "f3d_rect_lights": [_P, _P, _P, _I, _P, _I, _P, _P],
     # E1: (env, env_h, env_w, dirs, weights, samples, texels, mode, out, stream)
     "f3d_equirect_accum": [_P, _I, _I, _P, _P, _I, _I, _I, _P, _P],
-    # E8 step: (vel, temp, vf, n, dtb, amb, w0, w1, w2, kdamp, stream)
-    "f3d_smoke_forces": [_P, _P, _P, ctypes.c_longlong] + [_F] * 6 + [_P],
-    # (vf, va, nx, ny, nz, dt, forms, stream)
-    "f3d_smoke_advect_velocity": [_P, _P, _I, _I, _I, _F, _I, _P],
-    # (va, div, nx, ny, nz, stream)
-    "f3d_smoke_divergence": [_P, _P, _I, _I, _I, _P],
-    # (p or null, div, p_out, nx, ny, nz, sixth, stream)
-    "f3d_smoke_jacobi": [_P, _P, _P, _I, _I, _I, _F, _P],
+    # E8 step: (vel, temp, va, nx, ny, nz, dt, dtb, amb, w0, w1, w2, kdamp, forms, stream)
+    "f3d_smoke_advect_velocity": [_P, _P, _P, _I, _I, _I] + [_F] * 7 + [_I, _P],
+    # (va, div, p1 or null, nx, ny, nz, sixth, stream)
+    "f3d_smoke_divergence": [_P, _P, _P, _I, _I, _I, _F, _P],
+    # (p or null, div, p_out, nx, ny, nz, sixth, levels, stream)
+    "f3d_smoke_jacobi": [_P, _P, _P, _I, _I, _I, _F, _I, _P],
+    # (out (registers, local bytes, resident blocks, shared bytes, levels, brick x, y, z))
+    "f3d_jacobi_attrs": [_P],
     # (va, p or null, div or null, dens, temp, soot, emis, vel_out, dens_out,
     #  temp_out, soot_out, emis_out, nx, ny, nz, dt, keep, keep2, sixth, stream)
     "f3d_smoke_project_advect": [_P] * 12 + [_I, _I, _I, _F, _F, _F, _F, _P],

@@ -5,7 +5,7 @@
 // nothing, and returns cudaGetLastError().
 //
 // E3 atrous_kernel  replaces forge3d_tpu/ops/denoise.py:atrous_denoise (35),
-//                   one launch per iteration
+//                   one launch per iteration, a CTA a lattice tile
 // E5 hosek_kernel   replaces forge3d_tpu/sky.py:hosek_radiance (261)
 // E2 blur_kernel       replaces forge3d_tpu/ops/post.py:gaussian_blur (39),
 //                      two launches a blur (axis 0, then axis 1)
@@ -18,14 +18,20 @@
 //                      summed in list order in one launch
 //
 // E3: the JAX version forms each iteration as 25 shifted copies of the
-// image and its guides, summed as whole arrays; here one thread per pixel
-// reads its 25 edge-clamped taps and keeps the weighted sums in registers,
-// so the image and the guides are read from the cache and the output is
-// written once. Iterations ping-pong between two buffers, one launch each,
-// as tap spacing 1 << it needs the whole previous iteration. What bounds
-// it: 25 taps x (3 colour + 3 albedo + 3 normal + 1 depth) floats a pixel
-// from L2 and four expf per tap; at 1080p the planes (~83 MB) exceed the
-// 50 MB L2, so each pass streams them from device memory about once.
+// image and its guides, summed as whole arrays. Here a CTA takes a tile of
+// one sub-lattice of the pass's spacing (post.cuh:atrous_tile), stages it
+// with its halo in shared memory, forms each slot pair's weight once for
+// the two taps that use it, then adds each pixel's 25 taps in order from
+// shared memory; iterations ping-pong between two buffers, one launch
+// each, as tap spacing 1 << it needs the whole previous iteration. What
+// bounds it: the weights' four expf of an IEEE division each (the
+// arithmetic, ~60 operations a tap with three guides), which the pairs
+// nearly halve; the planes (~83 MB at 1080p, past the 50 MB L2) are read
+// about once a pass, each slot staged once a tile, with a 2-slot halo. At
+// spacing 8 and 16 a tile's slots are 8 and 16 pixels apart, each staged
+// slot and each output a sector of its own, which the per-pixel form read
+// through L1 from its neighbours' lines: those passes stay ~3-7% slower
+// than the per-pixel form's, the others ~10% faster (PERF.md).
 //
 // E5: one thread per direction of the environment bake, arithmetic only
 // (an acosf, a sqrtf and per channel two expf).
@@ -57,11 +63,18 @@ namespace {
 
 constexpr int kThreads = 256;
 
-__global__ void atrous_kernel(AtrousArgs a, const float* __restrict__ in,
-                              float* __restrict__ out, int step) {
-    int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= a.width * a.height) return;
-    atrous_pixel(a, in, out, step, i % a.width, i / a.width);
+// a CTA a tile: stage it, form its pairs' weights, then its pixels
+__global__ void __launch_bounds__(F3D_ATROUS_THREADS)
+atrous_kernel(AtrousArgs a, const float* __restrict__ in, float* __restrict__ out, int step) {
+    extern __shared__ AtrousQuad atrous_sm[];
+    const AtrousTile t = atrous_tile(a, atrous_sm, step, blockIdx.x);
+    if (t.empty()) return;
+    for (int e = threadIdx.x; e < kAtrousSlots; e += blockDim.x) atrous_stage(a, t, in, e);
+    __syncthreads();
+    atrous_weights(a, t, threadIdx.x, blockDim.x);
+    __syncthreads();
+    for (int e = threadIdx.x; e < F3D_ATROUS_TX * F3D_ATROUS_TY; e += blockDim.x)
+        atrous_output(a, t, out, e);
 }
 
 __global__ void hosek_kernel(HosekArgs s, const float* __restrict__ dx,
@@ -153,13 +166,37 @@ inline unsigned blocks(long long n) { return (unsigned)((n + kThreads - 1) / kTh
 
 extern "C" {
 
+// one pass at spacing `step`; cudaErrorInvalidValue for a step below 1 or
+// a grid past 2^31 - 1 tiles
 int f3d_atrous_pass(const AtrousArgs* a, const float* in, float* out, int step, void* stream) {
-    int n = a->width * a->height;
-    if (n > 0) {
-        atrous_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, (cudaStream_t)stream>>>(
-            *a, in, out, step);
-    }
+    if (a->width <= 0 || a->height <= 0) return (int)cudaGetLastError();
+    if (step < 1) return (int)cudaErrorInvalidValue;
+    const long long tiles = atrous_tiles(*a, step);
+    if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    const long long smem = atrous_shared_bytes(atrous_quads(*a));
+    atrous_kernel<<<(unsigned)tiles, F3D_ATROUS_THREADS, smem, (cudaStream_t)stream>>>(*a, in, out,
+                                                                                      step);
     return (int)cudaGetLastError();
+}
+
+// E3's build: out = {registers a thread, local (spilled) bytes a thread,
+// resident blocks an SM and shared bytes a block with all three guides, the
+// tile's slots along x and y}
+int f3d_atrous_attrs(int* out) {
+    const long long smem = atrous_shared_bytes(3);
+    cudaFuncAttributes at;
+    cudaError_t e = cudaFuncGetAttributes(&at, (const void*)atrous_kernel);
+    if (e != cudaSuccess) return (int)e;
+    int resident = 0;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, atrous_kernel, F3D_ATROUS_THREADS,
+                                                      (size_t)smem);
+    out[0] = at.numRegs;
+    out[1] = (int)at.localSizeBytes;
+    out[2] = resident;
+    out[3] = (int)smem;
+    out[4] = F3D_ATROUS_TX;
+    out[5] = F3D_ATROUS_TY;
+    return (int)e;
 }
 
 int f3d_hosek_radiance(const HosekArgs* s, const float* dx, const float* dy, const float* dz,

@@ -1,6 +1,6 @@
 // forge3d_tpu_torch/csrc/post.cuh
 // Per-element device code of the post passes: one guided 5x5 a-trous
-// iteration for one pixel (kernel E3, forge3d_tpu/ops/denoise.py:
+// iteration in lattice tiles (kernel E3, forge3d_tpu/ops/denoise.py:
 // atrous_denoise, 35) and the Hosek-Wilkie RGB sky radiance for one
 // direction (kernel E5, forge3d_tpu/sky.py:hosek_radiance, 261). Float32,
 // in the JAX functions' operation order, so that the kernels in post.cu
@@ -31,39 +31,259 @@ struct AtrousArgs {
 
 F3D_HD int clampi(int v, int lo, int hi) { return v < lo ? lo : (v > hi ? hi : v); }
 
-F3D_HD float sq_dist3(const float* p, int i, int j) {
-    float d0 = p[3 * j + 0] - p[3 * i + 0];
-    float d1 = p[3 * j + 1] - p[3 * i + 1];
-    float d2 = p[3 * j + 2] - p[3 * i + 2];
+// E3 in lattice tiles (post.cu:atrous_kernel). A pass at tap spacing s
+// splits the image into its sub-lattices, (x, y) = (a + u s, b + v s) for
+// a, b < s, on each of which the 25 taps (ky, kx) of atrous_denoise, read
+// at the edge-clamped pixel (y - ky s, x - kx s) as denoise.py:_shift2d
+// does, form a dense 5x5 stencil of slots: tap (ky, kx) of slot (u, v) is
+// slot (u - kx, v - ky). A CTA takes a tile of F3D_ATROUS_TX x
+// F3D_ATROUS_TY slots of one sub-lattice and
+// 1. stages the tile and a halo of 2 slots in shared memory, each slot the
+//    pixel (clampi(a + u s), clampi(b + v s)) that the taps read there (a
+//    halo slot may hold the edge's pixel, or one of another sub-lattice):
+//    its colour and each guide present, as up to three 16-byte quads;
+// 2. forms each pair's weight once. A tap's weight kw(o) exp(-d_c / k_c)
+//    exp(-d_a / k_a) exp(-d_n / k_n) exp(-d_d / k_d) depends only on the
+//    two slots' values and on kw, and it is the same for the pair (i, j) at
+//    offset o as for (j, i) at -o: (a - b)^2 = (b - a)^2 exactly in IEEE,
+//    each squared distance adds its channels in one order, kw(o) = kw(-o),
+//    and the factors multiply in one order. So for each of the 12 forward
+//    offsets o (oy > 0, or oy = 0 and ox > 0) it forms W_o(Q), the weight
+//    of the pair (Q, Q - o), over the slots Q of the tile and of the tile
+//    shifted by o, the CTA's threads taking the 12 boxes' entries in turn;
+// 3. adds each tile pixel P's 25 taps in (ky, kx) order as atrous does:
+//    the forward tap o takes W_o(P), the backward tap -o takes W_o(P + o),
+//    and the centre's weight is formed in place (so a NaN or inf pixel
+//    keeps its NaN weight); then the division. Every sum keeps its order,
+//    so each output is the per-pixel form's bit for bit.
+// A 32x12 tile forms 13.8 weights a pixel (5,286 for 384 pixels) where the
+// per-pixel form formed 25: the exponentials and IEEE divisions set E3's
+// issue rate (PERF.md: the parent ran 88% arithmetic).
+#define F3D_ATROUS_TX 32
+#define F3D_ATROUS_TY 12
+#define F3D_ATROUS_THREADS 256
+
+constexpr int kAtrousSX = F3D_ATROUS_TX + 4;   // staged slots a row
+constexpr int kAtrousSlots = kAtrousSX * (F3D_ATROUS_TY + 4);
+
+// forward offset o (0..11): (oy, ox) = (0, 1), (0, 2), (1, -2..2), (2, -2..2)
+F3D_HD constexpr int atrous_oy(int o) { return o < 2 ? 0 : (o < 7 ? 1 : 2); }
+F3D_HD constexpr int atrous_ox(int o) { return o < 2 ? o + 1 : (o < 7 ? o - 4 : o - 9); }
+F3D_HD constexpr int atrous_o(int oy, int ox) { return oy == 0 ? ox - 1 : (oy == 1 ? ox + 4 : ox + 9); }
+// W_o's rows: u from atrous_u0(o), atrous_len(o) slots, v from 0, atrous_rows(o) rows
+F3D_HD constexpr int atrous_u0(int o) { return atrous_ox(o) < 0 ? atrous_ox(o) : 0; }
+F3D_HD constexpr int atrous_len(int o) {
+    return F3D_ATROUS_TX + (atrous_ox(o) < 0 ? -atrous_ox(o) : atrous_ox(o));
+}
+F3D_HD constexpr int atrous_rows(int o) { return F3D_ATROUS_TY + atrous_oy(o); }
+F3D_HD constexpr int atrous_woff(int o) {
+    int n = 0;
+    for (int p = 0; p < o; ++p) n += atrous_len(p) * atrous_rows(p);
+    return n;
+}
+constexpr int kAtrousWeights = atrous_woff(12);
+
+// the 1-D kernel's taps, exact in float32
+F3D_HD float atrous_k1(int k) {
+    return k == 0 ? 3.0f / 8.0f : (k == 1 || k == -1 ? 1.0f / 4.0f : 1.0f / 16.0f);
+}
+
+// A staged slot is up to three 16-byte quads, each in a plane of its own so
+// that a warp reads a quad a lane without bank conflicts: (colour, depth),
+// then where a guide needs them (albedo, normal x), (normal y, z, -, -). A
+// slot's colour and depth are one 128-bit load.
+struct alignas(16) AtrousQuad {
+    float v[4];
+};
+
+// the quads a slot takes: 1, 3 with albedo or normal
+F3D_HD int atrous_quads(const AtrousArgs& a) { return a.albedo || a.normal ? 3 : 1; }
+
+// a tile's shared memory with `quads` quads a slot
+F3D_HD constexpr long long atrous_shared_bytes(int quads) {
+    return (long long)sizeof(AtrousQuad) * quads * kAtrousSlots
+           + (long long)sizeof(float) * kAtrousWeights;
+}
+static_assert(atrous_shared_bytes(3) <= 48 * 1024,
+              "E3's tile must fit the 48 KB a launch takes without opting in");
+
+// a pass's CTAs: the min(s, W) x min(s, H) sub-lattices that hold pixels,
+// each in tiles of the largest one's size
+F3D_HD long long atrous_tiles(const AtrousArgs& a, int s) {
+    const int nu = (a.width + s - 1) / s, nv = (a.height + s - 1) / s;
+    return (long long)(s < a.width ? s : a.width) * (s < a.height ? s : a.height)
+           * ((nu + F3D_ATROUS_TX - 1) / F3D_ATROUS_TX) * ((nv + F3D_ATROUS_TY - 1) / F3D_ATROUS_TY);
+}
+
+// One CTA's tile: its staged quads (slots, row by row; q[1], q[2] null
+// where no guide needs them) and its weights in shared memory; which
+// guides are present; the sub-lattice (a, b), its slots (nu, nv) and the
+// tile's first slot (u0, v0).
+struct AtrousTile {
+    AtrousQuad* q[3];
+    float* w;
+    bool alb, nrm, dep;
+    int s, a, b, nu, nv, u0, v0;
+    F3D_HD bool empty() const { return u0 >= nu || v0 >= nv; }
+};
+
+// tile `blk` of a pass at spacing s (the sub-lattices fastest), over the
+// shared memory sm (16-byte aligned)
+F3D_HD AtrousTile atrous_tile(const AtrousArgs& args, void* sm, int s, long long blk) {
+    AtrousTile t;
+    const int sa = s < args.width ? s : args.width, sb = s < args.height ? s : args.height;
+    const int tiles_u = ((args.width + s - 1) / s + F3D_ATROUS_TX - 1) / F3D_ATROUS_TX;
+    t.s = s;
+    t.a = (int)(blk % sa);
+    blk /= sa;
+    t.b = (int)(blk % sb);
+    blk /= sb;
+    t.u0 = (int)(blk % tiles_u) * F3D_ATROUS_TX;
+    t.v0 = (int)(blk / tiles_u) * F3D_ATROUS_TY;
+    t.nu = (args.width - t.a + s - 1) / s;
+    t.nv = (args.height - t.b + s - 1) / s;
+    t.alb = args.albedo != nullptr;
+    t.nrm = args.normal != nullptr;
+    t.dep = args.depth != nullptr;
+    AtrousQuad* q = static_cast<AtrousQuad*>(sm);
+    const int nq = atrous_quads(args);
+    for (int k = 0; k < 3; ++k) t.q[k] = k < nq ? q + k * kAtrousSlots : nullptr;
+    t.w = reinterpret_cast<float*>(q + nq * kAtrousSlots);
+    return t;
+}
+
+// stage slot e (row-major over the tile and its halo)
+F3D_HD void atrous_stage(const AtrousArgs& args, const AtrousTile& t, const float* in, int e) {
+#ifdef F3D_E3_SELF_TAPS   // measurement build: every slot the tile's first (no scattered reads)
+    const int u = t.u0, v = t.v0;
+#else
+    const int u = t.u0 + e % kAtrousSX - 2, v = t.v0 + e / kAtrousSX - 2;
+#endif
+    const long long j = (long long)clampi(t.b + v * t.s, 0, args.height - 1) * args.width
+                        + clampi(t.a + u * t.s, 0, args.width - 1);
+    t.q[0][e] = AtrousQuad{{in[3 * j], in[3 * j + 1], in[3 * j + 2],
+                            t.dep ? args.depth[j] : 0.0f}};
+    if (t.q[1]) {
+        float a[3] = {0.0f, 0.0f, 0.0f}, n[3] = {0.0f, 0.0f, 0.0f};
+        for (int c = 0; c < 3; ++c) {
+            if (t.alb) a[c] = args.albedo[3 * j + c];
+            if (t.nrm) n[c] = args.normal[3 * j + c];
+        }
+        t.q[1][e] = AtrousQuad{{a[0], a[1], a[2], n[0]}};
+        t.q[2][e] = AtrousQuad{{n[1], n[2], 0.0f, 0.0f}};
+    }
+}
+
+// one factor exp(-d / k) of a weight
+F3D_HD float atrous_term(float d, float k) {
+#ifdef F3D_E3_CONST_EXP   // measurement build: each factor a constant (what the arithmetic costs)
+    return 0.5f;
+#else
+    return expf(-d / k);
+#endif
+}
+
+// a staged slot's values
+struct AtrousSlot {
+    AtrousQuad q0, q1, q2;   // (c, d), (a, n x), (n y, n z)
+};
+
+F3D_HD AtrousSlot atrous_slot(const AtrousTile& t, int i) {
+    AtrousSlot v;
+    v.q0 = t.q[0][i];
+    if (t.q[1]) {
+        v.q1 = t.q[1][i];
+        v.q2 = t.q[2][i];
+    }
+    return v;
+}
+
+// sq_dist3 of two slots' three channels: (p_j - p_i)^2 added in channel order
+F3D_HD float atrous_sq3(float i0, float i1, float i2, float j0, float j1, float j2) {
+    const float d0 = j0 - i0;
+    const float d1 = j1 - i1;
+    const float d2 = j2 - i2;
     return d0 * d0 + d1 * d1 + d2 * d2;
 }
 
-// One a-trous iteration at pixel (x, y) with tap spacing `step`: the 25
-// taps in (ky, kx) row-major order, each reading the edge-clamped pixel
-// (y - ky * step, x - kx * step) as denoise.py:_shift2d does.
-F3D_HD void atrous_pixel(const AtrousArgs& a, const float* in, float* out, int step, int x,
-                         int y) {
-    const float k1[5] = {1.0f / 16.0f, 1.0f / 4.0f, 3.0f / 8.0f, 1.0f / 4.0f, 1.0f / 16.0f};
-    const int i = y * a.width + x;
+// the weight of tap slot j for centre slot i, kw times the four factors in
+// atrous's order
+F3D_HD float atrous_weight(const AtrousArgs& args, const AtrousTile& t, float kw,
+                           const AtrousSlot& i, const AtrousSlot& j) {
+    float w = kw;
+    w = w * atrous_term(atrous_sq3(i.q0.v[0], i.q0.v[1], i.q0.v[2], j.q0.v[0], j.q0.v[1],
+                                   j.q0.v[2]),
+                        args.k_color);
+    if (t.alb)
+        w = w * atrous_term(atrous_sq3(i.q1.v[0], i.q1.v[1], i.q1.v[2], j.q1.v[0], j.q1.v[1],
+                                       j.q1.v[2]),
+                            args.k_albedo);
+    if (t.nrm)
+        w = w * atrous_term(atrous_sq3(i.q1.v[3], i.q2.v[0], i.q2.v[1], j.q1.v[3], j.q2.v[0],
+                                       j.q2.v[1]),
+                            args.k_normal);
+    if (t.dep) {
+        const float dd = j.q0.v[3] - i.q0.v[3];
+        w = w * atrous_term(dd * dd, args.k_depth);
+    }
+    return w;
+}
+
+// the weights W_0, W_1, ... W_11 one after the other, each row-major over
+// its box (atrous_len(o) x atrous_rows(o) slots from (atrous_u0(o), 0)):
+// entries first, first + step, ... (a CTA's threads take them in turn); an
+// offset's constants are formed once, where a thread's entries reach it
+F3D_HD void atrous_weights(const AtrousArgs& args, const AtrousTile& t, int first, int step) {
+    int o = -1, off = 0, end = 0, len = 1, u0 = 0, back = 0;
+    float rlen = 1.0f, kw = 0.0f;
+    for (int e = first; e < kAtrousWeights; e += step) {
+        while (e >= end) {
+            ++o;
+            off = end;
+            len = atrous_len(o);
+            end += len * atrous_rows(o);
+            rlen = 1.0f / (float)len;
+            u0 = atrous_u0(o) + 2;
+            back = atrous_oy(o) * kAtrousSX + atrous_ox(o);
+            kw = atrous_k1(atrous_oy(o)) * atrous_k1(atrous_ox(o));
+        }
+        // the row: exact, as (e - off + 0.5) / len lies at least 0.5 / 34 from an integer
+        const int v = (int)(((float)(e - off) + 0.5f) * rlen);
+        const int q = (v + 2) * kAtrousSX + u0 + (e - off) - v * len;
+        t.w[e] = atrous_weight(args, t, kw, atrous_slot(t, q), atrous_slot(t, q - back));
+    }
+}
+
+// tile pixel e (row-major over the tile): its 25 taps, then its output
+F3D_HD void atrous_output(const AtrousArgs& args, const AtrousTile& t, float* out, int e) {
+    const int u = e % F3D_ATROUS_TX, v = e / F3D_ATROUS_TX;
+    if (t.u0 + u >= t.nu || t.v0 + v >= t.nv) return;
+    const int pi = (v + 2) * kAtrousSX + u + 2;
     float acc0 = 0.0f, acc1 = 0.0f, acc2 = 0.0f, wacc = 0.0f;
+#pragma unroll
     for (int ky = -2; ky <= 2; ++ky) {
-        const int sy = clampi(y - ky * step, 0, a.height - 1);
+#pragma unroll
         for (int kx = -2; kx <= 2; ++kx) {
-            const int j = sy * a.width + clampi(x - kx * step, 0, a.width - 1);
-            float w = k1[ky + 2] * k1[kx + 2];
-            w = w * expf(-sq_dist3(in, i, j) / a.k_color);
-            if (a.albedo != nullptr) w = w * expf(-sq_dist3(a.albedo, i, j) / a.k_albedo);
-            if (a.normal != nullptr) w = w * expf(-sq_dist3(a.normal, i, j) / a.k_normal);
-            if (a.depth != nullptr) {
-                float dd = a.depth[j] - a.depth[i];
-                w = w * expf(-(dd * dd) / a.k_depth);
+            const int j = pi - ky * kAtrousSX - kx;
+            float w;
+            if (ky == 0 && kx == 0) {
+                const AtrousSlot own = atrous_slot(t, pi);
+                w = atrous_weight(args, t, atrous_k1(0) * atrous_k1(0), own, own);
+            } else if (ky > 0 || (ky == 0 && kx > 0)) {
+                const int o = atrous_o(ky, kx);
+                w = t.w[atrous_woff(o) + v * atrous_len(o) + u - atrous_u0(o)];
+            } else {
+                const int o = atrous_o(-ky, -kx);
+                w = t.w[atrous_woff(o) + (v - ky) * atrous_len(o) + u - kx - atrous_u0(o)];
             }
-            acc0 = acc0 + in[3 * j + 0] * w;
-            acc1 = acc1 + in[3 * j + 1] * w;
-            acc2 = acc2 + in[3 * j + 2] * w;
+            const AtrousQuad cj = t.q[0][j];
+            acc0 = acc0 + cj.v[0] * w;
+            acc1 = acc1 + cj.v[1] * w;
+            acc2 = acc2 + cj.v[2] * w;
             wacc = wacc + w;
         }
     }
+    const long long i = (long long)(t.b + (t.v0 + v) * t.s) * args.width + t.a + (t.u0 + u) * t.s;
     const float den = fmaxf(wacc, 1e-8f);
     out[3 * i + 0] = acc0 / den;
     out[3 * i + 1] = acc1 / den;

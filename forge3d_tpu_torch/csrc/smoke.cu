@@ -5,19 +5,23 @@
 //
 // E8 step        replaces forge3d_tpu/smoke.py:SmokeDomain._build_step (206,
 //                jitted at 269) with _trilinear (87) and the Jacobi
-//                fori_loop (251-255): per step, one launch of each of
-//   forces_kernel            the buoyancy, wind and damping (223-227);
-//   advect_velocity_kernel   the self-advection (230), which gathers the
-//                            forced velocity at neighbours, so it follows
-//                            the forces in a launch of its own;
-//   divergence_kernel        div_of (242-246);
-//   jacobi_kernel            one sweep a launch, `jacobi_iters` launches
-//                            ping-ponging two buffers (251-255); a single
-//                            sweep has no launch of its own: it runs inside
-//                            the projection, where XLA unrolls it;
+//                fori_loop (251-255): per step, with j = jacobi_iters,
+//   advect_velocity_kernel   the forces (223-227) and the self-advection
+//                            (230): the forced velocity is formed at each
+//                            corner the samples read (smoke.cuh:SmokeForced),
+//                            never stored;
+//   divergence_kernel        div_of (242-246) and, for j >= 2, the first
+//                            sweep from zeros, (0 - div) / 6;
+//   jacobi_kernel            the other j - 1 sweeps, up to F3D_JAC_LEVELS a
+//                            launch, in bricks staged in shared memory
+//                            (smoke.cuh:jac_brick); one sweep (j = 1) has
+//                            no launch of its own: it runs inside the
+//                            projection, where XLA unrolls it;
 //   project_advect_kernel    the projection (256-259) fused with the four
 //                            scalar advections (262-266): each voxel
 //                            backtraces with its own projected velocity.
+//                A step is 2 launches at j = 0, 3 at j = 1 and
+//                3 + ceil((j - 1) / F3D_JAC_LEVELS) from j = 2.
 // E8 march       replaces smoke.py:SmokeDomain.render_rgba (332), its
 //                lax.fori_loop (429) over body (403-425) with sun_trans
 //                (394-401): two launches,
@@ -34,20 +38,27 @@
 //                            the same bit for bit. The flag is read on the
 //                            device: the host never waits for it.
 //
-// What bounds them on the H100. The step moves bytes: about 1 GB at a
-// 256x50x256 domain (20 Jacobi sweeps of six neighbour reads and a write a
-// voxel, which stay in L1/L2 for the most part), ~0.3 ms at 3.35 TB/s; each
-// stage here reads its neighbours straight from device memory through the
-// caches, one voxel a thread, x fastest across a warp so that a warp's reads
-// are contiguous. The march does operations: (3 + sun_steps) trilinear
-// samples a step, eight gathers and seven lerps each, on grids that fit in
-// L2, for the pixels whose rays enter the box; one thread a pixel walks its
-// steps in registers. A warp's 8x4 pixels sample neighbouring voxels in y as
-// well as x. The march's constants are a kernel parameter (SmokeMarchArgs);
-// the sun offsets stay a device buffer, read at one address across a warp
-// (staging them in shared memory measured no faster). Shared-memory tiles
-// of the stencil and texture or TMA paths for the gathers are later work.
+// What bounds them on the H100. The step moves bytes: W's 256x50x256 domain
+// holds 13.1 MB a grid, and its ~56 B a voxel (the seven grids read, the
+// velocity and the four scalars written) take 0.055 ms at 3.35 TB/s; the
+// sweeps' pressure and divergence (26 MB) stay in the 50 MB L2 between
+// launches. The advection and the projection are one thread a voxel, x
+// fastest across a warp, their samples' gathers through the caches. A sweep
+// a launch moved three grids through L2 a level (~30 us at W); a brick
+// launch moves them once for up to F3D_JAC_LEVELS levels, with its halos'
+// share again, and runs its levels from registers (a thread's z column) and
+// shared memory (the published planes, the divergence). Its sizes and k have
+// one home, smoke.cuh:F3D_JAC_*, which f3d_jacobi_attrs reports. The march does
+// operations: (3 + sun_steps) trilinear samples a step, eight gathers and
+// seven lerps each, on grids that fit in L2, for the pixels whose rays
+// enter the box; one thread a pixel walks its steps in registers. A warp's
+// 8x4 pixels sample neighbouring voxels in y as well as x. The march's
+// constants are a kernel parameter (SmokeMarchArgs); the sun offsets stay a
+// device buffer, read at one address across a warp (staging them in shared
+// memory measured no faster). Texture or TMA paths for the gathers are
+// later work.
 
+#include <atomic>
 #include <cuda_runtime.h>
 
 #include "smoke.cuh"
@@ -58,33 +69,54 @@ constexpr int kThreads = 256;
 
 int blocks(long long n) { return (int)((n + kThreads - 1) / kThreads); }
 
-__global__ void forces_kernel(const float* __restrict__ vel, const float* __restrict__ temp,
-                              float* __restrict__ vf, long long n, float dtb, float amb,
-                              float w0, float w1, float w2, float kdamp) {
-    const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
-    smoke_forces_voxel(vel, temp, vf, n, dtb, amb, w0, w1, w2, kdamp, i);
-}
-
-__global__ void advect_velocity_kernel(const float* __restrict__ vf, float* __restrict__ va,
-                                       int nx, int ny, int nz, float dt, int forms) {
+__global__ void advect_velocity_kernel(SmokeForced f, float* __restrict__ va, int nx, int ny,
+                                       int nz, float dt, int forms) {
     const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= (long long)nx * ny * nz) return;
-    smoke_advect_velocity_voxel(vf, va, nx, ny, nz, dt, forms, i);
+    smoke_advect_velocity_voxel(f, va, nx, ny, nz, dt, forms, i);
 }
 
-__global__ void divergence_kernel(const float* __restrict__ va, float* __restrict__ div, int nx,
-                                  int ny, int nz) {
+__global__ void divergence_kernel(const float* __restrict__ va, float* __restrict__ div,
+                                  float* __restrict__ p1, int nx, int ny, int nz, float sixth) {
     const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= (long long)nx * ny * nz) return;
-    div[i] = smoke_divergence_voxel(va, nx, ny, nz, i);
+    smoke_divergence_voxel(va, div, p1, nx, ny, nz, sixth, i);
 }
 
-__global__ void jacobi_kernel(const float* __restrict__ p, const float* __restrict__ div,
-                              float* __restrict__ p_out, int nx, int ny, int nz, float sixth) {
-    const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= (long long)nx * ny * nz) return;
-    p_out[i] = smoke_jacobi_voxel(p, div, nx, ny, nz, sixth, i);
+// a CTA a brick (smoke.cuh:jac_brick), a thread a column of the pressure in
+// registers; the shared memory holds the published level and the divergence
+__global__ void __launch_bounds__(F3D_JAC_THREADS, 1024 / F3D_JAC_THREADS)
+jacobi_kernel(const float* __restrict__ p, const float* __restrict__ div,
+              float* __restrict__ p_out, int nx, int ny, int nz, float sixth, int levels) {
+    extern __shared__ float sm[];
+    float* const dsm = sm + F3D_JAC_PLANES;
+    float cp[F3D_JAC_SZ];
+    jac_load(jac_brick(nx, ny, nz, blockIdx.x), threadIdx.x, p, div, cp, dsm);
+    const JacColumn c = jac_column(jac_brick(nx, ny, nz, blockIdx.x), threadIdx.x);
+    for (int l = 0; l < levels; ++l) {
+        __syncthreads();
+        jac_publish(cp, sm, threadIdx.x);
+        __syncthreads();
+        jac_level(c, cp, sm, dsm, sixth);
+    }
+    jac_store(jac_brick(nx, ny, nz, blockIdx.x), threadIdx.x, cp, p_out);
+}
+
+constexpr int kJacSmem = 2 * F3D_JAC_PLANES * (int)sizeof(float);
+
+// jacobi_kernel's shared memory is past the 48 KB a launch takes without
+// opting in: opt in once a device for the process (a bit a device below 64;
+// past that at every call), not at every launch
+cudaError_t jacobi_opt_in() {
+    static std::atomic<unsigned long long> done{0};
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return e;
+    const unsigned long long bit = dev < 64 ? 1ULL << dev : 0ULL;
+    if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
+    e = cudaFuncSetAttribute(jacobi_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kJacSmem);
+    if (e == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
+    return e;
 }
 
 __global__ void project_advect_kernel(const float* __restrict__ va, const float* __restrict__ p,
@@ -136,32 +168,60 @@ __global__ void march_kernel(SmokeMarchArgs a, const float* __restrict__ dens,
 
 extern "C" {
 
-int f3d_smoke_forces(const float* vel, const float* temp, float* vf, long long n, float dtb,
-                     float amb, float w0, float w1, float w2, float kdamp, void* stream) {
+int f3d_smoke_advect_velocity(const float* vel, const float* temp, float* va, int nx, int ny,
+                              int nz, float dt, float dtb, float amb, float w0, float w1,
+                              float w2, float kdamp, int forms, void* stream) {
+    const long long n = (long long)nx * ny * nz;
+    const SmokeForced f{vel, temp, n, dtb, amb, kdamp, {w0, w1, w2}};
     if (n > 0)
-        forces_kernel<<<blocks(n), kThreads, 0, (cudaStream_t)stream>>>(vel, temp, vf, n, dtb,
-                                                                         amb, w0, w1, w2, kdamp);
+        advect_velocity_kernel<<<blocks(n), kThreads, 0, (cudaStream_t)stream>>>(f, va, nx, ny,
+                                                                                 nz, dt, forms);
     return (int)cudaGetLastError();
 }
 
-int f3d_smoke_advect_velocity(const float* vf, float* va, int nx, int ny, int nz, float dt,
-                              int forms, void* stream) {
-    advect_velocity_kernel<<<blocks((long long)nx * ny * nz), kThreads, 0,
-                             (cudaStream_t)stream>>>(vf, va, nx, ny, nz, dt, forms);
+int f3d_smoke_divergence(const float* va, float* div, float* p1, int nx, int ny, int nz,
+                         float sixth, void* stream) {
+    const long long n = (long long)nx * ny * nz;
+    if (n > 0)
+        divergence_kernel<<<blocks(n), kThreads, 0, (cudaStream_t)stream>>>(va, div, p1, nx, ny,
+                                                                            nz, sixth);
     return (int)cudaGetLastError();
 }
 
-int f3d_smoke_divergence(const float* va, float* div, int nx, int ny, int nz, void* stream) {
-    divergence_kernel<<<blocks((long long)nx * ny * nz), kThreads, 0, (cudaStream_t)stream>>>(
-        va, div, nx, ny, nz);
-    return (int)cudaGetLastError();
-}
-
+// `levels` sweeps from p (null: the zeros before the first) into p_out;
+// cudaErrorInvalidValue for levels outside 1..F3D_JAC_LEVELS
 int f3d_smoke_jacobi(const float* p, const float* div, float* p_out, int nx, int ny, int nz,
-                     float sixth, void* stream) {
-    jacobi_kernel<<<blocks((long long)nx * ny * nz), kThreads, 0, (cudaStream_t)stream>>>(
-        p, div, p_out, nx, ny, nz, sixth);
+                     float sixth, int levels, void* stream) {
+    if (levels < 1 || levels > F3D_JAC_LEVELS) return (int)cudaErrorInvalidValue;
+    if (nx <= 0 || ny <= 0 || nz <= 0) return (int)cudaGetLastError();
+    const cudaError_t e = jacobi_opt_in();
+    if (e != cudaSuccess) return (int)e;
+    jacobi_kernel<<<(unsigned)jac_bricks(nx, ny, nz), F3D_JAC_THREADS, kJacSmem,
+                    (cudaStream_t)stream>>>(p, div, p_out, nx, ny, nz, sixth, levels);
     return (int)cudaGetLastError();
+}
+
+// the Jacobi bricks' build: out = {registers a thread, local (spilled)
+// bytes a thread, resident blocks an SM, shared bytes a block, levels a
+// launch at most (k), the staged columns along x and y and voxels along z}
+int f3d_jacobi_attrs(int* out) {
+    cudaError_t e = jacobi_opt_in();
+    if (e != cudaSuccess) return (int)e;
+    cudaFuncAttributes at;
+    e = cudaFuncGetAttributes(&at, (const void*)jacobi_kernel);
+    if (e != cudaSuccess) return (int)e;
+    int resident = 0;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, jacobi_kernel, F3D_JAC_THREADS,
+                                                      kJacSmem);
+    out[0] = at.numRegs;
+    out[1] = (int)at.localSizeBytes;
+    out[2] = resident;
+    out[3] = kJacSmem;
+    out[4] = F3D_JAC_LEVELS;
+    out[5] = F3D_JAC_SX;
+    out[6] = F3D_JAC_SY;
+    out[7] = F3D_JAC_SZ;
+    return (int)e;
 }
 
 int f3d_smoke_project_advect(const float* va, const float* p, const float* div,

@@ -57,9 +57,11 @@ F3D_HD float smoke_lerp(float a, float b, float t, int form) {
 
 // _trilinear: sample grid (nz, ny, nx) at fractional voxel coordinates,
 // clamped to [0, float32(n - 1.000001)] per axis; the +1 neighbours clamp
-// to n - 1.
-F3D_HD float smoke_trilinear(const float* g, int nx, int ny, int nz, float px, float py,
-                             float pz, int form) {
+// to n - 1. g(i) is the grid's value at flat voxel i (SmokeGrid, or the
+// forced velocity formed where it is read, SmokeForcedGrid).
+template <class Grid>
+F3D_HD float smoke_trilinear_of(const Grid& g, int nx, int ny, int nz, float px, float py,
+                                float pz, int form) {
     const float hx = (float)((double)nx - 1.000001);
     const float hy = (float)((double)ny - 1.000001);
     const float hz = (float)((double)nz - 1.000001);
@@ -79,26 +81,49 @@ F3D_HD float smoke_trilinear(const float* g, int nx, int ny, int nz, float px, f
     const long long r01 = ((long long)z0 * ny + y1) * nx;
     const long long r10 = ((long long)z1 * ny + y0) * nx;
     const long long r11 = ((long long)z1 * ny + y1) * nx;
-    const float c00 = smoke_lerp(g[r00 + x0], g[r00 + x1], fx, form);
-    const float c01 = smoke_lerp(g[r01 + x0], g[r01 + x1], fx, form);
-    const float c10 = smoke_lerp(g[r10 + x0], g[r10 + x1], fx, form);
-    const float c11 = smoke_lerp(g[r11 + x0], g[r11 + x1], fx, form);
+    const float c00 = smoke_lerp(g(r00 + x0), g(r00 + x1), fx, form);
+    const float c01 = smoke_lerp(g(r01 + x0), g(r01 + x1), fx, form);
+    const float c10 = smoke_lerp(g(r10 + x0), g(r10 + x1), fx, form);
+    const float c11 = smoke_lerp(g(r11 + x0), g(r11 + x1), fx, form);
     const float c0 = smoke_lerp(c00, c01, fy, form);
     const float c1 = smoke_lerp(c10, c11, fy, form);
     return smoke_lerp(c0, c1, fz, form);
 }
 
+struct SmokeGrid {
+    const float* p;
+    F3D_HD float operator()(long long i) const { return p[i]; }
+};
+
+F3D_HD float smoke_trilinear(const float* g, int nx, int ny, int nz, float px, float py,
+                             float pz, int form) {
+    return smoke_trilinear_of(SmokeGrid{g}, nx, ny, nz, px, py, pz, form);
+}
+
 // ---------------------------------------------------------------------------
 // E8 step, stage by stage (smoke.py:220-267)
 
-// forces (223-227): buoyancy along +y, wind, damping; voxel i of n
-F3D_HD void smoke_forces_voxel(const float* vel, const float* temp, float* vf, long long n,
-                               float dtb, float amb, float w0, float w1, float w2, float kdamp,
-                               long long i) {
-    vf[i] = (vel[i] + w0) * kdamp;
-    vf[n + i] = (fmaf(temp[i] - amb, dtb, vel[n + i]) + w1) * kdamp;
-    vf[2 * n + i] = (vel[2 * n + i] + w2) * kdamp;
-}
+// The forces (223-227): buoyancy along +y, wind, damping. Component c of the
+// forced velocity at voxel i of n, formed where it is read: the
+// self-advection samples it at its own voxel and at the eight corners of
+// each component's sample, so it is never stored.
+struct SmokeForced {
+    const float* vel;   // (3, n)
+    const float* temp;  // (n)
+    long long n;
+    float dtb, amb, kdamp;
+    float wind[3];
+    F3D_HD float at(int c, long long i) const {
+        if (c == 1) return (fmaf(temp[i] - amb, dtb, vel[n + i]) + wind[1]) * kdamp;
+        return (vel[c * n + i] + wind[c]) * kdamp;
+    }
+};
+
+struct SmokeForcedGrid {
+    SmokeForced f;
+    int c;
+    F3D_HD float operator()(long long i) const { return f.at(c, i); }
+};
 
 F3D_HD void smoke_voxel_xyz(int nx, int ny, long long i, int& x, int& y, int& z) {
     x = (int)(i % nx);
@@ -106,19 +131,20 @@ F3D_HD void smoke_voxel_xyz(int nx, int ny, long long i, int& x, int& y, int& z)
     z = (int)(i / ((long long)nx * ny));
 }
 
-// self-advection of the forced velocity (230): each component sampled at
-// the voxel's backtrace; forms holds the lerp form of component c in bits
-// 2c..2c+1
-F3D_HD void smoke_advect_velocity_voxel(const float* vf, float* va, int nx, int ny, int nz,
+// the forces and the self-advection of the forced velocity (230) at voxel
+// i: each component sampled at the voxel's backtrace; forms holds the lerp
+// form of component c in bits 2c..2c+1
+F3D_HD void smoke_advect_velocity_voxel(const SmokeForced& f, float* va, int nx, int ny, int nz,
                                         float dt, int forms, long long i) {
     const long long n = (long long)nx * ny * nz;
     int x, y, z;
     smoke_voxel_xyz(nx, ny, i, x, y, z);
-    const float bx = fmaf(-dt, vf[i], (float)x);
-    const float by = fmaf(-dt, vf[n + i], (float)y);
-    const float bz = fmaf(-dt, vf[2 * n + i], (float)z);
+    const float bx = fmaf(-dt, f.at(0, i), (float)x);
+    const float by = fmaf(-dt, f.at(1, i), (float)y);
+    const float bz = fmaf(-dt, f.at(2, i), (float)z);
     for (int c = 0; c < 3; ++c)
-        va[c * n + i] = smoke_trilinear(vf + c * n, nx, ny, nz, bx, by, bz, (forms >> (2 * c)) & 3);
+        va[c * n + i] = smoke_trilinear_of(SmokeForcedGrid{f, c}, nx, ny, nz, bx, by, bz,
+                                           (forms >> (2 * c)) & 3);
 }
 
 // lap_nb (233-240): the six neighbours with edges replicated
@@ -134,8 +160,12 @@ F3D_HD void smoke_neighbours(const float* p, int nx, int ny, int nz, int x, int 
     nb[5] = p[row + x + (z < nz - 1 ? plane : 0)];
 }
 
-// div_of (242-246): 0.5 ((xp - xm) + (yp - ym) + (zp - zm))
-F3D_HD float smoke_divergence_voxel(const float* va, int nx, int ny, int nz, long long i) {
+// div_of (242-246) at voxel i: 0.5 ((xp - xm) + (yp - ym) + (zp - zm)). A
+// non-null p1 also takes the first Jacobi sweep from zeros there: jac's
+// (s - div) / 6 with the six zero neighbours' sum s, which is 0, so
+// (0 - div) * float32(1 / 6), the same two rounded operations.
+F3D_HD void smoke_divergence_voxel(const float* va, float* div, float* p1, int nx, int ny, int nz,
+                                   float sixth, long long i) {
     const long long n = (long long)nx * ny * nz;
     int x, y, z;
     smoke_voxel_xyz(nx, ny, i, x, y, z);
@@ -143,22 +173,158 @@ F3D_HD float smoke_divergence_voxel(const float* va, int nx, int ny, int nz, lon
     smoke_neighbours(va, nx, ny, nz, x, y, z, a);
     smoke_neighbours(va + n, nx, ny, nz, x, y, z, b);
     smoke_neighbours(va + 2 * n, nx, ny, nz, x, y, z, c);
-    return 0.5f * (((a[1] - a[0]) + (b[3] - b[2])) + (c[5] - c[4]));
+    const float d = 0.5f * (((a[1] - a[0]) + (b[3] - b[2])) + (c[5] - c[4]));
+    div[i] = d;
+    if (p1) p1[i] = (0.0f - d) * sixth;
 }
 
-// jac (251-253): (xm + xp + ym + yp + zm + zp - div) / 6, the division a
-// multiplication by float32(1 / 6); a null p is the first sweep's zeros
-F3D_HD float smoke_jacobi_voxel(const float* p, const float* div, int nx, int ny, int nz,
-                                float sixth, long long i) {
-    float s = 0.0f;
-    if (p) {
-        int x, y, z;
-        smoke_voxel_xyz(nx, ny, i, x, y, z);
-        float nb[6];
-        smoke_neighbours(p, nx, ny, nz, x, y, z, nb);
-        s = ((((nb[0] + nb[1]) + nb[2]) + nb[3]) + nb[4]) + nb[5];
+// The Jacobi sweeps (jac, 251-255) after the first, up to F3D_JAC_LEVELS a
+// launch (smoke.cu:jacobi_kernel). A CTA takes a brick of the domain and
+// stages the pressure and the divergence over it and a halo of
+// F3D_JAC_LEVELS voxels on each side where the brick does not reach the
+// domain's edge; a brick on the edge has no halo there and reaches that much
+// further instead. A thread holds one staged (x, y) column of the pressure
+// over z in registers, F3D_JAC_SX x F3D_JAC_SY columns a CTA, F3D_JAC_SZ
+// voxels a column; the divergence goes to shared memory once. A level
+// publishes every column to shared memory, then each thread forms its
+// column's next level from its four xy neighbours there and its z
+// neighbours in its registers, in place, and waits for the others before the
+// next level publishes. The last level writes the brick itself to device
+// memory. Each voxel is formed as jac forms it: ((((xm + xp) + ym) + yp) +
+// zm) + zp, minus div, times float32(1 / 6), each neighbour clamped in the
+// domain's coordinates (lap_nb's replicated edge: a voxel on the domain's
+// edge is its own outside neighbour, at the same level). A voxel l from a
+// halo's outer face is wrong from level l on, so the brick, F3D_JAC_LEVELS
+// inside, is right at every level a launch runs, bit for bit.
+#define F3D_JAC_LEVELS 4
+#define F3D_JAC_SX 32
+#define F3D_JAC_SY 32
+#define F3D_JAC_SZ 24
+#define F3D_JAC_THREADS (F3D_JAC_SX * F3D_JAC_SY)
+// a CTA's shared floats: the published pressure, then the divergence
+#define F3D_JAC_PLANES (F3D_JAC_SZ * F3D_JAC_THREADS)
+
+// bricks along an axis of n voxels with S staged and a halo K: the first and
+// the last reach the edge (interior S - K), the others S - 2K
+F3D_HD int jac_axis_count(int n, int S, int K) {
+    return n <= S ? 1 : 2 + (n - 2 * (S - K) + (S - 2 * K) - 1) / (S - 2 * K);
+}
+
+// brick i's interior [in_lo, in_hi) and staged [lo, hi) along the axis
+F3D_HD void jac_axis(int n, int S, int K, int i, int& in_lo, int& in_hi, int& lo, int& hi) {
+    in_lo = i == 0 ? 0 : (S - K) + (i - 1) * (S - 2 * K);
+    in_hi = i + 1 == jac_axis_count(n, S, K) ? n : (i == 0 ? S - K : in_lo + S - 2 * K);
+    lo = in_lo - K > 0 ? in_lo - K : 0;
+    hi = in_hi + K < n ? in_hi + K : n;
+}
+
+struct JacBrick {
+    int n[3];               // the domain (nx, ny, nz)
+    int lo[3], hi[3];       // the staged box, [lo, hi) on x, y, z
+    int in_lo[3], in_hi[3]; // the brick, which the last level writes
+};
+
+F3D_HD long long jac_bricks(int nx, int ny, int nz) {
+    return (long long)jac_axis_count(nx, F3D_JAC_SX, F3D_JAC_LEVELS)
+           * jac_axis_count(ny, F3D_JAC_SY, F3D_JAC_LEVELS)
+           * jac_axis_count(nz, F3D_JAC_SZ, F3D_JAC_LEVELS);
+}
+
+// brick b, x fastest
+F3D_HD JacBrick jac_brick(int nx, int ny, int nz, long long b) {
+    JacBrick k;
+    const int size[3] = {F3D_JAC_SX, F3D_JAC_SY, F3D_JAC_SZ};
+    k.n[0] = nx;
+    k.n[1] = ny;
+    k.n[2] = nz;
+    for (int a = 0; a < 3; ++a) {
+        const int count = jac_axis_count(k.n[a], size[a], F3D_JAC_LEVELS);
+        jac_axis(k.n[a], size[a], F3D_JAC_LEVELS, (int)(b % count), k.in_lo[a], k.in_hi[a],
+                 k.lo[a], k.hi[a]);
+        b /= count;
     }
-    return (s - div[i]) * sixth;
+    return k;
+}
+
+// thread t's column in a CTA's planes: its place t in each plane (t = ty
+// SX + tx), the offsets of its xy neighbours (0: itself, at the domain's
+// edge, or at the staged box's face, where the column is wrong from level 1
+// on anyway), and the last staged z whose upper neighbour is the next voxel
+// (the domain's top face is its own)
+struct JacColumn {
+    int t;
+    int oxm, oxp, oym, oyp;
+    int ztop;
+};
+
+F3D_HD JacColumn jac_column(const JacBrick& k, int t) {
+    const int tx = t % F3D_JAC_SX, ty = t / F3D_JAC_SX;
+    const int gx = k.lo[0] + tx, gy = k.lo[1] + ty;
+    JacColumn c;
+    c.t = t;
+    c.oxm = gx > 0 && tx > 0 ? -1 : 0;
+    c.oxp = gx < k.n[0] - 1 && tx + 1 < F3D_JAC_SX ? 1 : 0;
+    c.oym = gy > 0 && ty > 0 ? -F3D_JAC_SX : 0;
+    c.oyp = gy < k.n[1] - 1 && ty + 1 < F3D_JAC_SY ? F3D_JAC_SX : 0;
+    c.ztop = k.hi[2] == k.n[2] ? k.hi[2] - k.lo[2] - 1 : F3D_JAC_SZ - 1;
+    return c;
+}
+
+// the voxel index of thread t's column at staged z 0, or -1 outside the
+// staged box
+F3D_HD long long jac_base(const JacBrick& k, int t) {
+    const int gx = k.lo[0] + t % F3D_JAC_SX, gy = k.lo[1] + t / F3D_JAC_SX;
+    if (gx >= k.hi[0] || gy >= k.hi[1]) return -1;
+    return ((long long)k.lo[2] * k.n[1] + gy) * k.n[0] + gx;
+}
+
+// thread t's column of the pressure over the staged z into cp (null p: the
+// zeros before the first sweep) and of the divergence into the CTA's plane
+// dsm; zeros outside the staged box
+F3D_HD void jac_load(const JacBrick& k, int t, const float* p, const float* div, float* cp,
+                     float* dsm) {
+    const long long plane = (long long)k.n[0] * k.n[1], base = jac_base(k, t);
+#pragma unroll
+    for (int z = 0; z < F3D_JAC_SZ; ++z) {
+        const bool in = base >= 0 && k.lo[2] + z < k.hi[2];
+        cp[z] = in && p ? p[base + z * plane] : 0.0f;
+        dsm[z * F3D_JAC_THREADS + t] = in ? div[base + z * plane] : 0.0f;
+    }
+}
+
+// the column's level into the published planes sm
+F3D_HD void jac_publish(const float* cp, float* sm, int t) {
+#pragma unroll
+    for (int z = 0; z < F3D_JAC_SZ; ++z) sm[z * F3D_JAC_THREADS + t] = cp[z];
+}
+
+// the column's next level, in place, from the published planes sm and the
+// divergence's dsm
+F3D_HD void jac_level(const JacColumn& c, float* cp, const float* sm, const float* dsm,
+                      float sixth) {
+    float prev = cp[0];
+#pragma unroll
+    for (int z = 0; z < F3D_JAC_SZ; ++z) {
+        const float cur = cp[z];
+        const float zm = z == 0 ? cur : prev;
+        const float zp = z + 1 < F3D_JAC_SZ && z < c.ztop ? cp[z + 1 < F3D_JAC_SZ ? z + 1 : z] : cur;
+        const float* s = sm + z * F3D_JAC_THREADS + c.t;
+        const float sum = ((((s[c.oxm] + s[c.oxp]) + s[c.oym]) + s[c.oyp]) + zm) + zp;
+        cp[z] = (sum - dsm[z * F3D_JAC_THREADS + c.t]) * sixth;
+        prev = cur;
+    }
+}
+
+// the brick's part of thread t's column into out
+F3D_HD void jac_store(const JacBrick& k, int t, const float* cp, float* out) {
+    const int gx = k.lo[0] + t % F3D_JAC_SX, gy = k.lo[1] + t / F3D_JAC_SX;
+    if (gx < k.in_lo[0] || gx >= k.in_hi[0] || gy < k.in_lo[1] || gy >= k.in_hi[1]) return;
+    const long long plane = (long long)k.n[0] * k.n[1], base = jac_base(k, t);
+#pragma unroll
+    for (int z = 0; z < F3D_JAC_SZ; ++z) {
+        const int gz = k.lo[2] + z;
+        if (gz >= k.in_lo[2] && gz < k.in_hi[2]) out[base + z * plane] = cp[z];
+    }
 }
 
 // the projection (256-259) and the scalar advection with dissipation

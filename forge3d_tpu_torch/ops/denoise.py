@@ -4,14 +4,17 @@
 # albedo / normal / depth AOVs through per-tap weights
 # w = w_color * w_albedo * w_normal * w_depth, each exp(-dist / sigma**2).
 #
-# `atrous_denoise` is the wrapper of kernel E3 (csrc/post.cuh:atrous_pixel,
-# launched once per iteration by csrc/post.cu:atrous_kernel): on a CUDA
+# `atrous_denoise` is the wrapper of kernel E3 (csrc/post.cu:atrous_kernel,
+# a CTA a tile of one sub-lattice of the pass's spacing, each pair's weight
+# formed once, csrc/post.cuh:atrous_tile; launched once per iteration): on a CUDA
 # tensor it launches the kernel, on a CPU tensor it runs
 # `atrous_denoise_plain`. Numpy input goes to `device` ("cuda" by default,
 # which raises DeviceError without CUDA). The depth guide's scaling by its
 # max |.| (NaN and +inf taken as 0) is glue in PyTorch before either.
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -103,6 +106,17 @@ def _atrous_plain(c, alb, nrm, dep, iterations, kc, ka, kn, kd):
                 wacc = wacc + w
         out = acc / torch.clamp(wacc, min=1e-8)[..., None]
     return out
+
+
+def atrous_attrs() -> dict:
+    """E3's build (csrc/post.cu:f3d_atrous_attrs): registers and local bytes
+    a thread, resident blocks an SM and shared bytes a block with all three
+    guides, and the tile's slots (x, y). Its sizes have one home,
+    csrc/post.cuh."""
+    out = (ctypes.c_int * 6)()
+    _kernels.check(_kernels.lib().f3d_atrous_attrs(out), "E3 atrous_denoise (attributes)")
+    return {"registers": out[0], "local_bytes": out[1], "blocks": out[2], "shared_bytes": out[3],
+            "tile": (out[4], out[5])}
 
 
 def _atrous_kernel(c, alb, nrm, dep, iterations, kc, ka, kn, kd):

@@ -1,6 +1,6 @@
 # forge3d_tpu_torch/ops/smoke.py
 # The smoke path's device functions (kernels E8 step and E8 march of
-# forge3d_tpu/smoke.py): the trilinear sample, the fluid step in its five
+# forge3d_tpu/smoke.py): the trilinear sample, the fluid step in its
 # stages, and the volume march. Each wrapper launches its CUDA kernel
 # (csrc/smoke.cu over csrc/smoke.cuh) for CUDA tensors and runs its plain
 # PyTorch version, beside it here, for CPU tensors; nothing falls back from
@@ -16,6 +16,7 @@
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from dataclasses import dataclass
 from typing import Optional, Tuple
@@ -27,10 +28,10 @@ from .. import _kernels
 from .shading import fdiv, fma32, sqrt32
 from .traversal import f32
 
-__all__ = ["trilinear_plain", "StepConsts", "step_consts", "smoke_forces",
-           "smoke_advect_velocity", "smoke_divergence", "smoke_jacobi",
-           "smoke_project_advect", "smoke_step", "smoke_step_plain", "MarchSetup",
-           "march_setup", "smoke_march", "smoke_march_plain"]
+__all__ = ["trilinear_plain", "StepConsts", "step_consts", "smoke_advect_velocity",
+           "smoke_divergence", "jacobi_attrs", "jacobi_levels", "smoke_jacobi",
+           "smoke_project_advect", "smoke_step", "smoke_step_plain", "MarchSetup", "march_setup",
+           "smoke_march", "smoke_march_plain"]
 
 _F32 = torch.float32
 
@@ -129,51 +130,37 @@ def _forces_plain(vel, temp, k: StepConsts):
                         (vel[2] + w2) * k.kdamp])
 
 
-def _forces_kernel(vel, temp, k: StepConsts):
-    _kernels.require_cuda("E8 forces", vel, temp)
-    vf = torch.empty_like(vel)
-    err = _kernels.lib().f3d_smoke_forces(
-        _kernels.ptr(vel), _kernels.ptr(temp), _kernels.ptr(vf), temp.numel(), k.dtb, k.amb,
-        *k.wind, k.kdamp, _kernels.stream_ptr(vel.device))
-    _kernels.check(err, "E8 forces")
-    smoke_forces.launches += 1
-    return vf
-
-
-def smoke_forces(vel, temp, k: StepConsts) -> torch.Tensor:
-    """The step's forces (smoke.py:223-227): buoyancy, wind, damping."""
-    if vel.device.type == "cpu":
-        return _forces_plain(vel, temp, k)
-    return _forces_kernel(vel, temp, k)
-
-
-smoke_forces.launches = 0
-
-
 def _advect_velocity_plain(vf, k: StepConsts):
     xs, ys, zs = _axes(vf.shape[1:], vf.device)
     bx, by, bz = fma32(-k.dt, vf[0], xs), fma32(-k.dt, vf[1], ys), fma32(-k.dt, vf[2], zs)
     return torch.stack([trilinear_plain(vf[c], bx, by, bz, k.forms[c]) for c in range(3)])
 
 
-def _advect_velocity_kernel(vf, k: StepConsts):
-    _kernels.require_cuda("E8 advect_velocity", vf)
-    nx, ny, nz = _dims(vf[0])
-    va = torch.empty_like(vf)
+def _forces_advect_plain(velocity, temperature, k: StepConsts):
+    return _advect_velocity_plain(_forces_plain(velocity, temperature, k), k)
+
+
+def _advect_velocity_kernel(velocity, temperature, k: StepConsts):
+    _kernels.require_cuda("E8 advect_velocity", velocity, temperature)
+    nx, ny, nz = _dims(temperature)
+    va = torch.empty_like(velocity)
     forms = k.forms[0] | k.forms[1] << 2 | k.forms[2] << 4
     err = _kernels.lib().f3d_smoke_advect_velocity(
-        _kernels.ptr(vf), _kernels.ptr(va), nx, ny, nz, k.dt, forms,
-        _kernels.stream_ptr(vf.device))
+        _kernels.ptr(velocity), _kernels.ptr(temperature), _kernels.ptr(va), nx, ny, nz, k.dt,
+        k.dtb, k.amb, *k.wind, k.kdamp, forms, _kernels.stream_ptr(velocity.device))
     _kernels.check(err, "E8 advect_velocity")
     smoke_advect_velocity.launches += 1
     return va
 
 
-def smoke_advect_velocity(vf, k: StepConsts) -> torch.Tensor:
-    """The forced velocity's self-advection (smoke.py:230)."""
-    if vf.device.type == "cpu":
-        return _advect_velocity_plain(vf, k)
-    return _advect_velocity_kernel(vf, k)
+def smoke_advect_velocity(velocity, temperature, k: StepConsts) -> torch.Tensor:
+    """The step's forces (smoke.py:223-227: buoyancy, wind, damping) and
+    the forced velocity's self-advection (230), in one launch on the card:
+    the forced velocity is formed where the samples read it, never
+    stored."""
+    if velocity.device.type == "cpu":
+        return _forces_advect_plain(velocity, temperature, k)
+    return _advect_velocity_kernel(velocity, temperature, k)
 
 
 smoke_advect_velocity.launches = 0
@@ -193,15 +180,20 @@ def _divergence_plain(va):
     return 0.5 * ((xp - xm) + (yp - ym) + (zp - zm))
 
 
-def _divergence_kernel(va):
+def _divergence_kernel(va, k: Optional[StepConsts] = None, out=None):
+    """The divergence; given the step's constants k also the first Jacobi
+    sweep from zeros (251-253) in the same launch, into `out` when given:
+    then (div, p1)."""
     _kernels.require_cuda("E8 divergence", va)
     nx, ny, nz = _dims(va[0])
     div = torch.empty_like(va[0])
-    err = _kernels.lib().f3d_smoke_divergence(_kernels.ptr(va), _kernels.ptr(div), nx, ny, nz,
-                                              _kernels.stream_ptr(va.device))
+    p1 = None if k is None else (torch.empty_like(div) if out is None else out)
+    err = _kernels.lib().f3d_smoke_divergence(
+        _kernels.ptr(va), _kernels.ptr(div), None if p1 is None else p1.data_ptr(), nx, ny, nz,
+        0.0 if k is None else k.sixth, _kernels.stream_ptr(va.device))
     _kernels.check(err, "E8 divergence")
     smoke_divergence.launches += 1
-    return div
+    return div if k is None else (div, p1)
 
 
 def smoke_divergence(va) -> torch.Tensor:
@@ -221,13 +213,32 @@ def _jacobi_plain(p, div, k: StepConsts):
     return (xm + xp + ym + yp + zm + zp - div) * k.sixth
 
 
-def _jacobi_kernel(p, div, k: StepConsts, out=None):
+def jacobi_attrs() -> dict:
+    """The Jacobi bricks' build (csrc/smoke.cu:f3d_jacobi_attrs): registers
+    and local bytes a thread, resident blocks an SM, shared bytes a block,
+    the most sweeps a launch takes (`levels`, also each brick's halo) and
+    the staged box a CTA holds (x and y columns, z voxels a column). Its
+    sizes have one home, csrc/smoke.cuh:F3D_JAC_*."""
+    out = (ctypes.c_int * 8)()
+    _kernels.check(_kernels.lib().f3d_jacobi_attrs(out), "E8 jacobi (attributes)")
+    return {"registers": out[0], "local_bytes": out[1], "blocks": out[2], "shared_bytes": out[3],
+            "levels": out[4], "brick": (out[5], out[6], out[7])}
+
+
+@functools.cache
+def jacobi_levels() -> int:
+    """jacobi_attrs()["levels"], read from the library once."""
+    return jacobi_attrs()["levels"]
+
+
+def _jacobi_kernel(p, div, k: StepConsts, out=None, levels: int = 1):
+    """`levels` sweeps from p in one launch (at most jacobi_levels())."""
     _kernels.require_cuda("E8 jacobi", div, *(() if p is None else (p,)))
     nx, ny, nz = _dims(div)
     out = torch.empty_like(div) if out is None else out
     err = _kernels.lib().f3d_smoke_jacobi(
         None if p is None else p.data_ptr(), _kernels.ptr(div), _kernels.ptr(out), nx, ny, nz,
-        k.sixth, _kernels.stream_ptr(div.device))
+        k.sixth, int(levels), _kernels.stream_ptr(div.device))
     _kernels.check(err, "E8 jacobi")
     smoke_jacobi.launches += 1
     return out
@@ -235,8 +246,7 @@ def _jacobi_kernel(p, div, k: StepConsts, out=None):
 
 def smoke_jacobi(p: Optional[torch.Tensor], div, k: StepConsts, out=None) -> torch.Tensor:
     """One Jacobi sweep of the pressure solve (smoke.py:251-253); p None is
-    the first sweep from zeros. A CUDA sweep writes into `out` when given
-    (the step ping-pongs two buffers)."""
+    the first sweep from zeros. A CUDA sweep writes into `out` when given."""
     if div.device.type == "cpu":
         return _jacobi_plain(p, div, k)
     return _jacobi_kernel(p, div, k, out)
@@ -305,7 +315,7 @@ smoke_project_advect.launches = 0
 
 def smoke_step_plain(density, velocity, temperature, soot, emission, k: StepConsts):
     """One fluid step by the plain versions (any device)."""
-    va = _advect_velocity_plain(_forces_plain(velocity, temperature, k), k)
+    va = _forces_advect_plain(velocity, temperature, k)
     p = div = None
     if k.jacobi:
         div = _divergence_plain(va)
@@ -315,21 +325,41 @@ def smoke_step_plain(density, velocity, temperature, soot, emission, k: StepCons
                                  div if k.jacobi == 1 else None)
 
 
-def smoke_step(density, velocity, temperature, soot, emission, k: StepConsts):
-    """One fluid step (`_build_step`'s program): the forces, the
-    self-advection, the divergence, `jacobi_iters` sweeps and the fused
-    projection and scalar advection. CPU tensors run the plain versions;
-    CUDA tensors launch 4 + jacobi_iters kernels (3 with no sweep, 4 with
-    one: a single sweep runs inside the projection, as XLA unrolls it)."""
-    va = smoke_advect_velocity(smoke_forces(velocity, temperature, k), k)
+def _step_kernel(density, velocity, temperature, soot, emission, k: StepConsts):
+    """The step's launches: the forces with the self-advection; the
+    divergence, with the first sweep from two sweeps on; the other sweeps
+    up to jacobi_levels() a launch, the last launch the remainder,
+    ping-ponging two buffers; the projection with the scalar advection."""
+    va = _advect_velocity_kernel(velocity, temperature, k)
     p = div = None
-    if k.jacobi:
-        div = smoke_divergence(va)
-        bufs = (torch.empty_like(div), torch.empty_like(div)) if div.is_cuda else (None, None)
-        for i in range(k.jacobi if k.jacobi > 1 else 0):
-            p = smoke_jacobi(p, div, k, out=bufs[i % 2])
-    return smoke_project_advect(va, p, density, temperature, soot, emission, k,
-                                div if k.jacobi == 1 else None)
+    if k.jacobi == 1:
+        div = _divergence_kernel(va)
+    elif k.jacobi > 1:
+        bufs = (torch.empty_like(temperature), torch.empty_like(temperature))
+        div, p = _divergence_kernel(va, k, bufs[0])
+        most, left, i = jacobi_levels(), k.jacobi - 1, 1
+        while left:
+            levels = min(most, left)
+            p = _jacobi_kernel(p, div, k, bufs[i % 2], levels)
+            left, i = left - levels, i + 1
+    return _project_advect_kernel(va, p, density, temperature, soot, emission, k,
+                                  div if k.jacobi == 1 else None)
+
+
+def step_launches(jacobi: int, levels: int) -> int:
+    """The launches of a step on the card with `jacobi` sweeps, at most
+    `levels` a launch: 2 with no sweep, 3 with one (formed in the
+    projection), 3 + ceil((jacobi - 1) / levels) from two."""
+    return 2 if jacobi == 0 else 3 + -(-(jacobi - 1) // levels)
+
+
+def smoke_step(density, velocity, temperature, soot, emission, k: StepConsts):
+    """One fluid step (`_build_step`'s program). CPU tensors run the plain
+    versions; CUDA tensors launch the kernels of _step_kernel,
+    step_launches(k.jacobi, jacobi_levels()) of them."""
+    if density.device.type == "cpu":
+        return smoke_step_plain(density, velocity, temperature, soot, emission, k)
+    return _step_kernel(density, velocity, temperature, soot, emission, k)
 
 
 # ---------------------------------------------------------------------------

@@ -20,6 +20,8 @@
 # library's cos/sin/atan2/acos differ from PyTorch's by an ulp.
 import ctypes
 import dataclasses
+import hashlib
+import os
 import shutil
 import subprocess
 
@@ -478,9 +480,26 @@ int f3d_terrain_step(const SceneArgs* s, const TerrainArgs* a, float* accum,
                 std::min(F3D_TILE, a->height - ty * F3D_TILE), std::min(F3D_TILE, a->width - tx * F3D_TILE));
     return 0;
 }
+// E3 as post.cu:atrous_kernel maps it: the tiles in order; in each, every
+// slot staged, then every weight, then every pixel
 int f3d_atrous_pass(const AtrousArgs* a, const float* in, float* out, int step, void*) {
-    for (int y = 0; y < a->height; ++y)
-        for (int x = 0; x < a->width; ++x) atrous_pixel(*a, in, out, step, x, y);
+    if (a->width <= 0 || a->height <= 0) return 0;
+    if (step < 1) return 1;
+    std::vector<AtrousQuad> sm((size_t)(atrous_shared_bytes(atrous_quads(*a)) / sizeof(AtrousQuad)) + 1);
+    for (long long b = 0; b < atrous_tiles(*a, step); ++b) {
+        const AtrousTile t = atrous_tile(*a, sm.data(), step, b);
+        if (t.empty()) continue;
+        for (int e = 0; e < kAtrousSlots; ++e) atrous_stage(*a, t, in, e);
+        atrous_weights(*a, t, 0, 1);
+        for (int e = 0; e < F3D_ATROUS_TX * F3D_ATROUS_TY; ++e) atrous_output(*a, t, out, e);
+    }
+    return 0;
+}
+int f3d_atrous_attrs(int* out) {
+    out[0] = out[1] = out[2] = 0;   // no device function on the host
+    out[3] = (int)atrous_shared_bytes(3);
+    out[4] = F3D_ATROUS_TX;
+    out[5] = F3D_ATROUS_TY;
     return 0;
 }
 int f3d_hosek_radiance(const HosekArgs* s, const float* dx, const float* dy, const float* dz,
@@ -963,28 +982,49 @@ int f3d_equirect_accum(const float* env, int env_h, int env_w, const float* dirs
         equirect_accum_texel(env, env_h, env_w, dirs, w, samples, texels, mode, out, t);
     return 0;
 }
-// E8 one voxel or pixel at a time
-int f3d_smoke_forces(const float* vel, const float* temp, float* vf, long long n, float dtb,
-                     float amb, float w0, float w1, float w2, float kdamp, void*) {
-    for (long long i = 0; i < n; ++i)
-        smoke_forces_voxel(vel, temp, vf, n, dtb, amb, w0, w1, w2, kdamp, i);
+// E8 one voxel or pixel at a time; the Jacobi sweeps brick by brick, each
+// brick's columns loaded, then each level published by every column before
+// any column forms the next (smoke.cu:jacobi_kernel's barriers)
+int f3d_smoke_advect_velocity(const float* vel, const float* temp, float* va, int nx, int ny,
+                              int nz, float dt, float dtb, float amb, float w0, float w1,
+                              float w2, float kdamp, int forms, void*) {
+    const long long n = (long long)nx * ny * nz;
+    const SmokeForced f{vel, temp, n, dtb, amb, kdamp, {w0, w1, w2}};
+    for (long long i = 0; i < n; ++i) smoke_advect_velocity_voxel(f, va, nx, ny, nz, dt, forms, i);
     return 0;
 }
-int f3d_smoke_advect_velocity(const float* vf, float* va, int nx, int ny, int nz, float dt,
-                              int forms, void*) {
+int f3d_smoke_divergence(const float* va, float* div, float* p1, int nx, int ny, int nz,
+                         float sixth, void*) {
     for (long long i = 0; i < (long long)nx * ny * nz; ++i)
-        smoke_advect_velocity_voxel(vf, va, nx, ny, nz, dt, forms, i);
-    return 0;
-}
-int f3d_smoke_divergence(const float* va, float* div, int nx, int ny, int nz, void*) {
-    for (long long i = 0; i < (long long)nx * ny * nz; ++i)
-        div[i] = smoke_divergence_voxel(va, nx, ny, nz, i);
+        smoke_divergence_voxel(va, div, p1, nx, ny, nz, sixth, i);
     return 0;
 }
 int f3d_smoke_jacobi(const float* p, const float* div, float* p_out, int nx, int ny, int nz,
-                     float sixth, void*) {
-    for (long long i = 0; i < (long long)nx * ny * nz; ++i)
-        p_out[i] = smoke_jacobi_voxel(p, div, nx, ny, nz, sixth, i);
+                     float sixth, int levels, void*) {
+    if (levels < 1 || levels > F3D_JAC_LEVELS) return 1;
+    const int threads = F3D_JAC_THREADS;
+    std::vector<float> sm(2 * F3D_JAC_PLANES), cp(F3D_JAC_SZ * threads);
+    for (long long b = 0; b < jac_bricks(nx, ny, nz); ++b) {
+        const JacBrick k = jac_brick(nx, ny, nz, b);
+        for (int t = 0; t < threads; ++t)
+            jac_load(k, t, p, div, &cp[t * F3D_JAC_SZ], sm.data() + F3D_JAC_PLANES);
+        for (int l = 0; l < levels; ++l) {
+            for (int t = 0; t < threads; ++t) jac_publish(&cp[t * F3D_JAC_SZ], sm.data(), t);
+            for (int t = 0; t < threads; ++t)
+                jac_level(jac_column(k, t), &cp[t * F3D_JAC_SZ], sm.data(),
+                          sm.data() + F3D_JAC_PLANES, sixth);
+        }
+        for (int t = 0; t < threads; ++t) jac_store(k, t, &cp[t * F3D_JAC_SZ], p_out);
+    }
+    return 0;
+}
+int f3d_jacobi_attrs(int* out) {
+    out[0] = out[1] = out[2] = 0;   // no device function on the host
+    out[3] = (int)(2 * sizeof(float) * F3D_JAC_PLANES);
+    out[4] = F3D_JAC_LEVELS;
+    out[5] = F3D_JAC_SX;
+    out[6] = F3D_JAC_SY;
+    out[7] = F3D_JAC_SZ;
     return 0;
 }
 int f3d_smoke_project_advect(const float* va, const float* p, const float* div,
@@ -1245,6 +1285,120 @@ void f3d_test_mesh_any(const MeshArgs* m, const float* o, const float* d, int n,
         out[3 * n + i] = h.v;
     }
 }
+// The parent's per-voxel and per-pixel bodies of E8 step and E3 (a sweep a
+// launch, the forces stored, atrous_pixel's 25 taps read from memory), the
+// references of the fused stages, the Jacobi bricks and E3's lattice tiles
+static float parent_trilinear(const float* g, int nx, int ny, int nz, float px, float py,
+                              float pz, int form) {
+    const float x = fminf(fmaxf(px, 0.0f), (float)((double)nx - 1.000001));
+    const float y = fminf(fmaxf(py, 0.0f), (float)((double)ny - 1.000001));
+    const float z = fminf(fmaxf(pz, 0.0f), (float)((double)nz - 1.000001));
+    const int x0 = (int)floorf(x), y0 = (int)floorf(y), z0 = (int)floorf(z);
+    const float fx = x - (float)x0, fy = y - (float)y0, fz = z - (float)z0;
+    const int x1 = x0 + 1 < nx ? x0 + 1 : nx - 1;
+    const int y1 = y0 + 1 < ny ? y0 + 1 : ny - 1;
+    const int z1 = z0 + 1 < nz ? z0 + 1 : nz - 1;
+    const long long r00 = ((long long)z0 * ny + y0) * nx, r01 = ((long long)z0 * ny + y1) * nx;
+    const long long r10 = ((long long)z1 * ny + y0) * nx, r11 = ((long long)z1 * ny + y1) * nx;
+    const float c00 = smoke_lerp(g[r00 + x0], g[r00 + x1], fx, form);
+    const float c01 = smoke_lerp(g[r01 + x0], g[r01 + x1], fx, form);
+    const float c10 = smoke_lerp(g[r10 + x0], g[r10 + x1], fx, form);
+    const float c11 = smoke_lerp(g[r11 + x0], g[r11 + x1], fx, form);
+    return smoke_lerp(smoke_lerp(c00, c01, fy, form), smoke_lerp(c10, c11, fy, form), fz, form);
+}
+static void parent_neighbours(const float* p, int nx, int ny, int nz, long long i, float nb[6]) {
+    const int x = (int)(i % nx), y = (int)((i / nx) % ny), z = (int)(i / ((long long)nx * ny));
+    const long long row = ((long long)z * ny + y) * nx, plane = (long long)nx * ny;
+    nb[0] = p[row + (x > 0 ? x - 1 : 0)];
+    nb[1] = p[row + (x < nx - 1 ? x + 1 : nx - 1)];
+    nb[2] = p[row + x + (y > 0 ? -nx : 0)];
+    nb[3] = p[row + x + (y < ny - 1 ? nx : 0)];
+    nb[4] = p[row + x + (z > 0 ? -plane : 0)];
+    nb[5] = p[row + x + (z < nz - 1 ? plane : 0)];
+}
+// the forces stored (forces_kernel), then the self-advection of the stored
+// field (advect_velocity_kernel); vf (3, n) is the caller's scratch
+void f3d_test_parent_forces_advect(const float* vel, const float* temp, float* vf, float* va,
+                                   int nx, int ny, int nz, float dt, float dtb, float amb,
+                                   float w0, float w1, float w2, float kdamp, int forms) {
+    const long long n = (long long)nx * ny * nz;
+    for (long long i = 0; i < n; ++i) {
+        vf[i] = (vel[i] + w0) * kdamp;
+        vf[n + i] = (fmaf(temp[i] - amb, dtb, vel[n + i]) + w1) * kdamp;
+        vf[2 * n + i] = (vel[2 * n + i] + w2) * kdamp;
+    }
+    for (long long i = 0; i < n; ++i) {
+        const int x = (int)(i % nx), y = (int)((i / nx) % ny), z = (int)(i / ((long long)nx * ny));
+        const float bx = fmaf(-dt, vf[i], (float)x);
+        const float by = fmaf(-dt, vf[n + i], (float)y);
+        const float bz = fmaf(-dt, vf[2 * n + i], (float)z);
+        for (int c = 0; c < 3; ++c)
+            va[c * n + i] = parent_trilinear(vf + c * n, nx, ny, nz, bx, by, bz,
+                                             (forms >> (2 * c)) & 3);
+    }
+}
+// divergence_kernel
+void f3d_test_parent_divergence(const float* va, float* div, int nx, int ny, int nz) {
+    const long long n = (long long)nx * ny * nz;
+    for (long long i = 0; i < n; ++i) {
+        float a[6], b[6], c[6];
+        parent_neighbours(va, nx, ny, nz, i, a);
+        parent_neighbours(va + n, nx, ny, nz, i, b);
+        parent_neighbours(va + 2 * n, nx, ny, nz, i, c);
+        div[i] = 0.5f * (((a[1] - a[0]) + (b[3] - b[2])) + (c[5] - c[4]));
+    }
+}
+// one sweep of jacobi_kernel (p null: from zeros)
+void f3d_test_parent_jacobi(const float* p, const float* div, float* out, int nx, int ny, int nz,
+                            float sixth) {
+    for (long long i = 0; i < (long long)nx * ny * nz; ++i) {
+        float s = 0.0f;
+        if (p) {
+            float nb[6];
+            parent_neighbours(p, nx, ny, nz, i, nb);
+            s = ((((nb[0] + nb[1]) + nb[2]) + nb[3]) + nb[4]) + nb[5];
+        }
+        out[i] = (s - div[i]) * sixth;
+    }
+}
+// one pass of atrous_kernel: each pixel's 25 taps from memory
+static float parent_sq_dist3(const float* p, long long i, long long j) {
+    float d0 = p[3 * j + 0] - p[3 * i + 0];
+    float d1 = p[3 * j + 1] - p[3 * i + 1];
+    float d2 = p[3 * j + 2] - p[3 * i + 2];
+    return d0 * d0 + d1 * d1 + d2 * d2;
+}
+void f3d_test_parent_atrous(const AtrousArgs* ap, const float* in, float* out, int step) {
+    const AtrousArgs& a = *ap;
+    const float k1[5] = {1.0f / 16.0f, 1.0f / 4.0f, 3.0f / 8.0f, 1.0f / 4.0f, 1.0f / 16.0f};
+    for (int y = 0; y < a.height; ++y)
+        for (int x = 0; x < a.width; ++x) {
+            const long long i = (long long)y * a.width + x;
+            float acc0 = 0.0f, acc1 = 0.0f, acc2 = 0.0f, wacc = 0.0f;
+            for (int ky = -2; ky <= 2; ++ky) {
+                const int sy = clampi(y - ky * step, 0, a.height - 1);
+                for (int kx = -2; kx <= 2; ++kx) {
+                    const long long j = (long long)sy * a.width + clampi(x - kx * step, 0, a.width - 1);
+                    float w = k1[ky + 2] * k1[kx + 2];
+                    w = w * expf(-parent_sq_dist3(in, i, j) / a.k_color);
+                    if (a.albedo != nullptr) w = w * expf(-parent_sq_dist3(a.albedo, i, j) / a.k_albedo);
+                    if (a.normal != nullptr) w = w * expf(-parent_sq_dist3(a.normal, i, j) / a.k_normal);
+                    if (a.depth != nullptr) {
+                        float dd = a.depth[j] - a.depth[i];
+                        w = w * expf(-(dd * dd) / a.k_depth);
+                    }
+                    acc0 = acc0 + in[3 * j + 0] * w;
+                    acc1 = acc1 + in[3 * j + 1] * w;
+                    acc2 = acc2 + in[3 * j + 2] * w;
+                    wacc = wacc + w;
+                }
+            }
+            const float den = fmaxf(wacc, 1e-8f);
+            out[3 * i + 0] = acc0 / den;
+            out[3 * i + 1] = acc1 / den;
+            out[3 * i + 2] = acc2 / den;
+        }
+}
 // test entry: synthesize_polar's contraction for one column and row
 float f3d_test_crossing(const float* M, const float* v, int K, int C, float Q, float* out) {
     return crossing(M, StridedRows{v, C}, C, K, Q, out);
@@ -1254,17 +1408,31 @@ float f3d_test_crossing(const float* M, const float* v, int K, int C, float Q, f
 
 
 @pytest.fixture(scope="module")
-def host_lib(tmp_path_factory):
+def host_lib():
+    """The host build of the kernel bodies, made once into build/host_kernels/
+    (listed in .gitignore), keyed by a hash of the launchers and csrc's
+    headers, and shared by every test module and worker that loads it."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("g++ is not installed: the host build of the kernel bodies needs it")
-    d = tmp_path_factory.mktemp("kernels_host")
-    src = d / "host_launchers.cpp"
-    src.write_text(HOST_LAUNCHERS)
-    out = d / "libhost_kernels.so"
-    subprocess.run([gxx, "-O2", "-std=c++17", "-ffp-contract=off", "-shared", "-fPIC",
-                    "-I", str(_kernels.CSRC), "-o", str(out), str(src)],
-                   check=True, capture_output=True, text=True, timeout=300)
+    h = hashlib.sha256(HOST_LAUNCHERS.encode())
+    for p in sorted(_kernels.CSRC.glob("*.cuh")):
+        h.update(p.name.encode() + p.read_bytes())
+    d = _kernels.BUILD_DIR.parent / "host_kernels"
+    d.mkdir(parents=True, exist_ok=True)
+    out = d / f"libhost_kernels_{h.hexdigest()[:16]}.so"
+    if not out.exists():
+        src = d / f"host_launchers.{os.getpid()}.cpp"
+        tmp = d / f"libhost_kernels.{os.getpid()}.tmp"
+        src.write_text(HOST_LAUNCHERS)
+        try:
+            subprocess.run([gxx, "-O2", "-std=c++17", "-ffp-contract=off", "-shared", "-fPIC",
+                            "-I", str(_kernels.CSRC), "-o", str(tmp), str(src)],
+                           check=True, capture_output=True, text=True, timeout=300)
+            os.replace(tmp, out)   # atomic: a concurrent worker never loads a partial file
+        finally:
+            src.unlink(missing_ok=True)
+            tmp.unlink(missing_ok=True)
     return _kernels.bind(ctypes.CDLL(str(out)))
 
 
@@ -3808,20 +3976,23 @@ def smoke_case(device, jacobi):
 
 @pytest.mark.parametrize("jacobi", [0, 1, 6])
 def test_smoke_step_kernels(kernels, jacobi):
+    """Each launch of the step against its plain stages (the forces with the
+    self-advection, the divergence alone and with the first sweep, a sweep
+    a launch), then the step's own launches."""
     O, g, k = smoke_case(kernels, jacobi)
-    before = [f.launches for f in (O.smoke_forces, O.smoke_advect_velocity, O.smoke_divergence,
-                                   O.smoke_jacobi, O.smoke_project_advect)]
-    vf = O._forces_kernel(g["velocity"], g["temperature"], k)
-    assert torch.equal(vf, O._forces_plain(g["velocity"], g["temperature"], k))
-    va = O._advect_velocity_kernel(vf, k)
-    assert torch.equal(va, O._advect_velocity_plain(vf, k))
+    stages = (O.smoke_advect_velocity, O.smoke_divergence, O.smoke_jacobi, O.smoke_project_advect)
+    before = [f.launches for f in stages]
+    va = O._advect_velocity_kernel(g["velocity"], g["temperature"], k)
+    assert torch.equal(va, O._forces_advect_plain(g["velocity"], g["temperature"], k))
     div = O._divergence_kernel(va)
     assert torch.equal(div, O._divergence_plain(va))
-    p = None
-    for _ in range(jacobi):
+    div1, p = O._divergence_kernel(va, k)
+    assert torch.equal(div1, div) and torch.equal(p, O._jacobi_plain(None, div, k))
+    for _ in range(jacobi - 1):
         got = O._jacobi_kernel(p, div, k)
         assert torch.equal(got, O._jacobi_plain(p, div, k))
         p = got
+    p = p if jacobi > 1 else None
     args = (va, p, g["density"], g["temperature"], g["soot"], g["emission"], k)
     for a, b in zip(O._project_advect_kernel(*args), O._project_advect_plain(*args)):
         assert torch.equal(a, b)
@@ -3829,20 +4000,19 @@ def test_smoke_step_kernels(kernels, jacobi):
         args = (va, None, *args[2:], div)
         for a, b in zip(O._project_advect_kernel(*args), O._project_advect_plain(*args)):
             assert torch.equal(a, b)
-    # the whole step through the wrappers on the kernels' device
-    out = O.smoke_step(g["density"], g["velocity"], g["temperature"], g["soot"], g["emission"], k)
-    ref = O.smoke_step_plain(g["density"], g["velocity"], g["temperature"], g["soot"],
-                             g["emission"], k)
+    # the whole step's launches on the kernels' device
+    grids = [g[n] for n in ("density", "velocity", "temperature", "soot", "emission")]
+    mid = [f.launches for f in stages]
+    out = O._step_kernel(*grids, k)
+    ref = O.smoke_step_plain(*grids, k)
     assert all(torch.equal(a, b) for a, b in zip(out, ref))
-    after = [f.launches for f in (O.smoke_forces, O.smoke_advect_velocity, O.smoke_divergence,
-                                  O.smoke_jacobi, O.smoke_project_advect)]
-    # the stages' launches above, and the step's on the card (CPU tensors run
-    # the plain versions)
-    step = ([1, 1, int(jacobi > 0), jacobi * (jacobi > 1), 1] if kernels.type == "cuda"
-            else [0] * 5)
-    assert [a - b for a, b in zip(after, before)] == [
-        1 + step[0], 1 + step[1], 1 + step[2], jacobi + step[3],
-        1 + int(jacobi == 1) + step[4]]
+    after = [f.launches for f in stages]
+    levels = O.jacobi_attrs()["levels"]
+    assert [m - b for m, b in zip(mid, before)] == [
+        1, 2, max(jacobi - 1, 0), 1 + int(jacobi == 1)]
+    assert [a - m for a, m in zip(after, mid)] == [
+        1, int(jacobi > 0), -(-(jacobi - 1) // levels) if jacobi > 1 else 0, 1]
+    assert sum(after) - sum(mid) == O.step_launches(jacobi, levels)
 
 
 def test_smoke_march_kernel(kernels):

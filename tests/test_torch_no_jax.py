@@ -328,6 +328,19 @@ SCRIPT = textwrap.dedent("""
     assert [tpost.blur_instance(r) for r in (0, 45, tpost.BLUR_SHARED_RADIUS,
                                              tpost.BLUR_SHARED_RADIUS + 1)] \
         == ["shared window"] * 3 + ["device window"]
+    # E8 step's launches by sweeps a launch, and the getters through which the
+    # Jacobi bricks' k and brick and E3's tile reach Python from their one home
+    # in csrc (no copy of them here: without nvcc the getters cannot build)
+    from forge3d_tpu_torch.ops import denoise as tdn
+    from forge3d_tpu_torch.ops import smoke as tsmk
+    assert [tsmk.step_launches(j, 4) for j in (0, 1, 2, 5, 20)] == [2, 3, 4, 4, 8]
+    for getter in (tsmk.jacobi_attrs, tdn.atrous_attrs):
+        try:
+            got = getter()
+        except RuntimeError as e:   # no CUDA toolkit here
+            assert "nvcc" in str(e), e
+        else:
+            assert min(got.get("brick", got.get("tile"))) >= 1, got
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "forge3d_tpu"))
     assert not loaded, loaded
     if not preloaded:
