@@ -28,7 +28,13 @@ E and of K's render; `--probe E8E3` E8 step on W's state (as launched,
 queued, launch by launch, a sweep and a brick launch alone) and E3 at 1080p
 by pass with its two measurement builds (probe_e8e3; `--probe E8` and
 `--probe E3` one half each), then a sha256 of the step's grids and of E3's
-output; `--probe W` W's frames by stage as phase 29 runs them (probe_w).
+output; `--probe W` W's frames by stage as phase 29 runs them (probe_w);
+`--probe S4P5` S4 on phase 16's geometry (its work, as launched, queued and
+in measurement build `S4 store`, the cold screen render's peak memory) and
+P5 on J's camera and sun rays (as launched, queued, in measurement builds
+`P5 root` and, in a tree with the cull, `P5 check`, whose count must be 0;
+the roots entered by BLAS, the plain walk's node visits, `tlas_args` alone),
+each with a sha256 of its outputs (`--probe S4`, `--probe P5` one half).
 Copied
 into a checkout of an earlier tree and run there, it times that tree's
 kernels, so two designs can be compared on one card.
@@ -738,7 +744,9 @@ EARLIER = {"E4 vector_coverage": "a-launch-a-layer, every-primitive design 29.64
            "S8 shade (D)": "row-of-128, taps-through-pointers design 0.5104",
            # the designs before the Jacobi bricks and E3's lattice tiles
            "E8 step": "24-launch, a-sweep-a-launch design 0.7685",
-           "E3 atrous_denoise": "thread-a-pixel, taps-from-memory design 2.2900"}
+           "E3 atrous_denoise": "thread-a-pixel, taps-from-memory design 2.2900",
+           # the design before P5's staged, culled walk, as launched
+           "P5 trace_tlas": "every-instance, table-copied-each-call design 1.3588"}
 
 
 def kernel_row(name, launches, err, ms, plain_ms, bound_ms, bound_by):
@@ -1418,12 +1426,18 @@ def launcher_ms(fn, symbol: str, reps: int) -> float:
 # (what the taps' scatter costs); S8 const: PCSS a constant that the
 # receiver keeps live (what PCSS costs); E3 self: every E3 tap (every staged
 # slot) read at one pixel (what the scattered reads cost); E3 const: each of
-# E3's four exponentials a constant (what the weights' arithmetic costs).
+# E3's four exponentials a constant (what the weights' arithmetic costs);
+# S4 store: a plain store where S4 takes the min of a texel (what the
+# atomics cost); P5 root: every BLAS walk of P5 stops after its root box
+# test (what the instance loop costs); P5 check: P5 counts the rays whose
+# instance the cull rejects where the object-space root test accepts (must
+# be 0), and the instances it rejects (csrc/pt.cu:f3d_tlas_cull_check).
 # Their outputs are not the kernels' and are not checked.
 SPLIT_BUILDS = {"A": ("F3D_K7_SELF_TAPS", "F3D_K3_SPLIT=1"), "B": ("F3D_K3_SPLIT=2",),
                 "C": ("F3D_K3_SPLIT=3",), "S8 self": ("F3D_S8_PCSS_SELF",),
                 "S8 const": ("F3D_S8_PCSS_CONST",), "E3 self": ("F3D_E3_SELF_TAPS",),
-                "E3 const": ("F3D_E3_CONST_EXP",)}
+                "E3 const": ("F3D_E3_CONST_EXP",), "S4 store": ("F3D_S4_STORE",),
+                "P5 root": ("F3D_P5_ROOT_ONLY",), "P5 check": ("F3D_P5_CULL_CHECK",)}
 _VARIANT_LIBS = {}
 
 
@@ -2710,12 +2724,7 @@ def phase_screen_kernels(dem):
                           + f", sum {sum(split.values()):.4f}")
 
     # S4 on the main path's shadow geometry (A's and B's: one sun, DEM, span)
-    hm = dem
-    lvp, _, tris, keep, wbb, hbb = scr.shadow_geometry(
-        hm, terrain_span=2.8, z_scale=1.45, sun_dir=-scr.light_direction(135.0, 24.0),
-        domain=(float(hm.min()), float(hm.max())))
-    t_t = torch.as_tensor(tris, device=dev)
-    k_t = torch.as_tensor(keep, device=dev)
+    t_t, k_t, wbb, hbb = s4_inputs(dev)
     got = scr._raster_depth_kernel(t_t, k_t, scr.SHADOW_RES, wbb, hbb)
     plain_ms, ref = wall_ms(lambda: scr.raster_depth_plain(t_t, k_t, scr.SHADOW_RES, wbb, hbb))
     deq = float((ref == got).double().mean())
@@ -2733,11 +2742,10 @@ def phase_screen_kernels(dem):
     tex.close()
     say("screen kernels", f"S8's shadow texture over the {scr.SHADOW_RES}^2 map (a texture "
                           f"object, no copy): {tex_ms:.4f} ms synchronised")
-    say("screen kernels", f"S4 raster_depth {tris.shape[0]} triangles ({int(live.sum())} live, "
+    say("screen kernels", f"S4 raster_depth {t_t.shape[0]} triangles ({int(live.sum())} live, "
                           f"box {wbb}x{hbb}, {int(pix)} box pixels) into {scr.SHADOW_RES}^2: "
                           f"{deq:.6f} of texels equal; kernel {ms:.4f} ms, plain "
-                          f"{plain_ms:.1f} ms, "
-                          f"bound {bms:.4f} ms ({by})")
+                          f"{plain_ms:.1f} ms, bound {bms:.4f} ms ({by})")
 
     # S8 (S5 inside) in A and B at 256x128 and 1080p
     for config in ("A", "B"):
@@ -3723,7 +3731,8 @@ def phase_mapscene(bdem):
 OPS_SDF_PRIM = 22       # sdf_prim: one primitive (the capsule's 30, a plane's 7)
 OPS_SDF_OP = 10         # sdf_op: one operation with its material choice
 OPS_SDF_STEP = 12       # sdf_march: the step around the tape evaluation
-OPS_TLAS_INST = 40      # tlas_ray: one instance's transform and compare
+OPS_TLAS_INST = 40      # tlas_walk: one instance's transform and compare
+OPS_TLAS_CULL = 20      # tlas_cull: one instance's world box test
 OPS_HYB_PIXEL = 60      # hybrid_pixel: the shading, the u8 encode and the AOVs
 OPS_ADJ_ESC = 180       # adj_raster_pixel: a live direction that escapes (nearest, BSDF, MIS)
 OPS_ADJ_SEC = 520       # ... one that hits the scene (the secondary closure, two shadow rays)
@@ -4073,18 +4082,15 @@ def phase_pt_kernels(dem):
     say("pt kernels", f"P5 TLAS: {len(tlas.instances)} instances of {len(tlas.scenes)} BLASes "
                       f"({tris} triangles), host build {build_ms:.1f} ms, of it the packing of "
                       f"K9's records {pack:.3f} ms")
-    a5 = _attrs("f3d_tlas_attrs")
-    say("pt kernels", f"P5 kernel: {a5[0]} registers, {a5[1]} B local, {a5[2]} resident blocks "
-                      f"of 256 an SM")
+    ta = tl.tlas_attrs()
+    say("pt kernels", f"P5 kernel: {json.dumps(ta)} (blocks of 128 rays)")
+    require((ta["inv_min"], ta["inv_clamp"])
+            == tuple(_kernels.csrc_constant(k) for k in ("F3D_MESH_INV_MIN", "F3D_MESH_INV_CLAMP")),
+            "the library's mesh_inv limits differ from those the cull's margin took")
     tl.trace_tlas.launches = 0
     cam = tl.trace_tlas(tlas, ro, rd, 1e-3, 1e30)          # the main path: camera rays ...
     hit = cam.hit
-    p_hit = [ro[k][hit] + cam.t[hit] * rd[k][hit] for k in range(3)]
-    from forge3d_tpu_torch.ops.shading import sun_direction
-
-    sd3 = sun_direction(135.0, 45.0)
-    s_o = [p_hit[k] - rd[k][hit] * 1e-2 for k in range(3)]
-    s_d = [torch_full(int(hit.sum()), float(sd3[k]), dev) for k in range(3)]
+    s_o, s_d = j_sun_rays(ro, rd, cam)
     sun = tl.trace_tlas(tlas, s_o, s_d, 1e-3, 1e30)        # ... and sun rays from their hits
     tlas_launches = tl.trace_tlas.launches
     require(tlas_launches == 2, f"trace_tlas launched P5 {tlas_launches} times, not 2")
@@ -4103,12 +4109,25 @@ def phase_pt_kernels(dem):
         say("pt kernels", f"P5 trace_tlas {tag}: {o_[0].numel()} rays bit-identical, plain "
                           f"{plain_ms_t:.1f} ms")
     ms_t = cuda_ms(lambda: tl._trace_tlas_kernel(tlas, ro, rd, 1e-3, 1e30), 5)
+    q_t = queued_ms(lambda: tl._trace_tlas_kernel(tlas, ro, rd, 1e-3, 1e30), 5)
     blas_bytes = sum(s.kernel_nbytes for s, _ in tlas.scenes)
-    b_t, by_t = bound(n_pts * (24 + 21) + blas_bytes,
-                      traced_ops(w) + n_pts * len(tlas.instances) * OPS_TLAS_INST)
-    out["P5 trace_tlas"] = (0.0, ms_t, plain_ms, b_t, by_t)
-    say("pt kernels", f"P5 trace_tlas {n_pts} camera rays: kernel {ms_t:.4f} ms, plain "
-                      f"{plain_ms:.1f} ms, bound {b_t:.4f} ms ({by_t})")
+    nbytes = n_pts * (24 + 21) + blas_bytes + tensor_bytes(tlas.table)
+    pairs = n_pts * len(tlas.instances)
+    b_t, by_t = bound(nbytes, traced_ops(w) + pairs * OPS_TLAS_INST)
+    # the kernel's own work: the cull on every (ray, instance) pair, then the
+    # transform and the walk (its root test included) where the ray enters
+    # the root (the cull's own accepts are these and those within its margin)
+    roots = sum(p5_root_entries(tlas, ro, rd, 1e-3, 1e30))
+    own = (pairs * OPS_TLAS_CULL + roots * OPS_TLAS_INST
+           + (w["node_visits"] - pairs + roots) * OPS_NODE + w["tri_tests"] * OPS_TRIANGLE)
+    b_own, by_own = bound(nbytes, own)
+    out["P5 trace_tlas"] = (0.0, ms_t, plain_ms, b_own, by_own)
+    say("pt kernels", f"P5 trace_tlas {n_pts} camera rays: kernel {ms_t:.4f} ms as launched, "
+                      f"{q_t:.4f} queued, plain {plain_ms:.1f} ms, bound {b_own:.4f} ms "
+                      f"({by_own}; the kernel's own work: the cull on every (ray, instance) "
+                      f"pair, {roots} of {pairs} entering a root); by the parent's count "
+                      f"(every instance's transform and root box for every ray, as the plain "
+                      f"version counts it) {b_t:.4f} ms ({by_t})")
 
     for (w_, h_, spp) in ((SMALL_W, SMALL_H, 4), (128, 128, 4)):
         rk, hk = adj._raster_lane_kernel(w_, h_, dev)
@@ -7061,6 +7080,193 @@ def probe_w(torch):
                     "not measured"))
 
 
+def s4_inputs(dev):
+    """Phase 16's S4 geometry (A's and B's shadow: the screen DEM, span 2.8,
+    z scale 1.45, the sun at azimuth 135, elevation 24) on `dev`: (tris,
+    keep, wbb, hbb)."""
+    import torch
+
+    from forge3d_tpu_torch.terrain import screen as scr
+
+    hm = screen_dem()
+    _, _, tris, keep, wbb, hbb = scr.shadow_geometry(
+        hm, terrain_span=2.8, z_scale=1.45, sun_dir=-scr.light_direction(135.0, 24.0),
+        domain=(float(hm.min()), float(hm.max())))
+    return torch.as_tensor(tris, device=dev), torch.as_tensor(keep, device=dev), wbb, hbb
+
+
+def s4_work(t, k, res, wbb, hbb):
+    """S4's work on these triangles, from the plain version's expressions:
+    {live triangles, box pixels (a live triangle's wbb x hbb box cut to its
+    own, as phase 16's bound counts it), covered pixels (the pairs whose
+    depth the kernel stores: its global atomics), and lane efficiency (a
+    lane a triangle, 32 consecutive triangles a warp: box pixels over 32 x
+    the warp's tallest box)}."""
+    import torch
+
+    from forge3d_tpu_torch.terrain import screen as scr
+
+    live, _, xmin, ymin, xmax, ymax, inv = scr._triangle_setup(t, k)
+    box = torch.clamp(xmax - xmin + 1, 1, wbb) * torch.clamp(ymax - ymin + 1, 1, hbb)
+    box = torch.where(live, box, 0.0).double()
+    pad = torch.zeros((-box.numel()) % 32, dtype=box.dtype, device=box.device)
+    warps = torch.cat([box, pad]).reshape(-1, 32)
+    rows = torch.nonzero(live).squeeze(1)
+    cols = [t[:, i, j].contiguous() for i in range(3) for j in range(3)]
+    covered = 0
+    for dy in range(hbb):
+        rows = rows[ymin.index_select(0, rows) + float(dy) + 0.5
+                    <= ymax.index_select(0, rows) + 0.5]
+        if rows.numel() == 0:
+            break
+        ax, ay, az, bx, by, bz, cx, cy, cz = (c.index_select(0, rows) for c in cols)
+        r_xmin, r_xmax, r_inv = (v.index_select(0, rows) for v in (xmin, xmax, inv))
+        py = ymin.index_select(0, rows) + float(dy) + 0.5
+        for dx in range(wbb):
+            px = r_xmin + float(dx) + 0.5
+            w0 = scr._xy_minus_uv(bx - px, cy - py, cx - px, by - py) * r_inv
+            w1 = scr._xy_minus_uv(cx - px, ay - py, ax - px, cy - py) * r_inv
+            w2 = 1.0 - w0 - w1
+            covered += int(((px <= r_xmax + 0.5) & (w0 >= 0) & (w1 >= 0) & (w2 >= 0)).sum())
+    return {"live triangles": int(live.sum()), "box pixels": int(box.sum()),
+            "covered pixels": covered,
+            "lane efficiency": round(float(box.sum() / (32 * warps.max(1).values.sum())), 4)}
+
+
+def probe_s4(torch):
+    """S4 on phase 16's geometry: its work (s4_work), as launched and
+    queued, queued in measurement build `S4 store` (a plain store where the
+    kernel takes a min: what the atomics cost; its map is not the
+    kernel's), the distinct texels it writes below 1.0 (overdraw: covered
+    pixels over them), and a sha256 of the map; then a cold render of
+    screen A at 1080p, its peak device memory. Calls only entry points S4
+    has had since it was ported."""
+    import forge3d_tpu_torch as f3t
+    from forge3d_tpu_torch.terrain import screen as scr
+
+    dev = torch.device("cuda")
+    t, k, wbb, hbb = s4_inputs(dev)
+    res = scr.SHADOW_RES
+    fn = lambda: scr._raster_depth_kernel(t, k, res, wbb, hbb)  # noqa: E731
+    out = fn()
+    w = s4_work(t, k, res, wbb, hbb)
+    w["texels below 1.0"] = int((out < 1.0).sum())
+    w["overdraw"] = round(w["covered pixels"] / max(w["texels below 1.0"], 1), 4)
+    ms = {"as launched": cuda_ms(fn, 10), "queued": queued_ms(fn, 10)}
+    ms["S4 store, queued"] = with_lib(variant_lib("S4 store"), lambda: queued_ms(fn, 10))
+    say("probe", f"S4 raster_depth {t.shape[0]} triangles, box {wbb}x{hbb}, into {res}^2: "
+                 f"{json.dumps(w)}")
+    say("probe", f"S4 raster_depth (ms): {json.dumps({n: round(v, 4) for n, v in ms.items()})}; "
+                 f"sha256 {_sha(out)}")
+    r = f3t.TerrainRenderer(device="cuda")
+    p, env, wm = screen_config("A", REAL_W, REAL_H, screen_dem())
+    scr.clear_caches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms_, _ = wall_ms(lambda: r.render_with_aov(env_maps=env, params=p, heightmap=screen_dem(),
+                                               water_mask=wm))
+    say("probe", f"screen A {REAL_W}x{REAL_H} cold: {ms_:.1f} ms, peak device memory "
+                 f"{torch.cuda.max_memory_allocated()} B")
+    scr.clear_caches()
+
+
+def j_sun_rays(ro, rd, cam):
+    """J's sun rays: from the camera rays' hits (1e-2 back along the ray)
+    toward the sun at azimuth 135, elevation 45."""
+    from forge3d_tpu_torch.ops.shading import sun_direction
+
+    hit = cam.hit
+    sd3 = sun_direction(135.0, 45.0)
+    s_o = [ro[k][hit] + cam.t[hit] * rd[k][hit] - rd[k][hit] * 1e-2 for k in range(3)]
+    s_d = [torch_full(int(hit.sum()), float(sd3[k]), ro[0].device) for k in range(3)]
+    return s_o, s_d
+
+
+def p5_root_entries(tlas, ro, rd, tmin, tmax):
+    """The (ray, instance) pairs whose object-space root box test passes, by
+    BLAS: the instance's float32 world-to-object transform as
+    trace_tlas_plain forms it, then two steps of the plain walk, whose
+    second visits the first child of an interior root exactly where the
+    root's test passed (the walk's own test; its counters are restored)."""
+    from forge3d_tpu_torch.ops import bvh, tlas as tl
+
+    walk = bvh.trace_mesh_plain
+    saved = walk.node_visits, walk.tri_tests
+    xf = (tl._xform_rows(tlas.inv_mats) if hasattr(tl, "_xform_rows")   # an earlier tree's
+          else tl._xform_table(tlas))
+    by = [0] * len(tlas.scenes)
+    for idx, inst in enumerate(tlas.instances):
+        lin = [[float(v) for v in xf[idx, 3 * r:3 * r + 3]] for r in range(3)]
+        trans = [float(v) for v in xf[idx, 9:12]]
+        o = [tl._to_object(lin[r], *ro, trans[r]) for r in range(3)]
+        d = [tl._to_object(lin[r], *rd) for r in range(3)]
+        scene, n_nodes = tlas.scenes[inst.blas_index]
+        require(n_nodes > 1 and int(scene.count[0]) == 0, "a BLAS root is a leaf")
+        before = walk.node_visits
+        walk(scene, n_nodes, o, d, tmin=tmin, tmax=tmax, max_iters=2)
+        by[inst.blas_index] += walk.node_visits - before - o[0].numel()
+    walk.node_visits, walk.tri_tests = saved
+    return by
+
+
+def probe_p5(torch):
+    """P5 on J's 64 instances for camera and sun rays: each timed as
+    launched and queued, queued in measurement build `P5 root` (every walk
+    stops after its root box test: the instance loop's share), the rays that
+    enter each BLAS's root (town, box) and the walks' node visits from the
+    plain run's counters, the wrapper's tlas_args alone (synchronised), and
+    in the tree with the culled walk the cull's misses from measurement
+    build `P5 check` (rays the cull rejects where the root test accepts);
+    then a sha256 of each ray set's hits. Calls only entry points P5 has
+    had since it was ported."""
+    import ctypes
+
+    from forge3d_tpu_torch import _kernels
+    from forge3d_tpu_torch.ops import tlas as tl
+
+    dev = torch.device("cuda")
+    tlas = tlas_scene(bench_dem(), dev)
+    ro, rd = flat_rays(REAL_W, REAL_H, dev)
+    cam = tl._trace_tlas_kernel(tlas, ro, rd, 1e-3, 1e30)
+    sets = {"camera": (ro, rd), "sun": j_sun_rays(ro, rd, cam)}
+    misses = None
+    if hasattr(tl, "tlas_attrs"):           # the culled walk's tree
+        check = variant_lib("P5 check")
+        check.f3d_tlas_cull_check.argtypes = [_kernels._P]
+        misses = (ctypes.c_longlong * 2)()
+        check.f3d_tlas_cull_check(misses)       # zero the counts
+    for name, (o, d) in sets.items():
+        fn = lambda: tl._trace_tlas_kernel(tlas, o, d, 1e-3, 1e30)  # noqa: E731
+        out = fn()
+        t = {"as launched": cuda_ms(fn, 5), "queued": queued_ms(fn, 5)}
+        t["P5 root, queued"] = with_lib(variant_lib("P5 root"), lambda: queued_ms(fn, 5))
+        if misses is not None:
+            with_lib(check, fn)
+            torch.cuda.synchronize()
+            check.f3d_tlas_cull_check(misses)
+            t["cull misses (P5 check)"] = misses[0]
+            t["culled pairs (P5 check)"] = misses[1]
+            require(misses[0] == 0, f"P5's cull rejected {misses[0]} (ray, instance) pairs whose "
+                                    f"root box the walk enters ({name} rays)")
+        work = work_counters()
+        plain = tl.trace_tlas_plain(tlas, o, d, 1e-3, 1e30)
+        roots = p5_root_entries(tlas, o, d, 1e-3, 1e30)
+        same = all(bool(torch.equal(a, b)) for a, b in zip(plain, out))
+        shown = {n: round(v, 4) if isinstance(v, float) else v for n, v in t.items()}
+        say("probe", f"P5 trace_tlas J {name} ({o[0].numel()} rays, {len(tlas.instances)} "
+                     f"instances): {json.dumps(shown)}; roots entered (town, box) {roots}, node "
+                     f"visits {work()['node_visits']}, triangle tests {work()['tri_tests']}; "
+                     f"equal to the plain version {same}; sha256 {_sha(out)}")
+    targs = ((lambda: tl.tlas_args(tlas)) if hasattr(tl, "tlas_attrs")
+             else (lambda: tl.tlas_args(tlas, dev)))     # an earlier tree's: its copies
+    targs_ms = [wall_ms(targs)[0] for _ in range(5)]
+    say("probe", f"P5 tlas_args alone, synchronised (ms): "
+                 + ", ".join(f"{v:.4f}" for v in targs_ms))
+    a = _attrs("f3d_tlas_attrs", n=4)
+    say("probe", f"P5 kernel: {a[0]} registers, {a[1]} B local, {a[2]} resident blocks an SM"
+                 + (f", {a[3]} B shared" if a[3] else ""))
+
+
 def probe(torch, only=None):
     """`chip_smoke.py --probe`: E4 (probe_e4), R1 (probe_r1) and P3
     (probe_p3), then K2 and
@@ -7077,6 +7283,12 @@ def probe(torch, only=None):
     from forge3d_tpu_torch.ops import sweep as sw
     from forge3d_tpu_torch.pt import terrain_sweep as ts
 
+    if only in ("S4P5", "S4", "P5"):
+        if only != "P5":
+            probe_s4(torch)
+        if only != "S4":
+            probe_p5(torch)
+        return
     if only == "C1P4":
         probe_c1(torch)
         probe_p4(torch)

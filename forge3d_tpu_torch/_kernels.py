@@ -277,10 +277,17 @@ class SdfArgs(ctypes.Structure):
                 ("cull_lo", _F3), ("cull_hi", _F3), ("cull_eps", _F)]
 
 
+class TlasInst(ctypes.Structure):
+    """Mirror of `TlasInst` in csrc/pt.cuh: one instance of P5's table."""
+
+    _fields_ = [("lo", _F3), ("hi", _F3), ("g0", _F), ("g1", _F), ("dir_min", _F),
+                ("org_max", _F), ("xform", _F * 12), ("blas", MeshArgs)]
+
+
 class TlasArgs(ctypes.Structure):
     """Mirror of `TlasArgs` in csrc/pt.cuh (P5)."""
 
-    _fields_ = [("blas", _P), ("xform", _P), ("inst_blas", _P), ("n_inst", _I)]
+    _fields_ = [("inst", _P), ("n_inst", _I)]
 
 
 class HybridArgs(ctypes.Structure):
@@ -333,7 +340,8 @@ class GuideArgs(ctypes.Structure):
 
 #: the structs whose sizes csrc/layout.cu:f3d_struct_sizes reports, in its order
 STRUCTS = (ScreenArgs, ScreenOut, ClipArgs, SkyArgs, SdfArgs, MeshArgs, TlasArgs, HybridArgs,
-           HybridOut, AdjArgs, TerrainArgs, TerrainOut, SmokeMarchArgs, PreethamArgs, GuideArgs)
+           HybridOut, AdjArgs, TerrainArgs, TerrainOut, SmokeMarchArgs, PreethamArgs, GuideArgs,
+           TlasInst)
 
 
 _SIGNATURES = {
@@ -443,6 +451,7 @@ _SIGNATURES = {
                           ctypes.POINTER(HybridOut), _P],
     # (out (registers, spilled bytes, resident blocks))
     "f3d_hybrid_attrs": [_P],
+    # (out (registers, local bytes, resident blocks, shared bytes, instances a chunk))
     "f3d_tlas_attrs": [_P],
     # (args, quad, rgba, hdr, stream)
     "f3d_adj_raster": [ctypes.POINTER(AdjArgs), _P, _P, _P, _P],
@@ -524,6 +533,24 @@ def _nvcc() -> str:
 
 def _sources():
     return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
+
+
+@functools.lru_cache(maxsize=None)
+def csrc_constant(name: str) -> float:
+    """The float value of `#define <name> <literal>` in csrc's headers, for
+    host code whose arithmetic must follow a kernel's limit (a float
+    literal's `f` suffix rounds it to float32, as nvcc does). The library
+    reports the values it was built with through its attrs getters, and the
+    tests hold the two equal."""
+    import numpy as np
+
+    for path in _sources()[1]:
+        for line in path.read_text().splitlines():
+            words = line.split()
+            if len(words) >= 3 and words[0] == "#define" and words[1] == name:
+                lit = words[2]
+                return float(np.float32(lit[:-1])) if lit[-1] in "fF" else float(lit)
+    raise KeyError(f"no #define {name} in {CSRC}")
 
 
 def _digest() -> str:

@@ -186,12 +186,12 @@ def tlas_from_numpy(blases, instances, inv_mats, nrm_mats, device="cpu"):
     """`blases`: each BLAS's JAX MeshScene fields by name; `instances`:
     (blas_index, 4x4 transform) pairs; `inv_mats`, `nrm_mats`: the JAX
     Tlas's float64 matrices -> the port's Tlas."""
-    from .ops.tlas import Instance, Tlas
+    from .ops.tlas import Instance, assemble_tlas
 
-    return Tlas(scenes=tuple(bvh_from_numpy(b, device) for b in blases),
-                instances=tuple(Instance(int(i), np.asarray(m)) for i, m in instances),
-                inv_mats=tuple(np.asarray(m, np.float64) for m in inv_mats),
-                nrm_mats=tuple(np.asarray(m, np.float64) for m in nrm_mats))
+    return assemble_tlas([bvh_from_numpy(b, device) for b in blases],
+                         [Instance(int(i), np.asarray(m)) for i, m in instances],
+                         [np.asarray(m, np.float64) for m in inv_mats],
+                         [np.asarray(m, np.float64) for m in nrm_mats])
 
 
 def hybrid_scene_from_numpy(terrain=None, mesh=None, mesh_normals=None, sdf=None,

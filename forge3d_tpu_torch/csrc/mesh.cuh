@@ -94,8 +94,29 @@ F3D_HD int mesh_bits(float f) {
 #endif
 }
 
+// mesh_inv's limits (bvh.py:_inv): a component at or under F3D_MESH_INV_MIN
+// in magnitude takes +-F3D_MESH_INV_CLAMP. Their one home: pt.cu's
+// f3d_tlas_attrs reports them, and ops/tlas.py:cull_margin's argument
+// takes them from here (_kernels.csrc_constant).
+#define F3D_MESH_INV_MIN 1e-12f
+#define F3D_MESH_INV_CLAMP 1e12f
+
 F3D_HD float mesh_inv(float d) {
-    return fabsf(d) > 1e-12f ? 1.0f / d : (d >= 0.0f ? 1e12f : -1e12f);
+    return fabsf(d) > F3D_MESH_INV_MIN ? 1.0f / d
+                                       : (d >= 0.0f ? F3D_MESH_INV_CLAMP : -F3D_MESH_INV_CLAMP);
+}
+
+// The walk's slab test of a node's box [lo, hi] for the ray ro + t rd
+// (ix, iy, iz = mesh_inv of rd) clipped to [tmin, tmax]: trace_mesh_ray's,
+// and P5's check of its cull (pt.cuh:tlas_root_accepts).
+F3D_HD bool mesh_box_hit(const MeshWord& lo, const MeshWord& hi, float rox, float roy, float roz,
+                         float ix, float iy, float iz, float tmin, float tmax) {
+    float t0x = (lo.x - rox) * ix, t1x = (hi.x - rox) * ix;
+    float t0y = (lo.y - roy) * iy, t1y = (hi.y - roy) * iy;
+    float t0z = (lo.z - roz) * iz, t1z = (hi.z - roz) * iz;
+    float t_enter = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)), fmaxf(fminf(t0z, t1z), tmin));
+    float t_exit = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)), fminf(fmaxf(t0z, t1z), tmax));
+    return t_enter <= t_exit;
 }
 
 // bvh.py:_moller_trumbore for triangle p; tmax is the current best t.
@@ -185,14 +206,7 @@ F3D_HD MeshHit trace_mesh_ray(const MeshArgs& m, float rox, float roy, float roz
     int node = 0;
     for (int it = 0; it < m.max_iters && node < m.n_nodes; ++it) {
         const MeshWord lo = mesh_word(m.nodes + 8 * node), hi = mesh_word(m.nodes + 8 * node + 4);
-        float t0x = (lo.x - rox) * ix, t1x = (hi.x - rox) * ix;
-        float t0y = (lo.y - roy) * iy, t1y = (hi.y - roy) * iy;
-        float t0z = (lo.z - roz) * iz, t1z = (hi.z - roz) * iz;
-        float t_enter = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
-                              fmaxf(fminf(t0z, t1z), tmin));
-        float t_exit = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
-                             fminf(fmaxf(t0z, t1z), h.t));
-        bool box_hit = t_enter <= t_exit;
+        const bool box_hit = mesh_box_hit(lo, hi, rox, roy, roz, ix, iy, iz, tmin, h.t);
         const int word = mesh_bits(hi.w);
         if (box_hit && (word & 7) == 0) {  // interior: first child follows
             node += 1;

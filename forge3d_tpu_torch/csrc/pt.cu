@@ -17,9 +17,15 @@
 // its own loops to their ends. What bounds them: the tape loop is issue,
 // the same dispatch, reads and stack moves on every thread around ~20
 // operations an entry (sdf.cuh); the march is that times the steps its ray
-// takes (97% of a warp's lanes busy on bench.py's camera rays); the TLAS
-// walk and the hybrid's mesh and terrain traces are chains of dependent
-// loads, as K9 and K5 are.
+// takes (97% of a warp's lanes busy on bench.py's camera rays); the
+// hybrid's mesh and terrain traces are chains of dependent loads, as K9 and
+// K5 are. The TLAS walk was issue in its instance loop (each instance's
+// transform, its MeshArgs through a chain of loads, three reciprocals and
+// the root box, for every ray: with every walk cut at its root box it kept
+// 82-95% of its time on J, where 0.5% of (ray, instance) pairs enter a
+// root): here a block reads the table from shared memory and a ray pays
+// the cull's world-space box test an instance, the transform and the walk
+// only where it may hit.
 //
 // P6's three kernels are instantiated two ways: the packed tape in shared
 // memory (each block copies it once) or, for tapes longer than
@@ -97,22 +103,56 @@ __global__ void sdf_march_kernel(SdfArgs s, const float* __restrict__ rox,
     const size_t shmem = sh_ ? (size_t)(s).tape_len * F3D_SDF_WORDS * sizeof(float) : 0; \
     const void* fn = sh_ ? (const void*)K<true> : (const void*)K<false>
 
-__global__ void tlas_kernel(TlasArgs a, const float* __restrict__ rox,
-                            const float* __restrict__ roy, const float* __restrict__ roz,
-                            const float* __restrict__ rdx, const float* __restrict__ rdy,
-                            const float* __restrict__ rdz, int n, float tmin, float tmax,
-                            unsigned char* __restrict__ hit, float* __restrict__ t,
-                            int* __restrict__ inst, int* __restrict__ prim,
-                            float* __restrict__ u, float* __restrict__ v) {
-    int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
-    TlasHit h = tlas_ray(a, rox[i], roy[i], roz[i], rdx[i], rdy[i], rdz[i], tmin, tmax);
-    hit[i] = (unsigned char)h.hit;
-    t[i] = h.t;
-    inst[i] = h.instance;
-    prim[i] = h.prim;
-    u[i] = h.u;
-    v[i] = h.v;
+static_assert(sizeof(TlasInst) == 128, "TlasInst is staged as eight 16-byte words");
+constexpr int kInstWords = (int)(sizeof(TlasInst) / sizeof(int4));
+
+#ifdef F3D_P5_CULL_CHECK
+// measurement build: {(ray, instance) pairs the cull rejects where the
+// walk's root test accepts (must stay 0), pairs the cull rejects}
+__device__ unsigned long long tlas_check[2];
+#endif
+
+// P5: a thread a ray, the instances' table staged F3D_TLAS_CHUNK at a time
+// (every thread reaches each barrier; rays past n only help stage)
+__global__ void __launch_bounds__(kThreads)
+tlas_kernel(TlasArgs a, const float* __restrict__ rox, const float* __restrict__ roy,
+            const float* __restrict__ roz, const float* __restrict__ rdx,
+            const float* __restrict__ rdy, const float* __restrict__ rdz, int n, float tmin,
+            float tmax, unsigned char* __restrict__ hit, float* __restrict__ t,
+            int* __restrict__ inst, int* __restrict__ prim, float* __restrict__ u,
+            float* __restrict__ v) {
+    __shared__ int4 stage[F3D_TLAS_CHUNK * kInstWords];
+    const TlasInst* st = reinterpret_cast<const TlasInst*>(stage);
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    const bool live = i < n;
+    const int j = live ? i : 0;
+    const TlasRay r = tlas_ray_of(rox[j], roy[j], roz[j], rdx[j], rdy[j], rdz[j]);
+    TlasHit b = tlas_miss(tmax);
+    for (int c0 = 0; c0 < a.n_inst; c0 += F3D_TLAS_CHUNK) {
+        const int m = min(F3D_TLAS_CHUNK, a.n_inst - c0);
+        __syncthreads();   // the last chunk's visits are done
+        const int4* g = reinterpret_cast<const int4*>(a.inst + c0);
+        for (int k = threadIdx.x; k < m * kInstWords; k += blockDim.x) stage[k] = __ldg(g + k);
+        __syncthreads();
+        if (!live) continue;
+        for (int q = 0; q < m; ++q) {
+            if (tlas_cull(st[q], r, tmin, tmax)) {
+                tlas_walk(st[q], c0 + q, r, tmin, tmax, b);
+                continue;
+            }
+#ifdef F3D_P5_CULL_CHECK
+            atomicAdd(&tlas_check[1], 1ull);
+            if (tlas_root_accepts(st[q], r, tmin, tmax)) atomicAdd(&tlas_check[0], 1ull);
+#endif
+        }
+    }
+    if (!live) return;
+    hit[i] = (unsigned char)b.hit;
+    t[i] = b.t;
+    inst[i] = b.instance;
+    prim[i] = b.prim;
+    u[i] = b.u;
+    v[i] = b.v;
 }
 
 // P3 in K6's tiles: a block 16x16 pixels, a warp 8x4 (neighbouring rays
@@ -214,9 +254,30 @@ int f3d_hybrid_attrs(int* out) {
     return f3d_kernel_attrs((const void*)hybrid_kernel, kTileThreads, out);
 }
 
-// P5's registers, local bytes and resident blocks of kThreads an SM
+// P5's kernel: out = {registers a thread, local bytes a thread, resident
+// blocks of kThreads an SM, shared bytes a block, instances a staged chunk,
+// then the bits of mesh_inv's limits F3D_MESH_INV_MIN and
+// F3D_MESH_INV_CLAMP, which the cull's margin takes}
 int f3d_tlas_attrs(int* out) {
-    return f3d_kernel_attrs((const void*)tlas_kernel, kThreads, out);
+    const int e = f3d_kernel_attrs((const void*)tlas_kernel, kThreads, out);
+    const float limits[2] = {F3D_MESH_INV_MIN, F3D_MESH_INV_CLAMP};
+    out[3] = (int)(F3D_TLAS_CHUNK * sizeof(TlasInst));
+    out[4] = F3D_TLAS_CHUNK;
+    memcpy(out + 5, limits, sizeof(limits));
+    return e;
 }
+
+#ifdef F3D_P5_CULL_CHECK
+// measurement build: out = tlas_check's two counts, then zeroes them
+int f3d_tlas_cull_check(long long* out) {
+    unsigned long long h[2] = {0, 0};
+    const unsigned long long zero[2] = {0, 0};
+    cudaError_t e = cudaMemcpyFromSymbol(h, tlas_check, sizeof(h));
+    if (e == cudaSuccess) e = cudaMemcpyToSymbol(tlas_check, zero, sizeof(zero));
+    out[0] = (long long)h[0];
+    out[1] = (long long)h[1];
+    return (int)e;
+}
+#endif
 
 }  // extern "C"

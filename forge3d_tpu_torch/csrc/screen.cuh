@@ -393,7 +393,9 @@ struct ConvJob {
 // min of the depth at idx and z >= 0: float bits of non-negative values
 // order as integers
 F3D_HD void depth_min(float* depth, int idx, float z) {
-#ifdef __CUDA_ARCH__
+#if defined(__CUDA_ARCH__) && defined(F3D_S4_STORE)
+    depth[idx] = z;   // measurement build: a plain store (what the atomics cost)
+#elif defined(__CUDA_ARCH__)
     atomicMin(reinterpret_cast<int*>(depth) + idx, __float_as_int(z));
 #else
     if (z < depth[idx]) depth[idx] = z;

@@ -362,10 +362,17 @@ class MeshScene:
         if face_normals is not None:
             fields.append(face_normals)
         _kernels.require_cuda("mesh", *fields)
-        return _kernels.MeshArgs(
-            _kernels.ptr(self.nodes), _kernels.ptr(self.tris),
-            None if face_normals is None else _kernels.ptr(face_normals),
-            self.n_nodes, self.n_prims, max_iters if max_iters > 0 else 4 * self.n_nodes + 64)
+        return mesh_args(self, face_normals, max_iters)
+
+
+def mesh_args(scene: MeshScene, face_normals=None, max_iters: int = 0) -> "_kernels.MeshArgs":
+    """MeshScene.kernel_args on the scene's own device, unchecked: the TLAS's
+    table holds its BLASes' views whatever the device (the CPU's for the
+    kernels' host build)."""
+    return _kernels.MeshArgs(
+        _kernels.ptr(scene.nodes), _kernels.ptr(scene.tris),
+        None if face_normals is None else _kernels.ptr(face_normals),
+        scene.n_nodes, scene.n_prims, max_iters if max_iters > 0 else 4 * scene.n_nodes + 64)
 
 
 _SOA = ("bounds_min", "bounds_max", "first", "count", "miss_link", "tri_v0", "tri_e1", "tri_e2")

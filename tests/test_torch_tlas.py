@@ -2,7 +2,8 @@
 # version) and refit_bvh against the JAX package's on the CPU: the two
 # cases of tests/test_mesh_geometry.py::TestTlas, a three-instance case
 # with rotations and a non-uniform scale over two BLASes, instance_normal,
-# tlas_from_numpy, and refit_bvh's arrays.
+# tlas_from_numpy, P5's table formed once by build_tlas, and refit_bvh's
+# arrays.
 #
 # Gates: hit masks, instances and primitives equal on >= 99.9% of rays,
 # |dt|/t <= 1e-4 where both hit and u, v within 1e-5 * (1 + |ref|) on
@@ -144,6 +145,42 @@ def test_build_tlas_matrices_and_from_numpy():
         tt.build_tlas([box()], [tt.Instance(1, np.eye(4))], device="cpu")
     with pytest.raises(ValueError, match="4x4"):
         tt.Instance(0, np.eye(3))
+
+
+def test_kernel_table_built_once():
+    """build_tlas forms P5's table once, 128 bytes an instance on the
+    BLASes' device: each instance's float32 world-to-object row (JAX's
+    inverse rounded), its BLAS's records and a cull box holding the BLAS
+    root's corners in world space; tlas_from_numpy carries the same table,
+    and the kernel's view of the TLAS copies nothing."""
+    import ctypes
+
+    from forge3d_tpu_torch import _kernels
+
+    blases, placements = three_instances()
+    j, t = both(blases, placements)
+    assert t.table.dtype == torch.uint8 and t.table.numel() == 128 * len(t.instances)
+    rows = (_kernels.TlasInst * len(t.instances)).from_buffer_copy(t.table.numpy().tobytes())
+    for row, inv, (b, m) in zip(rows, j.inv_mats, placements):
+        want = np.concatenate([inv[:3, :3].reshape(-1), inv[:3, 3]]).astype(np.float32)
+        assert np.array_equal(np.asarray(row.xform[:], np.float32), want)
+        scene, n_nodes = t.scenes[b]
+        assert (row.blas.nodes, row.blas.tris) == (scene.nodes.data_ptr(), scene.tris.data_ptr())
+        assert (row.blas.n_nodes, row.blas.max_iters) == (n_nodes, 4 * n_nodes + 64)
+        lo, hi = scene.bounds_min[0].numpy(), scene.bounds_max[0].numpy()
+        corners = np.array([[x, y, z, 1.0] for x in (lo[0], hi[0]) for y in (lo[1], hi[1])
+                            for z in (lo[2], hi[2])]) @ np.asarray(m, np.float64).T
+        assert (corners[:, :3] >= row.lo[:]).all() and (corners[:, :3] <= row.hi[:]).all()
+        assert row.g0 > 0 and row.g1 > 0 and row.dir_min == tt.DIR_MIN
+    fields = [{k: np.asarray(getattr(s, k)) for k in s._fields} for s, _ in j.scenes]
+    carried = tlas_from_numpy(fields, [(i.blas_index, i.transform) for i in j.instances],
+                              j.inv_mats, j.nrm_mats)
+    head = [bytes(r)[:88] for r in rows]   # all but the BLAS's pointers
+    got = (_kernels.TlasInst * 3).from_buffer_copy(carried.table.numpy().tobytes())
+    assert [bytes(r)[:88] for r in got] == head
+    with pytest.raises(ValueError, match="CUDA"):
+        tt.tlas_args(t)   # the kernel's view needs the table on the card: a CPU one is refused
+    assert ctypes.sizeof(_kernels.TlasInst) == 128
 
 
 def test_refit_bvh_byte_equal():
