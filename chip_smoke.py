@@ -34,7 +34,13 @@ in measurement build `S4 store`, the cold screen render's peak memory) and
 P5 on J's camera and sun rays (as launched, queued, in measurement builds
 `P5 root` and, in a tree with the cull, `P5 check`, whose count must be 0;
 the roots entered by BLAS, the plain walk's node visits, `tlas_args` alone),
-each with a sha256 of its outputs (`--probe S4`, `--probe P5` one half).
+each with a sha256 of its outputs (`--probe S4`, `--probe P5` one half);
+`--probe K10S9` K10 alone on phase 11's bench-town lanes (as launched,
+queued, in measurement builds `K10 const` and `K10 copy`, its build and
+its picks' divergence) and K6 hybrid frame 1 (as launched, queued, its
+build, light_args alone), then S9 on E's G-buffer (as launched, queued, in
+`S8 self` and with POM off, its build, SASS count, valid pixels and POM
+march steps), each with a sha256 (`--probe K10`, `--probe S9` one half).
 Copied
 into a checkout of an earlier tree and run there, it times that tree's
 kernels, so two designs can be compared on one card.
@@ -1431,13 +1437,17 @@ def launcher_ms(fn, symbol: str, reps: int) -> float:
 # atomics cost); P5 root: every BLAS walk of P5 stops after its root box
 # test (what the instance loop costs); P5 check: P5 counts the rays whose
 # instance the cull rejects where the object-space root test accepts (must
-# be 0), and the instances it rejects (csrc/pt.cu:f3d_tlas_cull_check).
-# Their outputs are not the kernels' and are not checked.
+# be 0), and the instances it rejects (csrc/pt.cu:f3d_tlas_cull_check);
+# K10 const: K10's pick and light fields from constants (what its table's
+# loads cost); K10 copy: K10 alone a copy of its 16 streams (the floor of
+# its access pattern). Their outputs are not the kernels' and are not
+# checked.
 SPLIT_BUILDS = {"A": ("F3D_K7_SELF_TAPS", "F3D_K3_SPLIT=1"), "B": ("F3D_K3_SPLIT=2",),
                 "C": ("F3D_K3_SPLIT=3",), "S8 self": ("F3D_S8_PCSS_SELF",),
                 "S8 const": ("F3D_S8_PCSS_CONST",), "E3 self": ("F3D_E3_SELF_TAPS",),
                 "E3 const": ("F3D_E3_CONST_EXP",), "S4 store": ("F3D_S4_STORE",),
-                "P5 root": ("F3D_P5_ROOT_ONLY",), "P5 check": ("F3D_P5_CULL_CHECK",)}
+                "P5 root": ("F3D_P5_ROOT_ONLY",), "P5 check": ("F3D_P5_CULL_CHECK",),
+                "K10 const": ("F3D_K10_CONST",), "K10 copy": ("F3D_K10_COPY",)}
 _VARIANT_LIBS = {}
 
 
@@ -2155,9 +2165,11 @@ def phase_hybrid_timing(dem, mts, launches):
     b10, by10 = bound(n * (9 + 7) * 4, n * OPS_LIGHT)
     rows.append(kernel_row("K10 sample_light_nee", launches["K10 sample_light_nee"], err, ms10,
                            plain_ms, b10, by10))
+    a10 = _attrs("f3d_sample_light_attrs")
     say("hybrid timing", f"K10 sample_light_nee: {n} lanes, kernel {ms10:.4f} ms, plain "
                          f"{plain_ms:.4f} ms, bound {b10:.4f} ms ({by10}); {frac:.6f} within "
-                         f"tolerance, max |err| {err:.3e}")
+                         f"tolerance, max |err| {err:.3e}; {a10[0]} registers, {a10[1]} B "
+                         f"local, {a10[2]} resident blocks of 256 an SM")
     return rows
 
 
@@ -3089,8 +3101,10 @@ def phase_screen_kernels2(dem, bdem):
     ops = n * OPS_SHADE_PIXEL + _pom_ops(marched, n, cfg.pom_dict["refine_steps"])
     bms, by = bound(tensor_bytes(*inputs) + n * 4, ops)
     res["S9 clipmap_shade"] = (float(du.max()), ms, plain_ms, bms, by)
+    a9 = _attrs("f3d_clipmap_shade_attrs")
     say("screen kernels 2", f"S9 clipmap_shade {REAL_W}x{REAL_H}: kernel {ms:.4f} ms, plain "
-                            f"{plain_ms:.1f} ms, bound {bms:.4f} ms ({by})")
+                            f"{plain_ms:.1f} ms, bound {bms:.4f} ms ({by}); {a9[0]} registers, "
+                            f"{a9[1]} B local, {a9[2]} resident blocks of 256 an SM")
     return res
 
 
@@ -6848,15 +6862,16 @@ def s8_cases(sdem, bdem, dev, width=REAL_W, height=REAL_H):
     return cases
 
 
-def s8_own_texture(cfg, u):
-    """S8 queued behind a spin, with a shadow texture that the current
-    library (a measurement build's) makes itself."""
+def s8_own_texture(cfg, u, kernel=None):
+    """S8 (or `kernel`, S9) queued behind a spin, with a shadow texture that
+    the current library (a measurement build's) makes itself."""
     from forge3d_tpu_torch.terrain import screen as scr
 
+    kernel = kernel or scr._shade_kernel
     tex = scr.ShadowTexture(u["shadow_depth"])
     try:
         u2 = dict(u, shadow_tex=tex)
-        return queued_ms(lambda: scr._shade_kernel(cfg, u2), 10)
+        return queued_ms(lambda: kernel(cfg, u2), 10)
     finally:
         tex.close()
 
@@ -7267,6 +7282,129 @@ def probe_p5(torch):
                  + (f", {a[3]} B shared" if a[3] else ""))
 
 
+def k10_context(dev):
+    """Phase 11's hybrid context (bench.py's 1080p scene, the 1,024-box town,
+    six lights, spp 1), its center G-buffer and K10's lanes on it."""
+    import dataclasses
+
+    from forge3d_tpu_torch.pt import terrain_ref as tr
+    from forge3d_tpu_torch.pt.mesh_render import MeshTracerScene
+
+    dem = bench_dem()
+    mts = MeshTracerScene(*bench_town(dem), dev)
+    ctx = dataclasses.replace(setup(dem, REAL_W, REAL_H, BENCH_CAM, dev, spp=1), mesh=mts,
+                              lights=tr._lights(hybrid_desc(dem), dev))
+    gk = tr.center_gbuffer(ctx)
+    return ctx, gk, light_inputs(ctx, gk)
+
+
+def k10_divergence(ctx, lanes):
+    """{lanes by picked type, mean distinct types a warp (32 consecutive
+    lanes)} of K10's picks, from the plain alias_sample."""
+    import torch
+
+    from forge3d_tpu_torch.ops import lightsample as ls
+
+    idx, _ = ls.alias_sample(ctx.lights[1], lanes[6].reshape(-1))
+    types = ctx.lights[0].type_id[idx.long()].long()
+    by = torch.bincount(types, minlength=6).tolist()
+    pad = (-types.numel()) % 32
+    warps = torch.nn.functional.one_hot(torch.cat([types, types[:pad]]), 6).reshape(-1, 32, 6)
+    return {"lanes by type": by, "types a warp": round(float(warps.any(1).sum(1).double().mean()),
+                                                       4)}
+
+
+# the reading's measurement builds of K10 (SPLIT_BUILDS)
+K10_SPLITS = ("K10 const", "K10 copy")
+
+
+def probe_k10(torch):
+    """K10 alone on phase 11's bench-town lanes (2,073,600, six lights) as
+    launched and queued behind a spin, queued in the measurement builds
+    K10_SPLITS where the tree has them (`K10 const`: the pick and the
+    light's fields from constants, what the table's loads cost; `K10 copy`:
+    the kernel a copy of its 16 streams, the floor of its access pattern),
+    its registers, local bytes and blocks an SM and its picks' divergence; then
+    K6 hybrid frame 1 on the same scene as launched and queued, its build,
+    the frame's light_args alone, and a sha256 of K10's seven planes and of
+    K6's frame.
+    Calls only entry points K6 and K10 have had since they were ported."""
+    from forge3d_tpu_torch.ops import lightsample as ls
+    from forge3d_tpu_torch.pt import terrain_ref as tr
+
+    dev = torch.device("cuda")
+    ctx, gk, lanes = k10_context(dev)
+    splits = [n for n in K10_SPLITS if _attrs("f3d_sample_light_attrs") is not None]
+    n = lanes[0].numel()
+    fn = lambda: ls.sample_light_nee(*ctx.lights, *lanes)  # noqa: E731
+    out = fn()
+    t = {"as launched": cuda_ms(fn, 20), "queued": queued_ms(fn, 20)}
+    for name in splits:
+        t[f"{name}, queued"] = with_lib(variant_lib(name), lambda: queued_ms(fn, 20))
+    t["16 streams at 3.35 TB/s"] = n * 64 / HBM_BYTES_PER_S * 1e3
+    say("probe", f"K10 sample_light_nee alone ({n} lanes, {ctx.lights[0].count} lights) (ms): "
+                 f"{json.dumps({k: round(v, 4) for k, v in t.items()})}; "
+                 f"{json.dumps(k10_divergence(ctx, lanes))}")
+    a = _attrs("f3d_sample_light_attrs")
+    if a is not None:
+        say("probe", f"K10 kernel: {a[0]} registers, {a[1]} B local, {a[2]} resident blocks of "
+                     f"256 an SM")
+    say("probe", f"K10 {n} lanes: sha256 {_sha(out)}")
+
+    _, (a0, w0, r0) = k6_frame_inputs(ctx)
+    f6 = lambda: tr.frame_step(ctx, a0, w0, r0, 1)  # noqa: E731
+    out6 = f6()
+    t6 = {"as launched": cuda_ms(f6, 5), "queued": queued_ms(f6, 5)}
+    say("probe", f"K6 frame_step (hybrid) frame 1 {REAL_W}x{REAL_H} (ms): "
+                 f"{json.dumps({k: round(v, 4) for k, v in t6.items()})}")
+    a6 = _attrs("f3d_frame_kernel_attrs", 1)
+    say("probe", f"K6 hybrid kernel: {a6[0]} registers, {a6[1]} B local, {a6[2]} resident "
+                 f"blocks of 256 an SM")
+    args_ms = [wall_ms(ctx.light_args)[0] for _ in range(5)]
+    say("probe", "K6 light_args alone, synchronised (ms): "
+                 + ", ".join(f"{v:.4f}" for v in args_ms))
+    say("probe", f"K6 hybrid frame 1: sha256 {_sha(out6)}")
+
+
+def probe_s9(torch):
+    """S9 on E's G-buffer at 256x128 and 1080p: at 1080p as launched and
+    queued behind a spin, queued in measurement build `S8 self` (every PCSS
+    tap on the receiver's texel: what the taps' gather costs) and with POM
+    off, its registers, local bytes, blocks an SM and static SASS count, its
+    valid pixels and the plain version's POM march steps; a sha256 of its
+    rgba at both sizes. Calls only entry points S9 has had since it was
+    ported."""
+    from forge3d_tpu_torch.terrain import screen as scr
+
+    dev = torch.device("cuda")
+    hm, lut, kw = clipmap_args(bench_dem())
+    for w, h in ((SMALL_W, SMALL_H), (REAL_W, REAL_H)):
+        cfg, u = scr.prepare_clipmap(hm, lut, size_px=(w, h), device=dev,
+                                     gbuffer=clipmap_gbuffer(hm, kw, w, h), **kw)
+        out = scr._clipmap_kernel(cfg, u)
+        say("probe", f"S9 (E) {w}x{h}: sha256 {_sha(out)}")
+    fn = lambda: scr._clipmap_kernel(cfg, u)  # noqa: E731
+    t = {"as launched": cuda_ms(fn, 10), "queued": queued_ms(fn, 10)}
+    t["S8 self, queued"] = with_lib(variant_lib("S8 self"),
+                                    lambda: s8_own_texture(cfg, u, scr._clipmap_kernel))
+
+    def no_pom(a):
+        a.pom_on = 0
+
+    t["POM off, queued"] = s8_tweaked(lambda: queued_ms(fn, 10), no_pom)
+    scr._pom_uv.marched = 0
+    same = bool(torch.equal(scr.clipmap_shade_plain(cfg, u), out))
+    work = {"valid pixels": int(u["gb_valid"].sum()), "POM march steps": scr._pom_uv.marched,
+            "equal to the plain version": same}
+    say("probe", f"S9 (E) {REAL_W}x{REAL_H} (ms): "
+                 f"{json.dumps({k: round(v, 4) for k, v in t.items()})}; {json.dumps(work)}")
+    a = _attrs("f3d_clipmap_shade_attrs")
+    if a is not None:
+        say("probe", f"S9 kernel: {a[0]} registers, {a[1]} B local, {a[2]} resident blocks of "
+                     f"256 an SM")
+    say("probe", f"S9 static SASS instructions: {json.dumps(sass_count('clipmap_kernel'))}")
+
+
 def probe(torch, only=None):
     """`chip_smoke.py --probe`: E4 (probe_e4), R1 (probe_r1) and P3
     (probe_p3), then K2 and
@@ -7283,6 +7421,12 @@ def probe(torch, only=None):
     from forge3d_tpu_torch.ops import sweep as sw
     from forge3d_tpu_torch.pt import terrain_sweep as ts
 
+    if only in ("K10S9", "K10", "S9"):
+        if only != "S9":
+            probe_k10(torch)
+        if only != "K10":
+            probe_s9(torch)
+        return
     if only in ("S4P5", "S4", "P5"):
         if only != "P5":
             probe_s4(torch)

@@ -89,11 +89,10 @@ class MeshArgs(ctypes.Structure):
 
 
 class LightArgs(ctypes.Structure):
-    """Mirror of `LightArgs` in csrc/lights.cuh; all zero = no typed lights."""
+    """Mirror of `LightArgs` in csrc/lights.cuh: the packed light table
+    (ops/lightsample.py:pack_lights); all zero = no typed lights."""
 
-    _fields_ = [(n, _P) for n in ("type_id", "color", "direction", "position", "radius",
-                                  "extent", "cones", "prob", "alias", "pdf")] + [
-        ("count", _I), ("u_hi", _F)]
+    _fields_ = [("table", _P), ("count", _I), ("u_hi", _F)]
 
 
 class CamArgs(ctypes.Structure):
@@ -341,7 +340,7 @@ class GuideArgs(ctypes.Structure):
 #: the structs whose sizes csrc/layout.cu:f3d_struct_sizes reports, in its order
 STRUCTS = (ScreenArgs, ScreenOut, ClipArgs, SkyArgs, SdfArgs, MeshArgs, TlasArgs, HybridArgs,
            HybridOut, AdjArgs, TerrainArgs, TerrainOut, SmokeMarchArgs, PreethamArgs, GuideArgs,
-           TlasInst)
+           TlasInst, LightArgs)
 
 
 _SIGNATURES = {
@@ -389,6 +388,8 @@ _SIGNATURES = {
     # (lights, n, px, py, pz, nx, ny, nz, u_pick, u1, u2, dx, dy, dz, dist,
     #  wr, wg, wb, stream)
     "f3d_sample_light_nee": [ctypes.POINTER(LightArgs), _I] + [_P] * 9 + [_P] * 7 + [_P],
+    # (out (registers, local bytes, resident blocks))
+    "f3d_sample_light_attrs": [_P],
     # (cam, spheres, aovs, stream)
     "f3d_render_spheres": [ctypes.POINTER(CamArgs), ctypes.POINTER(SphereArgs),
                            ctypes.POINTER(AovArgs), _P],
@@ -420,6 +421,7 @@ _SIGNATURES = {
     # (args, out, stream)
     "f3d_screen_shade": [ctypes.POINTER(ScreenArgs), ctypes.POINTER(ScreenOut), _P],
     "f3d_screen_shade_attrs": [_P],
+    "f3d_clipmap_shade_attrs": [_P],
     # (map, res, texture out); (texture)
     "f3d_shadow_texture_create": [_P, _I, ctypes.POINTER(ctypes.c_ulonglong)],
     "f3d_shadow_texture_destroy": [ctypes.c_ulonglong],

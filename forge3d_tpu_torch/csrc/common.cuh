@@ -802,7 +802,8 @@ F3D_HD void frame_pixel(const SceneArgs& s, const FrameArgs& f, const MeshArgs& 
             st = xorshift32(st, u6);
             st = xorshift32(st, u7);
             if (hit) {
-                LightSample ls = sample_light(L, hx, hy, hz, nx, ny, nz, u5, u6, u7);
+                LightSample ls = sample_light(LightTable{L.table}, L.count, L.u_hi, hx, hy, hz, nx,
+                                               ny, nz, u5, u6, u7);
                 float lvis = blocked_before<kHybrid>(s, m, hx + nx * 1e-3f, hy + ny * 1e-3f,
                                                      hz + nz * 1e-3f, ls.dx, ls.dy, ls.dz,
                                                      ls.dist * 0.999f) ? 0.0f : 1.0f;

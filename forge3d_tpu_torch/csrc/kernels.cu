@@ -18,7 +18,8 @@
 //                        runs inside K6, K8, P2, P3 and P5
 // K10 sample_light_kernel replaces forge3d_tpu/ops/lightsample.py:sample_light_nee
 //                        (101) with alias_sample (74); its body (lights.cuh:
-//                        sample_light) also runs inside K6
+//                        sample_light, over the packed light table) also runs
+//                        inside K6
 //
 // K6 comes in two instantiations: the terrain-only one, and the hybrid one
 // for scenes with a mesh or typed lights, so that the terrain-only render
@@ -40,6 +41,9 @@
 // K7 is bound by its gather: a pixel's 9 candidates lie at random offsets
 // in a 7x7 window of a frame (83 MB at 1080p) that L2 does not hold; its
 // blocks stage their tile's window in shared memory once (spatial_kernel).
+// K10 alone is bound by its 16 streams (64 bytes a lane, 9 read and 7
+// written); its table's records come through the read-only path and stay
+// in L1 (sample_light_kernel).
 // Ray sorting and persistent threads are later work.
 
 #include <cuda_runtime.h>
@@ -178,19 +182,28 @@ __global__ void trace_mesh_kernel(MeshArgs m, const float* __restrict__ rox,
     v[i] = h.v;
 }
 
-// K10 standalone: one thread per lane.
-__global__ void sample_light_kernel(LightArgs l, int n, const float* __restrict__ px,
-                                    const float* __restrict__ py, const float* __restrict__ pz,
-                                    const float* __restrict__ nx, const float* __restrict__ ny,
-                                    const float* __restrict__ nz,
-                                    const float* __restrict__ u_pick,
-                                    const float* __restrict__ u1, const float* __restrict__ u2,
-                                    float* dx, float* dy, float* dz, float* dist, float* wr,
-                                    float* wg, float* wb) {
-    int i = blockIdx.x * blockDim.x + threadIdx.x;
+// K10 standalone: one thread a lane, the light set's records through the
+// read-only path as in K6. (Two to eight lanes a thread, their loads issued
+// together, took 64-115 registers and ran slower: the streams are in flight
+// enough at one.)
+__global__ void __launch_bounds__(kThreads)
+sample_light_kernel(LightArgs l, int n, const float* __restrict__ px,
+                    const float* __restrict__ py, const float* __restrict__ pz,
+                    const float* __restrict__ nx, const float* __restrict__ ny,
+                    const float* __restrict__ nz, const float* __restrict__ u_pick,
+                    const float* __restrict__ u1, const float* __restrict__ u2,
+                    float* __restrict__ dx, float* __restrict__ dy, float* __restrict__ dz,
+                    float* __restrict__ dist, float* __restrict__ wr, float* __restrict__ wg,
+                    float* __restrict__ wb) {
+    const int i = blockIdx.x * kThreads + threadIdx.x;
     if (i >= n) return;
-    LightSample s = sample_light(l, px[i], py[i], pz[i], nx[i], ny[i], nz[i], u_pick[i], u1[i],
-                                 u2[i]);
+#ifdef F3D_K10_COPY
+    // measurement build: the same 16 streams copied (9 read, 7 written)
+    const LightSample s = {px[i], py[i], pz[i], nx[i] + ny[i], nz[i], u_pick[i] + u1[i], u2[i]};
+#else
+    const LightSample s = sample_light(LightTable{l.table}, l.count, l.u_hi, px[i], py[i], pz[i],
+                                       nx[i], ny[i], nz[i], u_pick[i], u1[i], u2[i]);
+#endif
     dx[i] = s.dx;
     dy[i] = s.dy;
     dz[i] = s.dz;
@@ -251,6 +264,12 @@ int f3d_mesh_kernel_attrs(int which, int* out) {
                             : which == 1 ? (const void*)frame_kernel<true, kHybridBlocks>
                                          : (const void*)gbuffer_kernel,
                             kThreads, out);
+}
+
+// K10 standalone: out = {registers a thread, local bytes a thread, resident
+// blocks of kThreads an SM}
+int f3d_sample_light_attrs(int* out) {
+    return f3d_kernel_attrs((const void*)sample_light_kernel, kThreads, out);
 }
 
 // shared: the instantiation that stages each block's window

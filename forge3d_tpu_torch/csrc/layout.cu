@@ -22,7 +22,8 @@ int f3d_struct_sizes(long long* out, int n) {
                                (long long)sizeof(HybridOut),  (long long)sizeof(AdjArgs),
                                (long long)sizeof(TerrainArgs), (long long)sizeof(TerrainOut),
                                (long long)sizeof(SmokeMarchArgs), (long long)sizeof(PreethamArgs),
-                               (long long)sizeof(GuideArgs),  (long long)sizeof(TlasInst)};
+                               (long long)sizeof(GuideArgs),  (long long)sizeof(TlasInst),
+                               (long long)sizeof(LightArgs)};
     const int count = (int)(sizeof(sizes) / sizeof(sizes[0]));
     for (int i = 0; i < n && i < count; ++i) out[i] = sizes[i];
     return count;

@@ -7,15 +7,26 @@
 // The JAX version evaluates every light type's formula on every lane and
 // selects by the picked light's type with `where` chains; here the thread
 // takes the branch of its own light's type and computes the same values in
-// the same order. What bounds it: a few dependent loads from the (L,)-row
-// light and alias tables (a few hundred bytes, in L1), then ~60 float32
+// the same order.
+//
+// The light set is one packed table (ops/lightsample.py:pack_lights, formed
+// on the device once per light set): a light's record is 80 bytes, five
+// 16-byte words. Word 0 is the alias column of the light's index (prob,
+// alias, pdf[col], pdf[alias[col]]), so the pick's one 16-byte load gives
+// the chosen index and its selection pdf; words 1-4 are the light's fields,
+// read by four independent 16-byte loads. That is two dependent rounds
+// where the ten separate (L,)-arrays took four (prob -> alias -> pdf, type
+// -> the fields) and a dozen scattered 4-byte loads. What bounds it then:
+// the lane's input and output streams (64 bytes a lane) and ~60 float32
 // operations with one sqrt, one division and a sin/cos pair for disk and
-// sphere lights.
+// sphere lights; the table is a few hundred bytes, read through the
+// read-only path and held in L1.
 
 #pragma once
 
 #include <math.h>
 #include <stdint.h>
+#include <string.h>
 
 #ifndef F3D_HD
 #ifdef __CUDACC__
@@ -29,17 +40,18 @@
 enum LightType { F3D_DIRECTIONAL = 0, F3D_POINT = 1, F3D_SPOT = 2, F3D_RECT = 3,
                  F3D_DISK = 4, F3D_SPHERE = 5 };
 
+// A light's record in the packed table, F3D_LIGHT_WORDS floats (the ints as
+// their bits):
+//   word 0  prob[i], alias[i], pdf[i], pdf[alias[i]]   (the alias column i)
+//   word 1  position.xyz, type
+//   word 2  direction.xyz, radius
+//   word 3  color.rgb (premultiplied by intensity), 0
+//   word 4  extent.xz, cos(inner), cos(outer)
+#define F3D_LIGHT_WORDS 20
+#define F3D_LIGHT_QUADS (F3D_LIGHT_WORDS / 4)
+
 struct LightArgs {           // mirrored by _kernels.LightArgs
-    const int* type_id;      // (L,)
-    const float* color;      // (L, 3) premultiplied by intensity
-    const float* direction;  // (L, 3)
-    const float* position;   // (L, 3)
-    const float* radius;     // (L,)
-    const float* extent;     // (L, 2)
-    const float* cones;      // (L, 2) cos(inner), cos(outer)
-    const float* prob;       // alias table (L,)
-    const int* alias;        // (L,)
-    const float* pdf;        // (L,)
+    const float* table;      // (L, F3D_LIGHT_WORDS), 16-byte aligned
     int count;               // L; 0 = no typed lights
     float u_hi;              // float32(L - 1e-6)
 };
@@ -48,37 +60,81 @@ struct LightSample {
     float dx, dy, dz, dist, wr, wg, wb;
 };
 
+struct LightWord {
+    float x, y, z, w;
+};
+
+F3D_HD int light_bits(float f) {
+#ifdef __CUDA_ARCH__
+    return __float_as_int(f);
+#else
+    int i;
+    memcpy(&i, &f, 4);
+    return i;
+#endif
+}
+
+// The table's 16-byte words, in device memory through the read-only path.
+struct LightTable {
+    const float* rec;
+    F3D_HD LightWord word(int i, int q) const {
+        const float* p = rec + 4 * (F3D_LIGHT_QUADS * i + q);
+        LightWord r;
+#ifdef __CUDA_ARCH__
+        const float4 v = __ldg(reinterpret_cast<const float4*>(p));
+        r.x = v.x, r.y = v.y, r.z = v.z, r.w = v.w;
+#else
+        r.x = p[0], r.y = p[1], r.z = p[2], r.w = p[3];
+#endif
+        return r;
+    }
+};
+
 #define F3D_TWO_PI_LS 6.2831853f          // lightsample.py's `two_pi`
 #define F3D_PI_F 3.14159265358979323846f  // float32(pi)
 #define F3D_FOUR_PI_F 12.566370614359172f // float32(4.0 * pi), a double product
 
-// lightsample.py:alias_sample for one lane: (index, selection pdf).
-F3D_HD int alias_pick(const LightArgs& L, float u, float& p_pick) {
-    float x = fminf(fmaxf(u * (float)L.count, 0.0f), L.u_hi);
+// lightsample.py:alias_sample for one lane: (index, selection pdf), from
+// word 0 of the column's record.
+F3D_HD int alias_pick(const LightTable& T, int count, float u_hi, float u, float& p_pick) {
+    float x = fminf(fmaxf(u * (float)count, 0.0f), u_hi);
     int col = (int)x;
     float frac = x - (float)col;
-    int idx = frac < L.prob[col] ? col : L.alias[col];
-    p_pick = L.pdf[idx];
-    return idx;
+    const LightWord c = T.word(col, 0);
+    const bool home = frac < c.x;
+    p_pick = home ? c.z : c.w;
+    return home ? col : light_bits(c.y);
 }
 
 // lightsample.py:sample_light_nee for one lane at surface point p with
-// normal n, from uniforms (u_pick, u1, u2).
-F3D_HD LightSample sample_light(const LightArgs& L, float px, float py, float pz,
-                                float nx, float ny, float nz, float u_pick, float u1,
+// normal n, from uniforms (u_pick, u1, u2), over the light set's table T of
+// `count` lights.
+F3D_HD LightSample sample_light(const LightTable& T, int count, float u_hi, float px, float py,
+                                float pz, float nx, float ny, float nz, float u_pick, float u1,
                                 float u2) {
     float p_pick;
-    const int i = alias_pick(L, u_pick, p_pick);
-    const int type = L.type_id[i];
-    const float rad = L.radius[i];
-    const float* ldir = L.direction + 3 * i;
-    const float* lpos = L.position + 3 * i;
+#ifdef F3D_K10_CONST
+    // measurement build: the pick and the light's fields from constants
+    // (what the table's loads cost; its outputs are not the kernel's)
+    const int i0 = (int)(u_pick * (float)count);
+    const int i = i0 < count - 1 ? i0 : count - 1;
+    p_pick = 1.0f / (float)count;
+    const LightWord pos = {24.0f, 18.0f, 30.0f, 0.0f}, dir = {0.1f, -0.97f, 0.2f, 1.5f};
+    const LightWord color = {40.0f, 38.0f, 30.0f, 0.0f}, shape = {2.0f, 1.0f, 0.95f, 0.9f};
+    const int type = i % 6;
+#else
+    const int i = alias_pick(T, count, u_hi, u_pick, p_pick);
+    const LightWord pos = T.word(i, 1), dir = T.word(i, 2), color = T.word(i, 3),
+                    shape = T.word(i, 4);
+    const int type = light_bits(pos.w);
+#endif
+    const float rad = dir.w;
 
     // sampled emitter point: area lights jitter, the others use the center
     float off_x = 0.0f, off_y = 0.0f, off_z = 0.0f;
     if (type == F3D_RECT) {
-        off_x = (u1 * 2.0f - 1.0f) * L.extent[2 * i];
-        off_z = (u2 * 2.0f - 1.0f) * L.extent[2 * i + 1];
+        off_x = (u1 * 2.0f - 1.0f) * shape.x;
+        off_z = (u2 * 2.0f - 1.0f) * shape.y;
     } else if (type == F3D_DISK) {
         float dr = sqrtf(u1) * rad;
         float dphi = F3D_TWO_PI_LS * u2;
@@ -92,15 +148,15 @@ F3D_HD LightSample sample_light(const LightArgs& L, float px, float py, float pz
         off_y = rad * sz;
         off_z = rad * sr * sinf(sphi);
     }
-    float vx = (lpos[0] + off_x) - px;
-    float vy = (lpos[1] + off_y) - py;
-    float vz = (lpos[2] + off_z) - pz;
+    float vx = (pos.x + off_x) - px;
+    float vy = (pos.y + off_y) - py;
+    float vz = (pos.z + off_z) - pz;
     float d2 = vx * vx + vy * vy + vz * vz;
     LightSample s;
     if (type == F3D_DIRECTIONAL) {
-        s.dx = -ldir[0];
-        s.dy = -ldir[1];
-        s.dz = -ldir[2];
+        s.dx = -dir.x;
+        s.dy = -dir.y;
+        s.dz = -dir.z;
         s.dist = 1e30f;
     } else {
         float dist = sqrtf(fmaxf(d2, 1e-12f));
@@ -119,7 +175,7 @@ F3D_HD LightSample sample_light(const LightArgs& L, float px, float py, float pz
     if (type == F3D_DIRECTIONAL) {
         geom = 1.0f;
     } else if (type == F3D_RECT) {
-        float area = 4.0f * L.extent[2 * i] * L.extent[2 * i + 1];
+        float area = 4.0f * shape.x * shape.y;
         geom = area * fabsf(s.dy) * inv_d2;
     } else if (type == F3D_DISK) {
         float area = F3D_PI_F * rad * rad;
@@ -136,14 +192,14 @@ F3D_HD LightSample sample_light(const LightArgs& L, float px, float py, float pz
         geom = inv_d2;
     }
     if (type == F3D_SPOT) {  // cone falloff
-        float cd = -(s.dx * ldir[0] + s.dy * ldir[1] + s.dz * ldir[2]);
-        float c_in = L.cones[2 * i], c_out = L.cones[2 * i + 1];
+        float cd = -(s.dx * dir.x + s.dy * dir.y + s.dz * dir.z);
+        float c_in = shape.z, c_out = shape.w;
         float spot = fminf(fmaxf((cd - c_out) / fmaxf(c_in - c_out, 1e-6f), 0.0f), 1.0f);
         geom = geom * spot * spot;
     }
     float scale = ndl * geom / fmaxf(p_pick, 1e-12f);
-    s.wr = L.color[3 * i] * scale;
-    s.wg = L.color[3 * i + 1] * scale;
-    s.wb = L.color[3 * i + 2] * scale;
+    s.wr = color.x * scale;
+    s.wg = color.y * scale;
+    s.wb = color.z * scale;
     return s;
 }

@@ -60,10 +60,13 @@
 // would freeze it; the sky is computed per pixel from the per-image
 // constants in SkyArgs.
 //
-// S9: as S8's earlier layout, one thread per pixel in 2x2 quads along the
-// image's rows, over the host G-buffer (uv, world position, valid): every
-// pixel is shaded, and the invalid ones take the background colour at the
-// write. Its PCSS taps read the map through the pointer (ShadowPtr).
+// S9: S8's layout (a block a 16x16 tile, a warp an 8x4 patch in 2x2 quads,
+// screen.cuh:s8_pixel) over the host G-buffer (uv, world position, valid):
+// every pixel is shaded, and the invalid ones take the background colour
+// at the write, a pixel's rgba one 32-bit store. Its PCSS taps go through
+// S8's texture object over the cached map (ShadowTex), its POM marches over
+// metres as S8's in D; lanes past the image shade pixel (0, 0) and write
+// nothing.
 
 #include <cuda_runtime.h>
 
@@ -148,12 +151,11 @@ __global__ void __launch_bounds__(kThreads, 4) shade_kernel(ScreenArgs a, Screen
     if (live) shade_back(a, o, x, y, s, quad_grad(tl, tr, bl));
 }
 
-__global__ void clipmap_kernel(ScreenArgs a, ClipArgs g, unsigned char* __restrict__ rgba) {
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    const bool live = i < a.width * a.height;
-    const int q = i >> 2, sub = i & 3, qw = a.width >> 1;
-    const int x = live ? 2 * (q % qw) + (sub & 1) : 0;
-    const int y = live ? 2 * (q / qw) + (sub >> 1) : 0;
+// S9's register budget: 4 resident blocks of kThreads an SM, as S8's
+__global__ void __launch_bounds__(kThreads, 4)
+clipmap_kernel(ScreenArgs a, ClipArgs g, unsigned char* __restrict__ rgba) {
+    int x, y;
+    const bool live = s8_pixel(a.width, a.height, blockIdx.x, threadIdx.x, x, y);
     ClipState s;
     clip_front(a, g, x, y, s);
     float tl[3], tr[3], bl[3];
@@ -162,7 +164,9 @@ __global__ void clipmap_kernel(ScreenArgs a, ClipArgs g, unsigned char* __restri
         tr[c] = __shfl_sync(0xffffffffu, s.n[c], 1, 4);
         bl[c] = __shfl_sync(0xffffffffu, s.n[c], 2, 4);
     }
-    if (live) clip_back(a, g, rgba, x, y, s, quad_grad(tl, tr, bl));
+    if (live)
+        clip_back(ShadowTex{a.shadow_tex, a.shadow_res}, a, g, rgba, x, y, s,
+                  quad_grad(tl, tr, bl));
 }
 
 // S5 alone on receivers, through the texture or the pointer (f3d_pcss_points)
@@ -290,7 +294,7 @@ int f3d_shadow_texture_destroy(unsigned long long tex) {
 }
 
 // S5 alone on n receivers (sp, nrm: (n, 3)) with a's map, lvp and light:
-// through the texture (`tex`, S8's path) or the pointer (S9's); a check
+// through the texture (`tex`, S8's and S9's path) or the pointer; a check
 // that the two read the same texels
 int f3d_pcss_points(const ScreenArgs* a, const float* sp, const float* nrm, int n, int tex,
                     float* out, void* stream) {
@@ -300,9 +304,18 @@ int f3d_pcss_points(const ScreenArgs* a, const float* sp, const float* nrm, int 
     return (int)cudaGetLastError();
 }
 
+// S9's registers, local bytes and resident blocks of kThreads an SM
+int f3d_clipmap_shade_attrs(int* out) {
+    return f3d_kernel_attrs((const void*)clipmap_kernel, kThreads, out);
+}
+
+// S9 over a->width x a->height (even) pixels; the PCSS taps read the map
+// through a->shadow_tex, as S8's
 int f3d_clipmap_shade(const ScreenArgs* a, const ClipArgs* g, unsigned char* rgba, void* stream) {
-    long long n = (long long)a->width * a->height;
-    if (n > 0) clipmap_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(*a, *g, rgba);
+    const long long blocks = a->width > 0 && a->height > 0 ? s8_blocks(a->width, a->height) : 0;
+    if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    if (blocks > 0)
+        clipmap_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(*a, *g, rgba);
     return (int)cudaGetLastError();
 }
 

@@ -461,7 +461,8 @@ F3D_HD void raster_triangle(const float* tris, const unsigned char* keep, int t,
 // bilinear tap whose top-left texel is (x0i, y0i), its right and lower
 // neighbours clamped to the map.
 //
-// ShadowPtr reads the map through a pointer (S9).
+// ShadowPtr reads the map through a pointer (f3d_pcss_points' check that
+// the texture's fetches read the same texels).
 struct ShadowPtr {
     const float* dm;
     int r;
@@ -475,7 +476,7 @@ struct ShadowPtr {
     }
 };
 
-// ShadowTex reads the map through the texture unit (S8): `tex` is a texture
+// ShadowTex reads the map through the texture unit (S8, S9): `tex` is a texture
 // object over the map itself, a pitch-2D resource with no copy (screen.cu:
 // f3d_shadow_texture_create: point filtering, clamp addressing,
 // unnormalised coordinates). A texel is a point fetch at its centre, so its
@@ -1167,6 +1168,9 @@ F3D_HD bool s8_pixel(int width, int height, long long b, int t, int& x, int& y) 
 // (u <= 0), POM, no water, layers, maps, reflection or sky. Every pixel is
 // shaded, invalid ones too (their normals enter their quad's edge term, as
 // in JAX); clip_back writes the background where the G-buffer is invalid.
+// The kernel runs S8's layout (s8_pixel) and reads the map through the
+// texture (ShadowTex); clip_back takes the map's reader as a parameter so
+// that the kernels' CPU twin can hold it against the pointer's.
 // ---------------------------------------------------------------------------
 
 struct ClipState {
@@ -1205,8 +1209,19 @@ F3D_HD void clip_front(const ScreenArgs& a, const ClipArgs& g, int x, int y, Cli
     s.height_norm = sc_clamp01((hs - a.dom_lo) / a.dom_rng);
 }
 
-F3D_HD void clip_back(const ScreenArgs& a, const ClipArgs& g, unsigned char* rgba, int x, int y,
-                      const ClipState& s, float ngrad) {
+// a pixel's rgba as one 32-bit store (little-endian: r in the low byte)
+F3D_HD void store_rgba(unsigned char* rgba, int pix, const unsigned char* c) {
+    const uint32_t v = (uint32_t)c[0] | (uint32_t)c[1] << 8 | (uint32_t)c[2] << 16 | 255u << 24;
+#ifdef __CUDA_ARCH__
+    *reinterpret_cast<uint32_t*>(rgba + 4 * (size_t)pix) = v;
+#else
+    memcpy(rgba + 4 * (size_t)pix, &v, 4);
+#endif
+}
+
+template <class Map>
+F3D_HD void clip_back(const Map& map, const ScreenArgs& a, const ClipArgs& g, unsigned char* rgba,
+                      int x, int y, const ClipState& s, float ngrad) {
     const float centers[4] = {0.0f, 0.333333343f, 0.666666687f, 1.0f};
     const float wmod[4] = {1.5f, 0.5f, 1.0f, 1.0f};
     float w[4];
@@ -1231,7 +1246,7 @@ F3D_HD void clip_back(const ScreenArgs& a, const ClipArgs& g, unsigned char* rgb
     // PCSS at the receiver's undisplaced height, in the spacing's frame
     const float shadow_h = sc_clamp01((geom_h(a, s.uu, s.vv) - a.dom_lo) / a.dom_rng);
     const float sp[3] = {(s.uu - 0.5f) * g.spacing, (s.vv - 0.5f) * g.spacing, shadow_h * a.z_scale};
-    const float vis = pcss_visibility(ShadowPtr{a.shadow, a.shadow_res}, a.lvp, a.pcss_ld, sp, s.n);
+    const float vis = pcss_visibility(map, a.lvp, a.pcss_ld, sp, s.n);
     const float cs = fmaxf(0.8f + 0.2f * vis, 0.30f);
 
     // split-sum IBL
@@ -1264,13 +1279,14 @@ F3D_HD void clip_back(const ScreenArgs& a, const ClipArgs& g, unsigned char* rgb
     const int pix = y * a.width + x;
     const bool valid = g.valid[pix] != 0;
     const unsigned char bg[3] = {25, 25, 38};   // floor((0.1, 0.1, 0.15) * 255)
+    unsigned char out[3];
     for (int c = 0; c < 3; ++c) {
         const float spec = pref[c] * spec_brdf;
         const float shaded = (albedo[c] * lighting + fminf(spec * ibl_i * 0.12f, albedo[c] * 0.20f))
                              * a.exposure;
         // the sRGB encode of S8 equals JAX's unclamped one of S9: the branch
         // that takes the power has c > 0.0031308
-        rgba[4 * pix + c] = valid ? encode_u8(a, shaded) : bg[c];
+        out[c] = valid ? encode_u8(a, shaded) : bg[c];
     }
-    rgba[4 * pix + 3] = 255;
+    store_rgba(rgba, pix, out);
 }

@@ -7,12 +7,15 @@
 # (csrc/kernels.cu:sample_light_kernel over csrc/lights.cuh:sample_light):
 # on CUDA tensors it launches the kernel, on CPU tensors it runs
 # `sample_light_nee_plain`. On the render's path the same device function
-# runs inside the frame kernel K6, once per sample.
+# runs inside the frame kernel K6, once per sample. Both read the light set
+# from one packed table (pack_lights: a light's fields and its alias
+# column, 80 bytes), formed once per light set by light_table and kept
+# with the alias table.
 
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Tuple
 
 import numpy as np
@@ -30,6 +33,10 @@ class AliasTable:
     prob: torch.Tensor   # (L,) acceptance probability of the home column
     alias: torch.Tensor  # (L,) i32 alias index
     pdf: torch.Tensor    # (L,) selection pdf of each light
+    # the kernels' packed table of this alias table with its light set, made
+    # once by light_table: {"lights": LightBuffer, "table": (L, 20) tensor,
+    # "args": LightArgs}
+    kernel: dict = field(default_factory=dict, compare=False, repr=False)
 
     @property
     def count(self) -> int:
@@ -192,29 +199,81 @@ def sample_light_nee_plain(lights: LightBuffer, table: AliasTable,
     return dx, dy, dz, dist, col[..., 0] * scale, col[..., 1] * scale, col[..., 2] * scale
 
 
+#: the floats of a light's record in the packed table (csrc/lights.cuh)
+LIGHT_WORDS = int(_kernels.csrc_constant("F3D_LIGHT_WORDS"))
+
+
+def _bits_f32(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.int32).contiguous().view(_F32)
+
+
+def pack_lights(lights: LightBuffer, table: AliasTable) -> torch.Tensor:
+    """The light set as the kernels read it (csrc/lights.cuh): an (L, 20)
+    float32 table on the lights' device, a light's record 80 bytes, five
+    16-byte words: word 0 the alias column i (prob, alias's bits, pdf[i],
+    pdf[alias[i]]), then position and the type's bits, direction and
+    radius, colour and 0, extent and the cones' cosines. Every field is
+    stored bit for bit."""
+    n = table.count
+    if lights.count != n:
+        raise ValueError(f"{lights.count} lights and an alias table of {n}")
+    alias = table.alias.to(torch.int64)
+    zero = torch.zeros((n, 1), dtype=_F32, device=lights.type_id.device)
+    cols = [table.prob[:, None], _bits_f32(table.alias)[:, None], table.pdf[:, None],
+            table.pdf[alias][:, None],
+            lights.position, _bits_f32(lights.type_id)[:, None],
+            lights.direction, lights.radius[:, None],
+            lights.color, zero,
+            lights.extent, lights.cones]
+    return torch.cat([c.to(lights.type_id.device, _F32) for c in cols], 1).contiguous()
+
+
+def light_table(lights: LightBuffer, table: AliasTable) -> torch.Tensor:
+    """The packed table of this light set (pack_lights), formed on its
+    first use and kept with the alias table, so that neither a render's
+    frames nor a sample_light_nee call packs it again. Counts the packings
+    in `light_table.packs`."""
+    k = table.kernel
+    if k.get("lights") is not lights:
+        k.clear()
+        k["table"] = pack_lights(lights, table)
+        k["lights"] = lights
+        light_table.packs += 1
+    return k["table"]
+
+
+light_table.packs = 0
+
+
 def light_args(lights: LightBuffer, table: AliasTable) -> _kernels.LightArgs:
-    """The kernels' view of a light set and its alias table."""
-    fields = (lights.type_id, lights.color, lights.direction, lights.position,
-              lights.radius, lights.extent, lights.cones, table.prob, table.alias,
-              table.pdf)
-    _kernels.require_cuda("lights", *fields)
-    return _kernels.LightArgs(*(_kernels.ptr(f) for f in fields), table.count,
-                              table.u_hi)
+    """The kernels' view of a light set: its packed table (light_table),
+    the light count and u's clamp, made once with the table."""
+    packed = light_table(lights, table)
+    args = table.kernel.get("args")
+    if args is None:
+        _kernels.require_cuda("lights", packed)
+        args = table.kernel["args"] = _kernels.LightArgs(_kernels.ptr(packed), table.count,
+                                                         table.u_hi)
+    return args
 
 
 def _sample_light_kernel(lights: LightBuffer, table: AliasTable, *lanes):
-    shape = lanes[0].shape
-    comps = [c.to(_F32).contiguous().reshape(-1) for c in torch.broadcast_tensors(*lanes)]
+    if any(c.shape != lanes[0].shape for c in lanes):
+        lanes = torch.broadcast_tensors(*lanes)
+    comps = [c if c.dtype == _F32 and c.is_contiguous() else c.to(_F32).contiguous()
+             for c in lanes]
+    args = light_args(lights, table)
     _kernels.require_cuda("sample_light_nee", *comps)
     dev = comps[0].device
     n = comps[0].numel()
-    out = [torch.empty(n, dtype=_F32, device=dev) for _ in range(7)]
+    out = torch.empty((7,) + tuple(comps[0].shape), dtype=_F32, device=dev)   # one allocation
+    base = out.data_ptr()
     err = _kernels.lib().f3d_sample_light_nee(
-        light_args(lights, table), n, *(_kernels.ptr(c) for c in comps),
-        *(_kernels.ptr(o) for o in out), _kernels.stream_ptr(dev))
+        args, n, *(c.data_ptr() for c in comps), *(base + 4 * n * k for k in range(7)),
+        _kernels.stream_ptr(dev))
     _kernels.check(err, "K10 sample_light_nee")
     sample_light_nee.launches += 1
-    return tuple(o.reshape(shape) for o in out)
+    return tuple(out.unbind(0))
 
 
 def sample_light_nee(lights: LightBuffer, table: AliasTable,

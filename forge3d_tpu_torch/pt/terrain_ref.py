@@ -689,6 +689,11 @@ def render_terrain_reference(desc: TerrainRefDesc, *, device="cuda") -> dict:
     ]
     if mesh_bytes:
         rids.append(tracker.track("terrain-pt.mesh-bvh", mesh_bytes, "buffer"))
+    if ctx.lights is not None:   # K6's packed light table (not in the JAX package's sum)
+        from ..ops.lightsample import LIGHT_WORDS
+
+        rids.append(tracker.track("terrain-pt.lights", ctx.lights[1].count * LIGHT_WORDS * 4,
+                                  "buffer"))
     gpu_resource_bytes = (pyramid_bytes + accum_bytes + welford_bytes
                           + reservoir_bytes + env_bytes + mesh_bytes)
 

@@ -26,7 +26,7 @@
 # their original names, as is screen_golden._build_brdf_lut. The IBL
 # pyramid and the shadow map are cached in process by the JAX module's
 # content-hash keys, as device tensors charged to the memory ledger; the
-# port writes no file. S8 reads the shadow map through a texture object
+# port writes no file. S8 and S9 read the shadow map through a texture object
 # over the cached map itself (ShadowTexture, no copy), made once with the
 # map's cache entry (shadow_texture) and dropped with it. The clipmap mode's
 # G-buffer is rasterized on the host by terrain/clipmap_mesh.py, a copy of
@@ -760,7 +760,7 @@ def clear_caches() -> None:
 
 
 class ShadowTexture:
-    """S8's view of a shadow map: a texture object over the (R, R) float32
+    """S8's and S9's view of a shadow map: a texture object over the (R, R) float32
     map itself, a pitch-2D resource that takes no memory of its own
     (csrc/screen.cu:f3d_shadow_texture_create: point filtering, clamp
     addressing, unnormalised coordinates), through which its PCSS taps are
@@ -798,7 +798,7 @@ _SHADOW_TEX: Dict[tuple, ShadowTexture] = {}
 
 
 def shadow_texture(depth: torch.Tensor) -> ShadowTexture:
-    """The texture S8 reads `depth` through: for a map of the shadow cache,
+    """The texture S8 and S9 read `depth` through: for a map of the shadow cache,
     the one made with its cache entry on first use and dropped with the
     entry; for any other map a new one that lives as long as its holder."""
     for key, (value, _) in _SHADOW_CACHE.items():
@@ -2350,6 +2350,11 @@ def _clipmap_kernel(cfg: ClipCfg, u: dict) -> torch.Tensor:
     a, keep = screen_args(cfg, u)
     g, keep_g = _clip_args(u)
     _kernels.require_cuda("S9 clipmap_shade", *keep, *keep_g, out)
+    tex = u.get("shadow_tex") or shadow_texture(u["shadow_depth"])
+    if tex.res != a.shadow_res:
+        raise ValueError(f"S9 clipmap_shade: the shadow texture is {tex.res}^2, the map "
+                         f"{a.shadow_res}^2")
+    a.shadow_tex = tex.handle
     err = _kernels.lib().f3d_clipmap_shade(a, g, _kernels.ptr(out), _kernels.stream_ptr(dev))
     _kernels.check(err, "S9 clipmap_shade")
     clipmap_shade.launches += 1
@@ -2439,6 +2444,8 @@ def prepare_clipmap(
         "gb_uv": t(gb["uv"]), "gb_world": t(gb["world_pos"]),
         "gb_valid": torch.as_tensor(np.ascontiguousarray(gb["valid"], np.uint8), device=device),
     }
+    if depth_map.device.type == "cuda":   # S9's PCSS taps read the map through it
+        u["shadow_tex"] = shadow_texture(depth_map)
     return cfg, u
 
 

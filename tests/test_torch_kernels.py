@@ -156,14 +156,15 @@ int f3d_trace_mesh(const MeshArgs* m, const float* rox, const float* roy, const 
     }
     return 0;
 }
+// K10 as kernels.cu launches it, over the packed table (LightTable)
 int f3d_sample_light_nee(const LightArgs* l, int n, const float* px, const float* py,
                          const float* pz, const float* nx, const float* ny, const float* nz,
                          const float* u_pick, const float* u1, const float* u2, float* dx,
                          float* dy, float* dz, float* dist, float* wr, float* wg, float* wb,
                          void*) {
     for (int i = 0; i < n; ++i) {
-        LightSample s = sample_light(*l, px[i], py[i], pz[i], nx[i], ny[i], nz[i], u_pick[i],
-                                     u1[i], u2[i]);
+        LightSample s = sample_light(LightTable{l->table}, l->count, l->u_hi, px[i], py[i],
+                                     pz[i], nx[i], ny[i], nz[i], u_pick[i], u1[i], u2[i]);
         dx[i] = s.dx; dy[i] = s.dy; dz[i] = s.dz; dist[i] = s.dist;
         wr[i] = s.wr; wg[i] = s.wg; wb[i] = s.wb;
     }
@@ -607,6 +608,14 @@ int f3d_screen_shade_attrs(int* out) {
     out[0] = out[1] = out[2] = 0;   // no device function on the host
     return 0;
 }
+int f3d_clipmap_shade_attrs(int* out) {
+    out[0] = out[1] = out[2] = 0;
+    return 0;
+}
+int f3d_sample_light_attrs(int* out) {
+    out[0] = out[1] = out[2] = 0;
+    return 0;
+}
 // the host's texture object over a shadow map is the map's pointer, which
 // ShadowTex's host fetches read as the texture unit would
 int f3d_shadow_texture_create(const float* depth, int res, unsigned long long* tex) {
@@ -623,17 +632,146 @@ int f3d_pcss_points(const ScreenArgs* a, const float* sp, const float* nrm, int 
                                        sp + 3 * i, nrm + 3 * i);
     return 0;
 }
-// S9 the same way
+// S9 the same way, its PCSS taps through ShadowTex
 int f3d_clipmap_shade(const ScreenArgs* a, const ClipArgs* c, unsigned char* rgba, void*) {
+    if (a->width <= 0 || a->height <= 0) return 0;
+    const ShadowTex map{a->shadow_tex, a->shadow_res};
+    for (long long b = 0; b < s8_blocks(a->width, a->height); ++b)
+        for (int t0 = 0; t0 < 256; t0 += 4) {
+            ClipState s[4];
+            int x[4], y[4];
+            bool live[4];
+            for (int k = 0; k < 4; ++k) {
+                live[k] = s8_pixel(a->width, a->height, b, t0 + k, x[k], y[k]);
+                clip_front(*a, *c, x[k], y[k], s[k]);
+            }
+            const float g = quad_grad(s[0].n, s[1].n, s[2].n);
+            for (int k = 0; k < 4; ++k)
+                if (live[k]) clip_back(map, *a, *c, rgba, x[k], y[k], s[k], g);
+        }
+    return 0;
+}
+// S9 as its earlier design ran it: quads along the image's rows, the PCSS
+// taps through the pointer (ShadowPtr)
+void f3d_test_parent_clipmap(const ScreenArgs* a, const ClipArgs* c, unsigned char* rgba) {
+    const ShadowPtr map{a->shadow, a->shadow_res};
     for (int qy = 0; qy < a->height / 2; ++qy)
         for (int qx = 0; qx < a->width / 2; ++qx) {
             ClipState s[4];
             for (int k = 0; k < 4; ++k) clip_front(*a, *c, 2 * qx + (k & 1), 2 * qy + (k >> 1), s[k]);
             const float g = quad_grad(s[0].n, s[1].n, s[2].n);
             for (int k = 0; k < 4; ++k)
-                clip_back(*a, *c, rgba, 2 * qx + (k & 1), 2 * qy + (k >> 1), s[k], g);
+                clip_back(map, *a, *c, rgba, 2 * qx + (k & 1), 2 * qy + (k >> 1), s[k], g);
         }
-    return 0;
+}
+// K10 as its earlier design read the light set: ten (L,)-arrays, the
+// pick's prob -> alias -> pdf chain, then the type and the scattered fields.
+// ptrs: type_id, color, direction, position, radius, extent, cones, prob,
+// alias, pdf; lanes: px, py, pz, nx, ny, nz, u_pick, u1, u2; outs: dx, dy,
+// dz, dist, wr, wg, wb.
+void f3d_test_parent_sample_light(const long long* ptrs, int count, float u_hi, int n,
+                                  const long long* lanes, const long long* outs) {
+    const int* type_id = (const int*)ptrs[0];
+    const float* color = (const float*)ptrs[1];
+    const float* direction = (const float*)ptrs[2];
+    const float* position = (const float*)ptrs[3];
+    const float* radius = (const float*)ptrs[4];
+    const float* extent = (const float*)ptrs[5];
+    const float* cones = (const float*)ptrs[6];
+    const float* prob = (const float*)ptrs[7];
+    const int* alias = (const int*)ptrs[8];
+    const float* pdf = (const float*)ptrs[9];
+    const float* in[9];
+    float* out[7];
+    for (int k = 0; k < 9; ++k) in[k] = (const float*)lanes[k];
+    for (int k = 0; k < 7; ++k) out[k] = (float*)outs[k];
+    for (int j = 0; j < n; ++j) {
+        const float px = in[0][j], py = in[1][j], pz = in[2][j];
+        const float nx = in[3][j], ny = in[4][j], nz = in[5][j];
+        const float u1 = in[7][j], u2 = in[8][j];
+        float x = fminf(fmaxf(in[6][j] * (float)count, 0.0f), u_hi);
+        int col = (int)x;
+        float frac = x - (float)col;
+        const int i = frac < prob[col] ? col : alias[col];
+        const float p_pick = pdf[i];
+        const int type = type_id[i];
+        const float rad = radius[i];
+        const float* ldir = direction + 3 * i;
+        const float* lpos = position + 3 * i;
+        float off_x = 0.0f, off_y = 0.0f, off_z = 0.0f;
+        if (type == F3D_RECT) {
+            off_x = (u1 * 2.0f - 1.0f) * extent[2 * i];
+            off_z = (u2 * 2.0f - 1.0f) * extent[2 * i + 1];
+        } else if (type == F3D_DISK) {
+            float dr = sqrtf(u1) * rad;
+            float dphi = F3D_TWO_PI_LS * u2;
+            off_x = dr * cosf(dphi);
+            off_z = dr * sinf(dphi);
+        } else if (type == F3D_SPHERE) {
+            float sz = u1 * 2.0f - 1.0f;
+            float sphi = F3D_TWO_PI_LS * u2;
+            float sr = sqrtf(fmaxf(1.0f - sz * sz, 0.0f));
+            off_x = rad * sr * cosf(sphi);
+            off_y = rad * sz;
+            off_z = rad * sr * sinf(sphi);
+        }
+        float vx = (lpos[0] + off_x) - px;
+        float vy = (lpos[1] + off_y) - py;
+        float vz = (lpos[2] + off_z) - pz;
+        float d2 = vx * vx + vy * vy + vz * vz;
+        LightSample s;
+        if (type == F3D_DIRECTIONAL) {
+            s.dx = -ldir[0]; s.dy = -ldir[1]; s.dz = -ldir[2]; s.dist = 1e30f;
+        } else {
+            float dist = sqrtf(fmaxf(d2, 1e-12f));
+            float inv = 1.0f / dist;
+            s.dx = vx * inv; s.dy = vy * inv; s.dz = vz * inv; s.dist = dist;
+        }
+        float ndl = fmaxf(nx * s.dx + ny * s.dy + nz * s.dz, 0.0f);
+        float inv_d2 = 1.0f / fmaxf(d2, 1e-6f);
+        float geom;
+        if (type == F3D_DIRECTIONAL) {
+            geom = 1.0f;
+        } else if (type == F3D_RECT) {
+            float area = 4.0f * extent[2 * i] * extent[2 * i + 1];
+            geom = area * fabsf(s.dy) * inv_d2;
+        } else if (type == F3D_DISK) {
+            float area = F3D_PI_F * rad * rad;
+            geom = area * fabsf(s.dy) * inv_d2;
+        } else if (type == F3D_SPHERE) {
+            float rs = fmaxf(rad, 1e-9f);
+            float snx = rad > 0.0f ? off_x / rs : 0.0f;
+            float sny = rad > 0.0f ? off_y / rs : 0.0f;
+            float snz = rad > 0.0f ? off_z / rs : 0.0f;
+            float cos_s = fmaxf(-(snx * s.dx + sny * s.dy + snz * s.dz), 0.0f);
+            float area = F3D_FOUR_PI_F * rad * rad;
+            geom = area * cos_s * inv_d2;
+        } else {
+            geom = inv_d2;
+        }
+        if (type == F3D_SPOT) {
+            float cd = -(s.dx * ldir[0] + s.dy * ldir[1] + s.dz * ldir[2]);
+            float c_in = cones[2 * i], c_out = cones[2 * i + 1];
+            float spot = fminf(fmaxf((cd - c_out) / fmaxf(c_in - c_out, 1e-6f), 0.0f), 1.0f);
+            geom = geom * spot * spot;
+        }
+        float scale = ndl * geom / fmaxf(p_pick, 1e-12f);
+        out[0][j] = s.dx; out[1][j] = s.dy; out[2][j] = s.dz; out[3][j] = s.dist;
+        out[4][j] = color[3 * i] * scale;
+        out[5][j] = color[3 * i + 1] * scale;
+        out[6][j] = color[3 * i + 2] * scale;
+    }
+}
+// s8_pixel over every block and thread of a width x height launch: each
+// lane's (x, y, live), 3 ints a lane in launch order
+void f3d_test_s8_pixels(int width, int height, int* out) {
+    for (long long b = 0; b < s8_blocks(width, height); ++b)
+        for (int t = 0; t < 256; ++t) {
+            int x, y;
+            const bool live = s8_pixel(width, height, b, t, x, y);
+            int* o = out + 3 * (b * 256 + t);
+            o[0] = x, o[1] = y, o[2] = live;
+        }
 }
 int f3d_struct_sizes(long long* out, int n) {
     const long long sizes[] = {(long long)sizeof(ScreenArgs), (long long)sizeof(ScreenOut),
@@ -643,9 +781,10 @@ int f3d_struct_sizes(long long* out, int n) {
                                (long long)sizeof(HybridOut), (long long)sizeof(AdjArgs),
                                (long long)sizeof(TerrainArgs), (long long)sizeof(TerrainOut),
                                (long long)sizeof(SmokeMarchArgs), (long long)sizeof(PreethamArgs),
-                               (long long)sizeof(GuideArgs), (long long)sizeof(TlasInst)};
-    for (int i = 0; i < n && i < 16; ++i) out[i] = sizes[i];
-    return 16;
+                               (long long)sizeof(GuideArgs), (long long)sizeof(TlasInst),
+                               (long long)sizeof(LightArgs)};
+    for (int i = 0; i < n && i < 17; ++i) out[i] = sizes[i];
+    return 17;
 }
 // P6, P5, P3 and P4 one point, ray or pixel at a time; P6 in the
 // instantiation pt.cu's launchers pick for the tape
@@ -2271,6 +2410,141 @@ def test_sample_light_kernel(kernels):
         assert close_frac(a, b) == 1.0
 
 
+# K10's packed light table (ops/lightsample.py:pack_lights, csrc/lights.cuh):
+# a record for each light type, and the sample from the table at L = 1, 6
+# and 257 (alias columns past a byte's range), held bit for bit against the
+# parent design's body (the ten arrays, built in the twin) and the plain
+# version (on the host the disk and sphere lanes' sin/cos come from the
+# host's libm, within the file's tolerance of PyTorch's).
+LIGHT_SETS = {"L1": 1, "L6": 6, "L257": 257}
+
+
+def light_set(count, device, seed=21):
+    """`count` lights, their types in LIGHT_TYPES' order round the set,
+    seeded positions, directions, colours, sizes and cones, with the alias
+    table of their power."""
+    from forge3d_tpu_torch.lighting import LIGHT_TYPES, Light, LightBuffer
+    from forge3d_tpu_torch.ops import lightsample as ls
+
+    rng = np.random.default_rng(seed)
+    lights = [Light(type=LIGHT_TYPES[i % 6], position=tuple(rng.uniform(-20, 20, 3)),
+                    direction=tuple(rng.normal(size=3) + [0.0, -2.0, 0.0]),
+                    intensity=float(rng.uniform(0.5, 40.0)), color=tuple(rng.uniform(0.2, 1, 3)),
+                    radius=float(rng.uniform(0.2, 3.0)), extent=tuple(rng.uniform(0.3, 4.0, 2)),
+                    inner_cone_deg=float(rng.uniform(5, 30)), outer_cone_deg=float(rng.uniform(31, 80)))
+              for i in range(count)]
+    buf = LightBuffer.from_lights(lights, device)
+    return buf, ls.alias_table_build(ls.light_power_weights(buf), device)
+
+
+def light_lanes(count, device, seed=22):
+    """Lanes that pick every column at the start of its interval and just
+    below its end (u_pick at (c + 0) / L and (c + 1) / L less an ulp, and u
+    at 0 and just below 1), with u1, u2 at 0, 0.5 and just below 1, then
+    seeded lanes; the 9 input planes."""
+    rng = np.random.default_rng(seed)
+    below1 = np.nextafter(np.float32(1.0), np.float32(0.0))
+    c = np.arange(count, dtype=np.float64)
+    picks = np.concatenate([c / count, np.nextafter(((c + 1) / count).astype(np.float32),
+                                                     np.float32(0.0)), [0.0, below1]])
+    edges = np.array([0.0, 0.5, below1], np.float32)
+    u1, u2, up = np.meshgrid(edges, edges, picks.astype(np.float32), indexing="ij")
+    m = rng.random((3, 256), dtype=np.float32)
+    u = np.stack([np.concatenate([up.ravel(), m[0]]), np.concatenate([u1.ravel(), m[1]]),
+                  np.concatenate([u2.ravel(), m[2]])], 1).astype(np.float32)
+    n = u.shape[0]
+    p = rng.uniform([-30, -10, -30], [30, 10, 30], (n, 3)).astype(np.float32)
+    nrm = rng.standard_normal((n, 3)).astype(np.float32)
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    return [torch.as_tensor(np.ascontiguousarray(a[:, i]), device=device)
+            for a in (p, nrm, u) for i in range(3)]
+
+
+def parent_sample_light(lib, lights, table, lanes):
+    """K10's parent design (f3d_test_parent_sample_light) on the host."""
+    arrays = [t.contiguous() for t in (lights.type_id, lights.color, lights.direction,
+                                       lights.position, lights.radius, lights.extent,
+                                       lights.cones, table.prob, table.alias, table.pdf)]
+    out = [torch.empty_like(lanes[0]) for _ in range(7)]
+    LL = ctypes.c_longlong
+    lib.f3d_test_parent_sample_light(
+        (LL * 10)(*(a.data_ptr() for a in arrays)), ctypes.c_int(table.count),
+        ctypes.c_float(table.u_hi), ctypes.c_int(lanes[0].numel()),
+        (LL * 9)(*(c.data_ptr() for c in lanes)), (LL * 7)(*(o.data_ptr() for o in out)))
+    return out
+
+
+@pytest.mark.parametrize("light_type", range(6), ids=lambda i: f"type{i}")
+def test_light_table_record(kernels, light_type):
+    from forge3d_tpu_torch.ops import lightsample as ls
+
+    lights, table = light_set(6, kernels)
+    rec = ls.pack_lights(lights, table)
+    assert rec.shape == (6, ls.LIGHT_WORDS) and rec.dtype == torch.float32
+    assert rec.is_contiguous() and rec.data_ptr() % 16 == 0
+    i = int(torch.nonzero(lights.type_id == light_type)[0])
+    r = rec[i].cpu()
+    bits = r.view(torch.int32)
+    a = int(table.alias[i])
+    f = lambda t: t.detach().cpu().reshape(-1)  # noqa: E731
+    assert bits[1] == a and bits[7] == light_type
+    want = [(r[0:1], f(table.prob[i])), (r[2:3], f(table.pdf[i])), (r[3:4], f(table.pdf[a])),
+            (r[4:7], f(lights.position[i])), (r[8:11], f(lights.direction[i])),
+            (r[11:12], f(lights.radius[i])), (r[12:15], f(lights.color[i])),
+            (r[15:16], torch.zeros(1)), (r[16:18], f(lights.extent[i])),
+            (r[18:20], f(lights.cones[i]))]
+    for got, ref in want:
+        assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+
+
+@pytest.mark.parametrize("count", list(LIGHT_SETS.values()), ids=list(LIGHT_SETS))
+def test_sample_light_from_table(kernels, count):
+    from forge3d_tpu_torch.ops import lightsample as ls
+
+    lights, table = light_set(count, kernels)
+    lanes = light_lanes(count, kernels)
+    idx, _ = ls.alias_sample(table, lanes[6])
+    types = lights.type_id[idx.long()]
+    assert set(types.tolist()) == set(range(min(count, 6)))     # every type picked
+    got = ls._sample_light_kernel(lights, table, *lanes)
+    ref = ls.sample_light_nee_plain(lights, table, *lanes)
+    if kernels.type == "cpu":
+        parent = parent_sample_light(_kernels.lib(), lights, table, lanes)
+        for a, b in zip(parent, got):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        trig = (types == 4) | (types == 5)     # disk, sphere: the host's sinf/cosf
+        for a, b in zip(ref, got):
+            assert torch.equal(a[~trig], b[~trig])
+            assert not bool(trig.any()) or close_frac(a[trig], b[trig]) == 1.0
+    else:
+        for a, b in zip(ref, got):
+            assert torch.equal(a, b)
+
+
+def test_light_table_formed_once(kernels):
+    # K6's frames and sample_light_nee calls read the table packed when the
+    # light set first met the kernels; another light set gets its own
+    from forge3d_tpu_torch.ops import lightsample as ls
+
+    ctx = mesh_lights_ctx(kernels, spp=1)
+    H, W = ctx.height, ctx.width
+    packs = ls.light_table.packs
+    acc = torch.zeros(H, W, 4, device=kernels)
+    wf = torch.zeros(H, W, 2, device=kernels)
+    res = rst.Reservoirs.zeros(H * W, kernels)
+    for frame in (0, 1):
+        acc, wf, res = tr._frame_step_kernel(ctx, acc, wf, res, frame)
+    lanes = light_lanes(6, kernels)
+    ls._sample_light_kernel(*ctx.lights, *lanes)
+    ls.sample_light_nee(*ctx.lights, *lanes)
+    assert ls.light_table.packs == packs + 1
+    args = ctx.light_args()
+    assert args.table == ls.light_table(*ctx.lights).data_ptr() and args.count == 6
+    other = light_set(6, kernels, seed=3)
+    ls._sample_light_kernel(*other, *lanes)
+    assert ls.light_table.packs == packs + 2
+
+
 @pytest.mark.parametrize("kw", [dict(spp=2), dict(spp=1, restir=False, shadows_enabled=False)],
                          ids=["restir_spp2", "plain_nee_no_shadows"])
 def test_frame_and_gbuffer_with_mesh_and_lights(kernels, kw):
@@ -2952,12 +3226,64 @@ def test_clipmap_shade_kernel(kernels, monkeypatch, kw):
     assert 0.2 < float(valid.double().mean()) and float(ref[..., :3][valid].float().std()) > 5.0
 
 
+# S9 in S8's layout (screen.cuh:s8_pixel: a block a 16x16 tile, a warp 8x4
+# pixels in 2x2 quads) with its PCSS taps through the texture: the layout
+# at sizes whose tile edge falls inside the image, and the kernel's bytes
+# against the parent design's (quads along the rows, the map through the
+# pointer), built in the twin
+S9_SIZES = {"96x40": (96, 40), "70x38": (70, 38), "16x16": (16, 16), "2x2": (2, 2),
+            "34x18": (34, 18)}
+
+
+@pytest.mark.parametrize("size", list(S9_SIZES))
+def test_s9_tile_layout(host_lib, size):
+    W, H = S9_SIZES[size]
+    blocks = -(-W // 16) * -(-H // 16)
+    lanes = np.zeros((blocks * 256, 3), np.int32)
+    host_lib.f3d_test_s8_pixels(W, H, lanes.ctypes.data_as(ctypes.c_void_p))
+    live = lanes[:, 2] == 1
+    seen = np.zeros((H, W), np.int64)
+    np.add.at(seen, (lanes[live, 1], lanes[live, 0]), 1)
+    assert (seen == 1).all()                          # every pixel shaded and written once
+    assert (lanes[~live, :2] == 0).all()              # the rest shade (0, 0)
+    quads = lanes.reshape(-1, 4, 3)
+    assert ((quads[:, :, 2] == quads[:, :1, 2]).all())    # whole quads live or not
+    q = quads[quads[:, 0, 2] == 1]
+    x0, y0 = q[:, 0, 0], q[:, 0, 1]
+    assert (x0 % 2 == 0).all() and (y0 % 2 == 0).all()
+    for k, (dx, dy) in enumerate(((0, 0), (1, 0), (0, 1), (1, 1))):   # tl, tr, bl, br
+        assert (q[:, k, 0] == x0 + dx).all() and (q[:, k, 1] == y0 + dy).all()
+
+
+@pytest.mark.parametrize("size", [(96, 40), (64, 48)], ids=["96x40", "64x48"])
+@pytest.mark.parametrize("kw", [dict(pom=POM), dict(pom=POM, generation="family", encode="srgb",
+                                                   albedo_mode="colormap")],
+                         ids=["pom_recipe", "pom_family_srgb"])
+def test_s9_tiles_through_the_texture(kernels, monkeypatch, size, kw):
+    from forge3d_tpu_torch.terrain import screen as scr
+
+    cfg, u = clipmap_inputs(kernels, monkeypatch, W=size[0], H=size[1], **kw)
+    got = scr._clipmap_kernel(cfg, u)
+    if kernels.type == "cpu":
+        a, keep = scr.screen_args(cfg, u)
+        g, keep_g = scr._clip_args(u)
+        ref = torch.empty_like(got)
+        lib = _kernels.lib()
+        lib.f3d_test_parent_clipmap.argtypes = [ctypes.POINTER(_kernels.ScreenArgs),
+                                                ctypes.POINTER(_kernels.ClipArgs), ctypes.c_void_p]
+        lib.f3d_test_parent_clipmap(a, g, _kernels.ptr(ref))
+    else:
+        ref = scr.clipmap_shade_plain(cfg, u)
+    assert torch.equal(got, ref)
+    assert 0.2 < float(u["gb_valid"].double().mean())
+
+
 def test_struct_layout_guard(host_lib, monkeypatch):
     """The argument structs' ctypes mirrors have the sizes the sources give
     them, and a mirror out of step is refused when the library is bound."""
     n = len(_kernels.STRUCTS)
     sizes = (ctypes.c_longlong * n)()
-    assert host_lib.f3d_struct_sizes(sizes, n) == n == 16
+    assert host_lib.f3d_struct_sizes(sizes, n) == n == 17
     assert list(sizes) == [ctypes.sizeof(s) for s in _kernels.STRUCTS]
     short = type("ShortSky", (ctypes.Structure,), {"_fields_": _kernels.SkyArgs._fields_[:-1]})
     monkeypatch.setattr(_kernels, "STRUCTS", (*_kernels.STRUCTS[:3], short,

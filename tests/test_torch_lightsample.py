@@ -142,6 +142,32 @@ def test_sample_light_nee_matches_jax(which):
         assert np.all(got[3].numpy() == np.float32(1e30))
 
 
+def test_packed_light_table():
+    """K10's packed table (pack_lights) holds JAX's light rows and alias
+    table bit for bit, a light's 20 words; light_table forms it once per
+    light set and keeps it with the alias table."""
+    jbuf = jlt.LightBuffer.from_lights(six(jlt.Light))
+    jtab = jls.alias_table_build(jls.light_power_weights(jbuf))
+    tbuf = tlt.LightBuffer.from_lights(six(tlt.Light), device="cpu")
+    ttab = tls.alias_table_build(tls.light_power_weights(tbuf), device="cpu")
+    j = {k: np.asarray(getattr(jbuf, k)) for k in jbuf._fields}
+    prob, alias, pdf = (np.asarray(getattr(jtab, k)) for k in ("prob", "alias", "pdf"))
+    col = lambda a: np.asarray(a).reshape(6, -1)  # noqa: E731
+    want = np.concatenate([col(prob), col(alias.view(np.float32)), col(pdf), col(pdf[alias]),
+                           j["position"], col(j["type_id"].view(np.float32)), j["direction"],
+                           col(j["radius"]), j["color"], np.zeros((6, 1), np.float32),
+                           j["extent"], j["cones"]], 1)
+    packs = tls.light_table.packs
+    rec = tls.light_table(tbuf, ttab)
+    assert rec.shape == (6, tls.LIGHT_WORDS) == want.shape
+    np.testing.assert_array_equal(rec.numpy().view(np.int32), want.view(np.int32))
+    assert tls.light_table(tbuf, ttab) is rec and tls.light_table.packs == packs + 1
+    other = tlt.LightBuffer.from_lights(six(tlt.Light)[::-1], device="cpu")
+    assert tls.light_table(other, ttab) is not rec and tls.light_table.packs == packs + 2
+    with pytest.raises(ValueError, match="alias table of 6"):
+        tls.pack_lights(tlt.LightBuffer.from_lights(six(tlt.Light)[:2], device="cpu"), ttab)
+
+
 def test_light_tables_default_to_cuda():
     """LightBuffer.from_lights and alias_table_build called as the JAX
     package's put their tables on the card: without CUDA they raise
