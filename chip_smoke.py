@@ -40,7 +40,13 @@ queued, in measurement builds `K10 const` and `K10 copy`, its build and
 its picks' divergence) and K6 hybrid frame 1 (as launched, queued, its
 build, light_args alone), then S9 on E's G-buffer (as launched, queued, in
 `S8 self` and with POM off, its build, SASS count, valid pixels and POM
-march steps), each with a sha256 (`--probe K10`, `--probe S9` one half).
+march steps), each with a sha256 (`--probe K10`, `--probe S9` one half);
+`--probe K5C1` K5 on the center rays, Scene K's primary and first AO rays
+and the per-ray frame's sun rays (as launched, queued, steps, leaf share,
+layout, its build), K6, K6 hybrid frame 1, K8, P3 and R1 render (which run
+K5's body or take its hits), then C1 reconstruction on
+phase 32's pages (as launched, queued, in `C1 no wait`, cycles a step, its
+build), each with a sha256 (`--probe K5`, `--probe C1R` one half).
 Copied
 into a checkout of an earlier tree and run there, it times that tree's
 kernels, so two designs can be compared on one card.
@@ -247,7 +253,9 @@ Phases (one line each; any failure exits non-zero):
                 vignette), cold and warm, bit-identical, split by stage; K
                 launches K5 five times a render and each of its E2 kernels
                 (E2 blur 16 times, four at each of r 5, 14, 18 and 45, all
-                through the staged window);
+                through the staged window); K5 against its plain trace on
+                each of K's five traces at K's spacing, 1024/1023, which is
+                not a power of two (trace_kernel<false>);
                 K at 240x136 on the card against the CPU's plain versions;
  27. vt render -- configuration L: TerrainRenderer A at 1080p with a
                 MaterialSet over a five-level VT store (1,364 BC7 pages, the
@@ -792,6 +800,18 @@ def compare_reservoirs(tag, ref, got):
     return worst
 
 
+def k5_instantiation(scene) -> str:
+    """The trace_kernel instantiation that f3d_trace launches for `scene`
+    (csrc/common.cuh:pow2_spacing): <true> where both spacings are powers of
+    two with a normal reciprocal, the cells by exact multiplies; <false>
+    otherwise, by IEEE divisions."""
+    def pow2(x):
+        b = int(np.float32(x).view(np.uint32))
+        return b & 0x7FFFFF == 0 and 1 <= b >> 23 <= 253
+
+    return f"trace_kernel<{'true' if all(pow2(x) for x in scene.spacing_xz) else 'false'}>"
+
+
 def compare_trace(tag, hp, hk):
     """(hit agreement, max |dt|/t where both hit) of K5's result `hk`
     against the plain result `hp`; fails outside HIT_AGREE / T_REL."""
@@ -847,8 +867,9 @@ def phase_kernels():
     hk = tv.trace(ctx.scene, ro_t, rd_t)
     torch.cuda.synchronize()
     agree, rel = compare_trace("small scene", hp, hk)
-    say("kernels", f"K5 trace: {ro_t[0].numel()} rays, hit agreement {agree:.6f}, "
-                   f"max |dt|/t {rel:.3e}, hits {float(hp.hit.double().mean()):.3f}")
+    say("kernels", f"K5 trace ({k5_instantiation(ctx.scene)}, spacing "
+                   f"{ctx.scene.spacing_xz[0]:g}): {ro_t[0].numel()} rays, hit agreement "
+                   f"{agree:.6f}, max |dt|/t {rel:.3e}, hits {float(hp.hit.double().mean()):.3f}")
 
     # K8: center G-buffer (K5 + K8) against plain trace + plain resolve
     gp = tr.center_gbuffer_plain(ctx)
@@ -972,8 +993,15 @@ def phase_timing(dem, launches):
     both = hp.hit & hk.hit
     row("K5 trace", max_abs(hp.t[both], hk.t[both]),
         cuda_ms(lambda: tv.trace(ctx.scene, o, d), 5), plain_ms,
-        f"hit agreement {agree:.6f}, max |dt|/t {rel:.3e}",
+        f"hit agreement {agree:.6f}, max |dt|/t {rel:.3e}, {k5_instantiation(ctx.scene)} at "
+        f"spacing {ctx.scene.spacing_xz[0]:g}",
         n * (24 + 13) + scene_bytes(ctx.scene), traced_ops(w5))
+    layout = "8x4 tiles" if tv.ray_image_width(o[0].shape) else "rows"
+    for pow2 in (1, 0):
+        a = _attrs("f3d_trace_attrs", pow2)
+        say("timing", f"K5 kernel ({'power-of-two' if pow2 else 'other'} spacings): {a[0]} "
+                      f"registers, {a[1]} B local, 0 B shared, {a[2]} resident blocks of 256 "
+                      f"an SM; the {W}x{H} center rays in {layout}")
 
     gk = tr._gbuffer_resolve_kernel(ctx, d, hk)
     gp = tr.gbuffer_resolve_plain(ctx, d, hk)
@@ -1440,14 +1468,16 @@ def launcher_ms(fn, symbol: str, reps: int) -> float:
 # be 0), and the instances it rejects (csrc/pt.cu:f3d_tlas_cull_check);
 # K10 const: K10's pick and light fields from constants (what its table's
 # loads cost); K10 copy: K10 alone a copy of its 16 streams (the floor of
-# its access pattern). Their outputs are not the kernels' and are not
-# checked.
+# its access pattern); C1 no wait: C1 reconstruction's warps
+# take the row above without waiting for its handoff (what the handoffs'
+# waits cost). Their outputs are not the kernels' and are not checked.
 SPLIT_BUILDS = {"A": ("F3D_K7_SELF_TAPS", "F3D_K3_SPLIT=1"), "B": ("F3D_K3_SPLIT=2",),
                 "C": ("F3D_K3_SPLIT=3",), "S8 self": ("F3D_S8_PCSS_SELF",),
                 "S8 const": ("F3D_S8_PCSS_CONST",), "E3 self": ("F3D_E3_SELF_TAPS",),
                 "E3 const": ("F3D_E3_CONST_EXP",), "S4 store": ("F3D_S4_STORE",),
                 "P5 root": ("F3D_P5_ROOT_ONLY",), "P5 check": ("F3D_P5_CULL_CHECK",),
-                "K10 const": ("F3D_K10_CONST",), "K10 copy": ("F3D_K10_COPY",)}
+                "K10 const": ("F3D_K10_CONST",), "K10 copy": ("F3D_K10_COPY",),
+                "C1 no wait": ("F3D_C1_NO_WAIT",)}
 _VARIANT_LIBS = {}
 
 
@@ -5000,16 +5030,48 @@ def _scene_counters():
             "E2 ssao": P.ssao}
 
 
+def own_rays(ro, rd):
+    """Rays (ro, rd) broadcast to one shape, each component contiguous, so
+    that K5's wrapper copies nothing."""
+    import torch
+
+    comps = torch.broadcast_tensors(*ro, *rd)
+    return tuple(c.contiguous() for c in comps[:3]), tuple(c.contiguous() for c in comps[3:])
+
+
+def scene_traces(sc):
+    """The K5 traces of one render of Scene `sc`, in its order (the primary
+    rays, then each AO trace), as (scene, ro, rd, tmin, tmax) with the rays
+    made own_rays."""
+    from forge3d_tpu_torch import scene as scn
+
+    calls, real = [], scn.trace
+
+    def capture(scene, ro, rd, tmin=1e-3, tmax=1e30):
+        calls.append((scene, *own_rays(ro, rd), tmin, tmax))
+        return real(scene, ro, rd, tmin, tmax)
+
+    scn.trace = capture
+    try:
+        sc.render_rgba()
+    finally:
+        scn.trace = real
+    return calls
+
+
 def phase_scene(dem):
     """Scene's main path: K0 and K at 1080p, cold and warm, bit-identical,
     split by stage; every count set to 0 before and read after (K: K5 five
-    times a render, each of its E2 kernels at least once); then Scene on the
-    card against Scene on the CPU at 240x136. Returns K's launches."""
+    times a render, each of its E2 kernels at least once); K5 against its
+    plain trace on each of K's five traces, at K's spacing, which is not a
+    power of two (trace_kernel<false>); then Scene on the card against Scene
+    on the CPU at 240x136. Returns K's launches."""
     import torch
 
     from collections import Counter
 
     from forge3d_tpu_torch.ops import post as P
+    from forge3d_tpu_torch.ops import traversal as tv
 
     counters = _scene_counters()
     launches = {}
@@ -5059,6 +5121,18 @@ def phase_scene(dem):
                          f"{json.dumps(dict(sorted(by_radius.items())))}, by instantiation "
                          f"{json.dumps(dict(P.blur_axis.instances))}")
             launches = counts
+            # K5 at K's own spacing (1024 / 1023, not a power of two): each
+            # trace of a third render, after the counts were read, against
+            # the plain trace on the rays that the render gave it
+            for i, (scene, ro, rd, tmin, tmax) in enumerate(scene_traces(sc)):
+                tag = "primary rays" if i == 0 else f"AO trace {i}"
+                hp = tv.trace_plain(scene, ro, rd, tmin, tmax)
+                hk = tv.trace(scene, ro, rd, tmin, tmax)
+                agree, rel = compare_trace(f"K {tag}", hp, hk)
+                say("scene", f"K5 on K's {tag} ({k5_instantiation(scene)}, spacing "
+                             f"{scene.spacing_xz[0]:.9g}, {tuple(ro[0].shape)}, tmax {tmax:g}): "
+                             f"hit agreement {agree:.6f}, max |dt|/t {rel:.3e}, max |dt| "
+                             f"{max_abs(hp.t[hp.hit & hk.hit], hk.t[hp.hit & hk.hit]):.3e}")
         else:
             require(counts["K5 trace"] == 2 and sum(counts.values()) == 2,
                     f"K0 launched more than its two traces: {counts}")
@@ -6015,6 +6089,14 @@ OPS_MED_PIXEL = 8          # med_pred, the add and the double product
 # the latencies scripts/sass_latency.py measured on an H100 (23.00, 4.06,
 # 8.11, 4.06 and half of a logic-and-add pair's 9.48): cycles a token
 RANS_CHAIN_CYCLES = 44
+# C1 reconstruction's chain floor: the recurrence's 511 steps a tile (256 +
+# 255 anti-diagonals), each med_kernel's dependent chain in its SASS (the
+# shuffle, the select of lane 0's edge value, a max, a compare into the
+# median's select, the residual's add) at scripts/sass_latency.py's
+# latencies on an H100 (24.00; 4.06; half of a min and max pair's 8.06;
+# 8.11 the compare and select; 4.06): cycles a step
+MED_CHAIN_STEPS = 2 * 256 - 1
+MED_CHAIN_CYCLES = 44
 BAND = (540, 270)          # phase 33's band of rows: the third quarter of 1080
 
 
@@ -6090,6 +6172,17 @@ def phase_codec():
                  f"{mhz} MHz; chain floor {RANS_CHAIN_CYCLES} cycles a token, "
                  f"{RANS_CHAIN_CYCLES * 65536 / (mhz * 1e3):.4f} ms a tile")
     require(attrs[2] >= 2, "C1 entropy must fit two blocks an SM (the 4096^2 page in one wave)")
+    # C1 reconstruction's build and its chain: cycles a wavefront step
+    _kernels.check(_kernels.lib().f3d_med_attrs(attrs), "C1 reconstruction attrs")
+    floor_ms = MED_CHAIN_STEPS * MED_CHAIN_CYCLES / (mhz * 1e3)
+    say("codec", f"C1 reconstruction kernel: {attrs[0]} registers, {attrs[1]} B spilled, "
+                 f"{attrs[2]} blocks of 256 an SM, {attrs[3]} B of shared memory a block; "
+                 f"{res['C1 reconstruction'][1] * 1e-3 * mhz * 1e6 / MED_CHAIN_STEPS:.1f} cycles "
+                 f"a step of the recurrence's {MED_CHAIN_STEPS} at {mhz} MHz; chain floor "
+                 f"{MED_CHAIN_CYCLES} cycles a step, {floor_ms:.4f} ms a tile "
+                 f"({floor_ms / res['C1 reconstruction'][1]:.1%} of the 1024^2 page's time)")
+    require(attrs[2] >= 2, "C1 reconstruction must fit two blocks an SM (the 4096^2 page in "
+                           "one wave)")
 
     # the 4096^2 page set's split: the host parse, each kernel, the readback
     blob = blobs[("4096^2", CODEC_EPS[0])]
@@ -6428,6 +6521,8 @@ def probe_c1(torch):
     dev = torch.device("cuda")
     mhz = sm_clock_mhz()
     pages = codec_pages()
+    a = _attrs("f3d_med_attrs", n=4)
+    wavefront = a is not None   # the four-pass design reports no build
     for name in ("1024^2", "4096^2"):
         page = fd.parse_page(codec.compress_dem(pages[name], CODEC_EPS[0]))
         t = page.tensors(dev)
@@ -7405,6 +7500,158 @@ def probe_s9(torch):
     say("probe", f"S9 static SASS instructions: {json.dumps(sass_count('clipmap_kernel'))}")
 
 
+def tree_has(macro: str) -> bool:
+    """Whether this tree's kernel sources know the measurement macro."""
+    from forge3d_tpu_torch import _kernels
+
+    return any(macro in p.read_text() for p in sorted(_kernels.CSRC.glob("*.cu*")))
+
+
+def k5_ray_sets(dev):
+    """K5's ray sets on the main paths, as their callers shape them: phase
+    9's 2.07 M center rays at bench.py's scene (H, W), Scene K's 1080p
+    primary rays and its first AO trace (H, W; tmax the AO radius), and the
+    sun rays of the per-ray frame (flat, probe_k6's set). Each component is
+    made contiguous in its caller's shape, so that the wrapper copies
+    nothing. [(name, scene, ro, rd, tmin, tmax)]"""
+    from forge3d_tpu_torch.pt import terrain_ref as tr
+
+    dem = bench_dem()
+    ctx = setup(dem, REAL_W, REAL_H, BENCH_CAM, dev, spp=1)
+    gk = tr.center_gbuffer(ctx)
+    calls = scene_traces(k_scene(dem, True))
+    sets = [("center", ctx.scene, *own_rays(*tr._center_rays(ctx)), 1e-3, 1e30)]
+    for name, call in (("Scene K primary", calls[0]), ("Scene K AO", calls[1])):
+        sets.append((name, *call))
+    sets.append(("sun", ctx.scene, *own_rays(*sun_rays(ctx, gk)), 1e-3, 1e30))
+    return sets
+
+
+def probe_k5(torch):
+    """K5 on its main paths' ray sets (k5_ray_sets), as launched and queued
+    behind a spin; the plain run's steps a ray and leaf share; the layout
+    the kernel gives the set; K5's registers, local bytes and blocks an SM
+    where the tree reports them; a sha256 of the hit record of each set.
+    Then the kernels that run K5's body inside (probe_k5_body). Calls only
+    entry points K5 has had since it was ported."""
+    from forge3d_tpu_torch.ops import traversal as tv
+
+    dev = torch.device("cuda")
+    sets = k5_ray_sets(dev)
+    layout = getattr(tv, "ray_image_width", lambda shape: 0)
+    for name, sc, ro, rd, tmin, tmax in sets:
+        shape, n = tuple(ro[0].shape), ro[0].numel()
+        fn = lambda: tv._trace_kernel(sc, ro, rd, tmin, tmax)  # noqa: E731
+        out = fn()
+        t = {"as launched": cuda_ms(fn, 10), "queued": queued_ms(fn, 10)}
+        tv.trace_plain.steps = tv.trace_plain.leaf_tests = 0
+        tv.trace_plain(sc, ro, rd, tmin, tmax)
+        work = {"rays": n, "steps a ray": round(tv.trace_plain.steps / n, 3),
+                "leaf share of steps": round(tv.trace_plain.leaf_tests
+                                             / max(tv.trace_plain.steps, 1), 4),
+                "hits": int(out.hit.sum())}
+        work["layout"] = "8x4 tiles" if layout(shape) else "rows"
+        say("probe", f"K5 {name} {shape} tmax {tmax:g} (ms): "
+                     f"{json.dumps({k: round(v, 4) for k, v in t.items()})}; {json.dumps(work)}")
+        say("probe", f"K5 {name}: sha256 {_sha(out.hit, out.t, out.cell_x, out.cell_z)}")
+    for pow2 in (1, 0):
+        a = _attrs("f3d_trace_attrs", pow2)
+        if a is not None:
+            say("probe", f"K5 kernel ({'power-of-two' if pow2 else 'other'} spacings): {a[0]} "
+                         f"registers, {a[1]} B local, {a[2]} resident blocks of 256 an SM")
+    probe_k5_body(torch)
+
+
+def probe_k5_body(torch):
+    """The kernels whose body runs K5's DDA (common.cuh:trace_ray): K6
+    terrain-only and hybrid frame 1 at bench.py's scene (the town and six
+    lights) as launched and queued, with a sha256 of each frame, P3
+    (probe_p3) and R1 render and step (probe_r1); K8, which resolves K5's
+    center hits, likewise; the registers, local bytes and blocks an SM of
+    K6, K6 hybrid, K8 and P3."""
+    from forge3d_tpu_torch.ops import traversal as tv
+    import dataclasses
+
+    from forge3d_tpu_torch.pt import terrain_ref as tr
+    from forge3d_tpu_torch.pt.mesh_render import MeshTracerScene
+
+    dev = torch.device("cuda")
+    dem = bench_dem()
+    ctx = setup(dem, REAL_W, REAL_H, BENCH_CAM, dev, spp=1)
+    desc = hybrid_desc(dem)
+    hyb = dataclasses.replace(ctx, mesh=MeshTracerScene(desc.mesh[0], desc.mesh[1], dev),
+                              lights=tr._lights(desc, dev))
+    for tag, c in (("K6", ctx), ("K6 hybrid", hyb)):
+        _, inputs = k6_frame_inputs(c)
+        fn = lambda: tr._frame_step_kernel(c, *inputs, 1)  # noqa: E731
+        out = fn()
+        t = {"as launched": cuda_ms(fn, 5), "queued": queued_ms(fn, 5)}
+        say("probe", f"{tag} frame 1 {REAL_W}x{REAL_H} (ms): "
+                     f"{json.dumps({k: round(v, 4) for k, v in t.items()})}; sha256 {_sha(out)}")
+    o, d = tr._center_rays(ctx)
+    hk = tv.trace(ctx.scene, o, d)
+    fn = lambda: tr._gbuffer_resolve_kernel(ctx, d, hk)  # noqa: E731
+    out = fn()
+    t = {"as launched": cuda_ms(fn, 20), "queued": queued_ms(fn, 20)}
+    aovs = [out[k] for k in ("albedo", "normal", "depth", "visibility")] + list(out["gb_n"])
+    say("probe", f"K8 {REAL_W}x{REAL_H} (ms): "
+                 f"{json.dumps({k: round(v, 4) for k, v in t.items()})}; sha256 {_sha(*aovs)}")
+    probe_p3(torch, dem)
+    probe_r1(torch, dem)
+    for name, fn, arg in (("K6", "f3d_frame_kernel_attrs", 0),
+                          ("K6 hybrid", "f3d_frame_kernel_attrs", 1),
+                          ("K8", "f3d_mesh_kernel_attrs", 2), ("P3", "f3d_hybrid_attrs", None)):
+        a = _attrs(fn) if arg is None else _attrs(fn, arg)
+        say("probe", f"{name} kernel: {a[0]} registers, {a[1]} B local, {a[2]} resident blocks "
+                     f"an SM")
+
+
+# C1 reconstruction's steps a tile in its four-pass design: four passes of
+# 64 rows, each 64 + 255 wavefront steps, a block barrier each
+MED_BARRIER_STEPS = 4 * (64 + 255)
+
+
+def probe_c1r(torch):
+    """C1 reconstruction on phase 32's 1024^2 and 4096^2 pages: at max_error
+    0.1 as launched and queued behind a spin, queued in measurement build `C1
+    no wait` where the tree has it, in SM cycles a tile at the card's
+    clock, a step of the recurrence's 511 and, on a tree of the four-pass
+    design, of its 1,276;
+    its registers, local and shared bytes and blocks an SM; a sha256 of the
+    heights at max_error 0.1 and 0.01. Calls only entry points C1 has had
+    since it was ported."""
+    from forge3d_tpu_torch import codec
+    from forge3d_tpu_torch.codec import f3dz_device as fd
+
+    dev = torch.device("cuda")
+    mhz = sm_clock_mhz()
+    pages = codec_pages()
+    for name in ("1024^2", "4096^2"):
+        for eps in CODEC_EPS:
+            page = fd.parse_page(codec.compress_dem(pages[name], eps))
+            d = fd._rans_kernel(*page.tensors(dev))
+            fn = lambda: fd._med_kernel(d, page.ntx, page.nty, page.step)  # noqa: E731
+            out = fn()
+            say("probe", f"C1 reconstruction {name} @ {eps} ({d.shape[0]} tiles): sha256 "
+                         f"{_sha(out)}")
+            if eps != CODEC_EPS[0]:
+                continue
+            t = {"as launched": cuda_ms(fn, 20), "queued": queued_ms(fn, 20)}
+            if tree_has("F3D_C1_NO_WAIT"):
+                t["C1 no wait, queued"] = with_lib(variant_lib("C1 no wait"),
+                                                   lambda: queued_ms(fn, 20))
+            cyc = t["queued"] * 1e-3 * mhz * 1e6
+            four_pass = "" if wavefront else \
+                f"{cyc / MED_BARRIER_STEPS:.1f} a step of {MED_BARRIER_STEPS}, "
+            say("probe", f"C1 reconstruction {name} @ {eps} (ms): "
+                         f"{json.dumps({k: round(v, 4) for k, v in t.items()})}; queued "
+                         f"{cyc:.0f} cycles at {mhz} MHz, {four_pass}{cyc / 511:.1f} a step "
+                         f"of 511")
+    if wavefront:
+        say("probe", f"C1 reconstruction kernel: {a[0]} registers, {a[1]} B local, {a[2]} "
+                     f"resident blocks an SM, {a[3]} B of shared memory a block")
+
+
 def probe(torch, only=None):
     """`chip_smoke.py --probe`: E4 (probe_e4), R1 (probe_r1) and P3
     (probe_p3), then K2 and
@@ -7421,6 +7668,12 @@ def probe(torch, only=None):
     from forge3d_tpu_torch.ops import sweep as sw
     from forge3d_tpu_torch.pt import terrain_sweep as ts
 
+    if only in ("K5C1", "K5", "C1R"):
+        if only != "C1R":
+            probe_k5(torch)
+        if only != "K5":
+            probe_c1r(torch)
+        return
     if only in ("K10S9", "K10", "S9"):
         if only != "S9":
             probe_k10(torch)

@@ -360,9 +360,12 @@ _SIGNATURES = {
     "f3d_polar_attrs": [_I, _I, _P],
     # (resolve, acc, out, stream)
     "f3d_resolve": [ctypes.POINTER(ResolveArgs), _P, _P, _P],
-    # (scene, rox, roy, roz, rdx, rdy, rdz, n, tmin, tmax,
-    #  hit, t, cell_x, cell_z, stream)
-    "f3d_trace": [ctypes.POINTER(SceneArgs)] + [_P] * 6 + [_I, _F, _F] + [_P] * 5,
+    # (scene, rox, roy, roz, rdx, rdy, rdz, n, width (0: a flat set), tmin,
+    #  tmax, hit, t, cell_x, cell_z, stream)
+    "f3d_trace": [ctypes.POINTER(SceneArgs)] + [_P] * 6 + [_I, _I, _F, _F] + [_P] * 5,
+    # (pow2 (the instantiation for power-of-two spacings), out (registers,
+    #  local bytes, resident blocks))
+    "f3d_trace_attrs": [_I, _P],
     # (scene, frame, mesh, lights, accum_in, welford_in, res_in, accum_out,
     #  welford_out, res_out, stream)
     "f3d_frame_step": [ctypes.POINTER(SceneArgs), ctypes.POINTER(FrameArgs),
@@ -521,6 +524,7 @@ _SIGNATURES = {
     "f3d_rans_attrs": [_P],
     # C1 reconstruction: (d, n_tiles, ntx, width, step, out, stream)
     "f3d_med_reconstruct": [_P, _I, _I, _I, ctypes.c_double, _P, _P],
+    "f3d_med_attrs": [_P],
 }
 
 

@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from .ops.restir import Reservoirs
-from .ops.traversal import TerrainScene, f32
+from .ops.traversal import TerrainScene, check_level_layout, f32
 
 
 def scene_from_numpy(fields: dict, static: dict, device="cpu") -> TerrainScene:
@@ -28,6 +28,8 @@ def scene_from_numpy(fields: dict, static: dict, device="cpu") -> TerrainScene:
 
     origin = np.asarray(fields["origin_xz"], np.float32)
     spacing = np.asarray(fields["spacing_xz"], np.float32)
+    check_level_layout(fields["level_offset"], fields["level_w"], static["cell_w"],
+                       static["cell_h"])
     return TerrainScene(
         h_pair=t("h_pair", np.float32),
         mm_pack=t("mm_pack", np.float32),

@@ -11,13 +11,12 @@
 //             it, which write the residuals to a (T, 65536) int32 buffer.
 // C1 reconstruction  med_kernel replaces the MED/LOCO-I reconstruction and
 //             the height scale (96-133) and the host's reassembly of the
-//             tiles (223-230): one block a tile, four passes of 64 rows; a
-//             pass loads its residuals into shared memory, runs an
-//             anti-diagonal wavefront there, a thread a row (at step k row
-//             y computes column k - y from the value above and the one
-//             above-left, which row y - 1 wrote at steps k - 1 and k - 2;
-//             one barrier a step), and writes its heights straight to their
-//             place in the (H, W) output.
+//             tiles (223-230): one block a tile, one wavefront of the
+//             recurrence, a thread a row, the row above through warp
+//             shuffles and, between warps, an edge row in shared memory
+//             handed down 8 columns at a time (a released count); the
+//             residuals staged by cp.async in a per-warp ring, the heights
+//             written straight to their place in the (H, W) output.
 //
 // What bounds them on the H100. The entropy chain is one rANS state a tile,
 // fixed by the wire format: every step's table lookup depends on the step
@@ -38,13 +37,17 @@
 // 7.2561 ms for the 1024^2 page's 16 tiles on an H100 (a 64-bit register
 // buffer refilled a word ahead), 8.3185 (each step's four candidate bytes
 // loaded at its start, nested branches), 9.2666 (a register window of
-// 16-byte chunks); PERF.md §6 splits the first. The reconstruction is bound
-// by its 1,276 barrier steps a tile (4 x (64 + 255)) and by bytes: 4 B read
-// and 4 B written a pixel. A wavefront over the whole tile in 511 steps,
-// one thread a row of 256 with the rows above in a ring, took 0.2189 ms for
-// the 1024^2 page on an H100: every step read and wrote 256 rows' worth of
-// scattered words. Staging a pass in shared memory keeps every global
-// access coalesced.
+// 16-byte chunks); PERF.md §6 splits the first. The reconstruction is a
+// recurrence with no scan form (the median is not associative): q[y, x]
+// needs q[y, x-1], q[y-1, x] and q[y-1, x-1], so a tile takes 511
+// dependent anti-diagonal steps, and it moves 4 B read and 4 B written a
+// pixel. Its chain is the step's (med_kernel): a shuffle, the median, the
+// add, ~48 cycles (chip_smoke.py:MED_CHAIN_CYCLES). The earlier designs: a
+// wavefront over the whole tile, a thread a row of 256 with the rows above
+// in a ring in device memory, 0.2189 ms for the 1024^2 page on an H100
+// (every step read and wrote 256 rows' worth of scattered words); four
+// 64-row passes staged in shared memory, a block barrier a step, 1,276
+// steps a tile, 0.1160 ms.
 
 #include <cuda_runtime.h>
 
@@ -167,55 +170,169 @@ __global__ void __launch_bounds__(kRansThreads) rans_kernel(
     }
 }
 
-// The tile in four passes of kMedRows rows: load the pass's residuals into
-// shared memory (coalesced), run the wavefront there (q overwrites d in
-// place; the row above the pass is kept from the last pass), then write the
-// pass's heights out (coalesced, 16 bytes a thread).
-constexpr int kMedRows = 64;
-constexpr int kMedSmem = (kMedRows + 1) * F3DZ_TILE * 4;
+// C1 reconstruction, a block a tile: one wavefront of 256 + 31 steps a
+// warp, a thread a row (codec.cuh: med_lane_step), the row above from the
+// lane above by a shuffle, across warps from an edge row in shared memory
+// handed down F3DZ_MED_HAND columns at a time, so no block barrier runs in
+// the loop. A warp runs 8 + 1 periods of 32 steps; before period c it
+// drains chunk c - 2 (its lanes have passed it), refills that slot of its
+// ring with chunk c + 1 (cp.async, 16 bytes a piece) and waits for chunk c.
+// Warp w's lane 0 takes column x at step x, once warp w - 1's lane 31 has
+// published the handoff holding x, which it does at its step x + 31
+// rounded up to the handoff's end: the warps run F3DZ_MED_HAND + 31 steps
+// apart, ~7 x 39 + 287 = 560 steps a tile for the recurrence's 511. A
+// handoff is a count a boundary in shared memory: lane 31 of the warp above
+// stores the handoff's 8 values, then releases the count of handoffs
+// published (st.release); the warp below spins on it (ld.acquire), then
+// reads the 8 values. Spinning beat an mbarrier a handoff by ~3% on the
+// 1024^2 page (PERF.md §6).
+constexpr int kMedThreads = 32 * F3DZ_MED_WARPS;
+constexpr int kMedEdgeWords = (F3DZ_MED_WARPS - 1) * F3DZ_TILE;
+constexpr int kMedSmem = (F3DZ_MED_WARPS * F3DZ_MED_RING_WORDS + kMedEdgeWords
+                          + F3DZ_MED_WARPS) * 4;
 
-__global__ void __launch_bounds__(kMedRows) med_kernel(const int32_t* __restrict__ d, int ntx,
-                                                      int width, double step,
-                                                      float* __restrict__ out) {
-    extern __shared__ int32_t smem[];
-    int32_t* tile = smem;                          // (kMedRows, 256): d, then q
-    int32_t* above = smem + kMedRows * F3DZ_TILE;   // q of the row above the pass
-    const int t = blockIdx.x, y = threadIdx.x;
-    const int tx = t % ntx, ty = t / ntx;
-    float* ot = out + (size_t)ty * F3DZ_TILE * width + (size_t)tx * F3DZ_TILE;
-    for (int pass = 0; pass < F3DZ_TILE / kMedRows; ++pass) {
-        const int4* src = reinterpret_cast<const int4*>(d + (size_t)t * F3DZ_TILE_PX
-                                                        + (size_t)pass * kMedRows * F3DZ_TILE);
-        for (int i = y; i < kMedRows * F3DZ_TILE / 4; i += kMedRows)
-            reinterpret_cast<int4*>(tile)[i] = src[i];
-        __syncthreads();
-        const int gy = pass * kMedRows + y;
-        int32_t left = 0;
-        for (int k = 0; k < kMedRows + F3DZ_TILE - 1; ++k) {
-            const int x = k - y;
-            if (x >= 0 && x < F3DZ_TILE) {
-                // row y - 1 wrote q[y-1, x] at step k - 1 and q[y-1, x-1] at k - 2
-                const int32_t* up_row = y > 0 ? tile + (y - 1) * F3DZ_TILE : above;
-                const int32_t up = gy > 0 ? up_row[x] : 0;
-                const int32_t upleft = (gy > 0 && x > 0) ? up_row[x - 1] : 0;
-                const int32_t q = wrap_add(med_pred(left, up, upleft, x, gy),
-                                           tile[y * F3DZ_TILE + x]);
-                tile[y * F3DZ_TILE + x] = q;
-                left = q;
-            }
-            __syncthreads();
-        }
-        for (int i = y; i < kMedRows * F3DZ_TILE / 4; i += kMedRows) {
-            const int r = i / (F3DZ_TILE / 4), c = 4 * (i % (F3DZ_TILE / 4));
-            const int4 q = *reinterpret_cast<const int4*>(tile + r * F3DZ_TILE + c);
-            *reinterpret_cast<float4*>(ot + (size_t)(pass * kMedRows + r) * width + c) =
-                make_float4(f3dz_height(q.x, step), f3dz_height(q.y, step),
-                            f3dz_height(q.z, step), f3dz_height(q.w, step));
-        }
-        for (int c = y; c < F3DZ_TILE; c += kMedRows)
-            above[c] = tile[(kMedRows - 1) * F3DZ_TILE + c];
-        __syncthreads();
+__device__ __forceinline__ uint32_t med_smem_u32(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// the warp's 32 rows (from `rows`) of chunk `chunk` into its ring, a
+// 16-byte copy a piece; the caller commits the group
+__device__ __forceinline__ void med_fill(int32_t* ring, const int32_t* rows, int chunk,
+                                         int lane) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+        int row, col;
+        med_piece(lane, i, row, col);
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                         med_smem_u32(ring + med_slot(chunk, row, col))),
+                     "l"(rows + row * F3DZ_TILE + chunk * F3DZ_MED_CHUNK + col)
+                     : "memory");
     }
+}
+
+__device__ __forceinline__ void med_commit_wait() {   // commit a group, wait for all but it
+    asm volatile("cp.async.commit_group;\ncp.async.wait_group 1;\n" ::: "memory");
+}
+
+// chunk `chunk` of the warp's 32 rows of q, as heights, 16 bytes a piece
+__device__ __forceinline__ void med_drain(const int32_t* ring, int chunk, int lane, float* out,
+                                          int width, double step) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+        int row, col;
+        med_piece(lane, i, row, col);
+        const int4 q = *reinterpret_cast<const int4*>(ring + med_slot(chunk, row, col));
+        *reinterpret_cast<float4*>(out + (size_t)row * width + chunk * F3DZ_MED_CHUNK + col) =
+            make_float4(f3dz_height(q.x, step), f3dz_height(q.y, step),
+                        f3dz_height(q.z, step), f3dz_height(q.w, step));
+    }
+}
+
+// wait until the warp above has published `count` handoffs
+__device__ __forceinline__ void med_acquire(const uint32_t* published, uint32_t count) {
+    uint32_t v;
+    do {
+        asm volatile("ld.acquire.cta.shared::cta.u32 %0, [%1];\n" : "=r"(v)
+                     : "r"(med_smem_u32(published)) : "memory");
+    } while (v < count);
+}
+
+__device__ __forceinline__ void med_release(uint32_t* published, uint32_t count) {
+    asm volatile("st.release.cta.shared::cta.u32 [%0], %1;\n" ::"r"(med_smem_u32(published)),
+                 "r"(count) : "memory");
+}
+
+// Period c of warp w: its steps 32 c .. 32 c + 31, in groups of
+// F3DZ_MED_HAND (8): the group's wait for its handoff from the warp above,
+// whose 8 edge values every lane then reads in two 16-byte loads (lane 0
+// takes them), then its steps unrolled. kEdge: the first and the last
+// period, where some lanes are outside the tile's columns; elsewhere every
+// column is past 0 and the prediction is MED alone (codec.cuh: med_inner).
+// Lane 31 keeps its last 8 q in registers (`held`, the first of them, from
+// the group before) and stores them in two 16-byte stores when its column
+// ends a handoff, so no step branches on the lane.
+template <bool kEdge>
+__device__ __forceinline__ void med_period(int c, int w, int lane, int32_t* ring_row,
+                                           const int32_t* edge_above, int32_t* edge_out,
+                                           uint32_t* published, int32_t& q, int32_t& upleft,
+                                           int32_t& held) {
+    static_assert(F3DZ_MED_HAND == 8, "a handoff is two 16-byte edge loads and stores");
+    const int y = 32 * w + lane;
+    int col = med_ring_col(c, lane);
+#pragma unroll 1
+    for (int g = 0; g < F3DZ_MED_CHUNK / F3DZ_MED_HAND; ++g) {
+        const int k0 = F3DZ_MED_CHUNK * c + F3DZ_MED_HAND * g;
+#ifndef F3D_C1_NO_WAIT   // measurement build: the handoffs unawaited (wrong answers)
+        if (med_waits(w, k0)) med_acquire(published + w - 1, k0 / F3DZ_MED_HAND + 1);
+#endif
+        int4 ea = make_int4(0, 0, 0, 0), eb = ea;
+        if (w > 0) {
+            const int4* src = reinterpret_cast<const int4*>(edge_above + (k0 & (F3DZ_TILE - 1)));
+            ea = src[0];
+            eb = src[1];
+        }
+        const int32_t ev[F3DZ_MED_HAND] = {ea.x, ea.y, ea.z, ea.w, eb.x, eb.y, eb.z, eb.w};
+        int32_t out[F3DZ_MED_HAND];
+        out[0] = held;
+#pragma unroll
+        for (int j = 0; j < F3DZ_MED_HAND; ++j) {
+            const int k = k0 + j, x = k - lane;
+            const int32_t from = __shfl_up_sync(0xFFFFFFFFu, q, 1);
+            if (!kEdge || (unsigned)x < (unsigned)F3DZ_TILE)
+                med_lane_step<!kEdge>(q, upleft, from, ev[j], ring_row + col, lane, x, y);
+            col = med_next_col(col);
+            // lane 31's column k - 31 is column j + 1 of its handoff (mod 8)
+            if (j + 1 < F3DZ_MED_HAND) out[j + 1] = q;
+            else held = q;
+            const int x31 = k - 31;
+            if (j == F3DZ_MED_HAND - 2 && med_publishes(w, lane)
+                && (!kEdge || (unsigned)x31 < (unsigned)F3DZ_TILE)) {
+                int4* dst = reinterpret_cast<int4*>(edge_out + x31 - (F3DZ_MED_HAND - 1));
+                dst[0] = make_int4(out[0], out[1], out[2], out[3]);
+                dst[1] = make_int4(out[4], out[5], out[6], out[7]);
+                med_release(published + w, x31 / F3DZ_MED_HAND + 1);
+            }
+        }
+    }
+}
+
+__global__ void __launch_bounds__(kMedThreads, 2) med_kernel(const int32_t* __restrict__ d,
+                                                             int ntx, int width, double step,
+                                                             float* __restrict__ out) {
+    extern __shared__ __align__(16) int32_t med_smem[];
+    const int w = threadIdx.x >> 5, lane = threadIdx.x & 31, t = blockIdx.x;
+    int32_t* ring = med_smem + w * F3DZ_MED_RING_WORDS;
+    int32_t* edge = med_smem + F3DZ_MED_WARPS * F3DZ_MED_RING_WORDS;   // [warps - 1][256]
+    uint32_t* published = reinterpret_cast<uint32_t*>(edge + kMedEdgeWords);   // [warps]
+    if (threadIdx.x < F3DZ_MED_WARPS) published[threadIdx.x] = 0u;
+    __syncthreads();
+    const int32_t* rows = d + (size_t)t * F3DZ_TILE_PX + (size_t)(32 * w) * F3DZ_TILE;
+    float* orows = out + ((size_t)(t / ntx) * F3DZ_TILE + 32 * w) * width
+                   + (size_t)(t % ntx) * F3DZ_TILE;
+    const int32_t* edge_above = edge + (w > 0 ? w - 1 : 0) * F3DZ_TILE;
+    int32_t* edge_out = edge + (w < F3DZ_MED_WARPS - 1 ? w : 0) * F3DZ_TILE;
+    med_fill(ring, rows, 0, lane);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    med_fill(ring, rows, 1, lane);
+    int32_t q = 0, upleft = 0, held = 0;
+    for (int c = 0; c <= F3DZ_MED_CHUNKS; ++c) {
+        if (c >= 2) {
+            __syncwarp();
+            med_drain(ring, c - 2, lane, orows, width, step);
+        }
+        if (c >= 1 && c + 1 < F3DZ_MED_CHUNKS) med_fill(ring, rows, c + 1, lane);
+        med_commit_wait();   // chunk c has landed
+        __syncwarp();
+        int32_t* ring_row = ring + lane * F3DZ_MED_RING_COLS;
+        if (c == 0 || c == F3DZ_MED_CHUNKS)
+            med_period<true>(c, w, lane, ring_row, edge_above, edge_out, published, q, upleft,
+                             held);
+        else
+            med_period<false>(c, w, lane, ring_row, edge_above, edge_out, published, q, upleft,
+                              held);
+    }
+    __syncwarp();
+    med_drain(ring, F3DZ_MED_CHUNKS - 1, lane, orows, width, step);
 }
 
 }  // namespace
@@ -260,9 +377,28 @@ int f3d_med_reconstruct(const int32_t* d, int n_tiles, int ntx, int width, doubl
                         float* out, void* cs) {
     if (n_tiles > 0) {
         cudaFuncSetAttribute(med_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMedSmem);
-        med_kernel<<<n_tiles, kMedRows, kMedSmem, (cudaStream_t)cs>>>(d, ntx, width, step, out);
+        med_kernel<<<n_tiles, kMedThreads, kMedSmem, (cudaStream_t)cs>>>(d, ntx, width, step,
+                                                                        out);
     }
     return (int)cudaGetLastError();
+}
+
+// C1 reconstruction's kernel: out as f3d_rans_attrs
+int f3d_med_attrs(int* out) {
+    cudaError_t e = cudaFuncSetAttribute(med_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         kMedSmem);
+    if (e != cudaSuccess) return (int)e;
+    cudaFuncAttributes at;
+    e = cudaFuncGetAttributes(&at, med_kernel);
+    if (e != cudaSuccess) return (int)e;
+    int resident = 0;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, med_kernel, kMedThreads,
+                                                      kMedSmem);
+    out[0] = at.numRegs;
+    out[1] = (int)at.localSizeBytes;
+    out[2] = resident;
+    out[3] = (int)(kMedSmem + at.sharedSizeBytes);
+    return (int)e;
 }
 
 }  // extern "C"

@@ -309,3 +309,81 @@ F3D_HD int32_t med_pred(int32_t left, int32_t up, int32_t upleft, int x, int y) 
 
 // The height of quantized value q: the C++ lane's (float)((double)q * step).
 F3D_HD float f3dz_height(int32_t q, double step) { return (float)((double)q * step); }
+
+// C1 reconstruction's wavefront (codec.cu:med_kernel), a block a tile and a
+// thread a row: lane j of warp w owns row y = 32 w + j and at the warp's
+// step k takes column x = k - j, so a warp sweeps its 32 rows in 256 + 31
+// steps. `left` is the lane's own last q, `up` lane j - 1's q of the step
+// before (a shuffle; for lane 0, the row above's q, which warp w - 1's lane
+// 31 publishes to an edge row F3DZ_MED_HAND columns at a time), `upleft`
+// the lane's own `up` of the step before. A warp stages its rows' residuals
+// F3DZ_MED_CHUNK columns at a time in a ring of F3DZ_MED_RING chunks a row,
+// q overwrites d there, and a chunk's heights are drained once the warp's
+// last lane has passed it.
+#define F3DZ_MED_WARPS (F3DZ_TILE / 32)                  // a warp 32 rows
+#define F3DZ_MED_CHUNK 32                                // columns a staged chunk
+#define F3DZ_MED_CHUNKS (F3DZ_TILE / F3DZ_MED_CHUNK)     // chunks a row
+#define F3DZ_MED_RING 3                                  // chunks a warp holds
+#define F3DZ_MED_RING_COLS (F3DZ_MED_RING * F3DZ_MED_CHUNK)   // a row's ring
+#define F3DZ_MED_RING_WORDS (32 * F3DZ_MED_RING_COLS)    // a warp's ring
+#define F3DZ_MED_HAND 8                                  // columns a handoff
+
+// q[y, x] from its neighbours and its residual
+F3D_HD int32_t med_step(int32_t left, int32_t up, int32_t upleft, int32_t d, int x, int y) {
+    return wrap_add(med_pred(left, up, upleft, x, y), d);
+}
+
+// MED(left, up, upleft) alone: med_pred wherever x > 0 and y > 0, and on
+// row 0 (x > 0) too where up = upleft = 0, as lane 0 of warp 0 has them:
+// MED(left, 0, 0) is left (left <= 0: the minimum, left; left > 0: 0 is at
+// most the minimum, so the maximum, left), med_pred's row-0 rule.
+F3D_HD int32_t med_inner(int32_t left, int32_t up, int32_t upleft) {
+    const int32_t mx = left > up ? left : up, mn = left > up ? up : left;
+    const int32_t sum = (int32_t)((uint32_t)left + (uint32_t)up - (uint32_t)upleft);
+    return upleft >= mx ? mn : (upleft <= mn ? mx : sum);
+}
+
+// One lane's step at column x of its row y: `from_above` is what the
+// shuffle brought from lane - 1, `edge` the published q above a lane 0
+// (0 above row 0); `slot` holds the residual and gets q. q is the lane's
+// last q on entry. kInner: x > 0, so med_inner is the prediction.
+template <bool kInner>
+F3D_HD void med_lane_step(int32_t& q, int32_t& upleft, int32_t from_above, int32_t edge,
+                          int32_t* slot, int lane, int x, int y) {
+    const int32_t up = lane ? from_above : edge;
+    q = kInner ? wrap_add(med_inner(q, up, upleft), *slot) : med_step(q, up, upleft, *slot, x, y);
+    *slot = q;
+    upleft = up;
+}
+
+// The word of (the warp's row `row`, column chunk * 32 + col) in its ring:
+// a row's F3DZ_MED_RING_COLS columns x mod F3DZ_MED_RING_COLS. No padding:
+// a row's stride is a multiple of 32 words, so at a step the lanes' columns
+// x = k - lane, 32 consecutive values, fall in 32 different banks.
+F3D_HD int med_slot(int chunk, int row, int col) {
+    return row * F3DZ_MED_RING_COLS + (chunk % F3DZ_MED_RING) * F3DZ_MED_CHUNK + col;
+}
+
+// The column of the lane's ring row at the start of period c (its column
+// x = 32 c - lane, mod the ring; x >= -31), and the next step's column, as
+// the kernel steps them.
+F3D_HD int med_ring_col(int c, int lane) {
+    return (F3DZ_MED_CHUNK * c - lane + F3DZ_MED_RING_COLS) % F3DZ_MED_RING_COLS;
+}
+F3D_HD int med_next_col(int col) { return col == F3DZ_MED_RING_COLS - 1 ? 0 : col + 1; }
+
+// The lane's i-th (0..7) 16-byte piece of a chunk, which it copies in and
+// drains out: the warp's row and the piece's first column in the chunk.
+// Eight lanes take a row's 128 bytes, so both ways are coalesced.
+F3D_HD void med_piece(int lane, int i, int& row, int& col) {
+    const int p = lane + 32 * i;
+    row = p >> 3;
+    col = 4 * (p & 7);
+}
+
+// Warp w waits, before its step k, for handoff k / F3DZ_MED_HAND of the row
+// above; its lane 31 publishes a handoff's columns after the last of them.
+F3D_HD bool med_waits(int w, int k) {
+    return w > 0 && k < F3DZ_TILE && k % F3DZ_MED_HAND == 0;
+}
+F3D_HD bool med_publishes(int w, int lane) { return w < F3DZ_MED_WARPS - 1 && lane == 31; }

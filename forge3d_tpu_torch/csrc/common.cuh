@@ -18,6 +18,7 @@
 
 #include <math.h>
 #include <stdint.h>
+#include <string.h>
 
 #ifdef __CUDACC__
 #define F3D_HD __host__ __device__ __forceinline__
@@ -269,29 +270,52 @@ struct Patch {
     float h00, h10, h01, h11, cxf, czf;
 };
 
-F3D_HD float patch_dev(const SceneArgs& s, const Patch& p, float rox, float roy,
-                       float roz, float rdx, float rdy, float rdz, float t) {
+// Whether spacing s is a power of two whose reciprocal is a normal float:
+// then 1 / s is exact, and x / s and x * (1 / s) round the same real number
+// once, so they give the same bits.
+F3D_HD bool pow2_spacing(float s) {
+    uint32_t b;
+    memcpy(&b, &s, sizeof(b));
+    const uint32_t e = b >> 23;   // the sign bit clear, the exponent 1 .. 253
+    return (b & 0x7FFFFFu) == 0u && e >= 1u && e <= 253u;
+}
+
+// World offsets to cell units, d / s: an IEEE division, or with kPow2 (both
+// spacings pow2_spacing) a multiply by the exact reciprocal, the same bits.
+template <bool kPow2>
+struct CellMap {
+    float sx, sz, rsx, rsz;
+    F3D_HD explicit CellMap(const SceneArgs& s)
+        : sx(s.sx), sz(s.sz), rsx(kPow2 ? 1.0f / s.sx : 0.0f), rsz(kPow2 ? 1.0f / s.sz : 0.0f) {}
+    F3D_HD float x(float d) const { return kPow2 ? d * rsx : d / sx; }
+    F3D_HD float z(float d) const { return kPow2 ? d * rsz : d / sz; }
+};
+
+template <bool kPow2>
+F3D_HD float patch_dev(const SceneArgs& s, const CellMap<kPow2>& cm, const Patch& p, float rox,
+                       float roy, float roz, float rdx, float rdy, float rdz, float t) {
     float px = rox + t * rdx;
     float pz = roz + t * rdz;
-    float u = clamp01((px - s.ox) / s.sx - p.cxf);
-    float v = clamp01((pz - s.oz) / s.sz - p.czf);
+    float u = clamp01(cm.x(px - s.ox) - p.cxf);
+    float v = clamp01(cm.z(pz - s.oz) - p.czf);
     return (roy + t * rdy) - bilinear_h(p.h00, p.h10, p.h01, p.h11, u, v);
 }
 
 // traversal.py:_leaf_intersect: the ray's height above the patch is
 // quadratic in t; fit it through t0, the midpoint and t1 and take the first
 // root in [0, 1] (Citardauq form), with a linear fallback.
-F3D_HD bool leaf_intersect(const SceneArgs& s, float rox, float roy, float roz,
-                           float rdx, float rdy, float rdz, int cx, int cz,
+template <bool kPow2>
+F3D_HD bool leaf_intersect(const SceneArgs& s, const CellMap<kPow2>& cm, float rox, float roy,
+                           float roz, float rdx, float rdy, float rdz, int cx, int cz,
                            float t0, float t1, float tmin, float tmax, float& t_out) {
     Patch p;
     cell_heights(s, cx, cz, p.h00, p.h10, p.h01, p.h11);
     p.cxf = (float)cx;
     p.czf = (float)cz;
     float tm = 0.5f * (t0 + t1);
-    float d0 = patch_dev(s, p, rox, roy, roz, rdx, rdy, rdz, t0);
-    float dm = patch_dev(s, p, rox, roy, roz, rdx, rdy, rdz, tm);
-    float d1 = patch_dev(s, p, rox, roy, roz, rdx, rdy, rdz, t1);
+    float d0 = patch_dev(s, cm, p, rox, roy, roz, rdx, rdy, rdz, t0);
+    float dm = patch_dev(s, cm, p, rox, roy, roz, rdx, rdy, rdz, tm);
+    float d1 = patch_dev(s, cm, p, rox, roy, roz, rdx, rdy, rdz, t1);
 
     float c = d0;
     float a = 2.0f * d1 + 2.0f * d0 - 4.0f * dm;
@@ -321,6 +345,46 @@ F3D_HD bool leaf_intersect(const SceneArgs& s, float rox, float roy, float roz,
     return (s_hit <= 1.0f) && (t_hit > tmin) && (t_hit < tmax);
 }
 
+// The pyramid's level table in registers. ops/pyramid.py:build_minmax_levels
+// pads level 0 to power-of-two dims (2^wlog, 2^hlog) and halves each to 1,
+// so level L is 2^max(wlog - L, 0) texels wide and 2^max(hlog - L, 0) high,
+// flattened finest first. A node's row is then a shift, and the offset of
+// the DDA's level moves by one level's texel count when it descends or
+// coarsens: the step addresses mm_pack from registers, with no load of the
+// level table on its chain. ops/traversal.py:check_level_layout holds a
+// scene's tables to this layout.
+F3D_HD int pow2_log(int x) {   // log2 of the power of two >= x (1 for x <= 1)
+#ifdef __CUDA_ARCH__
+    return x <= 1 ? 0 : 32 - __clz(x - 1);
+#else
+    return x <= 1 ? 0 : 32 - __builtin_clz((unsigned)(x - 1));
+#endif
+}
+
+struct LevelCursor {
+    int wlog, hlog;   // level 0's padded width and height, log2
+    int off;          // the flat index of the current level's texel (0, 0)
+
+    // at the top level, top = max(wlog, hlog): the texels of the levels
+    // below it, sum over L < top of 2^(max(wlog - L, 0) + max(hlog - L, 0)),
+    // in closed form: with a >= b the two logs, (4^(b+1) - 4) / 3 * 2^(a-b)
+    // over the levels where both halve and 2^(a-b+1) - 2 over the rest
+    F3D_HD LevelCursor(int cell_w, int cell_h) : wlog(pow2_log(cell_w)), hlog(pow2_log(cell_h)) {
+        const int a = imax(wlog, hlog), b = imin(wlog, hlog);
+        const uint32_t fours = b > 0 ? 0x55555555u >> (32 - 2 * b) : 0u;   // (4^b - 1) / 3
+        off = (int)(((fours << 2) << (a - b)) + (2u << (a - b)) - 2u);
+    }
+    F3D_HD int texels_log(int level) const {
+        return imax(wlog - level, 0) + imax(hlog - level, 0);
+    }
+    // node (nx, nz) of `level`: level_offset[level] + nz * level_w[level] + nx
+    F3D_HD int node(int level, int nx, int nz) const {
+        return off + (nz << imax(wlog - level, 0)) + nx;
+    }
+    F3D_HD void down(int level) { off -= 1 << texels_log(level - 1); }   // to level - 1
+    F3D_HD void up(int level) { off += 1 << texels_log(level); }         // to level + 1
+};
+
 // traversal.py:trace for one ray: a stackless front-to-back max-mip DDA.
 // Each step probes the node containing t + eps, tests the ray's height
 // span over the node against the node's [min, max] band, then descends one
@@ -328,9 +392,17 @@ F3D_HD bool leaf_intersect(const SceneArgs& s, float rox, float roy, float roz,
 // leaf), or advances past the node and coarsens one level. The JAX version
 // steps all rays in lock step under one global `max_iters` cap and freezes
 // rays that are done; a per-thread loop with the same cap gives the same
-// per-ray result.
-F3D_HD Hit trace_ray(const SceneArgs& s, float rox, float roy, float roz,
-                     float rdx, float rdy, float rdz, float tmin, float tmax) {
+// per-ray result. K5's instantiations: kLevelRegs, the node's flat index
+// from a LevelCursor instead of the level table in device memory, and
+// kPow2, the cell coordinates by multiplies where both spacings are
+// pow2_spacing (CellMap). The other kernels take neither: with the cursor
+// in trace_ray, K6 spilled 72 B a thread against 56 and ran 4% slower, K6
+// hybrid rose from 97 to 104 registers and 2% slower, P3 5% and R1 render
+// 2% slower (PERF.md §6). Each gives the same index and the same bits, so
+// the same visits and the same result.
+template <bool kLevelRegs, bool kPow2>
+F3D_HD Hit trace_ray_t(const SceneArgs& s, float rox, float roy, float roz,
+                       float rdx, float rdy, float rdz, float tmin, float tmax) {
     Hit h;
     h.hit = 0;
     h.t = tmax;
@@ -348,12 +420,14 @@ F3D_HD Hit trace_ray(const SceneArgs& s, float rox, float roy, float roz,
     const float eps_t = F3D_EPS_CELL / fmaxf(lat, 1e-8f);
     if (t > t_exit) return h;
     int level = top;
+    LevelCursor lc(kLevelRegs ? cw : 1, kLevelRegs ? ch : 1);
+    const CellMap<kPow2> cm(s);
     for (int it = 0; it < s.max_iters; ++it) {
         float pt = t + eps_t;
         float px = rox + pt * rdx;
         float pz = roz + pt * rdz;
-        int cx = (int)fminf(fmaxf(floorf((px - s.ox) / s.sx), 0.0f), (float)(cw - 1));
-        int cz = (int)fminf(fmaxf(floorf((pz - s.oz) / s.sz), 0.0f), (float)(ch - 1));
+        int cx = (int)fminf(fmaxf(floorf(cm.x(px - s.ox)), 0.0f), (float)(cw - 1));
+        int cz = (int)fminf(fmaxf(floorf(cm.z(pz - s.oz)), 0.0f), (float)(ch - 1));
         int nx = cx >> level;
         int nz = cz >> level;
         // node bounds, clamped to the logical domain at ragged edges
@@ -367,7 +441,8 @@ F3D_HD Hit trace_ray(const SceneArgs& s, float rox, float roy, float roz,
         nt0 = fmaxf(nt0, fmaxf(t, tmin));
         nt1 = fminf(nt1, t_exit);
 
-        int flat = s.level_offset[level] + nz * s.level_w[level] + nx;
+        int flat = kLevelRegs ? lc.node(level, nx, nz)
+                              : s.level_offset[level] + nz * s.level_w[level] + nx;
         float mn, mx;
         ld2(s.mm_pack, flat, mn, mx);
         float bmin = mn * s.ex;
@@ -377,12 +452,13 @@ F3D_HD Hit trace_ray(const SceneArgs& s, float rox, float roy, float roz,
         bool band = (nt0 <= nt1) && !(fminf(ya, yb) > bmax) && !(fmaxf(ya, yb) < bmin);
 
         if (band && level > 0) {  // descend
+            if (kLevelRegs) lc.down(level);
             level -= 1;
             continue;
         }
         if (band) {  // banded leaf
             float th;
-            if (leaf_intersect(s, rox, roy, roz, rdx, rdy, rdz, cx, cz, nt0, nt1,
+            if (leaf_intersect(s, cm, rox, roy, roz, rdx, rdy, rdz, cx, cz, nt0, nt1,
                                tmin, tmax, th)) {
                 h.hit = 1;
                 h.t = th;
@@ -393,11 +469,17 @@ F3D_HD Hit trace_ray(const SceneArgs& s, float rox, float roy, float roz,
         }
         // advance past the node, at least eps_t, and coarsen
         float new_t = fmaxf(nt1, t + eps_t);
+        if (kLevelRegs && level < top) lc.up(level);
         level = imin(level + 1, top);
         t = new_t;
         if (new_t >= t_exit) return h;
     }
     return h;
+}
+
+F3D_HD Hit trace_ray(const SceneArgs& s, float rox, float roy, float roz,
+                     float rdx, float rdy, float rdz, float tmin, float tmax) {
+    return trace_ray_t<false, false>(s, rox, roy, roz, rdx, rdy, rdz, tmin, tmax);
 }
 
 // traversal.py:normal_at: analytic bilinear gradient at (px, pz) in a cell.

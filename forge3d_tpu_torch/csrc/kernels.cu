@@ -35,9 +35,12 @@
 // loops on its own, so a finished ray costs nothing and no global
 // iteration count is needed. The pyramid and DEM pairs (~20 MB at a 1025^2
 // DEM) fit in the 50 MB L2 cache and are read through the read-only path
-// as one 8-byte load per pair. K5 and K8 give consecutive threads
-// consecutive pixels of a row; K6 gives a warp an 8x4 tile of pixels and
-// holds its terrain-only instantiation to 4 blocks an SM (frame_kernel).
+// as one 8-byte load per pair. K5 gives a warp an 8x4 tile of an image's
+// rays (a flat set in order), forms the level table's index in registers
+// and, where the spacings are powers of two, the cells by exact multiplies
+// (trace_kernel); K8 gives consecutive threads consecutive pixels of a row;
+// K6 gives a warp an 8x4 tile of pixels and holds its terrain-only
+// instantiation to 4 blocks an SM (frame_kernel).
 // K7 is bound by its gather: a pixel's 9 candidates lie at random offsets
 // in a 7x7 window of a frame (83 MB at 1080p) that L2 does not hold; its
 // blocks stage their tile's window in shared memory once (spatial_kernel).
@@ -56,16 +59,34 @@ constexpr int kThreads = 256;
 
 inline int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
 
-// K5: one thread per ray.
+// K5: a thread a ray. Rays given as an image of rows of `width` (the
+// center rays, Scene's primary and AO rays) go to the threads in K6's
+// tiles: a block 16x16 rays, a warp 8x4 (tile_pixel), so that a warp's rays
+// leave side by side in x and y, walk the same nodes and take more nearly
+// the same number of steps; a flat set (width 0: shadow probes, hit points
+// gathered from an image) keeps the linear order. The DDA addresses the
+// pyramid from a LevelCursor, so no load of the level table sits on a
+// step's chain before its node load; kPow2 (the launcher's choice, from the
+// scene's spacings) maps offsets to cells by exact multiplies instead of
+// IEEE divisions (CellMap).
+template <bool kPow2>
 __global__ void trace_kernel(SceneArgs s, const float* __restrict__ rox,
                              const float* __restrict__ roy, const float* __restrict__ roz,
                              const float* __restrict__ rdx, const float* __restrict__ rdy,
-                             const float* __restrict__ rdz, int n, float tmin, float tmax,
-                             unsigned char* __restrict__ hit, float* __restrict__ t,
+                             const float* __restrict__ rdz, int n, int width, float tmin,
+                             float tmax, unsigned char* __restrict__ hit, float* __restrict__ t,
                              int* __restrict__ cell_x, int* __restrict__ cell_z) {
-    int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
-    Hit h = trace_ray(s, rox[i], roy[i], roz[i], rdx[i], rdy[i], rdz[i], tmin, tmax);
+    int i;
+    if (width > 0) {
+        const TilePixel p = tile_pixel(width, n / width, blockIdx.x, threadIdx.x);
+        if (!p.inside) return;
+        i = p.y * width + p.x;
+    } else {
+        i = blockIdx.x * blockDim.x + threadIdx.x;
+        if (i >= n) return;
+    }
+    Hit h = trace_ray_t<true, kPow2>(s, rox[i], roy[i], roz[i], rdx[i], rdy[i], rdz[i], tmin,
+                                     tmax);
     hit[i] = (unsigned char)h.hit;
     t[i] = h.t;
     cell_x[i] = h.cell_x;
@@ -220,14 +241,25 @@ extern "C" {
 const char* f3d_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
 int f3d_trace(const SceneArgs* s, const float* rox, const float* roy, const float* roz,
-              const float* rdx, const float* rdy, const float* rdz, int n, float tmin,
-              float tmax, unsigned char* hit, float* t, int* cell_x, int* cell_z,
+              const float* rdx, const float* rdy, const float* rdz, int n, int width,
+              float tmin, float tmax, unsigned char* hit, float* t, int* cell_x, int* cell_z,
               void* stream) {
     if (n > 0) {
-        trace_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-            *s, rox, roy, roz, rdx, rdy, rdz, n, tmin, tmax, hit, t, cell_x, cell_z);
+        const int grid = width > 0 ? tile_blocks(width, n / width) : blocks_for(n);
+        auto* kernel = pow2_spacing(s->sx) && pow2_spacing(s->sz) ? trace_kernel<true>
+                                                                   : trace_kernel<false>;
+        kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+            *s, rox, roy, roz, rdx, rdy, rdz, n, width, tmin, tmax, hit, t, cell_x, cell_z);
     }
     return (int)cudaGetLastError();
+}
+
+// K5's instantiation for power-of-two spacings (pow2 1) or the other (0):
+// out = {registers a thread, local bytes a thread, resident blocks of
+// kThreads an SM}
+int f3d_trace_attrs(int pow2, int* out) {
+    const void* fn = pow2 ? (const void*)trace_kernel<true> : (const void*)trace_kernel<false>;
+    return f3d_kernel_attrs(fn, kThreads, out);
 }
 
 int f3d_frame_step(const SceneArgs* s, const FrameArgs* f, const MeshArgs* m,

@@ -80,6 +80,28 @@ class TerrainScene:
         )
 
 
+def level_layout(cell_w: int, cell_h: int):
+    """The pyramid's level table as K5 forms it in registers
+    (csrc/common.cuh:LevelCursor): level 0 padded to 2^wlog x 2^hlog cells,
+    level L 2^max(wlog - L, 0) texels wide and 2^max(hlog - L, 0) high, the
+    levels flattened finest first. Returns (offsets, widths), one a level."""
+    wlog, hlog = (max(int(c) - 1, 0).bit_length() for c in (cell_w, cell_h))
+    offsets, widths, acc = [], [], 0
+    for lv in range(max(wlog, hlog) + 1):
+        offsets.append(acc)
+        widths.append(1 << max(wlog - lv, 0))
+        acc += widths[-1] << max(hlog - lv, 0)
+    return offsets, widths
+
+
+def check_level_layout(level_offset, level_w, cell_w: int, cell_h: int) -> None:
+    """Raise unless a scene's level table is level_layout's."""
+    got = (np.asarray(level_offset).tolist(), np.asarray(level_w).tolist())
+    if got != level_layout(cell_w, cell_h):
+        raise ValueError("the pyramid's level table is not build_pyramid's layout, which K5 "
+                         "forms in registers")
+
+
 def scene_from_pyramid(pyr: MinMaxPyramid, origin_xz=(0.0, 0.0),
                        spacing_xz=(1.0, 1.0), exaggeration: float = 1.0,
                        max_iters: int | None = None, device="cuda") -> TerrainScene:
@@ -88,6 +110,7 @@ def scene_from_pyramid(pyr: MinMaxPyramid, origin_xz=(0.0, 0.0),
 
     device = resolve_device(device)
     h, w = pyr.heights.shape
+    check_level_layout(pyr.level_offset, pyr.level_w, pyr.cell_w, pyr.cell_h)
     if max_iters is None:
         # A ray crossing the whole grid visits O(perimeter) leaf cells, each
         # costing an advance plus bounded level moves; 4x is generous slack.
@@ -308,6 +331,13 @@ trace_plain.steps = 0
 trace_plain.leaf_tests = 0
 
 
+def ray_image_width(shape) -> int:
+    """K5's layout for rays of `shape`: an image of at least one warp's 8x4
+    tile, (rows, width), is traced in 8x4 warp tiles and gives its width;
+    any other shape is a flat set, traced in order (0)."""
+    return int(shape[1]) if len(shape) == 2 and shape[0] >= 4 and shape[1] >= 8 else 0
+
+
 def _trace_kernel(scene: TerrainScene, ro, rd, tmin, tmax) -> HitResult:
     shape, comps = _as_rays(ro, rd)
     comps = [c.contiguous() for c in comps]
@@ -320,7 +350,7 @@ def _trace_kernel(scene: TerrainScene, ro, rd, tmin, tmax) -> HitResult:
     cell_z = torch.empty(n, dtype=_I32, device=dev)
     args = scene.kernel_args()
     err = _kernels.lib().f3d_trace(
-        args, *(_kernels.ptr(c) for c in comps), n, f32(tmin), f32(tmax),
+        args, *(_kernels.ptr(c) for c in comps), n, ray_image_width(shape), f32(tmin), f32(tmax),
         _kernels.ptr(hit), _kernels.ptr(t), _kernels.ptr(cell_x), _kernels.ptr(cell_z),
         _kernels.stream_ptr(dev))
     _kernels.check(err, "K5 trace")

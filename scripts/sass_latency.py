@@ -11,8 +11,10 @@ prints one line a kind: a shared-memory load of 32 and of 64 bits (a
 pointer chase), a global load that hits L1 and one that hits L2 (a
 pointer chase, with and without its address arithmetic), the integer
 multiply-add, a logic operation and an add as a pair, a mask and a
-multiply-add as a pair, the funnel shift, and a compare feeding a select;
-then the opcode counts of the compiled chains.
+multiply-add as a pair, the funnel shift, a compare feeding a select, the
+warp shuffle and a minimum and maximum as a pair (the last two are on C1
+reconstruction's chain, csrc/codec.cu: med_kernel); then the opcode counts
+of the compiled chains.
 """
 
 from __future__ import annotations
@@ -59,8 +61,12 @@ extern "C" __global__ void lat_kernel(long long* out, uint32_t* sink, const uint
         s64[i] = make_uint2((uint32_t)__cvta_generic_to_shared(&s64[j]), (uint32_t)i);
     }
     __syncthreads();
-    if (threadIdx.x != 0) return;
     uint32_t v;
+    // the warp shuffle up by one lane (every lane of the warp takes part)
+    v = a + threadIdx.x;
+    CHAIN(out[10], asm volatile("shfl.sync.up.b32 %%0, %%0, 1, 0, 0xffffffff;" : "+r"(v)));
+    if (threadIdx.x != 0) return;
+    sink[10] = v;
     // shared 32-bit load, the address the last load's value
     v = (uint32_t)__cvta_generic_to_shared(&s32[0]);
     CHAIN(out[0], asm volatile("ld.shared.u32 %%0, [%%0];" : "+r"(v)));
@@ -100,6 +106,11 @@ extern "C" __global__ void lat_kernel(long long* out, uint32_t* sink, const uint
     CHAIN(out[9], asm volatile("{ .reg .pred p; setp.ge.u32 p, %%0, %%1; selp.b32 %%0, %%2, %%3, p; }"
                                : "+r"(v) : "r"(b), "r"(a), "r"(b ^ 0x55u)));
     sink[9] = v;
+    // a signed minimum then a maximum (IMNMX twice)
+    v = a;
+    CHAIN(out[11], asm volatile("{ min.s32 %%0, %%0, %%1; max.s32 %%0, %%0, %%2; }"
+                                : "+r"(v) : "r"(b), "r"(sh)));
+    sink[11] = v;
 }
 
 extern "C" int lat_run(long long* out, uint32_t* sink, const uint32_t* gchase, uint32_t a,
@@ -116,7 +127,8 @@ KINDS = ("LDS.32 (shared load, pointer chase)", "LDS.64 (shared 64-bit load)",
          "LDG, L2 hit (with its IMAD.WIDE + IADD address)",
          "the global chase's address (IMAD.WIDE + IADD) alone", "IMAD (mad.lo.u32)",
          "LOP3 then IADD3 (a pair)", "LOP3 (and) then IMAD (a pair)", "SHF.L.W (funnel shift)",
-         "ISETP + SEL (compare into a select)")
+         "ISETP + SEL (compare into a select)", "SHFL.UP (warp shuffle, every lane)",
+         "IMNMX then IMNMX (a min and a max, a pair)")
 
 
 def main() -> int:

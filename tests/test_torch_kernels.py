@@ -58,9 +58,76 @@ HOST_LAUNCHERS = r"""
 #include <algorithm>
 #include <vector>
 extern "C" {
+// K5 as kernels.cu launches it: an image of rows of `width` rays in the
+// blocks' 16x16 tiles and their threads' order (tile_pixel), a flat set in
+// order; the instantiation by the spacings; each ray traced once (the
+// counts `visits`, when given, show it)
+extern "C++" template <bool kPow2>
+void trace_launch(const SceneArgs& s, const float* rox, const float* roy, const float* roz,
+                  const float* rdx, const float* rdy, const float* rdz, int n, int width,
+                  float tmin, float tmax, unsigned char* hit, float* t, int* cell_x,
+                  int* cell_z, int* visits) {
+    const int blocks = width > 0 ? tile_blocks(width, n / width) : (n + 255) / 256;
+    for (int b = 0; b < blocks; ++b)
+        for (int th = 0; th < 256; ++th) {
+            int i = b * 256 + th;
+            if (width > 0) {
+                const TilePixel p = tile_pixel(width, n / width, b, th);
+                if (!p.inside) continue;
+                i = p.y * width + p.x;
+            } else if (i >= n) {
+                continue;
+            }
+            Hit h = trace_ray_t<true, kPow2>(s, rox[i], roy[i], roz[i], rdx[i], rdy[i], rdz[i],
+                                             tmin, tmax);
+            hit[i] = (unsigned char)h.hit; t[i] = h.t; cell_x[i] = h.cell_x; cell_z[i] = h.cell_z;
+            if (visits) ++visits[i];
+        }
+}
 int f3d_trace(const SceneArgs* s, const float* rox, const float* roy, const float* roz,
-              const float* rdx, const float* rdy, const float* rdz, int n, float tmin,
-              float tmax, unsigned char* hit, float* t, int* cell_x, int* cell_z, void*) {
+              const float* rdx, const float* rdy, const float* rdz, int n, int width,
+              float tmin, float tmax, unsigned char* hit, float* t, int* cell_x, int* cell_z,
+              void*) {
+    if (pow2_spacing(s->sx) && pow2_spacing(s->sz))
+        trace_launch<true>(*s, rox, roy, roz, rdx, rdy, rdz, n, width, tmin, tmax, hit, t,
+                           cell_x, cell_z, nullptr);
+    else
+        trace_launch<false>(*s, rox, roy, roz, rdx, rdy, rdz, n, width, tmin, tmax, hit, t,
+                            cell_x, cell_z, nullptr);
+    return 0;
+}
+// test entry: each ray's count of traces under K5's layout for n rays of
+// rows of `width` (0: flat)
+void f3d_test_trace_visits(const SceneArgs* s, const float* rox, const float* roy,
+                           const float* roz, const float* rdx, const float* rdy,
+                           const float* rdz, int n, int width, unsigned char* hit, float* t,
+                           int* cell_x, int* cell_z, int* visits) {
+    trace_launch<false>(*s, rox, roy, roz, rdx, rdy, rdz, n, width, 1e-3f, 1e30f, hit, t,
+                        cell_x, cell_z, visits);
+}
+// test entry: K5's register level cursor walked from the top level to 0
+// and back, the node index of (nx, nz) at each visit: levels[v], index[v]
+int f3d_test_level_cursor(int cell_w, int cell_h, int nx, int nz, int* levels, int* index) {
+    LevelCursor lc(cell_w, cell_h);
+    const int top = imax(lc.wlog, lc.hlog);
+    int v = 0, level = top;
+    for (; level > 0; --level) {
+        levels[v] = level; index[v++] = lc.node(level, nx >> level, nz >> level);
+        lc.down(level);
+    }
+    for (; level < top; ++level) {
+        levels[v] = level; index[v++] = lc.node(level, nx >> level, nz >> level);
+        lc.up(level);
+    }
+    levels[v] = level; index[v++] = lc.node(level, nx >> level, nz >> level);
+    return v;
+}
+// test entry: K5's body with the level table read from device memory and
+// the cell divisions (the parent design's body), one ray at a time
+int f3d_test_trace_table(const SceneArgs* s, const float* rox, const float* roy,
+                         const float* roz, const float* rdx, const float* rdy, const float* rdz,
+                         int n, float tmin, float tmax, unsigned char* hit, float* t,
+                         int* cell_x, int* cell_z) {
     for (int i = 0; i < n; ++i) {
         Hit h = trace_ray(*s, rox[i], roy[i], roz[i], rdx[i], rdy[i], rdz[i], tmin, tmax);
         hit[i] = (unsigned char)h.hit; t[i] = h.t; cell_x[i] = h.cell_x; cell_z[i] = h.cell_z;
@@ -84,6 +151,10 @@ int f3d_frame_step(const SceneArgs* s, const FrameArgs* f, const MeshArgs* m,
 }
 int f3d_frame_kernel_attrs(int, int* out) {
     out[0] = out[1] = out[2] = 0;   // no device function on the host
+    return 0;
+}
+int f3d_trace_attrs(int, int* out) {
+    out[0] = out[1] = out[2] = 0;
     return 0;
 }
 int f3d_mesh_kernel_attrs(int, int* out) {
@@ -1389,14 +1460,164 @@ int f3d_rans_attrs(int* out) {
     out[0] = out[1] = out[2] = out[3] = 0;   // no device function on the host
     return 0;
 }
+int f3d_med_attrs(int* out) {
+    out[0] = out[1] = out[2] = out[3] = 0;
+    return 0;
+}
 // test entry: C1 entropy with each iteration's chain chunk run first
 void f3d_test_rans_chain_first(const uint8_t* stream, const uint32_t* lens, int cap,
                                const uint32_t* freq, const uint32_t* extras, int ecap,
                                int n_tiles, int32_t* d) {
     rans_decode_host(stream, lens, cap, freq, extras, ecap, n_tiles, d, true);
 }
+// C1 reconstruction as codec.cu:med_kernel runs a tile: its eight warps as
+// state machines, interleaved by `order` % 3 (0: a step of each runnable
+// warp in turn; 1: the lowest runnable warp first, so each runs as far as
+// it can; 2: the highest first, so each warp takes a handoff as soon as it
+// is published), a warp blocked at a handoff its upper neighbour has not
+// published; a step's lanes in order, each with the shuffle's value from
+// the step before; a chunk's copies landing only at the wait that covers
+// them (order < 3) or as soon as they are issued (order >= 3), the two
+// ends of what cp.async allows; the rings and the edge rows filled with a
+// poison first
+extern "C++" {
+struct MedTwinWarp {
+    int c = 0, s = -1;                      // the period and its step (-1: its set-up next)
+    int32_t q[32] = {}, upleft[32] = {};
+    int32_t out[F3DZ_MED_HAND] = {}, held = 0;   // lane 31's q held for its next handoff
+    int32_t ev[F3DZ_MED_HAND] = {};              // the group's edge values from above
+    std::vector<std::vector<int>> groups;   // committed copy groups not yet landed: chunks
+    std::vector<int> open;                  // the copies issued since the last commit
+};
+
+static void med_tile_twin(const int32_t* dt, float* ot, int width, double step, int order) {
+    const bool early = order >= 3;
+    order %= 3;
+    const int32_t poison = 0x5A5A5A5A;
+    std::vector<int32_t> ring(F3DZ_MED_WARPS * F3DZ_MED_RING_WORDS, poison);
+    std::vector<int32_t> edge((F3DZ_MED_WARPS - 1) * F3DZ_TILE, poison);
+    std::vector<uint32_t> published(F3DZ_MED_WARPS, 0u);   // handoffs a warp has released
+    MedTwinWarp warps[F3DZ_MED_WARPS];
+    auto land = [&](int w, int chunk) {    // cp.async of the warp's pieces of `chunk`
+        for (int lane = 0; lane < 32; ++lane)
+            for (int i = 0; i < 8; ++i) {
+                int row, col;
+                med_piece(lane, i, row, col);
+                for (int j = 0; j < 4; ++j)
+                    ring[w * F3DZ_MED_RING_WORDS + med_slot(chunk, row, col) + j] =
+                        dt[(32 * w + row) * F3DZ_TILE + chunk * F3DZ_MED_CHUNK + col + j];
+            }
+    };
+    auto commit_wait = [&](MedTwinWarp& W, int w) {   // commit, then land all but the newest
+        W.groups.push_back(W.open);
+        W.open.clear();
+        while (W.groups.size() > 1) {
+            for (int chunk : W.groups.front()) land(w, chunk);
+            W.groups.erase(W.groups.begin());
+        }
+    };
+    auto drain = [&](int w, int chunk) {
+        for (int lane = 0; lane < 32; ++lane)
+            for (int i = 0; i < 8; ++i) {
+                int row, col;
+                med_piece(lane, i, row, col);
+                for (int j = 0; j < 4; ++j)
+                    ot[(size_t)(32 * w + row) * width + chunk * F3DZ_MED_CHUNK + col + j] =
+                        f3dz_height(ring[w * F3DZ_MED_RING_WORDS + med_slot(chunk, row, col) + j],
+                                    step);
+            }
+    };
+    // one unit of warp w's work: a period's set-up or a step; false if it is
+    // done or blocked at a handoff
+    auto advance = [&](int w) {
+        MedTwinWarp& W = warps[w];
+        if (W.c > F3DZ_MED_CHUNKS) return false;
+        if (W.s < 0) {
+            auto fill = [&](int chunk) {
+                if (early) land(w, chunk);
+                else W.open.push_back(chunk);
+            };
+            if (W.c == 0) {
+                fill(0);
+                W.groups.push_back(W.open);
+                W.open.clear();
+                fill(1);
+            }
+            if (W.c >= 2) drain(w, W.c - 2);
+            if (W.c >= 1 && W.c + 1 < F3DZ_MED_CHUNKS) fill(W.c + 1);
+            commit_wait(W, w);
+            W.s = 0;
+            return true;
+        }
+        const int k = F3DZ_MED_CHUNK * W.c + W.s;
+        if (med_waits(w, k) && published[w - 1] < (uint32_t)(k / F3DZ_MED_HAND + 1)) return false;
+        if (W.s % F3DZ_MED_HAND == 0)   // the group's edge values, read once its wait passed
+            for (int i = 0; i < F3DZ_MED_HAND; ++i)
+                W.ev[i] = w > 0 ? edge[(w - 1) * F3DZ_TILE + ((k + i) & (F3DZ_TILE - 1))] : 0;
+        const int32_t e = W.ev[W.s % F3DZ_MED_HAND];
+        int32_t prev[32];
+        memcpy(prev, W.q, sizeof(prev));
+        for (int lane = 0; lane < 32; ++lane) {
+            const int x = k - lane;
+            if (x < 0 || x >= F3DZ_TILE) continue;
+            int32_t* slot = &ring[w * F3DZ_MED_RING_WORDS
+                                  + med_slot(x / F3DZ_MED_CHUNK, lane, x % F3DZ_MED_CHUNK)];
+            const int32_t from = lane ? prev[lane - 1] : W.q[0];
+            if (W.c == 0 || W.c == F3DZ_MED_CHUNKS)   // the edge periods: med_pred whole
+                med_lane_step<false>(W.q[lane], W.upleft[lane], from, e, slot, lane, x,
+                                     32 * w + lane);
+            else
+                med_lane_step<true>(W.q[lane], W.upleft[lane], from, e, slot, lane, x,
+                                    32 * w + lane);
+        }
+        // lane 31's q held as the kernel holds it, stored when a handoff ends
+        const int j = W.s % F3DZ_MED_HAND, x31 = k - 31;
+        if (j == 0) W.out[0] = W.held;
+        if (j + 1 < F3DZ_MED_HAND) W.out[j + 1] = W.q[31];
+        else W.held = W.q[31];
+        if (j == F3DZ_MED_HAND - 2 && w < F3DZ_MED_WARPS - 1 && x31 >= 0 && x31 < F3DZ_TILE) {
+            for (int i = 0; i < F3DZ_MED_HAND; ++i)
+                edge[w * F3DZ_TILE + x31 - (F3DZ_MED_HAND - 1) + i] = W.out[i];
+            published[w] = (uint32_t)(x31 / F3DZ_MED_HAND + 1);
+        }
+        if (++W.s == F3DZ_MED_CHUNK) {
+            W.s = -1;
+            if (++W.c > F3DZ_MED_CHUNKS) drain(w, F3DZ_MED_CHUNKS - 1);
+        }
+        return true;
+    };
+    for (bool moved = true; moved;) {
+        moved = false;
+        if (order == 0) {
+            for (int w = 0; w < F3DZ_MED_WARPS; ++w) moved |= advance(w);
+        } else {
+            for (int i = 0; i < F3DZ_MED_WARPS && !moved; ++i)
+                moved = advance(order == 1 ? i : F3DZ_MED_WARPS - 1 - i);
+        }
+    }
+}
+}
 int f3d_med_reconstruct(const int32_t* d, int n_tiles, int ntx, int width, double step,
                         float* out, void*) {
+    for (int t = 0; t < n_tiles; ++t)
+        med_tile_twin(d + (size_t)t * F3DZ_TILE_PX,
+                      out + (size_t)(t / ntx) * F3DZ_TILE * width + (t % ntx) * F3DZ_TILE, width,
+                      step, 0);
+    return 0;
+}
+// test entry: C1 reconstruction's twin with the warps interleaved, and the
+// copies landing, by `order`
+void f3d_test_med_order(const int32_t* d, int n_tiles, int ntx, int width, double step,
+                        float* out, int order) {
+    for (int t = 0; t < n_tiles; ++t)
+        med_tile_twin(d + (size_t)t * F3DZ_TILE_PX,
+                      out + (size_t)(t / ntx) * F3DZ_TILE * width + (t % ntx) * F3DZ_TILE, width,
+                      step, order);
+}
+// test entry: the parent design's order, one tile's rows serially (the
+// serial twin of the recurrence)
+void f3d_test_med_serial(const int32_t* d, int n_tiles, int ntx, int width, double step,
+                         float* out) {
     std::vector<int32_t> q(F3DZ_TILE_PX);
     for (int t = 0; t < n_tiles; ++t) {
         const int32_t* dt = d + (size_t)t * F3DZ_TILE_PX;
@@ -1410,7 +1631,28 @@ int f3d_med_reconstruct(const int32_t* d, int n_tiles, int ntx, int width, doubl
                     f3dz_height(q[y * F3DZ_TILE + x], step);
             }
     }
-    return 0;
+}
+// test entry: the kernel's ring column, stepped from med_ring_col through
+// a period, against med_slot of the lane's column, and its handoffs (lane
+// 31's column ending one at step j of a group) against the handoffs'
+// ends; the count of (c, s, lane) where they differ
+int f3d_test_med_period_slots() {
+    int bad = 0;
+    for (int c = 0; c <= F3DZ_MED_CHUNKS; ++c)
+        for (int lane = 0; lane < 32; ++lane) {
+            int col = med_ring_col(c, lane);
+            for (int s = 0; s < F3DZ_MED_CHUNK; ++s) {
+                const int x = F3DZ_MED_CHUNK * c + s - lane, x31 = x + lane - 31;
+                if (x >= 0 && x < F3DZ_TILE)
+                    bad += lane * F3DZ_MED_RING_COLS + col
+                           != med_slot(x / F3DZ_MED_CHUNK, lane, x % F3DZ_MED_CHUNK);
+                if (x31 >= 0 && x31 < F3DZ_TILE)
+                    bad += (s % F3DZ_MED_HAND == (F3DZ_MED_HAND + 30) % F3DZ_MED_HAND)
+                           != (x31 % F3DZ_MED_HAND == F3DZ_MED_HAND - 1);
+                col = med_next_col(col);
+            }
+        }
+    return bad;
 }
 // test entry: R1 step as one serial loop over the pixels, then each
 // metric tile's mean in the fixed order
@@ -4742,3 +4984,212 @@ def test_rans_chain_first_order(host_lib, name):
        ctypes.c_int(extras.shape[1]), ctypes.c_int(stream.shape[0]),
        ctypes.c_void_p(out.data_ptr()))
     assert torch.equal(out, fd.rans_decode_plain(stream, lens, freq, extras))
+
+
+# K5: rays given as an image in 8x4 warp tiles, flat sets in order, every
+# ray traced once; the level table in registers (LevelCursor) equal to the
+# pyramid's on every level; the cell divisions as exact multiplies where
+# the spacings are powers of two. The host twin runs the kernel's body in
+# the blocks' and threads' order; against the parent design's body (the
+# table from memory, the divisions) bit for bit, and the plain trace.
+def k5_case(device, shape, spacing=1.0, n=65, seed=4):
+    """(scene, ro, rd) over a sine DEM of n^2: an image's camera rays for a
+    2-D shape, random rays for any other."""
+    y, x = np.mgrid[0:n[0], 0:n[1]].astype(np.float32) if isinstance(n, tuple) else \
+        np.mgrid[0:n, 0:n].astype(np.float32)
+    dem = (6.0 * np.sin(x * 0.15) * np.cos(y * 0.12)).astype(np.float32)
+    scene = tv.scene_from_pyramid(tr.build_pyramid(dem), spacing_xz=(spacing, spacing),
+                                  device=device)
+    w, h = dem.shape[1] * spacing, dem.shape[0] * spacing
+    rng = np.random.default_rng(seed)
+    if len(shape) == 2:
+        H, W = shape
+        u, v = np.meshgrid(np.linspace(-0.5, 0.5, W), np.linspace(-0.25, 0.25, H))
+        o = np.broadcast_to(np.float32([w * 0.5, 25.0, -h * 0.2]), (H, W, 3))
+        look = np.float32([0.0, -25.0, h * 0.7])
+        d = (look / np.linalg.norm(look) + np.stack([u, v, 0 * u], -1)).astype(np.float32)
+    else:
+        o = rng.uniform([-5, 7, -5], [w + 5, 16, h + 5], (*shape, 3)).astype(np.float32)
+        d = rng.standard_normal((*shape, 3)).astype(np.float32)
+        d[..., 1] = -np.abs(d[..., 1])
+    d = d / np.maximum(np.linalg.norm(d, axis=-1, keepdims=True), 1e-6)
+    ro = tuple(torch.as_tensor(np.array(o[..., k]), device=device) for k in range(3))
+    rd = tuple(torch.as_tensor(np.array(d[..., k]), device=device) for k in range(3))
+    return scene, ro, rd
+
+
+def hit_bits(h):
+    return [h.hit.cpu(), h.t.cpu().view(torch.int32), h.cell_x.cpu(), h.cell_z.cpu()]
+
+
+def same_hits(a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(hit_bits(a), hit_bits(b)))
+
+
+K5_SHAPES = [(21, 37), (4, 8), (16, 16), (33, 200), (3, 40), (40, 7), (97,), (2, 3, 5), (0,),
+             (0, 12)]
+
+
+@pytest.mark.parametrize("shape", K5_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_trace_layouts(kernels, shape):
+    """K5 through its wrapper on images whose edges fall inside a tile, on
+    shapes too small for a warp's tile (traced in order), on flat and empty
+    sets: every output the plain trace's, bit for bit."""
+    scene, ro, rd = k5_case(kernels, shape)
+    tiles = tv.ray_image_width(shape)
+    assert bool(tiles) == (len(shape) == 2 and shape[0] >= 4 and shape[1] >= 8)
+    got = tv._trace_kernel(scene, ro, rd, 1e-3, 1e30)
+    ref = tv.trace_plain(scene.to("cpu"), tuple(c.cpu() for c in ro), tuple(c.cpu() for c in rd))
+    assert got.hit.shape == tuple(shape)
+    assert same_hits(got, ref)
+    if ro[0].numel():
+        assert int(ref.hit.sum()) > 0
+
+
+@pytest.mark.parametrize("spacing", [1.0, 0.5, 2.0, 0.7])
+def test_trace_spacings(kernels, spacing):
+    """K5 through its wrapper at power-of-two spacings (the multiplies) and
+    at 0.7 (the divisions): the plain trace's outputs, bit for bit."""
+    scene, ro, rd = k5_case(kernels, (24, 40), spacing=spacing, n=(40, 57))
+    got = tv._trace_kernel(scene, ro, rd, 1e-3, 1e30)
+    ref = tv.trace_plain(scene.to("cpu"), tuple(c.cpu() for c in ro), tuple(c.cpu() for c in rd))
+    assert same_hits(got, ref)
+    assert int(ref.hit.sum()) > 0
+
+
+@pytest.mark.parametrize("shape", [(21, 37), (4, 8), (33, 200), (97,), (0,)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_trace_tiles_visit_every_ray_once(host_lib, monkeypatch, shape):
+    monkeypatch.setattr(_kernels, "require_cuda", lambda name, *t: None)
+    scene, ro, rd = k5_case("cpu", shape)
+    n = ro[0].numel()
+    out = [torch.zeros(n, dtype=torch.uint8), torch.zeros(n), torch.zeros(n, dtype=torch.int32),
+           torch.zeros(n, dtype=torch.int32), torch.zeros(n, dtype=torch.int32)]
+    fn = host_lib.f3d_test_trace_visits
+    fn.restype = None
+    fn(ctypes.byref(scene.kernel_args()), *(_kernels.ptr(c.reshape(-1)) for c in (*ro, *rd)),
+       ctypes.c_int(n), ctypes.c_int(tv.ray_image_width(shape)), *(_kernels.ptr(o) for o in out))
+    assert torch.equal(out[4], torch.ones(n, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("dem", [(1025, 1025), (77, 300), (300, 77), (2, 2), (2, 9), (65, 33)],
+                         ids=lambda s: f"{s[1]}x{s[0]}")
+def test_level_cursor_is_the_level_table(host_lib, dem):
+    """The register cursor's node index equals level_offset[L] +
+    nz * level_w[L] + nx on every level, walked down to 0 and back up."""
+    pyr = tr.build_pyramid(np.zeros(dem, np.float32))
+    rng = np.random.default_rng(dem[0] * 7 + dem[1])
+    levels = (ctypes.c_int * 64)()
+    index = (ctypes.c_int * 64)()
+    fn = host_lib.f3d_test_level_cursor
+    fn.restype = ctypes.c_int
+    for nx, nz in [(0, 0), (pyr.cell_w - 1, pyr.cell_h - 1),
+                   *rng.integers(0, [pyr.cell_w, pyr.cell_h], (6, 2)).tolist()]:
+        v = fn(pyr.cell_w, pyr.cell_h, int(nx), int(nz), levels, index)
+        assert v == 2 * pyr.mip_count - 1
+        for lv, got in zip(levels[:v], index[:v]):
+            assert got == pyr.level_offset[lv] + (nz >> lv) * pyr.level_w[lv] + (nx >> lv)
+
+
+def test_scene_refuses_another_level_table():
+    pyr = tr.build_pyramid(np.zeros((77, 300), np.float32))
+    bad = dataclasses.replace(pyr, level_w=pyr.level_w + 1)
+    with pytest.raises(ValueError, match="level table"):
+        tv.scene_from_pyramid(bad, device="cpu")
+
+
+@pytest.mark.parametrize("spacing", [1.0, 0.5, 2.0, 0.7])
+@pytest.mark.parametrize("shape", [(24, 40), (500,)], ids=["image", "flat"])
+def test_trace_spacings_bit_for_bit(host_lib, monkeypatch, spacing, shape):
+    """K5 on the host twin at power-of-two spacings (the multiplies) and at
+    0.7 (the divisions), against the parent design's body (the level table
+    from memory, the divisions) and the plain trace, bit for bit."""
+    monkeypatch.setattr(_kernels, "lib", lambda: host_lib)
+    monkeypatch.setattr(_kernels, "require_cuda", lambda name, *t: None)
+    monkeypatch.setattr(_kernels, "stream_ptr", lambda dev: ctypes.c_void_p(0))
+    scene, ro, rd = k5_case("cpu", shape, spacing=spacing, n=(40, 57))
+    got = tv._trace_kernel(scene, ro, rd, 1e-3, 1e30)
+    n = ro[0].numel()
+    parent = tv.HitResult(torch.zeros(n, dtype=torch.bool), torch.zeros(n),
+                          torch.zeros(n, dtype=torch.int32), torch.zeros(n, dtype=torch.int32))
+    host_lib.f3d_test_trace_table(ctypes.byref(scene.kernel_args()),
+                                  *(_kernels.ptr(c.reshape(-1)) for c in (*ro, *rd)),
+                                  ctypes.c_int(n), ctypes.c_float(1e-3), ctypes.c_float(1e30),
+                                  *(_kernels.ptr(o) for o in (parent.hit, parent.t, parent.cell_x,
+                                                              parent.cell_z)))
+    flat = tv.HitResult(*(a.reshape(-1) for a in (got.hit, got.t, got.cell_x, got.cell_z)))
+    assert same_hits(flat, parent)
+    assert same_hits(got, tv.trace_plain(scene, ro, rd))
+    assert int(got.hit.sum()) > n // 10
+
+
+# C1 reconstruction: the wavefront's twin (codec.cu:med_kernel's warps as
+# state machines, their steps interleaved three ways, the copies landing
+# late, the rings and edge rows poisoned) against the serial twin and the
+# plain version, bit for bit, on random residuals: int32 wrap-around, one
+# tile, and pages of several rows and columns of tiles
+def med_residuals(kind, ntx, nty, seed=5):
+    rng = np.random.default_rng(seed)
+    n = (ntx * nty, 256 * 256)
+    if kind == "wrap":
+        d = rng.integers(-2 ** 31, 2 ** 31, n, dtype=np.int64)
+    elif kind == "small":
+        d = rng.integers(-40, 41, n)
+    else:   # "mixed": mostly small, a few near the int32 limits
+        d = rng.integers(-3, 4, n)
+        big = rng.random(n) < 0.01
+        d[big] = rng.choice([2 ** 31 - 1, -2 ** 31, 2 ** 30], int(big.sum()))
+    return torch.as_tensor(d.astype(np.int32))
+
+
+MED_CASES = {"wrap_1x1": ("wrap", 1, 1), "mixed_3x2": ("mixed", 3, 2),
+             "small_2x3": ("small", 2, 3)}
+
+
+def med_host(host_lib, name, d, ntx, nty, step, *extra):
+    out = torch.full((nty * 256, ntx * 256), float("nan"))
+    fn = getattr(host_lib, name)
+    fn.restype = None
+    fn(_kernels.ptr(d), ctypes.c_int(ntx * nty), ctypes.c_int(ntx), ctypes.c_int(ntx * 256),
+       ctypes.c_double(step), _kernels.ptr(out), *(ctypes.c_int(e) for e in extra))
+    return out
+
+
+@pytest.mark.parametrize("case", list(MED_CASES))
+def test_med_wavefront_twin(host_lib, case):
+    """The wavefront in each of three interleavings of its warps, with its
+    copies landing late and early, equals the serial recurrence and the
+    plain version, bit for bit."""
+    from forge3d_tpu_torch.codec import f3dz_device as fd
+
+    kind, ntx, nty = MED_CASES[case]
+    d, step = med_residuals(kind, ntx, nty), 0.037
+    ref = fd.med_reconstruct_plain(d, ntx, nty, step)
+    assert torch.equal(med_host(host_lib, "f3d_test_med_serial", d, ntx, nty, step).view(
+        torch.int32), ref.view(torch.int32))
+    for order in range(6):
+        got = med_host(host_lib, "f3d_test_med_order", d, ntx, nty, step, order)
+        assert torch.equal(got.view(torch.int32), ref.view(torch.int32)), order
+
+
+def test_med_period_slots(host_lib):
+    """The kernel's ring column at step s of period c is the lane's
+    column's med_slot, and its handoffs fall at their last columns, for
+    every live (c, s, lane)."""
+    host_lib.f3d_test_med_period_slots.restype = ctypes.c_int
+    assert host_lib.f3d_test_med_period_slots() == 0
+
+
+@pytest.mark.parametrize("case", list(MED_CASES))
+def test_med_reconstruct_kernel(kernels, case):
+    """C1 reconstruction through its wrapper (the twin on the host, the
+    kernel on the card) against the plain version, bit for bit."""
+    from forge3d_tpu_torch.codec import f3dz_device as fd
+
+    kind, ntx, nty = MED_CASES[case]
+    d, step = med_residuals(kind, ntx, nty, seed=6), 0.25
+    before = fd.med_reconstruct.launches
+    got = fd._med_kernel(d.to(kernels), ntx, nty, step)
+    assert fd.med_reconstruct.launches == before + 1
+    ref = fd.med_reconstruct_plain(d, ntx, nty, step)
+    assert torch.equal(got.cpu().view(torch.int32), ref.view(torch.int32))
