@@ -46,8 +46,13 @@ and the per-ray frame's sun rays (as launched, queued, steps, leaf share,
 layout, its build), K6, K6 hybrid frame 1, K8, P3 and R1 render (which run
 K5's body or take its hits), then C1 reconstruction on
 phase 32's pages (as launched, queued, in `C1 no wait`, cycles a step, its
-build), each with a sha256 (`--probe K5`, `--probe C1R` one half).
-Copied
+build), each with a sha256 (`--probe K5`, `--probe C1R` one half);
+`--probe E1P2` E1 on configuration M (bake_ibl("high") cold and warm, its
+launches, as launched, queued, each stage alone, each stage's span inside
+the launch in measurement build `E1 spans`) and P2 on the bench town at
+1080p (as launched, queued, its build, the skipped share, the walks' SIMT
+share in rows and tiles), each with a sha256 (`--probe E1`,
+`--probe P2` one half). Copied
 into a checkout of an earlier tree and run there, it times that tree's
 kernels, so two designs can be compared on one card.
 
@@ -119,7 +124,9 @@ Phases (one line each; any failure exits non-zero):
  12. engines -- `pt_render_gpu_mesh` (P2) on the same town and
                 `pt_render_gpu` (P1) on the three golden spheres at
                 1920x1080, each launched once, each held against its plain
-                version on the card and timed;
+                version on the card (P2 every plane bit for bit) and timed,
+                with P2's build and the share of hit pixels whose shadow
+                walk it skips;
  13. R1 kernels -- the TerrainRenderer's kernel R1 over bench.py's DEM (camera
                 radius 1300 about its centre, phi 225, theta 35) in
                 configuration A (make_terrain_params' defaults) at 1080p and
@@ -245,8 +252,9 @@ Phases (one line each; any failure exits non-zero):
                 as launched and queued, with its build, beside one grouped
                 conv2d of its 2-D kernel; the row sums the four); TAA and SSAO through their
                 entry points; E1 through bake_ibl("high") on configuration M's
-                512x256 equirect (7 launches), each launch against its plain
-                version, bit for bit, and timed;
+                512x256 equirect (one launch of its seven stages, cold and
+                warm), each stage in a launch of its own against its plain
+                version and the bake's map, bit for bit, and timed;
  26. scene -- Scene.render_rgba at 1080p over bench.py's DEM (grid 1024):
                 K0 (every effect off: the JAX bench op scene_rgba's path) and
                 K (SSAO, two rect lights, ground plane, water, SSR, bloom, DoF,
@@ -431,7 +439,8 @@ K3_COL_FRAC = 0.99     # ... and >= 99% of each azimuth column within FLOAT_TOL
 K4_BYTES = 0.9999      # sweep K4: >= 99.99% of the packed bytes equal
 # engines P1 and P2: every element of every plane within FLOAT_TOL and max
 # |err| <= 1e-4 (the card showed them bit-identical to their plain versions,
-# max |err| 0; the margin leaves an ulp of powf)
+# max |err| 0; the margin leaves an ulp of powf); P2's planes are also held
+# bit for bit (phase 12)
 P1_FRAC, P1_MAX_ERR = 1.0, 1e-4
 P2_FRAC, P2_MAX_ERR = 1.0, 1e-4
 # K9 alone: hit, prim, t, u and v bit-identical to the plain version on
@@ -760,13 +769,22 @@ EARLIER = {"E4 vector_coverage": "a-launch-a-layer, every-primitive design 29.64
            "E8 step": "24-launch, a-sweep-a-launch design 0.7685",
            "E3 atrous_denoise": "thread-a-pixel, taps-from-memory design 2.2900",
            # the design before P5's staged, culled walk, as launched
-           "P5 trace_tlas": "every-instance, table-copied-each-call design 1.3588"}
+           "P5 trace_tlas": "every-instance, table-copied-each-call design 1.3588",
+           # the designs before the one-launch bake and P2's tiles, as launched
+           # (E1's seven launches took 0.3841 ms queued too, PERF.md)
+           "E1 equirect_accum": "seven-launch, thread-a-texel design, as launched, 0.3847",
+           "P2 render_mesh": "row-of-256, every-hit-walked design 0.2796"}
 
 
-def kernel_row(name, launches, err, ms, plain_ms, bound_ms, bound_by):
+def kernel_row(name, launches, err, ms, plain_ms, bound_ms, bound_by, launched_ms=None):
+    """The `kernels` line's row of a kernel; `launched_ms`, where `ms` is
+    the queued time, is its time as launched, printed beside the earlier
+    design's."""
     src, rep = REPLACES[name]
     if name in EARLIER:
-        say("earlier", f"{name}: {ms:.4f} ms in this run; the {EARLIER[name]} ms "
+        now = f"{ms:.4f} ms" if launched_ms is None else \
+            f"{ms:.4f} ms queued, {launched_ms:.4f} ms as launched"
+        say("earlier", f"{name}: {now} in this run; the {EARLIER[name]} ms "
                        f"(PERF.md, not measured in this run)")
     return {"name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -1470,14 +1488,17 @@ def launcher_ms(fn, symbol: str, reps: int) -> float:
 # loads cost); K10 copy: K10 alone a copy of its 16 streams (the floor of
 # its access pattern); C1 no wait: C1 reconstruction's warps
 # take the row above without waiting for its handoff (what the handoffs'
-# waits cost). Their outputs are not the kernels' and are not checked.
+# waits cost); E1 spans: E1 records each block's first and last
+# %globaltimer reading (the stages' spans inside the launch). Their outputs
+# are not the kernels' and are not checked (E1's are the same function, and
+# the probe prints their sha256).
 SPLIT_BUILDS = {"A": ("F3D_K7_SELF_TAPS", "F3D_K3_SPLIT=1"), "B": ("F3D_K3_SPLIT=2",),
                 "C": ("F3D_K3_SPLIT=3",), "S8 self": ("F3D_S8_PCSS_SELF",),
                 "S8 const": ("F3D_S8_PCSS_CONST",), "E3 self": ("F3D_E3_SELF_TAPS",),
                 "E3 const": ("F3D_E3_CONST_EXP",), "S4 store": ("F3D_S4_STORE",),
                 "P5 root": ("F3D_P5_ROOT_ONLY",), "P5 check": ("F3D_P5_CULL_CHECK",),
                 "K10 const": ("F3D_K10_CONST",), "K10 copy": ("F3D_K10_COPY",),
-                "C1 no wait": ("F3D_C1_NO_WAIT",)}
+                "C1 no wait": ("F3D_C1_NO_WAIT",), "E1 spans": ("F3D_E1_SPANS",)}
 _VARIANT_LIBS = {}
 
 
@@ -2250,14 +2271,21 @@ def phase_engines(mts):
     args = (ecam, mts, mat, sd, float(np.float32(3.0)))
     pk = mr._render_mesh_kernel(*args)
     plain_ms, pp = wall_ms(lambda: mr.render_mesh_plain(*args))
-    w2 = p2_work(ecam, mts, sd)     # the work as the kernel does it: an any-hit shadow walk
+    # the work as the kernel does it: an any-hit shadow walk where it can
+    # change the pixel
+    w2, n_hit, n_skip = p2_work(ecam, mts, sd, args[4])
     frac, err, u8 = compare_planes("P2 render_mesh", pp, pk, P2_FRAC, P2_MAX_ERR)
+    require(all(bit_equal(pp[k], pk[k]) for k in pp),
+            "P2 render_mesh: a plane differs from its plain version in its bits")
     ms2 = cuda_ms(lambda: mr._render_mesh_kernel(*args), 10)
     b2, by2 = bound(n * 68 + mts.scene.kernel_nbytes, traced_ops(w2) + n * OPS_PBR)
     rows.append(kernel_row("P2 render_mesh", launches, err, ms2, plain_ms, b2, by2))
+    a = _attrs("f3d_render_mesh_attrs")
     say("engines", f"P2 render_mesh: kernel {ms2:.4f} ms, plain {plain_ms:.4f} ms, bound "
-                   f"{b2:.4f} ms ({by2}); planes {frac:.6f} within tolerance, max |err| "
-                   f"{err:.3e}, rgba bytes equal {u8:.6f}")
+                   f"{b2:.4f} ms ({by2}); every plane bit for bit ({frac:.6f} within "
+                   f"tolerance, rgba bytes equal {u8:.6f}); {n_skip} of {n_hit} hit pixels "
+                   f"({n_skip / max(n_hit, 1):.4f}) skip the shadow walk; {a[0]} registers, "
+                   f"{a[1]} B local, {a[2]} resident blocks of 256 an SM")
 
     cam = {"origin": (0, 1.5, 5.5)}
     mk.render_spheres.launches = 0
@@ -4399,12 +4427,12 @@ def p3_work(hs, origin, rd3, sun, planes):
     return work, (prim_culled, shadow_culled)
 
 
-def mesh_any_hit_plain(scene, n_nodes, ro, rd, tmin, tmax, stop=float("inf")):
+def mesh_any_hit_plain(scene, n_nodes, ro, rd, tmin, tmax, stop=float("inf"), per_ray=False):
     """K9's walk as the shadow rays take it (mesh.cuh:trace_mesh_ray<true>):
     a ray stops once a triangle is accepted with t below `stop` (a number or
-    one a ray; by default at its first accepted), in trace_mesh_plain's
-    steps and counts: (blocked below `stop` (n,) bool, node visits, triangle
-    tests)."""
+    one a ray; by default at its first accepted; -inf walks to the nearest
+    hit), in trace_mesh_plain's steps and counts: (blocked below `stop` (n,)
+    bool, node visits, triangle tests[, node visits a ray (n,)])."""
     import torch
 
     from forge3d_tpu_torch.ops.bvh import _LEAF_SIZE, _inv, _moller_trumbore
@@ -4420,10 +4448,13 @@ def mesh_any_hit_plain(scene, n_nodes, ro, rd, tmin, tmax, stop=float("inf")):
     stop = torch.as_tensor(stop, dtype=torch.float32, device=dev).expand(n).clone()
     last = scene.n_prims - 1
     visits = tests = 0
+    ray_visits = torch.zeros(n, dtype=torch.int64, device=dev) if per_ray else None
     for _ in range(4 * n_nodes + 64):
         if idx.numel() == 0:
             break
         visits += idx.numel()
+        if per_ray:
+            ray_visits[idx] += 1
         r_ox, r_oy, r_oz, r_dx, r_dy, r_dz, ix, iy, iz = cols.unbind(1)
         bmin = scene.bounds_min[node].unbind(-1)
         bmax = scene.bounds_max[node].unbind(-1)
@@ -4455,7 +4486,7 @@ def mesh_any_hit_plain(scene, n_nodes, ro, rd, tmin, tmax, stop=float("inf")):
         node = torch.where(box_hit & ~is_leaf, node + 1, scene.miss_link[node].to(torch.int64))
         keep = ~(found | (node >= n_nodes))
         idx, cols, node, best, stop = idx[keep], cols[keep], node[keep], best[keep], stop[keep]
-    return blocked, visits, tests
+    return (blocked, visits, tests) + ((ray_visits,) if per_ray else ())
 
 
 def k6_hybrid_work(ctx, a0, w0, r0):
@@ -4512,11 +4543,14 @@ def k6_hybrid_work(ctx, a0, w0, r0):
     return plain_ms, out, w
 
 
-def p2_work(cam, mts, sun_dir):
+def p2_work(cam, mts, sun_dir, sun_intensity, per_ray=False):
     """The mesh work P2 does (pbr.cuh:mesh_pixel), counted by the plain
-    walks: every pixel's primary ray walks the whole mesh, a hit pixel's
-    shadow ray walks it any-hit (mesh_any_hit_plain), which is checked to
-    block the rays that render_mesh_plain's whole walk blocks."""
+    walks: every pixel's primary ray walks the whole mesh; a hit pixel's
+    shadow ray walks it any-hit (mesh_any_hit_plain, checked to block the
+    rays that render_mesh_plain's whole walk blocks) where sun_intensity *
+    n.l is not zero, in float32 as the kernel forms it. (work, hit pixels,
+    hit pixels whose walk is skipped[, node visits a pixel (H, W): primary,
+    shadow])."""
     import torch
 
     from forge3d_tpu_torch.ops.bvh import trace_mesh_plain
@@ -4528,16 +4562,51 @@ def p2_work(cam, mts, sun_dir):
     hit = trace_mesh_plain(mts.scene, mts.n_nodes, ro, rd)
     w = count()
     n = mts.hit_normals(hit.prim, *rd)
-    sel = torch.nonzero(hit.hit.reshape(-1)).squeeze(1)
+    ndl = torch.clamp((n[0] * sun_dir[0] + n[1] * sun_dir[1]) + n[2] * sun_dir[2], min=0.0)
+    lit = (sun_intensity * ndl) != 0
+    hits = hit.hit.reshape(-1)
+    sel = torch.nonzero(hits & lit.reshape(-1)).squeeze(1)
     sp = [((ro[k] + hit.t * rd[k]) + n[k] * 1e-3).reshape(-1)[sel] for k in range(3)]
     sd = [torch.full_like(sp[0], c) for c in sun_dir]
-    blocked, visits, tests = mesh_any_hit_plain(mts.scene, mts.n_nodes, sp, sd, 1e-4, 1e6)
+    blocked, visits, tests, *shadow = mesh_any_hit_plain(mts.scene, mts.n_nodes, sp, sd, 1e-4,
+                                                         1e6, per_ray=per_ray)
     whole = trace_mesh_plain(mts.scene, mts.n_nodes, sp, sd, tmax=1e6)
     require(torch.equal(blocked, whole.hit),
             "P2's shadow rays: the kernel's walk blocks other rays than the whole walk")
     w["node_visits"] += visits
     w["tri_tests"] += tests
-    return w
+    n_hit = int(hits.sum())
+    out = (w, n_hit, n_hit - int(sel.numel()))
+    if per_ray:
+        flat = [torch.full_like(rd[0], c).reshape(-1) for c in cam.origin]
+        prim = mesh_any_hit_plain(mts.scene, mts.n_nodes, flat, [c.reshape(-1) for c in rd],
+                                  1e-4, 1e30, stop=float("-inf"), per_ray=True)[3]
+        sh = torch.zeros_like(prim)
+        sh[sel] = shadow[0]
+        out += (prim.reshape(cam.height, cam.width), sh.reshape(cam.height, cam.width))
+    return out
+
+
+def simt_share(loops, layout: str) -> float:
+    """The share of lane-steps doing work when a warp runs each loop as long
+    as its longest lane: `loops` a list of (H, W) maps of a pixel's steps in
+    each loop, the loops run one after another; warps of 32 pixels in rows
+    (a row's consecutive pixels) or in 8x4 tiles (common.cuh:tile_pixel)."""
+    import torch
+
+    busy = cap = 0.0
+    for visits in loops:
+        H, W = visits.shape
+        if layout == "rows":
+            flat = visits.reshape(-1)
+            warps = torch.cat([flat, flat.new_zeros((-flat.numel()) % 32)]).reshape(-1, 32)
+        else:
+            v = torch.nn.functional.pad(visits, (0, (-W) % 8, 0, (-H) % 4))
+            warps = v.reshape(v.shape[0] // 4, 4, v.shape[1] // 8, 8).permute(0, 2, 1, 3)
+            warps = warps.reshape(-1, 32)
+        busy += float(warps.sum())
+        cap += float(warps.max(1).values.sum()) * 32
+    return busy / max(cap, 1.0)
 
 
 def _pair_counters():
@@ -4743,6 +4812,8 @@ OPS_TAA_PIXEL = 69      # taa_pixel: 3 channels x (9 min/max pairs, clip, blend)
 OPS_SSAO_TAP = 8        # ssao_pixel, one tap
 OPS_RECT_LIGHT = 70     # rect_light_add: one light at one point (a powf, two sqrtf, 8 divisions)
 OPS_IBL_SAMPLE = 40     # sample_equirect and the weighted sum: atan2f, acosf, four taps
+# configuration M's stages: bake_ibl("high")'s cube, five mips and irradiance map
+M_SETS = (("cube", (64,)), ("prefilter", (64, 5, 64)), ("irradiance", (32, 128)))
 # E2 and E1 against their plain versions: every element bit-identical
 # (POST_EQ of the elements equal, none beyond FLOAT_TOL); Scene on the card
 # against Scene on the CPU at 240x136 within one u8 step on SCENE_U8_FRAC of
@@ -4980,44 +5051,51 @@ def phase_post_kernels(dem):
                         f"max |err| {err:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, "
                         f"bound {bms:.4f} ms ({by})")
 
-    # E1: configuration M through bake_ibl, then each of its launches
+    # E1: configuration M through bake_ibl (one launch a bake), then each
+    # stage in a launch of its own
     env_np = m_env()
-    ibl.equirect_accum.launches = 0
+    ibl._launch.launches = 0
     bake_ms, maps = wall_ms(lambda: ibl.bake_ibl(env_np, quality="high", device=CARD))
-    launches["E1 equirect_accum"] = ibl.equirect_accum.launches
+    launches["E1 equirect_accum"] = ibl._launch.launches
+    require(launches["E1 equirect_accum"] == 1,
+            f"bake_ibl('high') made {launches['E1 equirect_accum']} E1 launches, not one")
     require(maps.cubemap.shape == (6, 64, 64, 3) and len(maps.specular_mips) == 5
             and maps.irradiance.shape == (32, 64, 3) and maps.brdf.shape == (32, 32, 2)
             and all(bool(torch.isfinite(m).all()) for m in (maps.cubemap, maps.irradiance,
                                                             *maps.specular_mips)),
             "bake_ibl('high') gave maps of the wrong shape or not finite")
+    warm_ms = wall_ms(lambda: ibl.bake_ibl(env_np, quality="high", device=CARD))[0]
     env = torch.as_tensor(env_np, device=dev)
-    stages = [(np.stack([ibl._face_dirs(fc, 64) for fc in range(6)])[None], None, ibl.ONE)]
-    stages += [(d, w, ibl.ONE if w is None else ibl.WEIGHTED)
-               for d, w in ibl.prefilter_tables(64, 5, 64)]
-    stages.append((ibl.irradiance_tables(32, 128), None, ibl.MEAN))
-    dev_stages = [(torch.as_tensor(d, device=dev),
-                   None if w is None else torch.as_tensor(w, device=dev), m)
-                  for d, w, m in stages]
+    stages = [t for kind, key in M_SETS for t in ibl._tables(kind, *key)]
     err_max, eq_min, samples, nbytes = 0.0, 1.0, 0, tensor_bytes(env)
     plain_ms = 0.0
-    for (d, w, m), baked in zip(dev_stages, [maps.cubemap, *maps.specular_mips,
-                                             maps.irradiance]):
+    for (d, w, m), baked in zip(stages, [maps.cubemap, *maps.specular_mips, maps.irradiance]):
+        d = torch.as_tensor(d, device=dev)
+        w = None if w is None else torch.as_tensor(w, device=dev)
         got = ibl._accum_kernel(env, d, w, m)
         pm, ref = wall_ms(lambda: ibl._accum_plain(env, d, w, m))
         plain_ms += pm
         eq, err = compare_post("E1 equirect_accum", ref, got)
-        require(torch.equal(got, baked), "bake_ibl's map differs from its stage's launch")
+        require(bit_equal(ref, got), "E1: a stage differs from its plain version in its bits")
+        require(bit_equal(got, baked), "bake_ibl's map differs from its stage's launch")
         err_max, eq_min = max(err_max, err), min(eq_min, eq)
         samples += d.shape[0] * (d[0].numel() // 3)
         nbytes += tensor_bytes(d, got) + (0 if w is None else tensor_bytes(w))
-    ms = cuda_ms(lambda: [ibl._accum_kernel(env, d, w, m) for d, w, m in dev_stages], 10)
+    jobs = [j for kind, key in M_SETS for j in ibl._jobs(kind, key, dev)]
+    ms = queued_ms(lambda: ibl._launch(env, jobs), 10)     # the wrapper's host work hidden
+    launched = cuda_ms(lambda: ibl._launch(env, jobs), 10)
     bms, by = bound(nbytes, samples * OPS_IBL_SAMPLE)
-    res["E1 equirect_accum"] = (err_max, ms, plain_ms, bms, by)
+    res["E1 equirect_accum"] = (err_max, ms, plain_ms, bms, by, launched)
     say("post kernels", f"E1 bake_ibl('high') of a 512x256 equirect: {bake_ms:.1f} ms wall "
-                        f"(host tables and the numpy BRDF LUT included), "
-                        f"{launches['E1 equirect_accum']} launches; the 7 stages bit-equal "
-                        f"{eq_min:.6f}, {samples} samples; kernel {ms:.4f} ms, plain "
-                        f"{plain_ms:.1f} ms, bound {bms:.4f} ms ({by})")
+                        f"cold, {warm_ms:.1f} warm (the numpy BRDF LUT included, cold the "
+                        f"host tables too), {launches['E1 equirect_accum']} launch; the 7 "
+                        f"stages bit-equal {eq_min:.6f}, {samples} samples; kernel {ms:.4f} ms "
+                        f"queued, {launched:.4f} as launched (the RGBx copy and the one "
+                        f"launch), plain {plain_ms:.1f} ms, bound {bms:.4f} ms ({by})")
+    a = _attrs("f3d_ibl_bake_attrs")
+    say("post kernels", f"E1 kernel: {a[0]} registers, {a[1]} B local, {a[2]} resident blocks "
+                        f"of 256 an SM; {ibl.GROUP_LANES} lanes a texel of a stage of more than "
+                        f"one sample")
     return res, launches, blur_row
 
 
@@ -7652,6 +7730,134 @@ def probe_c1r(torch):
                      f"resident blocks an SM, {a[3]} B of shared memory a block")
 
 
+def probe_e1(torch):
+    """E1 on configuration M (bake_ibl "high" of m_env()): the bake's wall
+    time cold and warm and its E1 launches; the kernel's work (in a tree
+    with the one-launch bake: the RGBx copy and the launch of the seven
+    stages over the cached tables; in an earlier tree its seven launches over
+    device tables) as launched and queued behind a spin; each stage alone,
+    queued; in a tree with it, the stages' spans inside the launch
+    (measurement build `E1 spans`); its build; a sha256 of the bake's maps
+    and of the kernel's outputs. Calls only entry points E1 has had since
+    it was ported."""
+    import ctypes
+
+    from forge3d_tpu_torch import _kernels
+    from forge3d_tpu_torch.ops import ibl
+
+    dev = torch.device("cuda")
+    env_np = m_env()
+    counter = ibl._launch if hasattr(ibl, "_launch") else ibl.equirect_accum  # an earlier tree's
+    counter.launches = 0
+    cold, maps = wall_ms(lambda: ibl.bake_ibl(env_np, quality="high", device="cuda"))
+    n_launch = counter.launches
+    warm = [wall_ms(lambda: ibl.bake_ibl(env_np, quality="high", device="cuda"))[0]
+            for _ in range(5)]
+    sha = _sha(maps.cubemap, *maps.specular_mips, maps.irradiance, maps.brdf)
+    say("probe", f"E1 bake_ibl('high') 512x256: {n_launch} E1 launches; wall {cold:.3f} ms "
+                 f"cold, warm {', '.join(f'{t:.3f}' for t in warm)} (the numpy BRDF LUT "
+                 f"included); sha256 of the maps {sha}")
+    env = torch.as_tensor(env_np, device=dev)
+    stages = [(np.stack([ibl._face_dirs(fc, 64) for fc in range(6)])[None], None, ibl.ONE)]
+    stages += [(d, w, ibl.ONE if w is None else ibl.WEIGHTED)
+               for d, w in ibl.prefilter_tables(64, 5, 64)]
+    stages.append((ibl.irradiance_tables(32, 128), None, ibl.MEAN))
+    dev_stages = [(torch.as_tensor(d, device=dev),
+                   None if w is None else torch.as_tensor(w, device=dev), m)
+                  for d, w, m in stages]
+    one = hasattr(ibl, "_launch")
+    if one:
+        jobs = [j for kind, key in M_SETS for j in ibl._jobs(kind, key, dev)]
+        fn = lambda: ibl._launch(env, jobs)  # noqa: E731
+    else:
+        fn = lambda: [ibl._accum_kernel(env, d, w, m) for d, w, m in dev_stages]  # noqa: E731
+    out = fn()
+    t = {"as launched": cuda_ms(fn, 20), "queued": queued_ms(fn, 20)}
+    alone = [queued_ms(lambda a=a: ibl._accum_kernel(env, *a), 20) for a in dev_stages]
+    say("probe", f"E1 {'one launch' if one else 'seven launches'} of the 7 stages (ms): "
+                 f"{json.dumps({k: round(v, 4) for k, v in t.items()})}; each stage alone, "
+                 f"queued: {', '.join(f'{a:.4f}' for a in alone)}; sha256 {_sha(out)}")
+    a = _attrs("f3d_ibl_bake_attrs")
+    if a is not None:
+        say("probe", f"E1 kernel: {a[0]} registers, {a[1]} B local, {a[2]} resident blocks of "
+                     f"256 an SM")
+    if one and tree_has("F3D_E1_SPANS"):
+        lib = variant_lib("E1 spans")
+        lib.f3d_e1_spans.argtypes = [ctypes.c_void_p, ctypes.c_int]
+        order = sorted(range(len(jobs)),
+                       key=lambda j: -jobs[j].tab.shape[0] * jobs[j].tab.shape[1])
+        first, nb = {}, 0
+        for j in order:
+            g = 1 if jobs[j].tab.shape[1] == 1 else ibl.GROUP_LANES
+            first[j] = (nb, nb + -(-jobs[j].tab.shape[0] * g // 256))
+            nb = first[j][1]
+        runs = []
+        for _ in range(6):
+            got = with_lib(lib, fn)
+            torch.cuda.synchronize()
+            buf = (ctypes.c_ulonglong * (2 * nb))()
+            _kernels.check(lib.f3d_e1_spans(buf, nb), "E1 spans")
+            v = np.frombuffer(buf, np.uint64).astype(np.int64).reshape(nb, 2)
+            t0 = v[:, 0].min()
+            runs.append([(int(v[b0:b1, 0].min() - t0), int(v[b0:b1, 1].max() - t0))
+                         for b0, b1 in (first[j] for j in range(len(jobs)))]
+                        + [(0, int(v[:, 1].max() - t0))])
+        same = _sha(got) == _sha(out)
+        med = np.median(np.array(runs[1:]), axis=0)
+        names = ["cube", "mip 0", "mip 1", "mip 2", "mip 3", "mip 4", "irradiance", "launch"]
+        say("probe", f"E1 spans inside the launch (measurement build, %globaltimer ns from the "
+                     f"first block's start, median of 5: start-end): " + "; ".join(
+                         f"{nm} {int(a)}-{int(b)}" for nm, (a, b) in zip(names, med))
+            + f"; its outputs equal the kernel's: {same}")
+
+
+def probe_p2(torch):
+    """P2 on the bench town at 1080p as phase 12 drives it: the entry
+    pt_render_gpu_mesh's wall time and sha256; the kernel as launched and
+    queued behind a spin, its build, every plane's sha256 and its bits
+    against the plain version; the share of hit pixels whose shadow walk the
+    kernel skips, and the SIMT share of its BVH walks (the plain walks'
+    node visits a pixel) in rows and in 8x4 tiles, with and without the
+    skip. Calls only entry points P2 has had since it was ported."""
+    import forge3d_tpu_torch as f3t
+    from forge3d_tpu_torch.ops.shading import sun_direction
+    from forge3d_tpu_torch.pt import megakernel as mk
+    from forge3d_tpu_torch.pt import mesh_render as mr
+
+    dev = torch.device("cuda")
+    W, H = REAL_W, REAL_H
+    mts = mr.MeshTracerScene(*bench_town(bench_dem()), dev)
+    def entry():
+        return f3t.pt_render_gpu_mesh(W, H, None, None, dict(BENCH_CAM), scene=mts,
+                                      aovs=mk.AOV_NAMES, device="cuda")
+
+    entry()
+    t_entry, res = wall_ms(entry)
+    say("probe", f"P2 pt_render_gpu_mesh {W}x{H}, {mts.triangle_count} triangles: {t_entry:.3f} "
+                 f"ms wall; sha256 {_sha({k: torch.as_tensor(v) for k, v in res.items()})}")
+    ecam = mk.EngineCamera.make(W, H, dict(BENCH_CAM), (0.0, 1.5, 4.0), (0.0, 0.5, 0.0))
+    sd = sun_direction(135.0, 45.0)
+    args = (ecam, mts, mr._material_from_dict(None), sd, float(np.float32(3.0)))
+    fn = lambda: mr._render_mesh_kernel(*args)  # noqa: E731
+    out = fn()
+    t = {"as launched": cuda_ms(fn, 20), "queued": queued_ms(fn, 20)}
+    a = _attrs("f3d_render_mesh_attrs")
+    pp = mr.render_mesh_plain(*args)
+    same = all(bit_equal(pp[k], out[k]) for k in pp)
+    say("probe", f"P2 render_mesh (ms): {json.dumps({k: round(v, 4) for k, v in t.items()})}; "
+                 f"{a[0]} registers, {a[1]} B local, {a[2]} resident blocks of 256 an SM; every "
+                 f"plane bit for bit to the plain version: {same}; sha256 {_sha(out)}")
+    _, n_hit, n_skip, prim, shadow = p2_work(ecam, mts, sd, args[4], per_ray=True)
+    *_, every = p2_work(ecam, mts, sd, float("nan"), per_ray=True)
+    simt = {f"{lay}, {tag}": round(simt_share([prim, sh], lay), 4)
+            for tag, sh in (("skip", shadow), ("every hit walked", every))
+            for lay in ("rows", "8x4 tiles")}
+    say("probe", f"P2 work: {n_skip} of {n_hit} hit pixels ({n_skip / max(n_hit, 1):.4f}) skip "
+                 f"the shadow walk; node visits, primary {int(prim.sum())}, shadow "
+                 f"{int(shadow.sum())} (every hit walked {int(every.sum())}); SIMT share of the "
+                 f"walks {json.dumps(simt)}")
+
+
 def probe(torch, only=None):
     """`chip_smoke.py --probe`: E4 (probe_e4), R1 (probe_r1) and P3
     (probe_p3), then K2 and
@@ -7668,6 +7874,12 @@ def probe(torch, only=None):
     from forge3d_tpu_torch.ops import sweep as sw
     from forge3d_tpu_torch.pt import terrain_sweep as ts
 
+    if only in ("E1P2", "E1", "P2"):
+        if only != "P2":
+            probe_e1(torch)
+        if only != "E1":
+            probe_p2(torch)
+        return
     if only in ("K5C1", "K5", "C1R"):
         if only != "C1R":
             probe_k5(torch)

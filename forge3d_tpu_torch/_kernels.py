@@ -481,8 +481,9 @@ _SIGNATURES = {
     "f3d_ssao": [_P, _P, _I, _P, _I, _P, _I, _I, _F, _F, _F, _P],
     # (p, n, v, count, lights, n_lights, out, stream)
     "f3d_rect_lights": [_P, _P, _P, _I, _P, _I, _P, _P],
-    # E1: (env, env_h, env_w, dirs, weights, samples, texels, mode, out, stream)
-    "f3d_equirect_accum": [_P, _I, _I, _P, _P, _I, _I, _I, _P, _P],
+    # E1: (env4, env_h, env_w, jobs (6 words each), n_jobs, stream); (out)
+    "f3d_ibl_bake": [_P, _I, _I, ctypes.POINTER(_LL), _I, _P],
+    "f3d_ibl_bake_attrs": [_P],
     # E8 step: (vel, temp, va, nx, ny, nz, dt, dtb, amb, w0, w1, w2, kdamp, forms, stream)
     "f3d_smoke_advect_velocity": [_P, _P, _P, _I, _I, _I] + [_F] * 7 + [_I, _P],
     # (va, div, p1 or null, nx, ny, nz, sixth, stream)

@@ -15,7 +15,11 @@
 // the card each pixel loops on its own. What bounds them: P1 is
 // arithmetic (N sphere tests and one shade of ~150 float32 operations with
 // two powf per pixel) and writes 68 bytes per pixel; P2 is the latency of
-// two BVH walks per pixel, as K9.
+// its BVH walks, as K9. P2 runs in K6's tiles (common.cuh:tile_pixel): a
+// block covers 16x16 pixels and a warp 8x4, so a warp's primary rays and
+// its shadow rays' origins are image neighbours that walk the same subtrees;
+// lanes past the image compute nothing. A hit pixel walks its shadow ray
+// only where sun_intensity * n.l is not zero (pbr.cuh:mesh_pixel_t).
 
 #include <cuda_runtime.h>
 
@@ -34,10 +38,12 @@ __global__ void sphere_kernel(CamArgs c, SphereArgs s, AovArgs o) {
     sphere_pixel(c, s, o, i);
 }
 
+// P2 at ptxas's own register count (a bound of 5 blocks an SM spilled and
+// was slower)
 __global__ void mesh_kernel(CamArgs c, MeshArgs m, MaterialArgs mat, AovArgs o) {
-    int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= c.width * c.height) return;
-    mesh_pixel(c, m, mat, o, i);
+    const TilePixel p = tile_pixel(c.width, c.height, blockIdx.x, threadIdx.x);
+    if (!p.inside) return;
+    mesh_pixel(c, m, mat, o, p.y * c.width + p.x);
 }
 
 }  // namespace
@@ -55,9 +61,9 @@ int f3d_render_spheres(const CamArgs* c, const SphereArgs* s, const AovArgs* o,
 
 int f3d_render_mesh(const CamArgs* c, const MeshArgs* m, const MaterialArgs* mat,
                     const AovArgs* o, void* stream) {
-    int n = c->width * c->height;
-    if (n > 0) {
-        mesh_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(*c, *m, *mat, *o);
+    if (c->width > 0 && c->height > 0) {
+        mesh_kernel<<<tile_blocks(c->width, c->height), kThreads, 0, (cudaStream_t)stream>>>(
+            *c, *m, *mat, *o);
     }
     return (int)cudaGetLastError();
 }

@@ -263,9 +263,14 @@ F3D_HD void sphere_pixel(const CamArgs& c, const SphereArgs& sp, const AovArgs& 
 
 // mesh_render.py:_render_mesh for pixel i: the primary hit through the BVH,
 // the two-sided face normal, PBR shading and a sun shadow ray through the
-// BVH (tmax 1e6).
-F3D_HD void mesh_pixel(const CamArgs& c, const MeshArgs& m, const MaterialArgs& mat,
-                       const AovArgs& o, int i) {
+// BVH (tmax 1e6). With kSkipDark the shadow ray is walked only where its
+// answer can change the pixel: where sun_intensity * ndl is zero (a face
+// turned from the sun, or no sun), w is that signed zero whichever mask the
+// walk returns, and the adds below still run, so the bits are the walk's;
+// a NaN or infinite product still walks. Returns whether it walked.
+template <bool kSkipDark>
+F3D_HD bool mesh_pixel_t(const CamArgs& c, const MeshArgs& m, const MaterialArgs& mat,
+                         const AovArgs& o, int i) {
     const int x = i % c.width, y = i / c.width;
     float rd[3];
     engine_ray(c, x, y, rd);
@@ -278,7 +283,7 @@ F3D_HD void mesh_pixel(const CamArgs& c, const MeshArgs& m, const MaterialArgs& 
         float env[3];
         env_color(rd[1], env);
         store_pixel(c, o, i, env, zero, ng, 1.0f, zero, env, 0.0f);
-        return;
+        return false;
     }
     float n[3];
     mesh_normal(m, h.prim, rd[0], rd[1], rd[2], n[0], n[1], n[2]);
@@ -286,17 +291,31 @@ F3D_HD void mesh_pixel(const CamArgs& c, const MeshArgs& m, const MaterialArgs& 
     Pbr s;
     shade_pbr(v, n, mat.albedo, mat.metallic, mat.roughness, mat.emissive, mat.roughness,
               mat.roughness, c.sun_l, c.sun_li, s);
-    float sp[3];
-    for (int k = 0; k < 3; ++k) sp[k] = (ro[k] + h.t * rd[k]) + n[k] * 1e-3f;
     const float* sd = mat.sun_dir;
-    MeshHit sh = trace_mesh_ray<true, true>(m, sp[0], sp[1], sp[2], sd[0], sd[1], sd[2], 1e-4f,
-                                            1e6f);
     float ndl = fmaxf(n[0] * sd[0] + n[1] * sd[1] + n[2] * sd[2], 0.0f);
-    float w = mat.sun_intensity * ndl * (sh.prim >= 0 ? 0.0f : 1.0f);
+    const float li = mat.sun_intensity * ndl;
+    const bool walk = !kSkipDark || li != 0.0f;
+    bool blocked = false;
+    if (walk) {
+        float sp[3];
+        for (int k = 0; k < 3; ++k) sp[k] = (ro[k] + h.t * rd[k]) + n[k] * 1e-3f;
+        MeshHit sh = trace_mesh_ray<true, true>(m, sp[0], sp[1], sp[2], sd[0], sd[1], sd[2],
+                                                1e-4f, 1e6f);
+        blocked = sh.prim >= 0;
+    }
+    float w = li * (blocked ? 0.0f : 1.0f);
     for (int k = 0; k < 3; ++k) {
         float sun = (mat.albedo[k] / F3D_PBR_PI) * w;
         s.color[k] = s.color[k] + sun;
         s.direct[k] = s.direct[k] + sun;
     }
     store_pixel(c, o, i, s.color, s.albedo, n, h.t, s.direct, s.indirect, 1.0f);
+    return walk;
+}
+
+// P2's pixel (engines.cu:mesh_kernel): the shadow walk skipped where it
+// cannot change the pixel
+F3D_HD void mesh_pixel(const CamArgs& c, const MeshArgs& m, const MaterialArgs& mat,
+                       const AovArgs& o, int i) {
+    mesh_pixel_t<true>(c, m, mat, o, i);
 }

@@ -7,14 +7,17 @@
 # The direction tables (the cube faces' texel directions, the per-texel GGX
 # reflection directions with their n.l weights, the cosine-lobe
 # directions) are formed on the host in float64 as the JAX package forms
-# them, then narrowed to float32. `equirect_accum` gathers the map
-# bilinearly along each texel's directions and sums them: kernel E1
-# (csrc/ibl.cu over csrc/ibl.cuh) for CUDA tensors, the plain PyTorch
-# version for CPU tensors; nothing falls back from one to the other.
-# `brdf_lut` is numpy on the host, as in the JAX package.
+# them, then narrowed to float32. Each stage gathers the map bilinearly
+# along each texel's directions and sums them: kernel E1 (csrc/ibl.cu over
+# csrc/ibl.cuh) for CUDA tensors, one launch for all the stages of a call
+# (a bake's seven), over the tables packed texel-major once a tier and kept
+# on the card (`_jobs`), in launches of at most BAKE_JOBS stages; the plain
+# PyTorch version for CPU tensors; nothing falls back from one to the other. `brdf_lut` is numpy on the host, as in
+# the JAX package.
 
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import List, NamedTuple, Optional, Tuple
 
@@ -30,7 +33,9 @@ __all__ = ["equirect_to_cubemap", "prefilter_environment", "brdf_lut",
 
 _F32 = torch.float32
 
-# equirect_accum's modes (csrc/ibl.cuh F3D_IBL_*)
+# a stage's modes (csrc/ibl.cuh F3D_IBL_*): ONE the one sample; WEIGHTED the
+# sum of sample * w over max(sum of w, 1e-6); MEAN the sum of the samples
+# over S; the sums from zero in sample order
 ONE, WEIGHTED, MEAN = 0, 1, 2
 
 _FACE_AXES = [
@@ -93,44 +98,112 @@ def _accum_plain(env, dirs, weights, mode):
     return fdiv(acc, float(S))
 
 
-def _accum_kernel(env, dirs, weights, mode):
-    _kernels.require_cuda("equirect_accum", env, dirs,
-                          *(() if weights is None else (weights,)))
+#: the lanes that share a texel in a stage of more than one sample (a power
+#: of two up to 32); a one-sample stage takes one lane a texel
+GROUP_LANES = 16
+#: the stages one launch's job table holds (csrc/ibl.cuh kIblBakeJobs)
+BAKE_JOBS = 8
+
+
+class _Job(NamedTuple):
+    """One stage of an E1 launch: its records (T, S, 4), texel-major, the
+    output's shape (..., 3) and the mode."""
+
+    tab: torch.Tensor
+    shape: Tuple[int, ...]
+    mode: int
+
+
+def _records(dirs: torch.Tensor, weights: Optional[torch.Tensor]) -> torch.Tensor:
+    """The records (T, S, 4) {dx, dy, dz, w} of a table dirs (S, ..., 3)
+    with weights (S, ...) (w 0 without): the table transposed, texel-major,
+    so that a texel's lanes read consecutive 16-byte records."""
     S = dirs.shape[0]
-    texels = dirs[0].numel() // 3
-    out = torch.empty(dirs.shape[1:], dtype=_F32, device=env.device)
-    err = _kernels.lib().f3d_equirect_accum(
-        _kernels.ptr(env), int(env.shape[0]), int(env.shape[1]), _kernels.ptr(dirs),
-        None if weights is None else weights.data_ptr(), S, texels, mode, _kernels.ptr(out),
-        _kernels.stream_ptr(env.device))
-    _kernels.check(err, "E1 equirect_accum")
-    equirect_accum.launches += 1
-    return out
+    d = dirs.reshape(S, -1, 3)
+    w = torch.zeros_like(d[..., 0]) if weights is None else weights.reshape(S, -1)
+    return torch.cat([d, w[..., None]], -1).transpose(0, 1).contiguous()
 
 
-def equirect_accum(env: torch.Tensor, dirs: np.ndarray, weights: Optional[np.ndarray],
-                   mode: int) -> torch.Tensor:
-    """Texels of a bake from the equirect map `env` (H, W, 3): `dirs` is a
-    host table (S, ..., 3) of float32 directions, `weights` (S, ...) or
-    None. ONE: the one sample; WEIGHTED: sum of sample * w over max(sum of
-    w, 1e-6); MEAN: sum of samples over S; sums from zero in sample order.
-    A CPU `env` runs the plain version, a CUDA one launches kernel E1."""
-    d = torch.as_tensor(np.ascontiguousarray(dirs, np.float32), device=env.device)
-    w = None if weights is None else torch.as_tensor(
-        np.ascontiguousarray(weights, np.float32), device=env.device)
+def _rgbx(env: torch.Tensor) -> torch.Tensor:
+    """The RGBx copy (H, W, 4), x = 0, of an (H, W, 3) map."""
+    return torch.nn.functional.pad(env, (0, 1))
+
+
+def _launch(env: torch.Tensor, jobs) -> list:
+    """E1 over `jobs` from the RGBx copy of `env`: one launch (one more for
+    every BAKE_JOBS stages past the first BAKE_JOBS), the largest stage
+    first, a texel of a stage of more than one sample on GROUP_LANES lanes;
+    the outputs in the order of `jobs`. Each launch adds one to
+    `_launch.launches`."""
+    env4 = _rgbx(env)
+    outs, words = [], []
+    for job in jobs:
+        out = torch.empty(job.shape, dtype=_F32, device=env.device)
+        _kernels.require_cuda("E1 equirect_accum", env4, job.tab, out)
+        n, count = int(job.tab.shape[0]), int(job.tab.shape[1])
+        outs.append(out)
+        words.append((n * count, [job.tab.data_ptr(), out.data_ptr(), n, count, job.mode,
+                                  1 if count == 1 else GROUP_LANES]))
+    words.sort(key=lambda j: -j[0])     # the largest work first; sort is stable
+    for j0 in range(0, len(words), BAKE_JOBS):
+        part = words[j0:j0 + BAKE_JOBS]
+        arr = (ctypes.c_longlong * (6 * len(part)))(*(w for _, job in part for w in job))
+        err = _kernels.lib().f3d_ibl_bake(_kernels.ptr(env4), int(env.shape[0]),
+                                          int(env.shape[1]), arr, len(part),
+                                          _kernels.stream_ptr(env.device))
+        _kernels.check(err, "E1 equirect_accum")
+        _launch.launches += 1
+    return outs
+
+
+_launch.launches = 0
+
+
+def _accum_kernel(env, dirs, weights, mode):
+    """One stage alone in one E1 launch, from device tables dirs (S, ...,
+    3) and weights (S, ...) or None."""
+    return _launch(env, [_Job(_records(dirs, weights), tuple(dirs.shape[1:]), mode)])[0]
+
+
+def _tables(kind: str, *key) -> list:
+    """The host tables of a set of stages, float32 formed in float64:
+    [(dirs (S, ..., 3), weights (S, ...) or None, mode)]. "cube" (size),
+    "prefilter" (base_size, mips, samples), "irradiance" (size, samples)."""
+    if kind == "cube":
+        return [(np.stack([_face_dirs(f, key[0]) for f in range(6)])[None], None, ONE)]
+    if kind == "prefilter":
+        return [(d, w, ONE if w is None else WEIGHTED) for d, w in prefilter_tables(*key)]
+    return [(irradiance_tables(*key), None, MEAN)]
+
+
+_JOBS: dict = {}
+
+
+def _jobs(kind: str, key: tuple, device) -> List[_Job]:
+    """E1's jobs of a set of stages on `device`: the records packed from the
+    host tables once a (kind, sizes, samples, device) and kept, so that a
+    second bake copies no table."""
+    k = (kind, *key, str(device))
+    if k not in _JOBS:
+        _JOBS[k] = [_Job(_records(torch.as_tensor(d), None if w is None else torch.as_tensor(w))
+                         .to(device), tuple(d.shape[1:]), mode)
+                    for d, w, mode in _tables(kind, *key)]
+    return _JOBS[k]
+
+
+def _stages(env: torch.Tensor, sets) -> List[torch.Tensor]:
+    """The maps of the sets of stages [(kind, key)] in order: on CUDA one E1
+    launch of them all, on the CPU the plain version stage by stage."""
     if env.device.type == "cpu":
-        return _accum_plain(env, d, w, mode)
-    return _accum_kernel(env, d, w, mode)
-
-
-equirect_accum.launches = 0
+        return [_accum_plain(env, torch.as_tensor(d), None if w is None else torch.as_tensor(w),
+                             mode)
+                for kind, key in sets for d, w, mode in _tables(kind, *key)]
+    return _launch(env, [j for kind, key in sets for j in _jobs(kind, key, env.device)])
 
 
 def equirect_to_cubemap(env, size: int = 64, *, device=None) -> torch.Tensor:
     """(6, size, size, 3) cubemap from an equirect HDR map."""
-    e = _env_tensor(env, device_for(env, device))
-    dirs = np.stack([_face_dirs(f, size) for f in range(6)])[None]
-    return equirect_accum(e, dirs, None, ONE)
+    return _stages(_env_tensor(env, device_for(env, device)), [("cube", (size,))])[0]
 
 
 def _hammersley(n: int) -> np.ndarray:
@@ -200,9 +273,8 @@ def prefilter_environment(env, *, base_size: int = 32, mips: int = 5, samples: i
     """Roughness-prefiltered specular chain: mip m holds the GGX-convolved
     environment at roughness m / (mips - 1) as an equirect map of height
     max(base_size >> m, 4)."""
-    e = _env_tensor(env, device_for(env, device))
-    return [equirect_accum(e, d, w, ONE if w is None else WEIGHTED)
-            for d, w in prefilter_tables(base_size, mips, samples)]
+    return _stages(_env_tensor(env, device_for(env, device)),
+                   [("prefilter", (base_size, mips, samples))])
 
 
 def brdf_lut(size: int = 32, samples: int = 128, *, device=None) -> torch.Tensor:
@@ -260,8 +332,7 @@ def irradiance_tables(size: int, samples: int) -> np.ndarray:
 
 def irradiance_map(env, *, size: int = 16, samples: int = 256, device=None) -> torch.Tensor:
     """Cosine-convolved diffuse irradiance (equirect, size x 2 size)."""
-    e = _env_tensor(env, device_for(env, device))
-    return equirect_accum(e, irradiance_tables(size, samples), None, MEAN)
+    return _stages(_env_tensor(env, device_for(env, device)), [("irradiance", (size, samples))])[0]
 
 
 class IblMaps(NamedTuple):
@@ -282,9 +353,8 @@ def bake_ibl(env, *, quality: str = "medium", device=None) -> IblMaps:
     except KeyError:
         raise ValueError(f"unknown IBL quality {quality!r}") from None
     e = _env_tensor(env, device_for(env, device))
-    return IblMaps(
-        cubemap=equirect_to_cubemap(e, cube),
-        specular_mips=tuple(prefilter_environment(e, base_size=cube, mips=mips, samples=smp)),
-        brdf=brdf_lut(isz, bs, device=e.device),
-        irradiance=irradiance_map(e, size=isz, samples=smp * 2),
-    )
+    cubemap, *specular, irradiance = _stages(e, [("cube", (cube,)),
+                                                 ("prefilter", (cube, mips, smp)),
+                                                 ("irradiance", (isz, smp * 2))])
+    return IblMaps(cubemap=cubemap, specular_mips=tuple(specular),
+                   brdf=brdf_lut(isz, bs, device=e.device), irradiance=irradiance)

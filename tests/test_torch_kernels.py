@@ -245,10 +245,39 @@ int f3d_render_spheres(const CamArgs* c, const SphereArgs* s, const AovArgs* o, 
     for (int i = 0; i < c->width * c->height; ++i) sphere_pixel(*c, *s, *o, i);
     return 0;
 }
+// P2 as engines.cu launches it: the blocks' 16x16 tiles and their threads'
+// order (tile_pixel)
 int f3d_render_mesh(const CamArgs* c, const MeshArgs* m, const MaterialArgs* mat,
                     const AovArgs* o, void*) {
-    for (int i = 0; i < c->width * c->height; ++i) mesh_pixel(*c, *m, *mat, *o, i);
+    if (c->width <= 0 || c->height <= 0) return 0;
+    for (int b = 0; b < tile_blocks(c->width, c->height); ++b)
+        for (int t = 0; t < 256; ++t) {
+            const TilePixel p = tile_pixel(c->width, c->height, b, t);
+            if (p.inside) mesh_pixel(*c, *m, *mat, *o, p.y * c->width + p.x);
+        }
     return 0;
+}
+// test entry: P2's pixels in row order with the shadow walk skipped where
+// it cannot change the pixel (skip) or walked on every hit; the walks made
+int f3d_test_mesh_pixels(const CamArgs* c, const MeshArgs* m, const MaterialArgs* mat,
+                         const AovArgs* o, int skip) {
+    int walks = 0;
+    for (int i = 0; i < c->width * c->height; ++i)
+        walks += skip ? mesh_pixel_t<true>(*c, *m, *mat, *o, i)
+                      : mesh_pixel_t<false>(*c, *m, *mat, *o, i);
+    return walks;
+}
+// test entry: each pixel's count of threads under tile_pixel's layout of a
+// width x rows image, and the threads that fell outside it
+int f3d_test_tile_cover(int width, int rows, int* counts) {
+    int outside = 0;
+    for (int b = 0; b < tile_blocks(width, rows); ++b)
+        for (int t = 0; t < 256; ++t) {
+            const TilePixel p = tile_pixel(width, rows, b, t);
+            if (p.inside) ++counts[p.y * width + p.x];
+            else ++outside;
+        }
+    return outside;
 }
 const char* f3d_error_string(int) { return "host build"; }
 int f3d_rotate_heights(const RotArgs* r, float* h_rot, float* du, float* dv, void*) {
@@ -1228,11 +1257,69 @@ int f3d_rect_lights(const float* p, const float* n, const float* v, int count,
         rect_lights_point(p, n, v, reinterpret_cast<const RectLight*>(lights), n_lights, out, i);
     return 0;
 }
-int f3d_equirect_accum(const float* env, int env_h, int env_w, const float* dirs,
-                       const float* w, int samples, int texels, int mode, float* out, void*) {
-    for (int t = 0; t < texels; ++t)
-        equirect_accum_texel(env, env_h, env_w, dirs, w, samples, texels, mode, out, t);
+// E1 as ibl.cu launches it: a texel's samples on g lanes, lane j computing
+// samples j, j + g, ..., each round's g terms added in lane order (reverse:
+// in reverse lane order, which the kernel must not do)
+void bake_sums(const float* env4, int env_h, int env_w, const float* rec, int count, int mode,
+               int g, bool reverse, float* acc) {
+    for (int c = 0; c < 4; ++c) acc[c] = 0.0f;
+    for (int k0 = 0; k0 < count; k0 += g) {
+        float x[32][4] = {};
+        for (int lane = 0; lane < g && k0 + lane < count; ++lane)
+            ibl_term(env4, env_h, env_w, rec + 4 * (k0 + lane), mode, x[lane]);
+        for (int j = 0; j < g; ++j) {
+            const int q = reverse ? g - 1 - j : j;
+            if (k0 + q < count) ibl_add(acc, x[q], mode);
+        }
+    }
+}
+int f3d_ibl_bake(const float* env4, int env_h, int env_w, const long long* jobs, int n_jobs,
+                 void*) {
+    if (n_jobs < 0 || n_jobs > kIblBakeJobs) return 1;
+    for (int j = 0; j < n_jobs; ++j) {
+        const long long* w = jobs + 6 * j;
+        const float* tab = (const float*)w[0];
+        float* out = (float*)w[1];
+        const int n = (int)w[2], count = (int)w[3], mode = (int)w[4], g = (int)w[5];
+        if (g < 1 || g > 32 || (g & (g - 1)) != 0 || n < 0 || count < 1) return 1;
+        for (int t = 0; t < n; ++t) {
+            float acc[4];
+            bake_sums(env4, env_h, env_w, tab + 4 * (long long)t * count, count, mode, g, false,
+                      acc);
+            ibl_finish(acc, mode, count, t, out);
+        }
+    }
     return 0;
+}
+int f3d_ibl_bake_attrs(int* out) {
+    out[0] = out[1] = out[2] = 0;   // no device function on the host
+    return 0;
+}
+// test entry: the host's atan2f(a, b) and acosf(a) element by element, the
+// twin's transcendental calls, for the plain versions
+void f3d_test_libm(const float* a, const float* b, int n, float* at, float* ac) {
+    for (int i = 0; i < n; ++i) {
+        at[i] = atan2f(a[i], b[i]);
+        ac[i] = acosf(a[i]);
+    }
+}
+// test entry: the float32 sums of texels 0 .. n - 1 of a stage, out (3, n,
+// 4): the serial loop's (the parent design's, a texel's samples in order),
+// bake_sums' for g lanes and bake_sums' in reverse lane order
+void f3d_test_bake_sums(const float* env4, int env_h, int env_w, const float* tab, int count,
+                        int mode, int g, int n, float* out) {
+    for (int t = 0; t < n; ++t) {
+        const float* rec = tab + 4 * (long long)t * count;
+        float* scan = out + 4 * t;
+        for (int c = 0; c < 4; ++c) scan[c] = 0.0f;
+        for (int k = 0; k < count; ++k) {
+            float x[4];
+            ibl_term(env4, env_h, env_w, rec + 4 * k, mode, x);
+            ibl_add(scan, x, mode);
+        }
+        bake_sums(env4, env_h, env_w, rec, count, mode, g, false, out + 4 * (n + t));
+        bake_sums(env4, env_h, env_w, rec, count, mode, g, true, out + 4 * (2 * n + t));
+    }
 }
 // E8 one voxel or pixel at a time; the Jacobi sweeps brick by brick, each
 // brick's columns loaded, then each level published by every column before
@@ -1857,6 +1944,31 @@ def host_lib():
             src.unlink(missing_ok=True)
             tmp.unlink(missing_ok=True)
     return _kernels.bind(ctypes.CDLL(str(out)))
+
+
+@pytest.fixture
+def host_twin(host_lib, monkeypatch):
+    """The host build, with the kernel wrappers' launches going to it."""
+    monkeypatch.setattr(_kernels, "lib", lambda: host_lib)
+    monkeypatch.setattr(_kernels, "require_cuda", lambda name, *t: None)
+    monkeypatch.setattr(_kernels, "stream_ptr", lambda dev: ctypes.c_void_p(0))
+    return host_lib
+
+
+def host_transcendentals(host_lib, monkeypatch):
+    """torch.atan2 and torch.acos on float32 CPU tensors through the host
+    build's atan2f and acosf, so that a plain version makes the twin's
+    calls (the libm and PyTorch's may differ by an ulp)."""
+    def both(a, b):
+        a = a.contiguous()
+        b = b.expand_as(a).contiguous()
+        at, ac = torch.empty_like(a), torch.empty_like(a)
+        host_lib.f3d_test_libm(_kernels.ptr(a), _kernels.ptr(b), a.numel(), _kernels.ptr(at),
+                               _kernels.ptr(ac))
+        return at, ac
+
+    monkeypatch.setattr(torch, "atan2", lambda a, b: both(a, b)[0])
+    monkeypatch.setattr(torch, "acos", lambda a: both(a, a)[1])
 
 
 @pytest.fixture(params=["host", pytest.param("cuda", marks=pytest.mark.cuda)])
@@ -2879,6 +2991,68 @@ def test_engine_kernels(kernels):
     assert 0.05 < float(pp["vis"].mean()) < 0.95
     for k in pp:
         assert close_frac(pp[k], pk[k]) >= FRAC, k
+        if kernels.type == "cuda":     # on the card every plane bit for bit
+            assert same_bits(pp[k], pk[k]), k
+
+
+@pytest.mark.parametrize("shape", [(1920, 1080), (37, 23), (8, 4), (16, 16)])
+def test_mesh_tiles_cover_every_pixel_once(host_lib, shape):
+    """P2's layout (common.cuh:tile_pixel): 16x16 blocks of 8x4 warps cover
+    every pixel exactly once, and the threads past the image are the rest."""
+    w, h = shape
+    counts = np.zeros(w * h, np.int32)
+    outside = host_lib.f3d_test_tile_cover(w, h, counts.ctypes.data_as(ctypes.c_void_p))
+    assert (counts == 1).all()
+    assert outside == 256 * (-(-w // 16)) * (-(-h // 16)) - w * h
+
+
+def mesh_planes(host_lib, cam, mts, mat, sd, si, entry="skip"):
+    """P2's planes from the twin: `entry` "skip" or "walk" (row order, the
+    shadow walk skipped where it cannot change the pixel or walked on every
+    hit), or "kernel" (engines.cu's tile order); (planes, walks or None)."""
+    from forge3d_tpu_torch.pt import megakernel as mk
+
+    planes = mk._empty_planes(cam, "cpu")
+    args = (cam.kernel_args(), mts.kernel_args(), mat.kernel_args(sd, si), mk.aov_args(planes))
+    if entry == "kernel":
+        assert host_lib.f3d_render_mesh(*args, ctypes.c_void_p(0)) == 0
+        return planes, None
+    return planes, host_lib.f3d_test_mesh_pixels(*map(ctypes.byref, args), int(entry == "skip"))
+
+
+@pytest.mark.parametrize("sun", ["3", "0", "-0", "inf", "nan", "below"])
+def test_mesh_shadow_skip_keeps_the_bits(host_twin, sun):
+    """P2's shadow walk skipped exactly where sun_intensity * n.l is zero:
+    every plane equal bit for bit to the walk on every hit (NaN where NaN),
+    in the kernel's tile order too; no walk at intensity +-0 or with the sun
+    below every face, every hit walked at inf and NaN."""
+    from forge3d_tpu_torch.pt import megakernel as mk
+    from forge3d_tpu_torch.pt import mesh_render as mr
+
+    host_lib = host_twin
+    mts = mr.MeshTracerScene(*QUAD_TOWN, "cpu")
+    cam = mk.EngineCamera.make(64, 48, {"origin": (24, 30, 70), "look_at": (24, 8, 24)},
+                               (0.0, 1.5, 4.0), (0.0, 0.5, 0.0))
+    mat = mr._material_from_dict({"metallic": 0.3, "emissive": (0.1, 0, 0)})
+    # a sun that lights the tilted quad and not the upright one (z = 20), or
+    # one below both
+    sd = (0.0, 0.98, -0.196) if sun != "below" else (0.0, -0.6, -0.8)
+    sd = tuple(float(c) for c in np.float32(sd) / np.linalg.norm(np.float32(sd)))
+    si = 3.0 if sun in ("3", "below") else float(sun)
+    walked, n_walk = mesh_planes(host_lib, cam, mts, mat, sd, si, "walk")
+    skipped, n_skip = mesh_planes(host_lib, cam, mts, mat, sd, si, "skip")
+    tiled, _ = mesh_planes(host_lib, cam, mts, mat, sd, si, "kernel")
+    for k in walked:
+        assert same_bits(walked[k], skipped[k]), k
+        assert same_bits(walked[k], tiled[k]), k
+    hits = int(walked["vis"].sum())
+    assert n_walk == hits and 0 < hits < 64 * 48
+    if sun in ("0", "-0", "below"):
+        assert n_skip == 0
+    elif sun in ("inf", "nan"):
+        assert n_skip == hits
+    else:
+        assert 0 < n_skip < hits
 
 
 # ---------------------------------------------------------------------------
@@ -3145,7 +3319,7 @@ def test_ibl_kernel(kernels):
 
     env = torch.as_tensor(np.random.default_rng(4).uniform(0, 3, (16, 32, 3)).astype(np.float32),
                           device=kernels)
-    before = ibl.equirect_accum.launches
+    before = ibl._launch.launches
     faces = np.stack([ibl._face_dirs(f, 8) for f in range(6)])[None]
     (d0, _), (d1, w1) = ibl.prefilter_tables(8, 2, 16)
     for dirs, w, mode in ((faces, None, ibl.ONE), (d0, None, ibl.ONE), (d1, w1, ibl.WEIGHTED),
@@ -3155,7 +3329,151 @@ def test_ibl_kernel(kernels):
         got = ibl._accum_kernel(env, d, wt, mode)
         assert got.shape == dirs.shape[1:]
         assert close_frac(ibl._accum_plain(env, d, wt, mode), got) == 1.0
-    assert ibl.equirect_accum.launches == before + 4
+    assert ibl._launch.launches == before + 4
+
+
+# E1's one launch a bake (csrc/ibl.cu:bake_kernel): the host twin's lane
+# groups against the serial loop and the plain version, on
+# tests/test_torch_ibl.py's seeded 64x32 equirect. Gates: every element
+# bit for bit, NaN where NaN.
+IBL_ENV = np.random.default_rng(23).uniform(0.0, 4.0, (32, 64, 3)).astype(np.float32)
+IBL_TIERS = {"low": (16, 3, 16, 16), "high": (64, 5, 64, 32)}   # cube, mips, samples, irradiance
+
+
+def ibl_sets(tier):
+    cube, mips, smp, isz = IBL_TIERS[tier]
+    return [("cube", (cube,)), ("prefilter", (cube, mips, smp)), ("irradiance", (isz, smp * 2))]
+
+
+def ibl_stages(tier):
+    from forge3d_tpu_torch.ops import ibl
+
+    return [t for kind, key in ibl_sets(tier) for t in ibl._tables(kind, *key)]
+
+
+def test_bake_is_one_launch(kernels, request, monkeypatch):
+    """bake_ibl's seven stages in one E1 launch, each map equal to its
+    stage's one-job launch and to the plain version (on the host given the
+    twin's atan2f and acosf)."""
+    from forge3d_tpu_torch.ops import ibl
+
+    if kernels.type == "cpu":
+        host_transcendentals(request.getfixturevalue("host_lib"), monkeypatch)
+    env = torch.as_tensor(IBL_ENV, device=kernels)
+    before = ibl._launch.launches
+    if kernels.type == "cuda":
+        m = ibl.bake_ibl(env, quality="high")
+        baked = [m.cubemap, *m.specular_mips, m.irradiance]
+    else:
+        baked = ibl._launch(env, [j for kind, key in ibl_sets("high")
+                                  for j in ibl._jobs(kind, key, kernels)])
+    assert ibl._launch.launches == before + 1
+    stages = ibl_stages("high")
+    assert len(baked) == len(stages) == 7
+    for (d, w, mode), got in zip(stages, baked):
+        d = torch.as_tensor(d, device=kernels)
+        w = None if w is None else torch.as_tensor(w, device=kernels)
+        assert got.shape == d.shape[1:]
+        assert torch.equal(ibl._accum_kernel(env, d, w, mode), got), mode
+        assert same_bits(ibl._accum_plain(env, d, w, mode), got), mode
+    assert ibl._launch.launches == before + 8
+
+
+@pytest.mark.parametrize("mips", [7, 10, 17])
+def test_bake_splits_past_the_job_table(kernels, request, monkeypatch, mips):
+    """A prefilter chain of 7, 10 or 17 mips runs in launches of BAKE_JOBS
+    stages (one, two, three), each map the plain version's bit for bit (on
+    the host given the twin's atan2f and acosf)."""
+    from forge3d_tpu_torch.ops import ibl
+
+    if kernels.type == "cpu":
+        host_transcendentals(request.getfixturevalue("host_lib"), monkeypatch)
+    env = torch.as_tensor(np.ascontiguousarray(IBL_ENV[:16, :32]), device=kernels)
+    before = ibl._launch.launches
+    if kernels.type == "cuda":
+        got = ibl.prefilter_environment(env, base_size=8, mips=mips, samples=8)
+    else:
+        got = ibl._launch(env, ibl._jobs("prefilter", (8, mips, 8), kernels))
+    assert ibl._launch.launches == before + -(-mips // ibl.BAKE_JOBS)
+    tables = ibl.prefilter_tables(8, mips, 8)
+    assert len(got) == len(tables) == mips
+    for (d, w), m in zip(tables, got):
+        d = torch.as_tensor(d, device=kernels)
+        w = None if w is None else torch.as_tensor(w, device=kernels)
+        assert same_bits(ibl._accum_plain(env, d, w, ibl.ONE if w is None else ibl.WEIGHTED), m)
+
+
+def test_bake_job_table_size(host_lib):
+    """The launcher takes BAKE_JOBS stages a launch and refuses one more
+    (csrc/ibl.cuh kIblBakeJobs, which the host twin's launcher shares)."""
+    from forge3d_tpu_torch.ops import ibl
+
+    env4 = torch.zeros((4, 8, 4))
+    tab = torch.zeros((1, 1, 4))
+    out = torch.zeros((ibl.BAKE_JOBS + 1, 3))
+    words = [w for j in range(ibl.BAKE_JOBS + 1)
+             for w in (tab.data_ptr(), out[j].data_ptr(), 1, 1, ibl.ONE, 1)]
+    for n, ok in ((ibl.BAKE_JOBS, True), (ibl.BAKE_JOBS + 1, False)):
+        arr = (ctypes.c_longlong * (6 * n))(*words[:6 * n])
+        assert (host_lib.f3d_ibl_bake(_kernels.ptr(env4), 4, 8, arr, n, None) == 0) == ok
+
+
+@pytest.mark.parametrize("tier", ["low", "high"])
+def test_bake_lane_groups_keep_the_sample_order(host_twin, monkeypatch, tier):
+    """Every stage of a bake on G lanes a texel, G = 1 ... 32: the twin's
+    group sums are the serial loop's bit for bit, and the stage's outputs the
+    plain version's given the twin's atan2f and acosf; adding a round's terms
+    in reverse lane order is not."""
+    from forge3d_tpu_torch.ops import ibl
+
+    host_lib = host_twin
+    host_transcendentals(host_lib, monkeypatch)
+    env = torch.as_tensor(IBL_ENV)
+    env4 = ibl._rgbx(env)
+    reordered = set()
+    for d, w, mode in ibl_stages(tier):
+        d = torch.as_tensor(d)
+        w = None if w is None else torch.as_tensor(w)
+        tab = ibl._records(d, w)
+        n, count = int(tab.shape[0]), int(tab.shape[1])
+        ref = ibl._accum_plain(env, d, w, mode)
+        for g in (1, 2, 4, 8, 16, 32):
+            out = torch.zeros((3, n, 4), dtype=torch.float32)
+            host_lib.f3d_test_bake_sums(_kernels.ptr(env4), 32, 64, _kernels.ptr(tab), count,
+                                        mode, g, n, _kernels.ptr(out))
+            assert same_bits(out[0], out[1]), (mode, count, g)
+            if not same_bits(out[0], out[2]):
+                reordered.add(g)
+        job = ibl._Job(tab, tuple(d.shape[1:]), mode)
+        assert same_bits(ref, ibl._launch(env, [job])[0]), (mode, count)
+    assert reordered == {2, 4, 8, 16, 32}    # for every G > 1 some stage's bits move
+
+
+def test_bake_tables_are_packed_once(monkeypatch):
+    """The packed records are the host tables transposed, texel-major, the
+    weight in the fourth word (0 without one); a second bake packs nothing."""
+    from forge3d_tpu_torch.ops import ibl
+
+    (d0, w0), (d1, w1) = ibl.prefilter_tables(8, 2, 16)
+    irr = ibl.irradiance_tables(4, 32)
+    for d, w in ((d0, w0), (d1, w1), (irr, None)):
+        tab = ibl._records(torch.as_tensor(d), None if w is None else torch.as_tensor(w))
+        S = d.shape[0]
+        assert tab.shape == (d[0].size // 3, S, 4) and tab.is_contiguous()
+        assert np.array_equal(tab[..., :3].numpy(), d.reshape(S, -1, 3).transpose(1, 0, 2))
+        ref_w = np.zeros((S, d[0].size // 3), np.float32) if w is None else w.reshape(S, -1)
+        assert np.array_equal(tab[..., 3].numpy(), ref_w.T)
+    monkeypatch.setattr(ibl, "_JOBS", {})
+    calls = []
+    tables = ibl._tables
+    monkeypatch.setattr(ibl, "_tables", lambda *a: calls.append(a) or tables(*a))
+    first = [ibl._jobs(kind, key, "cpu") for kind, key in ibl_sets("low")]
+    assert len(calls) == 3
+    again = [ibl._jobs(kind, key, "cpu") for kind, key in ibl_sets("low")]
+    assert len(calls) == 3
+    assert all(a.tab is b.tab for x, y in zip(first, again) for a, b in zip(x, y))
+    assert [j.mode for x in first for j in x] == [ibl.ONE, ibl.ONE, ibl.WEIGHTED, ibl.WEIGHTED,
+                                                  ibl.MEAN]
 
 
 def vt_args(device, scene_args, budget_pages):
